@@ -1,0 +1,399 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA GPU (built for H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Run from the repository root. It builds every CUDA kernel of the port's
+main path from ``multigpu_advectiondiffusion_tpu_torch/csrc`` (into the
+ignored ``build/`` directory), then:
+
+0. prints the card's name and power limit and its measured
+   device-to-device copy rate;
+1. holds the fused RK-stage kernel (K1) against its plain PyTorch twin
+   for every stage kind, at the main path's shape and at an odd small
+   one: ``max|kernel - twin| / max|twin| <= 32 eps_f32``; times the
+   kernel alone at the main path's shape for each z-chunk length of
+   ``ZCHUNKS``, cycling through buffers larger than L2;
+2. drives the main path — the reference grid 400x200x206, float32,
+   ``impl="pallas"``, 101 steps through ``DiffusionSolver.run`` — and
+   checks the engaged stepper, the kernel's launch count (3 a step),
+   agreement with the generic path (``rtol=1e-5, atol=1e-6 max|u|``)
+   and finite error norms against the exact solution; times it with
+   CUDA events (median of 3 after a warm-up) and profiles one run for
+   K1's time per launch in the run and the device's idle share;
+3. drives ``advance_to`` to ``t0 + 4.5 dt``: 5 steps, landing on
+   ``t_end``, agreeing with the generic path;
+4. times ``conv3d`` computing the 13-point Laplacian alone, a yardstick
+   that computes less than K1 and that the port never calls.
+
+It prints a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. Any failed check raises; without a
+GPU it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from multigpu_advectiondiffusion_tpu_torch import (
+    DiffusionConfig,
+    DiffusionSolver,
+    Grid,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_diffusion as fd,
+)
+
+EPS32 = float(np.finfo(np.float32).eps)
+KERNEL_TOL = 32 * EPS32  # relative to max|twin|, the JAX suite's fused bound
+# NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, f32 outside tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+REF_N = (400, 200, 206)  # physical nx, ny, nz (Run.m)
+REF_LENGTHS = (10.0, 5.0, 5.15)
+ITERS = 101  # Run.m's iteration count
+ODD_SHAPE = (23, 29, 37)  # interior (nz, ny, nx) of an odd small grid
+ZCHUNKS = (4, 8, 16, 32)  # z planes a K1 thread marches, timed alone
+ROTATE = 3  # buffer sets K1 alone cycles through: 3 x 207 MB >> L2
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip()
+
+
+def cuda_ms(fn, reps: int, batch: int = 1) -> list[float]:
+    """Per-call times of ``fn`` (ms) from CUDA events: ``reps`` samples,
+    each one event pair around ``batch`` back-to-back calls."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / batch)
+    return times
+
+
+def device_profile(fn) -> tuple[float, float, dict]:
+    """Run ``fn`` under ``torch.profiler``: the device span from the first
+    kernel's start to the last one's end (ms), the device busy time in it
+    (ms), and the mean device time (ms) of each kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler saw no device activity")
+    start = min(e.time_range.start for e in events)
+    end = max(e.time_range.end for e in events)
+    per_name: dict = {}
+    for e in events:
+        per_name.setdefault(e.name, []).append(
+            (e.time_range.end - e.time_range.start) / 1e3)
+    busy = sum(sum(v) for v in per_name.values())
+    means = {k: statistics.mean(v) for k, v in per_name.items()}
+    return (end - start) / 1e3, busy, means
+
+
+def copy_rate_gbs() -> float:
+    """Device-to-device copy rate of a 1 GiB clone (read + write bytes)."""
+    x = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+    x.fill_(1.0)
+    x.clone()
+    ms = statistics.median(cuda_ms(lambda: x.clone(), 5))
+    return 2 * x.numel() * 4 / (ms * 1e-3) / 1e9
+
+
+# --------------------------------------------------------------------- #
+# K1 against its twin
+# --------------------------------------------------------------------- #
+def stage_bytes(shape, has_u: bool) -> int:
+    """Bytes one stage must move: v's interior read once, u's interior
+    read once (stages 2-3), the interior written once — 8 or 12 B/cell.
+    With band 2 no computed cell reaches the ghost ring, so it needs no
+    read."""
+    return 4 * math.prod(shape) * (3 if has_u else 2)
+
+
+def stage_ops(shape, has_u: bool) -> int:
+    """f32 operations a stage does: 15 products and 14 sums of taps,
+    dt*acc, v+., b*., and a*u plus its sum when there is a u."""
+    return math.prod(shape) * (32 + (2 if has_u else 0))
+
+
+def stage_inputs(shape, seed: int):
+    """Padded v, u and a wall-valued out buffer on the card, from numpy."""
+    rng = np.random.default_rng(seed)
+    padded = tuple(n + 2 * fd.R for n in shape)
+    v = torch.from_numpy(rng.random(padded, dtype=np.float32)).cuda()
+    u = torch.from_numpy(rng.random(padded, dtype=np.float32)).cuda()
+    out = torch.zeros(padded, dtype=torch.float32, device="cuda")
+    return v, u, out
+
+
+def isolated_ms(buffers, zchunk: int, **kw) -> float:
+    """Per-launch time of K1 alone: median of 5 samples of 21 back-to-back
+    launches, each on the next of ``buffers`` (v, u, out) sets in turn.
+    The sets together are far larger than the 50 MB L2, so a launch
+    finds little of its inputs there (in the main path, only stage 1
+    finds part of its input, just written by stage 3)."""
+    turn = itertools.cycle(buffers)
+
+    def launch():
+        v, u, out = next(turn)
+        fd.fused_stage(v, u, out, zchunk=zchunk, **kw)
+
+    launch()  # warm-up
+    return statistics.median(cuda_ms(launch, 5, 21))
+
+
+def check_k1(shape, taps, dt, seed: int, timed: bool) -> dict:
+    """Every stage kind once against the twin; when ``timed``, also the
+    kernel alone (:func:`isolated_ms`) at each z-chunk of ``ZCHUNKS``,
+    the twin (median of 3) and the bound."""
+    res = {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound_ms": [],
+           "sweep": {z: [] for z in ZCHUNKS}}
+    for kind, (a, b) in enumerate(fd.STAGES):
+        has_u = kind > 0
+        v, u, out = stage_inputs(shape, seed + kind)
+        kw = dict(taps=taps, a=a, b=b, band=2, bc_value=0.0)
+        ref = out.clone()
+        fd.stage_reference(v, u if has_u else None, ref, dt, **kw)
+        fd.fused_stage(v, u if has_u else None, out, dt, **kw)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        rel = err / scale
+        print(f"  K1 stage {kind + 1} at {shape}: max|kernel-twin| = {err:.3e}"
+              f" ({rel / EPS32:.2f} eps of max|twin|)")
+        if not rel <= KERNEL_TOL:
+            raise AssertionError(
+                f"K1 stage {kind + 1} at {shape} differs from its twin: "
+                f"{rel / EPS32:.2f} eps > 32 eps"
+            )
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if timed:
+            u_arg = u if has_u else None
+            buffers = [(v.clone(), None if u_arg is None else u.clone(),
+                        out.clone()) for _ in range(ROTATE)]
+            for z in ZCHUNKS:
+                res["sweep"][z].append(isolated_ms(buffers, z, dt=dt, **kw))
+            del buffers
+            res["ms"].append(res["sweep"][fd.Z_CHUNK][-1])
+            res["plain_ms"].append(statistics.median(cuda_ms(
+                lambda: fd.stage_reference(v, u_arg, ref, dt, **kw), 3)))
+            res["bound_ms"].append(1e3 * max(
+                stage_bytes(shape, has_u) / HBM_BYTES_PER_S,
+                stage_ops(shape, has_u) / F32_OPS_PER_S,
+            ))
+            gbs = stage_bytes(shape, has_u) / (res["ms"][-1] * 1e-3) / 1e9
+            sweep = ", ".join(f"{z}: {res['sweep'][z][-1]:.4f}"
+                              for z in ZCHUNKS)
+            print(f"    kernel alone {res['ms'][-1]:.4f} ms ({gbs:.0f} GB/s)"
+                  f" at zchunk {fd.Z_CHUNK}; by zchunk {{{sweep}}} ms; twin "
+                  f"{res['plain_ms'][-1]:.4f} ms; bound "
+                  f"{res['bound_ms'][-1]:.4f} ms (bytes)")
+    return res
+
+
+def laplacian_conv3d_ms(spacing, shape) -> float:
+    """Yardstick: conv3d evaluating the 13-point Laplacian alone (no RK
+    combine, no masks) on a padded float32 state, TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    w = torch.zeros((1, 1, 5, 5, 5), dtype=torch.float32)
+    for axis in range(3):
+        scale = 1.0 / (12.0 * spacing[axis] ** 2)
+        for j, c in enumerate(fd.O4_COEFFS):
+            idx = [2, 2, 2]
+            idx[axis] = j
+            w[(0, 0, *idx)] += c * scale
+    w = w.cuda()
+    x = torch.rand((1, 1) + tuple(n + 4 for n in shape), device="cuda")
+    conv = torch.nn.functional.conv3d
+    conv(x, w)
+    return statistics.median(cuda_ms(lambda: conv(x, w), 10))
+
+
+# --------------------------------------------------------------------- #
+# Main path
+# --------------------------------------------------------------------- #
+def assert_matches(name, got, want) -> None:
+    """``|got - want| <= 1e-5 |want| + 1e-6 max|want|`` everywhere."""
+    scale = float(want.abs().max())
+    bad = (got - want).abs() > 1e-5 * want.abs() + 1e-6 * scale
+    worst = float((got - want).abs().max())
+    print(f"  {name}: max|fused - generic| = {worst:.3e} "
+          f"(max|u| = {scale:.4f})")
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: fused and generic paths disagree")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {card}")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, capability "
+          f"{torch.cuda.get_device_capability(0)}")
+    copy_gbs = copy_rate_gbs()
+    print(f"phase 0: device-to-device copy {copy_gbs:.1f} GB/s [{card}]")
+    t0 = time.perf_counter()
+    built = build.build(fd.SOURCE)
+    fd.library()
+    print(f"phase 0: built {built.path.name} in {built.seconds:.2f} s "
+          f"(load total {time.perf_counter() - t0:.2f} s)")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    cfg = DiffusionConfig(grid=grid, dtype="float32", impl="pallas")
+    solver = DiffusionSolver(cfg)
+    taps = fd.stage_taps(grid.spacing, [cfg.diffusivity] * 3)
+
+    print("phase 1: K1 against its twin")
+    k1 = check_k1(grid.shape, taps, solver.dt, seed=1, timed=True)
+    small = check_k1(ODD_SHAPE, taps, solver.dt, seed=11, timed=False)
+    k1_err = max(k1["max_abs_err"], small["max_abs_err"])
+
+    print("phase 2: main path, run()")
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "fused-stage":
+        raise AssertionError(f"main path did not engage K1: {path}")
+    state0 = solver.initial_state()
+    fd.fused_stage.launches = 0
+    out = solver.run(state0, ITERS)
+    torch.cuda.synchronize()
+    launches = fd.fused_stage.launches
+    print(f"  K1 launches in run({ITERS}): {launches}")
+    if launches != 3 * ITERS:
+        raise AssertionError(f"expected {3 * ITERS} K1 launches, {launches}")
+    generic = DiffusionSolver(dataclasses.replace(cfg, impl="xla"))
+    if generic.engaged_path()["stepper"] != "generic-xla":
+        raise AssertionError("impl='xla' did not run the generic path")
+    gout = generic.run(state0, ITERS)
+    if out.t != gout.t or out.it != gout.it:
+        raise AssertionError(f"t/it differ: {out.t}/{out.it} vs "
+                             f"{gout.t}/{gout.it}")
+    assert_matches(f"run({ITERS})", out.u, gout.u)
+    norms = solver.error_norms(out)
+    print(f"  error vs exact at t={float(out.t):.6f}: L1 {norms.l1:.4e} "
+          f"L2 {norms.l2:.4e} Linf {norms.linf:.4e}")
+    if not all(math.isfinite(x) for x in norms) or not norms.linf < 1e-3:
+        raise AssertionError(f"error norms out of range: {norms}")
+    reps = cuda_ms(lambda: solver.run(state0, ITERS), 4)[1:]  # 1 warm-up
+    run_ms = statistics.median(reps)
+    step_ms = run_ms / ITERS
+    mlups = grid.num_cells * ITERS * 3 / (run_ms * 1e-3) / 1e6
+    t0 = time.perf_counter()
+    solver.run(state0, ITERS)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    print(f"  run({ITERS}): median {run_ms:.3f} ms of {len(reps)} reps "
+          f"{[round(r, 3) for r in reps]}; {step_ms:.4f} ms/step; "
+          f"{mlups:.0f} MLUPS; host enqueue {host_ms:.3f} ms [{card}]")
+    span_ms, busy_ms, per_kernel = device_profile(
+        lambda: solver.run(state0, ITERS))
+    # the kernel's two instantiations: stage 1 (no u), stages 2-3 (u)
+    s1 = [ms for k, ms in per_kernel.items() if "stage_kernel<false>" in k]
+    s23 = [ms for k, ms in per_kernel.items() if "stage_kernel<true>" in k]
+    if len(s1) != 1 or len(s23) != 1:
+        raise AssertionError(f"profiled run missed K1: {list(per_kernel)}")
+    in_run_ms = (s1[0] + 2 * s23[0]) / 3
+    in_run_gbs = (stage_bytes(grid.shape, False)
+                  + 2 * stage_bytes(grid.shape, True)) / 3 / (
+                      in_run_ms * 1e-3) / 1e9
+    idle = 1.0 - busy_ms / span_ms
+    print(f"  profiled run({ITERS}): device span {span_ms:.3f} ms, busy "
+          f"{busy_ms:.3f} ms, idle share {idle:.4f}; K1 per launch in the "
+          f"run: stage 1 {s1[0]:.4f} ms, stages 2-3 {s23[0]:.4f} ms, "
+          f"mean {in_run_ms:.4f} ms ({in_run_gbs:.0f} GB/s) [{card}]")
+
+    print("phase 3: main path, advance_to()")
+    t_end = float(state0.t) + 4.5 * solver.dt
+    fd.fused_stage.launches = 0
+    adv = solver.advance_to(state0, t_end)
+    torch.cuda.synchronize()
+    adv_launches = fd.fused_stage.launches
+    gadv = generic.advance_to(state0, t_end)
+    print(f"  steps {adv.it} (generic {gadv.it}), K1 launches {adv_launches},"
+          f" t {float(adv.t)!r} vs t_end {t_end!r}")
+    if adv.it != 5 or gadv.it != 5 or adv_launches != 15:
+        raise AssertionError("advance_to did not take 5 fused steps")
+    if abs(float(adv.t) - t_end) > 1e-6 * t_end:
+        raise AssertionError("advance_to did not land on t_end")
+    assert_matches("advance_to", adv.u, gadv.u)
+
+    print("phase 4: yardstick (not called by the port)")
+    lib_ms = laplacian_conv3d_ms(grid.spacing, grid.shape)
+    print(f"  conv3d 13-point Laplacian alone, TF32 off: {lib_ms:.4f} ms "
+          f"[{card}] (computes less than one K1 stage)")
+
+    kernels = [{
+        "name": "fused_diffusion_stage",
+        "id": "K1",
+        "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_diffusion_stage.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_diffusion.py:85",
+        "launches": launches,
+        "max_abs_err": k1_err,
+        # per launch, mean over the three stage kinds a step launches;
+        # "ms" is what a launch takes in the main path's run
+        "ms": in_run_ms,
+        "plain_ms": statistics.mean(k1["plain_ms"]),
+        "bound_ms": statistics.mean(k1["bound_ms"]),
+        "bound_by": "bytes",
+        "library_ms": lib_ms,
+        "library_call": "torch.nn.functional.conv3d, 13-point Laplacian "
+                        "only (computes less than K1)",
+        "ms_per_step": step_ms,
+        "mlups": mlups,
+        "ms_isolated": statistics.mean(k1["ms"]),
+        "ms_isolated_by_zchunk": {
+            str(z): statistics.mean(k1["sweep"][z]) for z in ZCHUNKS},
+        "zchunk": fd.Z_CHUNK,
+        "device_idle_share": idle,
+        "achieved_gbs": in_run_gbs,
+        "copy_gbs": copy_gbs,
+    }]
+    print(f"card: {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,127 @@
+"""Command-line interface of the port: the ``diffusion3d`` verb.
+
+    python -m multigpu_advectiondiffusion_tpu_torch.cli diffusion3d \
+        --n 400 200 206 --lengths 10 5 5.15 --iters 101 --impl pallas \
+        --save out/ --check-error
+
+The flags are the JAX CLI's flags of the same names. The run goes to
+the GPU unless ``--device cpu`` is given. The summary names the kernel
+path that ran, as the JAX CLI's summary does. ``--save DIR`` writes
+``initial.bin`` and ``result.bin`` in the reference's float32 layout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
+    DiffusionConfig,
+    DiffusionSolver,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS
+from multigpu_advectiondiffusion_tpu_torch.timestepping.integrators import (
+    STAGES,
+)
+from multigpu_advectiondiffusion_tpu_torch.utils import io, metrics
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m multigpu_advectiondiffusion_tpu_torch.cli"
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("diffusion3d", help="3-D heat equation")
+    p.add_argument("--n", type=int, nargs=3, required=True,
+                   metavar=("NX", "NY", "NZ"),
+                   help="grid nodes per physical axis (x y z)")
+    p.add_argument("--lengths", type=float, nargs=3, default=None,
+                   help="physical extents (L W H); domain centered at 0")
+    p.add_argument("--K", type=float, default=1.0,
+                   help="diffusivity (main.c arg 1)")
+    p.add_argument("--iters", type=int, default=None,
+                   help="fixed iteration count (reference main.c mode)")
+    p.add_argument("--t-end", type=float, default=None,
+                   help="march to this simulated time instead of --iters")
+    p.add_argument("--impl", default="xla", choices=IMPLS,
+                   help="kernel rung: xla (generic) or pallas/pallas_stage "
+                        "(fused CUDA stage kernel)")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
+    p.add_argument("--save", default=None, metavar="DIR",
+                   help="write initial.bin and result.bin here")
+    p.add_argument("--check-error", action="store_true",
+                   help="report L1/L2/Linf against the exact solution")
+    p.add_argument("--device", default=None,
+                   help="torch device; default the GPU (cuda)")
+    return parser
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_diffusion3d(args) -> int:
+    lengths = args.lengths if args.lengths is not None else [2.0] * 3
+    grid = Grid.make(*args.n, lengths=lengths)
+    cfg = DiffusionConfig(grid=grid, diffusivity=args.K, dtype=args.dtype,
+                          impl=args.impl)
+    solver = DiffusionSolver(cfg, device=args.device)
+    state = solver.initial_state()
+    if args.save:
+        os.makedirs(args.save, exist_ok=True)
+        io.save_binary(state.u, os.path.join(args.save, "initial.bin"))
+    mode = "iters" if args.t_end is None else "t_end"
+    engaged = solver.engaged_path(mode)
+
+    _sync(solver.device)
+    t0 = time.perf_counter()
+    if args.t_end is None:
+        out = solver.run(state, args.iters if args.iters is not None else 100)
+    else:
+        out = solver.advance_to(state, args.t_end)
+    _sync(solver.device)
+    seconds = time.perf_counter() - t0
+    iters = out.it - state.it
+
+    stages = STAGES[cfg.integrator]
+    device = solver.device
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    line = f"{engaged['stepper']} (impl={engaged['impl']})"
+    print("=" * 60)
+    print(" diffusion3d (PyTorch port)")
+    print("=" * 60)
+    print(f" grid               : {'x'.join(map(str, grid.shape_xyz))} "
+          f"({grid.num_cells:,} cells)")
+    print(f" device             : {device} [{where}]")
+    print(f" dtype              : {args.dtype}")
+    print(f" kernel path        : {line}")
+    if engaged["fallback"]:
+        print(f" fused fallback     : {engaged['fallback']}")
+    print(f" iterations         : {iters} x {stages} RK stages")
+    print(f" simulated time     : {float(out.t):.6f}")
+    print(f" wall time          : {seconds:.4f} s")
+    if iters:
+        print(f" MLUPS ({device.type:4s})      : "
+              f"{metrics.mlups(grid.num_cells, iters, stages, seconds):.1f}")
+    if args.check_error:
+        l1, l2, linf = solver.error_norms(out)
+        print(f" error L1/L2/Linf   : {l1:.4e} / {l2:.4e} / {linf:.4e}")
+    if args.save:
+        io.save_binary(out.u, os.path.join(args.save, "result.bin"))
+    return 0
+
+
+def main(argv=None) -> int:
+    return run_diffusion3d(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

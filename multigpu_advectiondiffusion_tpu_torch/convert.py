@@ -1,0 +1,81 @@
+"""Carry configs and states between the JAX package and this port.
+
+A solver has no weights; what one package hands the other is a config
+and a state. Both cross as plain data — field dicts and numpy arrays —
+so this module needs neither package's framework from the other side:
+
+* :func:`config_from_fields` builds a :class:`DiffusionConfig` from the
+  fields of a JAX config (``dataclasses.asdict(cfg)`` or ``vars(cfg)``);
+* :func:`state_from_numpy` / :func:`state_to_numpy` move a state
+  ``(u, t, it)`` in and out as numpy, keeping ``t``'s precision.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary
+from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.models.base import resolve_device
+from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
+    DiffusionConfig,
+)
+from multigpu_advectiondiffusion_tpu_torch.models.state import (
+    SolverState,
+    time_dtype,
+)
+
+
+def _grid(g) -> Grid:
+    """A grid from a field dict (``{"shape", "bounds"}``) or any object
+    with ``shape``/``bounds`` attributes."""
+    shape = g["shape"] if isinstance(g, dict) else g.shape
+    bounds = g["bounds"] if isinstance(g, dict) else g.bounds
+    return Grid(shape=tuple(int(n) for n in shape),
+                bounds=tuple((float(lo), float(hi)) for lo, hi in bounds))
+
+
+def _bc(spec):
+    if isinstance(spec, str):
+        return spec
+    if isinstance(spec, (list, tuple)):
+        return tuple(_bc(s) for s in spec)
+    if isinstance(spec, dict):
+        return Boundary(**spec)
+    return Boundary(kind=spec.kind, value=float(spec.value))
+
+
+def config_from_fields(fields: dict) -> DiffusionConfig:
+    """A port config from a JAX ``DiffusionConfig``'s fields. Unknown
+    fields raise, so a field added on one side cannot be dropped
+    silently."""
+    fields = dict(fields)
+    known = {f.name for f in dataclasses.fields(DiffusionConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"fields the port's DiffusionConfig lacks: {unknown}")
+    fields["grid"] = _grid(fields["grid"])
+    if "bc" in fields:
+        fields["bc"] = _bc(fields["bc"])
+    if "ic_params" in fields:
+        fields["ic_params"] = tuple(fields["ic_params"])
+    return DiffusionConfig(**fields)
+
+
+def state_from_numpy(u, t, it=0, device=None) -> SolverState:
+    """A port state from numpy ``u`` (``(nz, ny, nx)``, float32/float64),
+    time ``t`` and step count ``it``; ``device=None`` means the GPU."""
+    arr = np.array(u, order="C")  # a writable copy the tensor may own
+    if arr.dtype not in (np.float32, np.float64):
+        raise TypeError(f"float32/float64 field expected, got {arr.dtype}")
+    dev = resolve_device(device)
+    ut = torch.from_numpy(arr).to(dev)
+    return SolverState(u=ut, t=time_dtype(ut.dtype)(t), it=int(it))
+
+
+def state_to_numpy(state: SolverState):
+    """``(u, t, it)`` as a numpy array, a numpy scalar and an int."""
+    return state.u.detach().cpu().numpy(), state.t, int(state.it)

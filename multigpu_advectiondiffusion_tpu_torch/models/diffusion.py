@@ -1,0 +1,313 @@
+"""Heat / diffusion equation solver ``u_t = K lap(u) + S(u)``
+(JAX ``models/diffusion.py`` counterpart: 3-D Cartesian, one device).
+
+Reference-parity behavior (on by default): the Laplacian is zeroed on
+the 2-cell boundary band (``Laplace3d.m:21``) and Dirichlet faces are
+re-clamped after every stage (``heat3d.m:65-67``).
+
+Kernel rungs (``impl``):
+
+* ``"xla"`` — the generic plain-PyTorch path, no kernel;
+* ``"pallas"`` / ``"pallas_stage"`` — the fused per-stage stepper, one
+  hand-written CUDA kernel launch per RK stage
+  (:mod:`ops.kernels.fused_diffusion`). Where the JAX package's
+  ``"pallas"`` would pick its whole-run slab rung, that rung is not
+  ported: the per-stage stepper runs and ``engaged_path()`` says why;
+* ``"pallas_slab"``, ``"pallas_step"``, ``"pallas_axis"``, ``"auto"`` —
+  not ported: construction raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.models.base import (
+    LocalPhysics,
+    SolverBase,
+    StepContext,
+)
+from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
+from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_pallas_impl
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
+    FusedDiffusionStepper,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import laplacian
+from multigpu_advectiondiffusion_tpu_torch.ops.stencils import (
+    boundary_band_mask,
+    face_mask,
+)
+from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import diffusive_dt
+from multigpu_advectiondiffusion_tpu_torch.utils import metrics
+
+# The JAX rungs whose kernels are not ported yet, with the kernel each
+# needs (ids as in PERF.md's kernel table).
+_UNPORTED_IMPLS = {
+    "pallas_slab": "K2, the whole-run slab kernel "
+                   "(fused_slab_run._whole_run_kernel)",
+    "pallas_step": "K10, the whole-step kernel "
+                   "(fused_diffusion_step._step_kernel)",
+    "pallas_axis": "K11, the per-axis Laplacian kernel "
+                   "(laplacian.laplacian_o4_3d)",
+    "auto": "the measured tuner that resolves impl='auto'",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    """The JAX ``DiffusionConfig``: same fields, defaults and ``impl``
+    strings, so one field dict builds both solvers."""
+
+    grid: Grid
+    diffusivity: float = 1.0  # K, "heat conduction" arg (main.c:38)
+    order: int = 4
+    integrator: str = "ssp_rk3"
+    dtype: str = "float32"
+    safety: float = 0.8  # dt stability factor (main.c:64)
+    ic: object = "heat_kernel"
+    ic_params: Tuple = ()
+    bc: object = "dirichlet"
+    t0: float = 0.1  # initial time of the analytic Gaussian (heat3d.m:15)
+    reference_parity: bool = True
+    boundary_band: int = 2  # width of the skipped band (Laplace3d.m:21)
+    source: Optional[Callable] = None  # S(u) hook (heat3d.m:26-30)
+    geometry: str = "cartesian"
+    impl: str = "xla"
+    overlap: str = "padded"
+    steps_per_exchange: int = 1
+    exchange: str = "collective"
+    precision: str = "native"
+
+    def __post_init__(self):
+        if self.precision not in ("native", "bf16"):
+            raise ValueError(
+                f"unknown precision {self.precision!r}; 'native' or 'bf16'"
+            )
+        if self.geometry not in ("cartesian", "axisymmetric"):
+            raise ValueError(f"unknown geometry {self.geometry!r}")
+        if self.overlap not in ("padded", "split"):
+            raise ValueError(f"unknown overlap {self.overlap!r}")
+        if self.impl not in IMPLS:
+            raise ValueError(
+                f"unknown impl {self.impl!r}; ladder rungs: {IMPLS}"
+            )
+        if not isinstance(self.steps_per_exchange, int) or (
+            self.steps_per_exchange < 1
+        ):
+            raise ValueError(
+                "steps_per_exchange must be an int >= 1, got "
+                f"{self.steps_per_exchange!r}"
+            )
+        if self.exchange not in ("collective", "dma"):
+            raise ValueError(
+                f"unknown exchange {self.exchange!r}; 'collective' or 'dma'"
+            )
+
+
+# --------------------------------------------------------------------- #
+# The JAX package's slab-rung selection for an unsharded float32 grid
+# (fused_slab_run.SlabRunDiffusionStepper.supported/profitable with its
+# TPU VMEM block model). Kept only to say when its impl="pallas" would
+# run the slab rung, which the port does not have yet. This is TPU
+# policy: it goes when K2 is ported, replaced by a gate measured on the
+# GPU, and nothing but the fallback label may read it.
+# --------------------------------------------------------------------- #
+_TPU_VMEM_LIMIT = 100 * 1024 * 1024
+_SLAB_GHOSTS = 6  # three O4 stages of redundant z recompute
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def slab_rung_selected(interior_shape) -> bool:
+    """Whether the JAX package's ``impl="pallas"`` engages its whole-run
+    slab rung (K2) on this unsharded float32 grid: z served by at most
+    two slabs (the block cap never reaches 4 ghost depths)."""
+    nz, ny, nx = interior_shape
+    row = _round_up(ny + 4, 8) * _round_up(nx + 4, 128) * 4
+    cap = max(1, min(20, int((_TPU_VMEM_LIMIT // row - 130) // 8)))
+
+    def score(b):
+        blocks = -(-nz // b)
+        return (b / (b + 2 * _SLAB_GHOSTS)) * (nz / (blocks * b))
+
+    bz = max(range(1, cap + 1), key=score)
+    return bz >= 4 * _SLAB_GHOSTS or -(-nz // bz) <= 2
+
+
+class DiffusionSolver(SolverBase):
+    cfg: DiffusionConfig
+
+    def __init__(self, cfg: DiffusionConfig, device=None):
+        super().__init__(cfg, device=device)
+        self._check_ported()
+        self.dt = diffusive_dt(cfg.diffusivity, cfg.grid.spacing, cfg.safety)
+
+    def _check_ported(self):
+        """Raise on a config whose JAX path the port cannot run yet,
+        rather than run something else under its name."""
+        cfg = self.cfg
+        if cfg.impl in _UNPORTED_IMPLS:
+            raise NotImplementedError(
+                f"impl={cfg.impl!r} needs {_UNPORTED_IMPLS[cfg.impl]}, "
+                "which is not ported yet"
+            )
+        if self.grid.ndim != 3:
+            raise NotImplementedError("1-D/2-D diffusion is not ported yet")
+        if cfg.geometry != "cartesian":
+            raise NotImplementedError(
+                "axisymmetric diffusion is not ported yet"
+            )
+        if cfg.precision != "native":
+            raise NotImplementedError(
+                f"precision={cfg.precision!r} storage is not ported yet"
+            )
+        if cfg.steps_per_exchange != 1 or cfg.exchange != "collective":
+            raise NotImplementedError(
+                "steps_per_exchange/exchange need a device mesh, which is "
+                "not ported yet"
+            )
+        if is_pallas_impl(cfg.impl) and self.dtype == torch.float64:
+            raise NotImplementedError(
+                f"dtype=float64 with impl={cfg.impl!r}: the JAX package "
+                "runs float64 storage on its float32 kernels; that rung "
+                "is not ported yet"
+            )
+
+    def ic_spec(self):
+        """Thread diffusivity/t0 into the analytic IC so the initial
+        state matches :meth:`exact_solution` at ``t = t0``."""
+        if self.cfg.ic == "heat_kernel":
+            return "heat_kernel", {"t0": self.cfg.t0,
+                                   "diffusivity": self.cfg.diffusivity}
+        return self.cfg.ic, {}
+
+    def build_local(self, ctx: StepContext) -> LocalPhysics:
+        cfg = self.cfg
+        grid = cfg.grid
+        bcs = self.bcs
+        K = cfg.diffusivity
+
+        def operator(u):
+            return laplacian(u, grid.spacing, ctx.padder,
+                             diffusivity=[K] * grid.ndim, order=cfg.order)
+
+        walled_axes = [a for a, b in enumerate(bcs) if b.kind != "periodic"]
+        band = (
+            boundary_band_mask(ctx.local_shape, cfg.boundary_band,
+                               ctx.global_shape, ctx.offsets,
+                               axes=walled_axes, device=ctx.device)
+            if cfg.reference_parity and walled_axes else None
+        )
+
+        def rhs(u):
+            lu = operator(u)
+            if cfg.source is not None:
+                lu = lu + cfg.source(u)
+            if band is not None:
+                lu = torch.where(band, lu, torch.zeros_like(lu))
+            return lu
+
+        post = None
+        if cfg.reference_parity and walled_axes:
+            dir_axes = [a for a in walled_axes if bcs[a].kind == "dirichlet"]
+            edge_axes = [a for a in walled_axes if bcs[a].kind == "edge"]
+            clamps = [
+                (face_mask(ctx.local_shape, [a], ctx.global_shape,
+                           ctx.offsets, device=ctx.device), bcs[a].value)
+                for a in dir_axes
+            ]
+            sources = {}
+            for a in edge_axes:
+                # zero-gradient walls: the frozen band copies the first
+                # evolving row (heat2d_axisymmetric.m:64-66)
+                n = ctx.global_shape[a]
+                idx = torch.arange(n, device=ctx.device)
+                sources[a] = torch.clamp(idx, cfg.boundary_band,
+                                         n - 1 - cfg.boundary_band)
+
+            def post(u):
+                for faces, value in clamps:
+                    u = torch.where(
+                        faces, torch.full((), value, dtype=u.dtype,
+                                          device=u.device), u)
+                for a, src in sources.items():
+                    u = torch.index_select(u, a, src)
+                return u
+
+        return LocalPhysics(rhs=rhs, static_dt=self.dt, post=post)
+
+    # ------------------------------------------------------------------ #
+    # Fused per-stage fast path (one device, reference-parity walls)
+    # ------------------------------------------------------------------ #
+    def _fused_stepper(self, mode: str = "iters"):
+        """The fused SSP-RK3 stepper when this config is eligible, else
+        ``None`` (generic path, reason recorded). Eligibility mirrors
+        what the kernel bakes in: frozen Dirichlet ghosts and boundary
+        band, static dt, 3-D Cartesian O4, float32."""
+        cfg = self.cfg
+        self._fused_fallback = None
+        if not is_pallas_impl(cfg.impl):
+            return self._decline(
+                f"impl={cfg.impl!r} does not request fusion"
+            )
+
+        def decline(reason):
+            # the JAX package's generic path then runs its per-axis
+            # stencil kernel (K11), which is not ported
+            return self._decline(
+                f"{reason}; per-axis stencil kernel K11 not ported, "
+                "plain PyTorch runs"
+            )
+
+        if cfg.order != 4:
+            return decline("fused kernels bake in the O4 Laplacian")
+        if cfg.integrator != "ssp_rk3":
+            return decline("fused kernels bake in SSP-RK3")
+        if cfg.source is not None:
+            return decline("source-term hook needs the generic path")
+        if not cfg.reference_parity or cfg.boundary_band < 1:
+            return decline(
+                "fused walls need reference_parity with boundary_band >= 1"
+            )
+        bcs = self.bcs
+        if not all(b.kind == "dirichlet" for b in bcs) or not all(
+            b.value == bcs[0].value for b in bcs
+        ):
+            return decline(
+                "fused walls need uniform Dirichlet BCs on every axis"
+            )
+        if (mode != "t_end" and cfg.impl == "pallas"
+                and slab_rung_selected(self.grid.shape)):
+            self._fused_fallback = "slab rung K2 not yet ported"
+        if "fused" not in self._cache:
+            self._cache["fused"] = FusedDiffusionStepper(
+                self.grid.shape,
+                self.grid.spacing,
+                [cfg.diffusivity] * 3,
+                self.dt,
+                cfg.boundary_band,
+                bcs[0].value,
+                self.device,
+            )
+        return self._cache["fused"]
+
+    # ------------------------------------------------------------------ #
+    # Analytic solution (heat3d.m:36)
+    # ------------------------------------------------------------------ #
+    def exact_solution(self, t: float) -> torch.Tensor:
+        cfg = self.cfg
+        r2 = cfg.grid.radius_sq(self.dtype, self.device)
+        power = cfg.grid.ndim / 2.0
+        return ((cfg.t0 / t) ** power
+                * torch.exp(-r2 / (4.0 * cfg.diffusivity * t))).to(self.dtype)
+
+    def error_norms(self, state: SolverState, t: float | None = None):
+        t_val = float(state.t) if t is None else t
+        return metrics.error_norms(
+            state.u, self.exact_solution(t_val), self.cfg.grid.spacing
+        )
