@@ -24,7 +24,26 @@ ignored ``build/`` directory), then:
 3. drives ``advance_to`` to ``t0 + 4.5 dt``: 5 steps, landing on
    ``t_end``, agreeing with the generic path;
 4. times ``conv3d`` computing the 13-point Laplacian alone, a yardstick
-   that computes less than K1 and that the port never calls.
+   that computes less than K1 and that the port never calls;
+5. holds the fused Burgers/WENO5 stage kernel (K5) against its plain
+   twin for every stage kind: at 512^3 for the main configuration
+   (WENO5-JS, Burgers flux, nu = 1e-5, the last stage emitting
+   max|f'|) and at an odd small shape for WENO5-Z, the inviscid case
+   and the linear and Buckley-Leverett fluxes; ``<= 32 eps`` of
+   max|twin| (the ulp count printed), the emitted maximum exactly; times
+   K5 alone at 512^3 for each stage kind and z-chunk of ``K5_ZCHUNKS``;
+6. drives the Burgers main path — 512^3, lengths 2, float32, adaptive
+   dt, nu = 1e-5, ``impl="pallas"``, 86 steps through
+   ``BurgersSolver.run`` (``SingleGPU/Burgers3d_WENO5/Run.m``) — and
+   checks the engaged stepper, 258 K5 launches, at most one
+   device-to-host copy in a profiled run (dt stays on the card), values
+   inside [-1e-6, 1.05] and agreement with the generic path at 10 steps
+   (``rtol=2e-5, atol=2e-6 max|u|``); times it (median of 3 after a
+   warm-up, CUDA events), profiles K5 per stage kind in the run, the
+   idle share and the host enqueue, and reads the peak memory of the
+   fused and the generic runs;
+7. a fixed-dt ``run(5)`` and ``advance_to(t0 + 4.5 dt0)`` (5 steps, 15
+   launches, landing on ``t_end``) against the generic path.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -33,6 +52,7 @@ GPU it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import itertools
 import json
@@ -46,11 +66,17 @@ import numpy as np
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch import (
+    BurgersConfig,
+    BurgersSolver,
     DiffusionConfig,
     DiffusionSolver,
     Grid,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_burgers as fb,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_diffusion as fd,
 )
@@ -67,6 +93,17 @@ ITERS = 101  # Run.m's iteration count
 ODD_SHAPE = (23, 29, 37)  # interior (nz, ny, nx) of an odd small grid
 ZCHUNKS = (4, 8, 16, 32)  # z planes a K1 thread marches, timed alone
 ROTATE = 3  # buffer sets K1 alone cycles through: 3 x 207 MB >> L2
+
+BURGERS_N = 512  # SingleGPU/Burgers3d_WENO5/Run.m:15-25: 512^3, 86 steps
+BURGERS_ITERS = 86
+BURGERS_NU = 1e-5
+BURGERS_CHECK_ITERS = 10  # steps held against the generic path
+K5_ZCHUNKS = (8, 16, 32)  # z planes a K5 thread marches, timed alone
+K5_ODD_CASES = (  # (flux, flux kwargs, variant, nu) at ODD_SHAPE
+    ("burgers", {}, "z", 0.0),
+    ("linear", {"c": -0.7}, "js", 1e-5),
+    ("buckley", {}, "z", 1e-5),
+)
 
 
 def card_line() -> str:
@@ -241,15 +278,320 @@ def laplacian_conv3d_ms(spacing, shape) -> float:
 # --------------------------------------------------------------------- #
 # Main path
 # --------------------------------------------------------------------- #
-def assert_matches(name, got, want) -> None:
-    """``|got - want| <= 1e-5 |want| + 1e-6 max|want|`` everywhere."""
+def assert_matches(name, got, want, rtol=1e-5, atol=1e-6) -> None:
+    """``|got - want| <= rtol |want| + atol max|want|`` everywhere."""
     scale = float(want.abs().max())
-    bad = (got - want).abs() > 1e-5 * want.abs() + 1e-6 * scale
+    bad = (got - want).abs() > rtol * want.abs() + atol * scale
     worst = float((got - want).abs().max())
     print(f"  {name}: max|fused - generic| = {worst:.3e} "
           f"(max|u| = {scale:.4f})")
     if bool(bad.any()):
         raise AssertionError(f"{name}: fused and generic paths disagree")
+
+
+# --------------------------------------------------------------------- #
+# K5 and the Burgers main path
+# --------------------------------------------------------------------- #
+def k5_stage_ops(shape, has_u: bool, viscous: bool, variant: str) -> int:
+    """f32 operations one K5 stage needs with the Burgers flux and each
+    face computed once — the count in ``csrc/fused_burgers_stage.cu``'s
+    note: split 6, 103 an axis (WENO5-Z 113), the divergences' sum and
+    negation 3, the Laplacian 30, the combine 5 (stage 1: 3)."""
+    per_axis = 103 + (10 if variant == "z" else 0)
+    per_cell = (6 + 3 * per_axis + 3 + (30 if viscous else 0)
+                + (5 if has_u else 3))
+    return math.prod(shape) * per_cell
+
+
+def ulps(a, b) -> int:
+    """Largest distance in units in the last place between two float32
+    tensors of one shape."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def k5_isolated_ms(buffers, zchunk: int, dt, mx, **kw) -> float:
+    """Per-launch time of K5 alone: median of 3 samples of 21
+    back-to-back launches, each on the next of ``buffers`` (v, u, out)
+    sets in turn, far larger together than the 50 MB L2."""
+    turn = itertools.cycle(buffers)
+
+    def launch():
+        v, u, out = next(turn)
+        fb.fused_burgers_stage(v, u, out, dt, mx, zchunk=zchunk, **kw)
+
+    launch()  # warm-up
+    return statistics.median(cuda_ms(launch, 3, 21))
+
+
+def check_k5(shape, params, dt, seed: int, timed: bool) -> dict:
+    """Every stage kind once against the twin on random data in
+    [-0.1, 1.0) (the last stage in place and emitting max|f'|); when
+    ``timed``, also K5 alone at each z-chunk of ``K5_ZCHUNKS``, the twin
+    (median of 3) and the bound."""
+    res = {"max_abs_err": 0.0, "ulps": 0, "ms": [], "plain_ms": [],
+           "bound_ms": [], "sweep": {z: [] for z in K5_ZCHUNKS}}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.rand(shape, generator=g, device="cuda") * 1.1 - 0.1
+    u = torch.rand(shape, generator=g, device="cuda") * 1.1 - 0.1
+    dt = torch.full((), dt, dtype=torch.float32, device="cuda")
+    viscous = params.lap_taps is not None
+    for kind, (a, b) in enumerate(fb.STAGES):
+        has_u, emit = kind > 0, kind == 2
+        kw = dict(params=params, a=a, b=b)
+        ref = fb.stage_reference(v, u if has_u else None,
+                                 torch.empty_like(v), dt, emit=emit, **kw)
+        want, want_max = ref if emit else (ref, None)
+        out = u.clone() if emit else torch.empty_like(v)
+        mx = torch.full((1,), -1.0, device="cuda") if emit else None
+        fb.fused_burgers_stage(v, out if emit else (u if has_u else None),
+                               out, dt, mx, **kw)
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        rel = err / float(want.abs().max())
+        n_ulps = ulps(out, want)
+        line = (f"  K5 stage {kind + 1} at {shape} ({params.flux.name}, "
+                f"{params.variant}, {'viscous' if viscous else 'inviscid'})"
+                f": max|kernel-twin| = {err:.3e} ({rel / EPS32:.2f} eps of "
+                f"max|twin|, {n_ulps} ulp)")
+        if emit:
+            line += f"; emitted max {float(mx[0])!r} vs twin {float(want_max)!r}"
+        print(line)
+        if not rel <= KERNEL_TOL:
+            raise AssertionError(
+                f"K5 stage {kind + 1} at {shape} differs from its twin: "
+                f"{rel / EPS32:.2f} eps > 32 eps")
+        if emit and float(mx[0]) != float(want_max):
+            raise AssertionError("K5's emitted max differs from the twin's")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["ulps"] = max(res["ulps"], n_ulps)
+        del ref, want, out
+        if timed:
+            buffers = []
+            for _ in range(ROTATE):
+                uu = u.clone()
+                buffers.append((v.clone(), uu if has_u else None,
+                                uu if emit else torch.empty_like(v)))
+            for z in K5_ZCHUNKS:
+                res["sweep"][z].append(k5_isolated_ms(buffers, z, dt, mx,
+                                                      **kw))
+            del buffers
+            res["ms"].append(res["sweep"][fb.Z_CHUNK][-1])
+            u_arg = u if has_u else None
+            scratch = torch.empty_like(v)
+            res["plain_ms"].append(statistics.median(cuda_ms(
+                lambda: fb.stage_reference(v, u_arg, scratch, dt, emit=emit,
+                                           **kw), 3)))
+            del scratch
+            by_bytes = stage_bytes(shape, has_u) / HBM_BYTES_PER_S
+            by_ops = k5_stage_ops(shape, has_u, viscous,
+                                  params.variant) / F32_OPS_PER_S
+            res["bound_ms"].append(1e3 * max(by_bytes, by_ops))
+            res["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+            sweep = ", ".join(f"{z}: {res['sweep'][z][-1]:.4f}"
+                              for z in K5_ZCHUNKS)
+            print(f"    kernel alone {res['ms'][-1]:.4f} ms at zchunk "
+                  f"{fb.Z_CHUNK}; by zchunk {{{sweep}}} ms; twin "
+                  f"{res['plain_ms'][-1]:.4f} ms; bound "
+                  f"{res['bound_ms'][-1]:.4f} ms ({res['bound_by']}: "
+                  f"{1e3 * by_ops:.4f} ms of operations, "
+                  f"{1e3 * by_bytes:.4f} ms of bytes)")
+    return res
+
+
+def burgers_profile(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler``: device span and busy time,
+    K5's per-launch time by stage kind (launches come in s1, s2, s3
+    order), the device-to-host copies, and the host enqueue time — from
+    the first host operation to the start of the run's read-back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    if not dev:
+        raise AssertionError("the profiler saw no device activity")
+    start = min(e.time_range.start for e in dev)
+    end = max(e.time_range.end for e in dev)
+    busy = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3
+    k5 = sorted((e for e in dev if "stage_kernel" in e.name),
+                key=lambda e: e.time_range.start)
+    by_kind = [[(e.time_range.end - e.time_range.start) / 1e3
+                for e in k5[q::3]] for q in range(3)]
+    reads = [e for e in host if e.name == "aten::_local_scalar_dense"]
+    first = min(e.time_range.start for e in host)
+    enqueue = ((min(e.time_range.start for e in reads) - first) / 1e3
+               if reads else float("nan"))
+    return {
+        "span_ms": (end - start) / 1e3, "busy_ms": busy,
+        "k5_launches": len(k5),
+        "k5_ms": [statistics.mean(x) if x else float("nan")
+                  for x in by_kind],
+        "dtoh": sum(1 for e in dev if "DtoH" in e.name),
+        "reads": len(reads), "enqueue_ms": enqueue,
+    }
+
+
+def burgers_phases(card: str) -> dict:
+    """Phases 5-7; returns K5's entry of the ``kernels`` line."""
+    n = BURGERS_N
+    grid = Grid.make(n, n, n, lengths=2.0)
+    cfg = BurgersConfig(grid=grid, nu=BURGERS_NU, dtype="float32",
+                        impl="pallas")
+    solver = BurgersSolver(cfg)
+    params = fb.stage_params(solver.flux, cfg.weno_variant, grid.spacing,
+                             cfg.nu)
+    dt_cfl = cfg.cfl * min(grid.spacing)
+
+    print("phase 5: K5 against its twin")
+    main5 = check_k5(grid.shape, params, dt_cfl, seed=5, timed=True)
+    k5_err, k5_ulps = main5["max_abs_err"], main5["ulps"]
+    for i, (name, kw, variant, nu) in enumerate(K5_ODD_CASES):
+        odd = check_k5(ODD_SHAPE, fb.stage_params(
+            pflux.get(name, **kw), variant, (0.05, 0.07, 0.09), nu),
+            dt_cfl, seed=50 + i, timed=False)
+        k5_err = max(k5_err, odd["max_abs_err"])
+        k5_ulps = max(k5_ulps, odd["ulps"])
+    torch.cuda.empty_cache()
+
+    print(f"phase 6: Burgers main path, run({BURGERS_ITERS}) at {n}^3")
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "fused-stage":
+        raise AssertionError(f"main path did not engage K5: {path}")
+    state0 = solver.initial_state()
+    torch.cuda.reset_peak_memory_stats()
+    fb.fused_burgers_stage.launches = 0
+    out = solver.run(state0, BURGERS_ITERS)
+    torch.cuda.synchronize()
+    launches = fb.fused_burgers_stage.launches
+    fused_peak = torch.cuda.max_memory_allocated()
+    print(f"  K5 launches in run({BURGERS_ITERS}): {launches}; t = "
+          f"{float(out.t)!r}")
+    if launches != 3 * BURGERS_ITERS:
+        raise AssertionError(
+            f"expected {3 * BURGERS_ITERS} K5 launches, {launches}")
+    lo, hi = float(out.u.min()), float(out.u.max())
+    print(f"  u in [{lo!r}, {hi!r}]")
+    if not (math.isfinite(lo) and math.isfinite(hi)
+            and lo >= -1e-6 and hi <= 1.05):
+        raise AssertionError(f"u left [-1e-6, 1.05]: [{lo}, {hi}]")
+    del out
+    reps = cuda_ms(lambda: solver.run(state0, BURGERS_ITERS), 4)[1:]
+    run_ms = statistics.median(reps)
+    step_ms = run_ms / BURGERS_ITERS
+    mlups = grid.num_cells * BURGERS_ITERS * 3 / (run_ms * 1e-3) / 1e6
+    print(f"  run({BURGERS_ITERS}): median {run_ms:.3f} ms of {len(reps)} "
+          f"reps {[round(r, 3) for r in reps]}; {step_ms:.4f} ms/step; "
+          f"{mlups:.0f} MLUPS [{card}]")
+    prof = burgers_profile(lambda: solver.run(state0, BURGERS_ITERS))
+    idle = 1.0 - prof["busy_ms"] / prof["span_ms"]
+    in_run_ms = statistics.mean(prof["k5_ms"])
+    print(f"  profiled run({BURGERS_ITERS}): device span "
+          f"{prof['span_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, idle "
+          f"share {idle:.4f}; K5 launches {prof['k5_launches']}, per launch "
+          f"in the run: stage 1 {prof['k5_ms'][0]:.4f} ms, stage 2 "
+          f"{prof['k5_ms'][1]:.4f} ms, stage 3 {prof['k5_ms'][2]:.4f} ms, "
+          f"mean {in_run_ms:.4f} ms; device-to-host copies {prof['dtoh']} "
+          f"(host reads {prof['reads']}); host enqueue to the read-back "
+          f"{prof['enqueue_ms']:.3f} ms under the profiler [{card}]")
+    if prof["k5_launches"] != 3 * BURGERS_ITERS:
+        raise AssertionError("profiled run missed K5 launches")
+    if prof["dtoh"] > 1 or prof["reads"] > 1:
+        raise AssertionError("the run copied to the host more than once")
+
+    generic = BurgersSolver(dataclasses.replace(cfg, impl="xla"))
+    if generic.engaged_path()["stepper"] != "generic-xla":
+        raise AssertionError("impl='xla' did not run the generic path")
+    f10 = solver.run(state0, BURGERS_CHECK_ITERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g10 = generic.run(state0, BURGERS_CHECK_ITERS)
+    generic_peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory: fused run {fused_peak / 2**30:.2f} GiB, "
+          f"generic run {generic_peak / 2**30:.2f} GiB (the initial state "
+          f"included)")
+    if abs(float(f10.t) - float(g10.t)) > 1e-5 * float(g10.t):
+        raise AssertionError(f"t differs: {f10.t} vs {g10.t}")
+    assert_matches(f"run({BURGERS_CHECK_ITERS})", f10.u, g10.u, rtol=2e-5,
+                   atol=2e-6)
+    del f10, g10
+
+    print("phase 7: fixed dt and advance_to()")
+    fixed = BurgersSolver(dataclasses.replace(cfg, adaptive_dt=False))
+    gfixed = BurgersSolver(dataclasses.replace(cfg, adaptive_dt=False,
+                                               impl="xla"))
+    fb.fused_burgers_stage.launches = 0
+    f5 = fixed.run(state0, 5)
+    torch.cuda.synchronize()
+    fixed_launches = fb.fused_burgers_stage.launches
+    g5 = gfixed.run(state0, 5)
+    print(f"  fixed dt: {fixed.engaged_path()['fallback']}; K5 launches "
+          f"{fixed_launches}; t {float(f5.t)!r} vs {float(g5.t)!r}")
+    if fixed_launches != 15 or f5.t != g5.t:
+        raise AssertionError("fixed-dt run(5) went wrong")
+    assert_matches("fixed run(5)", f5.u, g5.u, rtol=2e-5, atol=2e-6)
+    del f5, g5
+    dt0 = float(cfg.cfl * min(grid.spacing)
+                / float(state0.u.abs().max()))
+    t_end = float(state0.t) + 4.5 * dt0
+    fb.fused_burgers_stage.launches = 0
+    adv = solver.advance_to(state0, t_end)
+    torch.cuda.synchronize()
+    adv_launches = fb.fused_burgers_stage.launches
+    gadv = generic.advance_to(state0, t_end)
+    print(f"  advance_to: steps {adv.it} (generic {gadv.it}), K5 launches "
+          f"{adv_launches}, t {float(adv.t)!r} vs t_end {t_end!r}")
+    if adv.it != 5 or gadv.it != 5 or adv_launches != 15:
+        raise AssertionError("advance_to did not take 5 fused steps")
+    if abs(float(adv.t) - t_end) > 1e-6 * t_end:
+        raise AssertionError("advance_to did not land on t_end")
+    assert_matches("advance_to", adv.u, gadv.u, rtol=2e-5, atol=2e-6)
+    del adv, gadv, state0
+    torch.cuda.empty_cache()
+
+    return {
+        "name": "fused_burgers_stage",
+        "id": "K5",
+        "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_burgers_stage.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_burgers.py:352",
+        "launches": launches,
+        "max_abs_err": k5_err,
+        "max_ulps": k5_ulps,
+        # per launch, mean over the three stage kinds a step launches;
+        # "ms" is what a launch takes in the main path's run
+        "ms": in_run_ms,
+        "ms_by_stage": prof["k5_ms"],
+        "ms_isolated": statistics.mean(main5["ms"]),
+        "ms_isolated_by_zchunk": {
+            str(z): statistics.mean(main5["sweep"][z]) for z in K5_ZCHUNKS},
+        "zchunk": fb.Z_CHUNK,
+        "plain_ms": statistics.mean(main5["plain_ms"]),
+        "bound_ms": statistics.mean(main5["bound_ms"]),
+        "bound_by": main5["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes a WENO5 "
+                        "stage",
+        "ms_per_step": step_ms,
+        "mlups": mlups,
+        "device_idle_share": idle,
+        "host_enqueue_ms": prof["enqueue_ms"],
+        "dtoh_copies": prof["dtoh"],
+        "peak_gib_fused": fused_peak / 2**30,
+        "peak_gib_generic": generic_peak / 2**30,
+    }
 
 
 def main() -> int:
@@ -265,13 +607,19 @@ def main() -> int:
     copy_gbs = copy_rate_gbs()
     print(f"phase 0: device-to-device copy {copy_gbs:.1f} GB/s [{card}]")
     t0 = time.perf_counter()
-    built = build.build(fd.SOURCE)
+    # one nvcc per source, all started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(lambda args: build.build(*args), [
+            (fd.SOURCE, ()), (fb.SOURCE, fb.NVCC_EXTRA)]))
     fd.library()
-    print(f"phase 0: built {built.path.name} in {built.seconds:.2f} s "
-          f"(load total {time.perf_counter() - t0:.2f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    fb.library()
+    print(f"phase 0: built both kernels in "
+          f"{time.perf_counter() - t0:.2f} s (wall, in parallel)")
+    for built in builds:
+        print(f"  {built.path.name}: nvcc {built.seconds:.2f} s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
     cfg = DiffusionConfig(grid=grid, dtype="float32", impl="pallas")
@@ -357,6 +705,9 @@ def main() -> int:
     print(f"  conv3d 13-point Laplacian alone, TF32 off: {lib_ms:.4f} ms "
           f"[{card}] (computes less than one K1 stage)")
 
+    print("phases 5-7: Burgers/WENO5 (K5)")
+    k5 = burgers_phases(card)
+
     kernels = [{
         "name": "fused_diffusion_stage",
         "id": "K1",
@@ -385,7 +736,7 @@ def main() -> int:
         "device_idle_share": idle,
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
-    }]
+    }, k5]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,16 +6,23 @@ that one config builds both solvers and each counterpart is easy to
 find. It imports ``torch`` and numpy, never ``jax`` and never the JAX
 package.
 
-Ported so far: the 3-D diffusion main path on one device — the
-generic PyTorch path (``impl="xla"``) and the fused per-stage rung
-(``impl="pallas"``/``"pallas_stage"``) whose stage kernel is a
-hand-written CUDA kernel for Hopper (``csrc/fused_diffusion_stage.cu``).
+Ported so far, on one device, each with the generic PyTorch path
+(``impl="xla"``) and a fused per-stage rung (``impl="pallas"`` /
+``"pallas_stage"``) whose stage kernel is hand-written CUDA for Hopper:
+
+* 3-D diffusion (``csrc/fused_diffusion_stage.cu``, K1);
+* 3-D Burgers / scalar conservation laws with WENO5
+  (``csrc/fused_burgers_stage.cu``, K5); WENO7 on the generic path.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
 from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.models.burgers import (
+    BurgersConfig,
+    BurgersSolver,
+)
 from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
     DiffusionConfig,
     DiffusionSolver,
@@ -24,6 +31,8 @@ from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
 
 __all__ = [
     "Boundary",
+    "BurgersConfig",
+    "BurgersSolver",
     "DiffusionConfig",
     "DiffusionSolver",
     "Grid",

@@ -1,8 +1,11 @@
-"""Command-line interface of the port: the ``diffusion3d`` verb.
+"""Command-line interface of the port: the ``diffusion3d`` and
+``burgers3d`` verbs.
 
     python -m multigpu_advectiondiffusion_tpu_torch.cli diffusion3d \
         --n 400 200 206 --lengths 10 5 5.15 --iters 101 --impl pallas \
         --save out/ --check-error
+    python -m multigpu_advectiondiffusion_tpu_torch.cli burgers3d \
+        --n 512 512 512 --iters 86 --nu 1e-5 --impl pallas
 
 The flags are the JAX CLI's flags of the same names. The run goes to
 the GPU unless ``--device cpu`` is given. The summary names the kernel
@@ -20,6 +23,10 @@ import time
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.models.burgers import (
+    BurgersConfig,
+    BurgersSolver,
+)
 from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
     DiffusionConfig,
     DiffusionSolver,
@@ -37,13 +44,37 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("diffusion3d", help="3-D heat equation")
+    _common(p)
+    p.add_argument("--K", type=float, default=1.0,
+                   help="diffusivity (main.c arg 1)")
+    p.add_argument("--check-error", action="store_true",
+                   help="report L1/L2/Linf against the exact solution")
+    p.set_defaults(run=run_diffusion3d)
+
+    p = sub.add_parser("burgers3d",
+                       help="3-D Burgers / scalar conservation law")
+    _common(p)
+    p.add_argument("--flux", default="burgers",
+                   choices=["burgers", "linear", "buckley"])
+    p.add_argument("--weno-order", type=int, default=5, choices=[5, 7])
+    p.add_argument("--weno-variant", default="js", choices=["js", "z"])
+    p.add_argument("--cfl", type=float, default=0.4)
+    p.add_argument("--nu", type=float, default=0.0,
+                   help="viscosity (1e-5 in SingleGPU Burgers)")
+    p.add_argument("--fixed-dt", action="store_true",
+                   help="reference-parity dt = CFL*dx (hard-coded "
+                        "max|u|=1, Burgers3d_Baseline/main.c:193)")
+    p.set_defaults(run=run_burgers3d)
+    return parser
+
+
+def _common(p) -> None:
+    """The flags both verbs share, as the JAX CLI names them."""
     p.add_argument("--n", type=int, nargs=3, required=True,
                    metavar=("NX", "NY", "NZ"),
                    help="grid nodes per physical axis (x y z)")
     p.add_argument("--lengths", type=float, nargs=3, default=None,
                    help="physical extents (L W H); domain centered at 0")
-    p.add_argument("--K", type=float, default=1.0,
-                   help="diffusivity (main.c arg 1)")
     p.add_argument("--iters", type=int, default=None,
                    help="fixed iteration count (reference main.c mode)")
     p.add_argument("--t-end", type=float, default=None,
@@ -55,11 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "float64"])
     p.add_argument("--save", default=None, metavar="DIR",
                    help="write initial.bin and result.bin here")
-    p.add_argument("--check-error", action="store_true",
-                   help="report L1/L2/Linf against the exact solution")
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (cuda)")
-    return parser
 
 
 def _sync(device: torch.device) -> None:
@@ -67,12 +95,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_diffusion3d(args) -> int:
+def _grid(args) -> Grid:
     lengths = args.lengths if args.lengths is not None else [2.0] * 3
-    grid = Grid.make(*args.n, lengths=lengths)
+    return Grid.make(*args.n, lengths=lengths)
+
+
+def run_diffusion3d(args) -> int:
+    grid = _grid(args)
     cfg = DiffusionConfig(grid=grid, diffusivity=args.K, dtype=args.dtype,
                           impl=args.impl)
-    solver = DiffusionSolver(cfg, device=args.device)
+    return _drive("diffusion3d", DiffusionSolver(cfg, device=args.device),
+                  args)
+
+
+def run_burgers3d(args) -> int:
+    cfg = BurgersConfig(
+        grid=_grid(args), flux=args.flux, weno_order=args.weno_order,
+        weno_variant=args.weno_variant, cfl=args.cfl, nu=args.nu,
+        adaptive_dt=not args.fixed_dt, dtype=args.dtype, impl=args.impl,
+    )
+    return _drive("burgers3d", BurgersSolver(cfg, device=args.device), args)
+
+
+def _drive(verb: str, solver, args) -> int:
+    """Run ``solver`` as the flags ask, print the summary, save."""
+    cfg, grid = solver.cfg, solver.grid
     state = solver.initial_state()
     if args.save:
         os.makedirs(args.save, exist_ok=True)
@@ -96,7 +143,7 @@ def run_diffusion3d(args) -> int:
              else "cpu")
     line = f"{engaged['stepper']} (impl={engaged['impl']})"
     print("=" * 60)
-    print(" diffusion3d (PyTorch port)")
+    print(f" {verb} (PyTorch port)")
     print("=" * 60)
     print(f" grid               : {'x'.join(map(str, grid.shape_xyz))} "
           f"({grid.num_cells:,} cells)")
@@ -111,7 +158,7 @@ def run_diffusion3d(args) -> int:
     if iters:
         print(f" MLUPS ({device.type:4s})      : "
               f"{metrics.mlups(grid.num_cells, iters, stages, seconds):.1f}")
-    if args.check_error:
+    if getattr(args, "check_error", False):
         l1, l2, linf = solver.error_norms(out)
         print(f" error L1/L2/Linf   : {l1:.4e} / {l2:.4e} / {linf:.4e}")
     if args.save:
@@ -120,7 +167,8 @@ def run_diffusion3d(args) -> int:
 
 
 def main(argv=None) -> int:
-    return run_diffusion3d(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    return args.run(args)
 
 
 if __name__ == "__main__":

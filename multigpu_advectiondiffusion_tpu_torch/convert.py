@@ -5,7 +5,8 @@ and a state. Both cross as plain data — field dicts and numpy arrays —
 so this module needs neither package's framework from the other side:
 
 * :func:`config_from_fields` builds a :class:`DiffusionConfig` from the
-  fields of a JAX config (``dataclasses.asdict(cfg)`` or ``vars(cfg)``);
+  fields of a JAX config (``dataclasses.asdict(cfg)`` or ``vars(cfg)``),
+  and :func:`burgers_config_from_fields` a :class:`BurgersConfig`;
 * :func:`state_from_numpy` / :func:`state_to_numpy` move a state
   ``(u, t, it)`` in and out as numpy, keeping ``t``'s precision.
 """
@@ -20,6 +21,7 @@ import torch
 from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
 from multigpu_advectiondiffusion_tpu_torch.models.base import resolve_device
+from multigpu_advectiondiffusion_tpu_torch.models.burgers import BurgersConfig
 from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
     DiffusionConfig,
 )
@@ -48,21 +50,33 @@ def _bc(spec):
     return Boundary(kind=spec.kind, value=float(spec.value))
 
 
-def config_from_fields(fields: dict) -> DiffusionConfig:
-    """A port config from a JAX ``DiffusionConfig``'s fields. Unknown
+def _from_fields(cls, fields: dict):
+    """A port config of ``cls`` from a JAX config's fields. Unknown
     fields raise, so a field added on one side cannot be dropped
     silently."""
     fields = dict(fields)
-    known = {f.name for f in dataclasses.fields(DiffusionConfig)}
+    known = {f.name for f in dataclasses.fields(cls)}
     unknown = sorted(set(fields) - known)
     if unknown:
-        raise ValueError(f"fields the port's DiffusionConfig lacks: {unknown}")
+        raise ValueError(
+            f"fields the port's {cls.__name__} lacks: {unknown}")
     fields["grid"] = _grid(fields["grid"])
     if "bc" in fields:
         fields["bc"] = _bc(fields["bc"])
-    if "ic_params" in fields:
-        fields["ic_params"] = tuple(fields["ic_params"])
-    return DiffusionConfig(**fields)
+    for name in ("ic_params", "flux_params"):
+        if name in fields:
+            fields[name] = tuple(fields[name])
+    return cls(**fields)
+
+
+def config_from_fields(fields: dict) -> DiffusionConfig:
+    """A port config from a JAX ``DiffusionConfig``'s fields."""
+    return _from_fields(DiffusionConfig, fields)
+
+
+def burgers_config_from_fields(fields: dict) -> BurgersConfig:
+    """A port config from a JAX ``BurgersConfig``'s fields."""
+    return _from_fields(BurgersConfig, fields)
 
 
 def state_from_numpy(u, t, it=0, device=None) -> SolverState:

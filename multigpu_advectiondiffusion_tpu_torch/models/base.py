@@ -58,8 +58,10 @@ class LocalPhysics:
     """Product of :meth:`SolverBase.build_local`."""
 
     rhs: Callable[[torch.Tensor], torch.Tensor]
-    static_dt: float
+    static_dt: Optional[float] = None
     post: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    # adaptive dt: u -> 0-d tensor (e.g. the advective CFL bound)
+    dt_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
 class SolverBase:
@@ -130,10 +132,15 @@ class SolverBase:
     def _local_step(self, u, t, t_end=None):
         """One generic time step; ``t``/``t_end`` are host scalars of the
         state's precision. dt is rounded to that precision, trimmed to
-        ``t_end - t``, and fed to the integrator as that value."""
+        ``t_end - t``, and fed to the integrator as that value. An
+        adaptive dt (``dt_fn``) is computed on the device and read back
+        once a step: this loop is the yardstick, not the timed path."""
         phys = self._physics()
         tdt = type(t)
-        dt = tdt(phys.static_dt)
+        if phys.dt_fn is not None:
+            dt = tdt(phys.dt_fn(u).item())
+        else:
+            dt = tdt(phys.static_dt)
         if t_end is not None:
             dt = min(dt, tdt(t_end - t))
         u = self.integrator(phys.rhs, u, float(dt), phys.post)

@@ -1,0 +1,254 @@
+"""Burgers / scalar conservation-law solver
+``u_t + sum_axis d f(u)/dx_axis = nu lap(u)`` (JAX ``models/burgers.py``
+counterpart: 3-D Cartesian, one device).
+
+* WENO5-JS (``Matlab_Prototipes/InviscidBurgersNd/LFWENO5FDM3d.m``,
+  ``MultiGPU/Burgers3d_Baseline``), WENO5-Z
+  (``SingleGPU/Burgers3d_WENO5_SharedMem``) and WENO7 (``LFWENO7FDM*``).
+* Viscous option ``nu > 0`` with the O4 Laplacian (the single-GPU
+  Burgers runs use ``nu = 1e-5``, ``SingleGPU/Burgers3d_WENO5/main.cpp:56``).
+* Selectable flux: burgers / linear / buckley (``LFWENO5FDM3d.m:30-40``).
+* Adaptive dt ``CFL min dx / max|f'(u)|`` (``LFWENO5FDM3d.m:71``) by
+  default; ``adaptive_dt=False`` is the CUDA drivers' hard-coded unit
+  wave speed (``MultiGPU/Burgers3d_Baseline/main.c:193``).
+
+Kernel rungs (``impl``):
+
+* ``"xla"`` — the generic plain-PyTorch path, no kernel: WENO5-JS/Z and
+  WENO7, every flux, viscous or not, fixed or adaptive dt;
+* ``"pallas"`` / ``"pallas_stage"`` — the fused per-stage stepper, one
+  hand-written CUDA kernel launch (K5) per RK stage
+  (:mod:`ops.kernels.fused_burgers`), WENO5-JS/Z. Where the JAX
+  package's ``"pallas"`` would consider its fixed-dt slab rung (K6),
+  that rung is not ported: the per-stage stepper runs and
+  ``engaged_path()`` says so. A config the fused rung declines runs the
+  generic path, with the reason;
+* ``"pallas_slab"``, ``"pallas_step"``, ``"pallas_axis"``, ``"auto"`` —
+  not ported: construction raises ``NotImplementedError``, as it does
+  for WENO7 on the fused rung, 1-D/2-D grids, ``precision="bf16"`` and
+  mesh options.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.models.base import (
+    LocalPhysics,
+    SolverBase,
+    StepContext,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_pallas_impl
+from multigpu_advectiondiffusion_tpu_torch.ops import flux as flux_lib
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_burgers import (
+    FusedBurgersStepper,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import laplacian
+from multigpu_advectiondiffusion_tpu_torch.ops.weno import HALO, flux_divergence
+from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import advective_dt
+
+# The JAX rungs whose kernels are not ported yet, with the kernel each
+# needs (ids as in PERF.md's kernel table).
+_UNPORTED_IMPLS = {
+    "pallas_slab": "K6, the fused Burgers slab step run through K2/K3 "
+                   "(fused_slab_run.SlabRunBurgersStepper)",
+    "pallas_step": "K12, the per-axis WENO kernel (weno.flux_divergence_"
+                   "pallas), which Burgers runs for this flavor",
+    "pallas_axis": "K12, the per-axis WENO kernel "
+                   "(weno.flux_divergence_pallas)",
+    "auto": "the measured tuner that resolves impl='auto'",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BurgersConfig:
+    """The JAX ``BurgersConfig``: same fields, defaults and ``impl``
+    strings, so one field dict builds both solvers."""
+
+    grid: Grid
+    flux: str = "burgers"
+    flux_params: Tuple = ()
+    weno_order: int = 5
+    weno_variant: str = "js"
+    cfl: float = 0.4  # LFWENO5FDM3d.m:25
+    nu: float = 0.0  # viscosity; 1e-5 in SingleGPU Burgers (main.cpp:56)
+    laplacian_order: int = 4
+    adaptive_dt: bool = True
+    integrator: str = "ssp_rk3"
+    dtype: str = "float32"
+    ic: object = "gaussian"
+    ic_params: Tuple = ()
+    bc: object = "edge"
+    t0: float = 0.0
+    impl: str = "xla"
+    overlap: str = "padded"
+    steps_per_exchange: int = 1
+    exchange: str = "collective"
+    precision: str = "native"
+
+    def __post_init__(self):
+        if self.precision not in ("native", "bf16"):
+            raise ValueError(
+                f"unknown precision {self.precision!r}; 'native' or 'bf16'"
+            )
+        if self.overlap not in ("padded", "split"):
+            raise ValueError(f"unknown overlap {self.overlap!r}")
+        if self.impl not in IMPLS:
+            raise ValueError(
+                f"unknown impl {self.impl!r}; ladder rungs: {IMPLS}"
+            )
+        if not isinstance(self.steps_per_exchange, int) or (
+            self.steps_per_exchange < 1
+        ):
+            raise ValueError(
+                "steps_per_exchange must be an int >= 1, got "
+                f"{self.steps_per_exchange!r}"
+            )
+        if self.exchange not in ("collective", "dma"):
+            raise ValueError(
+                f"unknown exchange {self.exchange!r}; 'collective' or 'dma'"
+            )
+
+
+class BurgersSolver(SolverBase):
+    cfg: BurgersConfig
+
+    def __init__(self, cfg: BurgersConfig, device=None):
+        super().__init__(cfg, device=device)
+        self.flux = flux_lib.get(cfg.flux, **dict(cfg.flux_params))
+        # the CUDA-parity fixed step (Burgers3d_Baseline/main.c:193), or
+        # None in adaptive mode
+        self.dt = None if cfg.adaptive_dt else cfg.cfl * min(cfg.grid.spacing)
+        self._check_ported()
+
+    def _check_ported(self):
+        """Raise on a config whose JAX path the port cannot run yet,
+        rather than run something else under its name."""
+        cfg = self.cfg
+        if cfg.impl in _UNPORTED_IMPLS:
+            raise NotImplementedError(
+                f"impl={cfg.impl!r} needs {_UNPORTED_IMPLS[cfg.impl]}, "
+                "which is not ported yet"
+            )
+        if self.grid.ndim != 3:
+            raise NotImplementedError(
+                "1-D/2-D Burgers is not ported yet (its fused kernels are "
+                "K7 and K8)"
+            )
+        if cfg.precision != "native":
+            raise NotImplementedError(
+                f"precision={cfg.precision!r} storage is not ported yet"
+            )
+        if cfg.steps_per_exchange != 1 or cfg.exchange != "collective":
+            raise NotImplementedError(
+                "steps_per_exchange/exchange need a device mesh, which is "
+                "not ported yet"
+            )
+        if (cfg.weno_order == 7 and is_pallas_impl(cfg.impl)
+                and self._fused_reason() is None):
+            raise NotImplementedError(
+                "WENO7 on the fused rung needs K5's order-7 instance, "
+                "which is not ported yet (impl='xla' runs WENO7)"
+            )
+
+    def stencil_spec(self) -> dict:
+        """Family stencil metadata: the WENO reconstruction radius of the
+        configured order (the viscous O4 Laplacian's radius 2 never
+        exceeds it)."""
+        r = HALO[self.cfg.weno_order]
+        return {
+            "family": "burgers",
+            "advective_radius": r,
+            "diffusive_radius": 2 if self.cfg.nu else 0,
+            "stage_radius": r,
+        }
+
+    def cfl_rule(self) -> dict:
+        """The time-step contract: the advective CFL bound
+        ``cfl dx / max|f'(u)|`` — adaptive (a global wave-speed reduction
+        per step) or the CUDA-parity fixed step."""
+        return {
+            "kind": "advective",
+            "cfl": float(self.cfg.cfl),
+            "adaptive": bool(self.cfg.adaptive_dt),
+            "dt": None if self.dt is None else float(self.dt),
+        }
+
+    def build_local(self, ctx: StepContext) -> LocalPhysics:
+        cfg = self.cfg
+        spacing = cfg.grid.spacing
+        fx = self.flux
+
+        def rhs(u):
+            acc = None
+            for axis in range(u.ndim):
+                div = flux_divergence(
+                    u, axis, spacing[axis], fx, order=cfg.weno_order,
+                    variant=cfg.weno_variant, padder=ctx.padder,
+                )
+                acc = div if acc is None else acc + div
+            out = -acc
+            if cfg.nu:
+                out = out + laplacian(u, spacing, ctx.padder,
+                                      diffusivity=cfg.nu,
+                                      order=cfg.laplacian_order)
+            return out
+
+        if cfg.adaptive_dt:
+            return LocalPhysics(
+                rhs=rhs,
+                dt_fn=lambda u: advective_dt(u, fx.df, spacing, cfg.cfl),
+            )
+        # CUDA-parity fixed dt: CFL * dx / 1.0 (Burgers3d_Baseline/main.c:193)
+        return LocalPhysics(rhs=rhs, static_dt=self.dt)
+
+    # ------------------------------------------------------------------ #
+    # Fused per-stage fast path (one device, edge BCs, WENO5)
+    # ------------------------------------------------------------------ #
+    def _fused_reason(self):
+        """Why the fused per-stage rung cannot serve this config, or
+        ``None``: the JAX package's eligibility (``models/burgers.py``
+        ``_fused_stepper``) for one device. Its TPU VMEM tiling gate has
+        no counterpart: K5 needs no block to fit a fast memory."""
+        cfg = self.cfg
+        if (cfg.weno_order, cfg.weno_variant) not in {
+            (5, "js"), (5, "z"), (7, "js")
+        }:
+            return "fused kernels implement WENO5-JS/Z and WENO7-JS only"
+        if cfg.integrator != "ssp_rk3":
+            return "fused kernels bake in SSP-RK3"
+        if cfg.nu != 0.0 and cfg.laplacian_order != 4:
+            return "fused viscous term is the O4 Laplacian"
+        if self.dtype != torch.float32:
+            return "fused kernels are float32-only"
+        if not all(b.kind == "edge" for b in self.bcs):
+            return "fused ghost discipline needs edge BCs"
+        return None
+
+    def _fused_stepper(self, mode: str = "iters"):
+        """The fused SSP-RK3 stepper when this config is eligible, else
+        ``None`` (generic path, reason recorded)."""
+        cfg = self.cfg
+        self._fused_fallback = None
+        if not is_pallas_impl(cfg.impl):
+            return self._decline(f"impl={cfg.impl!r} does not request fusion")
+        reason = self._fused_reason()
+        if reason is not None:
+            if self.dtype == torch.float32 and cfg.weno_order == 5:
+                # the JAX package's generic path then runs its per-axis
+                # kernels (K12, and K11 for the viscous term)
+                reason += ("; per-axis kernels K11/K12 not ported, plain "
+                           "PyTorch runs")
+            return self._decline(reason)
+        if mode != "t_end" and not cfg.adaptive_dt and cfg.impl == "pallas":
+            self._fused_fallback = "slab rung K6 not ported; not considered"
+        if "fused" not in self._cache:
+            self._cache["fused"] = FusedBurgersStepper(
+                self.grid.spacing, self.flux,
+                cfg.weno_variant, cfg.nu, cfg.cfl, self.device, dt=self.dt,
+            )
+        return self._cache["fused"]

@@ -4,8 +4,9 @@ Each source under ``csrc/`` has a plain C interface and is compiled
 by ``nvcc`` into its own shared library, for ``ctypes`` to load — no
 PyTorch headers, so a build takes seconds. Libraries go to
 ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import
+named by a hash of the source and the flags (a source may add its own,
+e.g. ``-fmad=false``), so an edited source or flag set is rebuilt and
+an unchanged one is reused. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
 """
 
@@ -50,11 +51,13 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(source: str) -> Built:
-    """Compile ``csrc/<source>`` into a shared library (or reuse it)."""
+def build(source: str, extra_flags: tuple = ()) -> Built:
+    """Compile ``csrc/<source>`` into a shared library (or reuse it),
+    with ``extra_flags`` after the common ones."""
     src = CSRC_DIR / source
+    flags = (*NVCC_FLAGS, *extra_flags)
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists():
@@ -63,7 +66,7 @@ def build(source: str) -> Built:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [nvcc(), *flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0

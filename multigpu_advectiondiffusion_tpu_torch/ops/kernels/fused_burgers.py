@@ -1,0 +1,308 @@
+"""Fused SSP-RK3 Burgers/WENO5 stepping (JAX
+``ops/pallas/fused_burgers.py`` counterpart, WENO5-JS/Z on one device).
+
+Each RK stage is ONE kernel launch (K5, ``csrc/fused_burgers_stage.cu``):
+the Lax–Friedrichs split, the WENO5 flux divergence along z, y and x,
+the optional viscous O4 Laplacian and the RK combination, with the
+final stage of an adaptive run also emitting ``max|f'(u_next)|``.
+
+* The state is kept **unpadded**, ``(nz, ny, nx)`` float32. Edge
+  boundaries are replicated ghosts, so the kernel clamps every
+  neighbour index into the grid instead of keeping ghost cells: there
+  is no ghost to maintain, and ``embed``/``extract`` are a copy and a
+  view. (The TPU layout's (8, 128) tiles, y margins, x-ghost synthesis
+  and edge-block ghost writes have no purpose on a GPU and are gone.)
+* Three buffers per step, no allocation: ``T1 = s1(S)``,
+  ``T2 = s2(T1, S)``, ``S = s3(T2, S)`` in place.
+* ``dt`` is a 0-d float32 tensor on the device that the kernel reads
+  through a pointer, and the emitted maximum lands in a 0-d float32
+  tensor on the device, so an adaptive run needs no host round trip a
+  step (``stepper_base``'s device-scalar mode).
+* :func:`fused_burgers_stage` launches K5 for a CUDA tensor and raises
+  if it cannot; for a CPU tensor — and only then — it runs
+  :func:`stage_reference`, the plain PyTorch twin with the kernel's
+  layout, operation order and roundings: the e-form reconstruction
+  (``ops/weno._weno5_side_nd_e``), ``num * reciprocal(den)``, terms
+  z, y, x. K5 is built with ``-fmad=false``, so on the card kernel and
+  twin round alike.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from multigpu_advectiondiffusion_tpu_torch.ops.flux import Flux
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
+    _check,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
+    FusedStepperBase,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.weno import HALO, _weno5_side_nd_e
+from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import (
+    dt_from_wave_speed,
+    max_wave_speed,
+)
+
+R = HALO[5]  # WENO5 stencil radius
+O4_COEFFS = (-1.0, 16.0, -30.0, 16.0, -1.0)  # / (12 dx^2), Laplace3d.m:22-25
+
+# SSP-RK3 stage combinations u_next = a*u + b*(v + dt*L(v))
+STAGES = ((0.0, 1.0), (0.75, 0.25), (1.0 / 3.0, 2.0 / 3.0))
+
+SOURCE = "fused_burgers_stage.cu"
+# fused multiply-adds off: the kernel rounds every product and sum as
+# the twin does, so the two agree to the bit
+NVCC_EXTRA = ("-fmad=false", "-prec-div=true", "-ftz=false")
+# z planes one thread marches (each chunk recomputes one z face). 32
+# was the fastest of 8, 16, 32 alone at 512^3, by 1 % over 16
+# (chip_smoke.py's sweep, PERF.md).
+Z_CHUNK = 32
+FLUX_CODES = {"burgers": 0, "linear": 1, "buckley": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class StageParams:
+    """What one configuration's stages share: the flux, the WENO5
+    variant, ``1/dx`` per axis and the viscous taps ``c_j nu/(12 dx^2)``
+    (axis order z, y, x; ``None`` when inviscid), all rounded once to
+    float32 as the TPU kernel rounds them."""
+
+    flux: Flux
+    variant: str
+    inv_dx: tuple
+    lap_taps: Optional[tuple]
+
+
+def stage_params(flux: Flux, variant: str, spacing: Sequence[float],
+                 nu: float) -> StageParams:
+    if flux.name not in FLUX_CODES:
+        raise ValueError(f"no stage kernel for flux {flux.name!r}")
+    if variant not in ("js", "z"):
+        raise ValueError(f"unknown WENO5 variant {variant!r}; use 'js' or 'z'")
+    inv_dx = tuple(float(np.float32(1.0 / spacing[i])) for i in range(3))
+    taps = None
+    if nu:
+        taps = []
+        for i in range(3):
+            scale = float(nu) / (12.0 * spacing[i] * spacing[i])
+            taps += [float(np.float32(c * scale)) for c in O4_COEFFS]
+        taps = tuple(taps)
+    return StageParams(flux, variant, inv_dx, taps)
+
+
+# --------------------------------------------------------------------- #
+# The plain PyTorch twin
+# --------------------------------------------------------------------- #
+def _edge_pad(v: torch.Tensor, r: int) -> torch.Tensor:
+    """``v`` with ``r`` replicated ghosts on every side (clamped gather,
+    the kernel's neighbour indexing)."""
+    for axis, n in enumerate(v.shape):
+        idx = torch.arange(-r, n + r, device=v.device).clamp_(0, n - 1)
+        v = v.index_select(axis, idx)
+    return v
+
+
+def _split(flux: Flux, v):
+    """Local Lax–Friedrichs splitting ``f± = (f(v) ± |f'(v)| v)/2``
+    (``WENO5resAdv_X.m:58-60``); for the Burgers flux the identity
+    ``f± = t (t ± |v|)`` with ``t = v/2``."""
+    if flux.name == "burgers":
+        t = 0.5 * v
+        a = torch.abs(v)
+        return t * (t + a), t * (t - a)
+    a = torch.abs(flux.df(v))
+    fu = flux.f(v)
+    return 0.5 * (fu + a * v), 0.5 * (fu - a * v)
+
+
+def _divergence(P, M, axis: int, n: int, inv_dx: float, variant: str):
+    """``(h[i+1/2] - h[i-1/2]) * (1/dx)`` along ``axis`` of the split
+    fluxes ``P``/``M`` (padded by R on ``axis`` only). Face ``f`` sits
+    right of cell ``f-1``: its minus window is P at cells ``f-3..f+1``,
+    its plus window M at cells ``f-2..f+2``."""
+    p = [P.narrow(axis, j, n + 1) for j in range(5)]
+    m = [M.narrow(axis, j + 1, n + 1) for j in range(5)]
+    nm, dm = _weno5_side_nd_e(*(p[j + 1] - p[j] for j in range(4)),
+                              variant, "minus")
+    np_, dp = _weno5_side_nd_e(*(m[j + 1] - m[j] for j in range(4)),
+                               variant, "plus")
+    h = (p[2] + m[2]) + (nm * torch.reciprocal(dm)
+                         + np_ * torch.reciprocal(dp))
+    del p, m, nm, dm, np_, dp
+    return (h.narrow(axis, 1, n) - h.narrow(axis, 0, n)) * inv_dx
+
+
+def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
+                    b: float, emit: bool = False):
+    """Plain PyTorch twin of K5 on the same unpadded layout.
+
+    Writes ``out`` (which may be ``u``) and returns it, or
+    ``(out, max|f'(out)|)`` when ``emit``. Operation order and
+    roundings are the kernel's: ``rhs = -((div_z + div_y) + div_x)
+    [+ lap]``, ``rk = b*(v + dt*rhs)`` and ``a*u + rk``.
+    """
+    nz, ny, nx = v.shape
+    n = (nz, ny, nx)
+    dt = torch.as_tensor(dt, dtype=torch.float32, device=v.device)
+    vp = _edge_pad(v, R)
+    P, M = _split(params.flux, vp)
+    core = [slice(R, R + m) for m in n]
+    rhs = None
+    for axis in range(3):
+        idx = list(core)
+        idx[axis] = slice(None)
+        div = _divergence(P[tuple(idx)], M[tuple(idx)], axis, n[axis],
+                          params.inv_dx[axis], params.variant)
+        rhs = div if rhs is None else rhs + div
+        del div
+    del P, M
+    rhs = -rhs
+    if params.lap_taps is not None:
+        acc = None
+        for axis in range(3):
+            for j in range(5):
+                idx = list(core)
+                idx[axis] = slice(R - 2 + j, R - 2 + j + n[axis])
+                term = vp[tuple(idx)] * params.lap_taps[5 * axis + j]
+                acc = term if acc is None else acc + term
+        rhs = rhs + acc
+        del acc
+    rk = b * (v + dt * rhs)
+    if u is not None:
+        rk = a * u + rk
+    out.copy_(rk)
+    if emit:
+        return out, max_wave_speed(out, params.flux.df)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# The kernel
+# --------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built stage kernel (compiled at first use), argtypes set."""
+    lib = ctypes.CDLL(str(build.build(SOURCE, NVCC_EXTRA).path))
+    fn = lib.fused_burgers_stage
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, i, i, i, p, i, f, i, p, p, f, f, p, i, p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
+                        a: float, b: float, zchunk: int = Z_CHUNK):
+    """One fused RK stage: ``out <- stage(v, u)``.
+
+    ``u`` is ``None`` for the first stage and may be ``out`` (in-place
+    final stage); ``v`` must not be ``out``. ``dt`` is a float32 tensor
+    of one element on ``v``'s device (a float is accepted for a CPU
+    tensor). ``mx``, a float32 tensor of one element, receives
+    ``max|f'(out)|`` over every cell. Launches K5 on the current stream
+    (no synchronisation), each thread marching ``zchunk`` z planes, and
+    counts the launch in ``fused_burgers_stage.launches``; a CPU tensor
+    runs :func:`stage_reference`.
+    """
+    for name, t in (("v", v), ("u", u), ("out", out)):
+        if t is not None:
+            _check(name, t, v.shape, v.device)
+    if v.dim() != 3:
+        raise ValueError(f"3-D state expected, got {tuple(v.shape)}")
+    if v.data_ptr() == out.data_ptr():
+        raise ValueError("v and out must be different buffers")
+    if v.device.type == "cpu":
+        res = stage_reference(v, u, out, dt, params=params, a=a, b=b,
+                              emit=mx is not None)
+        if mx is None:
+            return res
+        mx.copy_(res[1].reshape(mx.shape))
+        return out
+    if v.device.type != "cuda":
+        raise ValueError(f"no stage kernel for device {v.device}")
+    for name, t in (("dt", dt), ("mx", mx)):
+        if name == "mx" and t is None:
+            continue  # no maximum asked for
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+                or t.numel() != 1 or t.device != v.device):
+            raise TypeError(f"{name}: a float32 tensor of one element on "
+                            f"{v.device} expected")
+    nz, ny, nx = v.shape
+    inv_dx = np.asarray(params.inv_dx, dtype=np.float32)
+    taps = (None if params.lap_taps is None
+            else np.asarray(params.lap_taps, dtype=np.float32))
+    c = params.flux.c if params.flux.c is not None else 0.0
+    with torch.cuda.device(v.device):
+        rc = library().fused_burgers_stage(
+            v.data_ptr(), None if u is None else u.data_ptr(),
+            out.data_ptr(), nz, ny, nx, dt.data_ptr(),
+            FLUX_CODES[params.flux.name], float(c),
+            int(params.variant == "z"), inv_dx.ctypes.data,
+            None if taps is None else taps.ctypes.data,
+            float(a), float(b), None if mx is None else mx.data_ptr(),
+            int(zchunk), torch.cuda.current_stream(v.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_burgers_stage launch failed: CUDA error {rc}")
+    fused_burgers_stage.launches += 1
+    return out
+
+
+fused_burgers_stage.launches = 0
+
+
+class FusedBurgersStepper(FusedStepperBase):
+    """Fused WENO5 runner for one (grid, flux, dt mode) configuration on
+    one device: ``dt`` fixes the step (CUDA-parity mode), else the CFL
+    step ``float32(cfl min dx) / max(m, 1e-12)`` follows the wave speed
+    ``m`` that the last stage of each step emits."""
+
+    device_scalars = True
+
+    def __init__(self, spacing, flux: Flux, variant: str, nu: float,
+                 cfl: float, device, dt: float | None = None):
+        self.dtype = torch.float32
+        self.device = torch.device(device)
+        self.params = stage_params(flux, variant, spacing, nu)
+        self.spacing = tuple(spacing)
+        self.cfl = float(cfl)
+        self.adaptive = dt is None
+        self.dt = None if dt is None else torch.full(
+            (), dt, dtype=torch.float32, device=self.device)
+
+    def embed(self, u):
+        return u.to(device=self.device, dtype=self.dtype,
+                    copy=True).contiguous()
+
+    def extract(self, S):
+        return S
+
+    def _buffers(self, u):
+        S = self.embed(u)
+        return S, torch.empty_like(S), torch.empty_like(S)
+
+    def _initial_max(self, u):
+        if not self.adaptive:
+            return None
+        return max_wave_speed(u.to(self.dtype), self.params.flux.df)
+
+    def _dt_of(self, m):
+        if not self.adaptive:
+            return self.dt
+        return dt_from_wave_speed(m, self.spacing, self.cfl)
+
+    def _step(self, S, T1, T2, dt, m):
+        kw = dict(params=self.params)
+        (a1, b1), (a2, b2), (a3, b3) = STAGES
+        fused_burgers_stage(S, None, T1, dt, a=a1, b=b1, **kw)
+        fused_burgers_stage(T1, S, T2, dt, a=a2, b=b2, **kw)
+        fused_burgers_stage(T2, S, S, dt, m, a=a3, b=b3, **kw)
+        return S, T1, T2

@@ -1,7 +1,8 @@
 """Initial conditions (JAX ``utils/ic.py`` counterpart).
 
-Only the analytic heat-kernel Gaussian of the diffusion main path is
-ported (``heat3d.m:33``: ``exp(-r²/(4 D t0))``); the other ICs of the
+Ported: the analytic heat-kernel Gaussian of the diffusion main path
+(``heat3d.m:33``: ``exp(-r²/(4 D t0))``) and the Burgers Gaussian
+(``LFWENO5FDM3d.m:58``: ``amp exp(-r²/width)``); the other ICs of the
 JAX registry raise until they are ported.
 """
 
@@ -14,6 +15,13 @@ import torch
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
 
 
+def gaussian(grid: Grid, dtype=torch.float32, device=None, amplitude=1.0,
+             width=0.1):
+    """``amp * exp(-r²/width)`` — DiffusionMPICUDA.h:58 and LFWENO5FDM3d.m:58."""
+    return (amplitude * torch.exp(-grid.radius_sq(dtype, device) / width)
+            ).to(dtype)
+
+
 def heat_kernel(grid: Grid, dtype=torch.float32, device=None, t0=0.1,
                 diffusivity=1.0):
     """Gaussian that solves the heat equation exactly (heat3d.m:33)."""
@@ -22,6 +30,7 @@ def heat_kernel(grid: Grid, dtype=torch.float32, device=None, t0=0.1,
 
 
 REGISTRY: Dict[str, Callable] = {
+    "gaussian": gaussian,
     "heat_kernel": heat_kernel,
 }
 
