@@ -43,7 +43,28 @@ ignored ``build/`` directory), then:
    idle share and the host enqueue, and reads the peak memory of the
    fused and the generic runs;
 7. a fixed-dt ``run(5)`` and ``advance_to(t0 + 4.5 dt0)`` (5 steps, 15
-   launches, landing on ``t_end``) against the generic path.
+   launches, landing on ``t_end``) against the generic path;
+8. holds the whole-run diffusion kernel (K7, one cooperative launch per
+   run) against its plain twin over 1 and 5 steps at 1001^2 and at an
+   odd small shape (``<= 32 eps`` of max|twin|, the ulp count printed);
+   times it alone for the main path's 10,000 steps, and the sync floor
+   (the same grid with the stage body off, its 3 barriers a step);
+9. drives the 2-D diffusion main path — 1001^2, lengths 10, float32,
+   ``impl="pallas"``, ``run(10000)`` (``SingleGPU/Diffusion2d/Run.m``) —
+   and checks the engaged stepper, one K7 launch, agreement with the
+   generic path at 100 steps and error norms of the generic path's size
+   at 10,000; times it (median of 3 after a warm-up) and profiles it for
+   the idle share; times ``conv2d`` computing the 2-D Laplacian alone;
+10. holds the whole-run Burgers kernel (K7 at fixed dt, K7a adaptive)
+   against its twin at 400^2 (the main configuration) and at the odd
+   shape (WENO5-Z, viscous, linear and Buckley-Leverett fluxes; the
+   adaptive time advance exactly); drives both Burgers 2-D paths —
+   400^2, lengths 2, WENO5-JS, inviscid, CFL 0.4, ``run(200)``
+   (``MultiGPU/Burgers2d_Baseline``) at fixed and at adaptive dt — with
+   one launch each, at most one device-to-host copy in a profiled
+   adaptive run, u inside [-1e-6, 1.05] and agreement with the generic
+   path; times the kernels alone, the sync floor and both paths;
+11. ``advance_to`` on 2-D grids runs the generic loop and says why.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -73,13 +94,21 @@ from multigpu_advectiondiffusion_tpu_torch import (
     Grid,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
+from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_burgers as fb,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_burgers2d as fb2,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_diffusion as fd,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_diffusion2d as fd2,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 
 EPS32 = float(np.finfo(np.float32).eps)
 KERNEL_TOL = 32 * EPS32  # relative to max|twin|, the JAX suite's fused bound
@@ -104,6 +133,27 @@ K5_ODD_CASES = (  # (flux, flux kwargs, variant, nu) at ODD_SHAPE
     ("linear", {"c": -0.7}, "js", 1e-5),
     ("buckley", {}, "z", 1e-5),
 )
+
+DIFF2D_N = 1001  # SingleGPU/Diffusion2d/Run.m:3-12: 1001^2, 10000 steps
+DIFF2D_ITERS = 10000
+DIFF2D_CHECK_ITERS = 100  # steps held against the generic path
+BURGERS2D_N = 400  # MultiGPU/Burgers2d_Baseline: 400^2, 200 steps
+BURGERS2D_ITERS = 200
+# steps held against the generic path: a shock forms at t ~ 0.37, and
+# past it the generic q-form and the fused e-form differ by up to 4e-3
+# at the shock (400^2, fixed dt, 200 steps, on the CPU); t = 0.2 is
+# before it. The kernels are held to their twins over all 200 steps.
+BURGERS2D_CHECK_ITERS = 100
+ODD_2D = (23, 37)  # (ny, nx) of an odd small 2-D grid
+K7_ODD_CASES = (  # (flux, flux kwargs, variant, nu) at ODD_2D
+    ("burgers", {}, "z", 0.0),
+    ("burgers", {}, "js", 1e-5),
+    ("linear", {"c": -0.7}, "js", 1e-5),
+    ("buckley", {}, "z", 1e-5),
+)
+# every launch counter, reset before each main path and read after it
+COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
+            "K7": wr.whole_run, "K7a": wr.whole_run_adaptive}
 
 
 def card_line() -> str:
@@ -154,6 +204,32 @@ def device_profile(fn) -> tuple[float, float, dict]:
     busy = sum(sum(v) for v in per_name.values())
     means = {k: statistics.mean(v) for k, v in per_name.items()}
     return (end - start) / 1e3, busy, means
+
+
+def reset_counts() -> None:
+    for counter in COUNTERS.values():
+        counter.launches = 0
+
+
+def counts() -> dict:
+    return {name: c.launches for name, c in COUNTERS.items()}
+
+
+def l2_copy_rate_gbs() -> float:
+    """Copy rate (read + write bytes) of a 12 MiB buffer into another,
+    both resident in the 50 MB L2: a CUDA graph of 50 copies, so no
+    launch gap counts."""
+    x = torch.rand(3 << 20, device="cuda")
+    y = torch.empty_like(x)
+    y.copy_(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(50):
+            y.copy_(x)
+    graph.replay()
+    ms = statistics.median(cuda_ms(graph.replay, 5))
+    return 2 * x.numel() * 4 * 50 / (ms * 1e-3) / 1e9
 
 
 def copy_rate_gbs() -> float:
@@ -594,6 +670,502 @@ def burgers_phases(card: str) -> dict:
     }
 
 
+# --------------------------------------------------------------------- #
+# K7 / K7a and the 2-D main paths
+# --------------------------------------------------------------------- #
+def k7_diffusion_ops(shape, steps: int) -> int:
+    """f32 operations a K7 diffusion run needs: per interior cell (band
+    2) and step, 10 products and 9 sums of taps, dt*acc, v+., b*. in
+    every stage, and a*u plus its sum in stages 2-3 — 22 + 24 + 24."""
+    return math.prod(n - 4 for n in shape) * 70 * steps
+
+
+def k7_burgers_ops(shape, steps: int, viscous: bool, variant: str,
+                   adaptive: bool) -> int:
+    """f32 operations a K7 Burgers run needs with each face computed
+    once, the count in ``csrc/whole_run_burgers2d.cu``'s note: split 6,
+    103 an axis (WENO5-Z 113), the divergences' sum and negation 2, the
+    Laplacian 20, the combine 5 (stage 1: 3); adaptive adds |f'| and its
+    max, 2 a cell."""
+    per_axis = 103 + (10 if variant == "z" else 0)
+    stage = 6 + 2 * per_axis + 2 + (20 if viscous else 0)
+    per_cell = 3 * stage + 3 + 5 + 5 + (2 if adaptive else 0)
+    return math.prod(shape) * per_cell * steps
+
+
+def run_bound(state_bytes: int, ops: int) -> tuple[float, str]:
+    """The least time (ms) of a whole run: the state read once and
+    written once at the HBM rate, or its operations at the f32 rate."""
+    by_bytes = 2 * state_bytes / HBM_BYTES_PER_S
+    by_ops = ops / F32_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), (
+        "operations" if by_ops >= by_bytes else "bytes")
+
+
+def median_ms(fn, reps: int = 3) -> float:
+    """Median of ``reps`` CUDA-event samples of one call, after a warm-up."""
+    fn()
+    return statistics.median(cuda_ms(fn, reps))
+
+
+def compare(name, got, want) -> tuple[float, int]:
+    """Kernel against twin: ``<= 32 eps`` of max|twin|; returns the
+    largest absolute difference and ulp distance."""
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    n_ulps = ulps(got, want)
+    print(f"  {name}: max|kernel-twin| = {err:.3e} ({rel / EPS32:.2f} eps "
+          f"of max|twin|, {n_ulps} ulp)")
+    if not rel <= KERNEL_TOL:
+        raise AssertionError(f"{name}: kernel differs from its twin: "
+                             f"{rel / EPS32:.2f} eps > 32 eps")
+    return err, n_ulps
+
+
+def run_profile(fn, kernel: str) -> dict | None:
+    """Run ``fn`` under ``torch.profiler``: device span and busy time, the
+    launches and mean time of kernels whose name holds ``kernel``, and
+    the device-to-host copies; ``None`` when the profiler saw no device
+    activity (the caller then times with CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    start = min(e.time_range.start for e in dev)
+    end = max(e.time_range.end for e in dev)
+    mine = [(e.time_range.end - e.time_range.start) / 1e3
+            for e in dev if kernel in e.name]
+    return {
+        "span_ms": (end - start) / 1e3,
+        "busy_ms": sum(e.time_range.end - e.time_range.start
+                       for e in dev) / 1e3,
+        "launches": len(mine),
+        "kernel_ms": statistics.mean(mine) if mine else float("nan"),
+        "dtoh": sum(1 for e in dev if "DtoH" in e.name),
+    }
+
+
+def count_reads(fn) -> int:
+    """Host reads of device scalars (``Tensor.item``, each one
+    device-to-host copy) in one call of ``fn``."""
+    n = [0]
+    item = torch.Tensor.item
+
+    def counted(self):
+        n[0] += 1
+        return item(self)
+
+    torch.Tensor.item = counted
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        torch.Tensor.item = item
+    return n[0]
+
+
+def profiler_sees_device() -> bool:
+    """Whether ``torch.profiler`` records a plain PyTorch kernel now."""
+    return run_profile(lambda: torch.ones(1 << 20, device="cuda") + 1,
+                       "") is not None
+
+
+def drive_path(name, solver, state0, iters: int, expect: str) -> dict:
+    """One main path: every count set to 0 just before ``run``, read just
+    after; ``expect``'s kernel must have launched once and no other."""
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "fused-whole-run":
+        raise AssertionError(f"{name} did not engage the whole-run rung")
+    reset_counts()
+    out = solver.run(state0, iters)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"  launches in run({iters}): {got}")
+    if got != {k: int(k == expect) for k in COUNTERS}:
+        raise AssertionError(f"{name}: expected one {expect} launch, {got}")
+    return {"out": out, "launches": got[expect]}
+
+
+def time_path(name, solver, state0, iters: int, kernel: str, card: str,
+              alone_ms: float):
+    """ms per run (median of 3 after a warm-up), ms/step, MLUPS, the host
+    reads of one run, and one profiled run: the kernel's time in it, the
+    idle share and the device-to-host copies. Where the profiler sees no
+    device activity, the kernel's time is ``alone_ms`` (CUDA events) and
+    the idle share and copies are not measured."""
+    reps = cuda_ms(lambda: solver.run(state0, iters), 4)[1:]
+    run_ms = statistics.median(reps)
+    mlups = solver.grid.num_cells * iters * 3 / (run_ms * 1e-3) / 1e6
+    reads = count_reads(lambda: solver.run(state0, iters))
+    prof = run_profile(lambda: solver.run(state0, iters), kernel)
+    line = (f"  {name} run({iters}): median {run_ms:.3f} ms of {len(reps)} "
+            f"reps {[round(r, 3) for r in reps]}; "
+            f"{run_ms / iters * 1e3:.3f} us/step; {mlups:.0f} MLUPS; host "
+            f"reads of device scalars {reads}")
+    if prof is None:
+        print(f"{line}; the profiler saw no device activity in the run (a "
+              f"plain kernel after it: {'seen' if profiler_sees_device() else 'not seen'}"
+              f"): kernel time from CUDA events alone, idle share and "
+              f"device-to-host copies not measured [{card}]")
+        kernel_ms, idle, dtoh = alone_ms, None, None
+    else:
+        kernel_ms, dtoh = prof["kernel_ms"], prof["dtoh"]
+        idle = 1.0 - prof["busy_ms"] / prof["span_ms"]
+        print(f"{line}; profiled: kernel {kernel_ms:.3f} ms "
+              f"({prof['launches']} launch), span {prof['span_ms']:.3f} ms, "
+              f"busy {prof['busy_ms']:.3f} ms, idle share {idle:.4f}, "
+              f"device-to-host copies {dtoh} [{card}]")
+        if prof["launches"] != 1:
+            raise AssertionError(f"{name}: the profiled run missed its "
+                                 "kernel")
+    return {"ms": kernel_ms, "run_ms": run_ms,
+            "ms_per_step": run_ms / iters, "mlups": mlups,
+            "device_idle_share": idle, "dtoh_copies": dtoh,
+            "host_reads": reads}
+
+
+def laplacian_conv2d_ms(spacing, shape) -> float:
+    """Yardstick: conv2d evaluating the 9-point 2-D O4 Laplacian alone
+    (no RK combine, no masks) on a padded float32 state, TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    w = torch.zeros((1, 1, 5, 5), dtype=torch.float32)
+    for axis in range(2):
+        scale = 1.0 / (12.0 * spacing[axis] ** 2)
+        for j, c in enumerate(fd.O4_COEFFS):
+            idx = [2, 2]
+            idx[axis] = j
+            w[(0, 0, *idx)] += c * scale
+    w = w.cuda()
+    x = torch.rand((1, 1) + tuple(n + 4 for n in shape), device="cuda")
+    conv = torch.nn.functional.conv2d
+    return median_ms(lambda: conv(x, w), 10)
+
+
+def diffusion2d_phases(card: str, l2_gbs: float) -> dict:
+    """Phases 8-9 and the diffusion half of 11; returns K7's entry."""
+    n, iters = DIFF2D_N, DIFF2D_ITERS
+    grid = Grid.make(n, n, lengths=10.0)
+    cfg = DiffusionConfig(grid=grid, dtype="float32", impl="pallas")
+    solver = DiffusionSolver(cfg)
+    taps = fd.stage_taps(grid.spacing, [cfg.diffusivity] * 2)
+    dt = solver.dt
+
+    print("phase 8: K7 (diffusion) against its twin")
+    probe = torch.zeros((40, 40), device="cuda")
+    seen = run_profile(lambda: fd2.whole_run_diffusion2d(
+        probe, probe.clone(), probe.clone(), 2, dt, taps=taps, band=2,
+        bc_value=0.0), "whole_run_kernel")
+    print("  the profiler on the first cooperative launch: "
+          + ("no device activity" if seen is None else
+             f"{seen['launches']} K7 launch, {seen['kernel_ms']:.4f} ms"))
+    err, n_ulps = 0.0, 0
+    for shape, bc, seed in ((grid.shape, 0.0, 8), (ODD_2D, 0.25, 81)):
+        kw = dict(taps=taps, band=2, bc_value=bc)
+        rng = np.random.default_rng(seed)
+        S0 = torch.full(tuple(m + 4 for m in shape), bc, device="cuda")
+        S0[2:-2, 2:-2] = torch.from_numpy(
+            rng.random(shape, dtype=np.float32)).cuda()
+        for steps in (1, 5):
+            want = wr.plain_run(
+                lambda v, u, o, d, a, b: fd2.stage_reference(
+                    v, u, o, d, a=a, b=b, **kw),
+                S0.clone(), S0.clone(), S0.clone(), steps, dt)
+            got = S0.clone()
+            fd2.whole_run_diffusion2d(got, S0.clone(), S0.clone(), steps,
+                                      dt, **kw)
+            torch.cuda.synchronize()
+            e, u = compare(f"K7 diffusion {steps} step(s) at {shape}", got,
+                           want)
+            err, n_ulps = max(err, e), max(n_ulps, u)
+    state0 = solver.initial_state()
+    fused = solver._fused_stepper()
+    S = fused.embed(state0.u)
+    T1, T2 = S.clone(), S.clone()
+    kw = dict(taps=taps, band=2, bc_value=0.0)
+    blocks = []
+    alone = median_ms(lambda: fd2.whole_run_diffusion2d(
+        S, T1, T2, iters, dt, grid_blocks=blocks, **kw))
+    floor = median_ms(lambda: fd2.whole_run_diffusion2d(
+        S, T1, T2, iters, dt, sync_floor=True, **kw))
+    state_bytes = 4 * S.numel()
+    bound_ms, bound_by = run_bound(state_bytes,
+                                   k7_diffusion_ops(grid.shape, iters))
+    l2_ms = 32 * S.numel() * iters / (l2_gbs * 1e9) * 1e3
+    plain_S = fused.embed(state0.u)
+    plain_ms = cuda_ms(lambda: wr.plain_run(
+        lambda v, u, o, d, a, b: fd2.stage_reference(v, u, o, d, a=a, b=b,
+                                                     **kw),
+        plain_S, T1, T2, iters, dt), 1)[0]
+    got = fused.embed(state0.u)
+    fd2.whole_run_diffusion2d(got, plain_S.clone(), plain_S.clone(), iters,
+                              dt, **kw)
+    torch.cuda.synchronize()
+    e, u = compare(f"K7 diffusion {iters} steps at {grid.shape} (the main "
+                   "path's initial state)", got, plain_S)
+    err, n_ulps = max(err, e), max(n_ulps, u)
+    del got, plain_S
+    print(f"  K7 alone, run({iters}) at {n}^2: {alone:.3f} ms "
+          f"({alone / iters * 1e3:.3f} us/step) on {blocks[0]} blocks of "
+          f"256; sync floor {floor:.3f} ms ({floor / iters * 1e3:.3f} "
+          f"us/step, 3 barriers a step); bound {bound_ms:.3f} ms "
+          f"({bound_by}); through L2 at the measured copy rate "
+          f"{l2_ms:.3f} ms; twin {plain_ms:.1f} ms [{card}]")
+    del S, T1, T2
+
+    print(f"phase 9: diffusion 2-D main path, run({iters}) at {n}^2")
+    res = drive_path("diffusion 2-D", solver, state0, iters, "K7")
+    generic = DiffusionSolver(dataclasses.replace(cfg, impl="xla"))
+    gout = generic.run(state0, iters)
+    if res["out"].t != gout.t:
+        raise AssertionError(f"t differs: {res['out'].t} vs {gout.t}")
+    fn, gn = solver.error_norms(res["out"]), generic.error_norms(gout)
+    print(f"  error vs exact at t={float(gout.t):.6f}: fused L1 {fn.l1:.4e} "
+          f"L2 {fn.l2:.4e} Linf {fn.linf:.4e}; generic L1 {gn.l1:.4e} "
+          f"L2 {gn.l2:.4e} Linf {gn.linf:.4e}")
+    # of the generic path's size: finite and at most twice its norms.
+    # After 10,000 float32 steps both are mostly rounding, which the two
+    # paths accumulate differently (taps with K folded in, another sum
+    # order), so they differ by more than their states do at 100 steps.
+    if not all(math.isfinite(x) and x <= 2 * y for x, y in zip(fn, gn)):
+        raise AssertionError(f"error norms out of range: {fn} vs {gn}")
+    assert_matches(f"run({DIFF2D_CHECK_ITERS})",
+                   solver.run(state0, DIFF2D_CHECK_ITERS).u,
+                   generic.run(state0, DIFF2D_CHECK_ITERS).u)
+    del gout
+    timing = time_path("diffusion 2-D", solver, state0, iters,
+                       "whole_run_kernel", card, alone)
+    lib_ms = laplacian_conv2d_ms(grid.spacing, grid.shape)
+    print(f"  conv2d 9-point Laplacian alone, TF32 off: {lib_ms:.4f} ms "
+          f"[{card}] (one of the run's {3 * iters} stage evaluations, "
+          "without the combine and walls)")
+
+    print("phase 11: advance_to() on the 2-D diffusion grid")
+    check_advance_generic(solver, generic, state0, 4.5 * dt)
+    return {
+        "name": "whole_run_diffusion2d",
+        "id": "K7",
+        "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "whole_run_diffusion2d.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "whole_run.py:28",
+        "launches": res["launches"],
+        "max_abs_err": err,
+        "max_ulps": n_ulps,
+        # per run of the main path (10,000 steps, one launch)
+        **timing,
+        "ms_isolated": alone,
+        "sync_floor_ms": floor,
+        "grid_blocks": blocks[0],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "l2_traffic_ms": l2_ms,
+        "library_ms": lib_ms,
+        "library_call": "torch.nn.functional.conv2d, one 9-point "
+                        "Laplacian (one stage's stencil of 30,000 in the "
+                        "run)",
+    }
+
+
+def check_advance_generic(solver, generic, state0, span: float) -> None:
+    """``advance_to`` on a whole-run config: the generic loop, no kernel,
+    the fault-1 reason, the generic path's result to the bit."""
+    path = solver.engaged_path("t_end")
+    print(f"  engaged (t_end): {path}")
+    want_reason = ("fused-whole-run stepper has no run_to; t_end mode runs "
+                   "the generic loop")
+    if path["stepper"] != "generic-xla" or path["fallback"] != want_reason:
+        raise AssertionError(f"advance_to engaged {path}")
+    t_end = float(state0.t) + span
+    reset_counts()
+    adv = solver.advance_to(state0, t_end)
+    torch.cuda.synchronize()
+    gadv = generic.advance_to(state0, t_end)
+    print(f"  advance_to: {adv.it} steps, launches {counts()}, t "
+          f"{float(adv.t)!r} vs t_end {t_end!r}")
+    if any(counts().values()) or adv.it != 5 or not torch.equal(adv.u,
+                                                                gadv.u):
+        raise AssertionError("advance_to did not run the generic loop")
+
+
+def burgers2d_phases(card: str, l2_gbs: float) -> dict:
+    """Phase 10 and the Burgers half of 11; returns K7/K7a's entry."""
+    n, iters = BURGERS2D_N, BURGERS2D_ITERS
+    grid = Grid.make(n, n, lengths=2.0)
+    cfg = BurgersConfig(grid=grid, dtype="float32", impl="pallas",
+                        adaptive_dt=False)
+    acfg = dataclasses.replace(cfg, adaptive_dt=True)
+    fixed, adaptive = BurgersSolver(cfg), BurgersSolver(acfg)
+    spacing, cfl = grid.spacing, cfg.cfl
+    dt = cfl * min(spacing)
+
+    def check(shape, params, sp, seed, steps, adapt):
+        rng = np.random.default_rng(seed)
+        S0 = torch.from_numpy(
+            rng.uniform(-0.1, 1.0, shape).astype(np.float32)).cuda()
+        T = [torch.empty_like(S0) for _ in range(4)]
+        stage = (lambda v, u, o, d, a, b: fb2.stage_reference(
+            v, u, o, d, params=params, a=a, b=b))
+        got = S0.clone()
+        label = (f"K7{'a' if adapt else ''} {steps} step(s) at {shape} "
+                 f"({params.flux.name}, {params.variant}, "
+                 f"{'viscous' if params.lap_taps else 'inviscid'})")
+        if adapt:
+            _, t_sum = fb2.whole_run_burgers2d(
+                got, T[0], T[1], steps, params=params, spacing=sp, cfl=cfl)
+            df = params.flux.df
+            want, want_t = wr.plain_run_adaptive(
+                stage, lambda u: pcfl.advective_dt(u, df, sp, cfl),
+                S0.clone(), T[2], T[3], steps)
+            if float(t_sum) != float(want_t):
+                raise AssertionError(f"{label}: t_sum {float(t_sum)!r} vs "
+                                     f"twin {float(want_t)!r}")
+            label += f", t_sum {float(t_sum)!r} equal"
+        else:
+            fb2.whole_run_burgers2d(got, T[0], T[1], steps, params=params,
+                                    dt=cfl * min(sp))
+            want = wr.plain_run(stage, S0.clone(), T[2], T[3], steps,
+                                cfl * min(sp))
+        torch.cuda.synchronize()
+        return compare(label, got, want)
+
+    print("phase 10: K7 (Burgers) and K7a against their twin")
+    params = fb.stage_params(fixed.flux, cfg.weno_variant, spacing, cfg.nu)
+    err, n_ulps = 0.0, 0
+    cases = [(grid.shape, params, spacing, 10, 1, False),
+             (grid.shape, params, spacing, 11, 5, False),
+             (grid.shape, params, spacing, 12, 5, True)]
+    odd_sp = (0.05, 0.07)
+    for i, (name, kw, variant, nu) in enumerate(K7_ODD_CASES):
+        p = fb.stage_params(pflux.get(name, **kw), variant, odd_sp, nu)
+        cases += [(ODD_2D, p, odd_sp, 100 + i, 5, False),
+                  (ODD_2D, p, odd_sp, 200 + i, 5, True)]
+    for case in cases:
+        e, u = check(*case)
+        err, n_ulps = max(err, e), max(n_ulps, u)
+
+    state0 = fixed.initial_state()
+    S = state0.u.clone()
+    T1, T2 = torch.empty_like(S), torch.empty_like(S)
+    blocks = []
+    alone = median_ms(lambda: fb2.whole_run_burgers2d(
+        S, T1, T2, iters, params=params, dt=dt, grid_blocks=blocks))
+    alone_a = median_ms(lambda: fb2.whole_run_burgers2d(
+        S, T1, T2, iters, params=params, spacing=spacing, cfl=cfl))
+    floor = median_ms(lambda: fb2.whole_run_burgers2d(
+        S, T1, T2, iters, params=params, dt=dt, sync_floor=True))
+    stage = (lambda v, u, o, d, a, b: fb2.stage_reference(
+        v, u, o, d, params=params, a=a, b=b))
+    # the twins over the main paths' whole runs, timed, and the kernels
+    # held against them from the same initial state
+    want = state0.u.clone()
+    plain = cuda_ms(lambda: wr.plain_run(stage, want, T1, T2, iters, dt),
+                    1)[0]
+    got = state0.u.clone()
+    fb2.whole_run_burgers2d(got, T1, T2, iters, params=params, dt=dt)
+    torch.cuda.synchronize()
+    e, u = compare(f"K7 {iters} steps at {grid.shape} (the main path's "
+                   "initial state)", got, want)
+    err, n_ulps = max(err, e), max(n_ulps, u)
+    want = state0.u.clone()
+    twin_t = []
+    plain_a = cuda_ms(lambda: twin_t.append(wr.plain_run_adaptive(
+        stage, lambda u: pcfl.advective_dt(u, fixed.flux.df, spacing, cfl),
+        want, T1, T2, iters)[1]), 1)[0]
+    got = state0.u.clone()
+    _, t_sum = fb2.whole_run_burgers2d(got, T1, T2, iters, params=params,
+                                       spacing=spacing, cfl=cfl)
+    torch.cuda.synchronize()
+    if float(t_sum) != float(twin_t[0]):
+        raise AssertionError(f"K7a t_sum {float(t_sum)!r} vs twin "
+                             f"{float(twin_t[0])!r}")
+    e, u = compare(f"K7a {iters} steps at {grid.shape} (the main path's "
+                   f"initial state), t_sum {float(t_sum)!r} equal", got, want)
+    err, n_ulps = max(err, e), max(n_ulps, u)
+    del got, want
+    bound = run_bound(4 * S.numel(), k7_burgers_ops(
+        grid.shape, iters, False, cfg.weno_variant, False))
+    bound_a = run_bound(4 * S.numel(), k7_burgers_ops(
+        grid.shape, iters, False, cfg.weno_variant, True))
+    l2_ms = 32 * S.numel() * iters / (l2_gbs * 1e9) * 1e3
+    print(f"  alone, run({iters}) at {n}^2 on {blocks[0]} blocks of 256: "
+          f"K7 {alone:.3f} ms, K7a {alone_a:.3f} ms; sync floor "
+          f"{floor:.3f} ms ({floor / iters * 1e3:.3f} us/step); bounds "
+          f"{bound[0]:.4f} / {bound_a[0]:.4f} ms ({bound[1]}); through L2 "
+          f"{l2_ms:.4f} ms; twins {plain:.1f} / {plain_a:.1f} ms [{card}]")
+    del S, T1, T2
+
+    entry = {}
+    for label, solver, key, alone_ms in (("fixed", fixed, "K7", alone),
+                                         ("adaptive", adaptive, "K7a",
+                                          alone_a)):
+        print(f"phase 10: Burgers 2-D main path, {label} dt, run({iters}) "
+              f"at {n}^2")
+        res = drive_path(f"Burgers 2-D {label}", solver, state0, iters, key)
+        out = res["out"]
+        generic = BurgersSolver(dataclasses.replace(solver.cfg, impl="xla"))
+        gout = generic.run(state0, iters)
+        lo, hi = float(out.u.min()), float(out.u.max())
+        print(f"  t = {float(out.t)!r} (generic {float(gout.t)!r}); u in "
+              f"[{lo!r}, {hi!r}]")
+        if not (math.isfinite(lo) and math.isfinite(hi)
+                and lo >= -1e-6 and hi <= 1.05):
+            raise AssertionError(f"u left [-1e-6, 1.05]: [{lo}, {hi}]")
+        if abs(float(out.t) - float(gout.t)) > 1e-5 * float(gout.t):
+            raise AssertionError(f"t differs: {out.t} vs {gout.t}")
+        print(f"  max|fused - generic| at run({iters}), past the shock: "
+              f"{float((out.u - gout.u).abs().max()):.3e} (not a check)")
+        check = BURGERS2D_CHECK_ITERS
+        assert_matches(f"{label} run({check})", solver.run(state0, check).u,
+                       generic.run(state0, check).u, rtol=2e-5, atol=2e-6)
+        del out, gout
+        timing = time_path(f"Burgers 2-D {label}", solver, state0, iters,
+                           "whole_run_kernel", card, alone_ms)
+        if (timing["dtoh_copies"] or 0) > 1 or timing["host_reads"] > 1:
+            raise AssertionError("the run copied to the host more than once")
+        entry[key] = {"launches": res["launches"], **timing}
+        if label == "fixed":
+            print("phase 11: advance_to() on the 2-D Burgers grid")
+            check_advance_generic(solver, generic, state0, 4.5 * dt)
+
+    return {
+        "name": "whole_run_burgers2d",
+        "id": "K7/K7a",
+        "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "whole_run_burgers2d.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "whole_run.py:28",
+        "replaces_adaptive": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                             "whole_run.py:75",
+        # the fixed-dt path (K7); "adaptive" holds K7a's numbers
+        **entry["K7"],
+        "max_abs_err": err,
+        "max_ulps": n_ulps,
+        "ms_isolated": alone,
+        "sync_floor_ms": floor,
+        "grid_blocks": blocks[0],
+        "plain_ms": plain,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "l2_traffic_ms": l2_ms,
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes a WENO5 "
+                        "stage",
+        "adaptive": {**entry["K7a"], "ms_isolated": alone_a,
+                     "plain_ms": plain_a, "bound_ms": bound_a[0],
+                     "bound_by": bound_a[1]},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -605,15 +1177,18 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, capability "
           f"{torch.cuda.get_device_capability(0)}")
     copy_gbs = copy_rate_gbs()
-    print(f"phase 0: device-to-device copy {copy_gbs:.1f} GB/s [{card}]")
+    l2_gbs = l2_copy_rate_gbs()
+    print(f"phase 0: device-to-device copy {copy_gbs:.1f} GB/s; L2-resident "
+          f"copy (12 MiB) {l2_gbs:.1f} GB/s [{card}]")
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(lambda args: build.build(*args), [
-            (fd.SOURCE, ()), (fb.SOURCE, fb.NVCC_EXTRA)]))
-    fd.library()
-    fb.library()
-    print(f"phase 0: built both kernels in "
+    sources = [(fd.SOURCE, ()), (fb.SOURCE, fb.NVCC_EXTRA),
+               (fd2.SOURCE, ()), (fb2.SOURCE, fb.NVCC_EXTRA)]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = list(pool.map(lambda args: build.build(*args), sources))
+    for lib in (fd.library, fb.library, fd2.library, fb2.library):
+        lib()
+    print(f"phase 0: built all {len(sources)} kernels in "
           f"{time.perf_counter() - t0:.2f} s (wall, in parallel)")
     for built in builds:
         print(f"  {built.path.name}: nvcc {built.seconds:.2f} s")
@@ -707,6 +1282,10 @@ def main() -> int:
 
     print("phases 5-7: Burgers/WENO5 (K5)")
     k5 = burgers_phases(card)
+    torch.cuda.empty_cache()
+    print("phases 8-11: the 2-D paths (K7, K7a)")
+    k7d = diffusion2d_phases(card, l2_gbs)
+    k7b = burgers2d_phases(card, l2_gbs)
 
     kernels = [{
         "name": "fused_diffusion_stage",
@@ -736,7 +1315,7 @@ def main() -> int:
         "device_idle_share": idle,
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
-    }, k5]
+    }, k5, k7d, k7b]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

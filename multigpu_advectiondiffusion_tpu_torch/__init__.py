@@ -7,12 +7,16 @@ find. It imports ``torch`` and numpy, never ``jax`` and never the JAX
 package.
 
 Ported so far, on one device, each with the generic PyTorch path
-(``impl="xla"``) and a fused per-stage rung (``impl="pallas"`` /
-``"pallas_stage"``) whose stage kernel is hand-written CUDA for Hopper:
+(``impl="xla"``) and a fused rung (``impl="pallas"``) whose kernel is
+hand-written CUDA for Hopper:
 
-* 3-D diffusion (``csrc/fused_diffusion_stage.cu``, K1);
-* 3-D Burgers / scalar conservation laws with WENO5
-  (``csrc/fused_burgers_stage.cu``, K5); WENO7 on the generic path.
+* 3-D diffusion, one launch per RK stage
+  (``csrc/fused_diffusion_stage.cu``, K1);
+* 3-D Burgers / scalar conservation laws with WENO5, one launch per RK
+  stage (``csrc/fused_burgers_stage.cu``, K5); WENO7 on the generic path;
+* 2-D diffusion and 2-D Burgers/WENO5, one cooperative launch per run
+  (``csrc/whole_run_diffusion2d.cu`` and ``csrc/whole_run_burgers2d.cu``,
+  K7 and K7a).
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

@@ -1,15 +1,20 @@
-"""Command-line interface of the port: the ``diffusion3d`` and
-``burgers3d`` verbs.
+"""Command-line interface of the port: the ``diffusion3d``,
+``burgers3d``, ``diffusion2d`` and ``burgers2d`` verbs.
 
     python -m multigpu_advectiondiffusion_tpu_torch.cli diffusion3d \
         --n 400 200 206 --lengths 10 5 5.15 --iters 101 --impl pallas \
         --save out/ --check-error
     python -m multigpu_advectiondiffusion_tpu_torch.cli burgers3d \
         --n 512 512 512 --iters 86 --nu 1e-5 --impl pallas
+    python -m multigpu_advectiondiffusion_tpu_torch.cli diffusion2d \
+        --n 1001 1001 --lengths 10 10 --iters 10000 --impl pallas
+    python -m multigpu_advectiondiffusion_tpu_torch.cli burgers2d \
+        --n 400 400 --lengths 2 2 --iters 200 --fixed-dt --impl pallas
 
 The flags are the JAX CLI's flags of the same names. The run goes to
 the GPU unless ``--device cpu`` is given. The summary names the kernel
-path that ran, as the JAX CLI's summary does. ``--save DIR`` writes
+path that ran, as the JAX CLI's summary does, and the launches of each
+hand-written kernel in the run. ``--save DIR`` writes
 ``initial.bin`` and ``result.bin`` in the reference's float32 layout.
 """
 
@@ -32,6 +37,11 @@ from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
     DiffusionSolver,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_burgers,
+    fused_diffusion,
+    whole_run,
+)
 from multigpu_advectiondiffusion_tpu_torch.timestepping.integrators import (
     STAGES,
 )
@@ -43,45 +53,50 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m multigpu_advectiondiffusion_tpu_torch.cli"
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("diffusion3d", help="3-D heat equation")
-    _common(p)
-    p.add_argument("--K", type=float, default=1.0,
-                   help="diffusivity (main.c arg 1)")
-    p.add_argument("--check-error", action="store_true",
-                   help="report L1/L2/Linf against the exact solution")
-    p.set_defaults(run=run_diffusion3d)
+    for ndim in (3, 2):
+        p = sub.add_parser(f"diffusion{ndim}d",
+                           help=f"{ndim}-D heat equation")
+        _common(p, ndim)
+        p.add_argument("--K", type=float, default=1.0,
+                       help="diffusivity (main.c arg 1)")
+        p.add_argument("--check-error", action="store_true",
+                       help="report L1/L2/Linf against the exact solution")
+        p.set_defaults(run=run_diffusion)
 
-    p = sub.add_parser("burgers3d",
-                       help="3-D Burgers / scalar conservation law")
-    _common(p)
-    p.add_argument("--flux", default="burgers",
-                   choices=["burgers", "linear", "buckley"])
-    p.add_argument("--weno-order", type=int, default=5, choices=[5, 7])
-    p.add_argument("--weno-variant", default="js", choices=["js", "z"])
-    p.add_argument("--cfl", type=float, default=0.4)
-    p.add_argument("--nu", type=float, default=0.0,
-                   help="viscosity (1e-5 in SingleGPU Burgers)")
-    p.add_argument("--fixed-dt", action="store_true",
-                   help="reference-parity dt = CFL*dx (hard-coded "
-                        "max|u|=1, Burgers3d_Baseline/main.c:193)")
-    p.set_defaults(run=run_burgers3d)
+        p = sub.add_parser(f"burgers{ndim}d",
+                           help=f"{ndim}-D Burgers / scalar conservation law")
+        _common(p, ndim)
+        p.add_argument("--flux", default="burgers",
+                       choices=["burgers", "linear", "buckley"])
+        p.add_argument("--weno-order", type=int, default=5, choices=[5, 7])
+        p.add_argument("--weno-variant", default="js", choices=["js", "z"])
+        p.add_argument("--cfl", type=float, default=0.4)
+        p.add_argument("--nu", type=float, default=0.0,
+                       help="viscosity (1e-5 in SingleGPU Burgers)")
+        p.add_argument("--fixed-dt", action="store_true",
+                       help="reference-parity dt = CFL*dx (hard-coded "
+                            "max|u|=1, Burgers3d_Baseline/main.c:193)")
+        p.set_defaults(run=run_burgers)
     return parser
 
 
-def _common(p) -> None:
-    """The flags both verbs share, as the JAX CLI names them."""
-    p.add_argument("--n", type=int, nargs=3, required=True,
-                   metavar=("NX", "NY", "NZ"),
-                   help="grid nodes per physical axis (x y z)")
-    p.add_argument("--lengths", type=float, nargs=3, default=None,
-                   help="physical extents (L W H); domain centered at 0")
+def _common(p, ndim: int) -> None:
+    """The flags every verb shares, as the JAX CLI names them."""
+    names = ("NX", "NY", "NZ")[:ndim]
+    p.add_argument("--n", type=int, nargs=ndim, required=True,
+                   metavar=names,
+                   help="grid nodes per physical axis "
+                        f"({' '.join(n[-1].lower() for n in names)})")
+    p.add_argument("--lengths", type=float, nargs=ndim, default=None,
+                   help="physical extents; domain centered at 0")
     p.add_argument("--iters", type=int, default=None,
                    help="fixed iteration count (reference main.c mode)")
     p.add_argument("--t-end", type=float, default=None,
                    help="march to this simulated time instead of --iters")
     p.add_argument("--impl", default="xla", choices=IMPLS,
-                   help="kernel rung: xla (generic) or pallas/pallas_stage "
-                        "(fused CUDA stage kernel)")
+                   help="kernel rung: xla (generic) or pallas (fused: "
+                        "the CUDA stage kernel in 3-D, the whole-run "
+                        "kernel in 2-D)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--save", default=None, metavar="DIR",
@@ -96,25 +111,35 @@ def _sync(device: torch.device) -> None:
 
 
 def _grid(args) -> Grid:
-    lengths = args.lengths if args.lengths is not None else [2.0] * 3
+    lengths = (args.lengths if args.lengths is not None
+               else [2.0] * len(args.n))
     return Grid.make(*args.n, lengths=lengths)
 
 
-def run_diffusion3d(args) -> int:
-    grid = _grid(args)
-    cfg = DiffusionConfig(grid=grid, diffusivity=args.K, dtype=args.dtype,
-                          impl=args.impl)
-    return _drive("diffusion3d", DiffusionSolver(cfg, device=args.device),
+def run_diffusion(args) -> int:
+    cfg = DiffusionConfig(grid=_grid(args), diffusivity=args.K,
+                          dtype=args.dtype, impl=args.impl)
+    return _drive(args.command, DiffusionSolver(cfg, device=args.device),
                   args)
 
 
-def run_burgers3d(args) -> int:
+def run_burgers(args) -> int:
     cfg = BurgersConfig(
         grid=_grid(args), flux=args.flux, weno_order=args.weno_order,
         weno_variant=args.weno_variant, cfl=args.cfl, nu=args.nu,
         adaptive_dt=not args.fixed_dt, dtype=args.dtype, impl=args.impl,
     )
-    return _drive("burgers3d", BurgersSolver(cfg, device=args.device), args)
+    return _drive(args.command, BurgersSolver(cfg, device=args.device),
+                  args)
+
+
+# the launch counter of each hand-written kernel, by name
+_COUNTERS = {
+    "K1 fused_diffusion_stage": fused_diffusion.fused_stage,
+    "K5 fused_burgers_stage": fused_burgers.fused_burgers_stage,
+    "K7 whole_run": whole_run.whole_run,
+    "K7a whole_run_adaptive": whole_run.whole_run_adaptive,
+}
 
 
 def _drive(verb: str, solver, args) -> int:
@@ -127,6 +152,8 @@ def _drive(verb: str, solver, args) -> int:
     mode = "iters" if args.t_end is None else "t_end"
     engaged = solver.engaged_path(mode)
 
+    for counter in _COUNTERS.values():
+        counter.launches = 0
     _sync(solver.device)
     t0 = time.perf_counter()
     if args.t_end is None:
@@ -152,6 +179,9 @@ def _drive(verb: str, solver, args) -> int:
     print(f" kernel path        : {line}")
     if engaged["fallback"]:
         print(f" fused fallback     : {engaged['fallback']}")
+    launched = [f"{name} x{c.launches}" for name, c in _COUNTERS.items()
+                if c.launches]
+    print(f" kernel launches    : {', '.join(launched) or 'none'}")
     print(f" iterations         : {iters} x {stages} RK stages")
     print(f" simulated time     : {float(out.t):.6f}")
     print(f" wall time          : {seconds:.4f} s")

@@ -169,15 +169,27 @@ class SolverBase:
         """Which kernel strategy executes for this config.
 
         Keys as in the JAX package: ``impl`` (requested), ``stepper``
-        (``fused-stage`` or ``generic-xla``), ``overlap``,
+        (``fused-stage``, ``fused-whole-run`` or ``generic-xla``), ``overlap``,
         ``steps_per_exchange``, ``exchange``, ``storage_dtype``,
         ``precision``, and ``fallback`` — why a requested rung did not
         run, or ``None``. Unlike the JAX package, a fused run may carry
         a ``fallback`` too: the reason a rung the JAX package would pick
         instead is not available here.
+
+        ``mode="t_end"`` mirrors :meth:`advance_to`: a fused stepper
+        without ``run_to`` (the whole-run steppers) leaves it to the
+        generic loop, and ``fallback`` says so.
         """
         impl = self.cfg.impl
         fused = self._fused_stepper(mode)
+        if fused is not None and mode == "t_end" and not hasattr(
+            fused, "run_to"
+        ):
+            self._fused_fallback = (
+                f"{fused.engaged_label} stepper has no run_to; "
+                "t_end mode runs the generic loop"
+            )
+            fused = None
         if fused is not None:
             stepper = fused.engaged_label
             storage = fused.dtype
@@ -224,7 +236,7 @@ class SolverBase:
 
     def _advance_impl(self, state: SolverState, t_end: float) -> SolverState:
         fused = self._fused_stepper(mode="t_end")
-        if fused is not None:
+        if fused is not None and hasattr(fused, "run_to"):
             u, t, steps = fused.run_to(state.u, state.t, t_end)
             return SolverState(u=u, t=t, it=state.it + steps)
         tdt = type(state.t)

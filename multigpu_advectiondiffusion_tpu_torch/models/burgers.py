@@ -1,6 +1,6 @@
 """Burgers / scalar conservation-law solver
 ``u_t + sum_axis d f(u)/dx_axis = nu lap(u)`` (JAX ``models/burgers.py``
-counterpart: 3-D Cartesian, one device).
+counterpart: 2-D and 3-D Cartesian, one device).
 
 * WENO5-JS (``Matlab_Prototipes/InviscidBurgersNd/LFWENO5FDM3d.m``,
   ``MultiGPU/Burgers3d_Baseline``), WENO5-Z
@@ -16,17 +16,23 @@ Kernel rungs (``impl``):
 
 * ``"xla"`` — the generic plain-PyTorch path, no kernel: WENO5-JS/Z and
   WENO7, every flux, viscous or not, fixed or adaptive dt;
-* ``"pallas"`` / ``"pallas_stage"`` — the fused per-stage stepper, one
-  hand-written CUDA kernel launch (K5) per RK stage
+* 3-D ``"pallas"`` / ``"pallas_stage"`` — the fused per-stage stepper,
+  one hand-written CUDA kernel launch (K5) per RK stage
   (:mod:`ops.kernels.fused_burgers`), WENO5-JS/Z. Where the JAX
   package's ``"pallas"`` would consider its fixed-dt slab rung (K6),
   that rung is not ported: the per-stage stepper runs and
-  ``engaged_path()`` says so. A config the fused rung declines runs the
-  generic path, with the reason;
-* ``"pallas_slab"``, ``"pallas_step"``, ``"pallas_axis"``, ``"auto"`` —
-  not ported: construction raises ``NotImplementedError``, as it does
-  for WENO7 on the fused rung, 1-D/2-D grids, ``precision="bf16"`` and
-  mesh options.
+  ``engaged_path()`` says so;
+* 2-D ``"pallas"``, ``"pallas_stage"``, ``"pallas_step"`` and
+  ``"pallas_slab"`` — the whole-run stepper, one cooperative CUDA launch
+  per ``run`` (:mod:`ops.kernels.fused_burgers2d`: K7 at fixed dt, K7a
+  adaptive), WENO5-JS/Z, as every fused flavor runs the whole-run
+  stepper in 2-D in the JAX package;
+* a config the fused rungs decline runs the generic path, with the
+  reason;
+* 3-D ``"pallas_slab"`` and ``"pallas_step"``, and ``"pallas_axis"``
+  and ``"auto"`` everywhere — not ported: construction raises
+  ``NotImplementedError``, as it does for WENO7 on a fused rung, 1-D
+  grids, ``precision="bf16"`` and mesh options.
 """
 
 from __future__ import annotations
@@ -47,6 +53,9 @@ from multigpu_advectiondiffusion_tpu_torch.ops import flux as flux_lib
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_burgers import (
     FusedBurgersStepper,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_burgers2d import (
+    FusedBurgers2DStepper,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import laplacian
 from multigpu_advectiondiffusion_tpu_torch.ops.weno import HALO, flux_divergence
 from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import advective_dt
@@ -54,13 +63,17 @@ from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import advective_dt
 # The JAX rungs whose kernels are not ported yet, with the kernel each
 # needs (ids as in PERF.md's kernel table).
 _UNPORTED_IMPLS = {
+    "pallas_axis": "K12, the per-axis WENO kernel "
+                   "(weno.flux_divergence_pallas)",
+    "auto": "the measured tuner that resolves impl='auto'",
+}
+# ... and those unported on 3-D grids only: on a 2-D grid they run the
+# whole-run stepper (K7/K7a), as in the JAX package
+_UNPORTED_3D_IMPLS = {
     "pallas_slab": "K6, the fused Burgers slab step run through K2/K3 "
                    "(fused_slab_run.SlabRunBurgersStepper)",
     "pallas_step": "K12, the per-axis WENO kernel (weno.flux_divergence_"
                    "pallas), which Burgers runs for this flavor",
-    "pallas_axis": "K12, the per-axis WENO kernel "
-                   "(weno.flux_divergence_pallas)",
-    "auto": "the measured tuner that resolves impl='auto'",
 }
 
 
@@ -129,16 +142,16 @@ class BurgersSolver(SolverBase):
         """Raise on a config whose JAX path the port cannot run yet,
         rather than run something else under its name."""
         cfg = self.cfg
-        if cfg.impl in _UNPORTED_IMPLS:
+        unported = dict(_UNPORTED_IMPLS)
+        if self.grid.ndim == 3:
+            unported.update(_UNPORTED_3D_IMPLS)
+        if cfg.impl in unported:
             raise NotImplementedError(
-                f"impl={cfg.impl!r} needs {_UNPORTED_IMPLS[cfg.impl]}, "
+                f"impl={cfg.impl!r} needs {unported[cfg.impl]}, "
                 "which is not ported yet"
             )
-        if self.grid.ndim != 3:
-            raise NotImplementedError(
-                "1-D/2-D Burgers is not ported yet (its fused kernels are "
-                "K7 and K8)"
-            )
+        if self.grid.ndim == 1:
+            raise NotImplementedError("1-D Burgers is not ported yet")
         if cfg.precision != "native":
             raise NotImplementedError(
                 f"precision={cfg.precision!r} storage is not ported yet"
@@ -150,8 +163,9 @@ class BurgersSolver(SolverBase):
             )
         if (cfg.weno_order == 7 and is_pallas_impl(cfg.impl)
                 and self._fused_reason() is None):
+            kernel = "K5's" if self.grid.ndim == 3 else "K7's"
             raise NotImplementedError(
-                "WENO7 on the fused rung needs K5's order-7 instance, "
+                f"WENO7 on the fused rung needs {kernel} order-7 instance, "
                 "which is not ported yet (impl='xla' runs WENO7)"
             )
 
@@ -207,13 +221,15 @@ class BurgersSolver(SolverBase):
         return LocalPhysics(rhs=rhs, static_dt=self.dt)
 
     # ------------------------------------------------------------------ #
-    # Fused per-stage fast path (one device, edge BCs, WENO5)
+    # Fused fast paths (one device, edge BCs, WENO5)
     # ------------------------------------------------------------------ #
     def _fused_reason(self):
-        """Why the fused per-stage rung cannot serve this config, or
-        ``None``: the JAX package's eligibility (``models/burgers.py``
-        ``_fused_stepper``) for one device. Its TPU VMEM tiling gate has
-        no counterpart: K5 needs no block to fit a fast memory."""
+        """Why the fused rung cannot serve this config, or ``None``: the
+        JAX package's eligibility (``models/burgers.py``
+        ``_fused_stepper``) for one device. Its TPU VMEM gates become
+        the card's: none for K5, which needs no block to fit a fast
+        memory, and for the 2-D whole-run stepper (K7) the state fitting
+        the L2 (:meth:`FusedBurgers2DStepper.supported`)."""
         cfg = self.cfg
         if (cfg.weno_order, cfg.weno_variant) not in {
             (5, "js"), (5, "z"), (7, "js")
@@ -227,11 +243,18 @@ class BurgersSolver(SolverBase):
             return "fused kernels are float32-only"
         if not all(b.kind == "edge" for b in self.bcs):
             return "fused ghost discipline needs edge BCs"
+        if self.grid.ndim == 2 and not FusedBurgers2DStepper.supported(
+            self.grid.shape, self.dtype
+        ):
+            return "2-D grid exceeds the whole-run L2 budget"
         return None
 
     def _fused_stepper(self, mode: str = "iters"):
         """The fused SSP-RK3 stepper when this config is eligible, else
-        ``None`` (generic path, reason recorded)."""
+        ``None`` (generic path, reason recorded): the whole-run stepper
+        (K7/K7a) on a 2-D grid, which has no ``run_to`` (``advance_to``
+        runs the generic loop), the per-stage stepper (K5) on a 3-D
+        one."""
         cfg = self.cfg
         self._fused_fallback = None
         if not is_pallas_impl(cfg.impl):
@@ -244,6 +267,14 @@ class BurgersSolver(SolverBase):
                 reason += ("; per-axis kernels K11/K12 not ported, plain "
                            "PyTorch runs")
             return self._decline(reason)
+        if self.grid.ndim == 2:
+            if "fused" not in self._cache:
+                self._cache["fused"] = FusedBurgers2DStepper(
+                    self.grid.shape, self.grid.spacing, self.flux,
+                    cfg.weno_variant, cfg.nu, self.device, dt=self.dt,
+                    cfl=cfg.cfl if cfg.adaptive_dt else None,
+                )
+            return self._cache["fused"]
         if mode != "t_end" and not cfg.adaptive_dt and cfg.impl == "pallas":
             self._fused_fallback = "slab rung K6 not ported; not considered"
         if "fused" not in self._cache:

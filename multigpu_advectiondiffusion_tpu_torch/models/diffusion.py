@@ -1,5 +1,6 @@
 """Heat / diffusion equation solver ``u_t = K lap(u) + S(u)``
-(JAX ``models/diffusion.py`` counterpart: 3-D Cartesian, one device).
+(JAX ``models/diffusion.py`` counterpart: 2-D and 3-D Cartesian, one
+device).
 
 Reference-parity behavior (on by default): the Laplacian is zeroed on
 the 2-cell boundary band (``Laplace3d.m:21``) and Dirichlet faces are
@@ -8,13 +9,19 @@ re-clamped after every stage (``heat3d.m:65-67``).
 Kernel rungs (``impl``):
 
 * ``"xla"`` — the generic plain-PyTorch path, no kernel;
-* ``"pallas"`` / ``"pallas_stage"`` — the fused per-stage stepper, one
-  hand-written CUDA kernel launch per RK stage
-  (:mod:`ops.kernels.fused_diffusion`). Where the JAX package's
+* 3-D ``"pallas"`` / ``"pallas_stage"`` — the fused per-stage stepper,
+  one hand-written CUDA kernel launch per RK stage
+  (:mod:`ops.kernels.fused_diffusion`, K1). Where the JAX package's
   ``"pallas"`` would pick its whole-run slab rung, that rung is not
   ported: the per-stage stepper runs and ``engaged_path()`` says why;
-* ``"pallas_slab"``, ``"pallas_step"``, ``"pallas_axis"``, ``"auto"`` —
-  not ported: construction raises ``NotImplementedError``.
+* 2-D ``"pallas"``, ``"pallas_stage"``, ``"pallas_step"`` and
+  ``"pallas_slab"`` — the whole-run stepper, one cooperative CUDA launch
+  per ``run`` (:mod:`ops.kernels.fused_diffusion2d`, K7), as every fused
+  flavor runs the whole-run stepper in 2-D in the JAX package;
+* 3-D ``"pallas_slab"`` and ``"pallas_step"``, and ``"pallas_axis"``
+  and ``"auto"`` everywhere — not ported: construction raises
+  ``NotImplementedError``, as it does for 1-D grids, the axisymmetric
+  geometry and bf16 storage.
 """
 
 from __future__ import annotations
@@ -35,6 +42,9 @@ from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_pallas_impl
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     FusedDiffusionStepper,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion2d import (
+    FusedDiffusion2DStepper,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import laplacian
 from multigpu_advectiondiffusion_tpu_torch.ops.stencils import (
     boundary_band_mask,
@@ -46,13 +56,17 @@ from multigpu_advectiondiffusion_tpu_torch.utils import metrics
 # The JAX rungs whose kernels are not ported yet, with the kernel each
 # needs (ids as in PERF.md's kernel table).
 _UNPORTED_IMPLS = {
+    "pallas_axis": "K11, the per-axis Laplacian kernel "
+                   "(laplacian.laplacian_o4_3d/_2d)",
+    "auto": "the measured tuner that resolves impl='auto'",
+}
+# ... and those unported on 3-D grids only: on a 2-D grid they run the
+# whole-run stepper (K7), as in the JAX package
+_UNPORTED_3D_IMPLS = {
     "pallas_slab": "K2, the whole-run slab kernel "
                    "(fused_slab_run._whole_run_kernel)",
     "pallas_step": "K10, the whole-step kernel "
                    "(fused_diffusion_step._step_kernel)",
-    "pallas_axis": "K11, the per-axis Laplacian kernel "
-                   "(laplacian.laplacian_o4_3d)",
-    "auto": "the measured tuner that resolves impl='auto'",
 }
 
 
@@ -151,13 +165,16 @@ class DiffusionSolver(SolverBase):
         """Raise on a config whose JAX path the port cannot run yet,
         rather than run something else under its name."""
         cfg = self.cfg
-        if cfg.impl in _UNPORTED_IMPLS:
+        unported = dict(_UNPORTED_IMPLS)
+        if self.grid.ndim == 3:
+            unported.update(_UNPORTED_3D_IMPLS)
+        if cfg.impl in unported:
             raise NotImplementedError(
-                f"impl={cfg.impl!r} needs {_UNPORTED_IMPLS[cfg.impl]}, "
+                f"impl={cfg.impl!r} needs {unported[cfg.impl]}, "
                 "which is not ported yet"
             )
-        if self.grid.ndim != 3:
-            raise NotImplementedError("1-D/2-D diffusion is not ported yet")
+        if self.grid.ndim == 1:
+            raise NotImplementedError("1-D diffusion is not ported yet")
         if cfg.geometry != "cartesian":
             raise NotImplementedError(
                 "axisymmetric diffusion is not ported yet"
@@ -171,7 +188,8 @@ class DiffusionSolver(SolverBase):
                 "steps_per_exchange/exchange need a device mesh, which is "
                 "not ported yet"
             )
-        if is_pallas_impl(cfg.impl) and self.dtype == torch.float64:
+        if (is_pallas_impl(cfg.impl) and self.dtype == torch.float64
+                and self.grid.ndim == 3):
             raise NotImplementedError(
                 f"dtype=float64 with impl={cfg.impl!r}: the JAX package "
                 "runs float64 storage on its float32 kernels; that rung "
@@ -242,13 +260,16 @@ class DiffusionSolver(SolverBase):
         return LocalPhysics(rhs=rhs, static_dt=self.dt, post=post)
 
     # ------------------------------------------------------------------ #
-    # Fused per-stage fast path (one device, reference-parity walls)
+    # Fused fast paths (one device, reference-parity walls)
     # ------------------------------------------------------------------ #
     def _fused_stepper(self, mode: str = "iters"):
         """The fused SSP-RK3 stepper when this config is eligible, else
-        ``None`` (generic path, reason recorded). Eligibility mirrors
-        what the kernel bakes in: frozen Dirichlet ghosts and boundary
-        band, static dt, 3-D Cartesian O4, float32."""
+        ``None`` (generic path, reason recorded): the whole-run stepper
+        (K7) on a 2-D grid, the per-stage stepper (K1) on a 3-D one.
+        Eligibility mirrors what the kernels bake in: frozen Dirichlet
+        ghosts and boundary band, static dt, Cartesian O4, float32. The
+        whole-run stepper has no ``run_to``, so ``advance_to`` runs the
+        generic loop (``models/base.py``)."""
         cfg = self.cfg
         self._fused_fallback = None
         if not is_pallas_impl(cfg.impl):
@@ -274,6 +295,12 @@ class DiffusionSolver(SolverBase):
             return decline(
                 "fused walls need reference_parity with boundary_band >= 1"
             )
+        if self.dtype == torch.float64:  # 2-D only: 3-D raises at __init__
+            # the JAX package's generic path runs XLA here too (its
+            # per-axis kernels are float32-only)
+            return self._decline(
+                "f64 storage rides the 3-D fused steppers, single-chip only"
+            )
         bcs = self.bcs
         if not all(b.kind == "dirichlet" for b in bcs) or not all(
             b.value == bcs[0].value for b in bcs
@@ -281,6 +308,8 @@ class DiffusionSolver(SolverBase):
             return decline(
                 "fused walls need uniform Dirichlet BCs on every axis"
             )
+        if self.grid.ndim == 2:
+            return self._whole_run_stepper()
         if (mode != "t_end" and cfg.impl == "pallas"
                 and slab_rung_selected(self.grid.shape)):
             self._fused_fallback = "slab rung K2 not yet ported"
@@ -292,6 +321,26 @@ class DiffusionSolver(SolverBase):
                 self.dt,
                 cfg.boundary_band,
                 bcs[0].value,
+                self.device,
+            )
+        return self._cache["fused"]
+
+    def _whole_run_stepper(self):
+        """The 2-D whole-run stepper (K7), or ``None`` where the state
+        would not stay in L2 (the port's gate, in place of the JAX
+        package's TPU VMEM budget)."""
+        if not FusedDiffusion2DStepper.supported(self.grid.shape,
+                                                 self.dtype):
+            return self._decline("2-D grid exceeds the whole-run L2 budget")
+        cfg = self.cfg
+        if "fused" not in self._cache:
+            self._cache["fused"] = FusedDiffusion2DStepper(
+                self.grid.shape,
+                self.grid.spacing,
+                [cfg.diffusivity] * 2,
+                self.dt,
+                cfg.boundary_band,
+                self.bcs[0].value,
                 self.device,
             )
         return self._cache["fused"]

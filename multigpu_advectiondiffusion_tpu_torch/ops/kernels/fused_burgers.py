@@ -72,8 +72,8 @@ FLUX_CODES = {"burgers": 0, "linear": 1, "buckley": 2}
 class StageParams:
     """What one configuration's stages share: the flux, the WENO5
     variant, ``1/dx`` per axis and the viscous taps ``c_j nu/(12 dx^2)``
-    (axis order z, y, x; ``None`` when inviscid), all rounded once to
-    float32 as the TPU kernel rounds them."""
+    (array axis order, z, y, x in 3-D; ``None`` when inviscid), all
+    rounded once to float32 as the TPU kernels round them."""
 
     flux: Flux
     variant: str
@@ -87,11 +87,12 @@ def stage_params(flux: Flux, variant: str, spacing: Sequence[float],
         raise ValueError(f"no stage kernel for flux {flux.name!r}")
     if variant not in ("js", "z"):
         raise ValueError(f"unknown WENO5 variant {variant!r}; use 'js' or 'z'")
-    inv_dx = tuple(float(np.float32(1.0 / spacing[i])) for i in range(3))
+    ndim = len(spacing)
+    inv_dx = tuple(float(np.float32(1.0 / spacing[i])) for i in range(ndim))
     taps = None
     if nu:
         taps = []
-        for i in range(3):
+        for i in range(ndim):
             scale = float(nu) / (12.0 * spacing[i] * spacing[i])
             taps += [float(np.float32(c * scale)) for c in O4_COEFFS]
         taps = tuple(taps)
@@ -142,21 +143,23 @@ def _divergence(P, M, axis: int, n: int, inv_dx: float, variant: str):
 
 def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
                     b: float, emit: bool = False):
-    """Plain PyTorch twin of K5 on the same unpadded layout.
+    """Plain PyTorch twin of K5 on the same unpadded layout, in any
+    dimension (the 2-D whole-run kernel K7 runs this stage with one axis
+    fewer).
 
     Writes ``out`` (which may be ``u``) and returns it, or
     ``(out, max|f'(out)|)`` when ``emit``. Operation order and
     roundings are the kernel's: ``rhs = -((div_z + div_y) + div_x)
-    [+ lap]``, ``rk = b*(v + dt*rhs)`` and ``a*u + rk``.
+    [+ lap]`` (``-(div_y + div_x)`` in 2-D), ``rk = b*(v + dt*rhs)``
+    and ``a*u + rk``.
     """
-    nz, ny, nx = v.shape
-    n = (nz, ny, nx)
+    n = tuple(v.shape)
     dt = torch.as_tensor(dt, dtype=torch.float32, device=v.device)
     vp = _edge_pad(v, R)
     P, M = _split(params.flux, vp)
     core = [slice(R, R + m) for m in n]
     rhs = None
-    for axis in range(3):
+    for axis in range(len(n)):
         idx = list(core)
         idx[axis] = slice(None)
         div = _divergence(P[tuple(idx)], M[tuple(idx)], axis, n[axis],
@@ -167,7 +170,7 @@ def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
     rhs = -rhs
     if params.lap_taps is not None:
         acc = None
-        for axis in range(3):
+        for axis in range(len(n)):
             for j in range(5):
                 idx = list(core)
                 idx[axis] = slice(R - 2 + j, R - 2 + j + n[axis])

@@ -48,11 +48,11 @@ Z_CHUNK = 8
 
 
 def stage_taps(spacing: Sequence[float], diffusivity: Sequence[float]):
-    """The 15 tap coefficients ``c_j * K_axis / (12 dx_axis^2)``, axis
-    order z, y, x, each rounded once to float32 (as the TPU kernel folds
-    K into each coefficient)."""
+    """The tap coefficients ``c_j * K_axis / (12 dx_axis^2)``, five an
+    axis in array order (z, y, x in 3-D), each rounded once to float32
+    (as the TPU kernels fold K into each coefficient)."""
     taps = []
-    for axis in range(3):
+    for axis in range(len(spacing)):
         scale = float(diffusivity[axis]) / (
             12.0 * spacing[axis] * spacing[axis]
         )
@@ -61,21 +61,23 @@ def stage_taps(spacing: Sequence[float], diffusivity: Sequence[float]):
 
 
 def _interior(t: torch.Tensor):
-    nz, ny, nx = (s - 2 * R for s in t.shape)
-    return t[R:R + nz, R:R + ny, R:R + nx]
+    return t[tuple(slice(R, s - R) for s in t.shape)]
 
 
 def stage_reference(v, u, out, dt, *, taps, a, b, band, bc_value):
-    """Plain PyTorch twin of the stage kernel, on the same padded layout.
+    """Plain PyTorch twin of the stage kernel, on the same padded layout
+    and in any dimension (the 2-D whole-run kernel K7 runs this stage
+    with one axis fewer).
 
     Writes the interior of ``out`` (which may be ``u``) and returns it.
-    Term order and roundings are the kernel's: z, y, x taps, each
-    product rounded, then ``b*(v + dt*acc)`` and ``a*u + ...``.
+    Term order and roundings are the kernel's: taps axis by axis in
+    array order, each product rounded, then ``b*(v + dt*acc)`` and
+    ``a*u + ...``.
     """
-    nz, ny, nx = (s - 2 * R for s in v.shape)
-    n = (nz, ny, nx)
+    n = tuple(s - 2 * R for s in v.shape)
+    ndim = len(n)
     acc = None
-    for axis in range(3):
+    for axis in range(ndim):
         for j in range(5):
             idx = [slice(R, R + m) for m in n]
             idx[axis] = slice(j, j + n[axis])
@@ -86,21 +88,14 @@ def stage_reference(v, u, out, dt, *, taps, a, b, band, bc_value):
     rk = b * (vc + dt * acc)
     if u is not None:
         rk = a * _interior(u) + rk
-    gz, gy, gx = (
-        torch.arange(m, device=v.device).reshape(
-            [m if ax == axis else 1 for ax in range(3)]
-        )
-        for axis, m in enumerate(n)
-    )
-
-    def between(g, m):
-        return (g >= band) & (g < m - band)
-
-    interior = between(gz, nz) & between(gy, ny) & between(gx, nx)
-    face = (
-        (gz == 0) | (gz == nz - 1) | (gy == 0) | (gy == ny - 1)
-        | (gx == 0) | (gx == nx - 1)
-    )
+    interior = face = None
+    for axis, m in enumerate(n):
+        g = torch.arange(m, device=v.device).reshape(
+            [m if ax == axis else 1 for ax in range(ndim)])
+        inside = (g >= band) & (g < m - band)
+        on_face = (g == 0) | (g == m - 1)
+        interior = inside if interior is None else interior & inside
+        face = on_face if face is None else face | on_face
     wall = torch.full((), bc_value, dtype=v.dtype, device=v.device)
     _interior(out).copy_(
         torch.where(interior, rk, torch.where(face, wall, vc))

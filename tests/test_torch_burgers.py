@@ -242,9 +242,15 @@ def test_unported_configs_raise(kw, match):
 
 
 def test_unported_dimensions_raise():
-    for grid in (PGrid.make(16, 12), PGrid.make(16)):
-        with pytest.raises(NotImplementedError, match="K7 and K8"):
-            PSolver(PConfig(grid=grid), device="cpu")
+    """1-D grids are not ported; 2-D grids are
+    (``tests/test_torch_fused_burgers2d.py``), and there ``pallas_slab``/
+    ``pallas_step`` run the whole-run stepper."""
+    with pytest.raises(NotImplementedError, match="1-D"):
+        PSolver(PConfig(grid=PGrid.make(16)), device="cpu")
+    for impl in ("pallas_slab", "pallas_step"):
+        s = PSolver(PConfig(grid=PGrid.make(16, 12), impl=impl),
+                    device="cpu")
+        assert s.engaged_path()["stepper"] == "fused-whole-run"
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

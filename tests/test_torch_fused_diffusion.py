@@ -262,8 +262,18 @@ def test_unported_rungs_raise(kw, match):
 
 
 def test_unported_dimensions_raise():
-    with pytest.raises(NotImplementedError, match="2-D"):
-        PSolver(PConfig(grid=PGrid.make(16, 12)), device="cpu")
+    """1-D grids and the 2-D axisymmetric geometry are not ported; 2-D
+    Cartesian grids are (``tests/test_torch_fused_diffusion2d.py``), and
+    there ``pallas_slab``/``pallas_step`` run the whole-run stepper."""
+    with pytest.raises(NotImplementedError, match="1-D"):
+        PSolver(PConfig(grid=PGrid.make(16)), device="cpu")
+    with pytest.raises(NotImplementedError, match="axisymmetric"):
+        PSolver(PConfig(grid=PGrid.make(16, 12), geometry="axisymmetric"),
+                device="cpu")
+    for impl in ("pallas_slab", "pallas_step"):
+        s = PSolver(PConfig(grid=PGrid.make(16, 12), impl=impl),
+                    device="cpu")
+        assert s.engaged_path()["stepper"] == "fused-whole-run"
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

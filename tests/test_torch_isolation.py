@@ -30,11 +30,14 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# modules every slice so far must reach (the Burgers slice among them)
+# modules every slice so far must reach (the Burgers and 2-D slices
+# among them)
 _EXPECTED = (
     "models.diffusion", "models.burgers", "ops.flux", "ops.weno",
     "ops.kernels.fused_diffusion", "ops.kernels.fused_burgers",
-    "timestepping.cfl", "cli.__main__", "convert",
+    "ops.kernels.whole_run", "ops.kernels.fused_diffusion2d",
+    "ops.kernels.fused_burgers2d", "timestepping.cfl", "cli.__main__",
+    "convert",
 )
 
 

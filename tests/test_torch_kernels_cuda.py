@@ -1,6 +1,6 @@
-"""K1 and K5, the port's CUDA stage kernels, against their plain PyTorch
-twins on a GPU. Marked ``cuda``: it skips where no CUDA device is
-present.
+"""K1 and K5, the port's CUDA stage kernels, and K7/K7a, its whole-run
+kernels, against their plain PyTorch twins on a GPU. Marked ``cuda``: it
+skips where no CUDA device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
 has no JAX, with the JAX-side conftest switched off::
@@ -20,12 +20,20 @@ from multigpu_advectiondiffusion_tpu_torch import (
     Grid,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
+from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_burgers as fb,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_burgers2d as fb2,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_diffusion as fd,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_diffusion2d as fd2,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 
 TOL = 32 * np.finfo(np.float32).eps
 
@@ -33,8 +41,10 @@ TOL = 32 * np.finfo(np.float32).eps
 @pytest.fixture
 def gpu():
     if not torch.cuda.is_available():
-        pytest.skip("K1 (csrc/fused_diffusion_stage.cu) and K5 "
-                    "(csrc/fused_burgers_stage.cu) need a CUDA device")
+        pytest.skip("K1 (csrc/fused_diffusion_stage.cu), K5 "
+                    "(csrc/fused_burgers_stage.cu) and K7/K7a "
+                    "(csrc/whole_run_{diffusion2d,burgers2d}.cu) need a "
+                    "CUDA device")
     return torch.device("cuda")
 
 
@@ -154,3 +164,113 @@ def test_k5_run_matches_generic_path(gpu, adaptive):
     bad = (got.u - want.u).abs() > 2e-5 * want.u.abs() + 2e-6 * scale
     assert not bool(bad.any())
     assert abs(float(got.t) - float(want.t)) <= 1e-5 * float(want.t)
+
+
+# --------------------------------------------------------------------- #
+# K7 / K7a: one cooperative launch runs the whole 2-D run
+# --------------------------------------------------------------------- #
+def _rel(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 5])
+@pytest.mark.parametrize("shape", [(23, 37), (5, 70)])
+def test_k7_diffusion_matches_twin(gpu, shape, steps):
+    rng = np.random.default_rng(steps)
+    padded = tuple(n + 2 * fd2.R for n in shape)
+    S = torch.full(padded, 0.25, device=gpu)
+    S[2:-2, 2:-2] = torch.from_numpy(rng.random(shape, dtype=np.float32))
+    kw = dict(taps=fd.stage_taps((0.1, 0.2), (1.0, 0.5)), band=2,
+              bc_value=0.25)
+    want = wr.plain_run(
+        lambda v, u, out, dt, a, b: fd2.stage_reference(
+            v, u, out, dt, a=a, b=b, **kw),
+        S.clone(), S.clone(), S.clone(), steps, 1e-3)
+    got = S.clone()
+    before = wr.whole_run.launches
+    fd2.whole_run_diffusion2d(got, S.clone(), S.clone(), steps, 1e-3, **kw)
+    torch.cuda.synchronize()
+    assert wr.whole_run.launches == before + 1
+    assert _rel(got, want) <= TOL
+    assert torch.equal(got[:2], S[:2]) and torch.equal(got[:, -2:], S[:, -2:])
+
+
+K7_CASES = {
+    "js-burgers-viscous": ("burgers", {}, "js", 1e-5),
+    "z-burgers-inviscid": ("burgers", {}, "z", 0.0),
+    "js-linear": ("linear", {"c": -0.7}, "js", 1e-5),
+    "z-buckley": ("buckley", {}, "z", 1e-5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [False, True], ids=["K7", "K7a"])
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_burgers_matches_twin(gpu, case, adaptive):
+    """5 steps on an odd shape: 0 ulp expected, 32 eps of max|twin|
+    asserted; the adaptive time advance exactly."""
+    name, kw, variant, nu = K7_CASES[case]
+    shape, spacing, cfl = (23, 37), (0.05, 0.07), 0.4
+    rng = np.random.default_rng(7)
+    S = torch.from_numpy(
+        rng.uniform(-0.2, 1.0, shape).astype(np.float32)).to(gpu)
+    params = fb.stage_params(pflux.get(name, **kw), variant, spacing, nu)
+    mode = (dict(spacing=spacing, cfl=cfl) if adaptive
+            else dict(dt=cfl * min(spacing)))
+    stage = (lambda v, u, out, dt, a, b: fb2.stage_reference(
+        v, u, out, dt, params=params, a=a, b=b))
+    T = [torch.empty_like(S) for _ in range(4)]
+    got = S.clone()
+    counter = wr.whole_run_adaptive if adaptive else wr.whole_run
+    before = counter.launches
+    res = fb2.whole_run_burgers2d(got, T[0], T[1], 5, params=params, **mode)
+    if adaptive:
+        flux = params.flux
+        want, want_t = wr.plain_run_adaptive(
+            stage, lambda u: pcfl.advective_dt(u, flux.df, spacing, cfl),
+            S.clone(), T[2], T[3], 5)
+        assert float(res[1]) == float(want_t)
+    else:
+        want = wr.plain_run(stage, S.clone(), T[2], T[3], 5, mode["dt"])
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_k7a_nan_cell_poisons_the_run(gpu):
+    S = torch.full((9, 40), 0.5, device=gpu)
+    S[4, 20] = float("nan")
+    params = fb.stage_params(pflux.burgers(), "js", (0.1, 0.1), 1e-5)
+    out, t_sum = fb2.whole_run_burgers2d(
+        S, torch.empty_like(S), torch.empty_like(S), 2, params=params,
+        spacing=(0.1, 0.1), cfl=0.4)
+    assert bool(torch.isnan(t_sum)) and bool(torch.isnan(out).all())
+
+
+@pytest.mark.cuda
+def test_k7_runs_match_generic_path(gpu):
+    """The 2-D solvers' fused runs (one launch each) against their
+    generic paths, at the JAX suite's fused-vs-generic bounds."""
+    d = dict(grid=Grid.make(61, 47, lengths=10.0))
+    fused = DiffusionSolver(DiffusionConfig(impl="pallas", **d))
+    generic = DiffusionSolver(DiffusionConfig(impl="xla", **d))
+    s0 = fused.initial_state()
+    wr.whole_run.launches = 0
+    got, want = fused.run(s0, 40), generic.run(s0, 40)
+    assert wr.whole_run.launches == 1 and got.t == want.t
+    scale = float(want.u.abs().max())
+    assert not bool(((got.u - want.u).abs()
+                     > 1e-5 * want.u.abs() + 1e-6 * scale).any())
+    for adaptive in (False, True):
+        b = dict(grid=Grid.make(61, 47, lengths=2.0), nu=1e-5,
+                 adaptive_dt=adaptive)
+        fused = BurgersSolver(BurgersConfig(impl="pallas", **b))
+        generic = BurgersSolver(BurgersConfig(impl="xla", **b))
+        s0 = fused.initial_state()
+        got, want = fused.run(s0, 20), generic.run(s0, 20)
+        scale = float(want.u.abs().max())
+        assert not bool(((got.u - want.u).abs()
+                         > 2e-5 * want.u.abs() + 2e-6 * scale).any())
+        assert abs(float(got.t) - float(want.t)) <= 1e-5 * float(want.t)
