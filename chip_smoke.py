@@ -65,6 +65,29 @@ ignored ``build/`` directory), then:
    adaptive run, u inside [-1e-6, 1.05] and agreement with the generic
    path; times the kernels alone, the sync floor and both paths;
 11. ``advance_to`` on 2-D grids runs the generic loop and says why.
+12. holds the whole-step diffusion kernel (K10, one launch a step) and
+   the whole-run slab kernel (K2, one cooperative launch a run) against
+   their twin (three K1-twin stages a step) to the bit, over 1 and 5
+   steps at 400x200x206 and at an odd shape, K2 against K10, and both
+   paths against the K1 path after ``run(101)``; times K10 and K2 alone
+   for each z-chunk of ``STEP_ZCHUNKS``, and the twin;
+13. drives ``impl="pallas_step"`` and ``"pallas_slab"`` on the diffusion
+   reference run (400x200x206, 101 steps): 101 K10 launches, one K2
+   launch, agreement with the generic path and error norms as in phase
+   2; ms/step and MLUPS beside the 8 B a cell bound and the K1 path's
+   time in the same call;
+14. holds the Burgers slab kernel (K6, one cooperative launch a
+   fixed-dt run) against its twin (three K5-twin stages a step) to the
+   bit at 400x400x406 and at the odd shape (WENO5-Z, viscous, linear
+   and Buckley-Leverett fluxes); times it alone for each z-chunk of
+   ``K6_ZCHUNKS``; drives ``MultiGPU/Burgers3d_Baseline`` on one card
+   (400x400x406, lengths 2 2 4, CFL 0.3, fixed dt, ``run(267)``,
+   ``impl="pallas_slab"``): one launch, u inside [-1e-6, 1.05],
+   agreement with the generic path at 10 steps, the K5 path on the
+   same config, the operations bound;
+15. times the per-stage and the slab paths on the slab gates' grids and
+   prints which was faster and which the gate picks (reported, not
+   held).
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -107,6 +130,12 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_diffusion2d as fd2,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_diffusion_step as fds,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_slab_run as fsr,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 
@@ -151,9 +180,29 @@ K7_ODD_CASES = (  # (flux, flux kwargs, variant, nu) at ODD_2D
     ("linear", {"c": -0.7}, "js", 1e-5),
     ("buckley", {}, "z", 1e-5),
 )
+STEP_ZCHUNKS = (8, 16, 32, 64, 206)  # z planes a K10/K2 block marches
+# MultiGPU/Burgers3d_Baseline (BASELINE.md:35, examples/
+# multigpu_burgers3d.sh) on one card: 400x400x406, lengths 2 2 4, CFL 0.3,
+# fixed dt, inviscid WENO5-JS; 267 steps in place of --t-end 0.4, since
+# the slab stepper has no run_to
+K6_N = (400, 400, 406)
+K6_LENGTHS = (2.0, 2.0, 4.0)
+K6_CFL = 0.3
+K6_ITERS = 267
+K6_CHECK_ITERS = 10  # steps held against the generic path, before the shock
+K6_ZCHUNKS = (32, 64, 102, 406)  # z planes a K6 block marches, timed
+# phase 15: physical (nx, ny, nz) of the grids each gate is measured on,
+# from JAX's ladder grid to the main configurations
+SWEEP_DIFFUSION = ((24, 16, 16), (32, 32, 32), (64, 64, 64),
+                   (128, 128, 128), REF_N)
+SWEEP_BURGERS = ((24, 16, 16), (64, 64, 64), (160, 160, 162), K6_N,
+                 (512, 512, 512))
+SWEEP_BURGERS_ITERS = 20
 # every launch counter, reset before each main path and read after it
 COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
-            "K7": wr.whole_run, "K7a": wr.whole_run_adaptive}
+            "K7": wr.whole_run, "K7a": wr.whole_run_adaptive,
+            "K10": fds.fused_step, "K2": fsr.slab_run_diffusion,
+            "K6": fsr.slab_run_burgers}
 
 
 def card_line() -> str:
@@ -194,7 +243,7 @@ def device_profile(fn) -> tuple[float, float, dict]:
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        raise AssertionError("the profiler saw no device activity")
+        return 0.0, 0.0, {}  # the caller's check names what is missing
     start = min(e.time_range.start for e in events)
     end = max(e.time_range.end for e in events)
     per_name: dict = {}
@@ -204,6 +253,19 @@ def device_profile(fn) -> tuple[float, float, dict]:
     busy = sum(sum(v) for v in per_name.values())
     means = {k: statistics.mean(v) for k, v in per_name.items()}
     return (end - start) / 1e3, busy, means
+
+
+def retake(capture, complete):
+    """``capture()``, taken once more when ``complete`` says it missed
+    device events: torch.profiler on the card has dropped some from a
+    capture (two of a run's 258 K5 launches once, and the read-back).
+    The launch counters hold the runs themselves; the caller's checks
+    then hold the second capture."""
+    result = capture()
+    if not complete(result):
+        print("  the profiler's capture missed device events; once more")
+        result = capture()
+    return result
 
 
 def reset_counts() -> None:
@@ -495,7 +557,7 @@ def burgers_profile(fn) -> dict:
     host = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CPU]
     if not dev:
-        raise AssertionError("the profiler saw no device activity")
+        return {"k5_launches": 0}  # the caller's check names what is missing
     start = min(e.time_range.start for e in dev)
     end = max(e.time_range.end for e in dev)
     busy = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3
@@ -546,16 +608,11 @@ def burgers_phases(card: str) -> dict:
         raise AssertionError(f"main path did not engage K5: {path}")
     state0 = solver.initial_state()
     torch.cuda.reset_peak_memory_stats()
-    fb.fused_burgers_stage.launches = 0
-    out = solver.run(state0, BURGERS_ITERS)
-    torch.cuda.synchronize()
-    launches = fb.fused_burgers_stage.launches
+    out = drive("pallas", solver, state0, BURGERS_ITERS,
+                {"K5": 3 * BURGERS_ITERS})
+    launches = 3 * BURGERS_ITERS
     fused_peak = torch.cuda.max_memory_allocated()
-    print(f"  K5 launches in run({BURGERS_ITERS}): {launches}; t = "
-          f"{float(out.t)!r}")
-    if launches != 3 * BURGERS_ITERS:
-        raise AssertionError(
-            f"expected {3 * BURGERS_ITERS} K5 launches, {launches}")
+    print(f"  t = {float(out.t)!r}")
     lo, hi = float(out.u.min()), float(out.u.max())
     print(f"  u in [{lo!r}, {hi!r}]")
     if not (math.isfinite(lo) and math.isfinite(hi)
@@ -569,7 +626,12 @@ def burgers_phases(card: str) -> dict:
     print(f"  run({BURGERS_ITERS}): median {run_ms:.3f} ms of {len(reps)} "
           f"reps {[round(r, 3) for r in reps]}; {step_ms:.4f} ms/step; "
           f"{mlups:.0f} MLUPS [{card}]")
-    prof = burgers_profile(lambda: solver.run(state0, BURGERS_ITERS))
+    prof = retake(
+        lambda: burgers_profile(lambda: solver.run(state0, BURGERS_ITERS)),
+        lambda p: p["k5_launches"] == 3 * BURGERS_ITERS)
+    if prof["k5_launches"] != 3 * BURGERS_ITERS:
+        raise AssertionError(f"profiled run missed K5 launches: "
+                             f"{prof['k5_launches']} of {3 * BURGERS_ITERS}")
     idle = 1.0 - prof["busy_ms"] / prof["span_ms"]
     in_run_ms = statistics.mean(prof["k5_ms"])
     print(f"  profiled run({BURGERS_ITERS}): device span "
@@ -580,8 +642,6 @@ def burgers_phases(card: str) -> dict:
           f"mean {in_run_ms:.4f} ms; device-to-host copies {prof['dtoh']} "
           f"(host reads {prof['reads']}); host enqueue to the read-back "
           f"{prof['enqueue_ms']:.3f} ms under the profiler [{card}]")
-    if prof["k5_launches"] != 3 * BURGERS_ITERS:
-        raise AssertionError("profiled run missed K5 launches")
     if prof["dtoh"] > 1 or prof["reads"] > 1:
         raise AssertionError("the run copied to the host more than once")
 
@@ -776,30 +836,38 @@ def profiler_sees_device() -> bool:
                        "") is not None
 
 
-def drive_path(name, solver, state0, iters: int, expect: str) -> dict:
+def drive(name, solver, state0, iters: int, expect: dict):
     """One main path: every count set to 0 just before ``run``, read just
-    after; ``expect``'s kernel must have launched once and no other."""
-    path = solver.engaged_path()
-    print(f"  engaged: {path}")
-    if path["stepper"] != "fused-whole-run":
-        raise AssertionError(f"{name} did not engage the whole-run rung")
+    after; ``expect`` gives the launches of each kernel (others 0)."""
     reset_counts()
     out = solver.run(state0, iters)
     torch.cuda.synchronize()
     got = counts()
-    print(f"  launches in run({iters}): {got}")
-    if got != {k: int(k == expect) for k in COUNTERS}:
-        raise AssertionError(f"{name}: expected one {expect} launch, {got}")
-    return {"out": out, "launches": got[expect]}
+    print(f"  {name}: launches in run({iters}): {got}")
+    if got != {k: expect.get(k, 0) for k in COUNTERS}:
+        raise AssertionError(f"{name}: expected launches {expect}, {got}")
+    return out
+
+
+def drive_path(name, solver, state0, iters: int, expect: str) -> dict:
+    """One 2-D main path on the whole-run rung: :func:`drive`, with one
+    launch of ``expect``'s kernel."""
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "fused-whole-run":
+        raise AssertionError(f"{name} did not engage the whole-run rung")
+    return {"out": drive(name, solver, state0, iters, {expect: 1}),
+            "launches": 1}
 
 
 def time_path(name, solver, state0, iters: int, kernel: str, card: str,
               alone_ms: float):
     """ms per run (median of 3 after a warm-up), ms/step, MLUPS, the host
     reads of one run, and one profiled run: the kernel's time in it, the
-    idle share and the device-to-host copies. Where the profiler sees no
-    device activity, the kernel's time is ``alone_ms`` (CUDA events) and
-    the idle share and copies are not measured."""
+    idle share and the device-to-host copies. Where the profiler does not
+    see the cooperative launch (it saw no device activity around one, or
+    only other kernels), the kernel's time is ``alone_ms`` (CUDA events)
+    and the idle share and copies are not measured."""
     reps = cuda_ms(lambda: solver.run(state0, iters), 4)[1:]
     run_ms = statistics.median(reps)
     mlups = solver.grid.num_cells * iters * 3 / (run_ms * 1e-3) / 1e6
@@ -809,9 +877,12 @@ def time_path(name, solver, state0, iters: int, kernel: str, card: str,
             f"reps {[round(r, 3) for r in reps]}; "
             f"{run_ms / iters * 1e3:.3f} us/step; {mlups:.0f} MLUPS; host "
             f"reads of device scalars {reads}")
-    if prof is None:
-        print(f"{line}; the profiler saw no device activity in the run (a "
-              f"plain kernel after it: {'seen' if profiler_sees_device() else 'not seen'}"
+    if prof is None or prof["launches"] == 0:
+        seen = ("no device activity" if prof is None else
+                f"{prof['busy_ms']:.3f} ms of other device work and not the "
+                "kernel")
+        print(f"{line}; the profiler saw {seen} in the run (a plain kernel "
+              f"after it: {'seen' if profiler_sees_device() else 'not seen'}"
               f"): kernel time from CUDA events alone, idle share and "
               f"device-to-host copies not measured [{card}]")
         kernel_ms, idle, dtoh = alone_ms, None, None
@@ -823,8 +894,8 @@ def time_path(name, solver, state0, iters: int, kernel: str, card: str,
               f"busy {prof['busy_ms']:.3f} ms, idle share {idle:.4f}, "
               f"device-to-host copies {dtoh} [{card}]")
         if prof["launches"] != 1:
-            raise AssertionError(f"{name}: the profiled run missed its "
-                                 "kernel")
+            raise AssertionError(f"{name}: the profiled run saw its kernel "
+                                 f"{prof['launches']} times")
     return {"ms": kernel_ms, "run_ms": run_ms,
             "ms_per_step": run_ms / iters, "mlups": mlups,
             "device_idle_share": idle, "dtoh_copies": dtoh,
@@ -996,8 +1067,9 @@ def check_advance_generic(solver, generic, state0, span: float) -> None:
         raise AssertionError("advance_to did not run the generic loop")
 
 
-def burgers2d_phases(card: str, l2_gbs: float) -> dict:
-    """Phase 10 and the Burgers half of 11; returns K7/K7a's entry."""
+def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
+    """Phase 10 and the Burgers half of 11; returns K7's and K7a's
+    entries."""
     n, iters = BURGERS2D_N, BURGERS2D_ITERS
     grid = Grid.make(n, n, lengths=2.0)
     cfg = BurgersConfig(grid=grid, dtype="float32", impl="pallas",
@@ -1136,34 +1208,394 @@ def burgers2d_phases(card: str, l2_gbs: float) -> dict:
             print("phase 11: advance_to() on the 2-D Burgers grid")
             check_advance_generic(solver, generic, state0, 4.5 * dt)
 
-    return {
+    common = {
         "name": "whole_run_burgers2d",
-        "id": "K7/K7a",
         "route": "cuda",
         "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
                   "whole_run_burgers2d.cu",
-        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
-                    "whole_run.py:28",
-        "replaces_adaptive": "multigpu_advectiondiffusion_tpu/ops/pallas/"
-                             "whole_run.py:75",
-        # the fixed-dt path (K7); "adaptive" holds K7a's numbers
-        **entry["K7"],
         "max_abs_err": err,
         "max_ulps": n_ulps,
+        "grid_blocks": blocks[0],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes a WENO5 "
+                        "stage",
+    }
+    return [{
+        **common, "id": "K7",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "whole_run.py:28",
+        **entry["K7"],
         "ms_isolated": alone,
         "sync_floor_ms": floor,
-        "grid_blocks": blocks[0],
         "plain_ms": plain,
         "bound_ms": bound[0],
         "bound_by": bound[1],
         "l2_traffic_ms": l2_ms,
+    }, {
+        **common, "id": "K7a",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "whole_run.py:75",
+        **entry["K7a"],
+        "ms_isolated": alone_a,
+        "plain_ms": plain_a,
+        "bound_ms": bound_a[0],
+        "bound_by": bound_a[1],
+    }]
+
+
+# --------------------------------------------------------------------- #
+# K10 / K2, K6 and the 3-D fused-step paths (phases 12-15)
+# --------------------------------------------------------------------- #
+def exact(name, got, want) -> float:
+    """Kernel against twin to the bit: prints the distance, raises unless
+    it is 0 ulp; returns the largest absolute difference."""
+    err = float((got - want).abs().max())
+    n_ulps = ulps(got, want)
+    print(f"  {name}: max|kernel-twin| = {err:.3e}, {n_ulps} ulp")
+    if n_ulps != 0:
+        raise AssertionError(f"{name}: {n_ulps} ulp from its twin")
+    return err
+
+
+def twin_steps(step, S0, steps: int):
+    """The plain twin of ``steps`` fused steps from ``S0`` (unchanged):
+    ``step(src, dst)`` on two copies in turn; returns the result."""
+    return fsr.ping_pong(step, S0.clone(), S0.clone(), steps)
+
+
+def padded_random(shape, bc: float, seed: int):
+    """A padded state on the card: numpy's random interior, the ghost
+    ring at ``bc``."""
+    rng = np.random.default_rng(seed)
+    S = torch.full(tuple(n + 2 * fd.R for n in shape), bc, device="cuda")
+    S[2:-2, 2:-2, 2:-2] = torch.from_numpy(
+        rng.random(shape, dtype=np.float32)).cuda()
+    return S
+
+
+def run_ms(solver, state0, iters: int) -> tuple[float, list]:
+    """A path's ``run(iters)``: the median of 3 CUDA-event samples after
+    a warm-up (ms) and the samples."""
+    reps = cuda_ms(lambda: solver.run(state0, iters), 4)[1:]
+    return statistics.median(reps), reps
+
+
+def step_phases(card: str) -> list[dict]:
+    """Phases 12-13; returns K10's and K2's entries."""
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    cfg = DiffusionConfig(grid=grid, dtype="float32", impl="pallas_step")
+    solvers = {impl: DiffusionSolver(dataclasses.replace(cfg, impl=impl))
+               for impl in ("pallas_stage", "pallas_step", "pallas_slab",
+                            "xla")}
+    dt = solvers["pallas_step"].dt
+    taps = fd.stage_taps(grid.spacing, [cfg.diffusivity] * 3)
+    cells = grid.num_cells
+
+    print("phase 12: K10 and K2 against their twin")
+    odd_sp = (0.05, 0.07, 0.09)
+    err = 0.0
+    for shape, tp, dt_, bc, seed in (
+            (grid.shape, taps, dt, 0.0, 12),
+            (ODD_SHAPE, fd.stage_taps(odd_sp, (1.0, 0.5, 2.0)),
+             pcfl.diffusive_dt(2.0, odd_sp), 0.25, 121)):
+        kw = dict(taps=tp, band=2, bc_value=bc)
+        S0 = padded_random(shape, bc, seed)
+        for steps in (1, 5):
+            want = twin_steps(lambda s, d: fds.step_reference(s, d, dt_, **kw),
+                              S0, steps)
+            got, other = S0.clone(), S0.clone()
+            for _ in range(steps):
+                fds.fused_step(got, other, dt_, **kw)
+                got, other = other, got
+            slab = fsr.slab_run_diffusion(S0.clone(), S0.clone(), steps, dt_,
+                                          **kw)
+            torch.cuda.synchronize()
+            err = max(err,
+                      exact(f"K10 {steps} step(s) at {shape}", got, want),
+                      exact(f"K2 {steps} step(s) at {shape}", slab, want))
+            exact(f"K2 against K10, {steps} step(s) at {shape}", slab, got)
+    state0 = solvers["pallas_stage"].initial_state()
+    u = {impl: solvers[impl].run(state0, ITERS).u
+         for impl in ("pallas_stage", "pallas_step", "pallas_slab")}
+    for impl, key in (("pallas_step", "K10"), ("pallas_slab", "K2")):
+        exact(f"{key} path against the K1 path after run({ITERS})", u[impl],
+              u["pallas_stage"])
+    del u
+
+    kw = dict(taps=taps, band=2, bc_value=0.0)
+    sets = [(padded_random(grid.shape, 0.0, 120 + i),
+             torch.zeros(tuple(n + 4 for n in grid.shape), device="cuda"))
+            for i in range(ROTATE)]
+    sweep = {}
+    for z in STEP_ZCHUNKS:
+        turn = itertools.cycle(sets)
+
+        def launch():
+            S, out = next(turn)
+            fds.fused_step(S, out, dt, zchunk=z, **kw)
+
+        launch()
+        sweep[z] = statistics.median(cuda_ms(launch, 5, 21))
+    S, out = sets[0]
+    plain_step = statistics.median(cuda_ms(
+        lambda: fds.step_reference(S, out, dt, **kw), 3))
+    slab_sweep = {z: median_ms(lambda: fsr.slab_run_diffusion(
+        S, out, ITERS, dt, zchunk=z, **kw)) for z in STEP_ZCHUNKS}
+    blocks = []
+    fsr.slab_run_diffusion(S, out, 1, dt, grid_blocks=blocks, **kw)
+    plain_run = cuda_ms(lambda: twin_steps(
+        lambda s, d: fds.step_reference(s, d, dt, **kw), S, ITERS), 1)[0]
+    del sets, S, out
+    step_bytes = 8 * cells
+    step_ops = 100 * cells  # K1's 32 + 34 + 34 a cell (check_k1)
+    k10_bound = 1e3 * max(step_bytes / HBM_BYTES_PER_S,
+                          step_ops / F32_OPS_PER_S)
+    k2_bound, k2_by = run_bound(4 * cells, step_ops * ITERS)
+    print(f"  K10 alone at {grid.shape} by zchunk "
+          f"{ {z: round(v, 4) for z, v in sweep.items()} } ms a step "
+          f"(zchunk {fds.Z_CHUNK}: {sweep[fds.Z_CHUNK]:.4f} ms, "
+          f"{step_bytes / (sweep[fds.Z_CHUNK] * 1e-3) / 1e9:.0f} GB/s of its "
+          f"8 B a cell); twin {plain_step:.3f} ms; bound {k10_bound:.4f} ms "
+          f"(bytes) [{card}]")
+    print(f"  K2 alone, run({ITERS}), by zchunk "
+          f"{ {z: round(v, 3) for z, v in slab_sweep.items()} } ms on "
+          f"{blocks[0]} blocks of 256; twin {plain_run:.1f} ms; bound "
+          f"{k2_bound:.3f} ms ({k2_by}; 8 B a cell a step would be "
+          f"{1e3 * step_bytes * ITERS / HBM_BYTES_PER_S:.3f} ms) [{card}]")
+
+    print(f"phase 13: the diffusion 3-D fused-step paths, run({ITERS}) at "
+          f"{grid.shape}")
+    gout = solvers["xla"].run(state0, ITERS)
+    k1_ms, k1_reps = run_ms(solvers["pallas_stage"], state0, ITERS)
+    print(f"  the K1 path (pallas_stage): {k1_ms / ITERS:.4f} ms/step "
+          f"({[round(r, 3) for r in k1_reps]} ms a run) [{card}]")
+    res = {}
+    for impl, key, launches in (("pallas_step", "K10", ITERS),
+                                ("pallas_slab", "K2", 1)):
+        solver = solvers[impl]
+        path = solver.engaged_path()
+        print(f"  engaged: {path}")
+        want_label = "fused-step" if key == "K10" else "fused-whole-run-slab"
+        if path["stepper"] != want_label or path["fallback"] is not None:
+            raise AssertionError(f"{impl} did not engage {key}: {path}")
+        out = drive(impl, solver, state0, ITERS, {key: launches})
+        if out.t != gout.t or out.it != gout.it:
+            raise AssertionError(f"t/it differ: {out.t}/{out.it} vs "
+                                 f"{gout.t}/{gout.it}")
+        assert_matches(f"{impl} run({ITERS})", out.u, gout.u)
+        norms = solver.error_norms(out)
+        print(f"  error vs exact at t={float(out.t):.6f}: L1 {norms.l1:.4e} "
+              f"L2 {norms.l2:.4e} Linf {norms.linf:.4e}")
+        if not all(math.isfinite(x) for x in norms) or not norms.linf < 1e-3:
+            raise AssertionError(f"error norms out of range: {norms}")
+        del out
+        ms, reps = run_ms(solver, state0, ITERS)
+        mlups = cells * ITERS * 3 / (ms * 1e-3) / 1e6
+        print(f"  {impl} run({ITERS}): median {ms:.3f} ms of "
+              f"{[round(r, 3) for r in reps]}; {ms / ITERS:.4f} ms/step; "
+              f"{mlups:.0f} MLUPS; bound 8 B a cell a step "
+              f"{1e3 * step_bytes / HBM_BYTES_PER_S:.4f} ms/step; the K1 "
+              f"path {k1_ms / ITERS:.4f} ms/step [{card}]")
+        res[key] = {"launches": launches, "run_ms": ms,
+                    "ms_per_step": ms / ITERS, "mlups": mlups}
+    del gout
+
+    common = {"route": "cuda", "max_abs_err": err, "max_ulps": 0,
+              "library_ms": None,
+              "library_call": "none: no single PyTorch call computes an "
+                              "RK step",
+              "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                        "fused_step_diffusion.cu",
+              "k1_path_ms_per_step": k1_ms / ITERS}
+    return [{
+        "name": "fused_step_diffusion", "id": "K10", **common,
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_diffusion_step.py:94",
+        "launches": res["K10"]["launches"],
+        # per launch (one step) in the main path's run(101)
+        "ms": res["K10"]["ms_per_step"],
+        "ms_isolated": sweep[fds.Z_CHUNK],
+        "ms_isolated_by_zchunk": {str(z): v for z, v in sweep.items()},
+        "zchunk": fds.Z_CHUNK,
+        "plain_ms": plain_step, "bound_ms": k10_bound, "bound_by": "bytes",
+        "ms_per_step": res["K10"]["ms_per_step"],
+        "mlups": res["K10"]["mlups"],
+    }, {
+        "name": "slab_run_diffusion", "id": "K2", **common,
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_slab_run.py:188",
+        "launches": res["K2"]["launches"],
+        # per launch: the main path's run(101)
+        "ms": res["K2"]["run_ms"],
+        "ms_isolated_by_zchunk": {str(z): v for z, v in slab_sweep.items()},
+        "zchunk": fsr.DIFFUSION_Z_CHUNK,
+        "grid_blocks": blocks[0],
+        "plain_ms": plain_run, "bound_ms": k2_bound, "bound_by": k2_by,
+        "ms_per_step": res["K2"]["ms_per_step"],
+        "mlups": res["K2"]["mlups"],
+    }]
+
+
+def k6_step_ops(shape, viscous: bool, variant: str) -> int:
+    """f32 operations one fused Burgers step needs, each face once: K5's
+    count (``k5_stage_ops``) for its three stages."""
+    return (k5_stage_ops(shape, False, viscous, variant)
+            + 2 * k5_stage_ops(shape, True, viscous, variant))
+
+
+def slab_burgers_phases(card: str) -> dict:
+    """Phase 14; returns K6's entry."""
+    grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    cfg = BurgersConfig(grid=grid, cfl=K6_CFL, adaptive_dt=False,
+                        dtype="float32", impl="pallas_slab")
+    solver = BurgersSolver(cfg)
+    params = fb.stage_params(solver.flux, cfg.weno_variant, grid.spacing,
+                             cfg.nu)
+    dt = solver.dt
+    cells = grid.num_cells
+
+    print("phase 14: K6 against its twin")
+    odd_sp = (0.05, 0.07, 0.09)
+    cases = [(grid.shape, params, dt, 14)]
+    for i, (name, kw, variant, nu) in enumerate(K7_ODD_CASES):
+        cases.append((ODD_SHAPE, fb.stage_params(pflux.get(name, **kw),
+                                                 variant, odd_sp, nu),
+                      K6_CFL * min(odd_sp), 140 + i))
+    err = 0.0
+    for shape, p, dt_, seed in cases:
+        rng = np.random.default_rng(seed)
+        S0 = torch.from_numpy(
+            rng.uniform(-0.1, 1.0, shape).astype(np.float32)).cuda()
+        for steps in (1, 5):
+            want = twin_steps(lambda s, d: fsr.burgers_step_reference(
+                s, d, dt_, params=p), S0, steps)
+            got = fsr.slab_run_burgers(S0.clone(), torch.empty_like(S0),
+                                       steps, dt_, params=p)
+            torch.cuda.synchronize()
+            err = max(err, exact(
+                f"K6 {steps} step(s) at {shape} ({p.flux.name}, {p.variant}, "
+                f"{'viscous' if p.lap_taps else 'inviscid'})", got, want))
+            del want, got
+        del S0
+    torch.cuda.empty_cache()
+
+    state0 = solver.initial_state()
+    A, B = state0.u.clone(), torch.empty_like(state0.u)
+    sweep = {z: median_ms(lambda: fsr.slab_run_burgers(
+        A, B, 5, dt, params=params, zchunk=z)) / 5 for z in K6_ZCHUNKS}
+    blocks = []
+    fsr.slab_run_burgers(A, B, 1, dt, params=params, grid_blocks=blocks)
+    plain_step = cuda_ms(lambda: fsr.burgers_step_reference(
+        A, B, dt, params=params), 1)[0]
+    del A, B
+    torch.cuda.empty_cache()
+    ops = k6_step_ops(grid.shape, False, cfg.weno_variant)
+    bound = 1e3 * max(8 * cells / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    print(f"  K6 alone at {grid.shape}, run(5), by zchunk "
+          f"{ {z: round(v, 4) for z, v in sweep.items()} } ms a step on "
+          f"{blocks[0]} blocks of 256; twin {plain_step:.1f} ms a step; "
+          f"bound {bound:.4f} ms a step (operations: {ops / 1e9:.2f} G, "
+          f"each face once) [{card}]")
+
+    print(f"phase 14: the Burgers slab path, fixed dt, run({K6_ITERS}) at "
+          f"{grid.shape}")
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "fused-whole-run-slab" or path["fallback"]:
+        raise AssertionError(f"pallas_slab did not engage K6: {path}")
+    out = drive("pallas_slab", solver, state0, K6_ITERS, {"K6": 1})
+    lo, hi = float(out.u.min()), float(out.u.max())
+    print(f"  t = {float(out.t)!r}; u in [{lo!r}, {hi!r}]")
+    if not (math.isfinite(lo) and math.isfinite(hi)
+            and lo >= -1e-6 and hi <= 1.05):
+        raise AssertionError(f"u left [-1e-6, 1.05]: [{lo}, {hi}]")
+    stage = BurgersSolver(dataclasses.replace(cfg, impl="pallas_stage"))
+    k5_out = drive("pallas_stage", stage, state0, K6_ITERS,
+                   {"K5": 3 * K6_ITERS})
+    print(f"  the K6 path against the K5 path after run({K6_ITERS}): "
+          f"{ulps(out.u, k5_out.u)} ulp; t {float(out.t)!r} vs "
+          f"{float(k5_out.t)!r}")
+    if out.t != k5_out.t:
+        raise AssertionError("t differs between the K6 and K5 paths")
+    del out, k5_out
+    generic = BurgersSolver(dataclasses.replace(cfg, impl="xla"))
+    f10 = solver.run(state0, K6_CHECK_ITERS)
+    g10 = generic.run(state0, K6_CHECK_ITERS)
+    if f10.t != g10.t:
+        raise AssertionError(f"t differs: {f10.t} vs {g10.t}")
+    assert_matches(f"run({K6_CHECK_ITERS})", f10.u, g10.u, rtol=2e-5,
+                   atol=2e-6)
+    del f10, g10, generic
+    torch.cuda.empty_cache()
+    ms, reps = run_ms(solver, state0, K6_ITERS)
+    k5_ms, k5_reps = run_ms(stage, state0, K6_ITERS)
+    mlups = cells * K6_ITERS * 3 / (ms * 1e-3) / 1e6
+    print(f"  pallas_slab run({K6_ITERS}): median {ms:.3f} ms of "
+          f"{[round(r, 3) for r in reps]}; {ms / K6_ITERS:.4f} ms/step; "
+          f"{mlups:.0f} MLUPS; bound {bound:.4f} ms/step; the K5 path "
+          f"{k5_ms / K6_ITERS:.4f} ms/step ({[round(r, 3) for r in k5_reps]}"
+          f" ms a run) [{card}]")
+    return {
+        "name": "slab_run_burgers", "id": "K6", "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "slab_run_burgers.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_slab_run.py:1540",
+        "launches": 1,
+        "max_abs_err": err, "max_ulps": 0,
+        # per step of the main path's run(267), one launch for the run:
+        # the twin over a whole run would take over a minute
+        "per": "step",
+        "ms": ms / K6_ITERS,
+        "run_ms": ms,
+        "ms_isolated_by_zchunk": {str(z): v for z, v in sweep.items()},
+        "zchunk": fsr.BURGERS_Z_CHUNK,
+        "grid_blocks": blocks[0],
+        "plain_ms": plain_step, "bound_ms": bound, "bound_by": "operations",
         "library_ms": None,
-        "library_call": "none: no single PyTorch call computes a WENO5 "
-                        "stage",
-        "adaptive": {**entry["K7a"], "ms_isolated": alone_a,
-                     "plain_ms": plain_a, "bound_ms": bound_a[0],
-                     "bound_by": bound_a[1]},
+        "library_call": "none: no single PyTorch call computes an RK step",
+        "ms_per_step": ms / K6_ITERS, "mlups": mlups,
+        "k5_path_ms_per_step": k5_ms / K6_ITERS,
     }
+
+
+def gate_sweep(card: str) -> None:
+    """Phase 15: the per-stage and the slab paths timed on the gates'
+    grids (median of 3 after a warm-up); which was faster and which the
+    gate picks. Reported, not held."""
+    print(f"phase 15: the slab gates (K2 against K1, run({ITERS}); K6 "
+          f"against K5 at fixed dt, run({SWEEP_BURGERS_ITERS}))")
+    for n in SWEEP_DIFFUSION:
+        grid = Grid.make(*n, lengths=REF_LENGTHS)
+        ms = {}
+        for impl in ("pallas_stage", "pallas_step", "pallas_slab"):
+            s = DiffusionSolver(DiffusionConfig(grid=grid, impl=impl))
+            s0 = s.initial_state()
+            ms[impl] = median_ms(lambda: s.run(s0, ITERS)) / ITERS
+        faster = "K2" if ms["pallas_slab"] < ms["pallas_stage"] else "K1"
+        gate = ("K2" if fsr.SlabRunDiffusionStepper.profitable(
+            grid.shape, torch.float32) else "K1")
+        print(f"  diffusion {grid.shape} ({grid.num_cells} cells): ms/step "
+              f"K1 {ms['pallas_stage']:.5f}, K10 {ms['pallas_step']:.5f}, "
+              f"K2 {ms['pallas_slab']:.5f}; faster {faster}; the gate "
+              f"picks {gate} [{card}]")
+    for n in SWEEP_BURGERS:
+        grid = Grid.make(*n, lengths=K6_LENGTHS)
+        ms = {}
+        for impl in ("pallas_stage", "pallas_slab"):
+            s = BurgersSolver(BurgersConfig(grid=grid, cfl=K6_CFL,
+                                            adaptive_dt=False, impl=impl))
+            s0 = s.initial_state()
+            ms[impl] = median_ms(
+                lambda: s.run(s0, SWEEP_BURGERS_ITERS)) / SWEEP_BURGERS_ITERS
+            del s, s0
+            torch.cuda.empty_cache()
+        faster = "K6" if ms["pallas_slab"] < ms["pallas_stage"] else "K5"
+        gate = ("K6" if fsr.SlabRunBurgersStepper.profitable(
+            grid.shape, torch.float32) else "K5")
+        print(f"  Burgers {grid.shape} ({grid.num_cells} cells): ms/step "
+              f"K5 {ms['pallas_stage']:.5f}, K6 {ms['pallas_slab']:.5f}; "
+              f"faster {faster}; the gate picks {gate} [{card}]")
 
 
 def main() -> int:
@@ -1183,7 +1615,8 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     sources = [(fd.SOURCE, ()), (fb.SOURCE, fb.NVCC_EXTRA),
-               (fd2.SOURCE, ()), (fb2.SOURCE, fb.NVCC_EXTRA)]
+               (fd2.SOURCE, ()), (fb2.SOURCE, fb.NVCC_EXTRA),
+               (fds.SOURCE, ()), (fsr.BURGERS_SOURCE, fb.NVCC_EXTRA)]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(lambda args: build.build(*args), sources))
     for lib in (fd.library, fb.library, fd2.library, fb2.library):
@@ -1212,13 +1645,8 @@ def main() -> int:
     if path["stepper"] != "fused-stage":
         raise AssertionError(f"main path did not engage K1: {path}")
     state0 = solver.initial_state()
-    fd.fused_stage.launches = 0
-    out = solver.run(state0, ITERS)
-    torch.cuda.synchronize()
-    launches = fd.fused_stage.launches
-    print(f"  K1 launches in run({ITERS}): {launches}")
-    if launches != 3 * ITERS:
-        raise AssertionError(f"expected {3 * ITERS} K1 launches, {launches}")
+    out = drive("pallas", solver, state0, ITERS, {"K1": 3 * ITERS})
+    launches = 3 * ITERS
     generic = DiffusionSolver(dataclasses.replace(cfg, impl="xla"))
     if generic.engaged_path()["stepper"] != "generic-xla":
         raise AssertionError("impl='xla' did not run the generic path")
@@ -1243,9 +1671,10 @@ def main() -> int:
     print(f"  run({ITERS}): median {run_ms:.3f} ms of {len(reps)} reps "
           f"{[round(r, 3) for r in reps]}; {step_ms:.4f} ms/step; "
           f"{mlups:.0f} MLUPS; host enqueue {host_ms:.3f} ms [{card}]")
-    span_ms, busy_ms, per_kernel = device_profile(
-        lambda: solver.run(state0, ITERS))
     # the kernel's two instantiations: stage 1 (no u), stages 2-3 (u)
+    span_ms, busy_ms, per_kernel = retake(
+        lambda: device_profile(lambda: solver.run(state0, ITERS)),
+        lambda r: sum("stage_kernel<" in k for k in r[2]) == 2)
     s1 = [ms for k, ms in per_kernel.items() if "stage_kernel<false>" in k]
     s23 = [ms for k, ms in per_kernel.items() if "stage_kernel<true>" in k]
     if len(s1) != 1 or len(s23) != 1:
@@ -1285,7 +1714,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phases 8-11: the 2-D paths (K7, K7a)")
     k7d = diffusion2d_phases(card, l2_gbs)
-    k7b = burgers2d_phases(card, l2_gbs)
+    k7b, k7a = burgers2d_phases(card, l2_gbs)
+    torch.cuda.empty_cache()
+    print("phases 12-15: the 3-D fused-step rungs (K10, K2, K6)")
+    k10, k2 = step_phases(card)
+    torch.cuda.empty_cache()
+    k6 = slab_burgers_phases(card)
+    torch.cuda.empty_cache()
+    gate_sweep(card)
 
     kernels = [{
         "name": "fused_diffusion_stage",
@@ -1315,7 +1751,7 @@ def main() -> int:
         "device_idle_share": idle,
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
-    }, k5, k7d, k7b]
+    }, k5, k7d, k7b, k7a, k10, k2, k6]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

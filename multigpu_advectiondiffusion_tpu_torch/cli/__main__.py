@@ -6,6 +6,9 @@
         --save out/ --check-error
     python -m multigpu_advectiondiffusion_tpu_torch.cli burgers3d \
         --n 512 512 512 --iters 86 --nu 1e-5 --impl pallas
+    python -m multigpu_advectiondiffusion_tpu_torch.cli burgers3d \
+        --fixed-dt --impl pallas_slab --cfl 0.3 --lengths 2 2 4 \
+        --n 400 400 406 --iters 267
     python -m multigpu_advectiondiffusion_tpu_torch.cli diffusion2d \
         --n 1001 1001 --lengths 10 10 --iters 10000 --impl pallas
     python -m multigpu_advectiondiffusion_tpu_torch.cli burgers2d \
@@ -40,6 +43,8 @@ from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_burgers,
     fused_diffusion,
+    fused_diffusion_step,
+    fused_slab_run,
     whole_run,
 )
 from multigpu_advectiondiffusion_tpu_torch.timestepping.integrators import (
@@ -94,9 +99,12 @@ def _common(p, ndim: int) -> None:
     p.add_argument("--t-end", type=float, default=None,
                    help="march to this simulated time instead of --iters")
     p.add_argument("--impl", default="xla", choices=IMPLS,
-                   help="kernel rung: xla (generic) or pallas (fused: "
-                        "the CUDA stage kernel in 3-D, the whole-run "
-                        "kernel in 2-D)")
+                   help="kernel rung: xla (generic); in 3-D pallas_stage "
+                        "(a CUDA kernel a stage), pallas_step (a kernel a "
+                        "step, diffusion), pallas_slab (a kernel a run) "
+                        "or pallas (the slab rung where the measured gate "
+                        "prefers it, else a kernel a stage); in 2-D every "
+                        "pallas flavor runs the whole-run kernel")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--save", default=None, metavar="DIR",
@@ -139,6 +147,9 @@ _COUNTERS = {
     "K5 fused_burgers_stage": fused_burgers.fused_burgers_stage,
     "K7 whole_run": whole_run.whole_run,
     "K7a whole_run_adaptive": whole_run.whole_run_adaptive,
+    "K10 fused_step_diffusion": fused_diffusion_step.fused_step,
+    "K2 slab_run_diffusion": fused_slab_run.slab_run_diffusion,
+    "K6 slab_run_burgers": fused_slab_run.slab_run_burgers,
 }
 
 

@@ -82,6 +82,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "weno5.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -91,24 +93,11 @@ constexpr int THREADS = 256;
 constexpr long long MAX_CELLS = 1LL << 30;
 constexpr int NWARPS = THREADS / 32;
 
-// constants as the JAX package forms them: a Python double rounded once
-constexpr float EPS = (float)1e-6;
-constexpr float C13 = (float)(13.0 / 12.0);
-constexpr float S1 = (float)(1.0 / 6.0);
-constexpr float S2 = (float)(2.0 * (1.0 / 6.0));
-constexpr float S4 = (float)(4.0 * (1.0 / 6.0));
-constexpr float S5 = (float)(5.0 * (1.0 / 6.0));
-constexpr float SM2 = (float)(-2.0 * (1.0 / 6.0));
-constexpr float D_LO = (float)0.1;
-constexpr float D_MID = (float)0.6;
-constexpr float D_HI = (float)0.3;
 constexpr float DT_FLOOR = (float)1e-12;  // timestepping/cfl.py floor
 
 // SSP-RK3 stage combinations u_next = a*u + b*(v + dt*L(v))
 constexpr float A2 = (float)0.75, B2 = (float)0.25;
 constexpr float A3 = (float)(1.0 / 3.0), B3 = (float)(2.0 / 3.0);
-
-enum { BURGERS = 0, LINEAR = 1, BUCKLEY = 2 };
 
 struct Args {
   float* S;
@@ -125,102 +114,6 @@ struct Args {
   float* t_sum;     // the accumulated time advance (adaptive)
   int n_iters;
 };
-
-template <int FLUX>
-__device__ __forceinline__ float flux_f(float w, float c) {
-  if constexpr (FLUX == LINEAR) return c * w;
-  // BUCKLEY: 4 w w / (4 w w + (1 - w)^2)
-  const float q = 4.0f * w * w;
-  const float o = 1.0f - w;
-  return __fdiv_rn(q, q + o * o);
-}
-
-template <int FLUX>
-__device__ __forceinline__ float flux_df(float w, float c) {
-  if constexpr (FLUX == BURGERS) return w;
-  if constexpr (FLUX == LINEAR) return c;
-  // BUCKLEY: 8 w (1 - w) / (5 w w - 2 w + 1)^2
-  const float q = 5.0f * w * w - 2.0f * w + 1.0f;
-  return __fdiv_rn(8.0f * w * (1.0f - w), q * q);
-}
-
-// Lax-Friedrichs split of one value into f+ and f-
-template <int FLUX>
-__device__ __forceinline__ void split(float w, float c, float& fp,
-                                      float& fm) {
-  if constexpr (FLUX == BURGERS) {
-    const float t = 0.5f * w;
-    const float a = fabsf(w);
-    fp = t * (t + a);
-    fm = t * (t - a);
-  } else {
-    const float a = fabsf(flux_df<FLUX>(w, c));
-    const float fu = flux_f<FLUX>(w, c);
-    fp = 0.5f * (fu + a * w);
-    fm = 0.5f * (fu - a * w);
-  }
-}
-
-// One WENO5 reconstruction in e-form: (numerator, denominator) of the
-// deviation from the window's center (ops/weno.py::_weno5_side_nd).
-template <bool WZ, bool MINUS>
-__device__ __forceinline__ void weno5_side(float e0, float e1, float e2,
-                                           float e3, float& num,
-                                           float& den) {
-  const float dd0 = e1 - e0, dd1 = e2 - e1, dd2 = e3 - e2;
-  const float cd0 = C13 * dd0 * dd0;
-  const float cd1 = C13 * dd1 * dd1;
-  const float cd2 = C13 * dd2 * dd2;
-  const float l0 = 1.5f * e1 - 0.5f * e0;
-  const float l1 = 0.5f * e1 + 0.5f * e2;
-  const float l2 = 0.5f * e3 - 1.5f * e2;
-  const float b0 = cd0 + l0 * l0;
-  const float b1 = cd1 + l1 * l1;
-  const float b2 = cd2 + l2 * l2;
-  const float s0 = b0 + EPS, s1 = b1 + EPS, s2 = b2 + EPS;
-  const float d0 = MINUS ? D_LO : D_HI;
-  const float d2 = MINUS ? D_HI : D_LO;
-  float a0, a1, a2;
-  if constexpr (WZ) {
-    const float tau = fabsf(b0 - b2);
-    a0 = d0 * (s0 + tau) * (s1 * s2);
-    a1 = D_MID * (s1 + tau) * (s0 * s2);
-    a2 = d2 * (s2 + tau) * (s0 * s1);
-  } else {
-    const float p0 = s1 * s2, p1 = s0 * s2, p2 = s0 * s1;
-    a0 = d0 * (p0 * p0);
-    a1 = D_MID * (p1 * p1);
-    a2 = d2 * (p2 * p2);
-  }
-  float x0, x1, x2;
-  if constexpr (MINUS) {
-    x0 = S5 * e1 - S2 * e0;
-    x1 = S1 * e1 + S2 * e2;
-    x2 = S4 * e2 - S1 * e3;
-  } else {
-    x0 = S1 * e0 - S4 * e1;
-    x1 = SM2 * e1 - S1 * e2;
-    x2 = S2 * e3 - S5 * e2;
-  }
-  num = a0 * x0 + a1 * x1 + a2 * x2;
-  den = a0 + a1 + a2;
-}
-
-// Face flux right of the cell whose f+ window is p[0..4] (center p[2])
-// and whose right neighbour's f- window is m[0..4] (center m[2]).
-template <bool WZ>
-__device__ __forceinline__ float face(const float* p, const float* m) {
-  float nm, dm, np, dp;
-  weno5_side<WZ, true>(p[1] - p[0], p[2] - p[1], p[3] - p[2], p[4] - p[3],
-                       nm, dm);
-  weno5_side<WZ, false>(m[1] - m[0], m[2] - m[1], m[3] - m[2], m[4] - m[3],
-                        np, dp);
-  return (p[2] + m[2]) + (nm * __frcp_rn(dm) + np * __frcp_rn(dp));
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
 
 // The largest of every thread's `bits` in the block, folded into *word
 // with one atomicMax. Every thread of the block must call it.

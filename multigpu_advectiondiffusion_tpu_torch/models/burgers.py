@@ -12,16 +12,19 @@ counterpart: 2-D and 3-D Cartesian, one device).
   default; ``adaptive_dt=False`` is the CUDA drivers' hard-coded unit
   wave speed (``MultiGPU/Burgers3d_Baseline/main.c:193``).
 
-Kernel rungs (``impl``):
+Kernel rungs (``impl``), each a hand-written CUDA kernel:
 
 * ``"xla"`` — the generic plain-PyTorch path, no kernel: WENO5-JS/Z and
   WENO7, every flux, viscous or not, fixed or adaptive dt;
-* 3-D ``"pallas"`` / ``"pallas_stage"`` — the fused per-stage stepper,
-  one hand-written CUDA kernel launch (K5) per RK stage
-  (:mod:`ops.kernels.fused_burgers`), WENO5-JS/Z. Where the JAX
-  package's ``"pallas"`` would consider its fixed-dt slab rung (K6),
-  that rung is not ported: the per-stage stepper runs and
-  ``engaged_path()`` says so;
+* 3-D ``"pallas_stage"`` — the fused per-stage stepper, one launch (K5)
+  per RK stage (:mod:`ops.kernels.fused_burgers`), WENO5-JS/Z;
+* 3-D ``"pallas_slab"`` — at fixed dt the whole-run slab stepper, one
+  cooperative launch (K6) per ``run`` (:mod:`ops.kernels.fused_slab_run`),
+  WENO5-JS/Z; adaptive dt, ``t_end`` mode and grids the kernel cannot
+  take decline to K5 with the JAX package's reason;
+* 3-D ``"pallas"`` — K5; at fixed dt it would take K6 where the port's
+  gate says K6 beats K5 (``SlabRunBurgersStepper.profitable``), which,
+  measured on the H100, is on no grid;
 * 2-D ``"pallas"``, ``"pallas_stage"``, ``"pallas_step"`` and
   ``"pallas_slab"`` — the whole-run stepper, one cooperative CUDA launch
   per ``run`` (:mod:`ops.kernels.fused_burgers2d`: K7 at fixed dt, K7a
@@ -29,8 +32,8 @@ Kernel rungs (``impl``):
   stepper in 2-D in the JAX package;
 * a config the fused rungs decline runs the generic path, with the
   reason;
-* 3-D ``"pallas_slab"`` and ``"pallas_step"``, and ``"pallas_axis"``
-  and ``"auto"`` everywhere — not ported: construction raises
+* 3-D ``"pallas_step"`` (the per-axis WENO kernel K12 for Burgers),
+  ``"pallas_axis"`` and ``"auto"`` — not ported: construction raises
   ``NotImplementedError``, as it does for WENO7 on a fused rung, 1-D
   grids, ``precision="bf16"`` and mesh options.
 """
@@ -56,6 +59,9 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_burgers import (
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_burgers2d import (
     FusedBurgers2DStepper,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_slab_run import (
+    SlabRunBurgersStepper,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import laplacian
 from multigpu_advectiondiffusion_tpu_torch.ops.weno import HALO, flux_divergence
 from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import advective_dt
@@ -70,8 +76,6 @@ _UNPORTED_IMPLS = {
 # ... and those unported on 3-D grids only: on a 2-D grid they run the
 # whole-run stepper (K7/K7a), as in the JAX package
 _UNPORTED_3D_IMPLS = {
-    "pallas_slab": "K6, the fused Burgers slab step run through K2/K3 "
-                   "(fused_slab_run.SlabRunBurgersStepper)",
     "pallas_step": "K12, the per-axis WENO kernel (weno.flux_divergence_"
                    "pallas), which Burgers runs for this flavor",
 }
@@ -163,7 +167,7 @@ class BurgersSolver(SolverBase):
             )
         if (cfg.weno_order == 7 and is_pallas_impl(cfg.impl)
                 and self._fused_reason() is None):
-            kernel = "K5's" if self.grid.ndim == 3 else "K7's"
+            kernel = "K5's and K6's" if self.grid.ndim == 3 else "K7's"
             raise NotImplementedError(
                 f"WENO7 on the fused rung needs {kernel} order-7 instance, "
                 "which is not ported yet (impl='xla' runs WENO7)"
@@ -253,8 +257,9 @@ class BurgersSolver(SolverBase):
         """The fused SSP-RK3 stepper when this config is eligible, else
         ``None`` (generic path, reason recorded): the whole-run stepper
         (K7/K7a) on a 2-D grid, which has no ``run_to`` (``advance_to``
-        runs the generic loop), the per-stage stepper (K5) on a 3-D
-        one."""
+        runs the generic loop); on a 3-D one the slab stepper (K6) where
+        :meth:`_select_slab` engages it, else the per-stage stepper
+        (K5)."""
         cfg = self.cfg
         self._fused_fallback = None
         if not is_pallas_impl(cfg.impl):
@@ -275,11 +280,50 @@ class BurgersSolver(SolverBase):
                     cfl=cfg.cfl if cfg.adaptive_dt else None,
                 )
             return self._cache["fused"]
-        if mode != "t_end" and not cfg.adaptive_dt and cfg.impl == "pallas":
-            self._fused_fallback = "slab rung K6 not ported; not considered"
+        slab = self._select_slab(mode)
+        if slab is not None:
+            return slab
         if "fused" not in self._cache:
             self._cache["fused"] = FusedBurgersStepper(
                 self.grid.spacing, self.flux,
                 cfg.weno_variant, cfg.nu, cfg.cfl, self.device, dt=self.dt,
             )
         return self._cache["fused"]
+
+    def _select_slab(self, mode: str):
+        """The whole-run slab stepper (K6) when this fixed-dt 3-D config
+        engages it, else ``None`` and the per-stage stepper (K5) runs (the
+        JAX package's ``_select_slab``, its unsharded branch; the shared
+        eligibility has passed). ``impl="pallas_slab"`` pins the rung:
+        where it declines, K5 runs, as in the JAX package, and
+        ``fallback`` carries the JAX package's reason. ``impl="pallas"``
+        follows the port's measured gate
+        (``SlabRunBurgersStepper.profitable``)."""
+        cfg = self.cfg
+        if cfg.impl not in ("pallas", "pallas_slab"):
+            return None
+        pinned = cfg.impl == "pallas_slab"
+
+        def decline(reason):
+            if pinned:
+                self._fused_fallback = reason
+            return None
+
+        if mode == "t_end":
+            return decline("the slab stepper has no run_to (use --iters)")
+        if cfg.adaptive_dt:
+            return decline("adaptive dt rides the per-stage stepper")
+        shape = self.grid.shape
+        if not SlabRunBurgersStepper.supported(shape, self.dtype):
+            return decline("local shape exceeds the slab kernel's 32-bit "
+                           "indices")
+        if not pinned and not SlabRunBurgersStepper.profitable(
+            shape, self.dtype
+        ):
+            return None
+        if "fused_slab" not in self._cache:
+            self._cache["fused_slab"] = SlabRunBurgersStepper(
+                shape, self.grid.spacing, self.flux, cfg.weno_variant,
+                cfg.nu, self.dt, self.device, order=cfg.weno_order,
+            )
+        return self._cache["fused_slab"]

@@ -6,20 +6,25 @@ Reference-parity behavior (on by default): the Laplacian is zeroed on
 the 2-cell boundary band (``Laplace3d.m:21``) and Dirichlet faces are
 re-clamped after every stage (``heat3d.m:65-67``).
 
-Kernel rungs (``impl``):
+Kernel rungs (``impl``), each a hand-written CUDA kernel:
 
 * ``"xla"`` — the generic plain-PyTorch path, no kernel;
-* 3-D ``"pallas"`` / ``"pallas_stage"`` — the fused per-stage stepper,
-  one hand-written CUDA kernel launch per RK stage
-  (:mod:`ops.kernels.fused_diffusion`, K1). Where the JAX package's
-  ``"pallas"`` would pick its whole-run slab rung, that rung is not
-  ported: the per-stage stepper runs and ``engaged_path()`` says why;
+* 3-D ``"pallas_stage"`` — the fused per-stage stepper, one launch per
+  RK stage (:mod:`ops.kernels.fused_diffusion`, K1);
+* 3-D ``"pallas_step"`` — the whole-step stepper, one launch per step
+  fusing its three stages (:mod:`ops.kernels.fused_diffusion_step`,
+  K10);
+* 3-D ``"pallas_slab"`` — the whole-run slab stepper, one cooperative
+  launch per ``run`` (:mod:`ops.kernels.fused_slab_run`, K2); in
+  ``t_end`` mode (it has no ``run_to``) and where the kernel cannot take
+  the grid it declines to K1 with the JAX package's reason;
+* 3-D ``"pallas"`` — K2 where the port's gate, measured on the H100,
+  says it beats K1 (``SlabRunDiffusionStepper.profitable``), else K1;
 * 2-D ``"pallas"``, ``"pallas_stage"``, ``"pallas_step"`` and
   ``"pallas_slab"`` — the whole-run stepper, one cooperative CUDA launch
   per ``run`` (:mod:`ops.kernels.fused_diffusion2d`, K7), as every fused
   flavor runs the whole-run stepper in 2-D in the JAX package;
-* 3-D ``"pallas_slab"`` and ``"pallas_step"``, and ``"pallas_axis"``
-  and ``"auto"`` everywhere — not ported: construction raises
+* ``"pallas_axis"`` and ``"auto"`` — not ported: construction raises
   ``NotImplementedError``, as it does for 1-D grids, the axisymmetric
   geometry and bf16 storage.
 """
@@ -45,6 +50,12 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion2d import (
     FusedDiffusion2DStepper,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion_step import (
+    StepFusedDiffusionStepper,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_slab_run import (
+    SlabRunDiffusionStepper,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import laplacian
 from multigpu_advectiondiffusion_tpu_torch.ops.stencils import (
     boundary_band_mask,
@@ -59,14 +70,6 @@ _UNPORTED_IMPLS = {
     "pallas_axis": "K11, the per-axis Laplacian kernel "
                    "(laplacian.laplacian_o4_3d/_2d)",
     "auto": "the measured tuner that resolves impl='auto'",
-}
-# ... and those unported on 3-D grids only: on a 2-D grid they run the
-# whole-run stepper (K7), as in the JAX package
-_UNPORTED_3D_IMPLS = {
-    "pallas_slab": "K2, the whole-run slab kernel "
-                   "(fused_slab_run._whole_run_kernel)",
-    "pallas_step": "K10, the whole-step kernel "
-                   "(fused_diffusion_step._step_kernel)",
 }
 
 
@@ -121,38 +124,6 @@ class DiffusionConfig:
             )
 
 
-# --------------------------------------------------------------------- #
-# The JAX package's slab-rung selection for an unsharded float32 grid
-# (fused_slab_run.SlabRunDiffusionStepper.supported/profitable with its
-# TPU VMEM block model). Kept only to say when its impl="pallas" would
-# run the slab rung, which the port does not have yet. This is TPU
-# policy: it goes when K2 is ported, replaced by a gate measured on the
-# GPU, and nothing but the fallback label may read it.
-# --------------------------------------------------------------------- #
-_TPU_VMEM_LIMIT = 100 * 1024 * 1024
-_SLAB_GHOSTS = 6  # three O4 stages of redundant z recompute
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def slab_rung_selected(interior_shape) -> bool:
-    """Whether the JAX package's ``impl="pallas"`` engages its whole-run
-    slab rung (K2) on this unsharded float32 grid: z served by at most
-    two slabs (the block cap never reaches 4 ghost depths)."""
-    nz, ny, nx = interior_shape
-    row = _round_up(ny + 4, 8) * _round_up(nx + 4, 128) * 4
-    cap = max(1, min(20, int((_TPU_VMEM_LIMIT // row - 130) // 8)))
-
-    def score(b):
-        blocks = -(-nz // b)
-        return (b / (b + 2 * _SLAB_GHOSTS)) * (nz / (blocks * b))
-
-    bz = max(range(1, cap + 1), key=score)
-    return bz >= 4 * _SLAB_GHOSTS or -(-nz // bz) <= 2
-
-
 class DiffusionSolver(SolverBase):
     cfg: DiffusionConfig
 
@@ -165,12 +136,9 @@ class DiffusionSolver(SolverBase):
         """Raise on a config whose JAX path the port cannot run yet,
         rather than run something else under its name."""
         cfg = self.cfg
-        unported = dict(_UNPORTED_IMPLS)
-        if self.grid.ndim == 3:
-            unported.update(_UNPORTED_3D_IMPLS)
-        if cfg.impl in unported:
+        if cfg.impl in _UNPORTED_IMPLS:
             raise NotImplementedError(
-                f"impl={cfg.impl!r} needs {unported[cfg.impl]}, "
+                f"impl={cfg.impl!r} needs {_UNPORTED_IMPLS[cfg.impl]}, "
                 "which is not ported yet"
             )
         if self.grid.ndim == 1:
@@ -265,11 +233,13 @@ class DiffusionSolver(SolverBase):
     def _fused_stepper(self, mode: str = "iters"):
         """The fused SSP-RK3 stepper when this config is eligible, else
         ``None`` (generic path, reason recorded): the whole-run stepper
-        (K7) on a 2-D grid, the per-stage stepper (K1) on a 3-D one.
+        (K7) on a 2-D grid; on a 3-D one the slab stepper (K2) where
+        :meth:`_select_slab` engages it, else the whole-step (K10, for
+        ``impl="pallas_step"``) or the per-stage stepper (K1).
         Eligibility mirrors what the kernels bake in: frozen Dirichlet
         ghosts and boundary band, static dt, Cartesian O4, float32. The
-        whole-run stepper has no ``run_to``, so ``advance_to`` runs the
-        generic loop (``models/base.py``)."""
+        whole-run and whole-step steppers have no ``run_to``, so
+        ``advance_to`` runs the generic loop (``models/base.py``)."""
         cfg = self.cfg
         self._fused_fallback = None
         if not is_pallas_impl(cfg.impl):
@@ -310,11 +280,15 @@ class DiffusionSolver(SolverBase):
             )
         if self.grid.ndim == 2:
             return self._whole_run_stepper()
-        if (mode != "t_end" and cfg.impl == "pallas"
-                and slab_rung_selected(self.grid.shape)):
-            self._fused_fallback = "slab rung K2 not yet ported"
-        if "fused" not in self._cache:
-            self._cache["fused"] = FusedDiffusionStepper(
+        slab = self._select_slab(mode)
+        if slab is not None:
+            return slab
+        if cfg.impl == "pallas_step":
+            key, cls = "fused_step", StepFusedDiffusionStepper
+        else:
+            key, cls = "fused", FusedDiffusionStepper
+        if key not in self._cache:
+            self._cache[key] = cls(
                 self.grid.shape,
                 self.grid.spacing,
                 [cfg.diffusivity] * 3,
@@ -323,7 +297,47 @@ class DiffusionSolver(SolverBase):
                 bcs[0].value,
                 self.device,
             )
-        return self._cache["fused"]
+        return self._cache[key]
+
+    def _select_slab(self, mode: str):
+        """The whole-run slab stepper (K2) when this 3-D config engages
+        it, else ``None`` and the per-stage selection proceeds (the JAX
+        package's ``_select_slab``, its unsharded branch).
+        ``impl="pallas_slab"`` pins the rung: where it declines, the
+        per-stage stepper runs, as in the JAX package, and ``fallback``
+        carries the JAX package's reason. ``impl="pallas"`` follows the
+        port's measured gate (``SlabRunDiffusionStepper.profitable``)."""
+        cfg = self.cfg
+        if cfg.impl not in ("pallas", "pallas_slab"):
+            return None
+        pinned = cfg.impl == "pallas_slab"
+
+        def decline(reason):
+            if pinned:
+                self._fused_fallback = reason
+            return None
+
+        if mode == "t_end":
+            return decline("the slab stepper has no run_to (use --iters)")
+        shape = self.grid.shape
+        if not SlabRunDiffusionStepper.supported(shape, self.dtype):
+            return decline("local shape exceeds the slab kernel's 32-bit "
+                           "indices")
+        if not pinned and not SlabRunDiffusionStepper.profitable(
+            shape, self.dtype
+        ):
+            return None
+        if "fused_slab" not in self._cache:
+            self._cache["fused_slab"] = SlabRunDiffusionStepper(
+                shape,
+                self.grid.spacing,
+                [cfg.diffusivity] * 3,
+                self.dt,
+                cfg.boundary_band,
+                self.bcs[0].value,
+                self.device,
+            )
+        return self._cache["fused_slab"]
 
     def _whole_run_stepper(self):
         """The 2-D whole-run stepper (K7), or ``None`` where the state

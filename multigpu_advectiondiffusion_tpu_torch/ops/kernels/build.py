@@ -4,9 +4,10 @@ Each source under ``csrc/`` has a plain C interface and is compiled
 by ``nvcc`` into its own shared library, for ``ctypes`` to load — no
 PyTorch headers, so a build takes seconds. Libraries go to
 ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-named by a hash of the source and the flags (a source may add its own,
-e.g. ``-fmad=false``), so an edited source or flag set is rebuilt and
-an unchanged one is reused. Nothing here runs at import
+named by a hash of the source, the headers it may include
+(``csrc/*.cuh``) and the flags (a source may add its own, e.g.
+``-fmad=false``), so an edited source, header or flag set is rebuilt
+and an unchanged one is reused. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
 """
 
@@ -56,9 +57,11 @@ def build(source: str, extra_flags: tuple = ()) -> Built:
     with ``extra_flags`` after the common ones."""
     src = CSRC_DIR / source
     flags = (*NVCC_FLAGS, *extra_flags)
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags).encode()
-    ).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(flags).encode())
+    digest = digest.hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists():
         return Built(out, 0.0, "")

@@ -169,8 +169,12 @@ def fused_stage(v, u, out, dt, *, taps, a, b, band, bc_value,
 fused_stage.launches = 0
 
 
-class FusedDiffusionStepper(FusedStepperBase):
-    """Fused runner for one (grid, dt) configuration on one device."""
+class PaddedDiffusionState:
+    """The padded layout every diffusion stepper keeps (K1, K10, K2 and,
+    in 2-D, K7): the interior at offset ``R`` on every axis and an
+    ``R``-deep ghost ring at the Dirichlet wall value, and what one
+    (grid, dt) configuration's kernels take: the taps, ``dt``, the band
+    and the wall value."""
 
     def __init__(self, interior_shape, spacing, diffusivity, dt, band,
                  bc_value, device):
@@ -191,6 +195,10 @@ class FusedDiffusionStepper(FusedStepperBase):
 
     def extract(self, S):
         return _interior(S).contiguous()
+
+
+class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
+    """Fused runner for one (grid, dt) configuration on one device."""
 
     def _dt_value(self):
         return np.float32(self.dt)

@@ -31,9 +31,8 @@ import torch
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     R,
-    _interior,
+    PaddedDiffusionState,
     stage_reference as _stage_nd,
-    stage_taps,
 )
 
 SOURCE = "whole_run_diffusion2d.cu"
@@ -91,23 +90,12 @@ def whole_run_diffusion2d(S, T1, T2, num_iters: int, dt, *, taps, band,
     return wr.whole_run(kernel, stage, S, T1, T2, num_iters, dt32)
 
 
-class FusedDiffusion2DStepper:
+class FusedDiffusion2DStepper(PaddedDiffusionState):
     """Whole-run stepper for one (grid, dt) configuration on one device.
     It has no ``run_to``: ``advance_to`` runs the generic loop, as in the
     JAX package."""
 
     engaged_label = "fused-whole-run"
-
-    def __init__(self, interior_shape, spacing, diffusivity, dt, band,
-                 bc_value, device):
-        self.interior_shape = tuple(interior_shape)
-        self.padded_shape = tuple(n + 2 * R for n in interior_shape)
-        self.dtype = torch.float32
-        self.device = torch.device(device)
-        self.taps = stage_taps(spacing, diffusivity)
-        self.dt = float(dt)
-        self.band = int(band)
-        self.bc_value = float(bc_value)
 
     def stencil_spec(self) -> dict:
         """Stencil metadata, the JAX stepper's keys: whole-run residency
@@ -129,15 +117,6 @@ class FusedDiffusion2DStepper:
         (:func:`whole_run.fits_l2`)."""
         return dtype == torch.float32 and wr.fits_l2(
             [n + 2 * R for n in interior_shape])
-
-    def embed(self, u):
-        S = torch.full(self.padded_shape, self.bc_value, dtype=self.dtype,
-                       device=self.device)
-        _interior(S).copy_(u)
-        return S
-
-    def extract(self, S):
-        return _interior(S).contiguous()
 
     def run(self, u, t, num_iters: int):
         """``num_iters`` steps in one launch; returns ``(u, t)``, ``t``

@@ -25,7 +25,9 @@ launch and a plain stage. What they share is here:
   ``T1 = s(S)``, ``T2 = s(T1, S)``, ``S = s(T2, S)`` in place
   (``whole_run.py:37-41``), and in adaptive mode dt from the state at the
   start of each step, the f32 sum of the steps' dt returned;
-* :func:`library`, the ctypes binding of a body's cooperative launch;
+* :func:`library`, the ctypes binding of a body's cooperative launch,
+  and :func:`launch`, which calls it and raises on a CUDA error (the 3-D
+  slab kernels, :mod:`fused_slab_run`, use both);
 * :func:`accumulate_t`, the fixed-dt time, iterated on the host.
 """
 
@@ -128,7 +130,9 @@ def _check(S, T1, T2) -> None:
         raise ValueError(f"no whole-run kernel for device {S.device}")
 
 
-def _launch(kernel: Kernel, *args) -> None:
+def launch(kernel: Kernel, *args) -> None:
+    """``kernel(*args)`` on ``args[0]``'s device; raises on a CUDA error
+    code."""
     with torch.cuda.device(args[0].device):
         rc = kernel(*args)
     if rc != 0:
@@ -145,7 +149,7 @@ def whole_run(kernel: Kernel, stage: Stage, S, T1, T2, num_iters: int,
     _check(S, T1, T2)
     if S.device.type == "cpu":
         return plain_run(stage, S, T1, T2, num_iters, dt)
-    _launch(kernel, S, T1, T2, int(num_iters))
+    launch(kernel, S, T1, T2, int(num_iters))
     whole_run.launches += 1
     return S
 
@@ -166,7 +170,7 @@ def whole_run_adaptive(kernel: Kernel, stage: Stage, dt_fn, S, T1, T2,
         return plain_run_adaptive(stage, dt_fn, S, T1, T2, num_iters)
     mx = torch.empty(2, dtype=torch.float32, device=S.device)
     t_sum = torch.empty((), dtype=torch.float32, device=S.device)
-    _launch(kernel, S, T1, T2, int(num_iters), mx, t_sum)
+    launch(kernel, S, T1, T2, int(num_iters), mx, t_sum)
     whole_run_adaptive.launches += 1
     return S, t_sum
 

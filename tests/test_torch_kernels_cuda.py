@@ -1,6 +1,7 @@
-"""K1 and K5, the port's CUDA stage kernels, and K7/K7a, its whole-run
-kernels, against their plain PyTorch twins on a GPU. Marked ``cuda``: it
-skips where no CUDA device is present.
+"""K1 and K5, the port's CUDA stage kernels, K7/K7a, its 2-D whole-run
+kernels, and K10, K2 and K6, its 3-D fused-step kernels, against their
+plain PyTorch twins on a GPU. Marked ``cuda``: it skips where no CUDA
+device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
 has no JAX, with the JAX-side conftest switched off::
@@ -33,6 +34,12 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_diffusion2d as fd2,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_diffusion_step as fds,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_slab_run as fsr,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 
 TOL = 32 * np.finfo(np.float32).eps
@@ -42,9 +49,10 @@ TOL = 32 * np.finfo(np.float32).eps
 def gpu():
     if not torch.cuda.is_available():
         pytest.skip("K1 (csrc/fused_diffusion_stage.cu), K5 "
-                    "(csrc/fused_burgers_stage.cu) and K7/K7a "
-                    "(csrc/whole_run_{diffusion2d,burgers2d}.cu) need a "
-                    "CUDA device")
+                    "(csrc/fused_burgers_stage.cu), K7/K7a "
+                    "(csrc/whole_run_{diffusion2d,burgers2d}.cu), K10 and "
+                    "K2 (csrc/fused_step_diffusion.cu) and K6 "
+                    "(csrc/slab_run_burgers.cu) need a CUDA device")
     return torch.device("cuda")
 
 
@@ -77,7 +85,7 @@ def test_k1_matches_twin(gpu, shape, kind):
 @pytest.mark.cuda
 def test_k1_run_matches_generic_path(gpu):
     grid = Grid.make(37, 29, 23, lengths=2.0)
-    fused = DiffusionSolver(DiffusionConfig(grid=grid, impl="pallas"))
+    fused = DiffusionSolver(DiffusionConfig(grid=grid, impl="pallas_stage"))
     generic = DiffusionSolver(DiffusionConfig(grid=grid, impl="xla"))
     s0 = fused.initial_state()
     fd.fused_stage.launches = 0
@@ -274,3 +282,96 @@ def test_k7_runs_match_generic_path(gpu):
         assert not bool(((got.u - want.u).abs()
                          > 2e-5 * want.u.abs() + 2e-6 * scale).any())
         assert abs(float(got.t) - float(want.t)) <= 1e-5 * float(want.t)
+
+
+# --------------------------------------------------------------------- #
+# K10 / K2 / K6: the three RK stages of a step fused in one pass
+# --------------------------------------------------------------------- #
+def _steps(step, S0, steps):
+    """``steps`` of ``step(src, dst)`` on two copies of ``S0`` in turn
+    (the slab twins' loop); returns the result."""
+    return fsr.ping_pong(step, S0.clone(), S0.clone(), steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zchunk", [3, 32])
+@pytest.mark.parametrize("steps", [1, 4, 5])
+@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 70, 6), (40, 33, 65)])
+def test_k10_and_k2_match_twin(gpu, shape, steps, zchunk):
+    """K10 (one launch a step) and K2 (one launch a run) against their
+    twin, three K1-twin stages a step, to the bit: several tiles and z
+    chunks, ragged edges, band 2 and a nonzero wall."""
+    rng = np.random.default_rng(steps)
+    S0 = torch.full(tuple(n + 2 * fd.R for n in shape), 0.25, device=gpu)
+    S0[2:-2, 2:-2, 2:-2] = torch.from_numpy(
+        rng.random(shape, dtype=np.float32))
+    kw = dict(taps=fd.stage_taps((0.1, 0.2, 0.3), (1.0, 0.5, 2.0)), band=2,
+              bc_value=0.25)
+    want = _steps(lambda s, d: fds.step_reference(s, d, 1e-3, **kw), S0,
+                  steps)
+    k10, k2 = fds.fused_step.launches, fsr.slab_run_diffusion.launches
+    got = _steps(lambda s, d: fds.fused_step(s, d, 1e-3, zchunk=zchunk,
+                                             **kw), S0, steps)
+    A, B = S0.clone(), S0.clone()
+    slab = fsr.slab_run_diffusion(A, B, steps, 1e-3, zchunk=zchunk, **kw)
+    torch.cuda.synchronize()
+    assert fds.fused_step.launches == k10 + steps
+    assert fsr.slab_run_diffusion.launches == k2 + 1
+    assert slab is (B if steps % 2 else A)
+    assert torch.equal(got, want) and torch.equal(slab, want)
+
+
+K6_SHAPES = [(23, 29, 37), (40, 33, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 3])
+@pytest.mark.parametrize("shape", K6_SHAPES, ids=["23x29x37", "40x33x65"])
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k6_matches_twin(gpu, case, shape, steps):
+    """K6 against its twin, three K5-twin stages a step, to the bit."""
+    name, kw, variant, nu = K5_CASES[case]
+    rng = np.random.default_rng(steps)
+    S0 = torch.from_numpy(
+        rng.uniform(-0.2, 1.0, shape).astype(np.float32)).to(gpu)
+    params = fb.stage_params(pflux.get(name, **kw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    dt = 0.3 * 0.05
+    want = _steps(lambda s, d: fsr.burgers_step_reference(
+        s, d, dt, params=params), S0, steps)
+    before = fsr.slab_run_burgers.launches
+    got = fsr.slab_run_burgers(S0.clone(), torch.empty_like(S0), steps, dt,
+                               params=params, zchunk=7)
+    torch.cuda.synchronize()
+    assert fsr.slab_run_burgers.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_step_runs_match_generic_path(gpu):
+    """The 3-D fused-step paths against the generic paths, one K10
+    launch a step, one K2 or K6 launch a run."""
+    grid = Grid.make(37, 29, 23, lengths=2.0)
+    generic = DiffusionSolver(DiffusionConfig(grid=grid, impl="xla"))
+    s0 = generic.initial_state()
+    want = generic.run(s0, 7)
+    scale = float(want.u.abs().max())
+    for impl, counter, launches in (("pallas_step", fds.fused_step, 7),
+                                    ("pallas_slab", fsr.slab_run_diffusion,
+                                     1)):
+        fused = DiffusionSolver(DiffusionConfig(grid=grid, impl=impl))
+        counter.launches = 0
+        got = fused.run(s0, 7)
+        assert counter.launches == launches and got.t == want.t
+        assert not bool(((got.u - want.u).abs()
+                         > 1e-5 * want.u.abs() + 1e-6 * scale).any())
+    kw = dict(grid=grid, nu=1e-5, adaptive_dt=False)
+    fused = BurgersSolver(BurgersConfig(impl="pallas_slab", **kw))
+    generic = BurgersSolver(BurgersConfig(impl="xla", **kw))
+    s0 = fused.initial_state()
+    fsr.slab_run_burgers.launches = 0
+    got, want = fused.run(s0, 7), generic.run(s0, 7)
+    assert fsr.slab_run_burgers.launches == 1 and got.t == want.t
+    scale = float(want.u.abs().max())
+    assert not bool(((got.u - want.u).abs()
+                     > 2e-5 * want.u.abs() + 2e-6 * scale).any())
