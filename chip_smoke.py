@@ -64,7 +64,8 @@ ignored ``build/`` directory), then:
    one launch each, at most one device-to-host copy in a profiled
    adaptive run, u inside [-1e-6, 1.05] and agreement with the generic
    path; times the kernels alone, the sync floor and both paths;
-11. ``advance_to`` on 2-D grids runs the generic loop and says why.
+11. ``advance_to`` on 2-D grids runs the generic loop on the per-axis
+   kernels (K11b, K12b) and says why;
 12. holds the whole-step diffusion kernel (K10, one launch a step) and
    the whole-run slab kernel (K2, one cooperative launch a run) against
    their twin (three K1-twin stages a step) to the bit, over 1 and 5
@@ -87,7 +88,27 @@ ignored ``build/`` directory), then:
    same config, the operations bound;
 15. times the per-stage and the slab paths on the slab gates' grids and
    prints which was faster and which the gate picks (reported, not
-   held).
+   held);
+16. holds the per-axis Laplacian kernels (K11 in 3-D, K11b in 2-D)
+   against their plain twin at 400x200x206, 512^3, 1001^2 and the odd
+   shapes (``<= 32 eps`` of max|twin|, the ulp count printed); times
+   each alone at the paths' shapes beside its bytes bound, the twin and
+   ``conv3d``/``conv2d`` computing the same Laplacian;
+17. holds the per-axis WENO kernels (K12, K12b) against their twin:
+   every sweep axis at 512^3 and 400x400x406 (WENO5-JS), 400^2, and at
+   the odd shapes WENO5-Z, WENO7-JS and the linear and Buckley-Leverett
+   fluxes; times each axis alone beside its bound and the twin;
+18. drives the six per-axis paths (``impl="pallas_axis"``): diffusion
+   3-D ``run(101)`` (303 K11 launches), Burgers 512^3 adaptive
+   ``run(86)`` (774 K12, 258 K11), ``MultiGPU/Burgers3d_Baseline``
+   ``run(267)`` (2,403 K12), diffusion 1001^2 ``run(10000)`` (30,000
+   K11b; timed over ``run(1000)``) and Burgers 400^2 ``run(200)`` at
+   fixed and adaptive dt (1,200 K12b each); each against ``impl="xla"``
+   at the bounds of phases 2 and 6, diffusion's error norms, Burgers' u
+   inside [-1e-6, 1.05]; ms/step beside the fused path's, MLUPS, the
+   idle share and device-to-host copies of a profiled run;
+19. Burgers 3-D ``impl="pallas_step"`` engages K5, and diffusion with
+   periodic walls under ``impl="pallas"`` the per-axis rung (K11).
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -137,6 +158,10 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_slab_run as fsr,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    laplacian as klap,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import weno as kweno
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -202,7 +227,9 @@ SWEEP_BURGERS_ITERS = 20
 COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K7": wr.whole_run, "K7a": wr.whole_run_adaptive,
             "K10": fds.fused_step, "K2": fsr.slab_run_diffusion,
-            "K6": fsr.slab_run_burgers}
+            "K6": fsr.slab_run_burgers, "K11": klap.laplacian_o4_3d,
+            "K11b": klap.laplacian_o4_2d, "K12": kweno.flux_divergence_3d,
+            "K12b": kweno.flux_divergence_2d}
 
 
 def card_line() -> str:
@@ -1018,7 +1045,7 @@ def diffusion2d_phases(card: str, l2_gbs: float) -> dict:
           "without the combine and walls)")
 
     print("phase 11: advance_to() on the 2-D diffusion grid")
-    check_advance_generic(solver, generic, state0, 4.5 * dt)
+    check_advance_generic(solver, generic, state0, 4.5 * dt, {"K11b": 15})
     return {
         "name": "whole_run_diffusion2d",
         "id": "K7",
@@ -1046,25 +1073,30 @@ def diffusion2d_phases(card: str, l2_gbs: float) -> dict:
     }
 
 
-def check_advance_generic(solver, generic, state0, span: float) -> None:
-    """``advance_to`` on a whole-run config: the generic loop, no kernel,
-    the fault-1 reason, the generic path's result to the bit."""
+def check_advance_generic(solver, generic, state0, span: float,
+                          expect: dict, **bounds) -> None:
+    """``advance_to`` on a whole-run config: the generic loop on the
+    per-axis kernels (``expect``: their launches in 5 steps), the
+    whole-run stepper's reason, the generic path's result within
+    ``bounds``."""
     path = solver.engaged_path("t_end")
     print(f"  engaged (t_end): {path}")
     want_reason = ("fused-whole-run stepper has no run_to; t_end mode runs "
                    "the generic loop")
-    if path["stepper"] != "generic-xla" or path["fallback"] != want_reason:
+    if (path["stepper"] != "per-axis-pallas"
+            or path["fallback"] != want_reason):
         raise AssertionError(f"advance_to engaged {path}")
     t_end = float(state0.t) + span
     reset_counts()
     adv = solver.advance_to(state0, t_end)
     torch.cuda.synchronize()
+    got = counts()
     gadv = generic.advance_to(state0, t_end)
-    print(f"  advance_to: {adv.it} steps, launches {counts()}, t "
+    print(f"  advance_to: {adv.it} steps, launches {got}, t "
           f"{float(adv.t)!r} vs t_end {t_end!r}")
-    if any(counts().values()) or adv.it != 5 or not torch.equal(adv.u,
-                                                                gadv.u):
-        raise AssertionError("advance_to did not run the generic loop")
+    if got != {k: expect.get(k, 0) for k in COUNTERS} or adv.it != 5:
+        raise AssertionError("advance_to did not run the per-axis loop")
+    assert_matches("advance_to", adv.u, gadv.u, **bounds)
 
 
 def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
@@ -1206,7 +1238,8 @@ def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
         entry[key] = {"launches": res["launches"], **timing}
         if label == "fixed":
             print("phase 11: advance_to() on the 2-D Burgers grid")
-            check_advance_generic(solver, generic, state0, 4.5 * dt)
+            check_advance_generic(solver, generic, state0, 4.5 * dt,
+                                  {"K12b": 30}, rtol=2e-5, atol=2e-6)
 
     common = {
         "name": "whole_run_burgers2d",
@@ -1598,6 +1631,454 @@ def gate_sweep(card: str) -> None:
               f"faster {faster}; the gate picks {gate} [{card}]")
 
 
+# --------------------------------------------------------------------- #
+# K11/K11b, K12/K12b and the per-axis paths (phases 16-19)
+# --------------------------------------------------------------------- #
+K12_ODD_CASES = (  # (flux, flux kwargs, variant, order) at ODD_SHAPE/ODD_2D
+    ("burgers", {}, "z", 5),
+    ("burgers", {}, "js", 7),
+    ("linear", {"c": -0.7}, "js", 5),
+    ("buckley", {}, "js", 5),
+    ("buckley", {}, "js", 7),
+)
+K12_CHUNKS = (4, 8, 16, 32)  # cells a K12 thread marches, timed at 512^3
+# split operations a cell by flux (the note in csrc/weno_axis.cu)
+SPLIT_OPS = {"burgers": 6, "linear": 7, "buckley": 22}
+
+
+def lap_ops(shape) -> int:
+    """f32 operations of K11/K11b: per axis 5 products and 4 sums, a
+    K-product, and the sum of the axes — 32 a cell in 3-D, 21 in 2-D."""
+    return math.prod(shape) * (11 * len(shape) - 1)
+
+
+def weno_ops(shape, flux: str, variant: str, order: int) -> int:
+    """f32 operations of one K12 sweep with each face computed once (the
+    note in csrc/weno_axis.cu): the split, then 103 (WENO5-JS), 113
+    (WENO5-Z) or 293 (WENO7) a cell."""
+    per_axis = {(5, "js"): 103, (5, "z"): 113, (7, "js"): 293}[
+        (order, variant)]
+    return math.prod(shape) * (SPLIT_OPS[flux] + per_axis)
+
+
+def kernel_bound(in_elems: int, out_elems: int, ops: int):
+    """The least time (ms) of one launch: its input read once and output
+    written once at the HBM rate, or its operations at the f32 rate."""
+    by_bytes = 4 * (in_elems + out_elems) / HBM_BYTES_PER_S
+    by_ops = ops / F32_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), (
+        "operations" if by_ops >= by_bytes else "bytes")
+
+
+def alone_ms(launch, inputs, batch: int) -> float:
+    """Per-launch time of a kernel alone: median of 5 CUDA-event samples
+    of ``batch`` back-to-back launches, each on the next of ``inputs``
+    in turn (together larger than the 50 MB L2 where the path's state
+    is)."""
+    turn = itertools.cycle(inputs)
+    launch(next(turn))  # warm-up
+    return statistics.median(cuda_ms(lambda: launch(next(turn)), 5, batch))
+
+
+def random_on_card(shape, seed: int, lo=-0.1, hi=1.1):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand(shape, generator=g, device="cuda") * (hi - lo) + lo
+
+
+def laplacian_axis_phase(card: str) -> list[dict]:
+    """Phase 16: K11 and K11b against their twin, timed alone at the
+    per-axis paths' shapes beside their bound, the twin and conv3d /
+    conv2d; returns their partial entries."""
+    print("phase 16: K11 and K11b against their twin")
+    ref = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    b3 = Grid.make(BURGERS_N, BURGERS_N, BURGERS_N, lengths=2.0)
+    d2 = Grid.make(DIFF2D_N, DIFF2D_N, lengths=10.0)
+    cases = (  # (grid shape, spacing, K, timed)
+        (ref.shape, ref.spacing, (1.0,) * 3, True),
+        (b3.shape, b3.spacing, (BURGERS_NU,) * 3, True),
+        (ODD_SHAPE, (0.05, 0.07, 0.09), (1.0, 0.5, 2.0), False),
+        (d2.shape, d2.spacing, (1.0,) * 2, True),
+        (ODD_2D, (0.05, 0.07), (1.0, 0.5), False),
+    )
+    res = {3: {"err": 0.0, "ulps": 0, "timed": []},
+           2: {"err": 0.0, "ulps": 0, "timed": []}}
+    for i, (shape, sp, k, timed) in enumerate(cases):
+        nd = len(shape)
+        fn = klap.laplacian_o4_3d if nd == 3 else klap.laplacian_o4_2d
+        up = random_on_card(tuple(n + 4 for n in shape), seed=160 + i)
+        want = klap.laplacian_reference(up, sp, k)
+        got = fn(up, sp, k)
+        torch.cuda.synchronize()
+        e, u = compare(f"K11{'' if nd == 3 else 'b'} at {shape}", got, want)
+        res[nd]["err"], res[nd]["ulps"] = (max(res[nd]["err"], e),
+                                           max(res[nd]["ulps"], u))
+        del got, want
+        if not timed:
+            continue
+        sets = [up] + [up.clone() for _ in range(ROTATE - 1)
+                       if up.numel() * 4 < 256 << 20 and nd == 3]
+        ms = alone_ms(lambda x: fn(x, sp, k), sets, 21)
+        plain = statistics.median(cuda_ms(
+            lambda: klap.laplacian_reference(up, sp, k), 3))
+        bound, by = kernel_bound(up.numel(), math.prod(shape),
+                                 lap_ops(shape))
+        lib = (laplacian_conv3d_ms(sp, shape) if nd == 3
+               else laplacian_conv2d_ms(sp, shape))
+        gbs = 4 * (up.numel() + math.prod(shape)) / (ms * 1e-3) / 1e9
+        line = (f"    alone {ms:.4f} ms ({gbs:.0f} GB/s); twin {plain:.4f} "
+                f"ms; bound {bound:.4f} ms ({by}); conv{nd}d {lib:.4f} ms")
+        if nd == 3 and shape == ref.shape:
+            sweep = {z: alone_ms(lambda x: fn(x, sp, k, zchunk=z), sets, 21)
+                     for z in ZCHUNKS}
+            line += "; by zchunk {" + ", ".join(
+                f"{z}: {t:.4f}" for z, t in sweep.items()) + "} ms"
+        print(f"{line} [{card}]")
+        res[nd]["timed"].append({"shape": list(shape), "ms": ms,
+                                 "plain_ms": plain, "bound_ms": bound,
+                                 "bound_by": by, "library_ms": lib})
+        del sets, up
+        torch.cuda.empty_cache()
+    entries = []
+    for nd, kid, name, line in ((3, "K11", "laplacian_o4_3d", 162),
+                                (2, "K11b", "laplacian_o4_2d", 209)):
+        main = res[nd]["timed"][0]  # the diffusion path's shape
+        entries.append({
+            "name": name, "id": kid, "route": "cuda",
+            "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                      "laplacian_o4.cu",
+            "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                        f"laplacian.py:{line}",
+            "max_abs_err": res[nd]["err"], "max_ulps": res[nd]["ulps"],
+            # per launch alone at the diffusion path's shape
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_call": f"torch.nn.functional.conv{nd}d, the same "
+                            "Laplacian, TF32 off",
+            "timed": res[nd]["timed"],
+        })
+    return entries
+
+
+def weno_axis_phase(card: str) -> list[dict]:
+    """Phase 17: K12 and K12b against their twin: every sweep axis at
+    512^3 and 400x400x406 (WENO5-JS, Burgers flux), each timed alone
+    beside its bound and the twin; the odd shapes for WENO5-Z, WENO7-JS
+    and the linear and Buckley-Leverett fluxes; 400^2 in 2-D."""
+    print("phase 17: K12 and K12b against their twin")
+    fx = pflux.burgers()
+    res = {3: {"err": 0.0, "ulps": 0, "timed": []},
+           2: {"err": 0.0, "ulps": 0, "timed": []}}
+
+    def check(shape, axis, flux, kw, variant, order, seed, timed):
+        nd = len(shape)
+        fn = kweno.flux_divergence_3d if nd == 3 else kweno.flux_divergence_2d
+        padded = list(shape)
+        padded[axis] += 2 * kweno.HALO[order]
+        up = random_on_card(tuple(padded), seed)
+        f = pflux.get(flux, **kw)
+        want = kweno.flux_divergence_reference(up, axis, 0.05, f, variant,
+                                               order)
+        got = fn(up, axis, 0.05, f, variant, order)
+        torch.cuda.synchronize()
+        tag = f"K12{'' if nd == 3 else 'b'}"
+        e, u = compare(f"{tag} at {tuple(shape)} axis {axis} ({flux}, "
+                       f"WENO{order}-{variant})", got, want)
+        res[nd]["err"], res[nd]["ulps"] = (max(res[nd]["err"], e),
+                                           max(res[nd]["ulps"], u))
+        del got, want
+        if timed:
+            ms = alone_ms(lambda x: fn(x, axis, 0.05, f, variant, order),
+                          [up], 5 if nd == 3 else 21)
+            plain = statistics.median(cuda_ms(
+                lambda: kweno.flux_divergence_reference(
+                    up, axis, 0.05, f, variant, order), 3))
+            bound, by = kernel_bound(up.numel(), math.prod(shape),
+                                     weno_ops(shape, flux, variant, order))
+            line = (f"    alone {ms:.4f} ms; twin {plain:.3f} ms; bound "
+                    f"{bound:.4f} ms ({by})")
+            if nd == 3 and shape[0] == BURGERS_N:
+                sweep = {c: alone_ms(lambda x: fn(
+                    x, axis, 0.05, f, variant, order, chunk=c), [up], 5)
+                    for c in K12_CHUNKS}
+                line += "; by chunk {" + ", ".join(
+                    f"{c}: {t:.4f}" for c, t in sweep.items()) + "} ms"
+            print(f"{line} [{card}]")
+            res[nd]["timed"].append({"shape": list(shape), "axis": axis,
+                                     "ms": ms, "plain_ms": plain,
+                                     "bound_ms": bound, "bound_by": by})
+        del up
+        torch.cuda.empty_cache()
+
+    for i, shape in enumerate(((BURGERS_N,) * 3, tuple(reversed(K6_N)))):
+        for axis in range(3):
+            check(shape, axis, "burgers", {}, "js", 5, 170 + 3 * i + axis,
+                  True)
+    for axis in range(2):
+        check((BURGERS2D_N, BURGERS2D_N), axis, "burgers", {}, "js", 5,
+              176 + axis, True)
+    for j, (flux, kw, variant, order) in enumerate(K12_ODD_CASES):
+        for shape in (ODD_SHAPE, ODD_2D):
+            for axis in range(len(shape)):
+                check(shape, axis, flux, kw, variant, order,
+                      180 + 10 * j + axis, False)
+    entries = []
+    for nd, kid, name, line in ((3, "K12", "flux_divergence_3d", 221),
+                                (2, "K12b", "flux_divergence_2d", 276)):
+        main = [t for t in res[nd]["timed"]
+                if t["shape"][0] in (BURGERS_N, BURGERS2D_N)]
+        entries.append({
+            "name": name, "id": kid, "route": "cuda",
+            "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                      "weno_axis.cu",
+            "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                        f"weno.py:{line}",
+            "max_abs_err": res[nd]["err"], "max_ulps": res[nd]["ulps"],
+            # per launch alone, mean over the sweep axes at the main
+            # per-axis path's shape (512^3; 400^2)
+            "ms": statistics.mean(t["ms"] for t in main),
+            "plain_ms": statistics.mean(t["plain_ms"] for t in main),
+            "bound_ms": statistics.mean(t["bound_ms"] for t in main),
+            "bound_by": main[0]["bound_by"],
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes a WENO "
+                            "flux divergence",
+            "timed": res[nd]["timed"],
+        })
+    return entries
+
+
+def axis_profile(fn, ndim: int) -> dict | None:
+    """Run ``fn`` under ``torch.profiler``: device span and busy time,
+    the launches and mean time of each per-axis kernel of an ``ndim``-D
+    run, and the device-to-host copies; ``None`` when it saw no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    start = min(e.time_range.start for e in dev)
+    end = max(e.time_range.end for e in dev)
+    kernels = {}
+    suffix = "" if ndim == 3 else "b"
+    for key, name in ((f"K11{suffix}", f"laplacian{ndim}d_kernel"),
+                      (f"K12{suffix}", "weno_axis_kernel")):
+        times = [(e.time_range.end - e.time_range.start) / 1e3
+                 for e in dev if name in e.name]
+        if times:
+            kernels[key] = {"launches": len(times),
+                            "ms": statistics.mean(times),
+                            "share": sum(times) / ((end - start) / 1e3)}
+    return {
+        "span_ms": (end - start) / 1e3,
+        "busy_ms": sum(e.time_range.end - e.time_range.start
+                       for e in dev) / 1e3,
+        "kernels": kernels,
+        "dtoh": sum(1 for e in dev if "DtoH" in e.name),
+    }
+
+
+def per_axis_path(name, solver, iters: int, expect: dict, card: str,
+                  fused_ms_per_step: float, time_iters: int | None = None,
+                  profile_iters: int | None = None):
+    """One per-axis path, ``impl="pallas_axis"``: the engaged stepper,
+    the launches of ``run(iters)`` (:func:`drive`), then ms/step (median
+    of 3 CUDA-event samples of ``run(time_iters)`` after a warm-up),
+    MLUPS, the host reads of device scalars and one profiled
+    ``run(profile_iters)`` (the idle share, the kernels' share and the
+    device-to-host copies). Returns the run's state and the numbers."""
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "per-axis-pallas" or path["fallback"] is not None:
+        raise AssertionError(f"{name} did not engage the per-axis rung")
+    state0 = solver.initial_state()
+    out = drive(name, solver, state0, iters, expect)
+    t_iters = time_iters or iters
+    p_iters = profile_iters or iters
+    total_ms, reps = run_ms(solver, state0, t_iters)
+    step_ms = total_ms / t_iters
+    mlups = solver.grid.num_cells * t_iters * 3 / (total_ms * 1e-3) / 1e6
+    reads = count_reads(lambda: solver.run(state0, p_iters))
+    prof = axis_profile(lambda: solver.run(state0, p_iters),
+                        solver.grid.ndim)
+    line = (f"  {name} run({t_iters}): median {total_ms:.3f} ms of "
+            f"{[round(r, 3) for r in reps]}; {step_ms:.4f} ms/step "
+            f"({step_ms / fused_ms_per_step:.2f}x the fused path's "
+            f"{fused_ms_per_step:.4f}); {mlups:.0f} MLUPS; host reads of "
+            f"device scalars in run({p_iters}) {reads}")
+    idle = dtoh = None
+    if prof is None:
+        print(f"{line}; the profiler saw no device activity: idle share "
+              f"and device-to-host copies not measured [{card}]")
+    else:
+        idle = 1.0 - prof["busy_ms"] / prof["span_ms"]
+        dtoh = prof["dtoh"]
+        shares = ", ".join(f"{k} {v['launches']} launches, {v['ms']:.4f} "
+                           f"ms each, {v['share']:.3f} of the span"
+                           for k, v in prof["kernels"].items())
+        print(f"{line}; profiled run({p_iters}): span "
+              f"{prof['span_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, "
+              f"idle share {idle:.4f}, device-to-host copies {dtoh}; "
+              f"{shares} [{card}]")
+    return out, state0, {
+        "ms_per_step": step_ms, "mlups": mlups, "run_iters": t_iters,
+        "fused_ms_per_step": fused_ms_per_step,
+        "device_idle_share": idle, "dtoh_copies": dtoh,
+        "host_reads": reads,
+        "profile": None if prof is None else prof["kernels"],
+    }
+
+
+def check_burgers_path(name, solver, out, state0, check_iters: int):
+    """u inside [-1e-6, 1.05] after the run, and agreement with the
+    generic path after ``check_iters`` steps (before the shock)."""
+    lo, hi = float(out.u.min()), float(out.u.max())
+    print(f"  {name}: t = {float(out.t)!r}; u in [{lo!r}, {hi!r}]")
+    if not (math.isfinite(lo) and math.isfinite(hi)
+            and lo >= -1e-6 and hi <= 1.05):
+        raise AssertionError(f"u left [-1e-6, 1.05]: [{lo}, {hi}]")
+    generic = BurgersSolver(dataclasses.replace(solver.cfg, impl="xla"))
+    got = solver.run(state0, check_iters)
+    want = generic.run(state0, check_iters)
+    if abs(float(got.t) - float(want.t)) > 1e-5 * float(want.t):
+        raise AssertionError(f"t differs: {got.t} vs {want.t}")
+    assert_matches(f"run({check_iters}) against impl='xla'", got.u, want.u,
+                   rtol=2e-5, atol=2e-6)
+
+
+def per_axis_phases(card: str, fused: dict) -> dict:
+    """Phase 18: the six per-axis paths; ``fused`` holds the fused
+    paths' ms/step measured earlier in this run on the same configs.
+    Returns each path's numbers by name."""
+    paths = {}
+
+    n = ITERS
+    print(f"phase 18: diffusion 3-D per-axis path, run({n}) at "
+          f"{'x'.join(map(str, REF_N))}")
+    cfg = DiffusionConfig(grid=Grid.make(*REF_N, lengths=REF_LENGTHS),
+                          dtype="float32", impl="pallas_axis")
+    solver = DiffusionSolver(cfg)
+    out, state0, paths["diffusion3d"] = per_axis_path(
+        "diffusion 3-D", solver, n, {"K11": 3 * n}, card,
+        fused["diffusion3d"])
+    gout = DiffusionSolver(dataclasses.replace(cfg, impl="xla")).run(
+        state0, n)
+    if out.t != gout.t:
+        raise AssertionError(f"t differs: {out.t} vs {gout.t}")
+    assert_matches(f"run({n}) against impl='xla'", out.u, gout.u)
+    print(f"  equal to the generic path to the bit: "
+          f"{bool(torch.equal(out.u, gout.u))}")
+    norms = solver.error_norms(out)
+    print(f"  error vs exact at t={float(out.t):.6f}: L1 {norms.l1:.4e} "
+          f"L2 {norms.l2:.4e} Linf {norms.linf:.4e}")
+    if not all(math.isfinite(x) for x in norms) or not norms.linf < 1e-3:
+        raise AssertionError(f"error norms out of range: {norms}")
+    del out, gout, solver, state0
+    torch.cuda.empty_cache()
+
+    n = BURGERS_ITERS
+    print(f"phase 18: Burgers 3-D per-axis path (SingleGPU/Burgers3d_WENO5)"
+          f", adaptive dt, nu = {BURGERS_NU}, run({n}) at {BURGERS_N}^3")
+    grid = Grid.make(BURGERS_N, BURGERS_N, BURGERS_N, lengths=2.0)
+    solver = BurgersSolver(BurgersConfig(grid=grid, nu=BURGERS_NU,
+                                         dtype="float32",
+                                         impl="pallas_axis"))
+    out, state0, paths["burgers3d"] = per_axis_path(
+        "Burgers 3-D", solver, n, {"K12": 9 * n, "K11": 3 * n}, card,
+        fused["burgers3d"])
+    check_burgers_path("Burgers 3-D", solver, out, state0,
+                       BURGERS_CHECK_ITERS)
+    del out, solver, state0
+    torch.cuda.empty_cache()
+
+    n = K6_ITERS
+    print(f"phase 18: Burgers 3-D per-axis path (MultiGPU/Burgers3d_"
+          f"Baseline), fixed dt, inviscid, CFL {K6_CFL}, run({n}) at "
+          f"{'x'.join(map(str, K6_N))}")
+    solver = BurgersSolver(BurgersConfig(
+        grid=Grid.make(*K6_N, lengths=K6_LENGTHS), cfl=K6_CFL,
+        adaptive_dt=False, dtype="float32", impl="pallas_axis"))
+    out, state0, paths["burgers3d_baseline"] = per_axis_path(
+        "Burgers 3-D baseline", solver, n, {"K12": 9 * n}, card,
+        fused["burgers3d_baseline"])
+    check_burgers_path("Burgers 3-D baseline", solver, out, state0,
+                       K6_CHECK_ITERS)
+    del out, solver, state0
+    torch.cuda.empty_cache()
+
+    n = DIFF2D_ITERS
+    print(f"phase 18: diffusion 2-D per-axis path, run({n}) at "
+          f"{DIFF2D_N}^2 (timed over run({n // 10}))")
+    cfg = DiffusionConfig(grid=Grid.make(DIFF2D_N, DIFF2D_N, lengths=10.0),
+                          dtype="float32", impl="pallas_axis")
+    solver = DiffusionSolver(cfg)
+    out, state0, paths["diffusion2d"] = per_axis_path(
+        "diffusion 2-D", solver, n, {"K11b": 3 * n}, card,
+        fused["diffusion2d"], time_iters=n // 10,
+        profile_iters=DIFF2D_CHECK_ITERS)
+    gout = DiffusionSolver(dataclasses.replace(cfg, impl="xla")).run(
+        state0, n)
+    assert_matches(f"run({n}) against impl='xla'", out.u, gout.u)
+    print(f"  equal to the generic path to the bit: "
+          f"{bool(torch.equal(out.u, gout.u))}")
+    norms = solver.error_norms(out)
+    print(f"  error vs exact at t={float(out.t):.6f}: L1 {norms.l1:.4e} "
+          f"L2 {norms.l2:.4e} Linf {norms.linf:.4e}")
+    if not all(math.isfinite(x) for x in norms):
+        raise AssertionError(f"error norms out of range: {norms}")
+    del out, gout, solver, state0
+
+    n = BURGERS2D_ITERS
+    for label, adaptive in (("fixed", False), ("adaptive", True)):
+        print(f"phase 18: Burgers 2-D per-axis path, {label} dt, run({n}) "
+              f"at {BURGERS2D_N}^2")
+        solver = BurgersSolver(BurgersConfig(
+            grid=Grid.make(BURGERS2D_N, BURGERS2D_N, lengths=2.0),
+            adaptive_dt=adaptive, dtype="float32", impl="pallas_axis"))
+        out, state0, paths[f"burgers2d_{label}"] = per_axis_path(
+            f"Burgers 2-D {label}", solver, n, {"K12b": 6 * n}, card,
+            fused[f"burgers2d_{label}"])
+        check_burgers_path(f"Burgers 2-D {label}", solver, out, state0,
+                           BURGERS2D_CHECK_ITERS)
+    return paths
+
+
+def repaired_dispatch_phase() -> None:
+    """Phase 19: Burgers 3-D ``impl="pallas_step"`` at 512^3 engages the
+    fused stage kernel K5 (it raised before the per-axis rung existed),
+    and diffusion with periodic walls under ``impl="pallas"`` at the
+    reference grid engages the per-axis rung and launches K11."""
+    print("phase 19: the repaired dispatch")
+    grid = Grid.make(BURGERS_N, BURGERS_N, BURGERS_N, lengths=2.0)
+    solver = BurgersSolver(BurgersConfig(grid=grid, nu=BURGERS_NU,
+                                         dtype="float32",
+                                         impl="pallas_step"))
+    path = solver.engaged_path()
+    print(f"  Burgers pallas_step: {path}")
+    if path["stepper"] != "fused-stage" or path["fallback"] is not None:
+        raise AssertionError("Burgers pallas_step did not engage K5")
+    drive("Burgers pallas_step", solver, solver.initial_state(), 2,
+          {"K5": 6})
+    del solver
+    torch.cuda.empty_cache()
+    solver = DiffusionSolver(DiffusionConfig(
+        grid=Grid.make(*REF_N, lengths=REF_LENGTHS), dtype="float32",
+        bc="periodic", impl="pallas"))
+    path = solver.engaged_path()
+    print(f"  diffusion periodic pallas: {path}")
+    if (path["stepper"] != "per-axis-pallas" or path["fallback"]
+            != "fused walls need uniform Dirichlet BCs on every axis"):
+        raise AssertionError("periodic diffusion did not engage K11")
+    drive("diffusion periodic", solver, solver.initial_state(), 2,
+          {"K11": 6})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1616,7 +2097,8 @@ def main() -> int:
     # one nvcc per source, all started together
     sources = [(fd.SOURCE, ()), (fb.SOURCE, fb.NVCC_EXTRA),
                (fd2.SOURCE, ()), (fb2.SOURCE, fb.NVCC_EXTRA),
-               (fds.SOURCE, ()), (fsr.BURGERS_SOURCE, fb.NVCC_EXTRA)]
+               (fds.SOURCE, ()), (fsr.BURGERS_SOURCE, fb.NVCC_EXTRA),
+               (klap.SOURCE, ()), (kweno.SOURCE, fb.NVCC_EXTRA)]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(lambda args: build.build(*args), sources))
     for lib in (fd.library, fb.library, fd2.library, fb2.library):
@@ -1722,6 +2204,34 @@ def main() -> int:
     k6 = slab_burgers_phases(card)
     torch.cuda.empty_cache()
     gate_sweep(card)
+    torch.cuda.empty_cache()
+    print("phases 16-19: the per-axis rung (K11, K11b, K12, K12b)")
+    k11, k11b = laplacian_axis_phase(card)
+    k12, k12b = weno_axis_phase(card)
+    torch.cuda.empty_cache()
+    paths = per_axis_phases(card, {
+        "diffusion3d": step_ms, "burgers3d": k5["ms_per_step"],
+        "burgers3d_baseline": k6["k5_path_ms_per_step"],
+        "diffusion2d": k7d["ms_per_step"],
+        "burgers2d_fixed": k7b["ms_per_step"],
+        "burgers2d_adaptive": k7a["ms_per_step"]})
+    torch.cuda.empty_cache()
+    repaired_dispatch_phase()
+    # each kernel's main per-axis path: its launches as driven above and
+    # "ms", what a launch takes in that path's profiled run (alone where
+    # the profiler missed it; the 2-D launches are host-bound alone)
+    for entry, path, n_launches, others in (
+            (k11, "diffusion3d", 3 * ITERS, ("burgers3d",)),
+            (k11b, "diffusion2d", 3 * DIFF2D_ITERS, ()),
+            (k12, "burgers3d", 9 * BURGERS_ITERS, ("burgers3d_baseline",)),
+            (k12b, "burgers2d_fixed", 6 * BURGERS2D_ITERS,
+             ("burgers2d_adaptive",))):
+        in_run = (paths[path]["profile"] or {}).get(entry["id"])
+        entry.update(
+            launches=n_launches, ms_isolated=entry["ms"],
+            ms=in_run["ms"] if in_run else entry["ms"],
+            ms_per_step=paths[path]["ms_per_step"],
+            paths={k: paths[k] for k in (path, *others)})
 
     kernels = [{
         "name": "fused_diffusion_stage",
@@ -1751,7 +2261,7 @@ def main() -> int:
         "device_idle_share": idle,
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
-    }, k5, k7d, k7b, k7a, k10, k2, k6]
+    }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,9 @@
         --n 1001 1001 --lengths 10 10 --iters 10000 --impl pallas
     python -m multigpu_advectiondiffusion_tpu_torch.cli burgers2d \
         --n 400 400 --lengths 2 2 --iters 200 --fixed-dt --impl pallas
+    python -m multigpu_advectiondiffusion_tpu_torch.cli burgers3d \
+        --fixed-dt --impl pallas_axis --cfl 0.3 --lengths 2 2 4 \
+        --n 400 400 406 --iters 267
 
 The flags are the JAX CLI's flags of the same names. The run goes to
 the GPU unless ``--device cpu`` is given. The summary names the kernel
@@ -45,6 +48,8 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_diffusion,
     fused_diffusion_step,
     fused_slab_run,
+    laplacian,
+    weno,
     whole_run,
 )
 from multigpu_advectiondiffusion_tpu_torch.timestepping.integrators import (
@@ -99,12 +104,16 @@ def _common(p, ndim: int) -> None:
     p.add_argument("--t-end", type=float, default=None,
                    help="march to this simulated time instead of --iters")
     p.add_argument("--impl", default="xla", choices=IMPLS,
-                   help="kernel rung: xla (generic); in 3-D pallas_stage "
-                        "(a CUDA kernel a stage), pallas_step (a kernel a "
-                        "step, diffusion), pallas_slab (a kernel a run) "
-                        "or pallas (the slab rung where the measured gate "
-                        "prefers it, else a kernel a stage); in 2-D every "
-                        "pallas flavor runs the whole-run kernel")
+                   help="kernel rung: xla (generic); pallas_axis (the "
+                        "per-axis kernels, a launch per operator and "
+                        "stage); in 3-D pallas_stage (a CUDA kernel a "
+                        "stage), pallas_step (a kernel a step, diffusion; "
+                        "a kernel a stage, Burgers), pallas_slab (a kernel "
+                        "a run) or pallas (the slab rung where the "
+                        "measured gate prefers it, else a kernel a "
+                        "stage); in 2-D every fused flavor runs the "
+                        "whole-run kernel. A config a fused rung declines "
+                        "runs the per-axis kernels")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--save", default=None, metavar="DIR",
@@ -150,6 +159,10 @@ _COUNTERS = {
     "K10 fused_step_diffusion": fused_diffusion_step.fused_step,
     "K2 slab_run_diffusion": fused_slab_run.slab_run_diffusion,
     "K6 slab_run_burgers": fused_slab_run.slab_run_burgers,
+    "K11 laplacian_o4_3d": laplacian.laplacian_o4_3d,
+    "K11b laplacian_o4_2d": laplacian.laplacian_o4_2d,
+    "K12 weno_axis_3d": weno.flux_divergence_3d,
+    "K12b weno_axis_2d": weno.flux_divergence_2d,
 }
 
 

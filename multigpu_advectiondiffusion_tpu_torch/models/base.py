@@ -4,7 +4,9 @@ Each concrete solver implements :meth:`SolverBase.build_local` — the
 physics (RHS, dt rule, post-step fix-up) — and may offer a fused
 stepper through :meth:`SolverBase._fused_stepper`. The base class runs
 either: the fused stepper when the config engages one, else the
-generic loop of :meth:`SolverBase._local_step` in plain PyTorch.
+generic loop of :meth:`SolverBase._local_step`, whose operators run
+the per-axis kernels (K11/K12) where :meth:`SolverBase._op_impl` says
+``"pallas"`` and plain PyTorch otherwise.
 
 The loops run eagerly on the host, with ``t`` as a host scalar of the
 state's precision and the same dt rounding, trim and eps guard as the
@@ -23,7 +25,14 @@ from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary, pad_axis
 from multigpu_advectiondiffusion_tpu_torch.core.dtypes import canonicalize
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
 from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
-from multigpu_advectiondiffusion_tpu_torch.ops import is_pallas_impl
+from multigpu_advectiondiffusion_tpu_torch.ops import (
+    is_fused_impl,
+    is_pallas_impl,
+    op_impl,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    laplacian as klap,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.stencils import Padder
 from multigpu_advectiondiffusion_tpu_torch.timestepping.integrators import (
     INTEGRATORS,
@@ -71,6 +80,7 @@ class SolverBase:
         self.dtype = canonicalize(cfg.dtype)
         self._cache = {}
         self._fused_fallback = None
+        self._op_fallback = None
 
     # ------------------------------------------------------------------ #
     # Config plumbing
@@ -165,16 +175,52 @@ class SolverBase:
         self._fused_fallback = reason
         return None
 
+    def _pallas_f32_gate(self, impl: str) -> str:
+        """Route non-f32 dtypes off the per-axis kernels, which are
+        float32-only (the JAX package's gate, with its reason)."""
+        if impl == "pallas" and self.dtype != torch.float32:
+            self._op_fallback = (
+                "per-axis Pallas kernels are float32-only; XLA runs"
+            )
+            return "xla"
+        return impl
+
+    def _op_impl(self) -> str:
+        """Per-op kernel strategy of the generic loop: ``"pallas"`` (the
+        per-axis kernels) or ``"xla"``; a decline's reason lands in
+        ``_op_fallback``. Solvers add their own rules."""
+        self._op_fallback = None
+        return self._pallas_f32_gate(op_impl(self.cfg.impl))
+
+    def _laplacian_impl(self, impl: str, order: int) -> str:
+        """What ``laplacian`` runs under the per-op strategy ``impl``:
+        K11 computes the O4 stencil only, so another order runs the
+        plain sum, and ``_op_fallback`` says so (the JAX package falls
+        back inside the operator without a word)."""
+        if impl == "pallas" and not klap.supported(self.grid.shape, order):
+            self._op_fallback = (
+                f"K11 computes the O4 Laplacian only; the order-{order} "
+                "Laplacian runs in plain PyTorch"
+            )
+            return "xla"
+        return impl
+
     def engaged_path(self, mode: str = "iters") -> dict:
         """Which kernel strategy executes for this config.
 
         Keys as in the JAX package: ``impl`` (requested), ``stepper``
-        (``fused-stage``, ``fused-whole-run`` or ``generic-xla``), ``overlap``,
-        ``steps_per_exchange``, ``exchange``, ``storage_dtype``,
-        ``precision``, and ``fallback`` — why a requested rung did not
-        run, or ``None``. Unlike the JAX package, a fused run may carry
-        a ``fallback`` too: the reason a rung the JAX package would pick
-        instead is not available here.
+        (``fused-stage``, ``fused-step``, ``fused-whole-run``,
+        ``fused-whole-run-slab``, ``per-axis-pallas`` or
+        ``generic-xla``), ``overlap``, ``steps_per_exchange``,
+        ``exchange``, ``storage_dtype``, ``precision``, and ``fallback``
+        — why a requested rung did not run, or ``None``: the fused
+        decline, then ``"; "`` and the per-op reason, as in the JAX
+        package. Unlike the JAX package, a fused run may carry a
+        ``fallback`` too (the reason a rung the JAX package would pick
+        instead is not available here), and so may a per-axis run where
+        one operator's kernel declines and that operator runs in plain
+        PyTorch (the JAX package falls back inside the operator and
+        does not say so).
 
         ``mode="t_end"`` mirrors :meth:`advance_to`: a fused stepper
         without ``run_to`` (the whole-run steppers) leaves it to the
@@ -195,11 +241,18 @@ class SolverBase:
             storage = fused.dtype
             fallback = self._fused_fallback
         else:
-            stepper = "generic-xla"
+            op = self._op_impl()
+            stepper = "per-axis-pallas" if op == "pallas" else "generic-xla"
             storage = self.dtype
             fallback = None
-            if is_pallas_impl(impl):
+            if is_fused_impl(impl):
                 fallback = self._fused_fallback or "config not fused-eligible"
+                if self._op_fallback:
+                    fallback += "; " + self._op_fallback
+            elif is_pallas_impl(impl):
+                # the per-axis rung pinned: why it or one of its
+                # operators does not run its kernel
+                fallback = self._op_fallback
         return {
             "impl": impl,
             "stepper": stepper,

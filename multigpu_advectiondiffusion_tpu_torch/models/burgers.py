@@ -30,10 +30,16 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   per ``run`` (:mod:`ops.kernels.fused_burgers2d`: K7 at fixed dt, K7a
   adaptive), WENO5-JS/Z, as every fused flavor runs the whole-run
   stepper in 2-D in the JAX package;
-* a config the fused rungs decline runs the generic path, with the
-  reason;
-* 3-D ``"pallas_step"`` (the per-axis WENO kernel K12 for Burgers),
-  ``"pallas_axis"`` and ``"auto"`` — not ported: construction raises
+* 3-D ``"pallas_step"`` — K5, as ``"pallas"`` (Burgers has no
+  whole-step kernel; the JAX package dispatches the flavor the same
+  way);
+* ``"pallas_axis"``, and every kernel flavor whose fused rung declines
+  the config — the generic loop with the per-axis kernels
+  (:mod:`ops.kernels.weno`, K12 in 3-D, K12b in 2-D, one launch per
+  axis and RK stage, WENO5-JS/Z and WENO7-JS; the viscous term on
+  K11/K11b), float32 only; WENO7 under a fused flavor runs the plain
+  generic path, with the JAX package's reason;
+* ``"auto"`` — not ported: construction raises
   ``NotImplementedError``, as it does for WENO7 on a fused rung, 1-D
   grids, ``precision="bf16"`` and mesh options.
 """
@@ -51,7 +57,7 @@ from multigpu_advectiondiffusion_tpu_torch.models.base import (
     SolverBase,
     StepContext,
 )
-from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_pallas_impl
+from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_fused_impl
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as flux_lib
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_burgers import (
     FusedBurgersStepper,
@@ -66,18 +72,10 @@ from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import laplacian
 from multigpu_advectiondiffusion_tpu_torch.ops.weno import HALO, flux_divergence
 from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import advective_dt
 
-# The JAX rungs whose kernels are not ported yet, with the kernel each
-# needs (ids as in PERF.md's kernel table).
+# The JAX rungs whose kernels are not ported yet, with what each needs
+# (ids as in PERF.md's kernel table).
 _UNPORTED_IMPLS = {
-    "pallas_axis": "K12, the per-axis WENO kernel "
-                   "(weno.flux_divergence_pallas)",
     "auto": "the measured tuner that resolves impl='auto'",
-}
-# ... and those unported on 3-D grids only: on a 2-D grid they run the
-# whole-run stepper (K7/K7a), as in the JAX package
-_UNPORTED_3D_IMPLS = {
-    "pallas_step": "K12, the per-axis WENO kernel (weno.flux_divergence_"
-                   "pallas), which Burgers runs for this flavor",
 }
 
 
@@ -146,12 +144,9 @@ class BurgersSolver(SolverBase):
         """Raise on a config whose JAX path the port cannot run yet,
         rather than run something else under its name."""
         cfg = self.cfg
-        unported = dict(_UNPORTED_IMPLS)
-        if self.grid.ndim == 3:
-            unported.update(_UNPORTED_3D_IMPLS)
-        if cfg.impl in unported:
+        if cfg.impl in _UNPORTED_IMPLS:
             raise NotImplementedError(
-                f"impl={cfg.impl!r} needs {unported[cfg.impl]}, "
+                f"impl={cfg.impl!r} needs {_UNPORTED_IMPLS[cfg.impl]}, "
                 "which is not ported yet"
             )
         if self.grid.ndim == 1:
@@ -165,13 +160,36 @@ class BurgersSolver(SolverBase):
                 "steps_per_exchange/exchange need a device mesh, which is "
                 "not ported yet"
             )
-        if (cfg.weno_order == 7 and is_pallas_impl(cfg.impl)
+        if (cfg.weno_order == 7 and is_fused_impl(cfg.impl)
                 and self._fused_reason() is None):
             kernel = "K5's and K6's" if self.grid.ndim == 3 else "K7's"
             raise NotImplementedError(
                 f"WENO7 on the fused rung needs {kernel} order-7 instance, "
                 "which is not ported yet (impl='xla' runs WENO7)"
             )
+
+    def _op_impl(self) -> str:
+        """Per-op kernel strategy of the generic loop (the JAX package's
+        rule): kernel flavors map to the per-axis kernels for float32
+        (``SolverBase._pallas_f32_gate``), except WENO7 under a fused
+        flavor, which runs plain PyTorch with the JAX package's reason
+        (its per-axis WENO7 kernel measured slower than XLA on the TPU);
+        ``impl="pallas_axis"`` pins K12 for WENO7 too. A viscous
+        Laplacian of an order K11 does not compute is named
+        (``SolverBase._laplacian_impl``)."""
+        impl = super()._op_impl()
+        cfg = self.cfg
+        if impl == "pallas" and cfg.weno_order == 7 and is_fused_impl(
+            cfg.impl
+        ):
+            self._op_fallback = (
+                "per-axis WENO7 measured slower than XLA; pin with "
+                "impl='pallas_axis'"
+            )
+            return "xla"
+        if cfg.nu:
+            self._laplacian_impl(impl, cfg.laplacian_order)
+        return impl
 
     def stencil_spec(self) -> dict:
         """Family stencil metadata: the WENO reconstruction radius of the
@@ -200,20 +218,23 @@ class BurgersSolver(SolverBase):
         cfg = self.cfg
         spacing = cfg.grid.spacing
         fx = self.flux
+        impl = self._op_impl()
+        lap_impl = self._laplacian_impl(impl, cfg.laplacian_order)
 
         def rhs(u):
             acc = None
             for axis in range(u.ndim):
                 div = flux_divergence(
                     u, axis, spacing[axis], fx, order=cfg.weno_order,
-                    variant=cfg.weno_variant, padder=ctx.padder,
+                    variant=cfg.weno_variant, padder=ctx.padder, impl=impl,
                 )
                 acc = div if acc is None else acc + div
             out = -acc
             if cfg.nu:
                 out = out + laplacian(u, spacing, ctx.padder,
                                       diffusivity=cfg.nu,
-                                      order=cfg.laplacian_order)
+                                      order=cfg.laplacian_order,
+                                      impl=lap_impl)
             return out
 
         if cfg.adaptive_dt:
@@ -262,15 +283,10 @@ class BurgersSolver(SolverBase):
         (K5)."""
         cfg = self.cfg
         self._fused_fallback = None
-        if not is_pallas_impl(cfg.impl):
+        if not is_fused_impl(cfg.impl):
             return self._decline(f"impl={cfg.impl!r} does not request fusion")
         reason = self._fused_reason()
         if reason is not None:
-            if self.dtype == torch.float32 and cfg.weno_order == 5:
-                # the JAX package's generic path then runs its per-axis
-                # kernels (K12, and K11 for the viscous term)
-                reason += ("; per-axis kernels K11/K12 not ported, plain "
-                           "PyTorch runs")
             return self._decline(reason)
         if self.grid.ndim == 2:
             if "fused" not in self._cache:

@@ -24,7 +24,11 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   ``"pallas_slab"`` — the whole-run stepper, one cooperative CUDA launch
   per ``run`` (:mod:`ops.kernels.fused_diffusion2d`, K7), as every fused
   flavor runs the whole-run stepper in 2-D in the JAX package;
-* ``"pallas_axis"`` and ``"auto"`` — not ported: construction raises
+* ``"pallas_axis"``, and every kernel flavor whose fused rung declines
+  the config — the generic loop with the per-axis stencil kernel
+  (:mod:`ops.kernels.laplacian`, K11 in 3-D, K11b in 2-D), one launch
+  per RK stage, float32 only;
+* ``"auto"`` — not ported: construction raises
   ``NotImplementedError``, as it does for 1-D grids, the axisymmetric
   geometry and bf16 storage.
 """
@@ -43,7 +47,7 @@ from multigpu_advectiondiffusion_tpu_torch.models.base import (
     StepContext,
 )
 from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
-from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_pallas_impl
+from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_fused_impl
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     FusedDiffusionStepper,
 )
@@ -67,8 +71,6 @@ from multigpu_advectiondiffusion_tpu_torch.utils import metrics
 # The JAX rungs whose kernels are not ported yet, with the kernel each
 # needs (ids as in PERF.md's kernel table).
 _UNPORTED_IMPLS = {
-    "pallas_axis": "K11, the per-axis Laplacian kernel "
-                   "(laplacian.laplacian_o4_3d/_2d)",
     "auto": "the measured tuner that resolves impl='auto'",
 }
 
@@ -156,13 +158,22 @@ class DiffusionSolver(SolverBase):
                 "steps_per_exchange/exchange need a device mesh, which is "
                 "not ported yet"
             )
-        if (is_pallas_impl(cfg.impl) and self.dtype == torch.float64
+        if (is_fused_impl(cfg.impl) and self.dtype == torch.float64
                 and self.grid.ndim == 3):
             raise NotImplementedError(
                 f"dtype=float64 with impl={cfg.impl!r}: the JAX package "
                 "runs float64 storage on its float32 kernels; that rung "
                 "is not ported yet"
             )
+
+    def _op_impl(self) -> str:
+        """Per-op kernel strategy: kernel flavors map to the per-axis
+        stencil kernel for float32 (``SolverBase._pallas_f32_gate``);
+        an order K11 does not compute is named
+        (``SolverBase._laplacian_impl``)."""
+        impl = super()._op_impl()
+        self._laplacian_impl(impl, self.cfg.order)
+        return impl
 
     def ic_spec(self):
         """Thread diffusivity/t0 into the analytic IC so the initial
@@ -178,9 +189,12 @@ class DiffusionSolver(SolverBase):
         bcs = self.bcs
         K = cfg.diffusivity
 
+        impl = self._laplacian_impl(self._op_impl(), cfg.order)
+
         def operator(u):
             return laplacian(u, grid.spacing, ctx.padder,
-                             diffusivity=[K] * grid.ndim, order=cfg.order)
+                             diffusivity=[K] * grid.ndim, order=cfg.order,
+                             impl=impl)
 
         walled_axes = [a for a, b in enumerate(bcs) if b.kind != "periodic"]
         band = (
@@ -242,32 +256,21 @@ class DiffusionSolver(SolverBase):
         ``advance_to`` runs the generic loop (``models/base.py``)."""
         cfg = self.cfg
         self._fused_fallback = None
-        if not is_pallas_impl(cfg.impl):
+        if not is_fused_impl(cfg.impl):
             return self._decline(
                 f"impl={cfg.impl!r} does not request fusion"
             )
-
-        def decline(reason):
-            # the JAX package's generic path then runs its per-axis
-            # stencil kernel (K11), which is not ported
-            return self._decline(
-                f"{reason}; per-axis stencil kernel K11 not ported, "
-                "plain PyTorch runs"
-            )
-
         if cfg.order != 4:
-            return decline("fused kernels bake in the O4 Laplacian")
+            return self._decline("fused kernels bake in the O4 Laplacian")
         if cfg.integrator != "ssp_rk3":
-            return decline("fused kernels bake in SSP-RK3")
+            return self._decline("fused kernels bake in SSP-RK3")
         if cfg.source is not None:
-            return decline("source-term hook needs the generic path")
+            return self._decline("source-term hook needs the generic path")
         if not cfg.reference_parity or cfg.boundary_band < 1:
-            return decline(
+            return self._decline(
                 "fused walls need reference_parity with boundary_band >= 1"
             )
         if self.dtype == torch.float64:  # 2-D only: 3-D raises at __init__
-            # the JAX package's generic path runs XLA here too (its
-            # per-axis kernels are float32-only)
             return self._decline(
                 "f64 storage rides the 3-D fused steppers, single-chip only"
             )
@@ -275,7 +278,7 @@ class DiffusionSolver(SolverBase):
         if not all(b.kind == "dirichlet" for b in bcs) or not all(
             b.value == bcs[0].value for b in bcs
         ):
-            return decline(
+            return self._decline(
                 "fused walls need uniform Dirichlet BCs on every axis"
             )
         if self.grid.ndim == 2:

@@ -10,7 +10,19 @@ IMPLS = (
 
 
 def is_pallas_impl(impl: str) -> bool:
-    """Whether ``impl`` names a kernel rung rather than the generic path.
-    Of these the port runs only the fused rungs; the rest raise at
-    solver construction."""
+    """Whether ``impl`` names a kernel rung rather than the generic path."""
     return impl.startswith("pallas")
+
+
+def is_fused_impl(impl: str) -> bool:
+    """Whether the flavor may engage a fused stepper. ``"pallas_axis"``
+    opts out: it pins the per-axis kernels (K11/K12), the rung of the
+    reference's non-fused baseline codes."""
+    return is_pallas_impl(impl) and impl != "pallas_axis"
+
+
+def op_impl(impl: str) -> str:
+    """Normalize a solver ``impl`` flavor to what the per-op dispatchers
+    (``laplacian``, ``flux_divergence``) accept: every kernel flavor
+    maps to ``"pallas"``."""
+    return "pallas" if is_pallas_impl(impl) else impl

@@ -1,9 +1,9 @@
 """Central-difference Laplacians, 2nd and 4th order (JAX ``ops/laplacian.py``).
 
-Plain PyTorch: the JAX package computes this generic operator outside
-Pallas too. Each axis term is a sum of shifted slices of a padded
+The generic operator is plain PyTorch, as the JAX package computes it
+outside Pallas: each axis term is a sum of shifted slices of a padded
 array, in the JAX package's term order, so float64 results agree to
-rounding.
+rounding. ``impl="pallas"`` runs the per-axis stencil kernel instead.
 """
 
 from __future__ import annotations
@@ -39,14 +39,35 @@ def laplacian(
     padder: Padder,
     diffusivity: float | Sequence[float] = 1.0,
     order: int = 4,
+    impl: str = "xla",
 ) -> torch.Tensor:
     """``sum_axis K_axis * d2u/dx_axis^2`` over all array axes, each axis
-    padded by ``padder``. The generic path only: the JAX package's
-    per-axis stencil kernel is not ported yet.
+    padded by ``padder``. ``impl`` selects the kernel strategy:
+    ``"xla"`` (the generic shifted-slice sum) or ``"pallas"`` (every
+    axis padded, then the per-axis stencil kernel K11/K11b,
+    :mod:`ops.kernels.laplacian`). A problem the kernel does not
+    compute raises: the caller names that decline and asks for
+    ``"xla"``.
     """
     if isinstance(diffusivity, (int, float)):
         diffusivity = [float(diffusivity)] * u.ndim
     _, r, _ = D2_STENCILS[order]
+    if impl == "pallas":
+        from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+            laplacian as klap,
+        )
+
+        if not klap.supported(u.shape, order, u.element_size()):
+            raise ValueError(
+                f"no Laplacian kernel for order {order}, {u.dtype}, "
+                f"{u.ndim}-D; use impl='xla'")
+        up = u
+        for axis in range(u.ndim):
+            up = padder(up, axis, r)
+        fn = klap.laplacian_o4_3d if u.ndim == 3 else klap.laplacian_o4_2d
+        return fn(up, spacing, diffusivity)
+    if impl != "xla":
+        raise ValueError(f"unknown laplacian impl {impl!r}; use 'xla'/'pallas'")
     acc = None
     for axis in range(u.ndim):
         term = diffusivity[axis] * d2_from_padded(

@@ -15,10 +15,12 @@ Two forms of the same reconstruction live here, as in the JAX package:
 
 * the q-form (``_weno5_minus``/``_weno5_plus``, ``_weno7_*``) behind
   :func:`flux_divergence` — the generic path (``impl="xla"``), plain
-  PyTorch over shifted slices of an axis-padded array;
+  PyTorch over shifted slices of an axis-padded array; the per-axis
+  kernel K12 evaluates the WENO7 q-form too;
 * the forward-difference e-form (``_curv``, ``_weno5_side_nd``,
-  ``_weno5_side_nd_e``) that the fused stage kernel K5 and its plain
-  twin (``ops/kernels/fused_burgers.py``) evaluate.
+  ``_weno5_side_nd_e``) that the fused stage kernel K5, the per-axis
+  kernel K12 at order 5 and their plain twins
+  (``ops/kernels/fused_burgers.py``, ``ops/kernels/weno.py``) evaluate.
 
 Every expression keeps the JAX package's operation order, so float64
 results agree with it to rounding. Squares are written ``x * x``.
@@ -192,6 +194,14 @@ def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
     return torch.div(x.new_tensor(c), x)
 
 
+def _twelve(x: torch.Tensor) -> torch.Tensor:
+    """12 as a tensor on ``x``'s device: ``t / 12.0`` would run on the GPU
+    as a product with the reciprocal, which rounds twice; a division by
+    a tensor is a true division on every device, as in the JAX package
+    and in the per-axis kernel K12 (``csrc/weno7.cuh``)."""
+    return x.new_tensor(12.0)
+
+
 def _weno7_weights(betas, d):
     alphas = [_rdiv(dk, _sq(EPSILON + b)) for dk, b in zip(d, betas)]
     inv = _rdiv(1.0, sum(alphas[1:], alphas[0]))
@@ -206,7 +216,7 @@ def _weno7_minus(q):
         + w1 * (m2 - 5 * m1 + 13 * c + 3 * p1)
         + w2 * (-m1 + 7 * c + 7 * p1 - p2)
         + w3 * (3 * c + 13 * p1 - 5 * p2 + p3)
-    ) / 12.0
+    ).div(_twelve(m3))
 
 
 def _weno7_plus(q):
@@ -218,7 +228,7 @@ def _weno7_plus(q):
         + w1 * (-m2 + 7 * m1 + 7 * c - p1)
         + w2 * (3 * m1 + 13 * c - 5 * p1 + p2)
         + w3 * (25 * c - 23 * p1 + 13 * p2 - 3 * p3)
-    ) / 12.0
+    ).div(_twelve(m3))
 
 
 def interface_flux_from_padded(
@@ -265,17 +275,30 @@ def flux_divergence(
     variant: str = "js",
     padder: Padder | None = None,
     bc: Boundary | None = None,
+    impl: str = "xla",
 ) -> torch.Tensor:
     """Conservative residual ``d f(u) / dx`` along one axis — the role of
     ``Compute_dF/dG/dH`` (``MultiGPU/Burgers3d_Baseline/Kernels.cu:225-452``).
-    Exactly one of ``padder``/``bc`` selects the ghost-cell source. The
-    generic path only: the JAX package's per-axis WENO kernel (K12) is
-    not ported yet.
+    Exactly one of ``padder``/``bc`` selects the ghost-cell source.
+    ``impl``: ``"xla"`` (the generic q-form over shifted slices) or
+    ``"pallas"`` (the sweep axis padded, then the per-axis WENO kernel
+    K12/K12b, :mod:`ops.kernels.weno`). A problem the kernel does not
+    compute raises: the caller names that decline and asks for
+    ``"xla"``.
     """
     if (padder is None) == (bc is None):
         raise ValueError("provide exactly one of padder/bc")
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown WENO impl {impl!r}; use 'xla'/'pallas'")
     r = HALO[order]
     up = padder(u, axis, r) if padder is not None else pad_axis(u, axis, r, bc)
+    if impl == "pallas":
+        from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+            weno as kweno,
+        )
+
+        return kweno.flux_divergence_kernel(up, axis, dx, flux, variant,
+                                            order)
     h = interface_flux_from_padded(up, axis, flux, order, variant)
     m = up.shape[axis] - 2 * r
     return (shifted(h, axis, 1, m) - shifted(h, axis, 0, m)) / dx

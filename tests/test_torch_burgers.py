@@ -218,18 +218,38 @@ def test_engaged_path_labels():
     ({"weno_order": 7, "bc": "periodic"}, "edge BCs", False),
 ])
 def test_fused_declines_name_their_reason(kw, reason, per_axis):
+    """A fused decline runs the generic loop: on the per-axis kernels
+    (K12, K11 for the viscous term) in float32, as in the JAX package,
+    and in plain PyTorch where they decline too."""
     s = _solver(impl="pallas", **kw)
     path = s.engaged_path()
-    assert path["stepper"] == "generic-xla"
+    assert path["stepper"] == ("per-axis-pallas" if per_axis
+                               else "generic-xla")
     assert reason in path["fallback"]
-    assert ("K11/K12" in path["fallback"]) == per_axis
+    out = s.run(s.initial_state(), 2)
+    assert out.it == 2 and bool(torch.isfinite(out.u).all())
+
+
+@pytest.mark.parametrize("kw,stepper", [
+    ({"impl": "pallas_step"}, "fused-stage"),
+    ({"impl": "pallas_axis"}, "per-axis-pallas"),
+])
+def test_pallas_step_and_pallas_axis_run(kw, stepper):
+    """``pallas_step`` takes the fused stage kernel K5, as ``pallas``
+    does (the JAX package's dispatch); ``pallas_axis`` the per-axis
+    kernels K12/K11."""
+    s = _solver(**kw)
+    assert s.engaged_path() == {
+        "impl": kw["impl"], "stepper": stepper, "overlap": None,
+        "steps_per_exchange": 1, "exchange": "collective",
+        "storage_dtype": "float32", "precision": "native",
+        "fallback": None,
+    }
     out = s.run(s.initial_state(), 2)
     assert out.it == 2 and bool(torch.isfinite(out.u).all())
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"impl": "pallas_step"}, "K12"),
-    ({"impl": "pallas_axis"}, "K12"),
     ({"impl": "auto"}, "tuner"),
     ({"impl": "pallas", "weno_order": 7}, "order-7"),
     ({"impl": "pallas_slab", "weno_order": 7, "adaptive_dt": False},

@@ -180,14 +180,23 @@ def test_run_reads_the_device_time_once(monkeypatch):
 
 
 def test_advance_to_runs_the_generic_loop():
+    """The whole-run stepper has no ``run_to``: ``advance_to`` takes the
+    generic loop, on the per-axis kernels (K12b) as in the JAX package:
+    equal to the bit to the ``pallas_axis`` rung's, and within the fused
+    bound of the plain generic path (e-form against q-form WENO5)."""
     s = PSolver(PConfig(grid=PGrid.make(14, 12), impl="pallas"),
                 device="cpu")
+    per_axis = PSolver(PConfig(grid=PGrid.make(14, 12), impl="pallas_axis"),
+                       device="cpu")
     generic = PSolver(PConfig(grid=PGrid.make(14, 12), impl="xla"),
                       device="cpu")
     s0 = s.initial_state()
     got, want = s.advance_to(s0, 0.1), generic.advance_to(s0, 0.1)
     assert got.it == want.it and got.t == want.t
-    assert torch.equal(got.u, want.u)
+    assert torch.equal(got.u, per_axis.advance_to(s0, 0.1).u)
+    np.testing.assert_allclose(got.u.numpy(), want.u.numpy(), rtol=1e-5,
+                               atol=1e-6 * float(want.u.abs().max()))
+    assert s.engaged_path("t_end")["stepper"] == "per-axis-pallas"
     assert s.engaged_path("t_end")["fallback"] == (
         "fused-whole-run stepper has no run_to; t_end mode runs the "
         "generic loop")
@@ -219,10 +228,7 @@ def test_engaged_path_matches_jax(name, mode):
     want = JSolver(JConfig(grid=JGrid.make(*n), **kw)).engaged_path(mode)
     got = PSolver(PConfig(grid=PGrid.make(*n), **kw),
                   device="cpu").engaged_path(mode)
-    # where the JAX generic path runs its per-axis kernels (K11/K12), the
-    # port's runs plain PyTorch
-    stepper = want["stepper"].replace("per-axis-pallas", "generic-xla")
-    assert got["stepper"] == stepper
+    assert got["stepper"] == want["stepper"]
     if want["fallback"] is None:
         assert got["fallback"] is None
     elif name == "8192sq":

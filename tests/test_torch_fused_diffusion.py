@@ -267,16 +267,25 @@ def test_slab_rung_selection_matches_jax(n):
     ({"bc": "edge"}, "uniform Dirichlet"),
 ])
 def test_fused_declines_name_their_reason(kw, reason):
+    """A fused decline runs the generic loop on the per-axis stencil
+    kernel (K11), as in the JAX package."""
     s = _solver(impl="pallas", **kw)
     path = s.engaged_path()
-    assert path["stepper"] == "generic-xla"
-    assert reason in path["fallback"] and "K11" in path["fallback"]
+    assert path["stepper"] == "per-axis-pallas"
+    assert reason in path["fallback"]
+    out = s.run(s.initial_state(), 2)
+    assert out.it == 2 and bool(torch.isfinite(out.u).all())
+
+
+def test_pallas_axis_runs_the_per_axis_kernel():
+    s = _solver(impl="pallas_axis")
+    path = s.engaged_path()
+    assert (path["stepper"], path["fallback"]) == ("per-axis-pallas", None)
     out = s.run(s.initial_state(), 2)
     assert out.it == 2 and bool(torch.isfinite(out.u).all())
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"impl": "pallas_axis"}, "K11"),
     ({"impl": "auto"}, "tuner"),
     ({"impl": "pallas", "dtype": "float64"}, "float64"),
     ({"impl": "pallas_stage", "dtype": "float64"}, "float64"),

@@ -178,7 +178,9 @@ def test_fused_run_matches_port_generic():
 
 def test_advance_to_runs_the_generic_loop():
     """The whole-run stepper has no ``run_to``: ``advance_to`` takes the
-    generic loop and says why, as the JAX package does."""
+    generic loop and says why, as the JAX package does; the loop runs
+    the per-axis stencil kernel (K11b), whose twin computes the generic
+    path's sums."""
     ps = PSolver(PConfig(grid=PGrid.make(20, 16, lengths=10.0),
                          impl="pallas"), device="cpu")
     generic = PSolver(dataclasses.replace(ps.cfg, impl="xla"), device="cpu")
@@ -189,7 +191,7 @@ def test_advance_to_runs_the_generic_loop():
     assert got.it == want.it == 4 and got.t == want.t
     assert torch.equal(got.u, want.u)
     path = ps.engaged_path("t_end")
-    assert path["stepper"] == "generic-xla"
+    assert path["stepper"] == "per-axis-pallas"
     assert path["fallback"] == ("fused-whole-run stepper has no run_to; "
                                 "t_end mode runs the generic loop")
 
@@ -219,10 +221,7 @@ def test_engaged_path_matches_jax(name, mode):
     pcfg = PConfig(grid=PGrid.make(*n, lengths=10.0), **kw)
     want = JSolver(jcfg).engaged_path(mode)
     got = PSolver(pcfg, device="cpu").engaged_path(mode)
-    # where the JAX generic path runs its per-axis kernel (K11b), the
-    # port's runs plain PyTorch
-    stepper = want["stepper"].replace("per-axis-pallas", "generic-xla")
-    assert got["stepper"] == stepper
+    assert got["stepper"] == want["stepper"]
     assert got["storage_dtype"] == want["storage_dtype"]
     if want["fallback"] is None:
         assert got["fallback"] is None
@@ -250,11 +249,19 @@ def test_l2_gate_against_jax_vmem_gate():
 
 def test_unported_rungs_raise_in_2d():
     grid = PGrid.make(16, 12)
-    for kw, match in [({"impl": "pallas_axis"}, "K11"),
-                      ({"impl": "auto"}, "tuner"),
+    for kw, match in [({"impl": "auto"}, "tuner"),
                       ({"geometry": "axisymmetric"}, "axisymmetric")]:
         with pytest.raises(NotImplementedError, match=match):
             PSolver(PConfig(grid=grid, **kw), device="cpu")
+
+
+def test_pallas_axis_runs_the_per_axis_kernel_in_2d():
+    s = PSolver(PConfig(grid=PGrid.make(16, 12), impl="pallas_axis"),
+                device="cpu")
+    path = s.engaged_path()
+    assert (path["stepper"], path["fallback"]) == ("per-axis-pallas", None)
+    out = s.run(s.initial_state(), 2)
+    assert out.it == 2 and bool(torch.isfinite(out.u).all())
 
 
 # --------------------------------------------------------------------- #

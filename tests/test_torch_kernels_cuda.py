@@ -1,6 +1,7 @@
 """K1 and K5, the port's CUDA stage kernels, K7/K7a, its 2-D whole-run
-kernels, and K10, K2 and K6, its 3-D fused-step kernels, against their
-plain PyTorch twins on a GPU. Marked ``cuda``: it skips where no CUDA
+kernels, K10, K2 and K6, its 3-D fused-step kernels, and K11/K11b and
+K12/K12b, its per-axis kernels, against their plain PyTorch twins on a
+GPU. Marked ``cuda``: it skips where no CUDA
 device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
@@ -8,6 +9,8 @@ has no JAX, with the JAX-side conftest switched off::
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -40,6 +43,10 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_slab_run as fsr,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    laplacian as klap,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import weno as kweno
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 
 TOL = 32 * np.finfo(np.float32).eps
@@ -375,3 +382,109 @@ def test_fused_step_runs_match_generic_path(gpu):
     scale = float(want.u.abs().max())
     assert not bool(((got.u - want.u).abs()
                      > 2e-5 * want.u.abs() + 2e-6 * scale).any())
+
+
+# --------------------------------------------------------------------- #
+# K11/K11b and K12/K12b, the per-axis kernels, and the per-axis rung
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def gpu_axis():
+    if not torch.cuda.is_available():
+        pytest.skip("K11/K11b (csrc/laplacian_o4.cu) and K12/K12b "
+                    "(csrc/weno_axis.cu) need a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zchunk", [3, 8])
+@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 6, 70), (23, 37),
+                                   (5, 70)])
+def test_k11_matches_twin(gpu_axis, shape, zchunk):
+    rng = np.random.default_rng(len(shape))
+    up = torch.from_numpy(rng.standard_normal(
+        tuple(n + 4 for n in shape)).astype(np.float32)).to(gpu_axis)
+    spacing, k = (0.1, 0.07, 0.13)[:len(shape)], (0.7, 1.3, 0.4)[:len(shape)]
+    ref = klap.laplacian_reference(up, spacing, k)
+    fn = klap.laplacian_o4_3d if len(shape) == 3 else klap.laplacian_o4_2d
+    before = fn.launches
+    out = (fn(up, spacing, k, zchunk=zchunk) if len(shape) == 3
+           else fn(up, spacing, k))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.shape == ref.shape
+    assert _rel(out, ref) <= TOL
+
+
+K12_CASES = {  # (flux, flux kwargs, variant, order)
+    "burgers-js": ("burgers", {}, "js", 5),
+    "burgers-z": ("burgers", {}, "z", 5),
+    "linear-js": ("linear", {"c": -0.7}, "js", 5),
+    "buckley-z": ("buckley", {}, "z", 5),
+    "burgers-weno7": ("burgers", {}, "js", 7),
+    "buckley-weno7": ("buckley", {}, "js", 7),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K12_CASES))
+@pytest.mark.parametrize("shape,axis", [((23, 37), 0), ((23, 37), 1),
+                                        ((23, 29, 37), 0), ((23, 29, 37), 1),
+                                        ((23, 29, 37), 2), ((5, 6, 70), 2)])
+def test_k12_matches_twin(gpu_axis, shape, axis, case):
+    name, kw, variant, order = K12_CASES[case]
+    padded = list(shape)
+    padded[axis] += 2 * kweno.HALO[order]
+    rng = np.random.default_rng(axis)
+    up = torch.from_numpy(rng.uniform(-0.1, 1.1, padded).astype(
+        np.float32)).to(gpu_axis)
+    fx = pflux.get(name, **kw)
+    ref = kweno.flux_divergence_reference(up, axis, 0.05, fx, variant, order)
+    fn = kweno.flux_divergence_2d if len(shape) == 2 else \
+        kweno.flux_divergence_3d
+    for chunk in (1, 5, None):
+        before = fn.launches
+        out = fn(up, axis, 0.05, fx, variant, order, chunk=chunk)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert out.shape == ref.shape
+        assert _rel(out, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,n", [("diffusion", (24, 16, 16)),
+                                      ("diffusion", (40, 30)),
+                                      ("burgers", (24, 16, 16)),
+                                      ("burgers", (32, 24))])
+def test_per_axis_runs_match_generic_path(gpu_axis, family, n):
+    """``impl="pallas_axis"`` against ``impl="xla"`` on the card: the
+    kernels launched once per operator and stage, the results within the
+    fused-vs-generic bounds of chip_smoke.py's phases 2 and 6."""
+    if family == "diffusion":
+        cfg = DiffusionConfig(grid=Grid.make(*n, lengths=10.0),
+                              impl="pallas_axis")
+        make = DiffusionSolver
+    else:
+        cfg = BurgersConfig(grid=Grid.make(*n), nu=1e-5, impl="pallas_axis")
+        make = BurgersSolver
+    s = make(cfg)
+    g = make(dataclasses.replace(cfg, impl="xla"))
+    assert s.engaged_path()["stepper"] == "per-axis-pallas"
+    counters = (klap.laplacian_o4_3d, klap.laplacian_o4_2d,
+                kweno.flux_divergence_3d, kweno.flux_divergence_2d)
+    for c in counters:
+        c.launches = 0
+    s0 = s.initial_state()
+    got = s.run(s0, 3)
+    torch.cuda.synchronize()
+    lap, weno_ = ((counters[0], counters[2]) if len(n) == 3
+                  else (counters[1], counters[3]))
+    assert lap.launches == 9
+    assert weno_.launches == (0 if family == "diffusion" else 9 * len(n))
+    want = g.run(s0, 3)
+    # Burgers: the adaptive dt follows states that differ by rounding
+    # (e-form against q-form WENO5), the bound of phase 6 of chip_smoke
+    rtol, atol = (1e-5, 1e-6) if family == "diffusion" else (2e-5, 2e-6)
+    assert abs(float(got.t) - float(want.t)) <= rtol * float(want.t)
+    np.testing.assert_allclose(got.u.cpu().numpy(), want.u.cpu().numpy(),
+                               rtol=rtol,
+                               atol=atol * float(want.u.abs().max()))
