@@ -96,8 +96,9 @@ ignored ``build/`` directory), then:
    ``conv3d``/``conv2d`` computing the same Laplacian;
 17. holds the per-axis WENO kernels (K12, K12b) against their twin:
    every sweep axis at 512^3 and 400x400x406 (WENO5-JS), 400^2, and at
-   the odd shapes WENO5-Z, WENO7-JS and the linear and Buckley-Leverett
-   fluxes; times each axis alone beside its bound and the twin;
+   the odd shapes WENO5-Z, WENO7-JS (its difference-form betas to 0 ulp)
+   and the linear and Buckley-Leverett fluxes; times each axis alone
+   beside its bound and the twin;
 18. drives the six per-axis paths (``impl="pallas_axis"``): diffusion
    3-D ``run(101)`` (303 K11 launches), Burgers 512^3 adaptive
    ``run(86)`` (774 K12, 258 K11), ``MultiGPU/Burgers3d_Baseline``
@@ -108,7 +109,26 @@ ignored ``build/`` directory), then:
    inside [-1e-6, 1.05]; ms/step beside the fused path's, MLUPS, the
    idle share and device-to-host copies of a profiled run;
 19. Burgers 3-D ``impl="pallas_step"`` engages K5, and diffusion with
-   periodic walls under ``impl="pallas"`` the per-axis rung (K11).
+   periodic walls under ``impl="pallas"`` the per-axis rung (K11);
+20. holds the fused ADR stage kernel (K9) against its plain twin to the
+   bit, every stage kind, at 508x204x160 and at the odd shape, with eps 0
+   and 0.2, lambda 0 and 0.25, mixed-sign velocities and a non-zero wall
+   value; times K9 alone at 508x204x160 for each z-chunk of ``ZCHUNKS``
+   beside its bytes bound, the twin and ``conv3d`` computing the
+   constant-coefficient right-hand side;
+21. drives the ADR 3-D main path, ``bench.py``'s ``adr3d`` row built
+   through ``registry.get("adr").bench_build`` — 508x204x160, lengths
+   12.7 5.1 4, velocity 0.5, ``kappa_variation`` 0.2, ``reaction_rate``
+   0.25, float32, ``impl="pallas"``, ``run(404)`` — with 1,212 K9
+   launches; agreement with ``impl="xla"`` (phase 2's bounds after 10
+   steps, reported after 404), the max-principle and positivity rules,
+   the eps = 0 variant against ``exact_solution`` (no worse than 1.05x
+   the generic path's error), ``advance_to`` landing on ``t_end``,
+   ms/step, MLUPS and the idle share; then the same config on the
+   per-axis rung (1,212 K11 launches, against ``impl="xla"``);
+22. bench.py's ``adr2d`` configuration (1001^2, lengths 20) under
+   ``impl="pallas"``, ``run(200)``: the per-axis rung with the JAX
+   package's reason, 600 K11b launches, against ``impl="xla"``.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -137,9 +157,12 @@ from multigpu_advectiondiffusion_tpu_torch import (
     DiffusionSolver,
     Grid,
 )
+from multigpu_advectiondiffusion_tpu_torch.diagnostics import physics
+from multigpu_advectiondiffusion_tpu_torch.models import registry
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
 from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import fused_adr as fa
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_burgers as fb,
 )
@@ -229,7 +252,7 @@ COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K10": fds.fused_step, "K2": fsr.slab_run_diffusion,
             "K6": fsr.slab_run_burgers, "K11": klap.laplacian_o4_3d,
             "K11b": klap.laplacian_o4_2d, "K12": kweno.flux_divergence_3d,
-            "K12b": kweno.flux_divergence_2d}
+            "K12b": kweno.flux_divergence_2d, "K9": fa.fused_adr_stage}
 
 
 def card_line() -> str:
@@ -1784,6 +1807,9 @@ def weno_axis_phase(card: str) -> list[dict]:
         tag = f"K12{'' if nd == 3 else 'b'}"
         e, u = compare(f"{tag} at {tuple(shape)} axis {axis} ({flux}, "
                        f"WENO{order}-{variant})", got, want)
+        if order == 7 and u != 0:  # the difference-form betas, held exactly
+            raise AssertionError(f"{tag} WENO7 at {tuple(shape)} axis "
+                                 f"{axis}: {u} ulp from its twin")
         res[nd]["err"], res[nd]["ulps"] = (max(res[nd]["err"], e),
                                            max(res[nd]["ulps"], u))
         del got, want
@@ -2079,6 +2105,297 @@ def repaired_dispatch_phase() -> None:
           {"K11": 6})
 
 
+# --------------------------------------------------------------------- #
+# K9 and the ADR paths (phases 20-22)
+# --------------------------------------------------------------------- #
+# bench.py's adr3d row: the title workload at the diffusion headline's
+# grid class, physical (nx, ny, nz) 508x204x160, lengths 12.7 5.1 4,
+# velocity 0.5 on every axis, K(x) with eps 0.2, decay 0.25, 404 steps
+ADR_N = (508, 204, 160)
+ADR_LENGTHS = (12.7, 5.1, 4.0)
+ADR_ITERS = 404
+ADR_CHECK_ITERS = 10  # steps held hard against the generic path
+ADR2D_N = 1001  # bench.py's adr2d row: 1001^2, lengths 20
+ADR2D_ITERS = 200
+# phase 20: (eps, lambda, velocity per array axis z, y, x, wall value)
+K9_CASES = (
+    (0.0, 0.0, (0.5, -0.3, 0.0), 0.1),
+    (0.2, 0.0, (0.5, -0.3, 0.0), 0.1),
+    (0.0, 0.25, (-0.2, 0.4, 0.7), 0.0),
+    (0.2, 0.25, (0.5, 0.5, 0.5), 0.0),  # the main path's physics
+)
+
+
+def k9_stage_ops(shape, has_u: bool, eps: float, lam: float,
+                 adv_axes: int) -> int:
+    """f32 operations of one K9 stage: 15 tap products and 14 sums; per
+    advecting axis 2 differences, 2 products and their sum, and the sums
+    of the axes; the coefficient (5, or 1 with eps 0) and its product;
+    the advective and reaction terms; dt*rhs, v+., b*.; a*u and its sum
+    when there is a u."""
+    per_cell = (29 + 5 * adv_axes + max(adv_axes - 1, 0)
+                + (6 if eps else 1) + (1 if adv_axes else 0)
+                + (2 if lam else 0) + 3 + (2 if has_u else 0))
+    return math.prod(shape) * per_cell
+
+
+def adr_rhs_conv3d_ms(spacing, shape, velocity, lam) -> float:
+    """Yardstick: conv3d evaluating the constant-coefficient ADR
+    right-hand side ``K0 lap(u) - upwind(a) - lambda u`` (K0 = 1) as one
+    5x5x5 stencil on a padded float32 state, TF32 off. It computes less
+    than K9: no K(x), no RK combine, no masks."""
+    torch.backends.cudnn.allow_tf32 = False
+    w = torch.zeros((1, 1, 5, 5, 5), dtype=torch.float64)
+    for axis in range(3):
+        scale = 1.0 / (12.0 * spacing[axis] ** 2)
+        cp = max(velocity[axis], 0.0) / spacing[axis]
+        cm = min(velocity[axis], 0.0) / spacing[axis]
+        for j, c in enumerate(fd.O4_COEFFS):
+            idx = [2, 2, 2]
+            idx[axis] = j
+            w[(0, 0, *idx)] += c * scale
+        for off, c in ((-1, cp), (0, cm - cp), (1, -cm)):
+            idx = [2, 2, 2]
+            idx[axis] = 2 + off
+            w[(0, 0, *idx)] += c
+    w[0, 0, 2, 2, 2] -= lam
+    w = w.float().cuda()
+    x = torch.rand((1, 1) + tuple(n + 4 for n in shape), device="cuda")
+    conv = torch.nn.functional.conv3d
+    conv(x, w)
+    return statistics.median(cuda_ms(lambda: conv(x, w), 10))
+
+
+def k9_phase(card: str) -> dict:
+    """Phase 20: K9 against its twin to the bit, every stage kind, at the
+    main path's shape and an odd one, for every case of ``K9_CASES``;
+    K9 alone at the main shape (the main physics) for each z-chunk of
+    ``ZCHUNKS``, cycling through buffers larger than L2, beside its
+    bound, the twin and the conv3d yardstick."""
+    print("phase 20: K9 against its twin")
+    grid = Grid.make(*ADR_N, lengths=ADR_LENGTHS)
+    spacing = grid.spacing
+    res = {"err": 0.0, "ms": [], "plain_ms": [], "bound_ms": [],
+           "sweep": {z: [] for z in ZCHUNKS}}
+    for i, (eps, lam, vel, bc) in enumerate(K9_CASES):
+        main = i == len(K9_CASES) - 1
+        for shape in (grid.shape, ODD_SHAPE):
+            dt = pcfl.advection_diffusion_dt(vel, 1.0 + eps, spacing,
+                                              reaction=lam)
+            kw = fa.FusedADRStepper(shape, spacing, 1.0, vel, lam, dt, 2, bc,
+                                    "cuda", kappa_variation=eps
+                                    ).stage_kwargs()
+            for kind, (a, b) in enumerate(fd.STAGES):
+                has_u = kind > 0
+                v = padded_random(shape, bc, 200 + 10 * i + kind)
+                u = padded_random(shape, bc, 300 + 10 * i + kind) \
+                    if has_u else None
+                out = torch.full_like(v, bc)
+                ref = out.clone()
+                fa.adr_stage_reference(v, u, ref, dt, a=a, b=b, **kw)
+                fa.fused_adr_stage(v, u, out, dt, a=a, b=b, **kw)
+                torch.cuda.synchronize()
+                res["err"] = max(res["err"], exact(
+                    f"K9 stage {kind + 1} at {shape}, eps {eps}, lambda "
+                    f"{lam}, velocity {vel}, wall {bc}", out, ref))
+                if not (main and shape == grid.shape):
+                    continue
+                buffers = [(v.clone(), None if u is None else u.clone(),
+                            out.clone()) for _ in range(ROTATE)]
+                for z in ZCHUNKS:
+                    res["sweep"][z].append(alone_ms(
+                        lambda bufs: fa.fused_adr_stage(
+                            bufs[0], bufs[1], bufs[2], dt, a=a, b=b,
+                            zchunk=z, **kw), buffers, 21))
+                del buffers
+                res["ms"].append(res["sweep"][fa.Z_CHUNK][-1])
+                res["plain_ms"].append(statistics.median(cuda_ms(
+                    lambda: fa.adr_stage_reference(v, u, ref, dt, a=a, b=b,
+                                                   **kw), 3)))
+                bound, by = kernel_bound(
+                    (2 if has_u else 1) * math.prod(shape), math.prod(shape),
+                    k9_stage_ops(shape, has_u, eps, lam, 3))
+                res["bound_ms"].append(bound)
+                res["bound_by"] = by
+                gbs = stage_bytes(shape, has_u) / (res["ms"][-1] * 1e-3) / 1e9
+                sweep = ", ".join(f"{z}: {res['sweep'][z][-1]:.4f}"
+                                  for z in ZCHUNKS)
+                print(f"    K9 stage {kind + 1} alone {res['ms'][-1]:.4f} ms"
+                      f" ({gbs:.0f} GB/s) at zchunk {fa.Z_CHUNK}; by zchunk "
+                      f"{{{sweep}}} ms; twin {res['plain_ms'][-1]:.4f} ms; "
+                      f"bound {bound:.4f} ms ({by}) [{card}]")
+            del v, u, out, ref
+            torch.cuda.empty_cache()
+    lib_ms = adr_rhs_conv3d_ms(spacing, grid.shape, (0.5, 0.5, 0.5), 0.25)
+    print(f"  conv3d constant-coefficient ADR right-hand side alone, TF32 "
+          f"off: {lib_ms:.4f} ms [{card}] (computes less than one K9 stage)")
+    return {
+        "name": "fused_adr_stage", "id": "K9", "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_adr_stage.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_adr.py:69",
+        "max_abs_err": res["err"], "max_ulps": 0,
+        # per launch alone, mean over the three stage kinds a step launches
+        "ms_isolated": statistics.mean(res["ms"]),
+        "ms_isolated_by_zchunk": {
+            str(z): statistics.mean(res["sweep"][z]) for z in ZCHUNKS},
+        "zchunk": fa.Z_CHUNK,
+        "plain_ms": statistics.mean(res["plain_ms"]),
+        "bound_ms": statistics.mean(res["bound_ms"]),
+        "bound_by": res["bound_by"],
+        "library_ms": lib_ms,
+        "library_call": "torch.nn.functional.conv3d, constant-coefficient "
+                        "ADR right-hand side as one stencil (computes less "
+                        "than K9)",
+    }
+
+
+def adr_main_phase(card: str, k9: dict) -> dict:
+    """Phase 21: the ADR 3-D main path, bench.py's adr3d row built
+    through the port's registry: 1,212 K9 launches in ``run(404)``;
+    agreement with ``impl="xla"`` (hard after ``ADR_CHECK_ITERS`` steps,
+    reported after 404); the max-principle and positivity rules of
+    ``diagnostics_spec``; the constant-coefficient variant against
+    ``exact_solution``, its error no worse than 1.05x the generic
+    path's; ``advance_to`` landing on ``t_end``; ms/step, MLUPS and the
+    idle share of a profiled run; the same config on the per-axis rung
+    (1,212 K11 launches)."""
+    n = ADR_ITERS
+    print(f"phase 21: ADR 3-D main path, run({n}) at "
+          f"{'x'.join(map(str, ADR_N))}")
+    spec = registry.get("adr")
+    grid = Grid.make(*ADR_N, lengths=ADR_LENGTHS)
+    cfg = spec.bench_build(grid, "float32", "pallas", None)
+    solver = spec.solver_cls(cfg)
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "fused-stage" or path["fallback"] is not None:
+        raise AssertionError(f"the ADR main path did not engage K9: {path}")
+    state0 = solver.initial_state()
+    out = drive("ADR 3-D pallas", solver, state0, n, {"K9": 3 * n})
+    generic = spec.solver_cls(dataclasses.replace(cfg, impl="xla"))
+    if generic.engaged_path()["stepper"] != "generic-xla":
+        raise AssertionError("impl='xla' did not run the generic path")
+    assert_matches(f"run({ADR_CHECK_ITERS})",
+                   solver.run(state0, ADR_CHECK_ITERS).u,
+                   generic.run(state0, ADR_CHECK_ITERS).u)
+    gout = generic.run(state0, n)
+    if out.t != gout.t or out.it != gout.it:
+        raise AssertionError(f"t/it differ: {out.t}/{out.it} vs "
+                             f"{gout.t}/{gout.it}")
+    scale = float(gout.u.abs().max())
+    gap = float((out.u - gout.u).abs().max())
+    within = bool(((out.u - gout.u).abs()
+                   <= 1e-5 * gout.u.abs() + 1e-6 * scale).all())
+    print(f"  run({n}) against impl='xla' (reported): max|fused - generic|"
+          f" = {gap:.3e} ({gap / scale / EPS32:.2f} eps of max|u| = "
+          f"{scale:.4f}); within rtol 1e-5, atol 1e-6 max|u|: {within}")
+    base = {"max": float(state0.u.max()), "min": float(state0.u.min())}
+    stats = {"max": float(out.u.max()), "min": float(out.u.min())}
+    rules = solver.diagnostics_spec()["rules"]
+    bad = physics.check_violations(rules, stats, base)
+    print(f"  diagnostics rules {[r.name for r in rules]}: initial {base}, "
+          f"after run({n}) {stats}; violations {bad}")
+    if bad or not all(math.isfinite(x) for x in stats.values()):
+        raise AssertionError(f"ADR physics rules broken: {bad}")
+
+    const = spec.solver_cls(dataclasses.replace(cfg, kappa_variation=0.0))
+    const_g = spec.solver_cls(dataclasses.replace(cfg, kappa_variation=0.0,
+                                                  impl="xla"))
+    cnorms = const.error_norms(const.run(state0, n))
+    gnorms = const_g.error_norms(const_g.run(state0, n))
+    print(f"  eps = 0 against exact_solution after run({n}): fused "
+          f"{tuple(cnorms)}, generic {tuple(gnorms)}")
+    if not all(math.isfinite(x) and x <= 1.05 * y
+               for x, y in zip(cnorms, gnorms)):
+        raise AssertionError("the fused eps = 0 run is less accurate than "
+                             "1.05x the generic path's")
+    del const, const_g
+
+    t_end = float(state0.t) + 4.5 * solver.dt
+    reset_counts()
+    adv = solver.advance_to(state0, t_end)
+    torch.cuda.synchronize()
+    adv_launches = counts()["K9"]
+    gadv = generic.advance_to(state0, t_end)
+    print(f"  advance_to: steps {adv.it} (generic {gadv.it}), K9 launches "
+          f"{adv_launches}, t {float(adv.t)!r} vs t_end {t_end!r}")
+    if adv.it != 5 or gadv.it != 5 or adv_launches != 15:
+        raise AssertionError("advance_to did not take 5 fused steps")
+    if abs(float(adv.t) - t_end) > 1e-6 * t_end:
+        raise AssertionError("advance_to did not land on t_end")
+    assert_matches("advance_to", adv.u, gadv.u)
+    del generic, gout, adv, gadv
+
+    total_ms, reps = run_ms(solver, state0, n)
+    step_ms = total_ms / n
+    mlups = grid.num_cells * n * 3 / (total_ms * 1e-3) / 1e6
+    span_ms, busy_ms, per_kernel = retake(
+        lambda: device_profile(lambda: solver.run(state0, n)),
+        lambda r: sum("adr_stage_kernel<" in k for k in r[2]) == 2)
+    s1 = [ms for k, ms in per_kernel.items() if "adr_stage_kernel<false>" in k]
+    s23 = [ms for k, ms in per_kernel.items() if "adr_stage_kernel<true>" in k]
+    if len(s1) != 1 or len(s23) != 1:
+        raise AssertionError(f"profiled run missed K9: {list(per_kernel)}")
+    in_run_ms = (s1[0] + 2 * s23[0]) / 3
+    idle = 1.0 - busy_ms / span_ms
+    print(f"  run({n}): median {total_ms:.3f} ms of "
+          f"{[round(r, 3) for r in reps]}; {step_ms:.4f} ms/step; "
+          f"{mlups:.0f} MLUPS; profiled: span {span_ms:.3f} ms, busy "
+          f"{busy_ms:.3f} ms, idle share {idle:.4f}; K9 per launch in the "
+          f"run: stage 1 {s1[0]:.4f} ms, stages 2-3 {s23[0]:.4f} ms, mean "
+          f"{in_run_ms:.4f} ms [{card}]")
+    del solver, out
+    torch.cuda.empty_cache()
+
+    print(f"phase 21: the same config on the per-axis rung, run({n})")
+    axis = spec.solver_cls(dataclasses.replace(cfg, impl="pallas_axis"))
+    aout, _, axis_nums = per_axis_path("ADR 3-D per-axis", axis, n,
+                                       {"K11": 3 * n}, card, step_ms)
+    gout = spec.solver_cls(dataclasses.replace(cfg, impl="xla")).run(
+        state0, n)
+    assert_matches(f"run({n}) against impl='xla'", aout.u, gout.u)
+    print(f"  equal to the generic path to the bit: "
+          f"{bool(torch.equal(aout.u, gout.u))}")
+    del axis, aout, gout
+    torch.cuda.empty_cache()
+    return {**k9, "launches": 3 * n, "ms": in_run_ms,
+            "ms_per_step": step_ms, "mlups": mlups,
+            "device_idle_share": idle,
+            "ms_per_step_pallas_axis": axis_nums["ms_per_step"],
+            "reported_gap_404_eps": gap / scale / EPS32,
+            "reported_gap_404_within_bounds": within}
+
+
+def adr2d_phase(card: str) -> None:
+    """Phase 22: bench.py's adr2d configuration under ``impl="pallas"``,
+    ``run(200)``: the fused rung declines with the JAX package's reason
+    and the per-axis rung runs the Laplacian on K11b (600 launches),
+    agreeing with ``impl="xla"``."""
+    n = ADR2D_ITERS
+    print(f"phase 22: ADR 2-D, run({n}) at {ADR2D_N}^2")
+    spec = registry.get("adr")
+    cfg = spec.bench_build(Grid.make(ADR2D_N, ADR2D_N, lengths=20.0),
+                           "float32", "pallas", None)
+    solver = spec.solver_cls(cfg)
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if (path["stepper"] != "per-axis-pallas"
+            or path["fallback"] != "fused ADR kernel is 3-D only"):
+        raise AssertionError(f"ADR 2-D did not engage the per-axis rung: "
+                             f"{path}")
+    state0 = solver.initial_state()
+    out = drive("ADR 2-D pallas", solver, state0, n, {"K11b": 3 * n})
+    gout = spec.solver_cls(dataclasses.replace(cfg, impl="xla")).run(
+        state0, n)
+    assert_matches(f"run({n}) against impl='xla'", out.u, gout.u)
+    total_ms, reps = run_ms(solver, state0, n)
+    print(f"  run({n}): median {total_ms:.3f} ms of "
+          f"{[round(r, 3) for r in reps]}; {total_ms / n:.4f} ms/step "
+          f"[{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2098,10 +2415,12 @@ def main() -> int:
     sources = [(fd.SOURCE, ()), (fb.SOURCE, fb.NVCC_EXTRA),
                (fd2.SOURCE, ()), (fb2.SOURCE, fb.NVCC_EXTRA),
                (fds.SOURCE, ()), (fsr.BURGERS_SOURCE, fb.NVCC_EXTRA),
-               (klap.SOURCE, ()), (kweno.SOURCE, fb.NVCC_EXTRA)]
+               (klap.SOURCE, ()), (kweno.SOURCE, fb.NVCC_EXTRA),
+               (fa.SOURCE, fa.NVCC_EXTRA)]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(lambda args: build.build(*args), sources))
-    for lib in (fd.library, fb.library, fd2.library, fb2.library):
+    for lib in (fd.library, fb.library, fd2.library, fb2.library,
+                fa.library):
         lib()
     print(f"phase 0: built all {len(sources)} kernels in "
           f"{time.perf_counter() - t0:.2f} s (wall, in parallel)")
@@ -2217,6 +2536,11 @@ def main() -> int:
         "burgers2d_adaptive": k7a["ms_per_step"]})
     torch.cuda.empty_cache()
     repaired_dispatch_phase()
+    torch.cuda.empty_cache()
+    print("phases 20-22: advection-diffusion-reaction (K9)")
+    k9 = adr_main_phase(card, k9_phase(card))
+    torch.cuda.empty_cache()
+    adr2d_phase(card)
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -2261,7 +2585,7 @@ def main() -> int:
         "device_idle_share": idle,
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
-    }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b]
+    }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

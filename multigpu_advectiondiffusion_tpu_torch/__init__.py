@@ -6,23 +6,37 @@ that one config builds both solvers and each counterpart is easy to
 find. It imports ``torch`` and numpy, never ``jax`` and never the JAX
 package.
 
-Ported so far, on one device, each with the generic PyTorch path
-(``impl="xla"``) and a fused rung (``impl="pallas"``) whose kernel is
-hand-written CUDA for Hopper:
+Ported so far, on one device, each family with the generic PyTorch
+path (``impl="xla"``) and rungs whose kernels are hand-written CUDA for
+Hopper (ids as in PERF.md's kernel table):
 
-* 3-D diffusion, one launch per RK stage
-  (``csrc/fused_diffusion_stage.cu``, K1);
-* 3-D Burgers / scalar conservation laws with WENO5, one launch per RK
-  stage (``csrc/fused_burgers_stage.cu``, K5); WENO7 on the generic path;
-* 2-D diffusion and 2-D Burgers/WENO5, one cooperative launch per run
-  (``csrc/whole_run_diffusion2d.cu`` and ``csrc/whole_run_burgers2d.cu``,
-  K7 and K7a).
+* 3-D diffusion: one launch per RK stage (K1,
+  ``csrc/fused_diffusion_stage.cu``), per step (K10) or per run (K2,
+  ``csrc/fused_step_diffusion.cu``);
+* 3-D Burgers / scalar conservation laws with WENO5: one launch per RK
+  stage (K5, ``csrc/fused_burgers_stage.cu``) or per fixed-dt run (K6,
+  ``csrc/slab_run_burgers.cu``);
+* 2-D diffusion and 2-D Burgers/WENO5: one cooperative launch per run
+  (K7 and K7a, ``csrc/whole_run_diffusion2d.cu`` and
+  ``csrc/whole_run_burgers2d.cu``);
+* the per-axis rung of every family: the O4 Laplacian (K11/K11b,
+  ``csrc/laplacian_o4.cu``) and the WENO5/7 flux divergence along one
+  axis (K12/K12b, ``csrc/weno_axis.cu``);
+* 3-D advection–diffusion–reaction: one launch per RK stage (K9,
+  ``csrc/fused_adr_stage.cu``).
+
+The families register in ``models/registry.py``; the CLI generates its
+verbs from that registry.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
 from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.models.adr import (
+    ADRConfig,
+    ADRSolver,
+)
 from multigpu_advectiondiffusion_tpu_torch.models.burgers import (
     BurgersConfig,
     BurgersSolver,
@@ -34,6 +48,8 @@ from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
 from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
 
 __all__ = [
+    "ADRConfig",
+    "ADRSolver",
     "Boundary",
     "BurgersConfig",
     "BurgersSolver",

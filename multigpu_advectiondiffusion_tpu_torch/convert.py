@@ -6,7 +6,8 @@ so this module needs neither package's framework from the other side:
 
 * :func:`config_from_fields` builds a :class:`DiffusionConfig` from the
   fields of a JAX config (``dataclasses.asdict(cfg)`` or ``vars(cfg)``),
-  and :func:`burgers_config_from_fields` a :class:`BurgersConfig`;
+  :func:`burgers_config_from_fields` a :class:`BurgersConfig` and
+  :func:`adr_config_from_fields` an :class:`ADRConfig`;
 * :func:`state_from_numpy` / :func:`state_to_numpy` move a state
   ``(u, t, it)`` in and out as numpy, keeping ``t``'s precision.
 """
@@ -20,6 +21,7 @@ import torch
 
 from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.models.adr import ADRConfig
 from multigpu_advectiondiffusion_tpu_torch.models.base import resolve_device
 from multigpu_advectiondiffusion_tpu_torch.models.burgers import BurgersConfig
 from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
@@ -77,6 +79,15 @@ def config_from_fields(fields: dict) -> DiffusionConfig:
 def burgers_config_from_fields(fields: dict) -> BurgersConfig:
     """A port config from a JAX ``BurgersConfig``'s fields."""
     return _from_fields(BurgersConfig, fields)
+
+
+def adr_config_from_fields(fields: dict) -> ADRConfig:
+    """A port config from a JAX ``ADRConfig``'s fields; a velocity list
+    (as ``dataclasses.asdict`` leaves a tuple) stays a tuple."""
+    fields = dict(fields)
+    if isinstance(fields.get("velocity"), list):
+        fields["velocity"] = tuple(fields["velocity"])
+    return _from_fields(ADRConfig, fields)
 
 
 def state_from_numpy(u, t, it=0, device=None) -> SolverState:

@@ -1,15 +1,16 @@
-// The WENO7-JS face flux in the classical q-form, in the operation order
-// of the plain PyTorch twin (ops/weno.py::_weno7_betas, _weno7_weights,
-// _weno7_minus, _weno7_plus): every product and sum as Python evaluates
-// the expression, left to right, each division a true (IEEE-rounded)
+// The WENO7-JS face flux in the classical q-form, its betas written on
+// forward differences, in the operation order of the plain PyTorch twin
+// (ops/weno.py::_weno7_betas, _weno7_weights, _weno7_minus,
+// _weno7_plus): every product and sum as Python evaluates the
+// expression, left to right, each division a true (IEEE-rounded)
 // division. Included by weno_axis.cu (K12), which is built with
 // -fmad=false, so no product and sum are contracted into an FMA and the
 // kernel rounds where the twin does.
 //
-// The q-form, not the single-division e-form, because this per-axis op
-// takes arbitrary data: the e-form raises betas to the 6th power and
-// overflows for split-flux jumps above ~3.6 (the JAX package's
-// ops/pallas/weno.py::_face_flux note).
+// The q-form weights, not the single-division e-form, because this
+// per-axis op takes arbitrary data: the e-form raises betas to the 6th
+// power and overflows for split-flux jumps above ~3.6 (the JAX
+// package's ops/pallas/weno.py::_face_flux note).
 
 #pragma once
 
@@ -25,27 +26,34 @@ constexpr float D7_2 = (float)(18.0 / 35.0);
 constexpr float D7_3 = (float)(4.0 / 35.0);
 constexpr float EPS7 = (float)1e-6;
 
+// The betas as quadratic forms on the forward differences e_j = q[j+1] -
+// q[j] of each stencil's window: rows (A, B, C, D, E, F) of the JAX
+// package's ops/weno.py::_B7, each evaluated as
+// (A ea + D eb + F ec) ea + (B eb + E ec) eb + C (ec ec) with
+// (ea, eb, ec) = (e_k, e_{k+1}, e_{k+2}). Exactly the classical value
+// form's betas (WENO7resAdv_X.m:60-83), but without its 1e5-scale
+// products of values that cancel on smooth data.
+__device__ __forceinline__ float weno7_beta(float A, float B, float C,
+                                            float D, float E, float F,
+                                            float ea, float eb, float ec) {
+  return (A * ea + D * eb + F * ec) * ea + (B * eb + E * ec) * eb +
+         C * (ec * ec);
+}
+
 __device__ __forceinline__ void weno7_betas(const float* q, float& b0,
                                             float& b1, float& b2,
                                             float& b3) {
-  const float m3 = q[0], m2 = q[1], m1 = q[2], c = q[3], p1 = q[4],
-              p2 = q[5], p3 = q[6];
-  b0 = m1 * (134241.0f * m1 - 114894.0f * c) +
-       m3 * (56694.0f * m1 - 47214.0f * m2 + 6649.0f * m3 - 22778.0f * c) +
-       25729.0f * c * c +
-       m2 * (-210282.0f * m1 + 85641.0f * m2 + 86214.0f * c);
-  b1 = c * (41001.0f * c - 30414.0f * p1) +
-       m2 * (-19374.0f * m1 + 3169.0f * m2 + 19014.0f * c - 5978.0f * p1) +
-       6649.0f * p1 * p1 +
-       m1 * (33441.0f * m1 - 70602.0f * c + 23094.0f * p1);
-  b2 = p1 * (33441.0f * p1 - 19374.0f * p2) +
-       m1 * (6649.0f * m1 - 30414.0f * c + 23094.0f * p1 - 5978.0f * p2) +
-       3169.0f * p2 * p2 +
-       c * (41001.0f * c - 70602.0f * p1 + 19014.0f * p2);
-  b3 = p2 * (85641.0f * p2 - 47214.0f * p3) +
-       c * (25729.0f * c - 114894.0f * p1 + 86214.0f * p2 - 22778.0f * p3) +
-       6649.0f * p3 * p3 +
-       p1 * (134241.0f * p1 - 210282.0f * p2 + 56694.0f * p3);
+  float e[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) e[j] = q[j + 1] - q[j];
+  b0 = weno7_beta(6649.0f, 45076.0f, 25729.0f, -33916.0f, -63436.0f,
+                  22778.0f, e[0], e[1], e[2]);
+  b1 = weno7_beta(3169.0f, 17236.0f, 6649.0f, -13036.0f, -17116.0f,
+                  5978.0f, e[1], e[2], e[3]);
+  b2 = weno7_beta(6649.0f, 17236.0f, 3169.0f, -17116.0f, -13036.0f,
+                  5978.0f, e[2], e[3], e[4]);
+  b3 = weno7_beta(25729.0f, 45076.0f, 6649.0f, -63436.0f, -33916.0f,
+                  22778.0f, e[3], e[4], e[5]);
 }
 
 // alpha_k = d_k / (eps + b_k)^2, normalized by one reciprocal of the sum

@@ -52,10 +52,16 @@ from typing import Tuple
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.diagnostics import physics
 from multigpu_advectiondiffusion_tpu_torch.models.base import (
     LocalPhysics,
     SolverBase,
     StepContext,
+)
+from multigpu_advectiondiffusion_tpu_torch.models.registry import (
+    ModelSpec,
+    register_model,
+    resolve_bc,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_fused_impl
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as flux_lib
@@ -214,6 +220,20 @@ class BurgersSolver(SolverBase):
             "dt": None if self.dt is None else float(self.dt),
         }
 
+    def diagnostics_spec(self) -> dict:
+        """Physics rules (``diagnostics/physics.py``): WENO on the convex
+        Burgers flux is essentially non-oscillatory, so total variation
+        stays bounded by the initial data's."""
+        spec = {"rules": [], "meta": {}}
+        if self.cfg.flux == "burgers":
+            spec["rules"].append(physics.tv_monotone_rule())
+        return spec
+
+    def ensemble_operands(self) -> dict:
+        """Member-varying scalars of the batched ensemble engine: the CFL
+        number."""
+        return {"cfl": float(self.cfg.cfl)}
+
     def build_local(self, ctx: StepContext) -> LocalPhysics:
         cfg = self.cfg
         spacing = cfg.grid.spacing
@@ -343,3 +363,87 @@ class BurgersSolver(SolverBase):
                 cfg.nu, self.dt, self.device, order=cfg.weno_order,
             )
         return self._cache["fused_slab"]
+
+
+# --------------------------------------------------------------------- #
+# Registration: the family as a declarative plugin descriptor
+# (models/registry.py; the CLI generates the burgers{2,3}d verbs)
+# --------------------------------------------------------------------- #
+def _cli_configure(p, ndim):
+    p.add_argument("--flux", default="burgers",
+                   choices=["burgers", "linear", "buckley"])
+    p.add_argument("--weno-order", type=int, default=5, choices=[5, 7])
+    p.add_argument("--weno-variant", default="js", choices=["js", "z"])
+    p.add_argument("--cfl", type=float, default=0.4)
+    p.add_argument("--nu", type=float, default=0.0,
+                   help="viscosity (1e-5 in SingleGPU Burgers)")
+    p.add_argument("--fixed-dt", action="store_true",
+                   help="reference-parity dt = CFL*dx (hard-coded "
+                        "max|u|=1, Burgers3d_Baseline/main.c:193)")
+
+
+def _cli_build(args, grid, ndim):
+    return BurgersConfig(
+        grid=grid,
+        flux=args.flux,
+        weno_order=args.weno_order,
+        weno_variant=args.weno_variant,
+        cfl=args.cfl,
+        nu=args.nu,
+        adaptive_dt=not args.fixed_dt,
+        integrator=getattr(args, "integrator", "ssp_rk3"),
+        dtype=args.dtype,
+        ic=getattr(args, "ic", None) or "gaussian",
+        bc=resolve_bc(args, "edge"),
+        impl=args.impl,
+    )
+
+
+def _stage_radius(cfg) -> int:
+    """Fused per-stage stencil radius: the WENO reconstruction halo of
+    the configured order."""
+    return HALO[getattr(cfg, "weno_order", 5)]
+
+
+def _key_extras(cfg):
+    return [
+        f"weno={cfg.weno_order}-{cfg.weno_variant}",
+        f"adaptive={bool(cfg.adaptive_dt)}",
+        f"viscous={bool(getattr(cfg, 'nu', 0.0))}",
+    ]
+
+
+def _cost_kwargs(cfg):
+    return {
+        "weno_order": getattr(cfg, "weno_order", 5),
+        "viscous": bool(getattr(cfg, "nu", 0.0)),
+    }
+
+
+def _bench_build(grid, dtype, impl, case):
+    return BurgersConfig(
+        grid=grid,
+        weno_order=getattr(case, "weno_order", 5),
+        cfl=0.4,
+        adaptive_dt=not getattr(case, "fixed_dt", True),
+        nu=getattr(case, "nu", 0.0),
+        dtype=dtype,
+        ic="gaussian",
+        impl=impl,
+    )
+
+
+register_model(ModelSpec(
+    name="burgers",
+    config_cls=BurgersConfig,
+    solver_cls=BurgersSolver,
+    description="scalar conservation law u_t + div f(u) = nu lap(u), "
+                "WENO5/7 + Lax–Friedrichs",
+    check_error=False,
+    cli_configure=_cli_configure,
+    cli_build=_cli_build,
+    stage_radius=_stage_radius,
+    key_extras=_key_extras,
+    cost_kwargs=_cost_kwargs,
+    bench_build=_bench_build,
+))

@@ -30,7 +30,9 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   per RK stage, float32 only;
 * ``"auto"`` — not ported: construction raises
   ``NotImplementedError``, as it does for 1-D grids, the axisymmetric
-  geometry and bf16 storage.
+  geometry, bf16 storage, and float64 where the JAX package's 3-D fused
+  rung engages (float64 storage on its float32 kernels); float64 the
+  fused rung declines runs the generic path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,10 +43,16 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
+from multigpu_advectiondiffusion_tpu_torch.diagnostics import physics
 from multigpu_advectiondiffusion_tpu_torch.models.base import (
     LocalPhysics,
     SolverBase,
     StepContext,
+)
+from multigpu_advectiondiffusion_tpu_torch.models.registry import (
+    ModelSpec,
+    register_model,
+    resolve_bc,
 )
 from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_fused_impl
@@ -60,7 +68,10 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion_step impo
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_slab_run import (
     SlabRunDiffusionStepper,
 )
-from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import laplacian
+from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import (
+    D2_STENCILS,
+    laplacian,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.stencils import (
     boundary_band_mask,
     face_mask,
@@ -158,8 +169,7 @@ class DiffusionSolver(SolverBase):
                 "steps_per_exchange/exchange need a device mesh, which is "
                 "not ported yet"
             )
-        if (is_fused_impl(cfg.impl) and self.dtype == torch.float64
-                and self.grid.ndim == 3):
+        if self.dtype == torch.float64 and self._fused_reason() is None:
             raise NotImplementedError(
                 f"dtype=float64 with impl={cfg.impl!r}: the JAX package "
                 "runs float64 storage on its float32 kernels; that rung "
@@ -182,6 +192,45 @@ class DiffusionSolver(SolverBase):
             return "heat_kernel", {"t0": self.cfg.t0,
                                    "diffusivity": self.cfg.diffusivity}
         return self.cfg.ic, {}
+
+    # ------------------------------------------------------------------ #
+    # Registration contract (models/registry.REQUIRED_SOLVER_CONTRACT)
+    # ------------------------------------------------------------------ #
+    def stencil_spec(self) -> dict:
+        """Family stencil metadata: the diffusive tap radius of the
+        configured Laplacian order."""
+        r = D2_STENCILS[self.cfg.order][1]
+        return {
+            "family": "diffusion",
+            "diffusive_radius": r,
+            "stage_radius": r,
+        }
+
+    def cfl_rule(self) -> dict:
+        """The time-step contract: the diffusive stability bound
+        ``safety / (2 K sum 1/dx^2)`` computed at construction."""
+        return {
+            "kind": "diffusive",
+            "dt": float(self.dt),
+            "safety": float(self.cfg.safety),
+        }
+
+    def diagnostics_spec(self) -> dict:
+        """Physics rules (``diagnostics/physics.py``): pure diffusion (no
+        source) on a Cartesian grid satisfies the discrete maximum
+        principle; the heat-kernel workload's amplitude decays at the
+        analytic rate ``-d/2`` in ``log max u`` against ``log t``."""
+        spec = {"rules": [], "meta": {}}
+        if self.cfg.source is None and self.cfg.geometry == "cartesian":
+            spec["rules"].append(physics.max_principle_rule())
+        if self.cfg.ic == "heat_kernel" and self.cfg.geometry == "cartesian":
+            spec["meta"]["decay_rate_analytic"] = -self.grid.ndim / 2.0
+        return spec
+
+    def ensemble_operands(self) -> dict:
+        """Member-varying scalars of the batched ensemble engine: the
+        diffusivity K (which also moves the stability dt)."""
+        return {"diffusivity": float(self.cfg.diffusivity)}
 
     def build_local(self, ctx: StepContext) -> LocalPhysics:
         cfg = self.cfg
@@ -244,6 +293,35 @@ class DiffusionSolver(SolverBase):
     # ------------------------------------------------------------------ #
     # Fused fast paths (one device, reference-parity walls)
     # ------------------------------------------------------------------ #
+    def _fused_reason(self):
+        """Why the fused rung cannot serve this config, or ``None``: the
+        JAX package's eligibility (``models/diffusion.py``
+        ``_fused_stepper``) for one device, in its order. Float64 states
+        ride the JAX package's float32 kernels with float64 storage in
+        3-D, not on the whole-step rung; where that rung would engage,
+        the port raises at construction (not ported yet)."""
+        cfg = self.cfg
+        if not is_fused_impl(cfg.impl):
+            return f"impl={cfg.impl!r} does not request fusion"
+        if cfg.order != 4:
+            return "fused kernels bake in the O4 Laplacian"
+        if cfg.integrator != "ssp_rk3":
+            return "fused kernels bake in SSP-RK3"
+        if cfg.source is not None:
+            return "source-term hook needs the generic path"
+        if not cfg.reference_parity or cfg.boundary_band < 1:
+            return "fused walls need reference_parity with boundary_band >= 1"
+        if self.dtype == torch.float64 and (
+            self.grid.ndim != 3 or cfg.impl == "pallas_step"
+        ):
+            return "f64 storage rides the 3-D fused steppers, single-chip only"
+        bcs = self.bcs
+        if not all(b.kind == "dirichlet" for b in bcs) or not all(
+            b.value == bcs[0].value for b in bcs
+        ):
+            return "fused walls need uniform Dirichlet BCs on every axis"
+        return None
+
     def _fused_stepper(self, mode: str = "iters"):
         """The fused SSP-RK3 stepper when this config is eligible, else
         ``None`` (generic path, reason recorded): the whole-run stepper
@@ -256,31 +334,10 @@ class DiffusionSolver(SolverBase):
         ``advance_to`` runs the generic loop (``models/base.py``)."""
         cfg = self.cfg
         self._fused_fallback = None
-        if not is_fused_impl(cfg.impl):
-            return self._decline(
-                f"impl={cfg.impl!r} does not request fusion"
-            )
-        if cfg.order != 4:
-            return self._decline("fused kernels bake in the O4 Laplacian")
-        if cfg.integrator != "ssp_rk3":
-            return self._decline("fused kernels bake in SSP-RK3")
-        if cfg.source is not None:
-            return self._decline("source-term hook needs the generic path")
-        if not cfg.reference_parity or cfg.boundary_band < 1:
-            return self._decline(
-                "fused walls need reference_parity with boundary_band >= 1"
-            )
-        if self.dtype == torch.float64:  # 2-D only: 3-D raises at __init__
-            return self._decline(
-                "f64 storage rides the 3-D fused steppers, single-chip only"
-            )
+        reason = self._fused_reason()
+        if reason is not None:
+            return self._decline(reason)
         bcs = self.bcs
-        if not all(b.kind == "dirichlet" for b in bcs) or not all(
-            b.value == bcs[0].value for b in bcs
-        ):
-            return self._decline(
-                "fused walls need uniform Dirichlet BCs on every axis"
-            )
         if self.grid.ndim == 2:
             return self._whole_run_stepper()
         slab = self._select_slab(mode)
@@ -377,3 +434,63 @@ class DiffusionSolver(SolverBase):
         return metrics.error_norms(
             state.u, self.exact_solution(t_val), self.cfg.grid.spacing
         )
+
+
+# --------------------------------------------------------------------- #
+# Registration: the family as a declarative plugin descriptor
+# (models/registry.py; the CLI generates the diffusion{2,3}d verbs)
+# --------------------------------------------------------------------- #
+def _cli_configure(p, ndim):
+    p.add_argument("--K", type=float, default=1.0,
+                   help="diffusivity (main.c arg 1)")
+
+
+def _cli_build(args, grid, ndim):
+    return DiffusionConfig(
+        grid=grid,
+        diffusivity=args.K,
+        integrator=getattr(args, "integrator", "ssp_rk3"),
+        dtype=args.dtype,
+        ic=getattr(args, "ic", None) or "heat_kernel",
+        bc=resolve_bc(args, "dirichlet"),
+        impl=args.impl,
+    )
+
+
+def _stage_radius(cfg) -> int:
+    """Fused per-stage stencil radius: the O4 layout's, whatever the
+    generic path's order."""
+    return 2
+
+
+def _key_extras(cfg):
+    return [
+        f"order={getattr(cfg, 'order', 4)}",
+        f"geom={getattr(cfg, 'geometry', 'cartesian')}",
+    ]
+
+
+def _cost_kwargs(cfg):
+    return {"order": getattr(cfg, "order", 4)}
+
+
+def _bench_build(grid, dtype, impl, case):
+    return DiffusionConfig(
+        grid=grid, diffusivity=1.0, dtype=dtype, impl=impl
+    )
+
+
+register_model(ModelSpec(
+    name="diffusion",
+    config_cls=DiffusionConfig,
+    solver_cls=DiffusionSolver,
+    description="heat/diffusion equation u_t = K lap(u) + S(u)",
+    check_error=True,
+    sweep_aliases={"K": "diffusivity"},
+    cli_configure=_cli_configure,
+    cli_build=_cli_build,
+    stage_radius=_stage_radius,
+    key_extras=_key_extras,
+    cost_kwargs=_cost_kwargs,
+    bench_build=_bench_build,
+))

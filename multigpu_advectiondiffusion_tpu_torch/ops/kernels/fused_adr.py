@@ -1,0 +1,218 @@
+"""Fused SSP-RK3 advection–diffusion–reaction stepping in 3-D (JAX
+``ops/pallas/fused_adr.py`` counterpart), the kernel K9.
+
+Each RK stage is ONE kernel launch over the persistent padded state, as
+K1's (:mod:`ops.kernels.fused_diffusion`): the same ``(nz+4, ny+4,
+nx+4)`` float32 layout whose ghost ring holds the wall value and is
+never rewritten, and the same three buffers a step, ``T1 = s1(S)``,
+``T2 = s2(T1, S)``, ``S = s3(T2, S)`` in place. The stage evaluates the
+ADR right-hand side of the JAX kernel in its term order:
+
+* the UNSCALED O4 tap sum (``stage_taps(spacing, (1, 1, 1))``), which
+  ``K(x) = K0 (1 + eps cos(pi ẑ) cos(pi ŷ) cos(pi x̂))`` multiplies;
+* first-order upwind advection at constant velocity;
+* linear decay ``-lambda u``; then the RK combine and the walls.
+
+``K(x)``'s factors are three 1-D float32 vectors (:func:`kappa_axes`),
+computed once with torch on the CPU in the JAX kernel's expression and
+handed to the kernel, which forms their product per cell.
+
+:func:`fused_adr_stage` launches the CUDA kernel
+(``csrc/fused_adr_stage.cu``, built ``-fmad=false``) for a CUDA tensor
+and raises if it cannot; for a CPU tensor, and only then, it runs
+:func:`adr_stage_reference`, the plain PyTorch twin with the kernel's
+layout, term order and roundings.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
+    R,
+    STAGES,
+    PaddedDiffusionState,
+    _check,
+    _interior,
+    stage_taps,
+    write_walled,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
+    FusedStepperBase,
+)
+
+SOURCE = "fused_adr_stage.cu"
+NVCC_EXTRA = ("-fmad=false",)
+Z_CHUNK = 8  # z planes one thread marches (K1's choice)
+
+
+def kappa_axes(global_shape: Sequence[int], device="cpu"):
+    """The factors ``cos(pi (g/(n-1) - 1/2))`` of ``K(x)`` per axis, as
+    three float32 vectors: the JAX kernel's ``chat`` in its float32
+    expression, evaluated on the CPU so that every device gets the same
+    bits, then moved to ``device``."""
+    out = []
+    pi = torch.tensor(math.pi, dtype=torch.float32)
+    for n in global_shape:
+        g = torch.arange(n, dtype=torch.float32)
+        out.append(torch.cos(pi * (torch.div(g, g.new_tensor(n - 1)) - 0.5))
+                   .to(device))
+    return tuple(out)
+
+
+def _shifted(v, n, axis, off):
+    """The interior block of the padded ``v`` moved ``off`` cells along
+    ``axis``."""
+    idx = [slice(R, R + m) for m in n]
+    idx[axis] = slice(R + off, R + off + n[axis])
+    return v[tuple(idx)]
+
+
+def adr_stage_reference(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
+                        adv_m, lam, a, b, band, bc_value):
+    """Plain PyTorch twin of the K9 stage kernel, on the same padded
+    layout. Writes the interior of ``out`` (which may be ``u``) and
+    returns it. Term order and roundings are the kernel's (and the JAX
+    kernel's): taps z, y, x, each product rounded; upwind terms z, y, x,
+    an axis skipped only when both its coefficients are 0; then the
+    coefficient, the advective and reaction terms, ``b*(v + dt*rhs)``
+    and ``a*u + ...``."""
+    n = tuple(s - 2 * R for s in v.shape)
+    lap = None
+    for axis in range(3):
+        for j in range(5):
+            term = _shifted(v, n, axis, j - R) * taps[5 * axis + j]
+            lap = term if lap is None else lap + term
+    vc = _interior(v)
+    adv = None
+    for axis in range(3):
+        cp, cm = adv_p[axis], adv_m[axis]
+        if cp == 0.0 and cm == 0.0:
+            continue
+        lo = _shifted(v, n, axis, -1)
+        hi = _shifted(v, n, axis, 1)
+        term = (vc - lo) * cp + (hi - vc) * cm
+        adv = term if adv is None else adv + term
+    if eps:
+        prod = (cz * eps).reshape(-1, 1, 1) * cy.reshape(1, -1, 1)
+        rhs = ((prod * cx.reshape(1, 1, -1) + 1.0) * k0) * lap
+    else:
+        rhs = lap * k0
+    if adv is not None:
+        rhs = rhs - adv
+    if lam:
+        rhs = rhs - vc * lam
+    dt = float(np.float32(dt))
+    rk = (vc + rhs * dt) * b
+    if u is not None:
+        rk = _interior(u) * a + rk
+    return write_walled(out, rk, vc, band, bc_value)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built K9 kernel (compiled at first use), argtypes set."""
+    lib = ctypes.CDLL(str(build.build(SOURCE, NVCC_EXTRA).path))
+    fn = lib.fused_adr_stage
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, i, i, i, p, p, p, p, f, f, p, f, f, f, f, i, f,
+                   i, p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
+                    adv_m, lam, a, b, band, bc_value, zchunk=Z_CHUNK):
+    """One fused ADR RK stage: ``out <- stage(v, u)`` on padded buffers.
+
+    ``u`` is ``None`` for the first stage (a == 0) and may be ``out``
+    (in-place final stage); ``v`` must not be ``out``. ``cz``/``cy``/
+    ``cx`` are :func:`kappa_axes` on ``v``'s device. Scalars are rounded
+    to float32 and passed by value. Launches the CUDA kernel on the
+    current stream (no synchronisation) and counts the launch in
+    ``fused_adr_stage.launches``; a CPU tensor runs
+    :func:`adr_stage_reference`.
+    """
+    for name, t in (("v", v), ("u", u), ("out", out)):
+        if t is not None:
+            _check(name, t, v.shape, v.device)
+    if v.dim() != 3 or min(v.shape) <= 2 * R:
+        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
+    n = tuple(s - 2 * R for s in v.shape)
+    for name, t, m in (("cz", cz, n[0]), ("cy", cy, n[1]), ("cx", cx, n[2])):
+        _check(name, t, (m,), v.device)
+    if v.data_ptr() == out.data_ptr():
+        raise ValueError("v and out must be different buffers")
+    kw = dict(taps=taps, cz=cz, cy=cy, cx=cx, k0=k0, eps=eps, adv_p=adv_p,
+              adv_m=adv_m, lam=lam, a=a, b=b, band=band, bc_value=bc_value)
+    if v.device.type == "cpu":
+        return adr_stage_reference(v, u, out, dt, **kw)
+    if v.device.type != "cuda":
+        raise ValueError(f"no ADR stage kernel for device {v.device}")
+    host_taps = np.asarray(taps, dtype=np.float32)
+    host_adv = np.asarray(tuple(adv_p) + tuple(adv_m), dtype=np.float32)
+    with torch.cuda.device(v.device):
+        rc = library().fused_adr_stage(
+            v.data_ptr(), None if u is None else u.data_ptr(),
+            out.data_ptr(), *n, host_taps.ctypes.data, cz.data_ptr(),
+            cy.data_ptr(), cx.data_ptr(), float(k0), float(eps),
+            host_adv.ctypes.data, float(lam), float(np.float32(dt)),
+            float(a), float(b), int(band), float(bc_value), int(zchunk),
+            torch.cuda.current_stream(v.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_adr_stage launch failed: CUDA error {rc}")
+    fused_adr_stage.launches += 1
+    return out
+
+
+fused_adr_stage.launches = 0
+
+
+class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
+    """Fused per-stage ADR runner for one configuration on one device:
+    K9 three times a step. ``velocity`` is per array axis (z, y, x)."""
+
+    def __init__(self, interior_shape, spacing, diffusivity, velocity,
+                 reaction, dt, band, bc_value, device,
+                 kappa_variation: float = 0.0):
+        if len(tuple(velocity)) != 3:
+            raise ValueError(
+                f"fused ADR wants a 3-vector velocity, got {velocity!r}")
+        # the unscaled taps: K(x) multiplies the summed Laplacian
+        super().__init__(interior_shape, spacing, (1.0, 1.0, 1.0), dt, band,
+                         bc_value, device)
+        self.k0 = float(diffusivity)
+        self.eps = float(kappa_variation)
+        self.lam = float(reaction)
+        self.adv_p = tuple(max(float(a), 0.0) / dx
+                           for a, dx in zip(velocity, spacing))
+        self.adv_m = tuple(min(float(a), 0.0) / dx
+                           for a, dx in zip(velocity, spacing))
+        self.cz, self.cy, self.cx = kappa_axes(interior_shape, self.device)
+
+    def _dt_value(self):
+        return np.float32(self.dt)
+
+    def stage_kwargs(self) -> dict:
+        """What :func:`fused_adr_stage` takes for this configuration,
+        but ``a`` and ``b``."""
+        return dict(taps=self.taps, cz=self.cz, cy=self.cy, cx=self.cx,
+                    k0=self.k0, eps=self.eps, adv_p=self.adv_p,
+                    adv_m=self.adv_m, lam=self.lam, band=self.band,
+                    bc_value=self.bc_value)
+
+    def _step(self, S, T1, T2, dt):
+        kw = self.stage_kwargs()
+        (a1, b1), (a2, b2), (a3, b3) = STAGES
+        fused_adr_stage(S, None, T1, dt, a=a1, b=b1, **kw)
+        fused_adr_stage(T1, S, T2, dt, a=a2, b=b2, **kw)
+        fused_adr_stage(T2, S, S, dt, a=a3, b=b3, **kw)
+        return S, T1, T2

@@ -88,15 +88,23 @@ def stage_reference(v, u, out, dt, *, taps, a, b, band, bc_value):
     rk = b * (vc + dt * acc)
     if u is not None:
         rk = a * _interior(u) + rk
+    return write_walled(out, rk, vc, band, bc_value)
+
+
+def write_walled(out, rk, vc, band, bc_value):
+    """The stage kernels' epilogue: ``out``'s interior becomes ``rk`` on
+    cells ``>= band`` from every face, ``bc_value`` on the faces, and
+    ``vc`` (the stage input) on the rest of the band."""
+    n = tuple(vc.shape)
     interior = face = None
     for axis, m in enumerate(n):
-        g = torch.arange(m, device=v.device).reshape(
-            [m if ax == axis else 1 for ax in range(ndim)])
+        g = torch.arange(m, device=vc.device).reshape(
+            [m if ax == axis else 1 for ax in range(len(n))])
         inside = (g >= band) & (g < m - band)
         on_face = (g == 0) | (g == m - 1)
         interior = inside if interior is None else interior & inside
         face = on_face if face is None else face | on_face
-    wall = torch.full((), bc_value, dtype=v.dtype, device=v.device)
+    wall = torch.full((), bc_value, dtype=vc.dtype, device=vc.device)
     _interior(out).copy_(
         torch.where(interior, rk, torch.where(face, wall, vc))
     )

@@ -16,14 +16,16 @@ Two forms of the same reconstruction live here, as in the JAX package:
 * the q-form (``_weno5_minus``/``_weno5_plus``, ``_weno7_*``) behind
   :func:`flux_divergence` — the generic path (``impl="xla"``), plain
   PyTorch over shifted slices of an axis-padded array; the per-axis
-  kernel K12 evaluates the WENO7 q-form too;
+  kernel K12 evaluates the WENO7 q-form too, its betas written on
+  forward differences (``_weno7_betas``);
 * the forward-difference e-form (``_curv``, ``_weno5_side_nd``,
   ``_weno5_side_nd_e``) that the fused stage kernel K5, the per-axis
   kernel K12 at order 5 and their plain twins
   (``ops/kernels/fused_burgers.py``, ``ops/kernels/weno.py``) evaluate.
 
 Every expression keeps the JAX package's operation order, so float64
-results agree with it to rounding. Squares are written ``x * x``.
+results agree with it to rounding; the WENO7 betas take the order of
+the JAX package's difference form. Squares are written ``x * x``.
 """
 
 from __future__ import annotations
@@ -159,33 +161,34 @@ def _weno5_side_nd(e0, e1, e2, e3, cd0, cd1, cd2, variant, side):
     return num, a0 + a1 + a2
 
 
+# WENO7 smoothness indicators as quadratic forms in the three forward
+# differences ``(ea, eb, ec) = (e_k, e_{k+1}, e_{k+2})``, ``e_j = q_{j+1} -
+# q_j``, of each 4-cell stencil k: ``beta_k = A ea^2 + B eb^2 + C ec^2 +
+# D ea eb + E eb ec + F ea ec`` (the JAX package's ``ops/weno.py::_B7``;
+# rows ``(A, B, C, D, E, F)``). The same betas as the classical form on
+# the values (``WENO7resAdv_X.m:60-83``), exactly, since the betas are
+# shift-invariant; but the value form sums 1e5-scale products of the
+# values that almost all cancel on smooth data, and the differences do
+# not, so float32 keeps its digits.
+_B7 = (
+    (6649.0, 45076.0, 25729.0, -33916.0, -63436.0, 22778.0),
+    (3169.0, 17236.0, 6649.0, -13036.0, -17116.0, 5978.0),
+    (6649.0, 17236.0, 3169.0, -17116.0, -13036.0, 5978.0),
+    (25729.0, 45076.0, 6649.0, -63436.0, -33916.0, 22778.0),
+)
+
+
 def _weno7_betas(q):
-    m3, m2, m1, c, p1, p2, p3 = q
-    b0 = (
-        m1 * (134241 * m1 - 114894 * c)
-        + m3 * (56694 * m1 - 47214 * m2 + 6649 * m3 - 22778 * c)
-        + 25729 * c * c
-        + m2 * (-210282 * m1 + 85641 * m2 + 86214 * c)
-    )
-    b1 = (
-        c * (41001 * c - 30414 * p1)
-        + m2 * (-19374 * m1 + 3169 * m2 + 19014 * c - 5978 * p1)
-        + 6649 * p1 * p1
-        + m1 * (33441 * m1 - 70602 * c + 23094 * p1)
-    )
-    b2 = (
-        p1 * (33441 * p1 - 19374 * p2)
-        + m1 * (6649 * m1 - 30414 * c + 23094 * p1 - 5978 * p2)
-        + 3169 * p2 * p2
-        + c * (41001 * c - 70602 * p1 + 19014 * p2)
-    )
-    b3 = (
-        p2 * (85641 * p2 - 47214 * p3)
-        + c * (25729 * c - 114894 * p1 + 86214 * p2 - 22778 * p3)
-        + 6649 * p3 * p3
-        + p1 * (134241 * p1 - 210282 * p2 + 56694 * p3)
-    )
-    return b0, b1, b2, b3
+    """The four betas of the 7-cell window ``q``, each as its ``_B7``
+    form in the term order of the JAX package's ``_weno7_side_nd_e``:
+    ``(A ea + D eb + F ec) ea + (B eb + E ec) eb + C (ec ec)``."""
+    e = [q[j + 1] - q[j] for j in range(6)]
+    betas = []
+    for k, (A, B, C, D, E, F) in enumerate(_B7):
+        ea, eb, ec = e[k], e[k + 1], e[k + 2]
+        betas.append((A * ea + D * eb + F * ec) * ea
+                     + (B * eb + E * ec) * eb + C * (ec * ec))
+    return tuple(betas)
 
 
 def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:

@@ -298,6 +298,33 @@ def test_unported_rungs_raise(kw, match):
         _solver(**kw)
 
 
+@pytest.mark.parametrize("parity", [True, False])
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+@pytest.mark.parametrize("impl", ["pallas", "pallas_stage", "pallas_step",
+                                  "pallas_slab"])
+def test_float64_3d_dispatch_matches_jax(impl, bc, order, parity):
+    """Float64 3-D diffusion under a fused flavor: where the JAX package's
+    fused rung declines, the port runs what JAX runs (the generic path,
+    as ``_pallas_f32_gate`` sends float64 off the per-axis kernels) with
+    JAX's reason; it raises only where that rung engages (float64
+    storage on the float32 kernels, not ported)."""
+    kw = dict(impl=impl, bc=bc, order=order, reference_parity=parity,
+              dtype="float64")
+    grid = (24, 16, 16)
+    for mode in ("iters", "t_end"):
+        want = JSolver(JConfig(grid=JGrid.make(*grid), **kw)).engaged_path(
+            mode)
+        if want["stepper"].startswith("fused"):
+            with pytest.raises(NotImplementedError, match="float64"):
+                PSolver(PConfig(grid=PGrid.make(*grid), **kw), device="cpu")
+            continue
+        got = PSolver(PConfig(grid=PGrid.make(*grid), **kw),
+                      device="cpu").engaged_path(mode)
+        assert (got["stepper"], got["fallback"]) == (
+            want["stepper"], want["fallback"])
+
+
 def test_unported_dimensions_raise():
     """1-D grids and the 2-D axisymmetric geometry are not ported; 2-D
     Cartesian grids are (``tests/test_torch_fused_diffusion2d.py``), and

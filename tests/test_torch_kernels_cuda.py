@@ -1,7 +1,7 @@
-"""K1 and K5, the port's CUDA stage kernels, K7/K7a, its 2-D whole-run
-kernels, K10, K2 and K6, its 3-D fused-step kernels, and K11/K11b and
-K12/K12b, its per-axis kernels, against their plain PyTorch twins on a
-GPU. Marked ``cuda``: it skips where no CUDA
+"""K1, K5 and K9, the port's CUDA stage kernels, K7/K7a, its 2-D
+whole-run kernels, K10, K2 and K6, its 3-D fused-step kernels, and
+K11/K11b and K12/K12b, its per-axis kernels, against their plain
+PyTorch twins on a GPU. Marked ``cuda``: it skips where no CUDA
 device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch import (
+    ADRConfig,
+    ADRSolver,
     BurgersConfig,
     BurgersSolver,
     DiffusionConfig,
@@ -25,6 +27,9 @@ from multigpu_advectiondiffusion_tpu_torch import (
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
 from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused_adr as fa,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_burgers as fb,
 )
@@ -488,3 +493,72 @@ def test_per_axis_runs_match_generic_path(gpu_axis, family, n):
     np.testing.assert_allclose(got.u.cpu().numpy(), want.u.cpu().numpy(),
                                rtol=rtol,
                                atol=atol * float(want.u.abs().max()))
+
+
+# --------------------------------------------------------------------- #
+# K9, the fused ADR stage kernel, and the ADR paths
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def gpu_adr():
+    if not torch.cuda.is_available():
+        pytest.skip("K9 (csrc/fused_adr_stage.cu) needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps,lam,wall", [(0.0, 0.0, 0.1), (0.2, 0.25, 0.0),
+                                          (0.2, 0.0, 0.3)])
+@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 6, 70)])
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+def test_k9_matches_twin(gpu_adr, shape, kind, eps, lam, wall):
+    """To the bit: K9 is built -fmad=false and rounds where its twin
+    does."""
+    rng = np.random.default_rng(kind)
+    padded = tuple(n + 2 * fa.R for n in shape)
+    v = torch.from_numpy(rng.random(padded, dtype=np.float32)).to(gpu_adr)
+    u = torch.from_numpy(rng.random(padded, dtype=np.float32)).to(gpu_adr)
+    a, b = fa.STAGES[kind]
+    spacing, vel = (0.1, 0.2, 0.3), (0.5, -0.3, 0.0)
+    cz, cy, cx = fa.kappa_axes(shape, gpu_adr)
+    kw = dict(taps=fd.stage_taps(spacing, (1.0, 1.0, 1.0)), cz=cz, cy=cy,
+              cx=cx, k0=1.3, eps=eps, lam=lam,
+              adv_p=tuple(max(x, 0.0) / d for x, d in zip(vel, spacing)),
+              adv_m=tuple(min(x, 0.0) / d for x, d in zip(vel, spacing)),
+              a=a, b=b, band=2, bc_value=wall)
+    u_arg = None if kind == 0 else u
+    ref = fa.adr_stage_reference(v, u_arg, torch.zeros_like(v), 1e-3, **kw)
+    out = torch.zeros_like(v)
+    before = fa.fused_adr_stage.launches
+    fa.fused_adr_stage(v, u_arg, out, 1e-3, **kw)
+    torch.cuda.synchronize()
+    assert fa.fused_adr_stage.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_adr_runs_match_generic_path(gpu_adr):
+    """The fused path (K9, 3 launches a step, ``run`` and ``advance_to``)
+    and the per-axis path (K11) against ``impl="xla"`` at the bounds of
+    chip_smoke.py's phase 2."""
+    cfg = ADRConfig(grid=Grid.make(37, 29, 23, lengths=(3.0, 2.5, 2.0)),
+                    velocity=(0.4, -0.2, 0.3), kappa_variation=0.2,
+                    reaction_rate=0.25, impl="pallas")
+    generic = ADRSolver(dataclasses.replace(cfg, impl="xla"))
+    s0 = generic.initial_state()
+    for impl, counter in (("pallas", fa.fused_adr_stage),
+                          ("pallas_axis", klap.laplacian_o4_3d)):
+        s = ADRSolver(dataclasses.replace(cfg, impl=impl))
+        counter.launches = 0
+        got = s.run(s0, 7)
+        torch.cuda.synchronize()
+        assert counter.launches == 21
+        want = generic.run(s0, 7)
+        assert got.t == want.t
+        scale = float(want.u.abs().max())
+        bad = (got.u - want.u).abs() > 1e-5 * want.u.abs() + 1e-6 * scale
+        assert not bool(bad.any())
+    s = ADRSolver(cfg)
+    t_end = float(s0.t) + 2.5 * s.dt
+    got, want = s.advance_to(s0, t_end), generic.advance_to(s0, t_end)
+    assert got.it == want.it == 3
+    assert abs(float(got.t) - t_end) <= 1e-6 * t_end

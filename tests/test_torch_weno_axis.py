@@ -135,6 +135,29 @@ def test_weno7_twin_on_a_smooth_solver_state(ndim, axis):
     assert gap <= 32 * EPS
 
 
+@pytest.mark.parametrize("ndim,axis", SWEEPS)
+def test_weno7_buckley_smooth_against_float64(ndim, axis):
+    """WENO7-JS with the Buckley–Leverett flux on a smooth Gaussian, the
+    case where value-form betas cancel away their digits in float32:
+    the twin within ``8 eps`` of the face scale ``max|f±| / dx`` of the
+    JAX kernel run in float64, and no further from the JAX float32
+    result than that result is from float64, plus ``8 eps``."""
+    up = _padded(ndim, axis, 7, "smooth", 0)
+    fx = jflux.get("buckley")
+    exact = np.asarray(jweno.flux_divergence_pallas(
+        jnp.asarray(up, jnp.float64), axis, DX, fx, "js", order=7))
+    got, jax32 = _both(up, axis, "buckley", "js", 7)
+    P, M = _split(pflux.get("buckley"), torch.from_numpy(up))
+    scale = max(float(P.abs().max()), float(M.abs().max())) / DX
+    port_err = float(np.max(np.abs(got - exact))) / scale / EPS
+    jax_err = float(np.max(np.abs(jax32 - exact))) / scale / EPS
+    to_jax = float(np.max(np.abs(got - jax32))) / scale / EPS
+    print(f"WENO7 buckley smooth {ndim}-D axis {axis}: port {port_err:.2f}"
+          f" eps, JAX f32 {jax_err:.2f} eps, port-JAX {to_jax:.2f} eps")
+    assert port_err <= 8
+    assert to_jax <= jax_err + 8
+
+
 def test_flux_divergence_dispatch():
     """``impl="pallas"`` pads the sweep axis and runs the twin on the CPU;
     what the kernel does not compute raises instead of running
