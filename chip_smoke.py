@@ -128,7 +128,31 @@ ignored ``build/`` directory), then:
    per-axis rung (1,212 K11 launches, against ``impl="xla"``);
 22. bench.py's ``adr2d`` configuration (1001^2, lengths 20) under
    ``impl="pallas"``, ``run(200)``: the per-axis rung with the JAX
-   package's reason, 600 K11b launches, against ``impl="xla"``.
+   package's reason, 600 K11b launches, against ``impl="xla"``;
+23. holds K2b, the B-folded slab kernel (K2 and K6 with a member axis),
+   against its plain twin to the bit: diffusion at 24x16x16 and Burgers
+   at 24x8x8, B = 4, 2 and 3 steps;
+24. holds every member of K2b against the single K2 (K6) run of that
+   member, to the bit, at the ensemble main sizes (bench.py's ensemble
+   rows): diffusion 256x128x64, B = 64, 60 steps; Burgers 128x64x64,
+   B = 8, 30 steps; times K2b's run beside its bound, the twin of the
+   same run, MLUPS*members and the peak memory;
+25. drives the diffusion ensemble (256x128x64, the width sweep 0.1 +
+   0.002 i, 60 steps, B = 8 and 64) through ``EnsembleSolver.run`` on
+   the three rungs — ``impl="pallas_slab"`` (one K2b launch a run),
+   ``"pallas"`` (K1 per member, 3 B launches a step) and ``"xla"`` (the
+   generic loop per member) — each member equal to its looped single
+   run to the bit; MLUPS*members of the batched and the looped runs and
+   the idle share of the per-member rung;
+26. the Burgers ensemble (128x64x64, fixed dt, nu 1e-5, 30 steps, B = 8)
+   under ``"pallas_slab"`` (K2b) and ``"pallas"`` (K5 per member), the
+   same checks;
+27. member-varying operands on the card: a K sweep 0.5:2 at B = 8 on the
+   diffusion grid (``run`` within phase 2's bounds of the looped generic
+   runs; ``advance_to`` with per-member ``t_end``, per-member step counts
+   equal to the looped runs'), an ADR ``diffusivity``/``reaction_rate``
+   sweep at B = 4 on the ADR grid, 20 steps, and a member seeded with a
+   NaN named by ``EnsembleMemberDivergedError``.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -151,10 +175,14 @@ import numpy as np
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch import (
+    ADRSolver,
     BurgersConfig,
     BurgersSolver,
     DiffusionConfig,
     DiffusionSolver,
+    EnsembleMemberDivergedError,
+    EnsembleSolver,
+    EnsembleState,
     Grid,
 )
 from multigpu_advectiondiffusion_tpu_torch.diagnostics import physics
@@ -252,7 +280,9 @@ COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K10": fds.fused_step, "K2": fsr.slab_run_diffusion,
             "K6": fsr.slab_run_burgers, "K11": klap.laplacian_o4_3d,
             "K11b": klap.laplacian_o4_2d, "K12": kweno.flux_divergence_3d,
-            "K12b": kweno.flux_divergence_2d, "K9": fa.fused_adr_stage}
+            "K12b": kweno.flux_divergence_2d, "K9": fa.fused_adr_stage,
+            "K2b": fsr.slab_run_diffusion_batched,
+            "K2b-burgers": fsr.slab_run_burgers_batched}
 
 
 def card_line() -> str:
@@ -305,14 +335,16 @@ def device_profile(fn) -> tuple[float, float, dict]:
     return (end - start) / 1e3, busy, means
 
 
-def retake(capture, complete):
-    """``capture()``, taken once more when ``complete`` says it missed
-    device events: torch.profiler on the card has dropped some from a
-    capture (two of a run's 258 K5 launches once, and the read-back).
-    The launch counters hold the runs themselves; the caller's checks
-    then hold the second capture."""
+def retake(capture, complete, tries: int = 2):
+    """``capture()``, taken again (at most ``tries`` captures in all) while
+    ``complete`` says it missed device events: torch.profiler on the card
+    has dropped some from a capture (two of a run's 258 K5 launches once,
+    and the read-back). The launch counters hold the runs themselves; the
+    caller's checks then hold the last capture."""
     result = capture()
-    if not complete(result):
+    for _ in range(tries - 1):
+        if complete(result):
+            break
         print("  the profiler's capture missed device events; once more")
         result = capture()
     return result
@@ -2395,6 +2427,406 @@ def adr2d_phase(card: str) -> None:
           f"{[round(r, 3) for r in reps]}; {total_ms / n:.4f} ms/step "
           f"[{card}]")
 
+# --------------------------------------------------------------------- #
+# K2b and the batched ensemble engine (phases 23-27)
+# --------------------------------------------------------------------- #
+# bench.py's ensemble rows (bench.py:322-397, the on_tpu sizes;
+# bench/matrix.py:140-145): diffusion 3-D 256x128x64, lengths 6.4 3.2
+# 1.6, K = 1, O4, 60 steps, B = 8 and 64; Burgers 3-D 128x64x64, lengths
+# 2, WENO5-JS, nu = 1e-5, fixed dt, 30 steps, B = 8; member i a Gaussian
+# of width 0.1 + 0.002 i
+ENS_N = (256, 128, 64)
+ENS_LENGTHS = (6.4, 3.2, 1.6)
+ENS_ITERS = 60
+ENS_MEMBERS = (8, 64)
+ENSB_N = (128, 64, 64)
+ENSB_ITERS = 30
+ENSB_MEMBERS = 8
+ADR_ENS_MEMBERS = 4
+ADR_ENS_ITERS = 20
+K_SWEEP_ITERS = 10
+
+
+def width_sweep(B: int) -> list:
+    return [{"ic_params": (("width", 0.1 + 0.002 * i),)} for i in range(B)]
+
+
+def ens_cfg(family: str, impl: str):
+    if family == "diffusion":
+        return DiffusionConfig(grid=Grid.make(*ENS_N, lengths=ENS_LENGTHS),
+                               diffusivity=1.0, ic="gaussian", impl=impl)
+    return BurgersConfig(grid=Grid.make(*ENSB_N, lengths=2.0), nu=1e-5,
+                         adaptive_dt=False, impl=impl)
+
+
+def k2b_twin_phase() -> float:
+    """Phase 23: K2b against its twin, 0 ulp; returns the largest
+    absolute difference."""
+    print("phase 23: K2b against its twin")
+    err, B = 0.0, 4
+    rng = np.random.default_rng(23)
+    shape = (16, 16, 24)
+    sp = (0.05, 0.07, 0.09)
+    kw = dict(taps=fd.stage_taps(sp, (1.0, 0.5, 2.0)), band=2, bc_value=0.25)
+    dt = pcfl.diffusive_dt(2.0, sp)
+    S0 = torch.full((B, *(n + 4 for n in shape)), 0.25, device="cuda")
+    S0[:, 2:-2, 2:-2, 2:-2] = torch.from_numpy(
+        rng.random((B, *shape), dtype=np.float32)).cuda()
+    bshape = (8, 8, 24)
+    params = fb.stage_params(pflux.burgers(), "js", (2 / 7, 2 / 7, 2 / 23),
+                             1e-5)
+    U0 = torch.from_numpy(rng.uniform(-0.1, 1.0, (B, *bshape)).astype(
+        np.float32)).cuda()
+    for steps in (2, 3):
+        want = fsr.ping_pong_members(lambda s, d: fds.step_reference(
+            s, d, dt, **kw), S0.clone(), S0.clone(), steps)
+        got = fsr.slab_run_diffusion_batched(S0.clone(), S0.clone(), steps,
+                                             dt, **kw)
+        torch.cuda.synchronize()
+        err = max(err, exact(f"K2b diffusion, B={B}, {steps} steps at "
+                             f"{shape}", got, want))
+        want = fsr.ping_pong_members(lambda s, d: fsr.burgers_step_reference(
+            s, d, 0.4 * 2 / 23, params=params), U0.clone(), U0.clone(), steps)
+        got = fsr.slab_run_burgers_batched(U0.clone(), torch.empty_like(U0),
+                                           steps, 0.4 * 2 / 23,
+                                           params=params)
+        torch.cuda.synchronize()
+        err = max(err, exact(f"K2b Burgers, B={B}, {steps} steps at "
+                             f"{bshape}", got, want))
+    return err
+
+
+def peak_gb(fn) -> float:
+    """``fn()`` and the peak of allocated device memory while it ran (GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def k2b_main_phase(family: str, B: int, iters: int, twin_err: float,
+                   card: str) -> dict:
+    """Phase 24, one family, at the main size: K2b against its twin on
+    the same initial states to 0 ulp (the twin timed once, as it runs),
+    every member of K2b equal to the single K2/K6 run of that member to
+    the bit; K2b's time a run, its bound, MLUPS*members, peak memory.
+    Returns the kernel's entry."""
+    es = EnsembleSolver(DiffusionSolver if family == "diffusion"
+                        else BurgersSolver, ens_cfg(family, "pallas_slab"),
+                        width_sweep(B))
+    st = es.solver._fused_stepper()
+    if st.engaged_label != "fused-whole-run-slab":
+        raise AssertionError(f"{family}: the slab rung did not engage")
+    est = es.initial_state()
+    cells = es.solver.grid.num_cells
+    shape = es.solver.grid.shape
+    S0 = st.embed_batched(est.u)
+    batched = (fsr.slab_run_diffusion_batched if family == "diffusion"
+               else fsr.slab_run_burgers_batched)
+    run = lambda A, C: st._whole_run_batched(A, C, iters)  # noqa: E731
+    if family == "diffusion":
+        step = lambda s, d: fds.step_reference(  # noqa: E731
+            s, d, st.dt, taps=st.taps, band=st.band, bc_value=st.bc_value)
+        ops = 100 * cells  # K1's 32 + 34 + 34 a cell (check_k1)
+    else:
+        step = lambda s, d: fsr.burgers_step_reference(  # noqa: E731
+            s, d, st.dt, params=st.params)
+        ops = k6_step_ops(shape, True, "js")
+    got = run(S0.clone(), S0.clone())
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(fsr.ping_pong_members(
+        step, S0.clone(), S0.clone(), iters)), 1)[0]
+    err = exact(f"K2b {family}, B={B}, {iters} steps at {shape}", got,
+                want.pop())
+    for i in range(B):
+        single = st._whole_run(S0[i].clone(), S0[i].clone(), iters)
+        if ulps(got[i], single) != 0:
+            raise AssertionError(f"K2b member {i} differs from its single "
+                                 f"run")
+    print(f"  K2b {family}: all {B} members equal their single "
+          f"{'K2' if family == 'diffusion' else 'K6'} runs to the bit "
+          f"({iters} steps at {shape})")
+    del got
+    A, C = S0.clone(), S0.clone()
+    blocks = []
+    if family == "diffusion":
+        fsr.slab_run_diffusion_batched(A, C, 1, st.dt, taps=st.taps,
+                                       band=st.band, bc_value=st.bc_value,
+                                       grid_blocks=blocks)
+    else:
+        fsr.slab_run_burgers_batched(A, C, 1, st.dt, params=st.params,
+                                     grid_blocks=blocks)
+    reps = cuda_ms(lambda: run(A, C), 4)[1:]
+    ms = statistics.median(reps)
+    del A, C, S0
+    torch.cuda.empty_cache()
+    bound, by = run_bound(4 * cells * B, ops * B * iters)
+    mlups = cells * B * iters * 3 / (ms * 1e-3) / 1e6
+    peak = peak_gb(lambda: es.run(est, iters, donate=False))
+    print(f"  K2b {family} alone, B={B}, run({iters}): median {ms:.3f} ms of "
+          f"{[round(r, 3) for r in reps]} on {blocks[0]} blocks of 256; "
+          f"{ms * 1e9 / (cells * B * iters):.1f} ps a member-cell-step; "
+          f"{mlups:.0f} MLUPS*members; bound {bound:.3f} ms ({by}); twin "
+          f"{plain_ms:.1f} ms; peak memory of the ensemble run "
+          f"{peak:.3f} GB [{card}]")
+    name = ("slab_run_diffusion_batched" if family == "diffusion"
+            else "slab_run_burgers_batched")
+    source = ("fused_step_diffusion.cu" if family == "diffusion"
+              else "slab_run_burgers.cu")
+    return {
+        "name": name, "id": "K2b", "route": "cuda",
+        "source": f"multigpu_advectiondiffusion_tpu_torch/csrc/{source}",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_slab_run.py:933",
+        "launches": None,  # set from the main path's run (phase 25/26)
+        # the largest over phase 23's small runs and this main-size run
+        "max_abs_err": max(twin_err, err), "max_ulps": 0,
+        # per launch: one ensemble run of B members
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes a batched fused run",
+        "members": B, "steps": iters, "grid_blocks": blocks[0],
+        "ps_per_member_cell_step": ms * 1e9 / (cells * B * iters),
+        "mlups_members": mlups, "peak_gb": peak,
+        "counter": batched,
+    }
+
+
+def timed(fn):
+    """``fn()`` and its time (ms) from one CUDA event pair."""
+    out = []
+    ms = cuda_ms(lambda: out.append(fn()), 1)[0]
+    return out[0], ms
+
+
+def ensemble_path(family: str, impl: str, B: int, iters: int, expect: dict,
+                  stepper: str, card: str, profile: str | None = None,
+                  reps: int = 3) -> dict:
+    """One ensemble main path: ``EnsembleSolver.run`` with every count set
+    to 0 just before and read just after (``expect`` the launches), each
+    member against its looped single run to the bit, MLUPS*members of
+    the batched run and of the looped single runs, both warm (every
+    solver has run one step first) and each the median of ``reps`` runs
+    (or, when ``reps`` is 0, the counted run and the check's loop, each
+    timed once), and, when ``profile`` names the kernel, the idle share
+    of a profiled run ("not measured" unless a capture saw every
+    launch)."""
+    es = EnsembleSolver(DiffusionSolver if family == "diffusion"
+                        else BurgersSolver, ens_cfg(family, impl),
+                        width_sweep(B))
+    est = es.initial_state()
+    solvers = [es.member_solver(i) for i in range(B)]
+    loop = lambda: [s.run(est.member(i), iters)  # noqa: E731
+                    for i, s in enumerate(solvers)]
+    # the first use of the batch and of every member's solver, untimed
+    es.run(est, 1)
+    for i, s in enumerate(solvers):
+        s.run(est.member(i), 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    out, first_ms = timed(lambda: es.run(est, iters))
+    torch.cuda.synchronize()
+    got = counts()
+    path = es.engaged_path()
+    print(f"  {family} {impl} B={B}: engaged {path['stepper']}; launches "
+          f"in run({iters}): { {k: v for k, v in got.items() if v} }")
+    if path["stepper"] != stepper:
+        raise AssertionError(f"{impl}: engaged {path['stepper']}, expected "
+                             f"{stepper}")
+    if got != {k: expect.get(k, 0) for k in COUNTERS}:
+        raise AssertionError(f"{impl}: expected launches {expect}, {got}")
+    refs, first_loop_ms = timed(loop)
+    for i, ref in enumerate(refs):
+        if ulps(out.u[i], ref.u) != 0 or out.t[i] != ref.t:
+            raise AssertionError(f"{impl}: member {i} differs from its "
+                                 f"looped single run")
+    if not bool(torch.isfinite(out.u).all()):
+        raise AssertionError(f"{impl}: non-finite members")
+    es.check_health(out)
+    del out, refs
+    cells = es.solver.grid.num_cells
+    if reps:
+        times = cuda_ms(lambda: es.run(est, iters), reps)
+        loop_times = cuda_ms(loop, reps)
+    else:
+        times, loop_times = [first_ms], [first_loop_ms]
+    ms, loop_ms = statistics.median(times), statistics.median(loop_times)
+    rate = cells * B * iters * 3 / (ms * 1e-3) / 1e6
+    loop_rate = cells * B * iters * 3 / (loop_ms * 1e-3) / 1e6
+    res = {"ms": ms, "mlups_members": rate, "looped_ms": loop_ms,
+           "looped_mlups_members": loop_rate, "stepper": path["stepper"]}
+    line = (f"  {family} {impl} B={B}: run({iters}) median {ms:.3f} ms of "
+            f"{[round(r, 3) for r in times]}, {ms / iters:.4f} ms/step, "
+            f"{rate:.0f} MLUPS*members; looped single runs median "
+            f"{loop_ms:.3f} ms of {[round(r, 3) for r in loop_times]}, "
+            f"{loop_rate:.0f} MLUPS*members")
+    if profile:
+        n = sum(expect.values())
+        complete = lambda r: r is not None and r["launches"] == n  # noqa
+        prof = retake(lambda: run_profile(lambda: es.run(est, iters),
+                                          profile), complete, tries=3)
+        if prof is None:
+            raise AssertionError(f"{impl}: the profiler saw no device work")
+        if complete(prof):
+            idle = 1.0 - prof["busy_ms"] / prof["span_ms"]
+            line += (f"; profiled: span {prof['span_ms']:.3f} ms, busy "
+                     f"{prof['busy_ms']:.3f} ms, idle share {idle:.4f}, "
+                     f"{prof['launches']} {profile} launches of "
+                     f"{prof['kernel_ms']:.4f} ms")
+        else:
+            idle = None
+            line += (f"; idle share not measured: the last capture saw "
+                     f"{prof['launches']} of {n} {profile} launches")
+        res.update(idle=idle, profile=prof)
+    print(line + f" [{card}]")
+    del est, es
+    torch.cuda.empty_cache()
+    return res
+
+
+def operand_phase(card: str) -> None:
+    """Phase 27: member-varying operands and divergence on the card."""
+    print("phase 27: member-varying operands on the card")
+    B = 8
+    cfg = DiffusionConfig(grid=Grid.make(*ENS_N, lengths=ENS_LENGTHS),
+                          impl="pallas")
+    members = [{"diffusivity": k} for k in np.linspace(0.5, 2.0, B)]
+    es = EnsembleSolver(DiffusionSolver, cfg, members)
+    est = es.initial_state()
+    reset_counts()
+    out = es.run(est, K_SWEEP_ITERS)
+    torch.cuda.synchronize()
+    path = es.engaged_path()
+    print(f"  K sweep 0.5:2, B={B}: engaged {path}; launches "
+          f"{ {k: v for k, v in counts().items() if v} }")
+    if path["stepper"] != "ensemble-vmap[generic-xla]" or path[
+            "operands"] != ["diffusivity"]:
+        raise AssertionError(f"the K sweep did not ride the generic rung")
+    t0 = float(est.t[0])
+    te = [t0 + 0.001 * (1 + i / (B - 1)) for i in range(B)]
+    adv = es.advance_to(est, te)
+    for i in range(B):
+        ref = DiffusionSolver(dataclasses.replace(
+            es.member_cfg(i), impl="xla"))
+        r = ref.run(est.member(i), K_SWEEP_ITERS)
+        if abs(float(out.t[i]) - float(r.t)) > 1e-6 * float(r.t):
+            raise AssertionError(f"member {i}: t {out.t[i]} vs {r.t}")
+        assert_matches(f"K member {i} run({K_SWEEP_ITERS})", out.u[i], r.u)
+        loop = es.member_solver(i).advance_to(est.member(i), te[i])
+        if int(adv.it[i]) != loop.it:
+            raise AssertionError(f"member {i}: advance_to took "
+                                 f"{adv.it[i]} steps, the looped run "
+                                 f"{loop.it}")
+        if abs(float(adv.t[i]) - te[i]) > 1e-6 * te[i]:
+            raise AssertionError(f"member {i} did not land on t_end")
+    print(f"  advance_to per-member t_end: steps {adv.it.tolist()} equal "
+          f"the looped runs'; t lands on t_end")
+    del out, adv, est, es
+    torch.cuda.empty_cache()
+
+    grid = Grid.make(*ADR_N, lengths=ADR_LENGTHS)
+    acfg = registry.get("adr").bench_build(grid, "float32", "pallas", None)
+    members = [{"diffusivity": k, "reaction_rate": r}
+               for k, r in ((0.5, 0.0), (0.8, 0.25), (1.2, 0.5),
+                            (2.0, 1.0))][:ADR_ENS_MEMBERS]
+    es = EnsembleSolver(ADRSolver, acfg, members)
+    est = es.initial_state()
+    t0 = time.perf_counter()
+    out = es.run(est, ADR_ENS_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"  ADR K0/lambda sweep, B={ADR_ENS_MEMBERS} at {grid.shape}: "
+          f"engaged {es.engaged_path()['stepper']}, operands "
+          f"{es.engaged_path()['operands']}; run({ADR_ENS_ITERS}) "
+          f"{secs:.3f} s wall")
+    for i in range(ADR_ENS_MEMBERS):
+        ref = ADRSolver(dataclasses.replace(es.member_cfg(i), impl="xla"))
+        r = ref.run(est.member(i), ADR_ENS_ITERS)
+        if abs(float(out.t[i]) - float(r.t)) > 1e-6 * float(r.t):
+            raise AssertionError(f"ADR member {i}: t {out.t[i]} vs {r.t}")
+        assert_matches(f"ADR member {i} run({ADR_ENS_ITERS})", out.u[i], r.u)
+    rows = es.member_summaries(out)
+    if not all(r["min"] >= -1e-6 and math.isfinite(r["max"]) for r in rows):
+        raise AssertionError(f"ADR members left positivity: {rows}")
+    del out, est, es
+    torch.cuda.empty_cache()
+
+    es = EnsembleSolver(DiffusionSolver, ens_cfg("diffusion", "pallas_slab"),
+                        width_sweep(4))
+    est = es.initial_state()
+    u = est.u.clone()
+    u[2, 32, 64, 128] = float("nan")
+    out = es.run(EnsembleState(u=u, t=est.t, it=est.it), 5)
+    try:
+        es.check_health(out)
+    except EnsembleMemberDivergedError as exc:
+        if exc.members != [2]:
+            raise AssertionError(f"named members {exc.members}, not [2]")
+        print(f"  a NaN seeded in member 2: {exc}")
+    else:
+        raise AssertionError("the NaN member was not named")
+    for i in (0, 1, 3):
+        ref = es.member_solver(i).run(est.member(i), 5)
+        if ulps(out.u[i], ref.u) != 0:
+            raise AssertionError(f"member {i} was poisoned")
+    del out, est, es, u
+    torch.cuda.empty_cache()
+
+
+def ensemble_phases(card: str) -> list[dict]:
+    """Phases 23-27; returns K2b's two entries."""
+    err = k2b_twin_phase()
+    print("phase 24: K2b against the single K2/K6 run of every member")
+    kd = k2b_main_phase("diffusion", max(ENS_MEMBERS), ENS_ITERS, err, card)
+    torch.cuda.empty_cache()
+    kb = k2b_main_phase("burgers", ENSB_MEMBERS, ENSB_ITERS, err, card)
+    torch.cuda.empty_cache()
+    print(f"phase 25: the diffusion ensemble, {ENS_N}, run({ENS_ITERS})")
+    paths = {}
+    for B in ENS_MEMBERS:
+        n = ENS_ITERS
+        paths["fold", B] = ensemble_path(
+            "diffusion", "pallas_slab", B, n, {"K2b": 1},
+            "ensemble-fold[fused-whole-run-slab]", card)
+        paths["vmap", B] = ensemble_path(
+            "diffusion", "pallas", B, n, {"K1": 3 * B * n},
+            "ensemble-vmap[fused-stage]", card,
+            profile="stage_kernel" if B == max(ENS_MEMBERS) else None)
+        paths["generic", B] = ensemble_path(
+            "diffusion", "xla", B, n, {}, "ensemble-vmap[generic-xla]", card,
+            reps=0)
+    print(f"phase 26: the Burgers ensemble, {ENSB_N}, fixed dt, "
+          f"run({ENSB_ITERS}), B={ENSB_MEMBERS}")
+    bfold = ensemble_path("burgers", "pallas_slab", ENSB_MEMBERS, ENSB_ITERS,
+                          {"K2b-burgers": 1},
+                          "ensemble-fold[fused-whole-run-slab]", card)
+    bvmap = ensemble_path("burgers", "pallas", ENSB_MEMBERS, ENSB_ITERS,
+                          {"K5": 3 * ENSB_MEMBERS * ENSB_ITERS},
+                          "ensemble-vmap[fused-stage]", card)
+    operand_phase(card)
+    B = max(ENS_MEMBERS)
+    kd.update(launches=1, ensemble_ms={
+        f"{rung}_b{b}": paths[rung, b]["ms"] for rung, b in paths},
+        ensemble_mlups_members={
+            f"{rung}_b{b}": paths[rung, b]["mlups_members"]
+            for rung, b in paths},
+        looped_mlups_members={
+            f"{rung}_b{b}": paths[rung, b]["looped_mlups_members"]
+            for rung, b in paths},
+        vmap_idle_share=paths["vmap", B].get("idle"))
+    kb.update(launches=1, ensemble_ms={"fold_b8": bfold["ms"],
+                                       "vmap_b8": bvmap["ms"]},
+              ensemble_mlups_members={
+                  "fold_b8": bfold["mlups_members"],
+                  "vmap_b8": bvmap["mlups_members"]},
+              looped_mlups_members={
+                  "fold_b8": bfold["looped_mlups_members"],
+                  "vmap_b8": bvmap["looped_mlups_members"]})
+    for entry in (kd, kb):
+        del entry["counter"]
+    return [kd, kb]
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2541,6 +2973,9 @@ def main() -> int:
     k9 = adr_main_phase(card, k9_phase(card))
     torch.cuda.empty_cache()
     adr2d_phase(card)
+    torch.cuda.empty_cache()
+    print("phases 23-27: the batched ensemble engine (K2b)")
+    k2b = ensemble_phases(card)
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -2585,7 +3020,7 @@ def main() -> int:
         "device_idle_share": idle,
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
-    }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9]
+    }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

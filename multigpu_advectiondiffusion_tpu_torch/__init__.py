@@ -23,7 +23,14 @@ Hopper (ids as in PERF.md's kernel table):
   ``csrc/laplacian_o4.cu``) and the WENO5/7 flux divergence along one
   axis (K12/K12b, ``csrc/weno_axis.cu``);
 * 3-D advection–diffusion–reaction: one launch per RK stage (K9,
-  ``csrc/fused_adr_stage.cu``).
+  ``csrc/fused_adr_stage.cu``);
+* the batched ensemble engine (:class:`EnsembleSolver`,
+  ``models/ensemble.py``): B members per dispatch, uniform physics
+  folded into one cooperative launch of the slab kernel with a member
+  axis (K2b, ``csrc/fused_step_diffusion.cu`` and
+  ``csrc/slab_run_burgers.cu``) or the stage kernel launched per member,
+  member-varying scalars on the generic loop, differentiable by
+  ``torch.autograd`` (``examples/inverse_diffusivity.py``).
 
 The families register in ``models/registry.py``; the CLI generates its
 verbs from that registry.
@@ -45,7 +52,16 @@ from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
     DiffusionConfig,
     DiffusionSolver,
 )
-from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
+from multigpu_advectiondiffusion_tpu_torch.models.ensemble import (
+    EnsembleSolver,
+)
+from multigpu_advectiondiffusion_tpu_torch.models.state import (
+    EnsembleState,
+    SolverState,
+)
+from multigpu_advectiondiffusion_tpu_torch.resilience.errors import (
+    EnsembleMemberDivergedError,
+)
 
 __all__ = [
     "ADRConfig",
@@ -55,6 +71,9 @@ __all__ = [
     "BurgersSolver",
     "DiffusionConfig",
     "DiffusionSolver",
+    "EnsembleMemberDivergedError",
+    "EnsembleSolver",
+    "EnsembleState",
     "Grid",
     "SolverState",
 ]

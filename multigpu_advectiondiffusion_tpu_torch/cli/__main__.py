@@ -20,9 +20,16 @@ registry (``models/registry.py``).
     python -m multigpu_advectiondiffusion_tpu_torch.cli adr3d \
         --n 508 204 160 --lengths 12.7 5.1 4 --kappa-variation 0.2 \
         --reaction 0.25 --iters 404 --impl pallas
+    python -m multigpu_advectiondiffusion_tpu_torch.cli diffusion3d \
+        --n 256 128 64 --lengths 6.4 3.2 1.6 --iters 60 --impl pallas_slab \
+        --ic gaussian --ensemble 64 --sweep ic.width=0.1:0.226 --save out/
 
-The flags are the JAX CLI's flags of the same names. The run goes to
-the GPU unless ``--device cpu`` is given. The summary names the kernel
+The flags are the JAX CLI's flags of the same names. ``--ensemble B``
+with ``--sweep NAME=a:b`` (or ``NAME=v1,...``, repeatable; NAME a
+family's sweep alias such as ``K``, a member-varying scalar, or
+``ic.PARAM``) runs B members in one batched dispatch
+(``cli/drivers.py``) and prints and saves one summary row per member.
+The run goes to the GPU unless ``--device cpu`` is given. The summary names the kernel
 path that ran, as the JAX CLI's summary does, and the launches of each
 hand-written kernel in the run. ``--save DIR`` writes
 ``initial.bin`` and ``result.bin`` in the reference's float32 layout.
@@ -37,6 +44,9 @@ import time
 
 import torch
 
+from multigpu_advectiondiffusion_tpu_torch.cli.drivers import (
+    run_ensemble_solver,
+)
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
 from multigpu_advectiondiffusion_tpu_torch.models import registry
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS
@@ -54,6 +64,9 @@ from multigpu_advectiondiffusion_tpu_torch.timestepping.integrators import (
     STAGES,
 )
 from multigpu_advectiondiffusion_tpu_torch.utils import io, metrics
+from multigpu_advectiondiffusion_tpu_torch.utils.ic import (
+    REGISTRY as ic_registry,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,10 +119,32 @@ def _common(p, ndim: int) -> None:
                         "rung declines runs the per-axis kernels")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
+    p.add_argument("--ic", default=None, choices=sorted(ic_registry),
+                   help="initial condition (default: the family's)")
     p.add_argument("--save", default=None, metavar="DIR",
                    help="write initial.bin and result.bin here")
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (cuda)")
+    p.add_argument("--ensemble", type=int, default=0, metavar="B",
+                   help="batched ensemble engine: advance B independent "
+                        "members (varying ICs and/or swept scalars, see "
+                        "--sweep) in one batched dispatch instead of B "
+                        "runs; uniform physics folds B into one launch of "
+                        "the slab kernel (K2b) where the slab rung engages "
+                        "and launches the stage kernel once per member on "
+                        "the per-stage rung (0 = off)")
+    p.add_argument("--sweep", action="append", default=[],
+                   metavar="NAME=a:b",
+                   help="member-varying parameter for --ensemble B: "
+                        "NAME=a:b sweeps linearly across the B members, "
+                        "NAME=v1,v2,... lists one value per member. NAME "
+                        "is a member-varying scalar (diffusion: K/"
+                        "diffusivity; burgers: cfl; adr: K, lambda) or an "
+                        "IC parameter as ic.PARAM (e.g. ic.width); "
+                        "repeatable")
+    p.add_argument("--mesh", default=None,
+                   help="device mesh (the JAX CLI's flag): not ported yet; "
+                        "refused, with --ensemble in the JAX CLI's words")
 
 
 def _sync(device: torch.device) -> None:
@@ -128,6 +163,15 @@ def run_model(args) -> int:
     and drive its solver."""
     spec = args.spec
     cfg = spec.cli_build(args, _grid(args), args.ndim)
+    if args.ensemble and args.ensemble > 1:
+        # batched ensemble engine; sweep aliases (e.g. K -> diffusivity)
+        # come from the family's registration spec
+        run_ensemble_solver(spec.solver_cls, cfg, args.command, args,
+                            aliases=dict(spec.sweep_aliases),
+                            counters=_COUNTERS)
+        return 0
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet")
     return _drive(args.command, spec.solver_cls(cfg, device=args.device),
                   args, check_error=spec.check_error and args.check_error)
 
@@ -141,6 +185,9 @@ _COUNTERS = {
     "K10 fused_step_diffusion": fused_diffusion_step.fused_step,
     "K2 slab_run_diffusion": fused_slab_run.slab_run_diffusion,
     "K6 slab_run_burgers": fused_slab_run.slab_run_burgers,
+    "K2b slab_run_diffusion_batched":
+        fused_slab_run.slab_run_diffusion_batched,
+    "K2b slab_run_burgers_batched": fused_slab_run.slab_run_burgers_batched,
     "K11 laplacian_o4_3d": laplacian.laplacian_o4_3d,
     "K11b laplacian_o4_2d": laplacian.laplacian_o4_2d,
     "K12 weno_axis_3d": weno.flux_divergence_3d,

@@ -3,12 +3,15 @@
 //
 //   K10  step_kernel      one launch a step, S -> out (the host swaps);
 //   K2   slab_run_kernel  one cooperative launch a run, the buffers
-//                         ping-ponging and a grid.sync() after each step.
+//                         ping-ponging and a grid.sync() after each step;
+//   K2b  the same kernel with a member axis: B independent members' runs
+//        in one cooperative launch, one grid.sync() a step for the batch.
 //
 // Replaces the TPU kernels multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_diffusion_step.py::_step_kernel (:94, launched :214) and
-// fused_slab_run.py::_whole_run_kernel (:188, launched :889) with the
-// diffusion step_fn (:1330) over fused_diffusion_step._stage_rows (:56).
+// fused_slab_run.py::_whole_run_kernel (:188, launched :889, and with
+// batched=True at :933 for run_batched) with the diffusion step_fn
+// (:1330) over fused_diffusion_step._stage_rows (:56).
 // It computes the same function, not the same blocks:
 //
 //   t1  = s(S)        T1 = s(S)
@@ -42,7 +45,10 @@
 //
 // Layout: K1's padded (nz+4, ny+4, nx+4) contiguous float32, at most
 // 2^31 - 1 padded cells (32-bit indices). The kernels read and write the
-// interior only; positions outside the domain read as bc_value.
+// interior only; positions outside the domain read as bc_value. K2b's
+// buffers are B such layouts back to back; a member's offset is 64-bit,
+// and members share no cell, so member m of K2b is K2's run of member m
+// to the bit (the TPU kernel's member_halo = 0).
 //
 // Aliasing and visibility: a step reads S and writes out, never the same
 // buffer (other tiles still read the cells a tile writes). K2's later
@@ -224,15 +230,24 @@ step_kernel(const float* S, float* out, Args p) {
   step_tile(S, out, p, blockIdx.x, sm);
 }
 
+// K2 (members == 1) and K2b: every member's step k in one pass over the
+// flattened (member, tile, z-chunk) work list, then one grid.sync() for
+// the whole batch. Member m's buffers start m * member_stride floats into
+// S0 and S1 (64-bit); inside a member step_tile's 32-bit indices hold.
 __global__ void __launch_bounds__(THREADS)
-slab_run_kernel(float* S0, float* S1, Args p, int n_iters) {
+slab_run_kernel(float* S0, float* S1, Args p, int n_iters, int members,
+                long long member_stride) {
   extern __shared__ float sm[];
   cg::grid_group grid = cg::this_grid();
+  const int jobs = p.jobs * members;
   for (int k = 0; k < n_iters; ++k) {
     const float* src = (k & 1) ? S1 : S0;
     float* dst = (k & 1) ? S0 : S1;
-    for (int job = blockIdx.x; job < p.jobs; job += gridDim.x)
-      step_tile(src, dst, p, job, sm);
+    for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+      const int m = job / p.jobs;
+      const long long off = m * member_stride;
+      step_tile(src + off, dst + off, p, job - m * p.jobs, sm);
+    }
     grid.sync();
   }
 }
@@ -279,20 +294,20 @@ extern "C" int fused_step_diffusion(const float* S, float* out, int nz, int ny,
   return (int)cudaGetLastError();
 }
 
-// K2: n_iters fused steps in one cooperative launch on `stream`: step k
-// reads S0 (k even) or S1 (k odd) and writes the other, so the result is
-// in S0 when n_iters is even and in S1 when it is odd. Both buffers
-// have the padded layout. `grid_blocks`, when not null, receives the
-// grid's block count. Returns the first CUDA error (0 on success); does
-// not synchronise.
-extern "C" int slab_run_diffusion(float* S0, float* S1, int nz, int ny,
-                                  int nx, const float* taps, float dt,
-                                  int band, float bc_value, int zchunk,
-                                  int n_iters, int* grid_blocks,
-                                  void* stream) {
+namespace {
+
+// The cooperative launch of K2/K2b: n_iters steps of `members` members
+// whose padded buffers lie back to back in S0 and S1.
+cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
+                            int nx, const float* taps, float dt, int band,
+                            float bc_value, int zchunk, int n_iters,
+                            int* grid_blocks, cudaStream_t stream) {
   Args p;
   cudaError_t e = make_args(p, nz, ny, nx, taps, dt, band, bc_value, zchunk);
-  if (e == cudaSuccess && n_iters < 0) e = cudaErrorInvalidValue;
+  if (e == cudaSuccess &&
+      (n_iters < 0 || members < 1 ||
+       (long long)p.jobs * members > 0x7fffffffLL))
+    e = cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute((const void*)slab_run_kernel,
@@ -306,16 +321,39 @@ extern "C" int slab_run_diffusion(float* S0, float* S1, int nz, int ny,
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, slab_run_kernel, THREADS, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
+  if (e != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  const long long jobs = (long long)p.jobs * members;
   const long long resident = (long long)per_sm * sms;
-  const int blocks = (int)(p.jobs < resident ? p.jobs : resident);
-  if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int blocks = (int)(jobs < resident ? jobs : resident);
+  if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
-  void* args[] = {&S0, &S1, &p, &n_iters};
+  long long member_stride =
+      (long long)(nz + 2 * R) * (ny + 2 * R) * (nx + 2 * R);
+  void* args[] = {&S0, &S1, &p, &n_iters, &members, &member_stride};
   e = cudaLaunchCooperativeKernel((const void*)slab_run_kernel, blocks,
-                                  THREADS, args, SMEM_BYTES,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+                                  THREADS, args, SMEM_BYTES, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K2 (members == 1) and K2b: n_iters fused steps of `members` independent
+// members in ONE cooperative launch on `stream`. S0 and S1 each hold the
+// members' padded buffers back to back, (members, nz+4, ny+4, nx+4); step
+// k reads S0 (k even) or S1 (k odd) and writes the other, so every
+// member's result is in S0 when n_iters is even and in S1 when it is odd.
+// Member m computes exactly K2's run of member m alone: the same
+// step_tile on its own buffers, no shared cell. `grid_blocks`, when not
+// null, receives the grid's block count. Returns the first CUDA error (0
+// on success); does not synchronise.
+extern "C" int slab_run_diffusion(float* S0, float* S1, int members, int nz,
+                                  int ny, int nx, const float* taps, float dt,
+                                  int band, float bc_value, int zchunk,
+                                  int n_iters, int* grid_blocks,
+                                  void* stream) {
+  return (int)launch_slab_run(S0, S1, members, nz, ny, nx, taps, dt, band,
+                              bc_value, zchunk, n_iters, grid_blocks,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,13 @@
 // N fixed-dt SSP-RK3 steps of 3-D Burgers / scalar conservation law with
 // WENO5 in ONE cooperative kernel launch, all three stages of a step
-// fused in one pass over the state (K6).
+// fused in one pass over the state (K6), and the same for B independent
+// members in one launch (K2b); one entry, slab_run_burgers, serves both.
 //
 // Replaces the TPU kernel multigpu_advectiondiffusion_tpu/ops/pallas/
-// fused_slab_run.py::_whole_run_kernel (:188, launched :889) with
-// SlabRunBurgersStepper's step_fn (:1540-1645), for WENO5-JS/Z on one
-// device. It computes the same function, not the same blocks:
+// fused_slab_run.py::_whole_run_kernel (:188, launched :889, and with
+// batched=True at :933 for run_batched) with SlabRunBurgersStepper's
+// step_fn (:1540-1645), for WENO5-JS/Z on one device. It computes the
+// same function, not the same blocks:
 //
 //   for each of n_iters steps (grid.sync() after each):
 //     t1  = fill(s(fill(S)))
@@ -44,7 +46,9 @@
 // 18 computed planes at its two ends.
 //
 // Layout: the state is unpadded (nz, ny, nx) contiguous float32, K5's, at
-// most 2^31 - 1 cells (32-bit indices).
+// most 2^31 - 1 cells (32-bit indices). K2b's buffers are B such states
+// back to back; a member's offset is 64-bit, and members share no cell,
+// so member m of K2b is K6's run of member m to the bit.
 //
 // Aliasing and visibility: step k reads S0 or S1 and writes the other
 // (other tiles still read the cells a tile writes); later steps read what
@@ -228,22 +232,31 @@ __device__ void step_tile(const float* S, float* out, const Args& p, int job,
   }
 }
 
+// K6 (members == 1) and K2b: every member's step k in one pass over the
+// flattened (member, tile, z-chunk) work list, then one grid.sync() for
+// the whole batch. Member m's state starts m * member_stride floats into
+// S0 and S1 (64-bit); inside a member step_tile's 32-bit indices hold.
 template <int FLUX, bool WZ>
 __global__ void __launch_bounds__(THREADS)
-slab_run_kernel(float* S0, float* S1, Args p, int n_iters) {
+slab_run_kernel(float* S0, float* S1, Args p, int n_iters, int members,
+                long long member_stride) {
   extern __shared__ float sm[];
   cg::grid_group grid = cg::this_grid();
+  const int jobs = p.jobs * members;
   for (int k = 0; k < n_iters; ++k) {
     const float* src = (k & 1) ? S1 : S0;
     float* dst = (k & 1) ? S0 : S1;
-    for (int job = blockIdx.x; job < p.jobs; job += gridDim.x)
-      step_tile<FLUX, WZ>(src, dst, p, job, sm);
+    for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+      const int m = job / p.jobs;
+      const long long off = m * member_stride;
+      step_tile<FLUX, WZ>(src + off, dst + off, p, job - m * p.jobs, sm);
+    }
     grid.sync();
   }
 }
 
 template <int FLUX, bool WZ>
-cudaError_t launch(float* S0, float* S1, Args& p, int n_iters,
+cudaError_t launch(float* S0, float* S1, Args& p, int n_iters, int members,
                    int* grid_blocks, cudaStream_t s) {
   auto* kernel = slab_run_kernel<FLUX, WZ>;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
@@ -260,33 +273,27 @@ cudaError_t launch(float* S0, float* S1, Args& p, int n_iters,
                                                       THREADS, SMEM_BYTES);
   if (e != cudaSuccess) return e;
   if (!coop) return cudaErrorNotSupported;
+  const long long jobs = (long long)p.jobs * members;
   const long long resident = (long long)per_sm * sms;
-  const int blocks = (int)(p.jobs < resident ? p.jobs : resident);
+  const int blocks = (int)(jobs < resident ? jobs : resident);
   if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
-  void* args[] = {&S0, &S1, &p, &n_iters};
+  long long member_stride = (long long)p.nz * p.ny * p.nx;
+  void* args[] = {&S0, &S1, &p, &n_iters, &members, &member_stride};
   return cudaLaunchCooperativeKernel((const void*)kernel, blocks, THREADS,
                                      args, SMEM_BYTES, s);
 }
 
-}  // namespace
-
-// Run n_iters fixed-dt steps in one cooperative launch on `stream`: step
-// k reads S0 (k even) or S1 (k odd) and writes the other, so the result
-// is in S0 when n_iters is even and in S1 when it is odd. `flux` is 0
-// (Burgers), 1 (linear, speed `c`) or 2 (Buckley-Leverett); `weno_z`
-// selects the WENO5-Z weights. `inv_dx` points to 3 host floats (z, y,
-// x) and `lap` to 15 host floats, or is null for an inviscid run.
-// `grid_blocks`, when not null, receives the grid's block count. Returns
-// the first CUDA error (0 on success); does not synchronise.
-extern "C" int slab_run_burgers(float* S0, float* S1, int nz, int ny, int nx,
-                                int flux, float c, int weno_z,
-                                const float* inv_dx, const float* lap,
-                                float dt, int zchunk, int n_iters,
-                                int* grid_blocks, void* stream) {
+// The cooperative launch of K6/K2b: n_iters steps of `members` members
+// whose states lie back to back in S0 and S1.
+cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
+                            int nx, int flux, float c, int weno_z,
+                            const float* inv_dx, const float* lap, float dt,
+                            int zchunk, int n_iters, int* grid_blocks,
+                            cudaStream_t s) {
   if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || n_iters < 0 || flux < 0 ||
-      flux > 2 || (long long)nz * ny * nx > MAX_CELLS)
-    return (int)cudaErrorInvalidValue;
+      flux > 2 || members < 1 || (long long)nz * ny * nx > MAX_CELLS)
+    return cudaErrorInvalidValue;
   Args p;
   p.nz = nz;
   p.ny = ny;
@@ -300,16 +307,41 @@ extern "C" int slab_run_burgers(float* S0, float* S1, int nz, int ny, int nx,
   p.tiles_x = (nx + T - 1) / T;
   p.chunks = (nz + zchunk - 1) / zchunk;
   p.jobs = ((ny + T - 1) / T) * p.tiles_x * p.chunks;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((long long)p.jobs * members > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
   cudaError_t e;
   switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: e = launch<BURGERS, false>(S0, S1, p, n_iters, grid_blocks, s); break;
-    case 1: e = launch<BURGERS, true>(S0, S1, p, n_iters, grid_blocks, s); break;
-    case 2: e = launch<LINEAR, false>(S0, S1, p, n_iters, grid_blocks, s); break;
-    case 3: e = launch<LINEAR, true>(S0, S1, p, n_iters, grid_blocks, s); break;
-    case 4: e = launch<BUCKLEY, false>(S0, S1, p, n_iters, grid_blocks, s); break;
-    default: e = launch<BUCKLEY, true>(S0, S1, p, n_iters, grid_blocks, s); break;
+    case 0: e = launch<BURGERS, false>(S0, S1, p, n_iters, members, grid_blocks, s); break;
+    case 1: e = launch<BURGERS, true>(S0, S1, p, n_iters, members, grid_blocks, s); break;
+    case 2: e = launch<LINEAR, false>(S0, S1, p, n_iters, members, grid_blocks, s); break;
+    case 3: e = launch<LINEAR, true>(S0, S1, p, n_iters, members, grid_blocks, s); break;
+    case 4: e = launch<BUCKLEY, false>(S0, S1, p, n_iters, members, grid_blocks, s); break;
+    default: e = launch<BUCKLEY, true>(S0, S1, p, n_iters, members, grid_blocks, s); break;
   }
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K6 (members == 1) and K2b: n_iters fixed-dt steps of `members`
+// independent members in ONE cooperative launch on `stream`. S0 and S1
+// each hold the members' states back to back, (members, nz, ny, nx); step
+// k reads S0 (k even) or S1 (k odd) and writes the other, so every
+// member's result is in S0 when n_iters is even and in S1 when it is odd.
+// Member m computes exactly K6's run of member m alone: the same
+// step_tile on its own state, no shared cell. `flux` is 0 (Burgers), 1
+// (linear, speed `c`) or 2 (Buckley-Leverett); `weno_z` selects the
+// WENO5-Z weights. `inv_dx` points to 3 host floats (z, y, x) and `lap` to
+// 15 host floats, or is null for an inviscid run. `grid_blocks`, when not
+// null, receives the grid's block count. Returns the first CUDA error (0
+// on success); does not synchronise.
+extern "C" int slab_run_burgers(float* S0, float* S1, int members, int nz,
+                                int ny, int nx, int flux, float c, int weno_z,
+                                const float* inv_dx, const float* lap,
+                                float dt, int zchunk, int n_iters,
+                                int* grid_blocks, void* stream) {
+  return (int)launch_slab_run(S0, S1, members, nz, ny, nx, flux, c, weno_z,
+                              inv_dx, lap, dt, zchunk, n_iters, grid_blocks,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -314,13 +314,30 @@ class ADRSolver(SolverBase):
     # ------------------------------------------------------------------ #
     # Local physics (one device)
     # ------------------------------------------------------------------ #
-    def build_local(self, ctx: StepContext) -> LocalPhysics:
+    def build_local(self, ctx: StepContext, overrides=None) -> LocalPhysics:
         cfg = self.cfg
         bcs = self.bcs
         spacing = cfg.grid.spacing
         vel = self._velocity_zyx()
+        # ensemble mode: member-varying K0 / lambda (0-d float32 tensors)
+        # enter as operands, and the stability dt is derived from them in
+        # float32
         K0 = cfg.diffusivity
         lam = cfg.reaction_rate
+        has_react = bool(cfg.reaction_rate)
+        dt = self.dt
+        if overrides and (
+            "diffusivity" in overrides or "reaction_rate" in overrides
+        ):
+            if "diffusivity" in overrides:
+                K0 = overrides["diffusivity"]
+            if "reaction_rate" in overrides:
+                lam = overrides["reaction_rate"]
+                has_react = True
+            dt = advection_diffusion_dt(
+                vel, K0 * (1.0 + abs(float(cfg.kappa_variation))), spacing,
+                cfl=cfg.cfl, safety=cfg.safety, reaction=lam,
+            )
         impl = self._laplacian_impl(self._op_impl(), cfg.order)
         prof = kappa_profile(ctx.global_shape, ctx.local_shape, ctx.offsets,
                              float(cfg.kappa_variation), self.dtype,
@@ -377,7 +394,7 @@ class ADRSolver(SolverBase):
             adv = advective(u)
             if adv is not None:
                 out = out - adv
-            if lam:
+            if has_react:
                 out = out - lam * u
             if band is not None:
                 out = torch.where(band, out, torch.zeros_like(out))
@@ -400,7 +417,7 @@ class ADRSolver(SolverBase):
                                               device=u.device), u)
                     return u
 
-        return LocalPhysics(rhs=rhs, static_dt=self.dt, post=post)
+        return LocalPhysics(rhs=rhs, static_dt=dt, post=post)
 
     # ------------------------------------------------------------------ #
     # Fused per-stage fast path (K9)

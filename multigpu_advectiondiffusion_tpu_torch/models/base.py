@@ -12,6 +12,21 @@ The loops run eagerly on the host, with ``t`` as a host scalar of the
 state's precision and the same dt rounding, trim and eps guard as the
 JAX package, so both packages take the same steps and land on the same
 times.
+
+The batched ensemble engine (JAX ``models/base.py:1191-1657``, front
+end in ``models/ensemble.py``) advances B members of an
+:class:`EnsembleState` per dispatch on one of three rungs:
+
+* ``ensemble-fold[fused-whole-run-slab]``: uniform physics on the slab
+  rung, B folded into one cooperative launch (K2b);
+* ``ensemble-vmap[fused-stage]``: uniform physics on the per-stage rung,
+  the JAX package's ``vmap`` of the stage kernel lowered to K1, K5 or K9
+  launched once per member per stage;
+* ``ensemble-vmap[generic-xla]``: the generic loop per member, with the
+  member-varying scalars (``operands``) as 0-d float32 tensors in place
+  of the JAX package's traced operands — dt derives from them in float32
+  (``timestepping/cfl.py``) and ``t`` is carried as a 0-d tensor, so the
+  loop is differentiable with respect to them (``torch.autograd``).
 """
 
 from __future__ import annotations
@@ -19,12 +34,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary, pad_axis
 from multigpu_advectiondiffusion_tpu_torch.core.dtypes import canonicalize
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
-from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
+from multigpu_advectiondiffusion_tpu_torch.models.state import (
+    EnsembleState,
+    SolverState,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops import (
     is_fused_impl,
     is_pallas_impl,
@@ -49,6 +68,60 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+class _Donated(torch.Tensor):
+    """The class a donated ensemble state's ``u`` takes once consumed:
+    every later use raises."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(
+            "this tensor was donated to an ensemble dispatch and consumed; "
+            "use the state the dispatch returned"
+        )
+
+
+def _consume_donated(*tensors) -> None:
+    """Donation semantics on every device (JAX ``_consume_donated``): a
+    donated tensor drops its storage (freed once no view holds it) and
+    any later use raises ``RuntimeError``. Views taken before, and the
+    dispatch's outputs, are separate tensors and stay valid."""
+    for t in tensors:
+        if isinstance(t, _Donated):
+            continue
+        with torch.no_grad():
+            t.set_()
+        t.__class__ = _Donated
+
+
+def ensemble_cfg_gate(cfg) -> None:
+    """The config-level declines of the batched ensemble engine (the JAX
+    package's ``_ensemble_gate``, with its texts), checked before a
+    solver is built, since the port's solvers refuse these configs at
+    construction."""
+    if int(getattr(cfg, "steps_per_exchange", 1) or 1) > 1:
+        raise ValueError(
+            "steps_per_exchange > 1 rides the spatially sharded "
+            "slab rung, whose k-step deep-halo schedule does not "
+            "fold a member axis — run ensembles at the per-step "
+            "exchange cadence"
+        )
+    if str(getattr(cfg, "exchange", "collective")) == "dma":
+        raise ValueError(
+            "exchange='dma' rides the spatially sharded slab "
+            "rung, whose in-kernel remote-DMA ring does not fold "
+            "a member axis — the batched ensemble engine keeps "
+            "the collective exchange"
+        )
+    if str(getattr(cfg, "precision", "native")) == "bf16":
+        raise ValueError(
+            "precision='bf16' is a single-run rung: neither the "
+            "vmapped fused stepper nor the B-folded slab grid "
+            "threads the bf16 storage split (and its compensation "
+            "carry) through the member axis — run ensembles at "
+            "native precision"
+        )
 
 
 @dataclasses.dataclass
@@ -81,6 +154,7 @@ class SolverBase:
         self._cache = {}
         self._fused_fallback = None
         self._op_fallback = None
+        self._ensemble_last = None
 
     # ------------------------------------------------------------------ #
     # Config plumbing
@@ -103,8 +177,18 @@ class SolverBase:
     def integrator(self):
         return INTEGRATORS[self.cfg.integrator]
 
-    def build_local(self, ctx: StepContext) -> LocalPhysics:
+    def build_local(self, ctx: StepContext, overrides=None) -> LocalPhysics:
+        """The local physics. ``overrides`` (ensemble mode only) maps
+        member-varying scalar names — the keys of
+        :meth:`ensemble_operands` — to 0-d float32 tensors that enter the
+        step as operands, dt derived from them."""
         raise NotImplementedError
+
+    def ensemble_operands(self) -> dict:
+        """The member-varying scalars of the batched ensemble engine:
+        ``{name: default}`` for every scalar :meth:`build_local` takes as
+        an override. The base class supports none."""
+        return {}
 
     def ic_spec(self):
         return self.cfg.ic, {}
@@ -134,18 +218,30 @@ class SolverBase:
             device=self.device,
         )
 
-    def _physics(self) -> LocalPhysics:
+    def _physics(self, overrides=None) -> LocalPhysics:
+        """The local physics: cached for the config's own scalars, built
+        afresh for ensemble ``overrides``."""
+        if overrides:
+            return self.build_local(self._context(), overrides=overrides)
         if "physics" not in self._cache:
             self._cache["physics"] = self.build_local(self._context())
         return self._cache["physics"]
 
-    def _local_step(self, u, t, t_end=None):
+    def _local_step(self, u, t, t_end=None, overrides=None, phys=None):
         """One generic time step; ``t``/``t_end`` are host scalars of the
         state's precision. dt is rounded to that precision, trimmed to
         ``t_end - t``, and fed to the integrator as that value. An
         adaptive dt (``dt_fn``) is computed on the device and read back
-        once a step: this loop is the yardstick, not the timed path."""
-        phys = self._physics()
+        once a step: this loop is the yardstick, not the timed path.
+
+        ``overrides`` threads member-varying operands into
+        :meth:`build_local` (``phys``, the physics already built with
+        them); then ``t`` and ``t_end`` are 0-d CPU tensors of the
+        time dtype (:meth:`_operand_step`)."""
+        if phys is None:
+            phys = self._physics(overrides)
+        if isinstance(t, torch.Tensor):
+            return self._operand_step(phys, u, t, t_end)
         tdt = type(t)
         if phys.dt_fn is not None:
             dt = tdt(phys.dt_fn(u).item())
@@ -154,6 +250,25 @@ class SolverBase:
         if t_end is not None:
             dt = min(dt, tdt(t_end - t))
         u = self.integrator(phys.rhs, u, float(dt), phys.post)
+        return u, t + dt
+
+    def _operand_step(self, phys: LocalPhysics, u, t, t_end=None):
+        """The generic step with ensemble operands, as the JAX package
+        traces it (``models/base.py:512-524``): dt a 0-d float32 tensor
+        from the operands (an adaptive one read back from the device),
+        ``min(dt, t_end - t)`` in the promoted dtype, cast to ``t``'s
+        dtype; ``t`` a 0-d CPU tensor, so the step stays differentiable
+        in the operands and the ``t < t_end`` test reads no device."""
+        if phys.dt_fn is not None:
+            dt = phys.dt_fn(u).to("cpu")
+        else:
+            dt = phys.static_dt
+            if not isinstance(dt, torch.Tensor):
+                dt = torch.full((), dt, dtype=t.dtype)
+        if t_end is not None:
+            dt = torch.minimum(dt, t_end - t)
+        dt = dt.to(t.dtype)
+        u = self.integrator(phys.rhs, u, dt.to(u.dtype), phys.post)
         return u, t + dt
 
     def step(self, state: SolverState) -> SolverState:
@@ -300,3 +415,226 @@ class SolverBase:
             u, t = self._local_step(u, t, t_end=te)
             steps += 1
         return SolverState(u=u, t=t, it=state.it + steps)
+
+    # ------------------------------------------------------------------ #
+    # Ensemble (leading-member-axis) execution: B members per dispatch
+    # (JAX models/base.py:1191-1657; front end in models/ensemble.py)
+    # ------------------------------------------------------------------ #
+    def _ensemble_gate(self, operand_names=()) -> None:
+        """Loud eligibility gate of the batched dispatch, the JAX
+        package's declines and texts: the config-level ones
+        (:func:`ensemble_cfg_gate`), the slab pin with member-varying
+        operands, and unknown operand names. Device meshes raise at the
+        front end (``models/ensemble.py``): the port has none yet."""
+        ensemble_cfg_gate(self.cfg)
+        if getattr(self.cfg, "impl", "xla") == "pallas_slab" and (
+            operand_names
+        ):
+            raise ValueError(
+                "the B-folded slab grid bakes uniform physics "
+                "(fixed dt, closure coefficients); member-varying "
+                f"operand(s) {sorted(operand_names)} ride the "
+                "generic rung — drop the impl='pallas_slab' pin"
+            )
+        supported = set(self.ensemble_operands())
+        unknown = sorted(set(operand_names) - supported)
+        if unknown:
+            raise ValueError(
+                f"{type(self).__name__} has no member-varying operand(s) "
+                f"{unknown}; supported: {sorted(supported) or 'none'}"
+            )
+
+    def _ensemble_fused(self):
+        """The fused stepper the batched dispatch rides, or ``None``
+        (the generic rung, reason recorded): the per-stage rung, launched
+        per member, and the whole-run slab rung, B folded into one launch
+        (K2b). Other fused rungs decline with the JAX package's reason."""
+        fused = self._fused_stepper(mode="iters")
+        if fused is None:
+            return None
+        if fused.engaged_label in ("fused-stage", "fused-whole-run-slab"):
+            return fused
+        return self._decline(
+            f"ensemble batching serves the fused-stage (vmap) and "
+            f"whole-run-slab (B-fold) rungs; {fused.engaged_label} "
+            f"declines batching"
+        )
+
+    def _ensemble_pack(self, operands, members: int):
+        """``{name: (B,) values}`` -> ``(names, (B, P) float32 CPU
+        tensor)`` in sorted column order, as the JAX package packs them
+        (float32). A tensor operand keeps its autograd history. No
+        operands pack to a zero-width matrix (uniform physics). The
+        dispatch's gate runs here, once, before any value is read."""
+        names = tuple(sorted(operands or ()))
+        self._ensemble_gate(names)
+        if not names:
+            return (), torch.zeros((members, 0), dtype=torch.float32)
+        cols = []
+        for n in names:
+            v = operands[n]
+            if isinstance(v, torch.Tensor):
+                col = v.to(device="cpu", dtype=torch.float32).reshape(-1)
+            else:
+                col = torch.from_numpy(
+                    np.asarray(v, dtype=np.float32).reshape(-1).copy())
+            if col.shape[0] != members:
+                raise ValueError(
+                    f"operand {n!r} has {col.shape[0]} values for "
+                    f"{members} members"
+                )
+            cols.append(col)
+        return names, torch.stack(cols, dim=1)
+
+    def _ensemble_record(self, members, stepper, mode, names) -> None:
+        """Record the dispatch facts ``EnsembleSolver.engaged_path``
+        reads (the JAX package's keys; one device, no mesh). The JAX
+        package also emits them as a telemetry event; the port's
+        telemetry is not ported yet."""
+        self._ensemble_last = {
+            "members": int(members),
+            "stepper": stepper,
+            "mode": mode,
+            "operands": list(names),
+            "devices": 1,
+            "member_sharding": 1,
+            "mesh": None,
+        }
+
+    @staticmethod
+    def _member_overrides(names, ops, i):
+        return {n: ops[i, j] for j, n in enumerate(names)} or None
+
+    def _generic_member_run(self, u, t, num_iters: int, overrides):
+        """``num_iters`` generic steps of one member: the host-scalar loop
+        for uniform physics (the single run's), the operand loop with
+        ``t`` as a 0-d tensor otherwise."""
+        if overrides is None:
+            for _ in range(int(num_iters)):
+                u, t = self._local_step(u, t)
+            return u, t
+        phys = self._physics(overrides)
+        tt = torch.tensor(t)
+        for _ in range(int(num_iters)):
+            u, tt = self._local_step(u, tt, phys=phys)
+        return u, type(t)(tt.item())
+
+    def run_ensemble(self, estate: EnsembleState, num_iters: int,
+                     operands=None, donate: bool = False) -> EnsembleState:
+        """Advance every member ``num_iters`` steps in one dispatch.
+
+        Uniform physics (no ``operands``) rides the fused rung the config
+        engages — K2b for the slab rung, the stage kernel per member for
+        the per-stage rung — each member equal to its single run to the
+        bit; member-varying scalars (``{name: (B,) values}`` for the
+        names in :meth:`ensemble_operands`) ride the generic rung.
+
+        ``donate=True`` consumes ``estate.u``: the slab fold drops it
+        once its buffers hold the batch (so no second ``(B, *grid)``
+        copy lives through the run), the other rungs after the dispatch;
+        any later use of ``estate.u`` raises ``RuntimeError``."""
+        B = estate.members
+        names, ops = self._ensemble_pack(operands, B)
+        if names:
+            # operands ride the generic rung; the fused rung's own
+            # decline, if any, is still what engaged_path reports
+            self._fused_stepper(mode="iters")
+            fused = None
+        else:
+            fused = self._ensemble_fused()
+        slab_fold = (fused is not None
+                     and fused.engaged_label == "fused-whole-run-slab")
+        if slab_fold:
+            label = "ensemble-fold[fused-whole-run-slab]"
+        elif fused is not None:
+            label = f"ensemble-vmap[{fused.engaged_label}]"
+        else:
+            label = "ensemble-vmap[generic-xla]"
+        self._ensemble_record(B, label, "iters", names)
+        n = int(num_iters)
+        if slab_fold:
+            consume = (lambda: _consume_donated(estate.u)) if donate else None
+            u, t = fused.run_batched(estate.u, estate.t, n, consume=consume)
+            if u is estate.u:  # no step: a fresh tensor on the same data
+                u = u.view_as(u)
+        else:
+            outs, ts = [], []
+            for i in range(B):
+                ui, ti = estate.u[i], estate.t[i]
+                if fused is not None:
+                    ui, ti = fused.run(ui, ti, n)
+                else:
+                    ui, ti = self._generic_member_run(
+                        ui, ti, n, self._member_overrides(names, ops, i))
+                outs.append(ui)
+                ts.append(ti)
+            u = torch.stack(outs)
+            t = np.array(ts, dtype=estate.t.dtype)
+        if donate:
+            _consume_donated(estate.u)
+        return EnsembleState(u=u, t=np.asarray(t, dtype=estate.t.dtype),
+                             it=estate.it + np.int32(n))
+
+    def _advance_member(self, u, t, te, max_steps, overrides):
+        """One member of :meth:`advance_to_ensemble`: march until ``te``
+        (the last step trimmed to land), at most ``max_steps`` steps when
+        given (a finished member freezes, as the JAX package's masked
+        updates freeze it: no step past ``te`` changes anything).
+        Returns ``(u, t, steps)``."""
+        tdt = type(t)
+        te = tdt(te)
+        eps = tdt(1e-12) * max(tdt(1.0), abs(te))
+        limit = float("inf") if max_steps is None else int(max_steps)
+        steps = 0
+        if overrides is None:
+            while steps < limit and t < te - eps:
+                u, t = self._local_step(u, t, t_end=te)
+                steps += 1
+            return u, t, steps
+        phys = self._physics(overrides)
+        tt, te_t = torch.tensor(t), torch.tensor(te)
+        stop = te - eps
+        while steps < limit and tdt(tt.item()) < stop:
+            u, tt = self._local_step(u, tt, t_end=te_t, phys=phys)
+            steps += 1
+        return u, tdt(tt.item()), steps
+
+    def advance_to_ensemble(self, estate: EnsembleState, t_end,
+                            operands=None, max_steps: int | None = None,
+                            donate: bool = False) -> EnsembleState:
+        """March every member to ``t_end`` in one dispatch, each member
+        stopping at its own step count (smaller member dt, more steps).
+        The generic rung only, as in the JAX package.
+
+        ``t_end`` is a scalar or a ``(B,)`` sequence, one horizon per
+        member. ``max_steps`` bounds every member's step count — the JAX
+        package's differentiable ``fori_loop`` mode; the port's loop is
+        differentiable either way (``torch.autograd`` through the
+        operands), and stops a member once it lands. ``donate=True``
+        consumes ``estate.u`` after the dispatch."""
+        B = estate.members
+        names, ops = self._ensemble_pack(operands, B)
+        te_host = np.asarray(t_end, dtype=np.float64)
+        if te_host.ndim > 0 and te_host.reshape(-1).shape[0] != B:
+            raise ValueError(
+                f"t_end has {te_host.reshape(-1).shape[0]} values for "
+                f"{B} members — pass a scalar or one horizon per member"
+            )
+        te_all = np.broadcast_to(te_host.reshape(-1) if te_host.ndim
+                                 else te_host, (B,))
+        self._ensemble_record(B, "ensemble-vmap[generic-xla]", "t_end",
+                              names)
+        outs, ts, steps = [], [], []
+        for i in range(B):
+            ui, ti, ni = self._advance_member(
+                estate.u[i], estate.t[i], te_all[i], max_steps,
+                self._member_overrides(names, ops, i))
+            outs.append(ui)
+            ts.append(ti)
+            steps.append(ni)
+        u = torch.stack(outs)
+        if donate:
+            _consume_donated(estate.u)
+        return EnsembleState(
+            u=u, t=np.array(ts, dtype=estate.t.dtype),
+            it=estate.it + np.asarray(steps, dtype=np.int32))

@@ -234,10 +234,18 @@ class BurgersSolver(SolverBase):
         number."""
         return {"cfl": float(self.cfg.cfl)}
 
-    def build_local(self, ctx: StepContext) -> LocalPhysics:
+    def build_local(self, ctx: StepContext, overrides=None) -> LocalPhysics:
         cfg = self.cfg
         spacing = cfg.grid.spacing
         fx = self.flux
+        # ensemble mode: a member-varying CFL (a 0-d float32 tensor)
+        # enters as an operand; a fixed dt is derived from it in float32
+        cfl = cfg.cfl
+        fixed_dt = self.dt
+        if overrides and "cfl" in overrides:
+            cfl = overrides["cfl"]
+            if not cfg.adaptive_dt:
+                fixed_dt = cfl * min(spacing)
         impl = self._op_impl()
         lap_impl = self._laplacian_impl(impl, cfg.laplacian_order)
 
@@ -260,10 +268,10 @@ class BurgersSolver(SolverBase):
         if cfg.adaptive_dt:
             return LocalPhysics(
                 rhs=rhs,
-                dt_fn=lambda u: advective_dt(u, fx.df, spacing, cfg.cfl),
+                dt_fn=lambda u: advective_dt(u, fx.df, spacing, cfl),
             )
         # CUDA-parity fixed dt: CFL * dx / 1.0 (Burgers3d_Baseline/main.c:193)
-        return LocalPhysics(rhs=rhs, static_dt=self.dt)
+        return LocalPhysics(rhs=rhs, static_dt=fixed_dt)
 
     # ------------------------------------------------------------------ #
     # Fused fast paths (one device, edge BCs, WENO5)

@@ -232,13 +232,30 @@ class DiffusionSolver(SolverBase):
         diffusivity K (which also moves the stability dt)."""
         return {"diffusivity": float(self.cfg.diffusivity)}
 
-    def build_local(self, ctx: StepContext) -> LocalPhysics:
+    def build_local(self, ctx: StepContext, overrides=None) -> LocalPhysics:
         cfg = self.cfg
         grid = cfg.grid
         bcs = self.bcs
+        # ensemble mode: a member-varying K (a 0-d float32 tensor) enters
+        # as an operand, and the stability dt is derived from it in float32
         K = cfg.diffusivity
+        dt = self.dt
+        operand = bool(overrides) and "diffusivity" in overrides
+        if operand:
+            K = overrides["diffusivity"]
+            dt = diffusive_dt(K, grid.spacing, cfg.safety)
 
         impl = self._laplacian_impl(self._op_impl(), cfg.order)
+        if impl == "pallas" and operand:
+            # the JAX package's per-axis Pallas kernels bake their
+            # coefficients and reject a traced K, so it runs the plain
+            # stencils here, and so does the port (parity of the
+            # engaged path; K11 could take K by value: ROADMAP)
+            self._op_fallback = (
+                "member-varying diffusivity is a traced operand; "
+                "per-axis Pallas kernels bake constants — XLA runs"
+            )
+            impl = "xla"
 
         def operator(u):
             return laplacian(u, grid.spacing, ctx.padder,
@@ -288,7 +305,7 @@ class DiffusionSolver(SolverBase):
                     u = torch.index_select(u, a, src)
                 return u
 
-        return LocalPhysics(rhs=rhs, static_dt=self.dt, post=post)
+        return LocalPhysics(rhs=rhs, static_dt=dt, post=post)
 
     # ------------------------------------------------------------------ #
     # Fused fast paths (one device, reference-parity walls)

@@ -21,9 +21,21 @@ other, so the result lies in buffer ``num_iters % 2``.
   :func:`fused_diffusion_step.step_reference` (three K1-twin stages), for
   K6 :func:`burgers_step_reference` (three K5-twin stages, whose clamped
   reads are the TPU kernel's edge fill after every stage).
-* The steppers have the JAX classes' names, labels and ``run``; the
-  sharded roles, the k-step schedule, the in-kernel DMA exchange and
-  ``run_batched`` are not ported. Neither has ``run_to``, as in JAX.
+* :func:`slab_run_diffusion_batched` and :func:`slab_run_burgers_batched`
+  (K2b) are K2 and K6 with a member axis: B independent members' runs in
+  one cooperative launch (``run_batched``, ``fused_slab_run.py:902-945``;
+  the TPU grid ``(B, N, n_slabs)`` over a ``(B, 2, pz, Y, X)`` stack).
+  The two buffers are ``(B, *layout)``, each member's slice the single
+  kernel's layout; the grid walks the flattened (member, tile, z-chunk)
+  work list and one grid barrier a step covers every member. Members
+  share no cell (``member_halo = 0``), so member ``i`` equals the single
+  run of member ``i`` to the bit. Their plain twins are the single twins'
+  ``ping_pong`` per member.
+* The steppers have the JAX classes' names, labels, ``run``,
+  ``run_batched`` and the ``member_halo`` declaration; the member count
+  declaration and its check wait for member-sharded meshes, and the
+  sharded roles, the k-step schedule and the in-kernel DMA exchange are
+  not ported. Neither has ``run_to``, as in JAX.
 * ``supported``/``profitable`` are the port's gates, for the H100, in
   place of the JAX package's TPU VMEM model (PERF.md lists the shapes
   where the two disagree).
@@ -62,8 +74,10 @@ MAX_CELLS = 2**31 - 1
 # Stepper.profitable)
 K2_PROFITABLE_CELLS = 24 * 16 * 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_K2_ARGTYPES = (_P, _P, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P, _P)
-_K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I, _I, _P, _P)
+# one entry a source for K2/K6 and K2b: the member count follows S1
+_K2_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P, _P)
+_K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I, _I, _P,
+                _P)
 
 
 def ping_pong(step, S0, S1, num_iters: int):
@@ -75,6 +89,29 @@ def ping_pong(step, S0, S1, num_iters: int):
         step(src, dst)
         src, dst = dst, src
     return src
+
+
+def _launch_diffusion(S0, S1, num_iters: int, dt, taps, band, bc_value,
+                      zchunk, grid_blocks):
+    """Launch K2/K2b once on two ``(B, nz+4, ny+4, nx+4)`` CUDA buffers
+    (K2 is the kernel at B = 1); ``grid_blocks``, a list, receives the
+    grid's block count."""
+    B = S0.shape[0]
+    nz, ny, nx = (n - 2 * R for n in S0.shape[1:])
+    host_taps = np.asarray(taps, dtype=np.float32)
+    blocks = ctypes.c_int(0)
+
+    def kernel(S0, S1):
+        return wr.library(fds.SOURCE, "slab_run_diffusion", _K2_ARGTYPES
+                          ).slab_run_diffusion(
+            S0.data_ptr(), S1.data_ptr(), B, nz, ny, nx,
+            host_taps.ctypes.data, float(np.float32(dt)), int(band),
+            float(bc_value), int(zchunk), int(num_iters),
+            ctypes.byref(blocks), wr.stream_of(S0))
+
+    wr.launch(kernel, S0, S1)
+    if grid_blocks is not None:
+        grid_blocks.append(blocks.value)
 
 
 def slab_run_diffusion(S0, S1, num_iters: int, dt, *, taps, band, bc_value,
@@ -92,25 +129,61 @@ def slab_run_diffusion(S0, S1, num_iters: int, dt, *, taps, band, bc_value,
         return ping_pong(lambda src, dst: fds.step_reference(
             src, dst, dt, taps=taps, band=band, bc_value=bc_value),
             S0, S1, num_iters)
-    nz, ny, nx = (n - 2 * R for n in S0.shape)
-    host_taps = np.asarray(taps, dtype=np.float32)
-    blocks = ctypes.c_int(0)
-
-    def kernel(S0, S1):
-        return wr.library(fds.SOURCE, "slab_run_diffusion", _K2_ARGTYPES
-                          ).slab_run_diffusion(
-            S0.data_ptr(), S1.data_ptr(), nz, ny, nx, host_taps.ctypes.data,
-            float(np.float32(dt)), int(band), float(bc_value), int(zchunk),
-            int(num_iters), ctypes.byref(blocks), wr.stream_of(S0))
-
-    wr.launch(kernel, S0, S1)
+    _launch_diffusion(S0[None], S1[None], num_iters, dt, taps, band,
+                      bc_value, zchunk, grid_blocks)
     slab_run_diffusion.launches += 1
-    if grid_blocks is not None:
-        grid_blocks.append(blocks.value)
     return S1 if num_iters % 2 else S0
 
 
 slab_run_diffusion.launches = 0
+
+
+def _check_batched(S0, S1, min_dim: int) -> None:
+    """``S0`` and ``S1``: two different contiguous float32 buffers of one
+    ``(B, ...)`` shape on one device, B >= 1."""
+    _check("S1", S1, S0.shape, S0.device)
+    _check("S0", S0, S0.shape, S0.device)
+    if S0.dim() != 4 or S0.shape[0] < 1 or min(S0.shape[1:]) < min_dim:
+        raise ValueError(f"(B, nz, ny, nx) buffers expected, got "
+                         f"{tuple(S0.shape)}")
+    if S0.data_ptr() == S1.data_ptr():
+        raise ValueError("S0 and S1 must be different buffers")
+    if S0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no slab kernel for device {S0.device}")
+
+
+def ping_pong_members(step, S0, S1, num_iters: int):
+    """The plain twin of a batched slab run: :func:`ping_pong` on every
+    member's slices ``S0[i]``, ``S1[i]`` in turn; returns the buffer that
+    holds every member's result."""
+    for i in range(S0.shape[0]):
+        ping_pong(step, S0[i], S1[i], num_iters)
+    return S1 if num_iters % 2 else S0
+
+
+def slab_run_diffusion_batched(S0, S1, num_iters: int, dt, *, taps, band,
+                               bc_value, zchunk=DIFFUSION_Z_CHUNK,
+                               grid_blocks: list | None = None):
+    """K2b, diffusion: :func:`slab_run_diffusion` for B members at once.
+    ``S0``/``S1`` are ``(B, nz+4, ny+4, nx+4)``, every member's slice K1's
+    padded layout with its ghost ring at ``bc_value``; ``S0`` holds the
+    initial states. Returns the buffer that holds every member's result
+    (``S0`` after an even count, ``S1`` after an odd one). A CUDA tensor
+    launches the kernel once on the current stream for the whole batch,
+    counted in ``slab_run_diffusion_batched.launches``; a CPU tensor runs
+    the twin, K2's twin per member."""
+    _check_batched(S0, S1, 2 * R + 1)
+    if S0.device.type == "cpu":
+        return ping_pong_members(lambda src, dst: fds.step_reference(
+            src, dst, dt, taps=taps, band=band, bc_value=bc_value),
+            S0, S1, num_iters)
+    _launch_diffusion(S0, S1, num_iters, dt, taps, band, bc_value, zchunk,
+                      grid_blocks)
+    slab_run_diffusion_batched.launches += 1
+    return S1 if num_iters % 2 else S0
+
+
+slab_run_diffusion_batched.launches = 0
 
 
 def burgers_step_reference(S, out, dt, *, params: fb.StageParams):
@@ -124,6 +197,40 @@ def burgers_step_reference(S, out, dt, *, params: fb.StageParams):
     T2 = fb.stage_reference(T1, S, torch.empty_like(S), dt, params=params,
                             a=a2, b=b2)
     return fb.stage_reference(T2, S, out, dt, params=params, a=a3, b=b3)
+
+
+def _burgers_args(params: fb.StageParams):
+    """K6's/K2b's host arguments for ``params``: the flux code, the
+    linear speed, the variant flag, ``inv_dx`` and the viscous taps (or
+    ``None``), the arrays kept alive by the caller."""
+    inv_dx = np.asarray(params.inv_dx, dtype=np.float32)
+    taps = (None if params.lap_taps is None
+            else np.asarray(params.lap_taps, dtype=np.float32))
+    c = params.flux.c if params.flux.c is not None else 0.0
+    return (fb.FLUX_CODES[params.flux.name], float(c),
+            int(params.variant == "z"), inv_dx, taps)
+
+
+def _launch_burgers(S0, S1, num_iters: int, dt, params, zchunk,
+                    grid_blocks):
+    """Launch K6/K2b once on two ``(B, nz, ny, nx)`` CUDA buffers (K6 is
+    the kernel at B = 1); ``grid_blocks``, a list, receives the grid's
+    block count."""
+    B, nz, ny, nx = S0.shape
+    code, c, weno_z, inv_dx, taps = _burgers_args(params)
+    blocks = ctypes.c_int(0)
+
+    def kernel(S0, S1):
+        return wr.library(BURGERS_SOURCE, "slab_run_burgers", _K6_ARGTYPES,
+                          fb.NVCC_EXTRA).slab_run_burgers(
+            S0.data_ptr(), S1.data_ptr(), B, nz, ny, nx, code, c, weno_z,
+            inv_dx.ctypes.data, None if taps is None else taps.ctypes.data,
+            float(np.float32(dt)), int(zchunk), int(num_iters),
+            ctypes.byref(blocks), wr.stream_of(S0))
+
+    wr.launch(kernel, S0, S1)
+    if grid_blocks is not None:
+        grid_blocks.append(blocks.value)
 
 
 def slab_run_burgers(S0, S1, num_iters: int, dt, *, params: fb.StageParams,
@@ -147,38 +254,48 @@ def slab_run_burgers(S0, S1, num_iters: int, dt, *, params: fb.StageParams,
             src, dst, dt, params=params), S0, S1, num_iters)
     if S0.device.type != "cuda":
         raise ValueError(f"no slab kernel for device {S0.device}")
-    nz, ny, nx = S0.shape
-    inv_dx = np.asarray(params.inv_dx, dtype=np.float32)
-    taps = (None if params.lap_taps is None
-            else np.asarray(params.lap_taps, dtype=np.float32))
-    c = params.flux.c if params.flux.c is not None else 0.0
-    blocks = ctypes.c_int(0)
-
-    def kernel(S0, S1):
-        return wr.library(BURGERS_SOURCE, "slab_run_burgers", _K6_ARGTYPES,
-                          fb.NVCC_EXTRA).slab_run_burgers(
-            S0.data_ptr(), S1.data_ptr(), nz, ny, nx,
-            fb.FLUX_CODES[params.flux.name], float(c),
-            int(params.variant == "z"), inv_dx.ctypes.data,
-            None if taps is None else taps.ctypes.data,
-            float(np.float32(dt)), int(zchunk), int(num_iters),
-            ctypes.byref(blocks), wr.stream_of(S0))
-
-    wr.launch(kernel, S0, S1)
+    _launch_burgers(S0[None], S1[None], num_iters, dt, params, zchunk,
+                    grid_blocks)
     slab_run_burgers.launches += 1
-    if grid_blocks is not None:
-        grid_blocks.append(blocks.value)
     return S1 if num_iters % 2 else S0
 
 
 slab_run_burgers.launches = 0
 
 
+def slab_run_burgers_batched(S0, S1, num_iters: int, dt, *,
+                             params: fb.StageParams,
+                             zchunk=BURGERS_Z_CHUNK,
+                             grid_blocks: list | None = None):
+    """K2b, Burgers/WENO5: :func:`slab_run_burgers` for B members at once.
+    ``S0``/``S1`` are ``(B, nz, ny, nx)``, every member's slice K6's
+    unpadded layout; ``S0`` holds the initial states. Returns the buffer
+    that holds every member's result (``S0`` after an even count, ``S1``
+    after an odd one). A CUDA tensor launches the kernel once on the
+    current stream for the whole batch, counted in
+    ``slab_run_burgers_batched.launches``; a CPU tensor runs the twin,
+    K6's twin per member."""
+    _check_batched(S0, S1, 1)
+    if S0.device.type == "cpu":
+        return ping_pong_members(lambda src, dst: burgers_step_reference(
+            src, dst, dt, params=params), S0, S1, num_iters)
+    _launch_burgers(S0, S1, num_iters, dt, params, zchunk, grid_blocks)
+    slab_run_burgers_batched.launches += 1
+    return S1 if num_iters % 2 else S0
+
+
+slab_run_burgers_batched.launches = 0
+
+
 class _SlabRunStepper:
-    """What the two slab steppers share: the label and the unsharded
-    ``run`` (``fused_slab_run.py:1080-1098``)."""
+    """What the two slab steppers share: the label, the unsharded
+    ``run`` (``fused_slab_run.py:1080-1098``) and the B-folded
+    ``run_batched`` (``:902-945``)."""
 
     engaged_label = "fused-whole-run-slab"
+    # the member axis of run_batched has no stencil reach: members share
+    # no cell (the JAX steppers' declaration, ``:650-657``)
+    member_halo = 0
 
     def run(self, u, t, num_iters: int):
         """``num_iters`` fused steps in one launch; returns ``(u, t)``,
@@ -190,6 +307,35 @@ class _SlabRunStepper:
         return self.extract(S), wr.accumulate_t(t, np.float32(self.dt),
                                                 num_iters)
 
+    def run_batched(self, us, ts, num_iters: int, consume=None):
+        """Advance B independent members ``num_iters`` fused steps in ONE
+        launch (K2b): ``us`` is ``(B, *grid)``, ``ts`` the members'
+        ``(B,)`` numpy times. Both buffers are ``(B, *layout)``, built
+        from ``us`` once; every member's result is read from buffer
+        ``num_iters % 2``. ``consume``, when given, is called once ``us``
+        has been copied in and is no longer needed (the ensemble's
+        donation). Returns ``(us, ts)`` advanced."""
+        if num_iters == 0:
+            return us, ts
+        S0 = self.embed_batched(us)
+        if consume is not None:
+            consume()
+        S = self._whole_run_batched(S0, S0.clone(), num_iters)
+        out = self.extract_batched(S)
+        del S0, S
+        return out, accumulate_ts(ts, self.dt, num_iters)
+
+
+def accumulate_ts(ts, dt, num_iters: int):
+    """The members' ``(B,)`` times advanced by ``dt`` ``num_iters`` times
+    in their own precision, each element as :func:`whole_run.
+    accumulate_t` rounds a scalar."""
+    ts = np.asarray(ts)
+    step = ts.dtype.type(np.float32(dt))
+    for _ in range(int(num_iters)):
+        ts = ts + step
+    return ts
+
 
 class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     """Whole-run slab diffusion stepper (K2) for one (grid, dt)
@@ -198,6 +344,22 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     def _whole_run(self, S0, S1, num_iters: int):
         return slab_run_diffusion(S0, S1, num_iters, self.dt, taps=self.taps,
                                   band=self.band, bc_value=self.bc_value)
+
+    def embed_batched(self, us):
+        """``(B, *padded)``: every member's padded layout, the ghost ring
+        at the wall value."""
+        S = torch.full((us.shape[0], *self.padded_shape), self.bc_value,
+                       dtype=self.dtype, device=self.device)
+        S[(slice(None),) + (slice(R, -R),) * 3].copy_(us)
+        return S
+
+    def extract_batched(self, S):
+        return S[(slice(None),) + (slice(R, -R),) * 3].contiguous()
+
+    def _whole_run_batched(self, S0, S1, num_iters: int):
+        return slab_run_diffusion_batched(
+            S0, S1, num_iters, self.dt, taps=self.taps, band=self.band,
+            bc_value=self.bc_value)
 
     @staticmethod
     def supported(interior_shape, dtype) -> bool:
@@ -249,9 +411,17 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     def extract(self, S):
         return S
 
+    # the layout is unpadded, so a batch embeds as a copy too
+    embed_batched = embed
+    extract_batched = extract
+
     def _whole_run(self, S0, S1, num_iters: int):
         return slab_run_burgers(S0, S1, num_iters, self.dt,
                                 params=self.params)
+
+    def _whole_run_batched(self, S0, S1, num_iters: int):
+        return slab_run_burgers_batched(S0, S1, num_iters, self.dt,
+                                        params=self.params)
 
     @staticmethod
     def supported(interior_shape, dtype) -> bool:

@@ -14,6 +14,14 @@ caller that keeps dt on the device never waits for it. In float32,
 package's weak typing rounds it, and the division is a true division of
 two tensors (a division by a Python scalar may run as a product with
 its reciprocal on the GPU, which rounds twice).
+
+Member-varying operands (the ensemble engine's ``K``, ``cfl`` and decay
+rate) arrive as 0-d float32 tensors, as the JAX package packs them
+(``models/base.py`` ``_ensemble_pack``). Then every function takes the
+JAX package's traced branch: each operation in float32, Python numbers
+rounded to float32 where they meet the operand, true divisions — so dt
+rounds as the JAX package's does. The result is a 0-d tensor that
+carries the operand's autograd history.
 """
 
 from __future__ import annotations
@@ -23,9 +31,20 @@ from typing import Callable, Sequence
 import torch
 
 
-def diffusive_dt(diffusivity: float, spacing: Sequence[float],
-                 safety: float = 0.8) -> float:
+def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` as one rounded division (``num / tensor`` in
+    PyTorch is ``reciprocal(den) * num``, rounded twice)."""
+    return torch.div(torch.full((), num, dtype=den.dtype,
+                                device=den.device), den)
+
+
+def diffusive_dt(diffusivity, spacing: Sequence[float],
+                 safety: float = 0.8):
+    """``safety / (2 K sum_i 1/dx_i^2)``: a Python float for a Python
+    ``K``; a 0-d tensor for a member-varying (tensor) ``K``."""
     inv = sum(1.0 / (dx * dx) for dx in spacing)
+    if isinstance(diffusivity, torch.Tensor):
+        return _rdiv(safety, 2.0 * diffusivity * inv)
     return safety / (2.0 * diffusivity * inv)
 
 
@@ -40,8 +59,13 @@ def dt_from_wave_speed(a: torch.Tensor, spacing: Sequence[float],
     """CFL dt from an already-computed ``max|f'(u)|`` 0-d tensor — the
     consumer of the fused stepper's in-kernel wave-speed emission. The
     one definition of the CFL formula: :func:`advective_dt` composes
-    it."""
-    num = torch.full((), cfl * min(spacing), dtype=a.dtype, device=a.device)
+    it. A member-varying (tensor) ``cfl`` forms ``cfl * min dx`` in its
+    own float32, as the JAX package's traced operand does."""
+    if isinstance(cfl, torch.Tensor):
+        num = (cfl * min(spacing)).to(a.device)
+    else:
+        num = torch.full((), cfl * min(spacing), dtype=a.dtype,
+                         device=a.device)
     lo = torch.full((), floor, dtype=a.dtype, device=a.device)
     return torch.div(num, torch.maximum(a, lo))
 
@@ -52,10 +76,9 @@ def advective_dt(u: torch.Tensor, dflux, spacing: Sequence[float],
                               floor=floor)
 
 
-def advection_diffusion_dt(velocity: Sequence[float], diffusivity: float,
+def advection_diffusion_dt(velocity: Sequence[float], diffusivity,
                            spacing: Sequence[float], cfl: float = 0.4,
-                           safety: float = 0.8,
-                           reaction: float = 0.0) -> float:
+                           safety: float = 0.8, reaction=0.0):
     """Combined stability bound of the advection–diffusion(–reaction)
     operator: the inverse rates add,
 
@@ -63,9 +86,10 @@ def advection_diffusion_dt(velocity: Sequence[float], diffusivity: float,
              + lambda / safety,
 
     with ``diffusivity`` the maximum of the (possibly varying)
-    coefficient. The JAX package's static-rate branch: every argument a
-    Python number, the result a Python float (the fused kernels take dt
-    by value). A member-varying rate waits for the ensemble engine."""
+    coefficient. With every argument a Python number the result is a
+    Python float (the fused kernels take dt by value); a member-varying
+    (tensor) ``diffusivity`` or ``reaction`` takes the JAX package's
+    traced branch and returns a 0-d tensor."""
     inv = 0.0
     adv = sum(abs(float(a)) / dx for a, dx in zip(velocity, spacing))
     if adv:
@@ -73,6 +97,10 @@ def advection_diffusion_dt(velocity: Sequence[float], diffusivity: float,
     inv = inv + (
         2.0 * diffusivity * sum(1.0 / (dx * dx) for dx in spacing)
     ) / safety
-    if reaction > 0.0:
+    if isinstance(reaction, torch.Tensor):
+        inv = inv + torch.clamp_min(reaction, 0.0) / safety
+    elif reaction > 0.0:
         inv = inv + float(reaction) / safety
+    if isinstance(inv, torch.Tensor):
+        return _rdiv(1.0, inv)
     return 1.0 / inv

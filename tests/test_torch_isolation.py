@@ -37,7 +37,8 @@ _EXPECTED = (
     "ops.kernels.fused_diffusion", "ops.kernels.fused_burgers",
     "ops.kernels.whole_run", "ops.kernels.fused_diffusion2d",
     "ops.kernels.fused_burgers2d", "timestepping.cfl", "cli.__main__",
-    "convert",
+    "convert", "models.ensemble", "resilience.errors", "cli.drivers",
+    "examples.inverse_diffusivity",
 )
 
 

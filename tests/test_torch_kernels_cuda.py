@@ -1,7 +1,7 @@
 """K1, K5 and K9, the port's CUDA stage kernels, K7/K7a, its 2-D
-whole-run kernels, K10, K2 and K6, its 3-D fused-step kernels, and
-K11/K11b and K12/K12b, its per-axis kernels, against their plain
-PyTorch twins on a GPU. Marked ``cuda``: it skips where no CUDA
+whole-run kernels, K10, K2 and K6, its 3-D fused-step kernels, K2b, the
+B-folded slab kernel of the ensemble engine, and K11/K11b and K12/K12b,
+its per-axis kernels, against their plain PyTorch twins on a GPU. Marked ``cuda``: it skips where no CUDA
 device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
@@ -23,6 +23,7 @@ from multigpu_advectiondiffusion_tpu_torch import (
     BurgersSolver,
     DiffusionConfig,
     DiffusionSolver,
+    EnsembleSolver,
     Grid,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
@@ -562,3 +563,107 @@ def test_adr_runs_match_generic_path(gpu_adr):
     got, want = s.advance_to(s0, t_end), generic.advance_to(s0, t_end)
     assert got.it == want.it == 3
     assert abs(float(got.t) - t_end) <= 1e-6 * t_end
+
+
+# --------------------------------------------------------------------- #
+# K2b: K2 and K6 with a member axis, one launch for the batch
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def gpu_k2b():
+    if not torch.cuda.is_available():
+        pytest.skip("K2b (csrc/fused_step_diffusion.cu "
+                    "slab_run_diffusion_batched, csrc/slab_run_burgers.cu "
+                    "slab_run_burgers_batched) needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zchunk", [3, 16])
+@pytest.mark.parametrize("steps", [1, 2, 5])
+@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 70, 6)])
+def test_k2b_diffusion_matches_twin_and_k2(gpu_k2b, shape, steps, zchunk):
+    """Every member of K2b equals the batched twin and the single K2 run of
+    that member, to the bit; one launch for the batch."""
+    B = 3
+    rng = np.random.default_rng(steps)
+    S0 = torch.full((B, *(n + 2 * fd.R for n in shape)), 0.25,
+                    device=gpu_k2b)
+    S0[:, 2:-2, 2:-2, 2:-2] = torch.from_numpy(
+        rng.random((B, *shape), dtype=np.float32))
+    kw = dict(taps=fd.stage_taps((0.1, 0.2, 0.3), (1.0, 0.5, 2.0)), band=2,
+              bc_value=0.25)
+    want = fsr.ping_pong_members(
+        lambda s, d: fds.step_reference(s, d, 1e-3, **kw), S0.clone(),
+        S0.clone(), steps)
+    before = fsr.slab_run_diffusion_batched.launches
+    A, C = S0.clone(), S0.clone()
+    got = fsr.slab_run_diffusion_batched(A, C, steps, 1e-3, zchunk=zchunk,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert fsr.slab_run_diffusion_batched.launches == before + 1
+    assert got is (C if steps % 2 else A)
+    assert torch.equal(got, want)
+    for i in range(B):
+        single = fsr.slab_run_diffusion(S0[i].clone(), S0[i].clone(), steps,
+                                        1e-3, zchunk=zchunk, **kw)
+        assert torch.equal(got[i], single), f"member {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 3])
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k2b_burgers_matches_twin_and_k6(gpu_k2b, case, steps):
+    name, kw, variant, nu = K5_CASES[case]
+    B, shape = 3, (23, 29, 37)
+    rng = np.random.default_rng(steps)
+    S0 = torch.from_numpy(rng.uniform(-0.2, 1.0, (B, *shape)).astype(
+        np.float32)).to(gpu_k2b)
+    params = fb.stage_params(pflux.get(name, **kw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    dt = 0.3 * 0.05
+    want = fsr.ping_pong_members(
+        lambda s, d: fsr.burgers_step_reference(s, d, dt, params=params),
+        S0.clone(), S0.clone(), steps)
+    before = fsr.slab_run_burgers_batched.launches
+    got = fsr.slab_run_burgers_batched(S0.clone(), torch.empty_like(S0),
+                                       steps, dt, params=params, zchunk=7)
+    torch.cuda.synchronize()
+    assert fsr.slab_run_burgers_batched.launches == before + 1
+    assert torch.equal(got, want)
+    for i in range(B):
+        single = fsr.slab_run_burgers(S0[i].clone(), torch.empty_like(S0[i]),
+                                      steps, dt, params=params, zchunk=7)
+        assert torch.equal(got[i], single), f"member {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,stepper,counter,per_run", [
+    ("pallas_slab", "ensemble-fold[fused-whole-run-slab]",
+     fsr.slab_run_diffusion_batched, lambda B, n: 1),
+    ("pallas_stage", "ensemble-vmap[fused-stage]", fd.fused_stage,
+     lambda B, n: 3 * B * n),
+    ("xla", "ensemble-vmap[generic-xla]", None, None),
+])
+def test_ensemble_rungs_match_looped_runs(gpu_k2b, impl, stepper, counter,
+                                          per_run):
+    """The diffusion ensemble on each rung equals the looped single runs
+    to the bit, with exact launch counts (the slab fold: one K2b launch a
+    run; the per-stage rung: K1 three times a step per member)."""
+    B, n = 4, 5
+    cfg = DiffusionConfig(grid=Grid.make(37, 29, 23,
+                                         lengths=(3.0, 2.5, 2.0)),
+                          ic="gaussian", impl=impl)
+    es = EnsembleSolver(DiffusionSolver, cfg, [
+        {"ic_params": (("width", 0.1 + 0.02 * i),)} for i in range(B)])
+    est = es.initial_state()
+    if counter is not None:
+        counter.launches = 0
+    out = es.run(est, n)
+    torch.cuda.synchronize()
+    assert es.engaged_path()["stepper"] == stepper
+    if counter is not None:
+        assert counter.launches == per_run(B, n)
+    for i in range(B):
+        ms = es.member_solver(i)
+        ref = ms.run(ms.initial_state(), n)
+        assert torch.equal(out.u[i], ref.u) and out.t[i] == ref.t
