@@ -152,7 +152,29 @@ ignored ``build/`` directory), then:
    runs; ``advance_to`` with per-member ``t_end``, per-member step counts
    equal to the looped runs'), an ADR ``diffusivity``/``reaction_rate``
    sweep at B = 4 on the ADR grid, 20 steps, and a member seeded with a
-   NaN named by ``EnsembleMemberDivergedError``.
+   NaN named by ``EnsembleMemberDivergedError``;
+28. holds K3, the windowed slab step of a shard of a z-slab mesh,
+   against its twin to the bit at the main shards' shapes (400x200x103
+   for diffusion, 400x400x203 for Burgers): the per-step window, the
+   split schedule's bottom ("lo") and top ("hi") calls on exchanged
+   operands, and the k = 4 deep windows, on the first and the last shard;
+   times K3 alone beside its bound and the twin;
+29. drives ``MultiGPU/Diffusion3d_Baseline`` on a ``{"dz": 2}`` mesh with
+   both shards on ``cuda:0`` (400x200x206, ``run(101)``): K1 serialized
+   (606 launches), K1 split (1,818), K3 (202) and K3 with
+   ``steps_per_exchange=4`` (202), each 0 ulp from the unsharded run of
+   its rung (K1, K1, K2, K2), ``t`` equal, the ``engaged_path()`` labels;
+   ms/step (median of 3 after a warm-up, CUDA events) beside the
+   unsharded run's, the halo refresh alone and the idle share;
+30. ``MultiGPU/Burgers3d_Baseline`` on ``{"dz": 2}`` (400x400x406, fixed
+   dt, ``run(267)``) on K5 (1,602 launches) and K3 (534), 0 ulp from the
+   unsharded K5 and K6 runs; ms/step timed over ``run(20)``;
+31. adaptive Burgers 512^3 on ``{"dz": 2}``, ``run(86)`` on K5: ``u`` and
+   ``t`` equal to the unsharded run's, at most one device-to-host copy
+   (dt from the shards' maxima on the card);
+32. the generic and per-axis rungs on ``{"dz": 2}`` at 10 steps
+   (diffusion 400x200x206, Burgers 400x400x406), 0 ulp from unsharded,
+   the per-axis launches summed over the shards (not timed).
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -214,6 +236,7 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import weno as kweno
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
+from multigpu_advectiondiffusion_tpu_torch.parallel import mesh as pmesh
 
 EPS32 = float(np.finfo(np.float32).eps)
 KERNEL_TOL = 32 * EPS32  # relative to max|twin|, the JAX suite's fused bound
@@ -282,7 +305,9 @@ COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K11b": klap.laplacian_o4_2d, "K12": kweno.flux_divergence_3d,
             "K12b": kweno.flux_divergence_2d, "K9": fa.fused_adr_stage,
             "K2b": fsr.slab_run_diffusion_batched,
-            "K2b-burgers": fsr.slab_run_burgers_batched}
+            "K2b-burgers": fsr.slab_run_burgers_batched,
+            "K3": fsr.slab_step_diffusion,
+            "K3-burgers": fsr.slab_step_burgers}
 
 
 def card_line() -> str:
@@ -2828,6 +2853,308 @@ def ensemble_phases(card: str) -> list[dict]:
     return [kd, kb]
 
 
+# --------------------------------------------------------------------- #
+# Phases 28-32: the z-slab mesh (two shards on one card) and K3
+# --------------------------------------------------------------------- #
+MESH_SHARDS = 2
+MESH_TIME_ITERS = 20  # the Burgers runs timed: run(20), not run(267)
+K3_DEEP = 4  # steps_per_exchange of the deep windows and the k-step path
+
+
+def two_shards():
+    return pmesh.make_mesh({"dz": MESH_SHARDS},
+                           devices=[torch.device("cuda:0")] * MESH_SHARDS)
+
+
+def k3_windows(lz: int, G: int):
+    """(name, window, operand, depth) of the main path's K3 calls on a
+    shard of lz planes: the per-step window, the split schedule's three
+    calls, and the k-step block's first (widest) call with its split
+    edge calls, and its last."""
+    d, w = K3_DEEP * G, (K3_DEEP - 1) * G
+    return [("step", (0, lz), None, G), ("interior", (G, lz - G), None, G),
+            ("lo", (0, G), "lo", G), ("hi", (lz - G, lz), "hi", G),
+            ("deep j=0", (-w, lz + w), None, d),
+            ("deep lo", (-w, G), "lo", d), ("deep hi", (lz - G, lz + w), "hi", d),
+            (f"deep j={K3_DEEP - 1}", (0, lz), None, d)]
+
+
+def k3_check(family: str, shape, step, step_ref, G: int, ring: int,
+             fill, card: str) -> dict:
+    """K3 against its twin at a main shard's shape, every window of
+    :func:`k3_windows` on the first and the last shard of two; times the
+    per-step window alone (K3) and its twin. ``step(S, out, **kw)`` /
+    ``step_ref`` take the window keywords; ``ring`` is the y/x ghost
+    width of the layout, ``fill`` the wall value of its ring (or None)."""
+    lz, ny, nx = shape
+    gnz = MESH_SHARDS * lz
+    rng = np.random.default_rng(28)
+    err, n = 0.0, 0
+    for name, window, op, depth in k3_windows(lz, G):
+        for oz in (0, gnz - lz):
+            pshape = (lz + 2 * depth, ny + 2 * ring, nx + 2 * ring)
+            S = torch.from_numpy(rng.uniform(
+                -0.1, 1.0, pshape).astype(np.float32)).cuda()
+            if fill is not None:
+                S[:, :ring] = S[:, -ring:] = fill
+                S[:, :, :ring] = S[:, :, -ring:] = fill
+            # an exchanged operand: other in-domain data, the same ring
+            opnd = S[:depth].flip(0).contiguous() if op else None
+            kw = dict(global_nz=gnz, oz=oz, depth=depth, window=window,
+                      lo=opnd if op == "lo" else None,
+                      hi=opnd if op == "hi" else None)
+            out0 = torch.zeros_like(S)
+            want = step_ref(S, out0.clone(), **kw)
+            got = step(S, out0.clone(), **kw)
+            torch.cuda.synchronize()
+            err = max(err, exact(f"K3 {family} {name} {window} at {shape}, "
+                                 f"shard z {oz}", got, want))
+            n += 1
+            del S, want, got, out0
+    torch.cuda.empty_cache()
+    pshape = (lz + 2 * G, ny + 2 * ring, nx + 2 * ring)
+    bufs = [torch.rand(pshape, device="cuda") for _ in range(3)]
+    kw = dict(global_nz=gnz, oz=0, depth=G, window=(0, lz))
+    outs = torch.empty_like(bufs[0])
+    ms = alone_ms(lambda S: step(S, outs, **kw), bufs, 5)
+    plain = statistics.median(cuda_ms(lambda: step_ref(
+        bufs[0], outs, **kw), 2))
+    del bufs, outs
+    torch.cuda.empty_cache()
+    print(f"  K3 {family}: {n} windows 0 ulp; alone (per-step window "
+          f"{lz} planes) {ms:.4f} ms; twin {plain:.2f} ms [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "windows": n}
+
+
+def mesh_run(name, solver, one, state0, iters: int, expect: dict,
+             label: tuple, card: str, time_iters: int | None = None):
+    """One sharded main path: :func:`drive` (every count 0 before, read
+    after), the labels, 0 ulp and ``t`` equal to ``one``'s unsharded run;
+    then ms/step of both, timed over ``time_iters`` (median of 3 after a
+    warm-up, CUDA events; not timed when it is 0). Returns the
+    numbers."""
+    path = solver.engaged_path()
+    got_label = (path["stepper"], path["overlap"],
+                 path["steps_per_exchange"])
+    print(f"  {name}: engaged {got_label}")
+    if got_label != label:
+        raise AssertionError(f"{name}: engaged {got_label}, not {label}")
+    out = drive(name, solver, state0, iters, expect)
+    want = one.run(one_state(one, state0), iters)
+    torch.cuda.synchronize()
+    n_ulps = ulps(out.u.assemble(), want.u)
+    print(f"  {name}: {n_ulps} ulp from the unsharded run, t {out.t!r} vs "
+          f"{want.t!r}")
+    if n_ulps != 0 or out.t != want.t or out.it != want.it:
+        raise AssertionError(f"{name}: differs from the unsharded run")
+    del out, want
+    if time_iters == 0:
+        return {}
+    n = time_iters or iters
+    ms, reps = run_ms(solver, state0, n)
+    one0 = one_state(one, state0)
+    ms1, reps1 = run_ms(one, one0, n)
+    print(f"  {name} run({n}): {ms / n:.4f} ms/step "
+          f"({[round(r, 3) for r in reps]} ms); unsharded "
+          f"{ms1 / n:.4f} ms/step ({[round(r, 3) for r in reps1]}); "
+          f"x{ms / ms1:.2f} [{card}]")
+    return {"ms_per_step": ms / n, "unsharded_ms_per_step": ms1 / n}
+
+
+def one_state(one, state0):
+    """The sharded state ``state0`` gathered for the unsharded solver."""
+    return type(state0)(u=state0.u.assemble(), t=state0.t, it=state0.it)
+
+
+def halo_ms(solver, state0, reps: int = 50) -> float:
+    """The engaged fused stepper's exchange alone, ms per exchange of both
+    shards (CUDA events around ``reps`` of them): the ghost refresh, or
+    under the split schedule the two z slabs exchanged on the exchange
+    stream and joined to the compute stream."""
+    fused = solver._fused_stepper()
+
+    def body(u):
+        refresh, _, exch = solver._fused_sharded_ctx(fused)
+        S = fused.embed(u)
+        for _ in range(reps):
+            if exch is not None:
+                pmesh.wait_exchange(*exch(S))
+            else:
+                refresh(S)
+        return (u,)
+
+    f = pmesh.shard_map(body, solver.mesh, (solver.decomp,),
+                        (solver.decomp,))
+    f(state0.u)
+    return statistics.median(cuda_ms(lambda: f(state0.u), 3)) / reps
+
+
+def mesh_phases(card: str) -> list[dict]:
+    """Phases 28-32; returns K3's two entries (diffusion, Burgers)."""
+    print("phase 28: K3 against its twin at the main shards' shapes")
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    dcfg = DiffusionConfig(grid=grid, dtype="float32", impl="pallas")
+    one = DiffusionSolver(dcfg)
+    taps = fd.stage_taps(grid.spacing, [dcfg.diffusivity] * 3)
+    dkw = dict(taps=taps, band=dcfg.boundary_band, bc_value=0.0)
+    lz = grid.shape[0] // MESH_SHARDS
+    dshape = (lz,) + grid.shape[1:]
+    G = fsr.SlabRunDiffusionStepper.halo
+    k3d = k3_check(
+        "diffusion", dshape,
+        lambda S, o, **kw: fsr.slab_step_diffusion(S, o, one.dt, **dkw, **kw),
+        lambda S, o, **kw: fsr.slab_step_diffusion_reference(
+            S, o, one.dt, **dkw, **kw), G, fd.R, 0.0, card)
+    bgrid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    bcfg = BurgersConfig(grid=bgrid, cfl=K6_CFL, adaptive_dt=False,
+                         dtype="float32", impl="pallas_slab")
+    bone = BurgersSolver(bcfg)
+    params = fb.stage_params(bone.flux, bcfg.weno_variant, bgrid.spacing,
+                             bcfg.nu)
+    blz = bgrid.shape[0] // MESH_SHARDS
+    bshape = (blz,) + bgrid.shape[1:]
+    BG = fsr.SlabRunBurgersStepper.halo
+    k3b = k3_check(
+        "burgers", bshape,
+        lambda S, o, **kw: fsr.slab_step_burgers(S, o, bone.dt,
+                                                 params=params, **kw),
+        lambda S, o, **kw: fsr.slab_step_burgers_reference(
+            S, o, bone.dt, params=params, **kw), BG, 0, None, card)
+
+    print(f"phase 29: MultiGPU/Diffusion3d_Baseline on {{'dz': 2}} "
+          f"(cuda:0 twice), run({ITERS}) at {grid.shape}")
+    mesh = two_shards()
+    runs = {}
+    for name, kw, plain, expect, label in (
+            ("K1 serialized", {}, "pallas_stage", {"K1": 6 * ITERS},
+             ("fused-stage", "serialized-refresh", 1)),
+            ("K1 split", {"overlap": "split"}, "pallas_stage",
+             {"K1": 18 * ITERS}, ("fused-stage", "split", 1)),
+            ("K3", {"impl": "pallas_slab"}, "pallas_slab",
+             {"K3": 2 * ITERS}, ("fused-whole-run-slab",
+                                 "serialized-refresh", 1)),
+            (f"K3 k={K3_DEEP}", {"impl": "pallas_slab",
+                                 "steps_per_exchange": K3_DEEP},
+             "pallas_slab", {"K3": 2 * ITERS},
+             ("fused-whole-run-slab", "serialized-refresh", K3_DEEP))):
+        cfg = dataclasses.replace(dcfg, **kw)
+        solver = DiffusionSolver(cfg, mesh=mesh,
+                                 decomp=pmesh.Decomposition.slab("dz"))
+        plain_solver = DiffusionSolver(dataclasses.replace(
+            dcfg, impl=plain))
+        state0 = solver.initial_state()
+        runs[name] = mesh_run(name, solver, plain_solver, state0, ITERS,
+                              expect, label, card)
+        if name in ("K1 serialized", "K1 split", "K3"):
+            runs[name]["halo_ms"] = halo_ms(solver, state0)
+            what = ("z-slab exchange" if name == "K1 split"
+                    else "ghost refresh")
+            print(f"  {name}: one {what} of both shards alone "
+                  f"{runs[name]['halo_ms']:.4f} ms [{card}]")
+        if name in ("K1 serialized", "K1 split"):
+            prof = run_profile(lambda: solver.run(state0, ITERS),
+                               "stage_kernel")
+            if prof:
+                runs[name]["device_idle_share"] = 1 - (
+                    prof["busy_ms"] / prof["span_ms"])
+                print(f"  {name}: profiled idle share "
+                      f"{runs[name]['device_idle_share']:.4f}, K1 "
+                      f"{prof['kernel_ms']:.4f} ms a launch [{card}]")
+        del solver, plain_solver, state0
+        torch.cuda.empty_cache()
+
+    print(f"phase 30: MultiGPU/Burgers3d_Baseline on {{'dz': 2}}, fixed dt, "
+          f"run({K6_ITERS}) at {bgrid.shape}")
+    for name, impl, plain, expect, label in (
+            ("K5", "pallas", "pallas_stage", {"K5": 6 * K6_ITERS},
+             ("fused-stage", "serialized-refresh", 1)),
+            ("K3 burgers", "pallas_slab", "pallas_slab",
+             {"K3-burgers": 2 * K6_ITERS},
+             ("fused-whole-run-slab", "serialized-refresh", 1))):
+        solver = BurgersSolver(dataclasses.replace(bcfg, impl=impl),
+                               mesh=mesh)
+        plain_solver = BurgersSolver(dataclasses.replace(bcfg, impl=plain))
+        state0 = solver.initial_state()
+        runs[name] = mesh_run(name, solver, plain_solver, state0, K6_ITERS,
+                              expect, label, card,
+                              time_iters=MESH_TIME_ITERS)
+        del solver, plain_solver, state0
+        torch.cuda.empty_cache()
+
+    print(f"phase 31: adaptive Burgers {BURGERS_N}^3 on {{'dz': 2}}, "
+          f"run({BURGERS_ITERS}) on K5")
+    agrid = Grid.make(BURGERS_N, BURGERS_N, BURGERS_N, lengths=2.0)
+    acfg = BurgersConfig(grid=agrid, nu=BURGERS_NU, dtype="float32",
+                         impl="pallas")
+    solver = BurgersSolver(acfg, mesh=mesh)
+    plain_solver = BurgersSolver(acfg)
+    state0 = solver.initial_state()
+    runs["K5 adaptive"] = mesh_run(
+        "K5 adaptive", solver, plain_solver, state0, BURGERS_ITERS,
+        {"K5": 6 * BURGERS_ITERS}, ("fused-stage", "serialized-refresh", 1),
+        card, time_iters=MESH_TIME_ITERS)
+    reads = count_reads(lambda: solver.run(state0, BURGERS_ITERS))
+    prof = run_profile(lambda: solver.run(state0, BURGERS_ITERS),
+                       "stage_kernel")
+    dtoh = None if prof is None else prof["dtoh"]
+    print(f"  K5 adaptive: host reads of device scalars {reads}, "
+          f"device-to-host copies {dtoh} in a profiled run [{card}]")
+    if reads > 1 or (dtoh is not None and dtoh > 1):
+        raise AssertionError("the sharded adaptive run read dt back")
+    del solver, plain_solver, state0
+    torch.cuda.empty_cache()
+
+    print("phase 32: the generic and per-axis rungs on {'dz': 2}, 10 steps")
+    for family, cfg, impls in (
+            ("diffusion", dcfg, (("xla", {}), ("pallas_axis",
+                                               {"K11": 6 * 10}))),
+            ("burgers", bcfg, (("xla", {}), ("pallas_axis",
+                                             {"K12": 18 * 10})))):
+        cls = DiffusionSolver if family == "diffusion" else BurgersSolver
+        for impl, expect in impls:
+            c = dataclasses.replace(cfg, impl=impl)
+            solver, plain_solver = cls(c, mesh=mesh), cls(c)
+            state0 = solver.initial_state()
+            label = ("per-axis-pallas" if impl == "pallas_axis"
+                     else "generic-xla", "padded", 1)
+            mesh_run(f"{family} {impl}", solver, plain_solver, state0, 10,
+                     expect, label, card, time_iters=0)
+            del solver, plain_solver, state0
+            torch.cuda.empty_cache()
+
+    dw = (lz + 2 * G) * grid.shape[1] * grid.shape[2]
+    d_bound, d_by = kernel_bound(dw, math.prod(dshape),
+                                 100 * math.prod(dshape))
+    bw = (blz + 2 * BG) * bgrid.shape[1] * bgrid.shape[2]
+    b_bound, b_by = kernel_bound(bw, math.prod(bshape),
+                                 k6_step_ops(bshape, False,
+                                             bcfg.weno_variant))
+    common = {"id": "K3", "route": "cuda",
+              "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                          "fused_slab_run.py:508",
+              "library_ms": None,
+              "library_call": "none: no single PyTorch call computes an RK "
+                              "step"}
+    return [{
+        **common, "name": "slab_step_diffusion",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_step_diffusion.cu",
+        "launches": 2 * ITERS, "max_abs_err": k3d["max_abs_err"],
+        "ms": k3d["ms"], "plain_ms": k3d["plain_ms"], "bound_ms": d_bound,
+        "bound_by": d_by, "windows_checked": k3d["windows"],
+        "paths": {k: runs[k] for k in ("K1 serialized", "K1 split", "K3",
+                                       f"K3 k={K3_DEEP}")},
+    }, {
+        **common, "name": "slab_step_burgers",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "slab_run_burgers.cu",
+        "launches": 2 * K6_ITERS, "max_abs_err": k3b["max_abs_err"],
+        "ms": k3b["ms"], "plain_ms": k3b["plain_ms"], "bound_ms": b_bound,
+        "bound_by": b_by, "windows_checked": k3b["windows"],
+        "paths": {k: runs[k] for k in ("K5", "K3 burgers", "K5 adaptive")},
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2908,8 +3235,8 @@ def main() -> int:
     span_ms, busy_ms, per_kernel = retake(
         lambda: device_profile(lambda: solver.run(state0, ITERS)),
         lambda r: sum("stage_kernel<" in k for k in r[2]) == 2)
-    s1 = [ms for k, ms in per_kernel.items() if "stage_kernel<false>" in k]
-    s23 = [ms for k, ms in per_kernel.items() if "stage_kernel<true>" in k]
+    s1 = [ms for k, ms in per_kernel.items() if "stage_kernel<false" in k]
+    s23 = [ms for k, ms in per_kernel.items() if "stage_kernel<true" in k]
     if len(s1) != 1 or len(s23) != 1:
         raise AssertionError(f"profiled run missed K1: {list(per_kernel)}")
     in_run_ms = (s1[0] + 2 * s23[0]) / 3
@@ -2976,6 +3303,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phases 23-27: the batched ensemble engine (K2b)")
     k2b = ensemble_phases(card)
+    torch.cuda.empty_cache()
+    print("phases 28-32: the z-slab mesh (K3, sharded K1/K5)")
+    k3 = mesh_phases(card)
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -3020,7 +3350,8 @@ def main() -> int:
         "device_idle_share": idle,
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
-    }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b]
+    }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b,
+        *k3]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ that one config builds both solvers and each counterpart is easy to
 find. It imports ``torch`` and numpy, never ``jax`` and never the JAX
 package.
 
-Ported so far, on one device, each family with the generic PyTorch
-path (``impl="xla"``) and rungs whose kernels are hand-written CUDA for
+Ported so far, each family with the generic PyTorch path
+(``impl="xla"``) and rungs whose kernels are hand-written CUDA for
 Hopper (ids as in PERF.md's kernel table):
 
 * 3-D diffusion: one launch per RK stage (K1,
@@ -31,6 +31,15 @@ Hopper (ids as in PERF.md's kernel table):
   ``csrc/slab_run_burgers.cu``) or the stage kernel launched per member,
   member-varying scalars on the generic loop, differentiable by
   ``torch.autograd`` (``examples/inverse_diffusivity.py``).
+
+* device meshes (``parallel/mesh.py``, ``parallel/halo.py``): one
+  process drives every shard, one thread and CUDA stream a shard;
+  diffusion and Burgers run every rung the JAX package runs on a mesh —
+  the generic and per-axis rungs on any decomposition, K1 and K5
+  shard-local on z slabs with global offsets, and the slab rung as K3,
+  one launch over an output window a step (``csrc/fused_step_diffusion.cu``,
+  ``csrc/slab_run_burgers.cu``). ``make_mesh({"dz": 2}, devices=[...])``
+  may name one device twice (two shards on one card, or CPU shards).
 
 The families register in ``models/registry.py``; the CLI generates its
 verbs from that registry.

@@ -23,21 +23,29 @@ registry (``models/registry.py``).
     python -m multigpu_advectiondiffusion_tpu_torch.cli diffusion3d \
         --n 256 128 64 --lengths 6.4 3.2 1.6 --iters 60 --impl pallas_slab \
         --ic gaussian --ensemble 64 --sweep ic.width=0.1:0.226 --save out/
+    python -m multigpu_advectiondiffusion_tpu_torch.cli diffusion3d \
+        --n 400 200 206 --lengths 10 5 5.15 --iters 101 --impl pallas \
+        --mesh dz=2 --overlap split
 
 The flags are the JAX CLI's flags of the same names. ``--ensemble B``
 with ``--sweep NAME=a:b`` (or ``NAME=v1,...``, repeatable; NAME a
 family's sweep alias such as ``K``, a member-varying scalar, or
 ``ic.PARAM``) runs B members in one batched dispatch
 (``cli/drivers.py``) and prints and saves one summary row per member.
-The run goes to the GPU unless ``--device cpu`` is given. The summary names the kernel
-path that ran, as the JAX CLI's summary does, and the launches of each
-hand-written kernel in the run. ``--save DIR`` writes
+The run goes to the GPU unless ``--device cpu`` is given. ``--mesh
+dz=P`` (``dz=2,dy=2``, ...) runs on a device mesh: P visible cards, or P
+shards on ``--device`` (``--device cpu``: P CPU shards). The summary
+names the kernel path that ran, as the JAX CLI's summary does, the mesh
+and its halo schedule, and the launches of each hand-written kernel in
+the run (summed over the shards). ``--save DIR`` writes
 ``initial.bin`` and ``result.bin`` in the reference's float32 layout.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 import os
 import sys
 import time
@@ -64,6 +72,10 @@ from multigpu_advectiondiffusion_tpu_torch.timestepping.integrators import (
     STAGES,
 )
 from multigpu_advectiondiffusion_tpu_torch.utils import io, metrics
+from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
+    Decomposition,
+    make_mesh,
+)
 from multigpu_advectiondiffusion_tpu_torch.utils.ic import (
     REGISTRY as ic_registry,
 )
@@ -143,13 +155,33 @@ def _common(p, ndim: int) -> None:
                         "IC parameter as ic.PARAM (e.g. ic.width); "
                         "repeatable")
     p.add_argument("--mesh", default=None,
-                   help="device mesh (the JAX CLI's flag): not ported yet; "
-                        "refused, with --ensemble in the JAX CLI's words")
+                   help="device-mesh spec, e.g. 'dz=2' or 'dz=2,dy=2': P "
+                        "visible GPUs, or P shards on --device (e.g. "
+                        "--device cpu); mesh axis dz/dy/dx shards grid "
+                        "axis z/y/x. With --ensemble refused in the JAX "
+                        "CLI's words")
+    p.add_argument("--overlap", default="padded",
+                   choices=["padded", "split"],
+                   help="sharded halo schedule: 'padded' exchanges before "
+                        "each stencil, 'split' computes the interior while "
+                        "the z slabs are exchanged (the fused rungs' "
+                        "three-call interior/edge schedule)")
+    p.add_argument("--steps-per-exchange", type=int, default=1, metavar="K",
+                   help="exchange a K*G-deep ghost zone once per K steps "
+                        "instead of G-deep every step (sharded z-slab "
+                        "slab-rung runs only)")
+    p.add_argument("--exchange", choices=["collective", "dma"],
+                   default="collective",
+                   help="halo transport: collective (the only one ported; "
+                        "dma, the in-kernel remote DMA, raises)")
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(solver) -> None:
+    devices = ([solver.device] if solver.mesh is None
+               else solver.mesh.device_list())
+    for device in set(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _grid(args) -> Grid:
@@ -170,10 +202,52 @@ def run_model(args) -> int:
                             aliases=dict(spec.sweep_aliases),
                             counters=_COUNTERS)
         return 0
+    knobs = {"overlap": args.overlap,
+             "steps_per_exchange": args.steps_per_exchange,
+             "exchange": args.exchange}
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    cfg = dataclasses.replace(
+        cfg, **{k: v for k, v in knobs.items() if k in fields})
     if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet")
-    return _drive(args.command, spec.solver_cls(cfg, device=args.device),
-                  args, check_error=spec.check_error and args.check_error)
+        mesh, sizes = parse_mesh_spec(args.mesh, args.device)
+        solver = spec.solver_cls(cfg, mesh=mesh,
+                                 decomp=decomposition_for(cfg.grid, sizes))
+    else:
+        solver = spec.solver_cls(cfg, device=args.device)
+    return _drive(args.command, solver, args,
+                  check_error=spec.check_error and args.check_error)
+
+
+def parse_mesh_spec(spec: str, device=None):
+    """``'dz=4,dy=2'`` -> ``(mesh, sizes)`` (the JAX CLI's function): the
+    visible GPUs, or every shard on ``device`` when one is given."""
+    sizes = {}
+    for part in spec.split(","):
+        name, _, num = part.partition("=")
+        sizes[name.strip()] = int(num)
+    devices = None
+    if device is not None:
+        devices = [torch.device(device)] * math.prod(sizes.values())
+    return make_mesh(sizes, devices=devices), sizes
+
+
+def decomposition_for(grid, mesh_sizes) -> Decomposition:
+    """Mesh axis names map to grid axes by suffix: dz/dy/dx -> z/y/x; a
+    ``_suffix`` after the letter declares a member of a compound axis
+    (outermost first), as in the JAX CLI."""
+    names = ("z", "y", "x")[-grid.ndim:]
+    suffix_to_axis = {n: ax for ax, n in enumerate(names)}
+    groups = {}
+    for mesh_name in mesh_sizes:
+        suffix = mesh_name.lstrip("d").split("_", 1)[0]
+        if suffix not in suffix_to_axis:
+            raise ValueError(
+                f"mesh axis {mesh_name!r} has no grid axis (grid axes: "
+                f"{names})")
+        groups.setdefault(suffix_to_axis[suffix], []).append(mesh_name)
+    return Decomposition.of({
+        ax: (ns[0] if len(ns) == 1 else tuple(ns))
+        for ax, ns in groups.items()})
 
 
 # the launch counter of each hand-written kernel, by name
@@ -188,6 +262,8 @@ _COUNTERS = {
     "K2b slab_run_diffusion_batched":
         fused_slab_run.slab_run_diffusion_batched,
     "K2b slab_run_burgers_batched": fused_slab_run.slab_run_burgers_batched,
+    "K3 slab_step_diffusion": fused_slab_run.slab_step_diffusion,
+    "K3 slab_step_burgers": fused_slab_run.slab_step_burgers,
     "K11 laplacian_o4_3d": laplacian.laplacian_o4_3d,
     "K11b laplacian_o4_2d": laplacian.laplacian_o4_2d,
     "K12 weno_axis_3d": weno.flux_divergence_3d,
@@ -208,13 +284,13 @@ def _drive(verb: str, solver, args, check_error: bool = False) -> int:
 
     for counter in _COUNTERS.values():
         counter.launches = 0
-    _sync(solver.device)
+    _sync(solver)
     t0 = time.perf_counter()
     if args.t_end is None:
         out = solver.run(state, args.iters if args.iters is not None else 100)
     else:
         out = solver.advance_to(state, args.t_end)
-    _sync(solver.device)
+    _sync(solver)
     seconds = time.perf_counter() - t0
     iters = out.it - state.it
 
@@ -231,6 +307,12 @@ def _drive(verb: str, solver, args, check_error: bool = False) -> int:
     print(f" device             : {device} [{where}]")
     print(f" dtype              : {args.dtype}")
     print(f" kernel path        : {line}")
+    if solver.mesh is not None:
+        print(f" mesh               : {solver.mesh.shape} on "
+              f"{', '.join(str(d) for d in solver.mesh.device_list())}; "
+              f"overlap={engaged['overlap']}, steps/exchange="
+              f"{engaged['steps_per_exchange']}, "
+              f"exchange={engaged['exchange']}")
     if engaged["fallback"]:
         print(f" fused fallback     : {engaged['fallback']}")
     launched = [f"{name} x{c.launches}" for name, c in _COUNTERS.items()

@@ -73,8 +73,9 @@ def check_ensemble_mesh(mesh_spec) -> None:
             "--mesh or add the members axis"
         )
     raise NotImplementedError(
-        "member-sharded meshes (--mesh members=P) are not ported yet; "
-        "the port's ensemble runs on one device — drop --mesh"
+        "member-sharded meshes (--mesh members=P) are not ported yet "
+        "(ROADMAP queue 1 item 8f); the port's ensemble runs on one "
+        "device — drop --mesh"
     )
 
 

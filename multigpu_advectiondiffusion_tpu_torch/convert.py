@@ -9,7 +9,9 @@ so this module needs neither package's framework from the other side:
   :func:`burgers_config_from_fields` a :class:`BurgersConfig` and
   :func:`adr_config_from_fields` an :class:`ADRConfig`;
 * :func:`state_from_numpy` / :func:`state_to_numpy` move a state
-  ``(u, t, it)`` in and out as numpy, keeping ``t``'s precision.
+  ``(u, t, it)`` in and out as numpy, keeping ``t``'s precision; with
+  ``mesh=``/``decomp=`` the field is scattered onto the mesh's shards
+  (and gathered back).
 """
 
 from __future__ import annotations
@@ -28,8 +30,12 @@ from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
     DiffusionConfig,
 )
 from multigpu_advectiondiffusion_tpu_torch.models.state import (
+    ShardedArray,
     SolverState,
     time_dtype,
+)
+from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
+    Decomposition,
 )
 
 
@@ -90,17 +96,32 @@ def adr_config_from_fields(fields: dict) -> ADRConfig:
     return _from_fields(ADRConfig, fields)
 
 
-def state_from_numpy(u, t, it=0, device=None) -> SolverState:
+def state_from_numpy(u, t, it=0, device=None, mesh=None,
+                     decomp=None) -> SolverState:
     """A port state from numpy ``u`` (``(nz, ny, nx)``, float32/float64),
-    time ``t`` and step count ``it``; ``device=None`` means the GPU."""
+    time ``t`` and step count ``it``; ``device=None`` means the GPU.
+    With ``mesh`` the field is scattered onto its shards (``decomp``
+    defaulting to z slabs over the mesh's first axis, as a solver's
+    does) and ``device`` must be ``None``."""
     arr = np.array(u, order="C")  # a writable copy the tensor may own
     if arr.dtype not in (np.float32, np.float64):
         raise TypeError(f"float32/float64 field expected, got {arr.dtype}")
-    dev = resolve_device(device)
-    ut = torch.from_numpy(arr).to(dev)
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("a mesh names its devices; pass device=None")
+        for dev in mesh.device_list():
+            resolve_device(dev)
+        decomp = decomp or Decomposition.slab(tuple(mesh.shape)[0])
+        ut = ShardedArray.scatter(torch.from_numpy(arr), mesh, decomp)
+    else:
+        ut = torch.from_numpy(arr).to(resolve_device(device))
     return SolverState(u=ut, t=time_dtype(ut.dtype)(t), it=int(it))
 
 
 def state_to_numpy(state: SolverState):
-    """``(u, t, it)`` as a numpy array, a numpy scalar and an int."""
-    return state.u.detach().cpu().numpy(), state.t, int(state.it)
+    """``(u, t, it)`` as a numpy array (a sharded field gathered), a
+    numpy scalar and an int."""
+    u = state.u
+    if isinstance(u, ShardedArray):
+        return u.numpy(), state.t, int(state.it)
+    return u.detach().cpu().numpy(), state.t, int(state.it)

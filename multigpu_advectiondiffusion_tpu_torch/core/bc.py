@@ -59,3 +59,19 @@ def pad_axis(u: torch.Tensor, axis: int, halo: int, bc: Boundary):
     k = 2 * (u.ndim - 1 - axis)
     pw[k] = pw[k + 1] = halo
     return F.pad(u, pw, mode="constant", value=bc.value)
+
+
+def boundary_halo(u: torch.Tensor, axis: int, halo: int, bc: Boundary,
+                  side: str) -> torch.Tensor:
+    """The ghost block a *global* domain edge would receive (no wrap):
+    what the halo exchange hands the global-edge shards of a
+    non-periodic axis in place of the cyclic ``ppermute`` result."""
+    if bc.kind == "periodic":
+        raise ValueError("periodic axes take their halo from the ppermute")
+    n = u.shape[axis]
+    if bc.kind == "edge":
+        face = u.narrow(axis, 0 if side == "left" else n - 1, 1)
+        return torch.repeat_interleave(face, halo, dim=axis)
+    shape = list(u.shape)
+    shape[axis] = halo
+    return torch.full(shape, bc.value, dtype=u.dtype, device=u.device)

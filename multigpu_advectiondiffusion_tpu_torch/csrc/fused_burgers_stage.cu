@@ -26,9 +26,17 @@
 // (ops/kernels/fused_burgers.py::stage_reference), so the two agree to
 // the bit on the card.
 //
-// Layout: the state is unpadded (nz, ny, nx) contiguous float32. Edge
-// boundaries replicate the face value, so every neighbour index is
-// clamped into the grid: there are no ghost cells to maintain.
+// Layout: unsharded, the state is unpadded (nz, ny, nx) contiguous
+// float32. Edge boundaries replicate the face value, so every neighbour
+// index is clamped into the grid: there are no ghost cells to maintain.
+// A shard of a z-slab mesh keeps zpad = 3 ghost planes below and above
+// its (lz, ny, nx) block, (lz + 6, ny, nx), which the halo refresh
+// rewrites from the neighbours after every stage (parallel/halo.py); a
+// z neighbour index is clamped at the global z edges only (the TPU
+// kernel's edge fill keys on global rows, fused_burgers.py:846-910), y
+// and x as before. The split schedule's calls write the planes
+// [k_begin, k_end) of the block and may take the ghost planes below or
+// above from the exchanged operands lo/hi ((3, ny, nx) each).
 //
 // Aliasing: the third stage runs in place (u == out). That is safe
 // because each thread reads u only at its own cell, before it writes
@@ -95,16 +103,44 @@ struct Params {
   float a, b;       // stage combination
 };
 
-template <int FLUX, bool WZ>
+// Where the z planes of a launch lie: the block's planes start zpad rows
+// into the buffer, its plane k is global plane k + oz of gnz, and the
+// launch writes the planes [k_begin, k_end).
+struct ZGeometry {
+  int zpad, gnz, oz, k_begin, k_end;
+};
+
+// Buffer plane of the z neighbour of block plane k at global offset d,
+// clamped at the global z edges; rows in the ghost region come from
+// lo/hi where one is given. Unsharded, the plane clamped into [0, nz).
+template <bool SHARDED, bool OPERANDS>
+__device__ __forceinline__ const float* zplane(const float* v,
+                                               const float* lo,
+                                               const float* hi, int k, int d,
+                                               int nz, long long P,
+                                               const ZGeometry& g) {
+  if (!SHARDED) return v + clampi(k + d, 0, nz - 1) * P;
+  const int row = clampi(k + d + g.oz, 0, g.gnz - 1) - g.oz + g.zpad;
+  if (OPERANDS && lo != nullptr && row < g.zpad) return lo + row * P;
+  if (OPERANDS && hi != nullptr && row >= nz + g.zpad)
+    return hi + (row - nz - g.zpad) * P;
+  return v + row * P;
+}
+
+// SHARDED and OPERANDS are compile-time so that the unsharded launch
+// (SHARDED false: no ghost planes, every plane, no operands) carries none
+// of the sharded geometry's arithmetic or tests.
+template <int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
 __global__ void __launch_bounds__(BX * BY)
 stage_kernel(const float* __restrict__ v, const float* u, float* out,
-             int nz, int ny, int nx, int zchunk, Params p,
+             const float* __restrict__ lo, const float* __restrict__ hi,
+             int nz, int ny, int nx, int zchunk, ZGeometry g, Params p,
              const float* __restrict__ dt_ptr, unsigned int* mx) {
   const int i = blockIdx.x * BX + threadIdx.x;  // x index
   const int j = blockIdx.y * BY + threadIdx.y;  // y index
   const bool valid = i < nx && j < ny;
-  const int k0 = blockIdx.z * zchunk;
-  const int k1 = min(k0 + zchunk, nz);
+  const int k0 = (SHARDED ? g.k_begin : 0) + blockIdx.z * zchunk;
+  const int k1 = min(k0 + zchunk, SHARDED ? g.k_end : nz);
   unsigned int mbits = 0u;  // max |f'(rk)| of this thread, as bits
 
   if (valid) {
@@ -114,7 +150,7 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
     const float c = p.c;
 
     // clamped (edge) neighbour offsets, q = 0..6 for offset q-3
-    int oy[7], ox[7], oz[7];
+    int oy[7], ox[7];
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
       oy[q] = (clampi(j + q - 3, 0, ny - 1) - j) * nx;
@@ -125,14 +161,13 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
     float W[7], Zp[7], Zm[7];
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
-      oz[q] = clampi(k0 + q - 3, 0, nz - 1);
-      W[q] = v[(long long)oz[q] * P + col];
+      W[q] = zplane<SHARDED, OPERANDS>(v, lo, hi, k0, q - 3, nz, P, g)[col];
       split<FLUX>(W[q], c, Zp[q], Zm[q]);
     }
     float hz_lo = face<WZ>(&Zp[0], &Zm[1]);  // face k0-1/2
 
     for (int k = k0; k < k1; ++k) {
-      const long long cell = (long long)k * P + col;
+      const long long cell = (long long)(SHARDED ? k + g.zpad : k) * P + col;
       const float hz_hi = face<WZ>(&Zp[1], &Zm[2]);  // face k+1/2
       const float dz = (hz_hi - hz_lo) * p.inv_dx[0];
 
@@ -181,8 +216,11 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
         Zp[q] = Zp[q + 1];
         Zm[q] = Zm[q + 1];
       }
-      W[6] = v[(long long)clampi(k + 4, 0, nz - 1) * P + col];
-      split<FLUX>(W[6], c, Zp[6], Zm[6]);
+      // a shard's plane k+4 lies in its buffer only if it is needed
+      if (!SHARDED || k + 1 < k1) {
+        W[6] = zplane<SHARDED, OPERANDS>(v, lo, hi, k, 4, nz, P, g)[col];
+        split<FLUX>(W[6], c, Zp[6], Zm[6]);
+      }
     }
   }
 
@@ -201,34 +239,63 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
   }
 }
 
-template <int FLUX, bool WZ>
-void launch(const float* v, const float* u, float* out, int nz, int ny,
-            int nx, int zchunk, const Params& p, const float* dt,
+template <int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
+void launch_as(const float* v, const float* u, float* out, const float* lo,
+            const float* hi, int nz, int ny, int nx, int zchunk,
+            const ZGeometry& g, const Params& p, const float* dt,
             unsigned int* mx, cudaStream_t s) {
   const dim3 block(BX, BY, 1);
   const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY,
-                  (nz + zchunk - 1) / zchunk);
-  stage_kernel<FLUX, WZ><<<grid, block, 0, s>>>(v, u, out, nz, ny, nx,
-                                                zchunk, p, dt, mx);
+                  (g.k_end - g.k_begin + zchunk - 1) / zchunk);
+  stage_kernel<FLUX, WZ, SHARDED, OPERANDS><<<grid, block, 0, s>>>(
+      v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, mx);
+}
+
+template <int FLUX, bool WZ>
+void launch(const float* v, const float* u, float* out, const float* lo,
+            const float* hi, int nz, int ny, int nx, int zchunk,
+            const ZGeometry& g, const Params& p, const float* dt,
+            unsigned int* mx, cudaStream_t s) {
+  if (lo != nullptr || hi != nullptr)
+    launch_as<FLUX, WZ, true, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g,
+                                    p, dt, mx, s);
+  else if (g.zpad != 0 || g.k_begin != 0 || g.k_end != nz)
+    launch_as<FLUX, WZ, true, false>(v, u, out, lo, hi, nz, ny, nx, zchunk,
+                                     g, p, dt, mx, s);
+  else
+    launch_as<FLUX, WZ, false, false>(v, u, out, lo, hi, nz, ny, nx, zchunk,
+                                      g, p, dt, mx, s);
 }
 
 }  // namespace
 
-// Launch one stage on `stream`. `u` is null for stage 1 and may equal
-// `out` (in-place stage 3). `dt` points to one float on the device.
-// `flux` is 0 (Burgers), 1 (linear, speed `c`) or 2 (Buckley-Leverett);
-// `weno_z` selects the WENO5-Z weights. `inv_dx` points to 3 host floats
-// (z, y, x) and `lap` to 15 host floats, or is null for an inviscid
-// run. `mx`, when not null, points to one float on the device that
-// receives max|f'(out)| (it is zeroed here first, on the stream).
-// Returns the first CUDA error (0 on success); does not synchronise.
+// Launch one stage on `stream`. `nz` is the block's plane count (the
+// buffer holds nz + 2*zpad planes, zpad 0 or 3); `zgeo` points to 4 host
+// ints: zpad, the global plane count, the block's global z offset and
+// mx_init. `u` is null for stage 1 and may equal `out` (in-place stage
+// 3). `dt` points to one float on the device. `flux` is 0 (Burgers), 1
+// (linear, speed `c`) or 2 (Buckley-Leverett); `weno_z` selects the
+// WENO5-Z weights. `inv_dx` points to 3 host floats (z, y, x) and `lap`
+// to 15 host floats, or is null for an inviscid run. Only the block's
+// planes [k_begin, k_end) are written; `lo`/`hi`, when not null, hold the
+// zpad ghost planes below/above (the split schedule's operands). `mx`,
+// when not null, points to one float on the device that receives
+// max|f'(out)| over the planes written (zeroed here first, on the
+// stream, when mx_init is not 0; else folded into its value). Returns
+// the first CUDA error (0 on success); does not synchronise.
 extern "C" int fused_burgers_stage(const float* v, const float* u,
                                    float* out, int nz, int ny, int nx,
                                    const float* dt, int flux, float c,
                                    int weno_z, const float* inv_dx,
                                    const float* lap, float a, float b,
-                                   float* mx, int zchunk, void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2)
+                                   float* mx, int zchunk, const int* zgeo,
+                                   int k_begin, int k_end, const float* lo,
+                                   const float* hi, void* stream) {
+  const ZGeometry g{zgeo[0], zgeo[1], zgeo[2], k_begin, k_end};
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2 ||
+      k_begin < 0 || k_end > nz || k_begin >= k_end || g.zpad < 0 ||
+      (g.zpad == 0 && (g.gnz != nz || g.oz != 0)) ||
+      (g.zpad > 0 && g.zpad < 3) || g.oz < 0 || g.oz + nz > g.gnz)
     return (int)cudaErrorInvalidValue;
   Params p;
   for (int q = 0; q < 3; ++q) p.inv_dx[q] = inv_dx[q];
@@ -239,17 +306,17 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
   p.b = b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned int* m = reinterpret_cast<unsigned int*>(mx);
-  if (m != nullptr) {
+  if (m != nullptr && zgeo[3] != 0) {
     const cudaError_t e = cudaMemsetAsync(m, 0, sizeof(unsigned int), s);
     if (e != cudaSuccess) return (int)e;
   }
   switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: launch<BURGERS, false>(v, u, out, nz, ny, nx, zchunk, p, dt, m, s); break;
-    case 1: launch<BURGERS, true>(v, u, out, nz, ny, nx, zchunk, p, dt, m, s); break;
-    case 2: launch<LINEAR, false>(v, u, out, nz, ny, nx, zchunk, p, dt, m, s); break;
-    case 3: launch<LINEAR, true>(v, u, out, nz, ny, nx, zchunk, p, dt, m, s); break;
-    case 4: launch<BUCKLEY, false>(v, u, out, nz, ny, nx, zchunk, p, dt, m, s); break;
-    default: launch<BUCKLEY, true>(v, u, out, nz, ny, nx, zchunk, p, dt, m, s); break;
+    case 0: launch<BURGERS, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
+    case 1: launch<BURGERS, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
+    case 2: launch<LINEAR, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
+    case 3: launch<LINEAR, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
+    case 4: launch<BUCKLEY, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
+    default: launch<BUCKLEY, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
   }
   return (int)cudaGetLastError();
 }

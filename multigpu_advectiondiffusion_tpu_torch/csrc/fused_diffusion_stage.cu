@@ -11,15 +11,28 @@
 //
 // with taps[axis][j] = c_j * K_axis / (12 dx_axis^2) rounded to f32,
 // "interior" the cells >= band away from every global face and "face"
-// the cells on a global face. Terms are summed in the TPU kernel's
+// the cells on a global face. A shard of a device mesh passes the global
+// interior shape and its offsets, so both masks are global (the TPU
+// kernel's offsets operand, fused_diffusion.py:243-262); it runs its own
+// instance of the kernel. Terms are summed in the TPU kernel's
 // order (z, y, x; j ascending) with explicit round-to-nearest
 // multiplies and adds (__fmul_rn/__fadd_rn), so the compiler cannot
 // contract them into FMAs: the kernel rounds exactly where the plain
 // PyTorch twin (ops/kernels/fused_diffusion.py::stage_reference) does.
 //
-// Layout: the padded state is (nz+4, ny+4, nx+4) contiguous float32.
-// The 2-deep ghost ring holds bc_value and is never written; only the
-// nz*ny*nx interior cells are.
+// Layout: the padded state is (nz+4, ny+4, nx+4) contiguous float32 (a
+// shard's local block). The kernel writes interior cells only. Unsharded,
+// the 2-deep ghost ring holds bc_value and is never written. Sharded,
+// the ghost rows of a sharded axis hold neighbour data, which the halo
+// refresh rewrites after every stage (parallel/halo.py), and bc_value
+// on a global face.
+//
+// Roles of the split schedule (fused_diffusion.py:279-331, :482-545): a
+// launch writes the z planes [k_begin, k_end) of the interior only. The
+// "interior" call's planes read no ghost row; the "bottom" and "top"
+// calls take the R z-ghost planes from the exchanged operands lo and hi
+// ((R, ny+4, nx+4) each) instead of the buffer, whose z ghosts are stale
+// in that schedule.
 //
 // Aliasing: the third stage runs in place (u == out). That is safe
 // because each thread reads u only at its own cell, before it writes
@@ -51,33 +64,70 @@ struct Taps {
   float c[15];  // [axis z, y, x][tap j]
 };
 
-template <bool HAS_U>
+// The global picture of a launch: the global interior shape and this
+// block's offsets (0 and the local shape when unsharded), and the planes
+// written.
+struct Geometry {
+  int gz, gy, gx;  // global interior shape
+  int oz, oy, ox;  // global index of local interior cell (0, 0, 0)
+  int k_begin, k_end;
+};
+
+// Padded plane `row` of the stage input: from the exchanged operand lo
+// (rows 0..R-1) or hi (rows nz+R..nz+2R-1) where one is given.
+__device__ __forceinline__ const float* plane(const float* v, const float* lo,
+                                              const float* hi, int row,
+                                              int nz, long long P) {
+  if (lo != nullptr && row < R) return lo + row * P;
+  if (hi != nullptr && row >= nz + R) return hi + (row - nz - R) * P;
+  return v + row * P;
+}
+
+// SHARDED and OPERANDS are compile-time so that the unsharded launch
+// (SHARDED false: local masks, every plane, no operands) carries none of
+// the sharded geometry's arithmetic or tests.
+template <bool HAS_U, bool SHARDED, bool OPERANDS>
 __global__ void __launch_bounds__(BX * BY)
 stage_kernel(const float* __restrict__ v, const float* u, float* out,
-             int nz, int ny, int nx, int zchunk, Taps taps, float dt,
-             float a, float b, int band, float bc_value) {
+             const float* __restrict__ lo, const float* __restrict__ hi,
+             int nz, int ny, int nx, int zchunk, Geometry g, Taps taps,
+             float dt, float a, float b, int band, float bc_value) {
   const int i = blockIdx.x * BX + threadIdx.x;  // interior x index
   const int j = blockIdx.y * BY + threadIdx.y;  // interior y index
   if (i >= nx || j >= ny) return;
-  const int k0 = blockIdx.z * zchunk;
-  const int k1 = min(k0 + zchunk, nz);
+  const int k0 = (SHARDED ? g.k_begin : 0) + blockIdx.z * zchunk;
+  const int k1 = min(k0 + zchunk, SHARDED ? g.k_end : nz);
 
   const long long X = nx + 2 * R;                   // row stride
   const long long P = (long long)(ny + 2 * R) * X;  // plane stride
   const long long col = (long long)(j + R) * X + (i + R);
 
-  const bool in_yx = j >= band && j < ny - band && i >= band && i < nx - band;
-  const bool face_yx = j == 0 || j == ny - 1 || i == 0 || i == nx - 1;
+  // global y, x and the global interior shape
+  const int gj = SHARDED ? j + g.oy : j, gi = SHARDED ? i + g.ox : i;
+  const int gz = SHARDED ? g.gz : nz, gy = SHARDED ? g.gy : ny,
+            gx = SHARDED ? g.gx : nx;
+  const bool in_yx = gj >= band && gj < gy - band && gi >= band &&
+                     gi < gx - band;
+  const bool face_yx = gj == 0 || gj == gy - 1 || gi == 0 || gi == gx - 1;
 
   // z taps of interior plane k live at padded planes k .. k+4
-  float q0 = v[(long long)(k0 + 0) * P + col];
-  float q1 = v[(long long)(k0 + 1) * P + col];
-  float q2 = v[(long long)(k0 + 2) * P + col];
-  float q3 = v[(long long)(k0 + 3) * P + col];
+  float q0, q1, q2, q3;
+  if (OPERANDS) {
+    q0 = plane(v, lo, hi, k0 + 0, nz, P)[col];
+    q1 = plane(v, lo, hi, k0 + 1, nz, P)[col];
+    q2 = plane(v, lo, hi, k0 + 2, nz, P)[col];
+    q3 = plane(v, lo, hi, k0 + 3, nz, P)[col];
+  } else {
+    q0 = v[(long long)(k0 + 0) * P + col];
+    q1 = v[(long long)(k0 + 1) * P + col];
+    q2 = v[(long long)(k0 + 2) * P + col];
+    q3 = v[(long long)(k0 + 3) * P + col];
+  }
 
   for (int k = k0; k < k1; ++k) {
     const long long c = (long long)(k + R) * P + col;  // this cell
-    const float q4 = v[c + 2 * P];
+    const float q4 =
+        OPERANDS ? plane(v, lo, hi, k + 4, nz, P)[col] : v[c + 2 * P];
 
     float acc = __fmul_rn(q0, taps.c[0]);
     acc = __fadd_rn(acc, __fmul_rn(q1, taps.c[1]));
@@ -100,8 +150,9 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
     float rk = __fmul_rn(b, __fadd_rn(q2, __fmul_rn(dt, acc)));
     if (HAS_U) rk = __fadd_rn(__fmul_rn(a, u[c]), rk);
 
-    const bool interior = in_yx && k >= band && k < nz - band;
-    const bool face = face_yx || k == 0 || k == nz - 1;
+    const int gk = SHARDED ? k + g.oz : k;  // global z
+    const bool interior = in_yx && gk >= band && gk < gz - band;
+    const bool face = face_yx || gk == 0 || gk == gz - 1;
     out[c] = interior ? rk : (face ? bc_value : q2);
 
     q0 = q1;
@@ -111,30 +162,64 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
   }
 }
 
+template <bool SHARDED, bool OPERANDS>
+void launch(const float* v, const float* u, float* out, const float* lo,
+            const float* hi, int nz, int ny, int nx, int zchunk,
+            const Geometry& g, const Taps& t, float dt, float a, float b,
+            int band, float bc_value, cudaStream_t s) {
+  const dim3 block(BX, BY, 1);
+  const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY,
+                  (g.k_end - g.k_begin + zchunk - 1) / zchunk);
+  if (u != nullptr) {
+    stage_kernel<true, SHARDED, OPERANDS><<<grid, block, 0, s>>>(
+        v, u, out, lo, hi, nz, ny, nx, zchunk, g, t, dt, a, b, band,
+        bc_value);
+  } else {
+    stage_kernel<false, SHARDED, OPERANDS><<<grid, block, 0, s>>>(
+        v, u, out, lo, hi, nz, ny, nx, zchunk, g, t, dt, a, b, band,
+        bc_value);
+  }
+}
+
 }  // namespace
 
 // Launch one stage on `stream`. `u` is null for stage 1 and may equal
-// `out` (in-place stage 3). `taps` points to 15 host floats. Returns
-// cudaGetLastError() after the launch (0 on success); does not
-// synchronise.
+// `out` (in-place stage 3). `taps` points to 15 host floats. `global3`
+// (gz, gy, gx) and `offset3` (oz, oy, ox) point to 3 host ints each: the
+// global interior shape and this block's offsets. Only the interior z
+// planes [k_begin, k_end) are written; `lo`/`hi`, when not null, hold the
+// R z-ghost planes below/above the block (the split schedule's exchanged
+// operands). A launch whose geometry is the whole unsharded state runs
+// the unsharded instance. Returns cudaGetLastError() after the launch (0
+// on success); does not synchronise.
 extern "C" int fused_diffusion_stage(const float* v, const float* u,
                                      float* out, int nz, int ny, int nx,
                                      const float* taps, float dt, float a,
                                      float b, int band, float bc_value,
-                                     int zchunk, void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1) return (int)cudaErrorInvalidValue;
+                                     int zchunk, const int* global3,
+                                     const int* offset3, int k_begin,
+                                     int k_end, const float* lo,
+                                     const float* hi, void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || k_begin < 0 ||
+      k_end > nz || k_begin >= k_end)
+    return (int)cudaErrorInvalidValue;
   Taps t;
   for (int q = 0; q < 15; ++q) t.c[q] = taps[q];
-  const dim3 block(BX, BY, 1);
-  const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY,
-                  (nz + zchunk - 1) / zchunk);
+  const Geometry g{global3[0], global3[1], global3[2], offset3[0],
+                   offset3[1], offset3[2], k_begin, k_end};
+  const bool operands = lo != nullptr || hi != nullptr;
+  const bool sharded = operands || g.gz != nz || g.gy != ny || g.gx != nx ||
+                       g.oz != 0 || g.oy != 0 || g.ox != 0 || k_begin != 0 ||
+                       k_end != nz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (u != nullptr) {
-    stage_kernel<true><<<grid, block, 0, s>>>(v, u, out, nz, ny, nx, zchunk,
-                                              t, dt, a, b, band, bc_value);
-  } else {
-    stage_kernel<false><<<grid, block, 0, s>>>(v, u, out, nz, ny, nx, zchunk,
-                                               t, dt, a, b, band, bc_value);
-  }
+  if (operands)
+    launch<true, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, t, dt, a, b,
+                       band, bc_value, s);
+  else if (sharded)
+    launch<true, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, t, dt, a,
+                        b, band, bc_value, s);
+  else
+    launch<false, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, t, dt, a,
+                         b, band, bc_value, s);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,34 @@
 // One fused SSP-RK3 step of the 3-D O4 heat equation: all three stages
-// in one pass over the state. Two kernels share the step:
+// in one pass over the state. Three kernels share the step (step_tile):
 //
 //   K10  step_kernel      one launch a step, S -> out (the host swaps);
 //   K2   slab_run_kernel  one cooperative launch a run, the buffers
 //                         ping-ponging and a grid.sync() after each step;
 //   K2b  the same kernel with a member axis: B independent members' runs
-//        in one cooperative launch, one grid.sync() a step for the batch.
+//        in one cooperative launch, one grid.sync() a step for the batch;
+//   K3   step_kernel over an output window of a shard of a z-slab mesh:
+//        one launch a step (or a call of the split or k-step schedule).
 //
 // Replaces the TPU kernels multigpu_advectiondiffusion_tpu/ops/pallas/
-// fused_diffusion_step.py::_step_kernel (:94, launched :214) and
+// fused_diffusion_step.py::_step_kernel (:94, launched :214),
 // fused_slab_run.py::_whole_run_kernel (:188, launched :889, and with
-// batched=True at :933 for run_batched) with the diffusion step_fn
-// (:1330) over fused_diffusion_step._stage_rows (:56).
+// batched=True at :933 for run_batched) and fused_slab_run.py::
+// _step_call_kernel (:508, built by _make_call :949-1017, launched
+// :1007) with the diffusion step_fn (:1330) over fused_diffusion_step.
+// _stage_rows (:56).
+//
+// K3. A shard's buffer holds its lz core planes between depth = k*G
+// ghost planes a side (G = 3R = 6 rows a step, k the steps a halo
+// exchange serves), (lz + 2 depth, ny+4, nx+4). The launch computes the
+// step on the output window [z_lo, z_hi) of global planes, which may
+// reach into the ghost rows (the k-step schedule's widened windows);
+// its input box is the window and 3R planes a side. Planes inside the
+// global domain are read from the buffer (its exchanged ghost rows
+// included) or, for the split schedule's edge calls, from the exchanged
+// operands lo (buffer rows [0, depth)) and hi (the last depth rows);
+// planes outside the global domain read as bc_value, so K3's window is
+// K2's step over those planes to the bit. Only in-domain planes of the
+// window are written.
 // It computes the same function, not the same blocks:
 //
 //   t1  = s(S)        T1 = s(S)
@@ -92,7 +109,7 @@ constexpr float A2 = (float)0.75, B2 = (float)0.25;
 constexpr float A3 = (float)(1.0 / 3.0), B3 = (float)(2.0 / 3.0);
 
 struct Args {
-  int nz, ny, nx;
+  int nz, ny, nx;  // global interior shape (K3: nz over every shard)
   float taps[15];  // [axis z, y, x][tap j]
   float dt;
   int band;
@@ -100,11 +117,27 @@ struct Args {
   int zchunk;              // z planes a job marches
   int tiles_x, chunks;     // jobs: tiles_y * tiles_x * chunks
   int jobs;
+  // where the planes lie: the output window [z_lo, z_hi) (global z), the
+  // buffer row of global plane 0, the buffer's planes, its ghost rows a
+  // side and the exchanged operands that stand in for them (or null)
+  int z_lo, z_hi, row_off, pz, depth;
+  const float* lo;
+  const float* hi;
 };
 
 __device__ __forceinline__ int slot(int plane, int n) {
   const int r = plane % n;
   return r < 0 ? r + n : r;
+}
+
+// Buffer row `row` of S, from an exchanged operand where one stands in.
+__device__ __forceinline__ const float* plane_of(const float* S,
+                                                 const Args& p, int row,
+                                                 int P) {
+  if (p.lo != nullptr && row < p.depth) return p.lo + row * P;
+  if (p.hi != nullptr && row >= p.pz - p.depth)
+    return p.hi + (row - (p.pz - p.depth)) * P;
+  return S + row * P;
 }
 
 // One stage on a WOUT x WOUT plane z of the output window whose corner
@@ -170,7 +203,7 @@ __device__ __forceinline__ void stage_plane(const float* in, const float* sv,
       val = interior ? rk : (face ? p.bc_value : vc);
     }
     if (GLOBAL) {
-      if (in_domain) out[(z + R) * P + (y + R) * X + (x + R)] = val;
+      if (in_domain) out[(z + p.row_off) * P + (y + R) * X + (x + R)] = val;
     } else {
       out[e] = val;
     }
@@ -189,8 +222,8 @@ __device__ void step_tile(const float* S, float* out, const Args& p, int job,
   const int tile = job / p.chunks;
   const int x0 = (tile % p.tiles_x) * T;
   const int y0 = (tile / p.tiles_x) * T;
-  const int k0 = chunk * p.zchunk;
-  const int k1 = min(k0 + p.zchunk, p.nz);
+  const int k0 = p.z_lo + chunk * p.zchunk;
+  const int k1 = min(k0 + p.zchunk, p.z_hi);
   const int X = p.nx + 2 * R;
   const int P = (p.ny + 2 * R) * X;
 
@@ -198,11 +231,12 @@ __device__ void step_tile(const float* S, float* out, const Args& p, int job,
     // S plane m, bc_value outside the domain
     float* vm = V + slot(m, NV) * W0 * W0;
     const bool z_in = m >= 0 && m < p.nz;
+    const float* src = z_in ? plane_of(S, p, m + p.row_off, P) : nullptr;
     for (int e = threadIdx.x; e < W0 * W0; e += THREADS) {
       const int wy = e / W0, wx = e - wy * W0;
       const int y = y0 - 3 * R + wy, x = x0 - 3 * R + wx;
       vm[e] = z_in && y >= 0 && y < p.ny && x >= 0 && x < p.nx
-                  ? S[(m + R) * P + (y + R) * X + (x + R)]
+                  ? src[(y + R) * X + (x + R)]
                   : p.bc_value;
     }
     __syncthreads();
@@ -252,7 +286,9 @@ slab_run_kernel(float* S0, float* S1, Args p, int n_iters, int members,
   }
 }
 
-// Fill the arguments; 0 or a CUDA error for shapes the kernels refuse.
+// Fill the arguments for the whole unsharded state (K10, K2): the window
+// is every plane, the buffer K1's padded layout; 0 or a CUDA error for
+// shapes the kernels refuse.
 cudaError_t make_args(Args& p, int nz, int ny, int nx, const float* taps,
                       float dt, int band, float bc_value, int zchunk) {
   if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 ||
@@ -266,6 +302,13 @@ cudaError_t make_args(Args& p, int nz, int ny, int nx, const float* taps,
   p.band = band;
   p.bc_value = bc_value;
   p.zchunk = zchunk;
+  p.z_lo = 0;
+  p.z_hi = nz;
+  p.row_off = R;
+  p.pz = nz + 2 * R;
+  p.depth = R;
+  p.lo = nullptr;
+  p.hi = nullptr;
   p.tiles_x = (nx + T - 1) / T;
   p.chunks = (nz + zchunk - 1) / zchunk;
   p.jobs = ((ny + T - 1) / T) * p.tiles_x * p.chunks;
@@ -289,6 +332,50 @@ extern "C" int fused_step_diffusion(const float* S, float* out, int nz, int ny,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
+  step_kernel<<<p.jobs, THREADS, SMEM_BYTES,
+                static_cast<cudaStream_t>(stream)>>>(S, out, p);
+  return (int)cudaGetLastError();
+}
+
+// K3: one fused step over the output window [z_lo, z_hi) (global planes)
+// of a shard's buffer S -> out, on `stream`. The buffers are (pz, ny+4,
+// nx+4) with `depth` ghost planes a side; global plane g lies at buffer
+// row g + row_off; nz is the global plane count. `lo`/`hi`, when not
+// null, are (depth, ny+4, nx+4) and stand in for the buffer's first and
+// last depth rows. Every in-domain plane of the input box (the window and
+// 6 planes a side) must lie in the buffer. `taps` points to 15 host
+// floats. Returns the first CUDA error (0 on success); does not
+// synchronise.
+extern "C" int slab_step_diffusion(const float* S, float* out,
+                                   const float* lo, const float* hi, int pz,
+                                   int depth, int nz, int ny, int nx,
+                                   int row_off, int z_lo, int z_hi,
+                                   const float* taps, float dt, int band,
+                                   float bc_value, int zchunk, void* stream) {
+  Args p;
+  cudaError_t e = make_args(p, nz, ny, nx, taps, dt, band, bc_value, zchunk);
+  // the buffer rows of the box's in-domain planes
+  const int first = (z_lo - 3 * R > 0 ? z_lo - 3 * R : 0) + row_off;
+  const int last = (z_hi + 3 * R < nz ? z_hi + 3 * R : nz) - 1 + row_off;
+  if (e == cudaSuccess &&
+      (z_lo >= z_hi || depth < 0 || 2 * depth > pz || first < 0 ||
+       last >= pz ||
+       (long long)pz * (ny + 2 * R) * (nx + 2 * R) > MAX_CELLS))
+    e = cudaErrorInvalidValue;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute((const void*)step_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  p.z_lo = z_lo;
+  p.z_hi = z_hi;
+  p.row_off = row_off;
+  p.pz = pz;
+  p.depth = depth;
+  p.lo = lo;
+  p.hi = hi;
+  p.chunks = (z_hi - z_lo + zchunk - 1) / zchunk;
+  p.jobs = ((ny + T - 1) / T) * p.tiles_x * p.chunks;
   step_kernel<<<p.jobs, THREADS, SMEM_BYTES,
                 static_cast<cudaStream_t>(stream)>>>(S, out, p);
   return (int)cudaGetLastError();

@@ -2,6 +2,16 @@
 // WENO5 in ONE cooperative kernel launch, all three stages of a step
 // fused in one pass over the state (K6), and the same for B independent
 // members in one launch (K2b); one entry, slab_run_burgers, serves both.
+// A second entry, slab_step_burgers, is K3's Burgers instance: one step
+// over an output window of a shard of a z-slab mesh, one launch (the
+// TPU kernel fused_slab_run.py::_step_call_kernel, :508, with this
+// step_fn). Its buffer holds the shard's lz core planes between depth =
+// k*G ghost planes a side (G = 9), (lz + 2 depth, ny, nx); planes are
+// read by global z, from the buffer (its exchanged ghost rows included)
+// or, for the split schedule's edge calls, from the exchanged operands
+// lo/hi, and every read is clamped into the GLOBAL z domain (the TPU
+// step_fn's fill keys on global rows, :1540-1578), so a window is K6's
+// step over those planes to the bit. Only in-domain planes are written.
 //
 // Replaces the TPU kernel multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_slab_run.py::_whole_run_kernel (:188, launched :889, and with
@@ -92,7 +102,7 @@ constexpr float A2 = (float)0.75, B2 = (float)0.25;
 constexpr float A3 = (float)(1.0 / 3.0), B3 = (float)(2.0 / 3.0);
 
 struct Args {
-  int nz, ny, nx;
+  int nz, ny, nx;  // global shape (K3: nz over every shard)
   float inv_dx[3];  // z, y, x
   float lap[15];    // viscous taps, z/y/x by j; unused when !viscous
   int viscous;
@@ -100,11 +110,27 @@ struct Args {
   float dt;
   int zchunk;
   int tiles_x, chunks, jobs;
+  // where the planes lie: the output window [z_lo, z_hi) (global z), the
+  // buffer row of global plane 0, the buffer's planes, its ghost rows a
+  // side and the exchanged operands that stand in for them (or null)
+  int z_lo, z_hi, row_off, pz, depth;
+  const float* lo;
+  const float* hi;
 };
 
 __device__ __forceinline__ int slot(int plane, int n) {
   const int r = plane % n;
   return r < 0 ? r + n : r;
+}
+
+// Buffer row `row` of S, from an exchanged operand where one stands in.
+__device__ __forceinline__ const float* plane_of(const float* S,
+                                                 const Args& p, int row,
+                                                 int P) {
+  if (p.lo != nullptr && row < p.depth) return p.lo + row * P;
+  if (p.hi != nullptr && row >= p.pz - p.depth)
+    return p.hi + (row - (p.pz - p.depth)) * P;
+  return S + row * P;
 }
 
 // K5's stage at one cell from its z column W (planes k-3..k+3) and its y
@@ -179,7 +205,7 @@ __device__ __forceinline__ void stage_plane(const float* in, const float* sv,
     const float uc = HAS_U ? u[(cy - y_u) * W0 + (cx - x_u)] : 0.0f;
     const float val = stage_cell<FLUX, WZ, HAS_U>(W, Y, X, uc, a, b, p);
     if (GLOBAL)
-      out[(z * p.ny + y) * p.nx + x] = val;
+      out[((z + p.row_off) * p.ny + y) * p.nx + x] = val;
     else
       out[e] = val;
   }
@@ -198,13 +224,13 @@ __device__ void step_tile(const float* S, float* out, const Args& p, int job,
   const int tile = job / p.chunks;
   const int x0 = (tile % p.tiles_x) * T;
   const int y0 = (tile / p.tiles_x) * T;
-  const int k0 = chunk * p.zchunk;
-  const int k1 = min(k0 + p.zchunk, p.nz);
+  const int k0 = p.z_lo + chunk * p.zchunk;
+  const int k1 = min(k0 + p.zchunk, p.z_hi);
 
   for (int m = k0 - 3 * R; m < k1 + 3 * R; ++m) {
     if (m >= 0 && m < p.nz) {  // S plane m, edge-replicated in y and x
       float* vm = V + slot(m, NV) * W0 * W0;
-      const float* src = S + m * p.ny * p.nx;
+      const float* src = plane_of(S, p, m + p.row_off, p.ny * p.nx);
       for (int e = threadIdx.x; e < W0 * W0; e += THREADS) {
         const int wy = e / W0, wx = e - wy * W0;
         const int y = clampi(y0 - 3 * R + wy, 0, p.ny - 1);
@@ -225,11 +251,19 @@ __device__ void step_tile(const float* S, float* out, const Args& p, int job,
           A, V, B + slot(z2, N2) * W2 * W2, z2, y0 - R, x0 - R, A2, B2, p);
     __syncthreads();
     const int z3 = m - 3 * R;  // out = s(t2, S): planes k0 .. k1-1
-    if (z3 >= k0)
+    if (z3 >= k0 && z3 >= 0 && z3 < p.nz)
       stage_plane<FLUX, WZ, T, N2, true, true>(B, V, out, z3, y0, x0, A3, B3,
                                                p);
     __syncthreads();
   }
+}
+
+// K3: one step on one job a block, S -> out (the host swaps).
+template <int FLUX, bool WZ>
+__global__ void __launch_bounds__(THREADS)
+step_kernel(const float* S, float* out, Args p) {
+  extern __shared__ float sm[];
+  step_tile<FLUX, WZ>(S, out, p, blockIdx.x, sm);
 }
 
 // K6 (members == 1) and K2b: every member's step k in one pass over the
@@ -304,6 +338,13 @@ cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
   p.c = c;
   p.dt = dt;
   p.zchunk = zchunk;
+  p.z_lo = 0;
+  p.z_hi = nz;
+  p.row_off = 0;
+  p.pz = nz;
+  p.depth = 0;
+  p.lo = nullptr;
+  p.hi = nullptr;
   p.tiles_x = (nx + T - 1) / T;
   p.chunks = (nz + zchunk - 1) / zchunk;
   p.jobs = ((ny + T - 1) / T) * p.tiles_x * p.chunks;
@@ -344,4 +385,73 @@ extern "C" int slab_run_burgers(float* S0, float* S1, int members, int nz,
   return (int)launch_slab_run(S0, S1, members, nz, ny, nx, flux, c, weno_z,
                               inv_dx, lap, dt, zchunk, n_iters, grid_blocks,
                               static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+template <int FLUX, bool WZ>
+cudaError_t launch_step(const float* S, float* out, const Args& p,
+                        cudaStream_t s) {
+  auto* kernel = step_kernel<FLUX, WZ>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  kernel<<<p.jobs, THREADS, SMEM_BYTES, s>>>(S, out, p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K3, Burgers: one fixed-dt step over the output window [z_lo, z_hi)
+// (global planes) of a shard's buffer S -> out, on `stream`. The buffers
+// are (pz, ny, nx) with `depth` ghost planes a side; global plane g lies
+// at buffer row g + row_off; nz is the global plane count. `lo`/`hi`,
+// when not null, are (depth, ny, nx) and stand in for the buffer's first
+// and last depth rows. Every in-domain plane of the input box (the window
+// and 9 planes a side) must lie in the buffer. The flux and physics
+// arguments are slab_run_burgers's. Returns the first CUDA error (0 on
+// success); does not synchronise.
+extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
+                                 const float* hi, int pz, int depth, int nz,
+                                 int ny, int nx, int row_off, int z_lo,
+                                 int z_hi, int flux, float c, int weno_z,
+                                 const float* inv_dx, const float* lap,
+                                 float dt, int zchunk, void* stream) {
+  // the buffer rows of the box's in-domain planes
+  const int first = (z_lo - 3 * R > 0 ? z_lo - 3 * R : 0) + row_off;
+  const int last = (z_hi + 3 * R < nz ? z_hi + 3 * R : nz) - 1 + row_off;
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2 ||
+      z_lo >= z_hi || depth < 0 || 2 * depth > pz || first < 0 ||
+      last >= pz || (long long)pz * ny * nx > MAX_CELLS)
+    return (int)cudaErrorInvalidValue;
+  Args p;
+  p.nz = nz;
+  p.ny = ny;
+  p.nx = nx;
+  for (int q = 0; q < 3; ++q) p.inv_dx[q] = inv_dx[q];
+  p.viscous = lap != nullptr;
+  for (int q = 0; q < 15; ++q) p.lap[q] = lap != nullptr ? lap[q] : 0.0f;
+  p.c = c;
+  p.dt = dt;
+  p.zchunk = zchunk;
+  p.z_lo = z_lo;
+  p.z_hi = z_hi;
+  p.row_off = row_off;
+  p.pz = pz;
+  p.depth = depth;
+  p.lo = lo;
+  p.hi = hi;
+  p.tiles_x = (nx + T - 1) / T;
+  p.chunks = (z_hi - z_lo + zchunk - 1) / zchunk;
+  p.jobs = ((ny + T - 1) / T) * p.tiles_x * p.chunks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (flux * 2 + (weno_z ? 1 : 0)) {
+    case 0: return (int)launch_step<BURGERS, false>(S, out, p, s);
+    case 1: return (int)launch_step<BURGERS, true>(S, out, p, s);
+    case 2: return (int)launch_step<LINEAR, false>(S, out, p, s);
+    case 3: return (int)launch_step<LINEAR, true>(S, out, p, s);
+    case 4: return (int)launch_step<BUCKLEY, false>(S, out, p, s);
+    default: return (int)launch_step<BUCKLEY, true>(S, out, p, s);
+  }
 }

@@ -195,8 +195,13 @@ def kappa_profile(shape_global, local_shape, offsets, eps: float, dtype,
 class ADRSolver(SolverBase):
     cfg: ADRConfig
 
-    def __init__(self, cfg: ADRConfig, device=None):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: ADRConfig, device=None, mesh=None, decomp=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "advection-diffusion-reaction on a device mesh needs the "
+                "sharded K9, which is not ported yet (ROADMAP queue 1 "
+                "item 8c)")
+        super().__init__(cfg, device=device, decomp=decomp)
         self._check_ported()
         kmax = float(cfg.diffusivity) * (
             1.0 + abs(float(cfg.kappa_variation))

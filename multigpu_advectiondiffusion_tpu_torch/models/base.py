@@ -1,4 +1,5 @@
-"""Shared solver machinery, single device (JAX ``models/base.py`` core).
+"""Shared solver machinery (JAX ``models/base.py`` core): one device, or
+a device mesh driven from this process.
 
 Each concrete solver implements :meth:`SolverBase.build_local` — the
 physics (RHS, dt rule, post-step fix-up) — and may offer a fused
@@ -12,6 +13,15 @@ The loops run eagerly on the host, with ``t`` as a host scalar of the
 state's precision and the same dt rounding, trim and eps guard as the
 JAX package, so both packages take the same steps and land on the same
 times.
+
+Under a device mesh (``mesh=``/``decomp=``, :mod:`parallel.mesh`) ``u``
+is a :class:`~models.state.ShardedArray` and ``run``/``advance_to`` run
+the JAX package's per-shard program on every shard through the port's
+``shard_map``: the generic loop with a padder that exchanges ghosts
+(``parallel/halo.py``) and a cross-shard ``pmax`` in adaptive dt, or a
+fused stepper's ``run`` with the ghost ``refresh``, the split
+schedule's ``exch`` and this shard's global ``offsets``
+(:meth:`SolverBase._fused_sharded_ctx`).
 
 The batched ensemble engine (JAX ``models/base.py:1191-1657``, front
 end in ``models/ensemble.py``) advances B members of an
@@ -42,6 +52,7 @@ from multigpu_advectiondiffusion_tpu_torch.core.dtypes import canonicalize
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
 from multigpu_advectiondiffusion_tpu_torch.models.state import (
     EnsembleState,
+    ShardedArray,
     SolverState,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import (
@@ -53,6 +64,20 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     laplacian as klap,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.stencils import Padder
+from multigpu_advectiondiffusion_tpu_torch.parallel import mesh as pmesh
+from multigpu_advectiondiffusion_tpu_torch.parallel.halo import (
+    axis_offsets,
+    exchange_ghosts,
+    make_ghost_fn,
+    make_ghost_refresh,
+    make_padder,
+)
+from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
+    MEMBER_AXIS,
+    Decomposition,
+    axis_extent,
+    reduce_axis_names,
+)
 from multigpu_advectiondiffusion_tpu_torch.timestepping.integrators import (
     INTEGRATORS,
 )
@@ -126,13 +151,18 @@ def ensemble_cfg_gate(cfg) -> None:
 
 @dataclasses.dataclass
 class StepContext:
-    """What the local physics may depend on (single device)."""
+    """What the shard-local physics may depend on."""
 
     padder: Padder
-    offsets: Sequence[int]
+    offsets: Sequence[int]  # global index offset of this block, per axis
     local_shape: Tuple[int, ...]
     global_shape: Tuple[int, ...]
     device: torch.device
+    reduce_max: Callable = lambda x: x  # noqa: E731  (cross-shard pmax)
+    # (lo, hi) ghost slabs for sharded axes (None per-axis when local;
+    # None entirely when unsharded): the overlapped interior/boundary
+    # schedule (ops.stencils.split_axis_apply)
+    ghost_fn: Optional[Callable] = None
 
 
 @dataclasses.dataclass
@@ -146,15 +176,163 @@ class LocalPhysics:
     dt_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
+def global_field(u) -> torch.Tensor:
+    """``u`` as one tensor: a sharded field assembled."""
+    return u.assemble() if isinstance(u, ShardedArray) else u
+
+
 class SolverBase:
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, mesh=None,
+                 decomp: Decomposition | None = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.decomp = decomp
+        if mesh is None:
+            if decomp is not None:
+                raise ValueError("a decomposition needs a mesh")
+            self.device = resolve_device(device)
+        else:
+            if device is not None:
+                raise ValueError(
+                    "a mesh names its devices; pass device=None")
+            if MEMBER_AXIS in mesh.shape:
+                raise NotImplementedError(
+                    "member-sharded ensemble meshes (a 'members' axis) are "
+                    "not ported yet (ROADMAP queue 1 item 8f)")
+            for dev in mesh.device_list():
+                resolve_device(dev)
+            self.device = mesh.device_list()[0]
+            if decomp is None:
+                self.decomp = Decomposition.slab(tuple(mesh.shape)[0])
+            self.decomp.validate(mesh, cfg.grid.shape)
         self.dtype = canonicalize(cfg.dtype)
         self._cache = {}
         self._fused_fallback = None
         self._op_fallback = None
         self._ensemble_last = None
+        self._validate_steps_per_exchange()
+        self._validate_exchange()
+
+    # ------------------------------------------------------------------ #
+    # Mesh knobs, gated at construction as the JAX package gates them
+    # ------------------------------------------------------------------ #
+    def _validate_steps_per_exchange(self) -> None:
+        """A config that cannot honor ``steps_per_exchange > 1`` fails at
+        construction (the JAX package's gate and texts); deeper
+        eligibility raises at dispatch (``_select_slab``)."""
+        k = int(getattr(self.cfg, "steps_per_exchange", 1) or 1)
+        if k == 1:
+            return
+        if self.grid.ndim != 3:
+            raise ValueError(
+                "steps_per_exchange > 1 rides the 3-D slab stepper only"
+            )
+        if self.mesh is None:
+            raise ValueError(
+                "steps_per_exchange > 1 needs a device mesh — it trades "
+                "deeper halo exchanges for fewer of them"
+            )
+        if any(ax != 0 for ax in self._sharded_axes()):
+            raise ValueError(
+                "steps_per_exchange > 1 serves z-slab decompositions only"
+            )
+        if self.cfg.impl not in ("pallas", "pallas_slab"):
+            raise ValueError(
+                f"steps_per_exchange={k} needs the sharded slab rung "
+                f"(impl='pallas'/'pallas_slab'/'auto'), not "
+                f"impl={self.cfg.impl!r}"
+            )
+
+    def _exchange_mode(self) -> str:
+        return str(getattr(self.cfg, "exchange", "collective")
+                   or "collective")
+
+    def _validate_exchange(self) -> None:
+        """``exchange='dma'``: the JAX package's construction gate and
+        texts; a config that passes it raises here, since the in-kernel
+        remote-DMA rung (K4) is not ported."""
+        if self._exchange_mode() != "dma":
+            return
+        if self.grid.ndim != 3:
+            raise ValueError(
+                "exchange='dma' rides the 3-D sharded slab rung only"
+            )
+        if self.mesh is None:
+            raise ValueError(
+                "exchange='dma' pushes ghost rows between z neighbors "
+                "— it needs a device mesh (an unsharded run has no "
+                "neighbor to push to)"
+            )
+        if any(ax != 0 for ax in self._sharded_axes()):
+            raise ValueError(
+                "exchange='dma' serves z-slab decompositions only"
+            )
+        if self.cfg.impl not in ("pallas", "pallas_slab"):
+            raise ValueError(
+                "exchange='dma' needs the sharded slab rung "
+                "(impl='pallas'/'pallas_slab'/'auto'), not "
+                f"impl={self.cfg.impl!r}"
+            )
+        if getattr(self.cfg, "overlap", None) == "split":
+            raise ValueError(
+                "exchange='dma' replaces the XLA exchange entirely — "
+                "the split-overlap schedule does not compose with it "
+                "(drop overlap='split')"
+            )
+        raise NotImplementedError(
+            "exchange='dma' (the in-kernel remote-DMA whole-run rung, K4) "
+            "is not ported yet (ROADMAP queue 1 item 8e); "
+            "exchange='collective' runs the sharded slab rung")
+
+    def _sharded_axes(self):
+        """Array axes that are actually decomposed: listed in the
+        decomposition AND backed by a mesh extent > 1 (compound axes by
+        their product)."""
+        if self.mesh is None:
+            return []
+        sizes = dict(self.mesh.shape)
+        return [ax for ax, name in self.decomp.axes
+                if axis_extent(sizes, name) > 1]
+
+    def _split_overlap_requested(self) -> bool:
+        """``overlap='split'`` with a decomposition the fused steppers'
+        three-call schedule serves: z sharded, and in 3-D optionally y
+        and/or x as well (their ghosts then take the serialized
+        per-stage refresh)."""
+        if self.mesh is None or getattr(self.cfg, "overlap", None) != "split":
+            return False
+        sharded = self._sharded_axes()
+        if sharded == [0]:
+            return True
+        return self.grid.ndim == 3 and bool(sharded) and sharded[0] == 0
+
+    def local_shape(self):
+        """This solver's shard-local interior shape (the grid's when
+        unsharded)."""
+        if self.mesh is None:
+            return self.grid.shape
+        return self.decomp.local_shape(self.mesh, self.grid.shape)
+
+    def mesh_reduce_max(self):
+        """Cross-shard max over the decomposition's reduction axes
+        (``parallel.mesh.reduce_axis_names``), or ``None`` when unsharded
+        or every extent is 1. Runs inside ``shard_map``."""
+        if self.mesh is None:
+            return None
+        names = reduce_axis_names(self.decomp, self.mesh.shape)
+        if not names:
+            return None
+        return lambda x: pmesh.pmax(x, names)
+
+    def mesh_reduce_sum(self):
+        """Cross-shard sum over the same axis set as
+        :meth:`mesh_reduce_max`, or ``None``."""
+        if self.mesh is None:
+            return None
+        names = reduce_axis_names(self.decomp, self.mesh.shape)
+        if not names:
+            return None
+        return lambda x: pmesh.psum(x, names)
 
     # ------------------------------------------------------------------ #
     # Config plumbing
@@ -201,6 +379,10 @@ class SolverBase:
         params = {**defaults, **dict(self.cfg.ic_params)}
         u0 = initial_condition(name, self.grid, dtype=self.dtype,
                                device=self.device, **params)
+        if self.mesh is not None:
+            # the IC is computed globally and cut into the shards, as the
+            # reference computes it on every rank (main.c:112-130)
+            u0 = ShardedArray.scatter(u0, self.mesh, self.decomp)
         t0 = t if t is not None else getattr(self.cfg, "t0", 0.0)
         return SolverState.create(u0, t=t0)
 
@@ -208,24 +390,41 @@ class SolverBase:
     # Generic step
     # ------------------------------------------------------------------ #
     def _context(self) -> StepContext:
+        """The step context of this shard (inside ``shard_map``) or of the
+        single device."""
         gshape = self.grid.shape
+        if self.mesh is None:
+            return StepContext(
+                padder=lambda x, axis, halo: pad_axis(x, axis, halo,
+                                                      self.bcs[axis]),
+                offsets=[0] * self.grid.ndim,
+                local_shape=gshape,
+                global_shape=gshape,
+                device=self.device,
+            )
+        sizes = dict(self.mesh.shape)
+        reduce = self.mesh_reduce_max()
+        lshape = self.local_shape()
         return StepContext(
-            padder=lambda x, axis, halo: pad_axis(x, axis, halo,
-                                                  self.bcs[axis]),
-            offsets=[0] * self.grid.ndim,
-            local_shape=gshape,
+            padder=make_padder(self.decomp, sizes, self.bcs),
+            offsets=axis_offsets(self.decomp, lshape),
+            local_shape=lshape,
             global_shape=gshape,
-            device=self.device,
+            device=pmesh.current_shard().device,
+            reduce_max=reduce if reduce is not None else (lambda x: x),
+            ghost_fn=make_ghost_fn(self.decomp, sizes, self.bcs),
         )
 
     def _physics(self, overrides=None) -> LocalPhysics:
-        """The local physics: cached for the config's own scalars, built
-        afresh for ensemble ``overrides``."""
+        """The local physics: cached (per shard under a mesh) for the
+        config's own scalars, built afresh for ensemble ``overrides``."""
         if overrides:
             return self.build_local(self._context(), overrides=overrides)
-        if "physics" not in self._cache:
-            self._cache["physics"] = self.build_local(self._context())
-        return self._cache["physics"]
+        shard = pmesh.current_shard()
+        key = "physics" if shard is None else ("physics", shard.rank)
+        if key not in self._cache:
+            self._cache[key] = self.build_local(self._context())
+        return self._cache[key]
 
     def _local_step(self, u, t, t_end=None, overrides=None, phys=None):
         """One generic time step; ``t``/``t_end`` are host scalars of the
@@ -273,7 +472,10 @@ class SolverBase:
 
     def step(self, state: SolverState) -> SolverState:
         """One generic step (the JAX package's ``step`` is generic too)."""
-        u, t = self._local_step(state.u, state.t)
+        if self.mesh is not None:
+            u, t = self._sharded(self._local_step)(state.u, state.t)
+        else:
+            u, t = self._local_step(state.u, state.t)
         return SolverState(u=u, t=t, it=state.it + 1)
 
     # ------------------------------------------------------------------ #
@@ -326,16 +528,20 @@ class SolverBase:
         Keys as in the JAX package: ``impl`` (requested), ``stepper``
         (``fused-stage``, ``fused-step``, ``fused-whole-run``,
         ``fused-whole-run-slab``, ``per-axis-pallas`` or
-        ``generic-xla``), ``overlap``, ``steps_per_exchange``,
-        ``exchange``, ``storage_dtype``, ``precision``, and ``fallback``
-        — why a requested rung did not run, or ``None``: the fused
-        decline, then ``"; "`` and the per-op reason, as in the JAX
-        package. Unlike the JAX package, a fused run may carry a
-        ``fallback`` too (the reason a rung the JAX package would pick
-        instead is not available here), and so may a per-axis run where
-        one operator's kernel declines and that operator runs in plain
-        PyTorch (the JAX package falls back inside the operator and
-        does not say so).
+        ``generic-xla``), ``overlap`` (the sharded halo schedule in
+        effect: a fused stepper's ``"split"`` or
+        ``"serialized-refresh"``, the generic loop's ``cfg.overlap``,
+        ``None`` unsharded), ``steps_per_exchange``, ``exchange``,
+        ``storage_dtype``, ``precision``, and ``fallback`` — why a
+        requested rung did not run, or ``None``: the fused decline, then
+        ``"; "`` and the per-op reason, as in the JAX package. Unlike the
+        JAX package, a fused run may carry a ``fallback`` too (the reason
+        a rung the JAX package would pick instead is not available
+        here), and so may a per-axis run where one operator's kernel
+        declines and that operator runs in plain PyTorch (the JAX
+        package falls back inside the operator and does not say so). The
+        mesh itself is ``self.mesh`` (``mesh.shape``), as in the JAX
+        package.
 
         ``mode="t_end"`` mirrors :meth:`advance_to`: a fused stepper
         without ``run_to`` (the whole-run steppers) leaves it to the
@@ -355,6 +561,12 @@ class SolverBase:
             stepper = fused.engaged_label
             storage = fused.dtype
             fallback = self._fused_fallback
+            # the whole-step and 2-D steppers are single-device only
+            overlap = None
+            if getattr(fused, "sharded", False):
+                overlap = ("split" if fused.overlap_split
+                           else "serialized-refresh")
+            k = getattr(fused, "steps_per_exchange", 1)
         else:
             op = self._op_impl()
             stepper = "per-axis-pallas" if op == "pallas" else "generic-xla"
@@ -368,16 +580,78 @@ class SolverBase:
                 # the per-axis rung pinned: why it or one of its
                 # operators does not run its kernel
                 fallback = self._op_fallback
+            overlap = self.cfg.overlap if self.mesh is not None else None
+            k = self.cfg.steps_per_exchange
         return {
             "impl": impl,
             "stepper": stepper,
-            "overlap": None,
-            "steps_per_exchange": 1,
+            "overlap": overlap,
+            "steps_per_exchange": int(k),
             "exchange": "collective",
             "storage_dtype": str(storage).replace("torch.", ""),
             "precision": "native",
             "fallback": fallback,
         }
+
+    def _fused_sharded_ctx(self, fused):
+        """``(refresh, offsets, exch)`` for running a fused stepper on a
+        shard (the JAX package's ``_fused_sharded_ctx``): ghosts
+        refreshed in place after every RK stage (or step), this shard's
+        global offsets for the kernels' global wall masks, and, when the
+        stepper runs the split schedule (``fused.overlap_split``),
+        ``exch`` in place of ``refresh``: the ``(lo, hi)`` exchanged z
+        slabs of the padded buffer's core, issued on the shard's exchange
+        stream (:func:`parallel.mesh.exchange_stream`) so the interior
+        call runs while they are in flight; the stepper joins the
+        streams (:func:`parallel.mesh.wait_exchange`) before the edge
+        calls consume them. On pencil meshes the non-z sharded axes keep
+        the serialized refresh. Both exchange at the stepper's
+        ``exchange_depth`` (the stencil halo, or ``k * G`` for the
+        k-step slab schedule). All ``None`` when unsharded. Runs inside
+        ``shard_map``."""
+        if self.mesh is None or not fused.sharded:
+            return None, None, None
+        sizes = dict(self.mesh.shape)
+        depth = int(getattr(fused, "exchange_depth", fused.halo))
+        offsets = tuple(axis_offsets(self.decomp, fused.interior_shape))
+        core_offsets = getattr(fused, "core_offsets", None)
+        if getattr(fused, "overlap_split", False):
+            name = self.decomp.mesh_axis(0)
+            nsh = axis_extent(sizes, name)
+            off = (core_offsets or (fused.halo,))[0]
+            lz = fused.interior_shape[0]
+
+            def exch(P, repeats: int = 1):
+                del repeats
+                with pmesh.exchange_stream():
+                    return exchange_ghosts(P.narrow(0, off, lz), 0, depth,
+                                           name, nsh, self.bcs[0])
+
+            others = {ax: nm for ax, nm in self.decomp.axes
+                      if ax != 0 and axis_extent(sizes, nm) > 1}
+            refresh = None
+            if others:
+                refresh = make_ghost_refresh(
+                    Decomposition.of(others), sizes, self.bcs, fused.halo,
+                    fused.interior_shape, core_offsets=core_offsets)
+            return refresh, offsets, exch
+        refresh = make_ghost_refresh(
+            self.decomp, sizes, self.bcs, depth, fused.interior_shape,
+            core_offsets=core_offsets)
+        return refresh, offsets, None
+
+    def _sharded(self, fn, n_in: int = 1, n_out: int = 1):
+        """``fn(u, *scalars) -> (u, *scalars)`` run on every shard of the
+        mesh: ``u`` sharded by the decomposition, scalars shared."""
+        d = self.decomp
+        return pmesh.shard_map(fn, self.mesh, (d,) + (None,) * n_in,
+                               (d,) + (None,) * n_out)
+
+    @staticmethod
+    def _host_t(t, tdt):
+        """A shard's time as the host scalar of the state's precision (a
+        device-scalar stepper returns a 0-d tensor: read once, here)."""
+        return tdt(t.item()) if isinstance(t, torch.Tensor) else t
 
     # ------------------------------------------------------------------ #
     # Execution
@@ -389,13 +663,28 @@ class SolverBase:
 
     def _run_impl(self, state: SolverState, num_iters: int) -> SolverState:
         fused = self._fused_stepper()
+        n = int(num_iters)
+        if self.mesh is not None:
+            u, t = self._sharded(
+                lambda u, t: self._run_block(fused, u, t, n))(state.u,
+                                                              state.t)
+            return SolverState(u=u, t=self._host_t(t, type(state.t)),
+                               it=state.it + n)
+        u, t = self._run_block(fused, state.u, state.t, n)
+        return SolverState(u=u, t=t, it=state.it + n)
+
+    def _run_block(self, fused, u, t, n: int):
+        """``n`` steps of the block program (one shard's, under a mesh):
+        the fused stepper's ``run`` or the generic loop."""
         if fused is not None:
-            u, t = fused.run(state.u, state.t, num_iters)
-            return SolverState(u=u, t=t, it=state.it + int(num_iters))
-        u, t = state.u, state.t
-        for _ in range(int(num_iters)):
+            refresh, offsets, exch = self._fused_sharded_ctx(fused)
+            if refresh is None and offsets is None and exch is None:
+                return fused.run(u, t, n)
+            return fused.run(u, t, n, refresh=refresh, offsets=offsets,
+                             exch=exch)
+        for _ in range(n):
             u, t = self._local_step(u, t)
-        return SolverState(u=u, t=t, it=state.it + int(num_iters))
+        return u, t
 
     def advance_to(self, state: SolverState, t_end: float) -> SolverState:
         """March until ``t_end`` with the last step trimmed to land exactly
@@ -404,17 +693,34 @@ class SolverBase:
 
     def _advance_impl(self, state: SolverState, t_end: float) -> SolverState:
         fused = self._fused_stepper(mode="t_end")
-        if fused is not None and hasattr(fused, "run_to"):
-            u, t, steps = fused.run_to(state.u, state.t, t_end)
+        if fused is not None and not hasattr(fused, "run_to"):
+            fused = None
+        if self.mesh is not None:
+            u, t, steps = self._sharded(
+                lambda u, t: self._advance_block(fused, u, t, t_end),
+                n_out=2)(state.u, state.t)
             return SolverState(u=u, t=t, it=state.it + steps)
-        tdt = type(state.t)
+        u, t, steps = self._advance_block(fused, state.u, state.t, t_end)
+        return SolverState(u=u, t=t, it=state.it + steps)
+
+    def _advance_block(self, fused, u, t, t_end):
+        """March the block program (one shard's, under a mesh) until
+        ``t_end``: the fused stepper's ``run_to`` or the generic loop;
+        returns ``(u, t, steps)``."""
+        if fused is not None:
+            refresh, offsets, exch = self._fused_sharded_ctx(fused)
+            if refresh is None and offsets is None and exch is None:
+                return fused.run_to(u, t, t_end)
+            return fused.run_to(u, t, t_end, refresh=refresh,
+                                offsets=offsets, exch=exch)
+        tdt = type(t)
         te = tdt(t_end)
         eps = tdt(1e-12) * max(tdt(1.0), abs(te))
-        u, t, steps = state.u, state.t, 0
+        steps = 0
         while t < te - eps:
             u, t = self._local_step(u, t, t_end=te)
             steps += 1
-        return SolverState(u=u, t=t, it=state.it + steps)
+        return u, t, steps
 
     # ------------------------------------------------------------------ #
     # Ensemble (leading-member-axis) execution: B members per dispatch
@@ -424,8 +730,13 @@ class SolverBase:
         """Loud eligibility gate of the batched dispatch, the JAX
         package's declines and texts: the config-level ones
         (:func:`ensemble_cfg_gate`), the slab pin with member-varying
-        operands, and unknown operand names. Device meshes raise at the
-        front end (``models/ensemble.py``): the port has none yet."""
+        operands, and unknown operand names. A solver on a device mesh
+        raises: member-sharded ensemble meshes are not ported."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "ensembles on a device mesh (a 'members' axis) are not "
+                "ported yet (ROADMAP queue 1 item 8f); the port's ensemble "
+                "runs on one device")
         ensemble_cfg_gate(self.cfg)
         if getattr(self.cfg, "impl", "xla") == "pallas_slab" and (
             operand_names

@@ -1,6 +1,6 @@
 """Burgers / scalar conservation-law solver
 ``u_t + sum_axis d f(u)/dx_axis = nu lap(u)`` (JAX ``models/burgers.py``
-counterpart: 2-D and 3-D Cartesian, one device).
+counterpart: 2-D and 3-D Cartesian, one device or a device mesh).
 
 * WENO5-JS (``Matlab_Prototipes/InviscidBurgersNd/LFWENO5FDM3d.m``,
   ``MultiGPU/Burgers3d_Baseline``), WENO5-Z
@@ -41,7 +41,17 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   generic path, with the JAX package's reason;
 * ``"auto"`` — not ported: construction raises
   ``NotImplementedError``, as it does for WENO7 on a fused rung, 1-D
-  grids, ``precision="bf16"`` and mesh options.
+  grids and ``precision="bf16"``.
+
+On a device mesh (``mesh=``/``decomp=``) the generic and per-axis rungs
+run on every decomposition (adaptive dt the max over the shards), and
+on z slabs the fused rungs: K5 with 3 z-ghost planes refreshed after
+every stage (the split schedule's three launches a stage), dt from the
+shards' emitted maxima kept on the card; and, where pinned
+(``impl="pallas_slab"`` or ``steps_per_exchange > 1``, fixed dt), one K3
+launch over an output window a step, or the k-step schedule. The fused
+rung on a y- or x-sharded mesh (K5's other layouts) and on a 2-D mesh
+(K8) raises.
 """
 
 from __future__ import annotations
@@ -138,8 +148,9 @@ class BurgersConfig:
 class BurgersSolver(SolverBase):
     cfg: BurgersConfig
 
-    def __init__(self, cfg: BurgersConfig, device=None):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: BurgersConfig, device=None, mesh=None,
+                 decomp=None):
+        super().__init__(cfg, device=device, mesh=mesh, decomp=decomp)
         self.flux = flux_lib.get(cfg.flux, **dict(cfg.flux_params))
         # the CUDA-parity fixed step (Burgers3d_Baseline/main.c:193), or
         # None in adaptive mode
@@ -159,13 +170,21 @@ class BurgersSolver(SolverBase):
             raise NotImplementedError("1-D Burgers is not ported yet")
         if cfg.precision != "native":
             raise NotImplementedError(
-                f"precision={cfg.precision!r} storage is not ported yet"
+                f"precision={cfg.precision!r} storage is not ported yet "
+                "(ROADMAP queue 1 item 9; its bf16 halo wires, item 8h)"
             )
-        if cfg.steps_per_exchange != 1 or cfg.exchange != "collective":
+        fused = is_fused_impl(cfg.impl) and self._fused_reason() is None
+        if self.mesh is not None and fused and self.grid.ndim == 2:
             raise NotImplementedError(
-                "steps_per_exchange/exchange need a device mesh, which is "
-                "not ported yet"
-            )
+                f"impl={cfg.impl!r} on a 2-D mesh needs the sharded 2-D "
+                "stage kernels K8/K8b, which are not ported yet (ROADMAP "
+                "queue 1 item 8b); impl='xla' and 'pallas_axis' run there")
+        if fused and any(ax != 0 for ax in self._sharded_axes()):
+            raise NotImplementedError(
+                f"impl={cfg.impl!r} on a y- or x-sharded mesh needs K5's "
+                "y_sharded/x_sharded layouts, which are not ported yet "
+                "(ROADMAP queue 1 item 8d); z-slab meshes, and "
+                "impl='xla'/'pallas_axis' on any mesh, run")
         if (cfg.weno_order == 7 and is_fused_impl(cfg.impl)
                 and self._fused_reason() is None):
             kernel = "K5's and K6's" if self.grid.ndim == 3 else "K7's"
@@ -248,6 +267,7 @@ class BurgersSolver(SolverBase):
                 fixed_dt = cfl * min(spacing)
         impl = self._op_impl()
         lap_impl = self._laplacian_impl(impl, cfg.laplacian_order)
+        ghost_fn = ctx.ghost_fn if cfg.overlap == "split" else None
 
         def rhs(u):
             acc = None
@@ -255,6 +275,7 @@ class BurgersSolver(SolverBase):
                 div = flux_divergence(
                     u, axis, spacing[axis], fx, order=cfg.weno_order,
                     variant=cfg.weno_variant, padder=ctx.padder, impl=impl,
+                    ghost_fn=ghost_fn,
                 )
                 acc = div if acc is None else acc + div
             out = -acc
@@ -262,13 +283,14 @@ class BurgersSolver(SolverBase):
                 out = out + laplacian(u, spacing, ctx.padder,
                                       diffusivity=cfg.nu,
                                       order=cfg.laplacian_order,
-                                      impl=lap_impl)
+                                      impl=lap_impl, ghost_fn=ghost_fn)
             return out
 
         if cfg.adaptive_dt:
             return LocalPhysics(
                 rhs=rhs,
-                dt_fn=lambda u: advective_dt(u, fx.df, spacing, cfl),
+                dt_fn=lambda u: advective_dt(u, fx.df, spacing, cfl,
+                                             reduce_max=ctx.reduce_max),
             )
         # CUDA-parity fixed dt: CFL * dx / 1.0 (Burgers3d_Baseline/main.c:193)
         return LocalPhysics(rhs=rhs, static_dt=fixed_dt)
@@ -296,7 +318,13 @@ class BurgersSolver(SolverBase):
             return "fused kernels are float32-only"
         if not all(b.kind == "edge" for b in self.bcs):
             return "fused ghost discipline needs edge BCs"
-        if self.grid.ndim == 2 and not FusedBurgers2DStepper.supported(
+        if self.mesh is not None:
+            halo = HALO[cfg.weno_order]
+            lshape = self.local_shape()
+            if any(lshape[ax] < halo for ax, _ in self.decomp.axes):
+                return (f"a sharded axis is thinner than the "
+                        f"WENO{cfg.weno_order} halo ({halo})")
+        elif self.grid.ndim == 2 and not FusedBurgers2DStepper.supported(
             self.grid.shape, self.dtype
         ):
             return "2-D grid exceeds the whole-run L2 budget"
@@ -328,27 +356,41 @@ class BurgersSolver(SolverBase):
         if slab is not None:
             return slab
         if "fused" not in self._cache:
+            kwargs = {}
+            if self.mesh is not None:
+                kwargs = dict(interior_shape=self.local_shape(),
+                              global_shape=self.grid.shape,
+                              overlap_split=self._split_overlap_requested(),
+                              reduce_max=self.mesh_reduce_max())
             self._cache["fused"] = FusedBurgersStepper(
                 self.grid.spacing, self.flux,
                 cfg.weno_variant, cfg.nu, cfg.cfl, self.device, dt=self.dt,
+                **kwargs,
             )
         return self._cache["fused"]
 
     def _select_slab(self, mode: str):
-        """The whole-run slab stepper (K6) when this fixed-dt 3-D config
-        engages it, else ``None`` and the per-stage stepper (K5) runs (the
-        JAX package's ``_select_slab``, its unsharded branch; the shared
-        eligibility has passed). ``impl="pallas_slab"`` pins the rung:
-        where it declines, K5 runs, as in the JAX package, and
-        ``fallback`` carries the JAX package's reason. ``impl="pallas"``
-        follows the port's measured gate
-        (``SlabRunBurgersStepper.profitable``)."""
+        """The slab stepper when this fixed-dt 3-D config engages it, else
+        ``None`` and the per-stage stepper (K5) runs (the JAX package's
+        ``_select_slab``; the shared eligibility has passed).
+        ``impl="pallas_slab"`` pins the rung: where it declines, K5 runs,
+        as in the JAX package, and ``fallback`` carries the JAX package's
+        reason; ``steps_per_exchange > 1`` pins it too and turns every
+        decline into an error. ``impl="pallas"`` follows the port's
+        measured gate (``SlabRunBurgersStepper.profitable``) on one
+        device; under a mesh the rung engages only when pinned, on z
+        slabs (K3)."""
         cfg = self.cfg
+        k = int(cfg.steps_per_exchange)
         if cfg.impl not in ("pallas", "pallas_slab"):
             return None
-        pinned = cfg.impl == "pallas_slab"
+        pinned = cfg.impl == "pallas_slab" or k > 1
 
         def decline(reason):
+            if k > 1:
+                raise ValueError(
+                    f"steps_per_exchange={k} needs the sharded slab "
+                    f"rung: {reason}")
             if pinned:
                 self._fused_fallback = reason
             return None
@@ -357,18 +399,35 @@ class BurgersSolver(SolverBase):
             return decline("the slab stepper has no run_to (use --iters)")
         if cfg.adaptive_dt:
             return decline("adaptive dt rides the per-stage stepper")
-        shape = self.grid.shape
-        if not SlabRunBurgersStepper.supported(shape, self.dtype):
+        shape = self.local_shape()
+        G = SlabRunBurgersStepper.halo
+        if self.mesh is not None:
+            if not pinned:
+                return None
+            if any(ax != 0 for ax in self._sharded_axes()):
+                return decline("z-slab decompositions only")
+        depth = k * G if self._sharded_axes() else 0
+        if not SlabRunBurgersStepper.supported(shape, self.dtype, depth):
             return decline("local shape exceeds the slab kernel's 32-bit "
                            "indices")
         if not pinned and not SlabRunBurgersStepper.profitable(
             shape, self.dtype
         ):
             return None
+        if self.mesh is not None and shape[0] < k * G:
+            return decline(
+                f"local z extent {shape[0]} cannot serve the "
+                f"{k * G}-deep exchange")
         if "fused_slab" not in self._cache:
+            kwargs = {}
+            if self.mesh is not None:
+                kwargs = dict(global_shape=self.grid.shape,
+                              overlap_split=self._split_overlap_requested(),
+                              steps_per_exchange=k)
             self._cache["fused_slab"] = SlabRunBurgersStepper(
                 shape, self.grid.spacing, self.flux, cfg.weno_variant,
                 cfg.nu, self.dt, self.device, order=cfg.weno_order,
+                **kwargs,
             )
         return self._cache["fused_slab"]
 

@@ -1,6 +1,6 @@
 """Heat / diffusion equation solver ``u_t = K lap(u) + S(u)``
 (JAX ``models/diffusion.py`` counterpart: 2-D and 3-D Cartesian, one
-device).
+device or a device mesh).
 
 Reference-parity behavior (on by default): the Laplacian is zeroed on
 the 2-cell boundary band (``Laplace3d.m:21``) and Dirichlet faces are
@@ -33,6 +33,16 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   geometry, bf16 storage, and float64 where the JAX package's 3-D fused
   rung engages (float64 storage on its float32 kernels); float64 the
   fused rung declines runs the generic path, as in the JAX package.
+
+On a device mesh (``mesh=``/``decomp=``) every rung runs shard-local as
+in the JAX package: the generic and per-axis rungs on any decomposition
+(ghosts exchanged by the padder, ``overlap="split"`` computing the
+interior while they travel), K1 with global wall masks and a ghost
+refresh after every stage (the split schedule's three launches a stage
+on z), and — only where pinned (``impl="pallas_slab"`` or
+``steps_per_exchange > 1``) and on z slabs — the slab rung as one K3
+launch over an output window a step, or the k-step schedule. K10
+declines under a mesh; the fused rung on a 2-D mesh (K8) raises.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from multigpu_advectiondiffusion_tpu_torch.models.base import (
     LocalPhysics,
     SolverBase,
     StepContext,
+    global_field,
 )
 from multigpu_advectiondiffusion_tpu_torch.models.registry import (
     ModelSpec,
@@ -57,6 +68,7 @@ from multigpu_advectiondiffusion_tpu_torch.models.registry import (
 from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_fused_impl
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
+    R,
     FusedDiffusionStepper,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion2d import (
@@ -140,8 +152,9 @@ class DiffusionConfig:
 class DiffusionSolver(SolverBase):
     cfg: DiffusionConfig
 
-    def __init__(self, cfg: DiffusionConfig, device=None):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: DiffusionConfig, device=None, mesh=None,
+                 decomp=None):
+        super().__init__(cfg, device=device, mesh=mesh, decomp=decomp)
         self._check_ported()
         self.dt = diffusive_dt(cfg.diffusivity, cfg.grid.spacing, cfg.safety)
 
@@ -162,13 +175,15 @@ class DiffusionSolver(SolverBase):
             )
         if cfg.precision != "native":
             raise NotImplementedError(
-                f"precision={cfg.precision!r} storage is not ported yet"
+                f"precision={cfg.precision!r} storage is not ported yet "
+                "(ROADMAP queue 1 item 9; its bf16 halo wires, item 8h)"
             )
-        if cfg.steps_per_exchange != 1 or cfg.exchange != "collective":
+        fused = is_fused_impl(cfg.impl) and self._fused_reason() is None
+        if self.mesh is not None and self.grid.ndim == 2 and fused:
             raise NotImplementedError(
-                "steps_per_exchange/exchange need a device mesh, which is "
-                "not ported yet"
-            )
+                f"impl={cfg.impl!r} on a 2-D mesh needs the sharded 2-D "
+                "stage kernels K8/K8b, which are not ported yet (ROADMAP "
+                "queue 1 item 8b); impl='xla' and 'pallas_axis' run there")
         if self.dtype == torch.float64 and self._fused_reason() is None:
             raise NotImplementedError(
                 f"dtype=float64 with impl={cfg.impl!r}: the JAX package "
@@ -257,10 +272,12 @@ class DiffusionSolver(SolverBase):
             )
             impl = "xla"
 
+        ghost_fn = ctx.ghost_fn if cfg.overlap == "split" else None
+
         def operator(u):
             return laplacian(u, grid.spacing, ctx.padder,
                              diffusivity=[K] * grid.ndim, order=cfg.order,
-                             impl=impl)
+                             impl=impl, ghost_fn=ghost_fn)
 
         walled_axes = [a for a, b in enumerate(bcs) if b.kind != "periodic"]
         band = (
@@ -290,11 +307,13 @@ class DiffusionSolver(SolverBase):
             sources = {}
             for a in edge_axes:
                 # zero-gradient walls: the frozen band copies the first
-                # evolving row (heat2d_axisymmetric.m:64-66)
-                n = ctx.global_shape[a]
-                idx = torch.arange(n, device=ctx.device)
-                sources[a] = torch.clamp(idx, cfg.boundary_band,
-                                         n - 1 - cfg.boundary_band)
+                # evolving row (heat2d_axisymmetric.m:64-66); the local
+                # index of the source row, clipped into this shard
+                n_loc, n = ctx.local_shape[a], ctx.global_shape[a]
+                gidx = torch.arange(n_loc, device=ctx.device) + ctx.offsets[a]
+                tgt = torch.clamp(gidx, cfg.boundary_band,
+                                  n - 1 - cfg.boundary_band)
+                sources[a] = torch.clamp(tgt - ctx.offsets[a], 0, n_loc - 1)
 
             def post(u):
                 for faces, value in clamps:
@@ -330,6 +349,7 @@ class DiffusionSolver(SolverBase):
             return "fused walls need reference_parity with boundary_band >= 1"
         if self.dtype == torch.float64 and (
             self.grid.ndim != 3 or cfg.impl == "pallas_step"
+            or self.mesh is not None
         ):
             return "f64 storage rides the 3-D fused steppers, single-chip only"
         bcs = self.bcs
@@ -337,6 +357,13 @@ class DiffusionSolver(SolverBase):
             b.value == bcs[0].value for b in bcs
         ):
             return "fused walls need uniform Dirichlet BCs on every axis"
+        if self.mesh is not None:
+            if cfg.impl == "pallas_step":
+                return ("whole-step temporal blocking crosses ghost-refresh "
+                        "points; single-chip only")
+            lshape = self.local_shape()
+            if any(lshape[ax] < R for ax, _ in self.decomp.axes):
+                return f"a sharded axis is thinner than the O4 halo ({R})"
         return None
 
     def _fused_stepper(self, mode: str = "iters"):
@@ -365,39 +392,62 @@ class DiffusionSolver(SolverBase):
         else:
             key, cls = "fused", FusedDiffusionStepper
         if key not in self._cache:
+            kwargs = {}
+            if self.mesh is not None:
+                kwargs = dict(global_shape=self.grid.shape,
+                              overlap_split=self._split_overlap_requested())
             self._cache[key] = cls(
-                self.grid.shape,
+                self.local_shape(),
                 self.grid.spacing,
                 [cfg.diffusivity] * 3,
                 self.dt,
                 cfg.boundary_band,
                 bcs[0].value,
                 self.device,
+                **kwargs,
             )
         return self._cache[key]
 
     def _select_slab(self, mode: str):
-        """The whole-run slab stepper (K2) when this 3-D config engages
-        it, else ``None`` and the per-stage selection proceeds (the JAX
-        package's ``_select_slab``, its unsharded branch).
-        ``impl="pallas_slab"`` pins the rung: where it declines, the
-        per-stage stepper runs, as in the JAX package, and ``fallback``
-        carries the JAX package's reason. ``impl="pallas"`` follows the
-        port's measured gate (``SlabRunDiffusionStepper.profitable``)."""
+        """The slab stepper when this 3-D config engages it, else ``None``
+        and the per-stage selection proceeds (the JAX package's
+        ``_select_slab``). ``impl="pallas_slab"`` pins the rung: where it
+        declines, the per-stage stepper runs, as in the JAX package, and
+        ``fallback`` carries the JAX package's reason;
+        ``steps_per_exchange > 1`` pins it too and turns every decline
+        into an error. ``impl="pallas"`` follows the port's measured gate
+        (``SlabRunDiffusionStepper.profitable``) on one device; under a
+        mesh the rung engages only when pinned, on z slabs (K3)."""
         cfg = self.cfg
+        k = int(cfg.steps_per_exchange)
         if cfg.impl not in ("pallas", "pallas_slab"):
             return None
-        pinned = cfg.impl == "pallas_slab"
+        pinned = cfg.impl == "pallas_slab" or k > 1
 
         def decline(reason):
+            if k > 1:
+                raise ValueError(
+                    f"steps_per_exchange={k} needs the sharded slab "
+                    f"rung: {reason}")
             if pinned:
                 self._fused_fallback = reason
             return None
 
         if mode == "t_end":
             return decline("the slab stepper has no run_to (use --iters)")
-        shape = self.grid.shape
-        if not SlabRunDiffusionStepper.supported(shape, self.dtype):
+        shape = self.local_shape()
+        G = SlabRunDiffusionStepper.halo
+        if self.mesh is not None:
+            if not pinned:
+                return None
+            if any(ax != 0 for ax in self._sharded_axes()):
+                return decline("z-slab decompositions only")
+            if shape[0] < k * G:
+                return decline(
+                    f"local z extent {shape[0]} cannot serve the "
+                    f"{k * G}-deep exchange")
+        depth = k * G if self._sharded_axes() else R
+        if not SlabRunDiffusionStepper.supported(shape, self.dtype, depth):
             return decline("local shape exceeds the slab kernel's 32-bit "
                            "indices")
         if not pinned and not SlabRunDiffusionStepper.profitable(
@@ -405,6 +455,11 @@ class DiffusionSolver(SolverBase):
         ):
             return None
         if "fused_slab" not in self._cache:
+            kwargs = {}
+            if self.mesh is not None:
+                kwargs = dict(global_shape=self.grid.shape,
+                              overlap_split=self._split_overlap_requested(),
+                              steps_per_exchange=k)
             self._cache["fused_slab"] = SlabRunDiffusionStepper(
                 shape,
                 self.grid.spacing,
@@ -413,6 +468,7 @@ class DiffusionSolver(SolverBase):
                 cfg.boundary_band,
                 self.bcs[0].value,
                 self.device,
+                **kwargs,
             )
         return self._cache["fused_slab"]
 
@@ -449,7 +505,8 @@ class DiffusionSolver(SolverBase):
     def error_norms(self, state: SolverState, t: float | None = None):
         t_val = float(state.t) if t is None else t
         return metrics.error_norms(
-            state.u, self.exact_solution(t_val), self.cfg.grid.spacing
+            global_field(state.u), self.exact_solution(t_val),
+            self.cfg.grid.spacing
         )
 
 

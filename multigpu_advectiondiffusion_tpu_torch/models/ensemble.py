@@ -85,11 +85,11 @@ class EnsembleSolver:
                  device=None):
         if mesh is not None or decomp is not None:
             raise ValueError(
-                "device meshes are not ported yet: the port's ensemble "
-                "runs on one device. (In the JAX package an ensemble "
-                "mesh composes through a 'members' axis, e.g. "
-                "make_mesh({'members': 8}); a purely spatial mesh shards "
-                "one member's grid.)"
+                "ensemble meshes are not ported yet (ROADMAP queue 1 item "
+                "8f): the port's ensemble runs on one device. (In the JAX "
+                "package an ensemble mesh composes through a 'members' "
+                "axis, e.g. make_mesh({'members': 8}); a purely spatial "
+                "mesh shards one member's grid.)"
             )
         if isinstance(members, int):
             if members < 1:

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -29,6 +30,20 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+_LAUNCH_LOCK = threading.Lock()
+# one lock a library: the shards of a mesh may ask for one at once
+_BUILD_LOCKS: dict = {}
+_BUILD_GUARD = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count),
+    under a lock: the shards of a device mesh launch from threads of
+    their own."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 class Built(NamedTuple):
@@ -63,6 +78,13 @@ def build(source: str, extra_flags: tuple = ()) -> Built:
     digest.update(" ".join(flags).encode())
     digest = digest.hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    with _BUILD_GUARD:
+        lock = _BUILD_LOCKS.setdefault(out, threading.Lock())
+    with lock:
+        return _build(src, flags, out)
+
+
+def _build(src: Path, flags: tuple, out: Path) -> Built:
     if out.exists():
         return Built(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

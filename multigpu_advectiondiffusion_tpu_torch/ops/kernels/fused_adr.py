@@ -169,7 +169,7 @@ def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
         )
     if rc != 0:
         raise RuntimeError(f"fused_adr_stage launch failed: CUDA error {rc}")
-    fused_adr_stage.launches += 1
+    build.count_launch(fused_adr_stage)
     return out
 
 

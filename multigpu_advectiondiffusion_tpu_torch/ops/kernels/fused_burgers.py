@@ -46,6 +46,7 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
     FusedStepperBase,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.weno import HALO, _weno5_side_nd_e
+from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import wait_exchange
 from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import (
     dt_from_wave_speed,
     max_wave_speed,
@@ -65,6 +66,9 @@ NVCC_EXTRA = ("-fmad=false", "-prec-div=true", "-ftz=false")
 # was the fastest of 8, 16, 32 alone at 512^3, by 1 % over 16
 # (chip_smoke.py's sweep, PERF.md).
 Z_CHUNK = 32
+# planes of the split schedule's bottom and top calls (the JAX stepper's
+# z block at its usual shapes, so both split the same shards)
+SPLIT_BZ = 8
 FLUX_CODES = {"burgers": 0, "linear": 1, "buckley": 2}
 
 
@@ -142,20 +146,64 @@ def _divergence(P, M, axis: int, n: int, inv_dx: float, variant: str):
 
 
 def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
-                    b: float, emit: bool = False):
-    """Plain PyTorch twin of K5 on the same unpadded layout, in any
-    dimension (the 2-D whole-run kernel K7 runs this stage with one axis
-    fewer).
+                    b: float, emit: bool = False, zpad: int = 0,
+                    global_nz: int | None = None, oz: int = 0,
+                    window=None, lo=None, hi=None):
+    """Plain PyTorch twin of K5 on the same layout, in any dimension (the
+    2-D whole-run kernel K7 runs this stage with one axis fewer).
 
     Writes ``out`` (which may be ``u``) and returns it, or
-    ``(out, max|f'(out)|)`` when ``emit``. Operation order and
-    roundings are the kernel's: ``rhs = -((div_z + div_y) + div_x)
-    [+ lap]`` (``-(div_y + div_x)`` in 2-D), ``rk = b*(v + dt*rhs)``
-    and ``a*u + rk``.
+    ``(out, max|f'(out)|)`` over the planes written when ``emit``.
+    Operation order and roundings are the kernel's: ``rhs = -((div_z +
+    div_y) + div_x) [+ lap]`` (``-(div_y + div_x)`` in 2-D), ``rk =
+    b*(v + dt*rhs)`` and ``a*u + rk``. A z-slab shard passes ``zpad =
+    R`` (its block's ghost planes), ``global_nz`` and its global z
+    offset ``oz``: a z neighbour is clamped at the global edges only.
+    ``window = (k_begin, k_end)`` writes those block planes only, and
+    ``lo``/``hi`` replace the ghost planes below/above (the split
+    schedule's roles).
     """
+    nz = v.shape[0] - 2 * zpad
+    k0, k1 = window if window is not None else (0, nz)
+    if zpad == 0 and window is None:
+        vp = _edge_pad(v, R)
+    else:
+        if lo is not None or hi is not None:
+            v = v.clone()
+            if lo is not None:
+                v[:zpad] = lo
+            if hi is not None:
+                v[nz + zpad:] = hi
+        gnz = nz if global_nz is None else global_nz
+        g = torch.arange(oz + k0 - R, oz + k1 + R, device=v.device)
+        rows = g.clamp_(0, gnz - 1) - oz + zpad
+        vp = _edge_pad_trailing(v.index_select(0, rows), R)
+        v = v[zpad + k0:zpad + k1]
+        if u is not None:
+            u = u[zpad + k0:zpad + k1]
+    rk = _stage_rk(vp, v, u, dt, params, a, b)
+    dst = out if zpad == 0 and window is None else out[zpad + k0:zpad + k1]
+    dst.copy_(rk)
+    if emit:
+        return out, max_wave_speed(dst, params.flux.df)
+    return out
+
+
+def _edge_pad_trailing(v: torch.Tensor, r: int) -> torch.Tensor:
+    """``v`` with ``r`` replicated ghosts on every side of every axis but
+    the first."""
+    for axis in range(1, v.dim()):
+        n = v.shape[axis]
+        idx = torch.arange(-r, n + r, device=v.device).clamp_(0, n - 1)
+        v = v.index_select(axis, idx)
+    return v
+
+
+def _stage_rk(vp, v, u, dt, params: StageParams, a: float, b: float):
+    """The stage's ``rk`` on the cells of ``v`` from ``vp``, ``v`` padded
+    by ``R`` on every side (ghosts or clamped copies)."""
     n = tuple(v.shape)
     dt = torch.as_tensor(dt, dtype=torch.float32, device=v.device)
-    vp = _edge_pad(v, R)
     P, M = _split(params.flux, vp)
     core = [slice(R, R + m) for m in n]
     rhs = None
@@ -181,10 +229,7 @@ def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
     rk = b * (v + dt * rhs)
     if u is not None:
         rk = a * u + rk
-    out.copy_(rk)
-    if emit:
-        return out, max_wave_speed(out, params.flux.df)
-    return out
+    return rk
 
 
 # --------------------------------------------------------------------- #
@@ -196,23 +241,32 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build.build(SOURCE, NVCC_EXTRA).path))
     fn = lib.fused_burgers_stage
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, i, i, p, i, f, i, p, p, f, f, p, i, p]
+    fn.argtypes = [p, p, p, i, i, i, p, i, f, i, p, p, f, f, p, i, p, i, i,
+                   p, p, p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
-                        a: float, b: float, zchunk: int = Z_CHUNK):
+                        a: float, b: float, zchunk: int = Z_CHUNK,
+                        zpad: int = 0, global_nz: int | None = None,
+                        oz: int = 0, window=None, lo=None, hi=None,
+                        mx_init: bool = True):
     """One fused RK stage: ``out <- stage(v, u)``.
 
     ``u`` is ``None`` for the first stage and may be ``out`` (in-place
     final stage); ``v`` must not be ``out``. ``dt`` is a float32 tensor
     of one element on ``v``'s device (a float is accepted for a CPU
     tensor). ``mx``, a float32 tensor of one element, receives
-    ``max|f'(out)|`` over every cell. Launches K5 on the current stream
-    (no synchronisation), each thread marching ``zchunk`` z planes, and
-    counts the launch in ``fused_burgers_stage.launches``; a CPU tensor
-    runs :func:`stage_reference`.
+    ``max|f'(out)|`` over the cells written (folded into its value when
+    ``mx_init`` is false). A z-slab shard passes its block with
+    ``zpad = R`` ghost planes a side, the ``global_nz`` and its global z
+    offset ``oz``; ``window = (k_begin, k_end)`` writes those block planes
+    only, and ``lo``/``hi`` (``(zpad, ny, nx)``) replace the ghost planes
+    below/above (the split schedule's edge calls). Launches K5 on the
+    current stream (no synchronisation), each thread marching ``zchunk``
+    z planes, and counts the launch in ``fused_burgers_stage.launches``;
+    a CPU tensor runs :func:`stage_reference`.
     """
     for name, t in (("v", v), ("u", u), ("out", out)):
         if t is not None:
@@ -221,12 +275,26 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
         raise ValueError(f"3-D state expected, got {tuple(v.shape)}")
     if v.data_ptr() == out.data_ptr():
         raise ValueError("v and out must be different buffers")
+    if zpad not in (0, R):
+        raise ValueError(f"zpad must be 0 or {R}, got {zpad}")
+    nz, ny, nx = v.shape[0] - 2 * zpad, v.shape[1], v.shape[2]
+    gnz = nz if global_nz is None else int(global_nz)
+    k0, k1 = window if window is not None else (0, nz)
+    if not 0 <= k0 < k1 <= nz or not 0 <= oz <= gnz - nz or (
+            zpad == 0 and (gnz, oz) != (nz, 0)):
+        raise ValueError(f"window {window} / offset {oz} of {gnz} planes "
+                         f"do not fit a block of {nz}")
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t is not None:
+            _check(name, t, (zpad, ny, nx), v.device)
+    kw = dict(params=params, a=a, b=b, zpad=zpad, global_nz=gnz, oz=oz,
+              window=window, lo=lo, hi=hi)
     if v.device.type == "cpu":
-        res = stage_reference(v, u, out, dt, params=params, a=a, b=b,
-                              emit=mx is not None)
+        res = stage_reference(v, u, out, dt, emit=mx is not None, **kw)
         if mx is None:
             return res
-        mx.copy_(res[1].reshape(mx.shape))
+        m = res[1].reshape(mx.shape)
+        mx.copy_(m if mx_init else torch.maximum(mx, m))
         return out
     if v.device.type != "cuda":
         raise ValueError(f"no stage kernel for device {v.device}")
@@ -237,11 +305,11 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
                 or t.numel() != 1 or t.device != v.device):
             raise TypeError(f"{name}: a float32 tensor of one element on "
                             f"{v.device} expected")
-    nz, ny, nx = v.shape
     inv_dx = np.asarray(params.inv_dx, dtype=np.float32)
     taps = (None if params.lap_taps is None
             else np.asarray(params.lap_taps, dtype=np.float32))
     c = params.flux.c if params.flux.c is not None else 0.0
+    zgeo = np.asarray((zpad, gnz, oz, int(mx_init)), dtype=np.int32)
     with torch.cuda.device(v.device):
         rc = library().fused_burgers_stage(
             v.data_ptr(), None if u is None else u.data_ptr(),
@@ -250,12 +318,15 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
             int(params.variant == "z"), inv_dx.ctypes.data,
             None if taps is None else taps.ctypes.data,
             float(a), float(b), None if mx is None else mx.data_ptr(),
-            int(zchunk), torch.cuda.current_stream(v.device).cuda_stream,
+            int(zchunk), zgeo.ctypes.data, int(k0), int(k1),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(),
+            torch.cuda.current_stream(v.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"fused_burgers_stage launch failed: CUDA error {rc}")
-    fused_burgers_stage.launches += 1
+    build.count_launch(fused_burgers_stage)
     return out
 
 
@@ -264,14 +335,28 @@ fused_burgers_stage.launches = 0
 
 class FusedBurgersStepper(FusedStepperBase):
     """Fused WENO5 runner for one (grid, flux, dt mode) configuration on
-    one device: ``dt`` fixes the step (CUDA-parity mode), else the CFL
-    step ``float32(cfl min dx) / max(m, 1e-12)`` follows the wave speed
-    ``m`` that the last stage of each step emits."""
+    one device, or on one shard of a z-slab mesh: ``dt`` fixes the step
+    (CUDA-parity mode), else the CFL step ``float32(cfl min dx) /
+    max(m, 1e-12)`` follows the wave speed ``m`` that the last stage of
+    each step emits — the max over the shards (``reduce_max``), kept on
+    the card.
+
+    ``global_shape`` (when it differs from ``interior_shape``) makes the
+    stepper shard-local: the block is stored with ``R`` z-ghost planes a
+    side, ``(lz + 2R, ny, nx)``, refreshed from the neighbours after
+    every stage (``refresh``), and clamped at the global z edges only.
+    With ``overlap_split`` (and ``lz // SPLIT_BZ >= 3``) a stage is the
+    split schedule's three launches: the planes ``[SPLIT_BZ, lz -
+    SPLIT_BZ)`` while the z slabs are exchanged, then the bottom and top
+    ``SPLIT_BZ`` planes from the exchanged slabs (``exch``)."""
 
     device_scalars = True
+    halo = R
 
     def __init__(self, spacing, flux: Flux, variant: str, nu: float,
-                 cfl: float, device, dt: float | None = None):
+                 cfl: float, device, dt: float | None = None,
+                 interior_shape=None, global_shape=None,
+                 overlap_split: bool = False, reduce_max=None):
         self.dtype = torch.float32
         self.device = torch.device(device)
         self.params = stage_params(flux, variant, spacing, nu)
@@ -280,15 +365,33 @@ class FusedBurgersStepper(FusedStepperBase):
         self.adaptive = dt is None
         self.dt = None if dt is None else torch.full(
             (), dt, dtype=torch.float32, device=self.device)
+        self.interior_shape = (None if interior_shape is None
+                               else tuple(interior_shape))
+        self.global_shape = tuple(global_shape or interior_shape or ())
+        self.sharded = self.global_shape != (self.interior_shape or ())
+        self.zpad = R if self.sharded else 0
+        self.core_offsets = (self.zpad, 0, 0)
+        self.exchange_depth = R
+        self.reduce_max = reduce_max
+        self.overlap_split = bool(
+            overlap_split and self.sharded
+            and self.interior_shape[0] // SPLIT_BZ >= 3)
 
     def embed(self, u):
-        return u.to(device=self.device, dtype=self.dtype,
-                    copy=True).contiguous()
+        u = u.to(device=self.device, dtype=self.dtype, copy=True)
+        if not self.sharded:
+            return u.contiguous()
+        # ghost planes start as edge replicas; the refresh (or the
+        # exchanged operands) replaces them where the domain goes on
+        idx = torch.arange(-R, u.shape[0] + R, device=u.device)
+        return u.index_select(0, idx.clamp_(0, u.shape[0] - 1)).contiguous()
 
     def extract(self, S):
-        return S
+        return S[self.zpad:S.shape[0] - self.zpad] if self.sharded else S
 
     def _buffers(self, u):
+        # every plane a stage reads is written first (a stage, or the
+        # refresh of the ghost planes)
         S = self.embed(u)
         return S, torch.empty_like(S), torch.empty_like(S)
 
@@ -300,12 +403,37 @@ class FusedBurgersStepper(FusedStepperBase):
     def _dt_of(self, m):
         if not self.adaptive:
             return self.dt
-        return dt_from_wave_speed(m, self.spacing, self.cfl)
+        return dt_from_wave_speed(m, self.spacing, self.cfl,
+                                  reduce_max=self.reduce_max)
 
-    def _step(self, S, T1, T2, dt, m):
+    def _step(self, S, T1, T2, dt, m, refresh=None, offsets=None,
+              exch=None):
         kw = dict(params=self.params)
+        if self.sharded:
+            kw.update(zpad=self.zpad, global_nz=self.global_shape[0],
+                      oz=offsets[0])
         (a1, b1), (a2, b2), (a3, b3) = STAGES
-        fused_burgers_stage(S, None, T1, dt, a=a1, b=b1, **kw)
-        fused_burgers_stage(T1, S, T2, dt, a=a2, b=b2, **kw)
-        fused_burgers_stage(T2, S, S, dt, m, a=a3, b=b3, **kw)
+        stages = ((S, None, T1, a1, b1, None),
+                  (T1, S, T2, a2, b2, None),
+                  (T2, S, S, a3, b3, m))
+        for v, u, out, a, b, mx in stages:
+            if self.overlap_split:
+                self._split_stage(v, u, out, dt, mx, a, b, exch, kw)
+            else:
+                fused_burgers_stage(v, u, out, dt, mx, a=a, b=b, **kw)
+            if refresh is not None:
+                refresh(out)
         return S, T1, T2
+
+    def _split_stage(self, v, u, out, dt, mx, a, b, exch, kw):
+        """One stage as the split schedule's three launches; the emitted
+        maximum folds the three."""
+        lz, bz = self.interior_shape[0], SPLIT_BZ
+        lo, hi = exch(v)
+        fused_burgers_stage(v, u, out, dt, mx, a=a, b=b,
+                            window=(bz, lz - bz), **kw)
+        wait_exchange(lo, hi)
+        fused_burgers_stage(v, u, out, dt, mx, a=a, b=b, window=(0, bz),
+                            lo=lo, mx_init=False, **kw)
+        fused_burgers_stage(v, u, out, dt, mx, a=a, b=b,
+                            window=(lz - bz, lz), hi=hi, mx_init=False, **kw)

@@ -33,6 +33,7 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
     FusedStepperBase,
 )
+from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import wait_exchange
 
 R = 2  # stencil radius of the O4 second derivative
 O4_COEFFS = (-1.0, 16.0, -30.0, 16.0, -1.0)  # / (12 dx^2), Laplace3d.m:22-25
@@ -64,7 +65,9 @@ def _interior(t: torch.Tensor):
     return t[tuple(slice(R, s - R) for s in t.shape)]
 
 
-def stage_reference(v, u, out, dt, *, taps, a, b, band, bc_value):
+def stage_reference(v, u, out, dt, *, taps, a, b, band, bc_value,
+                    global_shape=None, offsets=None, window=None, lo=None,
+                    hi=None):
     """Plain PyTorch twin of the stage kernel, on the same padded layout
     and in any dimension (the 2-D whole-run kernel K7 runs this stage
     with one axis fewer).
@@ -72,10 +75,23 @@ def stage_reference(v, u, out, dt, *, taps, a, b, band, bc_value):
     Writes the interior of ``out`` (which may be ``u``) and returns it.
     Term order and roundings are the kernel's: taps axis by axis in
     array order, each product rounded, then ``b*(v + dt*acc)`` and
-    ``a*u + ...``.
+    ``a*u + ...``. A shard passes ``global_shape`` and its ``offsets``
+    (global wall masks); ``window = (k_begin, k_end)`` writes only those
+    interior planes of the leading axis, and ``lo``/``hi`` replace the
+    ``R`` ghost planes below/above it (the split schedule's roles).
     """
     n = tuple(s - 2 * R for s in v.shape)
     ndim = len(n)
+    k0, k1 = window if window is not None else (0, n[0])
+    if lo is not None or hi is not None:
+        v = v.clone()
+        if lo is not None:
+            v[:R] = lo
+        if hi is not None:
+            v[n[0] + R:] = hi
+    # the planes that feed the window: its rows and R ghosts a side
+    v = v[k0:k1 + 2 * R]
+    n = (k1 - k0,) + n[1:]
     acc = None
     for axis in range(ndim):
         for j in range(5):
@@ -87,21 +103,31 @@ def stage_reference(v, u, out, dt, *, taps, a, b, band, bc_value):
     dt = float(np.float32(dt))
     rk = b * (vc + dt * acc)
     if u is not None:
-        rk = a * _interior(u) + rk
-    return write_walled(out, rk, vc, band, bc_value)
+        rk = a * _interior(u[k0:k1 + 2 * R]) + rk
+    offsets = list(offsets) if offsets is not None else [0] * ndim
+    offsets[0] += k0
+    write_walled(out[k0:k1 + 2 * R], rk, vc, band, bc_value,
+                 global_shape=global_shape, offsets=offsets)
+    return out
 
 
-def write_walled(out, rk, vc, band, bc_value):
+def write_walled(out, rk, vc, band, bc_value, global_shape=None,
+                 offsets=None):
     """The stage kernels' epilogue: ``out``'s interior becomes ``rk`` on
-    cells ``>= band`` from every face, ``bc_value`` on the faces, and
-    ``vc`` (the stage input) on the rest of the band."""
+    cells ``>= band`` from every global face, ``bc_value`` on the global
+    faces, and ``vc`` (the stage input) on the rest of the band; a shard
+    passes the global interior shape and the global index of its first
+    interior cell (``offsets``)."""
     n = tuple(vc.shape)
+    global_shape = tuple(global_shape) if global_shape else n
+    offsets = offsets if offsets is not None else [0] * len(n)
     interior = face = None
     for axis, m in enumerate(n):
-        g = torch.arange(m, device=vc.device).reshape(
+        g = (torch.arange(m, device=vc.device) + offsets[axis]).reshape(
             [m if ax == axis else 1 for ax in range(len(n))])
-        inside = (g >= band) & (g < m - band)
-        on_face = (g == 0) | (g == m - 1)
+        G = global_shape[axis]
+        inside = (g >= band) & (g < G - band)
+        on_face = (g == 0) | (g == G - 1)
         interior = inside if interior is None else interior & inside
         face = on_face if face is None else face | on_face
     wall = torch.full((), bc_value, dtype=vc.dtype, device=vc.device)
@@ -117,7 +143,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build.build(SOURCE).path))
     fn = lib.fused_diffusion_stage
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, i, i, p, f, f, f, i, f, i, p]
+    fn.argtypes = [p, p, p, i, i, i, p, f, f, f, i, f, i, p, p, i, i, p, p,
+                   p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -135,16 +162,21 @@ def _check(name, t, shape, device):
 
 
 def fused_stage(v, u, out, dt, *, taps, a, b, band, bc_value,
-                zchunk=Z_CHUNK):
+                zchunk=Z_CHUNK, global_shape=None, offsets=None,
+                window=None, lo=None, hi=None):
     """One fused RK stage: ``out <- stage(v, u)`` on padded buffers.
 
     ``u`` is ``None`` for the first stage (a == 0) and may be ``out``
     (in-place final stage); ``v`` must not be ``out``. ``dt`` is
     rounded to float32 and passed by value, so a trimmed last step
-    needs no rebuild. Launches the CUDA kernel on the current stream
-    (no synchronisation), each thread marching ``zchunk`` z planes, and
-    counts the launch in ``fused_stage.launches``; a CPU tensor runs
-    :func:`stage_reference`.
+    needs no rebuild. A shard of a mesh passes the ``global_shape`` of
+    the interior and its ``offsets``; ``window = (k_begin, k_end)``
+    writes those interior z planes only, and ``lo``/``hi``
+    (``(R, ny+4, nx+4)``) replace the z-ghost planes below/above (the
+    split schedule's edge calls). Launches the CUDA kernel on the current
+    stream (no synchronisation), each thread marching ``zchunk`` z
+    planes, and counts the launch in ``fused_stage.launches``; a CPU
+    tensor runs :func:`stage_reference`.
     """
     for name, t in (("v", v), ("u", u), ("out", out)):
         if t is not None:
@@ -153,24 +185,36 @@ def fused_stage(v, u, out, dt, *, taps, a, b, band, bc_value,
         raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
     if v.data_ptr() == out.data_ptr():
         raise ValueError("v and out must be different buffers")
+    nz, ny, nx = (s - 2 * R for s in v.shape)
+    k0, k1 = window if window is not None else (0, nz)
+    if not 0 <= k0 < k1 <= nz:
+        raise ValueError(f"window {window} outside the {nz} interior planes")
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t is not None:
+            _check(name, t, (R,) + tuple(v.shape[1:]), v.device)
+    kw = dict(taps=taps, a=a, b=b, band=band, bc_value=bc_value,
+              global_shape=global_shape, offsets=offsets, window=(k0, k1),
+              lo=lo, hi=hi)
     if v.device.type == "cpu":
-        return stage_reference(v, u, out, dt, taps=taps, a=a, b=b,
-                               band=band, bc_value=bc_value)
+        return stage_reference(v, u, out, dt, **kw)
     if v.device.type != "cuda":
         raise ValueError(f"no stage kernel for device {v.device}")
-    nz, ny, nx = (s - 2 * R for s in v.shape)
     host_taps = np.asarray(taps, dtype=np.float32)
+    geo = np.asarray(global_shape or (nz, ny, nx), dtype=np.int32)
+    offs = np.asarray(offsets or (0, 0, 0), dtype=np.int32)
     with torch.cuda.device(v.device):
         rc = library().fused_diffusion_stage(
             v.data_ptr(), None if u is None else u.data_ptr(),
             out.data_ptr(), nz, ny, nx, host_taps.ctypes.data,
             float(np.float32(dt)), float(a), float(b), int(band),
-            float(bc_value), int(zchunk),
+            float(bc_value), int(zchunk), geo.ctypes.data, offs.ctypes.data,
+            int(k0), int(k1), None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(),
             torch.cuda.current_stream(v.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_diffusion_stage launch failed: CUDA error {rc}")
-    fused_stage.launches += 1
+    build.count_launch(fused_stage)
     return out
 
 
@@ -206,15 +250,63 @@ class PaddedDiffusionState:
 
 
 class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
-    """Fused runner for one (grid, dt) configuration on one device."""
+    """Fused runner for one (grid, dt) configuration on one device, or on
+    one shard of a mesh.
+
+    ``global_shape`` (when it differs from ``interior_shape``) makes the
+    stepper shard-local, as the JAX stepper's: ``interior_shape`` is this
+    shard's block, the kernel's wall masks are global (``offsets``), and
+    ``run`` takes the ghost ``refresh`` run after every stage. With
+    ``overlap_split`` (and at least three z chunks of ``Z_CHUNK`` >= R
+    planes) a stage is the split schedule's three launches: the interior
+    planes ``[Z_CHUNK, lz - Z_CHUNK)`` while the z slabs are exchanged,
+    then the bottom and top ``Z_CHUNK`` planes from the exchanged slabs
+    (``exch``); other sharded axes of a pencil keep the refresh."""
+
+    halo = R
+    needs_offsets = True
+
+    def __init__(self, interior_shape, spacing, diffusivity, dt, band,
+                 bc_value, device, global_shape=None,
+                 overlap_split: bool = False):
+        super().__init__(interior_shape, spacing, diffusivity, dt, band,
+                         bc_value, device)
+        self.global_shape = tuple(global_shape or interior_shape)
+        self.sharded = self.global_shape != self.interior_shape
+        self.core_offsets = (R,) * len(self.interior_shape)
+        self.exchange_depth = R
+        lz = self.interior_shape[0]
+        self.overlap_split = bool(overlap_split and self.sharded
+                                  and lz // Z_CHUNK >= 3 and Z_CHUNK >= R)
 
     def _dt_value(self):
         return np.float32(self.dt)
 
-    def _step(self, S, T1, T2, dt):
+    def _step(self, S, T1, T2, dt, refresh=None, offsets=None, exch=None):
         kw = dict(taps=self.taps, band=self.band, bc_value=self.bc_value)
+        if self.sharded:
+            kw.update(global_shape=self.global_shape, offsets=offsets)
         (a1, b1), (a2, b2), (a3, b3) = STAGES
-        fused_stage(S, None, T1, dt, a=a1, b=b1, **kw)  # u1 = u + dt L(u)
-        fused_stage(T1, S, T2, dt, a=a2, b=b2, **kw)    # 3/4 u + 1/4 (...)
-        fused_stage(T2, S, S, dt, a=a3, b=b3, **kw)     # 1/3 u + 2/3 (...)
+        stages = ((S, None, T1, a1, b1),  # u1 = u + dt L(u)
+                  (T1, S, T2, a2, b2),    # 3/4 u + 1/4 (u1 + dt L(u1))
+                  (T2, S, S, a3, b3))     # 1/3 u + 2/3 (...), in place
+        for v, u, out, a, b in stages:
+            if self.overlap_split:
+                self._split_stage(v, u, out, dt, a, b, exch, kw)
+            else:
+                fused_stage(v, u, out, dt, a=a, b=b, **kw)
+            if refresh is not None:
+                refresh(out)
         return S, T1, T2
+
+    def _split_stage(self, v, u, out, dt, a, b, exch, kw):
+        """One stage as the split schedule's three launches: the interior
+        planes while ``v``'s z slabs are exchanged on the exchange
+        stream, then the bottom and top planes from those slabs."""
+        lz, bz = self.interior_shape[0], Z_CHUNK
+        lo, hi = exch(v)
+        fused_stage(v, u, out, dt, a=a, b=b, window=(bz, lz - bz), **kw)
+        wait_exchange(lo, hi)
+        fused_stage(v, u, out, dt, a=a, b=b, window=(0, bz), lo=lo, **kw)
+        fused_stage(v, u, out, dt, a=a, b=b, window=(lz - bz, lz), hi=hi,
+                    **kw)

@@ -28,6 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     R,
@@ -95,7 +96,7 @@ def fused_step(S, out, dt, *, taps, band, bc_value, zchunk=Z_CHUNK):
             wr.stream_of(S))
     if rc != 0:
         raise RuntimeError(f"fused_step_diffusion launch failed: CUDA error {rc}")
-    fused_step.launches += 1
+    build.count_launch(fused_step)
     return out
 
 

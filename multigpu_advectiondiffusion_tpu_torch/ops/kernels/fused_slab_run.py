@@ -31,11 +31,26 @@ other, so the result lies in buffer ``num_iters % 2``.
   share no cell (``member_halo = 0``), so member ``i`` equals the single
   run of member ``i`` to the bit. Their plain twins are the single twins'
   ``ping_pong`` per member.
+* K3 (:func:`slab_step_diffusion`, :func:`slab_step_burgers`) is the
+  sharded rung: on a shard of a z-slab mesh a step is ONE launch over an
+  output window (the TPU's ``_step_call_kernel``, ``:508``, built by
+  ``_make_call``, ``:949-1017``), the same ``step_tile`` as K2's/K6's,
+  so a sharded step is their step to the bit. The shard keeps its block
+  between ``depth = k*G`` ghost planes a side; planes are read by global
+  z from the buffer or, for the split schedule's edge calls, from the
+  exchanged operands; outside the global domain diffusion reads the wall
+  value and Burgers clamps. Their plain twins assemble the window's
+  input box the same way and run three K1-/K5-twin stages on it.
 * The steppers have the JAX classes' names, labels, ``run``,
-  ``run_batched`` and the ``member_halo`` declaration; the member count
-  declaration and its check wait for member-sharded meshes, and the
-  sharded roles, the k-step schedule and the in-kernel DMA exchange are
-  not ported. Neither has ``run_to``, as in JAX.
+  ``run_batched`` and the ``member_halo`` declaration, and on a shard
+  the JAX schedules (``fused_slab_run.py:1024-1202``): a G-deep refresh
+  and one call a step; the split schedule's three calls (interior, then
+  bottom and top from the exchanged slabs); and with
+  ``steps_per_exchange = k > 1`` one ``k*G``-deep exchange per k steps,
+  call ``j`` of a block writing the core widened by ``(k-1-j)*G`` planes
+  a side. The member count declaration and its check wait for
+  member-sharded meshes, and the in-kernel DMA exchange (K4) is not
+  ported. Neither has ``run_to``, as in JAX.
 * ``supported``/``profitable`` are the port's gates, for the H100, in
   place of the JAX package's TPU VMEM model (PERF.md lists the shapes
   where the two disagree).
@@ -50,6 +65,7 @@ import numpy as np
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch.ops.flux import Flux
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import fused_burgers as fb
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_diffusion_step as fds,
@@ -61,6 +77,13 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     PaddedDiffusionState,
     _check,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
+    stage_reference as k1_stage_reference,
+)
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
+    chunk_counts,
+)
+from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import wait_exchange
 
 BURGERS_SOURCE = "slab_run_burgers.cu"
 # z planes a block marches (each chunk recomputes 12 planes at its ends
@@ -78,6 +101,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _K2_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P, _P)
 _K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I, _I, _P,
                 _P)
+_K3D_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
+                 _F, _I, _P)
+_K3B_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                 _P, _P, _F, _I, _P)
 
 
 def ping_pong(step, S0, S1, num_iters: int):
@@ -131,7 +158,7 @@ def slab_run_diffusion(S0, S1, num_iters: int, dt, *, taps, band, bc_value,
             S0, S1, num_iters)
     _launch_diffusion(S0[None], S1[None], num_iters, dt, taps, band,
                       bc_value, zchunk, grid_blocks)
-    slab_run_diffusion.launches += 1
+    build.count_launch(slab_run_diffusion)
     return S1 if num_iters % 2 else S0
 
 
@@ -179,7 +206,7 @@ def slab_run_diffusion_batched(S0, S1, num_iters: int, dt, *, taps, band,
             S0, S1, num_iters)
     _launch_diffusion(S0, S1, num_iters, dt, taps, band, bc_value, zchunk,
                       grid_blocks)
-    slab_run_diffusion_batched.launches += 1
+    build.count_launch(slab_run_diffusion_batched)
     return S1 if num_iters % 2 else S0
 
 
@@ -256,7 +283,7 @@ def slab_run_burgers(S0, S1, num_iters: int, dt, *, params: fb.StageParams,
         raise ValueError(f"no slab kernel for device {S0.device}")
     _launch_burgers(S0[None], S1[None], num_iters, dt, params, zchunk,
                     grid_blocks)
-    slab_run_burgers.launches += 1
+    build.count_launch(slab_run_burgers)
     return S1 if num_iters % 2 else S0
 
 
@@ -280,32 +307,297 @@ def slab_run_burgers_batched(S0, S1, num_iters: int, dt, *,
         return ping_pong_members(lambda src, dst: burgers_step_reference(
             src, dst, dt, params=params), S0, S1, num_iters)
     _launch_burgers(S0, S1, num_iters, dt, params, zchunk, grid_blocks)
-    slab_run_burgers_batched.launches += 1
+    build.count_launch(slab_run_burgers_batched)
     return S1 if num_iters % 2 else S0
 
 
 slab_run_burgers_batched.launches = 0
 
 
+# --------------------------------------------------------------------- #
+# K3: one step over an output window of a shard
+# --------------------------------------------------------------------- #
+def _check_window(S, out, lo, hi, *, depth, window, global_nz, oz, reach):
+    """Check a K3 call and return its global window and the buffer row of
+    global plane 0. ``S``/``out``: a shard's ``(lz + 2 depth, ...)``
+    buffers; ``window``, ``(z_lo, z_hi)`` in block planes; ``reach``,
+    the input box's planes a side (G)."""
+    _check("out", out, S.shape, S.device)
+    _check("S", S, S.shape, S.device)
+    if S.dim() != 3 or S.data_ptr() == out.data_ptr():
+        raise ValueError("two different 3-D buffers expected")
+    if S.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no slab kernel for device {S.device}")
+    pz = S.shape[0]
+    lz = pz - 2 * depth
+    z_lo, z_hi = (int(w) for w in window)
+    g_lo, g_hi = oz + z_lo, oz + z_hi
+    row_off = depth - oz
+    first = max(g_lo - reach, 0) + row_off
+    last = min(g_hi + reach, global_nz) - 1 + row_off
+    if (depth < 0 or lz < 1 or z_lo >= z_hi or not 0 <= oz <= global_nz - lz
+            or first < 0 or last >= pz):
+        raise ValueError(
+            f"window {window} (box {reach} planes a side) of a block of {lz} "
+            f"planes at {oz} of {global_nz} does not fit its buffer of {pz}")
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t is not None:
+            _check(name, t, (depth,) + tuple(S.shape[1:]), S.device)
+    return g_lo, g_hi, row_off
+
+
+def _with_operands(S, lo, hi, depth: int):
+    """``S`` with its first/last ``depth`` planes replaced by ``lo``/``hi``
+    (a copy when either is given)."""
+    if lo is None and hi is None:
+        return S
+    S = S.clone()
+    if lo is not None:
+        S[:depth] = lo
+    if hi is not None:
+        S[S.shape[0] - depth:] = hi
+    return S
+
+
+def slab_step_diffusion_reference(S, out, dt, *, taps, band, bc_value,
+                                  global_nz, oz, depth, window, lo=None,
+                                  hi=None):
+    """The plain twin of K3, diffusion: the window's input box assembled
+    by global z (planes outside the global domain at ``bc_value``), three
+    K1-twin stages with global masks, the window's in-domain planes
+    written to ``out``; returns ``out``."""
+    g_lo, g_hi, row_off = _check_window(
+        S, out, lo, hi, depth=depth, window=window, global_nz=global_nz,
+        oz=oz, reach=3 * R)
+    Sv = _with_operands(S, lo, hi, depth)
+    g = torch.arange(g_lo - 3 * R, g_hi + 3 * R, device=S.device)
+    inside = (g >= 0) & (g < global_nz)
+    rows = (g + row_off).clamp_(0, S.shape[0] - 1)
+    B = Sv.index_select(0, rows)
+    B[~inside] = bc_value
+    L = g_hi - g_lo
+    gshape = (global_nz, S.shape[1] - 2 * R, S.shape[2] - 2 * R)
+    kw = dict(taps=taps, band=band, bc_value=bc_value, global_shape=gshape)
+    (a1, b1), (a2, b2), (a3, b3) = STAGES
+    T1 = k1_stage_reference(B, None, B.clone(), dt, a=a1, b=b1,
+                            offsets=(g_lo - 2 * R, 0, 0), **kw)
+    v2, u2 = T1[R:L + 5 * R], B[R:L + 5 * R]
+    T2 = k1_stage_reference(v2, u2, u2.clone(), dt, a=a2, b=b2,
+                            offsets=(g_lo - R, 0, 0), **kw)
+    v3, u3 = T2[R:L + 3 * R], B[2 * R:L + 4 * R]
+    O = k1_stage_reference(v3, u3, u3.clone(), dt, a=a3, b=b3,
+                           offsets=(g_lo, 0, 0), **kw)
+    d_lo, d_hi = max(g_lo, 0), min(g_hi, global_nz)
+    out[d_lo + row_off:d_hi + row_off, R:-R, R:-R] = (
+        O[R + d_lo - g_lo:R + d_hi - g_lo, R:-R, R:-R])
+    return out
+
+
+def slab_step_diffusion(S, out, dt, *, taps, band, bc_value, global_nz, oz,
+                        depth, window, lo=None, hi=None,
+                        zchunk=DIFFUSION_Z_CHUNK):
+    """K3, diffusion: one fused step over the block planes ``window =
+    (z_lo, z_hi)`` of a shard (``oz``: its global z offset, of
+    ``global_nz``), ``S`` -> ``out``; both ``(lz + 2 depth, ny+4, nx+4)``
+    with the block at row ``depth``. The window may reach into the ghost
+    rows (the k-step schedule); ``lo``/``hi`` (``(depth, ny+4, nx+4)``)
+    stand in for the first/last ``depth`` rows (the split schedule's edge
+    calls). ``dt`` is rounded to float32. A CUDA tensor launches the
+    kernel once on the current stream (no synchronisation), counted in
+    ``slab_step_diffusion.launches``; a CPU tensor runs the twin."""
+    kw = dict(depth=depth, window=window, global_nz=global_nz, oz=oz)
+    if S.device.type == "cpu":
+        return slab_step_diffusion_reference(
+            S, out, dt, taps=taps, band=band, bc_value=bc_value, lo=lo,
+            hi=hi, **kw)
+    g_lo, g_hi, row_off = _check_window(S, out, lo, hi, reach=3 * R, **kw)
+    host_taps = np.asarray(taps, dtype=np.float32)
+    ny, nx = S.shape[1] - 2 * R, S.shape[2] - 2 * R
+
+    def kernel(S, out):
+        return wr.library(fds.SOURCE, "slab_step_diffusion", _K3D_ARGTYPES
+                          ).slab_step_diffusion(
+            S.data_ptr(), out.data_ptr(),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), S.shape[0], int(depth),
+            int(global_nz), ny, nx, row_off, g_lo, g_hi,
+            host_taps.ctypes.data, float(np.float32(dt)), int(band),
+            float(bc_value), int(zchunk), wr.stream_of(S))
+
+    wr.launch(kernel, S, out)
+    build.count_launch(slab_step_diffusion)
+    return out
+
+
+slab_step_diffusion.launches = 0
+
+
+def slab_step_burgers_reference(S, out, dt, *, params: fb.StageParams,
+                                global_nz, oz, depth, window, lo=None,
+                                hi=None):
+    """The plain twin of K3, Burgers: three K5-twin stages on the
+    window's planes, each over the global planes its successor reads,
+    every z neighbour clamped into the global domain; the window's
+    in-domain planes written to ``out``; returns ``out``."""
+    G = 3 * fb.R
+    g_lo, g_hi, row_off = _check_window(
+        S, out, lo, hi, depth=depth, window=window, global_nz=global_nz,
+        oz=oz, reach=G)
+    Sv = _with_operands(S, lo, hi, depth)
+    r = fb.R
+
+    def span(a, b):
+        return max(a, 0), min(b, global_nz)
+
+    def zpadded(src, src_lo, a, b):
+        # planes [a, b) of a stage's input with r clamped neighbours a
+        # side: rows of ``src``, whose first row is global plane src_lo
+        g = torch.arange(a - r, b + r, device=S.device)
+        return fb._edge_pad_trailing(
+            src.index_select(0, g.clamp_(0, global_nz - 1) - src_lo), r)
+
+    a0, b0 = span(g_lo - G, g_hi + G)
+    src, src_lo = Sv[a0 + row_off:b0 + row_off], a0
+    (a1, b1), (a2, b2), (a3, b3) = STAGES
+    for (a, b), (lo_g, hi_g) in (((a1, b1), span(g_lo - 2 * r, g_hi + 2 * r)),
+                                 ((a2, b2), span(g_lo - r, g_hi + r)),
+                                 ((a3, b3), span(g_lo, g_hi))):
+        v = src[lo_g - src_lo:hi_g - src_lo]
+        u = None if a == 0.0 else Sv[lo_g + row_off:hi_g + row_off]
+        src = fb._stage_rk(zpadded(src, src_lo, lo_g, hi_g), v, u, dt,
+                           params, a, b)
+        src_lo = lo_g
+    out[src_lo + row_off:src_lo + row_off + src.shape[0]] = src
+    return out
+
+
+def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
+                      depth, window, lo=None, hi=None,
+                      zchunk=BURGERS_Z_CHUNK):
+    """K3, Burgers/WENO5: one fixed-dt fused step over the block planes
+    ``window`` of a shard, ``S`` -> ``out``, both ``(lz + 2 depth, ny,
+    nx)`` with the block at row ``depth`` (arguments as
+    :func:`slab_step_diffusion`'s). A CUDA tensor launches the kernel once
+    on the current stream, counted in ``slab_step_burgers.launches``; a
+    CPU tensor runs the twin."""
+    kw = dict(depth=depth, window=window, global_nz=global_nz, oz=oz)
+    if S.device.type == "cpu":
+        return slab_step_burgers_reference(S, out, dt, params=params, lo=lo,
+                                           hi=hi, **kw)
+    g_lo, g_hi, row_off = _check_window(S, out, lo, hi, reach=3 * fb.R,
+                                        **kw)
+    code, c, weno_z, inv_dx, taps = _burgers_args(params)
+
+    def kernel(S, out):
+        return wr.library(BURGERS_SOURCE, "slab_step_burgers", _K3B_ARGTYPES,
+                          fb.NVCC_EXTRA).slab_step_burgers(
+            S.data_ptr(), out.data_ptr(),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), S.shape[0], int(depth),
+            int(global_nz), S.shape[1], S.shape[2], row_off, g_lo, g_hi,
+            code, c, weno_z, inv_dx.ctypes.data,
+            None if taps is None else taps.ctypes.data,
+            float(np.float32(dt)), int(zchunk), wr.stream_of(S))
+
+    wr.launch(kernel, S, out)
+    build.count_launch(slab_step_burgers)
+    return out
+
+
+slab_step_burgers.launches = 0
+
+
 class _SlabRunStepper:
     """What the two slab steppers share: the label, the unsharded
-    ``run`` (``fused_slab_run.py:1080-1098``) and the B-folded
-    ``run_batched`` (``:902-945``)."""
+    ``run`` (``fused_slab_run.py:1080-1098``), the B-folded
+    ``run_batched`` (``:902-945``) and, on a shard, the per-step, split
+    and k-step schedules over K3 (``:1024-1202``)."""
 
     engaged_label = "fused-whole-run-slab"
     # the member axis of run_batched has no stencil reach: members share
     # no cell (the JAX steppers' declaration, ``:650-657``)
     member_halo = 0
+    sharded = False
+    overlap_split = False
+    k = steps_per_exchange = 1
 
-    def run(self, u, t, num_iters: int):
-        """``num_iters`` fused steps in one launch; returns ``(u, t)``,
-        ``t`` advanced by ``dt`` once a step in its own precision."""
+    def _init_sharded(self, global_shape, overlap_split: bool,
+                      steps_per_exchange: int) -> None:
+        """The shard-local mode (``global_shape`` differs from
+        ``interior_shape``) and its schedule, with the JAX package's
+        checks and split conditions."""
+        self.global_shape = tuple(global_shape or self.interior_shape)
+        self.sharded = self.global_shape != self.interior_shape
+        G, lz = self.halo, self.interior_shape[0]
+        k = int(steps_per_exchange)
+        if k < 1:
+            raise ValueError(f"steps_per_exchange must be >= 1, got {k}")
+        if k > 1 and not self.sharded:
+            raise ValueError(
+                "the k-step communication-avoiding schedule applies to "
+                "sharded (z-slab) runs only")
+        if k > 1 and lz < k * G:
+            raise ValueError(
+                f"local z extent {lz} cannot serve the k-step schedule's "
+                f"{k * G}-deep exchange (steps_per_exchange={k}, G={G})")
+        self.k = self.steps_per_exchange = k
+        self.exchange_depth = k * G
+        # the split schedule's interior call reads no ghost row: per step
+        # a window [G, lz - G) of at least G planes; the k-step block's
+        # first call any non-empty one
+        self.overlap_split = bool(
+            overlap_split and self.sharded
+            and (lz > 2 * G if k > 1 else lz >= 3 * G))
+
+    def run(self, u, t, num_iters: int, refresh=None, offsets=None,
+            exch=None):
+        """``num_iters`` fused steps; returns ``(u, t)``, ``t`` advanced
+        by ``dt`` once a step in its own precision. Unsharded: one launch
+        (K2/K6). On a shard: one K3 call a step after a G-deep
+        ``refresh`` — or the split schedule on ``exch``'s slabs — or, with
+        ``k > 1``, the k-step blocks."""
         if num_iters == 0:
             return u, t
-        S0 = self.embed(u)
-        S = self._whole_run(S0, S0.clone(), num_iters)
+        if not self.sharded:
+            S0 = self.embed(u)
+            S = self._whole_run(S0, S0.clone(), num_iters)
+            return self.extract(S), wr.accumulate_t(
+                t, np.float32(self.dt), num_iters)
+        if offsets is None:
+            raise ValueError("sharded slab stepper needs offsets")
+        if self.overlap_split and exch is None:
+            raise ValueError("split-overlap slab stepper needs exch")
+        if not self.overlap_split and refresh is None:
+            raise ValueError("sharded slab stepper needs a ghost refresh")
+        S = self.embed(u)
+        T = S.clone()
+        oz = offsets[0]
+        full, rem = chunk_counts(int(num_iters), self.k)
+        for nsteps in [self.k] * full + ([rem] if rem else []):
+            S, T = self._block(S, T, nsteps, oz, refresh, exch)
         return self.extract(S), wr.accumulate_t(t, np.float32(self.dt),
                                                 num_iters)
+
+    def _block(self, S, T, nsteps: int, oz: int, refresh, exch):
+        """One exchange and ``nsteps`` steps (``nsteps <= k``); call ``j``
+        writes the core widened by ``(k-1-j)*G`` planes a side."""
+        G, k, lz = self.halo, self.k, self.interior_shape[0]
+        wide = (k - 1) * G
+        if self.overlap_split:
+            lo, hi = exch(S)
+            self._call(S, T, (G, lz - G), oz)
+            wait_exchange(lo, hi)
+            self._call(S, T, (-wide, G), oz, lo=lo)
+            self._call(S, T, (lz - G, lz + wide), oz, hi=hi)
+        else:
+            refresh(S)
+            self._call(S, T, (-wide, lz + wide), oz)
+        S, T = T, S
+        for j in range(1, nsteps):
+            w = (k - 1 - j) * G
+            self._call(S, T, (-w, lz + w), oz)
+            S, T = T, S
+        return S, T
 
     def run_batched(self, us, ts, num_iters: int, consume=None):
         """Advance B independent members ``num_iters`` fused steps in ONE
@@ -339,7 +631,46 @@ def accumulate_ts(ts, dt, num_iters: int):
 
 class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     """Whole-run slab diffusion stepper (K2) for one (grid, dt)
-    configuration on one device, K1's padded layout."""
+    configuration on one device, K1's padded layout; on a shard of a
+    z-slab mesh (``global_shape``) the sharded schedules over K3, the
+    block between ``k*G`` ghost planes a side, ``(lz + 2kG, ny+4,
+    nx+4)``."""
+
+    halo = 3 * R  # G: three O4 stages of redundant recompute
+
+    def __init__(self, interior_shape, spacing, diffusivity, dt, band,
+                 bc_value, device, global_shape=None,
+                 overlap_split: bool = False, steps_per_exchange: int = 1):
+        super().__init__(interior_shape, spacing, diffusivity, dt, band,
+                         bc_value, device)
+        self._init_sharded(global_shape, overlap_split, steps_per_exchange)
+        if self.sharded:
+            d = self.exchange_depth
+            lz, ny, nx = self.interior_shape
+            self.padded_shape = (lz + 2 * d, ny + 2 * R, nx + 2 * R)
+            self.core_offsets = (d, R, R)
+
+    def embed(self, u):
+        if not self.sharded:
+            return super().embed(u)
+        S = torch.full(self.padded_shape, self.bc_value, dtype=self.dtype,
+                       device=self.device)
+        d = self.exchange_depth
+        S[d:S.shape[0] - d, R:-R, R:-R].copy_(u)
+        return S
+
+    def extract(self, S):
+        if not self.sharded:
+            return super().extract(S)
+        d = self.exchange_depth
+        return S[d:S.shape[0] - d, R:-R, R:-R].contiguous()
+
+    def _call(self, S, T, window, oz, lo=None, hi=None):
+        slab_step_diffusion(S, T, self.dt, taps=self.taps, band=self.band,
+                            bc_value=self.bc_value,
+                            global_nz=self.global_shape[0], oz=oz,
+                            depth=self.exchange_depth, window=window, lo=lo,
+                            hi=hi)
 
     def _whole_run(self, S0, S1, num_iters: int):
         return slab_run_diffusion(S0, S1, num_iters, self.dt, taps=self.taps,
@@ -362,14 +693,17 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
             bc_value=self.bc_value)
 
     @staticmethod
-    def supported(interior_shape, dtype) -> bool:
-        """What K2 takes: a 3-D float32 grid whose padded state has at
-        most 2^31 - 1 cells (32-bit indices). A block's shared memory is
-        fixed (112 KB for any grid), so a cooperative grid of at least
+    def supported(interior_shape, dtype, depth: int = R) -> bool:
+        """What K2 (and K3, on a shard's block with ``depth`` ghost
+        planes a side) takes: a 3-D float32 grid whose padded state has
+        at most 2^31 - 1 cells (32-bit indices). A block's shared memory
+        is fixed (112 KB for any grid), so a cooperative grid of at least
         one block an SM always fits; tiling y and x removes the JAX
         package's row-size limit."""
-        return (dtype == torch.float32 and len(interior_shape) == 3
-                and math.prod(n + 2 * R for n in interior_shape) <= MAX_CELLS)
+        if dtype != torch.float32 or len(interior_shape) != 3:
+            return False
+        lz, ny, nx = interior_shape
+        return (lz + 2 * depth) * (ny + 2 * R) * (nx + 2 * R) <= MAX_CELLS
 
     @staticmethod
     def profitable(interior_shape, dtype) -> bool:
@@ -390,11 +724,17 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
 
 class SlabRunBurgersStepper(_SlabRunStepper):
     """Whole-run slab Burgers/WENO5 stepper (K6, fixed dt) for one (grid,
-    flux, dt) configuration on one device, K5's unpadded layout. WENO7
-    raises: its order-7 instance is not ported."""
+    flux, dt) configuration on one device, K5's unpadded layout; on a
+    shard of a z-slab mesh (``global_shape``) the sharded schedules over
+    K3, the block between ``k*G`` ghost planes a side, ``(lz + 2kG, ny,
+    nx)``. WENO7 raises: its order-7 instance is not ported."""
+
+    halo = 3 * fb.R  # G: three WENO5 stages of redundant recompute
 
     def __init__(self, interior_shape, spacing, flux: Flux, variant: str,
-                 nu: float, dt: float, device, order: int = 5):
+                 nu: float, dt: float, device, order: int = 5,
+                 global_shape=None, overlap_split: bool = False,
+                 steps_per_exchange: int = 1):
         if order != 5:
             raise NotImplementedError(
                 "K6's WENO7 instance is not ported yet")
@@ -403,17 +743,39 @@ class SlabRunBurgersStepper(_SlabRunStepper):
         self.device = torch.device(device)
         self.params = fb.stage_params(flux, variant, spacing, nu)
         self.dt = float(dt)
+        self._init_sharded(global_shape, overlap_split, steps_per_exchange)
+        d = self.exchange_depth if self.sharded else 0
+        self.core_offsets = (d, 0, 0)
 
     def embed(self, u):
-        return u.to(device=self.device, dtype=self.dtype,
-                    copy=True).contiguous()
+        u = u.to(device=self.device, dtype=self.dtype, copy=True)
+        if not self.sharded:
+            return u.contiguous()
+        # ghost planes start as edge replicas (as the JAX embed pads);
+        # the exchange replaces the ones inside the domain
+        d = self.exchange_depth
+        idx = torch.arange(-d, u.shape[0] + d, device=u.device)
+        return u.index_select(0, idx.clamp_(0, u.shape[0] - 1)).contiguous()
 
     def extract(self, S):
-        return S
+        if not self.sharded:
+            return S
+        d = self.exchange_depth
+        return S[d:S.shape[0] - d].contiguous()
+
+    def _call(self, S, T, window, oz, lo=None, hi=None):
+        slab_step_burgers(S, T, self.dt, params=self.params,
+                          global_nz=self.global_shape[0], oz=oz,
+                          depth=self.exchange_depth, window=window, lo=lo,
+                          hi=hi)
 
     # the layout is unpadded, so a batch embeds as a copy too
-    embed_batched = embed
-    extract_batched = extract
+    def embed_batched(self, us):
+        return us.to(device=self.device, dtype=self.dtype,
+                     copy=True).contiguous()
+
+    def extract_batched(self, S):
+        return S
 
     def _whole_run(self, S0, S1, num_iters: int):
         return slab_run_burgers(S0, S1, num_iters, self.dt,
@@ -424,13 +786,17 @@ class SlabRunBurgersStepper(_SlabRunStepper):
                                         params=self.params)
 
     @staticmethod
-    def supported(interior_shape, dtype) -> bool:
-        """What K6 takes: a 3-D float32 grid of at most 2^31 - 1 cells
-        (32-bit indices). A block's shared memory is fixed (195 KB for
-        any grid), so a cooperative grid of one block an SM always fits;
-        tiling y and x removes the JAX package's row-size limit."""
-        return (dtype == torch.float32 and len(interior_shape) == 3
-                and math.prod(interior_shape) <= MAX_CELLS)
+    def supported(interior_shape, dtype, depth: int = 0) -> bool:
+        """What K6 (and K3, on a shard's block with ``depth`` ghost
+        planes a side) takes: a 3-D float32 grid of at most 2^31 - 1
+        cells with its ghost planes (32-bit indices). A block's shared
+        memory is fixed (195 KB for any grid), so a cooperative grid of
+        one block an SM always fits; tiling y and x removes the JAX
+        package's row-size limit."""
+        if dtype != torch.float32 or len(interior_shape) != 3:
+            return False
+        lz, ny, nx = interior_shape
+        return (lz + 2 * depth) * ny * nx <= MAX_CELLS
 
     @staticmethod
     def profitable(interior_shape, dtype) -> bool:

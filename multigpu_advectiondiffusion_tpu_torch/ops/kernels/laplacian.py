@@ -123,7 +123,7 @@ def laplacian_o4_3d(up: torch.Tensor, spacing: Sequence[float],
             k.ctypes.data, int(zchunk),
             torch.cuda.current_stream(up.device).cuda_stream)
     _raise_on(rc, "laplacian_o4_3d")
-    laplacian_o4_3d.launches += 1
+    build.count_launch(laplacian_o4_3d)
     return out
 
 
@@ -145,7 +145,7 @@ def laplacian_o4_2d(up: torch.Tensor, spacing: Sequence[float],
             up.data_ptr(), out.data_ptr(), ny, nx, taps.ctypes.data,
             k.ctypes.data, torch.cuda.current_stream(up.device).cuda_stream)
     _raise_on(rc, "laplacian_o4_2d")
-    laplacian_o4_2d.launches += 1
+    build.count_launch(laplacian_o4_2d)
     return out
 
 

@@ -132,7 +132,7 @@ def _launch(counter, ndim, up, axis, dx, flux, variant, order, chunk):
             torch.cuda.current_stream(up.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"weno_axis launch failed: CUDA error {rc}")
-    counter.launches += 1
+    build.count_launch(counter)
     return out
 
 

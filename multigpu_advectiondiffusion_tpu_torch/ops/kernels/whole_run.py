@@ -150,7 +150,7 @@ def whole_run(kernel: Kernel, stage: Stage, S, T1, T2, num_iters: int,
     if S.device.type == "cpu":
         return plain_run(stage, S, T1, T2, num_iters, dt)
     launch(kernel, S, T1, T2, int(num_iters))
-    whole_run.launches += 1
+    build.count_launch(whole_run)
     return S
 
 
@@ -171,7 +171,7 @@ def whole_run_adaptive(kernel: Kernel, stage: Stage, dt_fn, S, T1, T2,
     mx = torch.empty(2, dtype=torch.float32, device=S.device)
     t_sum = torch.empty((), dtype=torch.float32, device=S.device)
     launch(kernel, S, T1, T2, int(num_iters), mx, t_sum)
-    whole_run_adaptive.launches += 1
+    build.count_launch(whole_run_adaptive)
     return S, t_sum
 
 

@@ -12,7 +12,12 @@ from typing import Sequence
 
 import torch
 
-from multigpu_advectiondiffusion_tpu_torch.ops.stencils import Padder, shifted
+from multigpu_advectiondiffusion_tpu_torch.ops.stencils import (
+    GhostFn,
+    Padder,
+    shifted,
+    split_axis_apply,
+)
 
 # order -> (coefficients, halo radius, denominator)
 D2_STENCILS = {
@@ -40,9 +45,13 @@ def laplacian(
     diffusivity: float | Sequence[float] = 1.0,
     order: int = 4,
     impl: str = "xla",
+    ghost_fn: GhostFn | None = None,
 ) -> torch.Tensor:
     """``sum_axis K_axis * d2u/dx_axis^2`` over all array axes, each axis
-    padded by ``padder``. ``impl`` selects the kernel strategy:
+    padded by ``padder``. ``ghost_fn`` (sharded axes only) switches those
+    axes to the overlapped interior/boundary schedule
+    (:func:`ops.stencils.split_axis_apply`); the kernel path ignores it,
+    as it consumes one padded array. ``impl`` selects the kernel strategy:
     ``"xla"`` (the generic shifted-slice sum) or ``"pallas"`` (every
     axis padded, then the per-axis stencil kernel K11/K11b,
     :mod:`ops.kernels.laplacian`). A problem the kernel does not
@@ -70,8 +79,14 @@ def laplacian(
         raise ValueError(f"unknown laplacian impl {impl!r}; use 'xla'/'pallas'")
     acc = None
     for axis in range(u.ndim):
-        term = diffusivity[axis] * d2_from_padded(
-            padder(u, axis, r), axis, spacing[axis], order
-        )
+        ghosts = ghost_fn(u, axis, r) if ghost_fn is not None else None
+        if ghosts is not None:
+            term = diffusivity[axis] * split_axis_apply(
+                lambda up, a=axis: d2_from_padded(up, a, spacing[a], order),
+                u, axis, r, *ghosts)
+        else:
+            term = diffusivity[axis] * d2_from_padded(
+                padder(u, axis, r), axis, spacing[axis], order
+            )
         acc = term if acc is None else acc + term
     return acc

@@ -1,4 +1,5 @@
-"""Shared slicing helpers and wall masks (JAX ``ops/stencils.py``)."""
+"""Shared slicing helpers, wall masks and the overlapped
+interior/boundary schedule (JAX ``ops/stencils.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,11 @@ import torch
 
 # padder(u, axis, halo) -> u padded with `halo` ghost cells on both ends.
 Padder = Callable[[torch.Tensor, int, int], torch.Tensor]
+
+
+def slice_axis(a: torch.Tensor, axis: int, start: int, stop: int):
+    """View of ``a[start:stop]`` along ``axis``."""
+    return a.narrow(axis, start, stop - start)
 
 
 def shifted(a_padded: torch.Tensor, axis: int, offset: int, length: int):
@@ -65,3 +71,31 @@ def face_mask(
         idx = _index(shape, axis, device) + offsets[axis]
         mask = mask | (idx == 0) | (idx == global_shape[axis] - 1)
     return mask
+
+
+# ghost_fn(u, axis, halo) -> (lo, hi) ghost slabs for sharded axes, or
+# None where the axis is local (plain BC padding applies).
+GhostFn = Callable[[torch.Tensor, int, int], "tuple | None"]
+
+
+def split_axis_apply(fn: Callable[[torch.Tensor], torch.Tensor],
+                     u: torch.Tensor, axis: int, r: int, lo: torch.Tensor,
+                     hi: torch.Tensor) -> torch.Tensor:
+    """Overlapped interior/boundary schedule for a 1-axis stencil op.
+
+    ``fn`` maps an array padded by ``r`` along ``axis`` to the stencil
+    result (``2r`` shorter). The interior cells ``[r, n-r)`` are computed
+    from local data alone and the two ``r``-wide boundary bands from
+    ``ghost + 2r`` edge cells (the reference's boundary-first order,
+    ``MultiGPU/Diffusion3d_Baseline/main.c:203-260``). Every cell sees
+    the same stencil over the same values as on the padded path, and the
+    port evaluates it eagerly in the same order, so the result equals
+    ``fn(cat([lo, u, hi]))`` to the bit."""
+    n = u.shape[axis]
+    if n < 2 * r:
+        # bands would overlap; tiny shards take the unsplit path
+        return fn(torch.cat([lo, u, hi], dim=axis))
+    interior = fn(u)  # cells [r, n-r): u itself is their padded input
+    lo_in = torch.cat([lo, slice_axis(u, axis, 0, 2 * r)], dim=axis)
+    hi_in = torch.cat([slice_axis(u, axis, n - 2 * r, n), hi], dim=axis)
+    return torch.cat([fn(lo_in), interior, fn(hi_in)], dim=axis)

@@ -34,7 +34,12 @@ import torch
 
 from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary, pad_axis
 from multigpu_advectiondiffusion_tpu_torch.ops.flux import Flux
-from multigpu_advectiondiffusion_tpu_torch.ops.stencils import Padder, shifted
+from multigpu_advectiondiffusion_tpu_torch.ops.stencils import (
+    GhostFn,
+    Padder,
+    shifted,
+    split_axis_apply,
+)
 
 HALO = {5: 3, 7: 4}
 EPSILON = 1e-6  # WENO5resAdv_X.m:75
@@ -279,6 +284,7 @@ def flux_divergence(
     padder: Padder | None = None,
     bc: Boundary | None = None,
     impl: str = "xla",
+    ghost_fn: GhostFn | None = None,
 ) -> torch.Tensor:
     """Conservative residual ``d f(u) / dx`` along one axis — the role of
     ``Compute_dF/dG/dH`` (``MultiGPU/Burgers3d_Baseline/Kernels.cu:225-452``).
@@ -287,13 +293,27 @@ def flux_divergence(
     ``"pallas"`` (the sweep axis padded, then the per-axis WENO kernel
     K12/K12b, :mod:`ops.kernels.weno`). A problem the kernel does not
     compute raises: the caller names that decline and asks for
-    ``"xla"``.
+    ``"xla"``. ``ghost_fn`` switches sharded axes to the overlapped
+    interior/boundary schedule (:func:`ops.stencils.split_axis_apply`);
+    the kernel path ignores it.
     """
     if (padder is None) == (bc is None):
         raise ValueError("provide exactly one of padder/bc")
     if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown WENO impl {impl!r}; use 'xla'/'pallas'")
     r = HALO[order]
+
+    def div_from_padded(up):
+        h = interface_flux_from_padded(up, axis, flux, order, variant)
+        m = up.shape[axis] - 2 * r
+        return (shifted(h, axis, 1, m) - shifted(h, axis, 0, m)) / dx
+
+    # ghosts only where the split schedule consumes them (the kernel
+    # path pads through padder below), as in the JAX package
+    if ghost_fn is not None and impl != "pallas":
+        ghosts = ghost_fn(u, axis, r)
+        if ghosts is not None:
+            return split_axis_apply(div_from_padded, u, axis, r, *ghosts)
     up = padder(u, axis, r) if padder is not None else pad_axis(u, axis, r, bc)
     if impl == "pallas":
         from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
@@ -302,6 +322,4 @@ def flux_divergence(
 
         return kweno.flux_divergence_kernel(up, axis, dx, flux, variant,
                                             order)
-    h = interface_flux_from_padded(up, axis, flux, order, variant)
-    m = up.shape[axis] - 2 * r
-    return (shifted(h, axis, 1, m) - shifted(h, axis, 0, m)) / dx
+    return div_from_padded(up)

@@ -49,18 +49,24 @@ def diffusive_dt(diffusivity, spacing: Sequence[float],
 
 
 def max_wave_speed(u: torch.Tensor,
-                   dflux: Callable[[torch.Tensor], torch.Tensor]):
-    """Global ``max |f'(u)|`` as a 0-d tensor (NaN if any cell is NaN)."""
-    return torch.amax(torch.abs(dflux(u)))
+                   dflux: Callable[[torch.Tensor], torch.Tensor],
+                   reduce_max=None):
+    """Global ``max |f'(u)|`` as a 0-d tensor (NaN if any cell is NaN);
+    ``reduce_max`` adds the cross-shard max."""
+    local = torch.amax(torch.abs(dflux(u)))
+    return reduce_max(local) if reduce_max is not None else local
 
 
 def dt_from_wave_speed(a: torch.Tensor, spacing: Sequence[float],
-                       cfl: float, floor: float = 1e-12):
-    """CFL dt from an already-computed ``max|f'(u)|`` 0-d tensor — the
-    consumer of the fused stepper's in-kernel wave-speed emission. The
-    one definition of the CFL formula: :func:`advective_dt` composes
-    it. A member-varying (tensor) ``cfl`` forms ``cfl * min dx`` in its
-    own float32, as the JAX package's traced operand does."""
+                       cfl: float, reduce_max=None, floor: float = 1e-12):
+    """CFL dt from an already-computed (shard-local) ``max|f'(u)|`` 0-d
+    tensor — the consumer of the fused stepper's in-kernel wave-speed
+    emission; ``reduce_max`` adds the cross-shard max. The one
+    definition of the CFL formula: :func:`advective_dt` composes it. A
+    member-varying (tensor) ``cfl`` forms ``cfl * min dx`` in its own
+    float32, as the JAX package's traced operand does."""
+    if reduce_max is not None:
+        a = reduce_max(a)
     if isinstance(cfl, torch.Tensor):
         num = (cfl * min(spacing)).to(a.device)
     else:
@@ -71,9 +77,9 @@ def dt_from_wave_speed(a: torch.Tensor, spacing: Sequence[float],
 
 
 def advective_dt(u: torch.Tensor, dflux, spacing: Sequence[float],
-                 cfl: float, floor: float = 1e-12):
-    return dt_from_wave_speed(max_wave_speed(u, dflux), spacing, cfl,
-                              floor=floor)
+                 cfl: float, reduce_max=None, floor: float = 1e-12):
+    return dt_from_wave_speed(max_wave_speed(u, dflux, reduce_max),
+                              spacing, cfl, floor=floor)
 
 
 def advection_diffusion_dt(velocity: Sequence[float], diffusivity,

@@ -9,9 +9,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multigpu_advectiondiffusion_tpu_torch.models.state import ShardedArray
+
 
 def save_binary(u, path: str) -> None:
-    """Write ``u`` (tensor or array) as float32 raw binary."""
+    """Write ``u`` (tensor, sharded field or array) as float32 raw
+    binary."""
+    if isinstance(u, ShardedArray):
+        u = u.numpy()
     if isinstance(u, torch.Tensor):
         u = u.detach().cpu().numpy()
     np.ascontiguousarray(u, dtype=np.float32).ravel().tofile(path)

@@ -30,15 +30,16 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# modules every slice so far must reach (the Burgers and 2-D slices
-# among them)
+# modules every slice so far must reach (the Burgers, 2-D and mesh
+# slices among them)
 _EXPECTED = (
     "models.diffusion", "models.burgers", "ops.flux", "ops.weno",
     "ops.kernels.fused_diffusion", "ops.kernels.fused_burgers",
     "ops.kernels.whole_run", "ops.kernels.fused_diffusion2d",
     "ops.kernels.fused_burgers2d", "timestepping.cfl", "cli.__main__",
     "convert", "models.ensemble", "resilience.errors", "cli.drivers",
-    "examples.inverse_diffusivity",
+    "examples.inverse_diffusivity", "parallel", "parallel.mesh",
+    "parallel.halo",
 )
 
 

@@ -1,7 +1,10 @@
 """K1, K5 and K9, the port's CUDA stage kernels, K7/K7a, its 2-D
 whole-run kernels, K10, K2 and K6, its 3-D fused-step kernels, K2b, the
-B-folded slab kernel of the ensemble engine, and K11/K11b and K12/K12b,
-its per-axis kernels, against their plain PyTorch twins on a GPU. Marked ``cuda``: it skips where no CUDA
+B-folded slab kernel of the ensemble engine, K11/K11b and K12/K12b,
+its per-axis kernels, and the mesh slice — K1's and K5's sharded
+instances and K3, the windowed slab step, with the sharded runs of a
+two-shard mesh on one card — against their plain PyTorch twins on a
+GPU. Marked ``cuda``: it skips where no CUDA
 device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
@@ -667,3 +670,231 @@ def test_ensemble_rungs_match_looped_runs(gpu_k2b, impl, stepper, counter,
         ms = es.member_solver(i)
         ref = ms.run(ms.initial_state(), n)
         assert torch.equal(out.u[i], ref.u) and out.t[i] == ref.t
+
+
+# --------------------------------------------------------------------- #
+# The z-slab mesh: K1's and K5's sharded instances, K3, sharded runs
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def gpu_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("K3 (csrc/fused_step_diffusion.cu slab_step_diffusion, "
+                    "csrc/slab_run_burgers.cu slab_step_burgers) and the "
+                    "sharded K1/K5 need a CUDA device")
+    return torch.device("cuda")
+
+
+def _rand(rng, shape, dev, lo=-0.2, hi=1.0):
+    return torch.from_numpy(
+        rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+
+
+K1_ROLES = {  # window, operands: the split schedule's calls, a full call
+    "full": ((0, 21), ""), "interior": ((8, 13), ""),
+    "bottom": ((0, 8), "lo"), "top": ((13, 21), "hi"), "both": ((0, 21),
+                                                               "lohi")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", list(K1_ROLES))
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+def test_k1_sharded_matches_twin(gpu_mesh, role, kind):
+    """K1 on a shard: global masks from the offsets, a window of planes,
+    ghost planes from the exchanged operands; 0 ulp from its twin."""
+    rng = np.random.default_rng(kind)
+    shape = (21, 29, 37)
+    padded = tuple(n + 2 * fd.R for n in shape)
+    v, u = _rand(rng, padded, gpu_mesh), _rand(rng, padded, gpu_mesh)
+    window, ops = K1_ROLES[role]
+    lo = _rand(rng, (fd.R,) + padded[1:], gpu_mesh) if "lo" in ops else None
+    hi = _rand(rng, (fd.R,) + padded[1:], gpu_mesh) if "hi" in ops else None
+    a, b = fd.STAGES[kind]
+    kw = dict(taps=fd.stage_taps((0.1, 0.2, 0.3), (1.0, 0.5, 2.0)), a=a, b=b,
+              band=2, bc_value=0.25, global_shape=(63, 58, 37),
+              offsets=(21, 29, 0), window=window, lo=lo, hi=hi)
+    u_arg = None if kind == 0 else u
+    out0 = _rand(rng, padded, gpu_mesh)
+    ref = fd.stage_reference(v, u_arg, out0.clone(), 1e-3, **kw)
+    out = out0.clone()
+    before = fd.fused_stage.launches
+    fd.fused_stage(v, u_arg, out, 1e-3, zchunk=3, **kw)
+    torch.cuda.synchronize()
+    assert fd.fused_stage.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+K5_ROLES = {"full": ((0, 24), ""), "interior": ((8, 16), ""),
+            "bottom": ((0, 8), "lo"), "top": ((16, 24), "hi")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oz,gnz", [(0, 48), (24, 48), (24, 72)],
+                         ids=["first", "last", "middle"])
+@pytest.mark.parametrize("role", list(K5_ROLES))
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k5_sharded_matches_twin(gpu_mesh, case, role, oz, gnz):
+    """K5 on a z-slab shard: 3 ghost planes a side, z clamped at the
+    global edges only, a window, the exchanged operands, the emitted
+    maximum folded; 0 ulp from its twin."""
+    name, fkw, variant, nu = K5_CASES[case]
+    rng = np.random.default_rng(oz)
+    R = fb.R
+    shape = (24 + 2 * R, 29, 37)
+    v, u = _rand(rng, shape, gpu_mesh), _rand(rng, shape, gpu_mesh)
+    window, ops = K5_ROLES[role]
+    lo = _rand(rng, (R,) + shape[1:], gpu_mesh) if "lo" in ops else None
+    hi = _rand(rng, (R,) + shape[1:], gpu_mesh) if "hi" in ops else None
+    params = fb.stage_params(pflux.get(name, **fkw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    dt = torch.full((1,), 0.01, device=gpu_mesh)
+    kw = dict(params=params, a=0.75, b=0.25, zpad=R, global_nz=gnz, oz=oz,
+              window=window, lo=lo, hi=hi)
+    out0 = _rand(rng, shape, gpu_mesh)
+    ref, mref = fb.stage_reference(v, u, out0.clone(), dt, emit=True, **kw)
+    out, mx = out0.clone(), torch.full((1,), 7.0, device=gpu_mesh)
+    fb.fused_burgers_stage(v, u, out, dt, mx, zchunk=5, mx_init=False, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float(mx) == max(7.0, float(mref))
+
+
+def _k3_diffusion_case(rng, dev, lz, depth, oz, gnz):
+    Y, X = 29 + 2 * fd.R, 37 + 2 * fd.R
+    S = torch.full((lz + 2 * depth, Y, X), 0.25, device=dev)
+    S[:, fd.R:-fd.R, fd.R:-fd.R] = _rand(rng, (lz + 2 * depth, 29, 37), dev)
+    return S
+
+
+K3_WINDOWS = {  # (window, operands, depth): per step, split, deep (k = 2)
+    "full": ((0, 24), "", 6), "interior": ((6, 18), "", 6),
+    "bottom": ((0, 6), "lo", 6), "top": ((18, 24), "hi", 6),
+    "deep0": ((-6, 30), "", 12), "deep1": ((0, 24), "", 12),
+    "deep-bottom": ((-6, 6), "lo", 12), "deep-top": ((18, 30), "hi", 12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oz,gnz", [(0, 48), (24, 48), (24, 72)],
+                         ids=["first", "last", "middle"])
+@pytest.mark.parametrize("window", list(K3_WINDOWS))
+def test_k3_diffusion_matches_twin(gpu_mesh, window, oz, gnz):
+    """K3 (diffusion) over per-step, split and deep windows of a shard,
+    planes outside the global domain at the wall value; 0 ulp from its
+    twin, and the cells outside the window untouched."""
+    rng = np.random.default_rng(oz + gnz)
+    win, ops, depth = K3_WINDOWS[window]
+    S = _k3_diffusion_case(rng, gpu_mesh, 24, depth, oz, gnz)
+    op_shape = (depth,) + tuple(S.shape[1:])
+    lo = _rand(rng, op_shape, gpu_mesh) if "lo" in ops else None
+    hi = _rand(rng, op_shape, gpu_mesh) if "hi" in ops else None
+    kw = dict(taps=fd.stage_taps((0.1, 0.2, 0.3), (1.0, 0.5, 2.0)), band=2,
+              bc_value=0.25, global_nz=gnz, oz=oz, depth=depth, window=win,
+              lo=lo, hi=hi)
+    out0 = _rand(rng, S.shape, gpu_mesh)
+    want = fsr.slab_step_diffusion_reference(S, out0.clone(), 1e-3, **kw)
+    before = fsr.slab_step_diffusion.launches
+    got = fsr.slab_step_diffusion(S, out0.clone(), 1e-3, zchunk=5, **kw)
+    torch.cuda.synchronize()
+    assert fsr.slab_step_diffusion.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(23, 29, 37), (40, 33, 65)])
+def test_k3_full_window_is_k2s_step(gpu_mesh, shape):
+    """K3 over a whole unsharded grid (depth R, offset 0) is K2's step."""
+    rng = np.random.default_rng(3)
+    S0 = torch.full(tuple(n + 2 * fd.R for n in shape), 0.25, device=gpu_mesh)
+    S0[2:-2, 2:-2, 2:-2] = _rand(rng, shape, gpu_mesh)
+    kw = dict(taps=fd.stage_taps((0.1, 0.2, 0.3), (1.0, 0.5, 2.0)), band=2,
+              bc_value=0.25)
+    k2 = fsr.slab_run_diffusion(S0.clone(), S0.clone(), 1, 1e-3, **kw)
+    k3 = fsr.slab_step_diffusion(S0, S0.clone(), 1e-3, global_nz=shape[0],
+                                 oz=0, depth=fd.R, window=(0, shape[0]),
+                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k3, k2)
+
+
+K3B_WINDOWS = {  # (window, operands, depth) with G = 9
+    "full": ((0, 27), "", 9), "interior": ((9, 18), "", 9),
+    "bottom": ((0, 9), "lo", 9), "top": ((18, 27), "hi", 9),
+    "deep0": ((-9, 36), "", 18), "deep-bottom": ((-9, 9), "lo", 18),
+    "deep-top": ((18, 36), "hi", 18)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oz,gnz", [(0, 54), (27, 54), (27, 81)],
+                         ids=["first", "last", "middle"])
+@pytest.mark.parametrize("window", list(K3B_WINDOWS))
+@pytest.mark.parametrize("case", ["js-burgers-viscous", "z-buckley"])
+def test_k3_burgers_matches_twin(gpu_mesh, case, window, oz, gnz):
+    """K3 (Burgers/WENO5) over per-step, split and deep windows of a
+    shard, z clamped at the global edges; 0 ulp from its twin."""
+    name, fkw, variant, nu = K5_CASES[case]
+    rng = np.random.default_rng(oz + gnz)
+    win, ops, depth = K3B_WINDOWS[window]
+    shape = (27 + 2 * depth, 29, 37)
+    S = _rand(rng, shape, gpu_mesh)
+    lo = _rand(rng, (depth,) + shape[1:], gpu_mesh) if "lo" in ops else None
+    hi = _rand(rng, (depth,) + shape[1:], gpu_mesh) if "hi" in ops else None
+    params = fb.stage_params(pflux.get(name, **fkw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    kw = dict(params=params, global_nz=gnz, oz=oz, depth=depth, window=win,
+              lo=lo, hi=hi)
+    out0 = _rand(rng, shape, gpu_mesh)
+    want = fsr.slab_step_burgers_reference(S, out0.clone(), 0.015, **kw)
+    before = fsr.slab_step_burgers.launches
+    got = fsr.slab_step_burgers(S, out0.clone(), 0.015, zchunk=7, **kw)
+    torch.cuda.synchronize()
+    assert fsr.slab_step_burgers.launches == before + 1
+    assert torch.equal(got, want)
+
+
+MESH_RUNS = [  # (family, impl, config, shards, launches a step summed)
+    ("diffusion", "pallas", {}, 2, {"K1": 6}),
+    ("diffusion", "pallas", {"overlap": "split"}, 2, {"K1": 18}),
+    ("diffusion", "pallas_slab", {}, 2, {"K3d": 2}),
+    ("diffusion", "pallas_slab", {"overlap": "split"}, 2, {"K3d": 6}),
+    ("diffusion", "pallas_slab", {"steps_per_exchange": 2}, 2, {"K3d": 2}),
+    ("diffusion", "xla", {"overlap": "split"}, 4, {}),
+    ("diffusion", "pallas_axis", {}, 2, {"K11": 6}),
+    ("burgers", "pallas", {"adaptive_dt": False}, 2, {"K5": 6}),
+    ("burgers", "pallas", {"overlap": "split"}, 2, {"K5": 18}),
+    ("burgers", "pallas_slab", {"adaptive_dt": False}, 2, {"K3b": 2}),
+    ("burgers", "pallas_slab", {"adaptive_dt": False,
+                                "steps_per_exchange": 2}, 2, {"K3b": 2}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,impl,extra,shards,launches", MESH_RUNS)
+def test_sharded_run_on_one_card_matches_unsharded(gpu_mesh, family, impl,
+                                                   extra, shards, launches):
+    """Every rung on a z-slab mesh of shards on one card equals the
+    unsharded run of the same rung (K2/K6 for K3) to the bit, with
+    ``t`` equal and the launches summed over the shards."""
+    from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import make_mesh
+    from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+        laplacian as klap_,
+    )
+
+    counters = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
+                "K3d": fsr.slab_step_diffusion, "K3b": fsr.slab_step_burgers,
+                "K11": klap_.laplacian_o4_3d}
+    grid = Grid.make(37, 29, 48, lengths=2.0)
+    cls, cfg_cls = ((DiffusionSolver, DiffusionConfig) if family == "diffusion"
+                    else (BurgersSolver, BurgersConfig))
+    cfg = cfg_cls(grid=grid, impl=impl, **extra)
+    plain = dataclasses.replace(cfg, steps_per_exchange=1, overlap="padded")
+    mesh = make_mesh({"dz": shards}, devices=[gpu_mesh] * shards, timeout=60)
+    one, sharded = cls(plain), cls(cfg, mesh=mesh)
+    s0 = one.initial_state()
+    want = one.run(s0, 5)
+    for c in counters.values():
+        c.launches = 0
+    got = sharded.run(sharded.initial_state(), 5)
+    torch.cuda.synchronize()
+    assert {k: counters[k].launches for k in launches} == {
+        k: 5 * n for k, n in launches.items()}
+    assert got.t == want.t
+    assert torch.equal(got.u.assemble(), want.u)
