@@ -174,7 +174,40 @@ ignored ``build/`` directory), then:
    (dt from the shards' maxima on the card);
 32. the generic and per-axis rungs on ``{"dz": 2}`` at 10 steps
    (diffusion 400x200x206, Burgers 400x400x406), 0 ulp from unsharded,
-   the per-axis launches summed over the shards (not timed).
+   the per-axis launches summed over the shards (not timed);
+33. holds K8, the sharded 2-D stage, and K8b, its split-schedule bands,
+   against their twin to the bit (Burgers' emitted maximum exactly):
+   diffusion, WENO5-JS inviscid and WENO5-Z viscous; every stage kind
+   and every band; the main shard's shape (200x400, a shard of 400^2 on
+   ``dy = 2``) and an odd one (23x37); the first, a middle and the last
+   shard of ``dy = 4`` and a pencil's corner shard; times K8 and each
+   K8b band alone at the main shard's shape beside its bound and twin,
+   and ``conv2d`` computing the main shard's 2-D Laplacian;
+34. drives ``MultiGPU/Diffusion2d_Baseline`` on ``{"dy": 2}`` (400^2,
+   lengths 2, K = 1, ``run(1000)``, both shards on ``cuda:0``): K8
+   serialized (6,000 launches) and K8b split (18,000), each 0 ulp from
+   K7's unsharded ``run(1000)``, ``t`` equal, error norms against the
+   exact heat kernel; ms/step over ``run(200)`` beside K7's, MLUPS, one
+   exchange of both shards alone, the idle share of a profiled
+   ``run(100)`` and the ``engaged_path()`` labels;
+35. drives ``MultiGPU/Burgers2d_Baseline`` on ``{"dy": 2}`` (400^2,
+   lengths 2, WENO5-JS, inviscid, CFL 0.4): fixed dt ``run(200)`` on K8
+   (1,200 launches) and K8b split (3,600), 0 ulp from K7's unsharded
+   ``run(200)``; adaptive ``run(200)`` 0 ulp and ``t`` equal to K7a's,
+   at most one device-to-host copy; the example's ``advance_to(0.4)``
+   and ``advance_to(0.2)`` against the generic rung on the same mesh:
+   the same steps and landing ``t``, ``u`` within the JAX suite's bound
+   (``rtol 2e-5, atol 2e-6 max|u|``) at 0.2, before the shock, and its
+   gap at 0.4, past it, reported;
+36. ``{"dy": 2, "dx": 2}``, four shards on the card: both families at
+   400^2, ``run(100)`` on K8 (12 launches a step), 0 ulp from K7's
+   unsharded run;
+37. ADR on meshes: bench.py's ``adr3d`` row on ``{"dz": 2}``,
+   ``run(404)`` on K9's sharded instance (2,424 launches), 0 ulp and
+   ``t`` equal to the unsharded K9 run, ms/step over ``run(100)``; and
+   ``adr2d`` on ``{"dy": 2}`` (at 1000^2, its spacing: 1001 rows do not
+   split into two equal shards), the generic and per-axis rungs at 10
+   steps, 0 ulp from unsharded.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -212,6 +245,9 @@ from multigpu_advectiondiffusion_tpu_torch.models import registry
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
 from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import build
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused2d_sharded as fsh,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import fused_adr as fa
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_burgers as fb,
@@ -307,7 +343,8 @@ COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K2b": fsr.slab_run_diffusion_batched,
             "K2b-burgers": fsr.slab_run_burgers_batched,
             "K3": fsr.slab_step_diffusion,
-            "K3-burgers": fsr.slab_step_burgers}
+            "K3-burgers": fsr.slab_step_burgers,
+            "K8": fsh.fused2d_stage, "K8b": fsh.fused2d_band_stage}
 
 
 def card_line() -> str:
@@ -2391,8 +2428,11 @@ def adr_main_phase(card: str, k9: dict) -> dict:
     span_ms, busy_ms, per_kernel = retake(
         lambda: device_profile(lambda: solver.run(state0, n)),
         lambda r: sum("adr_stage_kernel<" in k for k in r[2]) == 2)
-    s1 = [ms for k, ms in per_kernel.items() if "adr_stage_kernel<false>" in k]
-    s23 = [ms for k, ms in per_kernel.items() if "adr_stage_kernel<true>" in k]
+    # the unsharded instances (<HAS_U, SHARDED>): stage 1, stages 2-3
+    s1 = [ms for k, ms in per_kernel.items()
+          if "adr_stage_kernel<false, false>" in k]
+    s23 = [ms for k, ms in per_kernel.items()
+           if "adr_stage_kernel<true, false>" in k]
     if len(s1) != 1 or len(s23) != 1:
         raise AssertionError(f"profiled run missed K9: {list(per_kernel)}")
     in_run_ms = (s1[0] + 2 * s23[0]) / 3
@@ -2927,12 +2967,13 @@ def k3_check(family: str, shape, step, step_ref, G: int, ring: int,
 
 
 def mesh_run(name, solver, one, state0, iters: int, expect: dict,
-             label: tuple, card: str, time_iters: int | None = None):
+             label: tuple, card: str, time_iters: int | None = None,
+             check=None):
     """One sharded main path: :func:`drive` (every count 0 before, read
-    after), the labels, 0 ulp and ``t`` equal to ``one``'s unsharded run;
-    then ms/step of both, timed over ``time_iters`` (median of 3 after a
-    warm-up, CUDA events; not timed when it is 0). Returns the
-    numbers."""
+    after), the labels, 0 ulp and ``t`` equal to ``one``'s unsharded run,
+    and ``check(out)`` when given; then ms/step of both, timed over
+    ``time_iters`` (median of 3 after a warm-up, CUDA events; not timed
+    when it is 0). Returns the numbers."""
     path = solver.engaged_path()
     got_label = (path["stepper"], path["overlap"],
                  path["steps_per_exchange"])
@@ -2947,6 +2988,8 @@ def mesh_run(name, solver, one, state0, iters: int, expect: dict,
           f"{want.t!r}")
     if n_ulps != 0 or out.t != want.t or out.it != want.it:
         raise AssertionError(f"{name}: differs from the unsharded run")
+    if check is not None:
+        check(out)
     del out, want
     if time_iters == 0:
         return {}
@@ -3155,6 +3198,474 @@ def mesh_phases(card: str) -> list[dict]:
     }]
 
 
+# --------------------------------------------------------------------- #
+# Phases 33-37: the 2-D mesh (K8, K8b) and ADR on meshes (sharded K9)
+# --------------------------------------------------------------------- #
+# MultiGPU/Diffusion2d_Baseline and MultiGPU/Burgers2d_Baseline
+# (examples/multigpu_{diffusion,burgers}2d.sh): 400^2, lengths 2, two
+# ranks (dy=2); diffusion K = 1, --iters 1000; Burgers CFL 0.4, fixed
+# dt, --t-end 0.4
+MESH2D_N = 400
+MESH2D_DIFF_ITERS = 1000
+MESH2D_BURGERS_ITERS = 200
+MESH2D_TIME_ITERS = 200  # the runs timed: run(200)
+MESH2D_T_END = 0.4
+# u held to the JAX suite's fused-against-generic bound before the
+# shock (t ~ 0.37, phase 10's note); at t_end the gap is reported
+MESH2D_T_CHECK = 0.2
+K8_ODD = (23, 37)  # an odd shard interior (ly, lx)
+PENCIL_ITERS = 100
+
+
+def k8_families(spacing) -> dict:
+    """The stage configurations phase 33 holds: diffusion (the main
+    path's), Burgers WENO5-JS inviscid (the main path's) and WENO5-Z
+    viscous."""
+    return {
+        "diffusion": fsh.DiffusionParams(
+            fd.stage_taps(spacing, (1.0, 1.0)), 2, 0.0),
+        "burgers-js": fb.stage_params(pflux.get("burgers"), "js", spacing,
+                                      0.0),
+        "burgers-z-viscous": fb.stage_params(pflux.get("burgers"), "z",
+                                             spacing, BURGERS_NU),
+    }
+
+
+def k8_shards(shape) -> dict:
+    """(offsets, global shape) of the shards held: the first, a middle
+    and the last of ``dy = 4``, and a corner of a ``dy x dx`` pencil."""
+    ly, lx = shape
+    g4 = (4 * ly, lx)
+    return {"dy4 first": ((0, 0), g4), "dy4 middle": ((ly, 0), g4),
+            "dy4 last": ((3 * ly, 0), g4),
+            "pencil corner": ((ly, lx), (2 * ly, 2 * lx))}
+
+
+def k8_stage_ops(params, cells: int) -> int:
+    """f32 operations of one stage with ``u`` (stages 2-3): diffusion 24
+    a cell; Burgers each face once as in K7's note, split 6, 103 an axis
+    (WENO5-Z 113), the sum and negation 2, the viscous taps 20, the
+    combine 5."""
+    if isinstance(params, fsh.DiffusionParams):
+        return 24 * cells
+    per_axis = 103 + (10 if params.variant == "z" else 0)
+    viscous = 20 if params.lap_taps is not None else 0
+    return (6 + 2 * per_axis + 2 + viscous + 5) * cells
+
+
+def k8_check(family, params, shape, dt, rng) -> tuple[int, float]:
+    """K8 (every stage kind) and K8b (every band, stage 2) against their
+    twin on every shard of :func:`k8_shards`, 0 ulp, Burgers' emitted
+    maximum exact; returns the count of checks and the largest
+    difference."""
+    h = fsh.halo_of(params)
+    ly, lx = shape
+    padded = (ly + 2 * h, lx + 2 * h)
+    burgers = family != "diffusion"
+    n, err = 0, 0.0
+    for shard, (offs, gshape) in k8_shards(shape).items():
+        v, u, out0 = (random_on_card(padded, int(rng.integers(1 << 30)))
+                      for _ in range(3))
+        calls = [("K8", (a, b), kind, None, None)
+                 for kind, (a, b) in enumerate(fd.STAGES)]
+        calls += [("K8b", fd.STAGES[1], 1, rows, op)
+                  for rows, op in fsh.split_bands(ly, h)]
+        for kernel, (a, b), kind, rows, op in calls:
+            ops = {}
+            if op is not None:
+                ops[op] = random_on_card((h, padded[1]),
+                                         int(rng.integers(1 << 30)))
+            u_arg = None if kind == 0 else u
+            kw = dict(params=params, a=a, b=b, global_shape=gshape)
+            ref = fsh.stage_reference(v, u_arg, out0.clone(), dt, offs,
+                                      window=rows, emit=burgers, **ops, **kw)
+            got = out0.clone()
+            mx = torch.zeros((), device="cuda") if burgers else None
+            if kernel == "K8":
+                fsh.fused2d_stage(v, u_arg, got, dt, offs, mx=mx, **kw)
+            else:
+                fsh.fused2d_band_stage(v, u_arg, got, dt, offs, rows=rows,
+                                       mx=mx, **ops, **kw)
+            torch.cuda.synchronize()
+            want = ref[0] if burgers else ref
+            n_ulps = ulps(got, want)
+            err = max(err, float((got - want).abs().max()))
+            if n_ulps != 0 or (burgers and float(mx) != float(ref[1])):
+                raise AssertionError(
+                    f"{kernel} {family} {shard} {shape} stage {kind + 1} "
+                    f"rows {rows}: {n_ulps} ulp from its twin (max "
+                    f"{float(mx) if burgers else None} vs "
+                    f"{float(ref[1]) if burgers else None})")
+            n += 1
+    return n, err
+
+
+def k8_timing(params, shape, dt, card) -> dict:
+    """K8 alone (stage 2) and each K8b band alone at the main shard's
+    shape, the first shard of ``dy = 2``, each launch on the next of
+    three buffer sets (the state is L2-resident in the main path too);
+    the twin; the bounds from this shape."""
+    h = fsh.halo_of(params)
+    ly, lx = shape
+    padded = (ly + 2 * h, lx + 2 * h)
+    gshape, offs = (2 * ly, lx), (0, 0)
+    burgers = isinstance(params, fb.StageParams)
+    sets = [[random_on_card(padded, 330 + 3 * i + j) for j in range(3)]
+            for i in range(3)]
+    kw = dict(params=params, a=0.75, b=0.25, global_shape=gshape)
+    ms = alone_ms(lambda s: fsh.fused2d_stage(s[0], s[1], s[2], dt, offs,
+                                              **kw), sets, 20)
+    plain = statistics.median(cuda_ms(lambda: fsh.stage_reference(
+        sets[0][0], sets[0][1], sets[0][2], dt, offs, **kw), 3))
+    in_elems = padded[0] * padded[1] + ly * lx
+    bound, by = kernel_bound(in_elems, ly * lx, k8_stage_ops(params, ly * lx))
+    bands = {}
+    for rows, op in fsh.split_bands(ly, h):
+        slab = random_on_card((h, padded[1]), 339)
+        ops = {op: slab} if op else {}
+        r = rows[1] - rows[0]
+        band_ms = alone_ms(
+            lambda s, rows=rows, ops=ops: fsh.fused2d_band_stage(
+                s[0], s[1], s[2], dt, offs, rows=rows, **ops, **kw),
+            sets, 20)
+        band_plain = statistics.median(cuda_ms(
+            lambda rows=rows, ops=ops: fsh.stage_reference(
+                sets[0][0], sets[0][1], sets[0][2], dt, offs, window=rows,
+                **ops, **kw), 3))
+        b_in = (r + 2 * h) * padded[1] + r * lx
+        b_bound, b_by = kernel_bound(b_in, r * lx,
+                                     k8_stage_ops(params, r * lx))
+        bands[op or "interior"] = {"rows": r, "ms": band_ms,
+                                   "plain_ms": band_plain,
+                                   "bound_ms": b_bound, "bound_by": b_by}
+    family = "burgers" if burgers else "diffusion"
+    print(f"  {family} at {shape}: K8 alone {ms:.4f} ms (twin {plain:.3f} "
+          f"ms, bound {bound:.5f} ms by {by}); K8b alone "
+          + ", ".join(f"{k} {v['ms']:.4f} ms ({v['rows']} rows)"
+                      for k, v in bands.items()) + f" [{card}]")
+    del sets
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "bands": bands}
+
+
+def k8_phase(card: str) -> dict:
+    """Phase 33: K8 and K8b against their twins at the main shard's shape
+    (200x400, a shard of 400^2 on dy=2) and an odd one, every stage kind,
+    every band, on the first, a middle and the last shard of dy=4 and a
+    pencil's corner; each timed alone beside its bound and twin, and
+    ``conv2d`` computing the 2-D Laplacian of the main shard."""
+    print("phase 33: K8 and K8b against their twins")
+    grid = Grid.make(MESH2D_N, MESH2D_N, lengths=2.0)
+    dt_d = np.float32(DiffusionSolver(DiffusionConfig(
+        grid=grid, dtype="float32")).dt)
+    dt_b = torch.full((), BurgersSolver(BurgersConfig(
+        grid=grid, cfl=0.4, adaptive_dt=False, dtype="float32")).dt,
+        device="cuda")
+    main_shape = (MESH2D_N // 2, MESH2D_N)
+    rng = np.random.default_rng(33)
+    errs = {}
+    for family, params in k8_families(grid.spacing).items():
+        dt = dt_d if family == "diffusion" else dt_b
+        for shape in (main_shape, K8_ODD):
+            n, err = k8_check(family, params, shape, dt, rng)
+            errs[family] = max(errs.get(family, 0.0), err)
+            print(f"  {family} at {shape}: K8 x3 stage kinds, K8b x3 "
+                  f"bands on 4 shards: {n} checks, 0 ulp, max|kernel - "
+                  f"twin| {err:.3e}")
+        torch.cuda.empty_cache()
+    fams = k8_families(grid.spacing)
+    timing = {"diffusion": k8_timing(fams["diffusion"], main_shape, dt_d,
+                                     card),
+              "burgers": k8_timing(fams["burgers-js"], main_shape, dt_b,
+                                   card)}
+    lib_ms = laplacian_conv2d_ms(grid.spacing, main_shape)
+    print(f"  conv2d 9-point Laplacian of the main shard alone, TF32 off: "
+          f"{lib_ms:.4f} ms [{card}] (computes less than one K8 stage)")
+    return {"timing": timing, "errs": errs, "library_ms": lib_ms}
+
+
+def dy2_mesh():
+    return pmesh.make_mesh({"dy": MESH_SHARDS},
+                           devices=[torch.device("cuda:0")] * MESH_SHARDS)
+
+
+def mesh2d_profile(name, solver, state0, iters: int, kernel: str,
+                   card: str) -> dict:
+    """The idle share of a profiled ``run(iters)`` and the kernel's mean
+    time a launch in it (``None`` where the profiler saw no device
+    activity)."""
+    prof = run_profile(lambda: solver.run(state0, iters), kernel)
+    if prof is None or prof["launches"] == 0:
+        print(f"  {name}: the profiler saw no {kernel} launch: idle share "
+              f"not measured [{card}]")
+        return {"device_idle_share": None, "kernel_ms_in_run": None,
+                "dtoh_copies": None}
+    idle = 1 - prof["busy_ms"] / prof["span_ms"]
+    print(f"  {name}: profiled run({iters}): idle share {idle:.4f}, "
+          f"{kernel} {prof['kernel_ms']:.4f} ms a launch "
+          f"({prof['launches']} launches), device-to-host copies "
+          f"{prof['dtoh']} [{card}]")
+    return {"device_idle_share": idle, "kernel_ms_in_run": prof["kernel_ms"],
+            "dtoh_copies": prof["dtoh"]}
+
+
+def diffusion2d_mesh_phase(card: str) -> dict:
+    """Phase 34: MultiGPU/Diffusion2d_Baseline on {"dy": 2} (cuda:0
+    twice), run(1000), serialized (K8, 6,000 launches) and split (K8b,
+    18,000): each 0 ulp from K7's unsharded run(1000), ``t`` equal, the
+    error norms against the exact heat kernel finite and at most twice
+    the generic path's, as phase 9 holds them (on this grid the heat
+    kernel is 0.08 at the walls, which the Dirichlet walls hold at 0, so
+    both paths' norms are the walls' mismatch); ms/step over run(200),
+    MLUPS, one exchange alone, the idle share."""
+    n = MESH2D_DIFF_ITERS
+    print(f"phase 34: MultiGPU/Diffusion2d_Baseline on {{'dy': 2}} "
+          f"(cuda:0 twice), run({n}) at {MESH2D_N}^2")
+    grid = Grid.make(MESH2D_N, MESH2D_N, lengths=2.0)
+    cfg = DiffusionConfig(grid=grid, diffusivity=1.0, dtype="float32",
+                          impl="pallas")
+    one = DiffusionSolver(cfg)
+    if one.engaged_path()["stepper"] != "fused-whole-run":
+        raise AssertionError("the unsharded oracle did not engage K7")
+    generic = DiffusionSolver(dataclasses.replace(cfg, impl="xla"))
+    gn = generic.error_norms(generic.run(generic.initial_state(), n))
+    del generic
+    mesh = dy2_mesh()
+    runs = {}
+    for name, kw, expect, label, kernel in (
+            ("K8 serialized", {}, {"K8": 6 * n},
+             ("fused-stage", "serialized-refresh", 1), "diffusion_kernel"),
+            ("K8b split", {"overlap": "split"}, {"K8b": 18 * n},
+             ("fused-stage", "split", 1), "diffusion_kernel")):
+        solver = DiffusionSolver(dataclasses.replace(cfg, **kw), mesh=mesh)
+        state0 = solver.initial_state()
+        norms = {}
+
+        def check(out, solver=solver, norms=norms, name=name):
+            e = solver.error_norms(out)
+            norms.update(l1=e.l1, l2=e.l2, linf=e.linf)
+            print(f"  {name}: error vs exact at t={float(out.t):.6f}: L1 "
+                  f"{e.l1:.4e} L2 {e.l2:.4e} Linf {e.linf:.4e}; generic L1 "
+                  f"{gn.l1:.4e} L2 {gn.l2:.4e} Linf {gn.linf:.4e}")
+            if not all(math.isfinite(x) and x <= 2 * y
+                       for x, y in zip(e, gn)):
+                raise AssertionError(f"{name}: error norms out of range")
+
+        r = mesh_run(name, solver, one, state0, n, expect, label, card,
+                     time_iters=MESH2D_TIME_ITERS, check=check)
+        r.update(errors=norms, launches=sum(expect.values()),
+                 mlups=grid.num_cells * 3 / (r["ms_per_step"] * 1e-3) / 1e6,
+                 exchange_ms=halo_ms(solver, state0),
+                 engaged=list(label))
+        r.update(mesh2d_profile(name, solver, state0, 100, kernel, card))
+        print(f"  {name}: {r['mlups']:.1f} MLUPS; one "
+              f"{'y-slab exchange' if 'split' in name else 'ghost refresh'}"
+              f" of both shards alone {r['exchange_ms']:.4f} ms [{card}]")
+        runs[name] = r
+        del solver, state0
+        torch.cuda.empty_cache()
+    return runs
+
+
+def burgers2d_mesh_phase(card: str) -> dict:
+    """Phase 35: MultiGPU/Burgers2d_Baseline on {"dy": 2}: fixed dt
+    run(200) serialized (K8, 1,200 launches) and split (K8b, 3,600), 0
+    ulp from K7's unsharded run(200); the example's advance_to(0.4)
+    against the generic rung on the same mesh (the same steps and
+    landing ``t``; ``u`` held to the JAX suite's bound at t = 0.2,
+    before the shock, and its gap at 0.4 reported); adaptive run(200) 0
+    ulp and ``t`` equal to K7a, with at most one device-to-host copy."""
+    n = MESH2D_BURGERS_ITERS
+    print(f"phase 35: MultiGPU/Burgers2d_Baseline on {{'dy': 2}}, "
+          f"run({n}) at {MESH2D_N}^2")
+    grid = Grid.make(MESH2D_N, MESH2D_N, lengths=2.0)
+    cfg = BurgersConfig(grid=grid, cfl=0.4, adaptive_dt=False,
+                        dtype="float32", impl="pallas")
+    mesh = dy2_mesh()
+    runs = {}
+    for name, kw, expect, label in (
+            ("K8 serialized", {}, {"K8": 6 * n},
+             ("fused-stage", "serialized-refresh", 1)),
+            ("K8b split", {"overlap": "split"}, {"K8b": 18 * n},
+             ("fused-stage", "split", 1)),
+            ("K8 adaptive", {"adaptive_dt": True}, {"K8": 6 * n},
+             ("fused-stage", "serialized-refresh", 1))):
+        c = dataclasses.replace(cfg, **kw)
+        solver = BurgersSolver(c, mesh=mesh)
+        one = BurgersSolver(dataclasses.replace(c, overlap="padded"))
+        state0 = solver.initial_state()
+        r = mesh_run(name, solver, one, state0, n, expect, label, card,
+                     time_iters=MESH2D_TIME_ITERS)
+        r.update(launches=sum(expect.values()), engaged=list(label),
+                 mlups=grid.num_cells * 3 / (r["ms_per_step"] * 1e-3) / 1e6,
+                 exchange_ms=halo_ms(solver, state0))
+        r.update(mesh2d_profile(name, solver, state0, n, "burgers_kernel",
+                                card))
+        if name == "K8 adaptive":
+            r["host_reads"] = count_reads(lambda: solver.run(state0, n))
+            print(f"  {name}: host reads of device scalars "
+                  f"{r['host_reads']}, device-to-host copies "
+                  f"{r['dtoh_copies']} in a profiled run [{card}]")
+            if r["host_reads"] > 1 or (r["dtoh_copies"] or 0) > 1:
+                raise AssertionError("the sharded adaptive run read dt back")
+        print(f"  {name}: {r['mlups']:.1f} MLUPS; one exchange of both "
+              f"shards alone {r['exchange_ms']:.4f} ms [{card}]")
+        runs[name] = r
+        del solver, one, state0
+        torch.cuda.empty_cache()
+
+    fused = BurgersSolver(cfg, mesh=mesh)
+    generic = BurgersSolver(dataclasses.replace(cfg, impl="xla"), mesh=mesh)
+    if (fused.engaged_path("t_end")["stepper"] != "fused-stage"
+            or generic.engaged_path("t_end")["stepper"] != "generic-xla"):
+        raise AssertionError("advance_to did not engage K8 / the generic "
+                             "rung")
+    state0 = fused.initial_state()
+    gaps = {}
+    for t_end in (MESH2D_T_CHECK, MESH2D_T_END):
+        reset_counts()
+        got = fused.advance_to(state0, t_end)
+        torch.cuda.synchronize()
+        launches = counts()["K8"]
+        want = generic.advance_to(state0, t_end)
+        g, w = got.u.assemble(), want.u.assemble()
+        scale = float(w.abs().max())
+        gap = float((g - w).abs().max())
+        gaps[t_end] = gap / scale
+        print(f"  advance_to({t_end}): {got.it} steps ({launches} K8 "
+              f"launches), t {got.t!r}; generic {want.it} steps, t "
+              f"{want.t!r}; max|fused - generic| {gap:.3e} "
+              f"({gap / scale:.3e} of max|u|)")
+        if got.it != want.it or got.t != want.t or launches != 6 * got.it:
+            raise AssertionError("advance_to: steps or landing t differ")
+        if abs(float(got.t) - t_end) > 1e-6 * t_end:
+            raise AssertionError("advance_to did not land on t_end")
+        if t_end == MESH2D_T_CHECK:
+            assert_matches(f"advance_to({t_end}) against impl='xla'", g, w,
+                           rtol=2e-5, atol=2e-6)
+    runs["advance_to"] = {"steps": int(got.it), "t": float(got.t),
+                          "gap_rel_t_check": gaps[MESH2D_T_CHECK],
+                          "gap_rel_t_end": gaps[MESH2D_T_END]}
+    del fused, generic, state0
+    torch.cuda.empty_cache()
+    return runs
+
+
+def pencil_phase(card: str) -> dict:
+    """Phase 36: {"dy": 2, "dx": 2}, four shards on the card: both
+    families at 400^2, run(100), 0 ulp from K7's unsharded run, 12 K8
+    launches a step."""
+    n = PENCIL_ITERS
+    print(f"phase 36: {{'dy': 2, 'dx': 2}} (cuda:0 four times), run({n}) "
+          f"at {MESH2D_N}^2")
+    mesh = pmesh.make_mesh({"dy": 2, "dx": 2},
+                           devices=[torch.device("cuda:0")] * 4)
+    decomp = pmesh.Decomposition.of({0: "dy", 1: "dx"})
+    grid = Grid.make(MESH2D_N, MESH2D_N, lengths=2.0)
+    runs = {}
+    for name, cfg in (
+            ("diffusion", DiffusionConfig(grid=grid, dtype="float32",
+                                          impl="pallas")),
+            ("burgers", BurgersConfig(grid=grid, cfl=0.4, adaptive_dt=False,
+                                      dtype="float32", impl="pallas"))):
+        cls = DiffusionSolver if name == "diffusion" else BurgersSolver
+        solver, one = cls(cfg, mesh=mesh, decomp=decomp), cls(cfg)
+        state0 = solver.initial_state()
+        runs[name] = mesh_run(f"{name} pencil", solver, one, state0, n,
+                              {"K8": 12 * n},
+                              ("fused-stage", "serialized-refresh", 1), card)
+        del solver, one, state0
+        torch.cuda.empty_cache()
+    return runs
+
+
+def adr_mesh_phase(card: str) -> dict:
+    """Phase 37: bench.py's adr3d row on {"dz": 2}, run(404) on K9's
+    sharded instance (2,424 launches), 0 ulp and ``t`` equal to the
+    unsharded K9 run, ms/step; adr2d on {"dy": 2}, the generic and
+    per-axis rungs at 10 steps, 0 ulp from unsharded. The adr2d row's
+    1001^2 does not divide over two shards (a decomposition takes equal
+    blocks, as the JAX package's does): it runs at 1000^2 with its
+    spacing (lengths 19.98)."""
+    n = ADR_ITERS
+    print(f"phase 37: ADR on meshes: adr3d {'x'.join(map(str, ADR_N))} on "
+          f"{{'dz': 2}}, run({n}); adr2d on {{'dy': 2}}")
+    spec = registry.get("adr")
+    cfg = spec.bench_build(Grid.make(*ADR_N, lengths=ADR_LENGTHS),
+                           "float32", "pallas", None)
+    solver, one = spec.solver_cls(cfg, mesh=two_shards()), spec.solver_cls(
+        cfg)
+    state0 = solver.initial_state()
+    runs = {"K9 sharded": mesh_run(
+        "ADR 3-D K9 sharded", solver, one, state0, n, {"K9": 6 * n},
+        ("fused-stage", "serialized-refresh", 1), card, time_iters=100)}
+    runs["K9 sharded"]["launches"] = 6 * n
+    del solver, one, state0
+    torch.cuda.empty_cache()
+    n2 = ADR2D_N - ADR2D_N % MESH_SHARDS
+    length = 20.0 * (n2 - 1) / (ADR2D_N - 1)
+    cfg2 = spec.bench_build(Grid.make(n2, n2, lengths=length), "float32",
+                            "pallas", None)
+    for impl, expect, label in (
+            ("xla", {}, ("generic-xla", "padded", 1)),
+            ("pallas_axis", {"K11b": 6 * 10},
+             ("per-axis-pallas", "padded", 1))):
+        c = dataclasses.replace(cfg2, impl=impl)
+        solver, one = spec.solver_cls(c, mesh=dy2_mesh()), spec.solver_cls(c)
+        mesh_run(f"ADR 2-D {impl}", solver, one, solver.initial_state(), 10,
+                 expect, label, card, time_iters=0)
+        del solver, one
+        torch.cuda.empty_cache()
+    return runs
+
+
+def mesh2d_entries(k8: dict, diff: dict, burg: dict) -> list[dict]:
+    """The kernels line's K8 and K8b entries, a family each: ``ms`` a
+    launch in the main path's profiled run (K8b: the mean over its three
+    bands' launches), else alone at the main shard's shape (launched
+    alone from Python, a launch is bound by the wrapper's host time:
+    ``ms_isolated``); launches from the main paths' runs (phases 34,
+    35)."""
+    common = {"route": "cuda",
+              "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                        "fused2d_sharded.cu"}
+    out = []
+    for family, paths, lib in (("diffusion", diff, k8["library_ms"]),
+                               ("burgers", burg, None)):
+        t = k8["timing"][family]
+        err = max(v for k, v in k8["errs"].items()
+                  if k.startswith(family))
+        bands = list(t["bands"].values())
+        serial = paths["K8 serialized"]
+        split = paths["K8b split"]
+        lib_kw = {"library_ms": lib, "library_call": (
+            "torch.nn.functional.conv2d, 9-point Laplacian only (computes "
+            "less than K8)" if lib is not None else
+            "none: no single PyTorch call computes a WENO stage")}
+        out.append({
+            **common, "id": "K8", "name": f"fused2d_stage ({family})",
+            "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                        "fused2d_sharded.py:195",
+            "launches": serial["launches"], "max_abs_err": err,
+            "ms": serial.get("kernel_ms_in_run") or t["ms"],
+            "ms_isolated": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], **lib_kw,
+            "path": serial})
+        out.append({
+            **common, "id": "K8b", "name": f"fused2d_band_stage ({family})",
+            "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                        "fused2d_sharded.py:231",
+            "launches": split["launches"], "max_abs_err": err,
+            "ms": split.get("kernel_ms_in_run") or statistics.mean(
+                b["ms"] for b in bands),
+            "ms_isolated": statistics.mean(b["ms"] for b in bands),
+            "plain_ms": statistics.mean(b["plain_ms"] for b in bands),
+            "bound_ms": statistics.mean(b["bound_ms"] for b in bands),
+            "bound_by": bands[0]["bound_by"], **lib_kw,
+            "bands": t["bands"], "path": split})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3175,11 +3686,11 @@ def main() -> int:
                (fd2.SOURCE, ()), (fb2.SOURCE, fb.NVCC_EXTRA),
                (fds.SOURCE, ()), (fsr.BURGERS_SOURCE, fb.NVCC_EXTRA),
                (klap.SOURCE, ()), (kweno.SOURCE, fb.NVCC_EXTRA),
-               (fa.SOURCE, fa.NVCC_EXTRA)]
+               (fa.SOURCE, fa.NVCC_EXTRA), (fsh.SOURCE, fsh.NVCC_EXTRA)]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(lambda args: build.build(*args), sources))
     for lib in (fd.library, fb.library, fd2.library, fb2.library,
-                fa.library):
+                fa.library, fsh.library):
         lib()
     print(f"phase 0: built all {len(sources)} kernels in "
           f"{time.perf_counter() - t0:.2f} s (wall, in parallel)")
@@ -3306,6 +3817,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phases 28-32: the z-slab mesh (K3, sharded K1/K5)")
     k3 = mesh_phases(card)
+    torch.cuda.empty_cache()
+    print("phases 33-37: the 2-D mesh (K8, K8b) and ADR on meshes (sharded "
+          "K9)")
+    t_mesh2d = time.perf_counter()
+    k8 = k8_phase(card)
+    torch.cuda.empty_cache()
+    mesh2d = mesh2d_entries(k8, diffusion2d_mesh_phase(card),
+                            burgers2d_mesh_phase(card))
+    pencil = pencil_phase(card)
+    k9["sharded_paths"] = adr_mesh_phase(card)
+    for entry in mesh2d:
+        entry["pencil_path"] = pencil[
+            "diffusion" if "diffusion" in entry["name"] else "burgers"]
+    print(f"phases 33-37: {time.perf_counter() - t_mesh2d:.1f} s")
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -3351,7 +3876,7 @@ def main() -> int:
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
     }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b,
-        *k3]
+        *k3, *mesh2d]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

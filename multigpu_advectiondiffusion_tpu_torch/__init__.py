@@ -34,12 +34,15 @@ Hopper (ids as in PERF.md's kernel table):
 
 * device meshes (``parallel/mesh.py``, ``parallel/halo.py``): one
   process drives every shard, one thread and CUDA stream a shard;
-  diffusion and Burgers run every rung the JAX package runs on a mesh —
+  every family runs the rungs the JAX package runs on a mesh —
   the generic and per-axis rungs on any decomposition, K1 and K5
-  shard-local on z slabs with global offsets, and the slab rung as K3,
+  shard-local on z slabs with global offsets, the slab rung as K3,
   one launch over an output window a step (``csrc/fused_step_diffusion.cu``,
-  ``csrc/slab_run_burgers.cu``). ``make_mesh({"dz": 2}, devices=[...])``
-  may name one device twice (two shards on one card, or CPU shards).
+  ``csrc/slab_run_burgers.cu``), on 2-D meshes a launch a stage and
+  shard (K8, or K8b's three bands under the split schedule,
+  ``csrc/fused2d_sharded.cu``), and ADR's K9 shard-local with global
+  walls and ``K(x)``. ``make_mesh({"dz": 2}, devices=[...])`` may name
+  one device twice (two shards on one card, or CPU shards).
 
 The families register in ``models/registry.py``; the CLI generates its
 verbs from that registry.

@@ -59,6 +59,7 @@ from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
 from multigpu_advectiondiffusion_tpu_torch.models import registry
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused2d_sharded,
     fused_adr,
     fused_burgers,
     fused_diffusion,
@@ -269,6 +270,8 @@ _COUNTERS = {
     "K12 weno_axis_3d": weno.flux_divergence_3d,
     "K12b weno_axis_2d": weno.flux_divergence_2d,
     "K9 fused_adr_stage": fused_adr.fused_adr_stage,
+    "K8 fused2d_stage": fused2d_sharded.fused2d_stage,
+    "K8b fused2d_band_stage": fused2d_sharded.fused2d_band_stage,
 }
 
 

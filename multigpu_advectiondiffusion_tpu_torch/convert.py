@@ -101,8 +101,8 @@ def state_from_numpy(u, t, it=0, device=None, mesh=None,
     """A port state from numpy ``u`` (``(nz, ny, nx)``, float32/float64),
     time ``t`` and step count ``it``; ``device=None`` means the GPU.
     With ``mesh`` the field is scattered onto its shards (``decomp``
-    defaulting to z slabs over the mesh's first axis, as a solver's
-    does) and ``device`` must be ``None``."""
+    defaulting to slabs of array axis 0 over the mesh's first axis, as
+    a solver's does) and ``device`` must be ``None``."""
     arr = np.array(u, order="C")  # a writable copy the tensor may own
     if arr.dtype not in (np.float32, np.float64):
         raise TypeError(f"float32/float64 field expected, got {arr.dtype}")

@@ -20,15 +20,20 @@
 // the cells on a global face. K(x)'s factors cz/cy/cx are the 1-D
 // vectors cos(pi*(g/(n-1) - 0.5)) of the global index g, computed once
 // by the wrapper in float32 (a GPU's cosf and the CPU's need not round
-// alike); the kernel forms their product per cell, so no 3-D
-// coefficient field lives in device memory. The file is built with
+// alike) and cut to the block's cells; the kernel forms their product per
+// cell, so no 3-D coefficient field lives in device memory. A shard of a
+// device mesh passes the global interior shape and its offsets, so both
+// masks are global (the TPU kernel's offsets operand,
+// fused_adr.py:244-305); it runs its own instance of the kernel, as K1's
+// shards do, and the unsharded launch carries none of its arithmetic. The file is built with
 // -fmad=false: no product and sum are contracted into an FMA, and the
 // kernel rounds exactly where the plain PyTorch twin
 // (ops/kernels/fused_adr.py::adr_stage_reference) does.
 //
 // Layout and aliasing: K1's (csrc/fused_diffusion_stage.cu). The padded
 // state is (nz+4, ny+4, nx+4) contiguous float32 whose 2-deep ghost ring
-// holds bc_value and is never written; the upwind +-1 neighbours lie
+// holds bc_value and is never written (a shard's: neighbour data on a
+// sharded axis, refreshed between stages); the upwind +-1 neighbours lie
 // inside it. The third stage runs in place (u == out): each thread reads
 // u only at its own cell, before writing it, and v is never out.
 //
@@ -60,12 +65,19 @@ struct Params {
   int band;
 };
 
-template <bool HAS_U>
+// The global picture of a sharded launch: the global interior shape and
+// the block's offsets.
+struct Geometry {
+  int gz, gy, gx;  // global interior shape
+  int oz, oy, ox;  // global index of local interior cell (0, 0, 0)
+};
+
+template <bool HAS_U, bool SHARDED>
 __global__ void __launch_bounds__(BX * BY)
 adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
                  const float* __restrict__ cz, const float* __restrict__ cy,
                  const float* __restrict__ cx, int nz, int ny, int nx,
-                 int zchunk, Params p) {
+                 int zchunk, Params p, Geometry g) {
   const int i = blockIdx.x * BX + threadIdx.x;  // interior x index
   const int j = blockIdx.y * BY + threadIdx.y;  // interior y index
   if (i >= nx || j >= ny) return;
@@ -76,9 +88,13 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
   const long long P = (long long)(ny + 2 * R) * X;  // plane stride
   const long long col = (long long)(j + R) * X + (i + R);
 
-  const bool in_yx = j >= p.band && j < ny - p.band && i >= p.band &&
-                     i < nx - p.band;
-  const bool face_yx = j == 0 || j == ny - 1 || i == 0 || i == nx - 1;
+  // global y, x and the global interior shape
+  const int gj = SHARDED ? j + g.oy : j, gi = SHARDED ? i + g.ox : i;
+  const int gz = SHARDED ? g.gz : nz, gy = SHARDED ? g.gy : ny,
+            gx = SHARDED ? g.gx : nx;
+  const bool in_yx = gj >= p.band && gj < gy - p.band && gi >= p.band &&
+                     gi < gx - p.band;
+  const bool face_yx = gj == 0 || gj == gy - 1 || gi == 0 || gi == gx - 1;
   const float cyj = cy[j], cxi = cx[i];
 
   // z taps of interior plane k live at padded planes k .. k+4
@@ -136,8 +152,9 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
     float rk = p.b * (q2 + p.dt * rhs);
     if (HAS_U) rk = p.a * u[c] + rk;
 
-    const bool interior = in_yx && k >= p.band && k < nz - p.band;
-    const bool face = face_yx || k == 0 || k == nz - 1;
+    const int gk = SHARDED ? k + g.oz : k;  // global z
+    const bool interior = in_yx && gk >= p.band && gk < gz - p.band;
+    const bool face = face_yx || gk == 0 || gk == gz - 1;
     out[c] = interior ? rk : (face ? p.bc_value : q2);
 
     q0 = q1;
@@ -147,21 +164,44 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
   }
 }
 
+template <bool SHARDED>
+void launch(const float* v, const float* u, float* out, const float* cz,
+            const float* cy, const float* cx, int nz, int ny, int nx,
+            int zchunk, const Params& p, const Geometry& g,
+            cudaStream_t s) {
+  const dim3 block(BX, BY, 1);
+  const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY,
+                  (nz + zchunk - 1) / zchunk);
+  if (u != nullptr) {
+    adr_stage_kernel<true, SHARDED><<<grid, block, 0, s>>>(
+        v, u, out, cz, cy, cx, nz, ny, nx, zchunk, p, g);
+  } else {
+    adr_stage_kernel<false, SHARDED><<<grid, block, 0, s>>>(
+        v, u, out, cz, cy, cx, nz, ny, nx, zchunk, p, g);
+  }
+}
+
 }  // namespace
 
 // Launch one stage on `stream`. `u` is null for stage 1 and may equal
 // `out` (in-place stage 3). `taps` points to 15 host floats, `adv` to 6
 // (cp for z, y, x, then cm); cz/cy/cx are device vectors of nz/ny/nx
-// floats. Returns cudaGetLastError() after the launch (0 on success);
-// does not synchronise.
+// floats, K(x)'s factors at the block's cells. `global3` (gz, gy, gx)
+// and `offset3` (oz, oy, ox), when not null, point to 3 host ints each:
+// the global interior shape and the block's offsets (a shard of a mesh;
+// null: the unsharded instance). Returns cudaGetLastError() after the
+// launch (0 on success); does not synchronise.
 extern "C" int fused_adr_stage(const float* v, const float* u, float* out,
                                int nz, int ny, int nx, const float* taps,
                                const float* cz, const float* cy,
                                const float* cx, float k0, float eps,
                                const float* adv, float lam, float dt,
                                float a, float b, int band, float bc_value,
-                               int zchunk, void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1) return (int)cudaErrorInvalidValue;
+                               int zchunk, const int* global3,
+                               const int* offset3, void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 ||
+      (global3 == nullptr) != (offset3 == nullptr))
+    return (int)cudaErrorInvalidValue;
   Params p;
   for (int q = 0; q < 15; ++q) p.taps[q] = taps[q];
   p.adv_axes = 0;
@@ -178,16 +218,17 @@ extern "C" int fused_adr_stage(const float* v, const float* u, float* out,
   p.b = b;
   p.bc_value = bc_value;
   p.band = band;
-  const dim3 block(BX, BY, 1);
-  const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY,
-                  (nz + zchunk - 1) / zchunk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (u != nullptr) {
-    adr_stage_kernel<true><<<grid, block, 0, s>>>(v, u, out, cz, cy, cx, nz,
-                                                  ny, nx, zchunk, p);
+  if (global3 != nullptr) {
+    const Geometry g{global3[0], global3[1], global3[2],
+                     offset3[0], offset3[1], offset3[2]};
+    if (g.oz < 0 || g.oy < 0 || g.ox < 0 || g.oz + nz > g.gz ||
+        g.oy + ny > g.gy || g.ox + nx > g.gx)
+      return (int)cudaErrorInvalidValue;
+    launch<true>(v, u, out, cz, cy, cx, nz, ny, nx, zchunk, p, g, s);
   } else {
-    adr_stage_kernel<false><<<grid, block, 0, s>>>(v, u, out, cz, cy, cx, nz,
-                                                   ny, nx, zchunk, p);
+    launch<false>(v, u, out, cz, cy, cx, nz, ny, nx, zchunk, p,
+                  Geometry{nz, ny, nx, 0, 0, 0}, s);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 """Advection–diffusion–reaction solver, the repo's title workload (JAX
-``models/adr.py`` counterpart: 2-D and 3-D Cartesian, one device).
+``models/adr.py`` counterpart: 2-D and 3-D Cartesian, one device or a
+device mesh).
 
 ``u_t + div(a u) = K(x) lap(u) - lambda u`` with
 
@@ -33,6 +34,14 @@ Kernel rungs (``impl``), as the JAX package dispatches them:
 * ``"auto"`` and ``precision="bf16"`` — not ported: construction raises
   ``NotImplementedError``, as it does for 1-D grids.
 
+On a device mesh (``mesh=``/``decomp=``) the generic and per-axis rungs
+run on every decomposition (``K(x)`` and the walls in global indices,
+``overlap="split"`` overlapping the ghost exchange), and the fused rung
+as K9's sharded instance: global wall masks, the ``K(x)`` factors of the
+global grid at the shard's offsets, the ghosts refreshed after every
+stage. As in the JAX package, ``overlap="split"`` and a sharded axis
+thinner than the O4 halo decline to the generic rung.
+
 Analytic solution (constant coefficients, ``eps = 0``): the advecting,
 decaying heat kernel ``u(x, t) = (t0/t)^{d/2} exp(-|x - a (t-t0)|^2 /
 (4 K t)) exp(-lambda (t-t0))``.
@@ -52,6 +61,7 @@ from multigpu_advectiondiffusion_tpu_torch.models.base import (
     LocalPhysics,
     SolverBase,
     StepContext,
+    global_field,
 )
 from multigpu_advectiondiffusion_tpu_torch.models.registry import (
     ModelSpec,
@@ -62,6 +72,7 @@ from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_fused_impl
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as flux_lib
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_adr import (
+    R,
     FusedADRStepper,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.laplacian import (
@@ -196,12 +207,7 @@ class ADRSolver(SolverBase):
     cfg: ADRConfig
 
     def __init__(self, cfg: ADRConfig, device=None, mesh=None, decomp=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "advection-diffusion-reaction on a device mesh needs the "
-                "sharded K9, which is not ported yet (ROADMAP queue 1 "
-                "item 8c)")
-        super().__init__(cfg, device=device, decomp=decomp)
+        super().__init__(cfg, device=device, mesh=mesh, decomp=decomp)
         self._check_ported()
         kmax = float(cfg.diffusivity) * (
             1.0 + abs(float(cfg.kappa_variation))
@@ -317,7 +323,7 @@ class ADRSolver(SolverBase):
         return self.cfg.ic, {}
 
     # ------------------------------------------------------------------ #
-    # Local physics (one device)
+    # Local physics (one device, or one shard of a mesh)
     # ------------------------------------------------------------------ #
     def build_local(self, ctx: StepContext, overrides=None) -> LocalPhysics:
         cfg = self.cfg
@@ -344,13 +350,14 @@ class ADRSolver(SolverBase):
                 cfl=cfg.cfl, safety=cfg.safety, reaction=lam,
             )
         impl = self._laplacian_impl(self._op_impl(), cfg.order)
+        ghost_fn = ctx.ghost_fn if cfg.overlap == "split" else None
         prof = kappa_profile(ctx.global_shape, ctx.local_shape, ctx.offsets,
                              float(cfg.kappa_variation), self.dtype,
                              ctx.device)
 
         def diffusive(u):
             lap = laplacian(u, spacing, ctx.padder, diffusivity=1.0,
-                            order=cfg.order, impl=impl)
+                            order=cfg.order, impl=impl, ghost_fn=ghost_fn)
             return K0 * lap if prof is None else (K0 * prof) * lap
 
         if cfg.advect == "weno5":
@@ -363,7 +370,7 @@ class ADRSolver(SolverBase):
                         continue
                     div = flux_divergence(
                         u, axis, spacing[axis], fluxes[axis], order=5,
-                        variant="js", padder=ctx.padder,
+                        variant="js", padder=ctx.padder, ghost_fn=ghost_fn,
                     )
                     acc = div if acc is None else acc + div
                 return acc
@@ -430,10 +437,12 @@ class ADRSolver(SolverBase):
     def _fused_stepper(self, mode: str = "iters"):
         """The fused ADR SSP-RK3 per-stage stepper (K9) when eligible,
         else ``None`` (generic path, reason recorded). Eligibility and
-        reasons are the JAX package's, for one device: 3-D Cartesian,
-        upwind advection, O4, SSP-RK3, float32, uniform frozen Dirichlet
-        walls; no whole-step or slab variant. The stepper has
-        ``run_to``, so ``advance_to`` runs it too."""
+        reasons are the JAX package's (``models/adr.py:493-534``): 3-D
+        Cartesian, upwind advection, O4, SSP-RK3, float32, uniform frozen
+        Dirichlet walls; no whole-step or slab variant; on a mesh no
+        split overlap and no sharded axis thinner than the O4 halo (then
+        K9's sharded instance on the shard). The stepper has ``run_to``,
+        so ``advance_to`` runs it too."""
         del mode
         cfg = self.cfg
         self._fused_fallback = None
@@ -468,9 +477,22 @@ class ADRSolver(SolverBase):
             return self._decline(
                 "fused walls need uniform Dirichlet BCs on every axis"
             )
+        if self.mesh is not None:
+            if self._split_overlap_requested():
+                return self._decline(
+                    "fused ADR runs the serialized per-stage ghost "
+                    "refresh; overlap='split' rides the generic rung"
+                )
+            if any(self.local_shape()[ax] < R for ax, _ in self.decomp.axes):
+                return self._decline(
+                    f"a sharded axis is thinner than the O4 halo ({R})"
+                )
         if "fused" not in self._cache:
+            kwargs = {}
+            if self.mesh is not None:
+                kwargs["global_shape"] = self.grid.shape
             self._cache["fused"] = FusedADRStepper(
-                self.grid.shape,
+                self.local_shape(),
                 self.grid.spacing,
                 cfg.diffusivity,
                 self._velocity_zyx(),
@@ -480,6 +502,7 @@ class ADRSolver(SolverBase):
                 bcs[0].value,
                 self.device,
                 kappa_variation=cfg.kappa_variation,
+                **kwargs,
             )
         return self._cache["fused"]
 
@@ -514,7 +537,8 @@ class ADRSolver(SolverBase):
     def error_norms(self, state: SolverState, t: float | None = None):
         t_val = float(state.t) if t is None else t
         return metrics.error_norms(
-            state.u, self.exact_solution(t_val), self.cfg.grid.spacing
+            global_field(state.u), self.exact_solution(t_val),
+            self.cfg.grid.spacing
         )
 
 

@@ -296,9 +296,9 @@ class SolverBase:
 
     def _split_overlap_requested(self) -> bool:
         """``overlap='split'`` with a decomposition the fused steppers'
-        three-call schedule serves: z sharded, and in 3-D optionally y
-        and/or x as well (their ghosts then take the serialized
-        per-stage refresh)."""
+        three-call schedule serves: axis 0 alone sharded (z slabs in 3-D,
+        y slabs in 2-D), and in 3-D z with y and/or x as well (their
+        ghosts then take the serialized per-stage refresh)."""
         if self.mesh is None or getattr(self.cfg, "overlap", None) != "split":
             return False
         sharded = self._sharded_axes()
@@ -561,7 +561,7 @@ class SolverBase:
             stepper = fused.engaged_label
             storage = fused.dtype
             fallback = self._fused_fallback
-            # the whole-step and 2-D steppers are single-device only
+            # the whole-step and whole-run steppers are single-device only
             overlap = None
             if getattr(fused, "sharded", False):
                 overlap = ("split" if fused.overlap_split
@@ -599,12 +599,13 @@ class SolverBase:
         refreshed in place after every RK stage (or step), this shard's
         global offsets for the kernels' global wall masks, and, when the
         stepper runs the split schedule (``fused.overlap_split``),
-        ``exch`` in place of ``refresh``: the ``(lo, hi)`` exchanged z
-        slabs of the padded buffer's core, issued on the shard's exchange
-        stream (:func:`parallel.mesh.exchange_stream`) so the interior
-        call runs while they are in flight; the stepper joins the
-        streams (:func:`parallel.mesh.wait_exchange`) before the edge
-        calls consume them. On pencil meshes the non-z sharded axes keep
+        ``exch`` in place of ``refresh``: the ``(lo, hi)`` exchanged
+        slabs of axis 0 (z in 3-D, y in 2-D) of the padded buffer's core,
+        issued on the shard's exchange stream
+        (:func:`parallel.mesh.exchange_stream`) so the interior call runs
+        while they are in flight; the stepper joins the streams
+        (:func:`parallel.mesh.wait_exchange`) before the edge calls
+        consume them. On 3-D pencil meshes the non-z sharded axes keep
         the serialized refresh. Both exchange at the stepper's
         ``exchange_depth`` (the stencil halo, or ``k * G`` for the
         k-step slab schedule). All ``None`` when unsharded. Runs inside

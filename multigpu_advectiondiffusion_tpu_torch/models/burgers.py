@@ -29,7 +29,9 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   ``"pallas_slab"`` — the whole-run stepper, one cooperative CUDA launch
   per ``run`` (:mod:`ops.kernels.fused_burgers2d`: K7 at fixed dt, K7a
   adaptive), WENO5-JS/Z, as every fused flavor runs the whole-run
-  stepper in 2-D in the JAX package;
+  stepper in 2-D in the JAX package; on a mesh the per-stage stepper
+  of :mod:`ops.kernels.fused2d_sharded` (K8, or K8b's three bands a
+  stage under ``overlap="split"``), both dt modes, with ``run_to``;
 * 3-D ``"pallas_step"`` — K5, as ``"pallas"`` (Burgers has no
   whole-step kernel; the JAX package dispatches the flavor the same
   way);
@@ -49,9 +51,9 @@ on z slabs the fused rungs: K5 with 3 z-ghost planes refreshed after
 every stage (the split schedule's three launches a stage), dt from the
 shards' emitted maxima kept on the card; and, where pinned
 (``impl="pallas_slab"`` or ``steps_per_exchange > 1``, fixed dt), one K3
-launch over an output window a step, or the k-step schedule. The fused
-rung on a y- or x-sharded mesh (K5's other layouts) and on a 2-D mesh
-(K8) raises.
+launch over an output window a step, or the k-step schedule; on 2-D
+meshes of any layout K8 a stage (K8b under the split schedule). The
+fused rung on a y- or x-sharded 3-D mesh (K5's other layouts) raises.
 """
 
 from __future__ import annotations
@@ -75,6 +77,9 @@ from multigpu_advectiondiffusion_tpu_torch.models.registry import (
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_fused_impl
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as flux_lib
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused2d_sharded import (
+    ShardedFusedBurgers2DStepper,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_burgers import (
     FusedBurgersStepper,
 )
@@ -174,12 +179,8 @@ class BurgersSolver(SolverBase):
                 "(ROADMAP queue 1 item 9; its bf16 halo wires, item 8h)"
             )
         fused = is_fused_impl(cfg.impl) and self._fused_reason() is None
-        if self.mesh is not None and fused and self.grid.ndim == 2:
-            raise NotImplementedError(
-                f"impl={cfg.impl!r} on a 2-D mesh needs the sharded 2-D "
-                "stage kernels K8/K8b, which are not ported yet (ROADMAP "
-                "queue 1 item 8b); impl='xla' and 'pallas_axis' run there")
-        if fused and any(ax != 0 for ax in self._sharded_axes()):
+        if fused and self.grid.ndim == 3 and any(
+                ax != 0 for ax in self._sharded_axes()):
             raise NotImplementedError(
                 f"impl={cfg.impl!r} on a y- or x-sharded mesh needs K5's "
                 "y_sharded/x_sharded layouts, which are not ported yet "
@@ -187,10 +188,14 @@ class BurgersSolver(SolverBase):
                 "impl='xla'/'pallas_axis' on any mesh, run")
         if (cfg.weno_order == 7 and is_fused_impl(cfg.impl)
                 and self._fused_reason() is None):
-            kernel = "K5's and K6's" if self.grid.ndim == 3 else "K7's"
+            if self.grid.ndim == 3:
+                kernel = "K5's and K6's"
+            else:
+                kernel = "K7's" if self.mesh is None else "K8's"
             raise NotImplementedError(
                 f"WENO7 on the fused rung needs {kernel} order-7 instance, "
-                "which is not ported yet (impl='xla' runs WENO7)"
+                "which is not ported yet (ROADMAP queue 1 item 2; "
+                "impl='xla' runs WENO7)"
             )
 
     def _op_impl(self) -> str:
@@ -334,7 +339,8 @@ class BurgersSolver(SolverBase):
         """The fused SSP-RK3 stepper when this config is eligible, else
         ``None`` (generic path, reason recorded): the whole-run stepper
         (K7/K7a) on a 2-D grid, which has no ``run_to`` (``advance_to``
-        runs the generic loop); on a 3-D one the slab stepper (K6) where
+        runs the generic loop), and on a 2-D mesh the per-stage K8
+        stepper; on a 3-D one the slab stepper (K6) where
         :meth:`_select_slab` engages it, else the per-stage stepper
         (K5)."""
         cfg = self.cfg
@@ -344,6 +350,8 @@ class BurgersSolver(SolverBase):
         reason = self._fused_reason()
         if reason is not None:
             return self._decline(reason)
+        if self.grid.ndim == 2 and self.mesh is not None:
+            return self._sharded_2d_stepper()
         if self.grid.ndim == 2:
             if "fused" not in self._cache:
                 self._cache["fused"] = FusedBurgers2DStepper(
@@ -367,6 +375,23 @@ class BurgersSolver(SolverBase):
                 cfg.weno_variant, cfg.nu, cfg.cfl, self.device, dt=self.dt,
                 **kwargs,
             )
+        return self._cache["fused"]
+
+    def _sharded_2d_stepper(self):
+        """The 2-D stepper of a mesh shard (K8, or K8b under the split
+        schedule), both dt modes, as the JAX package runs its 2-D kernels
+        under a mesh (``models/burgers.py:350-369``); adaptive dt from the
+        shards' emitted maxima, reduced on the card. The JAX package's
+        VMEM gate (``supported()``) has no counterpart: K8 takes any
+        shard."""
+        cfg = self.cfg
+        if "fused" not in self._cache:
+            self._cache["fused"] = ShardedFusedBurgers2DStepper(
+                self.local_shape(), self.grid.spacing, self.flux,
+                cfg.weno_variant, cfg.nu, cfg.cfl, self.device,
+                dt=self.dt, global_shape=self.grid.shape,
+                overlap_split=self._split_overlap_requested(),
+                reduce_max=self.mesh_reduce_max(), order=cfg.weno_order)
         return self._cache["fused"]
 
     def _select_slab(self, mode: str):

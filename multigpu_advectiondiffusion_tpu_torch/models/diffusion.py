@@ -23,7 +23,10 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
 * 2-D ``"pallas"``, ``"pallas_stage"``, ``"pallas_step"`` and
   ``"pallas_slab"`` — the whole-run stepper, one cooperative CUDA launch
   per ``run`` (:mod:`ops.kernels.fused_diffusion2d`, K7), as every fused
-  flavor runs the whole-run stepper in 2-D in the JAX package;
+  flavor runs the whole-run stepper in 2-D in the JAX package; on a
+  mesh the per-stage stepper of :mod:`ops.kernels.fused2d_sharded` (K8,
+  or K8b's three bands a stage under ``overlap="split"``), but
+  ``"pallas_step"``, which declines there as in 3-D;
 * ``"pallas_axis"``, and every kernel flavor whose fused rung declines
   the config — the generic loop with the per-axis stencil kernel
   (:mod:`ops.kernels.laplacian`, K11 in 3-D, K11b in 2-D), one launch
@@ -41,8 +44,9 @@ interior while they travel), K1 with global wall masks and a ghost
 refresh after every stage (the split schedule's three launches a stage
 on z), and — only where pinned (``impl="pallas_slab"`` or
 ``steps_per_exchange > 1``) and on z slabs — the slab rung as one K3
-launch over an output window a step, or the k-step schedule. K10
-declines under a mesh; the fused rung on a 2-D mesh (K8) raises.
+launch over an output window a step, or the k-step schedule; in 2-D
+K8 a stage with global walls, or K8b under the split schedule. K10
+declines under a mesh.
 """
 
 from __future__ import annotations
@@ -67,6 +71,9 @@ from multigpu_advectiondiffusion_tpu_torch.models.registry import (
 )
 from multigpu_advectiondiffusion_tpu_torch.models.state import SolverState
 from multigpu_advectiondiffusion_tpu_torch.ops import IMPLS, is_fused_impl
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused2d_sharded import (
+    ShardedFusedDiffusion2DStepper,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     R,
     FusedDiffusionStepper,
@@ -178,12 +185,6 @@ class DiffusionSolver(SolverBase):
                 f"precision={cfg.precision!r} storage is not ported yet "
                 "(ROADMAP queue 1 item 9; its bf16 halo wires, item 8h)"
             )
-        fused = is_fused_impl(cfg.impl) and self._fused_reason() is None
-        if self.mesh is not None and self.grid.ndim == 2 and fused:
-            raise NotImplementedError(
-                f"impl={cfg.impl!r} on a 2-D mesh needs the sharded 2-D "
-                "stage kernels K8/K8b, which are not ported yet (ROADMAP "
-                "queue 1 item 8b); impl='xla' and 'pallas_axis' run there")
         if self.dtype == torch.float64 and self._fused_reason() is None:
             raise NotImplementedError(
                 f"dtype=float64 with impl={cfg.impl!r}: the JAX package "
@@ -369,7 +370,8 @@ class DiffusionSolver(SolverBase):
     def _fused_stepper(self, mode: str = "iters"):
         """The fused SSP-RK3 stepper when this config is eligible, else
         ``None`` (generic path, reason recorded): the whole-run stepper
-        (K7) on a 2-D grid; on a 3-D one the slab stepper (K2) where
+        (K7) on a 2-D grid, the per-stage K8 stepper on a 2-D mesh; on a
+        3-D one the slab stepper (K2) where
         :meth:`_select_slab` engages it, else the whole-step (K10, for
         ``impl="pallas_step"``) or the per-stage stepper (K1).
         Eligibility mirrors what the kernels bake in: frozen Dirichlet
@@ -383,6 +385,8 @@ class DiffusionSolver(SolverBase):
             return self._decline(reason)
         bcs = self.bcs
         if self.grid.ndim == 2:
+            if self.mesh is not None:
+                return self._sharded_2d_stepper()
             return self._whole_run_stepper()
         slab = self._select_slab(mode)
         if slab is not None:
@@ -471,6 +475,28 @@ class DiffusionSolver(SolverBase):
                 **kwargs,
             )
         return self._cache["fused_slab"]
+
+    def _sharded_2d_stepper(self):
+        """The 2-D stepper of a mesh shard (K8, or K8b under the split
+        schedule): one launch per RK stage and shard with the ghost
+        refresh between stages, as the JAX package runs its 2-D kernels
+        under a mesh (``models/diffusion.py:455-480``). The JAX package's
+        VMEM gate (``supported()``) has no counterpart: K8 takes any
+        shard."""
+        cfg = self.cfg
+        if "fused" not in self._cache:
+            self._cache["fused"] = ShardedFusedDiffusion2DStepper(
+                self.local_shape(),
+                self.grid.spacing,
+                [cfg.diffusivity] * 2,
+                self.dt,
+                cfg.boundary_band,
+                self.bcs[0].value,
+                self.device,
+                global_shape=self.grid.shape,
+                overlap_split=self._split_overlap_requested(),
+            )
+        return self._cache["fused"]
 
     def _whole_run_stepper(self):
         """The 2-D whole-run stepper (K7), or ``None`` where the state

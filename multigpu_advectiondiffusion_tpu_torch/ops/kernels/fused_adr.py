@@ -17,6 +17,12 @@ ADR right-hand side of the JAX kernel in its term order:
 computed once with torch on the CPU in the JAX kernel's expression and
 handed to the kernel, which forms their product per cell.
 
+On a shard of a device mesh (``global_shape``, JAX ``fused_adr.py``'s
+``sharded`` stage, ``:244-305``) the stage runs K9's sharded instance:
+the wall masks are global (the shard's ``offsets``), the factors are the
+global grid's, cut to the shard's cells, and the ghosts of the sharded
+axes are refreshed after every stage by the caller.
+
 :func:`fused_adr_stage` launches the CUDA kernel
 (``csrc/fused_adr_stage.cu``, built ``-fmad=false``) for a CUDA tensor
 and raises if it cannot; for a CPU tensor, and only then, it runs
@@ -76,14 +82,17 @@ def _shifted(v, n, axis, off):
 
 
 def adr_stage_reference(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
-                        adv_m, lam, a, b, band, bc_value):
+                        adv_m, lam, a, b, band, bc_value, global_shape=None,
+                        offsets=None):
     """Plain PyTorch twin of the K9 stage kernel, on the same padded
     layout. Writes the interior of ``out`` (which may be ``u``) and
     returns it. Term order and roundings are the kernel's (and the JAX
     kernel's): taps z, y, x, each product rounded; upwind terms z, y, x,
     an axis skipped only when both its coefficients are 0; then the
     coefficient, the advective and reaction terms, ``b*(v + dt*rhs)``
-    and ``a*u + ...``."""
+    and ``a*u + ...``. A shard passes the ``global_shape`` of the
+    interior and its ``offsets`` (global wall masks); ``cz``/``cy``/``cx``
+    are then the factors at its cells."""
     n = tuple(s - 2 * R for s in v.shape)
     lap = None
     for axis in range(3):
@@ -113,7 +122,8 @@ def adr_stage_reference(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
     rk = (vc + rhs * dt) * b
     if u is not None:
         rk = _interior(u) * a + rk
-    return write_walled(out, rk, vc, band, bc_value)
+    return write_walled(out, rk, vc, band, bc_value,
+                        global_shape=global_shape, offsets=offsets)
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,20 +133,23 @@ def library() -> ctypes.CDLL:
     fn = lib.fused_adr_stage
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, p, i, i, i, p, p, p, p, f, f, p, f, f, f, f, i, f,
-                   i, p]
+                   i, p, p, p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
-                    adv_m, lam, a, b, band, bc_value, zchunk=Z_CHUNK):
+                    adv_m, lam, a, b, band, bc_value, zchunk=Z_CHUNK,
+                    global_shape=None, offsets=None):
     """One fused ADR RK stage: ``out <- stage(v, u)`` on padded buffers.
 
     ``u`` is ``None`` for the first stage (a == 0) and may be ``out``
     (in-place final stage); ``v`` must not be ``out``. ``cz``/``cy``/
     ``cx`` are :func:`kappa_axes` on ``v``'s device. Scalars are rounded
-    to float32 and passed by value. Launches the CUDA kernel on the
-    current stream (no synchronisation) and counts the launch in
+    to float32 and passed by value. A shard of a mesh passes the
+    ``global_shape`` of the interior and its ``offsets`` (K9's sharded
+    instance), with the factors at its cells. Launches the CUDA kernel
+    on the current stream (no synchronisation) and counts the launch in
     ``fused_adr_stage.launches``; a CPU tensor runs
     :func:`adr_stage_reference`.
     """
@@ -150,14 +163,26 @@ def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
         _check(name, t, (m,), v.device)
     if v.data_ptr() == out.data_ptr():
         raise ValueError("v and out must be different buffers")
+    if (global_shape is None) != (offsets is None):
+        raise ValueError("a shard passes both global_shape and offsets")
+    if global_shape is not None and not all(
+            0 <= int(o) <= int(gn) - m
+            for o, gn, m in zip(offsets, global_shape, n)):
+        raise ValueError(f"a {n} block at offsets {tuple(offsets)} does not "
+                         f"fit the global {tuple(global_shape)}")
     kw = dict(taps=taps, cz=cz, cy=cy, cx=cx, k0=k0, eps=eps, adv_p=adv_p,
-              adv_m=adv_m, lam=lam, a=a, b=b, band=band, bc_value=bc_value)
+              adv_m=adv_m, lam=lam, a=a, b=b, band=band, bc_value=bc_value,
+              global_shape=global_shape, offsets=offsets)
     if v.device.type == "cpu":
         return adr_stage_reference(v, u, out, dt, **kw)
     if v.device.type != "cuda":
         raise ValueError(f"no ADR stage kernel for device {v.device}")
     host_taps = np.asarray(taps, dtype=np.float32)
     host_adv = np.asarray(tuple(adv_p) + tuple(adv_m), dtype=np.float32)
+    geo = offs = None
+    if global_shape is not None:
+        geo = np.asarray(global_shape, dtype=np.int32)
+        offs = np.asarray(offsets, dtype=np.int32)
     with torch.cuda.device(v.device):
         rc = library().fused_adr_stage(
             v.data_ptr(), None if u is None else u.data_ptr(),
@@ -165,6 +190,8 @@ def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
             cy.data_ptr(), cx.data_ptr(), float(k0), float(eps),
             host_adv.ctypes.data, float(lam), float(np.float32(dt)),
             float(a), float(b), int(band), float(bc_value), int(zchunk),
+            None if geo is None else geo.ctypes.data,
+            None if offs is None else offs.ctypes.data,
             torch.cuda.current_stream(v.device).cuda_stream,
         )
     if rc != 0:
@@ -177,12 +204,23 @@ fused_adr_stage.launches = 0
 
 
 class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
-    """Fused per-stage ADR runner for one configuration on one device:
-    K9 three times a step. ``velocity`` is per array axis (z, y, x)."""
+    """Fused per-stage ADR runner for one configuration on one device, or
+    on one shard of a mesh: K9 three times a step. ``velocity`` is per
+    array axis (z, y, x).
+
+    ``global_shape`` (when it differs from ``interior_shape``) makes the
+    stepper shard-local, as the JAX stepper's: ``interior_shape`` is this
+    shard's block, the walls are global (``offsets``), ``K(x)``'s factors
+    are the global grid's at the shard's cells, and ``run`` takes the
+    ghost ``refresh`` run after every stage. ADR has no split-overlap
+    schedule (the solver declines it to the generic rung)."""
+
+    halo = R
+    needs_offsets = True
 
     def __init__(self, interior_shape, spacing, diffusivity, velocity,
                  reaction, dt, band, bc_value, device,
-                 kappa_variation: float = 0.0):
+                 kappa_variation: float = 0.0, global_shape=None):
         if len(tuple(velocity)) != 3:
             raise ValueError(
                 f"fused ADR wants a 3-vector velocity, got {velocity!r}")
@@ -196,23 +234,44 @@ class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
                            for a, dx in zip(velocity, spacing))
         self.adv_m = tuple(min(float(a), 0.0) / dx
                            for a, dx in zip(velocity, spacing))
-        self.cz, self.cy, self.cx = kappa_axes(interior_shape, self.device)
+        self.global_shape = tuple(global_shape or interior_shape)
+        self.sharded = self.global_shape != self.interior_shape
+        self.core_offsets = (R,) * 3
+        self.exchange_depth = R
+        # the factors over the global grid, from the global shape (a
+        # shard takes its cells' window of them)
+        self.cz, self.cy, self.cx = kappa_axes(self.global_shape, self.device)
 
     def _dt_value(self):
         return np.float32(self.dt)
 
-    def stage_kwargs(self) -> dict:
+    def stage_kwargs(self, offsets=None) -> dict:
         """What :func:`fused_adr_stage` takes for this configuration,
-        but ``a`` and ``b``."""
-        return dict(taps=self.taps, cz=self.cz, cy=self.cy, cx=self.cx,
-                    k0=self.k0, eps=self.eps, adv_p=self.adv_p,
-                    adv_m=self.adv_m, lam=self.lam, band=self.band,
-                    bc_value=self.bc_value)
+        but ``a`` and ``b``; a shard passes its ``offsets``, and gets its
+        window of the factors and the global geometry."""
+        kw = dict(taps=self.taps, cz=self.cz, cy=self.cy, cx=self.cx,
+                  k0=self.k0, eps=self.eps, adv_p=self.adv_p,
+                  adv_m=self.adv_m, lam=self.lam, band=self.band,
+                  bc_value=self.bc_value)
+        if not self.sharded:
+            return kw
+        if offsets is None:
+            raise ValueError("a sharded ADR stepper needs offsets")
+        for name, o, n in zip(("cz", "cy", "cx"), offsets,
+                              self.interior_shape):
+            kw[name] = kw[name][int(o):int(o) + n]
+        kw.update(global_shape=self.global_shape,
+                  offsets=tuple(int(o) for o in offsets))
+        return kw
 
-    def _step(self, S, T1, T2, dt):
-        kw = self.stage_kwargs()
+    def _step(self, S, T1, T2, dt, refresh=None, offsets=None, exch=None):
+        del exch  # no split schedule
+        kw = self.stage_kwargs(offsets)
         (a1, b1), (a2, b2), (a3, b3) = STAGES
-        fused_adr_stage(S, None, T1, dt, a=a1, b=b1, **kw)
-        fused_adr_stage(T1, S, T2, dt, a=a2, b=b2, **kw)
-        fused_adr_stage(T2, S, S, dt, a=a3, b=b3, **kw)
+        stages = ((S, None, T1, a1, b1), (T1, S, T2, a2, b2),
+                  (T2, S, S, a3, b3))
+        for v, u, out, a, b in stages:
+            fused_adr_stage(v, u, out, dt, a=a, b=b, **kw)
+            if refresh is not None:
+                refresh(out)
         return S, T1, T2

@@ -3,8 +3,9 @@ whole-run kernels, K10, K2 and K6, its 3-D fused-step kernels, K2b, the
 B-folded slab kernel of the ensemble engine, K11/K11b and K12/K12b,
 its per-axis kernels, and the mesh slice — K1's and K5's sharded
 instances and K3, the windowed slab step, with the sharded runs of a
-two-shard mesh on one card — against their plain PyTorch twins on a
-GPU. Marked ``cuda``: it skips where no CUDA
+two-shard mesh on one card, K8/K8b, the sharded 2-D stages, and K9's
+sharded instance, with the 2-D and ADR mesh runs — against their plain
+PyTorch twins on a GPU. Marked ``cuda``: it skips where no CUDA
 device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
@@ -31,6 +32,9 @@ from multigpu_advectiondiffusion_tpu_torch import (
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
 from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
+from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+    fused2d_sharded as fsh,
+)
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_adr as fa,
 )
@@ -896,5 +900,189 @@ def test_sharded_run_on_one_card_matches_unsharded(gpu_mesh, family, impl,
     torch.cuda.synchronize()
     assert {k: counters[k].launches for k in launches} == {
         k: 5 * n for k, n in launches.items()}
+    assert got.t == want.t
+    assert torch.equal(got.u.assemble(), want.u)
+
+
+# --------------------------------------------------------------------- #
+# The 2-D mesh: K8 and K8b; ADR on meshes: K9's sharded instance
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def gpu_2d_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("K8 and K8b (csrc/fused2d_sharded.cu) and K9's sharded "
+                    "instance (csrc/fused_adr_stage.cu) need a CUDA device")
+    return torch.device("cuda")
+
+
+K8_PARAMS = {  # the stage kinds of both families
+    "diffusion": None,
+    "js-burgers-inviscid": ("burgers", {}, "js", 0.0),
+    "z-burgers-viscous": ("burgers", {}, "z", 1e-5),
+    "js-linear": ("linear", {"c": -0.7}, "js", 1e-5),
+    "z-buckley": ("buckley", {}, "z", 1e-5),
+}
+K8_SHARDS = {  # (offsets, local shape, global shape)
+    "dy4-first": ((0, 0), (25, 37), (100, 37)),
+    "dy4-middle": ((50, 0), (25, 37), (100, 37)),
+    "dy4-last": ((75, 0), (25, 37), (100, 37)),
+    "pencil-corner": ((25, 37), (25, 37), (50, 74)),
+}
+
+
+def _k8_params(case):
+    if K8_PARAMS[case] is None:
+        return fsh.DiffusionParams(fd.stage_taps((0.05, 0.07), (1.0, 0.5)),
+                                   2, 0.25)
+    name, fkw, variant, nu = K8_PARAMS[case]
+    return fb.stage_params(pflux.get(name, **fkw), variant, (0.05, 0.07), nu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", list(K8_SHARDS))
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+@pytest.mark.parametrize("case", list(K8_PARAMS))
+def test_k8_matches_twin(gpu_2d_mesh, case, kind, shard):
+    """K8 over a whole padded shard, global walls and edges from the
+    offsets: 0 ulp from its twin; Burgers' emitted maximum exactly."""
+    params = _k8_params(case)
+    h = fsh.halo_of(params)
+    offsets, (ly, lx), gshape = K8_SHARDS[shard]
+    rng = np.random.default_rng(kind)
+    padded = (ly + 2 * h, lx + 2 * h)
+    v, u = _rand(rng, padded, gpu_2d_mesh), _rand(rng, padded, gpu_2d_mesh)
+    u_arg = None if kind == 0 else u
+    a, b = fd.STAGES[kind]
+    burgers = case != "diffusion"
+    dt = torch.full((1,), 0.004, device=gpu_2d_mesh) if burgers else 0.004
+    kw = dict(params=params, a=a, b=b, global_shape=gshape)
+    out0 = _rand(rng, padded, gpu_2d_mesh)
+    ref = fsh.stage_reference(v, u_arg, out0.clone(), dt, offsets,
+                              emit=burgers, **kw)
+    out = out0.clone()
+    mx = torch.full((1,), 7.0, device=gpu_2d_mesh) if burgers else None
+    before = fsh.fused2d_stage.launches
+    fsh.fused2d_stage(v, u_arg, out, dt, offsets, mx=mx, **kw)
+    torch.cuda.synchronize()
+    assert fsh.fused2d_stage.launches == before + 1
+    assert torch.equal(out, ref[0] if burgers else ref)
+    if burgers:
+        assert float(mx) == float(ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", ["dy4-first", "dy4-middle", "dy4-last"])
+@pytest.mark.parametrize("band", [0, 1, 2], ids=["interior", "bottom",
+                                                 "top"])
+@pytest.mark.parametrize("case", list(K8_PARAMS))
+def test_k8b_matches_twin(gpu_2d_mesh, case, band, shard):
+    """K8b over each band of the split schedule, the edge bands reading
+    the exchanged rows: 0 ulp from its twin; the rows outside the band
+    untouched; the emitted maximum folded."""
+    params = _k8_params(case)
+    h = fsh.halo_of(params)
+    offsets, (ly, lx), gshape = K8_SHARDS[shard]
+    rng = np.random.default_rng(band)
+    padded = (ly + 2 * h, lx + 2 * h)
+    v, u = _rand(rng, padded, gpu_2d_mesh), _rand(rng, padded, gpu_2d_mesh)
+    rows, op = fsh.split_bands(ly, h)[band]
+    ops = {op: _rand(rng, (h, padded[1]), gpu_2d_mesh)} if op else {}
+    burgers = case != "diffusion"
+    dt = torch.full((1,), 0.004, device=gpu_2d_mesh) if burgers else 0.004
+    kw = dict(params=params, a=0.75, b=0.25, global_shape=gshape)
+    out0 = _rand(rng, padded, gpu_2d_mesh)
+    ref = fsh.stage_reference(v, u, out0.clone(), dt, offsets, window=rows,
+                              emit=burgers, **ops, **kw)
+    out = out0.clone()
+    mx = torch.full((1,), 7.0, device=gpu_2d_mesh) if burgers else None
+    before = fsh.fused2d_band_stage.launches
+    fsh.fused2d_band_stage(v, u, out, dt, offsets, rows=rows, mx=mx,
+                           mx_init=False, **ops, **kw)
+    torch.cuda.synchronize()
+    assert fsh.fused2d_band_stage.launches == before + 1
+    assert torch.equal(out, ref[0] if burgers else ref)
+    r0, r1 = rows
+    assert torch.equal(out[:h + r0], out0[:h + r0])
+    assert torch.equal(out[h + r1:], out0[h + r1:])
+    if burgers:
+        assert float(mx) == max(7.0, float(ref[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+def test_k9_sharded_matches_twin(gpu_2d_mesh, kind):
+    """K9's sharded instance: global walls from the offsets, the factors
+    of K(x) at the shard's cells; 0 ulp from its twin, and the unsharded
+    launch unchanged by the sharded one's existence."""
+    rng = np.random.default_rng(kind)
+    shape, gshape, offs = (13, 21, 37), (39, 42, 37), (13, 21, 0)
+    padded = tuple(n + 2 * fa.R for n in shape)
+    v, u = _rand(rng, padded, gpu_2d_mesh), _rand(rng, padded, gpu_2d_mesh)
+    cz, cy, cx = (c[o:o + n] for c, o, n in zip(
+        fa.kappa_axes(gshape, gpu_2d_mesh), offs, shape))
+    a, b = fd.STAGES[kind]
+    kw = dict(taps=fd.stage_taps((0.1, 0.2, 0.3), (1.0, 1.0, 1.0)), cz=cz,
+              cy=cy, cx=cx, k0=0.7, eps=0.2, adv_p=(0.5, 0.0, 1.0),
+              adv_m=(0.0, -0.3, 0.0), lam=0.25, a=a, b=b, band=2,
+              bc_value=0.1, global_shape=gshape, offsets=offs)
+    u_arg = None if kind == 0 else u
+    out0 = _rand(rng, padded, gpu_2d_mesh)
+    ref = fa.adr_stage_reference(v, u_arg, out0.clone(), 1e-3, **kw)
+    out = out0.clone()
+    before = fa.fused_adr_stage.launches
+    fa.fused_adr_stage(v, u_arg, out, 1e-3, **kw)
+    torch.cuda.synchronize()
+    assert fa.fused_adr_stage.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+MESH_2D_RUNS = [  # (family, config, mesh sizes, decomposition, launches)
+    ("diffusion", {}, {"dy": 2}, {0: "dy"}, {"K8": 6}),
+    ("diffusion", {"overlap": "split"}, {"dy": 2}, {0: "dy"}, {"K8b": 18}),
+    ("diffusion", {}, {"dy": 2, "dx": 2}, {0: "dy", 1: "dx"}, {"K8": 12}),
+    ("burgers", {"adaptive_dt": False}, {"dy": 2}, {0: "dy"}, {"K8": 6}),
+    ("burgers", {"overlap": "split"}, {"dy": 2}, {0: "dy"}, {"K8b": 18}),
+    ("burgers", {"nu": 1e-5}, {"dx": 4}, {1: "dx"}, {"K8": 12}),
+    ("adr", {}, {"dz": 2}, {0: "dz"}, {"K9": 6}),
+    ("adr", {}, {"dz": 2, "dy": 2}, {0: "dz", 1: "dy"}, {"K9": 12}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,extra,sizes,mapping,launches", MESH_2D_RUNS)
+def test_2d_and_adr_mesh_runs_match_unsharded(gpu_2d_mesh, family, extra,
+                                              sizes, mapping, launches):
+    """The 2-D mesh paths on shards of one card equal K7's (K7a's)
+    unsharded run, and ADR's K9 mesh path K9's, to the bit, ``t`` equal,
+    with the launches summed over the shards."""
+    from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
+        Decomposition,
+        make_mesh,
+    )
+
+    counters = {"K8": fsh.fused2d_stage, "K8b": fsh.fused2d_band_stage,
+                "K9": fa.fused_adr_stage}
+    if family == "adr":
+        cls, cfg = ADRSolver, ADRConfig(
+            grid=Grid.make(37, 30, 48, lengths=(3.7, 3.0, 4.8)),
+            impl="pallas", velocity=0.5, kappa_variation=0.2,
+            reaction_rate=0.25, **extra)
+    else:
+        cls, cfg_cls = ((DiffusionSolver, DiffusionConfig)
+                        if family == "diffusion"
+                        else (BurgersSolver, BurgersConfig))
+        cfg = cfg_cls(grid=Grid.make(64, 72, lengths=2.0), impl="pallas",
+                      **extra)
+    n = int(np.prod(list(sizes.values())))
+    mesh = make_mesh(sizes, devices=[gpu_2d_mesh] * n, timeout=60)
+    one = cls(dataclasses.replace(cfg, overlap="padded"))
+    sharded = cls(cfg, mesh=mesh, decomp=Decomposition.of(mapping))
+    want = one.run(one.initial_state(), 5)
+    for c in counters.values():
+        c.launches = 0
+    got = sharded.run(sharded.initial_state(), 5)
+    torch.cuda.synchronize()
+    assert {k: c.launches for k, c in counters.items()} == {
+        k: 5 * launches.get(k, 0) for k in counters}
     assert got.t == want.t
     assert torch.equal(got.u.assemble(), want.u)

@@ -26,6 +26,10 @@ import pytest
 import torch
 
 from multigpu_advectiondiffusion_tpu import Grid as JGrid
+from multigpu_advectiondiffusion_tpu.models.adr import (
+    ADRConfig as JAConfig,
+    ADRSolver as JASolver,
+)
 from multigpu_advectiondiffusion_tpu.models.burgers import (
     BurgersConfig as JBConfig,
     BurgersSolver as JBSolver,
@@ -254,34 +258,47 @@ def test_failed_shard_raises_in_caller(monkeypatch):
 # --------------------------------------------------------------------- #
 # Dispatch: engaged_path against the JAX package's sharded solvers
 # --------------------------------------------------------------------- #
+_FAMILIES = {"diffusion": (JDConfig, JDSolver, PDConfig, PDSolver),
+             "burgers": (JBConfig, JBSolver, PBConfig, PBSolver),
+             "adr": (JAConfig, JASolver, PAConfig, PASolver)}
+
+
 def _both(family, layout, **kw):
+    """Makers of the JAX and the port solver of one config on one mesh
+    layout: a 3-D grid 16x16x96 on a layout with a z axis, else the 2-D
+    grid 24x96."""
     sizes, mapping = layout
     n = int(np.prod(list(sizes.values())))
     jm = jmesh.make_mesh(sizes, devices=jax.devices()[:n])
     jd = jmesh.Decomposition.of(mapping)
-    if family == "diffusion":
-        jcfg = JDConfig(grid=JGrid.make(16, 16, 96, lengths=4.0),
-                        dtype="float32", **kw)
-        pcfg = PDConfig(grid=PGrid.make(16, 16, 96, lengths=4.0), **kw)
-        return (lambda: JDSolver(jcfg, mesh=jm, decomp=jd),
-                lambda: _port(PDSolver, pcfg, layout))
-    jcfg = JBConfig(grid=JGrid.make(16, 16, 96, lengths=2.0),
-                    dtype="float32", **kw)
-    pcfg = PBConfig(grid=PGrid.make(16, 16, 96, lengths=2.0), **kw)
-    return (lambda: JBSolver(jcfg, mesh=jm, decomp=jd),
-            lambda: _port(PBSolver, pcfg, layout))
+    n_xyz = (16, 16, 96) if "dz" in sizes else (24, 96)
+    lengths = 2.0 if family == "burgers" else 4.0
+    jcls, jsolver, pcls, psolver = _FAMILIES[family]
+    # configs too are built in the makers: a config may refuse the knobs
+    return (lambda: jsolver(jcls(grid=JGrid.make(*n_xyz, lengths=lengths),
+                                 dtype="float32", **kw),
+                            mesh=jm, decomp=jd),
+            lambda: _port(psolver, pcls(grid=PGrid.make(*n_xyz,
+                                                        lengths=lengths),
+                                        **kw), layout))
 
 
 _FIELDS = ("stepper", "overlap", "steps_per_exchange", "exchange")
 _Z2 = ({"dz": 2}, {0: "dz"})
 _Y = ({"dz": 2, "dy": 2}, {0: "dz", 1: "dy"})
+# the 2-D layouts: y slabs, x slabs, a y-x block
+_DY = ({"dy": 2}, {0: "dy"})
+_DX = ({"dx": 2}, {1: "dx"})
+_DYX = ({"dy": 2, "dx": 2}, {0: "dy", 1: "dx"})
 SWEEP = [
     (fam, layout, dict(impl=impl, overlap=ov, steps_per_exchange=k, **extra))
-    for fam, extras in (("diffusion", [{}]),
-                        ("burgers", [{"adaptive_dt": False},
-                                     {"adaptive_dt": True}]))
+    for fam, extras, layouts in (
+        ("diffusion", [{}], (_Z2, _Y, _DY, _DX, _DYX)),
+        ("burgers", [{"adaptive_dt": False}, {"adaptive_dt": True}],
+         (_Z2, _Y, _DY, _DX, _DYX)),
+        ("adr", [{}], (_Z2, _Y, _DY)))
     for extra in extras
-    for layout in (_Z2, _Y)
+    for layout in layouts
     for impl in ("xla", "pallas_axis", "pallas", "pallas_stage",
                  "pallas_step", "pallas_slab")
     for ov in ("padded", "split")
@@ -302,10 +319,11 @@ def _sweep_id(case):
 def test_dispatch_matches_jax(case):
     """Construction and ``engaged_path()`` only. Where the JAX package
     raises, the port raises the same error; where it runs a rung whose
-    kernel is not ported (K5 on a y-sharded mesh), the port raises and
-    names its ROADMAP item; elsewhere the engaged stepper, overlap,
+    kernel is not ported (K5 on a y-sharded 3-D mesh), the port raises
+    and names its ROADMAP item; elsewhere the engaged stepper, overlap,
     steps per exchange, exchange and — off the fused rungs — fallback
-    are JAX's."""
+    are JAX's: the 2-D layouts engage K8 (K8b under split), ADR's 3-D
+    meshes K9's sharded instance."""
     family, layout, kw = case
     make_jax, make_port = _both(family, layout, **kw)
     try:
@@ -316,7 +334,7 @@ def test_dispatch_matches_jax(case):
             make_port().engaged_path()
         assert str(got.value) == str(exc)
         return
-    if family == "burgers" and 1 in [a for a, _ in layout[1].items()] and (
+    if family == "burgers" and "dz" in layout[0] and 1 in layout[1] and (
             want["stepper"].startswith("fused")):
         with pytest.raises(NotImplementedError, match="item 8d"):
             make_port()
@@ -328,12 +346,13 @@ def test_dispatch_matches_jax(case):
 
 
 @pytest.mark.parametrize("make,match", [
+    # the 2-D fused rungs and ADR run on a mesh now (K8, sharded K9)
     (lambda m: PDSolver(PDConfig(grid=PGrid.make(16, 12), impl="pallas"),
-                        mesh=m), "item 8b"),
+                        mesh=m), None),
     (lambda m: PBSolver(PBConfig(grid=PGrid.make(16, 12), impl="pallas"),
-                        mesh=m), "item 8b"),
-    (lambda m: PASolver(PAConfig(grid=PGrid.make(8, 8, 8)), mesh=m),
-     "item 8c"),
+                        mesh=m), None),
+    (lambda m: PASolver(PAConfig(grid=PGrid.make(8, 8, 8),
+                                 impl="pallas"), mesh=m), None),
     (lambda m: PDSolver(PDConfig(grid=PGrid.make(8, 8, 8), impl="pallas",
                                  precision="bf16"), mesh=m), "bf16"),
     (lambda m: PDSolver(PDConfig(grid=PGrid.make(8, 8, 8),
@@ -341,8 +360,18 @@ def test_dispatch_matches_jax(case):
                         mesh=m), "item 8e"),
 ])
 def test_unported_mesh_configs_raise(make, match):
-    with pytest.raises(NotImplementedError, match=match):
-        make(_mesh({"dz": 2}))
+    """What a mesh still refuses raises and names its ROADMAP item; the
+    configs that raised before K8/K8b and the sharded K9 (items 8b, 8c)
+    engage their fused rung and run a step."""
+    if match is None:
+        solver = make(_mesh({"dz": 2}))
+        assert solver.engaged_path()["stepper"] == "fused-stage"
+        state = solver.initial_state()
+        out = solver.run(state, 1)
+        assert out.it == 1 and torch.isfinite(out.u.assemble()).all()
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            make(_mesh({"dz": 2}))
     with pytest.raises(NotImplementedError, match="item 8f"):
         PDSolver(PDConfig(grid=PGrid.make(8, 8, 8)),
                  mesh=_mesh({"members": 2}))
