@@ -207,7 +207,27 @@ ignored ``build/`` directory), then:
    ``t`` equal to the unsharded K9 run, ms/step over ``run(100)``; and
    ``adr2d`` on ``{"dy": 2}`` (at 1000^2, its spacing: 1001 rows do not
    split into two equal shards), the generic and per-axis rungs at 10
-   steps, 0 ulp from unsharded.
+   steps, 0 ulp from unsharded;
+38. holds K4, the sharded slab run of every shard of the card in one
+   cooperative launch with the ghost rows moved inside the kernel,
+   against its twin to the bit (every state and landing buffer) at the
+   main shards' shapes: diffusion 400x200x103 on two shards at k = 1 (3
+   steps) and k = 4 (5 steps: a partial block), 400x200x52 on four
+   shards, Burgers 400x400x203 WENO5-JS and WENO5-Z at k = 1 and JS at
+   k = 2 (3 steps); times K4 alone at k = 1 beside its twin;
+39. drives ``MultiGPU/Diffusion3d_Baseline`` on ``{"dz": 2}`` with
+   ``exchange="dma"`` at k = 1 and k = 4, ``run(101)``: the labels, one K4
+   launch and no other (no K3), no collective halo byte and the in-kernel
+   exchange's bytes as counted, 0 ulp and ``t`` equal to the collective
+   K3 run and the unsharded K2 run; ms/step of the three (median of 3
+   after a warm-up, CUDA events);
+40. ``MultiGPU/Burgers3d_Baseline`` on ``{"dz": 2}`` with
+   ``exchange="dma"``, fixed dt, ``run(267)``: the same checks against
+   the collective K3 run and the unsharded K6 run, u inside [-1e-6,
+   1.05]; ms/step over ``run(20)``;
+41. the CLI: ``diffusion3d --mesh dz=2 --device cuda:0 --impl
+   pallas_slab --exchange dma`` at the reference's size, its summary
+   naming the in-kernel exchange and one K4 launch.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
@@ -344,7 +364,9 @@ COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K2b-burgers": fsr.slab_run_burgers_batched,
             "K3": fsr.slab_step_diffusion,
             "K3-burgers": fsr.slab_step_burgers,
-            "K8": fsh.fused2d_stage, "K8b": fsh.fused2d_band_stage}
+            "K8": fsh.fused2d_stage, "K8b": fsh.fused2d_band_stage,
+            "K4": fsr.slab_run_dma_diffusion,
+            "K4-burgers": fsr.slab_run_dma_burgers}
 
 
 def card_line() -> str:
@@ -3665,6 +3687,304 @@ def mesh2d_entries(k8: dict, diff: dict, burg: dict) -> list[dict]:
             "bands": t["bands"], "path": split})
     return out
 
+# --------------------------------------------------------------------- #
+# Phases 38-41: K4, the sharded slab run with the in-kernel exchange
+# --------------------------------------------------------------------- #
+K4_DEEP = 4  # steps_per_exchange of the deep dma path (phase 39)
+K4_P4_N = (400, 200, 208)  # the P = 4 check: a z extent four divides
+
+
+def k4_buffers(P: int, lz: int, depth: int, ny: int, nx: int, ring: int,
+               seed: int):
+    """Random shard buffers on the card for a K4 call: P state pairs
+    (the y/x ghost ring at the wall value 0 where ``ring``) and landing
+    buffers, numpy-seeded."""
+    rng = np.random.default_rng(seed)
+    shape = (lz + 2 * depth, ny + 2 * ring, nx + 2 * ring)
+
+    def rand(shape):
+        return torch.from_numpy(rng.uniform(
+            -0.1, 1.0, shape).astype(np.float32)).cuda()
+
+    S0 = [rand(shape) for _ in range(P)]
+    if ring:
+        for S in S0:
+            S[:, :ring] = S[:, -ring:] = 0.0
+            S[:, :, :ring] = S[:, :, -ring:] = 0.0
+    S1 = [rand(shape) for _ in range(P)]
+    lands = [rand((2, 2, depth) + shape[1:]) for _ in range(P)]
+    return S0, S1, lands
+
+
+def k4_check(name, run, step_ref, P, lz, k, G, ny, nx, ring, steps,
+             seed) -> float:
+    """K4 against its twin (``slab_run_dma_reference`` over K3's twin),
+    every state and landing buffer 0 ulp after ``steps`` steps; returns
+    the largest absolute difference."""
+    depth = k * G
+    bufs = k4_buffers(P, lz, depth, ny, nx, ring, seed)
+    got = [[t.clone() for t in ts] for ts in bufs]
+    run(*got, steps, k)
+    want = [[t.clone() for t in ts] for ts in bufs]
+    fsr.slab_run_dma_reference(
+        lambda S, out, window, oz: step_ref(S, out, P * lz, oz, depth,
+                                            window),
+        *want, steps, k=k, G=G)
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, a, b in zip(("S0", "S1", "land"), got, want):
+        err = max(err, exact(
+            f"K4 {name} P={P} lz={lz} k={k} {steps} steps, {what}",
+            torch.stack(a), torch.stack(b)))
+    del bufs, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def k4_alone(name, run, step_ref, P, lz, G, ny, nx, ring, steps,
+             card) -> dict:
+    """K4 alone at a main path's shard shapes, k = 1: ms a step of a
+    ``run(steps)`` launch (median of 5 after a warm-up, CUDA events), the
+    grid's blocks, and the twin's ms a step (one step)."""
+    bufs = k4_buffers(P, lz, G, ny, nx, ring, 38)
+    blocks = []
+    run(*bufs, 1, 1, grid_blocks=blocks)
+    ms = statistics.median(cuda_ms(lambda: run(*bufs, steps, 1), 5)) / steps
+    plain = cuda_ms(lambda: fsr.slab_run_dma_reference(
+        lambda S, out, window, oz: step_ref(S, out, P * lz, oz, G, window),
+        *bufs, 1, k=1, G=G), 1)[0]
+    del bufs
+    torch.cuda.empty_cache()
+    print(f"  K4 {name} alone, P={P} x {lz} planes, run({steps}): "
+          f"{ms:.4f} ms a step on {blocks[0]} blocks of 256; twin "
+          f"{plain:.2f} ms a step [{card}]")
+    return {"ms": ms, "plain_ms": plain, "grid_blocks": blocks[0]}
+
+
+def dma_bytes(solver, iters: int) -> int:
+    """What ``record_remote_dma`` counts for a dma run: every shard's two
+    k*G-deep windows of its padded plane, once a block (the JAX
+    package's formula)."""
+    fused = solver._fused_stepper()
+    blocks = -(-iters // fused.k)
+    return (solver.mesh.size * 2 * fused.exchange_depth
+            * math.prod(fused.padded_shape[1:]) * 4 * blocks)
+
+
+def dma_path(name, solver, coll, one, state0, iters: int, expect: dict,
+             card: str, time_iters: int) -> dict:
+    """One dma main path: the labels, :func:`drive` (one K4 launch, every
+    other count 0: no K3 launch), no collective halo byte and the dma
+    bytes as counted; 0 ulp and ``t`` equal to the collective K3 run on
+    the same mesh and to the unsharded run; ms/step of all three over
+    ``run(time_iters)`` (median of 3 after a warm-up, CUDA events)."""
+    from multigpu_advectiondiffusion_tpu_torch.parallel import halo as phalo
+
+    path = solver.engaged_path()
+    k = solver.cfg.steps_per_exchange
+    label = (path["stepper"], path["overlap"], path["exchange"],
+             path["steps_per_exchange"])
+    print(f"  {name}: engaged {label}")
+    if label != ("fused-whole-run-slab", "in-kernel", "dma", k):
+        raise AssertionError(f"{name}: engaged {label}")
+    halo0 = phalo.exchange_ghosts.bytes_per_execution.value
+    dma0 = phalo.record_remote_dma.bytes_per_execution.value
+    out = drive(name, solver, state0, iters, expect)
+    halo = phalo.exchange_ghosts.bytes_per_execution.value - halo0
+    dma = phalo.record_remote_dma.bytes_per_execution.value - dma0
+    print(f"  {name}: collective halo bytes {halo}, in-kernel exchange "
+          f"bytes {dma} (counted {dma_bytes(solver, iters)})")
+    if halo != 0 or dma != dma_bytes(solver, iters):
+        raise AssertionError(f"{name}: exchange bytes {halo} / {dma}")
+    res = {"launches": 1, "dma_bytes": dma}
+    for what, ref_solver, ref_state in (
+            ("the collective K3 run", coll, state0),
+            ("the unsharded run", one, one_state(one, state0))):
+        want = ref_solver.run(ref_state, iters)
+        got = out.u.assemble()
+        want_u = want.u.assemble() if hasattr(want.u, "assemble") else want.u
+        torch.cuda.synchronize()
+        n_ulps = ulps(got, want_u)
+        print(f"  {name}: {n_ulps} ulp from {what}, t {out.t!r} vs "
+              f"{want.t!r}")
+        if n_ulps != 0 or out.t != want.t or out.it != want.it:
+            raise AssertionError(f"{name}: differs from {what}")
+        del want, want_u
+    del out
+    torch.cuda.empty_cache()
+    n = time_iters
+    for key, s, st in (("ms_per_step", solver, state0),
+                       ("k3_ms_per_step", coll, state0),
+                       ("unsharded_ms_per_step", one,
+                        one_state(one, state0))):
+        ms, reps = run_ms(s, st, n)
+        res[key] = ms / n
+        res[key.replace("ms_per_step", "reps_ms")] = reps
+    print(f"  {name} run({n}): {res['ms_per_step']:.4f} ms/step; the "
+          f"collective K3 run {res['k3_ms_per_step']:.4f}; unsharded "
+          f"{res['unsharded_ms_per_step']:.4f} [{card}]")
+    return res
+
+
+def cli_dma_phase(card: str) -> None:
+    """Phase 41: the CLI with ``--exchange dma`` on the card: the summary
+    names the in-kernel exchange and one K4 launch."""
+    import contextlib
+    import io
+
+    from multigpu_advectiondiffusion_tpu_torch.cli.__main__ import (
+        main as cli_main,
+    )
+
+    argv = ["diffusion3d", "--n", *map(str, REF_N), "--lengths",
+            *map(str, REF_LENGTHS), "--iters", str(ITERS), "--mesh", "dz=2",
+            "--device", "cuda:0", "--impl", "pallas_slab", "--exchange",
+            "dma"]
+    print(f"phase 41: the CLI: {' '.join(argv)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if any(w in line for w in ("kernel path", "mesh", "launches",
+                                   "wall time", "MLUPS")):
+            print(f"  {line.strip()}")
+    for want in ("overlap=in-kernel", "exchange=dma",
+                 "K4 slab_run_dma_diffusion x1"):
+        if want not in text:
+            raise AssertionError(f"the CLI summary lacks {want!r}")
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}")
+    print(f"  the CLI ran the dma rung with one K4 launch [{card}]")
+
+
+def k4_phases(card: str) -> list[dict]:
+    """Phases 38-41; returns K4's two entries (diffusion, Burgers)."""
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    dcfg = DiffusionConfig(grid=grid, dtype="float32", impl="pallas_slab")
+    one = DiffusionSolver(dcfg)
+    dkw = dict(taps=fd.stage_taps(grid.spacing, [dcfg.diffusivity] * 3),
+               band=dcfg.boundary_band, bc_value=0.0)
+    G = fsr.SlabRunDiffusionStepper.halo
+    nz, ny, nx = grid.shape
+    lz = nz // MESH_SHARDS
+
+    def drun(S0, S1, L, steps, k, **kw):
+        return fsr.slab_run_dma_diffusion(S0, S1, L, steps, one.dt, k=k,
+                                          **dkw, **kw)
+
+    def dref(S, out, gnz, oz, depth, window):
+        return fsr.slab_step_diffusion_reference(
+            S, out, one.dt, global_nz=gnz, oz=oz, depth=depth,
+            window=window, **dkw)
+
+    bgrid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    bcfg = BurgersConfig(grid=bgrid, cfl=K6_CFL, adaptive_dt=False,
+                         dtype="float32", impl="pallas_slab")
+    bone = BurgersSolver(bcfg)
+    BG = fsr.SlabRunBurgersStepper.halo
+    bnz, bny, bnx = bgrid.shape
+    blz = bnz // MESH_SHARDS
+    bparams = {v: fb.stage_params(bone.flux, v, bgrid.spacing, bcfg.nu)
+               for v in ("js", "z")}
+
+    def brun(v):
+        return lambda S0, S1, L, steps, k, **kw: fsr.slab_run_dma_burgers(
+            S0, S1, L, steps, bone.dt, params=bparams[v], k=k, **kw)
+
+    def bref(v):
+        return lambda S, out, gnz, oz, depth, window: (
+            fsr.slab_step_burgers_reference(
+                S, out, bone.dt, params=bparams[v], global_nz=gnz, oz=oz,
+                depth=depth, window=window))
+
+    print("phase 38: K4 against its twin at the main shards' shapes")
+    err = {"diffusion": 0.0, "burgers": 0.0}
+    for k, steps in ((1, 3), (K4_DEEP, 5)):
+        err["diffusion"] = max(err["diffusion"], k4_check(
+            "diffusion", drun, dref, MESH_SHARDS, lz, k, G, ny, nx, fd.R,
+            steps, 38 + k))
+    p4 = K4_P4_N[2] // 4
+    err["diffusion"] = max(err["diffusion"], k4_check(
+        "diffusion", drun, dref, 4, p4, 1, G, K4_P4_N[1], K4_P4_N[0], fd.R,
+        3, 384))
+    for v in ("js", "z"):
+        err["burgers"] = max(err["burgers"], k4_check(
+            f"burgers {v}", brun(v), bref(v), MESH_SHARDS, blz, 1, BG, bny,
+            bnx, 0, 3, 380))
+    err["burgers"] = max(err["burgers"], k4_check(
+        "burgers js", brun("js"), bref("js"), MESH_SHARDS, blz, 2, BG, bny,
+        bnx, 0, 3, 382))
+    d_alone = k4_alone("diffusion", drun, dref, MESH_SHARDS, lz, G, ny, nx,
+                       fd.R, ITERS, card)
+    b_alone = k4_alone("burgers", brun("js"), bref("js"), MESH_SHARDS, blz,
+                       BG, bny, bnx, 0, MESH_TIME_ITERS, card)
+
+    print(f"phase 39: MultiGPU/Diffusion3d_Baseline on {{'dz': 2}} "
+          f"(cuda:0 twice), exchange='dma', run({ITERS}) at {grid.shape}")
+    druns = {}
+    for k in (1, K4_DEEP):
+        cfg = dataclasses.replace(dcfg, steps_per_exchange=k)
+        solver = DiffusionSolver(dataclasses.replace(cfg, exchange="dma"),
+                                 mesh=two_shards())
+        coll = DiffusionSolver(cfg, mesh=two_shards())
+        state0 = solver.initial_state()
+        druns[f"k={k}"] = dma_path(f"K4 diffusion k={k}", solver, coll, one,
+                                   state0, ITERS, {"K4": 1}, card, ITERS)
+        del solver, coll, state0
+        torch.cuda.empty_cache()
+
+    print(f"phase 40: MultiGPU/Burgers3d_Baseline on {{'dz': 2}}, fixed dt, "
+          f"exchange='dma', run({K6_ITERS}) at {bgrid.shape}")
+    solver = BurgersSolver(dataclasses.replace(bcfg, exchange="dma"),
+                           mesh=two_shards())
+    coll = BurgersSolver(bcfg, mesh=two_shards())
+    state0 = solver.initial_state()
+    bruns = {"k=1": dma_path("K4 burgers", solver, coll, bone, state0,
+                             K6_ITERS, {"K4-burgers": 1}, card,
+                             MESH_TIME_ITERS)}
+    out = solver.run(state0, K6_ITERS)
+    u = out.u.assemble()
+    lo, hi = float(u.min()), float(u.max())
+    print(f"  K4 burgers: u in [{lo!r}, {hi!r}] after run({K6_ITERS})")
+    if not (lo >= -1e-6 and hi <= 1.05):
+        raise AssertionError(f"u left [-1e-6, 1.05]: [{lo}, {hi}]")
+    del solver, coll, state0, out, u
+    torch.cuda.empty_cache()
+
+    cli_dma_phase(card)
+
+    d_bound = run_bound(4 * grid.num_cells, 100 * grid.num_cells * ITERS)
+    b_bound = run_bound(4 * bgrid.num_cells, K6_ITERS * k6_step_ops(
+        bgrid.shape, False, bcfg.weno_variant))
+    common = {"id": "K4", "route": "cuda",
+              "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                          "fused_slab_run.py:327",
+              "launches": 1, "library_ms": None,
+              "library_call": "none: no single PyTorch call computes an RK "
+                              "step",
+              # per step of the main path's run, one launch for the run
+              # of every shard: the twin over a whole run would take
+              # minutes
+              "per": "step"}
+    return [{
+        **common, "name": "slab_run_dma_diffusion",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_step_diffusion.cu",
+        "max_abs_err": err["diffusion"], "ms": d_alone["ms"],
+        "plain_ms": d_alone["plain_ms"], "bound_ms": d_bound[0] / ITERS,
+        "bound_by": d_bound[1], "grid_blocks": d_alone["grid_blocks"],
+        "ms_per_step": druns["k=1"]["ms_per_step"], "paths": druns,
+    }, {
+        **common, "name": "slab_run_dma_burgers",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "slab_run_burgers.cu",
+        "max_abs_err": err["burgers"], "ms": b_alone["ms"],
+        "plain_ms": b_alone["plain_ms"], "bound_ms": b_bound[0] / K6_ITERS,
+        "bound_by": b_bound[1], "grid_blocks": b_alone["grid_blocks"],
+        "ms_per_step": bruns["k=1"]["ms_per_step"], "paths": bruns,
+    }]
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3831,6 +4151,11 @@ def main() -> int:
         entry["pencil_path"] = pencil[
             "diffusion" if "diffusion" in entry["name"] else "burgers"]
     print(f"phases 33-37: {time.perf_counter() - t_mesh2d:.1f} s")
+    torch.cuda.empty_cache()
+    print("phases 38-41: the in-kernel exchange (K4)")
+    t_k4 = time.perf_counter()
+    k4 = k4_phases(card)
+    print(f"phases 38-41: {time.perf_counter() - t_k4:.1f} s")
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -3876,7 +4201,7 @@ def main() -> int:
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
     }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b,
-        *k3, *mesh2d]
+        *k3, *mesh2d, *k4]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

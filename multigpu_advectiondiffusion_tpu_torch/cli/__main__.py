@@ -173,8 +173,10 @@ def _common(p, ndim: int) -> None:
                         "slab-rung runs only)")
     p.add_argument("--exchange", choices=["collective", "dma"],
                    default="collective",
-                   help="halo transport: collective (the only one ported; "
-                        "dma, the in-kernel remote DMA, raises)")
+                   help="halo transport of the sharded slab rung: "
+                        "collective (an exchange between launches) or dma "
+                        "(K4: one launch a run for every shard of the "
+                        "card, the ghost rows moved inside the kernel)")
 
 
 def _sync(solver) -> None:
@@ -265,6 +267,8 @@ _COUNTERS = {
     "K2b slab_run_burgers_batched": fused_slab_run.slab_run_burgers_batched,
     "K3 slab_step_diffusion": fused_slab_run.slab_step_diffusion,
     "K3 slab_step_burgers": fused_slab_run.slab_step_burgers,
+    "K4 slab_run_dma_diffusion": fused_slab_run.slab_run_dma_diffusion,
+    "K4 slab_run_dma_burgers": fused_slab_run.slab_run_dma_burgers,
     "K11 laplacian_o4_3d": laplacian.laplacian_o4_3d,
     "K11b laplacian_o4_2d": laplacian.laplacian_o4_2d,
     "K12 weno_axis_3d": weno.flux_divergence_3d,

@@ -7,14 +7,18 @@
 //   K2b  the same kernel with a member axis: B independent members' runs
 //        in one cooperative launch, one grid.sync() a step for the batch;
 //   K3   step_kernel over an output window of a shard of a z-slab mesh:
-//        one launch a step (or a call of the split or k-step schedule).
+//        one launch a step (or a call of the split or k-step schedule);
+//   K4   slab_run_dma_kernel: every shard of a z-slab mesh on this card,
+//        a whole sharded run in ONE cooperative launch, the ghost rows
+//        moved inside the kernel (csrc/slab_dma.cuh).
 //
 // Replaces the TPU kernels multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_diffusion_step.py::_step_kernel (:94, launched :214),
 // fused_slab_run.py::_whole_run_kernel (:188, launched :889, and with
 // batched=True at :933 for run_batched) and fused_slab_run.py::
 // _step_call_kernel (:508, built by _make_call :949-1017, launched
-// :1007) with the diffusion step_fn (:1330) over fused_diffusion_step.
+// :1007) and fused_slab_run.py::_whole_run_dma_kernel (:327, launched
+// :816) with the diffusion step_fn (:1330) over fused_diffusion_step.
 // _stage_rows (:56).
 //
 // K3. A shard's buffer holds its lz core planes between depth = k*G
@@ -74,6 +78,18 @@
 // data); grid.sync() orders every write of a step before the next step's
 // reads.
 //
+// K4. The TPU kernel runs one program per shard and pushes ghost rows to
+// its neighbours over ICI; on one card every shard of the mesh is a
+// job range of ONE cooperative launch (the flattened (shard, tile,
+// z-chunk) list, as K2b's member axis), and the exchange is a grid-wide
+// copy between grid.sync()s (csrc/slab_dma.cuh). Step s of the run is
+// step j = s % k of block s / k: at j = 0 the block's exchange, then
+// every shard's step over the window [oz - w, oz + lz + w), w = (k-1-j)G,
+// with row_off = depth - oz: K3's call of the k-step schedule, through
+// the same step_tile, so a K4 run is the collective K3 run (and K2's
+// unsharded run) to the bit. A step reads and writes only its own
+// shard's buffers; the exchange alone crosses shards.
+//
 // Bound on an H100: device-memory bytes. A step must read S once and
 // write the interior once: 8 B a cell, 0.0394 ms at 400x200x206 and
 // 3.35 TB/s, against 32 B a cell for three K1 stages. Its f32 operations
@@ -85,6 +101,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "slab_dma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -443,4 +461,111 @@ extern "C" int slab_run_diffusion(float* S0, float* S1, int members, int nz,
   return (int)launch_slab_run(S0, S1, members, nz, ny, nx, taps, dt, band,
                               bc_value, zchunk, n_iters, grid_blocks,
                               static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// K4: n_iters steps of every shard in sh, k steps a block (G = 3R).
+// p carries the global shape, the physics and the tiling (p.jobs: tiles
+// a plane); each job's window and rows are set here.
+__global__ void __launch_bounds__(THREADS)
+slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters) {
+  extern __shared__ float sm[];
+  cg::grid_group grid = cg::this_grid();
+  constexpr int G = 3 * R;
+  const int tiles = p.jobs;
+  for (int s = 0; s < n_iters; ++s) {
+    const int j = s % k;
+    const int par = s & 1;
+    if (j == 0) dma_exchange(sh, par, s / k, grid);
+    const int w = (k - 1 - j) * G;
+    Args q = p;
+    q.chunks = (lz + 2 * w + p.zchunk - 1) / p.zchunk;
+    const int per_shard = tiles * q.chunks;
+    for (int job = blockIdx.x; job < sh.n * per_shard; job += gridDim.x) {
+      const int i = job / per_shard;
+      const int oz = i * lz;
+      q.z_lo = oz - w;
+      q.z_hi = oz + lz + w;
+      q.row_off = sh.depth - oz;
+      step_tile(dma_state(sh, par, i), dma_state(sh, par ^ 1, i), q,
+                job - i * per_shard, sm);
+    }
+    grid.sync();
+  }
+}
+
+}  // namespace
+
+// K4: n_iters fused steps of the `shards` z-slab shards of a mesh, all on
+// this card, in ONE cooperative launch on `stream`. s0, s1 and land are
+// host arrays of `shards` device pointers, in z order: shard i's two
+// state buffers (lz + 2 depth, ny+4, nx+4), depth = 6k, its lz core
+// planes from row depth (global planes i*lz ...), and its landing
+// buffer (2, 2, depth, ny+4, nx+4). Step s reads s0 (s even) or s1 (s
+// odd) and writes the other, so the result is in s0 when n_iters is even
+// and in s1 when it is odd; at the start of every block of k steps the
+// shards' ghost rows are exchanged through the landing buffers
+// (csrc/slab_dma.cuh). `taps` points to 15 host floats. `grid_blocks`,
+// when not null, receives the grid's block count. Returns the first CUDA
+// error (0 on success); does not synchronise.
+extern "C" int slab_run_dma_diffusion(float* const* s0, float* const* s1,
+                                      float* const* land, int shards, int lz,
+                                      int k, int ny, int nx,
+                                      const float* taps, float dt, int band,
+                                      float bc_value, int zchunk, int n_iters,
+                                      int* grid_blocks, void* stream) {
+  if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
+      lz < k * 3 * R)
+    return (int)cudaErrorInvalidValue;
+  Args p;
+  cudaError_t e = make_args(p, shards * lz, ny, nx, taps, dt, band, bc_value,
+                            zchunk);
+  const int depth = k * 3 * R;
+  const int pz = lz + 2 * depth;
+  if (e == cudaSuccess &&
+      (long long)pz * (ny + 2 * R) * (nx + 2 * R) > MAX_CELLS)
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  DmaShards sh;
+  for (int i = 0; i < shards; ++i) {
+    sh.s0[i] = s0[i];
+    sh.s1[i] = s1[i];
+    sh.land[i] = land[i];
+  }
+  sh.n = shards;
+  sh.pz = pz;
+  sh.depth = depth;
+  sh.plane = (long long)(ny + 2 * R) * (nx + 2 * R);
+  p.pz = pz;
+  p.depth = depth;
+  const int tiles = ((ny + T - 1) / T) * p.tiles_x;
+  p.jobs = tiles;
+  // the widest step (j = 0) has the most jobs
+  const long long jobs = (long long)shards * tiles *
+                         ((lz + 2 * depth - 6 * R + zchunk - 1) / zchunk);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  e = cudaFuncSetAttribute((const void*)slab_run_dma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, slab_run_dma_kernel, THREADS, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  const long long resident = (long long)per_sm * sms;
+  const int blocks = (int)(jobs < resident ? jobs : resident);
+  if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (grid_blocks != nullptr) *grid_blocks = blocks;
+  void* args[] = {&sh, &p, &lz, &k, &n_iters};
+  e = cudaLaunchCooperativeKernel((const void*)slab_run_dma_kernel, blocks,
+                                  THREADS, args, SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

@@ -13,6 +13,15 @@
 // step_fn's fill keys on global rows, :1540-1578), so a window is K6's
 // step over those planes to the bit. Only in-domain planes are written.
 //
+// A third, slab_run_dma_burgers, is K4's Burgers instance: every shard
+// of a z-slab mesh on this card, a whole sharded run in ONE cooperative
+// launch, the ghost rows moved inside the kernel (csrc/slab_dma.cuh; the
+// TPU kernel fused_slab_run.py::_whole_run_dma_kernel, :327, launched
+// :816). Step s is step j = s % k of its block: at j = 0 the block's
+// exchange, then every shard's K3 window [oz - w, oz + lz + w), w =
+// (k-1-j)G, through the same step_tile, so a K4 run is the collective K3
+// run and K6's unsharded run to the bit.
+//
 // Replaces the TPU kernel multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_slab_run.py::_whole_run_kernel (:188, launched :889, and with
 // batched=True at :933 for run_batched) with SlabRunBurgersStepper's
@@ -78,6 +87,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "slab_dma.cuh"
 #include "weno5.cuh"
 
 namespace cg = cooperative_groups;
@@ -453,5 +463,139 @@ extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
     case 3: return (int)launch_step<LINEAR, true>(S, out, p, s);
     case 4: return (int)launch_step<BUCKLEY, false>(S, out, p, s);
     default: return (int)launch_step<BUCKLEY, true>(S, out, p, s);
+  }
+}
+
+namespace {
+
+// K4, Burgers: n_iters steps of every shard in sh, k steps a block (G =
+// 3R = 9). p carries the global shape, the physics and the tiling
+// (p.jobs: tiles a plane); each job's window and rows are set here.
+template <int FLUX, bool WZ>
+__global__ void __launch_bounds__(THREADS)
+slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters) {
+  extern __shared__ float sm[];
+  cg::grid_group grid = cg::this_grid();
+  constexpr int G = 3 * R;
+  const int tiles = p.jobs;
+  for (int s = 0; s < n_iters; ++s) {
+    const int j = s % k;
+    const int par = s & 1;
+    if (j == 0) dma_exchange(sh, par, s / k, grid);
+    const int w = (k - 1 - j) * G;
+    Args q = p;
+    q.chunks = (lz + 2 * w + p.zchunk - 1) / p.zchunk;
+    const int per_shard = tiles * q.chunks;
+    for (int job = blockIdx.x; job < sh.n * per_shard; job += gridDim.x) {
+      const int i = job / per_shard;
+      const int oz = i * lz;
+      q.z_lo = oz - w;
+      q.z_hi = oz + lz + w;
+      q.row_off = sh.depth - oz;
+      step_tile<FLUX, WZ>(dma_state(sh, par, i), dma_state(sh, par ^ 1, i),
+                          q, job - i * per_shard, sm);
+    }
+    grid.sync();
+  }
+}
+
+template <int FLUX, bool WZ>
+cudaError_t launch_dma(DmaShards& sh, Args& p, int lz, int k, int n_iters,
+                       long long jobs, int* grid_blocks, cudaStream_t s) {
+  auto* kernel = slab_run_dma_kernel<FLUX, WZ>;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  const long long resident = (long long)per_sm * sms;
+  const int blocks = (int)(jobs < resident ? jobs : resident);
+  if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (grid_blocks != nullptr) *grid_blocks = blocks;
+  void* args[] = {&sh, &p, &lz, &k, &n_iters};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, blocks, THREADS, args,
+                                  SMEM_BYTES, s);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K4, Burgers: n_iters fixed-dt steps of the `shards` z-slab shards of a
+// mesh, all on this card, in ONE cooperative launch on `stream`. s0, s1
+// and land are host arrays of `shards` device pointers, in z order:
+// shard i's two state buffers (lz + 2 depth, ny, nx), depth = 9k, its lz
+// core planes from row depth (global planes i*lz ...), and its landing
+// buffer (2, 2, depth, ny, nx). Step s reads s0 (s even) or s1 (s odd)
+// and writes the other, so the result is in s0 when n_iters is even and
+// in s1 when it is odd; at the start of every block of k steps the
+// shards' ghost rows are exchanged through the landing buffers
+// (csrc/slab_dma.cuh). The flux and physics arguments are
+// slab_run_burgers's. `grid_blocks`, when not null, receives the grid's
+// block count. Returns the first CUDA error (0 on success); does not
+// synchronise.
+extern "C" int slab_run_dma_burgers(float* const* s0, float* const* s1,
+                                    float* const* land, int shards, int lz,
+                                    int k, int ny, int nx, int flux, float c,
+                                    int weno_z, const float* inv_dx,
+                                    const float* lap, float dt, int zchunk,
+                                    int n_iters, int* grid_blocks,
+                                    void* stream) {
+  const int depth = k * 3 * R;
+  const int pz = lz + 2 * depth;
+  if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
+      lz < depth || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2 ||
+      (long long)pz * ny * nx > MAX_CELLS)
+    return (int)cudaErrorInvalidValue;
+  Args p;
+  p.nz = shards * lz;
+  p.ny = ny;
+  p.nx = nx;
+  for (int q = 0; q < 3; ++q) p.inv_dx[q] = inv_dx[q];
+  p.viscous = lap != nullptr;
+  for (int q = 0; q < 15; ++q) p.lap[q] = lap != nullptr ? lap[q] : 0.0f;
+  p.c = c;
+  p.dt = dt;
+  p.zchunk = zchunk;
+  p.z_lo = 0;
+  p.z_hi = lz;
+  p.row_off = depth;
+  p.pz = pz;
+  p.depth = depth;
+  p.lo = nullptr;
+  p.hi = nullptr;
+  p.tiles_x = (nx + T - 1) / T;
+  p.chunks = 1;
+  p.jobs = ((ny + T - 1) / T) * p.tiles_x;  // tiles a plane
+  DmaShards sh;
+  for (int i = 0; i < shards; ++i) {
+    sh.s0[i] = s0[i];
+    sh.s1[i] = s1[i];
+    sh.land[i] = land[i];
+  }
+  sh.n = shards;
+  sh.pz = pz;
+  sh.depth = depth;
+  sh.plane = (long long)ny * nx;
+  // the widest step (j = 0) has the most jobs
+  const long long jobs = (long long)shards * p.jobs *
+                         ((lz + 2 * depth - 6 * R + zchunk - 1) / zchunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (flux * 2 + (weno_z ? 1 : 0)) {
+    case 0: return (int)launch_dma<BURGERS, false>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
+    case 1: return (int)launch_dma<BURGERS, true>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
+    case 2: return (int)launch_dma<LINEAR, false>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
+    case 3: return (int)launch_dma<LINEAR, true>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
+    case 4: return (int)launch_dma<BUCKLEY, false>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
+    default: return (int)launch_dma<BUCKLEY, true>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
   }
 }

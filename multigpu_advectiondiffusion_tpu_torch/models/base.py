@@ -248,9 +248,11 @@ class SolverBase:
                    or "collective")
 
     def _validate_exchange(self) -> None:
-        """``exchange='dma'``: the JAX package's construction gate and
-        texts; a config that passes it raises here, since the in-kernel
-        remote-DMA rung (K4) is not ported."""
+        """``exchange='dma'`` (the in-kernel exchange of the sharded slab
+        rung, K4): the JAX package's construction gate and texts. Its
+        process-count check has no counterpart (one process drives every
+        shard); eligibility at dispatch is ``_select_slab``'s, which
+        raises where ``dma`` is asked for."""
         if self._exchange_mode() != "dma":
             return
         if self.grid.ndim != 3:
@@ -279,10 +281,29 @@ class SolverBase:
                 "the split-overlap schedule does not compose with it "
                 "(drop overlap='split')"
             )
-        raise NotImplementedError(
-            "exchange='dma' (the in-kernel remote-DMA whole-run rung, K4) "
-            "is not ported yet (ROADMAP queue 1 item 8e); "
-            "exchange='collective' runs the sharded slab rung")
+        name = self.decomp.mesh_axis(0)
+        if not isinstance(name, str):
+            raise ValueError(
+                "exchange='dma' cannot ride a compound (multihost) "
+                "mesh axis — remote DMA moves over ICI, not DCN"
+            )
+        if len(dict(self.mesh.shape)) != 1:
+            raise ValueError(
+                "exchange='dma' serves single-axis z-slab meshes: the "
+                "remote-DMA ring addresses logical device ids along "
+                "ONE mesh axis"
+            )
+
+    def _dma_stepper_kwargs(self) -> dict:
+        """What arms a slab stepper's in-kernel exchange: the (checked,
+        single, string) z mesh axis and its shard count."""
+        sizes = dict(self.mesh.shape)
+        name = self.decomp.mesh_axis(0)
+        return {
+            "exchange": "dma",
+            "mesh_axis": name,
+            "num_shards": axis_extent(sizes, name),
+        }
 
     def _sharded_axes(self):
         """Array axes that are actually decomposed: listed in the
@@ -488,8 +509,15 @@ class SolverBase:
 
     def _decline(self, reason: str):
         """Record why the fused path was declined (read by
-        :meth:`engaged_path`) and return ``None``."""
+        :meth:`engaged_path`) and return ``None``; under
+        ``exchange='dma'``, which only the slab rung serves, raise the
+        JAX package's error instead."""
         self._fused_fallback = reason
+        if self._exchange_mode() == "dma":
+            raise ValueError(
+                "exchange='dma' needs the sharded slab rung; "
+                f"this config declined fusion: {reason}"
+            )
         return None
 
     def _pallas_f32_gate(self, impl: str) -> str:
@@ -563,9 +591,14 @@ class SolverBase:
             fallback = self._fused_fallback
             # the whole-step and whole-run steppers are single-device only
             overlap = None
+            exchange = getattr(fused, "exchange", "collective")
             if getattr(fused, "sharded", False):
-                overlap = ("split" if fused.overlap_split
-                           else "serialized-refresh")
+                if exchange == "dma":
+                    # the exchange runs inside K4: no schedule around it
+                    overlap = "in-kernel"
+                else:
+                    overlap = ("split" if fused.overlap_split
+                               else "serialized-refresh")
             k = getattr(fused, "steps_per_exchange", 1)
         else:
             op = self._op_impl()
@@ -582,12 +615,13 @@ class SolverBase:
                 fallback = self._op_fallback
             overlap = self.cfg.overlap if self.mesh is not None else None
             k = self.cfg.steps_per_exchange
+            exchange = self._exchange_mode()
         return {
             "impl": impl,
             "stepper": stepper,
             "overlap": overlap,
             "steps_per_exchange": int(k),
-            "exchange": "collective",
+            "exchange": exchange,
             "storage_dtype": str(storage).replace("torch.", ""),
             "precision": "native",
             "fallback": fallback,
@@ -608,13 +642,16 @@ class SolverBase:
         consume them. On 3-D pencil meshes the non-z sharded axes keep
         the serialized refresh. Both exchange at the stepper's
         ``exchange_depth`` (the stencil halo, or ``k * G`` for the
-        k-step slab schedule). All ``None`` when unsharded. Runs inside
-        ``shard_map``."""
+        k-step slab schedule). A slab stepper with the in-kernel exchange
+        (``exchange == "dma"``, K4) takes the offsets alone. All ``None``
+        when unsharded. Runs inside ``shard_map``."""
         if self.mesh is None or not fused.sharded:
             return None, None, None
+        offsets = tuple(axis_offsets(self.decomp, fused.interior_shape))
+        if getattr(fused, "exchange", "collective") == "dma":
+            return None, offsets, None
         sizes = dict(self.mesh.shape)
         depth = int(getattr(fused, "exchange_depth", fused.halo))
-        offsets = tuple(axis_offsets(self.decomp, fused.interior_shape))
         core_offsets = getattr(fused, "core_offsets", None)
         if getattr(fused, "overlap_split", False):
             name = self.decomp.mesh_axis(0)

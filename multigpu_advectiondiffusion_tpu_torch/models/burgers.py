@@ -50,10 +50,12 @@ run on every decomposition (adaptive dt the max over the shards), and
 on z slabs the fused rungs: K5 with 3 z-ghost planes refreshed after
 every stage (the split schedule's three launches a stage), dt from the
 shards' emitted maxima kept on the card; and, where pinned
-(``impl="pallas_slab"`` or ``steps_per_exchange > 1``, fixed dt), one K3
-launch over an output window a step, or the k-step schedule; on 2-D
-meshes of any layout K8 a stage (K8b under the split schedule). The
-fused rung on a y- or x-sharded 3-D mesh (K5's other layouts) raises.
+(``impl="pallas_slab"``, ``steps_per_exchange > 1`` or
+``exchange="dma"``, fixed dt), one K3 launch over an output window a
+step, or the k-step schedule, or under ``exchange="dma"`` one K4 launch
+a run for every shard of the card; on 2-D meshes of any layout K8 a
+stage (K8b under the split schedule). The fused rung on a y- or
+x-sharded 3-D mesh (K5's other layouts) raises.
 """
 
 from __future__ import annotations
@@ -400,18 +402,24 @@ class BurgersSolver(SolverBase):
         ``_select_slab``; the shared eligibility has passed).
         ``impl="pallas_slab"`` pins the rung: where it declines, K5 runs,
         as in the JAX package, and ``fallback`` carries the JAX package's
-        reason; ``steps_per_exchange > 1`` pins it too and turns every
-        decline into an error. ``impl="pallas"`` follows the port's
-        measured gate (``SlabRunBurgersStepper.profitable``) on one
-        device; under a mesh the rung engages only when pinned, on z
-        slabs (K3)."""
+        reason; ``steps_per_exchange > 1`` and ``exchange="dma"`` pin
+        it too and turn every decline into an error. ``impl="pallas"``
+        follows the port's measured gate
+        (``SlabRunBurgersStepper.profitable``) on one device; under a
+        mesh the rung engages only when pinned, on z slabs (K3; K4 under
+        ``exchange="dma"``)."""
         cfg = self.cfg
         k = int(cfg.steps_per_exchange)
         if cfg.impl not in ("pallas", "pallas_slab"):
             return None
-        pinned = cfg.impl == "pallas_slab" or k > 1
+        dma = self._exchange_mode() == "dma"
+        pinned = cfg.impl == "pallas_slab" or k > 1 or dma
 
         def decline(reason):
+            if dma:
+                raise ValueError(
+                    f"exchange='dma' needs the sharded slab rung: "
+                    f"{reason}")
             if k > 1:
                 raise ValueError(
                     f"steps_per_exchange={k} needs the sharded slab "
@@ -447,8 +455,12 @@ class BurgersSolver(SolverBase):
             kwargs = {}
             if self.mesh is not None:
                 kwargs = dict(global_shape=self.grid.shape,
-                              overlap_split=self._split_overlap_requested(),
+                              overlap_split=(
+                                  not dma
+                                  and self._split_overlap_requested()),
                               steps_per_exchange=k)
+                if dma:
+                    kwargs.update(self._dma_stepper_kwargs())
             self._cache["fused_slab"] = SlabRunBurgersStepper(
                 shape, self.grid.spacing, self.flux, cfg.weno_variant,
                 cfg.nu, self.dt, self.device, order=cfg.weno_order,

@@ -42,9 +42,11 @@ in the JAX package: the generic and per-axis rungs on any decomposition
 (ghosts exchanged by the padder, ``overlap="split"`` computing the
 interior while they travel), K1 with global wall masks and a ghost
 refresh after every stage (the split schedule's three launches a stage
-on z), and — only where pinned (``impl="pallas_slab"`` or
-``steps_per_exchange > 1``) and on z slabs — the slab rung as one K3
-launch over an output window a step, or the k-step schedule; in 2-D
+on z), and — only where pinned (``impl="pallas_slab"``,
+``steps_per_exchange > 1`` or ``exchange="dma"``) and on z slabs — the
+slab rung as one K3 launch over an output window a step, or the k-step
+schedule, or under ``exchange="dma"`` one K4 launch a run for every
+shard of the card, the ghost rows moved inside the kernel; in 2-D
 K8 a stage with global walls, or K8b under the split schedule. K10
 declines under a mesh.
 """
@@ -418,17 +420,23 @@ class DiffusionSolver(SolverBase):
         ``_select_slab``). ``impl="pallas_slab"`` pins the rung: where it
         declines, the per-stage stepper runs, as in the JAX package, and
         ``fallback`` carries the JAX package's reason;
-        ``steps_per_exchange > 1`` pins it too and turns every decline
-        into an error. ``impl="pallas"`` follows the port's measured gate
-        (``SlabRunDiffusionStepper.profitable``) on one device; under a
-        mesh the rung engages only when pinned, on z slabs (K3)."""
+        ``steps_per_exchange > 1`` and ``exchange="dma"`` pin it too
+        and turn every decline into an error. ``impl="pallas"`` follows
+        the port's measured gate (``SlabRunDiffusionStepper.profitable``)
+        on one device; under a mesh the rung engages only when pinned, on
+        z slabs (K3; K4 under ``exchange="dma"``)."""
         cfg = self.cfg
         k = int(cfg.steps_per_exchange)
         if cfg.impl not in ("pallas", "pallas_slab"):
             return None
-        pinned = cfg.impl == "pallas_slab" or k > 1
+        dma = self._exchange_mode() == "dma"
+        pinned = cfg.impl == "pallas_slab" or k > 1 or dma
 
         def decline(reason):
+            if dma:
+                raise ValueError(
+                    f"exchange='dma' needs the sharded slab rung: "
+                    f"{reason}")
             if k > 1:
                 raise ValueError(
                     f"steps_per_exchange={k} needs the sharded slab "
@@ -462,8 +470,12 @@ class DiffusionSolver(SolverBase):
             kwargs = {}
             if self.mesh is not None:
                 kwargs = dict(global_shape=self.grid.shape,
-                              overlap_split=self._split_overlap_requested(),
+                              overlap_split=(
+                                  not dma
+                                  and self._split_overlap_requested()),
                               steps_per_exchange=k)
+                if dma:
+                    kwargs.update(self._dma_stepper_kwargs())
             self._cache["fused_slab"] = SlabRunDiffusionStepper(
                 shape,
                 self.grid.spacing,

@@ -49,8 +49,22 @@ other, so the result lies in buffer ``num_iters % 2``.
   ``steps_per_exchange = k > 1`` one ``k*G``-deep exchange per k steps,
   call ``j`` of a block writing the core widened by ``(k-1-j)*G`` planes
   a side. The member count declaration and its check wait for
-  member-sharded meshes, and the in-kernel DMA exchange (K4) is not
-  ported. Neither has ``run_to``, as in JAX.
+  member-sharded meshes. Neither has ``run_to``, as in JAX.
+* K4 (:func:`slab_run_dma_diffusion`, :func:`slab_run_dma_burgers`) is
+  the sharded rung with ``exchange="dma"`` (the TPU's
+  ``_whole_run_dma_kernel``, ``:327``, one program a shard that pushes
+  its ghost rows to its neighbours over ICI): on one card ONE cooperative
+  launch runs the whole run of every shard, K3's ``step_tile`` over the
+  k-step schedule's windows, and at each block start pushes every
+  shard's core edge windows into its neighbours' landing buffers and
+  splices them into the ghost rows, between grid barriers (the TPU
+  kernel's data contract, ``csrc/slab_dma.cuh``). So a K4 run is the
+  collective K3 run, and K2's/K6's unsharded run, to the bit. Each shard
+  of a mesh posts its live buffers to the mesh's launch group
+  (:func:`parallel.mesh.launch_group`), whose leader launches once. Its
+  plain twin, :func:`slab_run_dma_reference`, runs the same schedule
+  over K3's twins; the steppers declare the JAX ``remote_dma`` windows
+  in ``stencil_spec()``.
 * ``supported``/``profitable`` are the port's gates, for the H100, in
   place of the JAX package's TPU VMEM model (PERF.md lists the shapes
   where the two disagree).
@@ -83,7 +97,13 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
     chunk_counts,
 )
-from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import wait_exchange
+from multigpu_advectiondiffusion_tpu_torch.parallel.halo import (
+    record_remote_dma,
+)
+from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
+    launch_group,
+    wait_exchange,
+)
 
 BURGERS_SOURCE = "slab_run_burgers.cu"
 # z planes a block marches (each chunk recomputes 12 planes at its ends
@@ -105,6 +125,12 @@ _K3D_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
                  _F, _I, _P)
 _K3B_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                  _P, _P, _F, _I, _P)
+_K4D_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P,
+                 _P)
+_K4B_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I,
+                 _I, _P, _P)
+# shards one K4 launch takes (DMA_MAX_SHARDS, csrc/slab_dma.cuh)
+DMA_MAX_SHARDS = 64
 
 
 def ping_pong(step, S0, S1, num_iters: int):
@@ -507,6 +533,171 @@ def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
 slab_step_burgers.launches = 0
 
 
+# --------------------------------------------------------------------- #
+# K4: the whole sharded run of every shard of a card, ghost rows moved
+# inside the kernel
+# --------------------------------------------------------------------- #
+def _check_dma(S0s, S1s, lands, k: int, G: int) -> int:
+    """Check a K4 call and return the shards' core planes ``lz``: one
+    list entry a shard, in z order, every shard's two state buffers of
+    one ``(lz + 2 depth, ...)`` shape (``depth = k*G``, ``lz >= depth``)
+    and its landing buffer ``(2, 2, depth, ...)``, contiguous float32 on
+    one device."""
+    n = len(S0s)
+    if not 1 <= n <= DMA_MAX_SHARDS or len(S1s) != n or len(lands) != n:
+        raise ValueError(f"one S0, S1 and landing buffer a shard, 1 to "
+                         f"{DMA_MAX_SHARDS} shards")
+    S = S0s[0]
+    depth = int(k) * G
+    if S.dim() != 3 or k < 1:
+        raise ValueError(f"3-D shard buffers expected, got {tuple(S.shape)}")
+    lz = S.shape[0] - 2 * depth
+    if lz < depth:
+        raise ValueError(
+            f"local z extent {lz} cannot serve the {depth}-deep in-kernel "
+            "exchange")
+    land_shape = (2, 2, depth) + tuple(S.shape[1:])
+    for i in range(n):
+        _check("S0", S0s[i], S.shape, S.device)
+        _check("S1", S1s[i], S.shape, S.device)
+        _check("land", lands[i], land_shape, S.device)
+    if len({t.data_ptr() for t in (*S0s, *S1s, *lands)}) != 3 * n:
+        raise ValueError("every buffer of a K4 call must be its own")
+    if S.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no slab kernel for device {S.device}")
+    return lz
+
+
+def slab_run_dma_reference(step, S0s, S1s, lands, num_iters: int, *, k: int,
+                           G: int):
+    """The plain twin of K4 (``fused_slab_run.py:327-505``): the TPU
+    kernel's schedule over every shard, ``step(src, dst, window, oz)``
+    being K3's twin over a window of shard ``i`` (``oz = i*lz``). At the
+    start of each block of ``k`` steps, in the read parity's buffers,
+    every shard pushes its top core window (rows ``[pz-2d, pz-d)``, ``d =
+    k*G``) into the ``+z`` neighbour's landing slot ``(b % 2, 0)`` and
+    its bottom one (rows ``[d, 2d)``) into the ``-z`` neighbour's ``(b %
+    2, 1)``, a ring; then each shard splices its landed rows into its
+    ghost rows, the wall sides excepted. Step ``j`` of a block writes the
+    core widened by ``(k-1-j)*G`` planes a side. Returns the list of
+    buffers that holds the result (``S0s`` after an even count)."""
+    n = len(S0s)
+    depth = k * G
+    pz = S0s[0].shape[0]
+    lz = pz - 2 * depth
+    bufs = (S0s, S1s)
+    for s in range(int(num_iters)):
+        j, b = s % k, s // k
+        src, dst = bufs[s % 2], bufs[1 - s % 2]
+        if j == 0:
+            slot = b % 2
+            for i in range(n):
+                lands[(i + 1) % n][slot, 0].copy_(
+                    src[i][pz - 2 * depth:pz - depth])
+                lands[(i - 1) % n][slot, 1].copy_(src[i][depth:2 * depth])
+            for i in range(n):
+                if i > 0:
+                    src[i][:depth].copy_(lands[i][slot, 0])
+                if i < n - 1:
+                    src[i][pz - depth:].copy_(lands[i][slot, 1])
+        w = (k - 1 - j) * G
+        for i in range(n):
+            step(src[i], dst[i], (-w, lz + w), i * lz)
+    return bufs[int(num_iters) % 2]
+
+
+def _ptrs(ts) -> np.ndarray:
+    """The device pointers of ``ts``, a host array the launch reads."""
+    return np.asarray([t.data_ptr() for t in ts], dtype=np.uint64)
+
+
+def _launch_dma(source, symbol, argtypes, extra, S0s, S1s, lands, lz, k,
+                grid_blocks, *args):
+    """Launch K4 once through ``symbol`` of ``source``: the shards'
+    pointer tables and shape, then ``args``; ``grid_blocks``, a list,
+    receives the grid's block count."""
+    tables = [_ptrs(x) for x in (S0s, S1s, lands)]
+    blocks = ctypes.c_int(0)
+    fn = getattr(wr.library(source, symbol, argtypes, extra), symbol)
+
+    def kernel(S):
+        return fn(*(t.ctypes.data for t in tables), len(S0s), lz, k, *args,
+                  ctypes.byref(blocks), wr.stream_of(S))
+
+    wr.launch(kernel, S0s[0])
+    if grid_blocks is not None:
+        grid_blocks.append(blocks.value)
+
+
+def slab_run_dma_diffusion(S0s, S1s, lands, num_iters: int, dt, *, taps,
+                           band, bc_value, k: int = 1,
+                           zchunk=DIFFUSION_Z_CHUNK,
+                           grid_blocks: list | None = None):
+    """K4, diffusion: ``num_iters`` fused steps of every shard of a
+    z-slab mesh at once. One list entry a shard, in z order: its two
+    ``(lz + 2 depth, ny+4, nx+4)`` state buffers (``depth = 6k``, the
+    core at row ``depth``, the ghost ring at ``bc_value``; ``S0s`` holds
+    the initial states) and its ``(2, 2, depth, ny+4, nx+4)`` landing
+    buffer; ``k`` steps a ghost exchange. Returns the list that holds
+    the result (``S0s`` after an even count, ``S1s`` after an odd one).
+    A CUDA tensor launches the kernel once on the current stream for
+    every shard (no synchronisation), counted in
+    ``slab_run_dma_diffusion.launches``; ``grid_blocks``, a list,
+    receives the grid's block count. A CPU tensor runs the twin,
+    :func:`slab_run_dma_reference` over K3's."""
+    G = 3 * R
+    lz = _check_dma(S0s, S1s, lands, k, G)
+    if S0s[0].device.type == "cpu":
+        gnz = len(S0s) * lz
+        return slab_run_dma_reference(
+            lambda S, out, window, oz: slab_step_diffusion_reference(
+                S, out, dt, taps=taps, band=band, bc_value=bc_value,
+                global_nz=gnz, oz=oz, depth=k * G, window=window),
+            S0s, S1s, lands, num_iters, k=k, G=G)
+    ny, nx = (n - 2 * R for n in S0s[0].shape[1:])
+    host_taps = np.asarray(taps, dtype=np.float32)
+    _launch_dma(fds.SOURCE, "slab_run_dma_diffusion", _K4D_ARGTYPES, (),
+                S0s, S1s, lands, lz, int(k), grid_blocks, ny, nx,
+                host_taps.ctypes.data, float(np.float32(dt)), int(band),
+                float(bc_value), int(zchunk), int(num_iters))
+    build.count_launch(slab_run_dma_diffusion)
+    return S1s if num_iters % 2 else S0s
+
+
+slab_run_dma_diffusion.launches = 0
+
+
+def slab_run_dma_burgers(S0s, S1s, lands, num_iters: int, dt, *,
+                         params: fb.StageParams, k: int = 1,
+                         zchunk=BURGERS_Z_CHUNK,
+                         grid_blocks: list | None = None):
+    """K4, Burgers/WENO5: :func:`slab_run_dma_diffusion` for fixed-dt
+    WENO5 steps on K3's unpadded shard layout, state buffers ``(lz + 2
+    depth, ny, nx)`` and landing buffers ``(2, 2, depth, ny, nx)``,
+    ``depth = 9k``; counted in ``slab_run_dma_burgers.launches``."""
+    G = 3 * fb.R
+    lz = _check_dma(S0s, S1s, lands, k, G)
+    if S0s[0].device.type == "cpu":
+        gnz = len(S0s) * lz
+        return slab_run_dma_reference(
+            lambda S, out, window, oz: slab_step_burgers_reference(
+                S, out, dt, params=params, global_nz=gnz, oz=oz,
+                depth=k * G, window=window),
+            S0s, S1s, lands, num_iters, k=k, G=G)
+    code, c, weno_z, inv_dx, taps = _burgers_args(params)
+    _launch_dma(BURGERS_SOURCE, "slab_run_dma_burgers", _K4B_ARGTYPES,
+                fb.NVCC_EXTRA, S0s, S1s, lands, lz, int(k), grid_blocks,
+                S0s[0].shape[1], S0s[0].shape[2], code, c, weno_z,
+                inv_dx.ctypes.data,
+                None if taps is None else taps.ctypes.data,
+                float(np.float32(dt)), int(zchunk), int(num_iters))
+    build.count_launch(slab_run_dma_burgers)
+    return S1s if num_iters % 2 else S0s
+
+
+slab_run_dma_burgers.launches = 0
+
+
 class _SlabRunStepper:
     """What the two slab steppers share: the label, the unsharded
     ``run`` (``fused_slab_run.py:1080-1098``), the B-folded
@@ -516,10 +707,120 @@ class _SlabRunStepper:
     engaged_label = "fused-whole-run-slab"
     # the member axis of run_batched has no stencil reach: members share
     # no cell (the JAX steppers' declaration, ``:650-657``)
+    members = 1
     member_halo = 0
     sharded = False
     overlap_split = False
     k = steps_per_exchange = 1
+    # all three RK stages recompute per ghost exchange: G = 3h
+    fused_stages = 3
+    stencil_radius = None  # h: the subclasses declare it
+    # the halo transport of a shard (``:658-667``): "collective" (the
+    # K3 schedules, the exchange between launches) or "dma" (K4, the
+    # exchange inside the kernel, declared in ``remote_dma``);
+    # ``_init_exchange`` arms it
+    exchange = "collective"
+    remote_dma = None
+    mesh_axis = None
+    num_shards = None
+
+    def stencil_spec(self) -> dict:
+        """The slab rung's stencil and halo contract, the JAX steppers'
+        keys and values (``:669-699``): ``ghost_depth`` is ``G = 3h``,
+        the exchange moves ``k*G`` rows, ``remote_dma`` is the in-kernel
+        exchange's declared windows (``None`` under the collective
+        exchange)."""
+        return {
+            "kernel": self.engaged_label,
+            "stage_radius": int(self.stencil_radius),
+            "fused_stages": int(self.fused_stages),
+            "ghost_depth": int(self.halo),
+            "exchange_depth": int(self.exchange_depth),
+            "steps_per_exchange": int(self.steps_per_exchange),
+            "members": int(self.members),
+            "member_halo": int(self.member_halo),
+            "exchange": self.exchange,
+            "remote_dma": self.remote_dma,
+            "storage_dtype": str(self.dtype).replace("torch.", ""),
+            "bytes_per_cell": int(self.dtype.itemsize),
+        }
+
+    def _init_exchange(self, exchange, mesh_axis, num_shards) -> None:
+        """Check and arm the halo transport (``:704-767``, the JAX checks
+        and texts): ``"dma"`` needs a z-slab shard, no split schedule, a
+        single mesh axis with its shard count, and a core at least one
+        exchange deep; it declares the ``remote_dma`` windows. The JAX
+        package's TPU z-block choice has no counterpart: K4 tiles a
+        window as K3 does."""
+        exchange = str(exchange)
+        if exchange not in ("collective", "dma"):
+            raise ValueError(
+                f"unknown exchange mode {exchange!r}; "
+                "'collective' (XLA ppermute) or 'dma' (in-kernel)")
+        self.exchange = exchange
+        if exchange != "dma":
+            return
+        if not self.sharded:
+            raise ValueError(
+                "exchange='dma' serves sharded (z-slab) slab instances "
+                "only — an unsharded run has no neighbor to push to")
+        if self.overlap_split:
+            raise ValueError(
+                "exchange='dma' replaces the XLA exchange entirely; "
+                "the split-overlap schedule does not compose with it")
+        if not isinstance(mesh_axis, str) or num_shards is None:
+            raise ValueError(
+                "exchange='dma' needs the z mesh axis name and shard "
+                "count (a compound/multihost mesh axis cannot host the "
+                "ICI remote-DMA ring)")
+        self.mesh_axis = mesh_axis
+        self.num_shards = int(num_shards)
+        depth = self.exchange_depth
+        lz = self.interior_shape[0]
+        if lz < depth:
+            raise ValueError(
+                f"local z extent {lz} cannot serve the {depth}-deep "
+                "in-kernel exchange (the pushed core edge windows "
+                "would leave the shard's own rows)")
+        pz = self.padded_shape[0]
+        self.remote_dma = {
+            "axis": 0,
+            "window_rows": depth,
+            "buffers": 2,
+            # pushed rows: the freshly computed core edge windows...
+            "send_windows": ((depth, 2 * depth),
+                             (pz - 2 * depth, pz - depth)),
+            # ...landing outside the neighbour's core: first in the
+            # dedicated landing buffer, spliced into these ghost rows
+            "recv_windows": ((0, depth), (pz - depth, pz)),
+            "semaphores": ("send", "recv"),
+            "landing": "dedicated",
+        }
+
+    def _run_dma(self, u, t, num_iters: int):
+        """The whole sharded run in ONE K4 launch for every shard of the
+        card (``_run_dma``, ``:769-842``): this shard embeds its block
+        and posts its live buffers to the mesh's launch group
+        (:func:`parallel.mesh.launch_group`), whose leader launches K4
+        (or, on the CPU, runs its twin) once for all of them."""
+        full, rem = chunk_counts(int(num_iters), self.k)
+        record_remote_dma(
+            kernel=self.engaged_label, plane_shape=self.padded_shape[1:],
+            itemsize=self.dtype.itemsize, window_rows=self.exchange_depth,
+            blocks=full + (1 if rem else 0), mesh_axis=self.mesh_axis)
+        S = self.embed(u)
+        T = S.clone()
+        land = torch.zeros((2, 2, self.exchange_depth)
+                           + tuple(self.padded_shape[1:]),
+                           dtype=self.dtype, device=S.device)
+
+        def launch(shards):
+            S0s, S1s, lands = (list(ts) for ts in zip(*shards))
+            self._whole_run_dma(S0s, S1s, lands, num_iters)
+
+        launch_group([S, T, land], launch)
+        return self.extract(T if num_iters % 2 else S), wr.accumulate_t(
+            t, np.float32(self.dt), num_iters)
 
     def _init_sharded(self, global_shape, overlap_split: bool,
                       steps_per_exchange: int) -> None:
@@ -565,6 +866,9 @@ class _SlabRunStepper:
                 t, np.float32(self.dt), num_iters)
         if offsets is None:
             raise ValueError("sharded slab stepper needs offsets")
+        if self.exchange == "dma":
+            # the exchange runs inside K4: no refresh or exch
+            return self._run_dma(u, t, num_iters)
         if self.overlap_split and exch is None:
             raise ValueError("split-overlap slab stepper needs exch")
         if not self.overlap_split and refresh is None:
@@ -637,10 +941,13 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     nx+4)``."""
 
     halo = 3 * R  # G: three O4 stages of redundant recompute
+    stencil_radius = R
 
     def __init__(self, interior_shape, spacing, diffusivity, dt, band,
                  bc_value, device, global_shape=None,
-                 overlap_split: bool = False, steps_per_exchange: int = 1):
+                 overlap_split: bool = False, steps_per_exchange: int = 1,
+                 exchange: str = "collective", mesh_axis=None,
+                 num_shards=None):
         super().__init__(interior_shape, spacing, diffusivity, dt, band,
                          bc_value, device)
         self._init_sharded(global_shape, overlap_split, steps_per_exchange)
@@ -649,6 +956,7 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
             lz, ny, nx = self.interior_shape
             self.padded_shape = (lz + 2 * d, ny + 2 * R, nx + 2 * R)
             self.core_offsets = (d, R, R)
+        self._init_exchange(exchange, mesh_axis, num_shards)
 
     def embed(self, u):
         if not self.sharded:
@@ -675,6 +983,11 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     def _whole_run(self, S0, S1, num_iters: int):
         return slab_run_diffusion(S0, S1, num_iters, self.dt, taps=self.taps,
                                   band=self.band, bc_value=self.bc_value)
+
+    def _whole_run_dma(self, S0s, S1s, lands, num_iters: int):
+        return slab_run_dma_diffusion(
+            S0s, S1s, lands, num_iters, self.dt, taps=self.taps,
+            band=self.band, bc_value=self.bc_value, k=self.k)
 
     def embed_batched(self, us):
         """``(B, *padded)``: every member's padded layout, the ghost ring
@@ -730,11 +1043,13 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     nx)``. WENO7 raises: its order-7 instance is not ported."""
 
     halo = 3 * fb.R  # G: three WENO5 stages of redundant recompute
+    stencil_radius = fb.R
 
     def __init__(self, interior_shape, spacing, flux: Flux, variant: str,
                  nu: float, dt: float, device, order: int = 5,
                  global_shape=None, overlap_split: bool = False,
-                 steps_per_exchange: int = 1):
+                 steps_per_exchange: int = 1, exchange: str = "collective",
+                 mesh_axis=None, num_shards=None):
         if order != 5:
             raise NotImplementedError(
                 "K6's WENO7 instance is not ported yet")
@@ -746,6 +1061,9 @@ class SlabRunBurgersStepper(_SlabRunStepper):
         self._init_sharded(global_shape, overlap_split, steps_per_exchange)
         d = self.exchange_depth if self.sharded else 0
         self.core_offsets = (d, 0, 0)
+        lz, ny, nx = self.interior_shape
+        self.padded_shape = (lz + 2 * d, ny, nx)
+        self._init_exchange(exchange, mesh_axis, num_shards)
 
     def embed(self, u):
         u = u.to(device=self.device, dtype=self.dtype, copy=True)
@@ -780,6 +1098,10 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     def _whole_run(self, S0, S1, num_iters: int):
         return slab_run_burgers(S0, S1, num_iters, self.dt,
                                 params=self.params)
+
+    def _whole_run_dma(self, S0s, S1s, lands, num_iters: int):
+        return slab_run_dma_burgers(S0s, S1s, lands, num_iters, self.dt,
+                                    params=self.params, k=self.k)
 
     def _whole_run_batched(self, S0, S1, num_iters: int):
         return slab_run_burgers_batched(S0, S1, num_iters, self.dt,

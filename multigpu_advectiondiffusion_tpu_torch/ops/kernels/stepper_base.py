@@ -56,6 +56,11 @@ class FusedStepperBase:
     device_scalars = False
     sharded = False
     overlap_split = False
+    # the halo transport and the declared in-kernel exchange (JAX
+    # ``stepper_base.py:87``): the per-stage steppers exchange between
+    # launches; only the slab rung moves ghost rows inside a kernel (K4)
+    exchange = "collective"
+    remote_dma = None
 
     def _dt_value(self) -> np.float32:
         raise NotImplementedError

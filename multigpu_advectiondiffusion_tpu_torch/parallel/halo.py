@@ -13,8 +13,12 @@ decomposed.
 sends (the two ghost slabs of a site, summed over shards and calls):
 the JAX package's ``halo.bytes_per_execution`` counter, kept as a plain
 count until the telemetry sink is ported (ROADMAP queue 1 item 11).
-The in-kernel remote-DMA exchange (``remote_dma_spec``,
-``record_remote_dma``) waits with its kernel K4 (item 8e).
+The in-kernel exchange of the slab rung's ``exchange="dma"`` (K4, which
+moves the ghost rows inside its one launch for every shard of the card)
+has no exchange site here: :func:`remote_dma_spec` declares it and
+:func:`record_remote_dma` counts its bytes
+(``record_remote_dma.bytes_per_execution``, the JAX package's
+``halo.dma_bytes_per_execution``, a plain count like the one above).
 """
 
 from __future__ import annotations
@@ -67,6 +71,37 @@ def exchange_spec() -> dict:
     }
 
 
+def remote_dma_spec() -> dict:
+    """Queryable metadata of the in-kernel halo exchange (the JAX
+    package's, for ``fused_slab_run._whole_run_dma_kernel``, K4 in the
+    port): its traffic is counted by ``halo.dma_bytes_per_execution``
+    (:func:`record_remote_dma`) in place of the ``ppermute`` pair."""
+    return {
+        "kernel": "fused-whole-run-slab",
+        "counters": ("halo.dma_bytes_per_execution",),
+        "events": (("halo", "in_kernel"),),
+    }
+
+
+def record_remote_dma(kernel: str, plane_shape, itemsize: int,
+                      window_rows: int, blocks: int, mesh_axis) -> int:
+    """Count one shard's in-kernel exchange of a run: two
+    ``window_rows``-deep windows of the padded trailing plane pushed per
+    block, ``blocks`` blocks (the initial push included: ``ceil(num_iters
+    / k)``), the JAX package's ``2 * window_rows * plane * itemsize *
+    blocks``. Added to ``record_remote_dma.bytes_per_execution`` (summed
+    over shards and runs) and returned. ``kernel`` and ``mesh_axis``
+    label the JAX package's telemetry event, which waits with the
+    telemetry sink (ROADMAP queue 1 item 11)."""
+    del kernel, mesh_axis
+    plane = int(itemsize)
+    for n in plane_shape:
+        plane *= int(n)
+    nbytes = 2 * int(window_rows) * plane * int(blocks)
+    record_remote_dma.bytes_per_execution.add(nbytes)
+    return nbytes
+
+
 def exchange_ghosts(u: torch.Tensor, axis: int, halo: int, mesh_axis,
                     num_shards: int, bc: Boundary, repeats: int = 1,
                     wire_dtype=None):
@@ -109,6 +144,7 @@ def exchange_ghosts(u: torch.Tensor, axis: int, halo: int, mesh_axis,
 
 
 exchange_ghosts.bytes_per_execution = _Count()
+record_remote_dma.bytes_per_execution = _Count()
 
 
 def exchange_axis(u: torch.Tensor, axis: int, halo: int, mesh_axis,

@@ -18,7 +18,10 @@ the port:
   :func:`pmax` and :func:`psum` give ``jax.lax``'s results: every
   collective is a rendezvous of all the mesh's shards, where each posts
   a snapshot of what it sends (a copy nobody writes again) and takes
-  what it needs from the others' posts.
+  what it needs from the others' posts;
+* :func:`launch_group` is the rendezvous of a kernel that serves every
+  shard of the card in one launch (K4, the in-kernel exchange): each
+  shard posts its live buffers, one leader launches.
 
 On CUDA each shard runs on a stream of its own (one per shard and
 mesh, kept for the mesh's life so the caching allocator's pools stay
@@ -496,6 +499,50 @@ def psum(x, names):
     for v in vals[1:]:
         acc = acc + v
     return acc
+
+
+def launch_group(tensors: Sequence[torch.Tensor],
+                 launch: Callable[[list], object]) -> None:
+    """One kernel launch for every shard of the mesh (K4's launch group):
+    each shard posts its LIVE ``tensors`` (not a snapshot: the launch
+    writes them in place) and the leader, rank 0, calls ``launch`` once
+    with every shard's list in rank order. On CUDA each shard records
+    its event after its pending work and the leader's stream waits on
+    every one before the launch; the leader records an event after it,
+    which every shard's stream waits on before it goes on, and
+    ``record_stream`` keeps each shard's memory from reuse while the
+    leader's stream may still use it. On the CPU the same rendezvous
+    runs ``launch`` (the kernel's twin) once for all shards. The
+    rendezvous keeps the collectives' abort and timeout rules. A mesh
+    whose shards sit on more than one device raises: a launch group
+    spans one card, and cross-card K4 is not ported."""
+    shard = _shard()
+    if len(set(shard.mesh.device_list())) > 1:
+        raise NotImplementedError(
+            "the in-kernel exchange (K4) runs every shard of a mesh in one "
+            "launch on one device; shards on several devices are not "
+            "ported yet (ROADMAP queue 1 item 8g)")
+    ev = None
+    if shard.cuda:
+        ev = shard.mesh.event(shard.rank)
+        ev.record(torch.cuda.current_stream(shard.device))
+    posts = shard.group.gather(shard.rank, (list(tensors), ev))
+    done = None
+    if shard.rank == 0:
+        if shard.cuda:
+            stream = torch.cuda.current_stream(shard.device)
+            for _, e in posts:
+                stream.wait_event(e)
+        launch([ts for ts, _ in posts])
+        if shard.cuda:
+            done = torch.cuda.Event()
+            done.record(stream)
+            for ts, _ in posts:
+                for t in ts:
+                    t.record_stream(stream)
+    dones = shard.group.gather(shard.rank, done)
+    if shard.cuda:
+        torch.cuda.current_stream(shard.device).wait_event(dones[0])
 
 
 @contextlib.contextmanager

@@ -4,9 +4,10 @@ B-folded slab kernel of the ensemble engine, K11/K11b and K12/K12b,
 its per-axis kernels, and the mesh slice — K1's and K5's sharded
 instances and K3, the windowed slab step, with the sharded runs of a
 two-shard mesh on one card, K8/K8b, the sharded 2-D stages, and K9's
-sharded instance, with the 2-D and ADR mesh runs — against their plain
-PyTorch twins on a GPU. Marked ``cuda``: it skips where no CUDA
-device is present.
+sharded instance, with the 2-D and ADR mesh runs, and K4, the sharded
+run of every shard of the card with the ghost rows moved inside the
+kernel — against their plain PyTorch twins on a GPU. Marked ``cuda``:
+it skips where no CUDA device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
 has no JAX, with the JAX-side conftest switched off::
@@ -1086,3 +1087,116 @@ def test_2d_and_adr_mesh_runs_match_unsharded(gpu_2d_mesh, family, extra,
         k: 5 * launches.get(k, 0) for k in counters}
     assert got.t == want.t
     assert torch.equal(got.u.assemble(), want.u)
+
+
+# --------------------------------------------------------------------- #
+# K4: the whole sharded run, every shard of the card in one launch
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def gpu_k4():
+    if not torch.cuda.is_available():
+        pytest.skip("K4 (csrc/fused_step_diffusion.cu slab_run_dma_diffusion,"
+                    " csrc/slab_run_burgers.cu slab_run_dma_burgers) needs a "
+                    "CUDA device")
+    return torch.device("cuda")
+
+
+K4_CASES = [  # (family, shards, core planes, k, steps)
+    ("diffusion", 2, 24, 1, 3), ("diffusion", 2, 24, 4, 7),
+    ("diffusion", 3, 26, 2, 5), ("diffusion", 4, 24, 1, 2),
+    ("js-burgers-viscous", 2, 27, 1, 3), ("js-burgers-viscous", 3, 27, 2, 5),
+    ("z-buckley", 2, 27, 1, 3), ("z-buckley", 3, 27, 2, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,shards,lz,k,steps", K4_CASES)
+def test_k4_matches_twin(gpu_k4, family, shards, lz, k, steps):
+    """K4 on random shard buffers: every state and landing buffer 0 ulp
+    from its twin's after a run with a partial block, one launch."""
+    rng = np.random.default_rng(shards * 100 + k)
+    diffusion = family == "diffusion"
+    G = 3 * (fd.R if diffusion else fb.R)
+    depth, ring = k * G, fd.R if diffusion else 0
+    shape = (lz + 2 * depth, 29 + 2 * ring, 37 + 2 * ring)
+    S0 = [_rand(rng, shape, gpu_k4) for _ in range(shards)]
+    if diffusion:
+        for S in S0:
+            S[:, :ring] = S[:, -ring:] = 0.25
+            S[:, :, :ring] = S[:, :, -ring:] = 0.25
+    S1 = [_rand(rng, shape, gpu_k4) for _ in range(shards)]
+    lands = [_rand(rng, (2, 2, depth) + shape[1:], gpu_k4)
+             for _ in range(shards)]
+    gnz = shards * lz
+    if diffusion:
+        kw = dict(taps=fd.stage_taps((0.1, 0.2, 0.3), (1.0, 0.5, 2.0)),
+                  band=2, bc_value=0.25)
+        run, dt, zchunk = fsr.slab_run_dma_diffusion, 1e-3, 5
+
+        def step(S, out, window, oz):
+            fsr.slab_step_diffusion_reference(
+                S, out, dt, global_nz=gnz, oz=oz, depth=depth,
+                window=window, **kw)
+    else:
+        name, fkw, variant, nu = K5_CASES[family]
+        kw = dict(params=fb.stage_params(pflux.get(name, **fkw), variant,
+                                         (0.05, 0.07, 0.09), nu))
+        run, dt, zchunk = fsr.slab_run_dma_burgers, 0.015, 7
+
+        def step(S, out, window, oz):
+            fsr.slab_step_burgers_reference(
+                S, out, dt, global_nz=gnz, oz=oz, depth=depth,
+                window=window, **kw)
+    got = [[t.clone() for t in ts] for ts in (S0, S1, lands)]
+    want = [[t.clone() for t in ts] for ts in (S0, S1, lands)]
+    before = run.launches
+    run(*got, steps, dt, k=k, zchunk=zchunk, **kw)
+    torch.cuda.synchronize()
+    assert run.launches == before + 1
+    fsr.slab_run_dma_reference(step, *want, steps, k=k, G=G)
+    for a, b in zip(sum(got, []), sum(want, [])):
+        assert torch.equal(a, b)
+
+
+DMA_RUNS = [  # (family, config, shards)
+    ("diffusion", {}, 2), ("diffusion", {"steps_per_exchange": 4}, 2),
+    ("diffusion", {"steps_per_exchange": 2}, 4),
+    ("burgers", {}, 2), ("burgers", {"weno_variant": "z",
+                                     "steps_per_exchange": 2}, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,extra,shards", DMA_RUNS)
+def test_dma_run_on_one_card_matches_collective_and_unsharded(
+        gpu_k4, family, extra, shards):
+    """``exchange="dma"`` on a z-slab mesh of shards on one card: one K4
+    launch a run, no K3 launch, and the collective K3 run and the
+    unsharded K2/K6 run to the bit, ``t`` equal."""
+    from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import make_mesh
+
+    grid = Grid.make(37, 29, 96, lengths=2.0)
+    if family == "diffusion":
+        cls, cfg = DiffusionSolver, DiffusionConfig(
+            grid=grid, impl="pallas_slab", **extra)
+        k4, k3 = fsr.slab_run_dma_diffusion, fsr.slab_step_diffusion
+    else:
+        cls, cfg = BurgersSolver, BurgersConfig(
+            grid=grid, impl="pallas_slab", adaptive_dt=False, nu=1e-5,
+            **extra)
+        k4, k3 = fsr.slab_run_dma_burgers, fsr.slab_step_burgers
+
+    def mesh():
+        return make_mesh({"dz": shards}, devices=[gpu_k4] * shards,
+                         timeout=60)
+
+    dma = cls(dataclasses.replace(cfg, exchange="dma"), mesh=mesh())
+    coll = cls(cfg, mesh=mesh())
+    one = cls(dataclasses.replace(cfg, steps_per_exchange=1))
+    k4.launches = k3.launches = 0
+    got = dma.run(dma.initial_state(), 7)
+    torch.cuda.synchronize()
+    assert (k4.launches, k3.launches) == (1, 0)
+    want = coll.run(coll.initial_state(), 7)
+    ref = one.run(one.initial_state(), 7)
+    assert got.t == want.t == ref.t
+    assert torch.equal(got.u.assemble(), want.u.assemble())
+    assert torch.equal(got.u.assemble(), ref.u)

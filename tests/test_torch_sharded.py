@@ -355,17 +355,20 @@ def test_dispatch_matches_jax(case):
                                  impl="pallas"), mesh=m), None),
     (lambda m: PDSolver(PDConfig(grid=PGrid.make(8, 8, 8), impl="pallas",
                                  precision="bf16"), mesh=m), "bf16"),
-    (lambda m: PDSolver(PDConfig(grid=PGrid.make(8, 8, 8),
+    # exchange="dma" runs now (K4), on a grid whose shards serve it
+    (lambda m: PDSolver(PDConfig(grid=PGrid.make(8, 8, 24),
                                  impl="pallas_slab", exchange="dma"),
-                        mesh=m), "item 8e"),
+                        mesh=m), None),
 ])
 def test_unported_mesh_configs_raise(make, match):
     """What a mesh still refuses raises and names its ROADMAP item; the
-    configs that raised before K8/K8b and the sharded K9 (items 8b, 8c)
-    engage their fused rung and run a step."""
+    configs that raised before K8/K8b, the sharded K9 (items 8b, 8c) and
+    K4 (item 8e) engage their fused rung and run a step."""
     if match is None:
         solver = make(_mesh({"dz": 2}))
-        assert solver.engaged_path()["stepper"] == "fused-stage"
+        assert solver.engaged_path()["stepper"] == (
+            "fused-whole-run-slab" if solver.cfg.exchange == "dma"
+            else "fused-stage")
         state = solver.initial_state()
         out = solver.run(state, 1)
         assert out.it == 1 and torch.isfinite(out.u.assemble()).all()
