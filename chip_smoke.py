@@ -81,14 +81,18 @@ ignored ``build/`` directory), then:
    fixed-dt run) against its twin (three K5-twin stages a step) to the
    bit at 400x400x406 and at the odd shape (WENO5-Z, viscous, linear
    and Buckley-Leverett fluxes); times it alone for each z-chunk of
-   ``K6_ZCHUNKS``; drives ``MultiGPU/Burgers3d_Baseline`` on one card
+   ``K6_ZCHUNKS`` and the planned one (``fused_slab_run.burgers_zchunk``),
+   with the grid's blocks, the jobs and waves a step and the operation
+   rate against 67 and 33.5 T/s; drives ``MultiGPU/Burgers3d_Baseline``
+   on one card
    (400x400x406, lengths 2 2 4, CFL 0.3, fixed dt, ``run(267)``,
    ``impl="pallas_slab"``): one launch, u inside [-1e-6, 1.05],
    agreement with the generic path at 10 steps, the K5 path on the
    same config, the operations bound;
-15. times the per-stage and the slab paths on the slab gates' grids and
-   prints which was faster and which the gate picks (reported, not
-   held);
+15. times the per-stage and the slab paths on the slab gates' grids
+   (Burgers: both paths in turn, ``GATE_ROUNDS`` rounds, with their
+   spread) and prints which was faster and which the gate picks
+   (reported, not held);
 16. holds the per-axis Laplacian kernels (K11 in 3-D, K11b in 2-D)
    against their plain twin at 400x200x206, 512^3, 1001^2 and the odd
    shapes (``<= 32 eps`` of max|twin|, the ulp count printed); times
@@ -158,7 +162,8 @@ ignored ``build/`` directory), then:
    for diffusion, 400x400x203 for Burgers): the per-step window, the
    split schedule's bottom ("lo") and top ("hi") calls on exchanged
    operands, and the k = 4 deep windows, on the first and the last shard;
-   times K3 alone beside its bound and the twin;
+   times K3 alone beside its bound and the twin, and prints Burgers K3's
+   jobs and waves a step and its operation rate;
 29. drives ``MultiGPU/Diffusion3d_Baseline`` on a ``{"dz": 2}`` mesh with
    both shards on ``cuda:0`` (400x200x206, ``run(101)``): K1 serialized
    (606 launches), K1 split (1,818), K3 (202) and K3 with
@@ -214,7 +219,8 @@ ignored ``build/`` directory), then:
    main shards' shapes: diffusion 400x200x103 on two shards at k = 1 (3
    steps) and k = 4 (5 steps: a partial block), 400x200x52 on four
    shards, Burgers 400x400x203 WENO5-JS and WENO5-Z at k = 1 and JS at
-   k = 2 (3 steps); times K4 alone at k = 1 beside its twin;
+   k = 2 (3 steps); times K4 alone at k = 1 beside its twin, and prints
+   Burgers K4's grid blocks, jobs and waves a step and operation rate;
 39. drives ``MultiGPU/Diffusion3d_Baseline`` on ``{"dz": 2}`` with
    ``exchange="dma"`` at k = 1 and k = 4, ``run(101)``: the labels, one K4
    launch and no other (no K3), no collective halo byte and the in-kernel
@@ -299,6 +305,9 @@ KERNEL_TOL = 32 * EPS32  # relative to max|twin|, the JAX suite's fused bound
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, f32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# with -fmad=false every product and sum issues alone: one f32 operation
+# a lane a cycle, 16,896 lanes at 1.98 GHz, half the rate above
+F32_NOFMA_OPS_PER_S = F32_OPS_PER_S / 2
 
 REF_N = (400, 200, 206)  # physical nx, ny, nz (Run.m)
 REF_LENGTHS = (10.0, 5.0, 5.15)
@@ -345,7 +354,7 @@ K6_LENGTHS = (2.0, 2.0, 4.0)
 K6_CFL = 0.3
 K6_ITERS = 267
 K6_CHECK_ITERS = 10  # steps held against the generic path, before the shock
-K6_ZCHUNKS = (32, 64, 102, 406)  # z planes a K6 block marches, timed
+K6_ZCHUNKS = (58, 68, 102, 136, 203, 406)  # z planes a K6 job, timed
 # phase 15: physical (nx, ny, nz) of the grids each gate is measured on,
 # from JAX's ladder grid to the main configurations
 SWEEP_DIFFUSION = ((24, 16, 16), (32, 32, 32), (64, 64, 64),
@@ -353,6 +362,7 @@ SWEEP_DIFFUSION = ((24, 16, 16), (32, 32, 32), (64, 64, 64),
 SWEEP_BURGERS = ((24, 16, 16), (64, 64, 64), (160, 160, 162), K6_N,
                  (512, 512, 512))
 SWEEP_BURGERS_ITERS = 20
+GATE_ROUNDS = 5  # the Burgers gate's K5 and K6 timings, taken in turn
 # every launch counter, reset before each main path and read after it
 COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K7": wr.whole_run, "K7a": wr.whole_run_adaptive,
@@ -1615,6 +1625,26 @@ def k6_step_ops(shape, viscous: bool, variant: str) -> int:
             + 2 * k5_stage_ops(shape, True, viscous, variant))
 
 
+def schedule_report(name, ms_step: float, window: int, shape, units: int,
+                    blocks: int, ops: float, card: str,
+                    grid: str = "") -> None:
+    """Print a slab Burgers kernel's schedule and rate: ``blocks``
+    resident blocks (``grid`` says what the launch was, where it is not
+    those blocks), one step's jobs and waves (jobs a resident block) on
+    a ``window``-plane output window of ``units`` tiles' sets (members
+    or shards), as ``fused_slab_run.burgers_schedule`` plans them, and
+    ``ops`` (the operations of a step, each face once) over ``ms_step``
+    against 67 and 33.5 T/s. Reported, not held."""
+    plan = fsr.burgers_schedule(window, shape[1], shape[2], blocks,
+                                units=units)
+    rate = ops / (ms_step * 1e-3)
+    print(f"  {name}: {blocks} resident blocks{grid}; a step {plan['jobs']} "
+          f"jobs of {plan['chunk_planes']} planes ({plan['tiles']} tiles x "
+          f"{units} x {plan['chunks']} chunks), {plan['waves']:.2f} waves; "
+          f"{rate / 1e12:.2f} T operations/s, {rate / F32_OPS_PER_S:.3f} of "
+          f"67 and {rate / F32_NOFMA_OPS_PER_S:.3f} of 33.5 T/s [{card}]")
+
+
 def slab_burgers_phases(card: str) -> dict:
     """Phase 14; returns K6's entry."""
     grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
@@ -1654,7 +1684,8 @@ def slab_burgers_phases(card: str) -> dict:
     state0 = solver.initial_state()
     A, B = state0.u.clone(), torch.empty_like(state0.u)
     sweep = {z: median_ms(lambda: fsr.slab_run_burgers(
-        A, B, 5, dt, params=params, zchunk=z)) / 5 for z in K6_ZCHUNKS}
+        A, B, 5, dt, params=params, zchunk=z)) / 5
+        for z in (*K6_ZCHUNKS, None)}
     blocks = []
     fsr.slab_run_burgers(A, B, 1, dt, params=params, grid_blocks=blocks)
     plain_step = cuda_ms(lambda: fsr.burgers_step_reference(
@@ -1663,11 +1694,15 @@ def slab_burgers_phases(card: str) -> dict:
     torch.cuda.empty_cache()
     ops = k6_step_ops(grid.shape, False, cfg.weno_variant)
     bound = 1e3 * max(8 * cells / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
-    print(f"  K6 alone at {grid.shape}, run(5), by zchunk "
-          f"{ {z: round(v, 4) for z, v in sweep.items()} } ms a step on "
-          f"{blocks[0]} blocks of 256; twin {plain_step:.1f} ms a step; "
-          f"bound {bound:.4f} ms a step (operations: {ops / 1e9:.2f} G, "
-          f"each face once) [{card}]")
+    planned = fsr.burgers_schedule(grid.shape[0], grid.shape[1],
+                                   grid.shape[2], blocks[0])["chunk_planes"]
+    print(f"  K6 alone at {grid.shape}, run(5), by z planes a job "
+          f"{ {z: round(v, 4) for z, v in sweep.items() if z} } ms a step, "
+          f"planned ({planned}) {sweep[None]:.4f}; twin {plain_step:.1f} ms "
+          f"a step; bound {bound:.4f} ms a step (operations: "
+          f"{ops / 1e9:.2f} G, each face once) [{card}]")
+    schedule_report("K6 alone", sweep[None], grid.shape[0], grid.shape, 1,
+                    blocks[0], ops, card)
 
     print(f"phase 14: the Burgers slab path, fixed dt, run({K6_ITERS}) at "
           f"{grid.shape}")
@@ -1721,8 +1756,6 @@ def slab_burgers_phases(card: str) -> dict:
         "ms": ms / K6_ITERS,
         "run_ms": ms,
         "ms_isolated_by_zchunk": {str(z): v for z, v in sweep.items()},
-        "zchunk": fsr.BURGERS_Z_CHUNK,
-        "grid_blocks": blocks[0],
         "plain_ms": plain_step, "bound_ms": bound, "bound_by": "operations",
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes an RK step",
@@ -1733,8 +1766,9 @@ def slab_burgers_phases(card: str) -> dict:
 
 def gate_sweep(card: str) -> None:
     """Phase 15: the per-stage and the slab paths timed on the gates'
-    grids (median of 3 after a warm-up); which was faster and which the
-    gate picks. Reported, not held."""
+    grids (diffusion: median of 3 after a warm-up; Burgers: after a
+    warm-up, ``GATE_ROUNDS`` rounds of one run of each path in turn);
+    which was faster and which the gate picks. Reported, not held."""
     print(f"phase 15: the slab gates (K2 against K1, run({ITERS}); K6 "
           f"against K5 at fixed dt, run({SWEEP_BURGERS_ITERS}))")
     for n in SWEEP_DIFFUSION:
@@ -1753,21 +1787,33 @@ def gate_sweep(card: str) -> None:
               f"picks {gate} [{card}]")
     for n in SWEEP_BURGERS:
         grid = Grid.make(*n, lengths=K6_LENGTHS)
-        ms = {}
+        runs = {}
         for impl in ("pallas_stage", "pallas_slab"):
             s = BurgersSolver(BurgersConfig(grid=grid, cfl=K6_CFL,
                                             adaptive_dt=False, impl=impl))
-            s0 = s.initial_state()
-            ms[impl] = median_ms(
-                lambda: s.run(s0, SWEEP_BURGERS_ITERS)) / SWEEP_BURGERS_ITERS
-            del s, s0
-            torch.cuda.empty_cache()
-        faster = "K6" if ms["pallas_slab"] < ms["pallas_stage"] else "K5"
+            runs[impl] = (s, s.initial_state())
+            s.run(runs[impl][1], SWEEP_BURGERS_ITERS)  # warm-up
+        # the two paths in turn, one timed run each a round
+        ms = {impl: [] for impl in runs}
+        for _ in range(GATE_ROUNDS):
+            for impl, (s, s0) in runs.items():
+                ms[impl] += [t / SWEEP_BURGERS_ITERS for t in cuda_ms(
+                    lambda: s.run(s0, SWEEP_BURGERS_ITERS), 1)]
+        del runs, s, s0
+        torch.cuda.empty_cache()
+        k5, k6 = sorted(ms["pallas_stage"]), sorted(ms["pallas_slab"])
+        # faster only beyond the spread: every round of one path below
+        # every round of the other
+        faster = ("K6" if k6[-1] < k5[0] else "K5" if k5[-1] < k6[0]
+                  else "neither beyond the spread")
         gate = ("K6" if fsr.SlabRunBurgersStepper.profitable(
             grid.shape, torch.float32) else "K5")
         print(f"  Burgers {grid.shape} ({grid.num_cells} cells): ms/step "
-              f"K5 {ms['pallas_stage']:.5f}, K6 {ms['pallas_slab']:.5f}; "
-              f"faster {faster}; the gate picks {gate} [{card}]")
+              f"over {GATE_ROUNDS} rounds, median [min, max]: K5 "
+              f"{statistics.median(k5):.5f} [{k5[0]:.5f}, {k5[-1]:.5f}], "
+              f"K6 {statistics.median(k6):.5f} [{k6[0]:.5f}, "
+              f"{k6[-1]:.5f}]; faster {faster}; the gate picks {gate} "
+              f"[{card}]")
 
 
 # --------------------------------------------------------------------- #
@@ -2652,7 +2698,8 @@ def k2b_main_phase(family: str, B: int, iters: int, twin_err: float,
     mlups = cells * B * iters * 3 / (ms * 1e-3) / 1e6
     peak = peak_gb(lambda: es.run(est, iters, donate=False))
     print(f"  K2b {family} alone, B={B}, run({iters}): median {ms:.3f} ms of "
-          f"{[round(r, 3) for r in reps]} on {blocks[0]} blocks of 256; "
+          f"{[round(r, 3) for r in reps]} on {blocks[0]} blocks of "
+          f"{256 if family == 'diffusion' else 768}; "
           f"{ms * 1e9 / (cells * B * iters):.1f} ps a member-cell-step; "
           f"{mlups:.0f} MLUPS*members; bound {bound:.3f} ms ({by}); twin "
           f"{plain_ms:.1f} ms; peak memory of the ensemble run "
@@ -3085,6 +3132,12 @@ def mesh_phases(card: str) -> list[dict]:
                                                  params=params, **kw),
         lambda S, o, **kw: fsr.slab_step_burgers_reference(
             S, o, bone.dt, params=params, **kw), BG, 0, None, card)
+    # a K3 launch is a plain grid of one block a job, resident one an SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    schedule_report(
+        "K3 burgers alone (one shard's step)", k3b["ms"], blz, bshape, 1,
+        sms, k6_step_ops(bshape, False, bcfg.weno_variant), card,
+        grid=" (one an SM; the launch: one block a job)")
 
     print(f"phase 29: MultiGPU/Diffusion3d_Baseline on {{'dz': 2}} "
           f"(cuda:0 twice), run({ITERS}) at {grid.shape}")
@@ -3756,7 +3809,7 @@ def k4_alone(name, run, step_ref, P, lz, G, ny, nx, ring, steps,
     del bufs
     torch.cuda.empty_cache()
     print(f"  K4 {name} alone, P={P} x {lz} planes, run({steps}): "
-          f"{ms:.4f} ms a step on {blocks[0]} blocks of 256; twin "
+          f"{ms:.4f} ms a step on {blocks[0]} blocks; twin "
           f"{plain:.2f} ms a step [{card}]")
     return {"ms": ms, "plain_ms": plain, "grid_blocks": blocks[0]}
 
@@ -3919,6 +3972,9 @@ def k4_phases(card: str) -> list[dict]:
                        fd.R, ITERS, card)
     b_alone = k4_alone("burgers", brun("js"), bref("js"), MESH_SHARDS, blz,
                        BG, bny, bnx, 0, MESH_TIME_ITERS, card)
+    schedule_report(
+        "K4 burgers alone", b_alone["ms"], blz, bgrid.shape, MESH_SHARDS,
+        b_alone["grid_blocks"], k6_step_ops(bgrid.shape, False, "js"), card)
 
     print(f"phase 39: MultiGPU/Diffusion3d_Baseline on {{'dz': 2}} "
           f"(cuda:0 twice), exchange='dma', run({ITERS}) at {grid.shape}")

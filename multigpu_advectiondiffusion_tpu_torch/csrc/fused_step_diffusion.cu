@@ -467,29 +467,41 @@ namespace {
 
 // K4: n_iters steps of every shard in sh, k steps a block (G = 3R).
 // p carries the global shape, the physics and the tiling (p.jobs: tiles
-// a plane); each job's window and rows are set here.
+// a plane); each job's window and rows are set here. A step's jobs are
+// numbered chunk-major over (chunk, shard, tile), so every shard's last
+// (remnant) chunks come last; each block takes blockIdx.x first, then
+// the next number from the step parity's counter (`counters`, 2 ints;
+// next_job and reset_counter, csrc/slab_dma.cuh).
 __global__ void __launch_bounds__(THREADS)
-slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters) {
+slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
+                    int* counters) {
   extern __shared__ float sm[];
+  __shared__ int claimed;
   cg::grid_group grid = cg::this_grid();
   constexpr int G = 3 * R;
   const int tiles = p.jobs;
+  const int per_chunk = tiles * sh.n;
   for (int s = 0; s < n_iters; ++s) {
     const int j = s % k;
     const int par = s & 1;
     if (j == 0) dma_exchange(sh, par, s / k, grid);
+    reset_counter(counters, s);
     const int w = (k - 1 - j) * G;
     Args q = p;
     q.chunks = (lz + 2 * w + p.zchunk - 1) / p.zchunk;
-    const int per_shard = tiles * q.chunks;
-    for (int job = blockIdx.x; job < sh.n * per_shard; job += gridDim.x) {
-      const int i = job / per_shard;
+    const int jobs = per_chunk * q.chunks;
+    for (int job = blockIdx.x; job < jobs;
+         job = next_job(&counters[par], &claimed)) {
+      const int chunk = job / per_chunk;
+      const int rest = job - chunk * per_chunk;
+      const int i = rest / tiles;
       const int oz = i * lz;
       q.z_lo = oz - w;
       q.z_hi = oz + lz + w;
       q.row_off = sh.depth - oz;
+      // step_tile numbers a window's jobs tile-major, chunk fastest
       step_tile(dma_state(sh, par, i), dma_state(sh, par ^ 1, i), q,
-                job - i * per_shard, sm);
+                (rest - i * tiles) * q.chunks + chunk, sm);
     }
     grid.sync();
   }
@@ -506,17 +518,20 @@ slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters) {
 // odd) and writes the other, so the result is in s0 when n_iters is even
 // and in s1 when it is odd; at the start of every block of k steps the
 // shards' ghost rows are exchanged through the landing buffers
-// (csrc/slab_dma.cuh). `taps` points to 15 host floats. `grid_blocks`,
-// when not null, receives the grid's block count. Returns the first CUDA
+// (csrc/slab_dma.cuh). `taps` points to 15 host floats. `counters`
+// points to 2 device ints, both zero at the launch (the steps' job
+// counters; the launch leaves them dirty). `grid_blocks`, when not
+// null, receives the grid's block count. Returns the first CUDA
 // error (0 on success); does not synchronise.
 extern "C" int slab_run_dma_diffusion(float* const* s0, float* const* s1,
                                       float* const* land, int shards, int lz,
                                       int k, int ny, int nx,
                                       const float* taps, float dt, int band,
                                       float bc_value, int zchunk, int n_iters,
-                                      int* grid_blocks, void* stream) {
+                                      int* counters, int* grid_blocks,
+                                      void* stream) {
   if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
-      lz < k * 3 * R)
+      lz < k * 3 * R || counters == nullptr)
     return (int)cudaErrorInvalidValue;
   Args p;
   cudaError_t e = make_args(p, shards * lz, ny, nx, taps, dt, band, bc_value,
@@ -562,7 +577,7 @@ extern "C" int slab_run_dma_diffusion(float* const* s0, float* const* s1,
   const int blocks = (int)(jobs < resident ? jobs : resident);
   if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
-  void* args[] = {&sh, &p, &lz, &k, &n_iters};
+  void* args[] = {&sh, &p, &lz, &k, &n_iters, &counters};
   e = cudaLaunchCooperativeKernel((const void*)slab_run_dma_kernel, blocks,
                                   THREADS, args, SMEM_BYTES,
                                   static_cast<cudaStream_t>(stream));

@@ -45,24 +45,57 @@
 //
 // Rounding: built with -fmad=false, like K5, with K5's device functions
 // (csrc/weno5.cuh) evaluated in K5's order, so the kernel equals its
-// twin to the bit.
+// twin to the bit. A face flux is a function of its ten split values
+// only, whichever cell asks for it, so computing it once keeps the bits.
 //
-// Design. A block owns a 32x32 (y, x) output tile and a chunk of zchunk z
-// planes and marches z; the windows narrow by r = 3 cells a stage:
-// S 50x50, t1 44x44, t2 38x38, out 32x32. Shared memory keeps a ring of
-// z planes per stage, only planes inside the domain: 10 of S (t1 needs
-// planes m-6..m, and the a*u terms of stages 2 and 3 read planes m-6 and
-// m-9), 7 each of t1 and t2 -- 194,640 bytes, one block to an SM.
-// Iteration m loads S plane m, computes t1 plane m-3, t2 plane m-6 and
-// the output plane m-9, with a __syncthreads() after each. Every read is
-// clamped into the domain: in z through the ring's plane index, in y and
-// x through the position a window cell stands for (a cell outside the
-// domain computes the stage at the clamped cell, so it holds the same
-// replica as fill). Each cell's stage is K5's per-cell arithmetic: seven
-// neighbours an axis from shared memory, split, two faces an axis.
-// Recompute factor: per output cell of a full tile, 1.89 + 1.41 + 1 =
-// 4.30 stage evaluations for 3 (1.43x); each z chunk adds 18 loaded and
-// 18 computed planes at its two ends.
+// Design. A block of 768 threads (24 warps; 512 were slower, 1,024
+// spill) owns a 32x32 (y, x) output tile and a chunk of z planes
+// and marches z; stage s's output window is 32 + 6(3-s) cells a side
+// (t1 44, t2 38, out 32) and its input window 6 wider (S 50, t1 44, t2
+// 38). Only in-domain cells are evaluated; every read of a stage input
+// is clamped into the domain, which is the replica fill makes. Shared
+// memory (224,304 bytes, one block an SM) holds for each stage:
+//   a ring of 6 input planes, z-2 .. z+3 (the z face above z reads them),
+//     in-domain cells only;
+//   the split (f+, f-) of input plane z over the whole input window,
+//     computed once a cell (clamped reads, so no later read clamps);
+//   the x faces (WO rows of WO+1) and y faces (WO+1 rows of WO) of plane
+//     z, each computed once from the split plane, in runs of 3 along
+//     the line (weno5.cuh::face_run: the differences, curvatures and
+//     l-term products neighbouring faces share computed once).
+// The a*u terms of stages 2 and 3 read S at the cell from global memory
+// (L2), so S keeps no extra planes. A thread keeps the z face below each
+// of its cells in a register (3 + 2 + 2 of them): the face above plane z
+// is the face below z+1, so each z face is computed once, from the six
+// ring planes of its column split again (6 splits a cell a stage).
+// Iteration m loads S plane m and handles stage s on plane z_s = m - 3s
+// in five passes with four barriers: (1) the S plane and the split
+// planes of the three stages, (2) the x and y face runs of the three
+// stages in one loop, (3)-(5) the cells of stages 1, 2, 3, each writing
+// the next stage's ring (stage 3: the output). Stage s's first plane's
+// lower z face is computed one iteration early. Index arithmetic steps
+// (y, x) by constants: no division or modulo a cell.
+//
+// Measured (chip_smoke.py phase 14, H100 80GB HBM3, 700 W, 400x400x406
+// inviscid): 8.45 ms a step, against 15.5 for the body this replaced
+// and 6.3 for three K5 launches. Slower on the same card: S read from
+// global memory with one pass for every face and one for every cell;
+// 20x20 or 17x17 tiles at two blocks an SM (the windows' recompute
+// grows faster than the occupancy helps); one face an item. Against K5
+// the body evaluates 13.1 face fluxes an output cell a step, K5 18,
+// but at about half K5's rate an evaluation: one block of 24 warps an
+// SM that meets four barriers a plane, against K5's many blocks and
+// none.
+//
+// Schedule (K6, K2b, K4). A job is a (z chunk, member or shard, tile)
+// triple, numbered chunk-major, so the last chunk of every tile, the
+// remnant, comes last. Each block takes blockIdx.x first and then the
+// next number from an atomic counter, one counter a step parity (the
+// other is reset during the step, before the grid barrier that precedes
+// its reuse), so no step is rounded up to whole waves of equal slots.
+// The chunk length is the caller's (ops/kernels/fused_slab_run.py picks
+// it so that a window splits evenly); which block runs a job changes no
+// bit.
 //
 // Layout: the state is unpadded (nz, ny, nx) contiguous float32, K5's, at
 // most 2^31 - 1 cells (32-bit indices). K2b's buffers are B such states
@@ -75,14 +108,16 @@
 // grid.sync() orders every write of a step before the next step's reads.
 //
 // Bound on an H100: f32 operations. Counted as in K5's note, each face
-// once: 351 a cell in stage 1 and 353 in stages 2-3 (WENO5-JS, Burgers
-// flux, viscous), 1,057 a cell a step; WENO5-Z adds 30 a stage, an
-// inviscid run saves 30. At 400x400x406 that is 68.7 G operations a step,
-// 1.025 ms at 67 TFLOP/s; the bytes, 8 a cell a step, take 0.155 ms. As
-// written each face is computed twice from seven neighbours split again
-// for every cell and axis (K5's 717 operations a cell a stage), times the
-// windows' recompute: about 3.0x the count above. Face-once tiles and TMA
-// plane loads are later work.
+// once with shared differences: 351 a cell in stage 1 and 353 in stages
+// 2-3 (WENO5-JS, Burgers flux, viscous), 1,057 a cell a step; WENO5-Z
+// adds 30 a stage, an inviscid run saves 30. At 400x400x406 that is 68.7
+// G operations a step, 1.025 ms at 67 TFLOP/s; the bytes, 8 a cell a
+// step, take 0.155 ms. With -fmad=false no product and sum fuse, so the
+// f32 pipe issues one operation a lane a cycle: half of 67 TFLOP/s is
+// the most this kernel can reach. As written, a face in a run costs
+// about 102 operations, the z faces 119 and their six splits, and the
+// windows recompute 4.30 stage evaluations for 3: about 1,650
+// operations an output cell a step, 1.6x the count above.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,22 +129,32 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int R = 3;             // WENO5 reach
-constexpr int T = 32;            // output tile edge, y and x
-constexpr int W0 = T + 6 * R;    // S window edge: 50
-constexpr int W1 = T + 4 * R;    // t1 window edge: 44
-constexpr int W2 = T + 2 * R;    // t2 window edge: 38
-constexpr int NV = 3 * R + 1;    // S planes kept: m-9 .. m
-constexpr int N1 = 2 * R + 1;    // t1 planes kept
-constexpr int N2 = 2 * R + 1;    // t2 planes kept
-constexpr int THREADS = 256;
-constexpr int SMEM_BYTES =
-    (NV * W0 * W0 + N1 * W1 * W1 + N2 * W2 * W2) * (int)sizeof(float);
+constexpr int R = 3;           // WENO5 reach
+constexpr int T = 32;          // output tile edge, y and x
+constexpr int NR = 2 * R;      // ring planes of a stage input: z-2 .. z+3
+constexpr int THREADS = 768;
 constexpr long long MAX_CELLS = (1LL << 31) - 1;
 
 // SSP-RK3 stage combinations u_next = a*u + b*(v + dt*L(v))
 constexpr float A2 = (float)0.75, B2 = (float)0.25;
 constexpr float A3 = (float)(1.0 / 3.0), B3 = (float)(2.0 / 3.0);
+
+// Stage S_ (1, 2, 3) of a step: its windows and its shared memory.
+template <int S_>
+struct Win {
+  static constexpr int WO = T + 2 * R * (3 - S_);  // output window edge
+  static constexpr int WI = WO + 2 * R;            // input window edge
+  static constexpr int PLANE = WI * WI;
+  static constexpr int RING = NR * PLANE;
+  static constexpr int SPLIT = 2 * PLANE;            // f+ then f-
+  static constexpr int FX = WO * (WO + 1);            // x faces
+  static constexpr int FY = (WO + 1) * WO;            // y faces
+  static constexpr int SIZE = RING + SPLIT + FX + FY;
+  static constexpr int ROUNDS = (WO * WO + THREADS - 1) / THREADS;
+};
+constexpr int SMEM_BYTES =
+    (Win<1>::SIZE + Win<2>::SIZE + Win<3>::SIZE) * (int)sizeof(float);
+static_assert(SMEM_BYTES <= 232448, "over the H100's 227 KB a block");
 
 struct Args {
   int nz, ny, nx;  // global shape (K3: nz over every shard)
@@ -118,8 +163,9 @@ struct Args {
   int viscous;
   float c;          // speed of the linear flux
   float dt;
-  int zchunk;
-  int tiles_x, chunks, jobs;
+  int zchunk;       // z planes a job marches
+  int tiles_x, tiles;  // tiles along x, tiles a plane
+  int chunks;          // z chunks of the output window
   // where the planes lie: the output window [z_lo, z_hi) (global z), the
   // buffer row of global plane 0, the buffer's planes, its ghost rows a
   // side and the exchanged operands that stand in for them (or null)
@@ -127,11 +173,6 @@ struct Args {
   const float* lo;
   const float* hi;
 };
-
-__device__ __forceinline__ int slot(int plane, int n) {
-  const int r = plane % n;
-  return r < 0 ? r + n : r;
-}
 
 // Buffer row `row` of S, from an exchanged operand where one stands in.
 __device__ __forceinline__ const float* plane_of(const float* S,
@@ -143,170 +184,324 @@ __device__ __forceinline__ const float* plane_of(const float* S,
   return S + row * P;
 }
 
-// K5's stage at one cell from its z column W (planes k-3..k+3) and its y
-// and x rows Y and X (W[3] == Y[3] == X[3] is the cell): the same
-// operations in the same order as csrc/fused_burgers_stage.cu.
-template <int FLUX, bool WZ, bool HAS_U>
-__device__ __forceinline__ float stage_cell(const float* W, const float* Y,
-                                            const float* X, float u, float a,
-                                            float b, const Args& p) {
-  const float c = p.c;
-  float Zp[7], Zm[7], Yp[7], Ym[7], Xp[7], Xm[7];
-#pragma unroll
-  for (int q = 0; q < 7; ++q) {
-    split<FLUX>(W[q], c, Zp[q], Zm[q]);
-    split<FLUX>(Y[q], c, Yp[q], Ym[q]);
-    split<FLUX>(X[q], c, Xp[q], Xm[q]);
-  }
-  const float dz =
-      (face<WZ>(&Zp[1], &Zm[2]) - face<WZ>(&Zp[0], &Zm[1])) * p.inv_dx[0];
-  const float dy =
-      (face<WZ>(&Yp[1], &Ym[2]) - face<WZ>(&Yp[0], &Ym[1])) * p.inv_dx[1];
-  const float dx =
-      (face<WZ>(&Xp[1], &Xm[2]) - face<WZ>(&Xp[0], &Xm[1])) * p.inv_dx[2];
-  float rhs = -(dz + dy + dx);
-  if (p.viscous) {
-    float acc = W[1] * p.lap[0];
-#pragma unroll
-    for (int q = 1; q < 5; ++q) acc = acc + W[q + 1] * p.lap[q];
-#pragma unroll
-    for (int q = 0; q < 5; ++q) acc = acc + Y[q + 1] * p.lap[5 + q];
-#pragma unroll
-    for (int q = 0; q < 5; ++q) acc = acc + X[q + 1] * p.lap[10 + q];
-    rhs = rhs + acc;
-  }
-  float rk = b * (W[3] + p.dt * rhs);
-  if (HAS_U) rk = a * u + rk;
-  return rk;
+// A job's output window [z_lo, z_hi) and the buffer row of global
+// plane 0. Apart from Args, which the kernels read from their parameter
+// space: K4 sets it a job, and a local copy of Args would sit in local
+// memory.
+struct Window {
+  int z_lo, z_hi, row_off;
+};
+
+__device__ __forceinline__ Window window_of(const Args& p) {
+  return {p.z_lo, p.z_hi, p.row_off};
 }
 
-// One stage on plane z of the WOUT x WOUT output window whose corner is
-// global (y_org, x_org). `in` is the ring of the stage input (NIN planes
-// of (WOUT+2R)^2, the window one r wider on each side), `sv` the ring of
-// S's planes (a*u term). Each window cell computes the stage at its
-// position clamped into the domain. GLOBAL writes the in-domain cells of
-// the tile to `out`; otherwise every cell of the shared plane `out`.
-template <int FLUX, bool WZ, int WOUT, int NIN, bool HAS_U, bool GLOBAL>
-__device__ __forceinline__ void stage_plane(const float* in, const float* sv,
-                                            float* out, int z, int y_org,
-                                            int x_org, float a, float b,
-                                            const Args& p) {
-  constexpr int WIN = WOUT + 2 * R;
-  const float* planes[7];
-#pragma unroll
-  for (int q = 0; q < 7; ++q)
-    planes[q] = in + slot(clampi(z - 3 + q, 0, p.nz - 1), NIN) * WIN * WIN;
-  const float* u = sv + slot(z, NV) * W0 * W0;
-  const int y_u = y_org - (W0 - WOUT) / 2;  // corner of S's window
-  const int x_u = x_org - (W0 - WOUT) / 2;
-  for (int e = threadIdx.x; e < WOUT * WOUT; e += THREADS) {
-    const int oy = e / WOUT, ox = e - oy * WOUT;
-    const int y = y_org + oy, x = x_org + ox;
-    const int cy = clampi(y, 0, p.ny - 1), cx = clampi(x, 0, p.nx - 1);
-    if (GLOBAL && (y != cy || x != cx)) continue;
-    const int c = (cy - y_org + R) * WIN + (cx - x_org + R);
-    float W[7], Y[7], X[7];
-#pragma unroll
-    for (int q = 0; q < 7; ++q) {
-      W[q] = planes[q][c];
-      Y[q] = planes[3][c + (q - 3) * WIN];
-      X[q] = planes[3][c + (q - 3)];
+// A stage's shared memory, carved out of the block's in stage order.
+struct Mem {
+  float* ring;   // NR planes of the input window
+  float* split;  // f+ plane, then f- plane, of the input window
+  float* fx;     // x faces: row oy, face i is the face below cell i
+  float* fy;     // y faces: row i is the face below cell row i
+};
+
+template <int S_>
+__device__ __forceinline__ Mem mem_of(float* base) {
+  using W = Win<S_>;
+  Mem m;
+  m.ring = base;
+  m.split = m.ring + W::RING;
+  m.fx = m.split + W::SPLIT;
+  m.fy = m.fx + W::FX;
+  return m;
+}
+
+// The cells e = threadIdx.x + r*THREADS of a W-wide window, as (row,
+// column), stepped without division.
+template <int W>
+struct Cursor {
+  int row, col;
+  __device__ __forceinline__ Cursor() {
+    row = threadIdx.x / W;
+    col = threadIdx.x - row * W;
+  }
+  __device__ __forceinline__ void next() {
+    row += THREADS / W;
+    col += THREADS % W;
+    if (col >= W) {
+      col -= W;
+      ++row;
     }
-    const float uc = HAS_U ? u[(cy - y_u) * W0 + (cx - x_u)] : 0.0f;
-    const float val = stage_cell<FLUX, WZ, HAS_U>(W, Y, X, uc, a, b, p);
-    if (GLOBAL)
-      out[((z + p.row_off) * p.ny + y) * p.nx + x] = val;
-    else
-      out[e] = val;
+  }
+};
+
+// Pass 1 for stage S_: the split of input plane z over the input window
+// whose global corner is (iy, ix), every read clamped into the domain.
+template <int FLUX, int S_>
+__device__ __forceinline__ void split_plane(const Mem& m, int z, int iy,
+                                            int ix, const Args& p) {
+  using W = Win<S_>;
+  const float* v = m.ring + (z % NR) * W::PLANE;
+  const bool inside =
+      iy >= 0 && ix >= 0 && iy + W::WI <= p.ny && ix + W::WI <= p.nx;
+  Cursor<W::WI> cur;
+  for (int e = threadIdx.x; e < W::PLANE; e += THREADS, cur.next()) {
+    int c = e;
+    if (!inside)
+      c = (clampi(iy + cur.row, 0, p.ny - 1) - iy) * W::WI +
+          (clampi(ix + cur.col, 0, p.nx - 1) - ix);
+    split<FLUX>(v[c], p.c, m.split[e], m.split[W::PLANE + e]);
   }
 }
 
-// One step on job `job`: a 32x32 (y, x) tile and a chunk of z planes,
-// S -> out. Ends with a __syncthreads(), so the block may start another
-// job on the same shared memory.
-template <int FLUX, bool WZ>
-__device__ void step_tile(const float* S, float* out, const Args& p, int job,
-                          float* sm) {
-  float* V = sm;                       // S planes, NV x W0^2
-  float* A = V + NV * W0 * W0;         // t1 planes, N1 x W1^2
-  float* B = A + N1 * W1 * W1;         // t2 planes, N2 x W2^2
-  const int chunk = job % p.chunks;
-  const int tile = job / p.chunks;
-  const int x0 = (tile % p.tiles_x) * T;
-  const int y0 = (tile / p.tiles_x) * T;
-  const int k0 = p.z_lo + chunk * p.zchunk;
-  const int k1 = min(k0 + p.zchunk, p.z_hi);
+// Faces a work item of pass 2 computes: a run along x or y.
+constexpr int RUN = 3;
+static_assert((T + 1) % RUN == 0, "face lines of every stage split in runs");
 
-  for (int m = k0 - 3 * R; m < k1 + 3 * R; ++m) {
-    if (m >= 0 && m < p.nz) {  // S plane m, edge-replicated in y and x
-      float* vm = V + slot(m, NV) * W0 * W0;
-      const float* src = plane_of(S, p, m + p.row_off, p.ny * p.nx);
-      for (int e = threadIdx.x; e < W0 * W0; e += THREADS) {
-        const int wy = e / W0, wx = e - wy * W0;
-        const int y = clampi(y0 - 3 * R + wy, 0, p.ny - 1);
-        const int x = clampi(x0 - 3 * R + wx, 0, p.nx - 1);
-        vm[e] = src[y * p.nx + x];
+// Pass 2, item v of stage S_: a run of RUN x faces (v < WO*K: row r,
+// faces RUN*k ..) or y faces (face rows RUN*k .., column col) of the
+// output window whose global corner is (oy, ox); skipped on a row
+// (column) outside the domain.
+template <bool WZ, int S_>
+__device__ __forceinline__ void face_item(const Mem& m, int v, int oy,
+                                          int ox, const Args& p) {
+  using W = Win<S_>;
+  constexpr int WO = W::WO, WI = W::WI, K = (WO + 1) / RUN;
+  const float* sp = m.split;
+  const float* sn = m.split + W::PLANE;
+  float P[RUN + 4], M[RUN + 4], h[RUN];
+  if (v < WO * K) {
+    const int r = v / K, i = (v - r * K) * RUN;
+    if (oy + r < 0 || oy + r >= p.ny) return;
+    const int c = (r + R) * WI + i;
+#pragma unroll
+    for (int q = 0; q < RUN + 4; ++q) {
+      P[q] = sp[c + q];
+      M[q] = sn[c + 1 + q];
+    }
+    face_run<WZ, RUN>(P, M, h);
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) m.fx[r * (WO + 1) + i + j] = h[j];
+  } else {
+    v -= WO * K;
+    const int k = v / WO, col = v - k * WO, i = k * RUN;
+    if (ox + col < 0 || ox + col >= p.nx) return;
+    const int c = i * WI + col + R;
+#pragma unroll
+    for (int q = 0; q < RUN + 4; ++q) {
+      P[q] = sp[c + q * WI];
+      M[q] = sn[c + (q + 1) * WI];
+    }
+    face_run<WZ, RUN>(P, M, h);
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) m.fy[(i + j) * WO + col] = h[j];
+  }
+}
+
+// Pass 2: the x and y faces of the active stages' planes, one loop over
+// the three stages' runs (2 WO (WO+1) / RUN items a stage).
+template <bool WZ>
+__device__ __forceinline__ void faces(const Mem& m1, const Mem& m2,
+                                      const Mem& m3, bool c1, bool c2,
+                                      bool c3, int y0, int x0,
+                                      const Args& p) {
+  constexpr int N1 = 2 * Win<1>::WO * (Win<1>::WO + 1) / RUN;
+  constexpr int N2 = 2 * Win<2>::WO * (Win<2>::WO + 1) / RUN;
+  constexpr int N3 = 2 * Win<3>::WO * (Win<3>::WO + 1) / RUN;
+  for (int v = threadIdx.x; v < N1 + N2 + N3; v += THREADS) {
+    if (v < N1) {
+      if (c1) face_item<WZ, 1>(m1, v, y0 - 2 * R, x0 - 2 * R, p);
+    } else if (v < N1 + N2) {
+      if (c2) face_item<WZ, 2>(m2, v - N1, y0 - R, x0 - R, p);
+    } else if (c3) {
+      face_item<WZ, 3>(m3, v - N1 - N2, y0, x0, p);
+    }
+  }
+}
+
+// Passes 3-5 for stage S_ on plane z: the z face above each in-domain
+// cell of the output window (corner (oy, ox)) and, when `cells`, the
+// stage's value there: into the next stage's ring plane `dst` (window
+// layout) or, for the last stage, into the output buffer. hz holds the z
+// face below each of the thread's cells.
+template <int FLUX, bool WZ, int S_>
+__device__ __forceinline__ void stage(const Mem& m, float* dst,
+                                      const float* S, float* out, int z,
+                                      bool cells, int oy, int ox, int row_off,
+                                      float (&hz)[Win<S_>::ROUNDS],
+                                      const Args& p) {
+  using W = Win<S_>;
+  constexpr int WO = W::WO, WI = W::WI;
+  constexpr bool HAS_U = S_ > 1;
+  constexpr bool LAST = S_ == 3;
+  const float a = S_ == 1 ? 0.0f : (S_ == 2 ? A2 : A3);
+  const float b = S_ == 1 ? 1.0f : (S_ == 2 ? B2 : B3);
+  const float* col[NR];  // input planes z-2 .. z+3, clamped
+#pragma unroll
+  for (int q = 0; q < NR; ++q)
+    col[q] = m.ring + (clampi(z - 2 + q, 0, p.nz - 1) % NR) * W::PLANE;
+  const int P = p.ny * p.nx;
+  const float* u = HAS_U ? plane_of(S, p, z + row_off, P) : nullptr;
+  Cursor<WO> cur;
+#pragma unroll
+  for (int r = 0; r < W::ROUNDS; ++r, cur.next()) {
+    const int e = threadIdx.x + r * THREADS;
+    const int y = oy + cur.row, x = ox + cur.col;
+    if (e >= WO * WO || y < 0 || y >= p.ny || x < 0 || x >= p.nx) continue;
+    const int c = (cur.row + R) * WI + cur.col + R;
+    float V[NR], Zp[NR], Zm[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      V[q] = col[q][c];
+      split<FLUX>(V[q], p.c, Zp[q], Zm[q]);
+    }
+    const float hz_hi = face<WZ>(&Zp[0], &Zm[1]);  // face z+1/2
+    if (cells) {
+      const float dz = (hz_hi - hz[r]) * p.inv_dx[0];
+      const int f = cur.row * (WO + 1) + cur.col;
+      const float dy = (m.fy[e + WO] - m.fy[e]) * p.inv_dx[1];
+      const float dx = (m.fx[f + 1] - m.fx[f]) * p.inv_dx[2];
+      float rhs = -(dz + dy + dx);
+      if (p.viscous) {
+        const float* v = col[2];
+        float acc = V[0] * p.lap[0];
+#pragma unroll
+        for (int q = 1; q < 5; ++q) acc = acc + V[q] * p.lap[q];
+        const int iy = oy - R, ix = ox - R;  // input window corner
+#pragma unroll
+        for (int q = 0; q < 5; ++q)
+          acc = acc + v[(clampi(y + q - 2, 0, p.ny - 1) - iy) * WI + x - ix] *
+                          p.lap[5 + q];
+#pragma unroll
+        for (int q = 0; q < 5; ++q)
+          acc = acc + v[(y - iy) * WI + clampi(x + q - 2, 0, p.nx - 1) - ix] *
+                          p.lap[10 + q];
+        rhs = rhs + acc;
+      }
+      float rk = b * (V[2] + p.dt * rhs);
+      if (HAS_U) rk = a * u[y * p.nx + x] + rk;
+      if (LAST)
+        out[(z + row_off) * P + y * p.nx + x] = rk;
+      else
+        dst[e] = rk;
+    }
+    hz[r] = hz_hi;
+  }
+}
+
+// One step on the tile `tile` and z chunk `chunk`, S -> out. Does not end
+// with a barrier: the caller's job claim has one before the block's
+// shared memory is reused.
+template <int FLUX, bool WZ>
+__device__ void step_tile(const float* S, float* out, const Args& p,
+                          Window w, int tile, int chunk, float* sm) {
+  const Mem m1 = mem_of<1>(sm);
+  const Mem m2 = mem_of<2>(sm + Win<1>::SIZE);
+  const Mem m3 = mem_of<3>(sm + Win<1>::SIZE + Win<2>::SIZE);
+  const int ty = tile / p.tiles_x;
+  const int x0 = (tile - ty * p.tiles_x) * T, y0 = ty * T;
+  const int k0 = w.z_lo + chunk * p.zchunk;
+  const int k1 = min(k0 + p.zchunk, w.z_hi);
+  // cell planes of stage s: [k0 - R(3-s), k1 + R(3-s)) in the domain
+  const int f1 = max(k0 - 2 * R, 0), l1 = min(k1 + 2 * R, p.nz);
+  const int f2 = max(k0 - R, 0), l2 = min(k1 + R, p.nz);
+  const int f3 = max(k0, 0), l3 = min(k1, p.nz);
+  if (f3 >= l3) return;
+  const int s_end = min(k1 + 3 * R, p.nz);  // S planes [k0 - 3R, s_end)
+  const int P = p.ny * p.nx;
+  float hz1[Win<1>::ROUNDS], hz2[Win<2>::ROUNDS], hz3[Win<3>::ROUNDS];
+
+  for (int m = max(k0 - 3 * R, 0); m < l3 + 3 * R; ++m) {
+    const int z1 = m - R, z2 = m - 2 * R, z3 = m - 3 * R;
+    const bool c1 = z1 >= f1 && z1 < l1;
+    const bool c2 = z2 >= f2 && z2 < l2;
+    const bool c3 = z3 >= f3 && z3 < l3;
+    // (1) S plane m, its in-domain cells; the stages' split planes
+    if (m < s_end) {
+      using W = Win<1>;
+      float* vm = m1.ring + (m % NR) * W::PLANE;
+      const float* src = plane_of(S, p, m + w.row_off, P);
+      const int iy = y0 - 3 * R, ix = x0 - 3 * R;
+      Cursor<W::WI> cur;
+      for (int e = threadIdx.x; e < W::PLANE; e += THREADS, cur.next()) {
+        const int y = iy + cur.row, x = ix + cur.col;
+        if (y >= 0 && y < p.ny && x >= 0 && x < p.nx)
+          vm[e] = src[y * p.nx + x];
       }
     }
+    if (c1) split_plane<FLUX, 1>(m1, z1, y0 - 3 * R, x0 - 3 * R, p);
+    if (c2) split_plane<FLUX, 2>(m2, z2, y0 - 2 * R, x0 - 2 * R, p);
+    if (c3) split_plane<FLUX, 3>(m3, z3, y0 - R, x0 - R, p);
     __syncthreads();
-    const int z1 = m - R;  // t1 = s(S): planes k0-6 .. k1+5 in the domain
-    if (z1 >= k0 - 2 * R && z1 >= 0 && z1 < p.nz)
-      stage_plane<FLUX, WZ, W1, NV, false, false>(
-          V, V, A + slot(z1, N1) * W1 * W1, z1, y0 - 2 * R, x0 - 2 * R, 0.0f,
-          1.0f, p);
+    // (2) the x and y faces of the stages' planes
+    faces<WZ>(m1, m2, m3, c1, c2, c3, y0, x0, p);
     __syncthreads();
-    const int z2 = m - 2 * R;  // t2 = s(t1, S): planes k0-3 .. k1+2
-    if (z2 >= k0 - R && z2 >= 0 && z2 < p.nz)
-      stage_plane<FLUX, WZ, W2, N1, true, false>(
-          A, V, B + slot(z2, N2) * W2 * W2, z2, y0 - R, x0 - R, A2, B2, p);
+    // (3) t1 = s(S) on plane z1, into stage 2's ring
+    if (z1 >= f1 - 1 && z1 < l1)
+      stage<FLUX, WZ, 1>(m1, m2.ring + (max(z1, 0) % NR) * Win<2>::PLANE, S,
+                         out, z1, c1, y0 - 2 * R, x0 - 2 * R, w.row_off, hz1,
+                         p);
     __syncthreads();
-    const int z3 = m - 3 * R;  // out = s(t2, S): planes k0 .. k1-1
-    if (z3 >= k0 && z3 >= 0 && z3 < p.nz)
-      stage_plane<FLUX, WZ, T, N2, true, true>(B, V, out, z3, y0, x0, A3, B3,
-                                               p);
+    // (4) t2 = s(t1, S) on plane z2, into stage 3's ring
+    if (z2 >= f2 - 1 && z2 < l2)
+      stage<FLUX, WZ, 2>(m2, m3.ring + (max(z2, 0) % NR) * Win<3>::PLANE, S,
+                         out, z2, c2, y0 - R, x0 - R, w.row_off, hz2, p);
     __syncthreads();
+    // (5) out = s(t2, S) on plane z3
+    if (z3 >= f3 - 1 && z3 < l3)
+      stage<FLUX, WZ, 3>(m3, nullptr, S, out, z3, c3, y0, x0, w.row_off, hz3,
+                         p);
   }
 }
 
-// K3: one step on one job a block, S -> out (the host swaps).
+// K3: one step on one job a block, S -> out (the host swaps); job b is
+// chunk b / tiles of tile b % tiles.
 template <int FLUX, bool WZ>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 step_kernel(const float* S, float* out, Args p) {
   extern __shared__ float sm[];
-  step_tile<FLUX, WZ>(S, out, p, blockIdx.x, sm);
+  const int chunk = blockIdx.x / p.tiles;
+  step_tile<FLUX, WZ>(S, out, p, window_of(p), blockIdx.x - chunk * p.tiles,
+                      chunk, sm);
 }
 
-// K6 (members == 1) and K2b: every member's step k in one pass over the
-// flattened (member, tile, z-chunk) work list, then one grid.sync() for
-// the whole batch. Member m's state starts m * member_stride floats into
-// S0 and S1 (64-bit); inside a member step_tile's 32-bit indices hold.
+// K6 (members == 1) and K2b: every member's step k over the (chunk,
+// member, tile) jobs, then one grid.sync() for the whole batch. Member
+// m's state starts m * member_stride floats into S0 and S1 (64-bit);
+// inside a member step_tile's 32-bit indices hold.
 template <int FLUX, bool WZ>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 slab_run_kernel(float* S0, float* S1, Args p, int n_iters, int members,
-                long long member_stride) {
+                long long member_stride, int* counters) {
   extern __shared__ float sm[];
+  __shared__ int claimed;
   cg::grid_group grid = cg::this_grid();
-  const int jobs = p.jobs * members;
+  const int per_chunk = p.tiles * members;
+  const int jobs = per_chunk * p.chunks;
   for (int k = 0; k < n_iters; ++k) {
     const float* src = (k & 1) ? S1 : S0;
     float* dst = (k & 1) ? S0 : S1;
-    for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
-      const int m = job / p.jobs;
-      const long long off = m * member_stride;
-      step_tile<FLUX, WZ>(src + off, dst + off, p, job - m * p.jobs, sm);
+    reset_counter(counters, k);
+    for (int job = blockIdx.x; job < jobs;
+         job = next_job(&counters[k & 1], &claimed)) {
+      const int chunk = job / per_chunk;
+      const int rest = job - chunk * per_chunk;
+      const int mb = rest / p.tiles;
+      const long long off = mb * member_stride;
+      step_tile<FLUX, WZ>(src + off, dst + off, p, window_of(p),
+                          rest - mb * p.tiles,
+                          chunk, sm);
     }
     grid.sync();
   }
 }
 
-template <int FLUX, bool WZ>
-cudaError_t launch(float* S0, float* S1, Args& p, int n_iters, int members,
-                   int* grid_blocks, cudaStream_t s) {
-  auto* kernel = slab_run_kernel<FLUX, WZ>;
+// The blocks of a cooperative launch of `kernel` for `jobs` jobs: every
+// co-resident block, at most one a job.
+cudaError_t cooperative_blocks(const void* kernel, long long jobs,
+                               int* blocks) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -317,27 +512,30 @@ cudaError_t launch(float* S0, float* S1, Args& p, int n_iters, int members,
                                                       THREADS, SMEM_BYTES);
   if (e != cudaSuccess) return e;
   if (!coop) return cudaErrorNotSupported;
-  const long long jobs = (long long)p.jobs * members;
   const long long resident = (long long)per_sm * sms;
-  const int blocks = (int)(jobs < resident ? jobs : resident);
-  if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = (int)(jobs < resident ? jobs : resident);
+  return *blocks < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
+}
+
+template <int FLUX, bool WZ>
+cudaError_t launch(float* S0, float* S1, Args& p, int n_iters, int members,
+                   int* counters, int* grid_blocks, cudaStream_t s) {
+  auto* kernel = slab_run_kernel<FLUX, WZ>;
+  int blocks = 0;
+  cudaError_t e = cooperative_blocks(
+      (const void*)kernel, (long long)p.tiles * p.chunks * members, &blocks);
+  if (e != cudaSuccess) return e;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
   long long member_stride = (long long)p.nz * p.ny * p.nx;
-  void* args[] = {&S0, &S1, &p, &n_iters, &members, &member_stride};
+  void* args[] = {&S0, &S1, &p, &n_iters, &members, &member_stride,
+                  &counters};
   return cudaLaunchCooperativeKernel((const void*)kernel, blocks, THREADS,
                                      args, SMEM_BYTES, s);
 }
 
-// The cooperative launch of K6/K2b: n_iters steps of `members` members
-// whose states lie back to back in S0 and S1.
-cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
-                            int nx, int flux, float c, int weno_z,
-                            const float* inv_dx, const float* lap, float dt,
-                            int zchunk, int n_iters, int* grid_blocks,
-                            cudaStream_t s) {
-  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || n_iters < 0 || flux < 0 ||
-      flux > 2 || members < 1 || (long long)nz * ny * nx > MAX_CELLS)
-    return cudaErrorInvalidValue;
+// The physics and tiling every entry shares; the window is the caller's.
+Args make_args(int nz, int ny, int nx, const float* inv_dx, const float* lap,
+               float c, float dt, int zchunk) {
   Args p;
   p.nz = nz;
   p.ny = ny;
@@ -348,6 +546,9 @@ cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
   p.c = c;
   p.dt = dt;
   p.zchunk = zchunk;
+  p.tiles_x = (nx + T - 1) / T;
+  p.tiles = ((ny + T - 1) / T) * p.tiles_x;
+  p.chunks = 1;
   p.z_lo = 0;
   p.z_hi = nz;
   p.row_off = 0;
@@ -355,19 +556,32 @@ cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
   p.depth = 0;
   p.lo = nullptr;
   p.hi = nullptr;
-  p.tiles_x = (nx + T - 1) / T;
+  return p;
+}
+
+// The cooperative launch of K6/K2b: n_iters steps of `members` members
+// whose states lie back to back in S0 and S1.
+cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
+                            int nx, int flux, float c, int weno_z,
+                            const float* inv_dx, const float* lap, float dt,
+                            int zchunk, int n_iters, int* counters,
+                            int* grid_blocks, cudaStream_t s) {
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || n_iters < 0 || flux < 0 ||
+      flux > 2 || members < 1 || counters == nullptr ||
+      (long long)nz * ny * nx > MAX_CELLS)
+    return cudaErrorInvalidValue;
+  Args p = make_args(nz, ny, nx, inv_dx, lap, c, dt, zchunk);
   p.chunks = (nz + zchunk - 1) / zchunk;
-  p.jobs = ((ny + T - 1) / T) * p.tiles_x * p.chunks;
-  if ((long long)p.jobs * members > 0x7fffffffLL)
+  if ((long long)p.tiles * p.chunks * members > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaError_t e;
   switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: e = launch<BURGERS, false>(S0, S1, p, n_iters, members, grid_blocks, s); break;
-    case 1: e = launch<BURGERS, true>(S0, S1, p, n_iters, members, grid_blocks, s); break;
-    case 2: e = launch<LINEAR, false>(S0, S1, p, n_iters, members, grid_blocks, s); break;
-    case 3: e = launch<LINEAR, true>(S0, S1, p, n_iters, members, grid_blocks, s); break;
-    case 4: e = launch<BUCKLEY, false>(S0, S1, p, n_iters, members, grid_blocks, s); break;
-    default: e = launch<BUCKLEY, true>(S0, S1, p, n_iters, members, grid_blocks, s); break;
+    case 0: e = launch<BURGERS, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 1: e = launch<BURGERS, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 2: e = launch<LINEAR, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 3: e = launch<LINEAR, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 4: e = launch<BUCKLEY, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    default: e = launch<BUCKLEY, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
   }
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -384,17 +598,20 @@ cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
 // step_tile on its own state, no shared cell. `flux` is 0 (Burgers), 1
 // (linear, speed `c`) or 2 (Buckley-Leverett); `weno_z` selects the
 // WENO5-Z weights. `inv_dx` points to 3 host floats (z, y, x) and `lap` to
-// 15 host floats, or is null for an inviscid run. `grid_blocks`, when not
-// null, receives the grid's block count. Returns the first CUDA error (0
-// on success); does not synchronise.
+// 15 host floats, or is null for an inviscid run. `zchunk` is the z
+// planes of a job. `counters` points to 2 device ints, both zero at the
+// launch (the steps' job counters; the launch leaves them dirty).
+// `grid_blocks`, when not null, receives the grid's block count. Returns
+// the first CUDA error (0 on success); does not synchronise.
 extern "C" int slab_run_burgers(float* S0, float* S1, int members, int nz,
                                 int ny, int nx, int flux, float c, int weno_z,
                                 const float* inv_dx, const float* lap,
                                 float dt, int zchunk, int n_iters,
-                                int* grid_blocks, void* stream) {
+                                int* counters, int* grid_blocks,
+                                void* stream) {
   return (int)launch_slab_run(S0, S1, members, nz, ny, nx, flux, c, weno_z,
-                              inv_dx, lap, dt, zchunk, n_iters, grid_blocks,
-                              static_cast<cudaStream_t>(stream));
+                              inv_dx, lap, dt, zchunk, n_iters, counters,
+                              grid_blocks, static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -407,7 +624,7 @@ cudaError_t launch_step(const float* S, float* out, const Args& p,
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  kernel<<<p.jobs, THREADS, SMEM_BYTES, s>>>(S, out, p);
+  kernel<<<p.tiles * p.chunks, THREADS, SMEM_BYTES, s>>>(S, out, p);
   return cudaGetLastError();
 }
 
@@ -435,16 +652,7 @@ extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
       z_lo >= z_hi || depth < 0 || 2 * depth > pz || first < 0 ||
       last >= pz || (long long)pz * ny * nx > MAX_CELLS)
     return (int)cudaErrorInvalidValue;
-  Args p;
-  p.nz = nz;
-  p.ny = ny;
-  p.nx = nx;
-  for (int q = 0; q < 3; ++q) p.inv_dx[q] = inv_dx[q];
-  p.viscous = lap != nullptr;
-  for (int q = 0; q < 15; ++q) p.lap[q] = lap != nullptr ? lap[q] : 0.0f;
-  p.c = c;
-  p.dt = dt;
-  p.zchunk = zchunk;
+  Args p = make_args(nz, ny, nx, inv_dx, lap, c, dt, zchunk);
   p.z_lo = z_lo;
   p.z_hi = z_hi;
   p.row_off = row_off;
@@ -452,9 +660,7 @@ extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
   p.depth = depth;
   p.lo = lo;
   p.hi = hi;
-  p.tiles_x = (nx + T - 1) / T;
   p.chunks = (z_hi - z_lo + zchunk - 1) / zchunk;
-  p.jobs = ((ny + T - 1) / T) * p.tiles_x * p.chunks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (flux * 2 + (weno_z ? 1 : 0)) {
     case 0: return (int)launch_step<BURGERS, false>(S, out, p, s);
@@ -469,31 +675,34 @@ extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
 namespace {
 
 // K4, Burgers: n_iters steps of every shard in sh, k steps a block (G =
-// 3R = 9). p carries the global shape, the physics and the tiling
-// (p.jobs: tiles a plane); each job's window and rows are set here.
+// 3R = 9). p carries the global shape, the physics and the tiling; each
+// job's window and rows are set here. Step j of a block has the (chunk,
+// shard, tile) jobs of the windows [oz - w, oz + lz + w), w = (k-1-j)G.
 template <int FLUX, bool WZ>
-__global__ void __launch_bounds__(THREADS)
-slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters) {
+__global__ void __launch_bounds__(THREADS, 1)
+slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
+                    int* counters) {
   extern __shared__ float sm[];
+  __shared__ int claimed;
   cg::grid_group grid = cg::this_grid();
   constexpr int G = 3 * R;
-  const int tiles = p.jobs;
+  const int per_chunk = p.tiles * sh.n;
   for (int s = 0; s < n_iters; ++s) {
     const int j = s % k;
     const int par = s & 1;
     if (j == 0) dma_exchange(sh, par, s / k, grid);
+    reset_counter(counters, s);
     const int w = (k - 1 - j) * G;
-    Args q = p;
-    q.chunks = (lz + 2 * w + p.zchunk - 1) / p.zchunk;
-    const int per_shard = tiles * q.chunks;
-    for (int job = blockIdx.x; job < sh.n * per_shard; job += gridDim.x) {
-      const int i = job / per_shard;
+    const int jobs = per_chunk * ((lz + 2 * w + p.zchunk - 1) / p.zchunk);
+    for (int job = blockIdx.x; job < jobs;
+         job = next_job(&counters[par], &claimed)) {
+      const int chunk = job / per_chunk;
+      const int rest = job - chunk * per_chunk;
+      const int i = rest / p.tiles;
       const int oz = i * lz;
-      q.z_lo = oz - w;
-      q.z_hi = oz + lz + w;
-      q.row_off = sh.depth - oz;
       step_tile<FLUX, WZ>(dma_state(sh, par, i), dma_state(sh, par ^ 1, i),
-                          q, job - i * per_shard, sm);
+                          p, {oz - w, oz + lz + w, sh.depth - oz},
+                          rest - i * p.tiles, chunk, sm);
     }
     grid.sync();
   }
@@ -501,27 +710,14 @@ slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters) {
 
 template <int FLUX, bool WZ>
 cudaError_t launch_dma(DmaShards& sh, Args& p, int lz, int k, int n_iters,
-                       long long jobs, int* grid_blocks, cudaStream_t s) {
+                       long long jobs, int* counters, int* grid_blocks,
+                       cudaStream_t s) {
   auto* kernel = slab_run_dma_kernel<FLUX, WZ>;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, SMEM_BYTES);
+  int blocks = 0;
+  cudaError_t e = cooperative_blocks((const void*)kernel, jobs, &blocks);
   if (e != cudaSuccess) return e;
-  if (!coop) return cudaErrorNotSupported;
-  const long long resident = (long long)per_sm * sms;
-  const int blocks = (int)(jobs < resident ? jobs : resident);
-  if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
-  void* args[] = {&sh, &p, &lz, &k, &n_iters};
+  void* args[] = {&sh, &p, &lz, &k, &n_iters, &counters};
   e = cudaLaunchCooperativeKernel((const void*)kernel, blocks, THREADS, args,
                                   SMEM_BYTES, s);
   if (e != cudaSuccess) return e;
@@ -539,43 +735,25 @@ cudaError_t launch_dma(DmaShards& sh, Args& p, int lz, int k, int n_iters,
 // and writes the other, so the result is in s0 when n_iters is even and
 // in s1 when it is odd; at the start of every block of k steps the
 // shards' ghost rows are exchanged through the landing buffers
-// (csrc/slab_dma.cuh). The flux and physics arguments are
-// slab_run_burgers's. `grid_blocks`, when not null, receives the grid's
-// block count. Returns the first CUDA error (0 on success); does not
-// synchronise.
+// (csrc/slab_dma.cuh). The flux and physics arguments, `counters` and
+// `grid_blocks` are slab_run_burgers's. Returns the first CUDA error (0
+// on success); does not synchronise.
 extern "C" int slab_run_dma_burgers(float* const* s0, float* const* s1,
                                     float* const* land, int shards, int lz,
                                     int k, int ny, int nx, int flux, float c,
                                     int weno_z, const float* inv_dx,
                                     const float* lap, float dt, int zchunk,
-                                    int n_iters, int* grid_blocks,
-                                    void* stream) {
+                                    int n_iters, int* counters,
+                                    int* grid_blocks, void* stream) {
   const int depth = k * 3 * R;
   const int pz = lz + 2 * depth;
   if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
       lz < depth || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2 ||
-      (long long)pz * ny * nx > MAX_CELLS)
+      counters == nullptr || (long long)pz * ny * nx > MAX_CELLS)
     return (int)cudaErrorInvalidValue;
-  Args p;
-  p.nz = shards * lz;
-  p.ny = ny;
-  p.nx = nx;
-  for (int q = 0; q < 3; ++q) p.inv_dx[q] = inv_dx[q];
-  p.viscous = lap != nullptr;
-  for (int q = 0; q < 15; ++q) p.lap[q] = lap != nullptr ? lap[q] : 0.0f;
-  p.c = c;
-  p.dt = dt;
-  p.zchunk = zchunk;
-  p.z_lo = 0;
-  p.z_hi = lz;
-  p.row_off = depth;
+  Args p = make_args(shards * lz, ny, nx, inv_dx, lap, c, dt, zchunk);
   p.pz = pz;
   p.depth = depth;
-  p.lo = nullptr;
-  p.hi = nullptr;
-  p.tiles_x = (nx + T - 1) / T;
-  p.chunks = 1;
-  p.jobs = ((ny + T - 1) / T) * p.tiles_x;  // tiles a plane
   DmaShards sh;
   for (int i = 0; i < shards; ++i) {
     sh.s0[i] = s0[i];
@@ -587,15 +765,15 @@ extern "C" int slab_run_dma_burgers(float* const* s0, float* const* s1,
   sh.depth = depth;
   sh.plane = (long long)ny * nx;
   // the widest step (j = 0) has the most jobs
-  const long long jobs = (long long)shards * p.jobs *
+  const long long jobs = (long long)shards * p.tiles *
                          ((lz + 2 * depth - 6 * R + zchunk - 1) / zchunk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: return (int)launch_dma<BURGERS, false>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
-    case 1: return (int)launch_dma<BURGERS, true>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
-    case 2: return (int)launch_dma<LINEAR, false>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
-    case 3: return (int)launch_dma<LINEAR, true>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
-    case 4: return (int)launch_dma<BUCKLEY, false>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
-    default: return (int)launch_dma<BUCKLEY, true>(sh, p, lz, k, n_iters, jobs, grid_blocks, s);
+    case 0: return (int)launch_dma<BURGERS, false>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
+    case 1: return (int)launch_dma<BURGERS, true>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
+    case 2: return (int)launch_dma<LINEAR, false>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
+    case 3: return (int)launch_dma<LINEAR, true>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
+    case 4: return (int)launch_dma<BUCKLEY, false>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
+    default: return (int)launch_dma<BUCKLEY, true>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
   }
 }

@@ -510,9 +510,15 @@ class SolverBase:
     def _decline(self, reason: str):
         """Record why the fused path was declined (read by
         :meth:`engaged_path`) and return ``None``; under
-        ``exchange='dma'``, which only the slab rung serves, raise the
-        JAX package's error instead."""
+        ``steps_per_exchange > 1`` or ``exchange='dma'``, which only the
+        sharded slab rung serves, raise the JAX package's error instead
+        (in its order: the exchange cadence first)."""
         self._fused_fallback = reason
+        if int(getattr(self.cfg, "steps_per_exchange", 1) or 1) > 1:
+            raise ValueError(
+                "steps_per_exchange > 1 needs the sharded slab rung; "
+                f"this config declined fusion: {reason}"
+            )
         if self._exchange_mode() == "dma":
             raise ValueError(
                 "exchange='dma' needs the sharded slab rung; "

@@ -8,11 +8,15 @@ On the TPU the Pallas grid is ``(timestep, z-slab)`` and runs in order:
 each slab, loaded with ``G = 3h`` ghost rows a side, fuses the three RK
 stages of a step in VMEM, and the state ping-pongs between two buffers
 across steps. On Hopper the counterpart is one cooperative launch a run:
-a grid of co-resident blocks walks the step's tiles (a 32x32 (y, x) tile
+a grid of co-resident blocks walks the step's jobs (a 32x32 (y, x) tile
 and a chunk of z planes each, the ghost region recomputed in y and x as
 in z), and a grid-wide barrier after each step takes the place of the
 sequential grid axis. Step ``k`` reads buffer ``k % 2`` and writes the
-other, so the result lies in buffer ``num_iters % 2``.
+other, so the result lies in buffer ``num_iters % 2``. The cooperative
+Burgers kernels (K6, K2b, K4) and K4 for diffusion take their jobs from
+an atomic counter, last z chunks last; :func:`burgers_schedule` plans
+the Burgers kernels' z chunks (K3's too) so that a window splits evenly
+and the jobs round up to few waves of resident blocks, and counts them.
 
 * :func:`slab_run_diffusion` (K2) and :func:`slab_run_burgers` (K6)
   launch the kernel for a CUDA tensor (raising if it cannot) and count
@@ -107,10 +111,21 @@ from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
 
 BURGERS_SOURCE = "slab_run_burgers.cu"
 # z planes a block marches (each chunk recomputes 12 planes at its ends
-# for K2, 18 for K6): the fastest of those chip_smoke.py times at the
-# main configurations (PERF.md)
+# for K2): the fastest of those chip_smoke.py times at the main
+# configurations (PERF.md)
 DIFFUSION_Z_CHUNK = 16
-BURGERS_Z_CHUNK = 64
+# K6/K3/K4/K2b: 32x32 output tiles (csrc/slab_run_burgers.cu; 20x20 and
+# 17x17 tiles at two blocks an SM were slower), one block an SM (its
+# shared memory). A z chunk's two ends cost about as much as
+# BURGERS_CHUNK_COST more planes (its windows' recompute and the
+# pipeline's fill), which burgers_schedule weighs against rounding the
+# jobs up to whole waves of resident blocks: chip_smoke.py phase 14 timed
+# K6 at 400x400x406 on 132 blocks at 8.855, 8.946, 9.414, 8.504, 9.387 and
+# 12.209 ms a step for chunks of 58, 68, 102, 136, 203 and 406 planes
+# (H100 80GB HBM3, 700 W), which waves x (planes + 8.3) fits; the plan
+# takes 136 there
+BURGERS_TILE = 32
+BURGERS_CHUNK_COST = 10
 # the kernels index the state with 32-bit integers
 MAX_CELLS = 2**31 - 1
 # the largest grid (cells) on which K2 beat the K1 path (SlabRunDiffusion-
@@ -120,17 +135,61 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # one entry a source for K2/K6 and K2b: the member count follows S1
 _K2_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P, _P)
 _K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I, _I, _P,
-                _P)
+                _P, _P)
 _K3D_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
                  _F, _I, _P)
 _K3B_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                  _P, _P, _F, _I, _P)
 _K4D_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P,
-                 _P)
+                 _P, _P)
 _K4B_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I,
-                 _I, _P, _P)
+                 _I, _P, _P, _P)
 # shards one K4 launch takes (DMA_MAX_SHARDS, csrc/slab_dma.cuh)
 DMA_MAX_SHARDS = 64
+
+
+def job_counters(device) -> torch.Tensor:
+    """The two job counters (one a step parity) of a K6, K2b or K4
+    launch: zeroed device ints the kernel claims its jobs from."""
+    return torch.zeros(2, dtype=torch.int32, device=device)
+
+
+def burgers_schedule(window: int, ny: int, nx: int, blocks: int,
+                     units: int = 1, zchunk: int | None = None) -> dict:
+    """One step's jobs of K6, K2b (``units`` members), K4 (``units``
+    shards) or K3 on a ``window``-plane output window of an ``(ny, nx)``
+    plane over ``blocks`` resident blocks: the 32x32 tiles, a job's z
+    planes, the chunks, the jobs and the waves (jobs a block). A job
+    marches ``zchunk`` planes (the last chunk the rest); with None, the
+    planned count: of the splits of the window into n = 1..16 near-equal
+    chunks, the one whose jobs, rounded up to whole waves of ``blocks``,
+    cost the least, a chunk costing its planes plus
+    ``BURGERS_CHUNK_COST``."""
+    window = int(window)
+    tiles = -(-ny // BURGERS_TILE) * -(-nx // BURGERS_TILE)
+    planes = zchunk
+    if planes is None:
+        best = None
+        for n in range(1, min(16, window) + 1):
+            size = -(-window // n)
+            waves = -(-tiles * units * -(-window // size) // blocks)
+            cost = waves * (size + BURGERS_CHUNK_COST)
+            if best is None or cost < best[0]:
+                best = (cost, size)
+        planes = best[1]
+    chunks = -(-window // int(planes))
+    jobs = tiles * units * chunks
+    return {"tiles": tiles, "chunk_planes": int(planes), "chunks": chunks,
+            "jobs": jobs, "waves": jobs / blocks}
+
+
+def burgers_zchunk(window: int, ny: int, nx: int, units: int,
+                   device) -> int:
+    """The z planes of a job that the Burgers wrappers launch with when
+    no ``zchunk`` is given: :func:`burgers_schedule`'s plan for one
+    resident block an SM of ``device``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return burgers_schedule(window, ny, nx, sms, units)["chunk_planes"]
 
 
 def ping_pong(step, S0, S1, num_iters: int):
@@ -271,15 +330,17 @@ def _launch_burgers(S0, S1, num_iters: int, dt, params, zchunk,
     block count."""
     B, nz, ny, nx = S0.shape
     code, c, weno_z, inv_dx, taps = _burgers_args(params)
+    planes = zchunk or burgers_zchunk(nz, ny, nx, B, S0.device)
     blocks = ctypes.c_int(0)
+    counters = job_counters(S0.device)
 
     def kernel(S0, S1):
         return wr.library(BURGERS_SOURCE, "slab_run_burgers", _K6_ARGTYPES,
                           fb.NVCC_EXTRA).slab_run_burgers(
             S0.data_ptr(), S1.data_ptr(), B, nz, ny, nx, code, c, weno_z,
             inv_dx.ctypes.data, None if taps is None else taps.ctypes.data,
-            float(np.float32(dt)), int(zchunk), int(num_iters),
-            ctypes.byref(blocks), wr.stream_of(S0))
+            float(np.float32(dt)), planes, int(num_iters),
+            counters.data_ptr(), ctypes.byref(blocks), wr.stream_of(S0))
 
     wr.launch(kernel, S0, S1)
     if grid_blocks is not None:
@@ -287,7 +348,7 @@ def _launch_burgers(S0, S1, num_iters: int, dt, params, zchunk,
 
 
 def slab_run_burgers(S0, S1, num_iters: int, dt, *, params: fb.StageParams,
-                     zchunk=BURGERS_Z_CHUNK,
+                     zchunk=None,
                      grid_blocks: list | None = None):
     """``num_iters`` fused fixed-dt WENO5 steps on two unpadded
     ``(nz, ny, nx)`` buffers, ``S0`` holding the initial state; returns
@@ -295,7 +356,9 @@ def slab_run_burgers(S0, S1, num_iters: int, dt, *, params: fb.StageParams,
     after an odd one). ``dt`` is rounded to float32. A CUDA tensor
     launches K6 once on the current stream (no synchronisation), counted
     in ``slab_run_burgers.launches``; ``grid_blocks``, a list, receives
-    the grid's block count. A CPU tensor runs the twin."""
+    the grid's block count; a job marches ``zchunk`` z planes (None:
+    :func:`burgers_zchunk`'s plan for the card; the same for K2b, K3 and
+    K4). A CPU tensor runs the twin."""
     _check("S1", S1, S0.shape, S0.device)
     _check("S0", S0, S0.shape, S0.device)
     if S0.dim() != 3:
@@ -318,7 +381,7 @@ slab_run_burgers.launches = 0
 
 def slab_run_burgers_batched(S0, S1, num_iters: int, dt, *,
                              params: fb.StageParams,
-                             zchunk=BURGERS_Z_CHUNK,
+                             zchunk=None,
                              grid_blocks: list | None = None):
     """K2b, Burgers/WENO5: :func:`slab_run_burgers` for B members at once.
     ``S0``/``S1`` are ``(B, nz, ny, nx)``, every member's slice K6's
@@ -499,7 +562,7 @@ def slab_step_burgers_reference(S, out, dt, *, params: fb.StageParams,
 
 def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
                       depth, window, lo=None, hi=None,
-                      zchunk=BURGERS_Z_CHUNK):
+                      zchunk=None):
     """K3, Burgers/WENO5: one fixed-dt fused step over the block planes
     ``window`` of a shard, ``S`` -> ``out``, both ``(lz + 2 depth, ny,
     nx)`` with the block at row ``depth`` (arguments as
@@ -513,6 +576,8 @@ def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
     g_lo, g_hi, row_off = _check_window(S, out, lo, hi, reach=3 * fb.R,
                                         **kw)
     code, c, weno_z, inv_dx, taps = _burgers_args(params)
+    planes = zchunk or burgers_zchunk(g_hi - g_lo, *S.shape[1:], 1,
+                                      S.device)
 
     def kernel(S, out):
         return wr.library(BURGERS_SOURCE, "slab_step_burgers", _K3B_ARGTYPES,
@@ -523,7 +588,7 @@ def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
             int(global_nz), S.shape[1], S.shape[2], row_off, g_lo, g_hi,
             code, c, weno_z, inv_dx.ctypes.data,
             None if taps is None else taps.ctypes.data,
-            float(np.float32(dt)), int(zchunk), wr.stream_of(S))
+            float(np.float32(dt)), planes, wr.stream_of(S))
 
     wr.launch(kernel, S, out)
     build.count_launch(slab_step_burgers)
@@ -618,11 +683,13 @@ def _launch_dma(source, symbol, argtypes, extra, S0s, S1s, lands, lz, k,
     receives the grid's block count."""
     tables = [_ptrs(x) for x in (S0s, S1s, lands)]
     blocks = ctypes.c_int(0)
+    counters = job_counters(S0s[0].device)
     fn = getattr(wr.library(source, symbol, argtypes, extra), symbol)
 
     def kernel(S):
         return fn(*(t.ctypes.data for t in tables), len(S0s), lz, k, *args,
-                  ctypes.byref(blocks), wr.stream_of(S))
+                  counters.data_ptr(), ctypes.byref(blocks),
+                  wr.stream_of(S))
 
     wr.launch(kernel, S0s[0])
     if grid_blocks is not None:
@@ -669,7 +736,7 @@ slab_run_dma_diffusion.launches = 0
 
 def slab_run_dma_burgers(S0s, S1s, lands, num_iters: int, dt, *,
                          params: fb.StageParams, k: int = 1,
-                         zchunk=BURGERS_Z_CHUNK,
+                         zchunk=None,
                          grid_blocks: list | None = None):
     """K4, Burgers/WENO5: :func:`slab_run_dma_diffusion` for fixed-dt
     WENO5 steps on K3's unpadded shard layout, state buffers ``(lz + 2
@@ -690,7 +757,10 @@ def slab_run_dma_burgers(S0s, S1s, lands, num_iters: int, dt, *,
                 S0s[0].shape[1], S0s[0].shape[2], code, c, weno_z,
                 inv_dx.ctypes.data,
                 None if taps is None else taps.ctypes.data,
-                float(np.float32(dt)), int(zchunk), int(num_iters))
+                float(np.float32(dt)),
+                zchunk or burgers_zchunk(lz, *S0s[0].shape[1:], len(S0s),
+                                         S0s[0].device),
+                int(num_iters))
     build.count_launch(slab_run_dma_burgers)
     return S1s if num_iters % 2 else S0s
 
@@ -1112,7 +1182,7 @@ class SlabRunBurgersStepper(_SlabRunStepper):
         """What K6 (and K3, on a shard's block with ``depth`` ghost
         planes a side) takes: a 3-D float32 grid of at most 2^31 - 1
         cells with its ghost planes (32-bit indices). A block's shared
-        memory is fixed (195 KB for any grid), so a cooperative grid of
+        memory is fixed (219 KiB for any grid), so a cooperative grid of
         one block an SM always fits; tiling y and x removes the JAX
         package's row-size limit."""
         if dtype != torch.float32 or len(interior_shape) != 3:
@@ -1123,13 +1193,21 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     @staticmethod
     def profitable(interior_shape, dtype) -> bool:
         """Whether plain ``impl="pallas"`` at fixed dt prefers K6 to the
-        per-stage path (K5): nowhere, as written.
+        per-stage path (K5): nowhere, as measured.
 
         Measured by ``chip_smoke.py`` phase 15 (NVIDIA H100 80GB HBM3,
-        700.00 W, two runs): K6 was slower than the K5 path on every
-        grid tried, 2.4-9.3x (ms/step K6 against K5: 24x16x16 0.375 /
-        0.088, 64^3 1.628 / 0.176, 160x160x162 1.841 / 0.477,
-        400x400x406 15.52 / 6.31, 512^3 30.01 / 12.41). ``impl=
-        "pallas_slab"`` pins it."""
+        700.00 W; ms/step of ``run(20)``, five rounds of the two paths in
+        turn, [min, max] of the rounds, K6 against the K5 path, three
+        runs): 24x16x16 (6,144 cells) [0.1103, 0.1133] / [0.1794,
+        0.2068], [0.1082, 0.1093] / [0.0805, 0.1471] and [0.1070,
+        0.1093] / [0.0812, 0.0986]: K6 won beyond the spread in the
+        first run only and lost beyond it in the third (the K5 path's
+        three host launches a step vary from run to run); 64^3 [0.1931,
+        0.2068] / [0.1723, 0.2373], [0.1986, 0.2037] / [0.1690, 0.1840]
+        and [0.1996, 0.2053] / [0.1695, 0.1870]; 160x160x162,
+        400x400x406 and 512^3 K5 beyond the spread in all three
+        (400x400x406 [8.471, 8.490] / [6.292, 6.356], 512^3 [15.516,
+        15.584] / [12.407, 12.420] in the third). ``impl="pallas_slab"``
+        pins K6."""
         del interior_shape, dtype
         return False

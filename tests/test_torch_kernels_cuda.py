@@ -368,6 +368,52 @@ def test_k6_matches_twin(gpu, case, shape, steps):
     assert torch.equal(got, want)
 
 
+# the Burgers slab body's edges (csrc/slab_run_burgers.cu): ny and nx
+# off the 32-cell tile and below one tile, nz below one z chunk, and a
+# last z chunk of one plane (13 planes at zchunk 3: 3 + 3 + 3 + 3 + 1)
+K6_EDGES = {"13x5x70-last1": ((13, 5, 70), 3), "1x6x5": ((1, 6, 5), 7),
+            "4x40x3": ((4, 40, 3), 64), "9x70x33": ((9, 70, 33), 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2])
+@pytest.mark.parametrize("edge", list(K6_EDGES))
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k6_tile_edges_match_twin(gpu, case, edge, steps):
+    """K6 on shapes at the tiling's edges, every flux and variant, 0 ulp
+    from its twin."""
+    shape, zchunk = K6_EDGES[edge]
+    name, kw, variant, nu = K5_CASES[case]
+    rng = np.random.default_rng(10 + steps)
+    S0 = torch.from_numpy(
+        rng.uniform(-0.2, 1.0, shape).astype(np.float32)).to(gpu)
+    params = fb.stage_params(pflux.get(name, **kw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    want = _steps(lambda s, d: fsr.burgers_step_reference(
+        s, d, 0.015, params=params), S0, steps)
+    got = fsr.slab_run_burgers(S0.clone(), torch.empty_like(S0), steps,
+                               0.015, params=params, zchunk=zchunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k6_planned_chunks_match_twin(gpu):
+    """K6 with its planned z chunks (``zchunk=None``, the solvers'
+    default) at a shape of several tiles and chunks: 0 ulp."""
+    rng = np.random.default_rng(6)
+    S0 = torch.from_numpy(
+        rng.uniform(-0.2, 1.0, (70, 40, 65)).astype(np.float32)).to(gpu)
+    params = fb.stage_params(pflux.get("burgers"), "js", (0.05, 0.07, 0.09),
+                             1e-5)
+    want = _steps(lambda s, d: fsr.burgers_step_reference(
+        s, d, 0.015, params=params), S0, 2)
+    got = fsr.slab_run_burgers(S0.clone(), torch.empty_like(S0), 2, 0.015,
+                               params=params)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_fused_step_runs_match_generic_path(gpu):
     """The 3-D fused-step paths against the generic paths, one K10
@@ -645,6 +691,32 @@ def test_k2b_burgers_matches_twin_and_k6(gpu_k2b, case, steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["13x5x70-last1", "4x40x3"])
+@pytest.mark.parametrize("case", ["z-burgers-inviscid", "js-linear"])
+def test_k2b_burgers_tile_edges_match_k6(gpu_k2b, case, edge):
+    """K2b on shapes at the tiling's edges: every member 0 ulp from the
+    batched twin and from its single K6 run."""
+    shape, zchunk = K6_EDGES[edge]
+    name, kw, variant, nu = K5_CASES[case]
+    rng = np.random.default_rng(2)
+    S0 = torch.from_numpy(rng.uniform(-0.2, 1.0, (2, *shape)).astype(
+        np.float32)).to(gpu_k2b)
+    params = fb.stage_params(pflux.get(name, **kw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    want = fsr.ping_pong_members(
+        lambda s, d: fsr.burgers_step_reference(s, d, 0.015, params=params),
+        S0.clone(), S0.clone(), 3)
+    got = fsr.slab_run_burgers_batched(S0.clone(), torch.empty_like(S0), 3,
+                                       0.015, params=params, zchunk=zchunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for i in range(2):
+        single = fsr.slab_run_burgers(S0[i].clone(), torch.empty_like(S0[i]),
+                                      3, 0.015, params=params, zchunk=zchunk)
+        assert torch.equal(got[i], single), f"member {i}"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("impl,stepper,counter,per_run", [
     ("pallas_slab", "ensemble-fold[fused-whole-run-slab]",
      fsr.slab_run_diffusion_batched, lambda B, n: 1),
@@ -852,6 +924,30 @@ def test_k3_burgers_matches_twin(gpu_mesh, case, window, oz, gnz):
     got = fsr.slab_step_burgers(S, out0.clone(), 0.015, zchunk=7, **kw)
     torch.cuda.synchronize()
     assert fsr.slab_step_burgers.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [(5, 70), (40, 3)], ids=["5x70", "40x3"])
+@pytest.mark.parametrize("window", ["full", "deep0", "deep-top"])
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k3_burgers_tile_edges_match_twin(gpu_mesh, case, window, plane):
+    """K3 (Burgers) on planes at the tiling's edges, a shard in the
+    middle of three, z chunks of 3 planes; 0 ulp from its twin."""
+    name, fkw, variant, nu = K5_CASES[case]
+    rng = np.random.default_rng(3)
+    win, ops, depth = K3B_WINDOWS[window]
+    shape = (27 + 2 * depth, *plane)
+    S = _rand(rng, shape, gpu_mesh)
+    hi = _rand(rng, (depth,) + shape[1:], gpu_mesh) if "hi" in ops else None
+    params = fb.stage_params(pflux.get(name, **fkw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    kw = dict(params=params, global_nz=81, oz=27, depth=depth, window=win,
+              hi=hi)
+    out0 = _rand(rng, shape, gpu_mesh)
+    want = fsr.slab_step_burgers_reference(S, out0.clone(), 0.015, **kw)
+    got = fsr.slab_step_burgers(S, out0.clone(), 0.015, zchunk=3, **kw)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
@@ -1153,6 +1249,40 @@ def test_k4_matches_twin(gpu_k4, family, shards, lz, k, steps):
     torch.cuda.synchronize()
     assert run.launches == before + 1
     fsr.slab_run_dma_reference(step, *want, steps, k=k, G=G)
+    for a, b in zip(sum(got, []), sum(want, [])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [(5, 70), (40, 3)], ids=["5x70", "40x3"])
+@pytest.mark.parametrize("case,shards,lz,k,steps", [
+    ("z-burgers-inviscid", 2, 13, 1, 3), ("js-linear", 3, 19, 2, 5)])
+def test_k4_burgers_tile_edges_match_twin(gpu_k4, case, shards, lz, k,
+                                          steps, plane):
+    """K4 (Burgers) on planes at the tiling's edges, z chunks of 4
+    planes with a last one of 1 plane (13 core planes; at k = 2 the
+    widest window, 37 planes): every state and landing buffer 0 ulp from
+    its twin's."""
+    rng = np.random.default_rng(4)
+    G = 3 * fb.R
+    depth = k * G
+    shape = (lz + 2 * depth, *plane)
+    bufs = [[_rand(rng, shape, gpu_k4) for _ in range(shards)]
+            for _ in range(2)]
+    bufs.append([_rand(rng, (2, 2, depth) + shape[1:], gpu_k4)
+                 for _ in range(shards)])
+    name, fkw, variant, nu = K5_CASES[case]
+    params = fb.stage_params(pflux.get(name, **fkw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    got = [[t.clone() for t in ts] for ts in bufs]
+    want = [[t.clone() for t in ts] for ts in bufs]
+    fsr.slab_run_dma_burgers(*got, steps, 0.015, params=params, k=k,
+                             zchunk=3)
+    torch.cuda.synchronize()
+    fsr.slab_run_dma_reference(
+        lambda S, out, window, oz: fsr.slab_step_burgers_reference(
+            S, out, 0.015, params=params, global_nz=shards * lz, oz=oz,
+            depth=depth, window=window), *want, steps, k=k, G=G)
     for a, b in zip(sum(got, []), sum(want, [])):
         assert torch.equal(a, b)
 

@@ -275,8 +275,9 @@ def _both(family, layout, **kw):
     lengths = 2.0 if family == "burgers" else 4.0
     jcls, jsolver, pcls, psolver = _FAMILIES[family]
     # configs too are built in the makers: a config may refuse the knobs
+    jkw = {"dtype": "float32", **kw}
     return (lambda: jsolver(jcls(grid=JGrid.make(*n_xyz, lengths=lengths),
-                                 dtype="float32", **kw),
+                                 **jkw),
                             mesh=jm, decomp=jd),
             lambda: _port(psolver, pcls(grid=PGrid.make(*n_xyz,
                                                         lengths=lengths),
@@ -343,6 +344,69 @@ def test_dispatch_matches_jax(case):
     assert {f: got[f] for f in _FIELDS} == {f: want[f] for f in _FIELDS}
     if not want["stepper"].startswith("fused"):
         assert got["fallback"] == want["fallback"]
+
+
+# configs whose fused rung declines on a z-slab mesh, by family
+DECLINING = [("diffusion", {"order": 2}), ("diffusion", {"bc": "periodic"}),
+             ("diffusion", {"dtype": "float64"}),
+             ("burgers", {"adaptive_dt": False, "dtype": "float64"}),
+             ("burgers", {"adaptive_dt": False, "weno_order": 7,
+                          "weno_variant": "z"})]
+DECLINE_SWEEP = [
+    (fam, dict(impl=impl, steps_per_exchange=k, exchange=ex, **extra))
+    for fam, extra in DECLINING
+    for impl in ("pallas", "pallas_slab")
+    for k in (1, 2)
+    for ex in ("collective", "dma")
+]
+
+
+def _decline_id(case):
+    fam, kw = case
+    extra = "-".join(f"{a}={v}" for a, v in kw.items()
+                     if a not in ("impl", "steps_per_exchange", "exchange"))
+    return (f"{fam}-{extra}-{kw['impl']}-k{kw['steps_per_exchange']}-"
+            f"{kw['exchange']}")
+
+
+@pytest.mark.parametrize("case", DECLINE_SWEEP,
+                         ids=[_decline_id(c) for c in DECLINE_SWEEP])
+def test_declined_fusion_matches_jax_on_zslab(case):
+    """A config whose fused rung declines, on ``{"dz": 2}``: with
+    ``steps_per_exchange > 1`` or ``exchange="dma"`` the port raises the
+    JAX package's error, the cadence named first when both are set;
+    otherwise its ``engaged_path()`` fields are JAX's and its fallback
+    starts with JAX's reason (the port may add that an order-2 Laplacian
+    runs in plain PyTorch, a recorded difference)."""
+    family, kw = case
+    make_jax, make_port = _both(family, _Z2, **kw)
+    try:
+        want = make_jax().engaged_path()
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            make_port().engaged_path()
+        assert str(got.value) == str(exc)
+        return
+    got = make_port().engaged_path()
+    assert {f: got[f] for f in _FIELDS} == {f: want[f] for f in _FIELDS}
+    assert got["fallback"].startswith(want["fallback"])
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_stage"])
+def test_split_schedule_difference_against_jax(impl):
+    """A recorded difference, beside the slab gates: the sharded
+    per-stage diffusion rung takes the split schedule at 3 chunks of
+    ``Z_CHUNK`` planes (``ops/kernels/fused_diffusion.py``), where JAX's
+    VMEM-sized z block leaves fewer than 3 and it runs
+    ``serialized-refresh``. 16x16x96 on ``{"dz": 4}`` (local z 24)
+    reaches it; every other field is JAX's."""
+    make_jax, make_port = _both("diffusion", ({"dz": 4}, {0: "dz"}),
+                                impl=impl, overlap="split")
+    want, got = make_jax().engaged_path(), make_port().engaged_path()
+    assert (want["overlap"], got["overlap"]) == ("serialized-refresh",
+                                                 "split")
+    rest = [f for f in _FIELDS if f != "overlap"] + ["fallback"]
+    assert {f: got[f] for f in rest} == {f: want[f] for f in rest}
 
 
 @pytest.mark.parametrize("make,match", [

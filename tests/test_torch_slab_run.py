@@ -377,3 +377,42 @@ def test_port_supports_what_jax_rejects(shape):
     for cls in (psr.SlabRunBurgersStepper, psr.SlabRunDiffusionStepper):
         assert not cls.supported(shape, torch.float64)
         assert not cls.supported((1300, 1300, 1300), torch.float32)
+
+
+@pytest.mark.parametrize("args,want", [
+    # K6 at 400x400x406 on an H100's 132 SMs, one block an SM: 13 x 13
+    # tiles of 32 (the last 16 wide), 406 planes in 3 chunks of 136
+    # (136 + 136 + 134): 507 jobs, 3.84 a block; the next splits cost
+    # 3 waves x (203 + 10), 6 x (102 + 10), 8 x (68 + 10) planes against
+    # 4 x (136 + 10)
+    ((406, 400, 400, 132), dict(tiles=169, chunk_planes=136, chunks=3,
+                                jobs=507, waves=507 / 132)),
+    # K4 on {"dz": 2}: two shards of 203 planes, 3 chunks of 68 each
+    # (68 + 68 + 67), 2 x 169 x 3 = 1014 jobs, 7.68 a block: 8 waves x
+    # (68 + 10) against 3 x (203 + 10) for one chunk a shard
+    ((203, 400, 400, 132, 2), dict(tiles=169, chunk_planes=68, chunks=3,
+                                   jobs=1014, waves=1014 / 132)),
+    # an explicit 64: six chunks of 64 and a remnant of 22 planes,
+    # 169 x 7 = 1183 jobs, 8.96 a block
+    ((406, 400, 400, 132, 1, 64), dict(tiles=169, chunk_planes=64,
+                                       chunks=7, jobs=1183,
+                                       waves=1183 / 132)),
+    # below one tile: with blocks to spare, 3 jobs of one plane each
+    # (one wave of 1 + 10 planes against 3 + 10 for one job)
+    ((3, 5, 7, 132), dict(tiles=1, chunk_planes=1, chunks=3, jobs=3,
+                          waves=3 / 132)),
+], ids=["k6-400x400x406", "k4-dz2", "k6-zchunk64", "tiny"])
+def test_burgers_schedule_hand_counted(args, want):
+    """The slab Burgers kernels' job plan (``burgers_schedule``), counted
+    by hand: the z chunks the planner picks and the jobs and waves."""
+    assert psr.burgers_schedule(*args) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("window,zchunk,chunks", [
+    (406, 64, 7), (13, 3, 5), (23, 7, 4), (1, 7, 1), (9, 64, 1)])
+def test_explicit_zchunk_is_the_planes_a_job(window, zchunk, chunks):
+    """An explicit z chunk is the planes a job marches, the last chunk
+    the rest: 13 planes at 3 leave a last chunk of one plane."""
+    plan = psr.burgers_schedule(window, 40, 70, 132, zchunk=zchunk)
+    assert (plan["chunk_planes"], plan["chunks"]) == (zchunk, chunks)
+    assert plan["jobs"] == 6 * chunks
