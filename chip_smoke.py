@@ -31,7 +31,10 @@ ignored ``build/`` directory), then:
    max|f'|) and at an odd small shape for WENO5-Z, the inviscid case
    and the linear and Buckley-Leverett fluxes; ``<= 32 eps`` of
    max|twin| (the ulp count printed), the emitted maximum exactly; times
-   K5 alone at 512^3 for each stage kind and z-chunk of ``K5_ZCHUNKS``;
+   K5 alone at 512^3 for each stage kind and z-chunk of ``K5_ZCHUNKS``,
+   and prints its tiling (checked against ``fused_burgers.tile_geometry``)
+   and the f32 operations it issues a cell (``fused_burgers.ops_issued``)
+   with their rate against 67 and 33.5 T/s;
 6. drives the Burgers main path — 512^3, lengths 2, float32, adaptive
    dt, nu = 1e-5, ``impl="pallas"``, 86 steps through
    ``BurgersSolver.run`` (``SingleGPU/Burgers3d_WENO5/Run.m``) — and
@@ -320,7 +323,7 @@ BURGERS_N = 512  # SingleGPU/Burgers3d_WENO5/Run.m:15-25: 512^3, 86 steps
 BURGERS_ITERS = 86
 BURGERS_NU = 1e-5
 BURGERS_CHECK_ITERS = 10  # steps held against the generic path
-K5_ZCHUNKS = (8, 16, 32)  # z planes a K5 thread marches, timed alone
+K5_ZCHUNKS = (32, 64, 128)  # z planes a K5 block marches, timed alone
 K5_ODD_CASES = (  # (flux, flux kwargs, variant, nu) at ODD_SHAPE
     ("burgers", {}, "z", 0.0),
     ("linear", {"c": -0.7}, "js", 1e-5),
@@ -713,6 +716,15 @@ def check_k5(shape, params, dt, seed: int, timed: bool) -> dict:
                   f"{res['bound_ms'][-1]:.4f} ms ({res['bound_by']}: "
                   f"{1e3 * by_ops:.4f} ms of operations, "
                   f"{1e3 * by_bytes:.4f} ms of bytes)")
+            issued = fb.ops_issued(shape, fb.Z_CHUNK, has_u=has_u,
+                                   viscous=viscous, variant=params.variant)
+            rate = issued / (res["ms"][-1] * 1e-3)
+            print(f"    issued {issued / math.prod(shape):.2f} f32 "
+                  f"operations a cell (fb.ops_issued; the face-once count "
+                  f"{by_ops * F32_OPS_PER_S / math.prod(shape):.0f}): "
+                  f"{rate / 1e12:.2f} T operations/s, "
+                  f"{rate / F32_OPS_PER_S:.3f} of 67 and "
+                  f"{rate / F32_NOFMA_OPS_PER_S:.3f} of 33.5 T/s")
     return res
 
 
@@ -767,6 +779,18 @@ def burgers_phases(card: str) -> dict:
     dt_cfl = cfg.cfl * min(grid.spacing)
 
     print("phase 5: K5 against its twin")
+    geo = fb.geometry()
+    want = fb.tile_geometry()
+    print(f"  K5 tiling: {geo['tile_y']}x{geo['tile_x']} tile, "
+          f"{geo['threads']} threads, {geo['smem_bytes']} B static shared "
+          f"memory, {geo['blocks_per_sm']} blocks an SM, "
+          f"{geo['registers']} registers and {geo['local_bytes']} B local "
+          f"memory a thread")
+    if ((geo["tile_y"], geo["tile_x"]) != fb.TILE
+            or geo["threads"] != want["threads"]
+            or geo["smem_bytes"] != want["smem_bytes"]):
+        raise AssertionError(f"K5's tiling {geo} is not the host's "
+                             f"{fb.TILE} / {want}")
     main5 = check_k5(grid.shape, params, dt_cfl, seed=5, timed=True)
     k5_err, k5_ulps = main5["max_abs_err"], main5["ulps"]
     for i, (name, kw, variant, nu) in enumerate(K5_ODD_CASES):

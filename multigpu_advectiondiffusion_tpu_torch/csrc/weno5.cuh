@@ -2,12 +2,13 @@
 // the local Lax-Friedrichs split, the e-form WENO5 reconstruction and
 // the face flux, each in the operation order of the plain PyTorch twin
 // (ops/kernels/fused_burgers.py::stage_reference, ops/weno.py::
-// _weno5_side_nd_e). Included by fused_burgers_stage.cu (K5),
-// whole_run_burgers2d.cu (K7/K7a), fused2d_sharded.cu (K8/K8b),
-// weno_axis.cu (K12) and
-// slab_run_burgers.cu (K6, which computes runs of faces); each is
-// built with -fmad=false, so no product and sum are contracted into an
-// FMA and every kernel rounds where the twin does.
+// _weno5_side_nd_e). Included by fused_burgers_stage.cu (K5) and
+// slab_run_burgers.cu (K6, K3, K4, K2b), which compute the x and y faces
+// in runs (face_run) and the z faces one at a time (face), and by
+// whole_run_burgers2d.cu (K7/K7a), fused2d_sharded.cu (K8/K8b) and
+// weno_axis.cu (K12); each is built with -fmad=false, so no product and
+// sum are contracted into an FMA and every kernel rounds where the twin
+// does.
 
 #pragma once
 

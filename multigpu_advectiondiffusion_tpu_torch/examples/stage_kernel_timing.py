@@ -13,11 +13,12 @@ after a warm-up, and the kernel's mean device time a launch from
 last line is a JSON object of these numbers.
 
 The script calls only the solvers' public entry points, so one call on
-the card can time two checkouts, each put first on the path:
+the card can time two checkouts, each put first on the path (``--paths
+K5`` times the K5 paths only):
 
     PYTHONPATH=<checkout> python \\
         multigpu_advectiondiffusion_tpu_torch/examples/stage_kernel_timing.py \\
-        --label NAME
+        --label NAME [--paths K5]
 """
 
 from __future__ import annotations
@@ -100,6 +101,9 @@ def per_launch_ms(solver, state0, iters: int, kernel: str,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--paths", default="",
+                    help="time only the paths whose name holds this text "
+                         "(e.g. K5); all by default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("stage_kernel_timing: no CUDA device is available")
@@ -155,6 +159,8 @@ def main() -> int:
     )
     result = {"label": args.label, "card": card, "paths": {}}
     for name, iters, solver, kernel, launches in paths:
+        if args.paths not in name:
+            continue
         state0 = solver.initial_state()
         ms, samples = ms_per_step(solver, state0, iters)
         launch = per_launch_ms(solver, state0, iters, kernel, launches)

@@ -4,7 +4,11 @@
 Each RK stage is ONE kernel launch (K5, ``csrc/fused_burgers_stage.cu``):
 the Lax–Friedrichs split, the WENO5 flux divergence along z, y and x,
 the optional viscous O4 Laplacian and the RK combination, with the
-final stage of an adaptive run also emitting ``max|f'(u_next)|``.
+final stage of an adaptive run also emitting ``max|f'(u_next)|``. A
+block owns a ``TILE`` (y, x) tile and marches z: each plane's tile and
+its split go through shared memory, each y and x face is computed once
+there, each z face once in a thread's register window
+(:func:`ops_issued` counts what a launch issues).
 
 * The state is kept **unpadded**, ``(nz, ny, nx)`` float32. Edge
   boundaries are replicated ghosts, so the kernel clamps every
@@ -62,10 +66,18 @@ SOURCE = "fused_burgers_stage.cu"
 # fused multiply-adds off: the kernel rounds every product and sum as
 # the twin does, so the two agree to the bit
 NVCC_EXTRA = ("-fmad=false", "-prec-div=true", "-ftz=false")
-# z planes one thread marches (each chunk recomputes one z face). 32
-# was the fastest of 8, 16, 32 alone at 512^3, by 1 % over 16
-# (chip_smoke.py's sweep, PERF.md).
-Z_CHUNK = 32
+# z planes a block marches (each chunk reloads its threads' z windows and
+# recomputes one z face). 64 was the fastest of 32, 64 and 128 alone at
+# 512^3 and 400x400x406, by 0.6 % over 32 (PERF.md). A launch with fewer
+# tiles than BLOCKS_PER_SM blocks an SM (four waves of the two an SM
+# holds) marches shorter chunks, down to MIN_ZCHUNK planes
+# (stage_zchunk), so small grids fill the card: at 64 planes a 64^3
+# launch has 10 blocks for 132 SMs.
+Z_CHUNK = 64
+MIN_ZCHUNK = 4
+BLOCKS_PER_SM = 8
+# (rows, columns) of a block's output tile: TY and TX of the source
+TILE = (14, 32)
 # planes of the split schedule's bottom and top calls (the JAX stepper's
 # z block at its usual shapes, so both split the same shards)
 SPLIT_BZ = 8
@@ -235,6 +247,81 @@ def _stage_rk(vp, v, u, dt, params: StageParams, a: float, b: float):
 # --------------------------------------------------------------------- #
 # The kernel
 # --------------------------------------------------------------------- #
+# f32 operations the kernel issues (csrc/fused_burgers_stage.cu's note),
+# Burgers flux: the split of a value, a run of three faces and one face
+# alone by WENO5 variant, and a cell's divergences, their sum and
+# negation, the Laplacian and the combine
+SPLIT_OPS = 6
+RUN_OPS = {"js": 305, "z": 335}
+FACE_OPS = {"js": 119, "z": 129}
+
+
+def tile_geometry() -> dict:
+    """A block's threads, its tile plane with the halo, the halo cells it
+    loads a plane, its runs of three x and y faces a plane and its static
+    shared memory (bytes): two buffers of v, f+ and f- on the tile plane,
+    the x and y faces and a word a warp."""
+    ty, tx = TILE
+    threads = ty * tx
+    plane = (ty + 2 * R) * (tx + 2 * R)
+    runs = (ty * (tx + 1) + tx * (ty + 1)) // 3
+    smem = 4 * (2 * 3 * plane + ty * (tx + 1) + (ty + 1) * tx
+                + threads // 32)
+    return {"threads": threads, "plane": plane, "halo": plane - threads,
+            "runs": runs, "smem_bytes": smem}
+
+
+def ops_issued(shape, zchunk: int = Z_CHUNK, *, has_u: bool, viscous: bool,
+               variant: str) -> int:
+    """f32 operations one unsharded K5 launch issues on an ``(nz, ny,
+    nx)`` state with the Burgers flux: for every block of the grid
+    (tiles a plane times z chunks), each thread splits 7 + p values and
+    computes 1 + p z faces and p cells on a chunk of p planes, and the
+    block splits its halo and computes its runs of faces on each plane.
+    Threads outside the grid do the same work and write nothing."""
+    nz, ny, nx = shape
+    geo = tile_geometry()
+    blocks = -(-ny // TILE[0]) * -(-nx // TILE[1])
+    cell = 6 + 3 + (30 if viscous else 0) + (5 if has_u else 3)
+    total = 0
+    for k in range(0, nz, zchunk):
+        p = min(zchunk, nz - k)
+        thread = ((7 + p) * SPLIT_OPS + (1 + p) * FACE_OPS[variant]
+                  + p * cell)
+        block = p * (geo["halo"] * SPLIT_OPS + geo["runs"] * RUN_OPS[variant])
+        total += geo["threads"] * thread + block
+    return blocks * total
+
+
+def stage_zchunk(planes: int, ny: int, nx: int, sms: int) -> int:
+    """The z planes a block marches when the caller gives none:
+    ``Z_CHUNK``, or as few as it takes (not below ``MIN_ZCHUNK``) for a
+    launch over ``planes`` planes of ``(ny, nx)`` tiles to have
+    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs."""
+    tiles = -(-ny // TILE[0]) * -(-nx // TILE[1])
+    chunks = -(-BLOCKS_PER_SM * sms // tiles)
+    return max(MIN_ZCHUNK, min(Z_CHUNK, -(-planes // chunks)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def geometry() -> dict:
+    """The built kernel's tiling, as its library reports it: tile rows and
+    columns, threads a block, static shared memory bytes, the blocks an
+    SM can hold, registers and spilled bytes a thread (unsharded
+    WENO5-JS Burgers instance). Needs the card."""
+    out = (ctypes.c_int * 7)()
+    rc = library().fused_burgers_stage_geometry(out)
+    if rc != 0:
+        raise RuntimeError(f"fused_burgers_stage_geometry: CUDA error {rc}")
+    keys = ("tile_y", "tile_x", "threads", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes")
+    return dict(zip(keys, out))
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built stage kernel (compiled at first use), argtypes set."""
@@ -244,11 +331,13 @@ def library() -> ctypes.CDLL:
     fn.argtypes = [p, p, p, i, i, i, p, i, f, i, p, p, f, f, p, i, p, i, i,
                    p, p, p]
     fn.restype = ctypes.c_int
+    lib.fused_burgers_stage_geometry.argtypes = [ctypes.c_void_p]
+    lib.fused_burgers_stage_geometry.restype = ctypes.c_int
     return lib
 
 
 def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
-                        a: float, b: float, zchunk: int = Z_CHUNK,
+                        a: float, b: float, zchunk: int | None = None,
                         zpad: int = 0, global_nz: int | None = None,
                         oz: int = 0, window=None, lo=None, hi=None,
                         mx_init: bool = True):
@@ -264,9 +353,10 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
     offset ``oz``; ``window = (k_begin, k_end)`` writes those block planes
     only, and ``lo``/``hi`` (``(zpad, ny, nx)``) replace the ghost planes
     below/above (the split schedule's edge calls). Launches K5 on the
-    current stream (no synchronisation), each thread marching ``zchunk``
-    z planes, and counts the launch in ``fused_burgers_stage.launches``;
-    a CPU tensor runs :func:`stage_reference`.
+    current stream (no synchronisation), each block marching ``zchunk``
+    z planes (:func:`stage_zchunk`'s plan when ``None``), and counts the
+    launch in ``fused_burgers_stage.launches``; a CPU tensor runs
+    :func:`stage_reference`.
     """
     for name, t in (("v", v), ("u", u), ("out", out)):
         if t is not None:
@@ -310,6 +400,8 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
             else np.asarray(params.lap_taps, dtype=np.float32))
     c = params.flux.c if params.flux.c is not None else 0.0
     zgeo = np.asarray((zpad, gnz, oz, int(mx_init)), dtype=np.int32)
+    if zchunk is None:
+        zchunk = stage_zchunk(k1 - k0, ny, nx, _sm_count(v.device.index))
     with torch.cuda.device(v.device):
         rc = library().fused_burgers_stage(
             v.data_ptr(), None if u is None else u.data_ptr(),

@@ -260,3 +260,46 @@ def test_fused_stage_rejects_bad_operands():
         pfb.fused_burgers_stage(v, None, torch.zeros((9, 8, 6)), 1e-3, **kw)
     with pytest.raises(ValueError, match="variant"):
         pfb.stage_params(pflux.burgers(), "w", (0.1,) * 3, 0.0)
+
+
+# --------------------------------------------------------------------- #
+# K5's tiling, operation count and z chunks (host helpers), by hand
+# --------------------------------------------------------------------- #
+def test_tile_geometry_matches_hand_count():
+    """14 x 32 tile: 448 threads; a plane with its 3-cell halo 20 x 38 =
+    760 cells, 312 of them halo; 14 rows of 11 x runs and 32 columns of
+    5 y runs; shared memory 4 (6 * 760 + 14 * 33 + 15 * 32 + 14) bytes."""
+    assert pfb.TILE == (14, 32)
+    assert pfb.tile_geometry() == {
+        "threads": 448, "plane": 760, "halo": 312, "runs": 314,
+        "smem_bytes": 22064}
+
+
+def test_issued_operations_match_hand_count():
+    """One plane of one block, stage 1, inviscid, WENO5-JS: each of 448
+    threads splits 8 values (6 each) and computes 2 z faces (119) and one
+    cell (12); the block splits 312 halo cells and computes 314 runs of
+    three faces (305). Then a 40 x 15 x 33 grid, stage 2, viscous,
+    WENO5-Z, z chunks of 32 and 8 on 2 x 2 tiles."""
+    one = 448 * (8 * 6 + 2 * 119 + 12) + 312 * 6 + 314 * 305
+    assert one == 231_146
+    assert pfb.ops_issued((1, 14, 32), 32, has_u=False, viscous=False,
+                          variant="js") == one
+    cell = 6 + 3 + 30 + 5
+    run = 312 * 6 + 314 * 335
+    chunk32 = 448 * (39 * 6 + 33 * 129 + 32 * cell) + 32 * run
+    chunk8 = 448 * (15 * 6 + 9 * 129 + 8 * cell) + 8 * run
+    assert 4 * (chunk32 + chunk8) == 30_573_504
+    assert pfb.ops_issued((40, 15, 33), 32, has_u=True, viscous=True,
+                          variant="z") == 30_573_504
+
+
+def test_stage_zchunk_matches_hand_count():
+    """132 SMs want 8 x 132 = 1,056 blocks. 512^3 has 37 x 16 = 592 tiles,
+    so 2 chunks of 256 planes, capped at Z_CHUNK = 64; 64^3 has 5 x 2 =
+    10, so 106 chunks, at least MIN_ZCHUNK = 4 planes each; 160 x 160 x
+    162 has 12 x 5 = 60, so 18 chunks of 9 planes."""
+    assert (pfb.Z_CHUNK, pfb.MIN_ZCHUNK, pfb.BLOCKS_PER_SM) == (64, 4, 8)
+    assert pfb.stage_zchunk(512, 512, 512, 132) == 64
+    assert pfb.stage_zchunk(64, 64, 64, 132) == 4
+    assert pfb.stage_zchunk(162, 160, 160, 132) == 9

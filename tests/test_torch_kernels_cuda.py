@@ -16,6 +16,7 @@ has no JAX, with the JAX-side conftest switched off::
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -193,6 +194,73 @@ def test_k5_run_matches_generic_path(gpu, adaptive):
     bad = (got.u - want.u).abs() > 2e-5 * want.u.abs() + 2e-6 * scale
     assert not bool(bad.any())
     assert abs(float(got.t) - float(want.t)) <= 1e-5 * float(want.t)
+
+
+# K5's tile edges (csrc/fused_burgers_stage.cu: a TILE (y, x) tile a
+# block): ny and nx at 1, 2, 3 and one off a tile and two tiles; the
+# layouts the split schedule launches on a z-slab shard of lz = 24 (3
+# ghost planes a side, the middle shard of three), and nz 1, 4, 7
+# unsharded and as a whole shard
+K5_EDGE_Y = (1, 2, 3, fb.TILE[0] - 1, fb.TILE[0] + 1, 2 * fb.TILE[0] + 5)
+K5_EDGE_X = (1, 2, 3, fb.TILE[1] - 1, fb.TILE[1] + 1, 2 * fb.TILE[1] + 5)
+K5_EDGE_LAYOUTS = {"unsharded": None, "shard": ("full", ""),
+                   "interior": ((8, 16), ""), "bottom": ((0, 8), "lo"),
+                   "top": ((16, 24), "hi")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(K5_EDGE_LAYOUTS))
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k5_tile_edges_match_twin(gpu, case, layout):
+    """K5 on shapes at its tile's edges, every stage kind, z chunks of 3
+    (so chunks meet), unsharded and in the split schedule's layouts with
+    the exchanged operands: 0 ulp from its twin, the emitted maximum
+    exactly (folded into a prior value on a shard)."""
+    name, fkw, variant, nu = K5_CASES[case]
+    params = fb.stage_params(pflux.get(name, **fkw), variant,
+                             (0.05, 0.07, 0.09), nu)
+    rng = np.random.default_rng(len(layout))
+    R = fb.R
+    dt = torch.full((), 2e-3, device=gpu)
+    role = K5_EDGE_LAYOUTS[layout]
+    depths = (1, 4, 7) if role is None or role[0] == "full" else (24,)
+    for nz, ny, nx, kind in itertools.product(depths, K5_EDGE_Y, K5_EDGE_X,
+                                              range(3)):
+        a, b = fb.STAGES[kind]
+        where = (layout, nz, ny, nx, kind)
+        if role is None:
+            v, u = _rand(rng, (nz, ny, nx), gpu), _rand(rng, (nz, ny, nx), gpu)
+            u_arg = None if kind == 0 else u
+            emit = kind == 2
+            ref = fb.stage_reference(v, u_arg, torch.empty_like(v), dt,
+                                     params=params, a=a, b=b, emit=emit)
+            out = u.clone() if emit else torch.empty_like(v)
+            mx = torch.full((1,), -1.0, device=gpu) if emit else None
+            fb.fused_burgers_stage(v, out if emit else u_arg, out, dt, mx,
+                                   params=params, a=a, b=b, zchunk=3)
+            torch.cuda.synchronize()
+            want = ref[0] if emit else ref
+            assert torch.equal(out, want), where
+            if emit:
+                assert float(mx[0]) == float(ref[1]), where
+            continue
+        window, ops = role
+        shape = (nz + 2 * R, ny, nx)
+        v, u = _rand(rng, shape, gpu), _rand(rng, shape, gpu)
+        lo = _rand(rng, (R, ny, nx), gpu) if "lo" in ops else None
+        hi = _rand(rng, (R, ny, nx), gpu) if "hi" in ops else None
+        kw = dict(params=params, a=a, b=b, zpad=R, global_nz=3 * nz, oz=nz,
+                  window=None if window == "full" else window, lo=lo, hi=hi)
+        u_arg = None if kind == 0 else u
+        out0 = _rand(rng, shape, gpu)
+        ref, mref = fb.stage_reference(v, u_arg, out0.clone(), dt, emit=True,
+                                       **kw)
+        out, mx = out0.clone(), torch.full((1,), 0.5, device=gpu)
+        fb.fused_burgers_stage(v, u_arg, out, dt, mx, zchunk=3,
+                               mx_init=False, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), where
+        assert float(mx[0]) == max(0.5, float(mref)), where
 
 
 # --------------------------------------------------------------------- #
