@@ -74,7 +74,12 @@ ignored ``build/`` directory), then:
    their twin (three K1-twin stages a step) to the bit, over 1 and 5
    steps at 400x200x206 and at an odd shape, K2 against K10, and both
    paths against the K1 path after ``run(101)``; times K10 and K2 alone
-   for each z-chunk of ``STEP_ZCHUNKS``, and the twin;
+   for each z-chunk of ``STEP_ZCHUNKS`` and the planned ones
+   (``fused_diffusion_step.diffusion_zchunk``, K10's and the cooperative
+   K2's), and the twin; prints each
+   launch's plan (chunk, jobs, waves) and the f32 operations it issues
+   (``fused_diffusion_step.ops_issued``) with their rate against 33.5
+   T/s;
 13. drives ``impl="pallas_step"`` and ``"pallas_slab"`` on the diffusion
    reference run (400x200x206, 101 steps): 101 K10 launches, one K2
    launch, agreement with the generic path and error norms as in phase
@@ -93,8 +98,8 @@ ignored ``build/`` directory), then:
    agreement with the generic path at 10 steps, the K5 path on the
    same config, the operations bound;
 15. times the per-stage and the slab paths on the slab gates' grids
-   (Burgers: both paths in turn, ``GATE_ROUNDS`` rounds, with their
-   spread) and prints which was faster and which the gate picks
+   (the paths in turn, ``GATE_ROUNDS`` rounds, with their spread) and
+   prints which was faster beyond the spread and which the gate picks
    (reported, not held);
 16. holds the per-axis Laplacian kernels (K11 in 3-D, K11b in 2-D)
    against their plain twin at 400x200x206, 512^3, 1001^2 and the odd
@@ -143,7 +148,8 @@ ignored ``build/`` directory), then:
    member, to the bit, at the ensemble main sizes (bench.py's ensemble
    rows): diffusion 256x128x64, B = 64, 60 steps; Burgers 128x64x64,
    B = 8, 30 steps; times K2b's run beside its bound, the twin of the
-   same run, MLUPS*members and the peak memory;
+   same run, MLUPS*members and the peak memory, and prints the diffusion
+   launch's plan (chunk, jobs, waves) and issued-operation rate;
 25. drives the diffusion ensemble (256x128x64, the width sweep 0.1 +
    0.002 i, 60 steps, B = 8 and 64) through ``EnsembleSolver.run`` on
    the three rungs — ``impl="pallas_slab"`` (one K2b launch a run),
@@ -165,8 +171,9 @@ ignored ``build/`` directory), then:
    for diffusion, 400x400x203 for Burgers): the per-step window, the
    split schedule's bottom ("lo") and top ("hi") calls on exchanged
    operands, and the k = 4 deep windows, on the first and the last shard;
-   times K3 alone beside its bound and the twin, and prints Burgers K3's
-   jobs and waves a step and its operation rate;
+   times K3 alone beside its bound and the twin, and prints each K3's
+   jobs and waves a step and its operation rate (diffusion: the chunk
+   planned and the operations issued);
 29. drives ``MultiGPU/Diffusion3d_Baseline`` on a ``{"dz": 2}`` mesh with
    both shards on ``cuda:0`` (400x200x206, ``run(101)``): K1 serialized
    (606 launches), K1 split (1,818), K3 (202) and K3 with
@@ -223,7 +230,8 @@ ignored ``build/`` directory), then:
    steps) and k = 4 (5 steps: a partial block), 400x200x52 on four
    shards, Burgers 400x400x203 WENO5-JS and WENO5-Z at k = 1 and JS at
    k = 2 (3 steps); times K4 alone at k = 1 beside its twin, and prints
-   Burgers K4's grid blocks, jobs and waves a step and operation rate;
+   each K4's grid blocks, jobs and waves a step and operation rate
+   (diffusion: the chunk planned and the operations issued);
 39. drives ``MultiGPU/Diffusion3d_Baseline`` on ``{"dz": 2}`` with
    ``exchange="dma"`` at k = 1 and k = 4, ``run(101)``: the labels, one K4
    launch and no other (no K3), no collective halo byte and the in-kernel
@@ -347,7 +355,7 @@ K7_ODD_CASES = (  # (flux, flux kwargs, variant, nu) at ODD_2D
     ("linear", {"c": -0.7}, "js", 1e-5),
     ("buckley", {}, "z", 1e-5),
 )
-STEP_ZCHUNKS = (8, 16, 32, 64, 206)  # z planes a K10/K2 block marches
+STEP_ZCHUNKS = (8, 16, 26, 30, 52, 64, 206)  # z planes a K10/K2 job marches
 # MultiGPU/Burgers3d_Baseline (BASELINE.md:35, examples/
 # multigpu_burgers3d.sh) on one card: 400x400x406, lengths 2 2 4, CFL 0.3,
 # fixed dt, inviscid WENO5-JS; 267 steps in place of --t-end 0.4, since
@@ -1532,8 +1540,12 @@ def step_phases(card: str) -> list[dict]:
     sets = [(padded_random(grid.shape, 0.0, 120 + i),
              torch.zeros(tuple(n + 4 for n in grid.shape), device="cuda"))
             for i in range(ROTATE)]
+    planned = fds.diffusion_zchunk(*grid.shape, 1, "cuda")
+    planned_k2 = fds.diffusion_zchunk(*grid.shape, 1, "cuda",
+                                      cooperative=True)
+    zchunks = sorted({*STEP_ZCHUNKS, planned, planned_k2})
     sweep = {}
-    for z in STEP_ZCHUNKS:
+    for z in zchunks:
         turn = itertools.cycle(sets)
 
         def launch():
@@ -1546,7 +1558,7 @@ def step_phases(card: str) -> list[dict]:
     plain_step = statistics.median(cuda_ms(
         lambda: fds.step_reference(S, out, dt, **kw), 3))
     slab_sweep = {z: median_ms(lambda: fsr.slab_run_diffusion(
-        S, out, ITERS, dt, zchunk=z, **kw)) for z in STEP_ZCHUNKS}
+        S, out, ITERS, dt, zchunk=z, **kw)) for z in zchunks}
     blocks = []
     fsr.slab_run_diffusion(S, out, 1, dt, grid_blocks=blocks, **kw)
     plain_run = cuda_ms(lambda: twin_steps(
@@ -1554,20 +1566,30 @@ def step_phases(card: str) -> list[dict]:
     del sets, S, out
     step_bytes = 8 * cells
     step_ops = 100 * cells  # K1's 32 + 34 + 34 a cell (check_k1)
-    k10_bound = 1e3 * max(step_bytes / HBM_BYTES_PER_S,
-                          step_ops / F32_OPS_PER_S)
+    k10_bound, k10_by = run_bound(4 * cells, step_ops)
     k2_bound, k2_by = run_bound(4 * cells, step_ops * ITERS)
+    issued = fds.ops_issued(grid.shape, planned)
+    issued_k2 = fds.ops_issued(grid.shape, planned_k2)
     print(f"  K10 alone at {grid.shape} by zchunk "
           f"{ {z: round(v, 4) for z, v in sweep.items()} } ms a step "
-          f"(zchunk {fds.Z_CHUNK}: {sweep[fds.Z_CHUNK]:.4f} ms, "
-          f"{step_bytes / (sweep[fds.Z_CHUNK] * 1e-3) / 1e9:.0f} GB/s of its "
+          f"(planned {planned}: {sweep[planned]:.4f} ms, "
+          f"{step_bytes / (sweep[planned] * 1e-3) / 1e9:.0f} GB/s of its "
           f"8 B a cell); twin {plain_step:.3f} ms; bound {k10_bound:.4f} ms "
-          f"(bytes) [{card}]")
+          f"({k10_by}; 100 operations a cell at 67 T/s "
+          f"{1e3 * step_ops / F32_OPS_PER_S:.4f} ms) [{card}]")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    diffusion_schedule_report(
+        "K10 alone", sweep[planned], grid.shape[0], grid.shape, 1,
+        fds.BLOCKS_PER_SM * sms, planned, issued, card,
+        grid=" (two an SM; the launch: one block a job)")
     print(f"  K2 alone, run({ITERS}), by zchunk "
           f"{ {z: round(v, 3) for z, v in slab_sweep.items()} } ms on "
-          f"{blocks[0]} blocks of 256; twin {plain_run:.1f} ms; bound "
+          f"{blocks[0]} blocks of 352 (planned {planned_k2}); twin {plain_run:.1f} ms; bound "
           f"{k2_bound:.3f} ms ({k2_by}; 8 B a cell a step would be "
           f"{1e3 * step_bytes * ITERS / HBM_BYTES_PER_S:.3f} ms) [{card}]")
+    diffusion_schedule_report(
+        "K2 alone", slab_sweep[planned_k2] / ITERS, grid.shape[0],
+        grid.shape, 1, blocks[0], planned_k2, issued_k2, card)
 
     print(f"phase 13: the diffusion 3-D fused-step paths, run({ITERS}) at "
           f"{grid.shape}")
@@ -1620,10 +1642,10 @@ def step_phases(card: str) -> list[dict]:
         "launches": res["K10"]["launches"],
         # per launch (one step) in the main path's run(101)
         "ms": res["K10"]["ms_per_step"],
-        "ms_isolated": sweep[fds.Z_CHUNK],
+        "ms_isolated": sweep[planned],
         "ms_isolated_by_zchunk": {str(z): v for z, v in sweep.items()},
-        "zchunk": fds.Z_CHUNK,
-        "plain_ms": plain_step, "bound_ms": k10_bound, "bound_by": "bytes",
+        "zchunk": planned, "ops_issued": issued,
+        "plain_ms": plain_step, "bound_ms": k10_bound, "bound_by": k10_by,
         "ms_per_step": res["K10"]["ms_per_step"],
         "mlups": res["K10"]["mlups"],
     }, {
@@ -1634,7 +1656,7 @@ def step_phases(card: str) -> list[dict]:
         # per launch: the main path's run(101)
         "ms": res["K2"]["run_ms"],
         "ms_isolated_by_zchunk": {str(z): v for z, v in slab_sweep.items()},
-        "zchunk": fsr.DIFFUSION_Z_CHUNK,
+        "zchunk": planned_k2, "ops_issued_per_step": issued_k2,
         "grid_blocks": blocks[0],
         "plain_ms": plain_run, "bound_ms": k2_bound, "bound_by": k2_by,
         "ms_per_step": res["K2"]["ms_per_step"],
@@ -1667,6 +1689,30 @@ def schedule_report(name, ms_step: float, window: int, shape, units: int,
           f"{units} x {plan['chunks']} chunks), {plan['waves']:.2f} waves; "
           f"{rate / 1e12:.2f} T operations/s, {rate / F32_OPS_PER_S:.3f} of "
           f"67 and {rate / F32_NOFMA_OPS_PER_S:.3f} of 33.5 T/s [{card}]")
+
+
+def diffusion_schedule_report(name, ms_step: float, window: int, shape,
+                              units: int, blocks: int, zchunk: int,
+                              issued: int, card: str,
+                              grid: str = "") -> None:
+    """Print a diffusion-body launch's plan and rate: ``blocks`` resident
+    blocks, one step's jobs and waves on a ``window``-plane output window
+    of ``units`` tiles' sets in jobs of ``zchunk`` planes
+    (``fused_diffusion_step.diffusion_schedule``), and the f32
+    operations the body issues in the step (``issued``,
+    ``fused_diffusion_step.ops_issued``, recompute included) over
+    ``ms_step`` against 33.5 T/s, the rate without FMA (the body rounds
+    each product and sum). Reported, not held; the bounds stay at 67."""
+    plan = fds.diffusion_schedule(window, shape[1], shape[2], blocks,
+                                  units=units, zchunk=zchunk)
+    rate = issued / (ms_step * 1e-3)
+    print(f"  {name}: {blocks} resident blocks{grid}; a step {plan['jobs']} "
+          f"jobs of {plan['chunk_planes']} planes ({plan['tiles']} tiles x "
+          f"{units} x {plan['chunks']} chunks), {plan['waves']:.2f} waves; "
+          f"{issued / 1e9:.3f} G f32 operations issued, "
+          f"{issued / (math.prod(shape) * units):.1f} an output cell; "
+          f"{rate / 1e12:.2f} T/s, {rate / F32_NOFMA_OPS_PER_S:.3f} of "
+          f"33.5 T/s [{card}]")
 
 
 def slab_burgers_phases(card: str) -> dict:
@@ -1790,25 +1836,38 @@ def slab_burgers_phases(card: str) -> dict:
 
 def gate_sweep(card: str) -> None:
     """Phase 15: the per-stage and the slab paths timed on the gates'
-    grids (diffusion: median of 3 after a warm-up; Burgers: after a
-    warm-up, ``GATE_ROUNDS`` rounds of one run of each path in turn);
-    which was faster and which the gate picks. Reported, not held."""
+    grids (after a warm-up, ``GATE_ROUNDS`` rounds of one run of each
+    path in turn); which was faster beyond the spread and which the gate
+    picks. Reported, not held."""
     print(f"phase 15: the slab gates (K2 against K1, run({ITERS}); K6 "
           f"against K5 at fixed dt, run({SWEEP_BURGERS_ITERS}))")
     for n in SWEEP_DIFFUSION:
         grid = Grid.make(*n, lengths=REF_LENGTHS)
-        ms = {}
+        runs = {}
         for impl in ("pallas_stage", "pallas_step", "pallas_slab"):
             s = DiffusionSolver(DiffusionConfig(grid=grid, impl=impl))
-            s0 = s.initial_state()
-            ms[impl] = median_ms(lambda: s.run(s0, ITERS)) / ITERS
-        faster = "K2" if ms["pallas_slab"] < ms["pallas_stage"] else "K1"
+            runs[impl] = (s, s.initial_state())
+            s.run(runs[impl][1], ITERS)  # warm-up
+        # the three paths in turn, one timed run each a round
+        ms = {impl: [] for impl in runs}
+        for _ in range(GATE_ROUNDS):
+            for impl, (s, s0) in runs.items():
+                ms[impl] += [t / ITERS for t in cuda_ms(
+                    lambda: s.run(s0, ITERS), 1)]
+        del runs, s, s0
+        k1, k10, k2 = (sorted(ms[i]) for i in ("pallas_stage", "pallas_step",
+                                              "pallas_slab"))
+        faster = ("K2" if k2[-1] < k1[0] else "K1" if k1[-1] < k2[0]
+                  else "neither beyond the spread")
         gate = ("K2" if fsr.SlabRunDiffusionStepper.profitable(
             grid.shape, torch.float32) else "K1")
         print(f"  diffusion {grid.shape} ({grid.num_cells} cells): ms/step "
-              f"K1 {ms['pallas_stage']:.5f}, K10 {ms['pallas_step']:.5f}, "
-              f"K2 {ms['pallas_slab']:.5f}; faster {faster}; the gate "
-              f"picks {gate} [{card}]")
+              f"over {GATE_ROUNDS} rounds, median [min, max]: K1 "
+              f"{statistics.median(k1):.5f} [{k1[0]:.5f}, {k1[-1]:.5f}], "
+              f"K10 {statistics.median(k10):.5f} [{k10[0]:.5f}, "
+              f"{k10[-1]:.5f}], K2 {statistics.median(k2):.5f} [{k2[0]:.5f}, "
+              f"{k2[-1]:.5f}]; faster {faster}; the gate picks {gate} "
+              f"[{card}]")
     for n in SWEEP_BURGERS:
         grid = Grid.make(*n, lengths=K6_LENGTHS)
         runs = {}
@@ -2723,11 +2782,17 @@ def k2b_main_phase(family: str, B: int, iters: int, twin_err: float,
     peak = peak_gb(lambda: es.run(est, iters, donate=False))
     print(f"  K2b {family} alone, B={B}, run({iters}): median {ms:.3f} ms of "
           f"{[round(r, 3) for r in reps]} on {blocks[0]} blocks of "
-          f"{256 if family == 'diffusion' else 768}; "
+          f"{352 if family == 'diffusion' else 768}; "
           f"{ms * 1e9 / (cells * B * iters):.1f} ps a member-cell-step; "
           f"{mlups:.0f} MLUPS*members; bound {bound:.3f} ms ({by}); twin "
           f"{plain_ms:.1f} ms; peak memory of the ensemble run "
           f"{peak:.3f} GB [{card}]")
+    if family == "diffusion":
+        planned = fds.diffusion_zchunk(shape[0], shape[1], shape[2], B,
+                                       "cuda", cooperative=True)
+        diffusion_schedule_report(
+            f"K2b {family}", ms / iters, shape[0], shape, B, blocks[0],
+            planned, B * fds.ops_issued(shape, planned), card)
     name = ("slab_run_diffusion_batched" if family == "diffusion"
             else "slab_run_burgers_batched")
     source = ("fused_step_diffusion.cu" if family == "diffusion"
@@ -3141,6 +3206,15 @@ def mesh_phases(card: str) -> list[dict]:
         lambda S, o, **kw: fsr.slab_step_diffusion(S, o, one.dt, **dkw, **kw),
         lambda S, o, **kw: fsr.slab_step_diffusion_reference(
             S, o, one.dt, **dkw, **kw), G, fd.R, 0.0, card)
+    # a K3 launch is a plain grid of one block a job, two resident an SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planned = fds.diffusion_zchunk(lz, *grid.shape[1:], 1, "cuda")
+    diffusion_schedule_report(
+        "K3 diffusion alone (one shard's step)", k3d["ms"], lz, dshape, 1,
+        fds.BLOCKS_PER_SM * sms, planned,
+        fds.ops_issued((MESH_SHARDS * lz,) + grid.shape[1:], planned,
+                       (0, lz)), card,
+        grid=" (two an SM; the launch: one block a job)")
     bgrid = Grid.make(*K6_N, lengths=K6_LENGTHS)
     bcfg = BurgersConfig(grid=bgrid, cfl=K6_CFL, adaptive_dt=False,
                          dtype="float32", impl="pallas_slab")
@@ -3157,7 +3231,6 @@ def mesh_phases(card: str) -> list[dict]:
         lambda S, o, **kw: fsr.slab_step_burgers_reference(
             S, o, bone.dt, params=params, **kw), BG, 0, None, card)
     # a K3 launch is a plain grid of one block a job, resident one an SM
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     schedule_report(
         "K3 burgers alone (one shard's step)", k3b["ms"], blz, bshape, 1,
         sms, k6_step_ops(bshape, False, bcfg.weno_variant), card,
@@ -3994,6 +4067,13 @@ def k4_phases(card: str) -> list[dict]:
         bnx, 0, 3, 382))
     d_alone = k4_alone("diffusion", drun, dref, MESH_SHARDS, lz, G, ny, nx,
                        fd.R, ITERS, card)
+    planned = fds.diffusion_zchunk(lz, ny, nx, MESH_SHARDS, "cuda",
+                                   cooperative=True)
+    diffusion_schedule_report(
+        "K4 diffusion alone", d_alone["ms"], lz, (lz, ny, nx), MESH_SHARDS,
+        d_alone["grid_blocks"], planned,
+        sum(fds.ops_issued(grid.shape, planned, (i * lz, (i + 1) * lz))
+            for i in range(MESH_SHARDS)), card)
     b_alone = k4_alone("burgers", brun("js"), bref("js"), MESH_SHARDS, blz,
                        BG, bny, bnx, 0, MESH_TIME_ITERS, card)
     schedule_report(

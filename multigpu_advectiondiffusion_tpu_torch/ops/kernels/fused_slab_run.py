@@ -13,10 +13,11 @@ and a chunk of z planes each, the ghost region recomputed in y and x as
 in z), and a grid-wide barrier after each step takes the place of the
 sequential grid axis. Step ``k`` reads buffer ``k % 2`` and writes the
 other, so the result lies in buffer ``num_iters % 2``. The cooperative
-Burgers kernels (K6, K2b, K4) and K4 for diffusion take their jobs from
-an atomic counter, last z chunks last; :func:`burgers_schedule` plans
-the Burgers kernels' z chunks (K3's too) so that a window splits evenly
-and the jobs round up to few waves of resident blocks, and counts them.
+kernels (K2, K6, K2b, K4) take their jobs from an atomic counter, last z
+chunks last; :func:`burgers_schedule` and
+``fused_diffusion_step.diffusion_schedule`` plan the z chunks of every
+slab kernel (K10's and K3's too) so that a window splits evenly and the
+jobs spread well over the resident blocks, and count them.
 
 * :func:`slab_run_diffusion` (K2) and :func:`slab_run_burgers` (K6)
   launch the kernel for a CUDA tensor (raising if it cannot) and count
@@ -110,10 +111,6 @@ from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
 )
 
 BURGERS_SOURCE = "slab_run_burgers.cu"
-# z planes a block marches (each chunk recomputes 12 planes at its ends
-# for K2): the fastest of those chip_smoke.py times at the main
-# configurations (PERF.md)
-DIFFUSION_Z_CHUNK = 16
 # K6/K3/K4/K2b: 32x32 output tiles (csrc/slab_run_burgers.cu; 20x20 and
 # 17x17 tiles at two blocks an SM were slower), one block an SM (its
 # shared memory). A z chunk's two ends cost about as much as
@@ -128,12 +125,13 @@ BURGERS_TILE = 32
 BURGERS_CHUNK_COST = 10
 # the kernels index the state with 32-bit integers
 MAX_CELLS = 2**31 - 1
-# the largest grid (cells) on which K2 beat the K1 path (SlabRunDiffusion-
-# Stepper.profitable)
-K2_PROFITABLE_CELLS = 24 * 16 * 16
+# the largest grid (cells) on which K2 beat the K1 path beyond the spread
+# (SlabRunDiffusionStepper.profitable)
+K2_PROFITABLE_CELLS = 64 * 64 * 64
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # one entry a source for K2/K6 and K2b: the member count follows S1
-_K2_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P, _P)
+_K2_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P, _P,
+                _P)
 _K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I, _I, _P,
                 _P, _P)
 _K3D_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
@@ -149,7 +147,7 @@ DMA_MAX_SHARDS = 64
 
 
 def job_counters(device) -> torch.Tensor:
-    """The two job counters (one a step parity) of a K6, K2b or K4
+    """The two job counters (one a step parity) of a K2, K6, K2b or K4
     launch: zeroed device ints the kernel claims its jobs from."""
     return torch.zeros(2, dtype=torch.int32, device=device)
 
@@ -165,22 +163,10 @@ def burgers_schedule(window: int, ny: int, nx: int, blocks: int,
     chunks, the one whose jobs, rounded up to whole waves of ``blocks``,
     cost the least, a chunk costing its planes plus
     ``BURGERS_CHUNK_COST``."""
-    window = int(window)
     tiles = -(-ny // BURGERS_TILE) * -(-nx // BURGERS_TILE)
-    planes = zchunk
-    if planes is None:
-        best = None
-        for n in range(1, min(16, window) + 1):
-            size = -(-window // n)
-            waves = -(-tiles * units * -(-window // size) // blocks)
-            cost = waves * (size + BURGERS_CHUNK_COST)
-            if best is None or cost < best[0]:
-                best = (cost, size)
-        planes = best[1]
-    chunks = -(-window // int(planes))
-    jobs = tiles * units * chunks
-    return {"tiles": tiles, "chunk_planes": int(planes), "chunks": chunks,
-            "jobs": jobs, "waves": jobs / blocks}
+    return fds.plan_jobs(window, tiles, blocks, units, zchunk,
+                         lambda size, jobs: -(-jobs // blocks)
+                         * (size + BURGERS_CHUNK_COST))
 
 
 def burgers_zchunk(window: int, ny: int, nx: int, units: int,
@@ -211,15 +197,18 @@ def _launch_diffusion(S0, S1, num_iters: int, dt, taps, band, bc_value,
     B = S0.shape[0]
     nz, ny, nx = (n - 2 * R for n in S0.shape[1:])
     host_taps = np.asarray(taps, dtype=np.float32)
+    planes = zchunk or fds.diffusion_zchunk(nz, ny, nx, B, S0.device,
+                                            cooperative=True)
     blocks = ctypes.c_int(0)
+    counters = job_counters(S0.device)
 
     def kernel(S0, S1):
         return wr.library(fds.SOURCE, "slab_run_diffusion", _K2_ARGTYPES
                           ).slab_run_diffusion(
             S0.data_ptr(), S1.data_ptr(), B, nz, ny, nx,
             host_taps.ctypes.data, float(np.float32(dt)), int(band),
-            float(bc_value), int(zchunk), int(num_iters),
-            ctypes.byref(blocks), wr.stream_of(S0))
+            float(bc_value), int(planes), int(num_iters),
+            counters.data_ptr(), ctypes.byref(blocks), wr.stream_of(S0))
 
     wr.launch(kernel, S0, S1)
     if grid_blocks is not None:
@@ -227,15 +216,16 @@ def _launch_diffusion(S0, S1, num_iters: int, dt, taps, band, bc_value,
 
 
 def slab_run_diffusion(S0, S1, num_iters: int, dt, *, taps, band, bc_value,
-                       zchunk=DIFFUSION_Z_CHUNK,
-                       grid_blocks: list | None = None):
+                       zchunk=None, grid_blocks: list | None = None):
     """``num_iters`` fused diffusion steps on two padded buffers (K1's
     layout, ghost rings at ``bc_value``), ``S0`` holding the initial
     state; returns the buffer that holds the result (``S0`` after an even
     count, ``S1`` after an odd one). ``dt`` is rounded to float32. A CUDA
     tensor launches K2 once on the current stream (no synchronisation),
     counted in ``slab_run_diffusion.launches``; ``grid_blocks``, a list,
-    receives the grid's block count. A CPU tensor runs the twin."""
+    receives the grid's block count; a job marches ``zchunk`` z planes
+    (None: ``fused_diffusion_step.diffusion_zchunk``'s plan for the
+    card; the same for K2b, K3 and K4). A CPU tensor runs the twin."""
     fds.check_padded(S0, S1)
     if S0.device.type == "cpu":
         return ping_pong(lambda src, dst: fds.step_reference(
@@ -274,7 +264,7 @@ def ping_pong_members(step, S0, S1, num_iters: int):
 
 
 def slab_run_diffusion_batched(S0, S1, num_iters: int, dt, *, taps, band,
-                               bc_value, zchunk=DIFFUSION_Z_CHUNK,
+                               bc_value, zchunk=None,
                                grid_blocks: list | None = None):
     """K2b, diffusion: :func:`slab_run_diffusion` for B members at once.
     ``S0``/``S1`` are ``(B, nz+4, ny+4, nx+4)``, every member's slice K1's
@@ -483,8 +473,7 @@ def slab_step_diffusion_reference(S, out, dt, *, taps, band, bc_value,
 
 
 def slab_step_diffusion(S, out, dt, *, taps, band, bc_value, global_nz, oz,
-                        depth, window, lo=None, hi=None,
-                        zchunk=DIFFUSION_Z_CHUNK):
+                        depth, window, lo=None, hi=None, zchunk=None):
     """K3, diffusion: one fused step over the block planes ``window =
     (z_lo, z_hi)`` of a shard (``oz``: its global z offset, of
     ``global_nz``), ``S`` -> ``out``; both ``(lz + 2 depth, ny+4, nx+4)``
@@ -502,6 +491,8 @@ def slab_step_diffusion(S, out, dt, *, taps, band, bc_value, global_nz, oz,
     g_lo, g_hi, row_off = _check_window(S, out, lo, hi, reach=3 * R, **kw)
     host_taps = np.asarray(taps, dtype=np.float32)
     ny, nx = S.shape[1] - 2 * R, S.shape[2] - 2 * R
+    planes = zchunk or fds.diffusion_zchunk(g_hi - g_lo, ny, nx, 1,
+                                            S.device)
 
     def kernel(S, out):
         return wr.library(fds.SOURCE, "slab_step_diffusion", _K3D_ARGTYPES
@@ -511,7 +502,7 @@ def slab_step_diffusion(S, out, dt, *, taps, band, bc_value, global_nz, oz,
             None if hi is None else hi.data_ptr(), S.shape[0], int(depth),
             int(global_nz), ny, nx, row_off, g_lo, g_hi,
             host_taps.ctypes.data, float(np.float32(dt)), int(band),
-            float(bc_value), int(zchunk), wr.stream_of(S))
+            float(bc_value), int(planes), wr.stream_of(S))
 
     wr.launch(kernel, S, out)
     build.count_launch(slab_step_diffusion)
@@ -697,8 +688,7 @@ def _launch_dma(source, symbol, argtypes, extra, S0s, S1s, lands, lz, k,
 
 
 def slab_run_dma_diffusion(S0s, S1s, lands, num_iters: int, dt, *, taps,
-                           band, bc_value, k: int = 1,
-                           zchunk=DIFFUSION_Z_CHUNK,
+                           band, bc_value, k: int = 1, zchunk=None,
                            grid_blocks: list | None = None):
     """K4, diffusion: ``num_iters`` fused steps of every shard of a
     z-slab mesh at once. One list entry a shard, in z order: its two
@@ -726,7 +716,11 @@ def slab_run_dma_diffusion(S0s, S1s, lands, num_iters: int, dt, *, taps,
     _launch_dma(fds.SOURCE, "slab_run_dma_diffusion", _K4D_ARGTYPES, (),
                 S0s, S1s, lands, lz, int(k), grid_blocks, ny, nx,
                 host_taps.ctypes.data, float(np.float32(dt)), int(band),
-                float(bc_value), int(zchunk), int(num_iters))
+                float(bc_value),
+                zchunk or fds.diffusion_zchunk(lz, ny, nx, len(S0s),
+                                               S0s[0].device,
+                                               cooperative=True),
+                int(num_iters))
     build.count_launch(slab_run_dma_diffusion)
     return S1s if num_iters % 2 else S0s
 
@@ -1080,9 +1074,9 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
         """What K2 (and K3, on a shard's block with ``depth`` ghost
         planes a side) takes: a 3-D float32 grid whose padded state has
         at most 2^31 - 1 cells (32-bit indices). A block's shared memory
-        is fixed (112 KB for any grid), so a cooperative grid of at least
-        one block an SM always fits; tiling y and x removes the JAX
-        package's row-size limit."""
+        is fixed (105,600 bytes for any grid), so a cooperative grid of
+        at least one block an SM always fits; tiling y and x removes the
+        JAX package's row-size limit."""
         if dtype != torch.float32 or len(interior_shape) != 3:
             return False
         lz, ny, nx = interior_shape
@@ -1094,13 +1088,18 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
         path (K1): on grids of at most ``K2_PROFITABLE_CELLS`` cells.
 
         Measured by ``chip_smoke.py`` phase 15 (NVIDIA H100 80GB HBM3,
-        700.00 W, two runs): K2's ``run(101)`` took 0.0709 and 0.0712
-        ms/step on 24x16x16 (6,144 cells), where the K1 path's three
-        host launches a step took 0.1115 and 0.0962; on 32^3 (32,768
-        cells) K2 took 0.1060 against K1's 0.0820, and K1 won on every
-        larger grid (64^3, 128^3, 400x200x206: K2 0.73 against 0.28
-        ms/step). The threshold is the largest grid on which K2 won;
-        between 6,144 and 32,768 cells nothing was measured."""
+        700.00 W; ms/step of ``run(101)``, K2 against the K1 path, whose
+        three host launches a step vary from run to run): in one run,
+        medians of three, 0.0290 / 0.1666 on 24x16x16 (6,144 cells),
+        0.0310 / 0.1994 on 32^3, 0.0408 / 0.1217 on 64^3 (262,144),
+        0.0831 / 0.1834 on 128^3; in a second, five rounds of the paths
+        in turn, [min, max], [0.0261, 0.0274] / [0.1299, 0.1583],
+        [0.0299, 0.0308] / [0.1162, 0.1582], [0.0365, 0.0380] /
+        [0.1106, 0.1314], and on 128^3 [0.0804, 0.0821] / [0.0330,
+        0.1468], no winner beyond the spread. On 400x200x206 K1 won in
+        both (0.4457 / 0.2817; [0.4473, 0.4504] / [0.2753, 0.2804]). The
+        threshold is the largest grid on which K2 won beyond the spread;
+        between 262,144 and 2,097,152 cells nothing was measured."""
         return (dtype == torch.float32
                 and math.prod(interior_shape) <= K2_PROFITABLE_CELLS)
 

@@ -129,6 +129,31 @@ def test_fused_step_rejects_bad_operands():
                         **kw)
 
 
+@pytest.mark.parametrize("shape,zchunk,window,want", [
+    # one cell, one tile: each stage evaluates its whole window (40^2,
+    # 36^2, 32^2 cells; the masks select after) on the one plane
+    ((1, 1, 1), 1, None, 31 * 1600 + 34 * 1296 + 34 * 1024),
+    # 10x40x70 in chunks of 4 (4 + 4 + 2 planes) on 2 x 3 tiles of 32.
+    # Stage 1's window is 4 cells wider a side (6 x 40^2 cells), on the
+    # in-domain planes of each chunk widened by 4: 8 + 10 + 6 = 24;
+    # stage 2's 2 wider (6 x 36^2), planes 6 + 8 + 4 = 18; stage 3 the
+    # tile (6 x 32^2), 10 planes
+    ((10, 40, 70), 4, None, 31 * 9600 * 24 + 34 * 7776 * 18
+     + 34 * 6144 * 10),
+    # one chunk of 10: no z recompute inside the domain, 10 planes a stage
+    ((10, 40, 70), 10, None, (31 * 9600 + 34 * 7776 + 34 * 6144) * 10),
+    # the window [-6, 16) (a deep K3 window of a shard): chunks from -6 to
+    # 16, their in-domain planes 30 (stage 1), 20 and 10
+    ((10, 40, 70), 4, (-6, 16), 31 * 9600 * 30 + 34 * 7776 * 20
+     + 34 * 6144 * 10),
+], ids=["one-cell", "chunks-of-4", "one-chunk", "deep-window"])
+def test_ops_issued_hand_counted(shape, zchunk, window, want):
+    """The f32 operations the diffusion body issues in a step
+    (``ops_issued``), counted by hand from its tiles, windows and
+    chunks."""
+    assert pfds.ops_issued(shape, zchunk, window) == want
+
+
 # --------------------------------------------------------------------- #
 # Solver runs: impl="pallas_step" in both packages
 # --------------------------------------------------------------------- #

@@ -49,14 +49,15 @@ def _cli(*args, env=None):
 @pytest.mark.parametrize("impl,stepper", [("xla", "generic-xla"),
                                           ("pallas", "fused-stage")])
 def test_cli_diffusion3d_runs_and_names_its_path(tmp_path, impl, stepper):
-    # a grid above the slab gate's cell count, so impl="pallas" runs K1
-    proc = _cli("--n", "40", "36", "30", "--iters", "3", "--device", "cpu",
+    # a grid above the slab gate's cell count (64^3), so impl="pallas"
+    # runs K1
+    proc = _cli("--n", "70", "66", "60", "--iters", "3", "--device", "cpu",
                 "--impl", impl, "--save", str(tmp_path), "--check-error")
     assert proc.returncode == 0, proc.stderr
     assert f"kernel path        : {stepper} (impl={impl})" in proc.stdout
     assert "error L1/L2/Linf" in proc.stdout
     # result.bin is the in-process run's state, in the reference layout
-    grid = Grid.make(40, 36, 30, lengths=2.0)
+    grid = Grid.make(70, 66, 60, lengths=2.0)
     s = DiffusionSolver(DiffusionConfig(grid=grid, impl=impl), device="cpu")
     want = s.run(s.initial_state(), 3).u.numpy()
     got = pio.load_binary(str(tmp_path / "result.bin"), grid.shape)

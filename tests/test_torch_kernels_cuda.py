@@ -383,13 +383,16 @@ def _steps(step, S0, steps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("zchunk", [3, 32])
+@pytest.mark.parametrize("zchunk", [3, 32, None])
 @pytest.mark.parametrize("steps", [1, 4, 5])
-@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 70, 6), (40, 33, 65)])
+@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 70, 6), (40, 33, 65),
+                                   (11, 33, 65), (7, 3, 5), (1, 40, 70)])
 def test_k10_and_k2_match_twin(gpu, shape, steps, zchunk):
     """K10 (one launch a step) and K2 (one launch a run) against their
     twin, three K1-twin stages a step, to the bit: several tiles and z
-    chunks, ragged edges, band 2 and a nonzero wall."""
+    chunks (explicit, and planned with None), ragged edges one cell past
+    a 32-cell tile, a grid thinner than one tile, nz below 2G = 12, band
+    2 and a nonzero wall."""
     rng = np.random.default_rng(steps)
     S0 = torch.full(tuple(n + 2 * fd.R for n in shape), 0.25, device=gpu)
     S0[2:-2, 2:-2, 2:-2] = torch.from_numpy(
@@ -700,9 +703,10 @@ def gpu_k2b():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("zchunk", [3, 16])
+@pytest.mark.parametrize("zchunk", [3, 16, None])
 @pytest.mark.parametrize("steps", [1, 2, 5])
-@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 70, 6)])
+@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 70, 6), (11, 33, 65),
+                                   (7, 3, 5)])
 def test_k2b_diffusion_matches_twin_and_k2(gpu_k2b, shape, steps, zchunk):
     """Every member of K2b equals the batched twin and the single K2 run of
     that member, to the bit; one launch for the batch."""
@@ -903,10 +907,10 @@ def test_k5_sharded_matches_twin(gpu_mesh, case, role, oz, gnz):
     assert float(mx) == max(7.0, float(mref))
 
 
-def _k3_diffusion_case(rng, dev, lz, depth, oz, gnz):
-    Y, X = 29 + 2 * fd.R, 37 + 2 * fd.R
+def _k3_diffusion_case(rng, dev, lz, depth, plane=(29, 37)):
+    Y, X = (n + 2 * fd.R for n in plane)
     S = torch.full((lz + 2 * depth, Y, X), 0.25, device=dev)
-    S[:, fd.R:-fd.R, fd.R:-fd.R] = _rand(rng, (lz + 2 * depth, 29, 37), dev)
+    S[:, fd.R:-fd.R, fd.R:-fd.R] = _rand(rng, (lz + 2 * depth, *plane), dev)
     return S
 
 
@@ -918,16 +922,21 @@ K3_WINDOWS = {  # (window, operands, depth): per step, split, deep (k = 2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plane,zchunk", [((29, 37), 5), ((5, 70), None),
+                                          ((33, 3), 3)],
+                         ids=["29x37", "5x70-planned", "33x3"])
 @pytest.mark.parametrize("oz,gnz", [(0, 48), (24, 48), (24, 72)],
                          ids=["first", "last", "middle"])
 @pytest.mark.parametrize("window", list(K3_WINDOWS))
-def test_k3_diffusion_matches_twin(gpu_mesh, window, oz, gnz):
+def test_k3_diffusion_matches_twin(gpu_mesh, window, oz, gnz, plane,
+                                   zchunk):
     """K3 (diffusion) over per-step, split and deep windows of a shard,
-    planes outside the global domain at the wall value; 0 ulp from its
-    twin, and the cells outside the window untouched."""
+    planes outside the global domain at the wall value, on planes inside
+    one tile and at the tile's ragged edges; 0 ulp from its twin, and the
+    cells outside the window untouched."""
     rng = np.random.default_rng(oz + gnz)
     win, ops, depth = K3_WINDOWS[window]
-    S = _k3_diffusion_case(rng, gpu_mesh, 24, depth, oz, gnz)
+    S = _k3_diffusion_case(rng, gpu_mesh, 24, depth, plane)
     op_shape = (depth,) + tuple(S.shape[1:])
     lo = _rand(rng, op_shape, gpu_mesh) if "lo" in ops else None
     hi = _rand(rng, op_shape, gpu_mesh) if "hi" in ops else None
@@ -937,7 +946,8 @@ def test_k3_diffusion_matches_twin(gpu_mesh, window, oz, gnz):
     out0 = _rand(rng, S.shape, gpu_mesh)
     want = fsr.slab_step_diffusion_reference(S, out0.clone(), 1e-3, **kw)
     before = fsr.slab_step_diffusion.launches
-    got = fsr.slab_step_diffusion(S, out0.clone(), 1e-3, zchunk=5, **kw)
+    got = fsr.slab_step_diffusion(S, out0.clone(), 1e-3, zchunk=zchunk,
+                                  **kw)
     torch.cuda.synchronize()
     assert fsr.slab_step_diffusion.launches == before + 1
     assert torch.equal(got, want)
@@ -1351,6 +1361,40 @@ def test_k4_burgers_tile_edges_match_twin(gpu_k4, case, shards, lz, k,
         lambda S, out, window, oz: fsr.slab_step_burgers_reference(
             S, out, 0.015, params=params, global_nz=shards * lz, oz=oz,
             depth=depth, window=window), *want, steps, k=k, G=G)
+    for a, b in zip(sum(got, []), sum(want, [])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zchunk", [3, None])
+@pytest.mark.parametrize("plane", [(5, 70), (33, 3)], ids=["5x70", "33x3"])
+@pytest.mark.parametrize("shards,lz,k,steps", [(2, 24, 1, 3), (2, 24, 4, 7)],
+                         ids=["k1", "k4"])
+def test_k4_diffusion_tile_edges_match_twin(gpu_k4, shards, lz, k, steps,
+                                            plane, zchunk):
+    """K4 (diffusion) on planes at the tiling's edges, k = 1 and k = 4
+    (a partial block), explicit and planned z chunks, the wall value
+    0.25: every state and landing buffer 0 ulp from its twin's."""
+    rng = np.random.default_rng(5)
+    depth = 3 * k * fd.R
+    shape = (lz + 2 * depth, *(n + 2 * fd.R for n in plane))
+    S0 = [_rand(rng, shape, gpu_k4) for _ in range(shards)]
+    for S in S0:
+        S[:, :fd.R] = S[:, -fd.R:] = 0.25
+        S[:, :, :fd.R] = S[:, :, -fd.R:] = 0.25
+    bufs = [S0, [_rand(rng, shape, gpu_k4) for _ in range(shards)],
+            [_rand(rng, (2, 2, depth) + shape[1:], gpu_k4)
+             for _ in range(shards)]]
+    kw = dict(taps=fd.stage_taps((0.1, 0.2, 0.3), (1.0, 0.5, 2.0)), band=2,
+              bc_value=0.25)
+    got = [[t.clone() for t in ts] for ts in bufs]
+    want = [[t.clone() for t in ts] for ts in bufs]
+    fsr.slab_run_dma_diffusion(*got, steps, 1e-3, k=k, zchunk=zchunk, **kw)
+    torch.cuda.synchronize()
+    fsr.slab_run_dma_reference(
+        lambda S, out, window, oz: fsr.slab_step_diffusion_reference(
+            S, out, 1e-3, global_nz=shards * lz, oz=oz, depth=depth,
+            window=window, **kw), *want, steps, k=k, G=3 * fd.R)
     for a, b in zip(sum(got, []), sum(want, [])):
         assert torch.equal(a, b)
 

@@ -341,7 +341,7 @@ def test_bf16_storage_raises_where_jax_declines_to_the_per_stage_rung():
 GATE_SHAPES = {
     (16, 16, 24): (True, True, True, False),
     (11, 13, 19): (True, True, True, False),
-    (64, 64, 64): (False, False, True, False),
+    (64, 64, 64): (False, True, True, False),
     (40, 128, 128): (True, False, False, False),
     (128, 128, 128): (False, False, False, False),
     (162, 160, 160): (False, False, False, False),
@@ -406,6 +406,53 @@ def test_burgers_schedule_hand_counted(args, want):
     """The slab Burgers kernels' job plan (``burgers_schedule``), counted
     by hand: the z chunks the planner picks and the jobs and waves."""
     assert psr.burgers_schedule(*args) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("args,kw,want", [
+    # K10 at 400x200x206 on an H100's 132 SMs, two blocks an SM: 13 x 7
+    # tiles of 32, 206 planes in 7 chunks of 30 (6 x 30 + 26): 637 jobs,
+    # two rounds of 264 and 109 jobs alone on their SMs, (2 + 0.6) x (30
+    # + 5) = 91; 52-plane chunks (364 jobs) cost (1 + 0.6) x 57 = 91.2,
+    # 26 (728 jobs, 200 left over: two on some SMs) 3 x 31 = 93
+    ((206, 200, 400, 264), {}, dict(tiles=91, chunk_planes=30, chunks=7,
+                                    jobs=637, waves=637 / 264)),
+    # K2 there: a chunk end costs 6 planes, so 52 planes: (1 + 0.6) x 58
+    # = 92.8 against (2 + 0.6) x 36 = 93.6 for 30
+    ((206, 200, 400, 264), {"cooperative": True},
+     dict(tiles=91, chunk_planes=52, chunks=4, jobs=364, waves=364 / 264)),
+    # K2b, 64 members of 256x128x64: 8 x 4 tiles, one chunk of 64 planes
+    # a job, 2048 jobs: 7 rounds and 200 left, 8 x 70 = 560 against 16 x
+    # 38 = 608 for two chunks (4096 jobs: 15 rounds and 136 left)
+    ((64, 128, 256, 264, 64), {"cooperative": True},
+     dict(tiles=32, chunk_planes=64, chunks=1, jobs=2048,
+          waves=2048 / 264)),
+    # K4 on {"dz": 2}: two shards of 103 planes, 2 chunks of 52 each (52
+    # + 51), 2 x 91 x 2 = 364 jobs: (1 + 0.6) x 58 = 92.8 against 3 x 32
+    # = 96 for 4 chunks a shard
+    ((103, 200, 400, 264, 2), {"cooperative": True},
+     dict(tiles=91, chunk_planes=52, chunks=2, jobs=364, waves=364 / 264)),
+    # K3, one shard's 103-plane window: 4 chunks of 26 (3 x 26 + 25), 364
+    # jobs, (1 + 0.6) x 31 = 49.6 against 2 x 26 = 52 for 5 chunks of 21
+    ((103, 200, 400, 264), {}, dict(tiles=91, chunk_planes=26, chunks=4,
+                                    jobs=364, waves=364 / 264)),
+    # 128^3: 4 x 4 tiles, 8 chunks of 16, 128 jobs, one an SM: 0.6 x 21
+    # = 12.6 against 1 x 13 for 16 chunks of 8 (256 jobs)
+    ((128, 128, 128, 264), {}, dict(tiles=16, chunk_planes=16, chunks=8,
+                                    jobs=128, waves=128 / 264)),
+    # an explicit 64: three chunks of 64 and a remnant of 14
+    ((206, 200, 400, 264, 1, 64), {}, dict(tiles=91, chunk_planes=64,
+                                           chunks=4, jobs=364,
+                                           waves=364 / 264)),
+    # a grid thinner than one tile, below 2G = 12 planes: with blocks to
+    # spare, one plane a job
+    ((5, 3, 7, 264), {}, dict(tiles=1, chunk_planes=1, chunks=5, jobs=5,
+                              waves=5 / 264)),
+], ids=["k10-400x200x206", "k2-400x200x206", "k2b-b64", "k4-dz2",
+        "k3-dz2", "k10-128cubed", "k2-zchunk64", "thin"])
+def test_diffusion_schedule_hand_counted(args, kw, want):
+    """The diffusion body's job plan (``diffusion_schedule``), counted by
+    hand: the z chunks the planner picks and the jobs and waves."""
+    assert pfds.diffusion_schedule(*args, **kw) == pytest.approx(want)
 
 
 @pytest.mark.parametrize("window,zchunk,chunks", [
