@@ -48,10 +48,17 @@ ignored ``build/`` directory), then:
 7. a fixed-dt ``run(5)`` and ``advance_to(t0 + 4.5 dt0)`` (5 steps, 15
    launches, landing on ``t_end``) against the generic path;
 8. holds the whole-run diffusion kernel (K7, one cooperative launch per
-   run) against its plain twin over 1 and 5 steps at 1001^2 and at an
-   odd small shape (``<= 32 eps`` of max|twin|, the ulp count printed);
-   times it alone for the main path's 10,000 steps, and the sync floor
-   (the same grid with the stage body off, its 3 barriers a step);
+   run, tiles of the grid through shared memory, one exchange a step)
+   against its plain twin to the bit (0 ulp): 1, 2 and 5 steps at 1001^2,
+   1 and 5 at an odd small shape, 3 (an odd count: the result comes
+   back from the second buffer) in one tile and in the planned tiles,
+   1 and 3 steps at the largest square ``whole_run.fits_l2`` admits
+   (more jobs than blocks), each launch on as many blocks as its plan
+   counts; prints the plan (``fused_diffusion2d.diffusion2d_schedule``:
+   tiles, jobs, blocks, residency, shared memory, from the card's numbers
+   of ``card_limits``) and times it alone for the main path's
+   10,000 steps and its floor (the same grid and its one grid-wide
+   barrier a step, the body off);
 9. drives the 2-D diffusion main path — 1001^2, lengths 10, float32,
    ``impl="pallas"``, ``run(10000)`` (``SingleGPU/Diffusion2d/Run.m``) —
    and checks the engaged stepper, one K7 launch, agreement with the
@@ -125,9 +132,12 @@ ignored ``build/`` directory), then:
 20. holds the fused ADR stage kernel (K9) against its plain twin to the
    bit, every stage kind, at 508x204x160 and at the odd shape, with eps 0
    and 0.2, lambda 0 and 0.25, mixed-sign velocities and a non-zero wall
-   value; times K9 alone at 508x204x160 for each z-chunk of ``ZCHUNKS``
-   beside its bytes bound, the twin and ``conv3d`` computing the
-   constant-coefficient right-hand side;
+   value, and at the odd shape with 3-plane chunks too; prints the plan
+   (``fused_adr.adr_schedule``: tile, chunk, blocks, copy widths,
+   resident blocks an SM) and times K9 alone at 508x204x160 for each
+   z-chunk of ``K9_ZCHUNKS`` and the planned one, beside its bytes bound, its bytes rate against phase 0's
+   copy rate, the f32 operations it issues a cell, the twin and
+   ``conv3d`` computing the constant-coefficient right-hand side;
 21. drives the ADR 3-D main path, ``bench.py``'s ``adr3d`` row built
    through ``registry.get("adr").bench_build`` — 508x204x160, lengths
    12.7 5.1 4, velocity 0.5, ``kappa_variation`` 0.2, ``reaction_rate``
@@ -349,6 +359,8 @@ BURGERS2D_ITERS = 200
 # before it. The kernels are held to their twins over all 200 steps.
 BURGERS2D_CHECK_ITERS = 100
 ODD_2D = (23, 37)  # (ny, nx) of an odd small 2-D grid
+# the largest square interior whole_run.fits_l2 admits: 3 x 4 x 1478^2 B
+L2_MAX_2D = (1474, 1474)
 K7_ODD_CASES = (  # (flux, flux kwargs, variant, nu) at ODD_2D
     ("burgers", {}, "z", 0.0),
     ("burgers", {}, "js", 1e-5),
@@ -1127,7 +1139,7 @@ def laplacian_conv2d_ms(spacing, shape) -> float:
     return median_ms(lambda: conv(x, w), 10)
 
 
-def diffusion2d_phases(card: str, l2_gbs: float) -> dict:
+def diffusion2d_phases(card: str) -> dict:
     """Phases 8-9 and the diffusion half of 11; returns K7's entry."""
     n, iters = DIFF2D_N, DIFF2D_ITERS
     grid = Grid.make(n, n, lengths=10.0)
@@ -1144,39 +1156,54 @@ def diffusion2d_phases(card: str, l2_gbs: float) -> dict:
     print("  the profiler on the first cooperative launch: "
           + ("no device activity" if seen is None else
              f"{seen['launches']} K7 launch, {seen['kernel_ms']:.4f} ms"))
-    err, n_ulps = 0.0, 0
-    for shape, bc, seed in ((grid.shape, 0.0, 8), (ODD_2D, 0.25, 81)):
+    if not wr.fits_l2([m + 4 for m in L2_MAX_2D]) or wr.fits_l2(
+            [m + 5 for m in L2_MAX_2D]):
+        raise AssertionError(f"{L2_MAX_2D} is not the largest square the "
+                             "L2 gate admits")
+    err = 0.0
+    # (shape, wall value, seed, steps, tiles)
+    cases = [(grid.shape, 0.0, 8, k, None) for k in (1, 2, 5)]
+    cases += [(ODD_2D, 0.25, 81, k, None) for k in (1, 3, 5)]
+    cases += [(ODD_2D, 0.25, 82, 3, (1, 1)), (L2_MAX_2D, 0.0, 83, 1, None),
+              (L2_MAX_2D, 0.0, 83, 3, None)]
+    for shape, bc, seed, steps, tiles in cases:
         kw = dict(taps=taps, band=2, bc_value=bc)
         rng = np.random.default_rng(seed)
         S0 = torch.full(tuple(m + 4 for m in shape), bc, device="cuda")
         S0[2:-2, 2:-2] = torch.from_numpy(
             rng.random(shape, dtype=np.float32)).cuda()
-        for steps in (1, 5):
-            want = wr.plain_run(
-                lambda v, u, o, d, a, b: fd2.stage_reference(
-                    v, u, o, d, a=a, b=b, **kw),
-                S0.clone(), S0.clone(), S0.clone(), steps, dt)
-            got = S0.clone()
-            fd2.whole_run_diffusion2d(got, S0.clone(), S0.clone(), steps,
-                                      dt, **kw)
-            torch.cuda.synchronize()
-            e, u = compare(f"K7 diffusion {steps} step(s) at {shape}", got,
-                           want)
-            err, n_ulps = max(err, e), max(n_ulps, u)
+        want = wr.plain_run(
+            lambda v, u, o, d, a, b: fd2.stage_reference(
+                v, u, o, d, a=a, b=b, **kw),
+            S0.clone(), S0.clone(), S0.clone(), steps, dt)
+        got = S0.clone()
+        plan = {}
+        fd2.whole_run_diffusion2d(got, S0.clone(), S0.clone(), steps, dt,
+                                  tiles=tiles, schedule=plan, **kw)
+        torch.cuda.synchronize()
+        err = max(err, exact(
+            f"K7 diffusion {steps} step(s) at {shape}, {plan['tiles']} "
+            f"tiles ({'resident' if plan['resident'] else 'reloaded'})",
+            got, want))
+        if plan["blocks"] != plan["grid_blocks"]:
+            raise AssertionError(
+                f"K7 at {shape}: the plan counts {plan['blocks']} blocks, "
+                f"the launch ran {plan['grid_blocks']}")
+        del S0, want, got
+    torch.cuda.empty_cache()
     state0 = solver.initial_state()
     fused = solver._fused_stepper()
     S = fused.embed(state0.u)
     T1, T2 = S.clone(), S.clone()
     kw = dict(taps=taps, band=2, bc_value=0.0)
-    blocks = []
+    plan, blocks = {}, []
     alone = median_ms(lambda: fd2.whole_run_diffusion2d(
-        S, T1, T2, iters, dt, grid_blocks=blocks, **kw))
+        S, T1, T2, iters, dt, schedule=plan, grid_blocks=blocks, **kw))
     floor = median_ms(lambda: fd2.whole_run_diffusion2d(
         S, T1, T2, iters, dt, sync_floor=True, **kw))
     state_bytes = 4 * S.numel()
     bound_ms, bound_by = run_bound(state_bytes,
                                    k7_diffusion_ops(grid.shape, iters))
-    l2_ms = 32 * S.numel() * iters / (l2_gbs * 1e9) * 1e3
     plain_S = fused.embed(state0.u)
     plain_ms = cuda_ms(lambda: wr.plain_run(
         lambda v, u, o, d, a, b: fd2.stage_reference(v, u, o, d, a=a, b=b,
@@ -1186,16 +1213,20 @@ def diffusion2d_phases(card: str, l2_gbs: float) -> dict:
     fd2.whole_run_diffusion2d(got, plain_S.clone(), plain_S.clone(), iters,
                               dt, **kw)
     torch.cuda.synchronize()
-    e, u = compare(f"K7 diffusion {iters} steps at {grid.shape} (the main "
-                   "path's initial state)", got, plain_S)
-    err, n_ulps = max(err, e), max(n_ulps, u)
+    err = max(err, exact(f"K7 diffusion {iters} steps at {grid.shape} (the "
+                         "main path's initial state)", got, plain_S))
     del got, plain_S
+    plan = {k: plan[k] for k in ("tiles", "tile", "jobs", "blocks",
+                                 "resident", "rounds", "patches",
+                                 "smem_bytes")}
+    print(f"  K7 plan at {n}^2: {plan}; grid {blocks[0]} blocks of "
+          f"{fd2.THREADS} threads, one grid.sync() a step; the card's "
+          f"numbers it was planned from: {fd2.card_limits('cuda')}")
     print(f"  K7 alone, run({iters}) at {n}^2: {alone:.3f} ms "
-          f"({alone / iters * 1e3:.3f} us/step) on {blocks[0]} blocks of "
-          f"256; sync floor {floor:.3f} ms ({floor / iters * 1e3:.3f} "
-          f"us/step, 3 barriers a step); bound {bound_ms:.3f} ms "
-          f"({bound_by}); through L2 at the measured copy rate "
-          f"{l2_ms:.3f} ms; twin {plain_ms:.1f} ms [{card}]")
+          f"({alone / iters * 1e3:.3f} us/step); floor (its barriers, body "
+          f"off) {floor:.3f} ms ({floor / iters * 1e3:.3f} us/step); bound "
+          f"{bound_ms:.3f} ms ({bound_by}), {2 * bound_ms:.3f} ms at the "
+          f"no-FMA rate; twin {plain_ms:.1f} ms [{card}]")
     del S, T1, T2
 
     print(f"phase 9: diffusion 2-D main path, run({iters}) at {n}^2")
@@ -1237,16 +1268,16 @@ def diffusion2d_phases(card: str, l2_gbs: float) -> dict:
                     "whole_run.py:28",
         "launches": res["launches"],
         "max_abs_err": err,
-        "max_ulps": n_ulps,
+        "max_ulps": 0,
         # per run of the main path (10,000 steps, one launch)
         **timing,
         "ms_isolated": alone,
-        "sync_floor_ms": floor,
+        "floor_ms": floor,
+        "plan": plan,
         "grid_blocks": blocks[0],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "l2_traffic_ms": l2_ms,
         "library_ms": lib_ms,
         "library_call": "torch.nn.functional.conv2d, one 9-point "
                         "Laplacian (one stage's stencil of 30,000 in the "
@@ -2362,6 +2393,7 @@ ADR_ITERS = 404
 ADR_CHECK_ITERS = 10  # steps held hard against the generic path
 ADR2D_N = 1001  # bench.py's adr2d row: 1001^2, lengths 20
 ADR2D_ITERS = 200
+K9_ZCHUNKS = (4, 8, 16, 32)  # z planes a K9 block marches, timed alone
 # phase 20: (eps, lambda, velocity per array axis z, y, x, wall value)
 K9_CASES = (
     (0.0, 0.0, (0.5, -0.3, 0.0), 0.1),
@@ -2411,17 +2443,21 @@ def adr_rhs_conv3d_ms(spacing, shape, velocity, lam) -> float:
     return statistics.median(cuda_ms(lambda: conv(x, w), 10))
 
 
-def k9_phase(card: str) -> dict:
+def k9_phase(card: str, copy_gbs: float) -> dict:
     """Phase 20: K9 against its twin to the bit, every stage kind, at the
-    main path's shape and an odd one, for every case of ``K9_CASES``;
-    K9 alone at the main shape (the main physics) for each z-chunk of
-    ``ZCHUNKS``, cycling through buffers larger than L2, beside its
-    bound, the twin and the conv3d yardstick."""
+    main path's shape and an odd one, for every case of ``K9_CASES``, and
+    at the odd shape in 3-plane chunks too; K9 alone at the main shape
+    (the main physics) for each z-chunk of ``K9_ZCHUNKS`` and the planned
+    one, cycling through buffers larger than L2, beside its bound, its
+    bytes rate, its operations a cell, the twin and the conv3d
+    yardstick."""
     print("phase 20: K9 against its twin")
     grid = Grid.make(*ADR_N, lengths=ADR_LENGTHS)
     spacing = grid.spacing
+    sweep = (*K9_ZCHUNKS, None)
     res = {"err": 0.0, "ms": [], "plain_ms": [], "bound_ms": [],
-           "sweep": {z: [] for z in ZCHUNKS}}
+           "sweep": {key: [] for key in sweep}}
+    launch = {}
     for i, (eps, lam, vel, bc) in enumerate(K9_CASES):
         main = i == len(K9_CASES) - 1
         for shape in (grid.shape, ODD_SHAPE):
@@ -2430,6 +2466,7 @@ def k9_phase(card: str) -> dict:
             kw = fa.FusedADRStepper(shape, spacing, 1.0, vel, lam, dt, 2, bc,
                                     "cuda", kappa_variation=eps
                                     ).stage_kwargs()
+            chunks = (None, 3) if shape == ODD_SHAPE else (None,)
             for kind, (a, b) in enumerate(fd.STAGES):
                 has_u = kind > 0
                 v = padded_random(shape, bc, 200 + 10 * i + kind)
@@ -2438,22 +2475,27 @@ def k9_phase(card: str) -> dict:
                 out = torch.full_like(v, bc)
                 ref = out.clone()
                 fa.adr_stage_reference(v, u, ref, dt, a=a, b=b, **kw)
-                fa.fused_adr_stage(v, u, out, dt, a=a, b=b, **kw)
-                torch.cuda.synchronize()
-                res["err"] = max(res["err"], exact(
-                    f"K9 stage {kind + 1} at {shape}, eps {eps}, lambda "
-                    f"{lam}, velocity {vel}, wall {bc}", out, ref))
+                for zchunk in chunks:
+                    fa.fused_adr_stage(v, u, out, dt, a=a, b=b,
+                                       zchunk=zchunk, launch=launch, **kw)
+                    torch.cuda.synchronize()
+                    res["err"] = max(res["err"], exact(
+                        f"K9 stage {kind + 1} at {shape}, eps {eps}, lambda "
+                        f"{lam}, velocity {vel}, wall {bc}, "
+                        f"{launch['zchunk']}-plane chunks", out, ref))
                 if not (main and shape == grid.shape):
                     continue
+                if has_u:
+                    main_launch = dict(launch)
                 buffers = [(v.clone(), None if u is None else u.clone(),
                             out.clone()) for _ in range(ROTATE)]
-                for z in ZCHUNKS:
-                    res["sweep"][z].append(alone_ms(
+                for zchunk in sweep:
+                    res["sweep"][zchunk].append(alone_ms(
                         lambda bufs: fa.fused_adr_stage(
                             bufs[0], bufs[1], bufs[2], dt, a=a, b=b,
-                            zchunk=z, **kw), buffers, 21))
+                            zchunk=zchunk, **kw), buffers, 21))
                 del buffers
-                res["ms"].append(res["sweep"][fa.Z_CHUNK][-1])
+                res["ms"].append(res["sweep"][None][-1])
                 res["plain_ms"].append(statistics.median(cuda_ms(
                     lambda: fa.adr_stage_reference(v, u, ref, dt, a=a, b=b,
                                                    **kw), 3)))
@@ -2463,17 +2505,33 @@ def k9_phase(card: str) -> dict:
                 res["bound_ms"].append(bound)
                 res["bound_by"] = by
                 gbs = stage_bytes(shape, has_u) / (res["ms"][-1] * 1e-3) / 1e9
-                sweep = ", ".join(f"{z}: {res['sweep'][z][-1]:.4f}"
-                                  for z in ZCHUNKS)
+                ops = k9_stage_ops(shape, has_u, eps, lam, 3)
+                tops = ops / (res["ms"][-1] * 1e-3) / 1e12
                 print(f"    K9 stage {kind + 1} alone {res['ms'][-1]:.4f} ms"
-                      f" ({gbs:.0f} GB/s) at zchunk {fa.Z_CHUNK}; by zchunk "
-                      f"{{{sweep}}} ms; twin {res['plain_ms'][-1]:.4f} ms; "
-                      f"bound {bound:.4f} ms ({by}) [{card}]")
+                      f" ({gbs:.0f} GB/s, {gbs / copy_gbs:.3f} of the copy "
+                      f"rate; {ops / math.prod(shape):.0f} f32 operations a "
+                      f"cell, {tops:.2f} T/s); twin "
+                      f"{res['plain_ms'][-1]:.4f} ms; bound {bound:.4f} ms "
+                      f"({by}) [{card}]")
             del v, u, out, ref
             torch.cuda.empty_cache()
+    blocks = fa.BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    plan = {**fa.adr_schedule(grid.shape, blocks),
+            "copy_floats": main_launch["copy_floats"],
+            "blocks_per_sm": main_launch["blocks_per_sm"]}
+    print(f"  K9 plan at {grid.shape} (stages 2-3): {plan}")
+    if plan["blocks_per_sm"] != fa.BLOCKS_PER_SM:
+        raise AssertionError(f"K9 runs {plan['blocks_per_sm']} blocks an "
+                             f"SM, its plan {fa.BLOCKS_PER_SM}")
+    by_chunk = {f"{z or plan['chunk_planes']}{'' if z else ' (planned)'}":
+                statistics.mean(res["sweep"][z]) for z in sweep}
+    print("  K9 alone, mean of the three stage kinds, by z chunk (ms): "
+          f"{by_chunk} [{card}]")
     lib_ms = adr_rhs_conv3d_ms(spacing, grid.shape, (0.5, 0.5, 0.5), 0.25)
     print(f"  conv3d constant-coefficient ADR right-hand side alone, TF32 "
           f"off: {lib_ms:.4f} ms [{card}] (computes less than one K9 stage)")
+    ms = statistics.mean(res["ms"])
     return {
         "name": "fused_adr_stage", "id": "K9", "route": "cuda",
         "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
@@ -2482,10 +2540,13 @@ def k9_phase(card: str) -> dict:
                     "fused_adr.py:69",
         "max_abs_err": res["err"], "max_ulps": 0,
         # per launch alone, mean over the three stage kinds a step launches
-        "ms_isolated": statistics.mean(res["ms"]),
-        "ms_isolated_by_zchunk": {
-            str(z): statistics.mean(res["sweep"][z]) for z in ZCHUNKS},
-        "zchunk": fa.Z_CHUNK,
+        "ms_isolated": ms,
+        "ms_isolated_by_zchunk": by_chunk,
+        "plan": plan,
+        "achieved_gbs": (stage_bytes(grid.shape, False)
+                         + 2 * stage_bytes(grid.shape, True)) / 3
+                        / (ms * 1e-3) / 1e9,
+        "copy_gbs": copy_gbs,
         "plain_ms": statistics.mean(res["plain_ms"]),
         "bound_ms": statistics.mean(res["bound_ms"]),
         "bound_by": res["bound_by"],
@@ -2579,11 +2640,11 @@ def adr_main_phase(card: str, k9: dict) -> dict:
     span_ms, busy_ms, per_kernel = retake(
         lambda: device_profile(lambda: solver.run(state0, n)),
         lambda r: sum("adr_stage_kernel<" in k for k in r[2]) == 2)
-    # the unsharded instances (<HAS_U, SHARDED>): stage 1, stages 2-3
+    # the unsharded instances (<TY, TX, HAS_U, SHARDED>): stage 1, 2-3
     s1 = [ms for k, ms in per_kernel.items()
-          if "adr_stage_kernel<false, false>" in k]
+          if "adr_stage_kernel<" in k and ", false, false>" in k]
     s23 = [ms for k, ms in per_kernel.items()
-           if "adr_stage_kernel<true, false>" in k]
+           if "adr_stage_kernel<" in k and ", true, false>" in k]
     if len(s1) != 1 or len(s23) != 1:
         raise AssertionError(f"profiled run missed K9: {list(per_kernel)}")
     in_run_ms = (s1[0] + 2 * s23[0]) / 3
@@ -4264,7 +4325,7 @@ def main() -> int:
     k5 = burgers_phases(card)
     torch.cuda.empty_cache()
     print("phases 8-11: the 2-D paths (K7, K7a)")
-    k7d = diffusion2d_phases(card, l2_gbs)
+    k7d = diffusion2d_phases(card)
     k7b, k7a = burgers2d_phases(card, l2_gbs)
     torch.cuda.empty_cache()
     print("phases 12-15: the 3-D fused-step rungs (K10, K2, K6)")
@@ -4288,7 +4349,7 @@ def main() -> int:
     repaired_dispatch_phase()
     torch.cuda.empty_cache()
     print("phases 20-22: advection-diffusion-reaction (K9)")
-    k9 = adr_main_phase(card, k9_phase(card))
+    k9 = adr_main_phase(card, k9_phase(card, copy_gbs))
     torch.cuda.empty_cache()
     adr2d_phase(card)
     torch.cuda.empty_cache()

@@ -25,36 +25,74 @@
 // device mesh passes the global interior shape and its offsets, so both
 // masks are global (the TPU kernel's offsets operand,
 // fused_adr.py:244-305); it runs its own instance of the kernel, as K1's
-// shards do, and the unsharded launch carries none of its arithmetic. The file is built with
-// -fmad=false: no product and sum are contracted into an FMA, and the
-// kernel rounds exactly where the plain PyTorch twin
+// shards do, and the unsharded launch carries none of its arithmetic. The
+// file is built with -fmad=false: no product and sum are contracted into
+// an FMA, and the kernel rounds exactly where the plain PyTorch twin
 // (ops/kernels/fused_adr.py::adr_stage_reference) does.
 //
 // Layout and aliasing: K1's (csrc/fused_diffusion_stage.cu). The padded
 // state is (nz+4, ny+4, nx+4) contiguous float32 whose 2-deep ghost ring
 // holds bc_value and is never written (a shard's: neighbour data on a
 // sharded axis, refreshed between stages); the upwind +-1 neighbours lie
-// inside it. The third stage runs in place (u == out): each thread reads
-// u only at its own cell, before writing it, and v is never out.
+// inside it. The third stage runs in place (u == out): a block reads u
+// only at its own tile's cells, each before it writes it, and v is never
+// out.
 //
 // Bound on an H100: device-memory bytes, as K1's. Each stage must read
 // v's interior once and write the interior once, 8 B/cell, and stages 2
-// and 3 read u too, 12 B/cell (cz/cy/cx are a few KB). About 60 f32
-// operations a cell (15 taps, 6 upwind terms a axis at most, the
-// coefficient, reaction and RK combine) stay far under the card's f32
-// rate at that traffic. Design: one thread per (y, x) column marches a
-// chunk of z planes with the five z taps, which also give the z upwind
-// neighbours, in a register queue, so the z stream is read once; the y
-// and x neighbours come through L1, shared by the threads of a block.
-// Shared-memory tiling and TMA are left to later work.
+// and 3 read u too, 12 B/cell (cz/cy/cx are a few KB): 0.040 / 0.060 ms
+// at 508x204x160. About 60 f32 operations a cell (15 taps, 5 upwind
+// terms an advecting axis, the coefficient, reaction and RK combine; not
+// contracted, so they issue one a lane a cycle) are more than half of
+// what the card issues in that time, so the loads must stay in flight
+// while they issue. Design:
+//
+// - Plane tiles. A block owns a TY x TX = 16x64 (y, x) tile (32x32 and
+//   8x128 were no faster on the H100, PERF.md) and marches a chunk of z planes (6 by
+//   default: ops/kernels/fused_adr.py::adr_schedule plans it). Each
+//   plane's tile of v with its 2-cell y/x halo comes into a ring of NV
+//   shared planes, and u's tile (stages 2, 3) into a ring of NU, by
+//   asynchronous copies (cp.async) issued LEAD planes ahead of the
+//   compute, so three planes of loads are in flight while a plane's
+//   operations issue, with one block barrier a plane. Both tiles start
+//   at a padded column that is a multiple of 4 (u's carries 2 columns a
+//   side it does not read), so where the row pitch is a multiple of 4
+//   floats, as (508+4) is, every copy is 16 bytes (W = 4; else 4-byte
+//   copies, W = 1). Each thread works out its copies' offsets once; a
+//   plane is one or two copies a thread. TMA would take a tensor map a
+//   buffer, built on the host, to save issue that is no longer the limit.
+//   Deeper rings (LEAD 8, 9, 11 at 3 or 2 blocks an SM) and longer chunks
+//   were slower on the H100 (PERF.md).
+// - Registers. A thread owns a column and RPT = 4 rows of the tile: the
+//   five z taps of each stay in a register queue (the z upwind
+//   neighbours too), fed from the ring's plane two ahead; the y taps of
+//   its own rows are the queue's centres, the other y and the x taps
+//   shared loads at immediate offsets, a warp on 32 neighbouring columns.
+//   A plane whose physics has every term (the main path) takes a path
+//   with no test a cell, and a thread whose cells all lie inside the band
+//   stores with no mask.
+// - Stores go straight from registers, a warp on one row.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <type_traits>
+
 namespace {
 
-constexpr int R = 2;    // stencil radius of the O4 second derivative
-constexpr int BX = 32;  // threads along x: one warp spans 32 columns
-constexpr int BY = 8;   // threads along y
+constexpr int R = 2;  // stencil radius of the O4 second derivative
+constexpr int THREADS = 256;
+constexpr int MIN_BLOCKS = 4;  // resident blocks an SM (64 registers)
+constexpr int NV = 6;          // v planes in the ring
+constexpr int NU = 4;          // u planes in the ring
+constexpr int LEAD = 7;        // copy group of plane m + LEAD issued at m
+constexpr int RPT = 4;         // rows a thread owns
+constexpr int TY = 16, TX = 64;  // the (y, x) tile a block owns
+static_assert(TY * TX == RPT * THREADS, "a thread owns RPT rows");
+constexpr int PV = TX + 2 * R;              // every shared plane's pitch
+constexpr int PLANE_V = (TY + 2 * R) * PV;  // v plane floats
+constexpr int PLANE_U = TY * PV;            // u plane floats
+constexpr int SMEM_FLOATS = NV * PLANE_V + NU * PLANE_U;
 
 struct Params {
   float taps[15];  // [axis z, y, x][tap j], unscaled by K
@@ -72,113 +110,321 @@ struct Geometry {
   int oz, oy, ox;  // global index of local interior cell (0, 0, 0)
 };
 
-template <bool HAS_U, bool SHARDED>
-__global__ void __launch_bounds__(BX * BY)
+// The launch's plan: tiles a row, z planes a block.
+struct Plan {
+  int tiles_x, zchunk;
+};
+
+// One asynchronous copy of W floats: 16 bytes through L2 only (W = 4), or
+// 4 bytes through L1 (cp.async takes no 4-byte copy that bypasses it).
+template <int W>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (W == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// A thread's share of the copies of a ROWS x COLS tile of a plane, in
+// copies of W floats, THREADS at a time: each copy's offset in the shared
+// tile (pitch COLS; -1: the copy would reach past the array's `rows_in`
+// rows or `cols_in` columns and is skipped) and in the plane (row pitch
+// X), worked out once a block.
+template <int W, int ROWS, int COLS>
+struct TileCopy {
+  static constexpr int PER_ROW = COLS / W, N = ROWS * PER_ROW;
+  static constexpr int K = (N + THREADS - 1) / THREADS;
+  int so[K], go[K];
+
+  __device__ __forceinline__ TileCopy(long long X, int rows_in,
+                                      int cols_in) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int t = threadIdx.x + i * THREADS;
+      const int r = t / PER_ROW, c = (t - r * PER_ROW) * W;
+      so[i] = t < N && r < rows_in && c < cols_in ? r * COLS + c : -1;
+      go[i] = (int)(r * X + c);
+    }
+  }
+
+  __device__ __forceinline__ void issue(float* dst, const float* src) const {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      if (so[i] >= 0) cp_async<W>(dst + so[i], src + go[i]);
+  }
+};
+
+template <int W, bool HAS_U, bool SHARDED>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
                  const float* __restrict__ cz, const float* __restrict__ cy,
                  const float* __restrict__ cx, int nz, int ny, int nx,
-                 int zchunk, Params p, Geometry g) {
-  const int i = blockIdx.x * BX + threadIdx.x;  // interior x index
-  const int j = blockIdx.y * BY + threadIdx.y;  // interior y index
-  if (i >= nx || j >= ny) return;
-  const int k0 = blockIdx.z * zchunk;
-  const int k1 = min(k0 + zchunk, nz);
+                 Plan pl, Params p, Geometry g) {
+  extern __shared__ float4 smem[];
+  float* sv = reinterpret_cast<float*>(smem);
+  float* su = sv + NV * PLANE_V;
 
-  const long long X = nx + 2 * R;                   // row stride
-  const long long P = (long long)(ny + 2 * R) * X;  // plane stride
-  const long long col = (long long)(j + R) * X + (i + R);
+  const int ty = blockIdx.x / pl.tiles_x;
+  const int y0 = ty * TY, x0 = (blockIdx.x - ty * pl.tiles_x) * TX;
+  const int k0 = blockIdx.y * pl.zchunk;
+  const int zc = min(k0 + pl.zchunk, nz) - k0;
+  const long long X = nx + 2 * R;
+  const long long P = (long long)(ny + 2 * R) * X;
 
-  // global y, x and the global interior shape
-  const int gj = SHARDED ? j + g.oy : j, gi = SHARDED ? i + g.ox : i;
+  // copy group q: v's padded plane k0 + q (the z taps of interior plane
+  // k0 + q - 2 are centred on it) and u's interior plane k0 + q - 4, both
+  // first needed in iteration q - 4. Both tiles start at the padded
+  // column x0 (u's with 2 columns a side it does not read), so every row
+  // of them starts 16-byte aligned where the row pitch is.
+  const float* vtile = v + (long long)y0 * X + x0;  // padded (y0, x0)
+  const float* utile = HAS_U ? u + (long long)(y0 + R) * X + x0 : nullptr;
+  const TileCopy<W, TY + 2 * R, PV> vcopy(X, ny + 2 * R - y0, (int)X - x0);
+  const TileCopy<W, TY, PV> ucopy(X, ny - y0, (int)X - x0);
+  auto issue = [&](int q) {
+    if (q < zc + 2 * R)
+      vcopy.issue(sv + (q % NV) * PLANE_V, vtile + (k0 + q) * P);
+    if (HAS_U && q >= 2 * R && q < zc + 2 * R)
+      ucopy.issue(su + ((q - 2 * R) % NU) * PLANE_U,
+                  utile + (k0 + q - R) * P);
+    cp_commit();
+  };
+
+  // this thread's column and rows, and their masks
+  const int c = threadIdx.x % TX;
+  const int r0 = (threadIdx.x / TX) * RPT;
+  const int i = x0 + c;  // interior x
+  const int gi = SHARDED ? i + g.ox : i;
   const int gz = SHARDED ? g.gz : nz, gy = SHARDED ? g.gy : ny,
             gx = SHARDED ? g.gx : nx;
-  const bool in_yx = gj >= p.band && gj < gy - p.band && gi >= p.band &&
-                     gi < gx - p.band;
-  const bool face_yx = gj == 0 || gj == gy - 1 || gi == 0 || gi == gx - 1;
-  const float cyj = cy[j], cxi = cx[i];
-
-  // z taps of interior plane k live at padded planes k .. k+4
-  float q0 = v[(long long)(k0 + 0) * P + col];
-  float q1 = v[(long long)(k0 + 1) * P + col];
-  float q2 = v[(long long)(k0 + 2) * P + col];
-  float q3 = v[(long long)(k0 + 3) * P + col];
-
-  for (int k = k0; k < k1; ++k) {
-    const long long c = (long long)(k + R) * P + col;  // this cell
-    const float q4 = v[c + 2 * P];
-    const float ym1 = v[c - X], yp1 = v[c + X];
-    const float xm1 = v[c - 1], xp1 = v[c + 1];
-
-    float lap = q0 * p.taps[0];
-    lap = lap + q1 * p.taps[1];
-    lap = lap + q2 * p.taps[2];
-    lap = lap + q3 * p.taps[3];
-    lap = lap + q4 * p.taps[4];
-    lap = lap + v[c - 2 * X] * p.taps[5];
-    lap = lap + ym1 * p.taps[6];
-    lap = lap + q2 * p.taps[7];
-    lap = lap + yp1 * p.taps[8];
-    lap = lap + v[c + 2 * X] * p.taps[9];
-    lap = lap + v[c - 2] * p.taps[10];
-    lap = lap + xm1 * p.taps[11];
-    lap = lap + q2 * p.taps[12];
-    lap = lap + xp1 * p.taps[13];
-    lap = lap + v[c + 2] * p.taps[14];
-
-    // upwind advective divergence, the axes in z, y, x order
-    const float lo[3] = {q1, ym1, xm1};
-    const float hi[3] = {q3, yp1, xp1};
-    float adv = 0.0f;
-    bool any = false;
+  const bool x_in = i < nx;
+  const bool in_x = gi >= p.band && gi < gx - p.band;
+  const bool face_x = gi == 0 || gi == gx - 1;
+  const float cxi = x_in ? cx[i] : 0.0f;
+  bool in_yx[RPT], face_yx[RPT], cell_in[RPT];
+  bool inner = true;  // every cell of the thread in the domain, >= band
+  float cyj[RPT];     // from the walls in y and x
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      if (p.adv_axes & (1 << ax)) {
-        const float term = p.cp[ax] * (q2 - lo[ax]) + p.cm[ax] * (hi[ax] - q2);
-        adv = any ? adv + term : term;
-        any = true;
-      }
-    }
-
-    float rhs;
-    if (p.eps != 0.0f) {
-      const float kf = p.k0 * (1.0f + ((p.eps * cz[k]) * cyj) * cxi);
-      rhs = kf * lap;
-    } else {
-      rhs = p.k0 * lap;
-    }
-    if (any) rhs = rhs - adv;
-    if (p.lam != 0.0f) rhs = rhs - p.lam * q2;
-
-    float rk = p.b * (q2 + p.dt * rhs);
-    if (HAS_U) rk = p.a * u[c] + rk;
-
-    const int gk = SHARDED ? k + g.oz : k;  // global z
-    const bool interior = in_yx && gk >= p.band && gk < gz - p.band;
-    const bool face = face_yx || gk == 0 || gk == gz - 1;
-    out[c] = interior ? rk : (face ? p.bc_value : q2);
-
-    q0 = q1;
-    q1 = q2;
-    q2 = q3;
-    q3 = q4;
+  for (int e = 0; e < RPT; ++e) {
+    const int j = y0 + r0 + e;
+    const int gj = SHARDED ? j + g.oy : j;
+    cell_in[e] = x_in && j < ny;
+    in_yx[e] = in_x && gj >= p.band && gj < gy - p.band;
+    face_yx[e] = face_x || gj == 0 || gj == gy - 1;
+    cyj[e] = j < ny ? cy[j] : 0.0f;
+    inner = inner && cell_in[e] && in_yx[e];
   }
+  // this thread's cell of row e in a v plane and in a u plane
+  const int vcell = (r0 + R) * PV + c + R;
+  const int ucell = r0 * PV + c + R;
+
+#pragma unroll 1
+  for (int q = 0; q < LEAD - 1; ++q) issue(q);
+  cp_wait<LEAD - 1 - 2 * R>();  // the first four planes
+  __syncthreads();
+  float q0[RPT], q1[RPT], q2[RPT], q3[RPT];
+#pragma unroll
+  for (int e = 0; e < RPT; ++e) {
+    q0[e] = sv[0 * PLANE_V + vcell + e * PV];
+    q1[e] = sv[1 * PLANE_V + vcell + e * PV];
+    q2[e] = sv[2 * PLANE_V + vcell + e * PV];
+    q3[e] = sv[3 * PLANE_V + vcell + e * PV];
+  }
+  __syncthreads();  // group LEAD - 1 reuses plane 0's slot
+  issue(LEAD - 1);
+
+#pragma unroll 1
+  for (int m = 0; m < zc; ++m) {
+    cp_wait<LEAD - 2 * R - 1>();  // group m + 4: v plane m + 4, u plane m
+    __syncthreads();  // every copy landed; plane m - 1's readers are done
+    issue(m + LEAD);
+    const int k = k0 + m;  // interior z of this plane
+    const float* pc = sv + ((m + R) % NV) * PLANE_V + vcell;  // centre
+    const float* p4 = sv + ((m + 2 * R) % NV) * PLANE_V + vcell;
+    const float* pu = su + (m % NU) * PLANE_U + ucell;
+    const int gk = SHARDED ? k + g.oz : k;
+    const bool in_z = gk >= p.band && gk < gz - p.band;
+    const bool face_z = gk == 0 || gk == gz - 1;
+    const bool fast = inner && in_z;  // every cell interior: no mask
+    const float ez = p.eps != 0.0f ? p.eps * cz[k] : 0.0f;
+    // the centre plane's column: rows r0-2 .. r0+RPT+1, own rows from q2
+    float col[RPT + 4];
+    col[0] = pc[-2 * PV];
+    col[1] = pc[-PV];
+#pragma unroll
+    for (int e = 0; e < RPT; ++e) col[e + 2] = q2[e];
+    col[RPT + 2] = pc[RPT * PV];
+    col[RPT + 3] = pc[(RPT + 1) * PV];
+    float* o = out + (long long)(k + R) * P + (long long)(y0 + r0 + R) * X +
+               (i + R);
+    // the cells of this plane; FULL: every axis advects, eps and lambda
+    // are not 0 (the main path), so no term is tested a cell
+    auto cells = [&](auto full) {
+      constexpr bool FULL = decltype(full)::value;
+#pragma unroll
+      for (int e = 0; e < RPT; ++e) {
+        const float q4 = p4[e * PV];
+        const float* row = pc + e * PV;
+        const float xm2 = row[-2], xm1 = row[-1], xp1 = row[1], xp2 = row[2];
+        const float ym1 = col[e + 1], yp1 = col[e + 3];
+        const float vc = q2[e];
+
+        float lap = q0[e] * p.taps[0];
+        lap = lap + q1[e] * p.taps[1];
+        lap = lap + vc * p.taps[2];
+        lap = lap + q3[e] * p.taps[3];
+        lap = lap + q4 * p.taps[4];
+        lap = lap + col[e] * p.taps[5];
+        lap = lap + ym1 * p.taps[6];
+        lap = lap + vc * p.taps[7];
+        lap = lap + yp1 * p.taps[8];
+        lap = lap + col[e + 4] * p.taps[9];
+        lap = lap + xm2 * p.taps[10];
+        lap = lap + xm1 * p.taps[11];
+        lap = lap + vc * p.taps[12];
+        lap = lap + xp1 * p.taps[13];
+        lap = lap + xp2 * p.taps[14];
+
+        // upwind advective divergence, the axes in z, y, x order
+        const float lo[3] = {q1[e], ym1, xm1};
+        const float hi[3] = {q3[e], yp1, xp1};
+        float adv = 0.0f;
+        bool any = FULL;
+        if (FULL) {
+          adv = p.cp[0] * (vc - lo[0]) + p.cm[0] * (hi[0] - vc);
+          adv = adv + (p.cp[1] * (vc - lo[1]) + p.cm[1] * (hi[1] - vc));
+          adv = adv + (p.cp[2] * (vc - lo[2]) + p.cm[2] * (hi[2] - vc));
+        } else {
+#pragma unroll
+          for (int ax = 0; ax < 3; ++ax) {
+            if (p.adv_axes & (1 << ax)) {
+              const float term =
+                  p.cp[ax] * (vc - lo[ax]) + p.cm[ax] * (hi[ax] - vc);
+              adv = any ? adv + term : term;
+              any = true;
+            }
+          }
+        }
+
+        float rhs;
+        if (FULL || p.eps != 0.0f) {
+          const float kf = p.k0 * (1.0f + (ez * cyj[e]) * cxi);
+          rhs = kf * lap;
+        } else {
+          rhs = p.k0 * lap;
+        }
+        if (any) rhs = rhs - adv;
+        if (FULL || p.lam != 0.0f) rhs = rhs - p.lam * vc;
+
+        float rk = p.b * (vc + p.dt * rhs);
+        if (HAS_U) rk = p.a * pu[e * PV] + rk;
+
+        if (fast) {
+          o[e * X] = rk;
+        } else if (cell_in[e]) {
+          const bool interior = in_yx[e] && in_z;
+          const bool face = face_yx[e] || face_z;
+          o[e * X] = interior ? rk : (face ? p.bc_value : vc);
+        }
+
+        q0[e] = q1[e];
+        q1[e] = vc;
+        q2[e] = q3[e];
+        q3[e] = q4;
+      }
+    };
+    if (p.adv_axes == 7 && p.eps != 0.0f && p.lam != 0.0f)
+      cells(std::true_type{});
+    else
+      cells(std::false_type{});
+  }
+  cp_wait<0>();  // no copy outlives the block
+}
+
+// The pointers and sizes of one stage.
+struct Buffers {
+  const float* v;
+  const float* u;
+  float* out;
+  const float *cz, *cy, *cx;
+  int nz, ny, nx;
+};
+
+// Launch one instance of the kernel. The first launch of an instance on
+// a device opts it into its dynamic shared memory and the largest
+// carveout (MIN_BLOCKS blocks an SM need 4 x 49 KB); `blocks_per_sm`,
+// when not null, receives its resident blocks an SM.
+template <int W, bool HAS_U, bool SHARDED>
+cudaError_t launch(const Buffers& d, Plan pl, const Params& p,
+                   const Geometry& g, int* blocks_per_sm, cudaStream_t s) {
+  constexpr int bytes = SMEM_FLOATS * (int)sizeof(float);
+  const auto kernel = adr_stage_kernel<W, HAS_U, SHARDED>;
+  // bit k: the attributes are set on device k (devices past 63 set them
+  // at every launch)
+  static std::atomic<unsigned long long> set_on{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
+  if (bit == 0 || !(set_on.load(std::memory_order_acquire) & bit)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    set_on.fetch_or(bit, std::memory_order_release);
+  }
+  if (blocks_per_sm != nullptr) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                      THREADS, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  pl.tiles_x = (d.nx + TX - 1) / TX;
+  const dim3 grid(pl.tiles_x * ((d.ny + TY - 1) / TY),
+                  (d.nz + pl.zchunk - 1) / pl.zchunk, 1);
+  kernel<<<grid, THREADS, bytes, s>>>(d.v, d.u, d.out, d.cz, d.cy, d.cx,
+                                      d.nz, d.ny, d.nx, pl, p, g);
+  return cudaGetLastError();
+}
+
+template <int W, bool SHARDED>
+cudaError_t launch_u(const Buffers& d, Plan pl, const Params& p,
+                     const Geometry& g, int* blocks_per_sm, cudaStream_t s) {
+  return d.u != nullptr
+             ? launch<W, true, SHARDED>(d, pl, p, g, blocks_per_sm, s)
+             : launch<W, false, SHARDED>(d, pl, p, g, blocks_per_sm, s);
 }
 
 template <bool SHARDED>
-void launch(const float* v, const float* u, float* out, const float* cz,
-            const float* cy, const float* cx, int nz, int ny, int nx,
-            int zchunk, const Params& p, const Geometry& g,
-            cudaStream_t s) {
-  const dim3 block(BX, BY, 1);
-  const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY,
-                  (nz + zchunk - 1) / zchunk);
-  if (u != nullptr) {
-    adr_stage_kernel<true, SHARDED><<<grid, block, 0, s>>>(
-        v, u, out, cz, cy, cx, nz, ny, nx, zchunk, p, g);
-  } else {
-    adr_stage_kernel<false, SHARDED><<<grid, block, 0, s>>>(
-        v, u, out, cz, cy, cx, nz, ny, nx, zchunk, p, g);
-  }
+cudaError_t launch_width(int w, const Buffers& d, Plan pl, const Params& p,
+                         const Geometry& g, int* blocks_per_sm,
+                         cudaStream_t s) {
+  return w == 4 ? launch_u<4, SHARDED>(d, pl, p, g, blocks_per_sm, s)
+                : launch_u<1, SHARDED>(d, pl, p, g, blocks_per_sm, s);
+}
+
+// The width (floats) of the launch's copies: 4 (16 bytes) where every
+// tile row of v and u starts 16-byte aligned (a row pitch of a multiple of
+// 4 floats, aligned buffers; tiles start at multiples of 4 columns), else
+// 1.
+int copy_width(const float* v, const float* u, long long X) {
+  const bool aligned = (unsigned long long)v % 16 == 0 &&
+                       (unsigned long long)u % 16 == 0;
+  return X % 4 == 0 && aligned ? 4 : 1;
 }
 
 }  // namespace
@@ -186,11 +432,13 @@ void launch(const float* v, const float* u, float* out, const float* cz,
 // Launch one stage on `stream`. `u` is null for stage 1 and may equal
 // `out` (in-place stage 3). `taps` points to 15 host floats, `adv` to 6
 // (cp for z, y, x, then cm); cz/cy/cx are device vectors of nz/ny/nx
-// floats, K(x)'s factors at the block's cells. `global3` (gz, gy, gx)
-// and `offset3` (oz, oy, ox), when not null, point to 3 host ints each:
-// the global interior shape and the block's offsets (a shard of a mesh;
-// null: the unsharded instance). Returns cudaGetLastError() after the
-// launch (0 on success); does not synchronise.
+// floats, K(x)'s factors at the block's cells. `zchunk` is the z planes
+// a block marches. `global3` (gz, gy, gx) and `offset3` (oz, oy, ox),
+// when not null, point to 3 host ints each: the global interior shape and
+// the block's offsets (a shard of a mesh; null: the unsharded instance).
+// `plan_out`, when not null, receives the width of the copies (floats)
+// and the kernel's resident blocks an SM. Returns cudaGetLastError()
+// after the launch (0 on success); does not synchronise.
 extern "C" int fused_adr_stage(const float* v, const float* u, float* out,
                                int nz, int ny, int nx, const float* taps,
                                const float* cz, const float* cy,
@@ -198,9 +446,12 @@ extern "C" int fused_adr_stage(const float* v, const float* u, float* out,
                                const float* adv, float lam, float dt,
                                float a, float b, int band, float bc_value,
                                int zchunk, const int* global3,
-                               const int* offset3, void* stream) {
+                               const int* offset3, int* plan_out,
+                               void* stream) {
   if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 ||
-      (global3 == nullptr) != (offset3 == nullptr))
+      (global3 == nullptr) != (offset3 == nullptr) ||
+      (long long)(nz + 2 * R) * (ny + 2 * R) * (nx + 2 * R) >
+          (1LL << 40))
     return (int)cudaErrorInvalidValue;
   Params p;
   for (int q = 0; q < 15; ++q) p.taps[q] = taps[q];
@@ -218,17 +469,26 @@ extern "C" int fused_adr_stage(const float* v, const float* u, float* out,
   p.b = b;
   p.bc_value = bc_value;
   p.band = band;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (global3 != nullptr) {
-    const Geometry g{global3[0], global3[1], global3[2],
-                     offset3[0], offset3[1], offset3[2]};
-    if (g.oz < 0 || g.oy < 0 || g.ox < 0 || g.oz + nz > g.gz ||
-        g.oy + ny > g.gy || g.ox + nx > g.gx)
-      return (int)cudaErrorInvalidValue;
-    launch<true>(v, u, out, cz, cy, cx, nz, ny, nx, zchunk, p, g, s);
-  } else {
-    launch<false>(v, u, out, cz, cy, cx, nz, ny, nx, zchunk, p,
-                  Geometry{nz, ny, nx, 0, 0, 0}, s);
+  const long long X = nx + 2 * R;
+  Plan pl;
+  pl.zchunk = zchunk;
+  pl.tiles_x = 0;  // set by the launch
+  const int w = copy_width(v, u, X);
+  int* blocks_per_sm = nullptr;
+  if (plan_out != nullptr) {
+    plan_out[0] = w;
+    blocks_per_sm = plan_out + 1;
   }
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Buffers d{v, u, out, cz, cy, cx, nz, ny, nx};
+  if (global3 == nullptr)
+    return (int)launch_width<false>(w, d, pl, p,
+                                    Geometry{nz, ny, nx, 0, 0, 0},
+                                    blocks_per_sm, s);
+  const Geometry g{global3[0], global3[1], global3[2],
+                   offset3[0], offset3[1], offset3[2]};
+  if (g.oz < 0 || g.oy < 0 || g.ox < 0 || g.oz + nz > g.gz ||
+      g.oy + ny > g.gy || g.ox + nx > g.gx)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_width<true>(w, d, pl, p, g, blocks_per_sm, s);
 }

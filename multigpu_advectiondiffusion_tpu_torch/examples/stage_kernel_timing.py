@@ -1,13 +1,17 @@
 """Time the unsharded paths of the kernels that carry a sharded
-instance or share a stage with one on the card: K1, K5, K7/K7a and K9;
-and the paths of the diffusion slab body (K10, K2, K2b, K3, K4).
+instance or share a stage with one on the card: K1, K5, K7/K7a and K9,
+and K9's sharded path; the paths of the diffusion slab body (K10, K2,
+K2b, K3, K4); and K6's Burgers slab path.
 
 The paths are the reference's 3-D diffusion run, 400x200x206 for 101
 steps on K1 (``impl="pallas_stage"``); 3-D Burgers with WENO5 on K5:
 400x400x406 at fixed dt for 40 steps, and 512^3 adaptive for 86 steps;
 the 2-D whole runs on K7: diffusion 1001^2 for 10,000 steps, Burgers
-400^2 for 200 steps at fixed dt (K7) and adaptive (K7a); and ADR
-508x204x160 for 404 steps on K9 (bench.py's ``adr3d`` row). The
+400^2 for 200 steps at fixed dt (K7) and adaptive (K7a); ADR
+508x204x160 for 404 steps on K9 (bench.py's ``adr3d`` row), and on a
+``{"dz": 2}`` mesh of two shards on ``cuda:0`` (K9's sharded instance,
+host-bound); and 3-D Burgers 400x400x406 at fixed dt for 267 steps on
+K6 (``impl="pallas_slab"``, one launch a run). The
 diffusion body's paths (``--paths K2``) are the 3-D diffusion run on K10
 (``impl="pallas_step"``) and on K2 (``"pallas_slab"``); the diffusion
 ensemble of 64 members of 256x128x64 for 60 steps on K2b (bench.py's
@@ -21,7 +25,8 @@ and stages 2-3). The last line is a JSON object of these numbers.
 
 The script calls only the solvers' public entry points, so one call on
 the card can time two checkouts, each put first on the path (``--paths
-K5`` times the paths whose group or name holds K5 only):
+K5`` times the paths whose group or name holds K5 only, ``--paths
+K6,K9`` those of K6 and K9):
 
     PYTHONPATH=<checkout> python \\
         multigpu_advectiondiffusion_tpu_torch/examples/stage_kernel_timing.py \\
@@ -44,6 +49,7 @@ DIFFUSION_ITERS = 101
 BURGERS_N = (400, 400, 406)  # MultiGPU/Burgers3d_Baseline
 BURGERS_LENGTHS = (2.0, 2.0, 4.0)
 BURGERS_ITERS = 40
+K6_ITERS = 267  # MultiGPU/Burgers3d_Baseline
 ADAPTIVE_N = 512  # SingleGPU/Burgers3d_WENO5, Run.m
 ADAPTIVE_ITERS = 86
 DIFF2D_N = 1001  # SingleGPU/Diffusion2d, Run.m
@@ -115,7 +121,8 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--paths", default="",
                     help="time only the paths whose group or name holds "
-                         "this text (K2: the diffusion body's paths; K5); "
+                         "this text, or one of these comma-separated ones "
+                         "(K2: the diffusion body's paths; K5; K6,K9); "
                          "all by default")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed runs a path (the median is printed)")
@@ -189,6 +196,17 @@ def main() -> int:
              impl="pallas", velocity=0.5, kappa_variation=0.2,
              reaction_rate=0.25)),
          "adr_stage_kernel", 3 * ADR_ITERS),
+        ("K9 ADR 508x204x160 on {dz: 2}", "K9", ADR_ITERS,
+         lambda: ADRSolver(ADRConfig(
+             grid=Grid.make(*ADR_N, lengths=ADR_LENGTHS), dtype="float32",
+             impl="pallas", velocity=0.5, kappa_variation=0.2,
+             reaction_rate=0.25), mesh=two_shards()),
+         "adr_stage_kernel", 6 * ADR_ITERS),
+        ("K6 Burgers 400x400x406 fixed dt", "K6", K6_ITERS,
+         lambda: BurgersSolver(BurgersConfig(
+             grid=Grid.make(*BURGERS_N, lengths=BURGERS_LENGTHS), cfl=0.3,
+             adaptive_dt=False, dtype="float32", impl="pallas_slab")),
+         None, None),
         ("K10 diffusion 400x200x206", "K2", DIFFUSION_ITERS,
          lambda: DiffusionSolver(dataclasses.replace(
              diffusion, impl="pallas_step")),
@@ -209,7 +227,8 @@ def main() -> int:
     )
     result = {"label": args.label, "card": card, "paths": {}}
     for name, group, iters, make, kernel, launches in paths:
-        if args.paths and args.paths != group and args.paths not in name:
+        wanted = [w for w in args.paths.split(",") if w]
+        if wanted and not any(w == group or w in name for w in wanted):
             continue
         solver = make()
         state0 = solver.initial_state()

@@ -27,7 +27,10 @@ axes are refreshed after every stage by the caller.
 (``csrc/fused_adr_stage.cu``, built ``-fmad=false``) for a CUDA tensor
 and raises if it cannot; for a CPU tensor, and only then, it runs
 :func:`adr_stage_reference`, the plain PyTorch twin with the kernel's
-layout, term order and roundings.
+layout, term order and roundings. A block of the kernel owns a
+:data:`TILE` (y, x) tile and marches a chunk of z planes, fed by
+asynchronous copies; :func:`adr_schedule` plans the chunks and
+:func:`copy_floats` says how wide the copies can be for a row pitch.
 """
 
 from __future__ import annotations
@@ -56,7 +59,16 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
 
 SOURCE = "fused_adr_stage.cu"
 NVCC_EXTRA = ("-fmad=false",)
-Z_CHUNK = 8  # z planes one thread marches (K1's choice)
+# the (y, x) tile a block of the kernel owns (TY, TX in the source)
+TILE = (16, 64)
+# resident blocks an SM (MIN_BLOCKS in the source: 256 threads, 49 KB of
+# shared memory a block)
+BLOCKS_PER_SM = 4
+# the z planes a block marches, as near as the split allows: the fastest
+# of 4-32 in every stage kind on an H100 at 508x204x160 (PERF.md §6,
+# examples/stage_kernel_timing.py --paths K9 times the path). Short
+# chunks keep the blocks resident at once on a narrow band of planes.
+CHUNK_PLANES = 6
 
 
 def kappa_axes(global_shape: Sequence[int], device="cpu"):
@@ -133,14 +145,49 @@ def library() -> ctypes.CDLL:
     fn = lib.fused_adr_stage
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, p, i, i, i, p, p, p, p, f, f, p, f, f, f, f, i, f,
-                   i, p, p, p]
+                   i, p, p, p, p]
     fn.restype = ctypes.c_int
     return lib
 
 
+def copy_floats(nx: int) -> int:
+    """The width (floats) of the kernel's asynchronous copies for an
+    interior row of ``nx`` cells (row pitch ``nx + 4``) on 16-byte aligned
+    buffers: 4 (16-byte copies) where every tile row starts 16-byte
+    aligned, the pitch a multiple of 4 floats (tiles start at multiples
+    of 4 columns), else 1 (4-byte copies)."""
+    return 4 if (int(nx) + 2 * R) % 4 == 0 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_planes(nz: int) -> int:
+    """The z planes a block marches on ``nz`` interior planes: nz split
+    into ``ceil(nz / CHUNK_PLANES)`` near-equal chunks, the last the
+    rest."""
+    return -(-int(nz) // -(-int(nz) // CHUNK_PLANES))
+
+
+def adr_schedule(shape, blocks: int, zchunk: int | None = None) -> dict:
+    """The launch of one K9 stage on an ``(nz, ny, nx)`` interior with
+    ``blocks`` resident blocks: :data:`TILE` tiles a plane, and z chunks
+    of ``zchunk`` planes (the last the rest), or with None
+    :func:`chunk_planes`'s; the blocks, their waves over ``blocks`` and
+    the copies' width (:func:`copy_floats`)."""
+    nz, ny, nx = (int(n) for n in shape)
+    ty, tx = TILE
+    tiles = -(-ny // ty) * -(-nx // tx)
+    planes = zchunk or chunk_planes(nz)
+    chunks = -(-nz // int(planes))
+    return {"tile_shape": TILE, "tiles": tiles,
+            "chunk_planes": int(planes), "chunks": chunks,
+            "blocks": tiles * chunks, "waves": tiles * chunks / blocks,
+            "copy_floats": copy_floats(nx)}
+
+
 def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
-                    adv_m, lam, a, b, band, bc_value, zchunk=Z_CHUNK,
-                    global_shape=None, offsets=None):
+                    adv_m, lam, a, b, band, bc_value, zchunk=None,
+                    global_shape=None, offsets=None,
+                    launch: dict | None = None):
     """One fused ADR RK stage: ``out <- stage(v, u)`` on padded buffers.
 
     ``u`` is ``None`` for the first stage (a == 0) and may be ``out``
@@ -149,8 +196,12 @@ def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
     to float32 and passed by value. A shard of a mesh passes the
     ``global_shape`` of the interior and its ``offsets`` (K9's sharded
     instance), with the factors at its cells. Launches the CUDA kernel
-    on the current stream (no synchronisation) and counts the launch in
-    ``fused_adr_stage.launches``; a CPU tensor runs
+    on the current stream (no synchronisation), a block a :data:`TILE`
+    tile and ``zchunk`` z planes (None: :func:`chunk_planes`'s), and
+    counts the launch in ``fused_adr_stage.launches``; ``launch``, a
+    dict, receives its chunk, the width of its copies (floats) and the
+    kernel's resident blocks an SM (a query the launch skips without
+    it). A CPU tensor runs
     :func:`adr_stage_reference`.
     """
     for name, t in (("v", v), ("u", u), ("out", out)):
@@ -177,6 +228,8 @@ def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
         return adr_stage_reference(v, u, out, dt, **kw)
     if v.device.type != "cuda":
         raise ValueError(f"no ADR stage kernel for device {v.device}")
+    zchunk = zchunk or chunk_planes(n[0])
+    out2 = None if launch is None else (ctypes.c_int * 2)()
     host_taps = np.asarray(taps, dtype=np.float32)
     host_adv = np.asarray(tuple(adv_p) + tuple(adv_m), dtype=np.float32)
     geo = offs = None
@@ -192,11 +245,15 @@ def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
             float(a), float(b), int(band), float(bc_value), int(zchunk),
             None if geo is None else geo.ctypes.data,
             None if offs is None else offs.ctypes.data,
+            None if out2 is None else ctypes.byref(out2),
             torch.cuda.current_stream(v.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_adr_stage launch failed: CUDA error {rc}")
     build.count_launch(fused_adr_stage)
+    if launch is not None:
+        launch.update(zchunk=int(zchunk), copy_floats=out2[0],
+                      blocks_per_sm=out2[1])
     return out
 
 

@@ -5,11 +5,13 @@ On the TPU the Pallas grid is the iteration counter: the state is
 copied into VMEM once, the grid runs its steps in order with the state
 held in scratch, and the result is copied out once. On Hopper blocks run
 in parallel, so the counterpart is one *cooperative* launch per run: a
-grid of at most the blocks that can be resident at once, each walking
-its cells with a grid-stride loop, and a grid-wide barrier
-(``cooperative_groups::this_grid().sync()``) after each of the three
-stages of every step in place of the sequential grid axis. A 2-D state
-of the reference's size (1001², 4 MB) stays in the 50 MB L2 for the run.
+grid of at most the blocks that can be resident at once, with grid-wide
+barriers (``cooperative_groups::this_grid().sync()``) in place of the
+sequential grid axis: the Burgers bodies walk their cells with a
+grid-stride loop, a barrier after each of the three stages of every
+step; the diffusion body keeps a tile of the grid a block in shared
+memory and needs one barrier a step. A 2-D state of the reference's
+size (1001², 4 MB) stays in the 50 MB L2 for the run.
 
 The kernels are ``csrc/whole_run_diffusion2d.cu`` and
 ``csrc/whole_run_burgers2d.cu``; their modules

@@ -270,10 +270,21 @@ def _rel(got, want):
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
+# (shape, tiles): the planned tiles, one tile, one row or column of tiles,
+# many of each, and more tiles than resident blocks (every job reloads
+# its window each step)
+K7_TILINGS = [((23, 37), None), ((23, 37), (1, 1)), ((23, 37), (3, 6)),
+              ((23, 37), (2, 1)), ((5, 70), None), ((5, 70), (1, 11)),
+              ((200, 200), (20, 20))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("steps", [1, 5])
-@pytest.mark.parametrize("shape", [(23, 37), (5, 70)])
-def test_k7_diffusion_matches_twin(gpu, shape, steps):
+@pytest.mark.parametrize("steps", [1, 2, 3, 5])
+@pytest.mark.parametrize("shape,tiles", K7_TILINGS,
+                         ids=[f"{s[0]}x{s[1]}-{t}" for s, t in K7_TILINGS])
+def test_k7_diffusion_matches_twin(gpu, shape, tiles, steps):
+    """To the bit, odd step counts too (the result comes back from the
+    second buffer)."""
     rng = np.random.default_rng(steps)
     padded = tuple(n + 2 * fd2.R for n in shape)
     S = torch.full(padded, 0.25, device=gpu)
@@ -286,11 +297,17 @@ def test_k7_diffusion_matches_twin(gpu, shape, steps):
         S.clone(), S.clone(), S.clone(), steps, 1e-3)
     got = S.clone()
     before = wr.whole_run.launches
-    fd2.whole_run_diffusion2d(got, S.clone(), S.clone(), steps, 1e-3, **kw)
+    plan = {}
+    fd2.whole_run_diffusion2d(got, S.clone(), S.clone(), steps, 1e-3,
+                              tiles=tiles, schedule=plan, **kw)
     torch.cuda.synchronize()
     assert wr.whole_run.launches == before + 1
-    assert _rel(got, want) <= TOL
+    assert torch.equal(got, want)
     assert torch.equal(got[:2], S[:2]) and torch.equal(got[:, -2:], S[:, -2:])
+    if tiles is not None:
+        assert plan["tiles"] == tiles
+    assert plan["resident"] == (plan["jobs"] <= plan["grid_blocks"])
+    assert plan["blocks"] == plan["grid_blocks"]  # the planner's count
 
 
 K7_CASES = {
@@ -631,14 +648,21 @@ def gpu_adr():
     return torch.device("cuda")
 
 
+# z chunks: the planned one and chunks that leave a short last one
+K9_ZCHUNKS = [None, 3, 5]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("zchunk", K9_ZCHUNKS,
+                         ids=[f"z{z}" for z in K9_ZCHUNKS])
 @pytest.mark.parametrize("eps,lam,wall", [(0.0, 0.0, 0.1), (0.2, 0.25, 0.0),
                                           (0.2, 0.0, 0.3)])
-@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 6, 70)])
+@pytest.mark.parametrize("shape", [(23, 29, 37), (5, 6, 70), (13, 21, 60)])
 @pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
-def test_k9_matches_twin(gpu_adr, shape, kind, eps, lam, wall):
+def test_k9_matches_twin(gpu_adr, shape, kind, eps, lam, wall, zchunk):
     """To the bit: K9 is built -fmad=false and rounds where its twin
-    does."""
+    does; a row pitch of a multiple of 16 bytes (60 + 4 floats) takes
+    16-byte copies, the others 4-byte ones."""
     rng = np.random.default_rng(kind)
     padded = tuple(n + 2 * fa.R for n in shape)
     v = torch.from_numpy(rng.random(padded, dtype=np.float32)).to(gpu_adr)
@@ -655,10 +679,14 @@ def test_k9_matches_twin(gpu_adr, shape, kind, eps, lam, wall):
     ref = fa.adr_stage_reference(v, u_arg, torch.zeros_like(v), 1e-3, **kw)
     out = torch.zeros_like(v)
     before = fa.fused_adr_stage.launches
-    fa.fused_adr_stage(v, u_arg, out, 1e-3, **kw)
+    launch = {}
+    fa.fused_adr_stage(v, u_arg, out, 1e-3, zchunk=zchunk, launch=launch,
+                       **kw)
     torch.cuda.synchronize()
     assert fa.fused_adr_stage.launches == before + 1
     assert torch.equal(out, ref)
+    assert launch["copy_floats"] == fa.copy_floats(shape[2])
+    assert launch["blocks_per_sm"] == fa.BLOCKS_PER_SM
 
 
 @pytest.mark.cuda
@@ -1184,13 +1212,15 @@ def test_k8b_matches_twin(gpu_2d_mesh, case, band, shard):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("zchunk", [None, 4, 5])
+@pytest.mark.parametrize("nx", [37, 60])
 @pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
-def test_k9_sharded_matches_twin(gpu_2d_mesh, kind):
+def test_k9_sharded_matches_twin(gpu_2d_mesh, kind, nx, zchunk):
     """K9's sharded instance: global walls from the offsets, the factors
-    of K(x) at the shard's cells; 0 ulp from its twin, and the unsharded
-    launch unchanged by the sharded one's existence."""
+    of K(x) at the shard's cells; 0 ulp from its twin in several z
+    chunks, with 4-byte (nx 37) and 16-byte (nx 60) copies."""
     rng = np.random.default_rng(kind)
-    shape, gshape, offs = (13, 21, 37), (39, 42, 37), (13, 21, 0)
+    shape, gshape, offs = (13, 21, nx), (39, 42, nx), (13, 21, 0)
     padded = tuple(n + 2 * fa.R for n in shape)
     v, u = _rand(rng, padded, gpu_2d_mesh), _rand(rng, padded, gpu_2d_mesh)
     cz, cy, cx = (c[o:o + n] for c, o, n in zip(
@@ -1205,7 +1235,7 @@ def test_k9_sharded_matches_twin(gpu_2d_mesh, kind):
     ref = fa.adr_stage_reference(v, u_arg, out0.clone(), 1e-3, **kw)
     out = out0.clone()
     before = fa.fused_adr_stage.launches
-    fa.fused_adr_stage(v, u_arg, out, 1e-3, **kw)
+    fa.fused_adr_stage(v, u_arg, out, 1e-3, zchunk=zchunk, **kw)
     torch.cuda.synchronize()
     assert fa.fused_adr_stage.launches == before + 1
     assert torch.equal(out, ref)
