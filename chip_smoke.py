@@ -361,6 +361,7 @@ BURGERS2D_CHECK_ITERS = 100
 ODD_2D = (23, 37)  # (ny, nx) of an odd small 2-D grid
 # the largest square interior whole_run.fits_l2 admits: 3 x 4 x 1478^2 B
 L2_MAX_2D = (1474, 1474)
+L2_MAX_B2D = (1478, 1478)  # the same for the unpadded Burgers state
 K7_ODD_CASES = (  # (flux, flux kwargs, variant, nu) at ODD_2D
     ("burgers", {}, "z", 0.0),
     ("burgers", {}, "js", 1e-5),
@@ -1323,7 +1324,7 @@ def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
     spacing, cfl = grid.spacing, cfg.cfl
     dt = cfl * min(spacing)
 
-    def check(shape, params, sp, seed, steps, adapt):
+    def check(shape, params, sp, seed, steps, adapt, tiles=None):
         rng = np.random.default_rng(seed)
         S0 = torch.from_numpy(
             rng.uniform(-0.1, 1.0, shape).astype(np.float32)).cuda()
@@ -1331,49 +1332,68 @@ def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
         stage = (lambda v, u, o, d, a, b: fb2.stage_reference(
             v, u, o, d, params=params, a=a, b=b))
         got = S0.clone()
-        label = (f"K7{'a' if adapt else ''} {steps} step(s) at {shape} "
-                 f"({params.flux.name}, {params.variant}, "
-                 f"{'viscous' if params.lap_taps else 'inviscid'})")
+        plan = {}
         if adapt:
             _, t_sum = fb2.whole_run_burgers2d(
-                got, T[0], T[1], steps, params=params, spacing=sp, cfl=cfl)
+                got, T[0], T[1], steps, params=params, spacing=sp, cfl=cfl,
+                tiles=tiles, schedule=plan)
             df = params.flux.df
             want, want_t = wr.plain_run_adaptive(
                 stage, lambda u: pcfl.advective_dt(u, df, sp, cfl),
                 S0.clone(), T[2], T[3], steps)
+        else:
+            fb2.whole_run_burgers2d(got, T[0], T[1], steps, params=params,
+                                    dt=cfl * min(sp), tiles=tiles,
+                                    schedule=plan)
+            want = wr.plain_run(stage, S0.clone(), T[2], T[3], steps,
+                                cfl * min(sp))
+        torch.cuda.synchronize()
+        label = (f"K7{'a' if adapt else ''} {steps} step(s) at {shape} "
+                 f"({params.flux.name}, {params.variant}, "
+                 f"{'viscous' if params.lap_taps else 'inviscid'}), "
+                 f"{plan['tiles']} tiles ("
+                 f"{'resident' if plan['resident'] else 'reloaded'})")
+        if adapt:
             if float(t_sum) != float(want_t):
                 raise AssertionError(f"{label}: t_sum {float(t_sum)!r} vs "
                                      f"twin {float(want_t)!r}")
             label += f", t_sum {float(t_sum)!r} equal"
-        else:
-            fb2.whole_run_burgers2d(got, T[0], T[1], steps, params=params,
-                                    dt=cfl * min(sp))
-            want = wr.plain_run(stage, S0.clone(), T[2], T[3], steps,
-                                cfl * min(sp))
-        torch.cuda.synchronize()
-        return compare(label, got, want)
+        if plan["blocks"] != plan["grid_blocks"]:
+            raise AssertionError(
+                f"{label}: the plan counts {plan['blocks']} blocks, the "
+                f"launch ran {plan['grid_blocks']}")
+        return exact(label, got, want)
 
     print("phase 10: K7 (Burgers) and K7a against their twin")
     params = fb.stage_params(fixed.flux, cfg.weno_variant, spacing, cfg.nu)
-    err, n_ulps = 0.0, 0
+    if not wr.fits_l2(L2_MAX_B2D) or wr.fits_l2(
+            [m + 1 for m in L2_MAX_B2D]):
+        raise AssertionError(f"{L2_MAX_B2D} is not the largest square the "
+                             "L2 gate admits")
+    err = 0.0
     cases = [(grid.shape, params, spacing, 10, 1, False),
              (grid.shape, params, spacing, 11, 5, False),
-             (grid.shape, params, spacing, 12, 5, True)]
+             (grid.shape, params, spacing, 12, 5, True),
+             (grid.shape, params, spacing, 13, 2, True, (20, 20)),
+             (L2_MAX_B2D, params, spacing, 14, 1, False),
+             (L2_MAX_B2D, params, spacing, 15, 3, True)]
     odd_sp = (0.05, 0.07)
     for i, (name, kw, variant, nu) in enumerate(K7_ODD_CASES):
         p = fb.stage_params(pflux.get(name, **kw), variant, odd_sp, nu)
         cases += [(ODD_2D, p, odd_sp, 100 + i, 5, False),
-                  (ODD_2D, p, odd_sp, 200 + i, 5, True)]
+                  (ODD_2D, p, odd_sp, 200 + i, 5, True),
+                  (ODD_2D, p, odd_sp, 300 + i, 3, i % 2 == 1, (1, 1))]
     for case in cases:
-        e, u = check(*case)
-        err, n_ulps = max(err, e), max(n_ulps, u)
+        err = max(err, check(*case))
+    torch.cuda.empty_cache()
 
     state0 = fixed.initial_state()
     S = state0.u.clone()
     T1, T2 = torch.empty_like(S), torch.empty_like(S)
-    blocks = []
+    blocks, plan = [], {}
     alone = median_ms(lambda: fb2.whole_run_burgers2d(
-        S, T1, T2, iters, params=params, dt=dt, grid_blocks=blocks))
+        S, T1, T2, iters, params=params, dt=dt, grid_blocks=blocks,
+        schedule=plan))
     alone_a = median_ms(lambda: fb2.whole_run_burgers2d(
         S, T1, T2, iters, params=params, spacing=spacing, cfl=cfl))
     floor = median_ms(lambda: fb2.whole_run_burgers2d(
@@ -1388,9 +1408,8 @@ def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
     got = state0.u.clone()
     fb2.whole_run_burgers2d(got, T1, T2, iters, params=params, dt=dt)
     torch.cuda.synchronize()
-    e, u = compare(f"K7 {iters} steps at {grid.shape} (the main path's "
-                   "initial state)", got, want)
-    err, n_ulps = max(err, e), max(n_ulps, u)
+    err = max(err, exact(f"K7 {iters} steps at {grid.shape} (the main "
+                         "path's initial state)", got, want))
     want = state0.u.clone()
     twin_t = []
     plain_a = cuda_ms(lambda: twin_t.append(wr.plain_run_adaptive(
@@ -1403,21 +1422,55 @@ def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
     if float(t_sum) != float(twin_t[0]):
         raise AssertionError(f"K7a t_sum {float(t_sum)!r} vs twin "
                              f"{float(twin_t[0])!r}")
-    e, u = compare(f"K7a {iters} steps at {grid.shape} (the main path's "
-                   f"initial state), t_sum {float(t_sum)!r} equal", got, want)
-    err, n_ulps = max(err, e), max(n_ulps, u)
+    err = max(err, exact(f"K7a {iters} steps at {grid.shape} (the main "
+                         f"path's initial state), t_sum {float(t_sum)!r} "
+                         "equal", got, want))
     del got, want
     bound = run_bound(4 * S.numel(), k7_burgers_ops(
         grid.shape, iters, False, cfg.weno_variant, False))
     bound_a = run_bound(4 * S.numel(), k7_burgers_ops(
         grid.shape, iters, False, cfg.weno_variant, True))
     l2_ms = 32 * S.numel() * iters / (l2_gbs * 1e9) * 1e3
-    print(f"  alone, run({iters}) at {n}^2 on {blocks[0]} blocks of 256: "
-          f"K7 {alone:.3f} ms, K7a {alone_a:.3f} ms; sync floor "
-          f"{floor:.3f} ms ({floor / iters * 1e3:.3f} us/step); bounds "
-          f"{bound[0]:.4f} / {bound_a[0]:.4f} ms ({bound[1]}); through L2 "
-          f"{l2_ms:.4f} ms; twins {plain:.1f} / {plain_a:.1f} ms [{card}]")
+    plan = {k: plan[k] for k in ("tiles", "tile", "window", "jobs", "blocks",
+                                 "resident", "rounds", "smem_bytes")}
+    cells = math.prod(grid.shape)
+    issued = fb2.ops_issued(*grid.shape, fb2.burgers2d_schedule(
+        *grid.shape, **fb2.card_limits("cuda", params, False)),
+        viscous=False, variant=cfg.weno_variant, adaptive=False)
+    once = k7_burgers_ops(grid.shape, 1, False, cfg.weno_variant, False)
+    print(f"  K7 plan at {n}^2: {plan}; grid {blocks[0]} blocks of "
+          f"{fb2.THREADS} threads, one grid.sync() a step; the card's "
+          f"numbers it was planned from: "
+          f"{fb2.card_limits('cuda', params, False)}")
+    print(f"  issued f32 operations a step (Burgers flux, inviscid, "
+          f"{cfg.weno_variant}): {issued:,} = {issued / (3 * cells):.1f} an "
+          f"output cell a stage, against the face-once count's "
+          f"{once / (3 * cells):.1f} (219 inviscid, 239 viscous, WENO5-JS "
+          f"fixed dt): {issued / once:.3f}x")
+    print(f"  alone, run({iters}) at {n}^2: K7 {alone:.3f} ms "
+          f"({alone / iters * 1e3:.3f} us/step), K7a {alone_a:.3f} ms "
+          f"({alone_a / iters * 1e3:.3f} us/step); floor (its barriers, "
+          f"body off) {floor:.3f} ms ({floor / iters * 1e3:.3f} us/step); "
+          f"bounds {bound[0]:.4f} / {bound_a[0]:.4f} ms ({bound[1]}); "
+          f"through L2 {l2_ms:.4f} ms; twins {plain:.1f} / {plain_a:.1f} "
+          f"ms [{card}]")
     del S, T1, T2
+    # the largest grid the L2 gate admits: more jobs than blocks
+    big = torch.from_numpy(np.random.default_rng(16).uniform(
+        0.0, 1.0, L2_MAX_B2D).astype(np.float32)).cuda()
+    Tb = [torch.empty_like(big) for _ in range(2)]
+    big_plan = {}
+    big_ms = median_ms(lambda: fb2.whole_run_burgers2d(
+        big, *Tb, iters, params=params, dt=dt, schedule=big_plan))
+    big_floor = median_ms(lambda: fb2.whole_run_burgers2d(
+        big, *Tb, iters, params=params, dt=dt, sync_floor=True))
+    big_plan = {k: big_plan[k] for k in ("tiles", "tile", "jobs",
+                                         "grid_blocks", "resident", "rounds",
+                                         "smem_bytes")}
+    print(f"  K7 alone at {L2_MAX_B2D}, run({iters}): {big_ms:.3f} ms "
+          f"({big_ms / iters * 1e3:.3f} us/step), floor {big_floor:.3f} ms; "
+          f"plan {big_plan} [{card}]")
+    del big, Tb
 
     entry = {}
     for label, solver, key, alone_ms in (("fixed", fixed, "K7", alone),
@@ -1459,8 +1512,10 @@ def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
         "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
                   "whole_run_burgers2d.cu",
         "max_abs_err": err,
-        "max_ulps": n_ulps,
+        "max_ulps": 0,
         "grid_blocks": blocks[0],
+        "plan": plan,
+        "ops_issued_per_cell": issued / (3 * cells),
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes a WENO5 "
                         "stage",
@@ -1472,6 +1527,7 @@ def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
         **entry["K7"],
         "ms_isolated": alone,
         "sync_floor_ms": floor,
+        "ms_isolated_1478": big_ms,
         "plain_ms": plain,
         "bound_ms": bound[0],
         "bound_by": bound[1],

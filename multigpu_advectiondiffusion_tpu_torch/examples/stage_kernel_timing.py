@@ -21,7 +21,9 @@ shards on ``cuda:0``, on K3 (the collective exchange) and on K4
 CUDA-event samples of ``run`` after a warm-up (``--reps``), and, where the profiler
 sees every launch (not the cooperative ones), the kernel's mean device
 time a launch from ``torch.profiler`` (for the stage kernels, stage 1
-and stages 2-3). The last line is a JSON object of these numbers.
+and stages 2-3); for the 2-D Burgers paths also the floor, ms a step of
+the same whole-run grid with the body off (its grid-wide barriers only).
+The last line is a JSON object of these numbers.
 
 The script calls only the solvers' public entry points, so one call on
 the card can time two checkouts, each put first on the path (``--paths
@@ -114,6 +116,34 @@ def per_launch_ms(solver, state0, iters: int, kernel: str,
             "stage1_ms": statistics.mean(times[0::3]),
             "stages23_ms": statistics.mean(times[1::3] + times[2::3]),
             "mean_ms": statistics.mean(times)}
+
+
+def burgers2d_floor_ms(solver, state0, iters: int, reps: int) -> float:
+    """ms a step of K7 Burgers' grid with the body off, at fixed dt: the
+    median of ``reps`` CUDA-event samples after a warm-up."""
+    from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+        fused_burgers as fb,
+    )
+    from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+        fused_burgers2d as fb2,
+    )
+
+    cfg = solver.cfg
+    spacing = cfg.grid.spacing
+    params = fb.stage_params(solver.flux, cfg.weno_variant, spacing, cfg.nu)
+    S = state0.u.clone()
+    T1, T2 = torch.empty_like(S), torch.empty_like(S)
+    samples = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fb2.whole_run_burgers2d(S, T1, T2, iters, params=params,
+                                dt=cfg.cfl * min(spacing), sync_floor=True)
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples[1:]) / iters
 
 
 def main() -> int:
@@ -235,6 +265,9 @@ def main() -> int:
         ms, samples = ms_per_step(solver, state0, iters, args.reps)
         launch = ({} if kernel is None else
                   per_launch_ms(solver, state0, iters, kernel, launches))
+        if group == "K7" and "Burgers" in name:
+            launch["floor_ms_per_step"] = burgers2d_floor_ms(
+                solver, state0, iters, args.reps)
         result["paths"][name] = {"iters": iters, "ms_per_step": ms,
                                  "samples_ms": samples, **launch}
         print(f"{args.label}: {name} run({iters}): {ms:.4f} ms/step "

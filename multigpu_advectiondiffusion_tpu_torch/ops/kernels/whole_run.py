@@ -7,11 +7,10 @@ held in scratch, and the result is copied out once. On Hopper blocks run
 in parallel, so the counterpart is one *cooperative* launch per run: a
 grid of at most the blocks that can be resident at once, with grid-wide
 barriers (``cooperative_groups::this_grid().sync()``) in place of the
-sequential grid axis: the Burgers bodies walk their cells with a
-grid-stride loop, a barrier after each of the three stages of every
-step; the diffusion body keeps a tile of the grid a block in shared
-memory and needs one barrier a step. A 2-D state of the reference's
-size (1001², 4 MB) stays in the 50 MB L2 for the run.
+sequential grid axis: both bodies keep a tile of the grid a block in
+shared memory, recompute the halo of its three stages and need one
+barrier a step. A 2-D state of the reference's size (1001², 4 MB) stays
+in the 50 MB L2 for the run.
 
 The kernels are ``csrc/whole_run_diffusion2d.cu`` and
 ``csrc/whole_run_burgers2d.cu``; their modules
@@ -164,13 +163,13 @@ def whole_run_adaptive(kernel: Kernel, stage: Stage, dt_fn, S, T1, T2,
     """Adaptive-dt :func:`whole_run` (K7a): returns ``(S, t_sum)``, the
     float32 sum of the steps' dt as a 0-d tensor on ``S``'s device. A
     CUDA tensor goes to ``kernel(S, T1, T2, num_iters, mx, t_sum)``
-    (``mx`` two words of scratch), counted in
+    (``mx`` three words of scratch), counted in
     ``whole_run_adaptive.launches``; a CPU tensor to
     :func:`plain_run_adaptive` with ``stage`` and ``dt_fn``."""
     _check(S, T1, T2)
     if S.device.type == "cpu":
         return plain_run_adaptive(stage, dt_fn, S, T1, T2, num_iters)
-    mx = torch.empty(2, dtype=torch.float32, device=S.device)
+    mx = torch.empty(3, dtype=torch.float32, device=S.device)
     t_sum = torch.empty((), dtype=torch.float32, device=S.device)
     launch(kernel, S, T1, T2, int(num_iters), mx, t_sum)
     build.count_launch(whole_run_adaptive)

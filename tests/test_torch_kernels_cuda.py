@@ -318,15 +318,27 @@ K7_CASES = {
 }
 
 
+# (shape, tiles) of K7 Burgers: the planned tiles, one tile, a grid of
+# tiles, one column of tiles, one row, and more tiles than resident blocks
+# (every job reloads its window each step); each side 9 cells or more
+K7B_TILINGS = [((23, 37), None), ((23, 37), (1, 1)), ((23, 37), (2, 4)),
+               ((23, 37), (2, 1)), ((5, 70), None), ((5, 70), (1, 7)),
+               ((200, 200), (20, 20))]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 3, 5])
+@pytest.mark.parametrize("shape,tiles", K7B_TILINGS,
+                         ids=[f"{s[0]}x{s[1]}-{t}" for s, t in K7B_TILINGS])
 @pytest.mark.parametrize("adaptive", [False, True], ids=["K7", "K7a"])
 @pytest.mark.parametrize("case", list(K7_CASES))
-def test_k7_burgers_matches_twin(gpu, case, adaptive):
-    """5 steps on an odd shape: 0 ulp expected, 32 eps of max|twin|
-    asserted; the adaptive time advance exactly."""
+def test_k7_burgers_matches_twin(gpu, case, adaptive, shape, tiles, steps):
+    """To the bit, odd step counts too (the result comes back from the
+    second buffer), on every tiling; the adaptive time advance exactly;
+    the plan's blocks are the launch's."""
     name, kw, variant, nu = K7_CASES[case]
-    shape, spacing, cfl = (23, 37), (0.05, 0.07), 0.4
-    rng = np.random.default_rng(7)
+    spacing, cfl = (0.05, 0.07), 0.4
+    rng = np.random.default_rng(steps)
     S = torch.from_numpy(
         rng.uniform(-0.2, 1.0, shape).astype(np.float32)).to(gpu)
     params = fb.stage_params(pflux.get(name, **kw), variant, spacing, nu)
@@ -338,18 +350,24 @@ def test_k7_burgers_matches_twin(gpu, case, adaptive):
     got = S.clone()
     counter = wr.whole_run_adaptive if adaptive else wr.whole_run
     before = counter.launches
-    res = fb2.whole_run_burgers2d(got, T[0], T[1], 5, params=params, **mode)
+    plan = {}
+    res = fb2.whole_run_burgers2d(got, T[0], T[1], steps, params=params,
+                                  tiles=tiles, schedule=plan, **mode)
     if adaptive:
         flux = params.flux
         want, want_t = wr.plain_run_adaptive(
             stage, lambda u: pcfl.advective_dt(u, flux.df, spacing, cfl),
-            S.clone(), T[2], T[3], 5)
+            S.clone(), T[2], T[3], steps)
         assert float(res[1]) == float(want_t)
     else:
-        want = wr.plain_run(stage, S.clone(), T[2], T[3], 5, mode["dt"])
+        want = wr.plain_run(stage, S.clone(), T[2], T[3], steps, mode["dt"])
     torch.cuda.synchronize()
     assert counter.launches == before + 1
-    assert _rel(got, want) <= TOL
+    assert torch.equal(got, want)
+    if tiles is not None:
+        assert plan["tiles"] == tiles
+    assert plan["resident"] == (plan["jobs"] <= plan["grid_blocks"])
+    assert plan["blocks"] == plan["grid_blocks"]  # the planner's count
 
 
 @pytest.mark.cuda
