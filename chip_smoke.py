@@ -254,9 +254,39 @@ ignored ``build/`` directory), then:
    1.05]; ms/step over ``run(20)``;
 41. the CLI: ``diffusion3d --mesh dz=2 --device cuda:0 --impl
    pallas_slab --exchange dma`` at the reference's size, its summary
-   naming the in-kernel exchange and one K4 launch.
+   naming the in-kernel exchange and one K4 launch;
+42. holds K5's WENO7-JS instance (reach 4) against its twin for every
+   stage kind at 512^3 (nu = 1e-5) and at the odd shape (the Burgers,
+   linear and Buckley-Leverett fluxes), ``<= 32 eps`` of max|twin| (the
+   ulp count printed), the emitted maximum exactly; prints its tiling
+   (checked against ``fused_burgers.tile_geometry(7)``) and times it
+   alone at 512^3 beside the twin, its bound and its issued operations;
+43. drives the JAX package's ``burgers3d_512_weno7`` row (512^3,
+   lengths 2, nu = 1e-5, ``impl="pallas"``) at fixed and at adaptive
+   dt, ``run(40)`` each: the engaged stepper (K5), 120 K5 launches, at
+   most one device-to-host copy in the profiled adaptive run, u inside
+   [-1e-6, 1.05] and agreement with the generic WENO7 path at 10 steps
+   (``rtol=2e-5, atol=2e-6 max|u|``); ms/step, MLUPS and K5's time in
+   the run;
+44. holds K7 and K7a at order 7 against their twin to the bit (``t_sum``
+   equal): 1, 2, 3, 5 and 200 steps at the physical 400x408 grid of the
+   ``burgers2d_weno7`` row (planned tiles), at 1478^2 reloaded and at
+   the odd 2-D shape for each flux, in the planned tiles and in one
+   tile; prints the plan;
+   times both alone with the floor; drives both ``burgers2d_weno7``
+   paths (``run(200)``, one launch each, agreement with the generic
+   path at 100 steps); and times K7 at order 7 against the generic path
+   at 1001^2 and 1478^2, where the JAX package's VMEM gate runs the
+   generic path;
+45. holds K6's WENO7-JS instance (24x24 tiles) against its twin to the
+   bit at 400x400x406 and at the odd shape; times it alone with its plan
+   line; drives a pinned ``impl="pallas_slab"`` run at 400x400x406
+   (lengths 2 2 4, inviscid, CFL 0.3, fixed dt, ``run(40)``): one
+   launch, u inside [-1e-6, 1.05], agreement with the generic path at
+   10 steps.
 
-It prints a ``{"kernels": [...]}`` line and, last,
+It prints the seconds the whole run took, a ``{"kernels": [...]}`` line
+and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises; without a
 GPU it exits non-zero before printing any result.
 """
@@ -630,12 +660,14 @@ def assert_matches(name, got, want, rtol=1e-5, atol=1e-6) -> None:
 # --------------------------------------------------------------------- #
 # K5 and the Burgers main path
 # --------------------------------------------------------------------- #
-def k5_stage_ops(shape, has_u: bool, viscous: bool, variant: str) -> int:
+def k5_stage_ops(shape, has_u: bool, viscous: bool, variant: str,
+                 order: int = 5) -> int:
     """f32 operations one K5 stage needs with the Burgers flux and each
     face computed once — the count in ``csrc/fused_burgers_stage.cu``'s
-    note: split 6, 103 an axis (WENO5-Z 113), the divergences' sum and
-    negation 3, the Laplacian 30, the combine 5 (stage 1: 3)."""
-    per_axis = 103 + (10 if variant == "z" else 0)
+    note: split 6, 103 an axis (WENO5-Z 113; WENO7-JS 219), the
+    divergences' sum and negation 3, the Laplacian 30, the combine 5
+    (stage 1: 3)."""
+    per_axis = 219 if order == 7 else 103 + (10 if variant == "z" else 0)
     per_cell = (6 + 3 * per_axis + 3 + (30 if viscous else 0)
                 + (5 if has_u else 3))
     return math.prod(shape) * per_cell
@@ -665,13 +697,16 @@ def k5_isolated_ms(buffers, zchunk: int, dt, mx, **kw) -> float:
     return statistics.median(cuda_ms(launch, 3, 21))
 
 
-def check_k5(shape, params, dt, seed: int, timed: bool) -> dict:
+def check_k5(shape, params, dt, seed: int, timed: bool,
+             zchunks=K5_ZCHUNKS) -> dict:
     """Every stage kind once against the twin on random data in
     [-0.1, 1.0) (the last stage in place and emitting max|f'|); when
-    ``timed``, also K5 alone at each z-chunk of ``K5_ZCHUNKS``, the twin
-    (median of 3) and the bound."""
+    ``timed``, also K5 alone at each z-chunk of ``zchunks`` (which holds
+    ``fb.Z_CHUNK``), the twin (median of 3) and the bound. The WENO
+    order is ``params.order``."""
     res = {"max_abs_err": 0.0, "ulps": 0, "ms": [], "plain_ms": [],
-           "bound_ms": [], "sweep": {z: [] for z in K5_ZCHUNKS}}
+           "bound_ms": [], "sweep": {z: [] for z in zchunks}}
+    w7 = " WENO7" if params.order == 7 else ""
     g = torch.Generator(device="cuda").manual_seed(seed)
     v = torch.rand(shape, generator=g, device="cuda") * 1.1 - 0.1
     u = torch.rand(shape, generator=g, device="cuda") * 1.1 - 0.1
@@ -691,7 +726,7 @@ def check_k5(shape, params, dt, seed: int, timed: bool) -> dict:
         err = float((out - want).abs().max())
         rel = err / float(want.abs().max())
         n_ulps = ulps(out, want)
-        line = (f"  K5 stage {kind + 1} at {shape} ({params.flux.name}, "
+        line = (f"  K5{w7} stage {kind + 1} at {shape} ({params.flux.name}, "
                 f"{params.variant}, {'viscous' if viscous else 'inviscid'})"
                 f": max|kernel-twin| = {err:.3e} ({rel / EPS32:.2f} eps of "
                 f"max|twin|, {n_ulps} ulp)")
@@ -713,7 +748,7 @@ def check_k5(shape, params, dt, seed: int, timed: bool) -> dict:
                 uu = u.clone()
                 buffers.append((v.clone(), uu if has_u else None,
                                 uu if emit else torch.empty_like(v)))
-            for z in K5_ZCHUNKS:
+            for z in zchunks:
                 res["sweep"][z].append(k5_isolated_ms(buffers, z, dt, mx,
                                                       **kw))
             del buffers
@@ -725,12 +760,12 @@ def check_k5(shape, params, dt, seed: int, timed: bool) -> dict:
                                            **kw), 3)))
             del scratch
             by_bytes = stage_bytes(shape, has_u) / HBM_BYTES_PER_S
-            by_ops = k5_stage_ops(shape, has_u, viscous,
-                                  params.variant) / F32_OPS_PER_S
+            by_ops = k5_stage_ops(shape, has_u, viscous, params.variant,
+                                  params.order) / F32_OPS_PER_S
             res["bound_ms"].append(1e3 * max(by_bytes, by_ops))
             res["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
             sweep = ", ".join(f"{z}: {res['sweep'][z][-1]:.4f}"
-                              for z in K5_ZCHUNKS)
+                              for z in zchunks)
             print(f"    kernel alone {res['ms'][-1]:.4f} ms at zchunk "
                   f"{fb.Z_CHUNK}; by zchunk {{{sweep}}} ms; twin "
                   f"{res['plain_ms'][-1]:.4f} ms; bound "
@@ -738,7 +773,8 @@ def check_k5(shape, params, dt, seed: int, timed: bool) -> dict:
                   f"{1e3 * by_ops:.4f} ms of operations, "
                   f"{1e3 * by_bytes:.4f} ms of bytes)")
             issued = fb.ops_issued(shape, fb.Z_CHUNK, has_u=has_u,
-                                   viscous=viscous, variant=params.variant)
+                                   viscous=viscous, variant=params.variant,
+                                   order=params.order)
             rate = issued / (res["ms"][-1] * 1e-3)
             print(f"    issued {issued / math.prod(shape):.2f} f32 "
                   f"operations a cell (fb.ops_issued; the face-once count "
@@ -962,13 +998,13 @@ def k7_diffusion_ops(shape, steps: int) -> int:
 
 
 def k7_burgers_ops(shape, steps: int, viscous: bool, variant: str,
-                   adaptive: bool) -> int:
+                   adaptive: bool, order: int = 5) -> int:
     """f32 operations a K7 Burgers run needs with each face computed
     once, the count in ``csrc/whole_run_burgers2d.cu``'s note: split 6,
-    103 an axis (WENO5-Z 113), the divergences' sum and negation 2, the
-    Laplacian 20, the combine 5 (stage 1: 3); adaptive adds |f'| and its
-    max, 2 a cell."""
-    per_axis = 103 + (10 if variant == "z" else 0)
+    103 an axis (WENO5-Z 113; WENO7-JS 219), the divergences' sum and
+    negation 2, the Laplacian 20, the combine 5 (stage 1: 3); adaptive
+    adds |f'| and its max, 2 a cell."""
+    per_axis = 219 if order == 7 else 103 + (10 if variant == "z" else 0)
     stage = 6 + 2 * per_axis + 2 + (20 if viscous else 0)
     per_cell = 3 * stage + 3 + 5 + 5 + (2 if adaptive else 0)
     return math.prod(shape) * per_cell * steps
@@ -1751,16 +1787,16 @@ def step_phases(card: str) -> list[dict]:
     }]
 
 
-def k6_step_ops(shape, viscous: bool, variant: str) -> int:
+def k6_step_ops(shape, viscous: bool, variant: str, order: int = 5) -> int:
     """f32 operations one fused Burgers step needs, each face once: K5's
     count (``k5_stage_ops``) for its three stages."""
-    return (k5_stage_ops(shape, False, viscous, variant)
-            + 2 * k5_stage_ops(shape, True, viscous, variant))
+    return (k5_stage_ops(shape, False, viscous, variant, order)
+            + 2 * k5_stage_ops(shape, True, viscous, variant, order))
 
 
 def schedule_report(name, ms_step: float, window: int, shape, units: int,
                     blocks: int, ops: float, card: str,
-                    grid: str = "") -> None:
+                    grid: str = "", order: int = 5) -> None:
     """Print a slab Burgers kernel's schedule and rate: ``blocks``
     resident blocks (``grid`` says what the launch was, where it is not
     those blocks), one step's jobs and waves (jobs a resident block) on
@@ -1769,7 +1805,7 @@ def schedule_report(name, ms_step: float, window: int, shape, units: int,
     ``ops`` (the operations of a step, each face once) over ``ms_step``
     against 67 and 33.5 T/s. Reported, not held."""
     plan = fsr.burgers_schedule(window, shape[1], shape[2], blocks,
-                                units=units)
+                                units=units, order=order)
     rate = ops / (ms_step * 1e-3)
     print(f"  {name}: {blocks} resident blocks{grid}; a step {plan['jobs']} "
           f"jobs of {plan['chunk_planes']} planes ({plan['tiles']} tiles x "
@@ -4263,10 +4299,480 @@ def k4_phases(card: str) -> list[dict]:
     }]
 
 
+# --------------------------------------------------------------------- #
+# WENO7-JS on the fused rungs: K5, K7/K7a and K6 at order 7 (phases 42-45)
+# --------------------------------------------------------------------- #
+# bench/matrix.py's burgers3d_512_weno7 (512^3, nu 1e-5, fixed dt, 40
+# steps) and burgers2d_weno7 (physical 400x408, fixed dt, 200 steps)
+W7_N = 512
+W7_ITERS = 40
+W7_CHECK_ITERS = 10  # steps held against the generic WENO7 path
+W7_PROF_ITERS = 10  # steps of the profiled run (30 K5 launches)
+W7_2D_N = (400, 408)
+W7_2D_ITERS = 200
+W7_2D_CHECK_ITERS = 100  # before the shock, as for WENO5 (phase 10)
+W7_GATE_N = (1001, 1478)  # the L2 gate's grids the JAX VMEM gate refuses
+W7_GATE_ITERS = 20
+W7_K6_ITERS = 40  # K6 at order 7 on MultiGPU/Burgers3d_Baseline's grid
+W7_ODD_CASES = (  # (flux, flux kwargs, nu) at the odd shapes
+    ("burgers", {}, 1e-5),
+    ("linear", {"c": -0.7}, 1e-5),
+    ("buckley", {}, 0.0),
+)
+
+
+def in_range(name, u) -> None:
+    lo, hi = float(u.min()), float(u.max())
+    print(f"  {name}: u in [{lo!r}, {hi!r}]")
+    if not (math.isfinite(lo) and math.isfinite(hi)
+            and lo >= -1e-6 and hi <= 1.05):
+        raise AssertionError(f"{name}: u left [-1e-6, 1.05]: [{lo}, {hi}]")
+
+
+def k5_weno7_phases(card: str) -> dict:
+    """Phases 42-43: K5's order-7 instance against its twin, alone, and
+    the ``burgers3d_512_weno7`` path; returns its ``kernels`` entry."""
+    n = W7_N
+    grid = Grid.make(n, n, n, lengths=2.0)
+    cfg = BurgersConfig(grid=grid, nu=BURGERS_NU, weno_order=7,
+                        adaptive_dt=False, dtype="float32", impl="pallas")
+    solver = BurgersSolver(cfg)
+    params = fb.stage_params(solver.flux, "js", grid.spacing, cfg.nu,
+                             order=7)
+    dt = solver.dt
+
+    print("phase 42: K5 at order 7 against its twin")
+    geo, want = fb.geometry(7), fb.tile_geometry(7)
+    print(f"  K5 WENO7 tiling: {geo['tile_y']}x{geo['tile_x']} tile, "
+          f"{geo['threads']} threads, {geo['smem_bytes']} B static shared "
+          f"memory, {geo['blocks_per_sm']} blocks an SM, "
+          f"{geo['registers']} registers and {geo['local_bytes']} B local "
+          f"memory a thread")
+    if ((geo["tile_y"], geo["tile_x"]) != fb.TILE
+            or geo["threads"] != want["threads"]
+            or geo["smem_bytes"] != want["smem_bytes"]):
+        raise AssertionError(f"K5 WENO7's tiling {geo} is not the host's "
+                             f"{want}")
+    main = check_k5(grid.shape, params, dt, seed=70, timed=True,
+                    zchunks=(fb.Z_CHUNK,))
+    err, n_ulps = main["max_abs_err"], main["ulps"]
+    for i, (name, kw, nu) in enumerate(W7_ODD_CASES):
+        odd = check_k5(ODD_SHAPE, fb.stage_params(
+            pflux.get(name, **kw), "js", (0.05, 0.07, 0.09), nu, order=7),
+            dt, seed=71 + i, timed=False)
+        err, n_ulps = max(err, odd["max_abs_err"]), max(n_ulps, odd["ulps"])
+    torch.cuda.empty_cache()
+
+    print(f"phase 43: burgers3d_512_weno7, run({W7_ITERS}) at {n}^3, fixed "
+          "and adaptive dt")
+    state0 = solver.initial_state()
+    adaptive = BurgersSolver(dataclasses.replace(cfg, adaptive_dt=True))
+    entry = {}
+    for label, s in (("fixed", solver), ("adaptive", adaptive)):
+        path = s.engaged_path()
+        print(f"  engaged ({label}): {path}")
+        if path["stepper"] != "fused-stage" or path["fallback"]:
+            raise AssertionError(f"WENO7 {label} did not engage K5: {path}")
+        out = drive(f"burgers3d_512_weno7 {label}", s, state0, W7_ITERS,
+                    {"K5": 3 * W7_ITERS})
+        print(f"  t = {float(out.t)!r}")
+        in_range(f"{label} run({W7_ITERS})", out.u)
+        del out
+        ms, reps = run_ms(s, state0, W7_ITERS)
+        mlups = grid.num_cells * W7_ITERS * 3 / (ms * 1e-3) / 1e6
+        reads = count_reads(lambda: s.run(state0, W7_ITERS))
+        # the profiler drops device events now and then (PERF.md §7): a
+        # shorter run, three captures, else the in-run time not measured
+        n_prof = 3 * W7_PROF_ITERS
+        prof = retake(
+            lambda: burgers_profile(lambda: s.run(state0, W7_PROF_ITERS)),
+            lambda p: p["k5_launches"] == n_prof, tries=3)
+        line = (f"  {label} run({W7_ITERS}): median {ms:.3f} ms of "
+                f"{[round(r, 3) for r in reps]}; {ms / W7_ITERS:.4f} "
+                f"ms/step; {mlups:.0f} MLUPS; host reads of device scalars "
+                f"{reads}")
+        if prof["k5_launches"] == n_prof:
+            idle = 1.0 - prof["busy_ms"] / prof["span_ms"]
+            in_run, dtoh = statistics.mean(prof["k5_ms"]), prof["dtoh"]
+            print(f"{line}; profiled run({W7_PROF_ITERS}): K5 per launch "
+                  f"{[round(x, 4) for x in prof['k5_ms']]} ms (mean "
+                  f"{in_run:.4f}), {3 * in_run / (ms / W7_ITERS):.3f} of "
+                  f"the step; idle share {idle:.4f}; device-to-host copies "
+                  f"{dtoh} [{card}]")
+        else:
+            idle = dtoh = None
+            in_run = statistics.mean(main["ms"])
+            print(f"{line}; the profiler saw {prof['k5_launches']} of "
+                  f"{n_prof} K5 launches in three captures: K5's time is "
+                  f"its time alone, the idle share and device-to-host "
+                  f"copies are not measured [{card}]")
+        if label == "adaptive" and (reads > 1 or (dtoh or 0) > 1):
+            raise AssertionError("the adaptive run copied to the host more "
+                                 "than once")
+        generic = BurgersSolver(dataclasses.replace(s.cfg, impl="xla"))
+        if generic.engaged_path()["stepper"] != "generic-xla":
+            raise AssertionError("impl='xla' did not run the generic path")
+        f10 = s.run(state0, W7_CHECK_ITERS)
+        g10 = generic.run(state0, W7_CHECK_ITERS)
+        if abs(float(f10.t) - float(g10.t)) > 1e-5 * float(g10.t):
+            raise AssertionError(f"t differs: {f10.t} vs {g10.t}")
+        assert_matches(f"{label} run({W7_CHECK_ITERS}) against the generic "
+                       "WENO7 path", f10.u, g10.u, rtol=2e-5, atol=2e-6)
+        del f10, g10, generic
+        torch.cuda.empty_cache()
+        entry[label] = {"ms": in_run, "ms_by_stage": prof.get("k5_ms"),
+                        "ms_per_step": ms / W7_ITERS, "mlups": mlups,
+                        "device_idle_share": idle, "dtoh_copies": dtoh,
+                        "host_reads": reads}
+    del state0
+    torch.cuda.empty_cache()
+    fixed = entry["fixed"]
+    return {
+        "name": "fused_burgers_stage_weno7", "id": "K5-w7", "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_burgers_stage.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_burgers.py:352",
+        "launches": 3 * W7_ITERS,
+        "max_abs_err": err, "max_ulps": n_ulps,
+        # per launch, mean over the stage kinds, in the fixed-dt path
+        "ms": fixed["ms"], "ms_by_stage": fixed["ms_by_stage"],
+        "ms_isolated": statistics.mean(main["ms"]),
+        "plain_ms": statistics.mean(main["plain_ms"]),
+        "bound_ms": statistics.mean(main["bound_ms"]),
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes a WENO7 "
+                        "stage",
+        "ms_per_step": fixed["ms_per_step"], "mlups": fixed["mlups"],
+        "device_idle_share": fixed["device_idle_share"],
+        "adaptive_path": entry["adaptive"],
+    }
+
+
+def k7_weno7_phases(card: str) -> list[dict]:
+    """Phase 44: K7/K7a at order 7 against their twin, alone, the
+    ``burgers2d_weno7`` paths and K7 against the generic path on the
+    grids where the two packages' gates differ; returns K7's and K7a's
+    entries."""
+    iters = W7_2D_ITERS
+    grid = Grid.make(*W7_2D_N, lengths=2.0)
+    cfg = BurgersConfig(grid=grid, weno_order=7, adaptive_dt=False,
+                        dtype="float32", impl="pallas")
+    fixed = BurgersSolver(cfg)
+    adaptive = BurgersSolver(dataclasses.replace(cfg, adaptive_dt=True))
+    spacing, cfl = grid.spacing, cfg.cfl
+    dt = cfl * min(spacing)
+    params = fb.stage_params(fixed.flux, "js", spacing, 0.0, order=7)
+    state0 = fixed.initial_state()
+
+    def check(S0, p, sp, steps, adapt, tiles=None):
+        T = [torch.empty_like(S0) for _ in range(4)]
+        stage = (lambda v, u, o, d, a, b: fb2.stage_reference(
+            v, u, o, d, params=p, a=a, b=b))
+        got, plan = S0.clone(), {}
+        if adapt:
+            _, t_sum = fb2.whole_run_burgers2d(
+                got, T[0], T[1], steps, params=p, spacing=sp, cfl=cfl,
+                tiles=tiles, schedule=plan)
+            df = p.flux.df
+            want, want_t = wr.plain_run_adaptive(
+                stage, lambda u: pcfl.advective_dt(u, df, sp, cfl),
+                S0.clone(), T[2], T[3], steps)
+        else:
+            fb2.whole_run_burgers2d(got, T[0], T[1], steps, params=p,
+                                    dt=cfl * min(sp), tiles=tiles,
+                                    schedule=plan)
+            want = wr.plain_run(stage, S0.clone(), T[2], T[3], steps,
+                                cfl * min(sp))
+        torch.cuda.synchronize()
+        label = (f"K7{'a' if adapt else ''} WENO7 {steps} step(s) at "
+                 f"{tuple(S0.shape)} ({p.flux.name}, "
+                 f"{'viscous' if p.lap_taps else 'inviscid'}), "
+                 f"{plan['tiles']} tiles "
+                 f"({'resident' if plan['resident'] else 'reloaded'})")
+        if adapt:
+            if float(t_sum) != float(want_t):
+                raise AssertionError(f"{label}: t_sum {float(t_sum)!r} vs "
+                                     f"twin {float(want_t)!r}")
+            label += f", t_sum {float(t_sum)!r} equal"
+        if plan["blocks"] != plan["grid_blocks"]:
+            raise AssertionError(f"{label}: plan and launch differ in blocks")
+        return exact(label, got, want), plan
+
+    print("phase 44: K7 and K7a at order 7 against their twin")
+    rng = np.random.default_rng(44)
+
+    def rand(shape):
+        return torch.from_numpy(
+            rng.uniform(-0.1, 1.0, shape).astype(np.float32)).cuda()
+
+    S = rand(grid.shape)
+    err = 0.0
+    for steps, adapt in ((1, False), (2, True), (3, False), (5, False),
+                         (5, True)):
+        err = max(err, check(S, params, spacing, steps, adapt)[0])
+    for adapt in (False, True):  # the main paths' state and step count
+        err = max(err, check(state0.u, params, spacing, iters, adapt)[0])
+    big = rand(L2_MAX_B2D)
+    for steps, adapt in ((1, False), (3, True)):
+        e, big_plan = check(big, params, spacing, steps, adapt)
+        err = max(err, e)
+    if big_plan["resident"]:
+        raise AssertionError(f"{L2_MAX_B2D}: the plan is resident")
+    odd_sp = (0.05, 0.07)
+    for i, (name, kw, nu) in enumerate(W7_ODD_CASES):
+        p = fb.stage_params(pflux.get(name, **kw), "js", odd_sp, nu,
+                            order=7)
+        odd = rand(ODD_2D)  # planned tiles, then one tile
+        err = max(err, check(odd, p, odd_sp, 5, False)[0],
+                  check(odd, p, odd_sp, 5, True)[0],
+                  check(odd, p, odd_sp, 3, i % 2 == 1, (1, 1))[0])
+    del big, S
+    torch.cuda.empty_cache()
+
+    T1, T2 = torch.empty_like(state0.u), torch.empty_like(state0.u)
+    S = state0.u.clone()
+    blocks, plan = [], {}
+    alone = median_ms(lambda: fb2.whole_run_burgers2d(
+        S, T1, T2, iters, params=params, dt=dt, grid_blocks=blocks,
+        schedule=plan))
+    alone_a = median_ms(lambda: fb2.whole_run_burgers2d(
+        S, T1, T2, iters, params=params, spacing=spacing, cfl=cfl))
+    floor = median_ms(lambda: fb2.whole_run_burgers2d(
+        S, T1, T2, iters, params=params, dt=dt, sync_floor=True))
+    stage = (lambda v, u, o, d, a, b: fb2.stage_reference(
+        v, u, o, d, params=params, a=a, b=b))
+    want = state0.u.clone()
+    plain = cuda_ms(lambda: wr.plain_run(stage, want, T1, T2, iters, dt),
+                    1)[0]
+    want = state0.u.clone()
+    plain_a = cuda_ms(lambda: wr.plain_run_adaptive(
+        stage, lambda u: pcfl.advective_dt(u, fixed.flux.df, spacing, cfl),
+        want, T1, T2, iters), 1)[0]
+    del want, S
+    cells = math.prod(grid.shape)
+    bound = run_bound(4 * cells, k7_burgers_ops(grid.shape, iters, False,
+                                                "js", False, order=7))
+    bound_a = run_bound(4 * cells, k7_burgers_ops(grid.shape, iters, False,
+                                                  "js", True, order=7))
+    card7 = fb2.card_limits("cuda", params, False)
+    card5 = fb2.card_limits("cuda", fb.stage_params(
+        fixed.flux, "js", spacing, 0.0), False)
+    issued = fb2.ops_issued(*grid.shape, fb2.burgers2d_schedule(
+        *grid.shape, **card7, order=7), viscous=False, variant="js",
+        adaptive=False, order=7)
+    once = k7_burgers_ops(grid.shape, 1, False, "js", False, order=7)
+    plan = {k: plan[k] for k in ("tiles", "tile", "window", "jobs", "blocks",
+                                 "resident", "rounds", "smem_bytes")}
+    print(f"  K7 WENO7 plan at {grid.shape}: {plan}; grid {blocks[0]} blocks "
+          f"of {fb2.THREADS} threads; the order-7 instance's card numbers "
+          f"{card7}, the order-5 one's {card5}")
+    print(f"  issued f32 operations a step (inviscid): {issued:,} = "
+          f"{issued / (3 * cells):.1f} an output cell a stage, against the "
+          f"face-once count's {once / (3 * cells):.1f}: {issued / once:.3f}x")
+    print(f"  alone, run({iters}) at {grid.shape}: K7 {alone:.3f} ms "
+          f"({alone / iters * 1e3:.3f} us/step), K7a {alone_a:.3f} ms "
+          f"({alone_a / iters * 1e3:.3f} us/step); floor {floor:.3f} ms; "
+          f"bounds {bound[0]:.4f} / {bound_a[0]:.4f} ms ({bound[1]}); twins "
+          f"{plain:.1f} / {plain_a:.1f} ms [{card}]")
+
+    entry = {}
+    for label, solver, key, alone_ms in (("fixed", fixed, "K7", alone),
+                                         ("adaptive", adaptive, "K7a",
+                                          alone_a)):
+        print(f"phase 44: burgers2d_weno7, {label} dt, run({iters}) at "
+              f"{grid.shape}")
+        res = drive_path(f"burgers2d_weno7 {label}", solver, state0, iters,
+                         key)
+        generic = BurgersSolver(dataclasses.replace(solver.cfg, impl="xla"))
+        gout = generic.run(state0, iters)
+        in_range(f"{label} run({iters})", res["out"].u)
+        print(f"  past the shock, at run({iters}): t {float(res['out'].t)!r}"
+              f" (generic {float(gout.t)!r}), max|fused - generic| "
+              f"{float((res['out'].u - gout.u).abs().max()):.3e} (not a "
+              "check)")
+        check_n = W7_2D_CHECK_ITERS
+        f, g = solver.run(state0, check_n), generic.run(state0, check_n)
+        if abs(float(f.t) - float(g.t)) > 1e-5 * float(g.t):
+            raise AssertionError(f"t differs: {f.t} vs {g.t}")
+        assert_matches(f"{label} run({check_n}) against the generic WENO7 "
+                       "path", f.u, g.u, rtol=2e-5, atol=2e-6)
+        del res, gout, f, g
+        timing = time_path(f"burgers2d_weno7 {label}", solver, state0, iters,
+                           "whole_run_kernel", card, alone_ms)
+        if (timing["dtoh_copies"] or 0) > 1 or timing["host_reads"] > 1:
+            raise AssertionError("the run copied to the host more than once")
+        entry[key] = {"launches": 1, **timing}
+
+    print("phase 44: K7 at order 7 against the generic path where the JAX "
+          "VMEM gate declines")
+    gate = {}
+    for n in W7_GATE_N:
+        g = Grid.make(n, n, lengths=2.0)
+        fused = BurgersSolver(BurgersConfig(grid=g, weno_order=7,
+                                            adaptive_dt=False,
+                                            dtype="float32", impl="pallas"))
+        generic = BurgersSolver(dataclasses.replace(fused.cfg, impl="xla"))
+        s0 = fused.initial_state()
+        label = fused.engaged_path()["stepper"]
+        f_ms, f_reps = run_ms(fused, s0, W7_GATE_ITERS)
+        g_ms, g_reps = run_ms(generic, s0, W7_GATE_ITERS)
+        assert_matches(f"{n}^2 run({W7_GATE_ITERS})",
+                       fused.run(s0, W7_GATE_ITERS).u,
+                       generic.run(s0, W7_GATE_ITERS).u, rtol=2e-5,
+                       atol=2e-6)
+        gate[str(n)] = {"stepper": label, "ms_per_step": f_ms / W7_GATE_ITERS,
+                        "generic_ms_per_step": g_ms / W7_GATE_ITERS}
+        print(f"  {n}^2 fixed dt run({W7_GATE_ITERS}): {label} "
+              f"{f_ms / W7_GATE_ITERS:.4f} ms/step "
+              f"({[round(r, 3) for r in f_reps]} ms a run), generic-xla "
+              f"{g_ms / W7_GATE_ITERS:.4f} ms/step "
+              f"({[round(r, 3) for r in g_reps]}): the fused rung "
+              f"{g_ms / f_ms:.2f}x faster [{card}]")
+        del s0, fused, generic
+        torch.cuda.empty_cache()
+
+    common = {
+        "name": "whole_run_burgers2d_weno7", "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "whole_run_burgers2d.cu",
+        "max_abs_err": err, "max_ulps": 0, "grid_blocks": blocks[0],
+        "plan": plan, "ops_issued_per_cell": issued / (3 * cells),
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes a WENO7 "
+                        "stage",
+    }
+    return [{
+        **common, "id": "K7-w7",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "whole_run.py:28",
+        **entry["K7"], "ms_isolated": alone, "sync_floor_ms": floor,
+        "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+        "gate": gate,
+    }, {
+        **common, "id": "K7a-w7",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "whole_run.py:75",
+        **entry["K7a"], "ms_isolated": alone_a, "plain_ms": plain_a,
+        "bound_ms": bound_a[0], "bound_by": bound_a[1],
+    }]
+
+
+def k6_weno7_phase(card: str) -> dict:
+    """Phase 45: K6 at order 7 against its twin, alone, and a pinned
+    ``pallas_slab`` run on ``MultiGPU/Burgers3d_Baseline``'s grid;
+    returns its entry."""
+    grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    cfg = BurgersConfig(grid=grid, cfl=K6_CFL, adaptive_dt=False,
+                        weno_order=7, dtype="float32", impl="pallas_slab")
+    solver = BurgersSolver(cfg)
+    params = fb.stage_params(solver.flux, "js", grid.spacing, 0.0, order=7)
+    dt = solver.dt
+    cells = grid.num_cells
+
+    print("phase 45: K6 at order 7 against its twin")
+    rng = np.random.default_rng(45)
+    err = 0.0
+    odd_sp = (0.05, 0.07, 0.09)
+    cases = [(grid.shape, params, dt, (1,))]
+    for name, kw, nu in W7_ODD_CASES:
+        cases.append((ODD_SHAPE, fb.stage_params(
+            pflux.get(name, **kw), "js", odd_sp, nu, order=7),
+            K6_CFL * min(odd_sp), (1, 3)))
+    for shape, p, dt_, step_counts in cases:
+        S0 = torch.from_numpy(
+            rng.uniform(-0.1, 1.0, shape).astype(np.float32)).cuda()
+        for steps in step_counts:
+            want = twin_steps(lambda s, d: fsr.burgers_step_reference(
+                s, d, dt_, params=p), S0, steps)
+            got = fsr.slab_run_burgers(S0.clone(), torch.empty_like(S0),
+                                       steps, dt_, params=p)
+            torch.cuda.synchronize()
+            err = max(err, exact(
+                f"K6 WENO7 {steps} step(s) at {shape} ({p.flux.name}, "
+                f"{'viscous' if p.lap_taps else 'inviscid'})", got, want))
+            del want, got
+        del S0
+    torch.cuda.empty_cache()
+
+    state0 = solver.initial_state()
+    A, B = state0.u.clone(), torch.empty_like(state0.u)
+    blocks = []
+    fsr.slab_run_burgers(A, B, 1, dt, params=params, grid_blocks=blocks)
+    alone = median_ms(lambda: fsr.slab_run_burgers(
+        A, B, 5, dt, params=params)) / 5
+    plain_step = cuda_ms(lambda: fsr.burgers_step_reference(
+        A, B, dt, params=params), 1)[0]
+    del A, B
+    torch.cuda.empty_cache()
+    ops = k6_step_ops(grid.shape, False, "js", order=7)
+    bound = 1e3 * max(8 * cells / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    planned = fsr.burgers_schedule(*grid.shape, blocks[0],
+                                   order=7)["chunk_planes"]
+    print(f"  K6 WENO7 alone at {grid.shape}, run(5): {alone:.4f} ms a step "
+          f"(planned chunk {planned} planes); twin {plain_step:.1f} ms a "
+          f"step; bound {bound:.4f} ms a step (operations: {ops / 1e9:.2f} "
+          f"G, each face once) [{card}]")
+    schedule_report("K6 WENO7 alone", alone, grid.shape[0], grid.shape, 1,
+                    blocks[0], ops, card, order=7)
+
+    print(f"phase 45: the pinned WENO7 slab path, fixed dt, run({W7_K6_ITERS})"
+          f" at {grid.shape}")
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "fused-whole-run-slab" or path["fallback"]:
+        raise AssertionError(f"pallas_slab did not engage K6: {path}")
+    out = drive("pallas_slab weno7", solver, state0, W7_K6_ITERS, {"K6": 1})
+    print(f"  t = {float(out.t)!r}")
+    in_range(f"run({W7_K6_ITERS})", out.u)
+    del out
+    generic = BurgersSolver(dataclasses.replace(cfg, impl="xla"))
+    f10 = solver.run(state0, K6_CHECK_ITERS)
+    g10 = generic.run(state0, K6_CHECK_ITERS)
+    if f10.t != g10.t:
+        raise AssertionError(f"t differs: {f10.t} vs {g10.t}")
+    assert_matches(f"run({K6_CHECK_ITERS}) against the generic WENO7 path",
+                   f10.u, g10.u, rtol=2e-5, atol=2e-6)
+    del f10, g10, generic
+    torch.cuda.empty_cache()
+    ms, reps = run_ms(solver, state0, W7_K6_ITERS)
+    mlups = cells * W7_K6_ITERS * 3 / (ms * 1e-3) / 1e6
+    print(f"  pallas_slab WENO7 run({W7_K6_ITERS}): median {ms:.3f} ms of "
+          f"{[round(r, 3) for r in reps]}; {ms / W7_K6_ITERS:.4f} ms/step; "
+          f"{mlups:.0f} MLUPS; bound {bound:.4f} ms/step [{card}]")
+    return {
+        "name": "slab_run_burgers_weno7", "id": "K6-w7", "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "slab_run_burgers.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_slab_run.py:1540",
+        "launches": 1, "max_abs_err": err, "max_ulps": 0,
+        "per": "step", "ms": ms / W7_K6_ITERS, "run_ms": ms,
+        "ms_isolated": alone, "zchunk": planned,
+        "plain_ms": plain_step, "bound_ms": bound, "bound_by": "operations",
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes an RK step",
+        "ms_per_step": ms / W7_K6_ITERS, "mlups": mlups,
+    }
+
+
+def weno7_phases(card: str) -> list[dict]:
+    """Phases 42-45; returns the four order-7 entries."""
+    k5 = k5_weno7_phases(card)
+    torch.cuda.empty_cache()
+    k7, k7a = k7_weno7_phases(card)
+    torch.cuda.empty_cache()
+    k6 = k6_weno7_phase(card)
+    torch.cuda.empty_cache()
+    return [k5, k7, k7a, k6]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card}")
@@ -4433,6 +4939,12 @@ def main() -> int:
     t_k4 = time.perf_counter()
     k4 = k4_phases(card)
     print(f"phases 38-41: {time.perf_counter() - t_k4:.1f} s")
+    torch.cuda.empty_cache()
+    print("phases 42-45: WENO7-JS on the fused rungs (K5, K7, K7a and K6 at "
+          "order 7)")
+    t_w7 = time.perf_counter()
+    w7 = weno7_phases(card)
+    print(f"phases 42-45: {time.perf_counter() - t_w7:.1f} s")
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -4478,7 +4990,9 @@ def main() -> int:
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
     }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b,
-        *k3, *mesh2d, *k4]
+        *k3, *mesh2d, *k4, *w7]
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"{len(sources)} kernels' build included")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

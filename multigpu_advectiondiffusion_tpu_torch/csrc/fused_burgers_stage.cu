@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_burgers.py::_stage_kernel (:352, built by _make_stage :688) for
-// WENO5-JS/Z on one device. It computes the same function, not the same
-// blocks:
+// WENO5-JS/Z on one device and on z-slab shards, and for WENO7-JS on one
+// device (below). It computes the same function, not the same blocks:
 //
 //   rk  = b*(v + dt*rhs)            (stage 1, no u operand)
 //   rk  = a*u + b*(v + dt*rhs)      (stages 2 and 3)
@@ -130,23 +130,30 @@
 // ops/kernels/fused_burgers.py counts a launch. The IEEE reciprocals
 // (two a face) take a few instructions each beyond the one operation
 // counted.
+//
+// Order 7 (WENO7-JS, reach R = 4, unsharded only): the same body with R a
+// template parameter. The tile plane is (TY + 8) x (TX + 8), the halo 4
+// cells, the z window planes k-4 .. k+4, and each face is the e-form of
+// weno7e.cuh (face7e_run in runs of three, which share only the first
+// differences: the betas of neighbouring faces use other rows of _B7).
+// Static shared memory 24,944 bytes. Counted as above, a WENO7 side is
+// 104 operations (betas 60, +eps 4, products 6, alphas 8, candidates 20,
+// numerator 7, denominator 3), a face 227 alone and 661 in a run of
+// three, an axis 219 a cell with each face once: 701 a cell in stages 2-3
+// (stage 1: 699; inviscid 30 fewer).
 
 #include <cuda_runtime.h>
 
 #include "weno5.cuh"
+#include "weno7e.cuh"
 
 namespace {
 
-constexpr int R = 3;                    // WENO5 reach
 constexpr int TX = 32;                  // tile columns: a warp a row
 constexpr int TY = 14;                  // tile rows
 constexpr int MIN_BLOCKS = 2;           // resident blocks an SM
 constexpr int THREADS = TX * TY;
 constexpr int NWARPS = THREADS / 32;
-constexpr int WT = TX + 2 * R;          // a tile row with its halo
-constexpr int PLANE = (TY + 2 * R) * WT;
-constexpr int HALO = PLANE - THREADS;   // halo cells of a tile plane
-constexpr int HROUNDS = (HALO + THREADS - 1) / THREADS;
 constexpr int RUN = 3;                  // faces a work item computes
 static_assert((TX + 1) % RUN == 0 && (TY + 1) % RUN == 0,
               "face lines split in runs");
@@ -155,15 +162,27 @@ constexpr int NYI = TX * ((TY + 1) / RUN);  // y face runs a plane
 constexpr int NXI_PAD = (NXI + 31) / 32 * 32;  // y runs start a warp
 static_assert(NXI_PAD + NYI <= THREADS, "one face run a thread at most");
 
+// The tile geometry of reach R (3: WENO5, 4: WENO7).
+template <int R>
+struct Geo {
+  static constexpr int WT = TX + 2 * R;         // a tile row with its halo
+  static constexpr int PLANE = (TY + 2 * R) * WT;
+  static constexpr int HALO = PLANE - THREADS;  // halo cells of a plane
+  static constexpr int HROUNDS = (HALO + THREADS - 1) / THREADS;
+  static constexpr int NV = RUN + 2 * R - 2;    // split values a run reads
+  static constexpr int NZ = 2 * R + 1;          // planes of the z window
+};
+
+template <int R>
 struct Smem {
-  float v[2][PLANE];   // v on the tile plane, double-buffered
-  float fp[2][PLANE];  // its f+
-  float fm[2][PLANE];  // its f-
+  float v[2][Geo<R>::PLANE];   // v on the tile plane, double-buffered
+  float fp[2][Geo<R>::PLANE];  // its f+
+  float fm[2][Geo<R>::PLANE];  // its f-
   float fx[TY * (TX + 1)];  // x faces: row r, face i below cell i
   float fy[(TY + 1) * TX];  // y faces: row i below cell row i
   unsigned int warp_max[NWARPS];
 };
-static_assert(sizeof(Smem) <= 48 * 1024, "static shared memory");
+static_assert(sizeof(Smem<4>) <= 48 * 1024, "static shared memory");
 
 struct Params {
   float inv_dx[3];  // z, y, x
@@ -200,21 +219,22 @@ __device__ __forceinline__ const float* zplane(const float* v,
 // (B) for the thread's run of faces, if it has one: x faces (tid <
 // NXI: row r, faces i .. i+2) or y faces (NXI_PAD <= tid < NXI_PAD +
 // NYI: column col, face rows i .. i+2) of the tile plane in buffer b.
-template <bool WZ>
-__device__ __forceinline__ void face_item(Smem& sm, int b, int tid) {
+template <int R, bool WZ>
+__device__ __forceinline__ void face_item(Smem<R>& sm, int b, int tid) {
+  constexpr int WT = Geo<R>::WT, NV = Geo<R>::NV;
   const float* sp = sm.fp[b];
   const float* sn = sm.fm[b];
-  float P[RUN + 4], M[RUN + 4], h[RUN];
+  float P[NV], M[NV], h[RUN];
   if (tid < NXI) {
     constexpr int K = (TX + 1) / RUN;
     const int r = tid / K, i = (tid - r * K) * RUN;
     const int c = (r + R) * WT + i;
 #pragma unroll
-    for (int q = 0; q < RUN + 4; ++q) {
+    for (int q = 0; q < NV; ++q) {
       P[q] = sp[c + q];
       M[q] = sn[c + 1 + q];
     }
-    face_run<WZ, RUN>(P, M, h);
+    face_run_of<R, WZ, RUN>(P, M, h);
 #pragma unroll
     for (int j = 0; j < RUN; ++j) sm.fx[r * (TX + 1) + i + j] = h[j];
   } else if (tid >= NXI_PAD && tid < NXI_PAD + NYI) {
@@ -222,11 +242,11 @@ __device__ __forceinline__ void face_item(Smem& sm, int b, int tid) {
     const int i = e / TX * RUN, col = e % TX;
     const int c = i * WT + col + R;
 #pragma unroll
-    for (int q = 0; q < RUN + 4; ++q) {
+    for (int q = 0; q < NV; ++q) {
       P[q] = sp[c + q * WT];
       M[q] = sn[c + (q + 1) * WT];
     }
-    face_run<WZ, RUN>(P, M, h);
+    face_run_of<R, WZ, RUN>(P, M, h);
 #pragma unroll
     for (int j = 0; j < RUN; ++j) sm.fy[(i + j) * TX + col] = h[j];
   }
@@ -234,14 +254,17 @@ __device__ __forceinline__ void face_item(Smem& sm, int b, int tid) {
 
 // SHARDED and OPERANDS are compile-time so that the unsharded launch
 // (SHARDED false: no ghost planes, every plane, no operands) carries none
-// of the sharded geometry's arithmetic or tests.
-template <int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
+// of the sharded geometry's arithmetic or tests. R is the WENO reach: 3
+// (WENO5-JS/Z) or 4 (WENO7-JS, unsharded only).
+template <int R, int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 stage_kernel(const float* __restrict__ v, const float* u, float* out,
              const float* __restrict__ lo, const float* __restrict__ hi,
              int nz, int ny, int nx, int zchunk, ZGeometry g, Params p,
              const float* __restrict__ dt_ptr, unsigned int* mx) {
-  __shared__ Smem sm;
+  constexpr int WT = Geo<R>::WT, HALO = Geo<R>::HALO;
+  constexpr int HROUNDS = Geo<R>::HROUNDS, NZ = Geo<R>::NZ;
+  __shared__ Smem<R> sm;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * TX + tx;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
@@ -296,29 +319,29 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
   };
   float u_c = u != nullptr && valid ? u[cell_of(k0)] : 0.0f;
 
-  // z window: planes k-3..k+3 of v and its split
-  float W[7], Zp[7], Zm[7];
+  // z window: planes k-R..k+R of v and its split
+  float W[NZ], Zp[NZ], Zm[NZ];
 #pragma unroll
-  for (int q = 0; q < 7; ++q) {
-    W[q] = zplane<SHARDED, OPERANDS>(v, lo, hi, k0, q - 3, nz, P, g)[col];
+  for (int q = 0; q < NZ; ++q) {
+    W[q] = zplane<SHARDED, OPERANDS>(v, lo, hi, k0, q - R, nz, P, g)[col];
     split<FLUX>(W[q], c, Zp[q], Zm[q]);
   }
-  float hz_lo = face<WZ>(&Zp[0], &Zm[1]);  // face k0-1/2
+  float hz_lo = face_of<R, WZ>(&Zp[0], &Zm[1]);  // face k0-1/2
 
   for (int k = k0; k < k1; ++k) {
     const int b = (k - k0) & 1;
     // (A) the tile plane k: the own cell from the window, the halo split
-    sm.v[b][own] = W[3];
-    sm.fp[b][own] = Zp[3];
-    sm.fm[b][own] = Zm[3];
+    sm.v[b][own] = W[R];
+    sm.fp[b][own] = Zp[R];
+    sm.fm[b][own] = Zm[R];
 #pragma unroll
     for (int h = 0; h < HROUNDS; ++h)
       if (hidx[h] >= 0) {
         sm.v[b][hidx[h]] = hv[h];
         split<FLUX>(hv[h], c, sm.fp[b][hidx[h]], sm.fm[b][hidx[h]]);
       }
-    // loads for plane k+1: its halo and the window's new plane k+4 (a
-    // shard's plane k+4 lies in its buffer only if it is needed)
+    // loads for plane k+1: its halo and the window's new plane k+R+1 (a
+    // shard's plane k+R+1 lies in its buffer only if it is needed)
     const bool more = k + 1 < k1;
     float u_next = 0.0f;
     if (more) {
@@ -329,12 +352,12 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
     }
     float w_in = 0.0f;
     if (!SHARDED || more)
-      w_in = zplane<SHARDED, OPERANDS>(v, lo, hi, k, 4, nz, P, g)[col];
+      w_in = zplane<SHARDED, OPERANDS>(v, lo, hi, k, R + 1, nz, P, g)[col];
     __syncthreads();
 
     // (B) the x and y faces of the plane, and the z face above the cell
-    face_item<WZ>(sm, b, tid);
-    const float hz_hi = face<WZ>(&Zp[1], &Zm[2]);  // face k+1/2
+    face_item<R, WZ>(sm, b, tid);
+    const float hz_hi = face_of<R, WZ>(&Zp[1], &Zm[2]);  // face k+1/2
     __syncthreads();
 
     // (C) the cell
@@ -346,9 +369,9 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
     float rhs = -(dz + dy + dx);
     if (p.viscous) {
       const float* t = sm.v[b] + own;
-      float acc = W[1] * p.lap[0];
+      float acc = W[R - 2] * p.lap[0];
 #pragma unroll
-      for (int q = 1; q < 5; ++q) acc = acc + W[q + 1] * p.lap[q];
+      for (int q = 1; q < 5; ++q) acc = acc + W[R - 2 + q] * p.lap[q];
 #pragma unroll
       for (int q = 0; q < 5; ++q) acc = acc + t[(q - 2) * WT] * p.lap[5 + q];
 #pragma unroll
@@ -356,7 +379,7 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
       rhs = rhs + acc;
     }
     if (valid) {
-      float rk = p.b * (W[3] + dt * rhs);
+      float rk = p.b * (W[R] + dt * rhs);
       if (u != nullptr) rk = p.a * u_c + rk;
       out[cell_of(k)] = rk;
       if (mx != nullptr) {
@@ -370,14 +393,14 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
     u_c = u_next;
     hz_lo = hz_hi;
 #pragma unroll
-    for (int q = 0; q < 6; ++q) {
+    for (int q = 0; q < NZ - 1; ++q) {
       W[q] = W[q + 1];
       Zp[q] = Zp[q + 1];
       Zm[q] = Zm[q + 1];
     }
     if (!SHARDED || more) {
-      W[6] = w_in;
-      split<FLUX>(W[6], c, Zp[6], Zm[6]);
+      W[NZ - 1] = w_in;
+      split<FLUX>(W[NZ - 1], c, Zp[NZ - 1], Zm[NZ - 1]);
     }
   }
 
@@ -395,7 +418,7 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
   }
 }
 
-template <int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
+template <int R, int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
 void launch_as(const float* v, const float* u, float* out, const float* lo,
                const float* hi, int nz, int ny, int nx, int zchunk,
                const ZGeometry& g, const Params& p, const float* dt,
@@ -403,7 +426,7 @@ void launch_as(const float* v, const float* u, float* out, const float* lo,
   const dim3 block(TX, TY, 1);
   const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY,
                   (g.k_end - g.k_begin + zchunk - 1) / zchunk);
-  stage_kernel<FLUX, WZ, SHARDED, OPERANDS><<<grid, block, 0, s>>>(
+  stage_kernel<R, FLUX, WZ, SHARDED, OPERANDS><<<grid, block, 0, s>>>(
       v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, mx);
 }
 
@@ -413,14 +436,23 @@ void launch(const float* v, const float* u, float* out, const float* lo,
             const ZGeometry& g, const Params& p, const float* dt,
             unsigned int* mx, cudaStream_t s) {
   if (lo != nullptr || hi != nullptr)
-    launch_as<FLUX, WZ, true, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g,
-                                    p, dt, mx, s);
+    launch_as<3, FLUX, WZ, true, true>(v, u, out, lo, hi, nz, ny, nx, zchunk,
+                                       g, p, dt, mx, s);
   else if (g.zpad != 0 || g.k_begin != 0 || g.k_end != nz)
-    launch_as<FLUX, WZ, true, false>(v, u, out, lo, hi, nz, ny, nx, zchunk,
-                                     g, p, dt, mx, s);
+    launch_as<3, FLUX, WZ, true, false>(v, u, out, lo, hi, nz, ny, nx,
+                                        zchunk, g, p, dt, mx, s);
   else
-    launch_as<FLUX, WZ, false, false>(v, u, out, lo, hi, nz, ny, nx, zchunk,
-                                      g, p, dt, mx, s);
+    launch_as<3, FLUX, WZ, false, false>(v, u, out, lo, hi, nz, ny, nx,
+                                         zchunk, g, p, dt, mx, s);
+}
+
+// The WENO7-JS instances: unsharded, every plane.
+template <int FLUX>
+void launch7(const float* v, const float* u, float* out, int nz, int ny,
+             int nx, int zchunk, const ZGeometry& g, const Params& p,
+             const float* dt, unsigned int* mx, cudaStream_t s) {
+  launch_as<4, FLUX, false, false, false>(v, u, out, nullptr, nullptr, nz,
+                                          ny, nx, zchunk, g, p, dt, mx, s);
 }
 
 }  // namespace
@@ -430,9 +462,11 @@ void launch(const float* v, const float* u, float* out, const float* lo,
 // ints: zpad, the global plane count, the block's global z offset and
 // mx_init. `u` is null for stage 1 and may equal `out` (in-place stage
 // 3). `dt` points to one float on the device. `flux` is 0 (Burgers), 1
-// (linear, speed `c`) or 2 (Buckley-Leverett); `weno_z` selects the
-// WENO5-Z weights. `inv_dx` points to 3 host floats (z, y, x) and `lap`
-// to 15 host floats, or is null for an inviscid run. Only the block's
+// (linear, speed `c`) or 2 (Buckley-Leverett); `order` is 5 (WENO5, and
+// `weno_z` selects the WENO5-Z weights) or 7 (WENO7-JS: weno_z 0, no
+// ghost planes, every plane, no operands). `inv_dx` points to 3 host
+// floats (z, y, x) and `lap` to 15 host floats, or is null for an inviscid
+// run. Only the block's
 // planes [k_begin, k_end) are written; `lo`/`hi`, when not null, hold the
 // zpad ghost planes below/above (the split schedule's operands). `mx`,
 // when not null, points to one float on the device that receives
@@ -442,7 +476,7 @@ void launch(const float* v, const float* u, float* out, const float* lo,
 extern "C" int fused_burgers_stage(const float* v, const float* u,
                                    float* out, int nz, int ny, int nx,
                                    const float* dt, int flux, float c,
-                                   int weno_z, const float* inv_dx,
+                                   int weno_z, int order, const float* inv_dx,
                                    const float* lap, float a, float b,
                                    float* mx, int zchunk, const int* zgeo,
                                    int k_begin, int k_end, const float* lo,
@@ -452,7 +486,10 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
       k_begin < 0 || k_end > nz || k_begin >= k_end || g.zpad < 0 ||
       (g.zpad == 0 && (g.gnz != nz || g.oz != 0)) ||
       (g.zpad > 0 && g.zpad < 3) || g.oz < 0 || g.oz + nz > g.gnz ||
-      (long long)ny * nx > 2147483647LL)  // a plane's offsets are int
+      (long long)ny * nx > 2147483647LL ||  // a plane's offsets are int
+      (order != 5 && order != 7) ||
+      (order == 7 && (weno_z || g.zpad != 0 || k_begin != 0 || k_end != nz ||
+                      lo != nullptr || hi != nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   for (int q = 0; q < 3; ++q) p.inv_dx[q] = inv_dx[q];
@@ -467,6 +504,14 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
     const cudaError_t e = cudaMemsetAsync(m, 0, sizeof(unsigned int), s);
     if (e != cudaSuccess) return (int)e;
   }
+  if (order == 7) {
+    switch (flux) {
+      case 0: launch7<BURGERS>(v, u, out, nz, ny, nx, zchunk, g, p, dt, m, s); break;
+      case 1: launch7<LINEAR>(v, u, out, nz, ny, nx, zchunk, g, p, dt, m, s); break;
+      default: launch7<BUCKLEY>(v, u, out, nz, ny, nx, zchunk, g, p, dt, m, s); break;
+    }
+    return (int)cudaGetLastError();
+  }
   switch (flux * 2 + (weno_z ? 1 : 0)) {
     case 0: launch<BURGERS, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
     case 1: launch<BURGERS, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
@@ -478,16 +523,19 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
   return (int)cudaGetLastError();
 }
 
-// The tiling of the unsharded WENO5-JS Burgers instance, into 7 ints:
-// tile rows, tile columns, threads a block, static shared memory bytes,
-// blocks an SM can hold, registers a thread and local (spilled) bytes a
-// thread. Returns the first CUDA error (0 on success).
-extern "C" int fused_burgers_stage_geometry(int* out) {
-  const void* kernel = (const void*)stage_kernel<BURGERS, false, false, false>;
+// The tiling of the unsharded WENO`order`-JS Burgers instance (order 5 or
+// 7), into 7 ints: tile rows, tile columns, threads a block, static shared
+// memory bytes, blocks an SM can hold, registers a thread and local
+// (spilled) bytes a thread. Returns the first CUDA error (0 on success).
+extern "C" int fused_burgers_stage_geometry(int order, int* out) {
+  if (order != 5 && order != 7) return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      order == 5 ? (const void*)stage_kernel<3, BURGERS, false, false, false>
+                 : (const void*)stage_kernel<4, BURGERS, false, false, false>;
   out[0] = TY;
   out[1] = TX;
   out[2] = THREADS;
-  out[3] = (int)sizeof(Smem);
+  out[3] = (int)(order == 5 ? sizeof(Smem<3>) : sizeof(Smem<4>));
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return (int)e;

@@ -25,8 +25,8 @@
 // Replaces the TPU kernel multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_slab_run.py::_whole_run_kernel (:188, launched :889, and with
 // batched=True at :933 for run_batched) with SlabRunBurgersStepper's
-// step_fn (:1540-1645), for WENO5-JS/Z on one device. It computes the
-// same function, not the same blocks:
+// step_fn (:1540-1645), for WENO5-JS/Z and (K6 only) WENO7-JS on one
+// device. It computes the same function, not the same blocks:
 //
 //   for each of n_iters steps (grid.sync() after each):
 //     t1  = fill(s(fill(S)))
@@ -44,9 +44,10 @@
 // burgers_step_reference) is three K5-twin stages.
 //
 // Rounding: built with -fmad=false, like K5, with K5's device functions
-// (csrc/weno5.cuh) evaluated in K5's order, so the kernel equals its
-// twin to the bit. A face flux is a function of its ten split values
-// only, whichever cell asks for it, so computing it once keeps the bits.
+// (csrc/weno5.cuh; at order 7 csrc/weno7e.cuh) evaluated in K5's order,
+// so the kernel equals its twin to the bit. A face flux is a function of
+// its split values only, whichever cell asks for it, so computing it once
+// keeps the bits.
 //
 // Design. A block of 768 threads (24 warps; 512 were slower, 1,024
 // spill) owns a 32x32 (y, x) output tile and a chunk of z planes
@@ -118,20 +119,37 @@
 // about 102 operations, the z faces 119 and their six splits, and the
 // windows recompute 4.30 stage evaluations for 3: about 1,650
 // operations an output cell a step, 1.6x the count above.
+//
+// Order 7 (WENO7-JS, K6 only): step_tile with the reach R = 4 as a
+// template parameter (G = 12): rings of 2R = 8 planes, z-R+1 .. z+R, and
+// each face the e-form of weno7e.cuh. The three stage windows of a 32x32
+// tile would need 322 KB of shared memory, so the order-7 instance works
+// on 24x24 tiles (windows 40, 32, 24; 223,488 bytes), one face an item
+// (25-face lines do not split in runs of three). K3's, K4's and K2b's
+// entries instantiate R = 3 only.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "slab_dma.cuh"
 #include "weno5.cuh"
+#include "weno7e.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int R = 3;           // WENO5 reach
-constexpr int T = 32;          // output tile edge, y and x
-constexpr int NR = 2 * R;      // ring planes of a stage input: z-2 .. z+3
+// R, the WENO reach (3: WENO5-JS/Z, 4: WENO7-JS), is a template
+// parameter of the body; what follows from it:
+template <int R>
+struct Reach {
+  static constexpr int T = R == 3 ? 32 : 24;  // output tile edge, y and x
+  static constexpr int NR = 2 * R;  // ring planes of a stage input:
+                                    // z-R+1 .. z+R
+  static constexpr int RUN = R == 3 ? 3 : 1;  // faces a work item computes
+  static constexpr int NV = RUN + 2 * R - 2;  // split values it reads a side
+  static_assert((T + 1) % RUN == 0, "face lines of every stage split in runs");
+};
 constexpr int THREADS = 768;
 constexpr long long MAX_CELLS = (1LL << 31) - 1;
 
@@ -139,22 +157,25 @@ constexpr long long MAX_CELLS = (1LL << 31) - 1;
 constexpr float A2 = (float)0.75, B2 = (float)0.25;
 constexpr float A3 = (float)(1.0 / 3.0), B3 = (float)(2.0 / 3.0);
 
-// Stage S_ (1, 2, 3) of a step: its windows and its shared memory.
-template <int S_>
+// Stage S_ (1, 2, 3) of a step at reach R: its windows and its shared
+// memory.
+template <int R, int S_>
 struct Win {
-  static constexpr int WO = T + 2 * R * (3 - S_);  // output window edge
+  static constexpr int WO = Reach<R>::T + 2 * R * (3 - S_);  // output edge
   static constexpr int WI = WO + 2 * R;            // input window edge
   static constexpr int PLANE = WI * WI;
-  static constexpr int RING = NR * PLANE;
+  static constexpr int RING = Reach<R>::NR * PLANE;
   static constexpr int SPLIT = 2 * PLANE;            // f+ then f-
   static constexpr int FX = WO * (WO + 1);            // x faces
   static constexpr int FY = (WO + 1) * WO;            // y faces
   static constexpr int SIZE = RING + SPLIT + FX + FY;
   static constexpr int ROUNDS = (WO * WO + THREADS - 1) / THREADS;
 };
+template <int R>
 constexpr int SMEM_BYTES =
-    (Win<1>::SIZE + Win<2>::SIZE + Win<3>::SIZE) * (int)sizeof(float);
-static_assert(SMEM_BYTES <= 232448, "over the H100's 227 KB a block");
+    (Win<R, 1>::SIZE + Win<R, 2>::SIZE + Win<R, 3>::SIZE) * (int)sizeof(float);
+static_assert(SMEM_BYTES<3> <= 232448 && SMEM_BYTES<4> <= 232448,
+              "over the H100's 227 KB a block");
 
 struct Args {
   int nz, ny, nx;  // global shape (K3: nz over every shard)
@@ -204,9 +225,9 @@ struct Mem {
   float* fy;     // y faces: row i is the face below cell row i
 };
 
-template <int S_>
+template <int R, int S_>
 __device__ __forceinline__ Mem mem_of(float* base) {
-  using W = Win<S_>;
+  using W = Win<R, S_>;
   Mem m;
   m.ring = base;
   m.split = m.ring + W::RING;
@@ -236,11 +257,11 @@ struct Cursor {
 
 // Pass 1 for stage S_: the split of input plane z over the input window
 // whose global corner is (iy, ix), every read clamped into the domain.
-template <int FLUX, int S_>
+template <int R, int FLUX, int S_>
 __device__ __forceinline__ void split_plane(const Mem& m, int z, int iy,
                                             int ix, const Args& p) {
-  using W = Win<S_>;
-  const float* v = m.ring + (z % NR) * W::PLANE;
+  using W = Win<R, S_>;
+  const float* v = m.ring + (z % Reach<R>::NR) * W::PLANE;
   const bool inside =
       iy >= 0 && ix >= 0 && iy + W::WI <= p.ny && ix + W::WI <= p.nx;
   Cursor<W::WI> cur;
@@ -253,32 +274,29 @@ __device__ __forceinline__ void split_plane(const Mem& m, int z, int iy,
   }
 }
 
-// Faces a work item of pass 2 computes: a run along x or y.
-constexpr int RUN = 3;
-static_assert((T + 1) % RUN == 0, "face lines of every stage split in runs");
-
 // Pass 2, item v of stage S_: a run of RUN x faces (v < WO*K: row r,
 // faces RUN*k ..) or y faces (face rows RUN*k .., column col) of the
 // output window whose global corner is (oy, ox); skipped on a row
 // (column) outside the domain.
-template <bool WZ, int S_>
+template <int R, bool WZ, int S_>
 __device__ __forceinline__ void face_item(const Mem& m, int v, int oy,
                                           int ox, const Args& p) {
-  using W = Win<S_>;
+  using W = Win<R, S_>;
+  constexpr int RUN = Reach<R>::RUN, NV = Reach<R>::NV;
   constexpr int WO = W::WO, WI = W::WI, K = (WO + 1) / RUN;
   const float* sp = m.split;
   const float* sn = m.split + W::PLANE;
-  float P[RUN + 4], M[RUN + 4], h[RUN];
+  float P[NV], M[NV], h[RUN];
   if (v < WO * K) {
     const int r = v / K, i = (v - r * K) * RUN;
     if (oy + r < 0 || oy + r >= p.ny) return;
     const int c = (r + R) * WI + i;
 #pragma unroll
-    for (int q = 0; q < RUN + 4; ++q) {
+    for (int q = 0; q < NV; ++q) {
       P[q] = sp[c + q];
       M[q] = sn[c + 1 + q];
     }
-    face_run<WZ, RUN>(P, M, h);
+    face_run_of<R, WZ, RUN>(P, M, h);
 #pragma unroll
     for (int j = 0; j < RUN; ++j) m.fx[r * (WO + 1) + i + j] = h[j];
   } else {
@@ -287,11 +305,11 @@ __device__ __forceinline__ void face_item(const Mem& m, int v, int oy,
     if (ox + col < 0 || ox + col >= p.nx) return;
     const int c = i * WI + col + R;
 #pragma unroll
-    for (int q = 0; q < RUN + 4; ++q) {
+    for (int q = 0; q < NV; ++q) {
       P[q] = sp[c + q * WI];
       M[q] = sn[c + (q + 1) * WI];
     }
-    face_run<WZ, RUN>(P, M, h);
+    face_run_of<R, WZ, RUN>(P, M, h);
 #pragma unroll
     for (int j = 0; j < RUN; ++j) m.fy[(i + j) * WO + col] = h[j];
   }
@@ -299,21 +317,22 @@ __device__ __forceinline__ void face_item(const Mem& m, int v, int oy,
 
 // Pass 2: the x and y faces of the active stages' planes, one loop over
 // the three stages' runs (2 WO (WO+1) / RUN items a stage).
-template <bool WZ>
+template <int R, bool WZ>
 __device__ __forceinline__ void faces(const Mem& m1, const Mem& m2,
                                       const Mem& m3, bool c1, bool c2,
                                       bool c3, int y0, int x0,
                                       const Args& p) {
-  constexpr int N1 = 2 * Win<1>::WO * (Win<1>::WO + 1) / RUN;
-  constexpr int N2 = 2 * Win<2>::WO * (Win<2>::WO + 1) / RUN;
-  constexpr int N3 = 2 * Win<3>::WO * (Win<3>::WO + 1) / RUN;
+  constexpr int RUN = Reach<R>::RUN;
+  constexpr int N1 = 2 * Win<R, 1>::WO * (Win<R, 1>::WO + 1) / RUN;
+  constexpr int N2 = 2 * Win<R, 2>::WO * (Win<R, 2>::WO + 1) / RUN;
+  constexpr int N3 = 2 * Win<R, 3>::WO * (Win<R, 3>::WO + 1) / RUN;
   for (int v = threadIdx.x; v < N1 + N2 + N3; v += THREADS) {
     if (v < N1) {
-      if (c1) face_item<WZ, 1>(m1, v, y0 - 2 * R, x0 - 2 * R, p);
+      if (c1) face_item<R, WZ, 1>(m1, v, y0 - 2 * R, x0 - 2 * R, p);
     } else if (v < N1 + N2) {
-      if (c2) face_item<WZ, 2>(m2, v - N1, y0 - R, x0 - R, p);
+      if (c2) face_item<R, WZ, 2>(m2, v - N1, y0 - R, x0 - R, p);
     } else if (c3) {
-      face_item<WZ, 3>(m3, v - N1 - N2, y0, x0, p);
+      face_item<R, WZ, 3>(m3, v - N1 - N2, y0, x0, p);
     }
   }
 }
@@ -323,22 +342,22 @@ __device__ __forceinline__ void faces(const Mem& m1, const Mem& m2,
 // stage's value there: into the next stage's ring plane `dst` (window
 // layout) or, for the last stage, into the output buffer. hz holds the z
 // face below each of the thread's cells.
-template <int FLUX, bool WZ, int S_>
+template <int R, int FLUX, bool WZ, int S_>
 __device__ __forceinline__ void stage(const Mem& m, float* dst,
                                       const float* S, float* out, int z,
                                       bool cells, int oy, int ox, int row_off,
-                                      float (&hz)[Win<S_>::ROUNDS],
+                                      float (&hz)[Win<R, S_>::ROUNDS],
                                       const Args& p) {
-  using W = Win<S_>;
-  constexpr int WO = W::WO, WI = W::WI;
+  using W = Win<R, S_>;
+  constexpr int WO = W::WO, WI = W::WI, NR = Reach<R>::NR;
   constexpr bool HAS_U = S_ > 1;
   constexpr bool LAST = S_ == 3;
   const float a = S_ == 1 ? 0.0f : (S_ == 2 ? A2 : A3);
   const float b = S_ == 1 ? 1.0f : (S_ == 2 ? B2 : B3);
-  const float* col[NR];  // input planes z-2 .. z+3, clamped
+  const float* col[NR];  // input planes z-R+1 .. z+R, clamped
 #pragma unroll
   for (int q = 0; q < NR; ++q)
-    col[q] = m.ring + (clampi(z - 2 + q, 0, p.nz - 1) % NR) * W::PLANE;
+    col[q] = m.ring + (clampi(z - R + 1 + q, 0, p.nz - 1) % NR) * W::PLANE;
   const int P = p.ny * p.nx;
   const float* u = HAS_U ? plane_of(S, p, z + row_off, P) : nullptr;
   Cursor<WO> cur;
@@ -354,7 +373,7 @@ __device__ __forceinline__ void stage(const Mem& m, float* dst,
       V[q] = col[q][c];
       split<FLUX>(V[q], p.c, Zp[q], Zm[q]);
     }
-    const float hz_hi = face<WZ>(&Zp[0], &Zm[1]);  // face z+1/2
+    const float hz_hi = face_of<R, WZ>(&Zp[0], &Zm[1]);  // face z+1/2
     if (cells) {
       const float dz = (hz_hi - hz[r]) * p.inv_dx[0];
       const int f = cur.row * (WO + 1) + cur.col;
@@ -362,10 +381,10 @@ __device__ __forceinline__ void stage(const Mem& m, float* dst,
       const float dx = (m.fx[f + 1] - m.fx[f]) * p.inv_dx[2];
       float rhs = -(dz + dy + dx);
       if (p.viscous) {
-        const float* v = col[2];
-        float acc = V[0] * p.lap[0];
+        const float* v = col[R - 1];  // plane z
+        float acc = V[R - 3] * p.lap[0];
 #pragma unroll
-        for (int q = 1; q < 5; ++q) acc = acc + V[q] * p.lap[q];
+        for (int q = 1; q < 5; ++q) acc = acc + V[R - 3 + q] * p.lap[q];
         const int iy = oy - R, ix = ox - R;  // input window corner
 #pragma unroll
         for (int q = 0; q < 5; ++q)
@@ -377,7 +396,7 @@ __device__ __forceinline__ void stage(const Mem& m, float* dst,
                           p.lap[10 + q];
         rhs = rhs + acc;
       }
-      float rk = b * (V[2] + p.dt * rhs);
+      float rk = b * (V[R - 1] + p.dt * rhs);
       if (HAS_U) rk = a * u[y * p.nx + x] + rk;
       if (LAST)
         out[(z + row_off) * P + y * p.nx + x] = rk;
@@ -391,12 +410,13 @@ __device__ __forceinline__ void stage(const Mem& m, float* dst,
 // One step on the tile `tile` and z chunk `chunk`, S -> out. Does not end
 // with a barrier: the caller's job claim has one before the block's
 // shared memory is reused.
-template <int FLUX, bool WZ>
+template <int R, int FLUX, bool WZ>
 __device__ void step_tile(const float* S, float* out, const Args& p,
                           Window w, int tile, int chunk, float* sm) {
-  const Mem m1 = mem_of<1>(sm);
-  const Mem m2 = mem_of<2>(sm + Win<1>::SIZE);
-  const Mem m3 = mem_of<3>(sm + Win<1>::SIZE + Win<2>::SIZE);
+  constexpr int T = Reach<R>::T, NR = Reach<R>::NR;
+  const Mem m1 = mem_of<R, 1>(sm);
+  const Mem m2 = mem_of<R, 2>(sm + Win<R, 1>::SIZE);
+  const Mem m3 = mem_of<R, 3>(sm + Win<R, 1>::SIZE + Win<R, 2>::SIZE);
   const int ty = tile / p.tiles_x;
   const int x0 = (tile - ty * p.tiles_x) * T, y0 = ty * T;
   const int k0 = w.z_lo + chunk * p.zchunk;
@@ -408,7 +428,8 @@ __device__ void step_tile(const float* S, float* out, const Args& p,
   if (f3 >= l3) return;
   const int s_end = min(k1 + 3 * R, p.nz);  // S planes [k0 - 3R, s_end)
   const int P = p.ny * p.nx;
-  float hz1[Win<1>::ROUNDS], hz2[Win<2>::ROUNDS], hz3[Win<3>::ROUNDS];
+  float hz1[Win<R, 1>::ROUNDS], hz2[Win<R, 2>::ROUNDS],
+      hz3[Win<R, 3>::ROUNDS];
 
   for (int m = max(k0 - 3 * R, 0); m < l3 + 3 * R; ++m) {
     const int z1 = m - R, z2 = m - 2 * R, z3 = m - 3 * R;
@@ -417,7 +438,7 @@ __device__ void step_tile(const float* S, float* out, const Args& p,
     const bool c3 = z3 >= f3 && z3 < l3;
     // (1) S plane m, its in-domain cells; the stages' split planes
     if (m < s_end) {
-      using W = Win<1>;
+      using W = Win<R, 1>;
       float* vm = m1.ring + (m % NR) * W::PLANE;
       const float* src = plane_of(S, p, m + w.row_off, P);
       const int iy = y0 - 3 * R, ix = x0 - 3 * R;
@@ -428,47 +449,50 @@ __device__ void step_tile(const float* S, float* out, const Args& p,
           vm[e] = src[y * p.nx + x];
       }
     }
-    if (c1) split_plane<FLUX, 1>(m1, z1, y0 - 3 * R, x0 - 3 * R, p);
-    if (c2) split_plane<FLUX, 2>(m2, z2, y0 - 2 * R, x0 - 2 * R, p);
-    if (c3) split_plane<FLUX, 3>(m3, z3, y0 - R, x0 - R, p);
+    if (c1) split_plane<R, FLUX, 1>(m1, z1, y0 - 3 * R, x0 - 3 * R, p);
+    if (c2) split_plane<R, FLUX, 2>(m2, z2, y0 - 2 * R, x0 - 2 * R, p);
+    if (c3) split_plane<R, FLUX, 3>(m3, z3, y0 - R, x0 - R, p);
     __syncthreads();
     // (2) the x and y faces of the stages' planes
-    faces<WZ>(m1, m2, m3, c1, c2, c3, y0, x0, p);
+    faces<R, WZ>(m1, m2, m3, c1, c2, c3, y0, x0, p);
     __syncthreads();
     // (3) t1 = s(S) on plane z1, into stage 2's ring
     if (z1 >= f1 - 1 && z1 < l1)
-      stage<FLUX, WZ, 1>(m1, m2.ring + (max(z1, 0) % NR) * Win<2>::PLANE, S,
-                         out, z1, c1, y0 - 2 * R, x0 - 2 * R, w.row_off, hz1,
-                         p);
+      stage<R, FLUX, WZ, 1>(m1,
+                            m2.ring + (max(z1, 0) % NR) * Win<R, 2>::PLANE,
+                            S, out, z1, c1, y0 - 2 * R, x0 - 2 * R,
+                            w.row_off, hz1, p);
     __syncthreads();
     // (4) t2 = s(t1, S) on plane z2, into stage 3's ring
     if (z2 >= f2 - 1 && z2 < l2)
-      stage<FLUX, WZ, 2>(m2, m3.ring + (max(z2, 0) % NR) * Win<3>::PLANE, S,
-                         out, z2, c2, y0 - R, x0 - R, w.row_off, hz2, p);
+      stage<R, FLUX, WZ, 2>(m2,
+                            m3.ring + (max(z2, 0) % NR) * Win<R, 3>::PLANE,
+                            S, out, z2, c2, y0 - R, x0 - R, w.row_off, hz2,
+                            p);
     __syncthreads();
     // (5) out = s(t2, S) on plane z3
     if (z3 >= f3 - 1 && z3 < l3)
-      stage<FLUX, WZ, 3>(m3, nullptr, S, out, z3, c3, y0, x0, w.row_off, hz3,
-                         p);
+      stage<R, FLUX, WZ, 3>(m3, nullptr, S, out, z3, c3, y0, x0, w.row_off,
+                            hz3, p);
   }
 }
 
-// K3: one step on one job a block, S -> out (the host swaps); job b is
-// chunk b / tiles of tile b % tiles.
+// K3 (WENO5): one step on one job a block, S -> out (the host swaps); job
+// b is chunk b / tiles of tile b % tiles.
 template <int FLUX, bool WZ>
 __global__ void __launch_bounds__(THREADS, 1)
 step_kernel(const float* S, float* out, Args p) {
   extern __shared__ float sm[];
   const int chunk = blockIdx.x / p.tiles;
-  step_tile<FLUX, WZ>(S, out, p, window_of(p), blockIdx.x - chunk * p.tiles,
-                      chunk, sm);
+  step_tile<3, FLUX, WZ>(S, out, p, window_of(p),
+                         blockIdx.x - chunk * p.tiles, chunk, sm);
 }
 
 // K6 (members == 1) and K2b: every member's step k over the (chunk,
 // member, tile) jobs, then one grid.sync() for the whole batch. Member
 // m's state starts m * member_stride floats into S0 and S1 (64-bit);
 // inside a member step_tile's 32-bit indices hold.
-template <int FLUX, bool WZ>
+template <int R, int FLUX, bool WZ>
 __global__ void __launch_bounds__(THREADS, 1)
 slab_run_kernel(float* S0, float* S1, Args p, int n_iters, int members,
                 long long member_stride, int* counters) {
@@ -487,21 +511,21 @@ slab_run_kernel(float* S0, float* S1, Args p, int n_iters, int members,
       const int rest = job - chunk * per_chunk;
       const int mb = rest / p.tiles;
       const long long off = mb * member_stride;
-      step_tile<FLUX, WZ>(src + off, dst + off, p, window_of(p),
-                          rest - mb * p.tiles,
-                          chunk, sm);
+      step_tile<R, FLUX, WZ>(src + off, dst + off, p, window_of(p),
+                             rest - mb * p.tiles, chunk, sm);
     }
     grid.sync();
   }
 }
 
-// The blocks of a cooperative launch of `kernel` for `jobs` jobs: every
-// co-resident block, at most one a job.
-cudaError_t cooperative_blocks(const void* kernel, long long jobs,
+// The blocks of a cooperative launch of `kernel` (`smem` bytes of dynamic
+// shared memory a block) for `jobs` jobs: every co-resident block, at
+// most one a job.
+cudaError_t cooperative_blocks(const void* kernel, int smem, long long jobs,
                                int* blocks) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -509,7 +533,7 @@ cudaError_t cooperative_blocks(const void* kernel, long long jobs,
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, SMEM_BYTES);
+                                                      THREADS, smem);
   if (e != cudaSuccess) return e;
   if (!coop) return cudaErrorNotSupported;
   const long long resident = (long long)per_sm * sms;
@@ -517,25 +541,27 @@ cudaError_t cooperative_blocks(const void* kernel, long long jobs,
   return *blocks < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
 
-template <int FLUX, bool WZ>
+template <int R, int FLUX, bool WZ>
 cudaError_t launch(float* S0, float* S1, Args& p, int n_iters, int members,
                    int* counters, int* grid_blocks, cudaStream_t s) {
-  auto* kernel = slab_run_kernel<FLUX, WZ>;
+  auto* kernel = slab_run_kernel<R, FLUX, WZ>;
   int blocks = 0;
   cudaError_t e = cooperative_blocks(
-      (const void*)kernel, (long long)p.tiles * p.chunks * members, &blocks);
+      (const void*)kernel, SMEM_BYTES<R>,
+      (long long)p.tiles * p.chunks * members, &blocks);
   if (e != cudaSuccess) return e;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
   long long member_stride = (long long)p.nz * p.ny * p.nx;
   void* args[] = {&S0, &S1, &p, &n_iters, &members, &member_stride,
                   &counters};
   return cudaLaunchCooperativeKernel((const void*)kernel, blocks, THREADS,
-                                     args, SMEM_BYTES, s);
+                                     args, SMEM_BYTES<R>, s);
 }
 
-// The physics and tiling every entry shares; the window is the caller's.
+// The physics and tiling every entry shares (tiles of edge T); the window
+// is the caller's.
 Args make_args(int nz, int ny, int nx, const float* inv_dx, const float* lap,
-               float c, float dt, int zchunk) {
+               float c, float dt, int zchunk, int T = Reach<3>::T) {
   Args p;
   p.nz = nz;
   p.ny = ny;
@@ -560,28 +586,40 @@ Args make_args(int nz, int ny, int nx, const float* inv_dx, const float* lap,
 }
 
 // The cooperative launch of K6/K2b: n_iters steps of `members` members
-// whose states lie back to back in S0 and S1.
+// whose states lie back to back in S0 and S1; order 7 (WENO7-JS) is K6's
+// alone (members 1, weno_z 0).
 cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
-                            int nx, int flux, float c, int weno_z,
+                            int nx, int flux, float c, int weno_z, int order,
                             const float* inv_dx, const float* lap, float dt,
                             int zchunk, int n_iters, int* counters,
                             int* grid_blocks, cudaStream_t s) {
   if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || n_iters < 0 || flux < 0 ||
       flux > 2 || members < 1 || counters == nullptr ||
-      (long long)nz * ny * nx > MAX_CELLS)
+      (long long)nz * ny * nx > MAX_CELLS || (order != 5 && order != 7) ||
+      (order == 7 && (weno_z || members != 1)))
     return cudaErrorInvalidValue;
-  Args p = make_args(nz, ny, nx, inv_dx, lap, c, dt, zchunk);
+  Args p = make_args(nz, ny, nx, inv_dx, lap, c, dt, zchunk,
+                     order == 7 ? Reach<4>::T : Reach<3>::T);
   p.chunks = (nz + zchunk - 1) / zchunk;
   if ((long long)p.tiles * p.chunks * members > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaError_t e;
+  if (order == 7) {
+    switch (flux) {
+      case 0: e = launch<4, BURGERS, false>(S0, S1, p, n_iters, 1, counters, grid_blocks, s); break;
+      case 1: e = launch<4, LINEAR, false>(S0, S1, p, n_iters, 1, counters, grid_blocks, s); break;
+      default: e = launch<4, BUCKLEY, false>(S0, S1, p, n_iters, 1, counters, grid_blocks, s); break;
+    }
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  }
   switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: e = launch<BURGERS, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    case 1: e = launch<BURGERS, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    case 2: e = launch<LINEAR, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    case 3: e = launch<LINEAR, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    case 4: e = launch<BUCKLEY, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    default: e = launch<BUCKLEY, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 0: e = launch<3, BURGERS, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 1: e = launch<3, BURGERS, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 2: e = launch<3, LINEAR, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 3: e = launch<3, LINEAR, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    case 4: e = launch<3, BUCKLEY, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
+    default: e = launch<3, BUCKLEY, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
   }
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -596,8 +634,9 @@ cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
 // member's result is in S0 when n_iters is even and in S1 when it is odd.
 // Member m computes exactly K6's run of member m alone: the same
 // step_tile on its own state, no shared cell. `flux` is 0 (Burgers), 1
-// (linear, speed `c`) or 2 (Buckley-Leverett); `weno_z` selects the
-// WENO5-Z weights. `inv_dx` points to 3 host floats (z, y, x) and `lap` to
+// (linear, speed `c`) or 2 (Buckley-Leverett); `order` is 5 (WENO5;
+// `weno_z` selects the WENO5-Z weights) or 7 (WENO7-JS: weno_z 0, members
+// 1, 24x24 tiles). `inv_dx` points to 3 host floats (z, y, x) and `lap` to
 // 15 host floats, or is null for an inviscid run. `zchunk` is the z
 // planes of a job. `counters` points to 2 device ints, both zero at the
 // launch (the steps' job counters; the launch leaves them dirty).
@@ -605,13 +644,14 @@ cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
 // the first CUDA error (0 on success); does not synchronise.
 extern "C" int slab_run_burgers(float* S0, float* S1, int members, int nz,
                                 int ny, int nx, int flux, float c, int weno_z,
-                                const float* inv_dx, const float* lap,
-                                float dt, int zchunk, int n_iters,
-                                int* counters, int* grid_blocks,
+                                int order, const float* inv_dx,
+                                const float* lap, float dt, int zchunk,
+                                int n_iters, int* counters, int* grid_blocks,
                                 void* stream) {
   return (int)launch_slab_run(S0, S1, members, nz, ny, nx, flux, c, weno_z,
-                              inv_dx, lap, dt, zchunk, n_iters, counters,
-                              grid_blocks, static_cast<cudaStream_t>(stream));
+                              order, inv_dx, lap, dt, zchunk, n_iters,
+                              counters, grid_blocks,
+                              static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -622,9 +662,9 @@ cudaError_t launch_step(const float* S, float* out, const Args& p,
   auto* kernel = step_kernel<FLUX, WZ>;
   const cudaError_t e = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      SMEM_BYTES<3>);
   if (e != cudaSuccess) return e;
-  kernel<<<p.tiles * p.chunks, THREADS, SMEM_BYTES, s>>>(S, out, p);
+  kernel<<<p.tiles * p.chunks, THREADS, SMEM_BYTES<3>, s>>>(S, out, p);
   return cudaGetLastError();
 }
 
@@ -645,6 +685,7 @@ extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
                                  int z_hi, int flux, float c, int weno_z,
                                  const float* inv_dx, const float* lap,
                                  float dt, int zchunk, void* stream) {
+  constexpr int R = 3;  // WENO5 only
   // the buffer rows of the box's in-domain planes
   const int first = (z_lo - 3 * R > 0 ? z_lo - 3 * R : 0) + row_off;
   const int last = (z_hi + 3 * R < nz ? z_hi + 3 * R : nz) - 1 + row_off;
@@ -685,7 +726,7 @@ slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
   extern __shared__ float sm[];
   __shared__ int claimed;
   cg::grid_group grid = cg::this_grid();
-  constexpr int G = 3 * R;
+  constexpr int G = 3 * 3;  // WENO5 only
   const int per_chunk = p.tiles * sh.n;
   for (int s = 0; s < n_iters; ++s) {
     const int j = s % k;
@@ -700,9 +741,10 @@ slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
       const int rest = job - chunk * per_chunk;
       const int i = rest / p.tiles;
       const int oz = i * lz;
-      step_tile<FLUX, WZ>(dma_state(sh, par, i), dma_state(sh, par ^ 1, i),
-                          p, {oz - w, oz + lz + w, sh.depth - oz},
-                          rest - i * p.tiles, chunk, sm);
+      step_tile<3, FLUX, WZ>(dma_state(sh, par, i),
+                             dma_state(sh, par ^ 1, i), p,
+                             {oz - w, oz + lz + w, sh.depth - oz},
+                             rest - i * p.tiles, chunk, sm);
     }
     grid.sync();
   }
@@ -714,12 +756,13 @@ cudaError_t launch_dma(DmaShards& sh, Args& p, int lz, int k, int n_iters,
                        cudaStream_t s) {
   auto* kernel = slab_run_dma_kernel<FLUX, WZ>;
   int blocks = 0;
-  cudaError_t e = cooperative_blocks((const void*)kernel, jobs, &blocks);
+  cudaError_t e =
+      cooperative_blocks((const void*)kernel, SMEM_BYTES<3>, jobs, &blocks);
   if (e != cudaSuccess) return e;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
   void* args[] = {&sh, &p, &lz, &k, &n_iters, &counters};
   e = cudaLaunchCooperativeKernel((const void*)kernel, blocks, THREADS, args,
-                                  SMEM_BYTES, s);
+                                  SMEM_BYTES<3>, s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -745,6 +788,7 @@ extern "C" int slab_run_dma_burgers(float* const* s0, float* const* s1,
                                     const float* lap, float dt, int zchunk,
                                     int n_iters, int* counters,
                                     int* grid_blocks, void* stream) {
+  constexpr int R = 3;  // WENO5 only
   const int depth = k * 3 * R;
   const int pz = lz + 2 * depth;
   if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||

@@ -4,8 +4,9 @@
 // Replaces the TPU kernels multigpu_advectiondiffusion_tpu/ops/pallas/
 // whole_run.py::_kernel (:28, launched by whole_run :50; fixed dt) and
 // ::_kernel_adaptive (:75, launched by whole_run_adaptive :107) with the
-// stage body fused_burgers2d.py::_stage (:79), for WENO5-JS/Z on one
-// device. There the Pallas grid is the iteration counter and the state
+// stage body fused_burgers2d.py::_stage (:79), for WENO5-JS/Z and
+// WENO7-JS on one device. There the Pallas grid is the iteration counter
+// and the state
 // lives in VMEM for the whole run. Here the counterpart is one persistent
 // cooperative grid whose blocks own tiles of the grid and run every step:
 //
@@ -132,18 +133,29 @@
 // 1.44x the count. With `body` 0 the same grid runs only its
 // grid.sync()s, one a step: chip_smoke.py reports that floor. PERF.md
 // has the times (a run(200) at 400^2 about 9x the bound).
+//
+// Order 7 (WENO7-JS): the same body with the reach R = 4 as a template
+// parameter: windows of the tile and 3R = 12 cells a side (clipped to 4
+// past the grid), stages on the tile and 8, 4, 0 cells a side, tiles of
+// at least 12 cells a side, and each face the e-form of weno7e.cuh in
+// runs of three (RUN + 6 split values a side; the last run of a line still
+// reads at most SPARE cells past the window). The planner takes the
+// order-7 instance's own numbers (11x12 tiles at the physical 400x408
+// grid). Counted as in K5's note, a WENO7 axis is 219 operations a cell
+// with each face once.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "weno5.cuh"
+#include "weno7e.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int R = 3;         // WENO5 reach
-constexpr int HALO = 3 * R;  // a job's window reaches 9 cells past its tile
+// R, the WENO reach (3: WENO5-JS/Z, 4: WENO7-JS), is a template parameter
+// of the body; a job's window reaches HALO = 3R cells past its tile.
 constexpr int THREADS = 768;
 constexpr int MIN_BLOCKS = 1;  // resident blocks an SM
 constexpr int NWARPS = THREADS / 32;
@@ -184,7 +196,9 @@ struct Job {
   int wy0, wy1, wx0, wx1;  // the window, clipped to [-R, n + R)
 };
 
+template <int R>
 __device__ __forceinline__ Job job_of(int j, const Args& p) {
+  constexpr int HALO = 3 * R;
   Job J;
   const int jy = j / p.mx, jx = j - jy * p.mx;
   J.y0 = (int)((long long)jy * p.ny / p.my);
@@ -318,11 +332,12 @@ __device__ __forceinline__ float combine(float vc, float rhs, float u,
 // that clamp to it; stage 3 writes it to `dst` too (every cell, or when
 // resident those within HALO of the tile's edges). Returns `mbits`
 // raised, with EMIT, by |f'(rk)|.
-template <int FLUX, int ST, bool EMIT>
+template <int R, int FLUX, int ST, bool EMIT>
 __device__ __forceinline__ unsigned int cell_store(
     float rk, int y, int x, int at, float* out, const Planes& sm,
     const Job& J, const Args& p, float* dst, bool resident,
     unsigned int mbits) {
+  constexpr int HALO = 3 * R;
   out[at] = rk;
   if (ST < 3 || resident) {
     float fp, fm;
@@ -367,12 +382,13 @@ __device__ __forceinline__ unsigned int cell_store(
 // cell, or when resident only those within HALO of the tile's edges).
 // Returns, with EMIT, the largest |f'(S_{k+1})| of this thread's cells as
 // bits (else 0).
-template <int FLUX, bool WZ, int ST, bool EMIT>
+template <int R, int FLUX, bool WZ, int ST, bool EMIT>
 __device__ __forceinline__ unsigned int stage(const float* v, float* out,
                                               const Planes& sm, const Job& J,
                                               const Args& p, float dt,
                                               float* dst, bool resident) {
   constexpr int E = R * (3 - ST);
+  constexpr int NV = RUN + 2 * R - 2;  // split values a run reads a side
   const int ya = max(J.y0 - E, 0), yb = min(J.y1 + E, p.ny);
   const int xa = max(J.x0 - E, 0), xb = min(J.x1 + E, p.nx);
   const int nr = yb - ya, nc = xb - xa;
@@ -394,14 +410,14 @@ __device__ __forceinline__ unsigned int stage(const float* v, float* out,
     const int dr = step / rx, dq = step - dr * rx;
     int t = threadIdx.x;
     for (; t < nxi; t += step) {
-      float F[RUN + 4], M[RUN + 4], h[RUN];
+      float F[NV], M[NV], h[RUN];
       const int at = base + r * P + RUN * q;
 #pragma unroll
-      for (int k = 0; k < RUN + 4; ++k) {
-        F[k] = sm.fp[at - 3 + k];
-        M[k] = sm.fm[at - 2 + k];
+      for (int k = 0; k < NV; ++k) {
+        F[k] = sm.fp[at - R + k];
+        M[k] = sm.fm[at - R + 1 + k];
       }
-      face_run<WZ, RUN>(F, M, h);
+      face_run_of<R, WZ, RUN>(F, M, h);
 #pragma unroll
       for (int j = 0; j < RUN; ++j) sm.hx[at + j] = h[j];
       r += dr;
@@ -417,14 +433,14 @@ __device__ __forceinline__ unsigned int stage(const float* v, float* out,
     int col = e - q * nc;
     const int dqy = step / nc, dc = step - dqy * nc;
     for (; e < nyi; e += step) {
-      float F[RUN + 4], M[RUN + 4], h[RUN];
+      float F[NV], M[NV], h[RUN];
       const int at = base + RUN * q * P + col;
 #pragma unroll
-      for (int k = 0; k < RUN + 4; ++k) {
-        F[k] = sm.fp[at + (k - 3) * P];
-        M[k] = sm.fm[at + (k - 2) * P];
+      for (int k = 0; k < NV; ++k) {
+        F[k] = sm.fp[at + (k - R) * P];
+        M[k] = sm.fm[at + (k - R + 1) * P];
       }
-      face_run<WZ, RUN>(F, M, h);
+      face_run_of<R, WZ, RUN>(F, M, h);
 #pragma unroll
       for (int j = 0; j < RUN; ++j) sm.hy[at + j * P] = h[j];
       q += dqy;
@@ -450,8 +466,8 @@ __device__ __forceinline__ unsigned int stage(const float* v, float* out,
     float rhs = -(dy + dx);
     if (p.viscous) rhs = rhs + lap_acc(v, at, P, vc, p);
     const float rk = combine<ST>(vc, rhs, ST == 1 ? 0.0f : sm.s[at], dt);
-    mbits = cell_store<FLUX, ST, EMIT>(rk, ya + r, xa + cc, at, out, sm, J,
-                                       p, dst, resident, mbits);
+    mbits = cell_store<R, FLUX, ST, EMIT>(rk, ya + r, xa + cc, at, out, sm,
+                                          J, p, dst, resident, mbits);
     r += dr;
     cc += dc;
     if (cc >= nc) {
@@ -482,7 +498,7 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
       __stcg(dst + y * p.nx + x, __ldcg(src + y * p.nx + x));
 }
 
-template <int FLUX, bool WZ, bool ADAPTIVE>
+template <int R, int FLUX, bool WZ, bool ADAPTIVE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 whole_run_kernel(const __grid_constant__ Args p) {
   extern __shared__ float smem[];
@@ -508,14 +524,14 @@ whole_run_kernel(const __grid_constant__ Args p) {
   for (int i = threadIdx.x; i < PLANES * p.plane; i += THREADS) smem[i] = 0.0f;
   // a resident block's job, worked out once (its 64-bit divisions)
   __shared__ Job own;
-  if (resident && threadIdx.x == 0) own = job_of(blockIdx.x, p);
+  if (resident && threadIdx.x == 0) own = job_of<R>(blockIdx.x, p);
 
   float dt = p.dt;
   float tacc = 0.0f;
   if (ADAPTIVE) {  // m of the initial state into word 0
     unsigned int mbits = 0u;
     for (int j = blockIdx.x; j < p.jobs; j += gridDim.x) {
-      const Job J = job_of(j, p);
+      const Job J = job_of<R>(j, p);
       const int w = J.x1 - J.x0, n = (J.y1 - J.y0) * w;
       for (int i = threadIdx.x; i < n; i += THREADS) {
         const int y = J.y0 + i / w, x = J.x0 + i % w;
@@ -543,18 +559,19 @@ whole_run_kernel(const __grid_constant__ Args p) {
     }
     unsigned int mbits = 0u;
     for (int j = blockIdx.x; j < p.jobs; j += gridDim.x) {
-      const Job J = resident ? own : job_of(j, p);
+      const Job J = resident ? own : job_of<R>(j, p);
       // a resident job's tile holds S_k: it reloads only its halo
       load_window<FLUX>(src, sm, J, p, resident && k > 0);
       // dt after the loads are issued, so the word's and their round
       // trips through L2 overlap (every block has a job)
       if (ADAPTIVE) dt = __fdiv_rn(p.cfl_dx, m < DT_FLOOR ? DT_FLOOR : m);
       __syncthreads();
-      stage<FLUX, WZ, 1, false>(sm.s, sm.t1, sm, J, p, dt, dst, resident);
+      stage<R, FLUX, WZ, 1, false>(sm.s, sm.t1, sm, J, p, dt, dst, resident);
       __syncthreads();
-      stage<FLUX, WZ, 2, false>(sm.t1, sm.t2, sm, J, p, dt, dst, resident);
+      stage<R, FLUX, WZ, 2, false>(sm.t1, sm.t2, sm, J, p, dt, dst,
+                                   resident);
       __syncthreads();
-      const unsigned int b = stage<FLUX, WZ, 3, ADAPTIVE>(
+      const unsigned int b = stage<R, FLUX, WZ, 3, ADAPTIVE>(
           sm.t2, sm.s, sm, J, p, dt, dst, resident);
       mbits = b > mbits ? b : mbits;
       // the planes are free for the block's next job (a resident job's
@@ -574,7 +591,7 @@ whole_run_kernel(const __grid_constant__ Args p) {
   const bool odd = p.n_iters & 1;
   if (!odd && !resident) return;
   for (int j = blockIdx.x; j < p.jobs; j += gridDim.x) {
-    const Job J = job_of(j, p);
+    const Job J = job_of<R>(j, p);
     if (resident)
       store_tile(p.S, sm.s, J, p);
     else
@@ -582,32 +599,41 @@ whole_run_kernel(const __grid_constant__ Args p) {
   }
 }
 
-// The kernel instance of `flux`, `weno_z` and ADAPTIVE.
+// The kernel instance of `flux`, `weno_z` and ADAPTIVE at order 5, and
+// of `flux` and ADAPTIVE at order 7 (WENO7-JS).
 template <bool ADAPTIVE>
-const void* instance_of(int flux, int weno_z) {
+const void* instance_of(int flux, int weno_z, int order) {
+  if (order == 7) {
+    switch (flux) {
+      case 0: return (const void*)whole_run_kernel<4, BURGERS, false, ADAPTIVE>;
+      case 1: return (const void*)whole_run_kernel<4, LINEAR, false, ADAPTIVE>;
+      default: return (const void*)whole_run_kernel<4, BUCKLEY, false, ADAPTIVE>;
+    }
+  }
   switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: return (const void*)whole_run_kernel<BURGERS, false, ADAPTIVE>;
-    case 1: return (const void*)whole_run_kernel<BURGERS, true, ADAPTIVE>;
-    case 2: return (const void*)whole_run_kernel<LINEAR, false, ADAPTIVE>;
-    case 3: return (const void*)whole_run_kernel<LINEAR, true, ADAPTIVE>;
-    case 4: return (const void*)whole_run_kernel<BUCKLEY, false, ADAPTIVE>;
-    default: return (const void*)whole_run_kernel<BUCKLEY, true, ADAPTIVE>;
+    case 0: return (const void*)whole_run_kernel<3, BURGERS, false, ADAPTIVE>;
+    case 1: return (const void*)whole_run_kernel<3, BURGERS, true, ADAPTIVE>;
+    case 2: return (const void*)whole_run_kernel<3, LINEAR, false, ADAPTIVE>;
+    case 3: return (const void*)whole_run_kernel<3, LINEAR, true, ADAPTIVE>;
+    case 4: return (const void*)whole_run_kernel<3, BUCKLEY, false, ADAPTIVE>;
+    default: return (const void*)whole_run_kernel<3, BUCKLEY, true, ADAPTIVE>;
   }
 }
 
-const void* instance(int flux, int weno_z, bool adaptive) {
-  return adaptive ? instance_of<true>(flux, weno_z)
-                  : instance_of<false>(flux, weno_z);
+const void* instance(int flux, int weno_z, bool adaptive, int order) {
+  return adaptive ? instance_of<true>(flux, weno_z, order)
+                  : instance_of<false>(flux, weno_z, order);
 }
 
 }  // namespace
 
 // Run n_iters SSP-RK3 steps on the (ny, nx) state S in place, T1 the
 // other state buffer and T2 scratch of S's shape (not used), in one
-// cooperative launch on `stream`. The grid is cut into my x mx tiles, a
-// job each; each side of a tile spans at least 9 cells where there is
-// more than one tile along it. `flux` is 0 (Burgers), 1 (linear, speed
-// `c`) or 2 (Buckley-Leverett); `weno_z` selects the WENO5-Z weights.
+// cooperative launch on `stream`. `order` is 5 (WENO5; `weno_z` selects
+// the WENO5-Z weights) or 7 (WENO7-JS, weno_z 0), of reach R = 3 or 4.
+// The grid is cut into my x mx tiles, a job each; each side of a tile
+// spans at least 3R cells where there is more than one tile along it.
+// `flux` is 0 (Burgers), 1 (linear, speed `c`) or 2 (Buckley-Leverett).
 // `inv_dx` points to 2 host floats (y, x) and `lap` to 10 host floats, or
 // is null for an inviscid run. With `t_sum` null the step is `dt`; else
 // it is adaptive (K7a): dt = cfl_dx / max(max|f'(S)|, 1e-12) before every
@@ -619,16 +645,19 @@ const void* instance(int flux, int weno_z, bool adaptive) {
 // the first CUDA error (0 on success); does not synchronise.
 extern "C" int whole_run_burgers2d(float* S, float* T1, float* T2, int ny,
                                    int nx, int flux, float c, int weno_z,
-                                   const float* inv_dx, const float* lap,
+                                   int order, const float* inv_dx,
+                                   const float* lap,
                                    float dt, float cfl_dx, float* wmax,
                                    float* t_sum, int n_iters, int my, int mx,
                                    int body, int* grid_blocks,
                                    int* smem_bytes, void* stream) {
   (void)T2;
+  const int R = order == 7 ? 4 : 3, HALO = 3 * R;
   if (ny < 1 || nx < 1 || n_iters < 0 || flux < 0 || flux > 2 || my < 1 ||
       mx < 1 || my > ny || mx > nx || (my > 1 && ny / my < HALO) ||
       (mx > 1 && nx / mx < HALO) || (long long)ny * nx > MAX_CELLS ||
-      (t_sum != nullptr && wmax == nullptr))
+      (t_sum != nullptr && wmax == nullptr) ||
+      (order != 5 && order != 7) || (order == 7 && weno_z))
     return (int)cudaErrorInvalidValue;
   Args p;
   p.S = S;
@@ -638,7 +667,7 @@ extern "C" int whole_run_burgers2d(float* S, float* T1, float* T2, int ny,
   p.my = my;
   p.mx = mx;
   p.jobs = my * mx;
-  // the widest window: the longest tile sides and 9 cells a side
+  // the widest window: the longest tile sides and HALO cells a side
   const int h = min((ny + my - 1) / my + 2 * HALO, ny + 2 * R);
   const int w = min((nx + mx - 1) / mx + 2 * HALO, nx + 2 * R);
   p.P = w + SPARE;
@@ -654,7 +683,7 @@ extern "C" int whole_run_burgers2d(float* S, float* T1, float* T2, int ny,
   p.n_iters = n_iters;
   p.body = body;
   const long long bytes = (long long)PLANES * p.plane * (long long)sizeof(float);
-  const void* kernel = instance(flux, weno_z, t_sum != nullptr);
+  const void* kernel = instance(flux, weno_z, t_sum != nullptr, order);
 
   int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -697,16 +726,19 @@ extern "C" int whole_run_burgers2d(float* S, float* T1, float* T2, int ny,
 
 // The card's numbers that K7 Burgers' plan (fused_burgers2d.py::
 // burgers2d_schedule) depends on, for the current device and the instance
-// of `flux`, `weno_z` and `adaptive`, into out[0..4]: its SMs; the blocks
+// of `flux`, `weno_z`, `adaptive` and `order`, into out[0..4]: its SMs; the
+// blocks
 // an SM the instance's threads and registers allow; the dynamic shared
 // memory a block may opt into; an SM's shared memory; and what each
 // resident block holds besides its dynamic shared memory (the runtime's
 // reserve and the kernel's static shared memory). Returns the first CUDA
 // error (0 on success).
 extern "C" int whole_run_burgers2d_card(int flux, int weno_z, int adaptive,
-                                        int* out) {
-  if (flux < 0 || flux > 2) return (int)cudaErrorInvalidValue;
-  const void* kernel = instance(flux, weno_z, adaptive != 0);
+                                        int order, int* out) {
+  if (flux < 0 || flux > 2 || (order != 5 && order != 7) ||
+      (order == 7 && weno_z))
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = instance(flux, weno_z, adaptive != 0, order);
   int dev = 0, reserved = 0;
   cudaFuncAttributes attr;
   cudaError_t e = cudaGetDevice(&dev);

@@ -17,19 +17,21 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
 * ``"xla"`` — the generic plain-PyTorch path, no kernel: WENO5-JS/Z and
   WENO7, every flux, viscous or not, fixed or adaptive dt;
 * 3-D ``"pallas_stage"`` — the fused per-stage stepper, one launch (K5)
-  per RK stage (:mod:`ops.kernels.fused_burgers`), WENO5-JS/Z;
+  per RK stage (:mod:`ops.kernels.fused_burgers`), WENO5-JS/Z and
+  WENO7-JS;
 * 3-D ``"pallas_slab"`` — at fixed dt the whole-run slab stepper, one
   cooperative launch (K6) per ``run`` (:mod:`ops.kernels.fused_slab_run`),
-  WENO5-JS/Z; adaptive dt, ``t_end`` mode and grids the kernel cannot
-  take decline to K5 with the JAX package's reason;
+  WENO5-JS/Z and WENO7-JS; adaptive dt, ``t_end`` mode and grids the
+  kernel cannot take decline to K5 with the JAX package's reason;
 * 3-D ``"pallas"`` — K5; at fixed dt it would take K6 where the port's
   gate says K6 beats K5 (``SlabRunBurgersStepper.profitable``), which,
   measured on the H100, is on no grid;
 * 2-D ``"pallas"``, ``"pallas_stage"``, ``"pallas_step"`` and
   ``"pallas_slab"`` — the whole-run stepper, one cooperative CUDA launch
   per ``run`` (:mod:`ops.kernels.fused_burgers2d`: K7 at fixed dt, K7a
-  adaptive), WENO5-JS/Z, as every fused flavor runs the whole-run
-  stepper in 2-D in the JAX package; on a mesh the per-stage stepper
+  adaptive), WENO5-JS/Z and WENO7-JS, as every fused flavor runs the
+  whole-run stepper in 2-D in the JAX package; on a mesh the per-stage
+  stepper
   of :mod:`ops.kernels.fused2d_sharded` (K8, or K8b's three bands a
   stage under ``overlap="split"``), both dt modes, with ``run_to``;
 * 3-D ``"pallas_step"`` — K5, as ``"pallas"`` (Burgers has no
@@ -39,11 +41,13 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   the config — the generic loop with the per-axis kernels
   (:mod:`ops.kernels.weno`, K12 in 3-D, K12b in 2-D, one launch per
   axis and RK stage, WENO5-JS/Z and WENO7-JS; the viscous term on
-  K11/K11b), float32 only; WENO7 under a fused flavor runs the plain
-  generic path, with the JAX package's reason;
+  K11/K11b), float32 only; WENO7 under a fused flavor whose fused rung
+  declines runs the plain generic path, with the JAX package's reason;
 * ``"auto"`` — not ported: construction raises
-  ``NotImplementedError``, as it does for WENO7 on a fused rung, 1-D
-  grids and ``precision="bf16"``.
+  ``NotImplementedError``, as it does for 1-D grids,
+  ``precision="bf16"``, and WENO7 on a fused rung of a device mesh or
+  under the ensemble engine (their order-7 kernels, K3/K4/K8/K2b, are
+  ROADMAP queue 1 item 2).
 
 On a device mesh (``mesh=``/``decomp=``) the generic and per-axis rungs
 run on every decomposition (adaptive dt the max over the shards), and
@@ -189,16 +193,30 @@ class BurgersSolver(SolverBase):
                 "(ROADMAP queue 1 item 8d); z-slab meshes, and "
                 "impl='xla'/'pallas_axis' on any mesh, run")
         if (cfg.weno_order == 7 and is_fused_impl(cfg.impl)
-                and self._fused_reason() is None):
-            if self.grid.ndim == 3:
-                kernel = "K5's and K6's"
-            else:
-                kernel = "K7's" if self.mesh is None else "K8's"
+                and self._fused_reason() is None and self.mesh is not None):
+            # one device runs K5, K6 and K7/K7a at order 7
+            kernel = ("K5's and K6's order-7 instances on a z-slab shard "
+                      "(sharded K5; K6's body as K3 and K4)"
+                      if self.grid.ndim == 3 else "K8's order-7 instance")
             raise NotImplementedError(
-                f"WENO7 on the fused rung needs {kernel} order-7 instance, "
-                "which is not ported yet (ROADMAP queue 1 item 2; "
-                "impl='xla' runs WENO7)"
+                f"WENO7 on the fused rung of a device mesh needs {kernel}, "
+                "not ported yet (ROADMAP queue 1 item 2; impl='xla' runs "
+                "WENO7)"
             )
+
+    def _ensemble_gate(self, operand_names=()) -> None:
+        """The shared gate, and WENO7 on a 3-D fused rung raises: the
+        batched engine's order-7 rungs (K2b, and K5 a member) are not
+        ported yet. In 2-D the whole-run rung declines batching to the
+        generic loop at every order, as in the JAX package."""
+        super()._ensemble_gate(operand_names)
+        cfg = self.cfg
+        if (cfg.weno_order == 7 and self.grid.ndim == 3
+                and is_fused_impl(cfg.impl) and self._fused_reason() is None):
+            raise NotImplementedError(
+                "WENO7 on a fused rung of the batched ensemble engine needs "
+                "K2b's order-7 instance, which is not ported yet (ROADMAP "
+                "queue 1 item 2; impl='xla' runs WENO7 ensembles)")
 
     def _op_impl(self) -> str:
         """Per-op kernel strategy of the generic loop (the JAX package's
@@ -360,6 +378,7 @@ class BurgersSolver(SolverBase):
                     self.grid.shape, self.grid.spacing, self.flux,
                     cfg.weno_variant, cfg.nu, self.device, dt=self.dt,
                     cfl=cfg.cfl if cfg.adaptive_dt else None,
+                    order=cfg.weno_order,
                 )
             return self._cache["fused"]
         slab = self._select_slab(mode)
@@ -375,7 +394,7 @@ class BurgersSolver(SolverBase):
             self._cache["fused"] = FusedBurgersStepper(
                 self.grid.spacing, self.flux,
                 cfg.weno_variant, cfg.nu, cfg.cfl, self.device, dt=self.dt,
-                **kwargs,
+                order=cfg.weno_order, **kwargs,
             )
         return self._cache["fused"]
 
@@ -433,7 +452,7 @@ class BurgersSolver(SolverBase):
         if cfg.adaptive_dt:
             return decline("adaptive dt rides the per-stage stepper")
         shape = self.local_shape()
-        G = SlabRunBurgersStepper.halo
+        G = 3 * HALO[cfg.weno_order]
         if self.mesh is not None:
             if not pinned:
                 return None

@@ -1,8 +1,9 @@
-"""Fused SSP-RK3 Burgers/WENO5 stepping (JAX
-``ops/pallas/fused_burgers.py`` counterpart, WENO5-JS/Z on one device).
+"""Fused SSP-RK3 Burgers/WENO stepping (JAX
+``ops/pallas/fused_burgers.py`` counterpart: WENO5-JS/Z on one device and
+on z-slab shards, WENO7-JS on one device).
 
 Each RK stage is ONE kernel launch (K5, ``csrc/fused_burgers_stage.cu``):
-the Lax–Friedrichs split, the WENO5 flux divergence along z, y and x,
+the Lax–Friedrichs split, the WENO flux divergence along z, y and x,
 the optional viscous O4 Laplacian and the RK combination, with the
 final stage of an adaptive run also emitting ``max|f'(u_next)|``. A
 block owns a ``TILE`` (y, x) tile and marches z: each plane's tile and
@@ -26,9 +27,12 @@ there, each z face once in a thread's register window
   if it cannot; for a CPU tensor — and only then — it runs
   :func:`stage_reference`, the plain PyTorch twin with the kernel's
   layout, operation order and roundings: the e-form reconstruction
-  (``ops/weno._weno5_side_nd_e``), ``num * reciprocal(den)``, terms
-  z, y, x. K5 is built with ``-fmad=false``, so on the card kernel and
-  twin round alike.
+  (``ops/weno._weno5_side_nd_e``, at order 7 ``_weno7_side_nd_e``),
+  ``num * reciprocal(den)``, terms z, y, x. K5 is built with
+  ``-fmad=false``, so on the card kernel and twin round alike.
+* The order (``StageParams.order``) sets the reach ``r = HALO[order]``:
+  3 for WENO5, 4 for WENO7-JS, whose instance is unsharded only (its
+  z-slab form is ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -49,14 +53,18 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
     FusedStepperBase,
 )
-from multigpu_advectiondiffusion_tpu_torch.ops.weno import HALO, _weno5_side_nd_e
+from multigpu_advectiondiffusion_tpu_torch.ops.weno import (
+    HALO,
+    _weno5_side_nd_e,
+    _weno7_side_nd_e,
+)
 from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import wait_exchange
 from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import (
     dt_from_wave_speed,
     max_wave_speed,
 )
 
-R = HALO[5]  # WENO5 stencil radius
+R = HALO[5]  # WENO5 stencil radius; the WENO7 instance's is HALO[7] = 4
 O4_COEFFS = (-1.0, 16.0, -30.0, 16.0, -1.0)  # / (12 dx^2), Laplace3d.m:22-25
 
 # SSP-RK3 stage combinations u_next = a*u + b*(v + dt*L(v))
@@ -86,23 +94,34 @@ FLUX_CODES = {"burgers": 0, "linear": 1, "buckley": 2}
 
 @dataclasses.dataclass(frozen=True)
 class StageParams:
-    """What one configuration's stages share: the flux, the WENO5
-    variant, ``1/dx`` per axis and the viscous taps ``c_j nu/(12 dx^2)``
-    (array axis order, z, y, x in 3-D; ``None`` when inviscid), all
-    rounded once to float32 as the TPU kernels round them."""
+    """What one configuration's stages share: the flux, the WENO variant,
+    ``1/dx`` per axis and the viscous taps ``c_j nu/(12 dx^2)`` (array
+    axis order, z, y, x in 3-D; ``None`` when inviscid), all rounded once
+    to float32 as the TPU kernels round them, and the WENO order (5, or
+    7 with the ``"js"`` variant)."""
 
     flux: Flux
     variant: str
     inv_dx: tuple
     lap_taps: Optional[tuple]
+    order: int = 5
+
+    @property
+    def r(self) -> int:
+        """The reach of the order's reconstruction (its halo)."""
+        return HALO[self.order]
 
 
 def stage_params(flux: Flux, variant: str, spacing: Sequence[float],
-                 nu: float) -> StageParams:
+                 nu: float, order: int = 5) -> StageParams:
     if flux.name not in FLUX_CODES:
         raise ValueError(f"no stage kernel for flux {flux.name!r}")
+    if order not in HALO:
+        raise ValueError(f"unsupported WENO order {order}; use 5 or 7")
     if variant not in ("js", "z"):
         raise ValueError(f"unknown WENO5 variant {variant!r}; use 'js' or 'z'")
+    if order == 7 and variant != "js":
+        raise ValueError("WENO7 supports only the 'js' variant")
     ndim = len(spacing)
     inv_dx = tuple(float(np.float32(1.0 / spacing[i])) for i in range(ndim))
     taps = None
@@ -112,7 +131,7 @@ def stage_params(flux: Flux, variant: str, spacing: Sequence[float],
             scale = float(nu) / (12.0 * spacing[i] * spacing[i])
             taps += [float(np.float32(c * scale)) for c in O4_COEFFS]
         taps = tuple(taps)
-    return StageParams(flux, variant, inv_dx, taps)
+    return StageParams(flux, variant, inv_dx, taps, int(order))
 
 
 # --------------------------------------------------------------------- #
@@ -140,19 +159,27 @@ def _split(flux: Flux, v):
     return 0.5 * (fu + a * v), 0.5 * (fu - a * v)
 
 
-def _divergence(P, M, axis: int, n: int, inv_dx: float, variant: str):
+def _divergence(P, M, axis: int, n: int, inv_dx: float, variant: str,
+                order: int = 5):
     """``(h[i+1/2] - h[i-1/2]) * (1/dx)`` along ``axis`` of the split
-    fluxes ``P``/``M`` (padded by R on ``axis`` only). Face ``f`` sits
-    right of cell ``f-1``: its minus window is P at cells ``f-3..f+1``,
-    its plus window M at cells ``f-2..f+2``."""
-    p = [P.narrow(axis, j, n + 1) for j in range(5)]
-    m = [M.narrow(axis, j + 1, n + 1) for j in range(5)]
-    nm, dm = _weno5_side_nd_e(*(p[j + 1] - p[j] for j in range(4)),
-                              variant, "minus")
-    np_, dp = _weno5_side_nd_e(*(m[j + 1] - m[j] for j in range(4)),
-                               variant, "plus")
-    h = (p[2] + m[2]) + (nm * torch.reciprocal(dm)
-                         + np_ * torch.reciprocal(dp))
+    fluxes ``P``/``M`` (padded by ``r = HALO[order]`` on ``axis`` only).
+    Face ``f`` sits right of cell ``f-1``: its minus window is P at cells
+    ``f-r..f+r-2``, its plus window M at cells ``f-r+1..f+r-1``."""
+    r = HALO[order]
+    p = [P.narrow(axis, j, n + 1) for j in range(2 * r - 1)]
+    m = [M.narrow(axis, j + 1, n + 1) for j in range(2 * r - 1)]
+    if order == 7:
+        nm, dm = _weno7_side_nd_e(*(p[j + 1] - p[j] for j in range(6)),
+                                  "minus")
+        np_, dp = _weno7_side_nd_e(*(m[j + 1] - m[j] for j in range(6)),
+                                   "plus")
+    else:
+        nm, dm = _weno5_side_nd_e(*(p[j + 1] - p[j] for j in range(4)),
+                                  variant, "minus")
+        np_, dp = _weno5_side_nd_e(*(m[j + 1] - m[j] for j in range(4)),
+                                   variant, "plus")
+    h = (p[r - 1] + m[r - 1]) + (nm * torch.reciprocal(dm)
+                                 + np_ * torch.reciprocal(dp))
     del p, m, nm, dm, np_, dp
     return (h.narrow(axis, 1, n) - h.narrow(axis, 0, n)) * inv_dx
 
@@ -168,8 +195,9 @@ def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
     ``(out, max|f'(out)|)`` over the planes written when ``emit``.
     Operation order and roundings are the kernel's: ``rhs = -((div_z +
     div_y) + div_x) [+ lap]`` (``-(div_y + div_x)`` in 2-D), ``rk =
-    b*(v + dt*rhs)`` and ``a*u + rk``. A z-slab shard passes ``zpad =
-    R`` (its block's ghost planes), ``global_nz`` and its global z
+    b*(v + dt*rhs)`` and ``a*u + rk``; the reach ``r`` is ``params.r``.
+    A z-slab shard passes ``zpad = R`` (its block's ghost planes),
+    ``global_nz`` and its global z
     offset ``oz``: a z neighbour is clamped at the global edges only.
     ``window = (k_begin, k_end)`` writes those block planes only, and
     ``lo``/``hi`` replace the ghost planes below/above (the split
@@ -177,8 +205,9 @@ def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
     """
     nz = v.shape[0] - 2 * zpad
     k0, k1 = window if window is not None else (0, nz)
+    r = params.r
     if zpad == 0 and window is None:
-        vp = _edge_pad(v, R)
+        vp = _edge_pad(v, r)
     else:
         if lo is not None or hi is not None:
             v = v.clone()
@@ -187,9 +216,9 @@ def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
             if hi is not None:
                 v[nz + zpad:] = hi
         gnz = nz if global_nz is None else global_nz
-        g = torch.arange(oz + k0 - R, oz + k1 + R, device=v.device)
+        g = torch.arange(oz + k0 - r, oz + k1 + r, device=v.device)
         rows = g.clamp_(0, gnz - 1) - oz + zpad
-        vp = _edge_pad_trailing(v.index_select(0, rows), R)
+        vp = _edge_pad_trailing(v.index_select(0, rows), r)
         v = v[zpad + k0:zpad + k1]
         if u is not None:
             u = u[zpad + k0:zpad + k1]
@@ -213,17 +242,18 @@ def _edge_pad_trailing(v: torch.Tensor, r: int) -> torch.Tensor:
 
 def _stage_rk(vp, v, u, dt, params: StageParams, a: float, b: float):
     """The stage's ``rk`` on the cells of ``v`` from ``vp``, ``v`` padded
-    by ``R`` on every side (ghosts or clamped copies)."""
+    by ``params.r`` on every side (ghosts or clamped copies)."""
     n = tuple(v.shape)
+    r = params.r
     dt = torch.as_tensor(dt, dtype=torch.float32, device=v.device)
     P, M = _split(params.flux, vp)
-    core = [slice(R, R + m) for m in n]
+    core = [slice(r, r + m) for m in n]
     rhs = None
     for axis in range(len(n)):
         idx = list(core)
         idx[axis] = slice(None)
         div = _divergence(P[tuple(idx)], M[tuple(idx)], axis, n[axis],
-                          params.inv_dx[axis], params.variant)
+                          params.inv_dx[axis], params.variant, params.order)
         rhs = div if rhs is None else rhs + div
         del div
     del P, M
@@ -233,7 +263,7 @@ def _stage_rk(vp, v, u, dt, params: StageParams, a: float, b: float):
         for axis in range(len(n)):
             for j in range(5):
                 idx = list(core)
-                idx[axis] = slice(R - 2 + j, R - 2 + j + n[axis])
+                idx[axis] = slice(r - 2 + j, r - 2 + j + n[axis])
                 term = vp[tuple(idx)] * params.lap_taps[5 * axis + j]
                 acc = term if acc is None else acc + term
         rhs = rhs + acc
@@ -249,21 +279,35 @@ def _stage_rk(vp, v, u, dt, params: StageParams, a: float, b: float):
 # --------------------------------------------------------------------- #
 # f32 operations the kernel issues (csrc/fused_burgers_stage.cu's note),
 # Burgers flux: the split of a value, a run of three faces and one face
-# alone by WENO5 variant, and a cell's divergences, their sum and
-# negation, the Laplacian and the combine
+# alone by WENO5 variant (RUN_OPS7 and FACE_OPS7: WENO7-JS), and a
+# cell's divergences, their sum and negation, the Laplacian and the
+# combine
 SPLIT_OPS = 6
 RUN_OPS = {"js": 305, "z": 335}
 FACE_OPS = {"js": 119, "z": 129}
+RUN_OPS7 = 661
+FACE_OPS7 = 227
 
 
-def tile_geometry() -> dict:
-    """A block's threads, its tile plane with the halo, the halo cells it
-    loads a plane, its runs of three x and y faces a plane and its static
-    shared memory (bytes): two buffers of v, f+ and f- on the tile plane,
-    the x and y faces and a word a warp."""
+def run_ops(variant: str, order: int = 5) -> int:
+    """f32 operations of a run of three faces (Burgers flux)."""
+    return RUN_OPS7 if order == 7 else RUN_OPS[variant]
+
+
+def face_ops(variant: str, order: int = 5) -> int:
+    """f32 operations of one face computed alone (Burgers flux)."""
+    return FACE_OPS7 if order == 7 else FACE_OPS[variant]
+
+
+def tile_geometry(order: int = 5) -> dict:
+    """A block's threads, its tile plane with the halo of the order's
+    reach, the halo cells it loads a plane, its runs of three x and y
+    faces a plane and its static shared memory (bytes): two buffers of v,
+    f+ and f- on the tile plane, the x and y faces and a word a warp."""
     ty, tx = TILE
+    r = HALO[order]
     threads = ty * tx
-    plane = (ty + 2 * R) * (tx + 2 * R)
+    plane = (ty + 2 * r) * (tx + 2 * r)
     runs = (ty * (tx + 1) + tx * (ty + 1)) // 3
     smem = 4 * (2 * 3 * plane + ty * (tx + 1) + (ty + 1) * tx
                 + threads // 32)
@@ -272,23 +316,26 @@ def tile_geometry() -> dict:
 
 
 def ops_issued(shape, zchunk: int = Z_CHUNK, *, has_u: bool, viscous: bool,
-               variant: str) -> int:
+               variant: str, order: int = 5) -> int:
     """f32 operations one unsharded K5 launch issues on an ``(nz, ny,
     nx)`` state with the Burgers flux: for every block of the grid
-    (tiles a plane times z chunks), each thread splits 7 + p values and
-    computes 1 + p z faces and p cells on a chunk of p planes, and the
-    block splits its halo and computes its runs of faces on each plane.
-    Threads outside the grid do the same work and write nothing."""
+    (tiles a plane times z chunks), each thread splits 2r + 1 + p values
+    and computes 1 + p z faces and p cells on a chunk of p planes, and
+    the block splits its halo and computes its runs of faces on each
+    plane. Threads outside the grid do the same work and write
+    nothing."""
     nz, ny, nx = shape
-    geo = tile_geometry()
+    geo = tile_geometry(order)
+    window = 2 * HALO[order] + 1
     blocks = -(-ny // TILE[0]) * -(-nx // TILE[1])
     cell = 6 + 3 + (30 if viscous else 0) + (5 if has_u else 3)
     total = 0
     for k in range(0, nz, zchunk):
         p = min(zchunk, nz - k)
-        thread = ((7 + p) * SPLIT_OPS + (1 + p) * FACE_OPS[variant]
+        thread = ((window + p) * SPLIT_OPS + (1 + p) * face_ops(variant, order)
                   + p * cell)
-        block = p * (geo["halo"] * SPLIT_OPS + geo["runs"] * RUN_OPS[variant])
+        block = p * (geo["halo"] * SPLIT_OPS
+                     + geo["runs"] * run_ops(variant, order))
         total += geo["threads"] * thread + block
     return blocks * total
 
@@ -308,13 +355,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def geometry() -> dict:
+def geometry(order: int = 5) -> dict:
     """The built kernel's tiling, as its library reports it: tile rows and
     columns, threads a block, static shared memory bytes, the blocks an
     SM can hold, registers and spilled bytes a thread (unsharded
-    WENO5-JS Burgers instance). Needs the card."""
+    WENO``order``-JS Burgers instance). Needs the card."""
     out = (ctypes.c_int * 7)()
-    rc = library().fused_burgers_stage_geometry(out)
+    rc = library().fused_burgers_stage_geometry(int(order), out)
     if rc != 0:
         raise RuntimeError(f"fused_burgers_stage_geometry: CUDA error {rc}")
     keys = ("tile_y", "tile_x", "threads", "smem_bytes", "blocks_per_sm",
@@ -328,10 +375,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build.build(SOURCE, NVCC_EXTRA).path))
     fn = lib.fused_burgers_stage
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, i, i, p, i, f, i, p, p, f, f, p, i, p, i, i,
-                   p, p, p]
+    fn.argtypes = [p, p, p, i, i, i, p, i, f, i, i, p, p, f, f, p, i, p, i,
+                   i, p, p, p]
     fn.restype = ctypes.c_int
-    lib.fused_burgers_stage_geometry.argtypes = [ctypes.c_void_p]
+    lib.fused_burgers_stage_geometry.argtypes = [ctypes.c_int,
+                                                 ctypes.c_void_p]
     lib.fused_burgers_stage_geometry.restype = ctypes.c_int
     return lib
 
@@ -356,8 +404,15 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
     current stream (no synchronisation), each block marching ``zchunk``
     z planes (:func:`stage_zchunk`'s plan when ``None``), and counts the
     launch in ``fused_burgers_stage.launches``; a CPU tensor runs
-    :func:`stage_reference`.
+    :func:`stage_reference`. At order 7 (``params.order``) only the
+    unsharded whole-block form exists (its z-slab form is ROADMAP queue
+    1 item 2): ``zpad``, ``window``, ``lo`` and ``hi`` raise.
     """
+    if params.order == 7 and (zpad or window is not None or lo is not None
+                              or hi is not None):
+        raise NotImplementedError(
+            "K5's WENO7 instance is unsharded: its z-slab form is not "
+            "ported yet (ROADMAP queue 1 item 2)")
     for name, t in (("v", v), ("u", u), ("out", out)):
         if t is not None:
             _check(name, t, v.shape, v.device)
@@ -407,7 +462,7 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
             v.data_ptr(), None if u is None else u.data_ptr(),
             out.data_ptr(), nz, ny, nx, dt.data_ptr(),
             FLUX_CODES[params.flux.name], float(c),
-            int(params.variant == "z"), inv_dx.ctypes.data,
+            int(params.variant == "z"), int(params.order), inv_dx.ctypes.data,
             None if taps is None else taps.ctypes.data,
             float(a), float(b), None if mx is None else mx.data_ptr(),
             int(zchunk), zgeo.ctypes.data, int(k0), int(k1),
@@ -426,8 +481,9 @@ fused_burgers_stage.launches = 0
 
 
 class FusedBurgersStepper(FusedStepperBase):
-    """Fused WENO5 runner for one (grid, flux, dt mode) configuration on
-    one device, or on one shard of a z-slab mesh: ``dt`` fixes the step
+    """Fused WENO runner for one (grid, flux, dt mode) configuration on
+    one device, or on one shard of a z-slab mesh (WENO5 only; ``order=7``
+    there raises, ROADMAP queue 1 item 2): ``dt`` fixes the step
     (CUDA-parity mode), else the CFL step ``float32(cfl min dx) /
     max(m, 1e-12)`` follows the wave speed ``m`` that the last stage of
     each step emits — the max over the shards (``reduce_max``), kept on
@@ -443,15 +499,18 @@ class FusedBurgersStepper(FusedStepperBase):
     ``SPLIT_BZ`` planes from the exchanged slabs (``exch``)."""
 
     device_scalars = True
-    halo = R
+    halo = R  # WENO5's; an order-7 instance sets its own
 
     def __init__(self, spacing, flux: Flux, variant: str, nu: float,
                  cfl: float, device, dt: float | None = None,
                  interior_shape=None, global_shape=None,
-                 overlap_split: bool = False, reduce_max=None):
+                 overlap_split: bool = False, reduce_max=None,
+                 order: int = 5):
         self.dtype = torch.float32
         self.device = torch.device(device)
-        self.params = stage_params(flux, variant, spacing, nu)
+        self.params = stage_params(flux, variant, spacing, nu, order)
+        self.order = int(order)
+        self.halo = HALO[self.order]
         self.spacing = tuple(spacing)
         self.cfl = float(cfl)
         self.adaptive = dt is None
@@ -461,6 +520,10 @@ class FusedBurgersStepper(FusedStepperBase):
                                else tuple(interior_shape))
         self.global_shape = tuple(global_shape or interior_shape or ())
         self.sharded = self.global_shape != (self.interior_shape or ())
+        if self.sharded and self.order == 7:
+            raise NotImplementedError(
+                "K5's WENO7 instance on a z-slab shard is not ported yet "
+                "(ROADMAP queue 1 item 2)")
         self.zpad = R if self.sharded else 0
         self.core_offsets = (self.zpad, 0, 0)
         self.exchange_depth = R

@@ -1,6 +1,7 @@
-"""Whole-run SSP-RK3 stepping for 2-D Burgers/WENO5: one kernel launch
-per run (JAX ``ops/pallas/fused_burgers2d.py`` counterpart; kernels K7,
-Burgers body, and K7a, adaptive dt, both ``csrc/whole_run_burgers2d.cu``).
+"""Whole-run SSP-RK3 stepping for 2-D Burgers/WENO5 and WENO7-JS: one
+kernel launch per run (JAX ``ops/pallas/fused_burgers2d.py`` counterpart;
+kernels K7, Burgers body, and K7a, adaptive dt, both
+``csrc/whole_run_burgers2d.cu``, each at order 5 and 7).
 
 A reference-scale 2-D grid (400×406, ``MultiGPU/Burgers2d_Baseline``)
 is under 1 MB in float32: the state is read from device memory once,
@@ -18,13 +19,17 @@ launch (:mod:`whole_run`), and the result is written once.
   kernel (K7a), and the float32 sum of the steps' dt read back once.
 * The plain stage is K5's twin (:func:`fused_burgers.stage_reference`),
   which is dimension-generic: its Lax–Friedrichs split
-  (``fused_burgers._split``), e-form WENO5 (``ops/weno._weno5_side_nd_e``)
-  and O4 taps, two axes instead of three. K7 is built with
-  ``-fmad=false``, as K5 is, so kernel and twin round alike.
+  (``fused_burgers._split``), e-form WENO5 (``ops/weno._weno5_side_nd_e``;
+  at order 7 ``_weno7_side_nd_e``) and O4 taps, two axes instead of
+  three. K7 is built with ``-fmad=false``, as K5 is, so kernel and twin
+  round alike.
 * The kernel cuts the grid into tiles, a job each, that keep their window
   and three stages in shared memory, compute each split and face once a
   stage, and exchange only the state, one grid-wide barrier a step;
-  :func:`burgers2d_schedule` plans the tiles on the host.
+  :func:`burgers2d_schedule` plans the tiles on the host. The window
+  reaches ``3r`` cells past a tile, ``r = HALO[order]``: 9 at order 5,
+  12 at order 7, whose instance has its own registers and shared memory
+  (``card_limits`` keys on the order).
 """
 
 from __future__ import annotations
@@ -40,34 +45,41 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels import whole_run as wr
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_burgers import (
     FLUX_CODES,
     NVCC_EXTRA,
-    RUN_OPS,
     SPLIT_OPS,
     R,
     StageParams,
+    run_ops,
     stage_params,
     stage_reference as _stage_nd,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion2d import (
     SMEM_GRANULE,
 )
+from multigpu_advectiondiffusion_tpu_torch.ops.weno import HALO as REACH
 from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import (
     advective_dt,
 )
 
 SOURCE = "whole_run_burgers2d.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _F, _F, _P, _P, _I, _I,
-             _I, _I, _P, _P, _P)
+_ARGTYPES = (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _F, _F, _P, _P, _I,
+             _I, _I, _I, _P, _P, _P)
 # the kernel's geometry (THREADS, HALO, RUN, SPARE and PLANES in the
 # source): a block's threads, the cells a job's window reaches past its
-# tile (3 stages of R), the faces a thread computes at once, the rows and
-# columns the last run of a line reads past a window, and the shared
-# planes of a block (S, t1, t2, f+, f-, the x and y faces)
+# tile (3 stages of R; at order 7 3 * REACH[7] = 12, halo_of), the faces
+# a thread computes at once, the rows and columns the last run of a line
+# reads past a window, and the shared planes of a block (S, t1, t2, f+,
+# f-, the x and y faces)
 THREADS = 768
 HALO = 3 * R
 RUN = 3
 SPARE = 2
 PLANES = 7
+
+
+def halo_of(order: int = 5) -> int:
+    """The cells a job's window reaches past its tile at ``order``."""
+    return 3 * REACH[order]
 
 
 def library():
@@ -83,13 +95,14 @@ def _device_index(device) -> int:
 
 def _instance(params: StageParams, adaptive: bool) -> tuple:
     return (FLUX_CODES[params.flux.name], int(params.variant == "z"),
-            int(adaptive))
+            int(adaptive), int(params.order))
 
 
 def card_limits(device, params: StageParams, adaptive: bool) -> dict:
     """The numbers of the CUDA ``device`` that :func:`burgers2d_schedule`
-    takes for the kernel instance of ``params``' flux and variant and the
-    dt mode, as the C entry reads them (``whole_run_burgers2d_card``):
+    takes for the kernel instance of ``params``' flux, variant and order
+    and the dt mode, as the C entry reads them
+    (``whole_run_burgers2d_card``):
     ``sms``; ``blocks_per_sm``, what the instance's threads and registers
     allow; ``smem_block``, the dynamic shared memory a block may opt into;
     ``smem_sm``, an SM's; ``smem_reserved``, what a resident block holds
@@ -99,12 +112,13 @@ def card_limits(device, params: StageParams, adaptive: bool) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _card_limits(index: int, flux: int, weno_z: int, adaptive: int) -> dict:
+def _card_limits(index: int, flux: int, weno_z: int, adaptive: int,
+                 order: int = 5) -> dict:
     fn = library().whole_run_burgers2d_card
-    fn.argtypes, fn.restype = [_I, _I, _I, _P], _I
+    fn.argtypes, fn.restype = [_I, _I, _I, _I, _P], _I
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(index):
-        rc = fn(flux, weno_z, adaptive, out)
+        rc = fn(flux, weno_z, adaptive, order, out)
     if rc != 0:
         raise RuntimeError(f"whole_run_burgers2d_card: CUDA error {rc}")
     return dict(zip(("sms", "blocks_per_sm", "smem_block", "smem_sm",
@@ -122,18 +136,18 @@ def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
 
 
 @functools.lru_cache(maxsize=4096)
-def _axis(n: int, m: int) -> tuple:
+def _axis(n: int, m: int, r: int = R) -> tuple:
     """Along an axis of ``n`` cells cut into ``m`` near-equal tiles (tile
     t spans ``[t n // m, (t+1) n // m)``, as in the source), for each
-    tile: the cells stages 1, 2, 3 evaluate (the tile and 6, 3, 0 cells a
-    side, clipped to the axis), its window's cells (9 a side, clipped to
-    ``[-R, n + R)``) and its own cells."""
+    tile: the cells stages 1, 2, 3 evaluate (the tile and 2r, r, 0 cells
+    a side, clipped to the axis), its window's cells (3r a side, clipped
+    to ``[-r, n + r)``) and its own cells; ``r`` the reach."""
     tiles = []
     for t in range(m):
         a, b = t * n // m, (t + 1) * n // m
         tiles.append((tuple(min(b + e, n) - max(a - e, 0)
-                            for e in (2 * R, R, 0)),
-                      min(b + HALO, n + R) - max(a - HALO, -R), b - a))
+                            for e in (2 * r, r, 0)),
+                      min(b + 3 * r, n + r) - max(a - 3 * r, -r), b - a))
     return tuple(tiles)
 
 
@@ -150,7 +164,8 @@ def _cell_ops(stage: int, *, viscous: bool, adaptive: bool,
 
 
 def _job_ops(ay: tuple, ax: tuple, resident: bool, *, viscous: bool = False,
-             variant: str = "js", adaptive: bool = False) -> int:
+             variant: str = "js", adaptive: bool = False,
+             order: int = 5) -> int:
     """f32 operations a job of tile (``ay``, ``ax``, entries of
     :func:`_axis`) issues in a step: the splits of the cells it loads
     (its halo when resident, else its window), and on each stage's
@@ -163,19 +178,21 @@ def _job_ops(ay: tuple, ax: tuple, resident: bool, *, viscous: bool = False,
     for s in range(3):
         nr, nc = rows[s], cols[s]
         runs = nr * (nc // RUN + 1) + nc * (nr // RUN + 1)
-        ops += runs * RUN_OPS[variant] + nr * nc * _cell_ops(
+        ops += runs * run_ops(variant, order) + nr * nc * _cell_ops(
             s + 1, viscous=viscous, adaptive=adaptive,
             split=s < 2 or resident)
     return ops
 
 
-def _tiles_plan(ny: int, nx: int, my: int, mx: int, card: dict) -> dict:
+def _tiles_plan(ny: int, nx: int, my: int, mx: int, card: dict,
+                order: int = 5) -> dict:
     """The counts of K7's launch on ``my`` x ``mx`` tiles (see
     :func:`burgers2d_schedule`); ``blocks`` 0 where a block's shared
     memory does not fit the card."""
     jobs = my * mx
-    h = min(-(-ny // my) + 2 * HALO, ny + 2 * R)
-    w = min(-(-nx // mx) + 2 * HALO, nx + 2 * R)
+    r = REACH[order]
+    h = min(-(-ny // my) + 6 * r, ny + 2 * r)
+    w = min(-(-nx // mx) + 6 * r, nx + 2 * r)
     smem = PLANES * (h + SPARE) * (w + SPARE) * 4
     held = -(-(smem + card["smem_reserved"]) // SMEM_GRANULE) * SMEM_GRANULE
     per_sm = (min(card["blocks_per_sm"], card["smem_sm"] // held)
@@ -185,19 +202,20 @@ def _tiles_plan(ny: int, nx: int, my: int, mx: int, card: dict) -> dict:
     rounds = -(-jobs // max(blocks, 1))
     shared = -(-blocks // card["sms"])  # blocks that take turns on an SM
     # the job of the most stage-1 cells along each axis
-    ay = max(_axis(ny, my), key=lambda t: (t[0][0], t[2]))
-    ax = max(_axis(nx, mx), key=lambda t: (t[0][0], t[2]))
+    ay = max(_axis(ny, my, r), key=lambda t: (t[0][0], t[2]))
+    ax = max(_axis(nx, mx, r), key=lambda t: (t[0][0], t[2]))
     return {"tiles": (my, mx), "tile": (-(-ny // my), -(-nx // mx)),
             "window": (h, w), "jobs": jobs, "blocks": blocks,
             "resident": resident, "rounds": rounds,
-            "cost": rounds * shared * _job_ops(ay, ax, resident),
+            "cost": rounds * shared * _job_ops(ay, ax, resident,
+                                               order=order),
             "smem_bytes": smem}
 
 
-def _allowed(n: int, m: int) -> bool:
+def _allowed(n: int, m: int, order: int = 5) -> bool:
     """Whether ``m`` tiles along an axis of ``n`` cells are allowed: every
-    side ``HALO`` cells or more where there is more than one."""
-    return 1 <= m <= n and (m == 1 or n // m >= HALO)
+    side :func:`halo_of` cells or more where there is more than one."""
+    return 1 <= m <= n and (m == 1 or n // m >= halo_of(order))
 
 
 def _card(sms, blocks_per_sm, smem_block, smem_sm, smem_reserved) -> dict:
@@ -208,18 +226,19 @@ def _card(sms, blocks_per_sm, smem_block, smem_sm, smem_reserved) -> dict:
 
 def burgers2d_tilings(ny: int, nx: int, *, sms: int, blocks_per_sm: int,
                       smem_block: int, smem_sm: int,
-                      smem_reserved: int) -> list:
+                      smem_reserved: int, order: int = 5) -> list:
     """The plans (:func:`burgers2d_schedule`'s counts) of every allowed
     tiling of an ``(ny, nx)`` grid with at most four jobs a block the
     card could keep resident, that fits the card's shared memory."""
     ny, nx = int(ny), int(nx)
     card = _card(sms, blocks_per_sm, smem_block, smem_sm, smem_reserved)
     most = card["sms"] * card["blocks_per_sm"]
+    halo = halo_of(order)
     plans = []
-    for my in range(1, (ny // HALO if ny >= 2 * HALO else 1) + 1):
-        for mx in range(1, min(nx // HALO if nx >= 2 * HALO else 1,
+    for my in range(1, (ny // halo if ny >= 2 * halo else 1) + 1):
+        for mx in range(1, min(nx // halo if nx >= 2 * halo else 1,
                                4 * most // my) + 1):
-            plan = _tiles_plan(ny, nx, my, mx, card)
+            plan = _tiles_plan(ny, nx, my, mx, card, order)
             if plan["blocks"] > 0:
                 plans.append(plan)
     return plans
@@ -227,36 +246,39 @@ def burgers2d_tilings(ny: int, nx: int, *, sms: int, blocks_per_sm: int,
 
 def burgers2d_schedule(ny: int, nx: int, *, sms: int, blocks_per_sm: int,
                        smem_block: int, smem_sm: int, smem_reserved: int,
-                       tiles: tuple | None = None) -> dict:
-    """K7 Burgers' plan for an ``(ny, nx)`` grid on a card of ``sms`` SMs
-    (the numbers of :func:`card_limits`): the grid cut into ``tiles =
-    (my, mx)`` near-equal tiles, a job each, every side at least ``HALO``
-    cells where an axis has more than one tile. Counts: the longest tile
-    sides, the widest window (the tile and ``HALO`` cells a side, clipped
-    to ``R`` past the grid), the jobs, the blocks of the cooperative grid
+                       tiles: tuple | None = None, order: int = 5) -> dict:
+    """K7 Burgers' plan at WENO ``order`` (reach ``r``: 3 at order 5, 4
+    at order 7) for an ``(ny, nx)`` grid on a card of ``sms`` SMs (the
+    numbers of :func:`card_limits` for that order's instance): the grid
+    cut into ``tiles = (my, mx)`` near-equal tiles, a job each, every
+    side at least ``3r`` cells (:func:`halo_of`) where an axis has more
+    than one tile. Counts: the longest tile sides, the widest window (the
+    tile and ``3r`` cells a side, clipped to ``r`` past the grid), the
+    jobs, the blocks of the cooperative grid
     (as many as the card keeps resident with the plan's shared memory, as
     the C entry's occupancy query finds, and at most one a job), whether
     each job keeps its window resident (a block each), the rounds of jobs
     a block runs, the shared memory a block uses (``PLANES`` planes of the
     widest window and ``SPARE`` rows and columns), and the cost: the f32
     operations a step of the busiest SM issues (:func:`_job_ops` of the
-    largest job, WENO5-JS, inviscid, times the rounds of jobs and the
-    blocks that share an SM). With ``tiles`` None, the plan of
-    :func:`burgers2d_tilings` that costs the least, of equal ones the one
-    with the fewest jobs."""
+    largest job, WENO5-JS or WENO7-JS, inviscid, times the rounds of
+    jobs and the blocks that share an SM). With ``tiles`` None, the plan
+    of :func:`burgers2d_tilings` that costs the least, of equal ones the
+    one with the fewest jobs."""
     ny, nx = int(ny), int(nx)
     card = _card(sms, blocks_per_sm, smem_block, smem_sm, smem_reserved)
     if tiles is not None:
         my, mx = (int(t) for t in tiles)
-        if not (_allowed(ny, my) and _allowed(nx, mx)):
+        if not (_allowed(ny, my, order) and _allowed(nx, mx, order)):
             raise ValueError(f"tiles {tuple(tiles)} of a {(ny, nx)} grid: a "
-                             f"tile side must span {HALO} cells or more")
-        plan = _tiles_plan(ny, nx, my, mx, card)
+                             f"tile side must span {halo_of(order)} cells "
+                             f"or more")
+        plan = _tiles_plan(ny, nx, my, mx, card, order)
         if plan["blocks"] == 0:
             raise ValueError(f"tiles {tuple(tiles)} need "
                              f"{plan['smem_bytes']} B of shared memory")
         return plan
-    plans = burgers2d_tilings(ny, nx, **card)
+    plans = burgers2d_tilings(ny, nx, **card, order=order)
     if not plans:
         raise ValueError(f"no tiling of a {(ny, nx)} grid fits "
                          f"{card['smem_block']} B of shared memory")
@@ -266,20 +288,23 @@ def burgers2d_schedule(ny: int, nx: int, *, sms: int, blocks_per_sm: int,
 @functools.lru_cache(maxsize=256)
 def _plan(ny: int, nx: int, tiles, *key) -> dict:
     """:func:`burgers2d_schedule`'s plan for ``tiles`` (None: the
-    planner's) on the card and kernel instance ``key``, worked out once a
-    shape, card and instance; not to be changed."""
-    return burgers2d_schedule(ny, nx, **_card_limits(*key), tiles=tiles)
+    planner's) on the card and kernel instance ``key`` (its last entry
+    the order), worked out once a shape, card and instance; not to be
+    changed."""
+    return burgers2d_schedule(ny, nx, **_card_limits(*key), tiles=tiles,
+                              order=key[-1])
 
 
 def ops_issued(ny: int, nx: int, plan: dict, *, viscous: bool,
-               variant: str, adaptive: bool) -> int:
+               variant: str, adaptive: bool, order: int = 5) -> int:
     """f32 operations one step of a K7 run on ``plan`` (a
-    :func:`burgers2d_schedule` plan) issues with the Burgers flux, past
-    its first step: :func:`_job_ops` of every job."""
+    :func:`burgers2d_schedule` plan of the same order) issues with the
+    Burgers flux, past its first step: :func:`_job_ops` of every job."""
     my, mx = plan["tiles"]
+    r = REACH[order]
     return sum(_job_ops(ay, ax, plan["resident"], viscous=viscous,
-                        variant=variant, adaptive=adaptive)
-               for ay in _axis(ny, my) for ax in _axis(nx, mx))
+                        variant=variant, adaptive=adaptive, order=order)
+               for ay in _axis(ny, my, r) for ax in _axis(nx, mx, r))
 
 
 def whole_run_burgers2d(S, T1, T2, num_iters: int, *, params: StageParams,
@@ -323,7 +348,7 @@ def whole_run_burgers2d(S, T1, T2, num_iters: int, *, params: StageParams,
         rc = library().whole_run_burgers2d(
             S.data_ptr(), T1.data_ptr(), T2.data_ptr(), ny, nx,
             FLUX_CODES[params.flux.name], float(c),
-            int(params.variant == "z"), inv_dx.ctypes.data,
+            int(params.variant == "z"), int(params.order), inv_dx.ctypes.data,
             None if taps is None else taps.ctypes.data, dt32, cfl_dx,
             None if wmax is None else wmax.data_ptr(),
             None if t_sum is None else t_sum.data_ptr(), n, my, mx,
@@ -348,23 +373,24 @@ def whole_run_burgers2d(S, T1, T2, num_iters: int, *, params: StageParams,
 
 
 class FusedBurgers2DStepper:
-    """Whole-run WENO5 stepper for one (grid, flux, dt mode) configuration
-    on one device. Exactly one of ``dt`` (fixed, CUDA parity) and
-    ``cfl`` (adaptive) is given, as the JAX stepper takes exactly one of
-    ``dt`` and ``dt_fn`` (``fused_burgers2d.py:126-127``). It has no
-    ``run_to``: ``advance_to`` runs the generic loop."""
+    """Whole-run WENO5 / WENO7-JS stepper for one (grid, flux, dt mode,
+    order) configuration on one device. Exactly one of ``dt`` (fixed,
+    CUDA parity) and ``cfl`` (adaptive) is given, as the JAX stepper takes
+    exactly one of ``dt`` and ``dt_fn`` (``fused_burgers2d.py:126-127``).
+    It has no ``run_to``: ``advance_to`` runs the generic loop."""
 
     engaged_label = "fused-whole-run"
 
     def __init__(self, interior_shape, spacing, flux: Flux, variant: str,
                  nu: float, device, dt: float | None = None,
-                 cfl: float | None = None):
+                 cfl: float | None = None, order: int = 5):
         if (dt is None) == (cfl is None):
             raise ValueError("provide exactly one of dt/cfl")
         self.interior_shape = tuple(interior_shape)
         self.dtype = torch.float32
         self.device = torch.device(device)
-        self.params = stage_params(flux, variant, spacing, nu)
+        self.params = stage_params(flux, variant, spacing, nu, order)
+        self.halo = self.params.r
         self.spacing = tuple(spacing)
         self.dt = None if dt is None else float(dt)
         self.cfl = None if cfl is None else float(cfl)
@@ -375,9 +401,9 @@ class FusedBurgers2DStepper:
         exchange."""
         return {
             "kernel": self.engaged_label,
-            "stage_radius": R,
+            "stage_radius": self.halo,
             "fused_stages": 1,
-            "ghost_depth": R,
+            "ghost_depth": self.halo,
             "exchange_depth": None,
             "steps_per_exchange": 1,
             "storage_dtype": "float32",

@@ -2,7 +2,7 @@
 fused step of a run in ONE cooperative kernel launch (JAX
 ``ops/pallas/fused_slab_run.py`` counterpart, its single-device parts;
 kernels K2, diffusion, ``csrc/fused_step_diffusion.cu``, and K6,
-Burgers/WENO5, ``csrc/slab_run_burgers.cu``).
+Burgers/WENO5 and WENO7-JS, ``csrc/slab_run_burgers.cu``).
 
 On the TPU the Pallas grid is ``(timestep, z-slab)`` and runs in order:
 each slab, loaded with ``G = 3h`` ghost rows a side, fuses the three RK
@@ -73,6 +73,11 @@ jobs spread well over the resident blocks, and count them.
 * ``supported``/``profitable`` are the port's gates, for the H100, in
   place of the JAX package's TPU VMEM model (PERF.md lists the shapes
   where the two disagree).
+* WENO7-JS (``params.order == 7``, reach 4, ``G = 12``) has K6's
+  instance only, on 24x24 tiles (``BURGERS_TILE7``: the three stages'
+  windows of 32x32 tiles would need 322 KB of shared memory); its K3,
+  K4 and K2b instances are ROADMAP queue 1 item 2, and their wrappers
+  raise at order 7.
 """
 
 from __future__ import annotations
@@ -122,6 +127,9 @@ BURGERS_SOURCE = "slab_run_burgers.cu"
 # (H100 80GB HBM3, 700 W), which waves x (planes + 8.3) fits; the plan
 # takes 136 there
 BURGERS_TILE = 32
+# the WENO7-JS instance's tiles (csrc/slab_run_burgers.cu, Reach<4>): the
+# largest edge whose three stage windows fit a block's shared memory
+BURGERS_TILE7 = 24
 BURGERS_CHUNK_COST = 10
 # the kernels index the state with 32-bit integers
 MAX_CELLS = 2**31 - 1
@@ -132,8 +140,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # one entry a source for K2/K6 and K2b: the member count follows S1
 _K2_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P, _P,
                 _P)
-_K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I, _I, _P,
-                _P, _P)
+_K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _F, _I, _I,
+                _P, _P, _P)
 _K3D_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
                  _F, _I, _P)
 _K3B_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
@@ -153,29 +161,34 @@ def job_counters(device) -> torch.Tensor:
 
 
 def burgers_schedule(window: int, ny: int, nx: int, blocks: int,
-                     units: int = 1, zchunk: int | None = None) -> dict:
+                     units: int = 1, zchunk: int | None = None,
+                     order: int = 5) -> dict:
     """One step's jobs of K6, K2b (``units`` members), K4 (``units``
     shards) or K3 on a ``window``-plane output window of an ``(ny, nx)``
-    plane over ``blocks`` resident blocks: the 32x32 tiles, a job's z
-    planes, the chunks, the jobs and the waves (jobs a block). A job
+    plane over ``blocks`` resident blocks: the 32x32 tiles (24x24 at
+    order 7), a job's z planes, the chunks, the jobs and the waves (jobs
+    a block). A job
     marches ``zchunk`` planes (the last chunk the rest); with None, the
     planned count: of the splits of the window into n = 1..16 near-equal
     chunks, the one whose jobs, rounded up to whole waves of ``blocks``,
     cost the least, a chunk costing its planes plus
     ``BURGERS_CHUNK_COST``."""
-    tiles = -(-ny // BURGERS_TILE) * -(-nx // BURGERS_TILE)
+    edge = BURGERS_TILE7 if order == 7 else BURGERS_TILE
+    tiles = -(-ny // edge) * -(-nx // edge)
     return fds.plan_jobs(window, tiles, blocks, units, zchunk,
                          lambda size, jobs: -(-jobs // blocks)
                          * (size + BURGERS_CHUNK_COST))
 
 
 def burgers_zchunk(window: int, ny: int, nx: int, units: int,
-                   device) -> int:
+                   device, order: int = 5) -> int:
     """The z planes of a job that the Burgers wrappers launch with when
     no ``zchunk`` is given: :func:`burgers_schedule`'s plan for one
-    resident block an SM of ``device``."""
+    resident block an SM of ``device`` (both orders' instances hold one
+    block an SM)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return burgers_schedule(window, ny, nx, sms, units)["chunk_planes"]
+    return burgers_schedule(window, ny, nx, sms, units,
+                            order=order)["chunk_planes"]
 
 
 def ping_pong(step, S0, S1, num_iters: int):
@@ -301,6 +314,15 @@ def burgers_step_reference(S, out, dt, *, params: fb.StageParams):
     return fb.stage_reference(T2, S, out, dt, params=params, a=a3, b=b3)
 
 
+def _order5_only(params: fb.StageParams, kernel: str) -> None:
+    """Raise for a WENO7 ``params`` on a slab kernel whose order-7
+    instance is not ported (K3, K4, K2b)."""
+    if params.order != 5:
+        raise NotImplementedError(
+            f"{kernel}'s WENO7 instance is not ported yet (ROADMAP queue 1 "
+            "item 2); K6 runs WENO7 on one device")
+
+
 def _burgers_args(params: fb.StageParams):
     """K6's/K2b's host arguments for ``params``: the flux code, the
     linear speed, the variant flag, ``inv_dx`` and the viscous taps (or
@@ -320,7 +342,8 @@ def _launch_burgers(S0, S1, num_iters: int, dt, params, zchunk,
     block count."""
     B, nz, ny, nx = S0.shape
     code, c, weno_z, inv_dx, taps = _burgers_args(params)
-    planes = zchunk or burgers_zchunk(nz, ny, nx, B, S0.device)
+    planes = zchunk or burgers_zchunk(nz, ny, nx, B, S0.device,
+                                      params.order)
     blocks = ctypes.c_int(0)
     counters = job_counters(S0.device)
 
@@ -328,7 +351,8 @@ def _launch_burgers(S0, S1, num_iters: int, dt, params, zchunk,
         return wr.library(BURGERS_SOURCE, "slab_run_burgers", _K6_ARGTYPES,
                           fb.NVCC_EXTRA).slab_run_burgers(
             S0.data_ptr(), S1.data_ptr(), B, nz, ny, nx, code, c, weno_z,
-            inv_dx.ctypes.data, None if taps is None else taps.ctypes.data,
+            params.order, inv_dx.ctypes.data,
+            None if taps is None else taps.ctypes.data,
             float(np.float32(dt)), planes, int(num_iters),
             counters.data_ptr(), ctypes.byref(blocks), wr.stream_of(S0))
 
@@ -340,8 +364,9 @@ def _launch_burgers(S0, S1, num_iters: int, dt, params, zchunk,
 def slab_run_burgers(S0, S1, num_iters: int, dt, *, params: fb.StageParams,
                      zchunk=None,
                      grid_blocks: list | None = None):
-    """``num_iters`` fused fixed-dt WENO5 steps on two unpadded
-    ``(nz, ny, nx)`` buffers, ``S0`` holding the initial state; returns
+    """``num_iters`` fused fixed-dt WENO steps (``params.order`` 5 or 7)
+    on two unpadded ``(nz, ny, nx)`` buffers, ``S0`` holding the initial
+    state; returns
     the buffer that holds the result (``S0`` after an even count, ``S1``
     after an odd one). ``dt`` is rounded to float32. A CUDA tensor
     launches K6 once on the current stream (no synchronisation), counted
@@ -380,7 +405,8 @@ def slab_run_burgers_batched(S0, S1, num_iters: int, dt, *,
     after an odd one). A CUDA tensor launches the kernel once on the
     current stream for the whole batch, counted in
     ``slab_run_burgers_batched.launches``; a CPU tensor runs the twin,
-    K6's twin per member."""
+    K6's twin per member. WENO5 only."""
+    _order5_only(params, "K2b")
     _check_batched(S0, S1, 1)
     if S0.device.type == "cpu":
         return ping_pong_members(lambda src, dst: burgers_step_reference(
@@ -560,6 +586,7 @@ def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
     :func:`slab_step_diffusion`'s). A CUDA tensor launches the kernel once
     on the current stream, counted in ``slab_step_burgers.launches``; a
     CPU tensor runs the twin."""
+    _order5_only(params, "K3")
     kw = dict(depth=depth, window=window, global_nz=global_nz, oz=oz)
     if S.device.type == "cpu":
         return slab_step_burgers_reference(S, out, dt, params=params, lo=lo,
@@ -735,7 +762,9 @@ def slab_run_dma_burgers(S0s, S1s, lands, num_iters: int, dt, *,
     """K4, Burgers/WENO5: :func:`slab_run_dma_diffusion` for fixed-dt
     WENO5 steps on K3's unpadded shard layout, state buffers ``(lz + 2
     depth, ny, nx)`` and landing buffers ``(2, 2, depth, ny, nx)``,
-    ``depth = 9k``; counted in ``slab_run_dma_burgers.launches``."""
+    ``depth = 9k``; counted in ``slab_run_dma_burgers.launches``. WENO5
+    only."""
+    _order5_only(params, "K4")
     G = 3 * fb.R
     lz = _check_dma(S0s, S1s, lands, k, G)
     if S0s[0].device.type == "cpu":
@@ -1105,13 +1134,16 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
 
 
 class SlabRunBurgersStepper(_SlabRunStepper):
-    """Whole-run slab Burgers/WENO5 stepper (K6, fixed dt) for one (grid,
-    flux, dt) configuration on one device, K5's unpadded layout; on a
-    shard of a z-slab mesh (``global_shape``) the sharded schedules over
+    """Whole-run slab Burgers stepper (K6, fixed dt) for one (grid, flux,
+    dt, WENO order) configuration on one device, K5's unpadded layout; on
+    a shard of a z-slab mesh (``global_shape``) the sharded schedules over
     K3, the block between ``k*G`` ghost planes a side, ``(lz + 2kG, ny,
-    nx)``. WENO7 raises: its order-7 instance is not ported."""
+    nx)``. At ``order=7`` (G = 12) the sharded forms and ``run_batched``
+    raise: K3's, K4's and K2b's order-7 instances are not ported."""
 
-    halo = 3 * fb.R  # G: three WENO5 stages of redundant recompute
+    # G: three WENO5 stages of redundant recompute (an order-7 instance
+    # sets its own, 12, and reach 4)
+    halo = 3 * fb.R
     stencil_radius = fb.R
 
     def __init__(self, interior_shape, spacing, flux: Flux, variant: str,
@@ -1119,13 +1151,17 @@ class SlabRunBurgersStepper(_SlabRunStepper):
                  global_shape=None, overlap_split: bool = False,
                  steps_per_exchange: int = 1, exchange: str = "collective",
                  mesh_axis=None, num_shards=None):
-        if order != 5:
-            raise NotImplementedError(
-                "K6's WENO7 instance is not ported yet")
         self.interior_shape = tuple(interior_shape)
         self.dtype = torch.float32
         self.device = torch.device(device)
-        self.params = fb.stage_params(flux, variant, spacing, nu)
+        self.params = fb.stage_params(flux, variant, spacing, nu, order)
+        self.stencil_radius = self.params.r
+        self.halo = 3 * self.params.r
+        if order == 7 and tuple(global_shape or interior_shape) != tuple(
+                interior_shape):
+            raise NotImplementedError(
+                "K3's and K4's WENO7 instances (a z-slab shard) are not "
+                "ported yet (ROADMAP queue 1 item 2)")
         self.dt = float(dt)
         self._init_sharded(global_shape, overlap_split, steps_per_exchange)
         d = self.exchange_depth if self.sharded else 0
@@ -1171,6 +1207,10 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     def _whole_run_dma(self, S0s, S1s, lands, num_iters: int):
         return slab_run_dma_burgers(S0s, S1s, lands, num_iters, self.dt,
                                     params=self.params, k=self.k)
+
+    def run_batched(self, us, ts, num_iters: int, consume=None):
+        _order5_only(self.params, "K2b")
+        return super().run_batched(us, ts, num_iters, consume)
 
     def _whole_run_batched(self, S0, S1, num_iters: int):
         return slab_run_burgers_batched(S0, S1, num_iters, self.dt,

@@ -19,9 +19,10 @@ Two forms of the same reconstruction live here, as in the JAX package:
   kernel K12 evaluates the WENO7 q-form too, its betas written on
   forward differences (``_weno7_betas``);
 * the forward-difference e-form (``_curv``, ``_weno5_side_nd``,
-  ``_weno5_side_nd_e``) that the fused stage kernel K5, the per-axis
-  kernel K12 at order 5 and their plain twins
-  (``ops/kernels/fused_burgers.py``, ``ops/kernels/weno.py``) evaluate.
+  ``_weno5_side_nd_e``, ``_weno7_side_nd_e``) that the fused kernels
+  K5, K6 and K7 at both orders, the per-axis kernel K12 at order 5 and
+  their plain twins (``ops/kernels/fused_burgers.py``,
+  ``ops/kernels/weno.py``) evaluate.
 
 Every expression keeps the JAX package's operation order, so float64
 results agree with it to rounding; the WENO7 betas take the order of
@@ -181,6 +182,56 @@ _B7 = (
     (6649.0, 17236.0, 3169.0, -17116.0, -13036.0, 5978.0),
     (25729.0, 45076.0, 6649.0, -63436.0, -33916.0, 22778.0),
 )
+
+
+# Candidate-polynomial deviations from the center cell (x12) in the same
+# difference windows (the JAX package's ``ops/weno.py::_C7``): stencil
+# k's candidate is ``c + (ca e_k + cb e_{k+1} + cc e_{k+2})/12``; the plus
+# side is the minus side under ``e_j -> -e_{5-j}``.
+_C7 = {
+    "minus": ((3.0, -10.0, 13.0), (-1.0, 4.0, 3.0),
+              (1.0, 6.0, -1.0), (9.0, -4.0, 1.0)),
+    "plus": ((-1.0, 4.0, -9.0), (1.0, -6.0, -1.0),
+             (-3.0, -4.0, 1.0), (-13.0, 10.0, -3.0)),
+}
+
+
+def _weno7_side_nd_e(e0, e1, e2, e3, e4, e5, side):
+    """One WENO7-JS reconstruction in forward-difference form, returned
+    as unnormalized ``(numerator, denominator)`` of the deviation from
+    the center cell: the reconstructed value is ``q3 + num/den`` (the
+    e-form of the fused kernels K5, K6 and K7 at order 7).
+
+    ``e_j = q_{j+1} - q_j`` over the 7-cell window ``q0..q6``; ``side``
+    as in :func:`_weno5_side_nd`. The betas are the :data:`_B7` forms,
+    the weights the division-free ``alpha_k' = d_k (prod_{j != k}
+    s_j)^2`` with ``s_j = beta_j + eps``, and each coefficient ``ca/12``
+    a Python double rounded once to the tensor's dtype. The alphas scale
+    as ``beta^6``: in float32 they overflow for split-flux jumps above
+    about 3.6, which bounded solver states stay under.
+    """
+    e = (e0, e1, e2, e3, e4, e5)
+    d = _D7 if side == "minus" else tuple(reversed(_D7))
+    cs = _C7[side]
+    s = []
+    for k in range(4):
+        A, B, C, D, E, F = _B7[k]
+        ea, eb, ec = e[k], e[k + 1], e[k + 2]
+        beta = ((A * ea + D * eb + F * ec) * ea + (B * eb + E * ec) * eb
+                + C * (ec * ec))
+        s.append(beta + EPSILON)
+    p01 = s[0] * s[1]
+    p23 = s[2] * s[3]
+    m = (s[1] * p23, s[0] * p23, p01 * s[3], p01 * s[2])
+    t = 1.0 / 12.0
+    num = den = None
+    for k in range(4):
+        a = d[k] * (m[k] * m[k])
+        ca, cb, cc = cs[k]
+        dev = (ca * t) * e[k] + (cb * t) * e[k + 1] + (cc * t) * e[k + 2]
+        num = a * dev if num is None else num + a * dev
+        den = a if den is None else den + a
+    return num, den
 
 
 def _weno7_betas(q):

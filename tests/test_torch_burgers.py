@@ -38,6 +38,7 @@ from multigpu_advectiondiffusion_tpu_torch.models.burgers import (
 )
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
 from multigpu_advectiondiffusion_tpu_torch.ops import weno as pweno
+from multigpu_advectiondiffusion_tpu_torch.parallel import mesh as pmesh
 from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
 from multigpu_advectiondiffusion_tpu_torch.utils import ic as pic
 from multigpu_advectiondiffusion_tpu_torch.utils import io as pio
@@ -265,8 +266,18 @@ def test_unported_configs_raise(kw, match):
     # (a ValueError saying a mesh is needed) since meshes are ported
     exc = (ValueError if {"steps_per_exchange", "exchange"} & set(kw)
            else NotImplementedError)
+    place = {"device": "cpu"}
+    if kw.get("weno_order") == 7:
+        # one device runs WENO7 on K5 and K6 (their order-7 instances,
+        # tests/test_torch_weno7_fused.py); a z-slab mesh still needs
+        # their sharded ones
+        place = {"mesh": pmesh.make_mesh(
+            {"dz": 2}, devices=[torch.device("cpu")] * 2, timeout=60.0)}
+        assert _solver(**kw).engaged_path()["stepper"] in (
+            "fused-stage", "fused-whole-run-slab")
     with pytest.raises(exc, match=match):
-        _solver(**kw)
+        PSolver(PConfig(grid=PGrid.make(12, 10, 8),
+                        **{"dtype": "float32", **kw}), **place)
 
 
 def test_unported_dimensions_raise():

@@ -243,7 +243,11 @@ def test_engaged_path_matches_jax(name, mode):
 def test_l2_gate_against_jax_vmem_gate():
     """The port's L2 gate and the JAX VMEM gate (24 live buffers) agree
     on the reference grid and at 8192², and differ at 1001², where only
-    the port engages the whole-run stepper (PERF.md)."""
+    the port engages the whole-run stepper (PERF.md). At WENO order 7
+    the JAX gate (its order-7 budget) refuses 1001² and 1478² too, where
+    it runs the generic path; the port keeps the one L2 gate for both
+    orders, since K7 at order 7 ran 163x (1001²) and 128x (1478²) faster
+    than the generic WENO7 path there (chip_smoke.py phase 44, H100)."""
     for n, port, jax_ in [(400, True, True), (1001, True, False),
                           (1478, True, False), (1479, False, False),
                           (8192, False, False)]:
@@ -251,14 +255,29 @@ def test_l2_gate_against_jax_vmem_gate():
             (n, n), torch.float32) is port
         assert jfb2.FusedBurgers2DStepper.supported(
             (n, n), jnp.float32) is jax_
+        assert jfb2.FusedBurgers2DStepper.supported(
+            (n, n), jnp.float32, order=7) is jax_
 
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_stage", "pallas_step",
                                   "pallas_slab"])
 def test_weno7_on_a_fused_rung_raises(impl):
-    with pytest.raises(NotImplementedError, match="K7's order-7"):
-        PSolver(PConfig(grid=PGrid.make(16, 12), weno_order=7, impl=impl),
+    """Every fused flavor runs WENO7-JS on K7's order-7 instance (its twin
+    here), as in the JAX package; the same steps as the generic path
+    within the fused-vs-generic bound. (Before K7's order-7 instance was
+    ported, construction raised here.)"""
+    s = PSolver(PConfig(grid=PGrid.make(16, 12), weno_order=7, impl=impl),
                 device="cpu")
+    path = s.engaged_path()
+    assert path["stepper"] == "fused-whole-run" and path["fallback"] is None
+    assert s._fused_stepper().params.order == 7
+    got = s.run(s.initial_state(), 2)
+    generic = PSolver(PConfig(grid=PGrid.make(16, 12), weno_order=7),
+                      device="cpu")
+    want = generic.run(generic.initial_state(), 2)
+    assert got.it == want.it == 2
+    np.testing.assert_allclose(got.u.numpy(), want.u.numpy(), rtol=2e-5,
+                               atol=2e-6 * float(want.u.abs().max()))
     # the generic path runs WENO7 in 2-D
     s = PSolver(PConfig(grid=PGrid.make(16, 12), weno_order=7, impl="xla"),
                 device="cpu")

@@ -14,7 +14,9 @@ resident jobs (one block each) keeping their window for the run,
 publishing the 9 cells of each tile edge and reloading only their halo,
 and other jobs reloading their window and writing their tile every step;
 an odd run's result copied back; and in adaptive mode the maximum wave
-speed taken over each tile and folded across tiles. Each stage's cells
+speed taken over each tile and folded across tiles. The WENO7-JS
+instance runs the same schedule at reach 4 (a 12-cell window halo,
+stages on 8 and 4 cells a side), on tilings whose sides span 12 cells. Each stage's cells
 are computed by the twin's own stage arithmetic (``fused_burgers.
 _stage_rk``) on the window, so any cell the schedule failed to bring into
 a window, a halo too shallow or a ghost holding the wrong stage's value
@@ -53,14 +55,15 @@ K7_CASES = {
 SHAPE, SPACING, CFL = (23, 37), (0.05, 0.07), 0.4
 
 
-def _job(j, ny, nx, my, mx):
-    """Job j's tile and window, as the source's job_of."""
+def _job(j, ny, nx, my, mx, r=R):
+    """Job j's tile and window, as the source's job_of at reach r."""
     jy, jx = divmod(j, mx)
     y0, y1 = jy * ny // my, (jy + 1) * ny // my
     x0, x1 = jx * nx // mx, (jx + 1) * nx // mx
+    h = 3 * r
     return dict(y0=y0, y1=y1, x0=x0, x1=x1,
-                wy0=max(y0 - HALO, -R), wy1=min(y1 + HALO, ny + R),
-                wx0=max(x0 - HALO, -R), wx1=min(x1 + HALO, nx + R))
+                wy0=max(y0 - h, -r), wy1=min(y1 + h, ny + r),
+                wx0=max(x0 - h, -r), wx1=min(x1 + h, nx + r))
 
 
 def _window_of(src, J, ny, nx):
@@ -98,12 +101,13 @@ def _stage(J, st, v, s, dt, params, ny, nx):
     """Stage ``st`` of job J on its evaluated region from the v plane
     ``v`` (u: the S plane ``s``); returns the output plane (stage 3: the
     S plane with the tile replaced) and the region's values."""
-    e = R * (3 - st)
+    r = params.r
+    e = r * (3 - st)
     ya, yb = max(J["y0"] - e, 0), min(J["y1"] + e, ny)
     xa, xb = max(J["x0"] - e, 0), min(J["x1"] + e, nx)
     oy, ox = ya - J["wy0"], xa - J["wx0"]
     h, w = yb - ya, xb - xa
-    vp = v[oy - R:oy + h + R, ox - R:ox + w + R]
+    vp = v[oy - r:oy + h + r, ox - r:ox + w + r]
     a, b = wr.STAGES[st - 1]
     u = None if st == 1 else s[oy:oy + h, ox:ox + w]
     rk = fb._stage_rk(vp, v[oy:oy + h, ox:ox + w], u, dt, params, a, b)
@@ -119,7 +123,8 @@ def emulate(S0, params, steps, tiles, blocks, dt=None):
     adaptive, returns ``(S, t_sum)``."""
     ny, nx = S0.shape
     my, mx = tiles
-    jobs = [_job(j, ny, nx, my, mx) for j in range(my * mx)]
+    halo = 3 * params.r
+    jobs = [_job(j, ny, nx, my, mx, params.r) for j in range(my * mx)]
     resident = len(jobs) <= blocks
     buf = [S0.clone(), torch.full_like(S0, float("nan"))]  # S, T1
     planes = [None] * len(jobs)  # a resident job's S plane
@@ -152,7 +157,7 @@ def emulate(S0, params, steps, tiles, blocks, dt=None):
             if resident:  # publish the edges neighbours read
                 planes[j] = s
                 keep = torch.ones_like(rk, dtype=torch.bool)
-                keep[HALO:-HALO, HALO:-HALO] = False
+                keep[halo:-halo, halo:-halo] = False
                 dst[y0:y1, x0:x1] = torch.where(keep, rk, dst[y0:y1, x0:x1])
             else:
                 dst[y0:y1, x0:x1] = rk
@@ -223,4 +228,65 @@ def test_tilings_cover_the_schedule():
     assert planned["resident"] and planned["jobs"] > 1
     assert t["more-jobs-than-blocks"][2] < 6
     assert min(t["wide-tiles"][0]) // 2 > 2 * HALO
+    assert {s for *_, s in t.values()} == {2, 3}
+
+
+# WENO7-JS (reach 4): tilings of sides of 12 cells or more
+SHAPE7 = (25, 37)
+
+
+def _tilings7():
+    planned = fb2.burgers2d_schedule(*SHAPE7, **H100, order=7)
+    return {  # name -> (shape, tiles, blocks, steps)
+        "planned": (SHAPE7, planned["tiles"], planned["blocks"], 3),
+        "one-tile": (SHAPE7, (1, 1), 1, 2),
+        "one-row": (SHAPE7, (1, 3), 3, 3),
+        "one-column": (SHAPE7, (2, 1), 2, 2),
+        "more-jobs-than-blocks": (SHAPE7, (2, 3), 2, 3),
+        # tiles of 26x27: cells more than 12 from every edge unpublished
+        "wide-tiles": ((52, 55), (2, 2), 4, 2),
+    }
+
+
+@pytest.mark.parametrize("tiling", list(_tilings7()))
+@pytest.mark.parametrize("adaptive", [False, True], ids=["K7", "K7a"])
+@pytest.mark.parametrize("case", ["burgers-viscous", "buckley"])
+def test_tiled_schedule_equals_twin_order7(case, adaptive, tiling):
+    name, nu = {"burgers-viscous": ("burgers", 1e-5),
+                "buckley": ("buckley", 0.0)}[case]
+    shape, tiles, blocks, steps = _tilings7()[tiling]
+    for m, n in zip(tiles, shape):
+        assert fb2._allowed(n, m, order=7)
+    params = fb.stage_params(pflux.get(name), "js", SPACING, nu, order=7)
+    S0 = torch.from_numpy(np.random.default_rng(steps).uniform(
+        -0.2, 1.0, shape).astype(np.float32))
+
+    def stage(v, u, out, dt, a, b):
+        return fb2.stage_reference(v, u, out, dt, params=params, a=a, b=b)
+
+    T = [torch.empty_like(S0) for _ in range(2)]
+    if adaptive:
+        got, t_got = emulate(S0, params, steps, tiles, blocks)
+        want, t_want = wr.plain_run_adaptive(
+            stage, lambda u: pcfl.advective_dt(u, params.flux.df, SPACING,
+                                               CFL),
+            S0.clone(), *T, steps)
+        assert float(t_got) == float(t_want)
+    else:
+        got = emulate(S0, params, steps, tiles, blocks,
+                      dt=CFL * min(SPACING))
+        want = wr.plain_run(stage, S0.clone(), *T, steps,
+                            CFL * min(SPACING))
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_order7_tilings_cover_the_schedule():
+    t = _tilings7()
+    planned = fb2.burgers2d_schedule(*SHAPE7, **H100, order=7)
+    assert planned["resident"] and planned["jobs"] > 1
+    assert planned["window"] == tuple(
+        min(-(-n // m) + 24, n + 8) for n, m in zip(SHAPE7,
+                                                   planned["tiles"]))
+    assert min(t["wide-tiles"][0]) // 2 > 2 * fb2.halo_of(7)
     assert {s for *_, s in t.values()} == {2, 3}

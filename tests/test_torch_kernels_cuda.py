@@ -1,4 +1,5 @@
-"""K1, K5 and K9, the port's CUDA stage kernels, K7/K7a, its 2-D
+"""K1, K5 and K9, the port's CUDA stage kernels (K5 at WENO5 and
+WENO7), K7/K7a, its 2-D
 whole-run kernels, K10, K2 and K6, its 3-D fused-step kernels, K2b, the
 B-folded slab kernel of the ensemble engine, K11/K11b and K12/K12b,
 its per-axis kernels, and the mesh slice — K1's and K5's sharded
@@ -415,6 +416,181 @@ def _steps(step, S0, steps):
     """``steps`` of ``step(src, dst)`` on two copies of ``S0`` in turn
     (the slab twins' loop); returns the result."""
     return fsr.ping_pong(step, S0.clone(), S0.clone(), steps)
+
+
+# --------------------------------------------------------------------- #
+# The WENO7-JS instances of K5, K7/K7a and K6 (reach 4): each against its
+# twin on bounded data (uniform(-0.2, 1.0): the e-form's alphas scale as
+# beta^6), to the bit
+# --------------------------------------------------------------------- #
+W7_CASES = {
+    "burgers-viscous": ("burgers", {}, 1e-5),
+    "linear": ("linear", {"c": -0.7}, 1e-5),
+    "buckley-inviscid": ("buckley", {}, 0.0),
+}
+
+
+@pytest.fixture
+def gpu7():
+    if not torch.cuda.is_available():
+        pytest.skip("the WENO7 instances of K5 (csrc/fused_burgers_stage.cu),"
+                    " K7/K7a (csrc/whole_run_burgers2d.cu) and K6 "
+                    "(csrc/slab_run_burgers.cu) need a CUDA device")
+    return torch.device("cuda")
+
+
+def _params7(case, spacing):
+    name, kw, nu = W7_CASES[case]
+    return fb.stage_params(pflux.get(name, **kw), "js", spacing, nu, order=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,zchunk", [((23, 29, 37), None),
+                                          ((9, 15, 33), 3), ((5, 1, 70), 2),
+                                          ((4, 70, 1), None)])
+@pytest.mark.parametrize("case", list(W7_CASES))
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+def test_k5_order7_matches_twin(gpu7, kind, case, shape, zchunk):
+    """K5's order-7 instance, every stage kind, at shapes off its 14x32
+    tile and with short z chunks: 0 ulp from its twin; the emitted
+    maximum exactly."""
+    rng = np.random.default_rng(kind)
+    v = torch.from_numpy(
+        rng.uniform(-0.2, 1.0, shape).astype(np.float32)).to(gpu7)
+    u = torch.from_numpy(
+        rng.uniform(-0.2, 1.0, shape).astype(np.float32)).to(gpu7)
+    params = _params7(case, (0.05, 0.07, 0.09))
+    a, b = fb.STAGES[kind]
+    dt = torch.full((), 2e-3, device=gpu7)
+    u_arg = None if kind == 0 else u
+    emit = kind == 2
+    ref = fb.stage_reference(v, u_arg, torch.empty_like(v), dt,
+                             params=params, a=a, b=b, emit=emit)
+    out = u.clone() if kind == 2 else torch.empty_like(v)
+    mx = torch.full((1,), -1.0, device=gpu7) if emit else None
+    before = fb.fused_burgers_stage.launches
+    fb.fused_burgers_stage(v, out if kind == 2 else u_arg, out, dt, mx,
+                           params=params, a=a, b=b, zchunk=zchunk)
+    torch.cuda.synchronize()
+    assert fb.fused_burgers_stage.launches == before + 1
+    want = ref[0] if emit else ref
+    assert torch.equal(out, want)
+    if emit:
+        assert float(mx[0]) == float(ref[1])
+
+
+@pytest.mark.cuda
+def test_k5_order7_geometry(gpu7):
+    """The built order-7 instance's tiling is fused_burgers.tile_geometry's
+    at order 7, and it spills nothing."""
+    geo, want = fb.geometry(7), fb.tile_geometry(7)
+    assert (geo["tile_y"], geo["tile_x"]) == fb.TILE
+    assert geo["threads"] == want["threads"]
+    assert geo["smem_bytes"] == want["smem_bytes"]
+    assert geo["blocks_per_sm"] >= 1
+
+
+# tilings of K7's order-7 instance: every side 12 cells or more
+K7W7_TILINGS = [((25, 37), None), ((25, 37), (1, 1)), ((25, 37), (2, 3)),
+                ((25, 37), (2, 1)), ((5, 70), None), ((5, 70), (1, 5)),
+                ((200, 200), (16, 16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 3, 5])
+@pytest.mark.parametrize("shape,tiles", K7W7_TILINGS,
+                         ids=[f"{s[0]}x{s[1]}-{t}" for s, t in K7W7_TILINGS])
+@pytest.mark.parametrize("adaptive", [False, True], ids=["K7", "K7a"])
+@pytest.mark.parametrize("case", list(W7_CASES))
+def test_k7_order7_matches_twin(gpu7, case, adaptive, shape, tiles, steps):
+    """K7/K7a at order 7 to the bit on every tiling, odd step counts too;
+    the adaptive time advance exactly; the plan is the order-7 plan."""
+    spacing, cfl = (0.05, 0.07), 0.4
+    rng = np.random.default_rng(steps)
+    S = torch.from_numpy(
+        rng.uniform(-0.2, 1.0, shape).astype(np.float32)).to(gpu7)
+    params = _params7(case, spacing)
+    mode = (dict(spacing=spacing, cfl=cfl) if adaptive
+            else dict(dt=cfl * min(spacing)))
+    stage = (lambda v, u, out, dt, a, b: fb2.stage_reference(
+        v, u, out, dt, params=params, a=a, b=b))
+    T = [torch.empty_like(S) for _ in range(4)]
+    got = S.clone()
+    counter = wr.whole_run_adaptive if adaptive else wr.whole_run
+    before = counter.launches
+    plan = {}
+    res = fb2.whole_run_burgers2d(got, T[0], T[1], steps, params=params,
+                                  tiles=tiles, schedule=plan, **mode)
+    if adaptive:
+        flux = params.flux
+        want, want_t = wr.plain_run_adaptive(
+            stage, lambda u: pcfl.advective_dt(u, flux.df, spacing, cfl),
+            S.clone(), T[2], T[3], steps)
+        assert float(res[1]) == float(want_t)
+    else:
+        want = wr.plain_run(stage, S.clone(), T[2], T[3], steps, mode["dt"])
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(got, want)
+    if tiles is not None:
+        assert plan["tiles"] == tiles
+    h, w = plan["window"]
+    assert plan["smem_bytes"] == fb2.PLANES * (h + 2) * (w + 2) * 4
+    assert plan["resident"] == (plan["jobs"] <= plan["grid_blocks"])
+    assert plan["blocks"] == plan["grid_blocks"]
+
+
+# the order-7 slab body's edges: 24-cell tiles, ny and nx off one and
+# two tiles and below one, a last z chunk of one plane
+K6W7_EDGES = {"13x5x70-last1": ((13, 5, 70), 3), "1x6x5": ((1, 6, 5), 7),
+              "4x25x3": ((4, 25, 3), 64), "9x49x23": ((9, 49, 23), None),
+              "23x29x37": ((23, 29, 37), 7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 3])
+@pytest.mark.parametrize("edge", list(K6W7_EDGES))
+@pytest.mark.parametrize("case", list(W7_CASES))
+def test_k6_order7_matches_twin(gpu7, case, edge, steps):
+    """K6's order-7 instance against its twin (three K5-twin stages a
+    step at reach 4), 0 ulp."""
+    shape, zchunk = K6W7_EDGES[edge]
+    rng = np.random.default_rng(20 + steps)
+    S0 = torch.from_numpy(
+        rng.uniform(-0.2, 1.0, shape).astype(np.float32)).to(gpu7)
+    params = _params7(case, (0.05, 0.07, 0.09))
+    want = _steps(lambda s, d: fsr.burgers_step_reference(
+        s, d, 0.015, params=params), S0, steps)
+    before = fsr.slab_run_burgers.launches
+    got = fsr.slab_run_burgers(S0.clone(), torch.empty_like(S0), steps,
+                               0.015, params=params, zchunk=zchunk)
+    torch.cuda.synchronize()
+    assert fsr.slab_run_burgers.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_weno7_runs_match_generic_path(gpu7):
+    """Each WENO7 fused rung (K5 adaptive and fixed, K6, K7, K7a) against
+    the generic WENO7 path, at the fused-vs-generic bound, one launch
+    where a run is one."""
+    runs = [((37, 29, 23), "pallas", True, "fused-stage"),
+            ((37, 29, 23), "pallas_stage", False, "fused-stage"),
+            ((37, 29, 23), "pallas_slab", False, "fused-whole-run-slab"),
+            ((61, 47), "pallas", False, "fused-whole-run"),
+            ((61, 47), "pallas", True, "fused-whole-run")]
+    for n, impl, adaptive, label in runs:
+        kw = dict(grid=Grid.make(*n, lengths=2.0), nu=1e-5, weno_order=7,
+                  adaptive_dt=adaptive)
+        fused = BurgersSolver(BurgersConfig(impl=impl, **kw))
+        generic = BurgersSolver(BurgersConfig(impl="xla", **kw))
+        assert fused.engaged_path()["stepper"] == label
+        s0 = fused.initial_state()
+        got, want = fused.run(s0, 7), generic.run(s0, 7)
+        scale = float(want.u.abs().max())
+        assert not bool(((got.u - want.u).abs()
+                         > 2e-5 * want.u.abs() + 2e-6 * scale).any()), label
+        assert abs(float(got.t) - float(want.t)) <= 1e-5 * float(want.t)
 
 
 @pytest.mark.cuda

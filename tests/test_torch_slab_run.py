@@ -192,9 +192,17 @@ def test_slab_wrappers_reject_bad_operands():
                              params=params)
     with pytest.raises(ValueError, match="3-D"):
         psr.slab_run_burgers(S[0], S[1].clone(), 1, 1e-3, params=params)
+    # WENO7: K6's order-7 instance runs one device; the sharded (K3/K4)
+    # and batched (K2b) forms wait for their order-7 instances
+    st = psr.SlabRunBurgersStepper((4, 4, 4), (0.1,) * 3, pflux.burgers(),
+                                   "js", 0.0, 0.01, "cpu", order=7)
+    assert st.halo == 12 and st.params.order == 7
     with pytest.raises(NotImplementedError, match="WENO7"):
         psr.SlabRunBurgersStepper((4, 4, 4), (0.1,) * 3, pflux.burgers(),
-                                  "js", 0.0, 0.01, "cpu", order=7)
+                                  "js", 0.0, 0.01, "cpu", order=7,
+                                  global_shape=(8, 4, 4))
+    with pytest.raises(NotImplementedError, match="WENO7"):
+        st.run_batched(torch.zeros((2, 4, 4, 4)), np.zeros(2), 1)
 
 
 def test_slab_run_of_zero_steps_returns_its_input():
