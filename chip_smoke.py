@@ -283,7 +283,33 @@ ignored ``build/`` directory), then:
    line; drives a pinned ``impl="pallas_slab"`` run at 400x400x406
    (lengths 2 2 4, inviscid, CFL 0.3, fixed dt, ``run(40)``): one
    launch, u inside [-1e-6, 1.05], agreement with the generic path at
-   10 steps.
+   10 steps;
+46. holds K5's WENO7 instance on z-slab shards (4 ghost planes a side)
+   against its twin to the bit on the first and the last shard of the
+   400x400x406 grid on ``{"dz": 2}``: the serialized call and the split
+   schedule's interior, bottom (``lo``) and top (``hi``) calls, the
+   emitted maximum folded; times it alone beside its twin and bound;
+47. holds K3 and K4 at order 7 (G = 12) against their twins to the bit
+   at those shards' shapes: K3 over the per-step, split and k = 4
+   windows, K4 at k = 1 and 4; times each alone with its plan line;
+48. drives ``MultiGPU/Burgers3d_Baseline`` at WENO order 7 on ``{"dz":
+   2}`` (two shards on the card), ``run(40)``: K5 fixed and adaptive,
+   serialized and split, K3 at k = 1 and 4, K4 (``exchange="dma"``) at
+   k = 1 and 4; each 0 ulp and ``t`` equal to the unsharded run of its
+   rung, its launches as driven, u inside [-1e-6, 1.05], ms/step, K5's
+   and K3's time a launch in the profiled run;
+49. drives a WENO7 ensemble of bench.py's Burgers row (B = 8 at
+   128x64x64, ``run(30)``) through one K2b launch, every member equal
+   to its single K6 run to the bit; K2b against its twin to the bit and
+   alone, timed, with its bound;
+50. holds K8 and K8b at order 7 (the shard padded by 4) against their
+   twin to the bit at the main shard's shape and an odd one, every
+   stage kind and band, on four shards' positions; times each alone;
+   drives ``burgers2d_weno7`` on ``{"dy": 2}`` (K8 and the split
+   schedule's K8b, fixed and adaptive dt) and on ``{"dy": 2, "dx":
+   2}`` (fixed and adaptive), ``run(200)``, each 0 ulp and ``t`` equal
+   to the unsharded K7/K7a run, with its launches, ms/step and K8's
+   time in the profiled run.
 
 It prints the seconds the whole run took, a ``{"kernels": [...]}`` line
 and, last,
@@ -3569,11 +3595,12 @@ def k8_shards(shape) -> dict:
 def k8_stage_ops(params, cells: int) -> int:
     """f32 operations of one stage with ``u`` (stages 2-3): diffusion 24
     a cell; Burgers each face once as in K7's note, split 6, 103 an axis
-    (WENO5-Z 113), the sum and negation 2, the viscous taps 20, the
-    combine 5."""
+    (WENO5-Z 113; WENO7-JS 219, K5's note), the sum and negation 2, the
+    viscous taps 20, the combine 5."""
     if isinstance(params, fsh.DiffusionParams):
         return 24 * cells
-    per_axis = 103 + (10 if params.variant == "z" else 0)
+    per_axis = (219 if params.order == 7
+                else 103 + (10 if params.variant == "z" else 0))
     viscous = 20 if params.lap_taps is not None else 0
     return (6 + 2 * per_axis + 2 + viscous + 5) * cells
 
@@ -4768,6 +4795,428 @@ def weno7_phases(card: str) -> list[dict]:
     return [k5, k7, k7a, k6]
 
 
+# --------------------------------------------------------------------- #
+# WENO7-JS on meshes and member axes: the sharded K5, K3, K4, K2b and
+# K8/K8b at order 7 (phases 46-50)
+# --------------------------------------------------------------------- #
+# MultiGPU/Burgers3d_Baseline (phase 14's grid) at WENO order 7 on
+# {"dz": 2}, run(40); its 2-D counterpart at bench/matrix.py's
+# burgers2d_weno7 grid (physical 400x408) on {"dy": 2} and {"dy": 2,
+# "dx": 2}, run(200)
+W7_MESH_ITERS = 40
+W7_MESH_TIME_ITERS = 20  # the runs timed: run(20)
+W7_2D_MESH_ITERS = 200
+W7_2D_MESH_TIME_ITERS = 100
+
+
+def k5_sharded_w7_phase(card: str) -> dict:
+    """Phase 46: K5's order-7 instance on z-slab shards of the main
+    mesh path (400x400x406 on {"dz": 2}: 203 planes and 4 ghost planes a
+    side) against its twin, 0 ulp: the serialized call and the split
+    schedule's interior, bottom (``lo``) and top (``hi``) calls, on the
+    first and the last shard, the emitted maximum folded; the
+    serialized call alone and its twin, timed."""
+    print("phase 46: the z-sharded K5 at order 7 against its twin")
+    grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    params = fb.stage_params(pflux.get("burgers"), "js", grid.spacing, 0.0,
+                             order=7)
+    nz, ny, nx = grid.shape
+    lz, r, bz = nz // MESH_SHARDS, 4, fb.SPLIT_BZ
+    dt = torch.full((), K6_CFL * min(grid.spacing), device="cuda")
+    rng = np.random.default_rng(46)
+    err, n = 0.0, 0
+    for oz in (0, nz - lz):
+        v, u = (random_on_card((lz + 2 * r, ny, nx),
+                               int(rng.integers(1 << 30))) for _ in range(2))
+        lo, hi = (random_on_card((r, ny, nx), int(rng.integers(1 << 30)))
+                  for _ in range(2))
+        for role, window, ops in (("serialized", None, {}),
+                                  ("interior", (bz, lz - bz), {}),
+                                  ("bottom", (0, bz), {"lo": lo}),
+                                  ("top", (lz - bz, lz), {"hi": hi})):
+            kw = dict(params=params, a=0.75, b=0.25, zpad=r, global_nz=nz,
+                      oz=oz, window=window, **ops)
+            ref, mref = fb.stage_reference(v, u, torch.zeros_like(v), dt,
+                                           emit=True, **kw)
+            got, mx = torch.zeros_like(v), torch.full((), 7.0,
+                                                      device="cuda")
+            fb.fused_burgers_stage(v, u, got, dt, mx, mx_init=False, **kw)
+            torch.cuda.synchronize()
+            err = max(err, exact(f"K5 sharded WENO7 {role} {window} at "
+                                 f"shard z {oz}", got, ref))
+            if float(mx) != max(7.0, float(mref)):
+                raise AssertionError(f"K5 sharded WENO7 {role}: maximum "
+                                     f"{float(mx)} vs {float(mref)}")
+            n += 1
+            del ref, got
+        del v, u, lo, hi
+        torch.cuda.empty_cache()
+    sets = [[random_on_card((lz + 2 * r, ny, nx), 460 + 3 * i + j)
+             for j in range(3)] for i in range(3)]
+    kw = dict(params=params, a=0.75, b=0.25, zpad=r, global_nz=nz, oz=0)
+    ms = alone_ms(lambda s: fb.fused_burgers_stage(s[0], s[1], s[2], dt,
+                                                   **kw), sets, 5)
+    plain = statistics.median(cuda_ms(lambda: fb.stage_reference(
+        sets[0][0], sets[0][1], sets[0][2], dt, **kw), 2))
+    del sets
+    torch.cuda.empty_cache()
+    cells = lz * ny * nx
+    bound, by = kernel_bound((lz + 2 * r) * ny * nx + cells, cells,
+                             k5_stage_ops((lz, ny, nx), True, False, "js",
+                                          order=7))
+    print(f"  K5 sharded WENO7: {n} calls 0 ulp; alone ({lz}+2x{r} planes, "
+          f"stage 2) {ms:.4f} ms; twin {plain:.2f} ms; bound {bound:.4f} ms "
+          f"({by}) [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "checks": n}
+
+
+def slab_w7_twin_phase(card: str) -> dict:
+    """Phase 47: K3 and K4 at order 7 against their twins at the main
+    shards' shapes (G = 12): K3 over every window of the per-step, split
+    and k = 4 schedules on the first and the last shard, K4 at k = 1 (3
+    steps) and k = 4 (5 steps, a partial block); each alone, timed."""
+    print("phase 47: K3 and K4 at order 7 against their twins")
+    grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    params = fb.stage_params(pflux.get("burgers"), "js", grid.spacing, 0.0,
+                             order=7)
+    dt = K6_CFL * min(grid.spacing)
+    nz, ny, nx = grid.shape
+    lz, G = nz // MESH_SHARDS, 12
+    shape = (lz, ny, nx)
+    k3 = k3_check(
+        "burgers WENO7", shape,
+        lambda S, o, **kw: fsr.slab_step_burgers(S, o, dt, params=params,
+                                                 **kw),
+        lambda S, o, **kw: fsr.slab_step_burgers_reference(
+            S, o, dt, params=params, **kw), G, 0, None, card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops = k6_step_ops(shape, False, "js", order=7)
+    schedule_report("K3 burgers WENO7 alone (one shard's step)", k3["ms"],
+                    lz, shape, 1, sms, ops, card,
+                    grid=" (one an SM; the launch: one block a job)",
+                    order=7)
+
+    def run(S0, S1, L, steps, k, **kw):
+        return fsr.slab_run_dma_burgers(S0, S1, L, steps, dt, params=params,
+                                        k=k, **kw)
+
+    def ref(S, out, gnz, oz, depth, window):
+        return fsr.slab_step_burgers_reference(
+            S, out, dt, params=params, global_nz=gnz, oz=oz, depth=depth,
+            window=window)
+
+    k4_err = max(k4_check("burgers WENO7", run, ref, MESH_SHARDS, lz, k, G,
+                          ny, nx, 0, steps, 470 + k)
+                 for k, steps in ((1, 3), (K4_DEEP, 5)))
+    k4 = k4_alone("burgers WENO7", run, ref, MESH_SHARDS, lz, G, ny, nx, 0,
+                  W7_MESH_TIME_ITERS, card)
+    schedule_report("K4 burgers WENO7 alone", k4["ms"], lz, grid.shape,
+                    MESH_SHARDS, k4["grid_blocks"],
+                    k6_step_ops(grid.shape, False, "js", order=7), card,
+                    order=7)
+    k3_bound = kernel_bound((lz + 2 * G) * ny * nx, lz * ny * nx, ops)
+    k4_bound = run_bound(4 * grid.num_cells, k6_step_ops(
+        grid.shape, False, "js", order=7))
+    return {"K3": {**k3, "bound_ms": k3_bound[0], "bound_by": k3_bound[1]},
+            "K4": {**k4, "max_abs_err": k4_err, "bound_ms": k4_bound[0],
+                   "bound_by": k4_bound[1]}}
+
+
+def zslab_w7_paths(card: str) -> dict:
+    """Phase 48: MultiGPU/Burgers3d_Baseline at WENO order 7 on {"dz": 2}
+    (cuda:0 twice), run(40): the pallas rung (K5) fixed and adaptive,
+    serialized and split; pallas_slab on K3 at k = 1 and 4 and on K4
+    (exchange='dma') at k = 1 and 4. Each run 0 ulp and ``t`` equal to
+    the unsharded run of its rung (K5, or K6 at order 7), its launches
+    as driven, ms/step over run(20)."""
+    n = W7_MESH_ITERS
+    grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    cfg = BurgersConfig(grid=grid, cfl=K6_CFL, weno_order=7,
+                        adaptive_dt=False, dtype="float32", impl="pallas")
+    print(f"phase 48: MultiGPU/Burgers3d_Baseline at WENO order 7 on "
+          f"{{'dz': 2}} (cuda:0 twice), run({n}) at {grid.shape}")
+    mesh = two_shards()
+    runs = {}
+    for name, kw, plain, expect, label in (
+            ("K5 fixed", {}, "pallas_stage", {"K5": 6 * n},
+             ("fused-stage", "serialized-refresh", 1)),
+            ("K5 fixed split", {"overlap": "split"}, "pallas_stage",
+             {"K5": 18 * n}, ("fused-stage", "split", 1)),
+            ("K5 adaptive", {"adaptive_dt": True}, "pallas_stage",
+             {"K5": 6 * n}, ("fused-stage", "serialized-refresh", 1)),
+            ("K5 adaptive split", {"adaptive_dt": True, "overlap": "split"},
+             "pallas_stage", {"K5": 18 * n}, ("fused-stage", "split", 1)),
+            ("K3 k=1", {"impl": "pallas_slab"}, "pallas_slab",
+             {"K3-burgers": 2 * n},
+             ("fused-whole-run-slab", "serialized-refresh", 1)),
+            (f"K3 k={K3_DEEP}", {"impl": "pallas_slab",
+                                 "steps_per_exchange": K3_DEEP},
+             "pallas_slab", {"K3-burgers": 2 * n},
+             ("fused-whole-run-slab", "serialized-refresh", K3_DEEP))):
+        c = dataclasses.replace(cfg, **kw)
+        solver = BurgersSolver(c, mesh=mesh)
+        one = BurgersSolver(dataclasses.replace(
+            c, impl=plain, overlap="padded", steps_per_exchange=1))
+        state0 = solver.initial_state()
+        runs[name] = mesh_run(f"WENO7 {name}", solver, one, state0, n,
+                              expect, label, card,
+                              time_iters=W7_MESH_TIME_ITERS,
+                              check=lambda out: in_range(
+                                  "sharded run", out.u.assemble()))
+        runs[name]["launches"] = sum(expect.values())
+        if name in ("K5 fixed", "K3 k=1"):
+            runs[name].update(mesh2d_profile(
+                f"WENO7 {name}", solver, state0, n,
+                "stage_kernel" if name == "K5 fixed" else "step_kernel",
+                card))
+        if name == "K5 adaptive":
+            reads = count_reads(lambda: solver.run(state0, n))
+            print(f"  WENO7 {name}: host reads of device scalars {reads}")
+            if reads > 1:
+                raise AssertionError("the sharded adaptive run read dt back")
+            runs[name]["host_reads"] = reads
+        del solver, one, state0
+        torch.cuda.empty_cache()
+    slab = dataclasses.replace(cfg, impl="pallas_slab")
+    one = BurgersSolver(slab)
+    for k in (1, K4_DEEP):
+        c = dataclasses.replace(slab, steps_per_exchange=k)
+        solver = BurgersSolver(dataclasses.replace(c, exchange="dma"),
+                               mesh=two_shards())
+        coll = BurgersSolver(c, mesh=two_shards())
+        state0 = solver.initial_state()
+        runs[f"K4 k={k}"] = dma_path(f"WENO7 K4 k={k}", solver, coll, one,
+                                     state0, n, {"K4-burgers": 1}, card,
+                                     W7_MESH_TIME_ITERS)
+        del solver, coll, state0
+        torch.cuda.empty_cache()
+    return runs
+
+
+def k2b_w7_phase(card: str) -> dict:
+    """Phase 49: K2b at order 7, bench.py's Burgers ensemble row (B = 8
+    at 128x64x64, nu 1e-5, fixed dt, run(30)) at WENO order 7: the
+    ensemble engine's path (one K2b launch), K2b against its twin at 0
+    ulp, every member equal to its single K6 run to the bit; alone,
+    timed, with its bound."""
+    B, n = ENSB_MEMBERS, ENSB_ITERS
+    print(f"phase 49: K2b at order 7, B={B} at {ENSB_N}, run({n})")
+    cfg = dataclasses.replace(ens_cfg("burgers", "pallas_slab"),
+                              weno_order=7)
+    es = EnsembleSolver(BurgersSolver, cfg, width_sweep(B))
+    est = es.initial_state()
+    reset_counts()
+    out = es.run(est, n)
+    torch.cuda.synchronize()
+    got_counts = counts()
+    print(f"  ensemble run({n}): launches {got_counts}; engaged "
+          f"{es.engaged_path()['stepper']}")
+    if (es.engaged_path()["stepper"] != "ensemble-fold[fused-whole-run-slab]"
+            or got_counts != {k: (1 if k == "K2b-burgers" else 0)
+                              for k in COUNTERS}):
+        raise AssertionError("the WENO7 ensemble did not fold into K2b")
+    for i in range(B):
+        ms_ = es.member_solver(i)
+        single = ms_.run(ms_.initial_state(), n)
+        if ulps(out.u[i], single.u) != 0 or out.t[i] != single.t:
+            raise AssertionError(f"member {i} differs from its single run")
+    print(f"  all {B} members equal their single K6 WENO7 runs to the bit")
+    in_range("the ensemble", out.u)
+    del out
+    st = es.solver._fused_stepper()
+    S0 = st.embed_batched(est.u)
+    shape = es.solver.grid.shape
+    cells = es.solver.grid.num_cells
+    got = st._whole_run_batched(S0.clone(), S0.clone(), n)
+    want = []
+    plain = cuda_ms(lambda: want.append(fsr.ping_pong_members(
+        lambda s, d: fsr.burgers_step_reference(s, d, st.dt,
+                                                params=st.params),
+        S0.clone(), S0.clone(), n)), 1)[0]
+    err = exact(f"K2b WENO7, B={B}, {n} steps at {shape}", got, want.pop())
+    del got
+    A, C = S0.clone(), S0.clone()
+    blocks = []
+    fsr.slab_run_burgers_batched(A, C, 1, st.dt, params=st.params,
+                                 grid_blocks=blocks)
+    reps = cuda_ms(lambda: st._whole_run_batched(A, C, n), 4)[1:]
+    ms = statistics.median(reps)
+    del A, C, S0
+    torch.cuda.empty_cache()
+    ops = k6_step_ops(shape, True, "js", order=7)
+    bound, by = run_bound(4 * cells * B, ops * B * n)
+    print(f"  K2b WENO7 alone, B={B}, run({n}): median {ms:.3f} ms of "
+          f"{[round(r, 3) for r in reps]} on {blocks[0]} blocks; bound "
+          f"{bound:.3f} ms ({by}); twin {plain:.1f} ms [{card}]")
+    schedule_report("K2b WENO7", ms / n, shape[0], shape, B, blocks[0],
+                    B * ops, card, order=7)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "grid_blocks": blocks[0],
+            "members": B, "steps": n}
+
+
+def mesh2d_w7_phase(card: str) -> dict:
+    """Phase 50: K8 and K8b at order 7 against their twin at the main
+    shard's shape (204x400 of 408x400 on {"dy": 2}, halo 4) and an odd
+    one, every stage kind and band, on the first, a middle and the last
+    shard of dy = 4 and a pencil's corner; then burgers2d_weno7 on {"dy":
+    2}, serialized (K8) and split (K8b), fixed and adaptive dt, and on
+    {"dy": 2, "dx": 2}, fixed and adaptive, each run(200) 0 ulp and ``t``
+    equal to the unsharded K7/K7a run."""
+    print("phase 50: K8 and K8b at order 7 against their twin")
+    n = W7_2D_MESH_ITERS
+    grid = Grid.make(*W7_2D_N, lengths=2.0)
+    params = fb.stage_params(pflux.get("burgers"), "js", grid.spacing, 0.0,
+                             order=7)
+    dt = torch.full((), 0.4 * min(grid.spacing), device="cuda")
+    main_shape = (grid.shape[0] // MESH_SHARDS, grid.shape[1])
+    rng = np.random.default_rng(50)
+    err, checks = 0.0, 0
+    for shape in (main_shape, K8_ODD):
+        c, e = k8_check("burgers WENO7", params, shape, dt, rng)
+        checks, err = checks + c, max(err, e)
+    print(f"  K8/K8b WENO7: {checks} checks, 0 ulp, max|kernel - twin| "
+          f"{err:.3e}")
+    timing = k8_timing(params, main_shape, dt, card)
+    torch.cuda.empty_cache()
+
+    print(f"phase 50: burgers2d_weno7 on {{'dy': 2}} and {{'dy': 2, 'dx': "
+          f"2}}, run({n}) at {grid.shape}")
+    cfg = BurgersConfig(grid=grid, weno_order=7, adaptive_dt=False,
+                        dtype="float32", impl="pallas")
+    pencil = (pmesh.make_mesh({"dy": 2, "dx": 2},
+                              devices=[torch.device("cuda:0")] * 4),
+              pmesh.Decomposition.of({0: "dy", 1: "dx"}))
+    runs = {}
+    for name, kw, mesh, expect, label in (
+            ("K8 fixed", {}, (dy2_mesh(), None), {"K8": 6 * n},
+             ("fused-stage", "serialized-refresh", 1)),
+            ("K8b fixed split", {"overlap": "split"}, (dy2_mesh(), None),
+             {"K8b": 18 * n}, ("fused-stage", "split", 1)),
+            ("K8 adaptive", {"adaptive_dt": True}, (dy2_mesh(), None),
+             {"K8": 6 * n}, ("fused-stage", "serialized-refresh", 1)),
+            ("K8b adaptive split", {"adaptive_dt": True, "overlap": "split"},
+             (dy2_mesh(), None), {"K8b": 18 * n}, ("fused-stage", "split",
+                                                   1)),
+            ("pencil fixed", {}, pencil, {"K8": 12 * n},
+             ("fused-stage", "serialized-refresh", 1)),
+            ("pencil adaptive", {"adaptive_dt": True}, pencil,
+             {"K8": 12 * n}, ("fused-stage", "serialized-refresh", 1))):
+        c = dataclasses.replace(cfg, **kw)
+        solver = BurgersSolver(c, mesh=mesh[0], decomp=mesh[1])
+        one = BurgersSolver(dataclasses.replace(c, overlap="padded"))
+        state0 = solver.initial_state()
+        r = mesh_run(f"WENO7 {name}", solver, one, state0, n, expect, label,
+                     card, time_iters=W7_2D_MESH_TIME_ITERS)
+        r["launches"] = sum(expect.values())
+        if name in ("K8 fixed", "K8b fixed split"):
+            r.update(mesh2d_profile(f"WENO7 {name}", solver, state0, n,
+                                    "burgers_kernel", card))
+        if "adaptive" in name and "pencil" not in name:
+            r["host_reads"] = count_reads(lambda: solver.run(state0, n))
+            print(f"  WENO7 {name}: host reads of device scalars "
+                  f"{r['host_reads']}")
+            if r["host_reads"] > 1:
+                raise AssertionError("the sharded adaptive run read dt back")
+        runs[name] = r
+        del solver, one, state0
+        torch.cuda.empty_cache()
+    return {"max_abs_err": err, "checks": checks, "timing": timing,
+            "paths": runs}
+
+
+def weno7_mesh_phases(card: str) -> list[dict]:
+    """Phases 46-50; returns the six order-7 mesh and batched entries."""
+    k5 = k5_sharded_w7_phase(card)
+    torch.cuda.empty_cache()
+    slab = slab_w7_twin_phase(card)
+    torch.cuda.empty_cache()
+    paths = zslab_w7_paths(card)
+    torch.cuda.empty_cache()
+    k2b = k2b_w7_phase(card)
+    torch.cuda.empty_cache()
+    m2d = mesh2d_w7_phase(card)
+    torch.cuda.empty_cache()
+    src = "multigpu_advectiondiffusion_tpu_torch/csrc/"
+    pallas = "multigpu_advectiondiffusion_tpu/ops/pallas/"
+    none = {"library_ms": None,
+            "library_call": "none: no single PyTorch call computes a WENO7 "
+                            "stage"}
+    t = m2d["timing"]
+    bands = list(t["bands"].values())
+    k3, k4 = slab["K3"], slab["K4"]
+    return [{
+        "name": "fused_burgers_stage_weno7 (z-sharded)", "id": "K5-w7-dz",
+        "route": "cuda", "source": src + "fused_burgers_stage.cu",
+        "replaces": pallas + "fused_burgers.py:352",
+        "launches": paths["K5 fixed"]["launches"],
+        "max_abs_err": k5["max_abs_err"], "max_ulps": 0,
+        "ms": paths["K5 fixed"]["kernel_ms_in_run"] or k5["ms"],
+        "ms_isolated": k5["ms"],
+        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"], **none,
+        "paths": {k: v for k, v in paths.items() if k.startswith("K5")},
+    }, {
+        "name": "slab_step_burgers_weno7", "id": "K3-w7", "route": "cuda",
+        "source": src + "slab_run_burgers.cu",
+        "replaces": pallas + "fused_slab_run.py:508",
+        "launches": paths["K3 k=1"]["launches"],
+        "max_abs_err": k3["max_abs_err"], "max_ulps": 0,
+        "ms": paths["K3 k=1"]["kernel_ms_in_run"] or k3["ms"],
+        "ms_isolated": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], **none,
+        "windows_checked": k3["windows"],
+        "paths": {k: v for k, v in paths.items() if k.startswith("K3")},
+    }, {
+        "name": "slab_run_dma_burgers_weno7", "id": "K4-w7", "route": "cuda",
+        "source": src + "slab_run_burgers.cu",
+        "replaces": pallas + "fused_slab_run.py:327",
+        "launches": 1, "per": "step", "max_abs_err": k4["max_abs_err"],
+        "max_ulps": 0, "ms": paths["K4 k=1"]["ms_per_step"],
+        "ms_isolated": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], **none,
+        "grid_blocks": k4["grid_blocks"],
+        "paths": {k: v for k, v in paths.items() if k.startswith("K4")},
+    }, {
+        "name": "slab_run_burgers_batched_weno7", "id": "K2b-w7",
+        "route": "cuda", "source": src + "slab_run_burgers.cu",
+        "replaces": pallas + "fused_slab_run.py:933",
+        "launches": 1, "max_abs_err": k2b["max_abs_err"], "max_ulps": 0,
+        "ms": k2b["ms"], "plain_ms": k2b["plain_ms"],
+        "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"], **none,
+        "members": k2b["members"], "steps": k2b["steps"],
+        "grid_blocks": k2b["grid_blocks"],
+    }, {
+        "name": "fused2d_stage_weno7", "id": "K8-w7", "route": "cuda",
+        "source": src + "fused2d_sharded.cu",
+        "replaces": pallas + "fused2d_sharded.py:195",
+        "launches": m2d["paths"]["K8 fixed"]["launches"],
+        "max_abs_err": m2d["max_abs_err"], "max_ulps": 0,
+        "ms": m2d["paths"]["K8 fixed"]["kernel_ms_in_run"] or t["ms"],
+        "ms_isolated": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], **none,
+        "paths": {k: v for k, v in m2d["paths"].items()
+                  if not k.startswith("K8b")},
+    }, {
+        "name": "fused2d_band_stage_weno7", "id": "K8b-w7", "route": "cuda",
+        "source": src + "fused2d_sharded.cu",
+        "replaces": pallas + "fused2d_sharded.py:231",
+        "launches": m2d["paths"]["K8b fixed split"]["launches"],
+        "max_abs_err": m2d["max_abs_err"], "max_ulps": 0,
+        "ms": (m2d["paths"]["K8b fixed split"]["kernel_ms_in_run"]
+               or statistics.mean(b["ms"] for b in bands)),
+        "ms_isolated": statistics.mean(b["ms"] for b in bands),
+        "plain_ms": statistics.mean(b["plain_ms"] for b in bands),
+        "bound_ms": statistics.mean(b["bound_ms"] for b in bands),
+        "bound_by": bands[0]["bound_by"], **none, "bands": t["bands"],
+        "paths": {k: v for k, v in m2d["paths"].items()
+                  if k.startswith("K8b")},
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4945,6 +5394,12 @@ def main() -> int:
     t_w7 = time.perf_counter()
     w7 = weno7_phases(card)
     print(f"phases 42-45: {time.perf_counter() - t_w7:.1f} s")
+    torch.cuda.empty_cache()
+    print("phases 46-50: WENO7-JS on meshes and member axes (the sharded "
+          "K5, K3, K4, K2b, K8 and K8b at order 7)")
+    t_w7m = time.perf_counter()
+    w7m = weno7_mesh_phases(card)
+    print(f"phases 46-50: {time.perf_counter() - t_w7m:.1f} s")
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -4990,7 +5445,7 @@ def main() -> int:
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
     }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b,
-        *k3, *mesh2d, *k4, *w7]
+        *k3, *mesh2d, *k4, *w7, *w7m]
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the "
           f"{len(sources)} kernels' build included")
     print(f"card: {card}")

@@ -1,5 +1,6 @@
 // One SSP-RK3 stage of the 2-D O4 heat equation or of 2-D Burgers/WENO5
-// over a shard of a device mesh (K8), or over a row window of it (K8b).
+// or WENO7-JS over a shard of a device mesh (K8), or over a row window of
+// it (K8b).
 //
 // Replaces the TPU kernels multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused2d_sharded.py::_make_stage (:170, call site :195) and
@@ -25,8 +26,9 @@
 // refresh, parallel/halo.py).
 //
 // Burgers (kind 1), the per-cell arithmetic of K7's Burgers stage
-// (csrc/whole_run_burgers2d.cu) on the shard padded by R = 3, (ly+6,
-// lx+6): the local Lax-Friedrichs split, the e-form WENO5 face fluxes,
+// (csrc/whole_run_burgers2d.cu) on the shard padded by the reach R (3 at
+// WENO5, 4 at WENO7; (ly+2R, lx+2R)): the local Lax-Friedrichs split, the
+// e-form WENO5 or WENO7 face fluxes (weno7e.cuh::face_of<R, WZ>, K7's),
 // rhs = -(div_y + div_x) [+ the O4 viscous taps], rk = b*(v + dt*rhs)
 // and a*u + rk. A neighbour outside the GLOBAL domain is the nearest
 // global edge cell (the TPU body's _edge_fill_global, read as K7 clamps),
@@ -43,14 +45,16 @@
 // Bound on an H100: K8 on the main shard (200x400 of 400^2 on dy=2) must
 // move 8 B a cell (12 with u), 0.64-0.96 MB, 0.19-0.29 us at 3.35 TB/s;
 // diffusion's 22-24 f32 operations a cell take 0.03 us at 67 TFLOP/s,
-// Burgers' 219-239 (each face once) 0.3 us: both are launch-bound at this
-// size (a launch costs a few us), and the 2-D mesh path is bound by the
-// host's exchange between stages (PERF.md). As K7, the Burgers body
-// computes each face twice, from seven neighbours split again a cell.
+// Burgers' 219-239 (each face once; WENO7 about 460) 0.3-0.6 us: both are
+// launch-bound at this size (a launch costs a few us), and the 2-D mesh
+// path is bound by the host's exchange between stages (PERF.md). The
+// Burgers body computes each face twice, from the 2R + 1 neighbours of a
+// line split again a cell.
 
 #include <cuda_runtime.h>
 
 #include "weno5.cuh"
+#include "weno7e.cuh"
 
 namespace {
 
@@ -58,9 +62,9 @@ constexpr int BX = 32;  // threads along x: one warp spans 32 columns
 constexpr int BY = 8;   // threads along y
 constexpr int NWARPS = BX * BY / 32;
 
-// ghost depths of the padded layouts: the O4 and the WENO5 reach
+// ghost depth of the diffusion layout: the O4 reach (the Burgers layout's
+// is the WENO reach R, a template parameter)
 constexpr int H_DIFFUSION = 2;
-constexpr int H_BURGERS = 3;
 
 // A launch's place in the global grid.
 struct Geometry {
@@ -141,12 +145,13 @@ struct BurgersParams {
   float a, b;
 };
 
-template <int FLUX, bool WZ, bool HAS_U, bool OPERANDS>
+template <int R, int FLUX, bool WZ, bool HAS_U, bool OPERANDS>
 __global__ void __launch_bounds__(BX * BY)
 burgers_kernel(const float* v, const float* u, float* out, const float* lo,
                const float* hi, Geometry g, BurgersParams p,
                const float* dt_ptr, unsigned int* mx) {
-  constexpr int H = H_BURGERS;
+  constexpr int H = R;       // the layout's ghost depth is the reach
+  constexpr int N = 2 * R + 1;  // a line's cells, j-R .. j+R
   const int i = blockIdx.x * BX + threadIdx.x;                // local x
   const int j = g.r_begin + blockIdx.y * BY + threadIdx.y;  // local y
   // every thread reaches the block's reduction below
@@ -159,38 +164,38 @@ burgers_kernel(const float* v, const float* u, float* out, const float* lo,
     const float* vrow = v + (long long)(j + H) * X + H;  // interior col 0
     const float vc = vrow[i];
 
-    float Y[7], Yp[7], Ym[7];
+    float Y[N], Yp[N], Ym[N];
 #pragma unroll
-    for (int r = 0; r < 7; ++r) {
-      if (r == 3) {
+    for (int r = 0; r < N; ++r) {
+      if (r == R) {
         Y[r] = vc;
       } else {
         // clamped at the global edges only
-        const int jj = clampi(j + r - 3 + g.oy, 0, g.gy - 1) - g.oy;
+        const int jj = clampi(j + r - R + g.oy, 0, g.gy - 1) - g.oy;
         Y[r] = in_row<H, OPERANDS>(v, lo, hi, jj, g, X)[i + H];
       }
       split<FLUX>(Y[r], c, Yp[r], Ym[r]);
     }
-    const float dy =
-        (face<WZ>(&Yp[1], &Ym[2]) - face<WZ>(&Yp[0], &Ym[1])) * p.inv_dx[0];
+    const float dy = (face_of<R, WZ>(&Yp[1], &Ym[2]) -
+                      face_of<R, WZ>(&Yp[0], &Ym[1])) * p.inv_dx[0];
 
-    float Xv[7], Xp[7], Xm[7];
+    float Xv[N], Xp[N], Xm[N];
 #pragma unroll
-    for (int r = 0; r < 7; ++r) {
-      Xv[r] = r == 3 ? vc
-                     : vrow[clampi(i + r - 3 + g.ox, 0, g.gx - 1) - g.ox];
+    for (int r = 0; r < N; ++r) {
+      Xv[r] = r == R ? vc
+                     : vrow[clampi(i + r - R + g.ox, 0, g.gx - 1) - g.ox];
       split<FLUX>(Xv[r], c, Xp[r], Xm[r]);
     }
-    const float dx =
-        (face<WZ>(&Xp[1], &Xm[2]) - face<WZ>(&Xp[0], &Xm[1])) * p.inv_dx[1];
+    const float dx = (face_of<R, WZ>(&Xp[1], &Xm[2]) -
+                      face_of<R, WZ>(&Xp[0], &Xm[1])) * p.inv_dx[1];
 
     float rhs = -(dy + dx);
-    if (p.viscous) {
-      float acc = Y[1] * p.lap[0];
+    if (p.viscous) {  // the O4 taps on cells j-2 .. j+2, i-2 .. i+2
+      float acc = Y[R - 2] * p.lap[0];
 #pragma unroll
-      for (int r = 1; r < 5; ++r) acc = acc + Y[r + 1] * p.lap[r];
+      for (int r = 1; r < 5; ++r) acc = acc + Y[R - 2 + r] * p.lap[r];
 #pragma unroll
-      for (int r = 0; r < 5; ++r) acc = acc + Xv[r + 1] * p.lap[5 + r];
+      for (int r = 0; r < 5; ++r) acc = acc + Xv[R - 2 + r] * p.lap[5 + r];
       rhs = rhs + acc;
     }
     const long long cell = (long long)(j + H) * X + (i + H);
@@ -235,29 +240,29 @@ void launch_diffusion(const float* v, const float* u, float* out,
         v, u, out, lo, hi, g, p);
 }
 
-template <int FLUX, bool WZ, bool OPERANDS>
+template <int R, int FLUX, bool WZ, bool OPERANDS>
 void launch_burgers_as(const float* v, const float* u, float* out,
                        const float* lo, const float* hi, const Geometry& g,
                        const BurgersParams& p, const float* dt,
                        unsigned int* mx, cudaStream_t s) {
   const dim3 block(BX, BY, 1);
   if (u != nullptr)
-    burgers_kernel<FLUX, WZ, true, OPERANDS><<<grid_of(g), block, 0, s>>>(
+    burgers_kernel<R, FLUX, WZ, true, OPERANDS><<<grid_of(g), block, 0, s>>>(
         v, u, out, lo, hi, g, p, dt, mx);
   else
-    burgers_kernel<FLUX, WZ, false, OPERANDS><<<grid_of(g), block, 0, s>>>(
+    burgers_kernel<R, FLUX, WZ, false, OPERANDS><<<grid_of(g), block, 0, s>>>(
         v, u, out, lo, hi, g, p, dt, mx);
 }
 
-template <int FLUX, bool WZ>
+template <int R, int FLUX, bool WZ>
 void launch_burgers(const float* v, const float* u, float* out,
                     const float* lo, const float* hi, const Geometry& g,
                     const BurgersParams& p, const float* dt,
                     unsigned int* mx, cudaStream_t s) {
   if (lo != nullptr || hi != nullptr)
-    launch_burgers_as<FLUX, WZ, true>(v, u, out, lo, hi, g, p, dt, mx, s);
+    launch_burgers_as<R, FLUX, WZ, true>(v, u, out, lo, hi, g, p, dt, mx, s);
   else
-    launch_burgers_as<FLUX, WZ, false>(v, u, out, lo, hi, g, p, dt, mx, s);
+    launch_burgers_as<R, FLUX, WZ, false>(v, u, out, lo, hi, g, p, dt, mx, s);
 }
 
 }  // namespace
@@ -267,10 +272,11 @@ void launch_burgers(const float* v, const float* u, float* out,
 // global interior (gy, gx), the shard's global offsets (oy, ox) and the
 // rows [r_begin, r_end) written. `kind` 0 is diffusion (padded by 2;
 // `coeffs` points to its 10 taps, with `band`, `bc_value` and `dt` by
-// value), 1 Burgers (padded by 3; `coeffs` points to inv_dx (y, x), `lap`
-// to 10 viscous taps or is null, `dt_ptr` to one float on the device,
-// `flux` 0 Burgers / 1 linear (speed `c`) / 2 Buckley-Leverett, `weno_z`
-// the WENO5-Z weights, and `mx`, when not null, to one float on the
+// value), 1 Burgers (padded by the reach: 3 at `order` 5, 4 at order 7;
+// `coeffs` points to inv_dx (y, x), `lap` to 10 viscous taps or is null,
+// `dt_ptr` to one float on the device, `flux` 0 Burgers / 1 linear (speed
+// `c`) / 2 Buckley-Leverett, `weno_z` the WENO5-Z weights (order 5 only),
+// and `mx`, when not null, to one float on the
 // device that receives max|f'(out)| over the rows written: zeroed first
 // on the stream when mx_init is not 0, else folded into its value). `u`
 // is null for stage 1 and may equal `out`. `lo`/`hi`, when not null, are
@@ -281,8 +287,8 @@ extern "C" int fused2d_sharded_stage(
     const float* v, const float* u, float* out, const int* geo,
     const float* lo, const float* hi, int kind, const float* coeffs,
     const float* lap, int band, float bc_value, float dt,
-    const float* dt_ptr, int flux, float c, int weno_z, float a, float b,
-    float* mx, int mx_init, void* stream) {
+    const float* dt_ptr, int flux, float c, int weno_z, int order, float a,
+    float b, float* mx, int mx_init, void* stream) {
   const Geometry g{geo[0], geo[1], geo[2], geo[3],
                    geo[4], geo[5], geo[6], geo[7]};
   if (g.ly < 1 || g.lx < 1 || g.oy < 0 || g.ox < 0 || g.oy + g.ly > g.gy ||
@@ -305,7 +311,8 @@ extern "C" int fused2d_sharded_stage(
       launch_diffusion<false>(v, u, out, lo, hi, g, p, s);
     return (int)cudaGetLastError();
   }
-  if (dt_ptr == nullptr || flux < 0 || flux > 2)
+  if (dt_ptr == nullptr || flux < 0 || flux > 2 ||
+      (order != 5 && order != 7) || (order == 7 && weno_z))
     return (int)cudaErrorInvalidValue;
   BurgersParams p;
   for (int q = 0; q < 2; ++q) p.inv_dx[q] = coeffs[q];
@@ -319,13 +326,10 @@ extern "C" int fused2d_sharded_stage(
     const cudaError_t e = cudaMemsetAsync(m, 0, sizeof(unsigned int), s);
     if (e != cudaSuccess) return (int)e;
   }
-  switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: launch_burgers<BURGERS, false>(v, u, out, lo, hi, g, p, dt_ptr, m, s); break;
-    case 1: launch_burgers<BURGERS, true>(v, u, out, lo, hi, g, p, dt_ptr, m, s); break;
-    case 2: launch_burgers<LINEAR, false>(v, u, out, lo, hi, g, p, dt_ptr, m, s); break;
-    case 3: launch_burgers<LINEAR, true>(v, u, out, lo, hi, g, p, dt_ptr, m, s); break;
-    case 4: launch_burgers<BUCKLEY, false>(v, u, out, lo, hi, g, p, dt_ptr, m, s); break;
-    default: launch_burgers<BUCKLEY, true>(v, u, out, lo, hi, g, p, dt_ptr, m, s); break;
-  }
-  return (int)cudaGetLastError();
+  return (int)dispatch(flux, order, weno_z, [&](auto r, auto fl, auto wz) {
+    launch_burgers<decltype(r)::value, decltype(fl)::value,
+                   decltype(wz)::value>(v, u, out, lo, hi, g, p, dt_ptr, m,
+                                        s);
+    return cudaGetLastError();
+  });
 }

@@ -1,10 +1,10 @@
-// One SSP-RK3 stage of 3-D Burgers / scalar conservation law with WENO5,
-// fused into one kernel (K5).
+// One SSP-RK3 stage of 3-D Burgers / scalar conservation law with WENO5
+// or WENO7, fused into one kernel (K5).
 //
 // Replaces the TPU kernel multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_burgers.py::_stage_kernel (:352, built by _make_stage :688) for
-// WENO5-JS/Z on one device and on z-slab shards, and for WENO7-JS on one
-// device (below). It computes the same function, not the same blocks:
+// WENO5-JS/Z and WENO7-JS (below), on one device and on z-slab shards.
+// It computes the same function, not the same blocks:
 //
 //   rk  = b*(v + dt*rhs)            (stage 1, no u operand)
 //   rk  = a*u + b*(v + dt*rhs)      (stages 2 and 3)
@@ -29,14 +29,15 @@
 // Layout: unsharded, the state is unpadded (nz, ny, nx) contiguous
 // float32. Edge boundaries replicate the face value, so every neighbour
 // index is clamped into the grid: there are no ghost cells to maintain.
-// A shard of a z-slab mesh keeps zpad = 3 ghost planes below and above
-// its (lz, ny, nx) block, (lz + 6, ny, nx), which the halo refresh
-// rewrites from the neighbours after every stage (parallel/halo.py); a
-// z neighbour index is clamped at the global z edges only (the TPU
-// kernel's edge fill keys on global rows, fused_burgers.py:846-910), y
-// and x as before. The split schedule's calls write the planes
-// [k_begin, k_end) of the block and may take the ghost planes below or
-// above from the exchanged operands lo/hi ((3, ny, nx) each).
+// A shard of a z-slab mesh keeps zpad = R ghost planes (the reach: 3 at
+// WENO5, 4 at WENO7) below and above its (lz, ny, nx) block, (lz + 2R,
+// ny, nx), which the halo refresh rewrites from the neighbours after
+// every stage (parallel/halo.py); a z neighbour index is clamped at the
+// global z edges only (the TPU kernel's edge fill keys on global rows,
+// fused_burgers.py:846-910), y and x as before. The split schedule's
+// calls write the planes [k_begin, k_end) of the block and may take the
+// ghost planes below or above from the exchanged operands lo/hi ((zpad,
+// ny, nx) each).
 //
 // Aliasing: the third stage runs in place (u == out). That is safe
 // because each thread reads u only at its own cells, each before it
@@ -131,9 +132,10 @@
 // (two a face) take a few instructions each beyond the one operation
 // counted.
 //
-// Order 7 (WENO7-JS, reach R = 4, unsharded only): the same body with R a
-// template parameter. The tile plane is (TY + 8) x (TX + 8), the halo 4
-// cells, the z window planes k-4 .. k+4, and each face is the e-form of
+// Order 7 (WENO7-JS, reach R = 4): the same body with R a template
+// parameter, unsharded and on a z-slab shard (zpad = 4). The tile plane
+// is (TY + 8) x (TX + 8), the halo 4 cells, the z window planes k-4 ..
+// k+4, and each face is the e-form of
 // weno7e.cuh (face7e_run in runs of three, which share only the first
 // differences: the betas of neighbouring faces use other rows of _B7).
 // Static shared memory 24,944 bytes. Counted as above, a WENO7 side is
@@ -255,7 +257,7 @@ __device__ __forceinline__ void face_item(Smem<R>& sm, int b, int tid) {
 // SHARDED and OPERANDS are compile-time so that the unsharded launch
 // (SHARDED false: no ghost planes, every plane, no operands) carries none
 // of the sharded geometry's arithmetic or tests. R is the WENO reach: 3
-// (WENO5-JS/Z) or 4 (WENO7-JS, unsharded only).
+// (WENO5-JS/Z) or 4 (WENO7-JS).
 template <int R, int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 stage_kernel(const float* __restrict__ v, const float* u, float* out,
@@ -430,41 +432,35 @@ void launch_as(const float* v, const float* u, float* out, const float* lo,
       v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, mx);
 }
 
-template <int FLUX, bool WZ>
+// The instances of reach R: with operands, sharded, or unsharded (every
+// plane, no ghost planes).
+template <int R, int FLUX, bool WZ>
 void launch(const float* v, const float* u, float* out, const float* lo,
             const float* hi, int nz, int ny, int nx, int zchunk,
             const ZGeometry& g, const Params& p, const float* dt,
             unsigned int* mx, cudaStream_t s) {
   if (lo != nullptr || hi != nullptr)
-    launch_as<3, FLUX, WZ, true, true>(v, u, out, lo, hi, nz, ny, nx, zchunk,
+    launch_as<R, FLUX, WZ, true, true>(v, u, out, lo, hi, nz, ny, nx, zchunk,
                                        g, p, dt, mx, s);
   else if (g.zpad != 0 || g.k_begin != 0 || g.k_end != nz)
-    launch_as<3, FLUX, WZ, true, false>(v, u, out, lo, hi, nz, ny, nx,
+    launch_as<R, FLUX, WZ, true, false>(v, u, out, lo, hi, nz, ny, nx,
                                         zchunk, g, p, dt, mx, s);
   else
-    launch_as<3, FLUX, WZ, false, false>(v, u, out, lo, hi, nz, ny, nx,
+    launch_as<R, FLUX, WZ, false, false>(v, u, out, lo, hi, nz, ny, nx,
                                          zchunk, g, p, dt, mx, s);
-}
-
-// The WENO7-JS instances: unsharded, every plane.
-template <int FLUX>
-void launch7(const float* v, const float* u, float* out, int nz, int ny,
-             int nx, int zchunk, const ZGeometry& g, const Params& p,
-             const float* dt, unsigned int* mx, cudaStream_t s) {
-  launch_as<4, FLUX, false, false, false>(v, u, out, nullptr, nullptr, nz,
-                                          ny, nx, zchunk, g, p, dt, mx, s);
 }
 
 }  // namespace
 
 // Launch one stage on `stream`. `nz` is the block's plane count (the
-// buffer holds nz + 2*zpad planes, zpad 0 or 3); `zgeo` points to 4 host
+// buffer holds nz + 2*zpad planes, zpad 0 or at least the reach: 3 at
+// order 5, 4 at order 7); `zgeo` points to 4 host
 // ints: zpad, the global plane count, the block's global z offset and
 // mx_init. `u` is null for stage 1 and may equal `out` (in-place stage
 // 3). `dt` points to one float on the device. `flux` is 0 (Burgers), 1
 // (linear, speed `c`) or 2 (Buckley-Leverett); `order` is 5 (WENO5, and
-// `weno_z` selects the WENO5-Z weights) or 7 (WENO7-JS: weno_z 0, no
-// ghost planes, every plane, no operands). `inv_dx` points to 3 host
+// `weno_z` selects the WENO5-Z weights) or 7 (WENO7-JS: weno_z 0).
+// `inv_dx` points to 3 host
 // floats (z, y, x) and `lap` to 15 host floats, or is null for an inviscid
 // run. Only the block's
 // planes [k_begin, k_end) are written; `lo`/`hi`, when not null, hold the
@@ -482,14 +478,13 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
                                    int k_begin, int k_end, const float* lo,
                                    const float* hi, void* stream) {
   const ZGeometry g{zgeo[0], zgeo[1], zgeo[2], k_begin, k_end};
+  const int reach = order == 7 ? 4 : 3;
   if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2 ||
       k_begin < 0 || k_end > nz || k_begin >= k_end || g.zpad < 0 ||
       (g.zpad == 0 && (g.gnz != nz || g.oz != 0)) ||
-      (g.zpad > 0 && g.zpad < 3) || g.oz < 0 || g.oz + nz > g.gnz ||
+      (g.zpad > 0 && g.zpad < reach) || g.oz < 0 || g.oz + nz > g.gnz ||
       (long long)ny * nx > 2147483647LL ||  // a plane's offsets are int
-      (order != 5 && order != 7) ||
-      (order == 7 && (weno_z || g.zpad != 0 || k_begin != 0 || k_end != nz ||
-                      lo != nullptr || hi != nullptr)))
+      (order != 5 && order != 7) || (order == 7 && weno_z))
     return (int)cudaErrorInvalidValue;
   Params p;
   for (int q = 0; q < 3; ++q) p.inv_dx[q] = inv_dx[q];
@@ -504,23 +499,11 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
     const cudaError_t e = cudaMemsetAsync(m, 0, sizeof(unsigned int), s);
     if (e != cudaSuccess) return (int)e;
   }
-  if (order == 7) {
-    switch (flux) {
-      case 0: launch7<BURGERS>(v, u, out, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-      case 1: launch7<LINEAR>(v, u, out, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-      default: launch7<BUCKLEY>(v, u, out, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-    }
-    return (int)cudaGetLastError();
-  }
-  switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: launch<BURGERS, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-    case 1: launch<BURGERS, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-    case 2: launch<LINEAR, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-    case 3: launch<LINEAR, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-    case 4: launch<BUCKLEY, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-    default: launch<BUCKLEY, true>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s); break;
-  }
-  return (int)cudaGetLastError();
+  return (int)dispatch(flux, order, weno_z, [&](auto r, auto fl, auto wz) {
+    launch<decltype(r)::value, decltype(fl)::value, decltype(wz)::value>(
+        v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s);
+    return cudaGetLastError();
+  });
 }
 
 // The tiling of the unsharded WENO`order`-JS Burgers instance (order 5 or

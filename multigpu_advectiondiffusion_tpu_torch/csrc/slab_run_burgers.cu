@@ -1,12 +1,13 @@
 // N fixed-dt SSP-RK3 steps of 3-D Burgers / scalar conservation law with
-// WENO5 in ONE cooperative kernel launch, all three stages of a step
-// fused in one pass over the state (K6), and the same for B independent
+// WENO5 or WENO7 in ONE cooperative kernel launch, all three stages of a
+// step fused in one pass over the state (K6), and the same for B independent
 // members in one launch (K2b); one entry, slab_run_burgers, serves both.
 // A second entry, slab_step_burgers, is K3's Burgers instance: one step
 // over an output window of a shard of a z-slab mesh, one launch (the
 // TPU kernel fused_slab_run.py::_step_call_kernel, :508, with this
 // step_fn). Its buffer holds the shard's lz core planes between depth =
-// k*G ghost planes a side (G = 9), (lz + 2 depth, ny, nx); planes are
+// k*G ghost planes a side (G = 3R: 9, 12 at order 7), (lz + 2 depth, ny,
+// nx); planes are
 // read by global z, from the buffer (its exchanged ghost rows included)
 // or, for the split schedule's edge calls, from the exchanged operands
 // lo/hi, and every read is clamped into the GLOBAL z domain (the TPU
@@ -25,8 +26,9 @@
 // Replaces the TPU kernel multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_slab_run.py::_whole_run_kernel (:188, launched :889, and with
 // batched=True at :933 for run_batched) with SlabRunBurgersStepper's
-// step_fn (:1540-1645), for WENO5-JS/Z and (K6 only) WENO7-JS on one
-// device. It computes the same function, not the same blocks:
+// step_fn (:1540-1645), for WENO5-JS/Z and WENO7-JS, on one device, on
+// z-slab shards and on a member axis. It computes the same function, not
+// the same blocks:
 //
 //   for each of n_iters steps (grid.sync() after each):
 //     t1  = fill(s(fill(S)))
@@ -120,13 +122,19 @@
 // windows recompute 4.30 stage evaluations for 3: about 1,650
 // operations an output cell a step, 1.6x the count above.
 //
-// Order 7 (WENO7-JS, K6 only): step_tile with the reach R = 4 as a
-// template parameter (G = 12): rings of 2R = 8 planes, z-R+1 .. z+R, and
+// Order 7 (WENO7-JS): step_tile with the reach R = 4 as a template
+// parameter (G = 3R = 12): rings of 2R = 8 planes, z-R+1 .. z+R, and
 // each face the e-form of weno7e.cuh. The three stage windows of a 32x32
 // tile would need 322 KB of shared memory, so the order-7 instance works
-// on 24x24 tiles (windows 40, 32, 24; 223,488 bytes), one face an item
-// (25-face lines do not split in runs of three). K3's, K4's and K2b's
-// entries instantiate R = 3 only.
+// on 24x24 tiles (windows 40, 32, 24; 223,488 bytes, one block an SM),
+// one face an item (25-face lines do not split in runs of three). Every
+// entry takes the order: K6 and K2b (members back to back, each member
+// K6's order-7 run of it alone), K3 (its input box the window and G = 12
+// planes a side) and K4 (depth = 12k ghost planes, windows widened by
+// (k-1-j)12 planes). A cooperative launch takes as many blocks as are
+// co-resident, one an SM at either order, and its jobs from the counter,
+// so all the shards' or members' jobs of a step run in one grid whatever
+// their number.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -477,14 +485,14 @@ __device__ void step_tile(const float* S, float* out, const Args& p,
   }
 }
 
-// K3 (WENO5): one step on one job a block, S -> out (the host swaps); job
-// b is chunk b / tiles of tile b % tiles.
-template <int FLUX, bool WZ>
+// K3: one step on one job a block, S -> out (the host swaps); job b is
+// chunk b / tiles of tile b % tiles.
+template <int R, int FLUX, bool WZ>
 __global__ void __launch_bounds__(THREADS, 1)
 step_kernel(const float* S, float* out, Args p) {
   extern __shared__ float sm[];
   const int chunk = blockIdx.x / p.tiles;
-  step_tile<3, FLUX, WZ>(S, out, p, window_of(p),
+  step_tile<R, FLUX, WZ>(S, out, p, window_of(p),
                          blockIdx.x - chunk * p.tiles, chunk, sm);
 }
 
@@ -561,7 +569,7 @@ cudaError_t launch(float* S0, float* S1, Args& p, int n_iters, int members,
 // The physics and tiling every entry shares (tiles of edge T); the window
 // is the caller's.
 Args make_args(int nz, int ny, int nx, const float* inv_dx, const float* lap,
-               float c, float dt, int zchunk, int T = Reach<3>::T) {
+               float c, float dt, int zchunk, int T) {
   Args p;
   p.nz = nz;
   p.ny = ny;
@@ -585,42 +593,39 @@ Args make_args(int nz, int ny, int nx, const float* inv_dx, const float* lap,
   return p;
 }
 
+// Whether (flux, order, weno_z) names an instance: flux 0-2, order 5 (JS
+// or Z) or 7 (JS only).
+bool valid_scheme(int flux, int order, int weno_z) {
+  return flux >= 0 && flux <= 2 &&
+         (order == 5 || (order == 7 && !weno_z));
+}
+
+// The reach of an order: 3 (WENO5), 4 (WENO7).
+int reach_of(int order) { return order == 7 ? 4 : 3; }
+
 // The cooperative launch of K6/K2b: n_iters steps of `members` members
-// whose states lie back to back in S0 and S1; order 7 (WENO7-JS) is K6's
-// alone (members 1, weno_z 0).
+// whose states lie back to back in S0 and S1.
 cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
                             int nx, int flux, float c, int weno_z, int order,
                             const float* inv_dx, const float* lap, float dt,
                             int zchunk, int n_iters, int* counters,
                             int* grid_blocks, cudaStream_t s) {
-  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || n_iters < 0 || flux < 0 ||
-      flux > 2 || members < 1 || counters == nullptr ||
-      (long long)nz * ny * nx > MAX_CELLS || (order != 5 && order != 7) ||
-      (order == 7 && (weno_z || members != 1)))
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || n_iters < 0 ||
+      members < 1 || counters == nullptr ||
+      (long long)nz * ny * nx > MAX_CELLS ||
+      !valid_scheme(flux, order, weno_z))
     return cudaErrorInvalidValue;
   Args p = make_args(nz, ny, nx, inv_dx, lap, c, dt, zchunk,
                      order == 7 ? Reach<4>::T : Reach<3>::T);
   p.chunks = (nz + zchunk - 1) / zchunk;
   if ((long long)p.tiles * p.chunks * members > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaError_t e;
-  if (order == 7) {
-    switch (flux) {
-      case 0: e = launch<4, BURGERS, false>(S0, S1, p, n_iters, 1, counters, grid_blocks, s); break;
-      case 1: e = launch<4, LINEAR, false>(S0, S1, p, n_iters, 1, counters, grid_blocks, s); break;
-      default: e = launch<4, BUCKLEY, false>(S0, S1, p, n_iters, 1, counters, grid_blocks, s); break;
-    }
-    if (e != cudaSuccess) return e;
-    return cudaGetLastError();
-  }
-  switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: e = launch<3, BURGERS, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    case 1: e = launch<3, BURGERS, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    case 2: e = launch<3, LINEAR, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    case 3: e = launch<3, LINEAR, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    case 4: e = launch<3, BUCKLEY, false>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-    default: e = launch<3, BUCKLEY, true>(S0, S1, p, n_iters, members, counters, grid_blocks, s); break;
-  }
+  const cudaError_t e =
+      dispatch(flux, order, weno_z, [&](auto r, auto fl, auto wz) {
+        return launch<decltype(r)::value, decltype(fl)::value,
+                      decltype(wz)::value>(S0, S1, p, n_iters, members,
+                                           counters, grid_blocks, s);
+      });
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -635,8 +640,8 @@ cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
 // Member m computes exactly K6's run of member m alone: the same
 // step_tile on its own state, no shared cell. `flux` is 0 (Burgers), 1
 // (linear, speed `c`) or 2 (Buckley-Leverett); `order` is 5 (WENO5;
-// `weno_z` selects the WENO5-Z weights) or 7 (WENO7-JS: weno_z 0, members
-// 1, 24x24 tiles). `inv_dx` points to 3 host floats (z, y, x) and `lap` to
+// `weno_z` selects the WENO5-Z weights) or 7 (WENO7-JS: weno_z 0, 24x24
+// tiles). `inv_dx` points to 3 host floats (z, y, x) and `lap` to
 // 15 host floats, or is null for an inviscid run. `zchunk` is the z
 // planes of a job. `counters` points to 2 device ints, both zero at the
 // launch (the steps' job counters; the launch leaves them dirty).
@@ -656,15 +661,15 @@ extern "C" int slab_run_burgers(float* S0, float* S1, int members, int nz,
 
 namespace {
 
-template <int FLUX, bool WZ>
+template <int R, int FLUX, bool WZ>
 cudaError_t launch_step(const float* S, float* out, const Args& p,
                         cudaStream_t s) {
-  auto* kernel = step_kernel<FLUX, WZ>;
+  auto* kernel = step_kernel<R, FLUX, WZ>;
   const cudaError_t e = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES<3>);
+      SMEM_BYTES<R>);
   if (e != cudaSuccess) return e;
-  kernel<<<p.tiles * p.chunks, THREADS, SMEM_BYTES<3>, s>>>(S, out, p);
+  kernel<<<p.tiles * p.chunks, THREADS, SMEM_BYTES<R>, s>>>(S, out, p);
   return cudaGetLastError();
 }
 
@@ -676,24 +681,27 @@ cudaError_t launch_step(const float* S, float* out, const Args& p,
 // at buffer row g + row_off; nz is the global plane count. `lo`/`hi`,
 // when not null, are (depth, ny, nx) and stand in for the buffer's first
 // and last depth rows. Every in-domain plane of the input box (the window
-// and 9 planes a side) must lie in the buffer. The flux and physics
-// arguments are slab_run_burgers's. Returns the first CUDA error (0 on
-// success); does not synchronise.
+// and G = 3R planes a side: 9 at order 5, 12 at order 7) must lie in the
+// buffer. The flux, order and physics arguments are slab_run_burgers's.
+// Returns the first CUDA error (0 on success); does not synchronise.
 extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
                                  const float* hi, int pz, int depth, int nz,
                                  int ny, int nx, int row_off, int z_lo,
                                  int z_hi, int flux, float c, int weno_z,
-                                 const float* inv_dx, const float* lap,
-                                 float dt, int zchunk, void* stream) {
-  constexpr int R = 3;  // WENO5 only
+                                 int order, const float* inv_dx,
+                                 const float* lap, float dt, int zchunk,
+                                 void* stream) {
+  if (!valid_scheme(flux, order, weno_z)) return (int)cudaErrorInvalidValue;
+  const int G = 3 * reach_of(order);
   // the buffer rows of the box's in-domain planes
-  const int first = (z_lo - 3 * R > 0 ? z_lo - 3 * R : 0) + row_off;
-  const int last = (z_hi + 3 * R < nz ? z_hi + 3 * R : nz) - 1 + row_off;
-  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2 ||
-      z_lo >= z_hi || depth < 0 || 2 * depth > pz || first < 0 ||
-      last >= pz || (long long)pz * ny * nx > MAX_CELLS)
+  const int first = (z_lo - G > 0 ? z_lo - G : 0) + row_off;
+  const int last = (z_hi + G < nz ? z_hi + G : nz) - 1 + row_off;
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || z_lo >= z_hi ||
+      depth < 0 || 2 * depth > pz || first < 0 || last >= pz ||
+      (long long)pz * ny * nx > MAX_CELLS)
     return (int)cudaErrorInvalidValue;
-  Args p = make_args(nz, ny, nx, inv_dx, lap, c, dt, zchunk);
+  Args p = make_args(nz, ny, nx, inv_dx, lap, c, dt, zchunk,
+                     order == 7 ? Reach<4>::T : Reach<3>::T);
   p.z_lo = z_lo;
   p.z_hi = z_hi;
   p.row_off = row_off;
@@ -703,30 +711,27 @@ extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
   p.hi = hi;
   p.chunks = (z_hi - z_lo + zchunk - 1) / zchunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: return (int)launch_step<BURGERS, false>(S, out, p, s);
-    case 1: return (int)launch_step<BURGERS, true>(S, out, p, s);
-    case 2: return (int)launch_step<LINEAR, false>(S, out, p, s);
-    case 3: return (int)launch_step<LINEAR, true>(S, out, p, s);
-    case 4: return (int)launch_step<BUCKLEY, false>(S, out, p, s);
-    default: return (int)launch_step<BUCKLEY, true>(S, out, p, s);
-  }
+  return (int)dispatch(flux, order, weno_z, [&](auto r, auto fl, auto wz) {
+    return launch_step<decltype(r)::value, decltype(fl)::value,
+                       decltype(wz)::value>(S, out, p, s);
+  });
 }
 
 namespace {
 
 // K4, Burgers: n_iters steps of every shard in sh, k steps a block (G =
-// 3R = 9). p carries the global shape, the physics and the tiling; each
-// job's window and rows are set here. Step j of a block has the (chunk,
-// shard, tile) jobs of the windows [oz - w, oz + lz + w), w = (k-1-j)G.
-template <int FLUX, bool WZ>
+// 3R: 9 at order 5, 12 at order 7). p carries the global shape, the
+// physics and the tiling; each job's window and rows are set here. Step j
+// of a block has the (chunk, shard, tile) jobs of the windows [oz - w,
+// oz + lz + w), w = (k-1-j)G.
+template <int R, int FLUX, bool WZ>
 __global__ void __launch_bounds__(THREADS, 1)
 slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
                     int* counters) {
   extern __shared__ float sm[];
   __shared__ int claimed;
   cg::grid_group grid = cg::this_grid();
-  constexpr int G = 3 * 3;  // WENO5 only
+  constexpr int G = 3 * R;
   const int per_chunk = p.tiles * sh.n;
   for (int s = 0; s < n_iters; ++s) {
     const int j = s % k;
@@ -741,7 +746,7 @@ slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
       const int rest = job - chunk * per_chunk;
       const int i = rest / p.tiles;
       const int oz = i * lz;
-      step_tile<3, FLUX, WZ>(dma_state(sh, par, i),
+      step_tile<R, FLUX, WZ>(dma_state(sh, par, i),
                              dma_state(sh, par ^ 1, i), p,
                              {oz - w, oz + lz + w, sh.depth - oz},
                              rest - i * p.tiles, chunk, sm);
@@ -750,19 +755,19 @@ slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
   }
 }
 
-template <int FLUX, bool WZ>
+template <int R, int FLUX, bool WZ>
 cudaError_t launch_dma(DmaShards& sh, Args& p, int lz, int k, int n_iters,
                        long long jobs, int* counters, int* grid_blocks,
                        cudaStream_t s) {
-  auto* kernel = slab_run_dma_kernel<FLUX, WZ>;
+  auto* kernel = slab_run_dma_kernel<R, FLUX, WZ>;
   int blocks = 0;
   cudaError_t e =
-      cooperative_blocks((const void*)kernel, SMEM_BYTES<3>, jobs, &blocks);
+      cooperative_blocks((const void*)kernel, SMEM_BYTES<R>, jobs, &blocks);
   if (e != cudaSuccess) return e;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
   void* args[] = {&sh, &p, &lz, &k, &n_iters, &counters};
   e = cudaLaunchCooperativeKernel((const void*)kernel, blocks, THREADS, args,
-                                  SMEM_BYTES<3>, s);
+                                  SMEM_BYTES<R>, s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -772,30 +777,33 @@ cudaError_t launch_dma(DmaShards& sh, Args& p, int lz, int k, int n_iters,
 // K4, Burgers: n_iters fixed-dt steps of the `shards` z-slab shards of a
 // mesh, all on this card, in ONE cooperative launch on `stream`. s0, s1
 // and land are host arrays of `shards` device pointers, in z order:
-// shard i's two state buffers (lz + 2 depth, ny, nx), depth = 9k, its lz
-// core planes from row depth (global planes i*lz ...), and its landing
-// buffer (2, 2, depth, ny, nx). Step s reads s0 (s even) or s1 (s odd)
-// and writes the other, so the result is in s0 when n_iters is even and
-// in s1 when it is odd; at the start of every block of k steps the
-// shards' ghost rows are exchanged through the landing buffers
-// (csrc/slab_dma.cuh). The flux and physics arguments, `counters` and
-// `grid_blocks` are slab_run_burgers's. Returns the first CUDA error (0
-// on success); does not synchronise.
+// shard i's two state buffers (lz + 2 depth, ny, nx), depth = k G (G = 9
+// at order 5, 12 at order 7), its lz core planes from row depth (global
+// planes i*lz ...), and its landing buffer (2, 2, depth, ny, nx). Step s
+// reads s0 (s even) or s1 (s odd) and writes the other, so the result is
+// in s0 when n_iters is even and in s1 when it is odd; at the start of
+// every block of k steps the shards' ghost rows are exchanged through the
+// landing buffers (csrc/slab_dma.cuh). The flux, order and physics
+// arguments, `counters` and `grid_blocks` are slab_run_burgers's. Returns
+// the first CUDA error (0 on success); does not synchronise.
 extern "C" int slab_run_dma_burgers(float* const* s0, float* const* s1,
                                     float* const* land, int shards, int lz,
                                     int k, int ny, int nx, int flux, float c,
-                                    int weno_z, const float* inv_dx,
-                                    const float* lap, float dt, int zchunk,
-                                    int n_iters, int* counters,
-                                    int* grid_blocks, void* stream) {
-  constexpr int R = 3;  // WENO5 only
+                                    int weno_z, int order,
+                                    const float* inv_dx, const float* lap,
+                                    float dt, int zchunk, int n_iters,
+                                    int* counters, int* grid_blocks,
+                                    void* stream) {
+  if (!valid_scheme(flux, order, weno_z)) return (int)cudaErrorInvalidValue;
+  const int R = reach_of(order);
   const int depth = k * 3 * R;
   const int pz = lz + 2 * depth;
   if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
-      lz < depth || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2 ||
-      counters == nullptr || (long long)pz * ny * nx > MAX_CELLS)
+      lz < depth || ny < 1 || nx < 1 || zchunk < 1 || counters == nullptr ||
+      (long long)pz * ny * nx > MAX_CELLS)
     return (int)cudaErrorInvalidValue;
-  Args p = make_args(shards * lz, ny, nx, inv_dx, lap, c, dt, zchunk);
+  Args p = make_args(shards * lz, ny, nx, inv_dx, lap, c, dt, zchunk,
+                     order == 7 ? Reach<4>::T : Reach<3>::T);
   p.pz = pz;
   p.depth = depth;
   DmaShards sh;
@@ -812,12 +820,9 @@ extern "C" int slab_run_dma_burgers(float* const* s0, float* const* s1,
   const long long jobs = (long long)shards * p.tiles *
                          ((lz + 2 * depth - 6 * R + zchunk - 1) / zchunk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (flux * 2 + (weno_z ? 1 : 0)) {
-    case 0: return (int)launch_dma<BURGERS, false>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
-    case 1: return (int)launch_dma<BURGERS, true>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
-    case 2: return (int)launch_dma<LINEAR, false>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
-    case 3: return (int)launch_dma<LINEAR, true>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
-    case 4: return (int)launch_dma<BUCKLEY, false>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
-    default: return (int)launch_dma<BUCKLEY, true>(sh, p, lz, k, n_iters, jobs, counters, grid_blocks, s);
-  }
+  return (int)dispatch(flux, order, weno_z, [&](auto r, auto fl, auto wz) {
+    return launch_dma<decltype(r)::value, decltype(fl)::value,
+                      decltype(wz)::value>(sh, p, lz, k, n_iters, jobs,
+                                           counters, grid_blocks, s);
+  });
 }

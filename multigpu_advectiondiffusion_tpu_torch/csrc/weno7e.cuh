@@ -22,6 +22,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "weno5.cuh"
 
 namespace {
@@ -141,6 +143,34 @@ __device__ __forceinline__ float face_of(const float* p, const float* m) {
     return face<WZ>(p, m);
   else
     return face7e(p, m);
+}
+
+// The host side of those bodies: f(Int<R>, Int<FLUX>, bool_constant<WZ>)
+// for the instance of `flux` (0-2), `order` (7: R = 4, JS only; else R =
+// 3) and `weno_z`, each entry's one switch over its instances; the
+// caller checks the arguments first.
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+template <class F>
+cudaError_t dispatch(int flux, int order, int weno_z, F&& f) {
+  using std::false_type;
+  using std::true_type;
+  if (order == 7) {
+    switch (flux) {
+      case 0: return f(Int<4>{}, Int<BURGERS>{}, false_type{});
+      case 1: return f(Int<4>{}, Int<LINEAR>{}, false_type{});
+      default: return f(Int<4>{}, Int<BUCKLEY>{}, false_type{});
+    }
+  }
+  switch (flux * 2 + (weno_z ? 1 : 0)) {
+    case 0: return f(Int<3>{}, Int<BURGERS>{}, false_type{});
+    case 1: return f(Int<3>{}, Int<BURGERS>{}, true_type{});
+    case 2: return f(Int<3>{}, Int<LINEAR>{}, false_type{});
+    case 3: return f(Int<3>{}, Int<LINEAR>{}, true_type{});
+    case 4: return f(Int<3>{}, Int<BUCKLEY>{}, false_type{});
+    default: return f(Int<3>{}, Int<BUCKLEY>{}, true_type{});
+  }
 }
 
 }  // namespace

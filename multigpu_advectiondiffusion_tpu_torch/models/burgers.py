@@ -44,22 +44,23 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   K11/K11b), float32 only; WENO7 under a fused flavor whose fused rung
   declines runs the plain generic path, with the JAX package's reason;
 * ``"auto"`` — not ported: construction raises
-  ``NotImplementedError``, as it does for 1-D grids,
-  ``precision="bf16"``, and WENO7 on a fused rung of a device mesh or
-  under the ensemble engine (their order-7 kernels, K3/K4/K8/K2b, are
-  ROADMAP queue 1 item 2).
+  ``NotImplementedError``, as it does for 1-D grids and
+  ``precision="bf16"``.
 
 On a device mesh (``mesh=``/``decomp=``) the generic and per-axis rungs
 run on every decomposition (adaptive dt the max over the shards), and
-on z slabs the fused rungs: K5 with 3 z-ghost planes refreshed after
-every stage (the split schedule's three launches a stage), dt from the
+on z slabs the fused rungs, WENO5 and WENO7 alike: K5 with ``r`` z-ghost
+planes (the reach, 3 or 4) refreshed after every stage (the split
+schedule's three launches a stage), dt from the
 shards' emitted maxima kept on the card; and, where pinned
 (``impl="pallas_slab"``, ``steps_per_exchange > 1`` or
 ``exchange="dma"``, fixed dt), one K3 launch over an output window a
 step, or the k-step schedule, or under ``exchange="dma"`` one K4 launch
 a run for every shard of the card; on 2-D meshes of any layout K8 a
 stage (K8b under the split schedule). The fused rung on a y- or
-x-sharded 3-D mesh (K5's other layouts) raises.
+x-sharded 3-D mesh (K5's other layouts) raises. The batched ensemble
+engine runs a 3-D fused config at either order on K2b (the slab rung)
+or K5 a member (the per-stage rung).
 """
 
 from __future__ import annotations
@@ -192,31 +193,6 @@ class BurgersSolver(SolverBase):
                 "y_sharded/x_sharded layouts, which are not ported yet "
                 "(ROADMAP queue 1 item 8d); z-slab meshes, and "
                 "impl='xla'/'pallas_axis' on any mesh, run")
-        if (cfg.weno_order == 7 and is_fused_impl(cfg.impl)
-                and self._fused_reason() is None and self.mesh is not None):
-            # one device runs K5, K6 and K7/K7a at order 7
-            kernel = ("K5's and K6's order-7 instances on a z-slab shard "
-                      "(sharded K5; K6's body as K3 and K4)"
-                      if self.grid.ndim == 3 else "K8's order-7 instance")
-            raise NotImplementedError(
-                f"WENO7 on the fused rung of a device mesh needs {kernel}, "
-                "not ported yet (ROADMAP queue 1 item 2; impl='xla' runs "
-                "WENO7)"
-            )
-
-    def _ensemble_gate(self, operand_names=()) -> None:
-        """The shared gate, and WENO7 on a 3-D fused rung raises: the
-        batched engine's order-7 rungs (K2b, and K5 a member) are not
-        ported yet. In 2-D the whole-run rung declines batching to the
-        generic loop at every order, as in the JAX package."""
-        super()._ensemble_gate(operand_names)
-        cfg = self.cfg
-        if (cfg.weno_order == 7 and self.grid.ndim == 3
-                and is_fused_impl(cfg.impl) and self._fused_reason() is None):
-            raise NotImplementedError(
-                "WENO7 on a fused rung of the batched ensemble engine needs "
-                "K2b's order-7 instance, which is not ported yet (ROADMAP "
-                "queue 1 item 2; impl='xla' runs WENO7 ensembles)")
 
     def _op_impl(self) -> str:
         """Per-op kernel strategy of the generic loop (the JAX package's
@@ -321,15 +297,17 @@ class BurgersSolver(SolverBase):
         return LocalPhysics(rhs=rhs, static_dt=fixed_dt)
 
     # ------------------------------------------------------------------ #
-    # Fused fast paths (one device, edge BCs, WENO5)
+    # Fused fast paths (edge BCs, WENO5-JS/Z and WENO7-JS)
     # ------------------------------------------------------------------ #
     def _fused_reason(self):
         """Why the fused rung cannot serve this config, or ``None``: the
         JAX package's eligibility (``models/burgers.py``
-        ``_fused_stepper``) for one device. Its TPU VMEM gates become
-        the card's: none for K5, which needs no block to fit a fast
-        memory, and for the 2-D whole-run stepper (K7) the state fitting
-        the L2 (:meth:`FusedBurgers2DStepper.supported`)."""
+        ``_fused_stepper``), its texts and its branches: on a mesh every
+        sharded axis must hold the order's halo (3 or 4 cells). Its TPU
+        VMEM gates become the card's: none for K5 and K8, which need no
+        block to fit a fast memory, and for the 2-D whole-run stepper
+        (K7) the state fitting the L2
+        (:meth:`FusedBurgers2DStepper.supported`)."""
         cfg = self.cfg
         if (cfg.weno_order, cfg.weno_variant) not in {
             (5, "js"), (5, "z"), (7, "js")

@@ -11,7 +11,8 @@ shard and the caller refreshes the ghosts between stages, as on the TPU:
 
 * the state lives padded by the stencil reach ``h`` on both axes,
   ``(ly + 2h, lx + 2h)`` float32 (``h`` = 2 for the O4 heat equation, 3
-  for WENO5); the ghost rows and columns of a sharded axis hold
+  for WENO5, 4 for WENO7-JS, ``HALO[order]``); the ghost rows and
+  columns of a sharded axis hold
   neighbour data (``parallel/halo.py``), the rest the wall value
   (diffusion) or edge replicas (Burgers, never read: a neighbour outside
   the global domain is the nearest global edge cell, as K7 clamps);
@@ -67,8 +68,7 @@ from multigpu_advectiondiffusion_tpu_torch.timestepping.cfl import (
 
 SOURCE = "fused2d_sharded.cu"
 NVCC_EXTRA = fb.NVCC_EXTRA  # K7's flags: the Burgers body rounds as K7's
-H_DIFFUSION = fd.R  # the O4 reach
-H_BURGERS = fb.R  # the WENO5 reach
+H_DIFFUSION = fd.R  # the O4 reach; Burgers' is the WENO reach, params.r
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +83,9 @@ class DiffusionParams:
 
 
 def halo_of(params) -> int:
-    """The ghost depth of a configuration's padded layout."""
-    return H_DIFFUSION if isinstance(params, DiffusionParams) else H_BURGERS
+    """The ghost depth of a configuration's padded layout: the O4 reach,
+    or the WENO reach of the order (3 or 4)."""
+    return H_DIFFUSION if isinstance(params, DiffusionParams) else params.r
 
 
 def split_bands(ly: int, h: int):
@@ -125,7 +126,8 @@ def burgers_stage_reference(v, u, out, dt, offsets, *,
                             params: fb.StageParams, a: float, b: float,
                             global_shape, window=None, lo=None, hi=None,
                             emit: bool = False):
-    """The plain K8/K8b Burgers/WENO5 stage on a shard padded by 3:
+    """The plain K8/K8b Burgers stage on a shard padded by the reach
+    ``r = params.r`` (3 at WENO5, 4 at WENO7):
     ``out``'s interior rows ``window`` (all by default) ``<- a*u + b*(v +
     dt*rhs)``, ``rhs = -(div_y + div_x) [+ lap]`` — JAX's
     ``_burgers_stage`` (``fused2d_sharded.py:121-140``) in K5's twin's
@@ -136,7 +138,7 @@ def burgers_stage_reference(v, u, out, dt, offsets, *,
     also returns ``max|f'(out)|`` over the rows written."""
     if v.dim() != 2:
         raise ValueError(f"padded 2-D shard expected, got {tuple(v.shape)}")
-    h = H_BURGERS
+    h = params.r
     ly, lx = (n - 2 * h for n in v.shape)
     r0, r1 = window if window is not None else (0, ly)
     (oy, ox), (gy, gx) = offsets, global_shape
@@ -183,8 +185,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build.build(SOURCE, NVCC_EXTRA).path))
     fn = lib.fused2d_sharded_stage
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, i, p, p, i, f, f, p, i, f, i, f, f, p,
-                   i, p]
+    fn.argtypes = [p, p, p, p, p, p, i, p, p, i, f, f, p, i, f, i, i, f, f,
+                   p, i, p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -232,7 +234,7 @@ def _launch(counter, v, u, out, dt, offsets, *, params, a, b,
             raise TypeError("the diffusion stage takes dt by value")
         coeffs = np.asarray(params.taps, dtype=np.float32)
         lap, kind, dt_val, dt_ptr = None, 0, float(np.float32(dt)), None
-        flux, c, weno_z, mx_ptr = 0, 0.0, 0, None
+        flux, c, weno_z, order, mx_ptr = 0, 0.0, 0, 5, None
         band, bc_value = int(params.band), float(params.bc_value)
     else:
         for name, t in (("dt", dt), ("mx", mx)):
@@ -249,6 +251,7 @@ def _launch(counter, v, u, out, dt, offsets, *, params, a, b,
         flux = fb.FLUX_CODES[params.flux.name]
         c = float(params.flux.c if params.flux.c is not None else 0.0)
         weno_z = int(params.variant == "z")
+        order = int(params.order)
         mx_ptr = None if mx is None else mx.data_ptr()
         band, bc_value = 0, 0.0
     with torch.cuda.device(v.device):
@@ -258,7 +261,7 @@ def _launch(counter, v, u, out, dt, offsets, *, params, a, b,
             None if lo is None else lo.data_ptr(),
             None if hi is None else hi.data_ptr(), kind, coeffs.ctypes.data,
             None if lap is None else lap.ctypes.data, band, bc_value, dt_val,
-            dt_ptr, flux, c, weno_z, float(a), float(b), mx_ptr,
+            dt_ptr, flux, c, weno_z, order, float(a), float(b), mx_ptr,
             int(mx_init), torch.cuda.current_stream(v.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -413,15 +416,16 @@ class ShardedFusedDiffusion2DStepper(_Sharded2DStepper):
 
 
 class ShardedFusedBurgers2DStepper(_Sharded2DStepper):
-    """Per-stage fused 2-D Burgers/WENO5 on one shard of a device mesh
-    (JAX ``ShardedFusedBurgers2DStepper``,
-    ``MultiGPU/Burgers2d_Baseline/main.c:186+``): K8 three times a step.
+    """Per-stage fused 2-D Burgers (WENO5-JS/Z or WENO7-JS) on one shard
+    of a device mesh (JAX ``ShardedFusedBurgers2DStepper``,
+    ``MultiGPU/Burgers2d_Baseline/main.c:186+``): K8 three times a step,
+    the shard padded by the order's reach ``HALO[order]`` (3 or 4), the
+    split schedule's bands ``3h`` rows deep as JAX's.
     ``dt`` fixes the step (CUDA parity), else the CFL step
     ``float32(cfl min dx) / max(m, 1e-12)`` follows the wave speed ``m``
     that the last stage of each step emits, the max over the shards
     (``reduce_max``) kept on the card (the device-scalar mode of
-    :class:`FusedStepperBase`), as K7a takes it from the whole state.
-    WENO7 raises: K8's order-7 instance waits with K7's."""
+    :class:`FusedStepperBase`), as K7a takes it from the whole state."""
 
     device_scalars = True
 
@@ -429,14 +433,10 @@ class ShardedFusedBurgers2DStepper(_Sharded2DStepper):
                  nu: float, cfl: float, device, dt: float | None = None,
                  global_shape=None, overlap_split: bool = False,
                  reduce_max=None, order: int = 5):
-        if order != 5:
-            raise NotImplementedError(
-                "WENO7 on the sharded 2-D stage kernel K8 needs its order-7 "
-                "instance, which is not ported yet (ROADMAP queue 1 item 2); "
-                "impl='xla' runs WENO7 on a mesh")
-        super().__init__(interior_shape, H_BURGERS, device, global_shape,
+        self.params = fb.stage_params(flux, variant, spacing, nu, order)
+        self.order = int(order)
+        super().__init__(interior_shape, self.params.r, device, global_shape,
                          overlap_split)
-        self.params = fb.stage_params(flux, variant, spacing, nu)
         self.spacing = tuple(spacing)
         self.cfl = float(cfl)
         self.adaptive = dt is None

@@ -1,6 +1,6 @@
 """Fused SSP-RK3 Burgers/WENO stepping (JAX
-``ops/pallas/fused_burgers.py`` counterpart: WENO5-JS/Z on one device and
-on z-slab shards, WENO7-JS on one device).
+``ops/pallas/fused_burgers.py`` counterpart: WENO5-JS/Z and WENO7-JS on
+one device and on z-slab shards).
 
 Each RK stage is ONE kernel launch (K5, ``csrc/fused_burgers_stage.cu``):
 the Lax–Friedrichs split, the WENO flux divergence along z, y and x,
@@ -31,8 +31,8 @@ there, each z face once in a thread's register window
   ``num * reciprocal(den)``, terms z, y, x. K5 is built with
   ``-fmad=false``, so on the card kernel and twin round alike.
 * The order (``StageParams.order``) sets the reach ``r = HALO[order]``:
-  3 for WENO5, 4 for WENO7-JS, whose instance is unsharded only (its
-  z-slab form is ROADMAP queue 1 item 2).
+  3 for WENO5, 4 for WENO7-JS; a z-slab shard keeps ``r`` ghost planes
+  a side at either order.
 """
 
 from __future__ import annotations
@@ -196,7 +196,7 @@ def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
     Operation order and roundings are the kernel's: ``rhs = -((div_z +
     div_y) + div_x) [+ lap]`` (``-(div_y + div_x)`` in 2-D), ``rk =
     b*(v + dt*rhs)`` and ``a*u + rk``; the reach ``r`` is ``params.r``.
-    A z-slab shard passes ``zpad = R`` (its block's ghost planes),
+    A z-slab shard passes ``zpad = r`` (its block's ghost planes),
     ``global_nz`` and its global z
     offset ``oz``: a z neighbour is clamped at the global edges only.
     ``window = (k_begin, k_end)`` writes those block planes only, and
@@ -397,22 +397,17 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
     tensor). ``mx``, a float32 tensor of one element, receives
     ``max|f'(out)|`` over the cells written (folded into its value when
     ``mx_init`` is false). A z-slab shard passes its block with
-    ``zpad = R`` ghost planes a side, the ``global_nz`` and its global z
-    offset ``oz``; ``window = (k_begin, k_end)`` writes those block planes
+    ``zpad = params.r`` ghost planes a side, the ``global_nz`` and its
+    global z offset ``oz``; ``window = (k_begin, k_end)`` writes those
+    block planes
     only, and ``lo``/``hi`` (``(zpad, ny, nx)``) replace the ghost planes
     below/above (the split schedule's edge calls). Launches K5 on the
     current stream (no synchronisation), each block marching ``zchunk``
     z planes (:func:`stage_zchunk`'s plan when ``None``), and counts the
     launch in ``fused_burgers_stage.launches``; a CPU tensor runs
-    :func:`stage_reference`. At order 7 (``params.order``) only the
-    unsharded whole-block form exists (its z-slab form is ROADMAP queue
-    1 item 2): ``zpad``, ``window``, ``lo`` and ``hi`` raise.
+    :func:`stage_reference`. Both orders (``params.order``) take every
+    form: whole block, ghost planes, a window and operands.
     """
-    if params.order == 7 and (zpad or window is not None or lo is not None
-                              or hi is not None):
-        raise NotImplementedError(
-            "K5's WENO7 instance is unsharded: its z-slab form is not "
-            "ported yet (ROADMAP queue 1 item 2)")
     for name, t in (("v", v), ("u", u), ("out", out)):
         if t is not None:
             _check(name, t, v.shape, v.device)
@@ -420,8 +415,8 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
         raise ValueError(f"3-D state expected, got {tuple(v.shape)}")
     if v.data_ptr() == out.data_ptr():
         raise ValueError("v and out must be different buffers")
-    if zpad not in (0, R):
-        raise ValueError(f"zpad must be 0 or {R}, got {zpad}")
+    if zpad not in (0, params.r):
+        raise ValueError(f"zpad must be 0 or {params.r}, got {zpad}")
     nz, ny, nx = v.shape[0] - 2 * zpad, v.shape[1], v.shape[2]
     gnz = nz if global_nz is None else int(global_nz)
     k0, k1 = window if window is not None else (0, nz)
@@ -481,18 +476,19 @@ fused_burgers_stage.launches = 0
 
 
 class FusedBurgersStepper(FusedStepperBase):
-    """Fused WENO runner for one (grid, flux, dt mode) configuration on
-    one device, or on one shard of a z-slab mesh (WENO5 only; ``order=7``
-    there raises, ROADMAP queue 1 item 2): ``dt`` fixes the step
+    """Fused WENO runner for one (grid, flux, dt mode, WENO order)
+    configuration on one device, or on one shard of a z-slab mesh:
+    ``dt`` fixes the step
     (CUDA-parity mode), else the CFL step ``float32(cfl min dx) /
     max(m, 1e-12)`` follows the wave speed ``m`` that the last stage of
     each step emits — the max over the shards (``reduce_max``), kept on
     the card.
 
     ``global_shape`` (when it differs from ``interior_shape``) makes the
-    stepper shard-local: the block is stored with ``R`` z-ghost planes a
-    side, ``(lz + 2R, ny, nx)``, refreshed from the neighbours after
-    every stage (``refresh``), and clamped at the global z edges only.
+    stepper shard-local: the block is stored with ``r`` z-ghost planes a
+    side (the reach: 3 at WENO5, 4 at WENO7), ``(lz + 2r, ny, nx)``,
+    refreshed from the neighbours after every stage (``refresh``), and
+    clamped at the global z edges only.
     With ``overlap_split`` (and ``lz // SPLIT_BZ >= 3``) a stage is the
     split schedule's three launches: the planes ``[SPLIT_BZ, lz -
     SPLIT_BZ)`` while the z slabs are exchanged, then the bottom and top
@@ -520,13 +516,9 @@ class FusedBurgersStepper(FusedStepperBase):
                                else tuple(interior_shape))
         self.global_shape = tuple(global_shape or interior_shape or ())
         self.sharded = self.global_shape != (self.interior_shape or ())
-        if self.sharded and self.order == 7:
-            raise NotImplementedError(
-                "K5's WENO7 instance on a z-slab shard is not ported yet "
-                "(ROADMAP queue 1 item 2)")
-        self.zpad = R if self.sharded else 0
+        self.zpad = self.halo if self.sharded else 0
         self.core_offsets = (self.zpad, 0, 0)
-        self.exchange_depth = R
+        self.exchange_depth = self.halo
         self.reduce_max = reduce_max
         self.overlap_split = bool(
             overlap_split and self.sharded
@@ -538,7 +530,8 @@ class FusedBurgersStepper(FusedStepperBase):
             return u.contiguous()
         # ghost planes start as edge replicas; the refresh (or the
         # exchanged operands) replaces them where the domain goes on
-        idx = torch.arange(-R, u.shape[0] + R, device=u.device)
+        r = self.halo
+        idx = torch.arange(-r, u.shape[0] + r, device=u.device)
         return u.index_select(0, idx.clamp_(0, u.shape[0] - 1)).contiguous()
 
     def extract(self, S):

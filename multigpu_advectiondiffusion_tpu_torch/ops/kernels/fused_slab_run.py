@@ -73,11 +73,11 @@ jobs spread well over the resident blocks, and count them.
 * ``supported``/``profitable`` are the port's gates, for the H100, in
   place of the JAX package's TPU VMEM model (PERF.md lists the shapes
   where the two disagree).
-* WENO7-JS (``params.order == 7``, reach 4, ``G = 12``) has K6's
-  instance only, on 24x24 tiles (``BURGERS_TILE7``: the three stages'
-  windows of 32x32 tiles would need 322 KB of shared memory); its K3,
-  K4 and K2b instances are ROADMAP queue 1 item 2, and their wrappers
-  raise at order 7.
+* WENO7-JS (``params.order == 7``, reach 4, ``G = 12``) runs every
+  Burgers slab kernel, K6, K2b, K3 and K4, on 24x24 tiles
+  (``BURGERS_TILE7``: the three stages' windows of 32x32 tiles would need
+  322 KB of shared memory); a shard keeps ``k*G = 12k`` ghost planes a
+  side.
 """
 
 from __future__ import annotations
@@ -145,11 +145,11 @@ _K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _F, _I, _I,
 _K3D_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
                  _F, _I, _P)
 _K3B_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                 _P, _P, _F, _I, _P)
+                 _I, _P, _P, _F, _I, _P)
 _K4D_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P,
                  _P, _P)
-_K4B_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _F, _I,
-                 _I, _P, _P, _P)
+_K4B_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _F,
+                 _I, _I, _P, _P, _P)
 # shards one K4 launch takes (DMA_MAX_SHARDS, csrc/slab_dma.cuh)
 DMA_MAX_SHARDS = 64
 
@@ -314,15 +314,6 @@ def burgers_step_reference(S, out, dt, *, params: fb.StageParams):
     return fb.stage_reference(T2, S, out, dt, params=params, a=a3, b=b3)
 
 
-def _order5_only(params: fb.StageParams, kernel: str) -> None:
-    """Raise for a WENO7 ``params`` on a slab kernel whose order-7
-    instance is not ported (K3, K4, K2b)."""
-    if params.order != 5:
-        raise NotImplementedError(
-            f"{kernel}'s WENO7 instance is not ported yet (ROADMAP queue 1 "
-            "item 2); K6 runs WENO7 on one device")
-
-
 def _burgers_args(params: fb.StageParams):
     """K6's/K2b's host arguments for ``params``: the flux code, the
     linear speed, the variant flag, ``inv_dx`` and the viscous taps (or
@@ -398,15 +389,15 @@ def slab_run_burgers_batched(S0, S1, num_iters: int, dt, *,
                              params: fb.StageParams,
                              zchunk=None,
                              grid_blocks: list | None = None):
-    """K2b, Burgers/WENO5: :func:`slab_run_burgers` for B members at once.
+    """K2b, Burgers: :func:`slab_run_burgers` for B members at once.
     ``S0``/``S1`` are ``(B, nz, ny, nx)``, every member's slice K6's
     unpadded layout; ``S0`` holds the initial states. Returns the buffer
     that holds every member's result (``S0`` after an even count, ``S1``
     after an odd one). A CUDA tensor launches the kernel once on the
     current stream for the whole batch, counted in
     ``slab_run_burgers_batched.launches``; a CPU tensor runs the twin,
-    K6's twin per member. WENO5 only."""
-    _order5_only(params, "K2b")
+    K6's twin per member. Member ``i`` is K6's run of member ``i`` alone
+    at either order."""
     _check_batched(S0, S1, 1)
     if S0.device.type == "cpu":
         return ping_pong_members(lambda src, dst: burgers_step_reference(
@@ -544,13 +535,14 @@ def slab_step_burgers_reference(S, out, dt, *, params: fb.StageParams,
     """The plain twin of K3, Burgers: three K5-twin stages on the
     window's planes, each over the global planes its successor reads,
     every z neighbour clamped into the global domain; the window's
-    in-domain planes written to ``out``; returns ``out``."""
-    G = 3 * fb.R
+    in-domain planes written to ``out``; returns ``out``. The reach ``r``
+    and the box's ``G = 3r`` planes a side follow ``params.order``."""
+    r = params.r
+    G = 3 * r
     g_lo, g_hi, row_off = _check_window(
         S, out, lo, hi, depth=depth, window=window, global_nz=global_nz,
         oz=oz, reach=G)
     Sv = _with_operands(S, lo, hi, depth)
-    r = fb.R
 
     def span(a, b):
         return max(a, 0), min(b, global_nz)
@@ -580,22 +572,22 @@ def slab_step_burgers_reference(S, out, dt, *, params: fb.StageParams,
 def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
                       depth, window, lo=None, hi=None,
                       zchunk=None):
-    """K3, Burgers/WENO5: one fixed-dt fused step over the block planes
-    ``window`` of a shard, ``S`` -> ``out``, both ``(lz + 2 depth, ny,
-    nx)`` with the block at row ``depth`` (arguments as
-    :func:`slab_step_diffusion`'s). A CUDA tensor launches the kernel once
-    on the current stream, counted in ``slab_step_burgers.launches``; a
-    CPU tensor runs the twin."""
-    _order5_only(params, "K3")
+    """K3, Burgers: one fixed-dt fused step (``params.order`` 5 or 7) over
+    the block planes ``window`` of a shard, ``S`` -> ``out``, both ``(lz +
+    2 depth, ny, nx)`` with the block at row ``depth`` (arguments as
+    :func:`slab_step_diffusion`'s; the input box reaches ``G = 3r``
+    planes past the window, 9 or 12). A CUDA tensor launches the kernel
+    once on the current stream, counted in ``slab_step_burgers.launches``;
+    a CPU tensor runs the twin."""
     kw = dict(depth=depth, window=window, global_nz=global_nz, oz=oz)
     if S.device.type == "cpu":
         return slab_step_burgers_reference(S, out, dt, params=params, lo=lo,
                                            hi=hi, **kw)
-    g_lo, g_hi, row_off = _check_window(S, out, lo, hi, reach=3 * fb.R,
-                                        **kw)
+    g_lo, g_hi, row_off = _check_window(S, out, lo, hi,
+                                        reach=3 * params.r, **kw)
     code, c, weno_z, inv_dx, taps = _burgers_args(params)
     planes = zchunk or burgers_zchunk(g_hi - g_lo, *S.shape[1:], 1,
-                                      S.device)
+                                      S.device, params.order)
 
     def kernel(S, out):
         return wr.library(BURGERS_SOURCE, "slab_step_burgers", _K3B_ARGTYPES,
@@ -604,7 +596,7 @@ def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
             None if lo is None else lo.data_ptr(),
             None if hi is None else hi.data_ptr(), S.shape[0], int(depth),
             int(global_nz), S.shape[1], S.shape[2], row_off, g_lo, g_hi,
-            code, c, weno_z, inv_dx.ctypes.data,
+            code, c, weno_z, params.order, inv_dx.ctypes.data,
             None if taps is None else taps.ctypes.data,
             float(np.float32(dt)), planes, wr.stream_of(S))
 
@@ -759,13 +751,12 @@ def slab_run_dma_burgers(S0s, S1s, lands, num_iters: int, dt, *,
                          params: fb.StageParams, k: int = 1,
                          zchunk=None,
                          grid_blocks: list | None = None):
-    """K4, Burgers/WENO5: :func:`slab_run_dma_diffusion` for fixed-dt
-    WENO5 steps on K3's unpadded shard layout, state buffers ``(lz + 2
-    depth, ny, nx)`` and landing buffers ``(2, 2, depth, ny, nx)``,
-    ``depth = 9k``; counted in ``slab_run_dma_burgers.launches``. WENO5
-    only."""
-    _order5_only(params, "K4")
-    G = 3 * fb.R
+    """K4, Burgers: :func:`slab_run_dma_diffusion` for fixed-dt WENO steps
+    (``params.order`` 5 or 7) on K3's unpadded shard layout, state
+    buffers ``(lz + 2 depth, ny, nx)`` and landing buffers ``(2, 2, depth,
+    ny, nx)``, ``depth = kG`` (``G = 3r``: 9 at order 5, 12 at order 7);
+    counted in ``slab_run_dma_burgers.launches``."""
+    G = 3 * params.r
     lz = _check_dma(S0s, S1s, lands, k, G)
     if S0s[0].device.type == "cpu":
         gnz = len(S0s) * lz
@@ -778,11 +769,11 @@ def slab_run_dma_burgers(S0s, S1s, lands, num_iters: int, dt, *,
     _launch_dma(BURGERS_SOURCE, "slab_run_dma_burgers", _K4B_ARGTYPES,
                 fb.NVCC_EXTRA, S0s, S1s, lands, lz, int(k), grid_blocks,
                 S0s[0].shape[1], S0s[0].shape[2], code, c, weno_z,
-                inv_dx.ctypes.data,
+                params.order, inv_dx.ctypes.data,
                 None if taps is None else taps.ctypes.data,
                 float(np.float32(dt)),
                 zchunk or burgers_zchunk(lz, *S0s[0].shape[1:], len(S0s),
-                                         S0s[0].device),
+                                         S0s[0].device, params.order),
                 int(num_iters))
     build.count_launch(slab_run_dma_burgers)
     return S1s if num_iters % 2 else S0s
@@ -1138,8 +1129,8 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     dt, WENO order) configuration on one device, K5's unpadded layout; on
     a shard of a z-slab mesh (``global_shape``) the sharded schedules over
     K3, the block between ``k*G`` ghost planes a side, ``(lz + 2kG, ny,
-    nx)``. At ``order=7`` (G = 12) the sharded forms and ``run_batched``
-    raise: K3's, K4's and K2b's order-7 instances are not ported."""
+    nx)``; ``G = 3r`` is 9 at ``order=5`` and 12 at ``order=7``, the
+    JAX stepper's ``halo`` at either order."""
 
     # G: three WENO5 stages of redundant recompute (an order-7 instance
     # sets its own, 12, and reach 4)
@@ -1157,11 +1148,6 @@ class SlabRunBurgersStepper(_SlabRunStepper):
         self.params = fb.stage_params(flux, variant, spacing, nu, order)
         self.stencil_radius = self.params.r
         self.halo = 3 * self.params.r
-        if order == 7 and tuple(global_shape or interior_shape) != tuple(
-                interior_shape):
-            raise NotImplementedError(
-                "K3's and K4's WENO7 instances (a z-slab shard) are not "
-                "ported yet (ROADMAP queue 1 item 2)")
         self.dt = float(dt)
         self._init_sharded(global_shape, overlap_split, steps_per_exchange)
         d = self.exchange_depth if self.sharded else 0
@@ -1207,10 +1193,6 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     def _whole_run_dma(self, S0s, S1s, lands, num_iters: int):
         return slab_run_dma_burgers(S0s, S1s, lands, num_iters, self.dt,
                                     params=self.params, k=self.k)
-
-    def run_batched(self, us, ts, num_iters: int, consume=None):
-        _order5_only(self.params, "K2b")
-        return super().run_batched(us, ts, num_iters, consume)
 
     def _whole_run_batched(self, S0, S1, num_iters: int):
         return slab_run_burgers_batched(S0, S1, num_iters, self.dt,

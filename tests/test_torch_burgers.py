@@ -268,13 +268,21 @@ def test_unported_configs_raise(kw, match):
            else NotImplementedError)
     place = {"device": "cpu"}
     if kw.get("weno_order") == 7:
-        # one device runs WENO7 on K5 and K6 (their order-7 instances,
-        # tests/test_torch_weno7_fused.py); a z-slab mesh still needs
-        # their sharded ones
-        place = {"mesh": pmesh.make_mesh(
-            {"dz": 2}, devices=[torch.device("cpu")] * 2, timeout=60.0)}
-        assert _solver(**kw).engaged_path()["stepper"] in (
-            "fused-stage", "fused-whole-run-slab")
+        # WENO7 runs its fused rung on one device and on a z-slab mesh
+        # (the order-7 instances of K5 and K6, and of the sharded K5 and
+        # K3: tests/test_torch_weno7_fused.py, test_torch_weno7_mesh.py);
+        # the slab pin engages the slab rung (K6, K3 on a shard of at
+        # least G = 12 planes)
+        mesh = pmesh.make_mesh({"dz": 2}, devices=[torch.device("cpu")] * 2,
+                               timeout=60.0)
+        slab = "K6" in match
+        for s in (_solver(**kw), PSolver(PConfig(
+                grid=PGrid.make(12, 10, 24), **{"dtype": "float32", **kw}),
+                mesh=mesh)):
+            assert s.engaged_path()["stepper"] == (
+                "fused-whole-run-slab" if slab else "fused-stage")
+            assert s.engaged_path()["fallback"] is None
+        return
     with pytest.raises(exc, match=match):
         PSolver(PConfig(grid=PGrid.make(12, 10, 8),
                         **{"dtype": "float32", **kw}), **place)

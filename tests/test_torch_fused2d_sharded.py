@@ -2,7 +2,8 @@
 the JAX package's kernels, ``fused2d_sharded._make_stage`` and
 ``_make_band_stage`` in Pallas interpret mode, on shards of the JAX
 suite's oracle grid (40x32, ``tests/test_pallas.py:1391``); the wrappers'
-contracts; WENO7 raising.
+contracts; WENO7 on K8 (its twins against JAX at order 7 are in
+``tests/test_torch_weno7_mesh.py``).
 
 Each case cuts one shard out of a global field, padded as the stepper
 keeps it: its ghost rows and columns hold the neighbours' cells inside
@@ -272,17 +273,21 @@ def test_wrappers_count_only_kernel_launches():
 
 
 def test_weno7_raises_item_2():
-    """WENO7 on K8 waits for its order-7 instance (ROADMAP queue 1 item
-    2), at the stepper and at the solver."""
-    with pytest.raises(NotImplementedError, match="item 2"):
-        pfs.ShardedFusedBurgers2DStepper(
-            (10, 32), SPACING, pflux.get("burgers"), "js", 0.0, 0.4, "cpu",
-            global_shape=GLOBAL, order=7)
+    """WENO7 runs on K8's order-7 instance: the stepper pads the shard by
+    the reach 4, and the solver on ``{"dy": 2}`` engages it and equals
+    the unsharded K7 run to the bit."""
+    st = pfs.ShardedFusedBurgers2DStepper(
+        (10, 32), SPACING, pflux.get("burgers"), "js", 0.0, 0.4, "cpu",
+        global_shape=GLOBAL, order=7)
+    assert (st.halo, st.padded_shape, st.params.order) == (4, (18, 40), 7)
     mesh = pmesh.make_mesh({"dy": 2}, devices=[torch.device("cpu")] * 2,
                            timeout=60.0)
     cfg = PBConfig(grid=PGrid.make(32, 40, lengths=2.0), impl="pallas",
                    weno_order=7)
-    with pytest.raises(NotImplementedError, match="K8's order-7.*item 2"):
-        PBSolver(cfg, mesh=mesh)
+    sharded, one = PBSolver(cfg, mesh=mesh), PBSolver(cfg, device="cpu")
+    assert sharded.engaged_path()["stepper"] == "fused-stage"
+    got = sharded.run(sharded.initial_state(), 2)
+    want = one.run(one.initial_state(), 2)
+    assert torch.equal(got.u.assemble(), want.u) and got.t == want.t
     # the generic rung runs WENO7 on the mesh
     PBSolver(PBConfig(grid=cfg.grid, weno_order=7), mesh=mesh)

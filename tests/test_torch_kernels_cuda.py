@@ -7,7 +7,9 @@ instances and K3, the windowed slab step, with the sharded runs of a
 two-shard mesh on one card, K8/K8b, the sharded 2-D stages, and K9's
 sharded instance, with the 2-D and ADR mesh runs, and K4, the sharded
 run of every shard of the card with the ghost rows moved inside the
-kernel — against their plain PyTorch twins on a GPU. Marked ``cuda``:
+kernel, and the WENO7 instances of K3, K4, K2b, the sharded K5 and
+K8/K8b with their mesh runs — against their plain PyTorch twins on a
+GPU. Marked ``cuda``:
 it skips where no CUDA device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
@@ -1666,3 +1668,272 @@ def test_dma_run_on_one_card_matches_collective_and_unsharded(
     assert got.t == want.t == ref.t
     assert torch.equal(got.u.assemble(), want.u.assemble())
     assert torch.equal(got.u.assemble(), ref.u)
+
+
+# --------------------------------------------------------------------- #
+# WENO7-JS on meshes and member axes: K3, K4, K2b, the sharded K5 and
+# K8/K8b at order 7
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def gpu7_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("the WENO7 instances of K3, K4 and K2b "
+                    "(csrc/slab_run_burgers.cu), of the sharded K5 "
+                    "(csrc/fused_burgers_stage.cu) and of K8/K8b "
+                    "(csrc/fused2d_sharded.cu) need a CUDA device")
+    return torch.device("cuda")
+
+
+K3W7_WINDOWS = {  # (window, operands, depth) with G = 12
+    "full": ((0, 36), "", 12), "interior": ((12, 24), "", 12),
+    "bottom": ((0, 12), "lo", 12), "top": ((24, 36), "hi", 12),
+    "deep0": ((-12, 48), "", 24), "deep-bottom": ((-12, 12), "lo", 24),
+    "deep-top": ((24, 48), "hi", 24)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oz,gnz", [(0, 72), (36, 72), (36, 108)],
+                         ids=["first", "last", "middle"])
+@pytest.mark.parametrize("window", list(K3W7_WINDOWS))
+@pytest.mark.parametrize("case", ["burgers-viscous", "buckley-inviscid"])
+def test_k3_order7_matches_twin(gpu7_mesh, case, window, oz, gnz):
+    """K3 at order 7 over per-step, split and deep windows of a shard,
+    the box 12 planes a side, z clamped at the global edges, 24x24 tiles
+    off the plane (29x37), z chunks of 7; 0 ulp from its twin."""
+    rng = np.random.default_rng(oz + gnz)
+    win, ops, depth = K3W7_WINDOWS[window]
+    shape = (36 + 2 * depth, 29, 37)
+    S = _rand(rng, shape, gpu7_mesh)
+    lo = _rand(rng, (depth,) + shape[1:], gpu7_mesh) if "lo" in ops else None
+    hi = _rand(rng, (depth,) + shape[1:], gpu7_mesh) if "hi" in ops else None
+    kw = dict(params=_params7(case, (0.05, 0.07, 0.09)), global_nz=gnz,
+              oz=oz, depth=depth, window=win, lo=lo, hi=hi)
+    out0 = _rand(rng, shape, gpu7_mesh)
+    want = fsr.slab_step_burgers_reference(S, out0.clone(), 0.015, **kw)
+    before = fsr.slab_step_burgers.launches
+    got = fsr.slab_step_burgers(S, out0.clone(), 0.015, zchunk=7, **kw)
+    torch.cuda.synchronize()
+    assert fsr.slab_step_burgers.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oz,gnz", [(0, 48), (24, 48), (24, 72)],
+                         ids=["first", "last", "middle"])
+@pytest.mark.parametrize("role", list(K5_ROLES))
+@pytest.mark.parametrize("case", list(W7_CASES))
+def test_k5_sharded_order7_matches_twin(gpu7_mesh, case, role, oz, gnz):
+    """K5 at order 7 on a z-slab shard: 4 ghost planes a side, z clamped
+    at the global edges only, a window, the exchanged operands, the
+    emitted maximum folded; 0 ulp from its twin."""
+    rng = np.random.default_rng(oz + 1)
+    r = 4
+    shape = (24 + 2 * r, 29, 37)
+    v, u = _rand(rng, shape, gpu7_mesh), _rand(rng, shape, gpu7_mesh)
+    window, ops = K5_ROLES[role]
+    lo = _rand(rng, (r,) + shape[1:], gpu7_mesh) if "lo" in ops else None
+    hi = _rand(rng, (r,) + shape[1:], gpu7_mesh) if "hi" in ops else None
+    dt = torch.full((1,), 0.01, device=gpu7_mesh)
+    kw = dict(params=_params7(case, (0.05, 0.07, 0.09)), a=0.75, b=0.25,
+              zpad=r, global_nz=gnz, oz=oz, window=window, lo=lo, hi=hi)
+    out0 = _rand(rng, shape, gpu7_mesh)
+    ref, mref = fb.stage_reference(v, u, out0.clone(), dt, emit=True, **kw)
+    out, mx = out0.clone(), torch.full((1,), 7.0, device=gpu7_mesh)
+    before = fb.fused_burgers_stage.launches
+    fb.fused_burgers_stage(v, u, out, dt, mx, zchunk=5, mx_init=False, **kw)
+    torch.cuda.synchronize()
+    assert fb.fused_burgers_stage.launches == before + 1
+    assert torch.equal(out, ref)
+    assert float(mx) == max(7.0, float(mref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,shards,lz,k,steps,plane", [
+    ("burgers-viscous", 2, 24, 1, 3, (29, 37)),
+    ("burgers-viscous", 2, 24, 2, 5, (29, 37)),
+    ("linear", 3, 26, 2, 5, (5, 70)),
+    ("buckley-inviscid", 2, 48, 4, 5, (40, 3))])
+def test_k4_order7_matches_twin(gpu7_mesh, case, shards, lz, k, steps,
+                                plane):
+    """K4 at order 7 (G = 12, depth 12k) on random shard buffers: every
+    state and landing buffer 0 ulp from its twin's after a run with a
+    partial block, one launch."""
+    rng = np.random.default_rng(shards * 10 + k)
+    G = 12
+    depth = k * G
+    shape = (lz + 2 * depth, *plane)
+    bufs = [[_rand(rng, shape, gpu7_mesh) for _ in range(shards)]
+            for _ in range(2)]
+    bufs.append([_rand(rng, (2, 2, depth) + shape[1:], gpu7_mesh)
+                 for _ in range(shards)])
+    params = _params7(case, (0.05, 0.07, 0.09))
+    got = [[t.clone() for t in ts] for ts in bufs]
+    want = [[t.clone() for t in ts] for ts in bufs]
+    before = fsr.slab_run_dma_burgers.launches
+    fsr.slab_run_dma_burgers(*got, steps, 0.015, params=params, k=k,
+                             zchunk=7)
+    torch.cuda.synchronize()
+    assert fsr.slab_run_dma_burgers.launches == before + 1
+    fsr.slab_run_dma_reference(
+        lambda S, out, window, oz: fsr.slab_step_burgers_reference(
+            S, out, 0.015, params=params, global_nz=shards * lz, oz=oz,
+            depth=depth, window=window), *want, steps, k=k, G=G)
+    for a, b in zip(sum(got, []), sum(want, [])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 3])
+@pytest.mark.parametrize("shape,zchunk", [((23, 29, 37), 7),
+                                          ((13, 5, 70), 3),
+                                          ((4, 49, 23), None)])
+@pytest.mark.parametrize("case", list(W7_CASES))
+def test_k2b_order7_matches_twin_and_k6(gpu7_mesh, case, shape, zchunk,
+                                        steps):
+    """K2b at order 7, B = 3: every member 0 ulp from the batched twin
+    and from its single K6 run, one launch for the batch."""
+    B = 3
+    rng = np.random.default_rng(steps)
+    S0 = _rand(rng, (B, *shape), gpu7_mesh)
+    params = _params7(case, (0.05, 0.07, 0.09))
+    want = fsr.ping_pong_members(
+        lambda s, d: fsr.burgers_step_reference(s, d, 0.015, params=params),
+        S0.clone(), S0.clone(), steps)
+    before = fsr.slab_run_burgers_batched.launches
+    got = fsr.slab_run_burgers_batched(S0.clone(), torch.empty_like(S0),
+                                       steps, 0.015, params=params,
+                                       zchunk=zchunk)
+    torch.cuda.synchronize()
+    assert fsr.slab_run_burgers_batched.launches == before + 1
+    assert torch.equal(got, want)
+    for i in range(B):
+        single = fsr.slab_run_burgers(S0[i].clone(), torch.empty_like(S0[i]),
+                                      steps, 0.015, params=params,
+                                      zchunk=zchunk)
+        assert torch.equal(got[i], single), f"member {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", list(K8_SHARDS))
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+@pytest.mark.parametrize("case", list(W7_CASES))
+def test_k8_order7_matches_twin(gpu7_mesh, case, kind, shard):
+    """K8 at order 7, the shard padded by 4: 0 ulp from its twin; the
+    emitted maximum exactly."""
+    params = _params7(case, (0.05, 0.07))
+    h = fsh.halo_of(params)
+    assert h == 4
+    offsets, (ly, lx), gshape = K8_SHARDS[shard]
+    rng = np.random.default_rng(kind)
+    padded = (ly + 2 * h, lx + 2 * h)
+    v, u = _rand(rng, padded, gpu7_mesh), _rand(rng, padded, gpu7_mesh)
+    u_arg = None if kind == 0 else u
+    a, b = fd.STAGES[kind]
+    dt = torch.full((1,), 0.004, device=gpu7_mesh)
+    kw = dict(params=params, a=a, b=b, global_shape=gshape)
+    out0 = _rand(rng, padded, gpu7_mesh)
+    ref, mref = fsh.stage_reference(v, u_arg, out0.clone(), dt, offsets,
+                                    emit=True, **kw)
+    out = out0.clone()
+    mx = torch.full((1,), 7.0, device=gpu7_mesh)
+    before = fsh.fused2d_stage.launches
+    fsh.fused2d_stage(v, u_arg, out, dt, offsets, mx=mx, **kw)
+    torch.cuda.synchronize()
+    assert fsh.fused2d_stage.launches == before + 1
+    assert torch.equal(out, ref)
+    assert float(mx) == float(mref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", ["dy4-first", "dy4-middle", "dy4-last"])
+@pytest.mark.parametrize("band", [0, 1, 2], ids=["interior", "bottom",
+                                                 "top"])
+@pytest.mark.parametrize("case", list(W7_CASES))
+def test_k8b_order7_matches_twin(gpu7_mesh, case, band, shard):
+    """K8b at order 7 over each band of the split schedule (3h = 12
+    rows at least), the edge bands reading the exchanged rows: 0 ulp from
+    its twin; the rows outside the band untouched."""
+    params = _params7(case, (0.05, 0.07))
+    h = fsh.halo_of(params)
+    offsets, (ly, lx), gshape = K8_SHARDS[shard]
+    rng = np.random.default_rng(band)
+    padded = (ly + 2 * h, lx + 2 * h)
+    v, u = _rand(rng, padded, gpu7_mesh), _rand(rng, padded, gpu7_mesh)
+    rows, op = fsh.split_bands(ly, h)[band]
+    ops = {op: _rand(rng, (h, padded[1]), gpu7_mesh)} if op else {}
+    dt = torch.full((1,), 0.004, device=gpu7_mesh)
+    kw = dict(params=params, a=0.75, b=0.25, global_shape=gshape)
+    out0 = _rand(rng, padded, gpu7_mesh)
+    ref, mref = fsh.stage_reference(v, u, out0.clone(), dt, offsets,
+                                    window=rows, emit=True, **ops, **kw)
+    out = out0.clone()
+    mx = torch.full((1,), 7.0, device=gpu7_mesh)
+    before = fsh.fused2d_band_stage.launches
+    fsh.fused2d_band_stage(v, u, out, dt, offsets, rows=rows, mx=mx,
+                           mx_init=False, **ops, **kw)
+    torch.cuda.synchronize()
+    assert fsh.fused2d_band_stage.launches == before + 1
+    assert torch.equal(out, ref)
+    r0, r1 = rows
+    assert torch.equal(out[:h + r0], out0[:h + r0])
+    assert torch.equal(out[h + r1:], out0[h + r1:])
+    assert float(mx) == max(7.0, float(mref))
+
+
+MESH_W7_RUNS = [  # (grid (nx, ny, nz), mesh, config, launches a run summed)
+    ((37, 29, 96), {"dz": 2}, {"impl": "pallas"}, {"K5": 30}),
+    ((37, 29, 96), {"dz": 2}, {"impl": "pallas", "overlap": "split"},
+     {"K5": 90}),
+    ((37, 29, 96), {"dz": 2}, {"impl": "pallas", "adaptive_dt": False},
+     {"K5": 30}),
+    ((37, 29, 96), {"dz": 2}, {"impl": "pallas_slab", "adaptive_dt": False},
+     {"K3": 10}),
+    ((37, 29, 96), {"dz": 2}, {"impl": "pallas_slab", "adaptive_dt": False,
+                               "overlap": "split"}, {"K3": 30}),
+    ((37, 29, 96), {"dz": 2}, {"impl": "pallas_slab", "adaptive_dt": False,
+                               "steps_per_exchange": 4}, {"K3": 10}),
+    ((37, 29, 96), {"dz": 2}, {"impl": "pallas_slab", "adaptive_dt": False,
+                               "exchange": "dma", "steps_per_exchange": 4},
+     {"K4": 1, "K3": 0}),
+    ((60, 48), {"dy": 2}, {"impl": "pallas", "adaptive_dt": False},
+     {"K8": 30}),
+    ((60, 48), {"dy": 4}, {"impl": "pallas", "overlap": "split"},
+     {"K8b": 180, "K8": 0}),
+    ((60, 48), {"dy": 2, "dx": 2}, {"impl": "pallas"}, {"K8": 60}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sizes,extra,launches", MESH_W7_RUNS)
+def test_weno7_mesh_run_on_one_card_matches_unsharded(gpu7_mesh, n, sizes,
+                                                      extra, launches):
+    """Every order-7 mesh rung, shards on one card, 5 steps: the
+    unsharded run of its rung (K5, K6 or K7/K7a) to the bit, ``t``
+    equal, the launches summed over the shards."""
+    from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
+        Decomposition,
+        make_mesh,
+    )
+
+    counters = {"K5": fb.fused_burgers_stage, "K3": fsr.slab_step_burgers,
+                "K4": fsr.slab_run_dma_burgers, "K8": fsh.fused2d_stage,
+                "K8b": fsh.fused2d_band_stage}
+    cfg = BurgersConfig(grid=Grid.make(*n, lengths=2.0), weno_order=7,
+                        nu=1e-5, **extra)
+    plain = dataclasses.replace(cfg, steps_per_exchange=1, overlap="padded",
+                                exchange="collective")
+    shards = int(np.prod(list(sizes.values())))
+    mapping = {0: "dz"} if "dz" in sizes else {
+        i: a for i, a in enumerate(("dy", "dx")) if a in sizes}
+    mesh = make_mesh(sizes, devices=[gpu7_mesh] * shards, timeout=60)
+    one = BurgersSolver(plain)
+    sharded = BurgersSolver(cfg, mesh=mesh,
+                            decomp=Decomposition.of(mapping))
+    want = one.run(one.initial_state(), 5)
+    for c in counters.values():
+        c.launches = 0
+    got = sharded.run(sharded.initial_state(), 5)
+    torch.cuda.synchronize()
+    assert {k: counters[k].launches for k in launches} == launches
+    assert got.t == want.t
+    assert torch.equal(got.u.assemble(), want.u)

@@ -192,17 +192,25 @@ def test_slab_wrappers_reject_bad_operands():
                              params=params)
     with pytest.raises(ValueError, match="3-D"):
         psr.slab_run_burgers(S[0], S[1].clone(), 1, 1e-3, params=params)
-    # WENO7: K6's order-7 instance runs one device; the sharded (K3/K4)
-    # and batched (K2b) forms wait for their order-7 instances
+    # WENO7 (G = 12): a shard must serve the 12k-deep exchange, and the
+    # batched form takes members of one shape
     st = psr.SlabRunBurgersStepper((4, 4, 4), (0.1,) * 3, pflux.burgers(),
                                    "js", 0.0, 0.01, "cpu", order=7)
     assert st.halo == 12 and st.params.order == 7
-    with pytest.raises(NotImplementedError, match="WENO7"):
-        psr.SlabRunBurgersStepper((4, 4, 4), (0.1,) * 3, pflux.burgers(),
+    with pytest.raises(ValueError, match="24-deep exchange"):
+        psr.SlabRunBurgersStepper((16, 4, 4), (0.1,) * 3, pflux.burgers(),
                                   "js", 0.0, 0.01, "cpu", order=7,
-                                  global_shape=(8, 4, 4))
-    with pytest.raises(NotImplementedError, match="WENO7"):
-        st.run_batched(torch.zeros((2, 4, 4, 4)), np.zeros(2), 1)
+                                  global_shape=(32, 4, 4),
+                                  steps_per_exchange=2)
+    with pytest.raises(ValueError, match="(B, nz, ny, nx)"):
+        st.run_batched(torch.zeros((4, 4, 4)), np.zeros(2), 1)
+    params7 = pfb.stage_params(pflux.burgers(), "js", (0.1,) * 3, 0.0,
+                               order=7)
+    lands = [torch.zeros((2, 2, 12, 4, 4)) for _ in range(2)]
+    with pytest.raises(ValueError, match="12-deep in-kernel exchange"):
+        psr.slab_run_dma_burgers([torch.zeros((32, 4, 4))] * 2,
+                                 [torch.zeros((32, 4, 4))] * 2, lands, 1,
+                                 1e-3, params=params7)
 
 
 def test_slab_run_of_zero_steps_returns_its_input():

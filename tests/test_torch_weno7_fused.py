@@ -2,7 +2,8 @@
 kernels at order 7 (run in interpret mode): the e-form side
 (``ops/weno._weno7_side_nd_e``), K5's twin a stage, whole runs on K5,
 K6 and K7/K7a, the engaged paths over a sweep of grids, and the
-order-7 configs that still raise (ROADMAP queue 1 item 2).
+order-7 configs of meshes and of the ensemble engine naming their
+kernels.
 
 Data: the fused kernels' e-form raises the betas to the 6th power and
 overflows in float32 for split-flux jumps above about 3.6 (the JAX
@@ -292,52 +293,81 @@ def test_weno7_z_declines_with_jax_reason():
 
 
 # --------------------------------------------------------------------- #
-# What still raises: order 7 on meshes and under the ensemble engine
+# Order 7 on meshes and under the ensemble engine: each config runs its
+# kernel's twin and names it (tests/test_torch_weno7_mesh.py holds the
+# runs to the unsharded ones and to JAX)
 # --------------------------------------------------------------------- #
 def test_order7_on_a_z_slab_mesh_raises_item_2():
+    """The order-7 configs of a z-slab mesh construct, engage their
+    kernel (K5 sharded, K3, K4) and run 2 steps equal to the unsharded
+    run; the wrappers and steppers take order 7 on a shard."""
     mesh = pmesh.make_mesh({"dz": 2}, devices=[torch.device("cpu")] * 2,
                            timeout=60.0)
     grid = PGrid.make(16, 12, 24, lengths=2.0)
-    for impl, kw in (("pallas", {}), ("pallas_slab", {"adaptive_dt": False}),
-                     ("pallas_slab", {"adaptive_dt": False,
-                                      "exchange": "dma"})):
-        with pytest.raises(NotImplementedError,
-                           match="K5's and K6's order-7.*item 2"):
-            PSolver(PConfig(grid=grid, weno_order=7, impl=impl, **kw),
-                    mesh=mesh)
+    for impl, kw, label in (
+            ("pallas", {}, ("fused-stage", "serialized-refresh")),
+            ("pallas_slab", {"adaptive_dt": False},
+             ("fused-whole-run-slab", "serialized-refresh")),
+            ("pallas_slab", {"adaptive_dt": False, "exchange": "dma"},
+             ("fused-whole-run-slab", "in-kernel"))):
+        cfg = PConfig(grid=grid, weno_order=7, impl=impl, **kw)
+        sharded = PSolver(cfg, mesh=mesh)
+        path = sharded.engaged_path()
+        assert (path["stepper"], path["overlap"]) == label
+        one = PSolver(dataclasses.replace(cfg, exchange="collective"),
+                      device="cpu")
+        got = sharded.run(sharded.initial_state(), 2)
+        want = one.run(one.initial_state(), 2)
+        assert torch.equal(got.u.assemble(), want.u) and got.t == want.t
     # the generic rung runs WENO7 on the mesh
     PSolver(PConfig(grid=grid, weno_order=7), mesh=mesh)
-    # the kernels' own wrappers and steppers
+    # the kernels' own wrappers and steppers, at reach 4 and G = 12
     params = pfb.stage_params(pflux.burgers(), "js", (0.1,) * 3, 0.0,
                               order=7)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        psr.SlabRunBurgersStepper((12, 8, 8), (0.1,) * 3, pflux.burgers(),
-                                  "js", 0.0, 0.01, "cpu", order=7,
-                                  global_shape=(24, 8, 8))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        pfb.FusedBurgersStepper((0.1,) * 3, pflux.burgers(), "js", 0.0, 0.4,
-                                "cpu", interior_shape=(12, 8, 8),
-                                global_shape=(24, 8, 8), order=7)
-    S = torch.zeros((8, 8, 8))
-    with pytest.raises(NotImplementedError, match="K3's WENO7.*item 2"):
-        psr.slab_step_burgers(S, S.clone(), 0.01, params=params,
-                              global_nz=8, oz=0, depth=0, window=(0, 8))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        pfb.fused_burgers_stage(S, None, S.clone(), 0.01, params=params,
-                                a=0.0, b=1.0, window=(0, 4))
+    slab = psr.SlabRunBurgersStepper((12, 8, 8), (0.1,) * 3, pflux.burgers(),
+                                     "js", 0.0, 0.01, "cpu", order=7,
+                                     global_shape=(24, 8, 8))
+    assert (slab.halo, slab.exchange_depth, slab.padded_shape) == (
+        12, 12, (36, 8, 8))
+    stage = pfb.FusedBurgersStepper((0.1,) * 3, pflux.burgers(), "js", 0.0,
+                                    0.4, "cpu", interior_shape=(12, 8, 8),
+                                    global_shape=(24, 8, 8), order=7)
+    assert (stage.zpad, stage.exchange_depth) == (4, 4)
+    assert stage.embed(torch.zeros((12, 8, 8))).shape == (20, 8, 8)
+    S = torch.rand((8, 8, 8))
+    want = psr.burgers_step_reference(S, torch.empty_like(S), 0.01,
+                                      params=params)
+    got = psr.slab_step_burgers(S, torch.zeros_like(S), 0.01, params=params,
+                                global_nz=8, oz=0, depth=0, window=(0, 8))
+    assert torch.equal(got, want)
+    out = pfb.fused_burgers_stage(S, None, torch.zeros_like(S), 0.01,
+                                  params=params, a=0.0, b=1.0,
+                                  window=(0, 4))
+    first = pfb.stage_reference(S, None, torch.empty_like(S), 0.01,
+                                params=params, a=0.0, b=1.0)
+    assert torch.equal(out[:4], first[:4]) and not out[4:].any()
 
 
 def test_order7_under_the_ensemble_engine_raises_item_2():
+    """3-D fused WENO7 ensembles run: the slab pin folds B into K2b, the
+    per-stage flavors run K5 a member; the generic rung and the 2-D
+    fused flavors (which decline batching at every order) as before."""
     grid = PGrid.make(12, 10, 8, lengths=2.0)
-    for impl in ("pallas", "pallas_stage", "pallas_slab"):
+    for impl, label in (("pallas", "ensemble-vmap[fused-stage]"),
+                        ("pallas_stage", "ensemble-vmap[fused-stage]"),
+                        ("pallas_slab",
+                         "ensemble-fold[fused-whole-run-slab]")):
         cfg = PConfig(grid=grid, weno_order=7, impl=impl, adaptive_dt=False)
-        with pytest.raises(NotImplementedError, match="K2b's order-7.*item 2"):
-            EnsembleSolver(PSolver, cfg, 2, device="cpu")
+        ens = EnsembleSolver(PSolver, cfg, 2, device="cpu")
+        ens.run(ens.initial_state(), 1)
+        assert ens.engaged_path()["stepper"] == label
     st = psr.SlabRunBurgersStepper((8, 8, 8), (0.1,) * 3, pflux.burgers(),
                                    "js", 0.0, 0.01, "cpu", order=7)
-    us = torch.zeros((2, 8, 8, 8))
-    with pytest.raises(NotImplementedError, match="K2b's WENO7.*item 2"):
-        st.run_batched(us, np.zeros(2, np.float32), 1)
+    us = torch.rand((2, 8, 8, 8))
+    got, ts = st.run_batched(us, np.zeros(2, np.float32), 1)
+    for i in range(2):
+        assert torch.equal(got[i], st.run(us[i], np.float32(0.0), 1)[0])
+    assert ts.tolist() == [np.float32(0.01)] * 2
     # the generic rung runs WENO7 ensembles, and 2-D fused ensembles
     # decline batching to it at every order
     EnsembleSolver(PSolver, PConfig(grid=grid, weno_order=7), 2,
