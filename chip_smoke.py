@@ -309,7 +309,45 @@ ignored ``build/`` directory), then:
    schedule's K8b, fixed and adaptive dt) and on ``{"dy": 2, "dx":
    2}`` (fixed and adaptive), ``run(200)``, each 0 ulp and ``t`` equal
    to the unsharded K7/K7a run, with its launches, ms/step and K8's
-   time in the profiled run.
+   time in the profiled run;
+51. holds K1's bf16 instance (bf16 buffers, float32 arithmetic, one
+   rounding a stage) against its twin to the bit, every stage kind, at
+   the main path's shape and at the odd shape with a wall value bf16
+   rounds; times it alone beside its bytes bound (4 B a cell at stage 1,
+   6 at stages 2-3) and the twin;
+52. drives the diffusion main path (400x200x206, ``run(101)``) under
+   ``precision="bf16"`` on K1's bf16 instance (``impl="pallas"``, 303
+   launches) and K2's (``impl="pallas_slab"``, one launch), and under
+   ``dtype="bfloat16"`` (K1's, 303 launches): each equal to its twin run
+   on the card to the bit, ``t`` as the float32 path's, its error
+   against the exact heat kernel beside the float32 path's, ms/step;
+53. float64 storage on the same run: ``impl="pallas"`` (K1, 303
+   launches) and ``"pallas_slab"`` (K2, one launch), each equal to the
+   float32 kernel run from ``f32(u0)`` after the upcast, ``t`` by the
+   JAX package's rules; ms/step beside the float32 run's;
+54. holds K2's bf16 instance and K6's at orders 5 and 7 (R = 3, 4)
+   against their twins to the bit (400x200x206, bench.py's Burgers
+   ensemble grid 128x64x64, and the odd shape); times each alone beside
+   its bound and twin; drives that Burgers grid (fixed dt, ``run(30)``)
+   under ``precision="bf16"``, ``impl="pallas"`` (one K6 bf16 launch),
+   its distance from the float32 K6 run reported; drives
+   ``MultiGPU/Burgers3d_Baseline`` (400x400x406, fixed dt) under
+   ``precision="bf16"``: ``run(267)`` at order 5 and ``run(40)`` at order
+   7, where the port takes the JAX slab's bf16 decline to the carried
+   generic loop, held within the JAX package's bf16 band (relative L2
+   <= 2e-2) of the float32 K6 run, K6's bf16 instance forced on that
+   grid reported beside it;
+55. holds K9's bf16 instance against its twin to the bit, every stage
+   kind, at 508x204x160 and at odd widths whose row pitch takes 16-, 8-
+   and 4-byte and single-value copies; times it alone beside its bytes
+   bound and twin; drives bench.py's adr3d row under
+   ``precision="bf16"``, ``run(404)``: 1,212 launches, equal to its twin
+   run on the card, its distance from the float32 K9 run reported,
+   ms/step;
+56. one carried generic run (the diffusion grid, ``precision="bf16"``,
+   ``impl="pallas_axis"``: the packed loop around K11, 303 launches),
+   with the compensation carry and without it, each one's distance from
+   the float32 run reported (the carry's must be the smaller).
 
 It prints the seconds the whole run took, a ``{"kernels": [...]}`` line
 and, last,
@@ -456,7 +494,11 @@ COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K3-burgers": fsr.slab_step_burgers,
             "K8": fsh.fused2d_stage, "K8b": fsh.fused2d_band_stage,
             "K4": fsr.slab_run_dma_diffusion,
-            "K4-burgers": fsr.slab_run_dma_burgers}
+            "K4-burgers": fsr.slab_run_dma_burgers,
+            "K1-bf16": fd.fused_stage_bf16,
+            "K2-bf16": fsr.slab_run_diffusion_bf16,
+            "K6-bf16": fsr.slab_run_burgers_bf16,
+            "K9-bf16": fa.fused_adr_stage_bf16}
 
 
 def card_line() -> str:
@@ -701,10 +743,13 @@ def k5_stage_ops(shape, has_u: bool, viscous: bool, variant: str,
 
 def ulps(a, b) -> int:
     """Largest distance in units in the last place between two float32
-    tensors of one shape."""
+    (or two bf16) tensors of one shape."""
+    bits, mag = ((torch.int16, 0x7FFF) if a.dtype == torch.bfloat16
+                 else (torch.int32, 0x7FFFFFFF))
+
     def ordered(x):
-        i = x.contiguous().view(torch.int32).to(torch.int64)
-        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+        i = x.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & mag), i)
 
     return int((ordered(a) - ordered(b)).abs().max())
 
@@ -1612,7 +1657,7 @@ def burgers2d_phases(card: str, l2_gbs: float) -> list[dict]:
 def exact(name, got, want) -> float:
     """Kernel against twin to the bit: prints the distance, raises unless
     it is 0 ulp; returns the largest absolute difference."""
-    err = float((got - want).abs().max())
+    err = float((got.float() - want.float()).abs().max())
     n_ulps = ulps(got, want)
     print(f"  {name}: max|kernel-twin| = {err:.3e}, {n_ulps} ulp")
     if n_ulps != 0:
@@ -2758,11 +2803,12 @@ def adr_main_phase(card: str, k9: dict) -> dict:
     span_ms, busy_ms, per_kernel = retake(
         lambda: device_profile(lambda: solver.run(state0, n)),
         lambda r: sum("adr_stage_kernel<" in k for k in r[2]) == 2)
-    # the unsharded instances (<TY, TX, HAS_U, SHARDED>): stage 1, 2-3
+    # the unsharded float32 instances (<W, HAS_U, SHARDED, T>): stage 1,
+    # stages 2-3
     s1 = [ms for k, ms in per_kernel.items()
-          if "adr_stage_kernel<" in k and ", false, false>" in k]
+          if "adr_stage_kernel<" in k and ", false, false, float>" in k]
     s23 = [ms for k, ms in per_kernel.items()
-           if "adr_stage_kernel<" in k and ", true, false>" in k]
+           if "adr_stage_kernel<" in k and ", true, false, float>" in k]
     if len(s1) != 1 or len(s23) != 1:
         raise AssertionError(f"profiled run missed K9: {list(per_kernel)}")
     in_run_ms = (s1[0] + 2 * s23[0]) / 3
@@ -5217,6 +5263,596 @@ def weno7_mesh_phases(card: str) -> list[dict]:
     }]
 
 
+# --------------------------------------------------------------------- #
+# Storage precision on one device: float64 storage on K1/K2, and the bf16
+# instances of K1, K2, K6 (R = 3, 4) and K9 (phases 51-56)
+# --------------------------------------------------------------------- #
+BF16 = torch.bfloat16
+PREC_ODD_BC = 0.1  # a wall value bf16 cannot hold: the ghost ring rounds it
+# the JAX package's bf16 band (diagnostics/compare.py:76-89): relative L2
+# against the float32 run
+BF16_BAND = 2e-2
+K6_BF16_W7_ITERS = 40
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def stage_twin_run(st, u0, iters: int, reference, kw: dict):
+    """The plain twin of ``iters`` steps of a per-stage bf16 stepper (K1,
+    K9) on the card: its three stages through ``fd.upcast_twin`` on the
+    stepper's own buffers, the last in place; returns the extracted
+    state."""
+    S = st.embed(u0)
+    T1, T2 = S.clone(), S.clone()
+    dt = np.float32(st.dt)
+    for _ in range(iters):
+        for v, u, out, (a, b) in ((S, None, T1, fd.STAGES[0]),
+                                  (T1, S, T2, fd.STAGES[1]),
+                                  (T2, S, S, fd.STAGES[2])):
+            fd.upcast_twin(reference, v, u, out, dt, a=a, b=b, **kw)
+    return st.extract(S)
+
+
+def heat_errors(out, solver32) -> tuple[float, float]:
+    """L2 (grid-weighted) and Linf of ``out`` against the exact heat
+    kernel at its time, evaluated in float32."""
+    ref = solver32.exact_solution(float(out.t))
+    d = out.u.float() - ref
+    l2 = float(torch.sqrt((d.double() ** 2).sum()
+                          * math.prod(solver32.grid.spacing)))
+    return l2, float(d.abs().max())
+
+
+def k1_bf16_phase(card: str) -> dict:
+    """Phase 51: K1's bf16 instance against its twin to the bit, every
+    stage kind, at the main path's shape (wall 0) and the odd shape (a
+    wall value bf16 rounds), and alone at the main shape beside its
+    bytes bound (4 B a cell at stage 1, 6 at stages 2-3) and the twin."""
+    print("phase 51: K1's bf16 instance against its twin")
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    dt = DiffusionSolver(DiffusionConfig(grid=grid)).dt
+    taps = fd.stage_taps(grid.spacing, [1.0] * 3)
+    res = {"err": 0.0, "ms": [], "plain_ms": [], "bound_ms": []}
+    for shape, bc in ((grid.shape, 0.0), (ODD_SHAPE, PREC_ODD_BC)):
+        for kind, (a, b) in enumerate(fd.STAGES):
+            has_u = kind > 0
+            v = padded_random(shape, bc, 510 + kind).to(BF16)
+            u = padded_random(shape, bc, 520 + kind).to(BF16) \
+                if has_u else None
+            out = torch.full_like(v, fd.bf16_value(bc))
+            ref = out.clone()
+            kw = dict(taps=taps, a=a, b=b, band=2, bc_value=bc)
+            fd.upcast_twin(fd.stage_reference, v, u, ref, dt, **kw)
+            fd.fused_stage_bf16(v, u, out, dt, **kw)
+            torch.cuda.synchronize()
+            res["err"] = max(res["err"], exact(
+                f"K1 bf16 stage {kind + 1} at {shape}, wall {bc}", out, ref))
+            if shape != grid.shape:
+                continue
+            buffers = [(v.clone(), None if u is None else u.clone(),
+                        out.clone()) for _ in range(ROTATE)]
+            res["ms"].append(alone_ms(lambda bufs: fd.fused_stage_bf16(
+                bufs[0], bufs[1], bufs[2], dt, **kw), buffers, 21))
+            del buffers
+            res["plain_ms"].append(statistics.median(cuda_ms(
+                lambda: fd.upcast_twin(fd.stage_reference, v, u, ref, dt,
+                                       **kw), 3)))
+            res["bound_ms"].append(1e3 * max(
+                stage_bytes(shape, has_u) / 2 / HBM_BYTES_PER_S,
+                stage_ops(shape, has_u) / F32_OPS_PER_S))
+            print(f"    K1 bf16 stage {kind + 1} alone {res['ms'][-1]:.4f} "
+                  f"ms; twin {res['plain_ms'][-1]:.4f} ms; bound "
+                  f"{res['bound_ms'][-1]:.4f} ms (bytes) [{card}]")
+        del v, u, out, ref
+        torch.cuda.empty_cache()
+    return {
+        "name": "fused_diffusion_stage_bf16", "id": "K1-bf16",
+        "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_diffusion_stage.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_diffusion.py:205",
+        "max_abs_err": res["err"], "max_ulps": 0,
+        "ms_isolated": statistics.mean(res["ms"]),
+        "plain_ms": statistics.mean(res["plain_ms"]),
+        "bound_ms": statistics.mean(res["bound_ms"]), "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the stage",
+    }
+
+
+def bf16_diffusion_paths(card: str, k1b: dict) -> dict:
+    """Phase 52: the diffusion main path (400x200x206, ``run(101)``) under
+    ``precision="bf16"`` on K1's bf16 instance (``impl="pallas"``, 303
+    launches) and K2's (``impl="pallas_slab"``, one launch), and under
+    ``dtype="bfloat16"`` (K1's bf16 instance, 303 launches), each equal
+    to its twin run on the card to the bit, with its error against the
+    exact heat kernel beside the float32 path's; ms/step of each."""
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    f32 = DiffusionSolver(DiffusionConfig(grid=grid, impl="pallas"))
+    out32 = f32.run(f32.initial_state(), ITERS)
+    err32 = heat_errors(out32, f32)
+    print(f"phase 52: bf16 storage on the diffusion main path, run({ITERS})"
+          f"; float32 K1 path: error vs exact L2 {err32[0]:.4e}, Linf "
+          f"{err32[1]:.4e}")
+    del out32
+    res = {}
+    for name, kw, key, launches in (
+            ("precision=bf16, pallas", dict(precision="bf16", impl="pallas"),
+             "K1-bf16", 3 * ITERS),
+            ("precision=bf16, pallas_slab",
+             dict(precision="bf16", impl="pallas_slab"), "K2-bf16", 1),
+            ("dtype=bfloat16, pallas", dict(dtype="bfloat16", impl="pallas"),
+             "K1-bf16", 3 * ITERS)):
+        solver = DiffusionSolver(DiffusionConfig(grid=grid, **kw))
+        path = solver.engaged_path()
+        print(f"  {name}: engaged {path}")
+        if path["storage_dtype"] != "bfloat16" or path["stepper"] != (
+                "fused-whole-run-slab" if key == "K2-bf16"
+                else "fused-stage"):
+            raise AssertionError(f"{name} did not engage {key}: {path}")
+        state0 = solver.initial_state()
+        out = drive(name, solver, state0, ITERS, {key: launches})
+        st = solver._fused_stepper()
+        skw = dict(taps=st.taps, band=st.band, bc_value=st.bc_value)
+        if key == "K2-bf16":
+            S0 = st.embed(state0.u)
+            twin = st.extract(fsr.ping_pong(
+                lambda s, d: fsr.rounded_step(
+                    lambda x, y: fds.step_reference(x, y, st.dt, **skw),
+                    s, d), S0, S0.clone(), ITERS))
+        else:
+            twin = stage_twin_run(st, state0.u, ITERS, fd.stage_reference,
+                                  skw)
+        torch.cuda.synchronize()
+        exact(f"{name} run({ITERS}) against its twin run", out.u, twin)
+        if out.t != wr.accumulate_t(state0.t, st.dt, ITERS):
+            raise AssertionError(f"{name}: t {out.t!r}")
+        l2, linf = heat_errors(out, f32)
+        ms, reps = run_ms(solver, state0, ITERS)
+        print(f"  {name}: error vs exact L2 {l2:.4e}, Linf {linf:.4e} "
+              f"(float32 path {err32[0]:.4e}, {err32[1]:.4e}); run({ITERS}) "
+              f"median {ms:.3f} ms of {[round(r, 3) for r in reps]}, "
+              f"{ms / ITERS:.4f} ms/step [{card}]")
+        res[name] = {"launches": launches, "ms_per_step": ms / ITERS,
+                     "error_l2": l2, "error_linf": linf}
+        del out, twin, solver, st
+        torch.cuda.empty_cache()
+    res["float32 K1 error (l2, linf)"] = err32
+    k1b["launches"] = 3 * ITERS
+    k1b["paths"] = res
+    k1b["ms_per_step"] = res["precision=bf16, pallas"]["ms_per_step"]
+    return res
+
+
+def f64_storage_phase(card: str) -> dict:
+    """Phase 53: float64 storage on the diffusion main path (400x200x206,
+    ``run(101)``) under ``impl="pallas"`` (K1 at this size, 303 launches)
+    and ``"pallas_slab"`` (K2, one launch): equal to the float32 kernel
+    run from ``f32(u0)`` after the upcast, ``t`` by the JAX package's
+    rules (K1 adds ``f32(dt)`` a step, the slab rung the float64 dt)."""
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    print(f"phase 53: float64 storage on K1 and K2, run({ITERS})")
+    res = {}
+    for impl, key, launches in (("pallas", "K1", 3 * ITERS),
+                                ("pallas_slab", "K2", 1)):
+        s64 = DiffusionSolver(DiffusionConfig(grid=grid, dtype="float64",
+                                              impl=impl))
+        s32 = DiffusionSolver(DiffusionConfig(grid=grid, impl=impl))
+        path = s64.engaged_path()
+        print(f"  {impl}: engaged {path}")
+        if path["storage_dtype"] != "float32" or (
+                path["stepper"] == "fused-stage") != (key == "K1"):
+            raise AssertionError(f"float64 {impl} did not engage {key}")
+        state0 = s64.initial_state()
+        out = drive(f"float64 {impl}", s64, state0, ITERS, {key: launches})
+        state32 = state0._replace(u=state0.u.float(),
+                                  t=np.float32(state0.t))
+        ref = s32.run(state32, ITERS)
+        if out.u.dtype != torch.float64 or not torch.equal(
+                out.u, ref.u.double()):
+            raise AssertionError(f"float64 {impl}: not the float32 run "
+                                 f"upcast")
+        step = np.float64(np.float32(s64.dt) if key == "K1" else s64.dt)
+        t = state0.t
+        for _ in range(ITERS):
+            t = t + step
+        if not (isinstance(out.t, np.float64) and out.t == t):
+            raise AssertionError(f"float64 {impl}: t {out.t!r}, want {t!r}")
+        ms, reps = run_ms(s64, state0, ITERS)
+        ms32, _ = run_ms(s32, state32, ITERS)
+        print(f"  float64 {impl}: equal to the float32 {key} run upcast, t "
+              f"{out.t!r}; run({ITERS}) {ms / ITERS:.4f} ms/step (float32 "
+              f"{ms32 / ITERS:.4f}) [{card}]")
+        res[impl] = {"kernel": key, "launches": launches,
+                     "ms_per_step": ms / ITERS,
+                     "f32_ms_per_step": ms32 / ITERS}
+        del out, ref, s64, s32, state32
+        torch.cuda.empty_cache()
+    return res
+
+
+def k2_bf16_phase(card: str) -> dict:
+    """Phase 54 (diffusion): K2's bf16 instance against its twin to the
+    bit (1 and 5 steps at the main shape, 3 at the odd shape with a wall
+    value bf16 rounds); alone at the main shape, ``run(5)`` a step,
+    beside its bound (the three stages' operations; 4 B a cell a step of
+    bytes) and the twin."""
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    dt = DiffusionSolver(DiffusionConfig(grid=grid)).dt
+    taps = fd.stage_taps(grid.spacing, [1.0] * 3)
+    print("phase 54: K2's bf16 instance against its twin")
+    err = 0.0
+    for shape, bc, counts_ in ((grid.shape, 0.0, (1, 5)),
+                               (ODD_SHAPE, PREC_ODD_BC, (3,))):
+        kw = dict(taps=taps, band=2, bc_value=bc)
+        S0 = padded_random(shape, bc, 540).to(BF16)
+        for steps in counts_:
+            want = twin_steps(lambda s, d: fsr.rounded_step(
+                lambda x, y: fds.step_reference(x, y, dt, **kw), s, d),
+                S0, steps)
+            got = fsr.slab_run_diffusion_bf16(S0.clone(), S0.clone(),
+                                              steps, dt, **kw)
+            torch.cuda.synchronize()
+            err = max(err, exact(f"K2 bf16 {steps} step(s) at {shape}, "
+                                 f"wall {bc}", got, want))
+    kw = dict(taps=taps, band=2, bc_value=0.0)
+    S0 = padded_random(grid.shape, 0.0, 541).to(BF16)
+    A, B = S0.clone(), S0.clone()
+    blocks = []
+    fsr.slab_run_diffusion_bf16(A, B, 1, dt, grid_blocks=blocks, **kw)
+    alone = median_ms(lambda: fsr.slab_run_diffusion_bf16(
+        A, B, 5, dt, **kw)) / 5
+    plain = cuda_ms(lambda: fsr.rounded_step(
+        lambda x, y: fds.step_reference(x, y, dt, **kw), A, B), 1)[0]
+    cells = grid.num_cells
+    bound, by = run_bound(2 * cells, 100 * cells)
+    print(f"  K2 bf16 alone at {grid.shape}, run(5): {alone:.4f} ms a step "
+          f"on {blocks[0]} blocks; twin {plain:.3f} ms a step; bound "
+          f"{bound:.4f} ms a step ({by}; the bytes, 4 B a cell, "
+          f"{1e3 * 4 * cells / HBM_BYTES_PER_S:.4f}) [{card}]")
+    del S0, A, B
+    torch.cuda.empty_cache()
+    return {
+        "name": "slab_run_diffusion_bf16", "id": "K2-bf16", "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_step_diffusion.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_slab_run.py:1345",
+        "max_abs_err": err, "max_ulps": 0, "per": "step",
+        "ms_isolated": alone, "plain_ms": plain, "bound_ms": bound,
+        "bound_by": by, "library_ms": None,
+        "library_call": "none: no single PyTorch call computes an RK step",
+    }
+
+
+def k6_bf16_phase(card: str, order: int, iters: int) -> dict:
+    """Phase 54 (Burgers): K6's bf16 instance at WENO ``order`` (R = 3 or
+    4) against its twin to the bit at bench.py's Burgers ensemble grid
+    (128x64x64, 1 and 5 steps) and the odd shape (1 and 3 steps,
+    viscous); alone, ``run(5)`` a step, beside its bound and the twin;
+    that grid's single run (``run(30)``, fixed dt) under
+    ``precision="bf16"``, ``impl="pallas"`` (the slab pinned, one
+    launch), its distance from the float32 K6 run reported; then
+    ``MultiGPU/Burgers3d_Baseline`` (400x400x406, fixed dt) ``run(iters)``
+    under ``precision="bf16"``: the JAX package's decline there (its
+    slab's bf16 plane gate, ``fused_slab_run.jax_bf16_slab_fits``) to
+    the carried generic loop, held within the JAX package's bf16 band of
+    the float32 K6 run, and K6's bf16 instance forced on that grid (the
+    wrapper, no gate) reported beside it."""
+    grid = Grid.make(*ENSB_N, lengths=2.0)
+    cfg = BurgersConfig(grid=grid, nu=1e-5, adaptive_dt=False,
+                        weno_order=order, impl="pallas", precision="bf16")
+    solver = BurgersSolver(cfg)
+    dt = solver.dt
+    params = fb.stage_params(solver.flux, "js", grid.spacing, 1e-5,
+                             order=order)
+    odd_sp = (0.05, 0.07, 0.09)
+    odd = fb.stage_params(pflux.burgers(), "js", odd_sp, 1e-3, order=order)
+    print(f"phase 54: K6's bf16 instance at order {order} against its twin")
+    rng = np.random.default_rng(540 + order)
+    err = 0.0
+    for shape, p, dt_, step_counts in ((grid.shape, params, dt, (1, 5)),
+                                       (ODD_SHAPE, odd, K6_CFL * min(odd_sp),
+                                        (1, 3))):
+        S0 = torch.from_numpy(rng.uniform(-0.1, 1.0, shape).astype(
+            np.float32)).cuda().to(BF16)
+        for steps in step_counts:
+            want = twin_steps(lambda s, d: fsr.rounded_step(
+                lambda x, y: fsr.burgers_step_reference(x, y, dt_, params=p),
+                s, d), S0, steps)
+            got = fsr.slab_run_burgers_bf16(S0.clone(), S0.clone(), steps,
+                                            dt_, params=p)
+            torch.cuda.synchronize()
+            err = max(err, exact(f"K6 bf16 order {order}, {steps} step(s) "
+                                 f"at {shape}", got, want))
+            del want, got
+        del S0
+    state0 = solver.initial_state()
+    A, B = state0.u.to(BF16), state0.u.to(BF16)
+    blocks = []
+    fsr.slab_run_burgers_bf16(A, B, 1, dt, params=params, grid_blocks=blocks)
+    alone = median_ms(lambda: fsr.slab_run_burgers_bf16(
+        A, B, 5, dt, params=params)) / 5
+    plain = cuda_ms(lambda: fsr.rounded_step(
+        lambda x, y: fsr.burgers_step_reference(x, y, dt, params=params),
+        A, B), 1)[0]
+    del A, B
+    cells = grid.num_cells
+    ops = k6_step_ops(grid.shape, True, "js", order=order)
+    bound = 1e3 * max(4 * cells / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    print(f"  K6 bf16 order {order} alone at {grid.shape}, run(5): "
+          f"{alone:.4f} ms a step on {blocks[0]} blocks; twin {plain:.2f} ms "
+          f"a step; bound {bound:.4f} ms a step (operations) [{card}]")
+
+    print(f"phase 54: Burgers {grid.shape} at order {order}, fixed dt, "
+          f"precision=bf16, run({ENSB_ITERS})")
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if (path["stepper"], path["storage_dtype"]) != (
+            "fused-whole-run-slab", "bfloat16"):
+        raise AssertionError(f"precision=bf16 did not engage K6: {path}")
+    out = drive(f"Burgers bf16 order {order}", solver, state0, ENSB_ITERS,
+                {"K6-bf16": 1})
+    in_range(f"bf16 run({ENSB_ITERS})", out.u)
+    f32 = BurgersSolver(dataclasses.replace(cfg, precision="native",
+                                            impl="pallas_slab"))
+    ref = f32.run(state0, ENSB_ITERS)
+    if out.t != ref.t:
+        raise AssertionError(f"t differs: {out.t} vs {ref.t}")
+    band = rel_l2(out.u, ref.u)
+    print(f"  bf16 K6 against the float32 K6 run({ENSB_ITERS}): relative L2 "
+          f"{band:.3e} (the JAX package's bf16 band {BF16_BAND}: reported, "
+          f"the rung rounds once a step with no carry)")
+    ms, reps = run_ms(solver, state0, ENSB_ITERS)
+    ms32, _ = run_ms(f32, state0, ENSB_ITERS)
+    print(f"  precision=bf16 run({ENSB_ITERS}): median {ms:.3f} ms of "
+          f"{[round(r, 3) for r in reps]}; {ms / ENSB_ITERS:.4f} ms/step "
+          f"(float32 K6 {ms32 / ENSB_ITERS:.4f}) [{card}]")
+    del out, ref
+    torch.cuda.empty_cache()
+
+    big = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    bcfg = BurgersConfig(grid=big, cfl=K6_CFL, adaptive_dt=False,
+                         weno_order=order, impl="pallas", precision="bf16")
+    bsolver = BurgersSolver(bcfg)
+    print(f"phase 54: MultiGPU/Burgers3d_Baseline at order {order}, "
+          f"precision=bf16, run({iters})")
+    bpath = bsolver.engaged_path()
+    print(f"  engaged: {bpath}")
+    if bpath["stepper"] not in ("per-axis-pallas", "generic-xla") or (
+            "the slab declined" not in bpath["fallback"]):
+        raise AssertionError(f"the 400x400x406 bf16 config did not take "
+                             f"JAX's decline: {bpath}")
+    bstate = bsolver.initial_state()
+    t0 = time.perf_counter()
+    bout = drive(f"Burgers 400x400x406 bf16 order {order}", bsolver, bstate,
+                 iters, {"K12": 9 * iters} if order == 5 else {})
+    carried_s = time.perf_counter() - t0
+    bf32 = BurgersSolver(dataclasses.replace(bcfg, precision="native",
+                                             impl="pallas_slab"))
+    bref = bf32.run(bstate, iters)
+    carried = rel_l2(bout.u, bref.u)
+    del bout
+    bparams = fb.stage_params(bsolver.flux, "js", big.spacing, 0.0,
+                              order=order)
+    S = bstate.u.to(BF16)
+    forced = fsr.slab_run_burgers_bf16(S, S.clone(), iters, bsolver.dt,
+                                       params=bparams)
+    torch.cuda.synchronize()
+    forced_band = rel_l2(forced.float(), bref.u)
+    print(f"  against the float32 K6 run({iters}): the carried generic loop "
+          f"{carried:.3e} ({carried_s:.1f} s); K6's bf16 instance forced on "
+          f"this grid {forced_band:.3e} (the band {BF16_BAND}) [{card}]")
+    if not carried <= BF16_BAND:
+        raise AssertionError(f"the carried loop left the band: {carried}")
+    del S, forced, bref
+    torch.cuda.empty_cache()
+    return {
+        "name": f"slab_run_burgers_bf16{'_weno7' if order == 7 else ''}",
+        "id": f"K6-bf16{'-w7' if order == 7 else ''}", "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "slab_run_burgers.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_slab_run.py:1632",
+        "launches": 1, "max_abs_err": err, "max_ulps": 0, "per": "step",
+        "ms": ms / ENSB_ITERS, "run_ms": ms, "ms_isolated": alone,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": "operations",
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes an RK step",
+        "ms_per_step": ms / ENSB_ITERS, "f32_ms_per_step": ms32 / ENSB_ITERS,
+        "rel_l2_vs_f32": band, "baseline_carried_rel_l2": carried,
+        "baseline_forced_k6_rel_l2": forced_band,
+    }
+
+
+def k9_bf16_phase(card: str) -> dict:
+    """Phase 55: K9's bf16 instance against its twin to the bit, every
+    stage kind, at the main path's shape (its physics) and at odd widths
+    whose row pitch takes 16-, 8- and 4-byte and single-value copies;
+    alone at the main shape beside its bytes bound and the twin; then the
+    ADR main path (bench.py's adr3d row) ``run(404)`` under
+    ``precision="bf16"``: 1,212 launches, equal to its twin run on the
+    card, its distance from the float32 K9 run reported, ms/step."""
+    print("phase 55: K9's bf16 instance against its twin")
+    spec = registry.get("adr")
+    grid = Grid.make(*ADR_N, lengths=ADR_LENGTHS)
+    cfg = dataclasses.replace(spec.bench_build(grid, "float32", "pallas",
+                                               None), precision="bf16")
+    solver = spec.solver_cls(cfg)
+    st = solver._fused_stepper()
+    kw, dt = st.stage_kwargs(), st.dt
+    res = {"err": 0.0, "ms": [], "plain_ms": [], "bound_ms": []}
+    widths = {}
+    shapes = [(grid.shape, kw)]
+    for nx in (36, 32, 34, 33):
+        shape = (ODD_SHAPE[0], ODD_SHAPE[1], nx)
+        shapes.append((shape, fa.FusedADRStepper(
+            shape, (0.1, 0.08, 0.12), 1.0, (0.5, -0.3, 0.2), 0.25, dt, 2,
+            PREC_ODD_BC, "cuda", kappa_variation=0.2, dtype=BF16,
+            storage_dtype=torch.float32).stage_kwargs()))
+    launch = {}
+    for shape, skw in shapes:
+        bc = skw["bc_value"]
+        for kind, (a, b) in enumerate(fd.STAGES):
+            has_u = kind > 0
+            v = padded_random(shape, bc, 550 + kind).to(BF16)
+            u = padded_random(shape, bc, 560 + kind).to(BF16) \
+                if has_u else None
+            out = torch.full_like(v, fd.bf16_value(bc))
+            ref = out.clone()
+            fd.upcast_twin(fa.adr_stage_reference, v, u, ref, dt, a=a, b=b,
+                           **skw)
+            fa.fused_adr_stage_bf16(v, u, out, dt, a=a, b=b, launch=launch,
+                                    **skw)
+            torch.cuda.synchronize()
+            widths[shape[2]] = launch["copy_width"]
+            if launch["copy_width"] != fa.copy_width(shape[2], 2):
+                raise AssertionError(f"K9 bf16 copies {launch} at {shape}")
+            res["err"] = max(res["err"], exact(
+                f"K9 bf16 stage {kind + 1} at {shape} ({launch['copy_width']}"
+                f"-value copies)", out, ref))
+            if shape != grid.shape:
+                continue
+            buffers = [(v.clone(), None if u is None else u.clone(),
+                        out.clone()) for _ in range(ROTATE)]
+            res["ms"].append(alone_ms(lambda bufs: fa.fused_adr_stage_bf16(
+                bufs[0], bufs[1], bufs[2], dt, a=a, b=b, **skw), buffers, 21))
+            del buffers
+            res["plain_ms"].append(statistics.median(cuda_ms(
+                lambda: fd.upcast_twin(fa.adr_stage_reference, v, u, ref, dt,
+                                       a=a, b=b, **skw), 3)))
+            cells = math.prod(shape)
+            ops = k9_stage_ops(shape, has_u, 0.2, 0.25, 3)
+            res["bound_ms"].append(1e3 * max(
+                2 * cells * (3 if has_u else 2) / HBM_BYTES_PER_S,
+                ops / F32_OPS_PER_S))
+            print(f"    K9 bf16 stage {kind + 1} alone {res['ms'][-1]:.4f} "
+                  f"ms; twin {res['plain_ms'][-1]:.4f} ms; bound "
+                  f"{res['bound_ms'][-1]:.4f} ms [{card}]")
+        del v, u, out, ref
+        torch.cuda.empty_cache()
+    print(f"  K9 bf16 copy widths (values) by nx: {widths}, blocks an SM "
+          f"{launch['blocks_per_sm']}")
+
+    n = ADR_ITERS
+    print(f"phase 55: ADR 3-D main path, precision=bf16, run({n})")
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if (path["stepper"], path["storage_dtype"]) != ("fused-stage",
+                                                    "bfloat16"):
+        raise AssertionError(f"precision=bf16 ADR did not engage K9: {path}")
+    state0 = solver.initial_state()
+    out = drive("ADR bf16", solver, state0, n, {"K9-bf16": 3 * n})
+    twin = stage_twin_run(st, state0.u, n, fa.adr_stage_reference, kw)
+    torch.cuda.synchronize()
+    exact(f"ADR bf16 run({n}) against its twin run", out.u, twin)
+    del twin
+    f32 = spec.solver_cls(dataclasses.replace(cfg, precision="native"))
+    ref = f32.run(state0, n)
+    band = rel_l2(out.u, ref.u)
+    print(f"  against the float32 K9 run({n}): relative L2 {band:.3e}, "
+          f"max|diff| {float((out.u - ref.u).abs().max()):.3e} (reported: "
+          f"a rounding a stage stalls stability-dt increments, as in the "
+          f"JAX package's rung)")
+    del out, ref
+    torch.cuda.empty_cache()
+    ms, reps = run_ms(solver, state0, n)
+    ms32, _ = run_ms(f32, state0, n)
+    print(f"  precision=bf16 run({n}): median {ms:.3f} ms of "
+          f"{[round(r, 3) for r in reps]}; {ms / n:.4f} ms/step (float32 K9 "
+          f"{ms32 / n:.4f}) [{card}]")
+    prof = run_profile(lambda: solver.run(state0, 20), "adr_stage_kernel")
+    in_run = prof["kernel_ms"] if prof and prof["launches"] else None
+    print(f"  profiled run(20): K9 bf16 {in_run} ms a launch in the run"
+          f"{'' if prof else ' (the profiler saw no device event)'}")
+    return {
+        "name": "fused_adr_stage_bf16", "id": "K9-bf16", "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_adr_stage.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_adr.py:140",
+        "launches": 3 * n, "max_abs_err": res["err"], "max_ulps": 0,
+        "ms": in_run if in_run else statistics.mean(res["ms"]),
+        "ms_isolated": statistics.mean(res["ms"]),
+        "plain_ms": statistics.mean(res["plain_ms"]),
+        "bound_ms": statistics.mean(res["bound_ms"]), "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the stage",
+        "copy_widths": widths, "ms_per_step": ms / n,
+        "f32_ms_per_step": ms32 / n, "rel_l2_vs_f32": band,
+    }
+
+
+def carried_generic_phase(card: str) -> dict:
+    """Phase 56: one carried generic run, the diffusion main path's grid
+    under ``precision="bf16"``, ``impl="pallas_axis"`` (the packed loop
+    around K11, 303 launches), with the compensation carry and without
+    it (``TPUCFD_BF16_NO_CARRY=1``): each one's distance from the float32
+    run of the same rung, reported."""
+    import os
+
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    cfg = DiffusionConfig(grid=grid, impl="pallas_axis", precision="bf16")
+    f32 = DiffusionSolver(dataclasses.replace(cfg, precision="native"))
+    state0 = f32.initial_state()
+    ref = f32.run(state0, ITERS)
+    print(f"phase 56: the carried generic loop, run({ITERS})")
+    res = {}
+    for carry in (True, False):
+        if carry:
+            os.environ.pop("TPUCFD_BF16_NO_CARRY", None)
+        else:
+            os.environ["TPUCFD_BF16_NO_CARRY"] = "1"
+        try:
+            solver = DiffusionSolver(cfg)
+        finally:
+            os.environ.pop("TPUCFD_BF16_NO_CARRY", None)
+        name = "with the carry" if carry else "without the carry"
+        out = drive(f"packed generic, {name}", solver, state0, ITERS,
+                    {"K11": 3 * ITERS})
+        band = rel_l2(out.u, ref.u)
+        ms, _ = run_ms(solver, state0, ITERS)
+        print(f"  {name}: relative L2 against the float32 run {band:.3e}, "
+              f"max|diff| {float((out.u - ref.u).abs().max()):.3e}; "
+              f"{ms / ITERS:.4f} ms/step [{card}]")
+        res[name] = {"rel_l2": band, "ms_per_step": ms / ITERS}
+        del out, solver
+    ms32, _ = run_ms(f32, state0, ITERS)
+    print(f"  float32 per-axis rung {ms32 / ITERS:.4f} ms/step [{card}]")
+    res["float32 ms_per_step"] = ms32 / ITERS
+    if not res["with the carry"]["rel_l2"] < res["without the carry"][
+            "rel_l2"]:
+        raise AssertionError(f"the carry did not help: {res}")
+    return res
+
+
+def precision_phases(card: str) -> list[dict]:
+    """Phases 51-56; returns the bf16 instances' entries."""
+    k1b = k1_bf16_phase(card)
+    torch.cuda.empty_cache()
+    paths = bf16_diffusion_paths(card, k1b)
+    k1b["ms"] = k1b["ms_isolated"]
+    k2b = k2_bf16_phase(card)
+    k2b.update(launches=1, ms=paths["precision=bf16, pallas_slab"][
+        "ms_per_step"], ms_per_step=paths["precision=bf16, pallas_slab"][
+        "ms_per_step"])
+    k1b["f64_storage"] = f64_storage_phase(card)
+    torch.cuda.empty_cache()
+    k6b = k6_bf16_phase(card, 5, K6_ITERS)
+    torch.cuda.empty_cache()
+    k6b7 = k6_bf16_phase(card, 7, K6_BF16_W7_ITERS)
+    torch.cuda.empty_cache()
+    k9b = k9_bf16_phase(card)
+    torch.cuda.empty_cache()
+    k9b["carried_generic"] = carried_generic_phase(card)
+    return [k1b, k2b, k6b, k6b7, k9b]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5237,6 +5873,7 @@ def main() -> int:
     sources = [(fd.SOURCE, ()), (fb.SOURCE, fb.NVCC_EXTRA),
                (fd2.SOURCE, ()), (fb2.SOURCE, fb.NVCC_EXTRA),
                (fds.SOURCE, ()), (fsr.BURGERS_SOURCE, fb.NVCC_EXTRA),
+               (fsr.BURGERS_SOURCE, fb.NVCC_EXTRA + fsr.K6_BF16_FLAGS),
                (klap.SOURCE, ()), (kweno.SOURCE, fb.NVCC_EXTRA),
                (fa.SOURCE, fa.NVCC_EXTRA), (fsh.SOURCE, fsh.NVCC_EXTRA)]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -5400,6 +6037,12 @@ def main() -> int:
     t_w7m = time.perf_counter()
     w7m = weno7_mesh_phases(card)
     print(f"phases 46-50: {time.perf_counter() - t_w7m:.1f} s")
+    torch.cuda.empty_cache()
+    print("phases 51-56: storage precision on one device (float64 storage "
+          "on K1/K2; the bf16 instances of K1, K2, K6 and K9)")
+    t_prec = time.perf_counter()
+    prec = precision_phases(card)
+    print(f"phases 51-56: {time.perf_counter() - t_prec:.1f} s")
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -5445,7 +6088,7 @@ def main() -> int:
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
     }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b,
-        *k3, *mesh2d, *k4, *w7, *w7m]
+        *k3, *mesh2d, *k4, *w7, *w7m, *prec]
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the "
           f"{len(sources)} kernels' build included")
     print(f"card: {card}")

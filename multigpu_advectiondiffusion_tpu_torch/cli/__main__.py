@@ -131,7 +131,16 @@ def _common(p, ndim: int) -> None:
                         "pallas and pallas_stage only. A config a fused "
                         "rung declines runs the per-axis kernels")
     p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"])
+                   choices=["float32", "float64", "bfloat16"])
+    p.add_argument("--precision", default="native",
+                   choices=["native", "bf16"],
+                   help="storage precision rung: bf16 = keep the state in "
+                        "bfloat16 between steps (the fused kernels' "
+                        "buffers; on the generic path a compensated "
+                        "(hi, lo) pair) while every stencil tap and RK "
+                        "stage computes in float32; requires --dtype "
+                        "float32, one device, single runs (3-D Burgers "
+                        "needs --fixed-dt and engages the slab rung)")
     p.add_argument("--ic", default=None, choices=sorted(ic_registry),
                    help="initial condition (default: the family's)")
     p.add_argument("--save", default=None, metavar="DIR",
@@ -256,12 +265,15 @@ def decomposition_for(grid, mesh_sizes) -> Decomposition:
 # the launch counter of each hand-written kernel, by name
 _COUNTERS = {
     "K1 fused_diffusion_stage": fused_diffusion.fused_stage,
+    "K1 fused_diffusion_stage_bf16": fused_diffusion.fused_stage_bf16,
     "K5 fused_burgers_stage": fused_burgers.fused_burgers_stage,
     "K7 whole_run": whole_run.whole_run,
     "K7a whole_run_adaptive": whole_run.whole_run_adaptive,
     "K10 fused_step_diffusion": fused_diffusion_step.fused_step,
     "K2 slab_run_diffusion": fused_slab_run.slab_run_diffusion,
     "K6 slab_run_burgers": fused_slab_run.slab_run_burgers,
+    "K2 slab_run_diffusion_bf16": fused_slab_run.slab_run_diffusion_bf16,
+    "K6 slab_run_burgers_bf16": fused_slab_run.slab_run_burgers_bf16,
     "K2b slab_run_diffusion_batched":
         fused_slab_run.slab_run_diffusion_batched,
     "K2b slab_run_burgers_batched": fused_slab_run.slab_run_burgers_batched,
@@ -274,6 +286,7 @@ _COUNTERS = {
     "K12 weno_axis_3d": weno.flux_divergence_3d,
     "K12b weno_axis_2d": weno.flux_divergence_2d,
     "K9 fused_adr_stage": fused_adr.fused_adr_stage,
+    "K9 fused_adr_stage_bf16": fused_adr.fused_adr_stage_bf16,
     "K8 fused2d_stage": fused2d_sharded.fused2d_stage,
     "K8b fused2d_band_stage": fused2d_sharded.fused2d_band_stage,
 }
@@ -312,7 +325,11 @@ def _drive(verb: str, solver, args, check_error: bool = False) -> int:
     print(f" grid               : {'x'.join(map(str, grid.shape_xyz))} "
           f"({grid.num_cells:,} cells)")
     print(f" device             : {device} [{where}]")
-    print(f" dtype              : {args.dtype}")
+    print(f" dtype              : {args.dtype}"
+          + (f" (storage {engaged['storage_dtype']}, precision="
+             f"{engaged['precision']})"
+             if engaged["precision"] != "native"
+             or engaged["storage_dtype"] != args.dtype else ""))
     print(f" kernel path        : {line}")
     if solver.mesh is not None:
         print(f" mesh               : {solver.mesh.shape} on "

@@ -11,7 +11,10 @@ so this module needs neither package's framework from the other side:
 * :func:`state_from_numpy` / :func:`state_to_numpy` move a state
   ``(u, t, it)`` in and out as numpy, keeping ``t``'s precision; with
   ``mesh=``/``decomp=`` the field is scattered onto the mesh's shards
-  (and gathered back).
+  (and gathered back). numpy has no bfloat16 here (the port does not
+  depend on ``ml_dtypes``), so a bf16 state crosses as a float32 array
+  whose values are bf16-representable: ``dtype="bfloat16"`` checks that
+  and converts it, and a bf16 state comes out as such an array.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary
+from multigpu_advectiondiffusion_tpu_torch.core.dtypes import canonicalize
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
 from multigpu_advectiondiffusion_tpu_torch.models.adr import ADRConfig
 from multigpu_advectiondiffusion_tpu_torch.models.base import resolve_device
@@ -96,32 +100,58 @@ def adr_config_from_fields(fields: dict) -> ADRConfig:
     return _from_fields(ADRConfig, fields)
 
 
+def _to_bf16(arr: np.ndarray) -> torch.Tensor:
+    """A float32 array of bf16-representable values as a bf16 tensor;
+    raises where a value would round (NaNs pass as NaNs)."""
+    if arr.dtype != np.float32:
+        raise TypeError("a bfloat16 field crosses as a float32 array of "
+                        f"bf16-representable values, got {arr.dtype}")
+    t = torch.from_numpy(arr).to(torch.bfloat16)
+    back = t.float().numpy()
+    exact = (back == arr) | (np.isnan(back) & np.isnan(arr))
+    if not exact.all():
+        raise ValueError(
+            f"{int((~exact).sum())} values are not bf16-representable "
+            "(round them to bfloat16 first)")
+    return t
+
+
 def state_from_numpy(u, t, it=0, device=None, mesh=None,
-                     decomp=None) -> SolverState:
+                     decomp=None, dtype=None) -> SolverState:
     """A port state from numpy ``u`` (``(nz, ny, nx)``, float32/float64),
     time ``t`` and step count ``it``; ``device=None`` means the GPU.
     With ``mesh`` the field is scattered onto its shards (``decomp``
     defaulting to slabs of array axis 0 over the mesh's first axis, as
-    a solver's does) and ``device`` must be ``None``."""
+    a solver's does) and ``device`` must be ``None``. ``dtype=
+    "bfloat16"`` makes a bf16 state from a float32 array of
+    bf16-representable values (``t`` then float32, as the JAX package
+    keeps it)."""
     arr = np.array(u, order="C")  # a writable copy the tensor may own
     if arr.dtype not in (np.float32, np.float64):
         raise TypeError(f"float32/float64 field expected, got {arr.dtype}")
+    if dtype is not None and canonicalize(dtype) == torch.bfloat16:
+        host = _to_bf16(arr)
+    else:
+        host = torch.from_numpy(arr)
     if mesh is not None:
         if device is not None:
             raise ValueError("a mesh names its devices; pass device=None")
         for dev in mesh.device_list():
             resolve_device(dev)
         decomp = decomp or Decomposition.slab(tuple(mesh.shape)[0])
-        ut = ShardedArray.scatter(torch.from_numpy(arr), mesh, decomp)
+        ut = ShardedArray.scatter(host, mesh, decomp)
     else:
-        ut = torch.from_numpy(arr).to(resolve_device(device))
+        ut = host.to(resolve_device(device))
     return SolverState(u=ut, t=time_dtype(ut.dtype)(t), it=int(it))
 
 
 def state_to_numpy(state: SolverState):
-    """``(u, t, it)`` as a numpy array (a sharded field gathered), a
-    numpy scalar and an int."""
+    """``(u, t, it)`` as a numpy array (a sharded field gathered; a bf16
+    field as float32), a numpy scalar and an int."""
     u = state.u
     if isinstance(u, ShardedArray):
-        return u.numpy(), state.t, int(state.it)
-    return u.detach().cpu().numpy(), state.t, int(state.it)
+        u = u.assemble("cpu")
+    u = u.detach().cpu()
+    if u.dtype == torch.bfloat16:
+        u = u.float()
+    return u.numpy(), state.t, int(state.it)

@@ -72,11 +72,24 @@
 //   with no test a cell, and a thread whose cells all lie inside the band
 //   stores with no mask.
 // - Stores go straight from registers, a warp on one row.
+//
+// bf16 storage (fused_adr_stage_bf16, unsharded; the TPU kernel's bf16
+// rung, fused_adr.py:140-148): the same kernel with the storage type T a
+// template parameter (storage.cuh). The rings hold bf16 planes, each value
+// upcast where it is read; the arithmetic is the float32 instance's, and
+// each written cell rounds to bf16 once, after the stage. A copy moves W
+// bf16 values: 16 bytes (W = 8) where the row pitch is a multiple of 8
+// values, else 8 bytes (W = 4) or 4 (W = 2) as the pitch allows, else
+// one value by a plain load and store (cp.async moves no 2-byte copy).
+// The shared pitch is 72 values (a multiple of 8) in place of 68. Half the
+// bytes: 4 B/cell at stage 1, 6 at stages 2 and 3.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <type_traits>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -89,10 +102,18 @@ constexpr int LEAD = 7;        // copy group of plane m + LEAD issued at m
 constexpr int RPT = 4;         // rows a thread owns
 constexpr int TY = 16, TX = 64;  // the (y, x) tile a block owns
 static_assert(TY * TX == RPT * THREADS, "a thread owns RPT rows");
-constexpr int PV = TX + 2 * R;              // every shared plane's pitch
-constexpr int PLANE_V = (TY + 2 * R) * PV;  // v plane floats
-constexpr int PLANE_U = TY * PV;            // u plane floats
-constexpr int SMEM_FLOATS = NV * PLANE_V + NU * PLANE_U;
+
+// The shared planes of storage type T: every plane's pitch (TX + 2R for
+// float; rounded up to a multiple of 8 values for bf16, the 16-byte
+// copies' width), a v and a u plane's values, the block's bytes.
+template <typename T>
+struct Layout {
+  static constexpr int PV = sizeof(T) == 2 ? 72 : TX + 2 * R;
+  static constexpr int PLANE_V = (TY + 2 * R) * PV;
+  static constexpr int PLANE_U = TY * PV;
+  static constexpr int SMEM_BYTES =
+      (NV * PLANE_V + NU * PLANE_U) * (int)sizeof(T);
+};
 
 struct Params {
   float taps[15];  // [axis z, y, x][tap j], unscaled by K
@@ -115,17 +136,25 @@ struct Plan {
   int tiles_x, zchunk;
 };
 
-// One asynchronous copy of W floats: 16 bytes through L2 only (W = 4), or
-// 4 bytes through L1 (cp.async takes no 4-byte copy that bypasses it).
-template <int W>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+// One asynchronous copy of W values of T: 16 bytes through L2 only, or 8
+// or 4 bytes through L1 (cp.async takes no smaller copy that bypasses
+// it); a 2-byte value by a plain load and store, complete before the
+// barrier that precedes its readers.
+template <int W, typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  constexpr int BYTES = W * (int)sizeof(T);
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (W == 4)
+  if (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
                  :: "r"(d), "l"(src) : "memory");
-  else
+  else if (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+                 :: "r"(d), "l"(src) : "memory");
+  else if (BYTES == 4)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
                  :: "r"(d), "l"(src) : "memory");
+  else
+    *dst = *src;
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -138,12 +167,13 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // A thread's share of the copies of a ROWS x COLS tile of a plane, in
-// copies of W floats, THREADS at a time: each copy's offset in the shared
+// copies of W values of T, THREADS at a time: each copy's offset in the shared
 // tile (pitch COLS; -1: the copy would reach past the array's `rows_in`
 // rows or `cols_in` columns and is skipped) and in the plane (row pitch
 // X), worked out once a block.
-template <int W, int ROWS, int COLS>
+template <int W, int ROWS, int COLS, typename T>
 struct TileCopy {
+  static_assert(COLS % W == 0, "a shared row takes whole copies");
   static constexpr int PER_ROW = COLS / W, N = ROWS * PER_ROW;
   static constexpr int K = (N + THREADS - 1) / THREADS;
   int so[K], go[K];
@@ -159,22 +189,24 @@ struct TileCopy {
     }
   }
 
-  __device__ __forceinline__ void issue(float* dst, const float* src) const {
+  __device__ __forceinline__ void issue(T* dst, const T* src) const {
 #pragma unroll
     for (int i = 0; i < K; ++i)
       if (so[i] >= 0) cp_async<W>(dst + so[i], src + go[i]);
   }
 };
 
-template <int W, bool HAS_U, bool SHARDED>
+template <int W, bool HAS_U, bool SHARDED, typename T = float>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
+adr_stage_kernel(const T* __restrict__ v, const T* u, T* out,
                  const float* __restrict__ cz, const float* __restrict__ cy,
                  const float* __restrict__ cx, int nz, int ny, int nx,
                  Plan pl, Params p, Geometry g) {
+  using L = Layout<T>;
+  constexpr int PV = L::PV, PLANE_V = L::PLANE_V, PLANE_U = L::PLANE_U;
   extern __shared__ float4 smem[];
-  float* sv = reinterpret_cast<float*>(smem);
-  float* su = sv + NV * PLANE_V;
+  T* sv = reinterpret_cast<T*>(smem);
+  T* su = sv + NV * PLANE_V;
 
   const int ty = blockIdx.x / pl.tiles_x;
   const int y0 = ty * TY, x0 = (blockIdx.x - ty * pl.tiles_x) * TX;
@@ -188,10 +220,11 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
   // first needed in iteration q - 4. Both tiles start at the padded
   // column x0 (u's with 2 columns a side it does not read), so every row
   // of them starts 16-byte aligned where the row pitch is.
-  const float* vtile = v + (long long)y0 * X + x0;  // padded (y0, x0)
-  const float* utile = HAS_U ? u + (long long)(y0 + R) * X + x0 : nullptr;
-  const TileCopy<W, TY + 2 * R, PV> vcopy(X, ny + 2 * R - y0, (int)X - x0);
-  const TileCopy<W, TY, PV> ucopy(X, ny - y0, (int)X - x0);
+  const T* vtile = v + (long long)y0 * X + x0;  // padded (y0, x0)
+  const T* utile = HAS_U ? u + (long long)(y0 + R) * X + x0 : nullptr;
+  const TileCopy<W, TY + 2 * R, PV, T> vcopy(X, ny + 2 * R - y0,
+                                             (int)X - x0);
+  const TileCopy<W, TY, PV, T> ucopy(X, ny - y0, (int)X - x0);
   auto issue = [&](int q) {
     if (q < zc + 2 * R)
       vcopy.issue(sv + (q % NV) * PLANE_V, vtile + (k0 + q) * P);
@@ -236,10 +269,10 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
   float q0[RPT], q1[RPT], q2[RPT], q3[RPT];
 #pragma unroll
   for (int e = 0; e < RPT; ++e) {
-    q0[e] = sv[0 * PLANE_V + vcell + e * PV];
-    q1[e] = sv[1 * PLANE_V + vcell + e * PV];
-    q2[e] = sv[2 * PLANE_V + vcell + e * PV];
-    q3[e] = sv[3 * PLANE_V + vcell + e * PV];
+    q0[e] = to_f32(sv[0 * PLANE_V + vcell + e * PV]);
+    q1[e] = to_f32(sv[1 * PLANE_V + vcell + e * PV]);
+    q2[e] = to_f32(sv[2 * PLANE_V + vcell + e * PV]);
+    q3[e] = to_f32(sv[3 * PLANE_V + vcell + e * PV]);
   }
   __syncthreads();  // group LEAD - 1 reuses plane 0's slot
   issue(LEAD - 1);
@@ -250,9 +283,9 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
     __syncthreads();  // every copy landed; plane m - 1's readers are done
     issue(m + LEAD);
     const int k = k0 + m;  // interior z of this plane
-    const float* pc = sv + ((m + R) % NV) * PLANE_V + vcell;  // centre
-    const float* p4 = sv + ((m + 2 * R) % NV) * PLANE_V + vcell;
-    const float* pu = su + (m % NU) * PLANE_U + ucell;
+    const T* pc = sv + ((m + R) % NV) * PLANE_V + vcell;  // centre
+    const T* p4 = sv + ((m + 2 * R) % NV) * PLANE_V + vcell;
+    const T* pu = su + (m % NU) * PLANE_U + ucell;
     const int gk = SHARDED ? k + g.oz : k;
     const bool in_z = gk >= p.band && gk < gz - p.band;
     const bool face_z = gk == 0 || gk == gz - 1;
@@ -260,13 +293,13 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
     const float ez = p.eps != 0.0f ? p.eps * cz[k] : 0.0f;
     // the centre plane's column: rows r0-2 .. r0+RPT+1, own rows from q2
     float col[RPT + 4];
-    col[0] = pc[-2 * PV];
-    col[1] = pc[-PV];
+    col[0] = to_f32(pc[-2 * PV]);
+    col[1] = to_f32(pc[-PV]);
 #pragma unroll
     for (int e = 0; e < RPT; ++e) col[e + 2] = q2[e];
-    col[RPT + 2] = pc[RPT * PV];
-    col[RPT + 3] = pc[(RPT + 1) * PV];
-    float* o = out + (long long)(k + R) * P + (long long)(y0 + r0 + R) * X +
+    col[RPT + 2] = to_f32(pc[RPT * PV]);
+    col[RPT + 3] = to_f32(pc[(RPT + 1) * PV]);
+    T* o = out + (long long)(k + R) * P + (long long)(y0 + r0 + R) * X +
                (i + R);
     // the cells of this plane; FULL: every axis advects, eps and lambda
     // are not 0 (the main path), so no term is tested a cell
@@ -274,9 +307,10 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
       constexpr bool FULL = decltype(full)::value;
 #pragma unroll
       for (int e = 0; e < RPT; ++e) {
-        const float q4 = p4[e * PV];
-        const float* row = pc + e * PV;
-        const float xm2 = row[-2], xm1 = row[-1], xp1 = row[1], xp2 = row[2];
+        const float q4 = to_f32(p4[e * PV]);
+        const T* row = pc + e * PV;
+        const float xm2 = to_f32(row[-2]), xm1 = to_f32(row[-1]),
+                    xp1 = to_f32(row[1]), xp2 = to_f32(row[2]);
         const float ym1 = col[e + 1], yp1 = col[e + 3];
         const float vc = q2[e];
 
@@ -328,14 +362,14 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
         if (FULL || p.lam != 0.0f) rhs = rhs - p.lam * vc;
 
         float rk = p.b * (vc + p.dt * rhs);
-        if (HAS_U) rk = p.a * pu[e * PV] + rk;
+        if (HAS_U) rk = p.a * to_f32(pu[e * PV]) + rk;
 
         if (fast) {
-          o[e * X] = rk;
+          o[e * X] = from_f32<T>(rk);
         } else if (cell_in[e]) {
           const bool interior = in_yx[e] && in_z;
           const bool face = face_yx[e] || face_z;
-          o[e * X] = interior ? rk : (face ? p.bc_value : vc);
+          o[e * X] = from_f32<T>(interior ? rk : (face ? p.bc_value : vc));
         }
 
         q0[e] = q1[e];
@@ -352,11 +386,12 @@ adr_stage_kernel(const float* __restrict__ v, const float* u, float* out,
   cp_wait<0>();  // no copy outlives the block
 }
 
-// The pointers and sizes of one stage.
+// The pointers and sizes of one stage (T: the state's storage type).
+template <typename T>
 struct Buffers {
-  const float* v;
-  const float* u;
-  float* out;
+  const T* v;
+  const T* u;
+  T* out;
   const float *cz, *cy, *cx;
   int nz, ny, nx;
 };
@@ -365,11 +400,11 @@ struct Buffers {
 // a device opts it into its dynamic shared memory and the largest
 // carveout (MIN_BLOCKS blocks an SM need 4 x 49 KB); `blocks_per_sm`,
 // when not null, receives its resident blocks an SM.
-template <int W, bool HAS_U, bool SHARDED>
-cudaError_t launch(const Buffers& d, Plan pl, const Params& p,
+template <int W, bool HAS_U, bool SHARDED, typename T>
+cudaError_t launch(const Buffers<T>& d, Plan pl, const Params& p,
                    const Geometry& g, int* blocks_per_sm, cudaStream_t s) {
-  constexpr int bytes = SMEM_FLOATS * (int)sizeof(float);
-  const auto kernel = adr_stage_kernel<W, HAS_U, SHARDED>;
+  constexpr int bytes = Layout<T>::SMEM_BYTES;
+  const auto kernel = adr_stage_kernel<W, HAS_U, SHARDED, T>;
   // bit k: the attributes are set on device k (devices past 63 set them
   // at every launch)
   static std::atomic<unsigned long long> set_on{0};
@@ -401,8 +436,8 @@ cudaError_t launch(const Buffers& d, Plan pl, const Params& p,
   return cudaGetLastError();
 }
 
-template <int W, bool SHARDED>
-cudaError_t launch_u(const Buffers& d, Plan pl, const Params& p,
+template <int W, bool SHARDED, typename T>
+cudaError_t launch_u(const Buffers<T>& d, Plan pl, const Params& p,
                      const Geometry& g, int* blocks_per_sm, cudaStream_t s) {
   return d.u != nullptr
              ? launch<W, true, SHARDED>(d, pl, p, g, blocks_per_sm, s)
@@ -410,21 +445,39 @@ cudaError_t launch_u(const Buffers& d, Plan pl, const Params& p,
 }
 
 template <bool SHARDED>
-cudaError_t launch_width(int w, const Buffers& d, Plan pl, const Params& p,
-                         const Geometry& g, int* blocks_per_sm,
-                         cudaStream_t s) {
+cudaError_t launch_width(int w, const Buffers<float>& d, Plan pl,
+                         const Params& p, const Geometry& g,
+                         int* blocks_per_sm, cudaStream_t s) {
   return w == 4 ? launch_u<4, SHARDED>(d, pl, p, g, blocks_per_sm, s)
                 : launch_u<1, SHARDED>(d, pl, p, g, blocks_per_sm, s);
 }
 
-// The width (floats) of the launch's copies: 4 (16 bytes) where every
-// tile row of v and u starts 16-byte aligned (a row pitch of a multiple of
-// 4 floats, aligned buffers; tiles start at multiples of 4 columns), else
-// 1.
-int copy_width(const float* v, const float* u, long long X) {
-  const bool aligned = (unsigned long long)v % 16 == 0 &&
-                       (unsigned long long)u % 16 == 0;
-  return X % 4 == 0 && aligned ? 4 : 1;
+// The bf16 instance's widths: 8, 4, 2 or 1 values a copy.
+cudaError_t launch_width_bf16(int w, const Buffers<__nv_bfloat16>& d,
+                              Plan pl, const Params& p, const Geometry& g,
+                              int* blocks_per_sm, cudaStream_t s) {
+  switch (w) {
+    case 8: return launch_u<8, false>(d, pl, p, g, blocks_per_sm, s);
+    case 4: return launch_u<4, false>(d, pl, p, g, blocks_per_sm, s);
+    case 2: return launch_u<2, false>(d, pl, p, g, blocks_per_sm, s);
+    default: return launch_u<1, false>(d, pl, p, g, blocks_per_sm, s);
+  }
+}
+
+// The width (values of `size` bytes) of the launch's copies: the widest
+// of 16, 8 and 4 bytes whose width divides the row pitch X (so every
+// tile row of v and u starts aligned: tiles start at multiples of 8
+// columns) and whose alignment the buffers have; else 1 value (float: a
+// 4-byte copy; bf16: a plain load and store).
+int copy_width(const void* v, const void* u, long long X, int size) {
+  for (int bytes = 16; bytes >= 4; bytes /= 2) {
+    const int w = bytes / size;
+    if (w >= 1 && X % w == 0 && (unsigned long long)v % bytes == 0 &&
+        (unsigned long long)u % bytes == 0)
+      return w;
+    if (size == 4 && bytes == 16) break;  // float: 16-byte or 4-byte copies
+  }
+  return 1;
 }
 
 }  // namespace
@@ -473,14 +526,14 @@ extern "C" int fused_adr_stage(const float* v, const float* u, float* out,
   Plan pl;
   pl.zchunk = zchunk;
   pl.tiles_x = 0;  // set by the launch
-  const int w = copy_width(v, u, X);
+  const int w = copy_width(v, u, X, 4);
   int* blocks_per_sm = nullptr;
   if (plan_out != nullptr) {
     plan_out[0] = w;
     blocks_per_sm = plan_out + 1;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Buffers d{v, u, out, cz, cy, cx, nz, ny, nx};
+  const Buffers<float> d{v, u, out, cz, cy, cx, nz, ny, nx};
   if (global3 == nullptr)
     return (int)launch_width<false>(w, d, pl, p,
                                     Geometry{nz, ny, nx, 0, 0, 0},
@@ -491,4 +544,56 @@ extern "C" int fused_adr_stage(const float* v, const float* u, float* out,
       g.oy + ny > g.gy || g.ox + nx > g.gx)
     return (int)cudaErrorInvalidValue;
   return (int)launch_width<true>(w, d, pl, p, g, blocks_per_sm, s);
+}
+
+// K9's bf16 instance: one unsharded stage on bf16 buffers (the padded
+// layout and arguments of fused_adr_stage, without the sharded geometry).
+// Loads upcast, the arithmetic is the float32 instance's, and each
+// written cell is rounded to bf16 once. `plan_out`, when not null,
+// receives the copies' width (bf16 values) and the resident blocks an
+// SM. Returns cudaGetLastError() after the launch (0 on success); does
+// not synchronise.
+extern "C" int fused_adr_stage_bf16(const void* v, const void* u, void* out,
+                                    int nz, int ny, int nx,
+                                    const float* taps, const float* cz,
+                                    const float* cy, const float* cx,
+                                    float k0, float eps, const float* adv,
+                                    float lam, float dt, float a, float b,
+                                    int band, float bc_value, int zchunk,
+                                    int* plan_out, void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 ||
+      (long long)(nz + 2 * R) * (ny + 2 * R) * (nx + 2 * R) > (1LL << 40))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  for (int q = 0; q < 15; ++q) p.taps[q] = taps[q];
+  p.adv_axes = 0;
+  for (int ax = 0; ax < 3; ++ax) {
+    p.cp[ax] = adv[ax];
+    p.cm[ax] = adv[3 + ax];
+    if (p.cp[ax] != 0.0f || p.cm[ax] != 0.0f) p.adv_axes |= 1 << ax;
+  }
+  p.k0 = k0;
+  p.eps = eps;
+  p.lam = lam;
+  p.dt = dt;
+  p.a = a;
+  p.b = b;
+  p.bc_value = bc_value;
+  p.band = band;
+  Plan pl;
+  pl.zchunk = zchunk;
+  pl.tiles_x = 0;  // set by the launch
+  const int w = copy_width(v, u, nx + 2 * R, 2);
+  int* blocks_per_sm = nullptr;
+  if (plan_out != nullptr) {
+    plan_out[0] = w;
+    blocks_per_sm = plan_out + 1;
+  }
+  using bf16 = __nv_bfloat16;
+  const Buffers<bf16> d{static_cast<const bf16*>(v),
+                        static_cast<const bf16*>(u), static_cast<bf16*>(out),
+                        cz, cy, cx, nz, ny, nx};
+  return (int)launch_width_bf16(w, d, pl, p, Geometry{nz, ny, nx, 0, 0, 0},
+                                blocks_per_sm,
+                                static_cast<cudaStream_t>(stream));
 }

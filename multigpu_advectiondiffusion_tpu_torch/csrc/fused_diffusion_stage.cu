@@ -44,7 +44,9 @@
 // also read u: 12 B/cell. No cell that computes rk reaches the ghost
 // ring (band >= 2 on the main path) and face cells take bc_value, so the
 // ghosts need no read. The arithmetic is ~34 f32 operations a cell, far
-// below the card's f32 rate at that traffic. Design: one thread per
+// below the card's f32 rate at that traffic. The bf16 instance moves half
+// the bytes (4 B/cell at stage 1, 6 at stages 2 and 3) with the same
+// arithmetic. Design: one thread per
 // (y, x) column marches a chunk of z planes (zchunk, 8 by default) and
 // keeps the five z taps in a register queue (the reference's
 // LaplaceO4_async, MultiGPU/Diffusion3d_Baseline/Kernels.cu:207-261),
@@ -53,6 +55,8 @@
 // TMA are left to later work.
 
 #include <cuda_runtime.h>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -75,9 +79,10 @@ struct Geometry {
 
 // Padded plane `row` of the stage input: from the exchanged operand lo
 // (rows 0..R-1) or hi (rows nz+R..nz+2R-1) where one is given.
-__device__ __forceinline__ const float* plane(const float* v, const float* lo,
-                                              const float* hi, int row,
-                                              int nz, long long P) {
+template <typename T>
+__device__ __forceinline__ const T* plane(const T* v, const T* lo,
+                                          const T* hi, int row, int nz,
+                                          long long P) {
   if (lo != nullptr && row < R) return lo + row * P;
   if (hi != nullptr && row >= nz + R) return hi + (row - nz - R) * P;
   return v + row * P;
@@ -85,11 +90,14 @@ __device__ __forceinline__ const float* plane(const float* v, const float* lo,
 
 // SHARDED and OPERANDS are compile-time so that the unsharded launch
 // (SHARDED false: local masks, every plane, no operands) carries none of
-// the sharded geometry's arithmetic or tests.
-template <bool HAS_U, bool SHARDED, bool OPERANDS>
+// the sharded geometry's arithmetic or tests. T is the buffers' storage
+// type (storage.cuh): float, or __nv_bfloat16 for the bf16 instance
+// (unsharded only), whose loads upcast and whose one store a cell
+// rounds, the TPU kernel's bf16 rung (fused_diffusion.py:205-212, :269).
+template <bool HAS_U, bool SHARDED, bool OPERANDS, typename T = float>
 __global__ void __launch_bounds__(BX * BY)
-stage_kernel(const float* __restrict__ v, const float* u, float* out,
-             const float* __restrict__ lo, const float* __restrict__ hi,
+stage_kernel(const T* __restrict__ v, const T* u, T* out,
+             const T* __restrict__ lo, const T* __restrict__ hi,
              int nz, int ny, int nx, int zchunk, Geometry g, Taps taps,
              float dt, float a, float b, int band, float bc_value) {
   const int i = blockIdx.x * BX + threadIdx.x;  // interior x index
@@ -113,21 +121,21 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
   // z taps of interior plane k live at padded planes k .. k+4
   float q0, q1, q2, q3;
   if (OPERANDS) {
-    q0 = plane(v, lo, hi, k0 + 0, nz, P)[col];
-    q1 = plane(v, lo, hi, k0 + 1, nz, P)[col];
-    q2 = plane(v, lo, hi, k0 + 2, nz, P)[col];
-    q3 = plane(v, lo, hi, k0 + 3, nz, P)[col];
+    q0 = to_f32(plane(v, lo, hi, k0 + 0, nz, P)[col]);
+    q1 = to_f32(plane(v, lo, hi, k0 + 1, nz, P)[col]);
+    q2 = to_f32(plane(v, lo, hi, k0 + 2, nz, P)[col]);
+    q3 = to_f32(plane(v, lo, hi, k0 + 3, nz, P)[col]);
   } else {
-    q0 = v[(long long)(k0 + 0) * P + col];
-    q1 = v[(long long)(k0 + 1) * P + col];
-    q2 = v[(long long)(k0 + 2) * P + col];
-    q3 = v[(long long)(k0 + 3) * P + col];
+    q0 = to_f32(v[(long long)(k0 + 0) * P + col]);
+    q1 = to_f32(v[(long long)(k0 + 1) * P + col]);
+    q2 = to_f32(v[(long long)(k0 + 2) * P + col]);
+    q3 = to_f32(v[(long long)(k0 + 3) * P + col]);
   }
 
   for (int k = k0; k < k1; ++k) {
     const long long c = (long long)(k + R) * P + col;  // this cell
-    const float q4 =
-        OPERANDS ? plane(v, lo, hi, k + 4, nz, P)[col] : v[c + 2 * P];
+    const float q4 = to_f32(OPERANDS ? plane(v, lo, hi, k + 4, nz, P)[col]
+                                     : v[c + 2 * P]);
 
     float acc = __fmul_rn(q0, taps.c[0]);
     acc = __fadd_rn(acc, __fmul_rn(q1, taps.c[1]));
@@ -135,25 +143,25 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
     acc = __fadd_rn(acc, __fmul_rn(q3, taps.c[3]));
     acc = __fadd_rn(acc, __fmul_rn(q4, taps.c[4]));
 
-    acc = __fadd_rn(acc, __fmul_rn(v[c - 2 * X], taps.c[5]));
-    acc = __fadd_rn(acc, __fmul_rn(v[c - X], taps.c[6]));
+    acc = __fadd_rn(acc, __fmul_rn(to_f32(v[c - 2 * X]), taps.c[5]));
+    acc = __fadd_rn(acc, __fmul_rn(to_f32(v[c - X]), taps.c[6]));
     acc = __fadd_rn(acc, __fmul_rn(q2, taps.c[7]));
-    acc = __fadd_rn(acc, __fmul_rn(v[c + X], taps.c[8]));
-    acc = __fadd_rn(acc, __fmul_rn(v[c + 2 * X], taps.c[9]));
+    acc = __fadd_rn(acc, __fmul_rn(to_f32(v[c + X]), taps.c[8]));
+    acc = __fadd_rn(acc, __fmul_rn(to_f32(v[c + 2 * X]), taps.c[9]));
 
-    acc = __fadd_rn(acc, __fmul_rn(v[c - 2], taps.c[10]));
-    acc = __fadd_rn(acc, __fmul_rn(v[c - 1], taps.c[11]));
+    acc = __fadd_rn(acc, __fmul_rn(to_f32(v[c - 2]), taps.c[10]));
+    acc = __fadd_rn(acc, __fmul_rn(to_f32(v[c - 1]), taps.c[11]));
     acc = __fadd_rn(acc, __fmul_rn(q2, taps.c[12]));
-    acc = __fadd_rn(acc, __fmul_rn(v[c + 1], taps.c[13]));
-    acc = __fadd_rn(acc, __fmul_rn(v[c + 2], taps.c[14]));
+    acc = __fadd_rn(acc, __fmul_rn(to_f32(v[c + 1]), taps.c[13]));
+    acc = __fadd_rn(acc, __fmul_rn(to_f32(v[c + 2]), taps.c[14]));
 
     float rk = __fmul_rn(b, __fadd_rn(q2, __fmul_rn(dt, acc)));
-    if (HAS_U) rk = __fadd_rn(__fmul_rn(a, u[c]), rk);
+    if (HAS_U) rk = __fadd_rn(__fmul_rn(a, to_f32(u[c])), rk);
 
     const int gk = SHARDED ? k + g.oz : k;  // global z
     const bool interior = in_yx && gk >= band && gk < gz - band;
     const bool face = face_yx || gk == 0 || gk == gz - 1;
-    out[c] = interior ? rk : (face ? bc_value : q2);
+    out[c] = from_f32<T>(interior ? rk : (face ? bc_value : q2));
 
     q0 = q1;
     q1 = q2;
@@ -162,20 +170,20 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
   }
 }
 
-template <bool SHARDED, bool OPERANDS>
-void launch(const float* v, const float* u, float* out, const float* lo,
-            const float* hi, int nz, int ny, int nx, int zchunk,
-            const Geometry& g, const Taps& t, float dt, float a, float b,
-            int band, float bc_value, cudaStream_t s) {
+template <bool SHARDED, bool OPERANDS, typename T = float>
+void launch(const T* v, const T* u, T* out, const T* lo, const T* hi, int nz,
+            int ny, int nx, int zchunk, const Geometry& g, const Taps& t,
+            float dt, float a, float b, int band, float bc_value,
+            cudaStream_t s) {
   const dim3 block(BX, BY, 1);
   const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY,
                   (g.k_end - g.k_begin + zchunk - 1) / zchunk);
   if (u != nullptr) {
-    stage_kernel<true, SHARDED, OPERANDS><<<grid, block, 0, s>>>(
+    stage_kernel<true, SHARDED, OPERANDS, T><<<grid, block, 0, s>>>(
         v, u, out, lo, hi, nz, ny, nx, zchunk, g, t, dt, a, b, band,
         bc_value);
   } else {
-    stage_kernel<false, SHARDED, OPERANDS><<<grid, block, 0, s>>>(
+    stage_kernel<false, SHARDED, OPERANDS, T><<<grid, block, 0, s>>>(
         v, u, out, lo, hi, nz, ny, nx, zchunk, g, t, dt, a, b, band,
         bc_value);
   }
@@ -221,5 +229,30 @@ extern "C" int fused_diffusion_stage(const float* v, const float* u,
   else
     launch<false, false>(v, u, out, lo, hi, nz, ny, nx, zchunk, g, t, dt, a,
                          b, band, bc_value, s);
+  return (int)cudaGetLastError();
+}
+
+// K1's bf16 instance: one unsharded stage on bf16 buffers (the padded
+// layout and arguments of fused_diffusion_stage, every interior plane
+// written). Loads upcast, the arithmetic is the float32 instance's, and
+// each written cell is rounded to bf16 once. Returns cudaGetLastError()
+// after the launch (0 on success); does not synchronise.
+extern "C" int fused_diffusion_stage_bf16(const void* v, const void* u,
+                                          void* out, int nz, int ny, int nx,
+                                          const float* taps, float dt,
+                                          float a, float b, int band,
+                                          float bc_value, int zchunk,
+                                          void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1)
+    return (int)cudaErrorInvalidValue;
+  Taps t;
+  for (int q = 0; q < 15; ++q) t.c[q] = taps[q];
+  const Geometry g{nz, ny, nx, 0, 0, 0, 0, nz};
+  using bf16 = __nv_bfloat16;
+  launch<false, false, bf16>(static_cast<const bf16*>(v),
+                             static_cast<const bf16*>(u),
+                             static_cast<bf16*>(out), nullptr, nullptr, nz,
+                             ny, nx, zchunk, g, t, dt, a, b, band, bc_value,
+                             static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

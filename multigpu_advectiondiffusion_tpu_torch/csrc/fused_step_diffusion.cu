@@ -10,7 +10,10 @@
 //        one launch a step (or a call of the split or k-step schedule);
 //   K4   slab_run_dma_kernel: every shard of a z-slab mesh on this card,
 //        a whole sharded run in ONE cooperative launch, the ghost rows
-//        moved inside the kernel (csrc/slab_dma.cuh).
+//        moved inside the kernel (csrc/slab_dma.cuh);
+//   K2's bf16 instance (slab_run_diffusion_bf16): K2 on bf16 buffers,
+//        loads upcast into the float32 rings, one rounding a cell a
+//        step at the final store, 4 B a cell a step moved in place of 8.
 //
 // Replaces the TPU kernels multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_diffusion_step.py::_step_kernel (:94, launched :214),
@@ -145,6 +148,7 @@
 #include <cuda_runtime.h>
 
 #include "slab_dma.cuh"
+#include "storage.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -178,6 +182,10 @@ struct Args {
   float dt;
   int band;
   float bc_value;
+  // what every plane and cell outside the domain holds: bc_value, or
+  // f32(bf16(bc_value)) for the bf16 instance, whose ghost ring holds
+  // the wall value rounded to bf16 (faces still take bc_value)
+  float pad_value;
   int zchunk;              // z planes a job marches
   int tiles_x, tiles;      // tiles a row, tiles a plane
   int chunks;              // z chunks of the window
@@ -203,13 +211,15 @@ __device__ __forceinline__ int slot(int plane) {
   return r < 0 ? r + RING : r;
 }
 
-// Buffer row `row` of S, from an exchanged operand where one stands in.
-__device__ __forceinline__ const float* plane_of(const float* S,
-                                                 const Args& p, int row,
-                                                 int P) {
-  if (p.lo != nullptr && row < p.depth) return p.lo + row * P;
+// Buffer row `row` of S, from an exchanged operand where one stands in
+// (the float instances only: the bf16 instance has no operands).
+template <typename T>
+__device__ __forceinline__ const T* plane_of(const T* S, const Args& p,
+                                             int row, int P) {
+  if (p.lo != nullptr && row < p.depth)
+    return reinterpret_cast<const T*>(p.lo) + row * P;
   if (p.hi != nullptr && row >= p.pz - p.depth)
-    return p.hi + (row - (p.pz - p.depth)) * P;
+    return reinterpret_cast<const T*>(p.hi) + (row - (p.pz - p.depth)) * P;
   return S + row * P;
 }
 
@@ -267,12 +277,14 @@ __device__ __forceinline__ float rk_cell(const float* q0, const float* q1,
 // plane `dst` (first row 2ST), bc_value outside the domain; stage 3
 // writes the in-domain cells to the padded buffer `out` at buffer row
 // z + row_off. `us` is the S ring (stage 2's a*u), `u3` stage 3's a*u
-// values, loaded a pass each.
-template <int ST>
+// values, loaded a pass each. T is the buffers' storage type
+// (storage.cuh): the shared planes are float32 either way, and stage 3
+// rounds its one store a cell.
+template <int ST, typename T>
 __device__ __forceinline__ void stage_plane(const float* in, float* dst,
                                             const float* us,
                                             const float (&u3)[OUT_PASSES],
-                                            float* out, int row_off, int z,
+                                            T* out, int row_off, int z,
                                             const Job& J, const Args& p) {
   constexpr int F = 2 * ST;               // first row and column
   constexpr int H = H0 - 4 * ST;          // rows
@@ -289,7 +301,7 @@ __device__ __forceinline__ void stage_plane(const float* in, float* dst,
     if (ST < 3) {
 #pragma unroll
       for (int j = 0; j < PASSES; ++j)
-        if (J.rt + ROWS * j < H) dst[threadIdx.x + THREADS * j] = p.bc_value;
+        if (J.rt + ROWS * j < H) dst[threadIdx.x + THREADS * j] = p.pad_value;
     }
     return;
   }
@@ -303,7 +315,7 @@ __device__ __forceinline__ void stage_plane(const float* in, float* dst,
   const int X = p.nx + 2 * R;
   const int P = (p.ny + 2 * R) * X;
   // stage 3's destination: the padded cell of pass 0
-  float* o = out + (z + row_off) * P + (J.y0 + F + J.rt + R) * X + (J.x + R);
+  T* o = out + (z + row_off) * P + (J.y0 + F + J.rt + R) * X + (J.x + R);
   const bool z_int = z >= p.band && z < p.nz - p.band;
   if (z_int && J.inner[ST]) {  // every cell interior: rk, no test
 #pragma unroll
@@ -316,7 +328,7 @@ __device__ __forceinline__ void stage_plane(const float* in, float* dst,
       if (ST < 3)
         dst[threadIdx.x + d] = v;
       else
-        o[ROWS * j * X] = v;
+        o[ROWS * j * X] = from_f32<T>(v);
     }
     return;
   }
@@ -336,35 +348,35 @@ __device__ __forceinline__ void stage_plane(const float* in, float* dst,
     const bool interior = z_int && J.x_int && y >= p.band &&
                           y < p.ny - p.band;
     const bool face = z_face || J.x_face || y == 0 || y == p.ny - 1;
-    const float v = !in_domain ? p.bc_value
+    const float v = !in_domain ? p.pad_value
                     : interior ? r
                     : face     ? p.bc_value
                                : q2[d];
     if (ST < 3)
       dst[threadIdx.x + d] = v;
     else if (in_domain)
-      o[ROWS * j * X] = v;
+      o[ROWS * j * X] = from_f32<T>(v);
   }
 }
 
 // S plane m of the job's window into `v` (a pass each; bc_value outside
-// the domain), through L2.
+// the domain), through L2, upcast from the storage type T.
+template <typename T>
 __device__ __forceinline__ void load_plane(float (&v)[LOAD_PASSES],
-                                           const float* S, int m,
-                                           int row_off, const Job& J,
-                                           const Args& p) {
+                                           const T* S, int m, int row_off,
+                                           const Job& J, const Args& p) {
 #pragma unroll
-  for (int j = 0; j < LOAD_PASSES; ++j) v[j] = p.bc_value;
+  for (int j = 0; j < LOAD_PASSES; ++j) v[j] = p.pad_value;
   if (m < 0 || m >= p.nz) return;
   const int X = p.nx + 2 * R;
   const int P = (p.ny + 2 * R) * X;
-  const float* src = plane_of(S, p, m + row_off, P);
+  const T* src = plane_of(S, p, m + row_off, P);
   const int first = (J.y0 + J.rt + R) * X + (J.x + R);  // pass 0's cell
   if (J.inner[0]) {
 #pragma unroll
     for (int j = 0; j < LOAD_PASSES; ++j)
       if (H0 % ROWS == 0 || j < LOAD_PASSES - 1 || J.rt + ROWS * j < H0)
-        v[j] = __ldcg(src + first + ROWS * j * X);
+        v[j] = to_f32(__ldcg(src + first + ROWS * j * X));
     return;
   }
   if (!J.x_in) return;
@@ -372,25 +384,27 @@ __device__ __forceinline__ void load_plane(float (&v)[LOAD_PASSES],
   for (int j = 0; j < LOAD_PASSES; ++j) {
     const int y = J.y0 + J.rt + ROWS * j;
     if (J.rt + ROWS * j < H0 && y >= 0 && y < p.ny)
-      v[j] = __ldcg(src + first + ROWS * j * X);
+      v[j] = to_f32(__ldcg(src + first + ROWS * j * X));
   }
 }
 
 // Stage 3's a*u values on plane z (its rows of S at this thread's
 // column), through L2; only in-domain cells are read.
-__device__ __forceinline__ void load_u3(float (&u)[OUT_PASSES],
-                                        const float* S, int z, int row_off,
-                                        const Job& J, const Args& p) {
+template <typename T>
+__device__ __forceinline__ void load_u3(float (&u)[OUT_PASSES], const T* S,
+                                        int z, int row_off, const Job& J,
+                                        const Args& p) {
   constexpr int F = 6;
   if (z < 0 || z >= p.nz || !J.x_in || J.c < F || J.c >= F + TX) return;
   const int X = p.nx + 2 * R;
   const int P = (p.ny + 2 * R) * X;
-  const float* src = plane_of(S, p, z + row_off, P) +
-                     (J.y0 + F + J.rt + R) * X + (J.x + R);
+  const T* src = plane_of(S, p, z + row_off, P) +
+                 (J.y0 + F + J.rt + R) * X + (J.x + R);
 #pragma unroll
   for (int j = 0; j < OUT_PASSES; ++j) {
     const int y = J.y0 + F + J.rt + ROWS * j;
-    if (J.inner[3] || (y >= 0 && y < p.ny)) u[j] = __ldcg(src + ROWS * j * X);
+    if (J.inner[3] || (y >= 0 && y < p.ny))
+      u[j] = to_f32(__ldcg(src + ROWS * j * X));
   }
 }
 
@@ -398,8 +412,9 @@ __device__ __forceinline__ void load_u3(float (&u)[OUT_PASSES],
 // `chunk` of the window w. The next job may start at once: its first
 // shared-memory writes (S planes) touch no plane this job still reads
 // after its last barrier.
-__device__ void step_tile(const float* S, float* out, const Args& p,
-                          Window w, int tile, int chunk, float* sm) {
+template <typename T>
+__device__ void step_tile(const T* S, T* out, const Args& p, Window w,
+                          int tile, int chunk, float* sm) {
   float* V = sm;              // S planes
   float* A = V + RING * PS;   // t1 planes
   float* B = A + RING * P1;   // t2 planes
@@ -462,20 +477,21 @@ step_kernel(const float* S, float* out, const __grid_constant__ Args p) {
 
 // K2 (members == 1) and K2b: every member's step k over the (chunk,
 // member, tile) jobs, then one grid.sync() for the whole batch. Member
-// m's buffers start m * member_stride floats into S0 and S1 (64-bit);
-// inside a member step_tile's 32-bit indices hold.
+// m's buffers start m * member_stride cells into S0 and S1 (64-bit);
+// inside a member step_tile's 32-bit indices hold. T = __nv_bfloat16 is
+// K2's bf16 instance (one member).
+template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-slab_run_kernel(float* S0, float* S1, const __grid_constant__ Args p,
-                int n_iters, int members, long long member_stride,
-                int* counters) {
+slab_run_kernel(T* S0, T* S1, const __grid_constant__ Args p, int n_iters,
+                int members, long long member_stride, int* counters) {
   extern __shared__ float sm[];
   __shared__ int claimed;
   cg::grid_group grid = cg::this_grid();
   const int per_chunk = p.tiles * members;
   const int jobs = per_chunk * p.chunks;
   for (int k = 0; k < n_iters; ++k) {
-    const float* src = (k & 1) ? S1 : S0;
-    float* dst = (k & 1) ? S0 : S1;
+    const T* src = (k & 1) ? S1 : S0;
+    T* dst = (k & 1) ? S0 : S1;
     reset_counter(counters, k);
     for (int job = blockIdx.x; job < jobs;
          job = next_job(&counters[k & 1], &claimed)) {
@@ -505,6 +521,7 @@ cudaError_t make_args(Args& p, int nz, int ny, int nx, const float* taps,
   p.dt = dt;
   p.band = band;
   p.bc_value = bc_value;
+  p.pad_value = bc_value;
   p.zchunk = zchunk;
   p.z_lo = 0;
   p.z_hi = nz;
@@ -630,15 +647,58 @@ extern "C" int slab_run_diffusion(float* S0, float* S1, int members, int nz,
     e = cudaErrorInvalidValue;
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cooperative_blocks((const void*)slab_run_kernel, jobs, &blocks);
+    e = cooperative_blocks((const void*)slab_run_kernel<float>, jobs,
+                           &blocks);
   if (e != cudaSuccess) return (int)e;
   if (grid_blocks != nullptr) *grid_blocks = blocks;
   long long member_stride =
       (long long)(nz + 2 * R) * (ny + 2 * R) * (nx + 2 * R);
   void* args[] = {&S0, &S1, &p, &n_iters, &members, &member_stride,
                   &counters};
-  e = cudaLaunchCooperativeKernel((const void*)slab_run_kernel, blocks,
+  e = cudaLaunchCooperativeKernel((const void*)slab_run_kernel<float>, blocks,
                                   THREADS, args, SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// K2's bf16 instance: n_iters fused steps of one padded bf16 state in
+// ONE cooperative launch, as slab_run_diffusion at members == 1. Each step
+// loads its planes from bf16 (the shared rings stay float32, so the
+// shared-memory budget does not move), runs the three stages in float32
+// and rounds each output cell to bf16 once, the TPU rung's rounding point
+// (fused_slab_run.py:1345-1354). `pad_value` is the ghost ring's bf16
+// wall value, read wherever the float32 instance reads bc_value outside
+// the domain. Returns the first CUDA error (0 on success); does not
+// synchronise.
+extern "C" int slab_run_diffusion_bf16(void* S0, void* S1, int nz, int ny,
+                                       int nx, const float* taps, float dt,
+                                       int band, float bc_value,
+                                       float pad_value, int zchunk,
+                                       int n_iters, int* counters,
+                                       int* grid_blocks, void* stream) {
+  using bf16 = __nv_bfloat16;
+  Args p;
+  cudaError_t e = make_args(p, nz, ny, nx, taps, dt, band, bc_value, zchunk);
+  const long long jobs = (long long)p.tiles * p.chunks;
+  if (e == cudaSuccess &&
+      (n_iters < 0 || counters == nullptr || jobs > 0x7fffffffLL))
+    e = cudaErrorInvalidValue;
+  p.pad_value = pad_value;
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cooperative_blocks((const void*)slab_run_kernel<bf16>, jobs,
+                           &blocks);
+  if (e != cudaSuccess) return (int)e;
+  if (grid_blocks != nullptr) *grid_blocks = blocks;
+  bf16* s0 = static_cast<bf16*>(S0);
+  bf16* s1 = static_cast<bf16*>(S1);
+  int members = 1;
+  long long member_stride = 0;
+  void* args[] = {&s0, &s1, &p, &n_iters, &members, &member_stride,
+                  &counters};
+  e = cudaLaunchCooperativeKernel((const void*)slab_run_kernel<bf16>,
+                                  blocks, THREADS, args, SMEM_BYTES,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -135,11 +135,20 @@
 // co-resident, one an SM at either order, and its jobs from the counter,
 // so all the shards' or members' jobs of a step run in one grid whatever
 // their number.
+//
+// bf16 storage (K6's bf16 instance, slab_run_burgers_bf16, at either
+// order): the same step_tile on bf16 buffers, the storage type a template
+// parameter (storage.cuh). Only the global loads (S planes, the a*u
+// terms) and the final store change: the rings, splits and faces stay
+// float32, and each output cell rounds to bf16 once a step. The source
+// built with -DK6_BF16 holds that entry alone, so its build runs beside
+// the float32 one's instead of lengthening it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "slab_dma.cuh"
+#include "storage.cuh"
 #include "weno5.cuh"
 #include "weno7e.cuh"
 
@@ -203,13 +212,15 @@ struct Args {
   const float* hi;
 };
 
-// Buffer row `row` of S, from an exchanged operand where one stands in.
-__device__ __forceinline__ const float* plane_of(const float* S,
-                                                 const Args& p, int row,
-                                                 int P) {
-  if (p.lo != nullptr && row < p.depth) return p.lo + row * P;
+// Buffer row `row` of S, from an exchanged operand where one stands in
+// (the float instances only: the bf16 instance has no operands).
+template <typename T>
+__device__ __forceinline__ const T* plane_of(const T* S, const Args& p,
+                                             int row, int P) {
+  if (p.lo != nullptr && row < p.depth)
+    return reinterpret_cast<const T*>(p.lo) + row * P;
   if (p.hi != nullptr && row >= p.pz - p.depth)
-    return p.hi + (row - (p.pz - p.depth)) * P;
+    return reinterpret_cast<const T*>(p.hi) + (row - (p.pz - p.depth)) * P;
   return S + row * P;
 }
 
@@ -349,10 +360,11 @@ __device__ __forceinline__ void faces(const Mem& m1, const Mem& m2,
 // cell of the output window (corner (oy, ox)) and, when `cells`, the
 // stage's value there: into the next stage's ring plane `dst` (window
 // layout) or, for the last stage, into the output buffer. hz holds the z
-// face below each of the thread's cells.
-template <int R, int FLUX, bool WZ, int S_>
+// face below each of the thread's cells. Store is the buffers' storage type
+// (storage.cuh): S's a*u values upcast, the last stage's store rounded.
+template <int R, int FLUX, bool WZ, int S_, typename Store>
 __device__ __forceinline__ void stage(const Mem& m, float* dst,
-                                      const float* S, float* out, int z,
+                                      const Store* S, Store* out, int z,
                                       bool cells, int oy, int ox, int row_off,
                                       float (&hz)[Win<R, S_>::ROUNDS],
                                       const Args& p) {
@@ -367,7 +379,7 @@ __device__ __forceinline__ void stage(const Mem& m, float* dst,
   for (int q = 0; q < NR; ++q)
     col[q] = m.ring + (clampi(z - R + 1 + q, 0, p.nz - 1) % NR) * W::PLANE;
   const int P = p.ny * p.nx;
-  const float* u = HAS_U ? plane_of(S, p, z + row_off, P) : nullptr;
+  const Store* u = HAS_U ? plane_of(S, p, z + row_off, P) : nullptr;
   Cursor<WO> cur;
 #pragma unroll
   for (int r = 0; r < W::ROUNDS; ++r, cur.next()) {
@@ -405,9 +417,9 @@ __device__ __forceinline__ void stage(const Mem& m, float* dst,
         rhs = rhs + acc;
       }
       float rk = b * (V[R - 1] + p.dt * rhs);
-      if (HAS_U) rk = a * u[y * p.nx + x] + rk;
+      if (HAS_U) rk = a * to_f32(u[y * p.nx + x]) + rk;
       if (LAST)
-        out[(z + row_off) * P + y * p.nx + x] = rk;
+        out[(z + row_off) * P + y * p.nx + x] = from_f32<Store>(rk);
       else
         dst[e] = rk;
     }
@@ -417,9 +429,10 @@ __device__ __forceinline__ void stage(const Mem& m, float* dst,
 
 // One step on the tile `tile` and z chunk `chunk`, S -> out. Does not end
 // with a barrier: the caller's job claim has one before the block's
-// shared memory is reused.
-template <int R, int FLUX, bool WZ>
-__device__ void step_tile(const float* S, float* out, const Args& p,
+// shared memory is reused. The shared planes are float32 whatever the
+// storage type Store: S's planes upcast as they land.
+template <int R, int FLUX, bool WZ, typename Store>
+__device__ void step_tile(const Store* S, Store* out, const Args& p,
                           Window w, int tile, int chunk, float* sm) {
   constexpr int T = Reach<R>::T, NR = Reach<R>::NR;
   const Mem m1 = mem_of<R, 1>(sm);
@@ -448,13 +461,13 @@ __device__ void step_tile(const float* S, float* out, const Args& p,
     if (m < s_end) {
       using W = Win<R, 1>;
       float* vm = m1.ring + (m % NR) * W::PLANE;
-      const float* src = plane_of(S, p, m + w.row_off, P);
+      const Store* src = plane_of(S, p, m + w.row_off, P);
       const int iy = y0 - 3 * R, ix = x0 - 3 * R;
       Cursor<W::WI> cur;
       for (int e = threadIdx.x; e < W::PLANE; e += THREADS, cur.next()) {
         const int y = iy + cur.row, x = ix + cur.col;
         if (y >= 0 && y < p.ny && x >= 0 && x < p.nx)
-          vm[e] = src[y * p.nx + x];
+          vm[e] = to_f32(src[y * p.nx + x]);
       }
     }
     if (c1) split_plane<R, FLUX, 1>(m1, z1, y0 - 3 * R, x0 - 3 * R, p);
@@ -498,11 +511,12 @@ step_kernel(const float* S, float* out, Args p) {
 
 // K6 (members == 1) and K2b: every member's step k over the (chunk,
 // member, tile) jobs, then one grid.sync() for the whole batch. Member
-// m's state starts m * member_stride floats into S0 and S1 (64-bit);
-// inside a member step_tile's 32-bit indices hold.
-template <int R, int FLUX, bool WZ>
+// m's state starts m * member_stride cells into S0 and S1 (64-bit);
+// inside a member step_tile's 32-bit indices hold. Store =
+// __nv_bfloat16 is K6's bf16 instance.
+template <int R, int FLUX, bool WZ, typename Store>
 __global__ void __launch_bounds__(THREADS, 1)
-slab_run_kernel(float* S0, float* S1, Args p, int n_iters, int members,
+slab_run_kernel(Store* S0, Store* S1, Args p, int n_iters, int members,
                 long long member_stride, int* counters) {
   extern __shared__ float sm[];
   __shared__ int claimed;
@@ -510,8 +524,8 @@ slab_run_kernel(float* S0, float* S1, Args p, int n_iters, int members,
   const int per_chunk = p.tiles * members;
   const int jobs = per_chunk * p.chunks;
   for (int k = 0; k < n_iters; ++k) {
-    const float* src = (k & 1) ? S1 : S0;
-    float* dst = (k & 1) ? S0 : S1;
+    const Store* src = (k & 1) ? S1 : S0;
+    Store* dst = (k & 1) ? S0 : S1;
     reset_counter(counters, k);
     for (int job = blockIdx.x; job < jobs;
          job = next_job(&counters[k & 1], &claimed)) {
@@ -549,10 +563,10 @@ cudaError_t cooperative_blocks(const void* kernel, int smem, long long jobs,
   return *blocks < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
 
-template <int R, int FLUX, bool WZ>
-cudaError_t launch(float* S0, float* S1, Args& p, int n_iters, int members,
+template <int R, int FLUX, bool WZ, typename Store>
+cudaError_t launch(Store* S0, Store* S1, Args& p, int n_iters, int members,
                    int* counters, int* grid_blocks, cudaStream_t s) {
-  auto* kernel = slab_run_kernel<R, FLUX, WZ>;
+  auto* kernel = slab_run_kernel<R, FLUX, WZ, Store>;
   int blocks = 0;
   cudaError_t e = cooperative_blocks(
       (const void*)kernel, SMEM_BYTES<R>,
@@ -604,8 +618,9 @@ bool valid_scheme(int flux, int order, int weno_z) {
 int reach_of(int order) { return order == 7 ? 4 : 3; }
 
 // The cooperative launch of K6/K2b: n_iters steps of `members` members
-// whose states lie back to back in S0 and S1.
-cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
+// whose states lie back to back in S0 and S1 (Store: their storage type).
+template <typename Store>
+cudaError_t launch_slab_run(Store* S0, Store* S1, int members, int nz, int ny,
                             int nx, int flux, float c, int weno_z, int order,
                             const float* inv_dx, const float* lap, float dt,
                             int zchunk, int n_iters, int* counters,
@@ -647,6 +662,7 @@ cudaError_t launch_slab_run(float* S0, float* S1, int members, int nz, int ny,
 // launch (the steps' job counters; the launch leaves them dirty).
 // `grid_blocks`, when not null, receives the grid's block count. Returns
 // the first CUDA error (0 on success); does not synchronise.
+#ifndef K6_BF16
 extern "C" int slab_run_burgers(float* S0, float* S1, int members, int nz,
                                 int ny, int nx, int flux, float c, int weno_z,
                                 int order, const float* inv_dx,
@@ -659,6 +675,30 @@ extern "C" int slab_run_burgers(float* S0, float* S1, int members, int nz,
                               static_cast<cudaStream_t>(stream));
 }
 
+#else
+// K6's bf16 instance (this source built with -DK6_BF16, alone): n_iters
+// fixed-dt steps of one (nz, ny, nx) bf16 state in ONE cooperative
+// launch, as slab_run_burgers at members == 1. Each S plane upcasts as it
+// lands in the float32 ring (so the shared-memory budget, 223,488 B at
+// order 7, does not move), the WENO faces and the three stages run in
+// float32, and each output cell is rounded to bf16 once a step, the TPU
+// rung's rounding point (fused_slab_run.py:1632-1641). Returns the first
+// CUDA error (0 on success); does not synchronise.
+extern "C" int slab_run_burgers_bf16(void* S0, void* S1, int nz, int ny,
+                                     int nx, int flux, float c, int weno_z,
+                                     int order, const float* inv_dx,
+                                     const float* lap, float dt, int zchunk,
+                                     int n_iters, int* counters,
+                                     int* grid_blocks, void* stream) {
+  return (int)launch_slab_run(static_cast<__nv_bfloat16*>(S0),
+                              static_cast<__nv_bfloat16*>(S1), 1, nz, ny, nx,
+                              flux, c, weno_z, order, inv_dx, lap, dt,
+                              zchunk, n_iters, counters, grid_blocks,
+                              static_cast<cudaStream_t>(stream));
+}
+#endif  // K6_BF16
+
+#ifndef K6_BF16
 namespace {
 
 template <int R, int FLUX, bool WZ>
@@ -826,3 +866,4 @@ extern "C" int slab_run_dma_burgers(float* const* s0, float* const* s1,
                                            counters, grid_blocks, s);
   });
 }
+#endif  // K6_BF16

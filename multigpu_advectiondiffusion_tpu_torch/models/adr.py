@@ -31,8 +31,13 @@ Kernel rungs (``impl``), as the JAX package dispatches them:
   generic loop runs the Laplacian on the per-axis kernel (K11 in 3-D,
   K11b in 2-D) in float32, while the advective sweep stays plain
   PyTorch, as the JAX package keeps it in XLA;
-* ``"auto"`` and ``precision="bf16"`` — not ported: construction raises
-  ``NotImplementedError``, as it does for 1-D grids.
+* ``"auto"`` — not ported: construction raises ``NotImplementedError``,
+  as it does for 1-D grids.
+
+``precision="bf16"`` (one device) runs K9's bf16 instance where the
+fused rung engages, and elsewhere the generic loop with the state packed
+in bf16 and its compensation carry (``models/base.py``);
+``dtype="bfloat16"`` runs the generic path in bf16 (K9 is float32-only).
 
 On a device mesh (``mesh=``/``decomp=``) the generic and per-axis rungs
 run on every decomposition (``K(x)`` and the walls in global indices,
@@ -228,10 +233,6 @@ class ADRSolver(SolverBase):
             )
         if self.grid.ndim == 1:
             raise NotImplementedError("1-D ADR is not ported yet")
-        if cfg.precision != "native":
-            raise NotImplementedError(
-                f"precision={cfg.precision!r} storage is not ported yet"
-            )
 
     # ------------------------------------------------------------------ #
     # Registration contract (models/registry.REQUIRED_SOLVER_CONTRACT)
@@ -491,6 +492,11 @@ class ADRSolver(SolverBase):
             kwargs = {}
             if self.mesh is not None:
                 kwargs["global_shape"] = self.grid.shape
+            if self.storage_dtype != self.dtype:
+                # precision="bf16": K9's bf16 instance on the float32
+                # state (one device: a mesh raised at construction)
+                kwargs.update(dtype=self.storage_dtype,
+                              storage_dtype=self.dtype)
             self._cache["fused"] = FusedADRStepper(
                 self.local_shape(),
                 self.grid.spacing,
@@ -591,6 +597,7 @@ def _cli_build(args, grid, ndim):
         bc=resolve_bc(args, "dirichlet"),
         t0=args.t0,
         impl=args.impl,
+        precision=getattr(args, "precision", "native"),
     )
 
 

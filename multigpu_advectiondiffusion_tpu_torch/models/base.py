@@ -14,6 +14,13 @@ state's precision and the same dt rounding, trim and eps guard as the
 JAX package, so both packages take the same steps and land on the same
 times.
 
+``precision="bf16"`` (one device, :meth:`SolverBase._validate_precision`)
+keeps a float32 state in bfloat16 between steps: a fused stepper's
+buffers are bf16 (its kernels' bf16 instances), and the generic loop
+carries the packed ``(hi, lo)`` pair of :meth:`SolverBase._bf16_pack`,
+unpacked to float32 for each step, as the JAX package's ``run`` and
+``advance_to`` carry it.
+
 Under a device mesh (``mesh=``/``decomp=``, :mod:`parallel.mesh`) ``u``
 is a :class:`~models.state.ShardedArray` and ``run``/``advance_to`` run
 the JAX package's per-shard program on every shard through the port's
@@ -48,7 +55,10 @@ import numpy as np
 import torch
 
 from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary, pad_axis
-from multigpu_advectiondiffusion_tpu_torch.core.dtypes import canonicalize
+from multigpu_advectiondiffusion_tpu_torch.core.dtypes import (
+    bf16_carry_enabled,
+    canonicalize,
+)
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid
 from multigpu_advectiondiffusion_tpu_torch.models.state import (
     EnsembleState,
@@ -212,6 +222,7 @@ class SolverBase:
         self._ensemble_last = None
         self._validate_steps_per_exchange()
         self._validate_exchange()
+        self._validate_precision()
 
     # ------------------------------------------------------------------ #
     # Mesh knobs, gated at construction as the JAX package gates them
@@ -293,6 +304,68 @@ class SolverBase:
                 "remote-DMA ring addresses logical device ids along "
                 "ONE mesh axis"
             )
+
+    def _precision_mode(self) -> str:
+        return str(getattr(self.cfg, "precision", "native") or "native")
+
+    def _validate_precision(self) -> None:
+        """The storage-precision knob, gated at construction with the JAX
+        package's texts: ``precision="bf16"`` stores a float32 compute
+        state in bfloat16 (the fused rungs' buffers; the generic loop's
+        packed ``(hi, lo)`` state, :meth:`_bf16_pack`) while every tap
+        and RK stage computes in float32. One device only: on a mesh the
+        state would cross the halo wires in bf16, which is not ported."""
+        mode = self._precision_mode()
+        self._bf16_carry = False
+        if mode == "native":
+            return
+        if mode != "bf16":
+            raise ValueError(
+                f"unknown precision {mode!r}; use 'native' or 'bf16'")
+        if self.dtype == torch.bfloat16:
+            raise ValueError(
+                "precision='bf16' with dtype='bfloat16' is redundant — "
+                "the knob downcasts a float32 compute state to bf16 "
+                "storage; the all-bf16 compute experiment remains the "
+                "separate dtype='bfloat16' opt-in")
+        if self.dtype != torch.float32:
+            raise ValueError(
+                "precision='bf16' stores a float32 compute state in "
+                "bfloat16; cfg.dtype must be float32, got "
+                f"{str(self.dtype).replace('torch.', '')}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "precision='bf16' on a device mesh needs the bf16 halo "
+                "wires and the sharded bf16 kernel instances, which are "
+                "not ported yet (ROADMAP queue 1 item 8h); it runs on "
+                "one device")
+        self._bf16_carry = bf16_carry_enabled()
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """The dtype the run-resident state occupies: :attr:`dtype`, or
+        bfloat16 under ``precision="bf16"``."""
+        if self._precision_mode() == "bf16":
+            return torch.bfloat16
+        return self.dtype
+
+    def _bf16_pack(self, u):
+        """The float32 state as the generic loop of ``precision="bf16"``
+        keeps it: ``(hi,)``, ``hi = bf16(u)``, or with the compensation
+        carry ``(hi, lo)``, ``lo = bf16(u - f32(hi))`` (the JAX package's
+        ``_bf16_pack``; both round to nearest even)."""
+        hi = u.to(torch.bfloat16)
+        if not self._bf16_carry:
+            return (hi,)
+        return (hi, (u - hi.to(u.dtype)).to(torch.bfloat16))
+
+    def _bf16_unpack(self, packed):
+        """The float32 state back from :meth:`_bf16_pack`'s:
+        ``f32(hi) [+ f32(lo)]``."""
+        u = packed[0].to(self.dtype)
+        if len(packed) > 1:
+            u = u + packed[1].to(self.dtype)
+        return u
 
     def _dma_stepper_kwargs(self) -> dict:
         """What arms a slab stepper's in-kernel exchange: the (checked,
@@ -609,7 +682,7 @@ class SolverBase:
         else:
             op = self._op_impl()
             stepper = "per-axis-pallas" if op == "pallas" else "generic-xla"
-            storage = self.dtype
+            storage = self.storage_dtype
             fallback = None
             if is_fused_impl(impl):
                 fallback = self._fused_fallback or "config not fused-eligible"
@@ -629,7 +702,7 @@ class SolverBase:
             "steps_per_exchange": int(k),
             "exchange": exchange,
             "storage_dtype": str(storage).replace("torch.", ""),
-            "precision": "native",
+            "precision": self._precision_mode(),
             "fallback": fallback,
         }
 
@@ -726,6 +799,13 @@ class SolverBase:
                 return fused.run(u, t, n)
             return fused.run(u, t, n, refresh=refresh, offsets=offsets,
                              exch=exch)
+        if self._precision_mode() == "bf16":
+            # the packed bf16 state between steps, float32 within one
+            packed = self._bf16_pack(u)
+            for _ in range(n):
+                u, t = self._local_step(self._bf16_unpack(packed), t)
+                packed = self._bf16_pack(u)
+            return self._bf16_unpack(packed), t
         for _ in range(n):
             u, t = self._local_step(u, t)
         return u, t
@@ -761,6 +841,14 @@ class SolverBase:
         te = tdt(t_end)
         eps = tdt(1e-12) * max(tdt(1.0), abs(te))
         steps = 0
+        if self._precision_mode() == "bf16":
+            packed = self._bf16_pack(u)
+            while t < te - eps:
+                u, t = self._local_step(self._bf16_unpack(packed), t,
+                                        t_end=te)
+                packed = self._bf16_pack(u)
+                steps += 1
+            return self._bf16_unpack(packed), t, steps
         while t < te - eps:
             u, t = self._local_step(u, t, t_end=te)
             steps += 1

@@ -44,8 +44,14 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   K11/K11b), float32 only; WENO7 under a fused flavor whose fused rung
   declines runs the plain generic path, with the JAX package's reason;
 * ``"auto"`` — not ported: construction raises
-  ``NotImplementedError``, as it does for 1-D grids and
-  ``precision="bf16"``.
+  ``NotImplementedError``, as it does for 1-D grids.
+
+``precision="bf16"`` (one device; the JAX package's gates and texts):
+3-D fixed-dt ``"pallas"``/``"pallas_slab"`` run K6's bf16 instance, the
+slab pinned; every other config declines to the generic loop, whose
+state stays packed in bf16 with its compensation carry
+(``models/base.py``). ``dtype="bfloat16"`` runs the generic path in
+bf16 (the fused kernels are float32-only).
 
 On a device mesh (``mesh=``/``decomp=``) the generic and per-axis rungs
 run on every decomposition (adaptive dt the max over the shards), and
@@ -180,11 +186,6 @@ class BurgersSolver(SolverBase):
             )
         if self.grid.ndim == 1:
             raise NotImplementedError("1-D Burgers is not ported yet")
-        if cfg.precision != "native":
-            raise NotImplementedError(
-                f"precision={cfg.precision!r} storage is not ported yet "
-                "(ROADMAP queue 1 item 9; its bf16 halo wires, item 8h)"
-            )
         fused = is_fused_impl(cfg.impl) and self._fused_reason() is None
         if fused and self.grid.ndim == 3 and any(
                 ax != 0 for ax in self._sharded_axes()):
@@ -319,6 +320,15 @@ class BurgersSolver(SolverBase):
             return "fused viscous term is the O4 Laplacian"
         if self.dtype != torch.float32:
             return "fused kernels are float32-only"
+        # precision="bf16": the only fused bf16 rung is the slab (K6's bf16
+        # instance); what cannot ride it declines to the generic loop
+        if self._precision_mode() == "bf16" and self.grid.ndim != 3:
+            return ("precision='bf16' Burgers rides the 3-D slab stepper "
+                    "(or the generic path); 2-D has no split-dtype rung")
+        if self._precision_mode() == "bf16" and cfg.adaptive_dt:
+            return ("precision='bf16' Burgers needs --fixed-dt: the "
+                    "adaptive-dt per-stage stepper has no split-dtype "
+                    "machinery")
         if not all(b.kind == "edge" for b in self.bcs):
             return "fused ghost discipline needs edge BCs"
         if self.mesh is not None:
@@ -362,6 +372,11 @@ class BurgersSolver(SolverBase):
         slab = self._select_slab(mode)
         if slab is not None:
             return slab
+        if self._precision_mode() == "bf16":
+            return self._decline(
+                "precision='bf16' Burgers engages only the slab "
+                "whole-run rung (per-stage WENO has no split-dtype "
+                "machinery); the slab declined for this config")
         if "fused" not in self._cache:
             kwargs = {}
             if self.mesh is not None:
@@ -410,7 +425,11 @@ class BurgersSolver(SolverBase):
         if cfg.impl not in ("pallas", "pallas_slab"):
             return None
         dma = self._exchange_mode() == "dma"
-        pinned = cfg.impl == "pallas_slab" or k > 1 or dma
+        # precision="bf16": the slab is Burgers' only fused bf16 rung, so
+        # it is pinned (no profitability gate) as in the JAX package
+        kernel = self.storage_dtype
+        pinned = (cfg.impl == "pallas_slab" or k > 1 or dma
+                  or kernel == torch.bfloat16)
 
         def decline(reason):
             if dma:
@@ -437,11 +456,13 @@ class BurgersSolver(SolverBase):
             if any(ax != 0 for ax in self._sharded_axes()):
                 return decline("z-slab decompositions only")
         depth = k * G if self._sharded_axes() else 0
-        if not SlabRunBurgersStepper.supported(shape, self.dtype, depth):
+        if not SlabRunBurgersStepper.supported(shape, kernel, depth,
+                                               cfg.weno_order):
             return decline("local shape exceeds the slab kernel's 32-bit "
-                           "indices")
+                           "indices" if kernel == torch.float32 else
+                           "local shape exceeds the slab VMEM budget")
         if not pinned and not SlabRunBurgersStepper.profitable(
-            shape, self.dtype
+            shape, kernel
         ):
             return None
         if self.mesh is not None and shape[0] < k * G:
@@ -450,8 +471,10 @@ class BurgersSolver(SolverBase):
                 f"{k * G}-deep exchange")
         if "fused_slab" not in self._cache:
             kwargs = {}
+            if kernel != self.dtype:
+                kwargs = dict(dtype=kernel, storage_dtype=self.dtype)
             if self.mesh is not None:
-                kwargs = dict(global_shape=self.grid.shape,
+                kwargs.update(global_shape=self.grid.shape,
                               overlap_split=(
                                   not dma
                                   and self._split_overlap_requested()),
@@ -497,6 +520,7 @@ def _cli_build(args, grid, ndim):
         ic=getattr(args, "ic", None) or "gaussian",
         bc=resolve_bc(args, "edge"),
         impl=args.impl,
+        precision=getattr(args, "precision", "native"),
     )
 
 

@@ -32,10 +32,20 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   (:mod:`ops.kernels.laplacian`, K11 in 3-D, K11b in 2-D), one launch
   per RK stage, float32 only;
 * ``"auto"`` — not ported: construction raises
-  ``NotImplementedError``, as it does for 1-D grids, the axisymmetric
-  geometry, bf16 storage, and float64 where the JAX package's 3-D fused
-  rung engages (float64 storage on its float32 kernels); float64 the
-  fused rung declines runs the generic path, as in the JAX package.
+  ``NotImplementedError``, as it does for 1-D grids and the axisymmetric
+  geometry.
+
+Storage precision, one device, in the JAX package's branches and texts
+(its ``_fused_stepper``/``_select_slab``): a float64 state runs K1 or
+K2 with float32 buffers (``embed`` rounds it, ``extract`` restores
+float64, ``t`` stays float64); ``precision="bf16"`` runs K1's or K2's
+bf16 instance on a float32 state (K10 declines), and the generic loop,
+where a rung declines, keeps the state packed in bf16 with its
+compensation carry (``models/base.py``); ``dtype="bfloat16"`` runs K1's
+bf16 instance on a bf16 state (the slab declines to it) and the generic
+path in bf16 elsewhere. On a mesh ``precision="bf16"`` raises (ROADMAP
+queue 1 item 8h), and so does ``dtype="bfloat16"`` where the sharded K1
+would run it.
 
 On a device mesh (``mesh=``/``decomp=``) every rung runs shard-local as
 in the JAX package: the generic and per-axis rungs on any decomposition
@@ -182,17 +192,12 @@ class DiffusionSolver(SolverBase):
             raise NotImplementedError(
                 "axisymmetric diffusion is not ported yet"
             )
-        if cfg.precision != "native":
+        if (self.dtype == torch.bfloat16 and self.mesh is not None
+                and self._fused_reason() is None):
             raise NotImplementedError(
-                f"precision={cfg.precision!r} storage is not ported yet "
-                "(ROADMAP queue 1 item 9; its bf16 halo wires, item 8h)"
-            )
-        if self.dtype == torch.float64 and self._fused_reason() is None:
-            raise NotImplementedError(
-                f"dtype=float64 with impl={cfg.impl!r}: the JAX package "
-                "runs float64 storage on its float32 kernels; that rung "
-                "is not ported yet"
-            )
+                f"dtype='bfloat16' with impl={cfg.impl!r} on a device mesh "
+                "needs K1's sharded bf16 instance, which is not ported yet "
+                "(ROADMAP queue 1 item 8h); impl='xla' runs")
 
     def _op_impl(self) -> str:
         """Per-op kernel strategy: kernel flavors map to the per-axis
@@ -335,10 +340,10 @@ class DiffusionSolver(SolverBase):
     def _fused_reason(self):
         """Why the fused rung cannot serve this config, or ``None``: the
         JAX package's eligibility (``models/diffusion.py``
-        ``_fused_stepper``) for one device, in its order. Float64 states
-        ride the JAX package's float32 kernels with float64 storage in
-        3-D, not on the whole-step rung; where that rung would engage,
-        the port raises at construction (not ported yet)."""
+        ``_fused_stepper``) for one device, in its order: float64 and bf16
+        storage ride the 3-D per-stage and slab rungs only (float64 on
+        one device), ``precision="bf16"`` the 3-D ones but the whole-step
+        rung."""
         cfg = self.cfg
         if not is_fused_impl(cfg.impl):
             return f"impl={cfg.impl!r} does not request fusion"
@@ -350,7 +355,18 @@ class DiffusionSolver(SolverBase):
             return "source-term hook needs the generic path"
         if not cfg.reference_parity or cfg.boundary_band < 1:
             return "fused walls need reference_parity with boundary_band >= 1"
-        if self.dtype == torch.float64 and (
+        if self._precision_mode() == "bf16":
+            if self.grid.ndim != 3:
+                return ("precision='bf16' fused kernels are 3-D only "
+                        "(2-D whole-run/whole-shard variants lack the "
+                        "split-dtype machinery)")
+            if cfg.impl == "pallas_step":
+                return ("precision='bf16' has no whole-step rung; use the "
+                        "per-stage or slab stepper")
+        if self.dtype == torch.bfloat16:
+            if self.grid.ndim != 3 or cfg.impl == "pallas_step":
+                return "bf16 storage exists only for the 3-D per-stage stepper"
+        elif self.dtype == torch.float64 and (
             self.grid.ndim != 3 or cfg.impl == "pallas_step"
             or self.mesh is not None
         ):
@@ -377,7 +393,8 @@ class DiffusionSolver(SolverBase):
         :meth:`_select_slab` engages it, else the whole-step (K10, for
         ``impl="pallas_step"``) or the per-stage stepper (K1).
         Eligibility mirrors what the kernels bake in: frozen Dirichlet
-        ghosts and boundary band, static dt, Cartesian O4, float32. The
+        ghosts and boundary band, static dt, Cartesian O4, float32
+        arithmetic on the buffers of :meth:`_kernel_dtype`. The
         whole-run and whole-step steppers have no ``run_to``, so
         ``advance_to`` runs the generic loop (``models/base.py``)."""
         cfg = self.cfg
@@ -398,9 +415,9 @@ class DiffusionSolver(SolverBase):
         else:
             key, cls = "fused", FusedDiffusionStepper
         if key not in self._cache:
-            kwargs = {}
+            kwargs = self._storage_kwargs()
             if self.mesh is not None:
-                kwargs = dict(global_shape=self.grid.shape,
+                kwargs.update(global_shape=self.grid.shape,
                               overlap_split=self._split_overlap_requested())
             self._cache[key] = cls(
                 self.local_shape(),
@@ -413,6 +430,22 @@ class DiffusionSolver(SolverBase):
                 **kwargs,
             )
         return self._cache[key]
+
+    def _kernel_dtype(self) -> torch.dtype:
+        """The fused kernels' buffer dtype (the JAX package's
+        ``kernel_dtype``): float32 for a float32 or float64 state, bf16
+        under ``precision="bf16"`` or ``dtype="bfloat16"``."""
+        if self.dtype == torch.float64:
+            return torch.float32
+        return self.storage_dtype
+
+    def _storage_kwargs(self) -> dict:
+        """What a 3-D fused stepper takes for the storage split: its
+        buffers' dtype, and the state's where the two differ."""
+        kernel = self._kernel_dtype()
+        if kernel == self.dtype:
+            return {} if kernel == torch.float32 else {"dtype": kernel}
+        return {"dtype": kernel, "storage_dtype": self.dtype}
 
     def _select_slab(self, mode: str):
         """The slab stepper when this 3-D config engages it, else ``None``
@@ -447,7 +480,10 @@ class DiffusionSolver(SolverBase):
 
         if mode == "t_end":
             return decline("the slab stepper has no run_to (use --iters)")
+        if self.dtype == torch.bfloat16:
+            return decline("bf16 storage rides the per-stage stepper")
         shape = self.local_shape()
+        kernel = self._kernel_dtype()
         G = SlabRunDiffusionStepper.halo
         if self.mesh is not None:
             if not pinned:
@@ -459,17 +495,17 @@ class DiffusionSolver(SolverBase):
                     f"local z extent {shape[0]} cannot serve the "
                     f"{k * G}-deep exchange")
         depth = k * G if self._sharded_axes() else R
-        if not SlabRunDiffusionStepper.supported(shape, self.dtype, depth):
+        if not SlabRunDiffusionStepper.supported(shape, kernel, depth):
             return decline("local shape exceeds the slab kernel's 32-bit "
                            "indices")
         if not pinned and not SlabRunDiffusionStepper.profitable(
-            shape, self.dtype
+            shape, kernel
         ):
             return None
         if "fused_slab" not in self._cache:
-            kwargs = {}
+            kwargs = self._storage_kwargs()
             if self.mesh is not None:
-                kwargs = dict(global_shape=self.grid.shape,
+                kwargs.update(global_shape=self.grid.shape,
                               overlap_split=(
                                   not dma
                                   and self._split_overlap_requested()),
@@ -566,6 +602,7 @@ def _cli_build(args, grid, ndim):
         ic=getattr(args, "ic", None) or "heat_kernel",
         bc=resolve_bc(args, "dirichlet"),
         impl=args.impl,
+        precision=getattr(args, "precision", "native"),
     )
 
 

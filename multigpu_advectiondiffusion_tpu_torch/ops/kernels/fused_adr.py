@@ -31,6 +31,13 @@ layout, term order and roundings. A block of the kernel owns a
 :data:`TILE` (y, x) tile and marches a chunk of z planes, fed by
 asynchronous copies; :func:`adr_schedule` plans the chunks and
 :func:`copy_floats` says how wide the copies can be for a row pitch.
+
+:func:`fused_adr_stage_bf16` is K9's instance on bfloat16 buffers (the
+JAX kernel's ``compute_dtype`` upcast, ``fused_adr.py:140-148``), one
+device: the stage's float32 arithmetic on the loaded bf16 values, each
+written cell rounded to bf16 once, after the stage. Its copies move
+:func:`copy_width`'s values; its twin is
+:func:`fused_diffusion.upcast_twin` of :func:`adr_stage_reference`.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     _check,
     _interior,
     stage_taps,
+    upcast_twin,
     write_walled,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.stepper_base import (
@@ -147,6 +155,10 @@ def library() -> ctypes.CDLL:
     fn.argtypes = [p, p, p, i, i, i, p, p, p, p, f, f, p, f, f, f, f, i, f,
                    i, p, p, p, p]
     fn.restype = ctypes.c_int
+    fn = lib.fused_adr_stage_bf16
+    fn.argtypes = [p, p, p, i, i, i, p, p, p, p, f, f, p, f, f, f, f, i, f,
+                   i, p, p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -157,6 +169,24 @@ def copy_floats(nx: int) -> int:
     aligned, the pitch a multiple of 4 floats (tiles start at multiples
     of 4 columns), else 1 (4-byte copies)."""
     return 4 if (int(nx) + 2 * R) % 4 == 0 else 1
+
+
+def copy_width(nx: int, itemsize: int) -> int:
+    """The width (values) of the kernel's copies for an interior row of
+    ``nx`` cells of ``itemsize``-byte values on 16-byte aligned buffers:
+    the widest of 16, 8 and 4 bytes whose value count divides the row
+    pitch ``nx + 4`` (every tile row then starts aligned: tiles start at
+    multiples of 8 columns), else one value. float32 takes 16 bytes or
+    one value (:func:`copy_floats`); bf16 16, 8 or 4 bytes, else one
+    value by a plain load."""
+    if itemsize == 4:
+        return copy_floats(nx)
+    pitch = int(nx) + 2 * R
+    for nbytes in (16, 8, 4):
+        w = nbytes // itemsize
+        if pitch % w == 0:
+            return w
+    return 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,6 +290,59 @@ def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
 fused_adr_stage.launches = 0
 
 
+def fused_adr_stage_bf16(v, u, out, dt, *, taps, cz, cy, cx, k0, eps,
+                         adv_p, adv_m, lam, a, b, band, bc_value,
+                         zchunk=None, launch: dict | None = None):
+    """:func:`fused_adr_stage` on bfloat16 buffers, unsharded (K9's bf16
+    instance): the float32 stage on the loaded bf16 values, every written
+    cell rounded to bf16 once (the ghost ring keeps its bf16 wall value).
+    Launches the kernel on the current stream, counted in
+    ``fused_adr_stage_bf16.launches``; ``launch``, a dict, receives its
+    chunk, copy width (bf16 values) and resident blocks an SM. A CPU
+    tensor runs :func:`upcast_twin` of :func:`adr_stage_reference`."""
+    for name, t in (("v", v), ("u", u), ("out", out)):
+        if t is not None:
+            _check(name, t, v.shape, v.device, torch.bfloat16)
+    if v.dim() != 3 or min(v.shape) <= 2 * R:
+        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
+    n = tuple(s - 2 * R for s in v.shape)
+    for name, t, m in (("cz", cz, n[0]), ("cy", cy, n[1]), ("cx", cx, n[2])):
+        _check(name, t, (m,), v.device)
+    if v.data_ptr() == out.data_ptr():
+        raise ValueError("v and out must be different buffers")
+    kw = dict(taps=taps, cz=cz, cy=cy, cx=cx, k0=k0, eps=eps, adv_p=adv_p,
+              adv_m=adv_m, lam=lam, a=a, b=b, band=band, bc_value=bc_value)
+    if v.device.type == "cpu":
+        return upcast_twin(adr_stage_reference, v, u, out, dt, **kw)
+    if v.device.type != "cuda":
+        raise ValueError(f"no ADR stage kernel for device {v.device}")
+    zchunk = zchunk or chunk_planes(n[0])
+    out2 = None if launch is None else (ctypes.c_int * 2)()
+    host_taps = np.asarray(taps, dtype=np.float32)
+    host_adv = np.asarray(tuple(adv_p) + tuple(adv_m), dtype=np.float32)
+    with torch.cuda.device(v.device):
+        rc = library().fused_adr_stage_bf16(
+            v.data_ptr(), None if u is None else u.data_ptr(),
+            out.data_ptr(), *n, host_taps.ctypes.data, cz.data_ptr(),
+            cy.data_ptr(), cx.data_ptr(), float(k0), float(eps),
+            host_adv.ctypes.data, float(lam), float(np.float32(dt)),
+            float(a), float(b), int(band), float(bc_value), int(zchunk),
+            None if out2 is None else ctypes.byref(out2),
+            torch.cuda.current_stream(v.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_adr_stage_bf16 launch failed: CUDA error {rc}")
+    build.count_launch(fused_adr_stage_bf16)
+    if launch is not None:
+        launch.update(zchunk=int(zchunk), copy_width=out2[0],
+                      blocks_per_sm=out2[1])
+    return out
+
+
+fused_adr_stage_bf16.launches = 0
+
+
 class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
     """Fused per-stage ADR runner for one configuration on one device, or
     on one shard of a mesh: K9 three times a step. ``velocity`` is per
@@ -270,20 +353,25 @@ class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
     shard's block, the walls are global (``offsets``), ``K(x)``'s factors
     are the global grid's at the shard's cells, and ``run`` takes the
     ghost ``refresh`` run after every stage. ADR has no split-overlap
-    schedule (the solver declines it to the generic rung)."""
+    schedule (the solver declines it to the generic rung).
+
+    ``dtype=torch.bfloat16`` runs K9's bf16 instance
+    (:func:`fused_adr_stage_bf16`), unsharded; ``storage_dtype`` is the
+    state it faces (``fused_diffusion.PaddedDiffusionState``)."""
 
     halo = R
     needs_offsets = True
 
     def __init__(self, interior_shape, spacing, diffusivity, velocity,
                  reaction, dt, band, bc_value, device,
-                 kappa_variation: float = 0.0, global_shape=None):
+                 kappa_variation: float = 0.0, global_shape=None,
+                 dtype=torch.float32, storage_dtype=None):
         if len(tuple(velocity)) != 3:
             raise ValueError(
                 f"fused ADR wants a 3-vector velocity, got {velocity!r}")
         # the unscaled taps: K(x) multiplies the summed Laplacian
         super().__init__(interior_shape, spacing, (1.0, 1.0, 1.0), dt, band,
-                         bc_value, device)
+                         bc_value, device, dtype, storage_dtype)
         self.k0 = float(diffusivity)
         self.eps = float(kappa_variation)
         self.lam = float(reaction)
@@ -293,6 +381,8 @@ class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
                            for a, dx in zip(velocity, spacing))
         self.global_shape = tuple(global_shape or interior_shape)
         self.sharded = self.global_shape != self.interior_shape
+        if self.sharded and dtype != torch.float32:
+            raise ValueError("K9's bf16 instance is unsharded")
         self.core_offsets = (R,) * 3
         self.exchange_depth = R
         # the factors over the global grid, from the global shape (a
@@ -327,8 +417,10 @@ class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
         (a1, b1), (a2, b2), (a3, b3) = STAGES
         stages = ((S, None, T1, a1, b1), (T1, S, T2, a2, b2),
                   (T2, S, S, a3, b3))
+        stage = (fused_adr_stage_bf16 if self.dtype == torch.bfloat16
+                 else fused_adr_stage)
         for v, u, out, a, b in stages:
-            fused_adr_stage(v, u, out, dt, a=a, b=b, **kw)
+            stage(v, u, out, dt, a=a, b=b, **kw)
             if refresh is not None:
                 refresh(out)
         return S, T1, T2

@@ -18,6 +18,15 @@ interior — 8 B/cell for stage 1, 12 B/cell for stages 2 and 3.
   raises if it cannot; for a CPU tensor — and only then — it runs
   :func:`stage_reference`, the plain PyTorch twin with the kernel's
   layout, term order and roundings.
+* :func:`fused_stage_bf16` is K1's instance on bfloat16 buffers (the
+  JAX kernel's ``compute_dtype`` upcast, ``fused_diffusion.py:205-212``):
+  it loads bf16, computes the float32 stage of :func:`fused_stage` and
+  rounds the written cells to bf16 once, after the stage
+  (``:269``); its twin is :func:`upcast_twin` of :func:`stage_reference`.
+* A stepper's buffers may differ from the state it faces
+  (:class:`PaddedDiffusionState`, ``storage_dtype``): float64 states on
+  the float32 kernels and float32 states on the bf16 instance, cast at
+  ``embed`` and ``extract`` as the JAX steppers cast them.
 """
 
 from __future__ import annotations
@@ -111,6 +120,25 @@ def stage_reference(v, u, out, dt, *, taps, a, b, band, bc_value,
     return out
 
 
+def bf16_value(x: float) -> float:
+    """``x`` rounded to bfloat16 (to nearest even), as a float: the wall
+    value a bf16 buffer's ghost ring holds."""
+    return float(torch.tensor(float(x), dtype=torch.bfloat16).float())
+
+
+def upcast_twin(reference, v, u, out, *args, **kwargs):
+    """A bf16-buffer kernel's plain twin: ``reference`` (a float32 stage
+    or step twin writing ``out``) on the buffers' float32 values, its
+    output rounded to bf16 once (round to nearest even, as the kernels'
+    ``__float2bfloat16_rn``); cells ``reference`` leaves alone keep their
+    bits. ``u`` may be ``out`` (read before the write) or ``None``."""
+    f = out.float()
+    reference(v.float(), None if u is None else u.float(), f, *args,
+              **kwargs)
+    out.copy_(f)
+    return out
+
+
 def write_walled(out, rk, vc, band, bc_value, global_shape=None,
                  offsets=None):
     """The stage kernels' epilogue: ``out``'s interior becomes ``rk`` on
@@ -146,12 +174,16 @@ def library() -> ctypes.CDLL:
     fn.argtypes = [p, p, p, i, i, i, p, f, f, f, i, f, i, p, p, i, i, p, p,
                    p]
     fn.restype = ctypes.c_int
+    fn = lib.fused_diffusion_stage_bf16
+    fn.argtypes = [p, p, p, i, i, i, p, f, f, f, i, f, i, p]
+    fn.restype = ctypes.c_int
     return lib
 
 
-def _check(name, t, shape, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 only, got {t.dtype}")
+def _check(name, t, shape, device, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {str(dtype).replace('torch.', '')} "
+                        f"only, got {t.dtype}")
     if tuple(t.shape) != tuple(shape) or t.device != device:
         raise ValueError(
             f"{name}: expected {tuple(shape)} on {device}, "
@@ -221,18 +253,65 @@ def fused_stage(v, u, out, dt, *, taps, a, b, band, bc_value,
 fused_stage.launches = 0
 
 
+def fused_stage_bf16(v, u, out, dt, *, taps, a, b, band, bc_value,
+                     zchunk=Z_CHUNK):
+    """:func:`fused_stage` on bfloat16 buffers, unsharded (K1's bf16
+    instance): the stage's float32 arithmetic on the loaded bf16 values,
+    every written cell rounded to bf16 once (the ghost ring, whose bf16
+    wall value the kernel reads, is never written). Launches the kernel
+    on the current stream, counted in ``fused_stage_bf16.launches``; a
+    CPU tensor runs :func:`upcast_twin` of :func:`stage_reference`."""
+    for name, t in (("v", v), ("u", u), ("out", out)):
+        if t is not None:
+            _check(name, t, v.shape, v.device, torch.bfloat16)
+    if v.dim() != 3 or min(v.shape) <= 2 * R:
+        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
+    if v.data_ptr() == out.data_ptr():
+        raise ValueError("v and out must be different buffers")
+    if v.device.type == "cpu":
+        return upcast_twin(stage_reference, v, u, out, dt, taps=taps, a=a,
+                           b=b, band=band, bc_value=bc_value)
+    if v.device.type != "cuda":
+        raise ValueError(f"no stage kernel for device {v.device}")
+    nz, ny, nx = (s - 2 * R for s in v.shape)
+    host_taps = np.asarray(taps, dtype=np.float32)
+    with torch.cuda.device(v.device):
+        rc = library().fused_diffusion_stage_bf16(
+            v.data_ptr(), None if u is None else u.data_ptr(),
+            out.data_ptr(), nz, ny, nx, host_taps.ctypes.data,
+            float(np.float32(dt)), float(a), float(b), int(band),
+            float(bc_value), int(zchunk),
+            torch.cuda.current_stream(v.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_diffusion_stage_bf16 launch failed: CUDA error {rc}")
+    build.count_launch(fused_stage_bf16)
+    return out
+
+
+fused_stage_bf16.launches = 0
+
+
 class PaddedDiffusionState:
     """The padded layout every diffusion stepper keeps (K1, K10, K2 and,
     in 2-D, K7): the interior at offset ``R`` on every axis and an
     ``R``-deep ghost ring at the Dirichlet wall value, and what one
     (grid, dt) configuration's kernels take: the taps, ``dt``, the band
-    and the wall value."""
+    and the wall value.
+
+    ``dtype`` is the buffers' (float32, or bfloat16 for the bf16
+    instances) and ``storage_dtype`` the state's the stepper faces
+    (default ``dtype``): ``embed`` casts the state to the buffers,
+    ``extract`` back (JAX ``fused_diffusion.py:545-552``), so a float64
+    state runs the float32 kernels and a float32 state the bf16 ones."""
 
     def __init__(self, interior_shape, spacing, diffusivity, dt, band,
-                 bc_value, device):
+                 bc_value, device, dtype=torch.float32, storage_dtype=None):
         self.interior_shape = tuple(interior_shape)
         self.padded_shape = tuple(n + 2 * R for n in interior_shape)
-        self.dtype = torch.float32
+        self.dtype = dtype
+        self.storage_dtype = storage_dtype or dtype
         self.device = torch.device(device)
         self.taps = stage_taps(spacing, diffusivity)
         self.dt = float(dt)
@@ -246,7 +325,7 @@ class PaddedDiffusionState:
         return S
 
     def extract(self, S):
-        return _interior(S).contiguous()
+        return _interior(S).contiguous().to(self.storage_dtype)
 
 
 class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
@@ -261,18 +340,25 @@ class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
     planes) a stage is the split schedule's three launches: the interior
     planes ``[Z_CHUNK, lz - Z_CHUNK)`` while the z slabs are exchanged,
     then the bottom and top ``Z_CHUNK`` planes from the exchanged slabs
-    (``exch``); other sharded axes of a pencil keep the refresh."""
+    (``exch``); other sharded axes of a pencil keep the refresh.
+
+    ``dtype=torch.bfloat16`` runs K1's bf16 instance
+    (:func:`fused_stage_bf16`), unsharded; ``storage_dtype`` is the state
+    it faces (:class:`PaddedDiffusionState`)."""
 
     halo = R
     needs_offsets = True
 
     def __init__(self, interior_shape, spacing, diffusivity, dt, band,
                  bc_value, device, global_shape=None,
-                 overlap_split: bool = False):
+                 overlap_split: bool = False, dtype=torch.float32,
+                 storage_dtype=None):
         super().__init__(interior_shape, spacing, diffusivity, dt, band,
-                         bc_value, device)
+                         bc_value, device, dtype, storage_dtype)
         self.global_shape = tuple(global_shape or interior_shape)
         self.sharded = self.global_shape != self.interior_shape
+        if self.sharded and dtype != torch.float32:
+            raise ValueError("K1's bf16 instance is unsharded")
         self.core_offsets = (R,) * len(self.interior_shape)
         self.exchange_depth = R
         lz = self.interior_shape[0]
@@ -293,6 +379,8 @@ class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
         for v, u, out, a, b in stages:
             if self.overlap_split:
                 self._split_stage(v, u, out, dt, a, b, exch, kw)
+            elif self.dtype == torch.bfloat16:
+                fused_stage_bf16(v, u, out, dt, a=a, b=b, **kw)
             else:
                 fused_stage(v, u, out, dt, a=a, b=b, **kw)
             if refresh is not None:

@@ -86,11 +86,11 @@ def library():
                       (_P, _P, _I, _I, _I, _P, _F, _I, _F, _I, _P))
 
 
-def check_padded(S, out) -> None:
-    """``S`` and ``out``: two different contiguous float32 padded 3-D
-    buffers of one shape on one device."""
-    _check("out", out, S.shape, S.device)
-    _check("S", S, S.shape, S.device)
+def check_padded(S, out, dtype=torch.float32) -> None:
+    """``S`` and ``out``: two different contiguous padded 3-D buffers of
+    ``dtype`` (float32 by default) and one shape on one device."""
+    _check("out", out, S.shape, S.device, dtype)
+    _check("S", S, S.shape, S.device, dtype)
     if S.dim() != 3 or min(S.shape) <= 2 * R:
         raise ValueError(f"padded 3-D state expected, got {tuple(S.shape)}")
     if S.data_ptr() == out.data_ptr():

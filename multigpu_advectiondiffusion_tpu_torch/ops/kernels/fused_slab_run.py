@@ -70,6 +70,13 @@ jobs spread well over the resident blocks, and count them.
   plain twin, :func:`slab_run_dma_reference`, runs the same schedule
   over K3's twins; the steppers declare the JAX ``remote_dma`` windows
   in ``stencil_spec()``.
+* :func:`slab_run_diffusion_bf16` and :func:`slab_run_burgers_bf16` are
+  K2's and K6's instances on bfloat16 buffers, one device (the JAX
+  steppers' ``dtype=bfloat16``, ``fused_slab_run.py:1345-1354`` and
+  ``:1632-1641``): each step upcasts its planes once, runs the three
+  stages in float32 and rounds each output cell to bf16 once. Their
+  twin is the float32 step on the upcast buffer, rounded once a step
+  (:func:`rounded_step`).
 * ``supported``/``profitable`` are the port's gates, for the H100, in
   place of the JAX package's TPU VMEM model (PERF.md lists the shapes
   where the two disagree).
@@ -100,6 +107,7 @@ from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     STAGES,
     PaddedDiffusionState,
     _check,
+    bf16_value,
 )
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels.fused_diffusion import (
     stage_reference as k1_stage_reference,
@@ -142,6 +150,12 @@ _K2_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P, _P,
                 _P)
 _K6_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _F, _I, _I,
                 _P, _P, _P)
+# the bf16 instances' entries: K2's (one member, the pad value) and K6's
+# (one member; its source built with K6_BF16 defined, a library of its own)
+_K2H_ARGTYPES = (_P, _P, _I, _I, _I, _P, _F, _I, _F, _F, _I, _I, _P, _P, _P)
+_K6H_ARGTYPES = (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _F, _I, _I, _P,
+                 _P, _P)
+K6_BF16_FLAGS = ("-DK6_BF16",)
 _K3D_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
                  _F, _I, _P)
 _K3B_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
@@ -251,6 +265,55 @@ def slab_run_diffusion(S0, S1, num_iters: int, dt, *, taps, band, bc_value,
 
 
 slab_run_diffusion.launches = 0
+
+
+def rounded_step(step, src, dst):
+    """The plain twin of one step of a bf16-buffer slab kernel: the float32
+    ``step(src, dst)`` on the buffers' float32 values, ``dst`` rounded to
+    bf16 once (cells the step leaves alone keep their bits)."""
+    f = dst.float()
+    step(src.float(), f)
+    dst.copy_(f)
+
+
+def slab_run_diffusion_bf16(S0, S1, num_iters: int, dt, *, taps, band,
+                            bc_value, zchunk=None,
+                            grid_blocks: list | None = None):
+    """:func:`slab_run_diffusion` on bfloat16 buffers (K2's bf16
+    instance): each step the float32 step of K2 on the upcast planes, its
+    output rounded to bf16 once. A CUDA tensor launches the kernel once on
+    the current stream, counted in ``slab_run_diffusion_bf16.launches``;
+    a CPU tensor runs the twin, :func:`rounded_step` of
+    ``fused_diffusion_step.step_reference``."""
+    fds.check_padded(S0, S1, torch.bfloat16)
+    if S0.device.type == "cpu":
+        return ping_pong(lambda src, dst: rounded_step(
+            lambda a, b: fds.step_reference(a, b, dt, taps=taps, band=band,
+                                            bc_value=bc_value), src, dst),
+            S0, S1, num_iters)
+    nz, ny, nx = (n - 2 * R for n in S0.shape)
+    host_taps = np.asarray(taps, dtype=np.float32)
+    planes = zchunk or fds.diffusion_zchunk(nz, ny, nx, 1, S0.device,
+                                            cooperative=True)
+    blocks = ctypes.c_int(0)
+    counters = job_counters(S0.device)
+
+    def kernel(S0, S1):
+        return wr.library(fds.SOURCE, "slab_run_diffusion_bf16",
+                          _K2H_ARGTYPES).slab_run_diffusion_bf16(
+            S0.data_ptr(), S1.data_ptr(), nz, ny, nx, host_taps.ctypes.data,
+            float(np.float32(dt)), int(band), float(bc_value),
+            bf16_value(bc_value), int(planes), int(num_iters),
+            counters.data_ptr(), ctypes.byref(blocks), wr.stream_of(S0))
+
+    wr.launch(kernel, S0, S1)
+    if grid_blocks is not None:
+        grid_blocks.append(blocks.value)
+    build.count_launch(slab_run_diffusion_bf16)
+    return S1 if num_iters % 2 else S0
+
+
+slab_run_diffusion_bf16.launches = 0
 
 
 def _check_batched(S0, S1, min_dim: int) -> None:
@@ -383,6 +446,54 @@ def slab_run_burgers(S0, S1, num_iters: int, dt, *, params: fb.StageParams,
 
 
 slab_run_burgers.launches = 0
+
+
+def slab_run_burgers_bf16(S0, S1, num_iters: int, dt, *,
+                          params: fb.StageParams, zchunk=None,
+                          grid_blocks: list | None = None):
+    """:func:`slab_run_burgers` on bfloat16 buffers (K6's bf16 instance,
+    either order): each step the float32 step of K6 on the upcast planes,
+    its output rounded to bf16 once. A CUDA tensor launches the kernel
+    once on the current stream, counted in
+    ``slab_run_burgers_bf16.launches``; a CPU tensor runs the twin,
+    :func:`rounded_step` of :func:`burgers_step_reference`."""
+    _check("S1", S1, S0.shape, S0.device, torch.bfloat16)
+    _check("S0", S0, S0.shape, S0.device, torch.bfloat16)
+    if S0.dim() != 3:
+        raise ValueError(f"3-D state expected, got {tuple(S0.shape)}")
+    if S0.data_ptr() == S1.data_ptr():
+        raise ValueError("S0 and S1 must be different buffers")
+    if S0.device.type == "cpu":
+        return ping_pong(lambda src, dst: rounded_step(
+            lambda a, b: burgers_step_reference(a, b, dt, params=params),
+            src, dst), S0, S1, num_iters)
+    if S0.device.type != "cuda":
+        raise ValueError(f"no slab kernel for device {S0.device}")
+    nz, ny, nx = S0.shape
+    code, c, weno_z, inv_dx, taps = _burgers_args(params)
+    planes = zchunk or burgers_zchunk(nz, ny, nx, 1, S0.device,
+                                      params.order)
+    blocks = ctypes.c_int(0)
+    counters = job_counters(S0.device)
+
+    def kernel(S0, S1):
+        return wr.library(BURGERS_SOURCE, "slab_run_burgers_bf16",
+                          _K6H_ARGTYPES, fb.NVCC_EXTRA + K6_BF16_FLAGS
+                          ).slab_run_burgers_bf16(
+            S0.data_ptr(), S1.data_ptr(), nz, ny, nx, code, c, weno_z,
+            params.order, inv_dx.ctypes.data,
+            None if taps is None else taps.ctypes.data,
+            float(np.float32(dt)), planes, int(num_iters),
+            counters.data_ptr(), ctypes.byref(blocks), wr.stream_of(S0))
+
+    wr.launch(kernel, S0, S1)
+    if grid_blocks is not None:
+        grid_blocks.append(blocks.value)
+    build.count_launch(slab_run_burgers_bf16)
+    return S1 if num_iters % 2 else S0
+
+
+slab_run_burgers_bf16.launches = 0
 
 
 def slab_run_burgers_batched(S0, S1, num_iters: int, dt, *,
@@ -904,7 +1015,7 @@ class _SlabRunStepper:
 
         launch_group([S, T, land], launch)
         return self.extract(T if num_iters % 2 else S), wr.accumulate_t(
-            t, np.float32(self.dt), num_iters)
+            t, self.dt, num_iters)
 
     def _init_sharded(self, global_shape, overlap_split: bool,
                       steps_per_exchange: int) -> None:
@@ -946,8 +1057,7 @@ class _SlabRunStepper:
         if not self.sharded:
             S0 = self.embed(u)
             S = self._whole_run(S0, S0.clone(), num_iters)
-            return self.extract(S), wr.accumulate_t(
-                t, np.float32(self.dt), num_iters)
+            return self.extract(S), wr.accumulate_t(t, self.dt, num_iters)
         if offsets is None:
             raise ValueError("sharded slab stepper needs offsets")
         if self.exchange == "dma":
@@ -963,8 +1073,7 @@ class _SlabRunStepper:
         full, rem = chunk_counts(int(num_iters), self.k)
         for nsteps in [self.k] * full + ([rem] if rem else []):
             S, T = self._block(S, T, nsteps, oz, refresh, exch)
-        return self.extract(S), wr.accumulate_t(t, np.float32(self.dt),
-                                                num_iters)
+        return self.extract(S), wr.accumulate_t(t, self.dt, num_iters)
 
     def _block(self, S, T, nsteps: int, oz: int, refresh, exch):
         """One exchange and ``nsteps`` steps (``nsteps <= k``); call ``j``
@@ -1006,12 +1115,29 @@ class _SlabRunStepper:
         return out, accumulate_ts(ts, self.dt, num_iters)
 
 
+def jax_bf16_slab_fits(ny: int, nx: int, order: int = 5) -> bool:
+    """Whether the JAX package's Burgers slab stepper takes a bf16 grid
+    with ``(ny, nx)`` planes at WENO ``order``: its TPU VMEM model
+    (``fused_slab_run.py:1417-1452``; this port keeps a copy, it imports
+    nothing of that package) — the live full-width rows of a one-plane
+    z block, each ``(round8(ny + 2r), round128(nx + 2r))`` bf16 values,
+    within 72 MiB. A block of one plane divides every ``nz`` and is the
+    smallest, so the JAX slab takes the grid iff it fits."""
+    r = fb.HALO[order]
+    bz, G = 1, 3 * r
+    sweep = 20 if order == 7 else 14
+    rows = (2 * (bz + 2 * G) + 2 * bz + (bz + 4 * r) + (bz + 2 * r)
+            + sweep * (bz + 4 * r))
+    row_bytes = -(-(ny + 2 * r) // 8) * 8 * (-(-(nx + 2 * r) // 128) * 128) * 2
+    return rows * row_bytes <= 72 * 1024 * 1024
+
+
 def accumulate_ts(ts, dt, num_iters: int):
     """The members' ``(B,)`` times advanced by ``dt`` ``num_iters`` times
     in their own precision, each element as :func:`whole_run.
     accumulate_t` rounds a scalar."""
     ts = np.asarray(ts)
-    step = ts.dtype.type(np.float32(dt))
+    step = ts.dtype.type(dt)
     for _ in range(int(num_iters)):
         ts = ts + step
     return ts
@@ -1022,7 +1148,10 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     configuration on one device, K1's padded layout; on a shard of a
     z-slab mesh (``global_shape``) the sharded schedules over K3, the
     block between ``k*G`` ghost planes a side, ``(lz + 2kG, ny+4,
-    nx+4)``."""
+    nx+4)``. ``dtype=torch.bfloat16`` runs K2's bf16 instance
+    (:func:`slab_run_diffusion_bf16`), unsharded; ``storage_dtype`` is
+    the state it faces (a float64 state on the float32 kernel, a float32
+    state on the bf16 one)."""
 
     halo = 3 * R  # G: three O4 stages of redundant recompute
     stencil_radius = R
@@ -1031,10 +1160,12 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
                  bc_value, device, global_shape=None,
                  overlap_split: bool = False, steps_per_exchange: int = 1,
                  exchange: str = "collective", mesh_axis=None,
-                 num_shards=None):
+                 num_shards=None, dtype=torch.float32, storage_dtype=None):
         super().__init__(interior_shape, spacing, diffusivity, dt, band,
-                         bc_value, device)
+                         bc_value, device, dtype, storage_dtype)
         self._init_sharded(global_shape, overlap_split, steps_per_exchange)
+        if self.sharded and dtype != torch.float32:
+            raise ValueError("K2's bf16 instance is unsharded")
         if self.sharded:
             d = self.exchange_depth
             lz, ny, nx = self.interior_shape
@@ -1065,8 +1196,10 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
                             hi=hi)
 
     def _whole_run(self, S0, S1, num_iters: int):
-        return slab_run_diffusion(S0, S1, num_iters, self.dt, taps=self.taps,
-                                  band=self.band, bc_value=self.bc_value)
+        run = (slab_run_diffusion_bf16 if self.dtype == torch.bfloat16
+               else slab_run_diffusion)
+        return run(S0, S1, num_iters, self.dt, taps=self.taps,
+                   band=self.band, bc_value=self.bc_value)
 
     def _whole_run_dma(self, S0s, S1s, lands, num_iters: int):
         return slab_run_dma_diffusion(
@@ -1082,7 +1215,8 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
         return S
 
     def extract_batched(self, S):
-        return S[(slice(None),) + (slice(R, -R),) * 3].contiguous()
+        return S[(slice(None),) + (slice(R, -R),) * 3].contiguous().to(
+            self.storage_dtype)
 
     def _whole_run_batched(self, S0, S1, num_iters: int):
         return slab_run_diffusion_batched(
@@ -1092,12 +1226,14 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     @staticmethod
     def supported(interior_shape, dtype, depth: int = R) -> bool:
         """What K2 (and K3, on a shard's block with ``depth`` ghost
-        planes a side) takes: a 3-D float32 grid whose padded state has
-        at most 2^31 - 1 cells (32-bit indices). A block's shared memory
-        is fixed (105,600 bytes for any grid), so a cooperative grid of
-        at least one block an SM always fits; tiling y and x removes the
+        planes a side) takes: a 3-D float32 (or, unsharded, bf16) grid
+        whose padded state has at most 2^31 - 1 cells (32-bit indices). A
+        block's shared memory is fixed (105,600 bytes for any grid, the
+        rings float32 at either buffer type), so a cooperative grid of at
+        least one block an SM always fits; tiling y and x removes the
         JAX package's row-size limit."""
-        if dtype != torch.float32 or len(interior_shape) != 3:
+        if dtype not in (torch.float32, torch.bfloat16) or len(
+                interior_shape) != 3:
             return False
         lz, ny, nx = interior_shape
         return (lz + 2 * depth) * (ny + 2 * R) * (nx + 2 * R) <= MAX_CELLS
@@ -1119,8 +1255,11 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
         0.1468], no winner beyond the spread. On 400x200x206 K1 won in
         both (0.4457 / 0.2817; [0.4473, 0.4504] / [0.2753, 0.2804]). The
         threshold is the largest grid on which K2 won beyond the spread;
-        between 262,144 and 2,097,152 cells nothing was measured."""
-        return (dtype == torch.float32
+        between 262,144 and 2,097,152 cells nothing was measured. The bf16
+        instances (``precision="bf16"``) take the same threshold: their
+        shared rings and arithmetic are the float32 ones', and only the
+        bytes, which bound neither path at these sizes, halve."""
+        return (dtype in (torch.float32, torch.bfloat16)
                 and math.prod(interior_shape) <= K2_PROFITABLE_CELLS)
 
 
@@ -1130,7 +1269,9 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     a shard of a z-slab mesh (``global_shape``) the sharded schedules over
     K3, the block between ``k*G`` ghost planes a side, ``(lz + 2kG, ny,
     nx)``; ``G = 3r`` is 9 at ``order=5`` and 12 at ``order=7``, the
-    JAX stepper's ``halo`` at either order."""
+    JAX stepper's ``halo`` at either order. ``dtype=torch.bfloat16`` runs
+    K6's bf16 instance (:func:`slab_run_burgers_bf16`), unsharded, on a
+    float32 state (``storage_dtype``) cast at ``embed`` and ``extract``."""
 
     # G: three WENO5 stages of redundant recompute (an order-7 instance
     # sets its own, 12, and reach 4)
@@ -1141,15 +1282,19 @@ class SlabRunBurgersStepper(_SlabRunStepper):
                  nu: float, dt: float, device, order: int = 5,
                  global_shape=None, overlap_split: bool = False,
                  steps_per_exchange: int = 1, exchange: str = "collective",
-                 mesh_axis=None, num_shards=None):
+                 mesh_axis=None, num_shards=None, dtype=torch.float32,
+                 storage_dtype=None):
         self.interior_shape = tuple(interior_shape)
-        self.dtype = torch.float32
+        self.dtype = dtype
+        self.storage_dtype = storage_dtype or dtype
         self.device = torch.device(device)
         self.params = fb.stage_params(flux, variant, spacing, nu, order)
         self.stencil_radius = self.params.r
         self.halo = 3 * self.params.r
         self.dt = float(dt)
         self._init_sharded(global_shape, overlap_split, steps_per_exchange)
+        if self.sharded and dtype != torch.float32:
+            raise ValueError("K6's bf16 instance is unsharded")
         d = self.exchange_depth if self.sharded else 0
         self.core_offsets = (d, 0, 0)
         lz, ny, nx = self.interior_shape
@@ -1168,7 +1313,7 @@ class SlabRunBurgersStepper(_SlabRunStepper):
 
     def extract(self, S):
         if not self.sharded:
-            return S
+            return S.to(self.storage_dtype)
         d = self.exchange_depth
         return S[d:S.shape[0] - d].contiguous()
 
@@ -1184,11 +1329,12 @@ class SlabRunBurgersStepper(_SlabRunStepper):
                      copy=True).contiguous()
 
     def extract_batched(self, S):
-        return S
+        return S.to(self.storage_dtype)
 
     def _whole_run(self, S0, S1, num_iters: int):
-        return slab_run_burgers(S0, S1, num_iters, self.dt,
-                                params=self.params)
+        run = (slab_run_burgers_bf16 if self.dtype == torch.bfloat16
+               else slab_run_burgers)
+        return run(S0, S1, num_iters, self.dt, params=self.params)
 
     def _whole_run_dma(self, S0s, S1s, lands, num_iters: int):
         return slab_run_dma_burgers(S0s, S1s, lands, num_iters, self.dt,
@@ -1199,16 +1345,25 @@ class SlabRunBurgersStepper(_SlabRunStepper):
                                         params=self.params)
 
     @staticmethod
-    def supported(interior_shape, dtype, depth: int = 0) -> bool:
+    def supported(interior_shape, dtype, depth: int = 0,
+                  order: int = 5) -> bool:
         """What K6 (and K3, on a shard's block with ``depth`` ghost
         planes a side) takes: a 3-D float32 grid of at most 2^31 - 1
         cells with its ghost planes (32-bit indices). A block's shared
         memory is fixed (219 KiB for any grid), so a cooperative grid of
         one block an SM always fits; tiling y and x removes the JAX
-        package's row-size limit."""
-        if dtype != torch.float32 or len(interior_shape) != 3:
+        package's row-size limit. The bf16 instance (unsharded) takes
+        only the planes the JAX package's slab takes in bf16
+        (:func:`jax_bf16_slab_fits`): on larger grids its once-a-step
+        rounding left the bf16 band on the H100 (PERF.md §6), and
+        the JAX package's carried generic loop runs them."""
+        if dtype not in (torch.float32, torch.bfloat16) or len(
+                interior_shape) != 3:
             return False
         lz, ny, nx = interior_shape
+        if dtype == torch.bfloat16 and not jax_bf16_slab_fits(ny, nx,
+                                                              order):
+            return False
         return (lz + 2 * depth) * ny * nx <= MAX_CELLS
 
     @staticmethod

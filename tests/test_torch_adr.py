@@ -37,6 +37,7 @@ from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary as PBoundary
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid as PGrid
 from multigpu_advectiondiffusion_tpu_torch.models import adr as padr
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import fused_adr as pfa
+from multigpu_advectiondiffusion_tpu_torch.parallel import mesh as pmesh
 from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
 
 torch.set_num_threads(1)
@@ -317,11 +318,17 @@ def test_engaged_path_matches_jax(ndim, dtype):
 
 @pytest.mark.parametrize("kw,match", [
     ({"impl": "auto"}, "tuner"),
+    # precision="bf16" runs on one device (K9's bf16 instance,
+    # tests/test_torch_precision.py); a mesh still refuses it (item 8h)
     ({"precision": "bf16"}, "bf16"),
 ])
 def test_unported_rungs_raise(kw, match):
+    place = {"device": "cpu"}
+    if "precision" in kw:
+        place = {"mesh": pmesh.make_mesh(
+            {"dz": 2}, devices=[torch.device("cpu")] * 2, timeout=60.0)}
     with pytest.raises(NotImplementedError, match=match):
         padr.ADRSolver(padr.ADRConfig(grid=PGrid.make(16, 12, 10), **kw),
-                       device="cpu")
+                       **place)
     with pytest.raises(NotImplementedError, match="1-D"):
         padr.ADRSolver(padr.ADRConfig(grid=PGrid.make(16)), device="cpu")

@@ -256,8 +256,13 @@ def test_pallas_step_and_pallas_axis_run(kw, stepper):
     ({"impl": "pallas_slab", "weno_order": 7, "adaptive_dt": False},
      "K6's order-7"),
     ({"impl": "pallas_stage", "weno_order": 7}, "order-7"),
+    # precision="bf16" runs on one device (tests/test_torch_precision.py);
+    # on a mesh it raises, naming the bf16 wires (ROADMAP item 8h)
     ({"impl": "xla", "precision": "bf16"}, "bf16"),
-    ({"impl": "xla", "dtype": "bfloat16"}, "bfloat16"),
+    # dtype="bfloat16" runs too; with precision="bf16" it is the JAX
+    # package's "redundant" ValueError
+    ({"impl": "xla", "dtype": "bfloat16", "precision": "bf16"},
+     "bfloat16"),
     ({"impl": "xla", "steps_per_exchange": 2}, "mesh"),
     ({"impl": "xla", "exchange": "dma"}, "mesh"),
 ])
@@ -265,8 +270,11 @@ def test_unported_configs_raise(kw, match):
     # the mesh knobs without a mesh: the JAX package's construction gate
     # (a ValueError saying a mesh is needed) since meshes are ported
     exc = (ValueError if {"steps_per_exchange", "exchange"} & set(kw)
-           else NotImplementedError)
+           or kw.get("dtype") == "bfloat16" else NotImplementedError)
     place = {"device": "cpu"}
+    if "precision" in kw:
+        place = {"mesh": pmesh.make_mesh(
+            {"dz": 2}, devices=[torch.device("cpu")] * 2, timeout=60.0)}
     if kw.get("weno_order") == 7:
         # WENO7 runs its fused rung on one device and on a z-slab mesh
         # (the order-7 instances of K5 and K6, and of the sharded K5 and

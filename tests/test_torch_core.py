@@ -132,8 +132,10 @@ def test_pad_axis_matches_jax(kind, value, axis):
 def test_canonicalize_dtypes():
     assert canonicalize("float32") is torch.float32
     assert canonicalize("f64") is torch.float64
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        canonicalize("bfloat16")
+    # bfloat16 is ported (the all-bf16 experiment and the bf16 storage
+    # rung); names resolve as in the JAX package
+    assert canonicalize("bfloat16") is torch.bfloat16
+    assert canonicalize("bf16") is torch.bfloat16
     with pytest.raises(ValueError):
         canonicalize("int8")
 

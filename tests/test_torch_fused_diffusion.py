@@ -36,6 +36,7 @@ from multigpu_advectiondiffusion_tpu_torch.models.diffusion import (
     DiffusionSolver as PSolver,
 )
 from multigpu_advectiondiffusion_tpu_torch.core.grid import Grid as PGrid
+from multigpu_advectiondiffusion_tpu_torch.parallel import mesh as pmesh
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
     fused_diffusion as pfd,
 )
@@ -287,18 +288,33 @@ def test_pallas_axis_runs_the_per_axis_kernel():
 
 @pytest.mark.parametrize("kw,match", [
     ({"impl": "auto"}, "tuner"),
-    ({"impl": "pallas", "dtype": "float64"}, "float64"),
-    ({"impl": "pallas_stage", "dtype": "float64"}, "float64"),
-    ({"impl": "xla", "dtype": "bfloat16"}, "bfloat16"),
-    ({"impl": "xla", "precision": "bf16"}, "bf16"),
+    # float64 storage on K1/K2, dtype="bfloat16" and precision="bf16" run
+    # on one device now (tests/test_torch_storage_f64.py,
+    # test_torch_precision.py); what still refuses them: the JAX
+    # package's precision gate ("must be float32", "redundant") and, on a
+    # mesh, the unported bf16 wires (ROADMAP item 8h)
+    ({"impl": "pallas", "dtype": "float64", "precision": "bf16"},
+     "float64"),
+    ({"impl": "pallas_stage", "dtype": "float64", "precision": "bf16"},
+     "float64"),
+    ({"impl": "xla", "dtype": "bfloat16", "precision": "bf16"},
+     "bfloat16"),
+    ({"impl": "xla", "precision": "bf16", "mesh": True}, "bf16"),
     ({"impl": "xla", "steps_per_exchange": 2}, "mesh"),
 ])
 def test_unported_rungs_raise(kw, match):
     # steps_per_exchange without a mesh: the JAX package's construction
     # gate (a ValueError saying a mesh is needed) since meshes are ported
-    exc = ValueError if "steps_per_exchange" in kw else NotImplementedError
+    kw = dict(kw)
+    exc = (NotImplementedError if kw["impl"] == "auto" or kw.pop("mesh", 0)
+           else ValueError)
     with pytest.raises(exc, match=match):
-        _solver(**kw)
+        if exc is NotImplementedError and "precision" in kw:
+            mesh = pmesh.make_mesh({"dz": 2}, devices=[torch.device("cpu")]
+                                   * 2, timeout=60.0)
+            PSolver(PConfig(grid=PGrid.make(24, 16, 16), **kw), mesh=mesh)
+        else:
+            _solver(**kw)
 
 
 @pytest.mark.parametrize("parity", [True, False])
@@ -310,20 +326,23 @@ def test_float64_3d_dispatch_matches_jax(impl, bc, order, parity):
     """Float64 3-D diffusion under a fused flavor: where the JAX package's
     fused rung declines, the port runs what JAX runs (the generic path,
     as ``_pallas_f32_gate`` sends float64 off the per-axis kernels) with
-    JAX's reason; it raises only where that rung engages (float64
-    storage on the float32 kernels, not ported)."""
+    JAX's reason; where that rung engages (float64 storage on the float32
+    kernels), the port engages the same rung, with float32 buffers
+    (``storage_dtype``)."""
     kw = dict(impl=impl, bc=bc, order=order, reference_parity=parity,
               dtype="float64")
     grid = (24, 16, 16)
     for mode in ("iters", "t_end"):
         want = JSolver(JConfig(grid=JGrid.make(*grid), **kw)).engaged_path(
             mode)
-        if want["stepper"].startswith("fused"):
-            with pytest.raises(NotImplementedError, match="float64"):
-                PSolver(PConfig(grid=PGrid.make(*grid), **kw), device="cpu")
-            continue
         got = PSolver(PConfig(grid=PGrid.make(*grid), **kw),
                       device="cpu").engaged_path(mode)
+        assert got["storage_dtype"] == want["storage_dtype"]
+        if want["stepper"].startswith("fused") and mode == "t_end":
+            # the slab stepper has no run_to: both take K1, the port
+            # saying why (a recorded difference)
+            assert got["stepper"] == want["stepper"] == "fused-stage"
+            continue
         assert (got["stepper"], got["fallback"]) == (
             want["stepper"], want["fallback"])
 

@@ -8,7 +8,8 @@ two-shard mesh on one card, K8/K8b, the sharded 2-D stages, and K9's
 sharded instance, with the 2-D and ADR mesh runs, and K4, the sharded
 run of every shard of the card with the ghost rows moved inside the
 kernel, and the WENO7 instances of K3, K4, K2b, the sharded K5 and
-K8/K8b with their mesh runs — against their plain PyTorch twins on a
+K8/K8b with their mesh runs, and the bf16 instances of K1, K2, K6 and K9
+with float64 storage on K1/K2 — against their plain PyTorch twins on a
 GPU. Marked ``cuda``:
 it skips where no CUDA device is present.
 
@@ -1937,3 +1938,113 @@ def test_weno7_mesh_run_on_one_card_matches_unsharded(gpu7_mesh, n, sizes,
     assert {k: counters[k].launches for k in launches} == launches
     assert got.t == want.t
     assert torch.equal(got.u.assemble(), want.u)
+
+
+# --------------------------------------------------------------------- #
+# The bf16 instances of K1, K2, K6 (R = 3, 4) and K9, and float64
+# storage on K1/K2: each kernel against its twin (the float32 twin on the
+# upcast buffers, rounded to bf16 where the kernel rounds) to the bit
+# --------------------------------------------------------------------- #
+BF16 = torch.bfloat16
+
+
+def _bf16_padded(shape, bc, seed):
+    S = torch.full(tuple(n + 2 * fd.R for n in shape), fd.bf16_value(bc),
+                   dtype=BF16)
+    S[2:-2, 2:-2, 2:-2] = torch.from_numpy(np.random.default_rng(
+        seed).random(shape, dtype=np.float32)).to(BF16)
+    return S.cuda()
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bc", [((23, 29, 37), 0.1), ((8, 10, 12), 0.0)])
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+def test_k1_bf16_matches_twin(gpu, kind, shape, bc):
+    a, b = fd.STAGES[kind]
+    taps = fd.stage_taps((0.1, 0.12, 0.09), (1.0,) * 3)
+    v, u = _bf16_padded(shape, bc, kind), _bf16_padded(shape, bc, 9 + kind)
+    kw = dict(taps=taps, a=a, b=b, band=2, bc_value=bc)
+    got = (u if kind == 2 else v).clone()
+    want = got.clone()
+    uu = (None, u, None)[kind]
+    fd.upcast_twin(fd.stage_reference, v, want if kind == 2 else uu, want,
+                   1e-3, **kw)
+    fd.fused_stage_bf16(v, got if kind == 2 else uu, got, 1e-3, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 3])
+@pytest.mark.parametrize("shape,bc", [((23, 29, 37), 0.1), ((40, 70, 90), 0.0)])
+def test_k2_bf16_matches_twin(gpu, shape, bc, steps):
+    kw = dict(taps=fd.stage_taps((0.1, 0.12, 0.09), (1.0,) * 3), band=2,
+              bc_value=bc)
+    S = _bf16_padded(shape, bc, steps)
+    want = fsr.ping_pong(lambda s, d: fsr.rounded_step(
+        lambda x, y: fds.step_reference(x, y, 2e-4, **kw), s, d),
+        S.clone(), S.clone(), steps)
+    got = fsr.slab_run_diffusion_bf16(S.clone(), S.clone(), steps, 2e-4,
+                                      **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("order,nu", [(5, 0.0), (5, 1e-3), (7, 0.0),
+                                      (7, 1e-3)])
+def test_k6_bf16_matches_twin(gpu, order, nu, steps):
+    params = fb.stage_params(pflux.burgers(), "js", (0.05, 0.06, 0.07), nu,
+                             order)
+    S = torch.from_numpy(np.random.default_rng(order).random(
+        (20, 40, 50), dtype=np.float32)).to(BF16).cuda()
+    want = fsr.ping_pong(lambda s, d: fsr.rounded_step(
+        lambda x, y: fsr.burgers_step_reference(x, y, 5e-3, params=params),
+        s, d), S.clone(), S.clone(), steps)
+    got = fsr.slab_run_burgers_bf16(S.clone(), S.clone(), steps, 5e-3,
+                                    params=params)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [60, 64, 62, 61])
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+def test_k9_bf16_matches_twin(gpu, kind, nx):
+    """Every copy width: 16-, 8- and 4-byte and single-value copies."""
+    shape = (13, 19, nx)
+    st = fa.FusedADRStepper(shape, (0.1, 0.08, 0.12), 1.0, (0.5, -0.3, 0.2),
+                            0.25, 2e-4, 2, 0.1, "cuda", kappa_variation=0.2,
+                            dtype=BF16, storage_dtype=torch.float32)
+    a, b = fd.STAGES[kind]
+    v, u = _bf16_padded(shape, 0.1, kind), _bf16_padded(shape, 0.1, 7 + kind)
+    got = (u if kind == 2 else v).clone()
+    want = got.clone()
+    uu = (None, u, None)[kind]
+    launch = {}
+    fd.upcast_twin(fa.adr_stage_reference, v, want if kind == 2 else uu,
+                   want, 2e-4, a=a, b=b, **st.stage_kwargs())
+    fa.fused_adr_stage_bf16(v, got if kind == 2 else uu, got, 2e-4, a=a, b=b,
+                            launch=launch, **st.stage_kwargs())
+    torch.cuda.synchronize()
+    assert launch["copy_width"] == fa.copy_width(nx, 2)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas_stage", "pallas_slab"])
+def test_f64_storage_is_the_f32_kernel_run(gpu, impl):
+    grid = Grid.make(24, 16, 16, lengths=(10.0, 5.0, 5.15))
+    s64 = DiffusionSolver(DiffusionConfig(grid=grid, dtype="float64",
+                                          impl=impl))
+    s32 = DiffusionSolver(DiffusionConfig(grid=grid, impl=impl))
+    s0 = s64.initial_state()
+    got = s64.run(s0, 4)
+    want = s32.run(s0._replace(u=s0.u.float(), t=np.float32(s0.t)), 4)
+    assert got.u.dtype == torch.float64
+    assert torch.equal(got.u, want.u.double())

@@ -342,12 +342,22 @@ def test_slab_engagement_matches_jax(name):
 
 
 def test_bf16_storage_raises_where_jax_declines_to_the_per_stage_rung():
-    """JAX's ladder case for bf16 storage (``fused-stage``): the port
-    has no bf16 storage yet and says so at construction."""
-    grid = PGrid.make(*G3[0], lengths=G3[1])
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        PDSolver(PDConfig(grid=grid, dtype="bfloat16", impl="pallas"),
-                 device="cpu")
+    """JAX's ladder case for bf16 storage (``fused-stage``): the slab
+    declines ``dtype="bfloat16"`` to the per-stage rung, K1's bf16
+    instance, in the port as in the JAX package (it raised before that
+    instance was ported), with JAX's reason where the slab is pinned."""
+    for impl in ("pallas", "pallas_slab"):
+        got = PDSolver(PDConfig(grid=PGrid.make(*G3[0], lengths=G3[1]),
+                                dtype="bfloat16", impl=impl),
+                       device="cpu").engaged_path()
+        want = JDSolver(JDConfig(grid=JGrid.make(*G3[0], lengths=G3[1]),
+                                 dtype="bfloat16", impl=impl)).engaged_path()
+        assert (got["stepper"], got["storage_dtype"]) == (
+            "fused-stage", "bfloat16")
+        assert (want["stepper"], want["storage_dtype"]) == (
+            "fused-stage", "bfloat16")
+        if impl == "pallas_slab":
+            assert got["fallback"] == "bf16 storage rides the per-stage stepper"
 
 
 # interior (nz, ny, nx): (JAX diffusion, port diffusion, JAX Burgers,
