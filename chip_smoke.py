@@ -212,7 +212,7 @@ ignored ``build/`` directory), then:
    lengths 2, K = 1, ``run(1000)``, both shards on ``cuda:0``): K8
    serialized (6,000 launches) and K8b split (18,000), each 0 ulp from
    K7's unsharded ``run(1000)``, ``t`` equal, error norms against the
-   exact heat kernel; ms/step over ``run(200)`` beside K7's, MLUPS, one
+   exact heat kernel; ms/step over ``run(50)`` beside K7's, MLUPS, one
    exchange of both shards alone, the idle share of a profiled
    ``run(100)`` and the ``engaged_path()`` labels;
 35. drives ``MultiGPU/Burgers2d_Baseline`` on ``{"dy": 2}`` (400^2,
@@ -223,10 +223,10 @@ ignored ``build/`` directory), then:
    and ``advance_to(0.2)`` against the generic rung on the same mesh:
    the same steps and landing ``t``, ``u`` within the JAX suite's bound
    (``rtol 2e-5, atol 2e-6 max|u|``) at 0.2, before the shock, and its
-   gap at 0.4, past it, reported;
+   gap at 0.4, past it, reported; ms/step over ``run(50)``;
 36. ``{"dy": 2, "dx": 2}``, four shards on the card: both families at
    400^2, ``run(100)`` on K8 (12 launches a step), 0 ulp from K7's
-   unsharded run;
+   unsharded run; ms/step over ``run(25)``;
 37. ADR on meshes: bench.py's ``adr3d`` row on ``{"dz": 2}``,
    ``run(404)`` on K9's sharded instance (2,424 launches), 0 ulp and
    ``t`` equal to the unsharded K9 run, ms/step over ``run(100)``; and
@@ -308,8 +308,8 @@ ignored ``build/`` directory), then:
    drives ``burgers2d_weno7`` on ``{"dy": 2}`` (K8 and the split
    schedule's K8b, fixed and adaptive dt) and on ``{"dy": 2, "dx":
    2}`` (fixed and adaptive), ``run(200)``, each 0 ulp and ``t`` equal
-   to the unsharded K7/K7a run, with its launches, ms/step and K8's
-   time in the profiled run;
+   to the unsharded K7/K7a run, with its launches, ms/step (over
+   ``run(25)``) and K8's time in the profiled run;
 51. holds K1's bf16 instance (bf16 buffers, float32 arithmetic, one
    rounding a stage) against its twin to the bit, every stage kind, at
    the main path's shape and at the odd shape with a wall value bf16
@@ -347,7 +347,34 @@ ignored ``build/`` directory), then:
 56. one carried generic run (the diffusion grid, ``precision="bf16"``,
    ``impl="pallas_axis"``: the packed loop around K11, 303 launches),
    with the compensation carry and without it, each one's distance from
-   the float32 run reported (the carry's must be the smaller).
+   the float32 run reported (the carry's must be the smaller);
+57. holds the sharded bf16 instances against their twins to the bit:
+   K1 (every stage kind on both shards of the diffusion baseline, the
+   split roles with bf16 operands, an odd shard whose wall value bf16
+   rounds), K3 diffusion (every window, and the odd shard), K3 Burgers
+   at orders 5 and 7, K4 (every state and landing buffer; diffusion at
+   k = 1 and 4, Burgers at both orders) and K9 (every stage kind on both
+   shards of the ADR row); times each alone beside its bound (bf16
+   bytes at 2 B a value, or operations) and its twin;
+58. drives the diffusion baseline on ``{"dz": 2}`` under
+   ``precision="bf16"``, ``run(101)``: the sharded K1 (606 launches;
+   split 1,818), K3 (202), K4 (1) and ``dtype="bfloat16"`` on K1, each 0
+   ulp from its unsharded bf16 run, ``t`` equal; the halo bytes and K4's
+   in-kernel bytes half the float32 paths'; ms/step beside the float32
+   mesh paths;
+59. Burgers fixed dt on ``{"dz": 2}`` under ``precision="bf16"``,
+   ``run(40)``, order 5 at 400x200x206 and order 7 at 200x100x104: K3
+   (80 launches) and K4 (1) 0 ulp from the unsharded bf16 run (K6's
+   bf16 instance), K4 from the collective run too, u in range, K4's
+   bytes halved; ms/step beside the float32 paths;
+60. the ADR row on ``{"dz": 2}`` under ``precision="bf16"``,
+   ``run(404)``: the sharded K9 (2,424 launches), 0 ulp from the
+   unsharded bf16 run; ms/step beside the float32 mesh path;
+61. MultiGPU/Burgers3d_Baseline on ``{"dz": 2}`` under
+   ``precision="bf16"``, ``run(267)``: JAX's decline to the carried
+   per-axis loop (4,806 K12 launches), its halo bytes half the float32
+   per-axis path's, within the JAX package's bf16 band (2e-2 relative
+   L2) of the float32 K6 run.
 
 It prints the seconds the whole run took, a ``{"kernels": [...]}`` line
 and, last,
@@ -498,7 +525,11 @@ COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K1-bf16": fd.fused_stage_bf16,
             "K2-bf16": fsr.slab_run_diffusion_bf16,
             "K6-bf16": fsr.slab_run_burgers_bf16,
-            "K9-bf16": fa.fused_adr_stage_bf16}
+            "K9-bf16": fa.fused_adr_stage_bf16,
+            "K3-bf16": fsr.slab_step_diffusion_bf16,
+            "K3-burgers-bf16": fsr.slab_step_burgers_bf16,
+            "K4-bf16": fsr.slab_run_dma_diffusion_bf16,
+            "K4-burgers-bf16": fsr.slab_run_dma_burgers_bf16}
 
 
 def card_line() -> str:
@@ -2123,10 +2154,11 @@ def weno_ops(shape, flux: str, variant: str, order: int) -> int:
     return math.prod(shape) * (SPLIT_OPS[flux] + per_axis)
 
 
-def kernel_bound(in_elems: int, out_elems: int, ops: int):
+def kernel_bound(in_elems: int, out_elems: int, ops: int, size: int = 4):
     """The least time (ms) of one launch: its input read once and output
-    written once at the HBM rate, or its operations at the f32 rate."""
-    by_bytes = 4 * (in_elems + out_elems) / HBM_BYTES_PER_S
+    written once (``size`` bytes a value) at the HBM rate, or its
+    operations at the f32 rate."""
+    by_bytes = size * (in_elems + out_elems) / HBM_BYTES_PER_S
     by_ops = ops / F32_OPS_PER_S
     return 1e3 * max(by_bytes, by_ops), (
         "operations" if by_ops >= by_bytes else "bytes")
@@ -3303,12 +3335,14 @@ def k3_windows(lz: int, G: int):
 
 
 def k3_check(family: str, shape, step, step_ref, G: int, ring: int,
-             fill, card: str) -> dict:
+             fill, card: str, dtype=torch.float32,
+             timed: bool = True) -> dict:
     """K3 against its twin at a main shard's shape, every window of
     :func:`k3_windows` on the first and the last shard of two; times the
-    per-step window alone (K3) and its twin. ``step(S, out, **kw)`` /
-    ``step_ref`` take the window keywords; ``ring`` is the y/x ghost
-    width of the layout, ``fill`` the wall value of its ring (or None)."""
+    per-step window alone (K3) and its twin unless not ``timed``.
+    ``step(S, out, **kw)`` / ``step_ref`` take the window keywords;
+    ``ring`` is the y/x ghost width of the layout, ``fill`` the wall
+    value of its ring (or None); ``dtype`` the buffers'."""
     lz, ny, nx = shape
     gnz = MESH_SHARDS * lz
     rng = np.random.default_rng(28)
@@ -3317,7 +3351,7 @@ def k3_check(family: str, shape, step, step_ref, G: int, ring: int,
         for oz in (0, gnz - lz):
             pshape = (lz + 2 * depth, ny + 2 * ring, nx + 2 * ring)
             S = torch.from_numpy(rng.uniform(
-                -0.1, 1.0, pshape).astype(np.float32)).cuda()
+                -0.1, 1.0, pshape).astype(np.float32)).cuda().to(dtype)
             if fill is not None:
                 S[:, :ring] = S[:, -ring:] = fill
                 S[:, :, :ring] = S[:, :, -ring:] = fill
@@ -3335,8 +3369,11 @@ def k3_check(family: str, shape, step, step_ref, G: int, ring: int,
             n += 1
             del S, want, got, out0
     torch.cuda.empty_cache()
+    if not timed:
+        print(f"  K3 {family}: {n} windows 0 ulp")
+        return {"max_abs_err": err, "windows": n}
     pshape = (lz + 2 * G, ny + 2 * ring, nx + 2 * ring)
-    bufs = [torch.rand(pshape, device="cuda") for _ in range(3)]
+    bufs = [torch.rand(pshape, device="cuda").to(dtype) for _ in range(3)]
     kw = dict(global_nz=gnz, oz=0, depth=G, window=(0, lz))
     outs = torch.empty_like(bufs[0])
     ms = alone_ms(lambda S: step(S, outs, **kw), bufs, 5)
@@ -3605,13 +3642,16 @@ def mesh_phases(card: str) -> list[dict]:
 MESH2D_N = 400
 MESH2D_DIFF_ITERS = 1000
 MESH2D_BURGERS_ITERS = 200
-MESH2D_TIME_ITERS = 200  # the runs timed: run(200)
+# the runs timed: run(50) (run(200) before the script grew; the
+# host-bound paths' ms/step does not move with the depth)
+MESH2D_TIME_ITERS = 50
 MESH2D_T_END = 0.4
 # u held to the JAX suite's fused-against-generic bound before the
 # shock (t ~ 0.37, phase 10's note); at t_end the gap is reported
 MESH2D_T_CHECK = 0.2
 K8_ODD = (23, 37)  # an odd shard interior (ly, lx)
 PENCIL_ITERS = 100
+PENCIL_TIME_ITERS = 25  # the pencil runs timed: run(25)
 
 
 def k8_families(spacing) -> dict:
@@ -3971,7 +4011,8 @@ def pencil_phase(card: str) -> dict:
         state0 = solver.initial_state()
         runs[name] = mesh_run(f"{name} pencil", solver, one, state0, n,
                               {"K8": 12 * n},
-                              ("fused-stage", "serialized-refresh", 1), card)
+                              ("fused-stage", "serialized-refresh", 1), card,
+                              time_iters=PENCIL_TIME_ITERS)
         del solver, one, state0
         torch.cuda.empty_cache()
     return runs
@@ -4071,16 +4112,16 @@ K4_P4_N = (400, 200, 208)  # the P = 4 check: a z extent four divides
 
 
 def k4_buffers(P: int, lz: int, depth: int, ny: int, nx: int, ring: int,
-               seed: int):
+               seed: int, dtype=torch.float32):
     """Random shard buffers on the card for a K4 call: P state pairs
     (the y/x ghost ring at the wall value 0 where ``ring``) and landing
-    buffers, numpy-seeded."""
+    buffers, numpy-seeded, of ``dtype``."""
     rng = np.random.default_rng(seed)
     shape = (lz + 2 * depth, ny + 2 * ring, nx + 2 * ring)
 
     def rand(shape):
         return torch.from_numpy(rng.uniform(
-            -0.1, 1.0, shape).astype(np.float32)).cuda()
+            -0.1, 1.0, shape).astype(np.float32)).cuda().to(dtype)
 
     S0 = [rand(shape) for _ in range(P)]
     if ring:
@@ -4093,12 +4134,12 @@ def k4_buffers(P: int, lz: int, depth: int, ny: int, nx: int, ring: int,
 
 
 def k4_check(name, run, step_ref, P, lz, k, G, ny, nx, ring, steps,
-             seed) -> float:
+             seed, dtype=torch.float32) -> float:
     """K4 against its twin (``slab_run_dma_reference`` over K3's twin),
     every state and landing buffer 0 ulp after ``steps`` steps; returns
     the largest absolute difference."""
     depth = k * G
-    bufs = k4_buffers(P, lz, depth, ny, nx, ring, seed)
+    bufs = k4_buffers(P, lz, depth, ny, nx, ring, seed, dtype)
     got = [[t.clone() for t in ts] for ts in bufs]
     run(*got, steps, k)
     want = [[t.clone() for t in ts] for ts in bufs]
@@ -4118,11 +4159,11 @@ def k4_check(name, run, step_ref, P, lz, k, G, ny, nx, ring, steps,
 
 
 def k4_alone(name, run, step_ref, P, lz, G, ny, nx, ring, steps,
-             card) -> dict:
+             card, dtype=torch.float32) -> dict:
     """K4 alone at a main path's shard shapes, k = 1: ms a step of a
     ``run(steps)`` launch (median of 5 after a warm-up, CUDA events), the
     grid's blocks, and the twin's ms a step (one step)."""
-    bufs = k4_buffers(P, lz, G, ny, nx, ring, 38)
+    bufs = k4_buffers(P, lz, G, ny, nx, ring, 38, dtype)
     blocks = []
     run(*bufs, 1, 1, grid_blocks=blocks)
     ms = statistics.median(cuda_ms(lambda: run(*bufs, steps, 1), 5)) / steps
@@ -4144,7 +4185,8 @@ def dma_bytes(solver, iters: int) -> int:
     fused = solver._fused_stepper()
     blocks = -(-iters // fused.k)
     return (solver.mesh.size * 2 * fused.exchange_depth
-            * math.prod(fused.padded_shape[1:]) * 4 * blocks)
+            * math.prod(fused.padded_shape[1:]) * fused.dtype.itemsize
+            * blocks)
 
 
 def dma_path(name, solver, coll, one, state0, iters: int, expect: dict,
@@ -4852,7 +4894,7 @@ def weno7_phases(card: str) -> list[dict]:
 W7_MESH_ITERS = 40
 W7_MESH_TIME_ITERS = 20  # the runs timed: run(20)
 W7_2D_MESH_ITERS = 200
-W7_2D_MESH_TIME_ITERS = 100
+W7_2D_MESH_TIME_ITERS = 25  # run(100) before the script grew
 
 
 def k5_sharded_w7_phase(card: str) -> dict:
@@ -5853,6 +5895,557 @@ def precision_phases(card: str) -> list[dict]:
     return [k1b, k2b, k6b, k6b7, k9b]
 
 
+# --------------------------------------------------------------------- #
+# Phases 57-61: the storage-precision rungs on a z-slab mesh (two shards
+# on cuda:0): the sharded bf16 instances of K1 and K9, the bf16 instances
+# of K3 and K4, and the bf16 halo wires of the carried generic loop
+# --------------------------------------------------------------------- #
+# Burgers fixed dt on {"dz": 2} (MultiGPU/Burgers3d_Baseline's inviscid
+# WENO5-JS, CFL 0.3): at order 5 on the diffusion baseline's 400x200x206,
+# at order 7 on 200x100x104, the largest of the probed grids whose plane
+# the JAX package's order-7 bf16 slab takes (jax_bf16_slab_fits)
+BF16_MESH_B5_N = (400, 200, 206)
+BF16_MESH_B7_N = (200, 100, 104)
+BF16_MESH_B_ITERS = 40
+BF16_MESH_ADR_TIME_ITERS = 100
+
+
+def halo_bytes(solver, state0, iters: int) -> int:
+    """The halo bytes a ``run(iters)`` sends (the collective exchange's
+    count, summed over the shards)."""
+    from multigpu_advectiondiffusion_tpu_torch.parallel import halo as phalo
+
+    before = phalo.exchange_ghosts.bytes_per_execution.value
+    solver.run(state0, iters)
+    torch.cuda.synchronize()
+    return phalo.exchange_ghosts.bytes_per_execution.value - before
+
+
+def bf16_shard_twins(card: str) -> dict:
+    """Phase 57: the sharded bf16 instances against their twins to the
+    bit at the main paths' shard shapes: K1 (every stage kind on both
+    shards, the split roles with bf16 operands, an odd shard with a wall
+    value bf16 rounds), K3 diffusion (every window of ``k3_windows``, and
+    the odd shard), K3 Burgers at orders 5 and 7, K4 diffusion (k = 1 and
+    ``K4_DEEP``) and Burgers at both orders, every state and landing
+    buffer, and K9 (every stage kind on both shards); each alone beside
+    its bound (bf16 bytes at 2 B a value, or operations) and its twin."""
+    print("phase 57: the sharded bf16 instances against their twins")
+    res = {}
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    dt = DiffusionSolver(DiffusionConfig(grid=grid)).dt
+    taps = fd.stage_taps(grid.spacing, [1.0] * 3)
+    gshape = grid.shape
+    lz = gshape[0] // MESH_SHARDS
+    shape = (lz,) + gshape[1:]
+    # K1: every stage kind on both shards of the main path
+    k1 = {"err": 0.0, "ms": [], "plain_ms": [], "bound_ms": []}
+    for oz in (0, lz):
+        for kind, (a, b) in enumerate(fd.STAGES):
+            has_u = kind > 0
+            v = padded_random(shape, 0.0, 570 + kind).to(BF16)
+            u = padded_random(shape, 0.0, 575 + kind).to(BF16) \
+                if has_u else None
+            out = torch.zeros_like(v)
+            ref = out.clone()
+            kw = dict(taps=taps, a=a, b=b, band=2, bc_value=0.0,
+                      global_shape=gshape, offsets=(oz, 0, 0))
+            fd.upcast_twin(fd.stage_reference, v, u, ref, dt, **kw)
+            fd.fused_stage_bf16(v, u, out, dt, **kw)
+            torch.cuda.synchronize()
+            k1["err"] = max(k1["err"], exact(
+                f"K1 bf16 sharded stage {kind + 1}, shard z {oz}", out, ref))
+            if oz:
+                continue
+            buffers = [(v.clone(), None if u is None else u.clone(),
+                        out.clone()) for _ in range(ROTATE)]
+            k1["ms"].append(alone_ms(lambda bufs: fd.fused_stage_bf16(
+                bufs[0], bufs[1], bufs[2], dt, **kw), buffers, 21))
+            del buffers
+            k1["plain_ms"].append(statistics.median(cuda_ms(
+                lambda: fd.upcast_twin(fd.stage_reference, v, u, ref, dt,
+                                       **kw), 3)))
+            k1["bound_ms"].append(1e3 * max(
+                stage_bytes(shape, has_u) / 2 / HBM_BYTES_PER_S,
+                stage_ops(shape, has_u) / F32_OPS_PER_S))
+    # the split schedule's edge roles, their bf16 operands other data
+    bz = fd.Z_CHUNK
+    for window, side in (((0, bz), "lo"), ((lz - bz, lz), "hi")):
+        a, b = fd.STAGES[1]
+        v = padded_random(shape, 0.0, 580).to(BF16)
+        u = padded_random(shape, 0.0, 581).to(BF16)
+        opnd = v[:fd.R].flip(1).contiguous()
+        kw = dict(taps=taps, a=a, b=b, band=2, bc_value=0.0,
+                  global_shape=gshape, offsets=(lz, 0, 0), window=window)
+        out = torch.zeros_like(v)
+        ref = out.clone()
+        fd.upcast_twin(fd.stage_reference, v, u, ref, dt,
+                       **{side: opnd.float()}, **kw)
+        fd.fused_stage_bf16(v, u, out, dt, **{side: opnd}, **kw)
+        torch.cuda.synchronize()
+        k1["err"] = max(k1["err"], exact(
+            f"K1 bf16 split role {window} with its bf16 {side} operand",
+            out, ref))
+    # an odd shard whose wall value bf16 rounds
+    odd_g = (2 * ODD_SHAPE[0],) + ODD_SHAPE[1:]
+    for kind, (a, b) in enumerate(fd.STAGES):
+        v = padded_random(ODD_SHAPE, PREC_ODD_BC, 585 + kind).to(BF16)
+        u = v.flip(0).contiguous() if kind else None
+        out = torch.full_like(v, fd.bf16_value(PREC_ODD_BC))
+        ref = out.clone()
+        kw = dict(taps=taps, a=a, b=b, band=2, bc_value=PREC_ODD_BC,
+                  global_shape=odd_g, offsets=(ODD_SHAPE[0], 0, 0))
+        fd.upcast_twin(fd.stage_reference, v, u, ref, dt, **kw)
+        fd.fused_stage_bf16(v, u, out, dt, **kw)
+        torch.cuda.synchronize()
+        k1["err"] = max(k1["err"], exact(
+            f"K1 bf16 sharded stage {kind + 1} at the odd shard {ODD_SHAPE}"
+            f", wall {PREC_ODD_BC}", out, ref))
+    del v, u, out, ref, opnd
+    torch.cuda.empty_cache()
+    print(f"  K1 bf16 sharded alone (shard {shape}, mean of the stage "
+          f"kinds) {statistics.mean(k1['ms']):.4f} ms; twin "
+          f"{statistics.mean(k1['plain_ms']):.4f} ms; bound "
+          f"{statistics.mean(k1['bound_ms']):.4f} ms (bytes) [{card}]")
+    res["K1"] = k1
+
+    # K3 and K4, diffusion
+    G = fsr.SlabRunDiffusionStepper.halo
+    dkw = dict(taps=taps, band=2, bc_value=0.0)
+
+    def dstep(S, o, **kw):
+        return fsr.slab_step_diffusion_bf16(S, o, dt, **dkw, **kw)
+
+    def dref(S, o, **kw):
+        return fsr.rounded_window(fsr.slab_step_diffusion_reference, S, o,
+                                  dt=dt, **dkw, **kw)
+
+    res["K3"] = k3_check("diffusion bf16", shape, dstep, dref, G, fd.R,
+                         0.0, card, dtype=BF16)
+    okw = dict(taps=taps, band=2, bc_value=PREC_ODD_BC)
+    odd = k3_check(
+        f"diffusion bf16, wall {PREC_ODD_BC}", ODD_SHAPE,
+        lambda S, o, **kw: fsr.slab_step_diffusion_bf16(S, o, dt, **okw,
+                                                        **kw),
+        lambda S, o, **kw: fsr.rounded_window(
+            fsr.slab_step_diffusion_reference, S, o, dt=dt,
+            pad_value=fd.bf16_value(PREC_ODD_BC), **okw, **kw),
+        G, fd.R, PREC_ODD_BC, card, dtype=BF16, timed=False)
+    res["K3"]["max_abs_err"] = max(res["K3"]["max_abs_err"],
+                                   odd["max_abs_err"])
+
+    def drun(S0, S1, L, steps, k, **kw):
+        return fsr.slab_run_dma_diffusion_bf16(S0, S1, L, steps, dt, k=k,
+                                               **dkw, **kw)
+
+    def d4ref(S, out, gnz, oz, depth, window):
+        return dref(S, out, global_nz=gnz, oz=oz, depth=depth,
+                    window=window)
+
+    ny, nx = gshape[1:]
+    err4 = max(k4_check("diffusion bf16", drun, d4ref, MESH_SHARDS, lz, k,
+                        G, ny, nx, fd.R, steps, 570 + k, BF16)
+               for k, steps in ((1, 3), (K4_DEEP, 5)))
+    res["K4"] = k4_alone("diffusion bf16", drun, d4ref, MESH_SHARDS, lz, G,
+                         ny, nx, fd.R, ITERS, card, BF16)
+    res["K4"]["max_abs_err"] = err4
+
+    # K3 and K4, Burgers at both orders
+    for order, n_xyz in ((5, BF16_MESH_B5_N), (7, BF16_MESH_B7_N)):
+        bgrid = Grid.make(*n_xyz, lengths=2.0)
+        bsolver = BurgersSolver(BurgersConfig(
+            grid=bgrid, cfl=K6_CFL, adaptive_dt=False, weno_order=order))
+        params = fb.stage_params(bsolver.flux, "js", bgrid.spacing, 0.0,
+                                 order=order)
+        bdt = bsolver.dt
+        BG = 3 * params.r
+        blz = bgrid.shape[0] // MESH_SHARDS
+        bshape = (blz,) + bgrid.shape[1:]
+
+        def bstep(S, o, **kw):
+            return fsr.slab_step_burgers_bf16(S, o, bdt, params=params, **kw)
+
+        def bref(S, o, **kw):
+            return fsr.rounded_window(fsr.slab_step_burgers_reference, S, o,
+                                      dt=bdt, params=params, **kw)
+
+        k3b = k3_check(f"burgers bf16 order {order}", bshape, bstep, bref,
+                       BG, 0, None, card, dtype=BF16)
+
+        def brun(S0, S1, L, steps, k, **kw):
+            return fsr.slab_run_dma_burgers_bf16(S0, S1, L, steps, bdt,
+                                                 params=params, k=k, **kw)
+
+        def b4ref(S, out, gnz, oz, depth, window):
+            return bref(S, out, global_nz=gnz, oz=oz, depth=depth,
+                        window=window)
+
+        e4 = k4_check(f"burgers bf16 order {order}", brun, b4ref,
+                      MESH_SHARDS, blz, 1, BG, *bgrid.shape[1:], 0, 3,
+                      577 + order, BF16)
+        k4b = k4_alone(f"burgers bf16 order {order}", brun, b4ref,
+                       MESH_SHARDS, blz, BG, *bgrid.shape[1:], 0,
+                       MESH_TIME_ITERS, card, BF16)
+        k4b["max_abs_err"] = e4
+        ops = k6_step_ops(bshape, False, "js", order=order)
+        k3b["bound"] = kernel_bound((blz + 2 * BG) * math.prod(bshape[1:]),
+                                    math.prod(bshape), ops, size=2)
+        k4b["bound"] = run_bound(2 * bgrid.num_cells, k6_step_ops(
+            bgrid.shape, False, "js", order=order))
+        res[f"K3-burgers{order}"], res[f"K4-burgers{order}"] = k3b, k4b
+        torch.cuda.empty_cache()
+
+    # K9 on both shards of the ADR main path
+    spec = registry.get("adr")
+    agrid = Grid.make(*ADR_N, lengths=ADR_LENGTHS)
+    acfg = dataclasses.replace(spec.bench_build(agrid, "float32", "pallas",
+                                                None), precision="bf16")
+    asolver = spec.solver_cls(acfg, mesh=two_shards())
+    st = asolver._fused_stepper()
+    alz = agrid.shape[0] // MESH_SHARDS
+    ashape = (alz,) + agrid.shape[1:]
+    k9 = {"err": 0.0, "ms": [], "plain_ms": [], "bound_ms": []}
+    for oz in (0, alz):
+        skw = st.stage_kwargs(offsets=(oz, 0, 0))
+        for kind, (a, b) in enumerate(fd.STAGES):
+            has_u = kind > 0
+            v = padded_random(ashape, 0.0, 590 + kind).to(BF16)
+            u = padded_random(ashape, 0.0, 595 + kind).to(BF16) \
+                if has_u else None
+            out = torch.zeros_like(v)
+            ref = out.clone()
+            fd.upcast_twin(fa.adr_stage_reference, v, u, ref, st.dt, a=a,
+                           b=b, **skw)
+            fa.fused_adr_stage_bf16(v, u, out, st.dt, a=a, b=b, **skw)
+            torch.cuda.synchronize()
+            k9["err"] = max(k9["err"], exact(
+                f"K9 bf16 sharded stage {kind + 1}, shard z {oz}", out, ref))
+            if oz:
+                continue
+            buffers = [(v.clone(), None if u is None else u.clone(),
+                        out.clone()) for _ in range(ROTATE)]
+            k9["ms"].append(alone_ms(lambda bufs: fa.fused_adr_stage_bf16(
+                bufs[0], bufs[1], bufs[2], st.dt, a=a, b=b, **skw),
+                buffers, 21))
+            del buffers
+            k9["plain_ms"].append(statistics.median(cuda_ms(
+                lambda: fd.upcast_twin(fa.adr_stage_reference, v, u, ref,
+                                       st.dt, a=a, b=b, **skw), 3)))
+            cells = math.prod(ashape)
+            k9["bound_ms"].append(1e3 * max(
+                2 * cells * (3 if has_u else 2) / HBM_BYTES_PER_S,
+                k9_stage_ops(ashape, has_u, 0.2, 0.25, 3) / F32_OPS_PER_S))
+    del v, u, out, ref, asolver, st
+    torch.cuda.empty_cache()
+    print(f"  K9 bf16 sharded alone (shard {ashape}, mean of the stage "
+          f"kinds) {statistics.mean(k9['ms']):.4f} ms; twin "
+          f"{statistics.mean(k9['plain_ms']):.4f} ms; bound "
+          f"{statistics.mean(k9['bound_ms']):.4f} ms [{card}]")
+    res["K9"] = k9
+    return res
+
+
+def bf16_diffusion_mesh_paths(card: str) -> dict:
+    """Phase 58: MultiGPU/Diffusion3d_Baseline (400x200x206, ``run(101)``)
+    on ``{"dz": 2}`` under ``precision="bf16"``: the sharded K1 bf16
+    (serialized, 6 launches a step; split, 18), K3 bf16 (2 a step), K4
+    bf16 (1 a run) and ``dtype="bfloat16"`` on the sharded K1, each 0 ulp
+    from its unsharded bf16 run with ``t`` equal; the halo bytes of the
+    K1 path and K4's in-kernel bytes half the float32 paths'; ms/step of
+    each beside its float32 mesh path."""
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    print(f"phase 58: the diffusion baseline on {{'dz': 2}}, bf16 storage, "
+          f"run({ITERS}) at {grid.shape}")
+    base = DiffusionConfig(grid=grid, impl="pallas", precision="bf16")
+    mesh = two_shards()
+    runs = {}
+    for name, kw, plain, expect, label in (
+            ("K1 bf16 serialized", {}, "pallas_stage",
+             {"K1-bf16": 6 * ITERS},
+             ("fused-stage", "serialized-refresh", 1)),
+            ("K1 bf16 split", {"overlap": "split"}, "pallas_stage",
+             {"K1-bf16": 18 * ITERS}, ("fused-stage", "split", 1)),
+            ("K3 bf16", {"impl": "pallas_slab"}, "pallas_slab",
+             {"K3-bf16": 2 * ITERS},
+             ("fused-whole-run-slab", "serialized-refresh", 1)),
+            ("K1 dtype=bfloat16", {"dtype": "bfloat16", "precision":
+                                   "native"}, "pallas_stage",
+             {"K1-bf16": 6 * ITERS},
+             ("fused-stage", "serialized-refresh", 1))):
+        cfg = dataclasses.replace(base, **kw)
+        solver = DiffusionSolver(cfg, mesh=mesh)
+        plain_solver = DiffusionSolver(dataclasses.replace(cfg, impl=plain,
+                                                           overlap="padded"))
+        state0 = solver.initial_state()
+        runs[name] = mesh_run(name, solver, plain_solver, state0, ITERS,
+                              expect, label, card)
+        f32 = DiffusionSolver(dataclasses.replace(
+            cfg, precision="native", dtype="float32"), mesh=mesh)
+        f0 = f32.initial_state()
+        ms32, _ = run_ms(f32, f0, ITERS)
+        runs[name]["f32_ms_per_step"] = ms32 / ITERS
+        if name != "K1 dtype=bfloat16":
+            b16, b32 = halo_bytes(solver, state0, 2), halo_bytes(f32, f0, 2)
+            print(f"  {name}: halo bytes of run(2) {b16} (float32 {b32})")
+            if b16 * 2 != b32:
+                raise AssertionError(f"{name}: halo bytes {b16} not half "
+                                     f"of {b32}")
+            runs[name]["halo_bytes_run2"] = b16
+        print(f"  {name}: {runs[name]['ms_per_step']:.4f} ms/step; the "
+              f"float32 mesh path {ms32 / ITERS:.4f} [{card}]")
+        del solver, plain_solver, state0, f32, f0
+        torch.cuda.empty_cache()
+    one = DiffusionSolver(dataclasses.replace(base, impl="pallas_slab"))
+    coll = DiffusionSolver(dataclasses.replace(base, impl="pallas_slab"),
+                           mesh=mesh)
+    solver = DiffusionSolver(dataclasses.replace(base, impl="pallas_slab",
+                                                 exchange="dma"), mesh=mesh)
+    f32 = DiffusionSolver(dataclasses.replace(
+        base, impl="pallas_slab", exchange="dma", precision="native"),
+        mesh=mesh)
+    state0 = solver.initial_state()
+    runs["K4 bf16"] = dma_path("K4 bf16", solver, coll, one, state0, ITERS,
+                               {"K4-bf16": 1}, card, ITERS)
+    if 2 * dma_bytes(solver, ITERS) != dma_bytes(f32, ITERS):
+        raise AssertionError("K4 bf16 did not halve the in-kernel bytes")
+    ms32, _ = run_ms(f32, f32.initial_state(), ITERS)
+    runs["K4 bf16"]["f32_ms_per_step"] = ms32 / ITERS
+    print(f"  K4 bf16: in-kernel bytes {runs['K4 bf16']['dma_bytes']} "
+          f"(float32 {dma_bytes(f32, ITERS)}); the float32 mesh path "
+          f"{ms32 / ITERS:.4f} ms/step [{card}]")
+    del one, coll, solver, f32, state0
+    torch.cuda.empty_cache()
+    return runs
+
+
+def bf16_burgers_mesh_paths(card: str) -> dict:
+    """Phase 59: Burgers fixed dt on ``{"dz": 2}`` under
+    ``precision="bf16"`` at order 5 (400x200x206) and order 7
+    (200x100x104), ``run(BF16_MESH_B_ITERS)``: K3 bf16 (2 launches a
+    step) and K4 bf16 (1 a run), each 0 ulp from the unsharded bf16 run
+    (K6's bf16 instance) with ``t`` equal, K4 from the collective K3 run
+    too and its in-kernel bytes half the float32 path's; ms/step beside
+    the float32 mesh path."""
+    runs = {}
+    n = BF16_MESH_B_ITERS
+    mesh = two_shards()
+    for order, n_xyz in ((5, BF16_MESH_B5_N), (7, BF16_MESH_B7_N)):
+        bgrid = Grid.make(*n_xyz, lengths=2.0)
+        print(f"phase 59: Burgers {bgrid.shape} at order {order} on "
+              f"{{'dz': 2}}, fixed dt, precision=bf16, run({n})")
+        cfg = BurgersConfig(grid=bgrid, cfl=K6_CFL, adaptive_dt=False,
+                            weno_order=order, impl="pallas",
+                            precision="bf16")
+        one = BurgersSolver(cfg)
+        if one.engaged_path()["stepper"] != "fused-whole-run-slab":
+            raise AssertionError("the unsharded bf16 run is not K6's")
+        solver = BurgersSolver(cfg, mesh=mesh)
+        state0 = solver.initial_state()
+        key = f"K3 bf16 order {order}"
+        runs[key] = mesh_run(key, solver, one, state0, n,
+                             {"K3-burgers-bf16": 2 * n},
+                             ("fused-whole-run-slab", "serialized-refresh",
+                              1), card, check=lambda o: in_range(
+                                  f"{key} run({n})", o.u.assemble()))
+        f32 = BurgersSolver(dataclasses.replace(
+            cfg, precision="native", impl="pallas_slab"), mesh=mesh)
+        ms32, _ = run_ms(f32, f32.initial_state(), n)
+        runs[key]["f32_ms_per_step"] = ms32 / n
+        print(f"  {key}: the float32 K3 mesh path {ms32 / n:.4f} ms/step "
+              f"[{card}]")
+        dsolver = BurgersSolver(dataclasses.replace(cfg, exchange="dma"),
+                                mesh=mesh)
+        d32 = BurgersSolver(dataclasses.replace(
+            cfg, exchange="dma", precision="native", impl="pallas_slab"),
+            mesh=mesh)
+        key4 = f"K4 bf16 order {order}"
+        runs[key4] = dma_path(key4, dsolver, solver, one, state0, n,
+                              {"K4-burgers-bf16": 1}, card, n)
+        if 2 * dma_bytes(dsolver, n) != dma_bytes(d32, n):
+            raise AssertionError(f"{key4} did not halve the bytes")
+        ms32, _ = run_ms(d32, d32.initial_state(), n)
+        runs[key4]["f32_ms_per_step"] = ms32 / n
+        print(f"  {key4}: the float32 K4 mesh path {ms32 / n:.4f} ms/step "
+              f"[{card}]")
+        del one, solver, state0, f32, dsolver, d32
+        torch.cuda.empty_cache()
+    return runs
+
+
+def bf16_adr_mesh_path(card: str) -> dict:
+    """Phase 60: the ADR main path (508x204x160, ``run(404)``) on
+    ``{"dz": 2}`` under ``precision="bf16"``: the sharded K9 bf16, 6
+    launches a step, 0 ulp from the unsharded K9 bf16 run with ``t``
+    equal; ms/step beside the float32 mesh path."""
+    spec = registry.get("adr")
+    grid = Grid.make(*ADR_N, lengths=ADR_LENGTHS)
+    cfg = dataclasses.replace(spec.bench_build(grid, "float32", "pallas",
+                                               None), precision="bf16")
+    print(f"phase 60: ADR {grid.shape} on {{'dz': 2}}, precision=bf16, "
+          f"run({ADR_ITERS})")
+    mesh = two_shards()
+    solver = spec.solver_cls(cfg, mesh=mesh)
+    one = spec.solver_cls(cfg)
+    state0 = solver.initial_state()
+    res = mesh_run("K9 bf16 sharded", solver, one, state0, ADR_ITERS,
+                   {"K9-bf16": 6 * ADR_ITERS},
+                   ("fused-stage", "serialized-refresh", 1), card,
+                   time_iters=BF16_MESH_ADR_TIME_ITERS)
+    f32 = spec.solver_cls(dataclasses.replace(cfg, precision="native"),
+                          mesh=mesh)
+    n = BF16_MESH_ADR_TIME_ITERS
+    ms32, _ = run_ms(f32, f32.initial_state(), n)
+    res["f32_ms_per_step"] = ms32 / n
+    print(f"  K9 bf16 sharded: the float32 mesh path {ms32 / n:.4f} ms/step "
+          f"[{card}]")
+    del solver, one, state0, f32
+    torch.cuda.empty_cache()
+    return res
+
+
+def bf16_carried_mesh_phase(card: str) -> dict:
+    """Phase 61: MultiGPU/Burgers3d_Baseline (400x400x406, fixed dt,
+    ``run(267)``) on ``{"dz": 2}`` under ``precision="bf16"``: the JAX
+    package's decline (its bf16 slab gate) to the carried per-axis loop,
+    K12 18 launches a step, its ghosts on bf16 wires (half the float32
+    per-axis path's halo bytes), held within the JAX package's bf16 band
+    of the float32 run."""
+    grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    cfg = BurgersConfig(grid=grid, cfl=K6_CFL, adaptive_dt=False,
+                        impl="pallas", precision="bf16")
+    print(f"phase 61: MultiGPU/Burgers3d_Baseline on {{'dz': 2}}, "
+          f"precision=bf16, run({K6_ITERS}): the carried per-axis loop")
+    mesh = two_shards()
+    solver = BurgersSolver(cfg, mesh=mesh)
+    path = solver.engaged_path()
+    print(f"  engaged: {path}")
+    if path["stepper"] != "per-axis-pallas" or (
+            "the slab declined" not in path["fallback"]):
+        raise AssertionError(f"the bf16 baseline on a mesh did not take "
+                             f"JAX's decline: {path}")
+    state0 = solver.initial_state()
+    t0 = time.perf_counter()
+    out = drive("carried per-axis loop on {'dz': 2}", solver, state0,
+                K6_ITERS, {"K12": 18 * K6_ITERS})
+    seconds = time.perf_counter() - t0
+    ref = BurgersSolver(dataclasses.replace(
+        cfg, precision="native", impl="pallas_slab")).run(
+        one_state(solver, state0), K6_ITERS)
+    band = rel_l2(out.u.assemble(), ref.u)
+    del out, ref
+    ax32 = BurgersSolver(dataclasses.replace(cfg, precision="native",
+                                             impl="pallas_axis"), mesh=mesh)
+    b16 = halo_bytes(solver, state0, 2)
+    b32 = halo_bytes(ax32, ax32.initial_state(), 2)
+    print(f"  against the float32 K6 run({K6_ITERS}): relative L2 "
+          f"{band:.3e} (the band {BF16_BAND}); {seconds:.1f} s; halo bytes "
+          f"of run(2) {b16} (float32 per-axis {b32}) [{card}]")
+    if not band <= BF16_BAND:
+        raise AssertionError(f"the carried loop on a mesh left the band: "
+                             f"{band}")
+    if b16 * 2 != b32:
+        raise AssertionError(f"the bf16 wires moved {b16}, not half {b32}")
+    n = MESH_TIME_ITERS
+    ms, _ = run_ms(solver, state0, n)
+    ms32, _ = run_ms(ax32, ax32.initial_state(), n)
+    print(f"  run({n}): {ms / n:.4f} ms/step; the float32 per-axis mesh "
+          f"path {ms32 / n:.4f} [{card}]")
+    del solver, ax32, state0
+    torch.cuda.empty_cache()
+    return {"rel_l2_vs_f32": band, "seconds": seconds, "ms_per_step": ms / n,
+            "f32_ms_per_step": ms32 / n, "halo_bytes_run2": b16}
+
+
+def mesh_precision_phases(card: str) -> list[dict]:
+    """Phases 57-61; returns the entries of the sharded bf16 instances."""
+    twins = bf16_shard_twins(card)
+    torch.cuda.empty_cache()
+    dpaths = bf16_diffusion_mesh_paths(card)
+    bpaths = bf16_burgers_mesh_paths(card)
+    apath = bf16_adr_mesh_path(card)
+    carried = bf16_carried_mesh_phase(card)
+    grid = Grid.make(*REF_N, lengths=REF_LENGTHS)
+    lz = grid.shape[0] // MESH_SHARDS
+    dshape = (lz,) + grid.shape[1:]
+    G = fsr.SlabRunDiffusionStepper.halo
+    src = "multigpu_advectiondiffusion_tpu_torch/csrc/"
+    pallas = "multigpu_advectiondiffusion_tpu/ops/pallas/"
+    none = {"library_ms": None,
+            "library_call": "none: no single PyTorch call computes it"}
+    k1, k9 = twins["K1"], twins["K9"]
+    d3_bound = kernel_bound((lz + 2 * G) * math.prod(dshape[1:]),
+                            math.prod(dshape), 100 * math.prod(dshape),
+                            size=2)
+    d4_bound = run_bound(2 * grid.num_cells, 100 * grid.num_cells * ITERS)
+    entries = [{
+        "name": "fused_diffusion_stage_bf16 (sharded)",
+        "id": "K1-bf16-sharded", "route": "cuda",
+        "source": src + "fused_diffusion_stage.cu",
+        "replaces": pallas + "fused_diffusion.py:281",
+        "launches": 6 * ITERS, "max_abs_err": k1["err"], "max_ulps": 0,
+        "ms": statistics.mean(k1["ms"]),
+        "plain_ms": statistics.mean(k1["plain_ms"]),
+        "bound_ms": statistics.mean(k1["bound_ms"]), "bound_by": "bytes",
+        **none, "paths": {k: dpaths[k] for k in (
+            "K1 bf16 serialized", "K1 bf16 split", "K1 dtype=bfloat16")},
+    }, {
+        "name": "slab_step_diffusion_bf16", "id": "K3-bf16",
+        "route": "cuda", "source": src + "fused_step_diffusion.cu",
+        "replaces": pallas + "fused_slab_run.py:508",
+        "launches": 2 * ITERS, "max_abs_err": twins["K3"]["max_abs_err"],
+        "max_ulps": 0, "ms": twins["K3"]["ms"],
+        "plain_ms": twins["K3"]["plain_ms"], "bound_ms": d3_bound[0],
+        "bound_by": d3_bound[1], **none,
+        "paths": {"K3 bf16": dpaths["K3 bf16"]},
+    }, {
+        "name": "slab_run_dma_diffusion_bf16", "id": "K4-bf16",
+        "route": "cuda", "source": src + "fused_step_diffusion.cu",
+        "replaces": pallas + "fused_slab_run.py:327", "launches": 1,
+        "per": "step", "max_abs_err": twins["K4"]["max_abs_err"],
+        "max_ulps": 0, "ms": twins["K4"]["ms"],
+        "plain_ms": twins["K4"]["plain_ms"],
+        "bound_ms": d4_bound[0] / ITERS, "bound_by": d4_bound[1], **none,
+        "paths": {"K4 bf16": dpaths["K4 bf16"]},
+    }]
+    for order in (5, 7):
+        w7 = "-w7" if order == 7 else ""
+        k3b, k4b = twins[f"K3-burgers{order}"], twins[f"K4-burgers{order}"]
+        entries += [{
+            "name": f"slab_step_burgers_bf16{'_weno7' if w7 else ''}",
+            "id": f"K3-burgers-bf16{w7}", "route": "cuda",
+            "source": src + "slab_run_burgers.cu",
+            "replaces": pallas + "fused_slab_run.py:508",
+            "launches": 2 * BF16_MESH_B_ITERS,
+            "max_abs_err": k3b["max_abs_err"], "max_ulps": 0,
+            "ms": k3b["ms"], "plain_ms": k3b["plain_ms"],
+            "bound_ms": k3b["bound"][0], "bound_by": k3b["bound"][1],
+            **none, "paths": {f"K3 bf16 order {order}": bpaths[
+                f"K3 bf16 order {order}"]},
+        }, {
+            "name": f"slab_run_dma_burgers_bf16{'_weno7' if w7 else ''}",
+            "id": f"K4-burgers-bf16{w7}", "route": "cuda",
+            "source": src + "slab_run_burgers.cu",
+            "replaces": pallas + "fused_slab_run.py:327", "launches": 1,
+            "per": "step", "max_abs_err": k4b["max_abs_err"],
+            "max_ulps": 0, "ms": k4b["ms"], "plain_ms": k4b["plain_ms"],
+            "bound_ms": k4b["bound"][0], "bound_by": k4b["bound"][1],
+            **none, "paths": {f"K4 bf16 order {order}": bpaths[
+                f"K4 bf16 order {order}"]},
+        }]
+    entries.append({
+        "name": "fused_adr_stage_bf16 (sharded)", "id": "K9-bf16-sharded",
+        "route": "cuda", "source": src + "fused_adr_stage.cu",
+        "replaces": pallas + "fused_adr.py:342",
+        "launches": 6 * ADR_ITERS, "max_abs_err": k9["err"], "max_ulps": 0,
+        "ms": statistics.mean(k9["ms"]),
+        "plain_ms": statistics.mean(k9["plain_ms"]),
+        "bound_ms": statistics.mean(k9["bound_ms"]), "bound_by": "bytes",
+        **none, "paths": {"K9 bf16 sharded": apath},
+        "carried_generic_on_mesh": carried,
+    })
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6043,6 +6636,13 @@ def main() -> int:
     t_prec = time.perf_counter()
     prec = precision_phases(card)
     print(f"phases 51-56: {time.perf_counter() - t_prec:.1f} s")
+    torch.cuda.empty_cache()
+    print("phases 57-61: storage precision on a z-slab mesh (the sharded "
+          "bf16 instances of K1 and K9, the bf16 instances of K3 and K4, "
+          "the bf16 halo wires)")
+    t_mprec = time.perf_counter()
+    mprec = mesh_precision_phases(card)
+    print(f"phases 57-61: {time.perf_counter() - t_mprec:.1f} s")
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -6088,7 +6688,7 @@ def main() -> int:
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
     }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b,
-        *k3, *mesh2d, *k4, *w7, *w7m, *prec]
+        *k3, *mesh2d, *k4, *w7, *w7m, *prec, *mprec]
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the "
           f"{len(sources)} kernels' build included")
     print(f"card: {card}")

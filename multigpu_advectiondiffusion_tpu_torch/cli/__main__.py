@@ -281,6 +281,11 @@ _COUNTERS = {
     "K3 slab_step_burgers": fused_slab_run.slab_step_burgers,
     "K4 slab_run_dma_diffusion": fused_slab_run.slab_run_dma_diffusion,
     "K4 slab_run_dma_burgers": fused_slab_run.slab_run_dma_burgers,
+    "K3 slab_step_diffusion_bf16": fused_slab_run.slab_step_diffusion_bf16,
+    "K3 slab_step_burgers_bf16": fused_slab_run.slab_step_burgers_bf16,
+    "K4 slab_run_dma_diffusion_bf16":
+        fused_slab_run.slab_run_dma_diffusion_bf16,
+    "K4 slab_run_dma_burgers_bf16": fused_slab_run.slab_run_dma_burgers_bf16,
     "K11 laplacian_o4_3d": laplacian.laplacian_o4_3d,
     "K11b laplacian_o4_2d": laplacian.laplacian_o4_2d,
     "K12 weno_axis_3d": weno.flux_divergence_3d,

@@ -73,8 +73,9 @@
 //   stores with no mask.
 // - Stores go straight from registers, a warp on one row.
 //
-// bf16 storage (fused_adr_stage_bf16, unsharded; the TPU kernel's bf16
-// rung, fused_adr.py:140-148): the same kernel with the storage type T a
+// bf16 storage (fused_adr_stage_bf16, unsharded and sharded; the TPU
+// kernel's bf16 rung, fused_adr.py:140-148, :342-354): the same kernel,
+// SHARDED as for float, with the storage type T a
 // template parameter (storage.cuh). The rings hold bf16 planes, each value
 // upcast where it is read; the arithmetic is the float32 instance's, and
 // each written cell rounds to bf16 once, after the stage. A copy moves W
@@ -452,15 +453,16 @@ cudaError_t launch_width(int w, const Buffers<float>& d, Plan pl,
                 : launch_u<1, SHARDED>(d, pl, p, g, blocks_per_sm, s);
 }
 
-// The bf16 instance's widths: 8, 4, 2 or 1 values a copy.
+// The bf16 instances' widths: 8, 4, 2 or 1 values a copy.
+template <bool SHARDED>
 cudaError_t launch_width_bf16(int w, const Buffers<__nv_bfloat16>& d,
                               Plan pl, const Params& p, const Geometry& g,
                               int* blocks_per_sm, cudaStream_t s) {
   switch (w) {
-    case 8: return launch_u<8, false>(d, pl, p, g, blocks_per_sm, s);
-    case 4: return launch_u<4, false>(d, pl, p, g, blocks_per_sm, s);
-    case 2: return launch_u<2, false>(d, pl, p, g, blocks_per_sm, s);
-    default: return launch_u<1, false>(d, pl, p, g, blocks_per_sm, s);
+    case 8: return launch_u<8, SHARDED>(d, pl, p, g, blocks_per_sm, s);
+    case 4: return launch_u<4, SHARDED>(d, pl, p, g, blocks_per_sm, s);
+    case 2: return launch_u<2, SHARDED>(d, pl, p, g, blocks_per_sm, s);
+    default: return launch_u<1, SHARDED>(d, pl, p, g, blocks_per_sm, s);
   }
 }
 
@@ -546,13 +548,15 @@ extern "C" int fused_adr_stage(const float* v, const float* u, float* out,
   return (int)launch_width<true>(w, d, pl, p, g, blocks_per_sm, s);
 }
 
-// K9's bf16 instance: one unsharded stage on bf16 buffers (the padded
-// layout and arguments of fused_adr_stage, without the sharded geometry).
-// Loads upcast, the arithmetic is the float32 instance's, and each
-// written cell is rounded to bf16 once. `plan_out`, when not null,
-// receives the copies' width (bf16 values) and the resident blocks an
-// SM. Returns cudaGetLastError() after the launch (0 on success); does
-// not synchronise.
+// K9's bf16 instances: one stage on bf16 buffers (the padded layout and
+// arguments of fused_adr_stage, the sharded geometry too: null global3
+// and offset3 launch the unsharded instance, else the sharded one, the
+// TPU kernel's bf16 rung on a shard, fused_adr.py:342-354). Loads
+// upcast, the arithmetic is the float32 instance's, and each written
+// cell is rounded to bf16 once. `plan_out`, when not null, receives the
+// copies' width (bf16 values) and the resident blocks an SM. Returns
+// cudaGetLastError() after the launch (0 on success); does not
+// synchronise.
 extern "C" int fused_adr_stage_bf16(const void* v, const void* u, void* out,
                                     int nz, int ny, int nx,
                                     const float* taps, const float* cz,
@@ -560,8 +564,10 @@ extern "C" int fused_adr_stage_bf16(const void* v, const void* u, void* out,
                                     float k0, float eps, const float* adv,
                                     float lam, float dt, float a, float b,
                                     int band, float bc_value, int zchunk,
+                                    const int* global3, const int* offset3,
                                     int* plan_out, void* stream) {
   if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 ||
+      (global3 == nullptr) != (offset3 == nullptr) ||
       (long long)(nz + 2 * R) * (ny + 2 * R) * (nx + 2 * R) > (1LL << 40))
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -593,7 +599,15 @@ extern "C" int fused_adr_stage_bf16(const void* v, const void* u, void* out,
   const Buffers<bf16> d{static_cast<const bf16*>(v),
                         static_cast<const bf16*>(u), static_cast<bf16*>(out),
                         cz, cy, cx, nz, ny, nx};
-  return (int)launch_width_bf16(w, d, pl, p, Geometry{nz, ny, nx, 0, 0, 0},
-                                blocks_per_sm,
-                                static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (global3 == nullptr)
+    return (int)launch_width_bf16<false>(w, d, pl, p,
+                                         Geometry{nz, ny, nx, 0, 0, 0},
+                                         blocks_per_sm, s);
+  const Geometry g{global3[0], global3[1], global3[2],
+                   offset3[0], offset3[1], offset3[2]};
+  if (g.oz < 0 || g.oy < 0 || g.ox < 0 || g.oz + nz > g.gz ||
+      g.oy + ny > g.gy || g.ox + nx > g.gx)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_width_bf16<true>(w, d, pl, p, g, blocks_per_sm, s);
 }

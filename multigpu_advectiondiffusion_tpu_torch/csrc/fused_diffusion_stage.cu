@@ -91,9 +91,10 @@ __device__ __forceinline__ const T* plane(const T* v, const T* lo,
 // SHARDED and OPERANDS are compile-time so that the unsharded launch
 // (SHARDED false: local masks, every plane, no operands) carries none of
 // the sharded geometry's arithmetic or tests. T is the buffers' storage
-// type (storage.cuh): float, or __nv_bfloat16 for the bf16 instance
-// (unsharded only), whose loads upcast and whose one store a cell
-// rounds, the TPU kernel's bf16 rung (fused_diffusion.py:205-212, :269).
+// type (storage.cuh): float, or __nv_bfloat16 for the bf16 instances
+// (unsharded, sharded and with operands, as the float ones), whose loads
+// upcast and whose one store a cell rounds, the TPU kernel's bf16 rung
+// (fused_diffusion.py:205-212, :269, its sharded roles :281, :417-432).
 template <bool HAS_U, bool SHARDED, bool OPERANDS, typename T = float>
 __global__ void __launch_bounds__(BX * BY)
 stage_kernel(const T* __restrict__ v, const T* u, T* out,
@@ -189,25 +190,14 @@ void launch(const T* v, const T* u, T* out, const T* lo, const T* hi, int nz,
   }
 }
 
-}  // namespace
-
-// Launch one stage on `stream`. `u` is null for stage 1 and may equal
-// `out` (in-place stage 3). `taps` points to 15 host floats. `global3`
-// (gz, gy, gx) and `offset3` (oz, oy, ox) point to 3 host ints each: the
-// global interior shape and this block's offsets. Only the interior z
-// planes [k_begin, k_end) are written; `lo`/`hi`, when not null, hold the
-// R z-ghost planes below/above the block (the split schedule's exchanged
-// operands). A launch whose geometry is the whole unsharded state runs
-// the unsharded instance. Returns cudaGetLastError() after the launch (0
-// on success); does not synchronise.
-extern "C" int fused_diffusion_stage(const float* v, const float* u,
-                                     float* out, int nz, int ny, int nx,
-                                     const float* taps, float dt, float a,
-                                     float b, int band, float bc_value,
-                                     int zchunk, const int* global3,
-                                     const int* offset3, int k_begin,
-                                     int k_end, const float* lo,
-                                     const float* hi, void* stream) {
+// Launch the instance a launch needs: the operands' (split roles), the
+// sharded one, or the unsharded one for the whole unsharded state.
+template <typename T>
+int dispatch(const T* v, const T* u, T* out, int nz, int ny, int nx,
+             const float* taps, float dt, float a, float b, int band,
+             float bc_value, int zchunk, const int* global3,
+             const int* offset3, int k_begin, int k_end, const T* lo,
+             const T* hi, void* stream) {
   if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || k_begin < 0 ||
       k_end > nz || k_begin >= k_end)
     return (int)cudaErrorInvalidValue;
@@ -232,27 +222,49 @@ extern "C" int fused_diffusion_stage(const float* v, const float* u,
   return (int)cudaGetLastError();
 }
 
-// K1's bf16 instance: one unsharded stage on bf16 buffers (the padded
-// layout and arguments of fused_diffusion_stage, every interior plane
-// written). Loads upcast, the arithmetic is the float32 instance's, and
-// each written cell is rounded to bf16 once. Returns cudaGetLastError()
-// after the launch (0 on success); does not synchronise.
+}  // namespace
+
+// Launch one stage on `stream`. `u` is null for stage 1 and may equal
+// `out` (in-place stage 3). `taps` points to 15 host floats. `global3`
+// (gz, gy, gx) and `offset3` (oz, oy, ox) point to 3 host ints each: the
+// global interior shape and this block's offsets. Only the interior z
+// planes [k_begin, k_end) are written; `lo`/`hi`, when not null, hold the
+// R z-ghost planes below/above the block (the split schedule's exchanged
+// operands). A launch whose geometry is the whole unsharded state runs
+// the unsharded instance. Returns cudaGetLastError() after the launch (0
+// on success); does not synchronise.
+extern "C" int fused_diffusion_stage(const float* v, const float* u,
+                                     float* out, int nz, int ny, int nx,
+                                     const float* taps, float dt, float a,
+                                     float b, int band, float bc_value,
+                                     int zchunk, const int* global3,
+                                     const int* offset3, int k_begin,
+                                     int k_end, const float* lo,
+                                     const float* hi, void* stream) {
+  return dispatch(v, u, out, nz, ny, nx, taps, dt, a, b, band, bc_value,
+                  zchunk, global3, offset3, k_begin, k_end, lo, hi, stream);
+}
+
+// K1's bf16 instances: one stage on bf16 buffers, with the layout and
+// arguments of fused_diffusion_stage (the sharded geometry, the window and
+// the split roles' bf16 operands lo/hi too), each geometry its own
+// instance as there. Loads upcast, the arithmetic is the float32
+// instance's, and each written cell is rounded to bf16 once. Returns
+// cudaGetLastError() after the launch (0 on success); does not
+// synchronise.
 extern "C" int fused_diffusion_stage_bf16(const void* v, const void* u,
                                           void* out, int nz, int ny, int nx,
                                           const float* taps, float dt,
                                           float a, float b, int band,
                                           float bc_value, int zchunk,
-                                          void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1)
-    return (int)cudaErrorInvalidValue;
-  Taps t;
-  for (int q = 0; q < 15; ++q) t.c[q] = taps[q];
-  const Geometry g{nz, ny, nx, 0, 0, 0, 0, nz};
+                                          const int* global3,
+                                          const int* offset3, int k_begin,
+                                          int k_end, const void* lo,
+                                          const void* hi, void* stream) {
   using bf16 = __nv_bfloat16;
-  launch<false, false, bf16>(static_cast<const bf16*>(v),
-                             static_cast<const bf16*>(u),
-                             static_cast<bf16*>(out), nullptr, nullptr, nz,
-                             ny, nx, zchunk, g, t, dt, a, b, band, bc_value,
-                             static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return dispatch(static_cast<const bf16*>(v), static_cast<const bf16*>(u),
+                  static_cast<bf16*>(out), nz, ny, nx, taps, dt, a, b, band,
+                  bc_value, zchunk, global3, offset3, k_begin, k_end,
+                  static_cast<const bf16*>(lo), static_cast<const bf16*>(hi),
+                  stream);
 }

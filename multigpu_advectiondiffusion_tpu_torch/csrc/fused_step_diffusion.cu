@@ -11,9 +11,14 @@
 //   K4   slab_run_dma_kernel: every shard of a z-slab mesh on this card,
 //        a whole sharded run in ONE cooperative launch, the ghost rows
 //        moved inside the kernel (csrc/slab_dma.cuh);
-//   K2's bf16 instance (slab_run_diffusion_bf16): K2 on bf16 buffers,
-//        loads upcast into the float32 rings, one rounding a cell a
-//        step at the final store, 4 B a cell a step moved in place of 8.
+//   the bf16 instances of K2, K3 and K4 (slab_run_diffusion_bf16,
+//        slab_step_diffusion_bf16, slab_run_dma_diffusion_bf16): the same
+//        kernels on bf16 buffers (K3's exchanged operands and K4's
+//        landing buffers bf16 too), loads upcast into the float32 rings,
+//        one rounding a cell a step at the final store, 4 B a cell a step
+//        moved in place of 8. Planes outside the domain hold the wall
+//        value rounded to bf16, as the unsharded bf16 ghost ring does, so
+//        a sharded bf16 run is K2's bf16 run to the bit.
 //
 // Replaces the TPU kernels multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_diffusion_step.py::_step_kernel (:94, launched :214),
@@ -193,8 +198,8 @@ struct Args {
   // buffer row of global plane 0, the buffer's planes, its ghost rows a
   // side and the exchanged operands that stand in for them (or null)
   int z_lo, z_hi, row_off, pz, depth;
-  const float* lo;
-  const float* hi;
+  const void* lo;  // the buffers' storage type
+  const void* hi;
 };
 
 // The output window of a step and the buffer row of global plane 0.
@@ -211,15 +216,15 @@ __device__ __forceinline__ int slot(int plane) {
   return r < 0 ? r + RING : r;
 }
 
-// Buffer row `row` of S, from an exchanged operand where one stands in
-// (the float instances only: the bf16 instance has no operands).
+// Buffer row `row` of S, from an exchanged operand (of S's type) where
+// one stands in.
 template <typename T>
 __device__ __forceinline__ const T* plane_of(const T* S, const Args& p,
                                              int row, int P) {
   if (p.lo != nullptr && row < p.depth)
-    return reinterpret_cast<const T*>(p.lo) + row * P;
+    return static_cast<const T*>(p.lo) + row * P;
   if (p.hi != nullptr && row >= p.pz - p.depth)
-    return reinterpret_cast<const T*>(p.hi) + (row - (p.pz - p.depth)) * P;
+    return static_cast<const T*>(p.hi) + (row - (p.pz - p.depth)) * P;
   return S + row * P;
 }
 
@@ -466,9 +471,10 @@ __device__ void step_tile(const T* S, T* out, const Args& p, Window w,
 }
 
 // K10 and K3: one step, one job a block: job b is chunk b / tiles of
-// tile b % tiles.
+// tile b % tiles. T = __nv_bfloat16 is K3's bf16 instance.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-step_kernel(const float* S, float* out, const __grid_constant__ Args p) {
+step_kernel(const T* S, T* out, const __grid_constant__ Args p) {
   extern __shared__ float sm[];
   const int chunk = blockIdx.x / p.tiles;
   step_tile(S, out, p, window_of(p), blockIdx.x - chunk * p.tiles, chunk,
@@ -558,15 +564,46 @@ cudaError_t cooperative_blocks(const void* kernel, long long jobs,
   return *blocks < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
 
-cudaError_t launch_step(const float* S, float* out, const Args& p,
+template <typename T>
+cudaError_t launch_step(const T* S, T* out, const Args& p,
                         cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      (const void*)step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      (const void*)step_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  step_kernel<<<p.tiles * p.chunks, THREADS, SMEM_BYTES, stream>>>(S, out,
-                                                                    p);
+  step_kernel<T><<<p.tiles * p.chunks, THREADS, SMEM_BYTES, stream>>>(
+      S, out, p);
   return cudaGetLastError();
+}
+
+// K3 (T: the buffers' storage type): the arguments' checks and the
+// launch, `pad_value` the value of every plane outside the domain.
+template <typename T>
+int slab_step(const T* S, T* out, const T* lo, const T* hi, int pz,
+              int depth, int nz, int ny, int nx, int row_off, int z_lo,
+              int z_hi, const float* taps, float dt, int band,
+              float bc_value, float pad_value, int zchunk, void* stream) {
+  Args p;
+  cudaError_t e = make_args(p, nz, ny, nx, taps, dt, band, bc_value, zchunk);
+  // the buffer rows of the box's in-domain planes
+  const int first = (z_lo - 3 * R > 0 ? z_lo - 3 * R : 0) + row_off;
+  const int last = (z_hi + 3 * R < nz ? z_hi + 3 * R : nz) - 1 + row_off;
+  if (e == cudaSuccess &&
+      (z_lo >= z_hi || depth < 0 || 2 * depth > pz || first < 0 ||
+       last >= pz ||
+       (long long)pz * (ny + 2 * R) * (nx + 2 * R) > MAX_CELLS))
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  p.pad_value = pad_value;
+  p.z_lo = z_lo;
+  p.z_hi = z_hi;
+  p.row_off = row_off;
+  p.pz = pz;
+  p.depth = depth;
+  p.lo = lo;
+  p.hi = hi;
+  p.chunks = (z_hi - z_lo + zchunk - 1) / zchunk;
+  return (int)launch_step(S, out, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -600,26 +637,32 @@ extern "C" int slab_step_diffusion(const float* S, float* out,
                                    int row_off, int z_lo, int z_hi,
                                    const float* taps, float dt, int band,
                                    float bc_value, int zchunk, void* stream) {
-  Args p;
-  cudaError_t e = make_args(p, nz, ny, nx, taps, dt, band, bc_value, zchunk);
-  // the buffer rows of the box's in-domain planes
-  const int first = (z_lo - 3 * R > 0 ? z_lo - 3 * R : 0) + row_off;
-  const int last = (z_hi + 3 * R < nz ? z_hi + 3 * R : nz) - 1 + row_off;
-  if (e == cudaSuccess &&
-      (z_lo >= z_hi || depth < 0 || 2 * depth > pz || first < 0 ||
-       last >= pz ||
-       (long long)pz * (ny + 2 * R) * (nx + 2 * R) > MAX_CELLS))
-    e = cudaErrorInvalidValue;
-  if (e != cudaSuccess) return (int)e;
-  p.z_lo = z_lo;
-  p.z_hi = z_hi;
-  p.row_off = row_off;
-  p.pz = pz;
-  p.depth = depth;
-  p.lo = lo;
-  p.hi = hi;
-  p.chunks = (z_hi - z_lo + zchunk - 1) / zchunk;
-  return (int)launch_step(S, out, p, static_cast<cudaStream_t>(stream));
+  return slab_step(S, out, lo, hi, pz, depth, nz, ny, nx, row_off, z_lo,
+                   z_hi, taps, dt, band, bc_value, bc_value, zchunk, stream);
+}
+
+// K3's bf16 instance: slab_step_diffusion on bf16 buffers and bf16
+// operands lo/hi (the split schedule's exchanged slabs). Each S plane
+// upcasts as it lands in the float32 rings (the shared-memory budget
+// does not move), the three stages run in float32, and each output cell
+// is rounded to bf16 once, the TPU rung's rounding point
+// (fused_slab_run.py:1345-1354), so a window is K2's bf16 step to the
+// bit. `pad_value` is what every plane outside the global domain holds:
+// the wall value rounded to bf16, as the unsharded buffer's ghost ring.
+// Returns the first CUDA error (0 on success); does not synchronise.
+extern "C" int slab_step_diffusion_bf16(const void* S, void* out,
+                                        const void* lo, const void* hi,
+                                        int pz, int depth, int nz, int ny,
+                                        int nx, int row_off, int z_lo,
+                                        int z_hi, const float* taps,
+                                        float dt, int band, float bc_value,
+                                        float pad_value, int zchunk,
+                                        void* stream) {
+  using bf16 = __nv_bfloat16;
+  return slab_step(static_cast<const bf16*>(S), static_cast<bf16*>(out),
+                   static_cast<const bf16*>(lo), static_cast<const bf16*>(hi),
+                   pz, depth, nz, ny, nx, row_off, z_lo, z_hi, taps, dt, band,
+                   bc_value, pad_value, zchunk, stream);
 }
 
 // K2 (members == 1) and K2b: n_iters fused steps of `members` independent
@@ -709,9 +752,11 @@ namespace {
 // K4: n_iters steps of every shard in sh, k steps a block (G = 3R).
 // p carries the global shape, the physics and the tiling; each job's
 // window and rows are set here. Step j of a block has the (chunk, shard,
-// tile) jobs of the windows [oz - w, oz + lz + w), w = (k-1-j)G.
+// tile) jobs of the windows [oz - w, oz + lz + w), w = (k-1-j)G. T =
+// __nv_bfloat16 is K4's bf16 instance (bf16 state and landing buffers).
+template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-slab_run_dma_kernel(DmaShards sh, const __grid_constant__ Args p, int lz,
+slab_run_dma_kernel(DmaShards<T> sh, const __grid_constant__ Args p, int lz,
                     int k, int n_iters, int* counters) {
   extern __shared__ float sm[];
   __shared__ int claimed;
@@ -739,6 +784,55 @@ slab_run_dma_kernel(DmaShards sh, const __grid_constant__ Args p, int lz,
   }
 }
 
+// K4 (T: the buffers' storage type): the arguments' checks and the
+// cooperative launch, `pad_value` the value of every plane outside the
+// domain.
+template <typename T>
+int slab_run_dma(T* const* s0, T* const* s1, T* const* land, int shards,
+                 int lz, int k, int ny, int nx, const float* taps, float dt,
+                 int band, float bc_value, float pad_value, int zchunk,
+                 int n_iters, int* counters, int* grid_blocks,
+                 void* stream) {
+  if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
+      lz < k * 3 * R || counters == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args p;
+  cudaError_t e = make_args(p, shards * lz, ny, nx, taps, dt, band, bc_value,
+                            zchunk);
+  const int depth = k * 3 * R;
+  const int pz = lz + 2 * depth;
+  if (e == cudaSuccess &&
+      (long long)pz * (ny + 2 * R) * (nx + 2 * R) > MAX_CELLS)
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  p.pad_value = pad_value;
+  DmaShards<T> sh;
+  for (int i = 0; i < shards; ++i) {
+    sh.s0[i] = s0[i];
+    sh.s1[i] = s1[i];
+    sh.land[i] = land[i];
+  }
+  sh.n = shards;
+  sh.pz = pz;
+  sh.depth = depth;
+  sh.plane = (long long)(ny + 2 * R) * (nx + 2 * R);
+  p.pz = pz;
+  p.depth = depth;
+  // the widest step (j = 0) has the most jobs
+  const long long jobs = (long long)shards * p.tiles *
+                         ((lz + 2 * depth - 6 * R + zchunk - 1) / zchunk);
+  int blocks = 0;
+  e = cooperative_blocks((const void*)slab_run_dma_kernel<T>, jobs, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  if (grid_blocks != nullptr) *grid_blocks = blocks;
+  void* args[] = {&sh, &p, &lz, &k, &n_iters, &counters};
+  e = cudaLaunchCooperativeKernel((const void*)slab_run_dma_kernel<T>,
+                                  blocks, THREADS, args, SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K4: n_iters fused steps of the `shards` z-slab shards of a mesh, all on
@@ -762,41 +856,27 @@ extern "C" int slab_run_dma_diffusion(float* const* s0, float* const* s1,
                                       float bc_value, int zchunk, int n_iters,
                                       int* counters, int* grid_blocks,
                                       void* stream) {
-  if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
-      lz < k * 3 * R || counters == nullptr)
-    return (int)cudaErrorInvalidValue;
-  Args p;
-  cudaError_t e = make_args(p, shards * lz, ny, nx, taps, dt, band, bc_value,
-                            zchunk);
-  const int depth = k * 3 * R;
-  const int pz = lz + 2 * depth;
-  if (e == cudaSuccess &&
-      (long long)pz * (ny + 2 * R) * (nx + 2 * R) > MAX_CELLS)
-    e = cudaErrorInvalidValue;
-  if (e != cudaSuccess) return (int)e;
-  DmaShards sh;
-  for (int i = 0; i < shards; ++i) {
-    sh.s0[i] = s0[i];
-    sh.s1[i] = s1[i];
-    sh.land[i] = land[i];
-  }
-  sh.n = shards;
-  sh.pz = pz;
-  sh.depth = depth;
-  sh.plane = (long long)(ny + 2 * R) * (nx + 2 * R);
-  p.pz = pz;
-  p.depth = depth;
-  // the widest step (j = 0) has the most jobs
-  const long long jobs = (long long)shards * p.tiles *
-                         ((lz + 2 * depth - 6 * R + zchunk - 1) / zchunk);
-  int blocks = 0;
-  e = cooperative_blocks((const void*)slab_run_dma_kernel, jobs, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  if (grid_blocks != nullptr) *grid_blocks = blocks;
-  void* args[] = {&sh, &p, &lz, &k, &n_iters, &counters};
-  e = cudaLaunchCooperativeKernel((const void*)slab_run_dma_kernel, blocks,
-                                  THREADS, args, SMEM_BYTES,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return slab_run_dma(s0, s1, land, shards, lz, k, ny, nx, taps, dt, band,
+                      bc_value, bc_value, zchunk, n_iters, counters,
+                      grid_blocks, stream);
+}
+
+// K4's bf16 instance: slab_run_dma_diffusion on bf16 state buffers and
+// bf16 landing buffers (2, 2, depth, ny+4, nx+4), so the in-kernel
+// exchange moves half the bytes; each step is K3's bf16 step (float32
+// rings, one rounding a cell a step), so a run is the collective bf16 K3
+// run and K2's bf16 run to the bit. `pad_value` is as in
+// slab_step_diffusion_bf16. Returns the first CUDA error (0 on success);
+// does not synchronise.
+extern "C" int slab_run_dma_diffusion_bf16(
+    void* const* s0, void* const* s1, void* const* land, int shards, int lz,
+    int k, int ny, int nx, const float* taps, float dt, int band,
+    float bc_value, float pad_value, int zchunk, int n_iters, int* counters,
+    int* grid_blocks, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return slab_run_dma(reinterpret_cast<bf16* const*>(s0),
+                      reinterpret_cast<bf16* const*>(s1),
+                      reinterpret_cast<bf16* const*>(land), shards, lz, k, ny,
+                      nx, taps, dt, band, bc_value, pad_value, zchunk,
+                      n_iters, counters, grid_blocks, stream);
 }

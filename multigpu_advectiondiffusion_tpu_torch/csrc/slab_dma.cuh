@@ -15,7 +15,7 @@
 //
 // The data contract is the TPU kernel's. Shard i of n holds its lz core
 // planes between depth = k*G ghost planes a side, two state buffers
-// (pz = lz + 2 depth planes of `plane` floats each) and a landing buffer
+// (pz = lz + 2 depth planes of `plane` values each) and a landing buffer
 // (2 slots, 2 sides, depth planes). At the start of block b (k steps a
 // block), with the read parity's buffers:
 //
@@ -32,10 +32,15 @@
 //           as the wall value (diffusion) or never reads (Burgers clamps);
 //   grid.sync().
 //
-// Each phase moves 2 n depth plane floats, window by window, a
-// grid-stride loop with neighbouring threads on neighbouring addresses
-// (no division an element). No pointer is __restrict__: the state was
-// written by other blocks in this launch.
+// Each phase moves 2 n depth planes, window by window, a grid-stride
+// loop with neighbouring threads on neighbouring addresses (no division
+// an element). No pointer is __restrict__: the state was written by other
+// blocks in this launch.
+//
+// T is the buffers' storage type (storage.cuh): float, or __nv_bfloat16
+// for the bf16 instances of K4, whose state and landing buffers are both
+// bf16 (the TPU kernel's landing buffer has the state's dtype), so the
+// exchange moves half the bytes. A copy moves the values' bits.
 
 #pragma once
 
@@ -45,36 +50,41 @@
 constexpr int DMA_MAX_SHARDS = 64;
 
 // The shards of a z-slab mesh on this card, in z order.
+template <typename T>
 struct DmaShards {
-  float* s0[DMA_MAX_SHARDS];    // state buffer of even steps' reads
-  float* s1[DMA_MAX_SHARDS];    // ... and of odd steps'
-  float* land[DMA_MAX_SHARDS];  // (2 slots, 2 sides, depth, plane)
-  int n;                        // shards
-  int pz, depth;                // buffer planes, ghost planes a side
-  long long plane;              // floats a plane
+  T* s0[DMA_MAX_SHARDS];    // state buffer of even steps' reads
+  T* s1[DMA_MAX_SHARDS];    // ... and of odd steps'
+  T* land[DMA_MAX_SHARDS];  // (2 slots, 2 sides, depth, plane)
+  int n;                    // shards
+  int pz, depth;            // buffer planes, ghost planes a side
+  long long plane;          // values a plane
 };
 
-__device__ __forceinline__ float* dma_state(const DmaShards& sh, int par,
-                                            int i) {
+template <typename T>
+__device__ __forceinline__ T* dma_state(const DmaShards<T>& sh, int par,
+                                        int i) {
   return par ? sh.s1[i] : sh.s0[i];
 }
 
 // The push and the splice of block b, reading parity `par`: one window
-// (shard, side) after another, each a grid-stride copy, four floats a
-// thread at a time where a plane is a multiple of four floats (so every
-// window starts 16-byte aligned in buffers that are).
-__device__ void dma_exchange(const DmaShards& sh, int par, int b,
+// (shard, side) after another, each a grid-stride copy, 16 bytes a
+// thread at a time (four floats, eight bf16 values) where a plane is a
+// multiple of 16 bytes (so every window starts 16-byte aligned in
+// buffers that are).
+template <typename T>
+__device__ void dma_exchange(const DmaShards<T>& sh, int par, int b,
                              cooperative_groups::grid_group& grid) {
+  constexpr int PER16 = 16 / sizeof(T);  // values in 16 bytes
   const long long win = (long long)sh.depth * sh.plane;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const int slot = b & 1;
-  const bool vec = sh.plane % 4 == 0;
+  const bool vec = sh.plane % PER16 == 0;
   for (int pass = 0; pass < 2; ++pass) {
     for (int w = 0; w < 2 * sh.n; ++w) {
       const int i = w >> 1, side = w & 1;
-      float* dst;
-      const float* src;
+      T* dst;
+      const T* src;
       if (pass == 0) {  // push my core edge window to the neighbour
         const int to = side == 0 ? (i + 1) % sh.n : (i + sh.n - 1) % sh.n;
         const long long row = side == 0 ? sh.pz - 2 * sh.depth : sh.depth;
@@ -87,9 +97,10 @@ __device__ void dma_exchange(const DmaShards& sh, int par, int b,
         src = sh.land[i] + (2 * slot + side) * win;
       }
       if (vec) {
-        float4* d4 = reinterpret_cast<float4*>(dst);
-        const float4* s4 = reinterpret_cast<const float4*>(src);
-        for (long long q = first; q < win / 4; q += stride) d4[q] = s4[q];
+        uint4* d4 = reinterpret_cast<uint4*>(dst);
+        const uint4* s4 = reinterpret_cast<const uint4*>(src);
+        for (long long q = first; q < win / PER16; q += stride)
+          d4[q] = s4[q];
       } else {
         for (long long q = first; q < win; q += stride) dst[q] = src[q];
       }

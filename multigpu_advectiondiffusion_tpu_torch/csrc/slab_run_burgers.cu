@@ -136,13 +136,16 @@
 // so all the shards' or members' jobs of a step run in one grid whatever
 // their number.
 //
-// bf16 storage (K6's bf16 instance, slab_run_burgers_bf16, at either
-// order): the same step_tile on bf16 buffers, the storage type a template
-// parameter (storage.cuh). Only the global loads (S planes, the a*u
-// terms) and the final store change: the rings, splits and faces stay
-// float32, and each output cell rounds to bf16 once a step. The source
-// built with -DK6_BF16 holds that entry alone, so its build runs beside
-// the float32 one's instead of lengthening it.
+// bf16 storage (the bf16 instances of K6, K3 and K4:
+// slab_run_burgers_bf16, slab_step_burgers_bf16, slab_run_dma_burgers_bf16,
+// at either order): the same step_tile on bf16 buffers, the storage type
+// a template parameter (storage.cuh); K3's exchanged operands and K4's
+// landing buffers are bf16 too, so their exchange moves half the bytes.
+// Only the global loads (S planes, the a*u terms) and the final store
+// change: the rings, splits and faces stay float32, and each output cell
+// rounds to bf16 once a step. The source built with -DK6_BF16 holds those
+// entries alone, so its build runs beside the float32 one's instead of
+// lengthening it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -208,19 +211,19 @@ struct Args {
   // buffer row of global plane 0, the buffer's planes, its ghost rows a
   // side and the exchanged operands that stand in for them (or null)
   int z_lo, z_hi, row_off, pz, depth;
-  const float* lo;
-  const float* hi;
+  const void* lo;  // the buffers' storage type
+  const void* hi;
 };
 
-// Buffer row `row` of S, from an exchanged operand where one stands in
-// (the float instances only: the bf16 instance has no operands).
+// Buffer row `row` of S, from an exchanged operand (of S's type) where
+// one stands in.
 template <typename T>
 __device__ __forceinline__ const T* plane_of(const T* S, const Args& p,
                                              int row, int P) {
   if (p.lo != nullptr && row < p.depth)
-    return reinterpret_cast<const T*>(p.lo) + row * P;
+    return static_cast<const T*>(p.lo) + row * P;
   if (p.hi != nullptr && row >= p.pz - p.depth)
-    return reinterpret_cast<const T*>(p.hi) + (row - (p.pz - p.depth)) * P;
+    return static_cast<const T*>(p.hi) + (row - (p.pz - p.depth)) * P;
   return S + row * P;
 }
 
@@ -499,10 +502,11 @@ __device__ void step_tile(const Store* S, Store* out, const Args& p,
 }
 
 // K3: one step on one job a block, S -> out (the host swaps); job b is
-// chunk b / tiles of tile b % tiles.
-template <int R, int FLUX, bool WZ>
+// chunk b / tiles of tile b % tiles. Store = __nv_bfloat16 is K3's bf16
+// instance.
+template <int R, int FLUX, bool WZ, typename Store>
 __global__ void __launch_bounds__(THREADS, 1)
-step_kernel(const float* S, float* out, Args p) {
+step_kernel(const Store* S, Store* out, Args p) {
   extern __shared__ float sm[];
   const int chunk = blockIdx.x / p.tiles;
   step_tile<R, FLUX, WZ>(S, out, p, window_of(p),
@@ -676,7 +680,7 @@ extern "C" int slab_run_burgers(float* S0, float* S1, int members, int nz,
 }
 
 #else
-// K6's bf16 instance (this source built with -DK6_BF16, alone): n_iters
+// K6's bf16 instance (this source built with -DK6_BF16): n_iters
 // fixed-dt steps of one (nz, ny, nx) bf16 state in ONE cooperative
 // launch, as slab_run_burgers at members == 1. Each S plane upcasts as it
 // lands in the float32 ring (so the shared-memory budget, 223,488 B at
@@ -698,13 +702,12 @@ extern "C" int slab_run_burgers_bf16(void* S0, void* S1, int nz, int ny,
 }
 #endif  // K6_BF16
 
-#ifndef K6_BF16
 namespace {
 
-template <int R, int FLUX, bool WZ>
-cudaError_t launch_step(const float* S, float* out, const Args& p,
+template <int R, int FLUX, bool WZ, typename Store>
+cudaError_t launch_step(const Store* S, Store* out, const Args& p,
                         cudaStream_t s) {
-  auto* kernel = step_kernel<R, FLUX, WZ>;
+  auto* kernel = step_kernel<R, FLUX, WZ, Store>;
   const cudaError_t e = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES<R>);
@@ -713,24 +716,14 @@ cudaError_t launch_step(const float* S, float* out, const Args& p,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// K3, Burgers: one fixed-dt step over the output window [z_lo, z_hi)
-// (global planes) of a shard's buffer S -> out, on `stream`. The buffers
-// are (pz, ny, nx) with `depth` ghost planes a side; global plane g lies
-// at buffer row g + row_off; nz is the global plane count. `lo`/`hi`,
-// when not null, are (depth, ny, nx) and stand in for the buffer's first
-// and last depth rows. Every in-domain plane of the input box (the window
-// and G = 3R planes a side: 9 at order 5, 12 at order 7) must lie in the
-// buffer. The flux, order and physics arguments are slab_run_burgers's.
-// Returns the first CUDA error (0 on success); does not synchronise.
-extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
-                                 const float* hi, int pz, int depth, int nz,
-                                 int ny, int nx, int row_off, int z_lo,
-                                 int z_hi, int flux, float c, int weno_z,
-                                 int order, const float* inv_dx,
-                                 const float* lap, float dt, int zchunk,
-                                 void* stream) {
+// K3 (Store: the buffers' storage type): the arguments' checks and the
+// launch.
+template <typename Store>
+int slab_step(const Store* S, Store* out, const Store* lo, const Store* hi,
+              int pz, int depth, int nz, int ny, int nx, int row_off,
+              int z_lo, int z_hi, int flux, float c, int weno_z, int order,
+              const float* inv_dx, const float* lap, float dt, int zchunk,
+              void* stream) {
   if (!valid_scheme(flux, order, weno_z)) return (int)cudaErrorInvalidValue;
   const int G = 3 * reach_of(order);
   // the buffer rows of the box's in-domain planes
@@ -757,16 +750,15 @@ extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
   });
 }
 
-namespace {
-
 // K4, Burgers: n_iters steps of every shard in sh, k steps a block (G =
 // 3R: 9 at order 5, 12 at order 7). p carries the global shape, the
 // physics and the tiling; each job's window and rows are set here. Step j
 // of a block has the (chunk, shard, tile) jobs of the windows [oz - w,
-// oz + lz + w), w = (k-1-j)G.
-template <int R, int FLUX, bool WZ>
+// oz + lz + w), w = (k-1-j)G. Store = __nv_bfloat16 is K4's bf16
+// instance (bf16 state and landing buffers).
+template <int R, int FLUX, bool WZ, typename Store>
 __global__ void __launch_bounds__(THREADS, 1)
-slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
+slab_run_dma_kernel(DmaShards<Store> sh, Args p, int lz, int k, int n_iters,
                     int* counters) {
   extern __shared__ float sm[];
   __shared__ int claimed;
@@ -795,11 +787,11 @@ slab_run_dma_kernel(DmaShards sh, Args p, int lz, int k, int n_iters,
   }
 }
 
-template <int R, int FLUX, bool WZ>
-cudaError_t launch_dma(DmaShards& sh, Args& p, int lz, int k, int n_iters,
-                       long long jobs, int* counters, int* grid_blocks,
-                       cudaStream_t s) {
-  auto* kernel = slab_run_dma_kernel<R, FLUX, WZ>;
+template <int R, int FLUX, bool WZ, typename Store>
+cudaError_t launch_dma(DmaShards<Store>& sh, Args& p, int lz, int k,
+                       int n_iters, long long jobs, int* counters,
+                       int* grid_blocks, cudaStream_t s) {
+  auto* kernel = slab_run_dma_kernel<R, FLUX, WZ, Store>;
   int blocks = 0;
   cudaError_t e =
       cooperative_blocks((const void*)kernel, SMEM_BYTES<R>, jobs, &blocks);
@@ -812,7 +804,70 @@ cudaError_t launch_dma(DmaShards& sh, Args& p, int lz, int k, int n_iters,
   return cudaGetLastError();
 }
 
+// K4 (Store: the buffers' storage type): the arguments' checks and the
+// cooperative launch.
+template <typename Store>
+int slab_run_dma(Store* const* s0, Store* const* s1, Store* const* land,
+                 int shards, int lz, int k, int ny, int nx, int flux, float c,
+                 int weno_z, int order, const float* inv_dx, const float* lap,
+                 float dt, int zchunk, int n_iters, int* counters,
+                 int* grid_blocks, void* stream) {
+  if (!valid_scheme(flux, order, weno_z)) return (int)cudaErrorInvalidValue;
+  const int R = reach_of(order);
+  const int depth = k * 3 * R;
+  const int pz = lz + 2 * depth;
+  if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
+      lz < depth || ny < 1 || nx < 1 || zchunk < 1 || counters == nullptr ||
+      (long long)pz * ny * nx > MAX_CELLS)
+    return (int)cudaErrorInvalidValue;
+  Args p = make_args(shards * lz, ny, nx, inv_dx, lap, c, dt, zchunk,
+                     order == 7 ? Reach<4>::T : Reach<3>::T);
+  p.pz = pz;
+  p.depth = depth;
+  DmaShards<Store> sh;
+  for (int i = 0; i < shards; ++i) {
+    sh.s0[i] = s0[i];
+    sh.s1[i] = s1[i];
+    sh.land[i] = land[i];
+  }
+  sh.n = shards;
+  sh.pz = pz;
+  sh.depth = depth;
+  sh.plane = (long long)ny * nx;
+  // the widest step (j = 0) has the most jobs
+  const long long jobs = (long long)shards * p.tiles *
+                         ((lz + 2 * depth - 6 * R + zchunk - 1) / zchunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(flux, order, weno_z, [&](auto r, auto fl, auto wz) {
+    return launch_dma<decltype(r)::value, decltype(fl)::value,
+                      decltype(wz)::value>(sh, p, lz, k, n_iters, jobs,
+                                           counters, grid_blocks, s);
+  });
+}
+
 }  // namespace
+
+#ifndef K6_BF16
+// K3, Burgers: one fixed-dt step over the output window [z_lo, z_hi)
+// (global planes) of a shard's buffer S -> out, on `stream`. The buffers
+// are (pz, ny, nx) with `depth` ghost planes a side; global plane g lies
+// at buffer row g + row_off; nz is the global plane count. `lo`/`hi`,
+// when not null, are (depth, ny, nx) and stand in for the buffer's first
+// and last depth rows. Every in-domain plane of the input box (the window
+// and G = 3R planes a side: 9 at order 5, 12 at order 7) must lie in the
+// buffer. The flux, order and physics arguments are slab_run_burgers's.
+// Returns the first CUDA error (0 on success); does not synchronise.
+extern "C" int slab_step_burgers(const float* S, float* out, const float* lo,
+                                 const float* hi, int pz, int depth, int nz,
+                                 int ny, int nx, int row_off, int z_lo,
+                                 int z_hi, int flux, float c, int weno_z,
+                                 int order, const float* inv_dx,
+                                 const float* lap, float dt, int zchunk,
+                                 void* stream) {
+  return slab_step(S, out, lo, hi, pz, depth, nz, ny, nx, row_off, z_lo,
+                   z_hi, flux, c, weno_z, order, inv_dx, lap, dt, zchunk,
+                   stream);
+}
 
 // K4, Burgers: n_iters fixed-dt steps of the `shards` z-slab shards of a
 // mesh, all on this card, in ONE cooperative launch on `stream`. s0, s1
@@ -834,36 +889,49 @@ extern "C" int slab_run_dma_burgers(float* const* s0, float* const* s1,
                                     float dt, int zchunk, int n_iters,
                                     int* counters, int* grid_blocks,
                                     void* stream) {
-  if (!valid_scheme(flux, order, weno_z)) return (int)cudaErrorInvalidValue;
-  const int R = reach_of(order);
-  const int depth = k * 3 * R;
-  const int pz = lz + 2 * depth;
-  if (shards < 1 || shards > DMA_MAX_SHARDS || k < 1 || n_iters < 0 ||
-      lz < depth || ny < 1 || nx < 1 || zchunk < 1 || counters == nullptr ||
-      (long long)pz * ny * nx > MAX_CELLS)
-    return (int)cudaErrorInvalidValue;
-  Args p = make_args(shards * lz, ny, nx, inv_dx, lap, c, dt, zchunk,
-                     order == 7 ? Reach<4>::T : Reach<3>::T);
-  p.pz = pz;
-  p.depth = depth;
-  DmaShards sh;
-  for (int i = 0; i < shards; ++i) {
-    sh.s0[i] = s0[i];
-    sh.s1[i] = s1[i];
-    sh.land[i] = land[i];
-  }
-  sh.n = shards;
-  sh.pz = pz;
-  sh.depth = depth;
-  sh.plane = (long long)ny * nx;
-  // the widest step (j = 0) has the most jobs
-  const long long jobs = (long long)shards * p.tiles *
-                         ((lz + 2 * depth - 6 * R + zchunk - 1) / zchunk);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dispatch(flux, order, weno_z, [&](auto r, auto fl, auto wz) {
-    return launch_dma<decltype(r)::value, decltype(fl)::value,
-                      decltype(wz)::value>(sh, p, lz, k, n_iters, jobs,
-                                           counters, grid_blocks, s);
-  });
+  return slab_run_dma(s0, s1, land, shards, lz, k, ny, nx, flux, c, weno_z,
+                      order, inv_dx, lap, dt, zchunk, n_iters, counters,
+                      grid_blocks, stream);
+}
+
+#else
+// K3's bf16 instance (this source built with -DK6_BF16): slab_step_burgers
+// on bf16 buffers and bf16 operands lo/hi. Each S plane upcasts as it
+// lands in the float32 ring (the shared-memory budget, 223,488 B at order
+// 7, does not move), and each output cell is rounded to bf16 once, the
+// TPU rung's rounding point (fused_slab_run.py:1632-1641), so a window is
+// K6's bf16 step to the bit. Returns the first CUDA error (0 on
+// success); does not synchronise.
+extern "C" int slab_step_burgers_bf16(const void* S, void* out,
+                                      const void* lo, const void* hi, int pz,
+                                      int depth, int nz, int ny, int nx,
+                                      int row_off, int z_lo, int z_hi,
+                                      int flux, float c, int weno_z,
+                                      int order, const float* inv_dx,
+                                      const float* lap, float dt, int zchunk,
+                                      void* stream) {
+  using bf16 = __nv_bfloat16;
+  return slab_step(static_cast<const bf16*>(S), static_cast<bf16*>(out),
+                   static_cast<const bf16*>(lo), static_cast<const bf16*>(hi),
+                   pz, depth, nz, ny, nx, row_off, z_lo, z_hi, flux, c,
+                   weno_z, order, inv_dx, lap, dt, zchunk, stream);
+}
+
+// K4's bf16 instance: slab_run_dma_burgers on bf16 state buffers and
+// bf16 landing buffers (2, 2, depth, ny, nx), the in-kernel exchange
+// half the bytes; each step is K3's bf16 step, so a run is the
+// collective bf16 K3 run and K6's bf16 run to the bit. Returns the first
+// CUDA error (0 on success); does not synchronise.
+extern "C" int slab_run_dma_burgers_bf16(
+    void* const* s0, void* const* s1, void* const* land, int shards, int lz,
+    int k, int ny, int nx, int flux, float c, int weno_z, int order,
+    const float* inv_dx, const float* lap, float dt, int zchunk, int n_iters,
+    int* counters, int* grid_blocks, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return slab_run_dma(reinterpret_cast<bf16* const*>(s0),
+                      reinterpret_cast<bf16* const*>(s1),
+                      reinterpret_cast<bf16* const*>(land), shards, lz, k, ny,
+                      nx, flux, c, weno_z, order, inv_dx, lap, dt, zchunk,
+                      n_iters, counters, grid_blocks, stream);
 }
 #endif  // K6_BF16

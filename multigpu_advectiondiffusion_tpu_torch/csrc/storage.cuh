@@ -1,6 +1,7 @@
 // The storage type of a kernel's global buffers, apart from the type it
-// computes in (float32). The bf16 instances of K1, K2, K6 and K9 (the
-// TPU kernels' bf16-storage rung, compute_dtype = float32) load bf16,
+// computes in (float32). The bf16 instances of K1, K2, K3, K4, K6 and K9
+// (the TPU kernels' bf16-storage rung, compute_dtype = float32; K1 and
+// K9 sharded too) load bf16,
 // compute every tap and RK stage in float32 and round each stored value
 // once, to nearest even; at T = float both functions are the identity,
 // so the float32 instances compile to what they were.

@@ -34,9 +34,10 @@ Kernel rungs (``impl``), as the JAX package dispatches them:
 * ``"auto"`` — not ported: construction raises ``NotImplementedError``,
   as it does for 1-D grids.
 
-``precision="bf16"`` (one device) runs K9's bf16 instance where the
-fused rung engages, and elsewhere the generic loop with the state packed
-in bf16 and its compensation carry (``models/base.py``);
+``precision="bf16"`` runs K9's bf16 instance where the fused rung
+engages (its sharded instance on a mesh), and elsewhere the generic loop
+with the state packed in bf16 and its compensation carry
+(``models/base.py``), its ghosts on bf16 wires;
 ``dtype="bfloat16"`` runs the generic path in bf16 (K9 is float32-only).
 
 On a device mesh (``mesh=``/``decomp=``) the generic and per-axis rungs
@@ -494,7 +495,7 @@ class ADRSolver(SolverBase):
                 kwargs["global_shape"] = self.grid.shape
             if self.storage_dtype != self.dtype:
                 # precision="bf16": K9's bf16 instance on the float32
-                # state (one device: a mesh raised at construction)
+                # state (its sharded instance on a mesh)
                 kwargs.update(dtype=self.storage_dtype,
                               storage_dtype=self.dtype)
             self._cache["fused"] = FusedADRStepper(

@@ -14,12 +14,13 @@ state's precision and the same dt rounding, trim and eps guard as the
 JAX package, so both packages take the same steps and land on the same
 times.
 
-``precision="bf16"`` (one device, :meth:`SolverBase._validate_precision`)
-keeps a float32 state in bfloat16 between steps: a fused stepper's
-buffers are bf16 (its kernels' bf16 instances), and the generic loop
-carries the packed ``(hi, lo)`` pair of :meth:`SolverBase._bf16_pack`,
-unpacked to float32 for each step, as the JAX package's ``run`` and
-``advance_to`` carry it.
+``precision="bf16"`` (:meth:`SolverBase._validate_precision`) keeps a
+float32 state in bfloat16 between steps: a fused stepper's buffers are
+bf16 (its kernels' bf16 instances, sharded ones on a mesh), and the
+generic loop carries the packed ``(hi, lo)`` pair of
+:meth:`SolverBase._bf16_pack`, unpacked to float32 for each step, as
+the JAX package's ``run`` and ``advance_to`` carry it; on a mesh its
+ghost slabs cross bf16 wires, so ``lo`` stays on its shard.
 
 Under a device mesh (``mesh=``/``decomp=``, :mod:`parallel.mesh`) ``u``
 is a :class:`~models.state.ShardedArray` and ``run``/``advance_to`` run
@@ -313,8 +314,8 @@ class SolverBase:
         package's texts: ``precision="bf16"`` stores a float32 compute
         state in bfloat16 (the fused rungs' buffers; the generic loop's
         packed ``(hi, lo)`` state, :meth:`_bf16_pack`) while every tap
-        and RK stage computes in float32. One device only: on a mesh the
-        state would cross the halo wires in bf16, which is not ported."""
+        and RK stage computes in float32. On a mesh the exchanged ghost
+        slabs cross the wires in bf16 too (:meth:`_context`)."""
         mode = self._precision_mode()
         self._bf16_carry = False
         if mode == "native":
@@ -333,12 +334,6 @@ class SolverBase:
                 "precision='bf16' stores a float32 compute state in "
                 "bfloat16; cfg.dtype must be float32, got "
                 f"{str(self.dtype).replace('torch.', '')}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "precision='bf16' on a device mesh needs the bf16 halo "
-                "wires and the sharded bf16 kernel instances, which are "
-                "not ported yet (ROADMAP queue 1 item 8h); it runs on "
-                "one device")
         self._bf16_carry = bf16_carry_enabled()
 
     @property
@@ -499,14 +494,21 @@ class SolverBase:
         sizes = dict(self.mesh.shape)
         reduce = self.mesh_reduce_max()
         lshape = self.local_shape()
+        # precision="bf16": the ghost slabs cross the wire in bf16 (half
+        # the bytes), the interior stays float32; the packed loop's state
+        # is f32(hi) + f32(lo) with bf16(u) == hi, so the wire carries hi
+        wire = (torch.bfloat16 if self._precision_mode() == "bf16"
+                else None)
         return StepContext(
-            padder=make_padder(self.decomp, sizes, self.bcs),
+            padder=make_padder(self.decomp, sizes, self.bcs,
+                               wire_dtype=wire),
             offsets=axis_offsets(self.decomp, lshape),
             local_shape=lshape,
             global_shape=gshape,
             device=pmesh.current_shard().device,
             reduce_max=reduce if reduce is not None else (lambda x: x),
-            ghost_fn=make_ghost_fn(self.decomp, sizes, self.bcs),
+            ghost_fn=make_ghost_fn(self.decomp, sizes, self.bcs,
+                                   wire_dtype=wire),
         )
 
     def _physics(self, overrides=None) -> LocalPhysics:

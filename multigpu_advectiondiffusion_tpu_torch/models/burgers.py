@@ -46,12 +46,14 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
 * ``"auto"`` — not ported: construction raises
   ``NotImplementedError``, as it does for 1-D grids.
 
-``precision="bf16"`` (one device; the JAX package's gates and texts):
-3-D fixed-dt ``"pallas"``/``"pallas_slab"`` run K6's bf16 instance, the
-slab pinned; every other config declines to the generic loop, whose
-state stays packed in bf16 with its compensation carry
-(``models/base.py``). ``dtype="bfloat16"`` runs the generic path in
-bf16 (the fused kernels are float32-only).
+``precision="bf16"`` (the JAX package's gates and texts): 3-D fixed-dt
+``"pallas"``/``"pallas_slab"`` run K6's bf16 instance, the slab pinned,
+on a z-slab mesh K3's (K4's under ``exchange="dma"``), where the JAX
+slab's bf16 plane gate takes the local plane; every other config
+declines to the generic loop, whose state stays packed in bf16 with its
+compensation carry (``models/base.py``), its ghosts on bf16 wires.
+``dtype="bfloat16"`` runs the generic path in bf16 (the fused kernels
+are float32-only).
 
 On a device mesh (``mesh=``/``decomp=``) the generic and per-axis rungs
 run on every decomposition (adaptive dt the max over the shards), and
@@ -63,8 +65,8 @@ shards' emitted maxima kept on the card; and, where pinned
 ``exchange="dma"``, fixed dt), one K3 launch over an output window a
 step, or the k-step schedule, or under ``exchange="dma"`` one K4 launch
 a run for every shard of the card; on 2-D meshes of any layout K8 a
-stage (K8b under the split schedule). The fused rung on a y- or
-x-sharded 3-D mesh (K5's other layouts) raises. The batched ensemble
+stage (K8b under the split schedule). The float32 fused rung on a y-
+or x-sharded 3-D mesh (K5's other layouts) raises. The batched ensemble
 engine runs a 3-D fused config at either order on K2b (the slab rung)
 or K5 a member (the per-stage rung).
 """
@@ -186,7 +188,10 @@ class BurgersSolver(SolverBase):
             )
         if self.grid.ndim == 1:
             raise NotImplementedError("1-D Burgers is not ported yet")
-        fused = is_fused_impl(cfg.impl) and self._fused_reason() is None
+        # precision="bf16" never runs K5 (its only fused rung is the
+        # slab, z slabs only): off z it declines to the per-axis rung
+        fused = (is_fused_impl(cfg.impl) and self._fused_reason() is None
+                 and self._precision_mode() != "bf16")
         if fused and self.grid.ndim == 3 and any(
                 ax != 0 for ax in self._sharded_axes()):
             raise NotImplementedError(

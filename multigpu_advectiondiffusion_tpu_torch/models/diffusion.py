@@ -35,17 +35,17 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   ``NotImplementedError``, as it does for 1-D grids and the axisymmetric
   geometry.
 
-Storage precision, one device, in the JAX package's branches and texts
-(its ``_fused_stepper``/``_select_slab``): a float64 state runs K1 or
-K2 with float32 buffers (``embed`` rounds it, ``extract`` restores
-float64, ``t`` stays float64); ``precision="bf16"`` runs K1's or K2's
-bf16 instance on a float32 state (K10 declines), and the generic loop,
-where a rung declines, keeps the state packed in bf16 with its
-compensation carry (``models/base.py``); ``dtype="bfloat16"`` runs K1's
-bf16 instance on a bf16 state (the slab declines to it) and the generic
-path in bf16 elsewhere. On a mesh ``precision="bf16"`` raises (ROADMAP
-queue 1 item 8h), and so does ``dtype="bfloat16"`` where the sharded K1
-would run it.
+Storage precision, in the JAX package's branches and texts (its
+``_fused_stepper``/``_select_slab``): a float64 state runs K1 or K2
+with float32 buffers on one device (``embed`` rounds it, ``extract``
+restores float64, ``t`` stays float64); ``precision="bf16"`` runs K1's
+or K2's bf16 instance on a float32 state (K10 declines), and the
+generic loop, where a rung declines, keeps the state packed in bf16
+with its compensation carry (``models/base.py``); ``dtype="bfloat16"``
+runs K1's bf16 instance on a bf16 state (the slab declines to it) and
+the generic path in bf16 elsewhere. On a mesh the same configs run the
+sharded bf16 instances: K1 on every layout (split roles too), and where
+the slab is pinned on z slabs K3, or K4 under ``exchange="dma"``.
 
 On a device mesh (``mesh=``/``decomp=``) every rung runs shard-local as
 in the JAX package: the generic and per-axis rungs on any decomposition
@@ -192,12 +192,6 @@ class DiffusionSolver(SolverBase):
             raise NotImplementedError(
                 "axisymmetric diffusion is not ported yet"
             )
-        if (self.dtype == torch.bfloat16 and self.mesh is not None
-                and self._fused_reason() is None):
-            raise NotImplementedError(
-                f"dtype='bfloat16' with impl={cfg.impl!r} on a device mesh "
-                "needs K1's sharded bf16 instance, which is not ported yet "
-                "(ROADMAP queue 1 item 8h); impl='xla' runs")
 
     def _op_impl(self) -> str:
         """Per-op kernel strategy: kernel flavors map to the per-axis

@@ -35,7 +35,8 @@ asynchronous copies; :func:`adr_schedule` plans the chunks and
 :func:`fused_adr_stage_bf16` is K9's instance on bfloat16 buffers (the
 JAX kernel's ``compute_dtype`` upcast, ``fused_adr.py:140-148``), one
 device: the stage's float32 arithmetic on the loaded bf16 values, each
-written cell rounded to bf16 once, after the stage. Its copies move
+written cell rounded to bf16 once, after the stage, on one device or a
+shard (the sharded geometry as above). Its copies move
 :func:`copy_width`'s values; its twin is
 :func:`fused_diffusion.upcast_twin` of :func:`adr_stage_reference`.
 """
@@ -156,8 +157,7 @@ def library() -> ctypes.CDLL:
                    i, p, p, p, p]
     fn.restype = ctypes.c_int
     fn = lib.fused_adr_stage_bf16
-    fn.argtypes = [p, p, p, i, i, i, p, p, p, p, f, f, p, f, f, f, f, i, f,
-                   i, p, p]
+    fn.argtypes = lib.fused_adr_stage.argtypes
     fn.restype = ctypes.c_int
     return lib
 
@@ -214,6 +214,64 @@ def adr_schedule(shape, blocks: int, zchunk: int | None = None) -> dict:
             "copy_floats": copy_floats(nx)}
 
 
+def _stage_checks(v, u, out, cz, cy, cx, global_shape, offsets, dtype):
+    """Check a K9 launch's buffers (``dtype``), factors and geometry."""
+    for name, t in (("v", v), ("u", u), ("out", out)):
+        if t is not None:
+            _check(name, t, v.shape, v.device, dtype)
+    if v.dim() != 3 or min(v.shape) <= 2 * R:
+        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
+    n = tuple(s - 2 * R for s in v.shape)
+    for name, t, m in (("cz", cz, n[0]), ("cy", cy, n[1]), ("cx", cx, n[2])):
+        _check(name, t, (m,), v.device)
+    if v.data_ptr() == out.data_ptr():
+        raise ValueError("v and out must be different buffers")
+    if (global_shape is None) != (offsets is None):
+        raise ValueError("a shard passes both global_shape and offsets")
+    if global_shape is not None and not all(
+            0 <= int(o) <= int(gn) - m
+            for o, gn, m in zip(offsets, global_shape, n)):
+        raise ValueError(f"a {n} block at offsets {tuple(offsets)} does not "
+                         f"fit the global {tuple(global_shape)}")
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no ADR stage kernel for device {v.device}")
+
+
+def _launch_stage(symbol, v, u, out, dt, *, taps, cz, cy, cx, k0, eps,
+                  adv_p, adv_m, lam, a, b, band, bc_value, zchunk,
+                  global_shape, offsets, launch, width_key):
+    """Launch ``symbol`` (K9's float32 or bf16 entry) on the current
+    stream, raising on a CUDA error; ``launch``, a dict, receives the
+    chunk, the copies' width (under ``width_key``) and the resident
+    blocks an SM."""
+    n = tuple(s - 2 * R for s in v.shape)
+    zchunk = zchunk or chunk_planes(n[0])
+    out2 = None if launch is None else (ctypes.c_int * 2)()
+    host_taps = np.asarray(taps, dtype=np.float32)
+    host_adv = np.asarray(tuple(adv_p) + tuple(adv_m), dtype=np.float32)
+    geo = offs = None
+    if global_shape is not None:
+        geo = np.asarray(global_shape, dtype=np.int32)
+        offs = np.asarray(offsets, dtype=np.int32)
+    with torch.cuda.device(v.device):
+        rc = getattr(library(), symbol)(
+            v.data_ptr(), None if u is None else u.data_ptr(),
+            out.data_ptr(), *n, host_taps.ctypes.data, cz.data_ptr(),
+            cy.data_ptr(), cx.data_ptr(), float(k0), float(eps),
+            host_adv.ctypes.data, float(lam), float(np.float32(dt)),
+            float(a), float(b), int(band), float(bc_value), int(zchunk),
+            None if geo is None else geo.ctypes.data,
+            None if offs is None else offs.ctypes.data,
+            None if out2 is None else ctypes.byref(out2),
+            torch.cuda.current_stream(v.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+    if launch is not None:
+        launch.update({"zchunk": int(zchunk), width_key: out2[0],
+                       "blocks_per_sm": out2[1]})
+
+
 def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
                     adv_m, lam, a, b, band, bc_value, zchunk=None,
                     global_shape=None, offsets=None,
@@ -234,56 +292,16 @@ def fused_adr_stage(v, u, out, dt, *, taps, cz, cy, cx, k0, eps, adv_p,
     it). A CPU tensor runs
     :func:`adr_stage_reference`.
     """
-    for name, t in (("v", v), ("u", u), ("out", out)):
-        if t is not None:
-            _check(name, t, v.shape, v.device)
-    if v.dim() != 3 or min(v.shape) <= 2 * R:
-        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
-    n = tuple(s - 2 * R for s in v.shape)
-    for name, t, m in (("cz", cz, n[0]), ("cy", cy, n[1]), ("cx", cx, n[2])):
-        _check(name, t, (m,), v.device)
-    if v.data_ptr() == out.data_ptr():
-        raise ValueError("v and out must be different buffers")
-    if (global_shape is None) != (offsets is None):
-        raise ValueError("a shard passes both global_shape and offsets")
-    if global_shape is not None and not all(
-            0 <= int(o) <= int(gn) - m
-            for o, gn, m in zip(offsets, global_shape, n)):
-        raise ValueError(f"a {n} block at offsets {tuple(offsets)} does not "
-                         f"fit the global {tuple(global_shape)}")
+    _stage_checks(v, u, out, cz, cy, cx, global_shape, offsets,
+                  torch.float32)
     kw = dict(taps=taps, cz=cz, cy=cy, cx=cx, k0=k0, eps=eps, adv_p=adv_p,
               adv_m=adv_m, lam=lam, a=a, b=b, band=band, bc_value=bc_value,
               global_shape=global_shape, offsets=offsets)
     if v.device.type == "cpu":
         return adr_stage_reference(v, u, out, dt, **kw)
-    if v.device.type != "cuda":
-        raise ValueError(f"no ADR stage kernel for device {v.device}")
-    zchunk = zchunk or chunk_planes(n[0])
-    out2 = None if launch is None else (ctypes.c_int * 2)()
-    host_taps = np.asarray(taps, dtype=np.float32)
-    host_adv = np.asarray(tuple(adv_p) + tuple(adv_m), dtype=np.float32)
-    geo = offs = None
-    if global_shape is not None:
-        geo = np.asarray(global_shape, dtype=np.int32)
-        offs = np.asarray(offsets, dtype=np.int32)
-    with torch.cuda.device(v.device):
-        rc = library().fused_adr_stage(
-            v.data_ptr(), None if u is None else u.data_ptr(),
-            out.data_ptr(), *n, host_taps.ctypes.data, cz.data_ptr(),
-            cy.data_ptr(), cx.data_ptr(), float(k0), float(eps),
-            host_adv.ctypes.data, float(lam), float(np.float32(dt)),
-            float(a), float(b), int(band), float(bc_value), int(zchunk),
-            None if geo is None else geo.ctypes.data,
-            None if offs is None else offs.ctypes.data,
-            None if out2 is None else ctypes.byref(out2),
-            torch.cuda.current_stream(v.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_adr_stage launch failed: CUDA error {rc}")
+    _launch_stage("fused_adr_stage", v, u, out, dt, zchunk=zchunk,
+                  launch=launch, width_key="copy_floats", **kw)
     build.count_launch(fused_adr_stage)
-    if launch is not None:
-        launch.update(zchunk=int(zchunk), copy_floats=out2[0],
-                      blocks_per_sm=out2[1])
     return out
 
 
@@ -292,51 +310,26 @@ fused_adr_stage.launches = 0
 
 def fused_adr_stage_bf16(v, u, out, dt, *, taps, cz, cy, cx, k0, eps,
                          adv_p, adv_m, lam, a, b, band, bc_value,
-                         zchunk=None, launch: dict | None = None):
-    """:func:`fused_adr_stage` on bfloat16 buffers, unsharded (K9's bf16
-    instance): the float32 stage on the loaded bf16 values, every written
-    cell rounded to bf16 once (the ghost ring keeps its bf16 wall value).
-    Launches the kernel on the current stream, counted in
+                         zchunk=None, global_shape=None, offsets=None,
+                         launch: dict | None = None):
+    """:func:`fused_adr_stage` on bfloat16 buffers (K9's bf16 instances,
+    the sharded one for a shard's ``global_shape`` and ``offsets``): the
+    float32 stage on the loaded bf16 values, every written cell rounded
+    to bf16 once (the ghost ring keeps its bf16 wall value). Launches the
+    kernel on the current stream, counted in
     ``fused_adr_stage_bf16.launches``; ``launch``, a dict, receives its
     chunk, copy width (bf16 values) and resident blocks an SM. A CPU
     tensor runs :func:`upcast_twin` of :func:`adr_stage_reference`."""
-    for name, t in (("v", v), ("u", u), ("out", out)):
-        if t is not None:
-            _check(name, t, v.shape, v.device, torch.bfloat16)
-    if v.dim() != 3 or min(v.shape) <= 2 * R:
-        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
-    n = tuple(s - 2 * R for s in v.shape)
-    for name, t, m in (("cz", cz, n[0]), ("cy", cy, n[1]), ("cx", cx, n[2])):
-        _check(name, t, (m,), v.device)
-    if v.data_ptr() == out.data_ptr():
-        raise ValueError("v and out must be different buffers")
+    _stage_checks(v, u, out, cz, cy, cx, global_shape, offsets,
+                  torch.bfloat16)
     kw = dict(taps=taps, cz=cz, cy=cy, cx=cx, k0=k0, eps=eps, adv_p=adv_p,
-              adv_m=adv_m, lam=lam, a=a, b=b, band=band, bc_value=bc_value)
+              adv_m=adv_m, lam=lam, a=a, b=b, band=band, bc_value=bc_value,
+              global_shape=global_shape, offsets=offsets)
     if v.device.type == "cpu":
         return upcast_twin(adr_stage_reference, v, u, out, dt, **kw)
-    if v.device.type != "cuda":
-        raise ValueError(f"no ADR stage kernel for device {v.device}")
-    zchunk = zchunk or chunk_planes(n[0])
-    out2 = None if launch is None else (ctypes.c_int * 2)()
-    host_taps = np.asarray(taps, dtype=np.float32)
-    host_adv = np.asarray(tuple(adv_p) + tuple(adv_m), dtype=np.float32)
-    with torch.cuda.device(v.device):
-        rc = library().fused_adr_stage_bf16(
-            v.data_ptr(), None if u is None else u.data_ptr(),
-            out.data_ptr(), *n, host_taps.ctypes.data, cz.data_ptr(),
-            cy.data_ptr(), cx.data_ptr(), float(k0), float(eps),
-            host_adv.ctypes.data, float(lam), float(np.float32(dt)),
-            float(a), float(b), int(band), float(bc_value), int(zchunk),
-            None if out2 is None else ctypes.byref(out2),
-            torch.cuda.current_stream(v.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_adr_stage_bf16 launch failed: CUDA error {rc}")
+    _launch_stage("fused_adr_stage_bf16", v, u, out, dt, zchunk=zchunk,
+                  launch=launch, width_key="copy_width", **kw)
     build.count_launch(fused_adr_stage_bf16)
-    if launch is not None:
-        launch.update(zchunk=int(zchunk), copy_width=out2[0],
-                      blocks_per_sm=out2[1])
     return out
 
 
@@ -355,9 +348,10 @@ class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
     ghost ``refresh`` run after every stage. ADR has no split-overlap
     schedule (the solver declines it to the generic rung).
 
-    ``dtype=torch.bfloat16`` runs K9's bf16 instance
-    (:func:`fused_adr_stage_bf16`), unsharded; ``storage_dtype`` is the
-    state it faces (``fused_diffusion.PaddedDiffusionState``)."""
+    ``dtype=torch.bfloat16`` runs K9's bf16 instances
+    (:func:`fused_adr_stage_bf16`, the sharded one on a shard);
+    ``storage_dtype`` is the state it faces
+    (``fused_diffusion.PaddedDiffusionState``)."""
 
     halo = R
     needs_offsets = True
@@ -381,8 +375,6 @@ class FusedADRStepper(PaddedDiffusionState, FusedStepperBase):
                            for a, dx in zip(velocity, spacing))
         self.global_shape = tuple(global_shape or interior_shape)
         self.sharded = self.global_shape != self.interior_shape
-        if self.sharded and dtype != torch.float32:
-            raise ValueError("K9's bf16 instance is unsharded")
         self.core_offsets = (R,) * 3
         self.exchange_depth = R
         # the factors over the global grid, from the global shape (a

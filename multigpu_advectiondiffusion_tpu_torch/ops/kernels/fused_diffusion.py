@@ -175,7 +175,7 @@ def library() -> ctypes.CDLL:
                    p]
     fn.restype = ctypes.c_int
     fn = lib.fused_diffusion_stage_bf16
-    fn.argtypes = [p, p, p, i, i, i, p, f, f, f, i, f, i, p]
+    fn.argtypes = lib.fused_diffusion_stage.argtypes
     fn.restype = ctypes.c_int
     return lib
 
@@ -191,6 +191,51 @@ def _check(name, t, shape, device, dtype=torch.float32):
         )
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _stage_args(v, u, out, lo, hi, window, dtype):
+    """Check a stage launch's buffers (``dtype``) and return its window
+    ``(k0, k1)`` of interior planes."""
+    for name, t in (("v", v), ("u", u), ("out", out)):
+        if t is not None:
+            _check(name, t, v.shape, v.device, dtype)
+    if v.dim() != 3 or min(v.shape) <= 2 * R:
+        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
+    if v.data_ptr() == out.data_ptr():
+        raise ValueError("v and out must be different buffers")
+    nz = v.shape[0] - 2 * R
+    k0, k1 = window if window is not None else (0, nz)
+    if not 0 <= k0 < k1 <= nz:
+        raise ValueError(f"window {window} outside the {nz} interior planes")
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t is not None:
+            _check(name, t, (R,) + tuple(v.shape[1:]), v.device, dtype)
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no stage kernel for device {v.device}")
+    return k0, k1
+
+
+def _launch_stage(symbol, v, u, out, dt, a, b, taps, band, bc_value,
+                  zchunk, global_shape, offsets, window, lo, hi) -> None:
+    """Launch ``symbol`` (K1's float32 or bf16 entry) on the current
+    stream, raising on a CUDA error."""
+    nz, ny, nx = (s - 2 * R for s in v.shape)
+    host_taps = np.asarray(taps, dtype=np.float32)
+    geo = np.asarray(global_shape or (nz, ny, nx), dtype=np.int32)
+    offs = np.asarray(offsets or (0, 0, 0), dtype=np.int32)
+    with torch.cuda.device(v.device):
+        rc = getattr(library(), symbol)(
+            v.data_ptr(), None if u is None else u.data_ptr(),
+            out.data_ptr(), nz, ny, nx, host_taps.ctypes.data,
+            float(np.float32(dt)), float(a), float(b), int(band),
+            float(bc_value), int(zchunk), geo.ctypes.data, offs.ctypes.data,
+            int(window[0]), int(window[1]),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(),
+            torch.cuda.current_stream(v.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
 
 
 def fused_stage(v, u, out, dt, *, taps, a, b, band, bc_value,
@@ -210,42 +255,14 @@ def fused_stage(v, u, out, dt, *, taps, a, b, band, bc_value,
     planes, and counts the launch in ``fused_stage.launches``; a CPU
     tensor runs :func:`stage_reference`.
     """
-    for name, t in (("v", v), ("u", u), ("out", out)):
-        if t is not None:
-            _check(name, t, v.shape, v.device)
-    if v.dim() != 3 or min(v.shape) <= 2 * R:
-        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
-    if v.data_ptr() == out.data_ptr():
-        raise ValueError("v and out must be different buffers")
-    nz, ny, nx = (s - 2 * R for s in v.shape)
-    k0, k1 = window if window is not None else (0, nz)
-    if not 0 <= k0 < k1 <= nz:
-        raise ValueError(f"window {window} outside the {nz} interior planes")
-    for name, t in (("lo", lo), ("hi", hi)):
-        if t is not None:
-            _check(name, t, (R,) + tuple(v.shape[1:]), v.device)
+    window = _stage_args(v, u, out, lo, hi, window, torch.float32)
     kw = dict(taps=taps, a=a, b=b, band=band, bc_value=bc_value,
-              global_shape=global_shape, offsets=offsets, window=(k0, k1),
+              global_shape=global_shape, offsets=offsets, window=window,
               lo=lo, hi=hi)
     if v.device.type == "cpu":
         return stage_reference(v, u, out, dt, **kw)
-    if v.device.type != "cuda":
-        raise ValueError(f"no stage kernel for device {v.device}")
-    host_taps = np.asarray(taps, dtype=np.float32)
-    geo = np.asarray(global_shape or (nz, ny, nx), dtype=np.int32)
-    offs = np.asarray(offsets or (0, 0, 0), dtype=np.int32)
-    with torch.cuda.device(v.device):
-        rc = library().fused_diffusion_stage(
-            v.data_ptr(), None if u is None else u.data_ptr(),
-            out.data_ptr(), nz, ny, nx, host_taps.ctypes.data,
-            float(np.float32(dt)), float(a), float(b), int(band),
-            float(bc_value), int(zchunk), geo.ctypes.data, offs.ctypes.data,
-            int(k0), int(k1), None if lo is None else lo.data_ptr(),
-            None if hi is None else hi.data_ptr(),
-            torch.cuda.current_stream(v.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_diffusion_stage launch failed: CUDA error {rc}")
+    _launch_stage("fused_diffusion_stage", v, u, out, dt, zchunk=zchunk,
+                  **kw)
     build.count_launch(fused_stage)
     return out
 
@@ -254,38 +271,24 @@ fused_stage.launches = 0
 
 
 def fused_stage_bf16(v, u, out, dt, *, taps, a, b, band, bc_value,
-                     zchunk=Z_CHUNK):
-    """:func:`fused_stage` on bfloat16 buffers, unsharded (K1's bf16
-    instance): the stage's float32 arithmetic on the loaded bf16 values,
-    every written cell rounded to bf16 once (the ghost ring, whose bf16
-    wall value the kernel reads, is never written). Launches the kernel
-    on the current stream, counted in ``fused_stage_bf16.launches``; a
-    CPU tensor runs :func:`upcast_twin` of :func:`stage_reference`."""
-    for name, t in (("v", v), ("u", u), ("out", out)):
-        if t is not None:
-            _check(name, t, v.shape, v.device, torch.bfloat16)
-    if v.dim() != 3 or min(v.shape) <= 2 * R:
-        raise ValueError(f"padded 3-D state expected, got {tuple(v.shape)}")
-    if v.data_ptr() == out.data_ptr():
-        raise ValueError("v and out must be different buffers")
+                     zchunk=Z_CHUNK, global_shape=None, offsets=None,
+                     window=None, lo=None, hi=None):
+    """:func:`fused_stage` on bfloat16 buffers (K1's bf16 instances, the
+    sharded geometry, window and bf16 ``lo``/``hi`` operands as there):
+    the stage's float32 arithmetic on the loaded bf16 values, every
+    written cell rounded to bf16 once (the ghost ring, whose bf16 wall
+    value the kernel reads, is never written). Launches the kernel on the
+    current stream, counted in ``fused_stage_bf16.launches``; a CPU
+    tensor runs :func:`upcast_twin` of :func:`stage_reference`."""
+    window = _stage_args(v, u, out, lo, hi, window, torch.bfloat16)
+    kw = dict(taps=taps, a=a, b=b, band=band, bc_value=bc_value,
+              global_shape=global_shape, offsets=offsets, window=window)
     if v.device.type == "cpu":
-        return upcast_twin(stage_reference, v, u, out, dt, taps=taps, a=a,
-                           b=b, band=band, bc_value=bc_value)
-    if v.device.type != "cuda":
-        raise ValueError(f"no stage kernel for device {v.device}")
-    nz, ny, nx = (s - 2 * R for s in v.shape)
-    host_taps = np.asarray(taps, dtype=np.float32)
-    with torch.cuda.device(v.device):
-        rc = library().fused_diffusion_stage_bf16(
-            v.data_ptr(), None if u is None else u.data_ptr(),
-            out.data_ptr(), nz, ny, nx, host_taps.ctypes.data,
-            float(np.float32(dt)), float(a), float(b), int(band),
-            float(bc_value), int(zchunk),
-            torch.cuda.current_stream(v.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_diffusion_stage_bf16 launch failed: CUDA error {rc}")
+        return upcast_twin(stage_reference, v, u, out, dt,
+                           lo=None if lo is None else lo.float(),
+                           hi=None if hi is None else hi.float(), **kw)
+    _launch_stage("fused_diffusion_stage_bf16", v, u, out, dt,
+                  zchunk=zchunk, lo=lo, hi=hi, **kw)
     build.count_launch(fused_stage_bf16)
     return out
 
@@ -342,9 +345,10 @@ class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
     then the bottom and top ``Z_CHUNK`` planes from the exchanged slabs
     (``exch``); other sharded axes of a pencil keep the refresh.
 
-    ``dtype=torch.bfloat16`` runs K1's bf16 instance
-    (:func:`fused_stage_bf16`), unsharded; ``storage_dtype`` is the state
-    it faces (:class:`PaddedDiffusionState`)."""
+    ``dtype=torch.bfloat16`` runs K1's bf16 instances
+    (:func:`fused_stage_bf16`), on a shard too, where the refresh and the
+    split schedule's slabs move the buffers' bf16 values; ``storage_dtype``
+    is the state it faces (:class:`PaddedDiffusionState`)."""
 
     halo = R
     needs_offsets = True
@@ -357,8 +361,8 @@ class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
                          bc_value, device, dtype, storage_dtype)
         self.global_shape = tuple(global_shape or interior_shape)
         self.sharded = self.global_shape != self.interior_shape
-        if self.sharded and dtype != torch.float32:
-            raise ValueError("K1's bf16 instance is unsharded")
+        self.stage = (fused_stage_bf16 if dtype == torch.bfloat16
+                      else fused_stage)
         self.core_offsets = (R,) * len(self.interior_shape)
         self.exchange_depth = R
         lz = self.interior_shape[0]
@@ -379,10 +383,8 @@ class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
         for v, u, out, a, b in stages:
             if self.overlap_split:
                 self._split_stage(v, u, out, dt, a, b, exch, kw)
-            elif self.dtype == torch.bfloat16:
-                fused_stage_bf16(v, u, out, dt, a=a, b=b, **kw)
             else:
-                fused_stage(v, u, out, dt, a=a, b=b, **kw)
+                self.stage(v, u, out, dt, a=a, b=b, **kw)
             if refresh is not None:
                 refresh(out)
         return S, T1, T2
@@ -393,8 +395,8 @@ class FusedDiffusionStepper(PaddedDiffusionState, FusedStepperBase):
         stream, then the bottom and top planes from those slabs."""
         lz, bz = self.interior_shape[0], Z_CHUNK
         lo, hi = exch(v)
-        fused_stage(v, u, out, dt, a=a, b=b, window=(bz, lz - bz), **kw)
+        self.stage(v, u, out, dt, a=a, b=b, window=(bz, lz - bz), **kw)
         wait_exchange(lo, hi)
-        fused_stage(v, u, out, dt, a=a, b=b, window=(0, bz), lo=lo, **kw)
-        fused_stage(v, u, out, dt, a=a, b=b, window=(lz - bz, lz), hi=hi,
-                    **kw)
+        self.stage(v, u, out, dt, a=a, b=b, window=(0, bz), lo=lo, **kw)
+        self.stage(v, u, out, dt, a=a, b=b, window=(lz - bz, lz), hi=hi,
+                   **kw)

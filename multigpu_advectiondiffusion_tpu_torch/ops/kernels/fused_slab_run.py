@@ -76,7 +76,13 @@ jobs spread well over the resident blocks, and count them.
   ``:1632-1641``): each step upcasts its planes once, runs the three
   stages in float32 and rounds each output cell to bf16 once. Their
   twin is the float32 step on the upcast buffer, rounded once a step
-  (:func:`rounded_step`).
+  (:func:`rounded_step`). On a z-slab shard the same rule gives the bf16
+  instances of K3 (:func:`slab_step_diffusion_bf16`,
+  :func:`slab_step_burgers_bf16`; bf16 exchanged operands, the twin
+  :func:`rounded_window`) and K4 (:func:`slab_run_dma_diffusion_bf16`,
+  :func:`slab_run_dma_burgers_bf16`; bf16 landing buffers, so the
+  in-kernel exchange moves half the bytes): a sharded bf16 run is the
+  unsharded bf16 run to the bit.
 * ``supported``/``profitable`` are the port's gates, for the H100, in
   place of the JAX package's TPU VMEM model (PERF.md lists the shapes
   where the two disagree).
@@ -164,6 +170,10 @@ _K4D_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _F, _I, _I, _P,
                  _P, _P)
 _K4B_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _F,
                  _I, _I, _P, _P, _P)
+# the bf16 instances of K3 and K4, diffusion: the pad value after bc_value
+# (Burgers' take the float32 entries' arguments)
+_K3DH_ARGTYPES = _K3D_ARGTYPES[:16] + (_F,) + _K3D_ARGTYPES[16:]
+_K4DH_ARGTYPES = _K4D_ARGTYPES[:12] + (_F,) + _K4D_ARGTYPES[12:]
 # shards one K4 launch takes (DMA_MAX_SHARDS, csrc/slab_dma.cuh)
 DMA_MAX_SHARDS = 64
 
@@ -524,13 +534,14 @@ slab_run_burgers_batched.launches = 0
 # --------------------------------------------------------------------- #
 # K3: one step over an output window of a shard
 # --------------------------------------------------------------------- #
-def _check_window(S, out, lo, hi, *, depth, window, global_nz, oz, reach):
+def _check_window(S, out, lo, hi, *, depth, window, global_nz, oz, reach,
+                  dtype=torch.float32):
     """Check a K3 call and return its global window and the buffer row of
     global plane 0. ``S``/``out``: a shard's ``(lz + 2 depth, ...)``
-    buffers; ``window``, ``(z_lo, z_hi)`` in block planes; ``reach``,
-    the input box's planes a side (G)."""
-    _check("out", out, S.shape, S.device)
-    _check("S", S, S.shape, S.device)
+    buffers of ``dtype``; ``window``, ``(z_lo, z_hi)`` in block planes;
+    ``reach``, the input box's planes a side (G)."""
+    _check("out", out, S.shape, S.device, dtype)
+    _check("S", S, S.shape, S.device, dtype)
     if S.dim() != 3 or S.data_ptr() == out.data_ptr():
         raise ValueError("two different 3-D buffers expected")
     if S.device.type not in ("cpu", "cuda"):
@@ -549,8 +560,22 @@ def _check_window(S, out, lo, hi, *, depth, window, global_nz, oz, reach):
             f"planes at {oz} of {global_nz} does not fit its buffer of {pz}")
     for name, t in (("lo", lo), ("hi", hi)):
         if t is not None:
-            _check(name, t, (depth,) + tuple(S.shape[1:]), S.device)
+            _check(name, t, (depth,) + tuple(S.shape[1:]), S.device, dtype)
     return g_lo, g_hi, row_off
+
+
+def _upcast(t):
+    return None if t is None else t.float()
+
+
+def rounded_window(reference, S, out, lo=None, hi=None, **kw):
+    """The plain twin of a bf16-buffer K3 call: ``reference`` (K3's
+    float32 twin) on the buffers' and operands' float32 values, the
+    window it writes rounded to bf16 once (other cells keep their
+    bits); returns ``out``."""
+    rounded_step(lambda a, b: reference(a, b, lo=_upcast(lo),
+                                        hi=_upcast(hi), **kw), S, out)
+    return out
 
 
 def _with_operands(S, lo, hi, depth: int):
@@ -568,11 +593,11 @@ def _with_operands(S, lo, hi, depth: int):
 
 def slab_step_diffusion_reference(S, out, dt, *, taps, band, bc_value,
                                   global_nz, oz, depth, window, lo=None,
-                                  hi=None):
+                                  hi=None, pad_value=None):
     """The plain twin of K3, diffusion: the window's input box assembled
-    by global z (planes outside the global domain at ``bc_value``), three
-    K1-twin stages with global masks, the window's in-domain planes
-    written to ``out``; returns ``out``."""
+    by global z (planes outside the global domain at ``pad_value``,
+    default ``bc_value``), three K1-twin stages with global masks, the
+    window's in-domain planes written to ``out``; returns ``out``."""
     g_lo, g_hi, row_off = _check_window(
         S, out, lo, hi, depth=depth, window=window, global_nz=global_nz,
         oz=oz, reach=3 * R)
@@ -581,7 +606,7 @@ def slab_step_diffusion_reference(S, out, dt, *, taps, band, bc_value,
     inside = (g >= 0) & (g < global_nz)
     rows = (g + row_off).clamp_(0, S.shape[0] - 1)
     B = Sv.index_select(0, rows)
-    B[~inside] = bc_value
+    B[~inside] = bc_value if pad_value is None else pad_value
     L = g_hi - g_lo
     gshape = (global_nz, S.shape[1] - 2 * R, S.shape[2] - 2 * R)
     kw = dict(taps=taps, band=band, bc_value=bc_value, global_shape=gshape)
@@ -616,28 +641,72 @@ def slab_step_diffusion(S, out, dt, *, taps, band, bc_value, global_nz, oz,
         return slab_step_diffusion_reference(
             S, out, dt, taps=taps, band=band, bc_value=bc_value, lo=lo,
             hi=hi, **kw)
-    g_lo, g_hi, row_off = _check_window(S, out, lo, hi, reach=3 * R, **kw)
-    host_taps = np.asarray(taps, dtype=np.float32)
-    ny, nx = S.shape[1] - 2 * R, S.shape[2] - 2 * R
-    planes = zchunk or fds.diffusion_zchunk(g_hi - g_lo, ny, nx, 1,
-                                            S.device)
-
-    def kernel(S, out):
-        return wr.library(fds.SOURCE, "slab_step_diffusion", _K3D_ARGTYPES
-                          ).slab_step_diffusion(
-            S.data_ptr(), out.data_ptr(),
-            None if lo is None else lo.data_ptr(),
-            None if hi is None else hi.data_ptr(), S.shape[0], int(depth),
-            int(global_nz), ny, nx, row_off, g_lo, g_hi,
-            host_taps.ctypes.data, float(np.float32(dt)), int(band),
-            float(bc_value), int(planes), wr.stream_of(S))
-
-    wr.launch(kernel, S, out)
+    _launch_step_diffusion(S, out, lo, hi, dt, taps, band, bc_value,
+                           zchunk, torch.float32, **kw)
     build.count_launch(slab_step_diffusion)
     return out
 
 
 slab_step_diffusion.launches = 0
+
+
+def _launch_step_diffusion(S, out, lo, hi, dt, taps, band, bc_value, zchunk,
+                           dtype, *, depth, window, global_nz, oz):
+    """Check a diffusion K3 call on CUDA buffers of ``dtype`` and launch
+    its entry (the bf16 one takes the pad value ``bf16(bc_value)`` too)
+    on the current stream."""
+    g_lo, g_hi, row_off = _check_window(
+        S, out, lo, hi, depth=depth, window=window, global_nz=global_nz,
+        oz=oz, reach=3 * R, dtype=dtype)
+    host_taps = np.asarray(taps, dtype=np.float32)
+    ny, nx = S.shape[1] - 2 * R, S.shape[2] - 2 * R
+    planes = zchunk or fds.diffusion_zchunk(g_hi - g_lo, ny, nx, 1,
+                                            S.device)
+    bf16 = dtype == torch.bfloat16
+    symbol = "slab_step_diffusion_bf16" if bf16 else "slab_step_diffusion"
+    fn = getattr(wr.library(fds.SOURCE, symbol,
+                            _K3DH_ARGTYPES if bf16 else _K3D_ARGTYPES),
+                 symbol)
+    pad = (bf16_value(bc_value),) if bf16 else ()
+
+    def kernel(S, out):
+        return fn(
+            S.data_ptr(), out.data_ptr(),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), S.shape[0], int(depth),
+            int(global_nz), ny, nx, row_off, g_lo, g_hi,
+            host_taps.ctypes.data, float(np.float32(dt)), int(band),
+            float(bc_value), *pad, int(planes), wr.stream_of(S))
+
+    wr.launch(kernel, S, out)
+
+
+def slab_step_diffusion_bf16(S, out, dt, *, taps, band, bc_value, global_nz,
+                             oz, depth, window, lo=None, hi=None,
+                             zchunk=None):
+    """:func:`slab_step_diffusion` on bfloat16 buffers and operands (K3's
+    bf16 instance): the float32 step on the upcast planes, each written
+    cell rounded to bf16 once; planes outside the global domain read
+    ``bf16(bc_value)``, the unsharded bf16 ghost ring's value, so a
+    window is K2's bf16 step to the bit. A CUDA tensor launches the kernel
+    once on the current stream, counted in
+    ``slab_step_diffusion_bf16.launches``; a CPU tensor runs the twin,
+    :func:`rounded_window` of :func:`slab_step_diffusion_reference`."""
+    kw = dict(depth=depth, window=window, global_nz=global_nz, oz=oz)
+    if S.device.type == "cpu":
+        _check_window(S, out, lo, hi, reach=3 * R, dtype=torch.bfloat16,
+                      **kw)
+        return rounded_window(
+            slab_step_diffusion_reference, S, out, lo, hi, dt=dt, taps=taps,
+            band=band, bc_value=bc_value, pad_value=bf16_value(bc_value),
+            **kw)
+    _launch_step_diffusion(S, out, lo, hi, dt, taps, band, bc_value,
+                           zchunk, torch.bfloat16, **kw)
+    build.count_launch(slab_step_diffusion_bf16)
+    return out
+
+
+slab_step_diffusion_bf16.launches = 0
 
 
 def slab_step_burgers_reference(S, out, dt, *, params: fb.StageParams,
@@ -680,6 +749,33 @@ def slab_step_burgers_reference(S, out, dt, *, params: fb.StageParams,
     return out
 
 
+def _launch_step_burgers(symbol, flags, S, out, lo, hi, dt, params, depth,
+                         global_nz, window, oz, zchunk, dtype):
+    """Check a Burgers K3 call on CUDA buffers of ``dtype`` and launch
+    ``symbol`` of the source built with ``flags`` on the current
+    stream."""
+    g_lo, g_hi, row_off = _check_window(
+        S, out, lo, hi, depth=depth, window=window, global_nz=global_nz,
+        oz=oz, reach=3 * params.r, dtype=dtype)
+    code, c, weno_z, inv_dx, taps = _burgers_args(params)
+    planes = zchunk or burgers_zchunk(g_hi - g_lo, *S.shape[1:], 1,
+                                      S.device, params.order)
+    fn = getattr(wr.library(BURGERS_SOURCE, symbol, _K3B_ARGTYPES, flags),
+                 symbol)
+
+    def kernel(S, out):
+        return fn(
+            S.data_ptr(), out.data_ptr(),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), S.shape[0], int(depth),
+            int(global_nz), S.shape[1], S.shape[2], row_off, g_lo, g_hi,
+            code, c, weno_z, params.order, inv_dx.ctypes.data,
+            None if taps is None else taps.ctypes.data,
+            float(np.float32(dt)), planes, wr.stream_of(S))
+
+    wr.launch(kernel, S, out)
+
+
 def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
                       depth, window, lo=None, hi=None,
                       zchunk=None):
@@ -694,24 +790,9 @@ def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
     if S.device.type == "cpu":
         return slab_step_burgers_reference(S, out, dt, params=params, lo=lo,
                                            hi=hi, **kw)
-    g_lo, g_hi, row_off = _check_window(S, out, lo, hi,
-                                        reach=3 * params.r, **kw)
-    code, c, weno_z, inv_dx, taps = _burgers_args(params)
-    planes = zchunk or burgers_zchunk(g_hi - g_lo, *S.shape[1:], 1,
-                                      S.device, params.order)
-
-    def kernel(S, out):
-        return wr.library(BURGERS_SOURCE, "slab_step_burgers", _K3B_ARGTYPES,
-                          fb.NVCC_EXTRA).slab_step_burgers(
-            S.data_ptr(), out.data_ptr(),
-            None if lo is None else lo.data_ptr(),
-            None if hi is None else hi.data_ptr(), S.shape[0], int(depth),
-            int(global_nz), S.shape[1], S.shape[2], row_off, g_lo, g_hi,
-            code, c, weno_z, params.order, inv_dx.ctypes.data,
-            None if taps is None else taps.ctypes.data,
-            float(np.float32(dt)), planes, wr.stream_of(S))
-
-    wr.launch(kernel, S, out)
+    _launch_step_burgers("slab_step_burgers", fb.NVCC_EXTRA, S, out, lo, hi,
+                         dt, params, zchunk=zchunk, dtype=torch.float32,
+                         **kw)
     build.count_launch(slab_step_burgers)
     return out
 
@@ -719,16 +800,43 @@ def slab_step_burgers(S, out, dt, *, params: fb.StageParams, global_nz, oz,
 slab_step_burgers.launches = 0
 
 
+def slab_step_burgers_bf16(S, out, dt, *, params: fb.StageParams, global_nz,
+                           oz, depth, window, lo=None, hi=None, zchunk=None):
+    """:func:`slab_step_burgers` on bfloat16 buffers and operands (K3's
+    bf16 instance, either order, in the source built with
+    ``K6_BF16_FLAGS``): the float32 step on the upcast planes, each
+    written cell rounded to bf16 once, so a window is K6's bf16 step to
+    the bit. A CUDA tensor launches the kernel once on the current
+    stream, counted in ``slab_step_burgers_bf16.launches``; a CPU tensor
+    runs the twin, :func:`rounded_window` of
+    :func:`slab_step_burgers_reference`."""
+    kw = dict(depth=depth, window=window, global_nz=global_nz, oz=oz)
+    if S.device.type == "cpu":
+        _check_window(S, out, lo, hi, reach=3 * params.r,
+                      dtype=torch.bfloat16, **kw)
+        return rounded_window(slab_step_burgers_reference, S, out, lo, hi,
+                              dt=dt, params=params, **kw)
+    _launch_step_burgers("slab_step_burgers_bf16",
+                         fb.NVCC_EXTRA + K6_BF16_FLAGS, S, out, lo, hi, dt,
+                         params, zchunk=zchunk, dtype=torch.bfloat16, **kw)
+    build.count_launch(slab_step_burgers_bf16)
+    return out
+
+
+slab_step_burgers_bf16.launches = 0
+
+
 # --------------------------------------------------------------------- #
 # K4: the whole sharded run of every shard of a card, ghost rows moved
 # inside the kernel
 # --------------------------------------------------------------------- #
-def _check_dma(S0s, S1s, lands, k: int, G: int) -> int:
+def _check_dma(S0s, S1s, lands, k: int, G: int,
+               dtype=torch.float32) -> int:
     """Check a K4 call and return the shards' core planes ``lz``: one
     list entry a shard, in z order, every shard's two state buffers of
     one ``(lz + 2 depth, ...)`` shape (``depth = k*G``, ``lz >= depth``)
-    and its landing buffer ``(2, 2, depth, ...)``, contiguous float32 on
-    one device."""
+    and its landing buffer ``(2, 2, depth, ...)``, contiguous ``dtype``
+    on one device."""
     n = len(S0s)
     if not 1 <= n <= DMA_MAX_SHARDS or len(S1s) != n or len(lands) != n:
         raise ValueError(f"one S0, S1 and landing buffer a shard, 1 to "
@@ -744,9 +852,9 @@ def _check_dma(S0s, S1s, lands, k: int, G: int) -> int:
             "exchange")
     land_shape = (2, 2, depth) + tuple(S.shape[1:])
     for i in range(n):
-        _check("S0", S0s[i], S.shape, S.device)
-        _check("S1", S1s[i], S.shape, S.device)
-        _check("land", lands[i], land_shape, S.device)
+        _check("S0", S0s[i], S.shape, S.device, dtype)
+        _check("S1", S1s[i], S.shape, S.device, dtype)
+        _check("land", lands[i], land_shape, S.device, dtype)
     if len({t.data_ptr() for t in (*S0s, *S1s, *lands)}) != 3 * n:
         raise ValueError("every buffer of a K4 call must be its own")
     if S.device.type not in ("cpu", "cuda"):
@@ -841,21 +949,62 @@ def slab_run_dma_diffusion(S0s, S1s, lands, num_iters: int, dt, *, taps,
                 S, out, dt, taps=taps, band=band, bc_value=bc_value,
                 global_nz=gnz, oz=oz, depth=k * G, window=window),
             S0s, S1s, lands, num_iters, k=k, G=G)
-    ny, nx = (n - 2 * R for n in S0s[0].shape[1:])
-    host_taps = np.asarray(taps, dtype=np.float32)
-    _launch_dma(fds.SOURCE, "slab_run_dma_diffusion", _K4D_ARGTYPES, (),
-                S0s, S1s, lands, lz, int(k), grid_blocks, ny, nx,
-                host_taps.ctypes.data, float(np.float32(dt)), int(band),
-                float(bc_value),
-                zchunk or fds.diffusion_zchunk(lz, ny, nx, len(S0s),
-                                               S0s[0].device,
-                                               cooperative=True),
-                int(num_iters))
+    _launch_dma_diffusion("slab_run_dma_diffusion", _K4D_ARGTYPES, (),
+                          S0s, S1s, lands, lz, num_iters, dt, taps, band,
+                          bc_value, k, zchunk, grid_blocks)
     build.count_launch(slab_run_dma_diffusion)
     return S1s if num_iters % 2 else S0s
 
 
 slab_run_dma_diffusion.launches = 0
+
+
+def _launch_dma_diffusion(symbol, argtypes, pad, S0s, S1s, lands, lz,
+                          num_iters, dt, taps, band, bc_value, k, zchunk,
+                          grid_blocks):
+    """Launch a diffusion K4 entry, ``pad`` the bf16 one's pad value (or
+    nothing) after ``bc_value``."""
+    ny, nx = (n - 2 * R for n in S0s[0].shape[1:])
+    host_taps = np.asarray(taps, dtype=np.float32)
+    _launch_dma(fds.SOURCE, symbol, argtypes, (), S0s, S1s, lands, lz,
+                int(k), grid_blocks, ny, nx, host_taps.ctypes.data,
+                float(np.float32(dt)), int(band), float(bc_value), *pad,
+                zchunk or fds.diffusion_zchunk(lz, ny, nx, len(S0s),
+                                               S0s[0].device,
+                                               cooperative=True),
+                int(num_iters))
+
+
+def slab_run_dma_diffusion_bf16(S0s, S1s, lands, num_iters: int, dt, *,
+                                taps, band, bc_value, k: int = 1,
+                                zchunk=None,
+                                grid_blocks: list | None = None):
+    """:func:`slab_run_dma_diffusion` on bfloat16 state and landing
+    buffers (K4's bf16 instance): each step K3's bf16 step, the in-kernel
+    exchange moving bf16 rows (half the bytes). A CUDA tensor launches
+    the kernel once on the current stream for every shard, counted in
+    ``slab_run_dma_diffusion_bf16.launches``; a CPU tensor runs the twin,
+    :func:`slab_run_dma_reference` over K3's bf16 twin."""
+    G = 3 * R
+    lz = _check_dma(S0s, S1s, lands, k, G, torch.bfloat16)
+    if S0s[0].device.type == "cpu":
+        gnz = len(S0s) * lz
+        return slab_run_dma_reference(
+            lambda S, out, window, oz: rounded_window(
+                slab_step_diffusion_reference, S, out, dt=dt, taps=taps,
+                band=band, bc_value=bc_value,
+                pad_value=bf16_value(bc_value), global_nz=gnz, oz=oz,
+                depth=k * G, window=window),
+            S0s, S1s, lands, num_iters, k=k, G=G)
+    _launch_dma_diffusion("slab_run_dma_diffusion_bf16", _K4DH_ARGTYPES,
+                          (bf16_value(bc_value),), S0s, S1s, lands, lz,
+                          num_iters, dt, taps, band, bc_value, k, zchunk,
+                          grid_blocks)
+    build.count_launch(slab_run_dma_diffusion_bf16)
+    return S1s if num_iters % 2 else S0s
+
+
+slab_run_dma_diffusion_bf16.launches = 0
 
 
 def slab_run_dma_burgers(S0s, S1s, lands, num_iters: int, dt, *,
@@ -876,21 +1025,57 @@ def slab_run_dma_burgers(S0s, S1s, lands, num_iters: int, dt, *,
                 S, out, dt, params=params, global_nz=gnz, oz=oz,
                 depth=k * G, window=window),
             S0s, S1s, lands, num_iters, k=k, G=G)
-    code, c, weno_z, inv_dx, taps = _burgers_args(params)
-    _launch_dma(BURGERS_SOURCE, "slab_run_dma_burgers", _K4B_ARGTYPES,
-                fb.NVCC_EXTRA, S0s, S1s, lands, lz, int(k), grid_blocks,
-                S0s[0].shape[1], S0s[0].shape[2], code, c, weno_z,
-                params.order, inv_dx.ctypes.data,
-                None if taps is None else taps.ctypes.data,
-                float(np.float32(dt)),
-                zchunk or burgers_zchunk(lz, *S0s[0].shape[1:], len(S0s),
-                                         S0s[0].device, params.order),
-                int(num_iters))
+    _launch_dma_burgers("slab_run_dma_burgers", fb.NVCC_EXTRA, S0s, S1s,
+                        lands, lz, num_iters, dt, params, k, zchunk,
+                        grid_blocks)
     build.count_launch(slab_run_dma_burgers)
     return S1s if num_iters % 2 else S0s
 
 
 slab_run_dma_burgers.launches = 0
+
+
+def _launch_dma_burgers(symbol, flags, S0s, S1s, lands, lz, num_iters, dt,
+                        params, k, zchunk, grid_blocks):
+    """Launch a Burgers K4 entry of the source built with ``flags``."""
+    code, c, weno_z, inv_dx, taps = _burgers_args(params)
+    _launch_dma(BURGERS_SOURCE, symbol, _K4B_ARGTYPES, flags, S0s, S1s,
+                lands, lz, int(k), grid_blocks, S0s[0].shape[1],
+                S0s[0].shape[2], code, c, weno_z, params.order,
+                inv_dx.ctypes.data,
+                None if taps is None else taps.ctypes.data,
+                float(np.float32(dt)),
+                zchunk or burgers_zchunk(lz, *S0s[0].shape[1:], len(S0s),
+                                         S0s[0].device, params.order),
+                int(num_iters))
+
+
+def slab_run_dma_burgers_bf16(S0s, S1s, lands, num_iters: int, dt, *,
+                              params: fb.StageParams, k: int = 1,
+                              zchunk=None,
+                              grid_blocks: list | None = None):
+    """:func:`slab_run_dma_burgers` on bfloat16 state and landing buffers
+    (K4's bf16 instance, either order, in the source built with
+    ``K6_BF16_FLAGS``): each step K3's bf16 step; counted in
+    ``slab_run_dma_burgers_bf16.launches``; a CPU tensor runs
+    :func:`slab_run_dma_reference` over K3's bf16 twin."""
+    G = 3 * params.r
+    lz = _check_dma(S0s, S1s, lands, k, G, torch.bfloat16)
+    if S0s[0].device.type == "cpu":
+        gnz = len(S0s) * lz
+        return slab_run_dma_reference(
+            lambda S, out, window, oz: rounded_window(
+                slab_step_burgers_reference, S, out, dt=dt, params=params,
+                global_nz=gnz, oz=oz, depth=k * G, window=window),
+            S0s, S1s, lands, num_iters, k=k, G=G)
+    _launch_dma_burgers("slab_run_dma_burgers_bf16",
+                        fb.NVCC_EXTRA + K6_BF16_FLAGS, S0s, S1s, lands, lz,
+                        num_iters, dt, params, k, zchunk, grid_blocks)
+    build.count_launch(slab_run_dma_burgers_bf16)
+    return S1s if num_iters % 2 else S0s
+
+
+slab_run_dma_burgers_bf16.launches = 0
 
 
 class _SlabRunStepper:
@@ -1148,8 +1333,9 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     configuration on one device, K1's padded layout; on a shard of a
     z-slab mesh (``global_shape``) the sharded schedules over K3, the
     block between ``k*G`` ghost planes a side, ``(lz + 2kG, ny+4,
-    nx+4)``. ``dtype=torch.bfloat16`` runs K2's bf16 instance
-    (:func:`slab_run_diffusion_bf16`), unsharded; ``storage_dtype`` is
+    nx+4)``. ``dtype=torch.bfloat16`` runs the bf16 instances
+    (:func:`slab_run_diffusion_bf16`; on a shard K3's and K4's);
+    ``storage_dtype`` is
     the state it faces (a float64 state on the float32 kernel, a float32
     state on the bf16 one)."""
 
@@ -1164,14 +1350,18 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
         super().__init__(interior_shape, spacing, diffusivity, dt, band,
                          bc_value, device, dtype, storage_dtype)
         self._init_sharded(global_shape, overlap_split, steps_per_exchange)
-        if self.sharded and dtype != torch.float32:
-            raise ValueError("K2's bf16 instance is unsharded")
         if self.sharded:
             d = self.exchange_depth
             lz, ny, nx = self.interior_shape
             self.padded_shape = (lz + 2 * d, ny + 2 * R, nx + 2 * R)
             self.core_offsets = (d, R, R)
         self._init_exchange(exchange, mesh_axis, num_shards)
+        bf16 = self.dtype == torch.bfloat16
+        self._step_fn = (slab_step_diffusion_bf16 if bf16
+                         else slab_step_diffusion)
+        self._run_fn = slab_run_diffusion_bf16 if bf16 else slab_run_diffusion
+        self._dma_fn = (slab_run_dma_diffusion_bf16 if bf16
+                        else slab_run_dma_diffusion)
 
     def embed(self, u):
         if not self.sharded:
@@ -1186,25 +1376,23 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
         if not self.sharded:
             return super().extract(S)
         d = self.exchange_depth
-        return S[d:S.shape[0] - d, R:-R, R:-R].contiguous()
+        return S[d:S.shape[0] - d, R:-R, R:-R].contiguous().to(
+            self.storage_dtype)
 
     def _call(self, S, T, window, oz, lo=None, hi=None):
-        slab_step_diffusion(S, T, self.dt, taps=self.taps, band=self.band,
-                            bc_value=self.bc_value,
-                            global_nz=self.global_shape[0], oz=oz,
-                            depth=self.exchange_depth, window=window, lo=lo,
-                            hi=hi)
+        self._step_fn(S, T, self.dt, taps=self.taps, band=self.band,
+                      bc_value=self.bc_value, global_nz=self.global_shape[0],
+                      oz=oz, depth=self.exchange_depth, window=window, lo=lo,
+                      hi=hi)
 
     def _whole_run(self, S0, S1, num_iters: int):
-        run = (slab_run_diffusion_bf16 if self.dtype == torch.bfloat16
-               else slab_run_diffusion)
-        return run(S0, S1, num_iters, self.dt, taps=self.taps,
-                   band=self.band, bc_value=self.bc_value)
+        return self._run_fn(S0, S1, num_iters, self.dt, taps=self.taps,
+                            band=self.band, bc_value=self.bc_value)
 
     def _whole_run_dma(self, S0s, S1s, lands, num_iters: int):
-        return slab_run_dma_diffusion(
-            S0s, S1s, lands, num_iters, self.dt, taps=self.taps,
-            band=self.band, bc_value=self.bc_value, k=self.k)
+        return self._dma_fn(S0s, S1s, lands, num_iters, self.dt,
+                            taps=self.taps, band=self.band,
+                            bc_value=self.bc_value, k=self.k)
 
     def embed_batched(self, us):
         """``(B, *padded)``: every member's padded layout, the ghost ring
@@ -1226,7 +1414,7 @@ class SlabRunDiffusionStepper(PaddedDiffusionState, _SlabRunStepper):
     @staticmethod
     def supported(interior_shape, dtype, depth: int = R) -> bool:
         """What K2 (and K3, on a shard's block with ``depth`` ghost
-        planes a side) takes: a 3-D float32 (or, unsharded, bf16) grid
+        planes a side) takes: a 3-D float32 or bf16 grid
         whose padded state has at most 2^31 - 1 cells (32-bit indices). A
         block's shared memory is fixed (105,600 bytes for any grid, the
         rings float32 at either buffer type), so a cooperative grid of at
@@ -1270,8 +1458,9 @@ class SlabRunBurgersStepper(_SlabRunStepper):
     K3, the block between ``k*G`` ghost planes a side, ``(lz + 2kG, ny,
     nx)``; ``G = 3r`` is 9 at ``order=5`` and 12 at ``order=7``, the
     JAX stepper's ``halo`` at either order. ``dtype=torch.bfloat16`` runs
-    K6's bf16 instance (:func:`slab_run_burgers_bf16`), unsharded, on a
-    float32 state (``storage_dtype``) cast at ``embed`` and ``extract``."""
+    the bf16 instances (:func:`slab_run_burgers_bf16`; on a shard K3's and
+    K4's) on a float32 state (``storage_dtype``) cast at ``embed`` and
+    ``extract``."""
 
     # G: three WENO5 stages of redundant recompute (an order-7 instance
     # sets its own, 12, and reach 4)
@@ -1293,13 +1482,16 @@ class SlabRunBurgersStepper(_SlabRunStepper):
         self.halo = 3 * self.params.r
         self.dt = float(dt)
         self._init_sharded(global_shape, overlap_split, steps_per_exchange)
-        if self.sharded and dtype != torch.float32:
-            raise ValueError("K6's bf16 instance is unsharded")
         d = self.exchange_depth if self.sharded else 0
         self.core_offsets = (d, 0, 0)
         lz, ny, nx = self.interior_shape
         self.padded_shape = (lz + 2 * d, ny, nx)
         self._init_exchange(exchange, mesh_axis, num_shards)
+        bf16 = dtype == torch.bfloat16
+        self._step_fn = slab_step_burgers_bf16 if bf16 else slab_step_burgers
+        self._run_fn = slab_run_burgers_bf16 if bf16 else slab_run_burgers
+        self._dma_fn = (slab_run_dma_burgers_bf16 if bf16
+                        else slab_run_dma_burgers)
 
     def embed(self, u):
         u = u.to(device=self.device, dtype=self.dtype, copy=True)
@@ -1315,13 +1507,12 @@ class SlabRunBurgersStepper(_SlabRunStepper):
         if not self.sharded:
             return S.to(self.storage_dtype)
         d = self.exchange_depth
-        return S[d:S.shape[0] - d].contiguous()
+        return S[d:S.shape[0] - d].contiguous().to(self.storage_dtype)
 
     def _call(self, S, T, window, oz, lo=None, hi=None):
-        slab_step_burgers(S, T, self.dt, params=self.params,
-                          global_nz=self.global_shape[0], oz=oz,
-                          depth=self.exchange_depth, window=window, lo=lo,
-                          hi=hi)
+        self._step_fn(S, T, self.dt, params=self.params,
+                      global_nz=self.global_shape[0], oz=oz,
+                      depth=self.exchange_depth, window=window, lo=lo, hi=hi)
 
     # the layout is unpadded, so a batch embeds as a copy too
     def embed_batched(self, us):
@@ -1332,13 +1523,11 @@ class SlabRunBurgersStepper(_SlabRunStepper):
         return S.to(self.storage_dtype)
 
     def _whole_run(self, S0, S1, num_iters: int):
-        run = (slab_run_burgers_bf16 if self.dtype == torch.bfloat16
-               else slab_run_burgers)
-        return run(S0, S1, num_iters, self.dt, params=self.params)
+        return self._run_fn(S0, S1, num_iters, self.dt, params=self.params)
 
     def _whole_run_dma(self, S0s, S1s, lands, num_iters: int):
-        return slab_run_dma_burgers(S0s, S1s, lands, num_iters, self.dt,
-                                    params=self.params, k=self.k)
+        return self._dma_fn(S0s, S1s, lands, num_iters, self.dt,
+                            params=self.params, k=self.k)
 
     def _whole_run_batched(self, S0, S1, num_iters: int):
         return slab_run_burgers_batched(S0, S1, num_iters, self.dt,
@@ -1352,8 +1541,8 @@ class SlabRunBurgersStepper(_SlabRunStepper):
         cells with its ghost planes (32-bit indices). A block's shared
         memory is fixed (219 KiB for any grid), so a cooperative grid of
         one block an SM always fits; tiling y and x removes the JAX
-        package's row-size limit. The bf16 instance (unsharded) takes
-        only the planes the JAX package's slab takes in bf16
+        package's row-size limit. The bf16 instances take only the
+        (local) planes the JAX package's slab takes in bf16
         (:func:`jax_bf16_slab_fits`): on larger grids its once-a-step
         rounding left the bf16 band on the H100 (PERF.md §6), and
         the JAX package's carried generic loop runs them."""

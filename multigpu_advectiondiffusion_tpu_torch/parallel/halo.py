@@ -10,9 +10,12 @@ exchanged before computing (not the RHS), and any subset of axes may be
 decomposed.
 
 ``exchange_ghosts.bytes_per_execution`` counts the bytes every exchange
-sends (the two ghost slabs of a site, summed over shards and calls):
-the JAX package's ``halo.bytes_per_execution`` counter, kept as a plain
-count until the telemetry sink is ported (ROADMAP queue 1 item 11).
+sends (the two ghost slabs of a site, summed over shards and calls, at
+the wire's type): the JAX package's ``halo.bytes_per_execution``
+counter, kept as a plain count until the telemetry sink is ported
+(ROADMAP queue 1 item 11). Under ``precision="bf16"`` the generic loop's
+slabs cross a bf16 wire (``wire_dtype``), half the bytes; the fused
+rungs' buffers are bf16 themselves, so their refresh moves bf16 as is.
 The in-kernel exchange of the slab rung's ``exchange="dma"`` (K4, which
 moves the ghost rows inside its one launch for every shard of the card)
 has no exchange site here: :func:`remote_dma_spec` declares it and
@@ -113,11 +116,12 @@ def exchange_ghosts(u: torch.Tensor, axis: int, halo: int, mesh_axis,
     (:func:`core.bc.boundary_halo`) instead. ``halo`` is the exchange
     depth (``k * G`` for the k-step schedule). ``repeats`` is the JAX
     package's telemetry hint and changes nothing here: the port counts
-    every call. ``wire_dtype`` (bf16 wires) is not ported."""
+    every call. ``wire_dtype``, where it differs from ``u.dtype``, is the
+    JAX package's bf16 wire: only the two sent slabs, and the edge
+    shards' boundary ghosts, are cast to it, and cast back on receipt;
+    the count is the wire's bytes."""
     del repeats
-    if wire_dtype is not None and wire_dtype != u.dtype:
-        raise NotImplementedError(
-            "bf16 halo wires are not ported yet (ROADMAP queue 1 item 8h)")
+    wire = None if wire_dtype in (None, u.dtype) else wire_dtype
     n_local = u.shape[axis]
     if n_local < halo:
         raise ValueError(
@@ -129,6 +133,8 @@ def exchange_ghosts(u: torch.Tensor, axis: int, halo: int, mesh_axis,
     # neighbour's leftmost cells (tags 1/5 pair messaging, main.c:218,234)
     send_hi = slice_axis(u, axis, n_local - halo, n_local)
     send_lo = slice_axis(u, axis, 0, halo)
+    if wire is not None:
+        send_hi, send_lo = send_hi.to(wire), send_lo.to(wire)
     from_left, from_right = ppermute_many([send_hi, send_lo], mesh_axis,
                                           [fwd, bwd])
     if bc.kind != "periodic":
@@ -137,6 +143,11 @@ def exchange_ghosts(u: torch.Tensor, axis: int, halo: int, mesh_axis,
             from_left = boundary_halo(u, axis, halo, bc, "left")
         if idx == num_shards - 1:
             from_right = boundary_halo(u, axis, halo, bc, "right")
+        if wire is not None:
+            # the global edges' ghosts take the wire's rounding too
+            from_left, from_right = from_left.to(wire), from_right.to(wire)
+    if wire is not None:
+        from_left, from_right = from_left.to(u.dtype), from_right.to(u.dtype)
     exchange_ghosts.bytes_per_execution.add(
         send_hi.numel() * send_hi.element_size()
         + send_lo.numel() * send_lo.element_size())

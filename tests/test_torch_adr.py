@@ -319,7 +319,8 @@ def test_engaged_path_matches_jax(ndim, dtype):
 @pytest.mark.parametrize("kw,match", [
     ({"impl": "auto"}, "tuner"),
     # precision="bf16" runs on one device (K9's bf16 instance,
-    # tests/test_torch_precision.py); a mesh still refuses it (item 8h)
+    # tests/test_torch_precision.py) and on a mesh: K9's sharded bf16
+    # instance (tests/test_torch_precision_mesh.py)
     ({"precision": "bf16"}, "bf16"),
 ])
 def test_unported_rungs_raise(kw, match):
@@ -327,8 +328,15 @@ def test_unported_rungs_raise(kw, match):
     if "precision" in kw:
         place = {"mesh": pmesh.make_mesh(
             {"dz": 2}, devices=[torch.device("cpu")] * 2, timeout=60.0)}
-    with pytest.raises(NotImplementedError, match=match):
-        padr.ADRSolver(padr.ADRConfig(grid=PGrid.make(16, 12, 10), **kw),
-                       **place)
+        s = padr.ADRSolver(padr.ADRConfig(grid=PGrid.make(16, 12, 10),
+                                          impl="pallas", **kw), **place)
+        path = s.engaged_path()
+        assert (path["stepper"], path["storage_dtype"]) == ("fused-stage",
+                                                            "bfloat16")
+        assert s.run(s.initial_state(), 1).it == 1
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            padr.ADRSolver(padr.ADRConfig(grid=PGrid.make(16, 12, 10),
+                                          **kw), **place)
     with pytest.raises(NotImplementedError, match="1-D"):
         padr.ADRSolver(padr.ADRConfig(grid=PGrid.make(16)), device="cpu")

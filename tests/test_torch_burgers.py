@@ -256,8 +256,9 @@ def test_pallas_step_and_pallas_axis_run(kw, stepper):
     ({"impl": "pallas_slab", "weno_order": 7, "adaptive_dt": False},
      "K6's order-7"),
     ({"impl": "pallas_stage", "weno_order": 7}, "order-7"),
-    # precision="bf16" runs on one device (tests/test_torch_precision.py);
-    # on a mesh it raises, naming the bf16 wires (ROADMAP item 8h)
+    # precision="bf16" runs on one device (tests/test_torch_precision.py)
+    # and on a mesh, its ghosts on bf16 wires
+    # (tests/test_torch_precision_mesh.py)
     ({"impl": "xla", "precision": "bf16"}, "bf16"),
     # dtype="bfloat16" runs too; with precision="bf16" it is the JAX
     # package's "redundant" ValueError
@@ -275,6 +276,15 @@ def test_unported_configs_raise(kw, match):
     if "precision" in kw:
         place = {"mesh": pmesh.make_mesh(
             {"dz": 2}, devices=[torch.device("cpu")] * 2, timeout=60.0)}
+    if kw == {"impl": "xla", "precision": "bf16"}:
+        s = PSolver(PConfig(grid=PGrid.make(12, 10, 8), dtype="float32",
+                            **kw), **place)
+        path = s.engaged_path()
+        assert (path["stepper"], path["storage_dtype"]) == ("generic-xla",
+                                                            "bfloat16")
+        out = s.run(s.initial_state(), 1)
+        assert out.it == 1 and out.u.dtype == torch.float32
+        return
     if kw.get("weno_order") == 7:
         # WENO7 runs its fused rung on one device and on a z-slab mesh
         # (the order-7 instances of K5 and K6, and of the sharded K5 and

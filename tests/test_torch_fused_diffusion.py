@@ -290,9 +290,10 @@ def test_pallas_axis_runs_the_per_axis_kernel():
     ({"impl": "auto"}, "tuner"),
     # float64 storage on K1/K2, dtype="bfloat16" and precision="bf16" run
     # on one device now (tests/test_torch_storage_f64.py,
-    # test_torch_precision.py); what still refuses them: the JAX
-    # package's precision gate ("must be float32", "redundant") and, on a
-    # mesh, the unported bf16 wires (ROADMAP item 8h)
+    # test_torch_precision.py), and the bf16 rungs on a mesh too
+    # (test_torch_precision_mesh.py: the mesh case below runs); what
+    # still refuses them: the JAX package's precision gate ("must be
+    # float32", "redundant")
     ({"impl": "pallas", "dtype": "float64", "precision": "bf16"},
      "float64"),
     ({"impl": "pallas_stage", "dtype": "float64", "precision": "bf16"},
@@ -306,15 +307,18 @@ def test_unported_rungs_raise(kw, match):
     # steps_per_exchange without a mesh: the JAX package's construction
     # gate (a ValueError saying a mesh is needed) since meshes are ported
     kw = dict(kw)
-    exc = (NotImplementedError if kw["impl"] == "auto" or kw.pop("mesh", 0)
-           else ValueError)
+    if kw.pop("mesh", 0):
+        mesh = pmesh.make_mesh({"dz": 2}, devices=[torch.device("cpu")] * 2,
+                               timeout=60.0)
+        s = PSolver(PConfig(grid=PGrid.make(24, 16, 16), **kw), mesh=mesh)
+        path = s.engaged_path()
+        assert (path["stepper"], path["storage_dtype"], match) == (
+            "generic-xla", "bfloat16", "bf16")
+        assert s.run(s.initial_state(), 1).u.dtype == torch.float32
+        return
+    exc = NotImplementedError if kw["impl"] == "auto" else ValueError
     with pytest.raises(exc, match=match):
-        if exc is NotImplementedError and "precision" in kw:
-            mesh = pmesh.make_mesh({"dz": 2}, devices=[torch.device("cpu")]
-                                   * 2, timeout=60.0)
-            PSolver(PConfig(grid=PGrid.make(24, 16, 16), **kw), mesh=mesh)
-        else:
-            _solver(**kw)
+        _solver(**kw)
 
 
 @pytest.mark.parametrize("parity", [True, False])

@@ -176,7 +176,36 @@ def test_axis_offsets_and_boundary_halo(devices):
     assert phalo.exchange_spec() == jhalo.exchange_spec()
 
 
-def test_bf16_wires_raise():
-    with pytest.raises(NotImplementedError, match="item 8h"):
-        phalo.exchange_ghosts(torch.zeros(4, 2, 2), 0, 1, "dz", 2,
-                              Boundary("edge"), wire_dtype=torch.bfloat16)
+@pytest.mark.parametrize("bc", ["dirichlet", "edge"])
+def test_bf16_wires_match_jax(devices, bc):
+    """The bf16 wire (``wire_dtype``): the exchanged slabs and the edge
+    shards' boundary ghosts rounded to bf16 and back, equal to the JAX
+    package's to the bit; the counter adds the bf16 slabs' bytes."""
+    kind, value = BCS[bc]
+    sizes, mapping = MESHES[0]
+    jm, pm = _meshes(devices, sizes)
+    x = _field((8 * 4, 6, 5), 3)
+    spec = _spec(mapping)
+
+    def jbody(u):
+        return jhalo.exchange_ghosts(u, 0, 6, "dz", 4,
+                                     JBoundary(kind, value),
+                                     wire_dtype=jnp.bfloat16)
+
+    f = jax.jit(jmesh.shard_map(jbody, mesh=jm, in_specs=(spec,),
+                                out_specs=(spec, spec)))
+    want = [np.asarray(o) for o in f(jnp.asarray(x))]
+
+    def pbody(u):
+        return phalo.exchange_ghosts(u, 0, 6, "dz", 4,
+                                     Boundary(kind, value),
+                                     wire_dtype=torch.bfloat16)
+
+    d = pmesh.Decomposition.of(mapping)
+    before = phalo.exchange_ghosts.bytes_per_execution.value
+    got = pmesh.shard_map(pbody, pm, (d,), (d, d))(torch.from_numpy(x))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and np.array_equal(g.numpy(), w)
+        assert np.array_equal(w, torch.tensor(w).bfloat16().float())
+    assert phalo.exchange_ghosts.bytes_per_execution.value - before == (
+        4 * 2 * 6 * 6 * 5 * 2)

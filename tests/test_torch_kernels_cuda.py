@@ -9,8 +9,9 @@ sharded instance, with the 2-D and ADR mesh runs, and K4, the sharded
 run of every shard of the card with the ghost rows moved inside the
 kernel, and the WENO7 instances of K3, K4, K2b, the sharded K5 and
 K8/K8b with their mesh runs, and the bf16 instances of K1, K2, K6 and K9
-with float64 storage on K1/K2 — against their plain PyTorch twins on a
-GPU. Marked ``cuda``:
+with float64 storage on K1/K2, and the sharded bf16 instances of K1 and
+K9 and the bf16 instances of K3 and K4 with their mesh runs — against
+their plain PyTorch twins on a GPU. Marked ``cuda``:
 it skips where no CUDA device is present.
 
 This file imports nothing of JAX, so it also runs on a GPU machine that
@@ -2048,3 +2049,173 @@ def test_f64_storage_is_the_f32_kernel_run(gpu, impl):
     want = s32.run(s0._replace(u=s0.u.float(), t=np.float32(s0.t)), 4)
     assert got.u.dtype == torch.float64
     assert torch.equal(got.u, want.u.double())
+
+
+# --------------------------------------------------------------------- #
+# The storage rungs on a z-slab mesh: the sharded bf16 instances of K1
+# and K9, K3 and K4 on bf16 buffers (operands and landing buffers bf16),
+# each against its twin to the bit, and the bf16 mesh runs against the
+# unsharded bf16 runs
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["shard", "lo", "hi"])
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+def test_k1_bf16_sharded_matches_twin(gpu_mesh, kind, role):
+    a, b = fd.STAGES[kind]
+    shape = (23, 29, 37)
+    taps = fd.stage_taps((0.1, 0.12, 0.09), (1.0,) * 3)
+    v, u = _bf16_padded(shape, 0.1, kind), _bf16_padded(shape, 0.1, 5 + kind)
+    kw = dict(taps=taps, a=a, b=b, band=2, bc_value=0.1,
+              global_shape=(46,) + shape[1:], offsets=(23, 0, 0))
+    if role != "shard":
+        kw["window"] = (0, 8) if role == "lo" else (15, 23)
+        kw[role] = v[:fd.R].flip(1).contiguous()
+    got = torch.full_like(v, fd.bf16_value(0.1))
+    want = got.clone()
+    uu = None if kind == 0 else u
+    twin = {k: (x.float() if k in ("lo", "hi") else x) for k, x in kw.items()}
+    fd.upcast_twin(fd.stage_reference, v, uu, want, 1e-3, **twin)
+    fd.fused_stage_bf16(v, uu, got, 1e-3, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["diffusion", "burgers5", "burgers7"])
+@pytest.mark.parametrize("window,op", [((0, 24), None), ((-12, 36), None),
+                                       ((0, 12), "lo"), ((12, 24), "hi")])
+def test_k3_bf16_matches_twin(gpu_mesh, family, window, op):
+    rng = np.random.default_rng(len(family))
+    depth, lz, gnz, oz = 24, 24, 48, 24
+    if family == "diffusion":
+        ring, G = fd.R, 3 * fd.R
+        kw = dict(taps=fd.stage_taps((0.1, 0.12, 0.09), (1.0,) * 3), band=2,
+                  bc_value=0.1)
+        step, ref = fsr.slab_step_diffusion_bf16, (
+            fsr.slab_step_diffusion_reference)
+        twin_kw = dict(kw, pad_value=fd.bf16_value(0.1))
+    else:
+        order = int(family[-1])
+        ring = 0
+        kw = dict(params=fb.stage_params(pflux.burgers(), "js",
+                                         (0.05, 0.06, 0.07), 1e-3, order))
+        G = 3 * kw["params"].r
+        step, ref, twin_kw = (fsr.slab_step_burgers_bf16,
+                              fsr.slab_step_burgers_reference, kw)
+    S = _rand(rng, (lz + 2 * depth, 20 + 2 * ring, 30 + 2 * ring),
+              gpu_mesh).to(BF16)
+    opnd = S[:depth].flip(1).contiguous() if op else None
+    win = dict(global_nz=gnz, oz=oz, depth=depth, window=window,
+               lo=opnd if op == "lo" else None,
+               hi=opnd if op == "hi" else None)
+    want = fsr.rounded_window(ref, S, torch.zeros_like(S), dt=2e-4,
+                              **twin_kw, **win)
+    got = step(S, torch.zeros_like(S), 2e-4, **kw, **win)
+    torch.cuda.synchronize()
+    assert G <= depth and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,k", [("diffusion", 1), ("diffusion", 2),
+                                      ("burgers5", 1), ("burgers7", 1)])
+def test_k4_bf16_matches_twin(gpu_mesh, family, k):
+    rng = np.random.default_rng(k)
+    if family == "diffusion":
+        ring, G = fd.R, 3 * fd.R
+        kw = dict(taps=fd.stage_taps((0.1, 0.12, 0.09), (1.0,) * 3), band=2,
+                  bc_value=0.0)
+        run, ref = fsr.slab_run_dma_diffusion_bf16, (
+            fsr.slab_step_diffusion_reference)
+    else:
+        ring = 0
+        kw = dict(params=fb.stage_params(pflux.burgers(), "js",
+                                         (0.05, 0.06, 0.07), 0.0,
+                                         int(family[-1])))
+        G = 3 * kw["params"].r
+        run, ref = fsr.slab_run_dma_burgers_bf16, (
+            fsr.slab_step_burgers_reference)
+    lz, depth = 26, k * G
+    shape = (lz + 2 * depth, 20 + 2 * ring, 30 + 2 * ring)
+
+    def bufs():
+        r = np.random.default_rng(3)
+        return [[_rand(r, s, gpu_mesh).to(BF16) for _ in range(2)]
+                for s in (shape, shape, (2, 2, depth) + shape[1:])]
+
+    got, want = bufs(), bufs()
+    run(*got, 3, 2e-4, k=k, **kw)
+    fsr.slab_run_dma_reference(
+        lambda S, out, window, oz: fsr.rounded_window(
+            ref, S, out, dt=2e-4, global_nz=2 * lz, oz=oz, depth=depth,
+            window=window, **kw), *want, 3, k=k, G=G)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(torch.stack(g)), _bits(torch.stack(w)))
+    del rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["s1", "s2", "s3"])
+def test_k9_bf16_sharded_matches_twin(gpu_mesh, kind):
+    st = fa.FusedADRStepper((13, 19, 61), (0.1, 0.08, 0.12), 1.0,
+                            (0.5, -0.3, 0.2), 0.25, 2e-4, 2, 0.1, "cuda",
+                            kappa_variation=0.2, global_shape=(26, 19, 61),
+                            dtype=BF16, storage_dtype=torch.float32)
+    a, b = fd.STAGES[kind]
+    shape = (13, 19, 61)
+    v, u = _bf16_padded(shape, 0.1, kind), _bf16_padded(shape, 0.1, 3 + kind)
+    skw = st.stage_kwargs(offsets=(13, 0, 0))
+    uu = None if kind == 0 else u
+    got = torch.full_like(v, fd.bf16_value(0.1))
+    want = got.clone()
+    fd.upcast_twin(fa.adr_stage_reference, v, uu, want, 2e-4, a=a, b=b,
+                   **skw)
+    fa.fused_adr_stage_bf16(v, uu, got, 2e-4, a=a, b=b, **skw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,extra,plain,counter,launches", [
+    ("diffusion", dict(impl="pallas"), "pallas_stage", "K1", 6),
+    ("diffusion", dict(impl="pallas_stage", overlap="split"),
+     "pallas_stage", "K1", 18),
+    ("diffusion", dict(impl="pallas_slab"), "pallas_slab", "K3d", 2),
+    ("diffusion", dict(impl="pallas_slab", exchange="dma"), "pallas_slab",
+     "K4d", 0),
+    ("burgers", dict(impl="pallas", adaptive_dt=False), "pallas", "K3b", 2),
+    ("burgers", dict(impl="pallas", adaptive_dt=False, weno_order=7,
+                     exchange="dma"), "pallas", "K4b", 0),
+    ("adr", dict(impl="pallas"), "pallas", "K9", 6),
+])
+def test_bf16_mesh_run_matches_unsharded(gpu_mesh, family, extra, plain,
+                                         counter, launches):
+    """``precision="bf16"`` on a two-shard z mesh of one card equals the
+    unsharded bf16 run to the bit, ``t`` equal; the launches summed over
+    the shards (K4: one a run)."""
+    from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import make_mesh
+
+    counters = {"K1": fd.fused_stage_bf16, "K9": fa.fused_adr_stage_bf16,
+                "K3d": fsr.slab_step_diffusion_bf16,
+                "K3b": fsr.slab_step_burgers_bf16,
+                "K4d": fsr.slab_run_dma_diffusion_bf16,
+                "K4b": fsr.slab_run_dma_burgers_bf16}
+    cls, cfg_cls = {"diffusion": (DiffusionSolver, DiffusionConfig),
+                    "burgers": (BurgersSolver, BurgersConfig),
+                    "adr": (ADRSolver, ADRConfig)}[family]
+    grid = Grid.make(37, 29, 48 if family != "burgers" else 96,
+                     lengths=2.0)
+    cfg = cfg_cls(grid=grid, precision="bf16", **extra)
+    mesh = make_mesh({"dz": 2}, devices=[gpu_mesh] * 2, timeout=60)
+    one = cls(dataclasses.replace(cfg, impl=plain, overlap="padded",
+                                  exchange="collective"))
+    sharded = cls(cfg, mesh=mesh)
+    assert sharded.engaged_path()["storage_dtype"] == "bfloat16"
+    s0 = one.initial_state()
+    want = one.run(s0, 4)
+    counters[counter].launches = 0
+    got = sharded.run(sharded.initial_state(), 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got.u.assemble(), want.u)
+    assert (got.t, got.it) == (want.t, want.it)
+    assert counters[counter].launches == (launches * 4 if launches else 1)

@@ -168,10 +168,15 @@ def test_bf16_wrappers_check_their_buffers():
     with pytest.raises(TypeError, match="bfloat16"):
         psr.slab_run_diffusion_bf16(v.float(), v.float().clone(), 1, 1e-3,
                                     taps=(0.0,) * 15, band=2, bc_value=0.0)
-    with pytest.raises(ValueError, match="unsharded"):
-        pfd.FusedDiffusionStepper((4, 4, 4), (1.0,) * 3, (1.0,) * 3, 1e-3,
-                                  2, 0.0, "cpu", global_shape=(8, 4, 4),
-                                  dtype=BF16)
+    # the split schedule's operands share the buffers' bf16
+    with pytest.raises(TypeError, match="bfloat16"):
+        pfd.fused_stage_bf16(v, None, v.clone(), 1e-3, lo=v[:R].float(),
+                             **kw)
+    # a shard's stepper runs the sharded bf16 instances (K1's and K9's)
+    st = pfd.FusedDiffusionStepper((4, 4, 4), (1.0,) * 3, (1.0,) * 3, 1e-3,
+                                   2, 0.0, "cpu", global_shape=(8, 4, 4),
+                                   dtype=BF16)
+    assert st.sharded and st.stage is pfd.fused_stage_bf16
 
 
 # --------------------------------------------------------------------- #
@@ -445,19 +450,23 @@ def test_validation_texts_match_jax():
                 device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
         PConfig(precision="fp8", **grid)
-    for cls, cfg in ((PASolver, PAConfig(precision="bf16", **grid)),
-                     (PSolver, PConfig(precision="bf16", impl="pallas",
-                                       **grid))):
+    # on a mesh the same configs run the sharded bf16 rungs (the JAX
+    # package's; tests/test_torch_precision_mesh.py holds the runs)
+    for cls, cfg, stepper in (
+            (PASolver, PAConfig(precision="bf16", **grid), "generic-xla"),
+            (PSolver, PConfig(precision="bf16", impl="pallas", **grid),
+             "fused-stage"),
+            (PSolver, PConfig(dtype="bfloat16", impl="pallas", **grid),
+             "fused-stage")):
         mesh = pmesh.make_mesh({"dz": 2}, devices=[torch.device("cpu")] * 2,
                                timeout=30.0)
-        with pytest.raises(NotImplementedError, match="item 8h"):
-            cls(cfg, mesh=mesh)
-    # the fused K1 under a mesh has no bf16 instance: dtype="bfloat16"
-    # raises where it would engage, and the generic path runs
+        s = cls(cfg, mesh=mesh)
+        path = s.engaged_path()
+        assert (path["stepper"], path["storage_dtype"]) == (stepper,
+                                                            "bfloat16")
+        assert s.run(s.initial_state(), 1).u.dtype == s.dtype
     mesh = pmesh.make_mesh({"dz": 2}, devices=[torch.device("cpu")] * 2,
                            timeout=30.0)
-    with pytest.raises(NotImplementedError, match="item 8h"):
-        PSolver(PConfig(dtype="bfloat16", impl="pallas", **grid), mesh=mesh)
     s = PSolver(PConfig(dtype="bfloat16", impl="xla", **grid), mesh=mesh)
     assert s.run(s.initial_state(), 1).u.dtype == BF16
     with pytest.raises(ValueError, match="single-run rung"):

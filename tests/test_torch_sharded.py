@@ -417,6 +417,7 @@ def test_split_schedule_difference_against_jax(impl):
                         mesh=m), None),
     (lambda m: PASolver(PAConfig(grid=PGrid.make(8, 8, 8),
                                  impl="pallas"), mesh=m), None),
+    # precision="bf16" runs now (the sharded K1 bf16 instance, item 8h)
     (lambda m: PDSolver(PDConfig(grid=PGrid.make(8, 8, 8), impl="pallas",
                                  precision="bf16"), mesh=m), "bf16"),
     # exchange="dma" runs now (K4), on a grid whose shards serve it
@@ -426,13 +427,17 @@ def test_split_schedule_difference_against_jax(impl):
 ])
 def test_unported_mesh_configs_raise(make, match):
     """What a mesh still refuses raises and names its ROADMAP item; the
-    configs that raised before K8/K8b, the sharded K9 (items 8b, 8c) and
-    K4 (item 8e) engage their fused rung and run a step."""
-    if match is None:
+    configs that raised before K8/K8b, the sharded K9 (items 8b, 8c), K4
+    (item 8e) and the sharded bf16 instances (item 8h; ``match`` "bf16"
+    names the storage) engage their fused rung and run a step."""
+    if match in (None, "bf16"):
         solver = make(_mesh({"dz": 2}))
-        assert solver.engaged_path()["stepper"] == (
+        path = solver.engaged_path()
+        assert path["stepper"] == (
             "fused-whole-run-slab" if solver.cfg.exchange == "dma"
             else "fused-stage")
+        assert path["storage_dtype"] == (
+            "bfloat16" if match == "bf16" else "float32")
         state = solver.initial_state()
         out = solver.run(state, 1)
         assert out.it == 1 and torch.isfinite(out.u.assemble()).all()
