@@ -508,6 +508,10 @@ SWEEP_BURGERS = ((24, 16, 16), (64, 64, 64), (160, 160, 162), K6_N,
                  (512, 512, 512))
 SWEEP_BURGERS_ITERS = 20
 GATE_ROUNDS = 5  # the Burgers gate's K5 and K6 timings, taken in turn
+# steps of the per-axis paths' timed and profiled runs (phases 18, 21),
+# run(iters) before the script outgrew its time: their ms/step is
+# host-set and does not move with the depth
+AXIS_TIME_ITERS = 20
 # every launch counter, reset before each main path and read after it
 COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K7": wr.whole_run, "K7a": wr.whole_run_adaptive,
@@ -529,7 +533,8 @@ COUNTERS = {"K1": fd.fused_stage, "K5": fb.fused_burgers_stage,
             "K3-bf16": fsr.slab_step_diffusion_bf16,
             "K3-burgers-bf16": fsr.slab_step_burgers_bf16,
             "K4-bf16": fsr.slab_run_dma_diffusion_bf16,
-            "K4-burgers-bf16": fsr.slab_run_dma_burgers_bf16}
+            "K4-burgers-bf16": fsr.slab_run_dma_burgers_bf16,
+            "K5-yx": fb.yx_instance}
 
 
 def card_line() -> str:
@@ -678,7 +683,7 @@ def isolated_ms(buffers, zchunk: int, **kw) -> float:
 def check_k1(shape, taps, dt, seed: int, timed: bool) -> dict:
     """Every stage kind once against the twin; when ``timed``, also the
     kernel alone (:func:`isolated_ms`) at each z-chunk of ``ZCHUNKS``,
-    the twin (median of 3) and the bound."""
+    the twin (its check's call, timed once) and the bound."""
     res = {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound_ms": [],
            "sweep": {z: [] for z in ZCHUNKS}}
     for kind, (a, b) in enumerate(fd.STAGES):
@@ -686,7 +691,8 @@ def check_k1(shape, taps, dt, seed: int, timed: bool) -> dict:
         v, u, out = stage_inputs(shape, seed + kind)
         kw = dict(taps=taps, a=a, b=b, band=2, bc_value=0.0)
         ref = out.clone()
-        fd.stage_reference(v, u if has_u else None, ref, dt, **kw)
+        plain = cuda_ms(lambda: fd.stage_reference(
+            v, u if has_u else None, ref, dt, **kw), 1)[0]
         fd.fused_stage(v, u if has_u else None, out, dt, **kw)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
@@ -708,8 +714,7 @@ def check_k1(shape, taps, dt, seed: int, timed: bool) -> dict:
                 res["sweep"][z].append(isolated_ms(buffers, z, dt=dt, **kw))
             del buffers
             res["ms"].append(res["sweep"][fd.Z_CHUNK][-1])
-            res["plain_ms"].append(statistics.median(cuda_ms(
-                lambda: fd.stage_reference(v, u_arg, ref, dt, **kw), 3)))
+            res["plain_ms"].append(plain)
             res["bound_ms"].append(1e3 * max(
                 stage_bytes(shape, has_u) / HBM_BYTES_PER_S,
                 stage_ops(shape, has_u) / F32_OPS_PER_S,
@@ -804,8 +809,8 @@ def check_k5(shape, params, dt, seed: int, timed: bool,
     """Every stage kind once against the twin on random data in
     [-0.1, 1.0) (the last stage in place and emitting max|f'|); when
     ``timed``, also K5 alone at each z-chunk of ``zchunks`` (which holds
-    ``fb.Z_CHUNK``), the twin (median of 3) and the bound. The WENO
-    order is ``params.order``."""
+    ``fb.Z_CHUNK``), the twin (its check's call, timed once) and the
+    bound. The WENO order is ``params.order``."""
     res = {"max_abs_err": 0.0, "ulps": 0, "ms": [], "plain_ms": [],
            "bound_ms": [], "sweep": {z: [] for z in zchunks}}
     w7 = " WENO7" if params.order == 7 else ""
@@ -817,8 +822,11 @@ def check_k5(shape, params, dt, seed: int, timed: bool,
     for kind, (a, b) in enumerate(fb.STAGES):
         has_u, emit = kind > 0, kind == 2
         kw = dict(params=params, a=a, b=b)
-        ref = fb.stage_reference(v, u if has_u else None,
-                                 torch.empty_like(v), dt, emit=emit, **kw)
+        ref = []
+        plain = cuda_ms(lambda: ref.append(fb.stage_reference(
+            v, u if has_u else None, torch.empty_like(v), dt, emit=emit,
+            **kw)), 1)[0]
+        ref = ref[0]
         want, want_max = ref if emit else (ref, None)
         out = u.clone() if emit else torch.empty_like(v)
         mx = torch.full((1,), -1.0, device="cuda") if emit else None
@@ -855,12 +863,7 @@ def check_k5(shape, params, dt, seed: int, timed: bool,
                                                       **kw))
             del buffers
             res["ms"].append(res["sweep"][fb.Z_CHUNK][-1])
-            u_arg = u if has_u else None
-            scratch = torch.empty_like(v)
-            res["plain_ms"].append(statistics.median(cuda_ms(
-                lambda: fb.stage_reference(v, u_arg, scratch, dt, emit=emit,
-                                           **kw), 3)))
-            del scratch
+            res["plain_ms"].append(plain)
             by_bytes = stage_bytes(shape, has_u) / HBM_BYTES_PER_S
             by_ops = k5_stage_ops(shape, has_u, viscous, params.variant,
                                   params.order) / F32_OPS_PER_S
@@ -1141,11 +1144,28 @@ def compare(name, got, want) -> tuple[float, int]:
     return err, n_ulps
 
 
+def union_busy_ms(events) -> float:
+    """The device's busy time (ms) over ``events``: the union of their
+    intervals, so work that overlaps on the streams of a mesh's shards
+    counts once."""
+    busy, end = 0.0, None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3
+
+
 def run_profile(fn, kernel: str) -> dict | None:
-    """Run ``fn`` under ``torch.profiler``: device span and busy time, the
-    launches and mean time of kernels whose name holds ``kernel``, and
-    the device-to-host copies; ``None`` when the profiler saw no device
-    activity (the caller then times with CUDA events)."""
+    """Run ``fn`` under ``torch.profiler``: device span and busy time (the
+    union of the device intervals), the launches and mean time of kernels
+    whose name holds ``kernel``, and the device-to-host copies; ``None``
+    when the profiler saw no device activity (the caller then times with
+    CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1162,8 +1182,7 @@ def run_profile(fn, kernel: str) -> dict | None:
             for e in dev if kernel in e.name]
     return {
         "span_ms": (end - start) / 1e3,
-        "busy_ms": sum(e.time_range.end - e.time_range.start
-                       for e in dev) / 1e3,
+        "busy_ms": union_busy_ms(dev),
         "launches": len(mine),
         "kernel_ms": statistics.mean(mine) if mine else float("nan"),
         "dtoh": sum(1 for e in dev if "DtoH" in e.name),
@@ -2389,15 +2408,16 @@ def per_axis_path(name, solver, iters: int, expect: dict, card: str,
     of 3 CUDA-event samples of ``run(time_iters)`` after a warm-up),
     MLUPS, the host reads of device scalars and one profiled
     ``run(profile_iters)`` (the idle share, the kernels' share and the
-    device-to-host copies). Returns the run's state and the numbers."""
+    device-to-host copies); both windows ``AXIS_TIME_ITERS`` steps unless
+    given. Returns the run's state and the numbers."""
     path = solver.engaged_path()
     print(f"  engaged: {path}")
     if path["stepper"] != "per-axis-pallas" or path["fallback"] is not None:
         raise AssertionError(f"{name} did not engage the per-axis rung")
     state0 = solver.initial_state()
     out = drive(name, solver, state0, iters, expect)
-    t_iters = time_iters or iters
-    p_iters = profile_iters or iters
+    t_iters = min(iters, time_iters or AXIS_TIME_ITERS)
+    p_iters = min(iters, profile_iters or AXIS_TIME_ITERS)
     total_ms, reps = run_ms(solver, state0, t_iters)
     step_ms = total_ms / t_iters
     mlups = solver.grid.num_cells * t_iters * 3 / (total_ms * 1e-3) / 1e6
@@ -2511,13 +2531,13 @@ def per_axis_phases(card: str, fused: dict) -> dict:
 
     n = DIFF2D_ITERS
     print(f"phase 18: diffusion 2-D per-axis path, run({n}) at "
-          f"{DIFF2D_N}^2 (timed over run({n // 10}))")
+          f"{DIFF2D_N}^2 (timed over run({n // 50}))")
     cfg = DiffusionConfig(grid=Grid.make(DIFF2D_N, DIFF2D_N, lengths=10.0),
                           dtype="float32", impl="pallas_axis")
     solver = DiffusionSolver(cfg)
     out, state0, paths["diffusion2d"] = per_axis_path(
         "diffusion 2-D", solver, n, {"K11b": 3 * n}, card,
-        fused["diffusion2d"], time_iters=n // 10,
+        fused["diffusion2d"], time_iters=n // 50,
         profile_iters=DIFF2D_CHECK_ITERS)
     gout = DiffusionSolver(dataclasses.replace(cfg, impl="xla")).run(
         state0, n)
@@ -2540,7 +2560,8 @@ def per_axis_phases(card: str, fused: dict) -> dict:
             adaptive_dt=adaptive, dtype="float32", impl="pallas_axis"))
         out, state0, paths[f"burgers2d_{label}"] = per_axis_path(
             f"Burgers 2-D {label}", solver, n, {"K12b": 6 * n}, card,
-            fused[f"burgers2d_{label}"])
+            fused[f"burgers2d_{label}"], time_iters=n // 4,
+            profile_iters=n // 4)
         check_burgers_path(f"Burgers 2-D {label}", solver, out, state0,
                            BURGERS2D_CHECK_ITERS)
     return paths
@@ -2857,7 +2878,9 @@ def adr_main_phase(card: str, k9: dict) -> dict:
     print(f"phase 21: the same config on the per-axis rung, run({n})")
     axis = spec.solver_cls(dataclasses.replace(cfg, impl="pallas_axis"))
     aout, _, axis_nums = per_axis_path("ADR 3-D per-axis", axis, n,
-                                       {"K11": 3 * n}, card, step_ms)
+                                       {"K11": 3 * n}, card, step_ms,
+                                       time_iters=n // 10,
+                                       profile_iters=n // 10)
     gout = spec.solver_cls(dataclasses.replace(cfg, impl="xla")).run(
         state0, n)
     assert_matches(f"run({n}) against impl='xla'", aout.u, gout.u)
@@ -3089,7 +3112,9 @@ def ensemble_path(family: str, impl: str, B: int, iters: int, expect: dict,
     the batched run and of the looped single runs, both warm (every
     solver has run one step first) and each the median of ``reps`` runs
     (or, when ``reps`` is 0, the counted run and the check's loop, each
-    timed once), and, when ``profile`` names the kernel, the idle share
+    timed once; the fused rungs time one more warm run of each since
+    the script outgrew its time), and, when ``profile`` names the
+    kernel, the idle share
     of a profiled run ("not measured" unless a capture saw every
     launch)."""
     es = EnsembleSolver(DiffusionSolver if family == "diffusion"
@@ -3268,11 +3293,12 @@ def ensemble_phases(card: str) -> list[dict]:
         n = ENS_ITERS
         paths["fold", B] = ensemble_path(
             "diffusion", "pallas_slab", B, n, {"K2b": 1},
-            "ensemble-fold[fused-whole-run-slab]", card)
+            "ensemble-fold[fused-whole-run-slab]", card, reps=1)
         paths["vmap", B] = ensemble_path(
             "diffusion", "pallas", B, n, {"K1": 3 * B * n},
             "ensemble-vmap[fused-stage]", card,
-            profile="stage_kernel" if B == max(ENS_MEMBERS) else None)
+            profile="stage_kernel" if B == max(ENS_MEMBERS) else None,
+            reps=1)
         paths["generic", B] = ensemble_path(
             "diffusion", "xla", B, n, {}, "ensemble-vmap[generic-xla]", card,
             reps=0)
@@ -3280,10 +3306,10 @@ def ensemble_phases(card: str) -> list[dict]:
           f"run({ENSB_ITERS}), B={ENSB_MEMBERS}")
     bfold = ensemble_path("burgers", "pallas_slab", ENSB_MEMBERS, ENSB_ITERS,
                           {"K2b-burgers": 1},
-                          "ensemble-fold[fused-whole-run-slab]", card)
+                          "ensemble-fold[fused-whole-run-slab]", card, reps=1)
     bvmap = ensemble_path("burgers", "pallas", ENSB_MEMBERS, ENSB_ITERS,
                           {"K5": 3 * ENSB_MEMBERS * ENSB_ITERS},
-                          "ensemble-vmap[fused-stage]", card)
+                          "ensemble-vmap[fused-stage]", card, reps=1)
     operand_phase(card)
     B = max(ENS_MEMBERS)
     kd.update(launches=1, ensemble_ms={
@@ -6446,6 +6472,453 @@ def mesh_precision_phases(card: str) -> list[dict]:
     return entries
 
 
+# --------------------------------------------------------------------- #
+# Phases 62-65: K5 on y- and x-cut meshes (its YX instance: r ghosts
+# stored on each cut axis), every shard on cuda:0
+# --------------------------------------------------------------------- #
+YX_LAYOUTS = {
+    "dy2": ({"dy": 2}, {1: "dy"}),
+    "dx2": ({"dx": 2}, {2: "dx"}),
+    "dzdy": ({"dz": 2, "dy": 2}, {0: "dz", 1: "dy"}),
+    "block": ({"dz": 2, "dy": 2, "dx": 2}, {0: "dz", 1: "dy", 2: "dx"}),
+}
+YX_TIME_ITERS = 20  # the paths timed and profiled: run(20)
+YX_GATE_N = (400, 200, 206)  # {"dy": 2} gives ly = 100: JAX's y gate
+YX_GATE_ITERS = 20
+
+
+def yx_solver(cfg, layout: str):
+    sizes, mapping = YX_LAYOUTS[layout]
+    n = math.prod(sizes.values())
+    mesh = pmesh.make_mesh(sizes, devices=[torch.device("cuda:0")] * n)
+    return BurgersSolver(cfg, mesh=mesh,
+                         decomp=pmesh.Decomposition.of(mapping))
+
+
+def yx_twin_checks(name, shape, cuts, params, dt, roles, seed: int) -> dict:
+    """K5's YX instance against its twin on a shard of ``shape`` (the
+    global (nz, ny, nx)) cut by ``cuts`` (the shard count of each axis):
+    the first and the last shard, random data with random ghosts, each
+    of ``roles`` ((role, stage kind, window, operand) tuples; stage kind
+    0-2: stage 1, stage 2, stage 3 in place and emitting); 0 ulp and the
+    emitted maximum equal, hard. Returns the largest difference and the
+    calls checked."""
+    r = params.r
+    local = tuple(n // c for n, c in zip(shape, cuts))
+    pads = tuple(r if c > 1 else 0 for c in cuts)
+    stored = tuple(n + 2 * p for n, p in zip(local, pads))
+    rng = np.random.default_rng(seed)
+    err, calls = 0.0, 0
+    for last in (False, True):
+        offs = tuple((c - 1) * n if last else 0 for n, c in zip(local, cuts))
+        geo = dict(zpad=pads[0], global_nz=shape[0], oz=offs[0],
+                   ypad=pads[1], global_ny=shape[1], oy=offs[1],
+                   xpad=pads[2], global_nx=shape[2], ox=offs[2])
+        v, u = (random_on_card(stored, int(rng.integers(1 << 30)))
+                for _ in range(2))
+        lo, hi = (random_on_card((pads[0],) + stored[1:],
+                                 int(rng.integers(1 << 30)))
+                  for _ in range(2))
+        for role, kind, window, op in roles:
+            a, b = fb.STAGES[kind]
+            ops = {"lo": lo} if op == "lo" else (
+                {"hi": hi} if op == "hi" else {})
+            kw = dict(params=params, a=a, b=b, window=window, **ops, **geo)
+            base = torch.zeros_like(v)
+            emit = kind == 2
+            uu = u.clone() if emit else (u if kind else None)
+            ref = fb.stage_reference(v, uu, u.clone() if emit else base,
+                                     dt, emit=emit, **kw)
+            ref, mref = ref if emit else (ref, None)
+            got = u.clone() if emit else torch.zeros_like(v)
+            mx = torch.full((), 7.0, device="cuda") if emit else None
+            fb.fused_burgers_stage(v, got if emit else uu, got, dt, mx,
+                                   mx_init=False, **kw)
+            torch.cuda.synchronize()
+            err = max(err, exact(
+                f"K5 YX {name} {role} stage {kind + 1}{' ' + str(window) if window else ''} "
+                f"at shard {offs}", got, ref))
+            if emit and float(mx) != max(7.0, float(mref)):
+                raise AssertionError(f"K5 YX {name} {role}: maximum "
+                                     f"{float(mx)} vs {float(mref)}")
+            calls += 1
+            del ref, got, base
+        del v, u, lo, hi
+        torch.cuda.empty_cache()
+    return {"err": err, "calls": calls}
+
+
+def k5_yx_twin_phase(card: str) -> dict:
+    """Phase 62: K5's YX instance against its twin, 0 ulp, at the shard
+    shapes of phases 63-64: MultiGPU/Burgers3d_Baseline's grid on
+    {"dy": 2} (order 5) and {"dx": 2} (order 7), every stage kind, and on
+    {"dz": 2, "dy": 2} at both orders the split schedule's roles (the
+    serialized call, the interior window, the bottom and top windows
+    with the exchanged ``lo``/``hi``); the Burgers main path's 512^3
+    block shard (viscous, WENO5-JS) and odd shards with WENO5-Z and the
+    linear and Buckley-Leverett fluxes; then the instance alone at the
+    {"dy": 2} shard (stage 2) beside the z-sharded instance on a shard of
+    the same cells, its twin, and its bound."""
+    print("phase 62: K5's y/x-sharded (YX) instance against its twin")
+    for order in (5, 7):
+        geo = fb.geometry(order, yx=True)
+        print(f"  K5 YX order {order}: {geo['tile_y']}x{geo['tile_x']} tile, "
+              f"{geo['threads']} threads, {geo['smem_bytes']} B static "
+              f"shared memory, {geo['blocks_per_sm']} blocks an SM, "
+              f"{geo['registers']} registers and {geo['local_bytes']} B "
+              f"local memory a thread [{card}]")
+        if geo["blocks_per_sm"] < fb.BLOCKS_PER_SM // 4:
+            raise AssertionError(f"K5 YX order {order} holds "
+                                 f"{geo['blocks_per_sm']} blocks an SM")
+    grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    dt = torch.full((), K6_CFL * min(grid.spacing), device="cuda")
+    bz = fb.SPLIT_BZ
+    every = [("serialized", k, None, None) for k in range(3)]
+    err, calls = 0.0, 0
+    for name, cuts, order, roles in (
+            ("dy2", (1, 2, 1), 5, every),
+            ("dx2", (1, 1, 2), 7, every),
+            ("dzdy", (2, 2, 1), 5, None), ("dzdy", (2, 2, 1), 7, None)):
+        params = fb.stage_params(pflux.get("burgers"), "js", grid.spacing,
+                                 0.0, order=order)
+        if roles is None:
+            lz = grid.shape[0] // 2
+            roles = [("serialized", 2, None, None),
+                     ("interior", 1, (bz, lz - bz), None),
+                     ("bottom", 1, (0, bz), "lo"),
+                     ("top", 2, (lz - bz, lz), "hi")]
+        res = yx_twin_checks(f"{name} order {order}", grid.shape, cuts,
+                             params, dt, roles, 620 + calls)
+        err, calls = max(err, res["err"]), calls + res["calls"]
+    n = BURGERS_N
+    agrid = Grid.make(n, n, n, lengths=2.0)
+    params = fb.stage_params(pflux.get("burgers"), "js", agrid.spacing,
+                             BURGERS_NU)
+    adt = torch.full((), 0.4 * min(agrid.spacing), device="cuda")
+    res = yx_twin_checks("block 512^3", agrid.shape, (2, 2, 2), params, adt,
+                         every, 629)
+    err, calls = max(err, res["err"]), calls + res["calls"]
+    for i, (fname, fkw, variant, nu) in enumerate(K5_ODD_CASES):
+        params = fb.stage_params(pflux.get(fname, **fkw), variant,
+                                 (0.05, 0.07, 0.09), nu)
+        res = yx_twin_checks(f"odd {fname} {variant}", (46, 58, 74),
+                             (2, 2, 2), params, adt, every[1:], 630 + i)
+        err, calls = max(err, res["err"]), calls + res["calls"]
+    print(f"  K5 YX: {calls} calls 0 ulp from the twin [{card}]")
+
+    # alone: the {"dy": 2} shard of phase 63 (406 x 200 x 400 cells,
+    # stored 406 x 206 x 400), stage 2, against the z-sharded instance
+    # on a {"dz": 2} shard of 203 x 400 x 400 cells (as many)
+    params = fb.stage_params(pflux.get("burgers"), "js", grid.spacing, 0.0)
+    nz, ny, nx = grid.shape
+    r = params.r
+    yx_kw = dict(params=params, a=0.75, b=0.25, ypad=r, global_ny=ny, oy=0)
+    z_kw = dict(params=params, a=0.75, b=0.25, zpad=r, global_nz=nz, oz=0)
+    yx_sets = [[random_on_card((nz, ny // 2 + 2 * r, nx), 640 + 3 * i + j)
+                for j in range(3)] for i in range(3)]
+    ms = alone_ms(lambda s: fb.fused_burgers_stage(s[0], s[1], s[2], dt,
+                                                   **yx_kw), yx_sets, 5)
+    plain = cuda_ms(lambda: fb.stage_reference(
+        yx_sets[0][0], yx_sets[0][1], yx_sets[0][2], dt, **yx_kw), 1)[0]
+    del yx_sets
+    torch.cuda.empty_cache()
+    z_sets = [[random_on_card((nz // 2 + 2 * r, ny, nx), 650 + 3 * i + j)
+               for j in range(3)] for i in range(3)]
+    z_ms = alone_ms(lambda s: fb.fused_burgers_stage(s[0], s[1], s[2], dt,
+                                                     **z_kw), z_sets, 5)
+    del z_sets
+    torch.cuda.empty_cache()
+    # the instances on one core, (203, 400, 400): the z-sharded one, and
+    # the YX one with y ghosts as well (a {"dz": 2, "dy": 2} shard's
+    # geometry, the core made as large): what the y/x indexing costs
+    zy_kw = dict(z_kw, ypad=r, global_ny=2 * ny, oy=ny)
+    zy_sets = [[random_on_card((nz // 2 + 2 * r, ny + 2 * r, nx),
+                               660 + 3 * i + j) for j in range(3)]
+               for i in range(3)]
+    zy_ms = alone_ms(lambda s: fb.fused_burgers_stage(s[0], s[1], s[2], dt,
+                                                      **zy_kw), zy_sets, 5)
+    del zy_sets
+    torch.cuda.empty_cache()
+    core = (nz, ny // 2, nx)
+    cells = math.prod(core)
+    stored = nz * (ny // 2 + 2 * r) * nx
+    bound, by = kernel_bound(stored + cells, cells,
+                             k5_stage_ops(core, True, False, "js"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issued = fb.ops_issued(core, fb.stage_zchunk(nz, *core[1:], sms),
+                           has_u=True, viscous=False, variant="js")
+    # order 7: the {"dz": 2, "dy": 2} shard of burgers3d_512_weno7
+    n7 = W7_N
+    g7 = Grid.make(n7, n7, n7, lengths=2.0)
+    p7 = fb.stage_params(pflux.get("burgers"), "js", g7.spacing, BURGERS_NU,
+                         order=7)
+    r7 = p7.r
+    core7 = (n7 // 2, n7 // 2, n7)
+    w7_kw = dict(params=p7, a=0.75, b=0.25, zpad=r7, global_nz=n7, oz=0,
+                 ypad=r7, global_ny=n7, oy=0)
+    dt7 = torch.full((), K6_CFL * min(g7.spacing), device="cuda")
+    w7_sets = [[random_on_card((core7[0] + 2 * r7, core7[1] + 2 * r7, n7),
+                               670 + 3 * i + j) for j in range(3)]
+               for i in range(3)]
+    w7_ms = alone_ms(lambda s: fb.fused_burgers_stage(s[0], s[1], s[2], dt7,
+                                                      **w7_kw), w7_sets, 5)
+    w7_plain = cuda_ms(lambda: fb.stage_reference(
+        w7_sets[0][0], w7_sets[0][1], w7_sets[0][2], dt7, **w7_kw), 1)[0]
+    del w7_sets
+    torch.cuda.empty_cache()
+    cells7 = math.prod(core7)
+    stored7 = (core7[0] + 2 * r7) * (core7[1] + 2 * r7) * n7
+    w7_bound, w7_by = kernel_bound(stored7 + cells7, cells7, k5_stage_ops(
+        core7, True, True, "js", order=7))
+    print(f"  K5 YX order 7 alone (the {{'dz': 2, 'dy': 2}} shard {core7} "
+          f"of burgers3d_512_weno7, stage 2): {w7_ms:.4f} ms; twin "
+          f"{w7_plain:.2f} ms; bound {w7_bound:.4f} ms ({w7_by}) [{card}]")
+    print(f"  K5 YX alone (the {{'dy': 2}} shard {core}, stage 2): "
+          f"{ms:.4f} ms; the z-sharded instance on a {{'dz': 2}} shard of "
+          f"as many cells {z_ms:.4f} ms, the YX instance on that core with "
+          f"y ghosts too {zy_ms:.4f} ms (x{zy_ms / z_ms:.3f}); twin "
+          f"{plain:.2f} ms; bound {bound:.4f} ms ({by}); issued "
+          f"{issued / cells:.2f} f32 operations a cell [{card}]")
+    return {"max_abs_err": err, "calls": calls, "ms_isolated": ms,
+            "zsharded_ms_isolated": z_ms, "yx_same_core_ms": zy_ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "w7": {"ms_isolated": w7_ms, "plain_ms": w7_plain,
+                   "bound_ms": w7_bound, "bound_by": w7_by}}
+
+
+def yx_path(name, solver, want, state0, iters: int, expect: dict,
+            label: tuple, card: str) -> dict:
+    """One y/x-cut path: :func:`drive`, 0 ulp and ``t`` equal to
+    ``want`` (the unsharded K5 run of the config), its ms/step over
+    run(YX_TIME_ITERS) (median of 3 after a warm-up), one ghost
+    refresh (or z-slab exchange) of every shard alone, and the profiled
+    idle share and K5's time a launch in the run."""
+    path = solver.engaged_path()
+    got_label = (path["stepper"], path["overlap"],
+                 path["steps_per_exchange"])
+    print(f"  {name}: engaged {got_label}")
+    if got_label != label:
+        raise AssertionError(f"{name}: engaged {got_label}, not {label}")
+    out = drive(name, solver, state0, iters, expect)
+    n_ulps = ulps(out.u.assemble(), want.u)
+    print(f"  {name}: {n_ulps} ulp from the unsharded K5 run, t {out.t!r} "
+          f"vs {want.t!r}")
+    if n_ulps != 0 or out.t != want.t or out.it != want.it:
+        raise AssertionError(f"{name}: differs from the unsharded run")
+    del out
+    ms, reps = run_ms(solver, state0, YX_TIME_ITERS)
+    res = {"ms_per_step": ms / YX_TIME_ITERS,
+           "launches": sum(v for k, v in expect.items() if k == "K5"),
+           "exchange_ms": halo_ms(solver, state0, reps=20)}
+    res.update(mesh2d_profile(name, solver, state0, YX_TIME_ITERS,
+                              "stage_kernel", card))
+    print(f"  {name} run({YX_TIME_ITERS}): {res['ms_per_step']:.4f} ms/step "
+          f"({[round(x, 3) for x in reps]} ms); one exchange of every "
+          f"shard alone {res['exchange_ms']:.4f} ms (host-bound) [{card}]")
+    return res
+
+
+def yx_paths(name, cfg, iters: int, runs, card: str) -> dict:
+    """The unsharded K5 run of ``cfg`` once, then each of ``runs``
+    ((label, layout, config changes, K5 launches a step a shard,
+    shards)) held to it by :func:`yx_path`; returns the results and the
+    unsharded ms/step."""
+    one = BurgersSolver(cfg)
+    state0 = one.initial_state()
+    want = drive(f"{name} unsharded", one, state0, iters,
+                 {"K5": 3 * iters})
+    torch.cuda.synchronize()
+    ms1, _ = run_ms(one, state0, YX_TIME_ITERS)
+    out = {"unsharded_ms_per_step": ms1 / YX_TIME_ITERS}
+    print(f"  {name} unsharded K5 run({YX_TIME_ITERS}): "
+          f"{ms1 / YX_TIME_ITERS:.4f} ms/step [{card}]")
+    del one
+    for label, layout, kw, per_step, shards in runs:
+        c = dataclasses.replace(cfg, **kw)
+        solver = yx_solver(c, layout)
+        sstate = solver.initial_state()
+        n = per_step * shards * iters
+        overlap = "split" if c.overlap == "split" else "serialized-refresh"
+        out[label] = yx_path(f"{name} {label}", solver, want, sstate, iters,
+                             {"K5": n, "K5-yx": n},
+                             ("fused-stage", overlap, 1), card)
+        out[label]["shards"] = shards
+        if c.adaptive_dt:
+            reads = count_reads(lambda: solver.run(sstate, iters))
+            out[label]["host_reads"] = reads
+            dtoh = out[label]["dtoh_copies"]
+            print(f"  {name} {label}: host reads of device scalars {reads}; "
+                  f"device-to-host copies {dtoh} in the profiled run "
+                  f"[{card}]")
+            if reads > 1 or (dtoh is not None and dtoh > 1):
+                raise AssertionError(f"{name} {label} read dt back")
+        del solver, sstate
+        torch.cuda.empty_cache()
+    del want, state0
+    torch.cuda.empty_cache()
+    return out
+
+
+def yx_main_paths(card: str) -> dict:
+    """Phases 63-64: MultiGPU/Burgers3d_Baseline (400x400x406, inviscid,
+    CFL 0.3, fixed dt) on {"dy": 2}, {"dx": 2} and {"dz": 2, "dy": 2}
+    padded and split, run(267); the Burgers main path
+    (SingleGPU/Burgers3d_WENO5: 512^3, nu 1e-5, adaptive dt) on
+    {"dy": 2} and the block {"dz": 2, "dy": 2, "dx": 2}, run(86); and
+    burgers3d_512_weno7 (fixed dt) on {"dz": 2, "dy": 2}, run(40). Each
+    run 0 ulp and ``t`` equal to the unsharded K5 run of its config."""
+    grid = Grid.make(*K6_N, lengths=K6_LENGTHS)
+    print(f"phase 63: MultiGPU/Burgers3d_Baseline on {{'dy': 2}}, "
+          f"{{'dx': 2}} and {{'dz': 2, 'dy': 2}} (cuda:0 each shard), "
+          f"run({K6_ITERS}) at {grid.shape}")
+    cfg = BurgersConfig(grid=grid, cfl=K6_CFL, adaptive_dt=False,
+                        dtype="float32", impl="pallas")
+    paths = {"baseline": yx_paths(
+        "Burgers3d_Baseline", cfg, K6_ITERS, (
+            ("dy2", "dy2", {}, 3, 2), ("dx2", "dx2", {}, 3, 2),
+            ("dzdy", "dzdy", {}, 3, 4),
+            ("dzdy split", "dzdy", {"overlap": "split"}, 9, 4)), card)}
+    n = BURGERS_N
+    agrid = Grid.make(n, n, n, lengths=2.0)
+    print(f"phase 64: the Burgers main path {n}^3 (adaptive dt, nu = "
+          f"{BURGERS_NU}) on {{'dy': 2}} and {{'dz': 2, 'dy': 2, 'dx': 2}}, "
+          f"run({BURGERS_ITERS}); burgers3d_512_weno7 on {{'dz': 2, 'dy': "
+          f"2}}, run({W7_ITERS})")
+    acfg = BurgersConfig(grid=agrid, nu=BURGERS_NU, dtype="float32",
+                         impl="pallas")
+    paths["main"] = yx_paths(
+        "Burgers3d_WENO5", acfg, BURGERS_ITERS,
+        (("dy2", "dy2", {}, 3, 2), ("block", "block", {}, 3, 8)), card)
+    wcfg = dataclasses.replace(acfg, weno_order=7, adaptive_dt=False)
+    paths["weno7"] = yx_paths(
+        "burgers3d_512_weno7", wcfg, W7_ITERS,
+        (("dzdy", "dzdy", {}, 3, 4),), card)
+    return paths
+
+
+def yx_gate_phase(card: str) -> dict:
+    """Phase 65: a shard JAX's y gate refuses (ly % 8 != 0): {"dy": 2} at
+    400x200x206 (ly = 100), where the JAX package declines to its
+    per-axis rung: K5 (0 ulp from the unsharded K5 run) against the
+    per-axis rung (K12, what JAX runs) on the same mesh, fixed dt,
+    inviscid, run(20) each; and the CLI with ``--mesh dy=2``."""
+    grid = Grid.make(*YX_GATE_N, lengths=2.0)
+    n = YX_GATE_ITERS
+    print(f"phase 65: {{'dy': 2}} at {grid.shape} (ly = "
+          f"{grid.shape[1] // 2}, JAX's y gate): K5 against the per-axis "
+          f"rung, run({n})")
+    cfg = BurgersConfig(grid=grid, cfl=K6_CFL, adaptive_dt=False,
+                        dtype="float32", impl="pallas")
+    res = yx_paths("y-gate shape", cfg, n, (("dy2", "dy2", {}, 3, 2),),
+                   card)
+    axis = yx_solver(dataclasses.replace(cfg, impl="pallas_axis"), "dy2")
+    state0 = axis.initial_state()
+    label = axis.engaged_path()["stepper"]
+    if label != "per-axis-pallas":
+        raise AssertionError(f"the per-axis rung engaged {label}")
+    drive("y-gate shape per-axis", axis, state0, n, {"K12": 2 * 9 * n})
+    ms, reps = run_ms(axis, state0, n)
+    res["per_axis_ms_per_step"] = ms / n
+    k5 = res["dy2"]["ms_per_step"]
+    print(f"  y-gate shape on {{'dy': 2}}: K5 {k5:.4f} ms/step, the "
+          f"per-axis rung {ms / n:.4f} ms/step ({[round(x, 3) for x in reps]}"
+          f" ms): K5 x{ms / n / k5:.2f} faster [{card}]")
+    if not k5 < ms / n:
+        raise AssertionError("K5 did not beat the per-axis rung")
+    del axis, state0
+    torch.cuda.empty_cache()
+
+    import contextlib
+    import io
+
+    from multigpu_advectiondiffusion_tpu_torch.cli.__main__ import (
+        main as cli_main,
+    )
+
+    argv = ["burgers3d", "--n", "64", "64", "64", "--iters", "3", "--impl",
+            "pallas", "--mesh", "dy=2", "--device", "cuda:0"]
+    print(f"  the CLI: {' '.join(argv)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if any(w in line for w in ("kernel path", "mesh", "launches")):
+            print(f"    {line.strip()}")
+    for want in ("fused-stage (impl=pallas)", "K5 fused_burgers_stage x18",
+                 "of them K5's y/x-sharded instance x18"):
+        if want not in text:
+            raise AssertionError(f"the CLI summary lacks {want!r}")
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}")
+    return res
+
+
+def yx_phases(card: str) -> list[dict]:
+    """Phases 62-65; returns the ``kernels`` entries of K5's YX instance
+    at orders 5 and 7."""
+    twin = k5_yx_twin_phase(card)
+    torch.cuda.empty_cache()
+    paths = yx_main_paths(card)
+    torch.cuda.empty_cache()
+    gate = yx_gate_phase(card)
+    main = paths["main"]["dy2"]
+    # the {"dy": 2} shard of the 512^3 main path: v stored with 3 ghost
+    # rows a side, u and out at its cells; the mean of the stage kinds
+    cells = BURGERS_N ** 3 // 2
+    bound, by = kernel_bound(
+        (BURGERS_N // 2 + 2 * fb.R) * BURGERS_N ** 2 + cells, cells,
+        (k5_stage_ops((BURGERS_N // 2, BURGERS_N, BURGERS_N), False, True,
+                      "js") + 2 * k5_stage_ops(
+                          (BURGERS_N // 2, BURGERS_N, BURGERS_N), True,
+                          True, "js")) // 3)
+    w7 = paths["weno7"]["dzdy"]
+    entry = {
+        "name": "fused_burgers_stage (YX instance: y/x-sharded)",
+        "id": "K5-yx",
+        "route": "cuda",
+        "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
+                  "fused_burgers_stage.cu",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_burgers.py:815",
+        # the Burgers main path on {"dy": 2}: 3 launches a step a shard
+        "launches": main["launches"],
+        "max_abs_err": twin["max_abs_err"],
+        "max_ulps": 0,
+        # a launch in that path's profiled run (alone where the profiler
+        # missed it)
+        "ms": main["kernel_ms_in_run"] or twin["ms_isolated"],
+        "plain_ms": twin["plain_ms"],
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes a WENO "
+                        "stage",
+        "ms_isolated": twin["ms_isolated"],
+        "zsharded_ms_isolated": twin["zsharded_ms_isolated"],
+        "yx_same_core_ms": twin["yx_same_core_ms"],
+        "twin_calls": twin["calls"],
+        "paths": {**paths, "y_gate": gate},
+    }
+    return [entry, {
+        **{k: entry[k] for k in ("route", "source", "library_ms",
+                                 "library_call", "max_abs_err",
+                                 "max_ulps")},
+        "name": "fused_burgers_stage_weno7 (YX instance: y/x-sharded)",
+        "id": "K5-yx-w7",
+        "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
+                    "fused_burgers.py:352",
+        # burgers3d_512_weno7 on {"dz": 2, "dy": 2}: 3 a step a shard
+        "launches": w7["launches"],
+        "ms": w7["kernel_ms_in_run"] or twin["w7"]["ms_isolated"],
+        "plain_ms": twin["w7"]["plain_ms"],
+        "bound_ms": twin["w7"]["bound_ms"],
+        "bound_by": twin["w7"]["bound_by"],
+        "ms_isolated": twin["w7"]["ms_isolated"],
+        "paths": {"burgers3d_512_weno7 dzdy": w7},
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6487,6 +6960,7 @@ def main() -> int:
     solver = DiffusionSolver(cfg)
     taps = fd.stage_taps(grid.spacing, [cfg.diffusivity] * 3)
 
+    t_group = time.perf_counter()
     print("phase 1: K1 against its twin")
     k1 = check_k1(grid.shape, taps, solver.dt, seed=1, timed=True)
     small = check_k1(ODD_SHAPE, taps, solver.dt, seed=11, timed=False)
@@ -6562,13 +7036,21 @@ def main() -> int:
     print(f"  conv3d 13-point Laplacian alone, TF32 off: {lib_ms:.4f} ms "
           f"[{card}] (computes less than one K1 stage)")
 
+    def group_done(name: str) -> None:
+        nonlocal t_group
+        print(f"{name}: {time.perf_counter() - t_group:.1f} s")
+        t_group = time.perf_counter()
+
+    group_done("phases 1-4")
     print("phases 5-7: Burgers/WENO5 (K5)")
     k5 = burgers_phases(card)
     torch.cuda.empty_cache()
+    group_done("phases 5-7")
     print("phases 8-11: the 2-D paths (K7, K7a)")
     k7d = diffusion2d_phases(card)
     k7b, k7a = burgers2d_phases(card, l2_gbs)
     torch.cuda.empty_cache()
+    group_done("phases 8-11")
     print("phases 12-15: the 3-D fused-step rungs (K10, K2, K6)")
     k10, k2 = step_phases(card)
     torch.cuda.empty_cache()
@@ -6576,6 +7058,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     gate_sweep(card)
     torch.cuda.empty_cache()
+    group_done("phases 12-15")
     print("phases 16-19: the per-axis rung (K11, K11b, K12, K12b)")
     k11, k11b = laplacian_axis_phase(card)
     k12, k12b = weno_axis_phase(card)
@@ -6589,17 +7072,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     repaired_dispatch_phase()
     torch.cuda.empty_cache()
+    group_done("phases 16-19")
     print("phases 20-22: advection-diffusion-reaction (K9)")
     k9 = adr_main_phase(card, k9_phase(card, copy_gbs))
     torch.cuda.empty_cache()
     adr2d_phase(card)
     torch.cuda.empty_cache()
+    group_done("phases 20-22")
     print("phases 23-27: the batched ensemble engine (K2b)")
     k2b = ensemble_phases(card)
     torch.cuda.empty_cache()
+    group_done("phases 23-27")
     print("phases 28-32: the z-slab mesh (K3, sharded K1/K5)")
     k3 = mesh_phases(card)
     torch.cuda.empty_cache()
+    group_done("phases 28-32")
     print("phases 33-37: the 2-D mesh (K8, K8b) and ADR on meshes (sharded "
           "K9)")
     t_mesh2d = time.perf_counter()
@@ -6643,6 +7130,12 @@ def main() -> int:
     t_mprec = time.perf_counter()
     mprec = mesh_precision_phases(card)
     print(f"phases 57-61: {time.perf_counter() - t_mprec:.1f} s")
+    torch.cuda.empty_cache()
+    print("phases 62-65: K5 on y- and x-cut meshes (its y/x-sharded "
+          "instance)")
+    t_yx = time.perf_counter()
+    k5yx = yx_phases(card)
+    print(f"phases 62-65: {time.perf_counter() - t_yx:.1f} s")
     # each kernel's main per-axis path: its launches as driven above and
     # "ms", what a launch takes in that path's profiled run (alone where
     # the profiler missed it; the 2-D launches are host-bound alone)
@@ -6688,7 +7181,7 @@ def main() -> int:
         "achieved_gbs": in_run_gbs,
         "copy_gbs": copy_gbs,
     }, k5, k7d, k7b, k7a, k10, k2, k6, k11, k11b, k12, k12b, k9, *k2b,
-        *k3, *mesh2d, *k4, *w7, *w7m, *prec, *mprec]
+        *k3, *mesh2d, *k4, *w7, *w7m, *prec, *mprec, *k5yx]
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the "
           f"{len(sources)} kernels' build included")
     print(f"card: {card}")

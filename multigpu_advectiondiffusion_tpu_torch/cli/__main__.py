@@ -267,6 +267,7 @@ _COUNTERS = {
     "K1 fused_diffusion_stage": fused_diffusion.fused_stage,
     "K1 fused_diffusion_stage_bf16": fused_diffusion.fused_stage_bf16,
     "K5 fused_burgers_stage": fused_burgers.fused_burgers_stage,
+    "of them K5's y/x-sharded instance": fused_burgers.yx_instance,
     "K7 whole_run": whole_run.whole_run,
     "K7a whole_run_adaptive": whole_run.whole_run_adaptive,
     "K10 fused_step_diffusion": fused_diffusion_step.fused_step,

@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel multigpu_advectiondiffusion_tpu/ops/pallas/
 // fused_burgers.py::_stage_kernel (:352, built by _make_stage :688) for
-// WENO5-JS/Z and WENO7-JS (below), on one device and on z-slab shards.
-// It computes the same function, not the same blocks:
+// WENO5-JS/Z and WENO7-JS (below), on one device and on the shards of
+// every mesh layout (z slabs, y or x slabs, pencils and blocks: the TPU
+// stepper's y_sharded/x_sharded layouts, fused_burgers.py:847-849). It
+// computes the same function, not the same blocks:
 //
 //   rk  = b*(v + dt*rhs)            (stage 1, no u operand)
 //   rk  = a*u + b*(v + dt*rhs)      (stages 2 and 3)
@@ -38,6 +40,20 @@
 // calls write the planes [k_begin, k_end) of the block and may take the
 // ghost planes below or above from the exchanged operands lo/hi ((zpad,
 // ny, nx) each).
+// A shard of a mesh that cuts y and/or x (the YX instance) stores R ghost
+// rows and/or columns on each cut axis as well, its plane (ly + 2R) x (lx
+// + 2R) on both cut axes or on one, and clamps a y or x neighbour index
+// at the global edges only, as z above: inside the domain the tile's
+// halo reads the stored ghosts the refresh wrote, at a global wall the
+// edge cell, and so does a thread whose column lies past the core (the
+// last core row's or column's faces read its tile cell). Its z axis is cut or whole (zpad R or 0), with the split
+// roles and operands when cut (their planes at the stored pitch). What
+// the TPU layout adds for its (8, 128) tiles (the y margin, the x ghost
+// lanes rounded to 128, the x working tail) has no purpose here; the
+// pitch is whatever nx + 2R is, and every load is a scalar 4-byte load,
+// so no alignment is assumed. Only the geometry's integer arithmetic
+// differs: a cell's operations and their order are the unsharded
+// kernel's, so a sharded run equals the unsharded one to the bit.
 //
 // Aliasing: the third stage runs in place (u == out). That is safe
 // because each thread reads u only at its own cells, each before it
@@ -133,7 +149,7 @@
 // counted.
 //
 // Order 7 (WENO7-JS, reach R = 4): the same body with R a template
-// parameter, unsharded and on a z-slab shard (zpad = 4). The tile plane
+// parameter, unsharded and on every shard (pads of 4). The tile plane
 // is (TY + 8) x (TX + 8), the halo 4 cells, the z window planes k-4 ..
 // k+4, and each face is the e-form of
 // weno7e.cuh (face7e_run in runs of three, which share only the first
@@ -201,15 +217,51 @@ struct ZGeometry {
   int zpad, gnz, oz, k_begin, k_end;
 };
 
+// A shard of a mesh that cuts y and/or x as well (the YX instance): the
+// z fields as above (zpad 0 when z is whole), and for y and x the same
+// three numbers: the block's core of ny x nx cells sits ypad rows and
+// xpad columns into planes of (ny + 2 ypad) x (nx + 2 xpad) floats, and
+// its row j is global row j + oy of gny (x likewise). A pad of 0 means
+// the axis is whole (oy 0, gny ny).
+struct ZYXGeometry {
+  int zpad, gnz, oz, k_begin, k_end;
+  int ypad, gny, oy, xpad, gnx, ox;
+};
+
+template <bool YX>
+using GeometryOf = std::conditional_t<YX, ZYXGeometry, ZGeometry>;
+
+// Stored index of local index l on an axis of n core cells, a pad of
+// `pad` cells a side, global offset o of gn: clamped at the global edges
+// (the edge boundary's replicas), then into the stored range [-pad, n +
+// pad) (only a tile cell outside the core reads past it, and it writes
+// nothing), then shifted by the pad.
+__device__ __forceinline__ int stored(int l, int n, int pad, int o, int gn) {
+  return clampi(clampi(l + o, 0, gn - 1) - o, -pad, n - 1 + pad) + pad;
+}
+
+// Offset in a plane of the cell at local (y, x), clamped as the
+// instance's layout says: into the grid (no stored y/x ghosts), or at
+// the global edges only (the YX instance's stored ghosts).
+template <bool YX, class G>
+__device__ __forceinline__ int plane_offset(const G& g, int y, int x, int ny,
+                                            int nx) {
+  if constexpr (YX)
+    return stored(y, ny, g.ypad, g.oy, g.gny) * (nx + 2 * g.xpad) +
+           stored(x, nx, g.xpad, g.ox, g.gnx);
+  else
+    return clampi(y, 0, ny - 1) * nx + clampi(x, 0, nx - 1);
+}
+
 // Buffer plane of the z neighbour of block plane k at global offset d,
 // clamped at the global z edges; rows in the ghost region come from
 // lo/hi where one is given. Unsharded, the plane clamped into [0, nz).
-template <bool SHARDED, bool OPERANDS>
+template <bool SHARDED, bool OPERANDS, class G>
 __device__ __forceinline__ const float* zplane(const float* v,
                                                const float* lo,
                                                const float* hi, int k, int d,
                                                int nz, long long P,
-                                               const ZGeometry& g) {
+                                               const G& g) {
   if (!SHARDED) return v + clampi(k + d, 0, nz - 1) * P;
   const int row = clampi(k + d + g.oz, 0, g.gnz - 1) - g.oz + g.zpad;
   if (OPERANDS && lo != nullptr && row < g.zpad) return lo + row * P;
@@ -254,15 +306,17 @@ __device__ __forceinline__ void face_item(Smem<R>& sm, int b, int tid) {
   }
 }
 
-// SHARDED and OPERANDS are compile-time so that the unsharded launch
+// SHARDED, OPERANDS and YX are compile-time so that the unsharded launch
 // (SHARDED false: no ghost planes, every plane, no operands) carries none
-// of the sharded geometry's arithmetic or tests. R is the WENO reach: 3
-// (WENO5-JS/Z) or 4 (WENO7-JS).
-template <int R, int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
+// of the sharded geometry's arithmetic or tests, and the z-slab launches
+// (YX false) none of the y/x geometry's. The YX instance (a mesh that
+// cuts y and/or x) is SHARDED and OPERANDS as well, its zpad 0 when z is
+// whole. R is the WENO reach: 3 (WENO5-JS/Z) or 4 (WENO7-JS).
+template <int R, int FLUX, bool WZ, bool SHARDED, bool OPERANDS, bool YX>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 stage_kernel(const float* __restrict__ v, const float* u, float* out,
              const float* __restrict__ lo, const float* __restrict__ hi,
-             int nz, int ny, int nx, int zchunk, ZGeometry g, Params p,
+             int nz, int ny, int nx, int zchunk, GeometryOf<YX> g, Params p,
              const float* __restrict__ dt_ptr, unsigned int* mx) {
   constexpr int WT = Geo<R>::WT, HALO = Geo<R>::HALO;
   constexpr int HROUNDS = Geo<R>::HROUNDS, NZ = Geo<R>::NZ;
@@ -274,10 +328,21 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
   const bool valid = i < nx && j < ny;
   const int k0 = (SHARDED ? g.k_begin : 0) + blockIdx.z * zchunk;
   const int k1 = min(k0 + zchunk, SHARDED ? g.k_end : nz);
-  const long long P = (long long)ny * nx;  // plane stride
-  // the column, clamped into the grid: an outside thread marches the
-  // edge replica its tile cell holds
-  const int col = min(j, ny - 1) * nx + min(i, nx - 1);
+  // plane stride, and the thread's column: an outside thread marches
+  // the column its tile cell holds, the edge replica (clamped into the
+  // grid) or, on the YX instance, the stored ghost where the domain goes
+  // on (the faces of the last core row or column read those cells)
+  long long P;
+  int col;
+  if constexpr (YX) {
+    const int pitch = nx + 2 * g.xpad;
+    P = (long long)(ny + 2 * g.ypad) * pitch;
+    col = stored(j, ny, g.ypad, g.oy, g.gny) * pitch +
+          stored(i, nx, g.xpad, g.ox, g.gnx);
+  } else {
+    P = (long long)ny * nx;
+    col = min(j, ny - 1) * nx + min(i, nx - 1);
+  }
   const int own = (ty + R) * WT + tx + R;  // its cell in the tile
   const float dt = *dt_ptr;
   const float c = p.c;
@@ -302,9 +367,7 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
       if (q >= R) q += TX;
     }
     hidx[h] = r < 0 ? -1 : r * WT + q;
-    hoff[h] = r < 0 ? 0
-                    : clampi(y0 - R + r, 0, ny - 1) * nx +
-                          clampi(x0 - R + q, 0, nx - 1);
+    hoff[h] = r < 0 ? 0 : plane_offset<YX>(g, y0 - R + r, x0 - R + q, ny, nx);
   }
   // plane k of the block in the buffer (the tile's plane; never a ghost)
   auto row_of = [&](int k) {
@@ -420,34 +483,44 @@ stage_kernel(const float* __restrict__ v, const float* u, float* out,
   }
 }
 
-template <int R, int FLUX, bool WZ, bool SHARDED, bool OPERANDS>
+template <int R, int FLUX, bool WZ, bool SHARDED, bool OPERANDS, bool YX>
 void launch_as(const float* v, const float* u, float* out, const float* lo,
                const float* hi, int nz, int ny, int nx, int zchunk,
-               const ZGeometry& g, const Params& p, const float* dt,
+               const GeometryOf<YX>& g, const Params& p, const float* dt,
                unsigned int* mx, cudaStream_t s) {
   const dim3 block(TX, TY, 1);
   const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY,
                   (g.k_end - g.k_begin + zchunk - 1) / zchunk);
-  stage_kernel<R, FLUX, WZ, SHARDED, OPERANDS><<<grid, block, 0, s>>>(
+  stage_kernel<R, FLUX, WZ, SHARDED, OPERANDS, YX><<<grid, block, 0, s>>>(
       v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, mx);
 }
 
-// The instances of reach R: with operands, sharded, or unsharded (every
-// plane, no ghost planes).
+// The instances of reach R: on a y- and/or x-cut shard (yx not null),
+// with operands, sharded, or unsharded (every plane, no ghost planes).
 template <int R, int FLUX, bool WZ>
 void launch(const float* v, const float* u, float* out, const float* lo,
             const float* hi, int nz, int ny, int nx, int zchunk,
-            const ZGeometry& g, const Params& p, const float* dt,
-            unsigned int* mx, cudaStream_t s) {
-  if (lo != nullptr || hi != nullptr)
-    launch_as<R, FLUX, WZ, true, true>(v, u, out, lo, hi, nz, ny, nx, zchunk,
-                                       g, p, dt, mx, s);
+            const ZGeometry& g, const ZYXGeometry* yx, const Params& p,
+            const float* dt, unsigned int* mx, cudaStream_t s) {
+  if (yx != nullptr)
+    launch_as<R, FLUX, WZ, true, true, true>(v, u, out, lo, hi, nz, ny, nx,
+                                             zchunk, *yx, p, dt, mx, s);
+  else if (lo != nullptr || hi != nullptr)
+    launch_as<R, FLUX, WZ, true, true, false>(v, u, out, lo, hi, nz, ny, nx,
+                                              zchunk, g, p, dt, mx, s);
   else if (g.zpad != 0 || g.k_begin != 0 || g.k_end != nz)
-    launch_as<R, FLUX, WZ, true, false>(v, u, out, lo, hi, nz, ny, nx,
-                                        zchunk, g, p, dt, mx, s);
+    launch_as<R, FLUX, WZ, true, false, false>(v, u, out, lo, hi, nz, ny, nx,
+                                               zchunk, g, p, dt, mx, s);
   else
-    launch_as<R, FLUX, WZ, false, false>(v, u, out, lo, hi, nz, ny, nx,
-                                         zchunk, g, p, dt, mx, s);
+    launch_as<R, FLUX, WZ, false, false, false>(v, u, out, lo, hi, nz, ny,
+                                                nx, zchunk, g, p, dt, mx, s);
+}
+
+// The y or x numbers of a YX launch are sound: a pad of 0 (the axis
+// whole) or at least the reach, and the core inside the global extent.
+bool axis_ok(int n, int pad, int o, int gn, int reach) {
+  if (pad == 0) return gn == n && o == 0;
+  return pad >= reach && o >= 0 && o + n <= gn;
 }
 
 }  // namespace
@@ -467,8 +540,12 @@ void launch(const float* v, const float* u, float* out, const float* lo,
 // zpad ghost planes below/above (the split schedule's operands). `mx`,
 // when not null, points to one float on the device that receives
 // max|f'(out)| over the planes written (zeroed here first, on the
-// stream, when mx_init is not 0; else folded into its value). Returns
-// the first CUDA error (0 on success); does not synchronise.
+// stream, when mx_init is not 0; else folded into its value). `yxgeo`,
+// when not null, points to 6 host ints of a shard that stores y and/or x
+// ghosts (the YX instance): ypad, the global row count, the block's
+// global y offset, then xpad, gnx and ox; `ny`/`nx` are then its core
+// extents, and its planes (ny + 2 ypad) x (nx + 2 xpad). Returns the
+// first CUDA error (0 on success); does not synchronise.
 extern "C" int fused_burgers_stage(const float* v, const float* u,
                                    float* out, int nz, int ny, int nx,
                                    const float* dt, int flux, float c,
@@ -476,7 +553,8 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
                                    const float* lap, float a, float b,
                                    float* mx, int zchunk, const int* zgeo,
                                    int k_begin, int k_end, const float* lo,
-                                   const float* hi, void* stream) {
+                                   const float* hi, const int* yxgeo,
+                                   void* stream) {
   const ZGeometry g{zgeo[0], zgeo[1], zgeo[2], k_begin, k_end};
   const int reach = order == 7 ? 4 : 3;
   if (nz < 1 || ny < 1 || nx < 1 || zchunk < 1 || flux < 0 || flux > 2 ||
@@ -486,6 +564,16 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
       (long long)ny * nx > 2147483647LL ||  // a plane's offsets are int
       (order != 5 && order != 7) || (order == 7 && weno_z))
     return (int)cudaErrorInvalidValue;
+  ZYXGeometry yx{};
+  if (yxgeo != nullptr) {
+    yx = ZYXGeometry{g.zpad,   g.gnz,    g.oz,     k_begin,  k_end,   yxgeo[0],
+                     yxgeo[1], yxgeo[2], yxgeo[3], yxgeo[4], yxgeo[5]};
+    if ((yx.ypad == 0 && yx.xpad == 0) ||
+        !axis_ok(ny, yx.ypad, yx.oy, yx.gny, reach) ||
+        !axis_ok(nx, yx.xpad, yx.ox, yx.gnx, reach) ||
+        (long long)(ny + 2 * yx.ypad) * (nx + 2 * yx.xpad) > 2147483647LL)
+      return (int)cudaErrorInvalidValue;
+  }
   Params p;
   for (int q = 0; q < 3; ++q) p.inv_dx[q] = inv_dx[q];
   p.viscous = lap != nullptr;
@@ -501,20 +589,27 @@ extern "C" int fused_burgers_stage(const float* v, const float* u,
   }
   return (int)dispatch(flux, order, weno_z, [&](auto r, auto fl, auto wz) {
     launch<decltype(r)::value, decltype(fl)::value, decltype(wz)::value>(
-        v, u, out, lo, hi, nz, ny, nx, zchunk, g, p, dt, m, s);
+        v, u, out, lo, hi, nz, ny, nx, zchunk, g,
+        yxgeo != nullptr ? &yx : nullptr, p, dt, m, s);
     return cudaGetLastError();
   });
 }
 
-// The tiling of the unsharded WENO`order`-JS Burgers instance (order 5 or
-// 7), into 7 ints: tile rows, tile columns, threads a block, static shared
-// memory bytes, blocks an SM can hold, registers a thread and local
-// (spilled) bytes a thread. Returns the first CUDA error (0 on success).
-extern "C" int fused_burgers_stage_geometry(int order, int* out) {
+// The tiling of the WENO`order`-JS Burgers instance (order 5 or 7), the
+// unsharded one (yx 0) or the YX one (yx 1), into 7 ints: tile rows, tile
+// columns, threads a block, static shared memory bytes, blocks an SM can
+// hold, registers a thread and local (spilled) bytes a thread. Returns
+// the first CUDA error (0 on success).
+extern "C" int fused_burgers_stage_geometry(int order, int yx, int* out) {
   if (order != 5 && order != 7) return (int)cudaErrorInvalidValue;
   const void* kernel =
-      order == 5 ? (const void*)stage_kernel<3, BURGERS, false, false, false>
-                 : (const void*)stage_kernel<4, BURGERS, false, false, false>;
+      yx ? (order == 5
+                ? (const void*)stage_kernel<3, BURGERS, false, true, true, true>
+                : (const void*)stage_kernel<4, BURGERS, false, true, true, true>)
+         : (order == 5 ? (const void*)
+                             stage_kernel<3, BURGERS, false, false, false, false>
+                       : (const void*)
+                             stage_kernel<4, BURGERS, false, false, false, false>);
   out[0] = TY;
   out[1] = TX;
   out[2] = THREADS;

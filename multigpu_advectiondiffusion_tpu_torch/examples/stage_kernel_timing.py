@@ -17,7 +17,15 @@ diffusion body's paths (``--paths K2``) are the 3-D diffusion run on K10
 ensemble of 64 members of 256x128x64 for 60 steps on K2b (bench.py's
 ensemble row); and the 3-D diffusion run on a ``{"dz": 2}`` mesh of two
 shards on ``cuda:0``, on K3 (the collective exchange) and on K4
-(``exchange="dma"``). For each path it prints ms/step, the median of 3
+(``exchange="dma"``). The per-axis rung's paths (``--paths axis``:
+K11/K12 inside the generic loop, ``impl="pallas_axis"``) are the 3-D
+diffusion run, both 3-D Burgers runs and the ADR run at their full
+depth, which chip_smoke.py times over 20 steps (40 for ADR) since it
+outgrew its time; K5's y/x-sharded instance (``--paths yx``) runs the
+512^3 adaptive Burgers path on ``{"dy": 2}`` and on the block ``{"dz":
+2, "dy": 2, "dx": 2}`` and the 400x400x406 fixed-dt one on ``{"dy":
+2}`` and ``{"dz": 2, "dy": 2}``, every shard on ``cuda:0``. For each
+path it prints ms/step, the median of 3
 CUDA-event samples of ``run`` after a warm-up (``--reps``), and, where the profiler
 sees every launch (not the cooperative ones), the kernel's mean device
 time a launch from ``torch.profiler`` (for the stage kernels, stage 1
@@ -152,8 +160,9 @@ def main() -> int:
     ap.add_argument("--paths", default="",
                     help="time only the paths whose group or name holds "
                          "this text, or one of these comma-separated ones "
-                         "(K2: the diffusion body's paths; K5; K6,K9); "
-                         "all by default")
+                         "(K2: the diffusion body's paths; K5; K6,K9; "
+                         "axis: the per-axis rung; yx: K5 on y/x-cut "
+                         "meshes); all by default")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed runs a path (the median is printed)")
     args = ap.parse_args()
@@ -171,7 +180,10 @@ def main() -> int:
         EnsembleSolver,
         Grid,
     )
-    from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import make_mesh
+    from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
+        Decomposition,
+        make_mesh,
+    )
 
     card = card_line()
     print(f"{args.label}: package {port.__file__} [{card}]")
@@ -184,6 +196,26 @@ def main() -> int:
 
     def two_shards():
         return make_mesh({"dz": 2}, devices=[torch.device("cuda:0")] * 2)
+
+    def yx_mesh(sizes, mapping):
+        n = 1
+        for k in sizes.values():
+            n *= k
+        return {"mesh": make_mesh(sizes, devices=[torch.device("cuda:0")] * n),
+                "decomp": Decomposition.of(mapping)}
+
+    baseline = BurgersConfig(
+        grid=Grid.make(*BURGERS_N, lengths=BURGERS_LENGTHS), cfl=0.3,
+        adaptive_dt=False, dtype="float32", impl="pallas")
+    adaptive = BurgersConfig(
+        grid=Grid.make(ADAPTIVE_N, ADAPTIVE_N, ADAPTIVE_N, lengths=2.0),
+        nu=1e-5, dtype="float32", impl="pallas")
+    adr = ADRConfig(grid=Grid.make(*ADR_N, lengths=ADR_LENGTHS),
+                    dtype="float32", impl="pallas_axis", velocity=0.5,
+                    kappa_variation=0.2, reaction_rate=0.25)
+    dy2 = ({"dy": 2}, {1: "dy"})
+    dzdy = ({"dz": 2, "dy": 2}, {0: "dz", 1: "dy"})
+    block = ({"dz": 2, "dy": 2, "dx": 2}, {0: "dz", 1: "dy", 2: "dx"})
 
     def ensemble():
         cfg = DiffusionConfig(grid=Grid.make(*ENS_N, lengths=ENS_LENGTHS),
@@ -254,6 +286,33 @@ def main() -> int:
          lambda: DiffusionSolver(dataclasses.replace(
              diffusion, impl="pallas_slab", exchange="dma"),
              mesh=two_shards()), None, None),
+        ("per-axis diffusion 400x200x206", "axis", DIFFUSION_ITERS,
+         lambda: DiffusionSolver(dataclasses.replace(
+             diffusion, impl="pallas_axis")),
+         "laplacian3d_kernel", 3 * DIFFUSION_ITERS),
+        ("per-axis Burgers 512^3 adaptive", "axis", ADAPTIVE_ITERS,
+         lambda: BurgersSolver(dataclasses.replace(
+             adaptive, impl="pallas_axis")),
+         "weno_axis_kernel", 9 * ADAPTIVE_ITERS),
+        ("per-axis Burgers 400x400x406 fixed dt", "axis", K6_ITERS,
+         lambda: BurgersSolver(dataclasses.replace(
+             baseline, impl="pallas_axis")),
+         "weno_axis_kernel", 9 * K6_ITERS),
+        ("per-axis ADR 508x204x160", "axis", ADR_ITERS,
+         lambda: ADRSolver(adr), "laplacian3d_kernel", 3 * ADR_ITERS),
+        ("y/x-sharded Burgers 512^3 adaptive on {dy: 2}", "yx",
+         ADAPTIVE_ITERS, lambda: BurgersSolver(adaptive, **yx_mesh(*dy2)),
+         "stage_kernel", 6 * ADAPTIVE_ITERS),
+        ("y/x-sharded Burgers 512^3 adaptive on {dz: 2, dy: 2, dx: 2}",
+         "yx", ADAPTIVE_ITERS,
+         lambda: BurgersSolver(adaptive, **yx_mesh(*block)),
+         "stage_kernel", 24 * ADAPTIVE_ITERS),
+        ("y/x-sharded Burgers 400x400x406 fixed dt on {dy: 2}", "yx",
+         K6_ITERS, lambda: BurgersSolver(baseline, **yx_mesh(*dy2)),
+         "stage_kernel", 6 * K6_ITERS),
+        ("y/x-sharded Burgers 400x400x406 fixed dt on {dz: 2, dy: 2}",
+         "yx", K6_ITERS, lambda: BurgersSolver(baseline, **yx_mesh(*dzdy)),
+         "stage_kernel", 12 * K6_ITERS),
     )
     result = {"label": args.label, "card": card, "paths": {}}
     for name, group, iters, make, kernel, launches in paths:

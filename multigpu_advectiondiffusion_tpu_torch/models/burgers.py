@@ -60,13 +60,15 @@ run on every decomposition (adaptive dt the max over the shards), and
 on z slabs the fused rungs, WENO5 and WENO7 alike: K5 with ``r`` z-ghost
 planes (the reach, 3 or 4) refreshed after every stage (the split
 schedule's three launches a stage), dt from the
-shards' emitted maxima kept on the card; and, where pinned
+shards' emitted maxima kept on the card, and on y or x slabs, pencils
+and blocks the same K5 with ``r`` ghosts on each cut axis (its YX
+instance; the y/x ghosts of a pencil or block take the serialized
+refresh under the split schedule); and, where pinned
 (``impl="pallas_slab"``, ``steps_per_exchange > 1`` or
 ``exchange="dma"``, fixed dt), one K3 launch over an output window a
 step, or the k-step schedule, or under ``exchange="dma"`` one K4 launch
 a run for every shard of the card; on 2-D meshes of any layout K8 a
-stage (K8b under the split schedule). The float32 fused rung on a y-
-or x-sharded 3-D mesh (K5's other layouts) raises. The batched ensemble
+stage (K8b under the split schedule). The batched ensemble
 engine runs a 3-D fused config at either order on K2b (the slab rung)
 or K5 a member (the per-stage rung).
 """
@@ -188,17 +190,6 @@ class BurgersSolver(SolverBase):
             )
         if self.grid.ndim == 1:
             raise NotImplementedError("1-D Burgers is not ported yet")
-        # precision="bf16" never runs K5 (its only fused rung is the
-        # slab, z slabs only): off z it declines to the per-axis rung
-        fused = (is_fused_impl(cfg.impl) and self._fused_reason() is None
-                 and self._precision_mode() != "bf16")
-        if fused and self.grid.ndim == 3 and any(
-                ax != 0 for ax in self._sharded_axes()):
-            raise NotImplementedError(
-                f"impl={cfg.impl!r} on a y- or x-sharded mesh needs K5's "
-                "y_sharded/x_sharded layouts, which are not ported yet "
-                "(ROADMAP queue 1 item 8d); z-slab meshes, and "
-                "impl='xla'/'pallas_axis' on any mesh, run")
 
     def _op_impl(self) -> str:
         """Per-op kernel strategy of the generic loop (the JAX package's
@@ -313,7 +304,11 @@ class BurgersSolver(SolverBase):
         VMEM gates become the card's: none for K5 and K8, which need no
         block to fit a fast memory, and for the 2-D whole-run stepper
         (K7) the state fitting the L2
-        (:meth:`FusedBurgers2DStepper.supported`)."""
+        (:meth:`FusedBurgers2DStepper.supported`). So a y-sharded 3-D
+        shard whose ``ly`` is not a multiple of 8, which the JAX
+        package declines for its sublane tiling ("no viable VMEM block
+        tiling for this local shape"), runs K5 here: a recorded
+        difference (``tests/test_torch_burgers_yx_mesh.py``)."""
         cfg = self.cfg
         if (cfg.weno_order, cfg.weno_variant) not in {
             (5, "js"), (5, "z"), (7, "js")
@@ -385,10 +380,16 @@ class BurgersSolver(SolverBase):
         if "fused" not in self._cache:
             kwargs = {}
             if self.mesh is not None:
+                # a y- or x-cut mesh stores ghosts on those axes too (the
+                # JAX package's y_sharded/x_sharded, extent-1 mesh axes
+                # filtered out)
+                sharded_axes = self._sharded_axes()
                 kwargs = dict(interior_shape=self.local_shape(),
                               global_shape=self.grid.shape,
                               overlap_split=self._split_overlap_requested(),
-                              reduce_max=self.mesh_reduce_max())
+                              reduce_max=self.mesh_reduce_max(),
+                              y_sharded=1 in sharded_axes,
+                              x_sharded=2 in sharded_axes)
             self._cache["fused"] = FusedBurgersStepper(
                 self.grid.spacing, self.flux,
                 cfg.weno_variant, cfg.nu, cfg.cfl, self.device, dt=self.dt,

@@ -1,6 +1,6 @@
 """Fused SSP-RK3 Burgers/WENO stepping (JAX
 ``ops/pallas/fused_burgers.py`` counterpart: WENO5-JS/Z and WENO7-JS on
-one device and on z-slab shards).
+one device and on the shards of every mesh layout).
 
 Each RK stage is ONE kernel launch (K5, ``csrc/fused_burgers_stage.cu``):
 the Lax–Friedrichs split, the WENO flux divergence along z, y and x,
@@ -31,8 +31,11 @@ there, each z face once in a thread's register window
   ``num * reciprocal(den)``, terms z, y, x. K5 is built with
   ``-fmad=false``, so on the card kernel and twin round alike.
 * The order (``StageParams.order``) sets the reach ``r = HALO[order]``:
-  3 for WENO5, 4 for WENO7-JS; a z-slab shard keeps ``r`` ghost planes
-  a side at either order.
+  3 for WENO5, 4 for WENO7-JS; a shard keeps ``r`` ghosts a side on
+  each axis its mesh cuts, at either order: z planes on a z slab, y
+  rows and/or x columns on y/x slabs, pencils and blocks (K5's YX
+  instance, the JAX stepper's ``y_sharded``/``x_sharded`` layouts
+  without their (8, 128) tiling: no y margin, no rounded x lanes).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import types
 from typing import Optional, Sequence
 
 import numpy as np
@@ -187,43 +191,59 @@ def _divergence(P, M, axis: int, n: int, inv_dx: float, variant: str,
 def stage_reference(v, u, out, dt, *, params: StageParams, a: float,
                     b: float, emit: bool = False, zpad: int = 0,
                     global_nz: int | None = None, oz: int = 0,
-                    window=None, lo=None, hi=None):
+                    window=None, lo=None, hi=None, ypad: int = 0,
+                    global_ny: int | None = None, oy: int = 0,
+                    xpad: int = 0, global_nx: int | None = None,
+                    ox: int = 0):
     """Plain PyTorch twin of K5 on the same layout, in any dimension (the
     2-D whole-run kernel K7 runs this stage with one axis fewer).
 
     Writes ``out`` (which may be ``u``) and returns it, or
-    ``(out, max|f'(out)|)`` over the planes written when ``emit``.
+    ``(out, max|f'(out)|)`` over the core cells written when ``emit``.
     Operation order and roundings are the kernel's: ``rhs = -((div_z +
     div_y) + div_x) [+ lap]`` (``-(div_y + div_x)`` in 2-D), ``rk =
     b*(v + dt*rhs)`` and ``a*u + rk``; the reach ``r`` is ``params.r``.
-    A z-slab shard passes ``zpad = r`` (its block's ghost planes),
-    ``global_nz`` and its global z
-    offset ``oz``: a z neighbour is clamped at the global edges only.
+    A shard passes, for each axis it stores ghosts on, the pad ``r``
+    (``zpad``, and in 3-D ``ypad``/``xpad``), the global extent and its
+    global offset: a neighbour on that axis is clamped at the global
+    edges only, and reads the stored ghosts inside the domain.
     ``window = (k_begin, k_end)`` writes those block planes only, and
-    ``lo``/``hi`` replace the ghost planes below/above (the split
+    ``lo``/``hi`` replace the z ghost planes below/above (the split
     schedule's roles).
     """
-    nz = v.shape[0] - 2 * zpad
-    k0, k1 = window if window is not None else (0, nz)
+    if (ypad or xpad) and v.dim() != 3:
+        raise ValueError("ypad/xpad are the 3-D layout's")
+    pads = (zpad, ypad, xpad)[:v.dim()]
+    core = [v.shape[ax] - 2 * pads[ax] for ax in range(v.dim())]
+    k0, k1 = window if window is not None else (0, core[0])
     r = params.r
-    if zpad == 0 and window is None:
+    if not any(pads) and window is None:
         vp = _edge_pad(v, r)
+        dst = out
     else:
         if lo is not None or hi is not None:
             v = v.clone()
             if lo is not None:
                 v[:zpad] = lo
             if hi is not None:
-                v[nz + zpad:] = hi
-        gnz = nz if global_nz is None else global_nz
-        g = torch.arange(oz + k0 - r, oz + k1 + r, device=v.device)
-        rows = g.clamp_(0, gnz - 1) - oz + zpad
-        vp = _edge_pad_trailing(v.index_select(0, rows), r)
-        v = v[zpad + k0:zpad + k1]
+                v[core[0] + zpad:] = hi
+        extents = (global_nz, global_ny, global_nx)
+        offsets = (oz, oy, ox)
+        spans = [(k0, k1)] + [(0, n) for n in core[1:]]
+        vp, box = v, []
+        for ax, (lo_k, hi_k) in enumerate(spans):
+            gn = core[ax] if extents[ax] is None else extents[ax]
+            g = torch.arange(offsets[ax] + lo_k - r, offsets[ax] + hi_k + r,
+                             device=v.device)
+            idx = g.clamp_(0, gn - 1) - offsets[ax] + pads[ax]
+            vp = vp.index_select(ax, idx)
+            box.append(slice(pads[ax] + lo_k, pads[ax] + hi_k))
+        box = tuple(box)
+        v = v[box]
         if u is not None:
-            u = u[zpad + k0:zpad + k1]
+            u = u[box]
+        dst = out[box]
     rk = _stage_rk(vp, v, u, dt, params, a, b)
-    dst = out if zpad == 0 and window is None else out[zpad + k0:zpad + k1]
     dst.copy_(rk)
     if emit:
         return out, max_wave_speed(dst, params.flux.df)
@@ -317,8 +337,11 @@ def tile_geometry(order: int = 5) -> dict:
 
 def ops_issued(shape, zchunk: int = Z_CHUNK, *, has_u: bool, viscous: bool,
                variant: str, order: int = 5) -> int:
-    """f32 operations one unsharded K5 launch issues on an ``(nz, ny,
-    nx)`` state with the Burgers flux: for every block of the grid
+    """f32 operations one K5 launch issues over an ``(nz, ny, nx)`` core
+    (the unsharded state, or the planes a shard's launch writes of its
+    core: every sharded instance issues the unsharded one's operations
+    on the same core, its integer indexing aside) with the Burgers
+    flux: for every block of the grid
     (tiles a plane times z chunks), each thread splits 2r + 1 + p values
     and computes 1 + p z faces and p cells on a chunk of p planes, and
     the block splits its halo and computes its runs of faces on each
@@ -355,13 +378,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def geometry(order: int = 5) -> dict:
+def geometry(order: int = 5, yx: bool = False) -> dict:
     """The built kernel's tiling, as its library reports it: tile rows and
     columns, threads a block, static shared memory bytes, the blocks an
-    SM can hold, registers and spilled bytes a thread (unsharded
-    WENO``order``-JS Burgers instance). Needs the card."""
+    SM can hold, registers and spilled bytes a thread (the unsharded
+    WENO``order``-JS Burgers instance, or with ``yx`` the instance of a
+    y- or x-cut shard). Needs the card."""
     out = (ctypes.c_int * 7)()
-    rc = library().fused_burgers_stage_geometry(int(order), out)
+    rc = library().fused_burgers_stage_geometry(int(order), int(yx), out)
     if rc != 0:
         raise RuntimeError(f"fused_burgers_stage_geometry: CUDA error {rc}")
     keys = ("tile_y", "tile_x", "threads", "smem_bytes", "blocks_per_sm",
@@ -376,10 +400,9 @@ def library() -> ctypes.CDLL:
     fn = lib.fused_burgers_stage
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, p, i, i, i, p, i, f, i, i, p, p, f, f, p, i, p, i,
-                   i, p, p, p]
+                   i, p, p, p, p]
     fn.restype = ctypes.c_int
-    lib.fused_burgers_stage_geometry.argtypes = [ctypes.c_int,
-                                                 ctypes.c_void_p]
+    lib.fused_burgers_stage_geometry.argtypes = [i, i, p]
     lib.fused_burgers_stage_geometry.restype = ctypes.c_int
     return lib
 
@@ -388,7 +411,10 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
                         a: float, b: float, zchunk: int | None = None,
                         zpad: int = 0, global_nz: int | None = None,
                         oz: int = 0, window=None, lo=None, hi=None,
-                        mx_init: bool = True):
+                        mx_init: bool = True, ypad: int = 0,
+                        global_ny: int | None = None, oy: int = 0,
+                        xpad: int = 0, global_nx: int | None = None,
+                        ox: int = 0):
     """One fused RK stage: ``out <- stage(v, u)``.
 
     ``u`` is ``None`` for the first stage and may be ``out`` (in-place
@@ -400,8 +426,12 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
     ``zpad = params.r`` ghost planes a side, the ``global_nz`` and its
     global z offset ``oz``; ``window = (k_begin, k_end)`` writes those
     block planes
-    only, and ``lo``/``hi`` (``(zpad, ny, nx)``) replace the ghost planes
-    below/above (the split schedule's edge calls). Launches K5 on the
+    only, and ``lo``/``hi`` (``(zpad, ny, nx)``, the stored plane)
+    replace the ghost planes below/above (the split schedule's edge
+    calls). A shard of a mesh that cuts y and/or x passes for each cut
+    axis ``ypad``/``xpad = params.r`` stored ghosts a side, the global
+    extent and its global offset (K5's YX instance; z is then cut, with
+    ``zpad``, or whole). Launches K5 on the
     current stream (no synchronisation), each block marching ``zchunk``
     z planes (:func:`stage_zchunk`'s plan when ``None``), and counts the
     launch in ``fused_burgers_stage.launches``; a CPU tensor runs
@@ -415,20 +445,30 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
         raise ValueError(f"3-D state expected, got {tuple(v.shape)}")
     if v.data_ptr() == out.data_ptr():
         raise ValueError("v and out must be different buffers")
-    if zpad not in (0, params.r):
-        raise ValueError(f"zpad must be 0 or {params.r}, got {zpad}")
-    nz, ny, nx = v.shape[0] - 2 * zpad, v.shape[1], v.shape[2]
+    for name, pad in (("zpad", zpad), ("ypad", ypad), ("xpad", xpad)):
+        if pad not in (0, params.r):
+            raise ValueError(f"{name} must be 0 or {params.r}, got {pad}")
+    nz, ny, nx = (v.shape[0] - 2 * zpad, v.shape[1] - 2 * ypad,
+                  v.shape[2] - 2 * xpad)
     gnz = nz if global_nz is None else int(global_nz)
+    gny = ny if global_ny is None else int(global_ny)
+    gnx = nx if global_nx is None else int(global_nx)
     k0, k1 = window if window is not None else (0, nz)
     if not 0 <= k0 < k1 <= nz or not 0 <= oz <= gnz - nz or (
             zpad == 0 and (gnz, oz) != (nz, 0)):
         raise ValueError(f"window {window} / offset {oz} of {gnz} planes "
                          f"do not fit a block of {nz}")
+    for name, n, pad, o, gn in (("y", ny, ypad, oy, gny),
+                                ("x", nx, xpad, ox, gnx)):
+        if n < 1 or not 0 <= o <= gn - n or (pad == 0 and (gn, o) != (n, 0)):
+            raise ValueError(f"{name} offset {o} of {gn} does not fit a "
+                             f"core of {n} with {pad} ghosts a side")
     for name, t in (("lo", lo), ("hi", hi)):
         if t is not None:
-            _check(name, t, (zpad, ny, nx), v.device)
+            _check(name, t, (zpad,) + tuple(v.shape[1:]), v.device)
     kw = dict(params=params, a=a, b=b, zpad=zpad, global_nz=gnz, oz=oz,
-              window=window, lo=lo, hi=hi)
+              window=window, lo=lo, hi=hi, ypad=ypad, global_ny=gny, oy=oy,
+              xpad=xpad, global_nx=gnx, ox=ox)
     if v.device.type == "cpu":
         res = stage_reference(v, u, out, dt, emit=mx is not None, **kw)
         if mx is None:
@@ -450,6 +490,8 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
             else np.asarray(params.lap_taps, dtype=np.float32))
     c = params.flux.c if params.flux.c is not None else 0.0
     zgeo = np.asarray((zpad, gnz, oz, int(mx_init)), dtype=np.int32)
+    yxgeo = (np.asarray((ypad, gny, oy, xpad, gnx, ox), dtype=np.int32)
+             if ypad or xpad else None)
     if zchunk is None:
         zchunk = stage_zchunk(k1 - k0, ny, nx, _sm_count(v.device.index))
     with torch.cuda.device(v.device):
@@ -463,36 +505,46 @@ def fused_burgers_stage(v, u, out, dt, mx=None, *, params: StageParams,
             int(zchunk), zgeo.ctypes.data, int(k0), int(k1),
             None if lo is None else lo.data_ptr(),
             None if hi is None else hi.data_ptr(),
+            None if yxgeo is None else yxgeo.ctypes.data,
             torch.cuda.current_stream(v.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"fused_burgers_stage launch failed: CUDA error {rc}")
     build.count_launch(fused_burgers_stage)
+    if yxgeo is not None:
+        build.count_launch(yx_instance)
     return out
 
 
 fused_burgers_stage.launches = 0
+# the launches of K5's YX instance (a shard with stored y/x ghosts), also
+# counted in fused_burgers_stage.launches
+yx_instance = types.SimpleNamespace(launches=0)
 
 
 class FusedBurgersStepper(FusedStepperBase):
     """Fused WENO runner for one (grid, flux, dt mode, WENO order)
-    configuration on one device, or on one shard of a z-slab mesh:
-    ``dt`` fixes the step
+    configuration on one device, or on one shard of a mesh of any
+    layout: ``dt`` fixes the step
     (CUDA-parity mode), else the CFL step ``float32(cfl min dx) /
     max(m, 1e-12)`` follows the wave speed ``m`` that the last stage of
     each step emits — the max over the shards (``reduce_max``), kept on
     the card.
 
     ``global_shape`` (when it differs from ``interior_shape``) makes the
-    stepper shard-local: the block is stored with ``r`` z-ghost planes a
-    side (the reach: 3 at WENO5, 4 at WENO7), ``(lz + 2r, ny, nx)``,
-    refreshed from the neighbours after every stage (``refresh``), and
-    clamped at the global z edges only.
-    With ``overlap_split`` (and ``lz // SPLIT_BZ >= 3``) a stage is the
-    split schedule's three launches: the planes ``[SPLIT_BZ, lz -
+    stepper shard-local: the block is stored with ``r`` ghosts a side
+    (the reach: 3 at WENO5, 4 at WENO7) on each sharded axis — z when
+    its extent is cut, y and x as ``y_sharded``/``x_sharded`` say (the
+    JAX stepper's flags, extent-1 mesh axes filtered out by the caller)
+    — e.g. ``(lz + 2r, ly + 2r, lx)`` on a z-y pencil, refreshed from the
+    neighbours after every stage (``refresh``), and clamped at the global
+    edges only; ``core_offsets`` is the core's origin in that layout.
+    With ``overlap_split`` (z cut, and ``lz // SPLIT_BZ >= 3``) a stage
+    is the split schedule's three launches: the planes ``[SPLIT_BZ, lz -
     SPLIT_BZ)`` while the z slabs are exchanged, then the bottom and top
-    ``SPLIT_BZ`` planes from the exchanged slabs (``exch``)."""
+    ``SPLIT_BZ`` planes from the exchanged slabs (``exch``); the y/x
+    ghosts of a pencil or block take the serialized ``refresh``."""
 
     device_scalars = True
     halo = R  # WENO5's; an order-7 instance sets its own
@@ -501,7 +553,8 @@ class FusedBurgersStepper(FusedStepperBase):
                  cfl: float, device, dt: float | None = None,
                  interior_shape=None, global_shape=None,
                  overlap_split: bool = False, reduce_max=None,
-                 order: int = 5):
+                 order: int = 5, y_sharded: bool = False,
+                 x_sharded: bool = False):
         self.dtype = torch.float32
         self.device = torch.device(device)
         self.params = stage_params(flux, variant, spacing, nu, order)
@@ -516,26 +569,39 @@ class FusedBurgersStepper(FusedStepperBase):
                                else tuple(interior_shape))
         self.global_shape = tuple(global_shape or interior_shape or ())
         self.sharded = self.global_shape != (self.interior_shape or ())
-        self.zpad = self.halo if self.sharded else 0
-        self.core_offsets = (self.zpad, 0, 0)
+        cut = ([g != n for g, n in zip(self.global_shape,
+                                       self.interior_shape)]
+               if self.sharded else [False] * 3)
+        if (bool(y_sharded), bool(x_sharded)) != (cut[1], cut[2]):
+            raise ValueError(
+                f"y_sharded={y_sharded}, x_sharded={x_sharded} do not match "
+                f"a shard of {self.interior_shape} in {self.global_shape}")
+        self.y_sharded, self.x_sharded = cut[1], cut[2]
+        self.pads = tuple(self.halo if c else 0 for c in cut)
+        self.zpad = self.pads[0]
+        self.core_offsets = self.pads
         self.exchange_depth = self.halo
         self.reduce_max = reduce_max
         self.overlap_split = bool(
-            overlap_split and self.sharded
+            overlap_split and cut[0]
             and self.interior_shape[0] // SPLIT_BZ >= 3)
 
     def embed(self, u):
         u = u.to(device=self.device, dtype=self.dtype, copy=True)
-        if not self.sharded:
-            return u.contiguous()
-        # ghost planes start as edge replicas; the refresh (or the
-        # exchanged operands) replaces them where the domain goes on
-        r = self.halo
-        idx = torch.arange(-r, u.shape[0] + r, device=u.device)
-        return u.index_select(0, idx.clamp_(0, u.shape[0] - 1)).contiguous()
+        # ghosts start as edge replicas; the refresh (or the exchanged
+        # operands) replaces them where the domain goes on
+        for ax, pad in enumerate(self.pads):
+            if pad:
+                n = u.shape[ax]
+                idx = torch.arange(-pad, n + pad, device=u.device)
+                u = u.index_select(ax, idx.clamp_(0, n - 1))
+        return u.contiguous()
 
     def extract(self, S):
-        return S[self.zpad:S.shape[0] - self.zpad] if self.sharded else S
+        if not self.sharded:
+            return S
+        return S[tuple(slice(p, S.shape[ax] - p)
+                       for ax, p in enumerate(self.pads))]
 
     def _buffers(self, u):
         # every plane a stage reads is written first (a stage, or the
@@ -558,8 +624,15 @@ class FusedBurgersStepper(FusedStepperBase):
               exch=None):
         kw = dict(params=self.params)
         if self.sharded:
-            kw.update(zpad=self.zpad, global_nz=self.global_shape[0],
+            zpad, ypad, xpad = self.pads
+            kw.update(zpad=zpad, global_nz=self.global_shape[0],
                       oz=offsets[0])
+            if ypad:
+                kw.update(ypad=ypad, global_ny=self.global_shape[1],
+                          oy=offsets[1])
+            if xpad:
+                kw.update(xpad=xpad, global_nx=self.global_shape[2],
+                          ox=offsets[2])
         (a1, b1), (a2, b2), (a3, b3) = STAGES
         stages = ((S, None, T1, a1, b1, None),
                   (T1, S, T2, a2, b2, None),

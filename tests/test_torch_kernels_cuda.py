@@ -10,7 +10,8 @@ run of every shard of the card with the ghost rows moved inside the
 kernel, and the WENO7 instances of K3, K4, K2b, the sharded K5 and
 K8/K8b with their mesh runs, and the bf16 instances of K1, K2, K6 and K9
 with float64 storage on K1/K2, and the sharded bf16 instances of K1 and
-K9 and the bf16 instances of K3 and K4 with their mesh runs — against
+K9 and the bf16 instances of K3 and K4 with their mesh runs, and K5's
+y/x-sharded instance with its runs on y/x-cut meshes — against
 their plain PyTorch twins on a GPU. Marked ``cuda``:
 it skips where no CUDA device is present.
 
@@ -2219,3 +2220,109 @@ def test_bf16_mesh_run_matches_unsharded(gpu_mesh, family, extra, plain,
     assert torch.equal(got.u.assemble(), want.u)
     assert (got.t, got.it) == (want.t, want.it)
     assert counters[counter].launches == (launches * 4 if launches else 1)
+
+
+# --------------------------------------------------------------------- #
+# K5's YX instance: shards of y-, x-, y-x-, z-y- and z-y-x-cut meshes
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def gpu_yx():
+    if not torch.cuda.is_available():
+        pytest.skip("K5's y/x-sharded (YX) instance "
+                    "(csrc/fused_burgers_stage.cu) needs a CUDA device")
+    return torch.device("cuda")
+
+
+# shards a side of (z, y, x) on each cut
+K5_YX_CUTS = {"dy2": (1, 2, 1), "dx2": (1, 1, 2), "dydx": (1, 2, 2),
+              "dzdy": (2, 2, 1), "block": (2, 2, 2)}
+# a shard's core: one off the tile in y, over a tile in x, z chunks of 3
+K5_YX_CORE = (18, fb.TILE[0] + 1, fb.TILE[1] + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [5, 7])
+@pytest.mark.parametrize("case", list(K5_CASES))
+@pytest.mark.parametrize("cut", list(K5_YX_CUTS))
+def test_k5_yx_matches_twin(gpu_yx, cut, case, order):
+    """K5's YX instance on the first and the last shard of a cut, every
+    stage kind (and on a cut z the split schedule's interior, bottom and
+    top windows with the exchanged operands), z chunks of 3, random
+    ghosts: 0 ulp from its twin, the emitted maximum exactly (folded into
+    a prior value); every launch counted by ``fb.yx_instance``."""
+    name, fkw, variant, nu = K5_CASES[case]
+    params = fb.stage_params(pflux.get(name, **fkw),
+                             variant if order == 5 else "js",
+                             (0.05, 0.07, 0.09), nu, order=order)
+    r = params.r
+    cuts = K5_YX_CUTS[cut]
+    pads = tuple(r if c > 1 else 0 for c in cuts)
+    stored = tuple(n + 2 * p for n, p in zip(K5_YX_CORE, pads))
+    lz = K5_YX_CORE[0]
+    roles = [(None, None)]
+    if cuts[0] > 1:
+        roles += [((6, lz - 6), None), ((0, 6), "lo"), ((lz - 6, lz), "hi")]
+    rng = np.random.default_rng(order)
+    dt = torch.full((), 2e-3, device=gpu_yx)
+    for last, kind, (window, op) in itertools.product((False, True),
+                                                      range(3), roles):
+        offs = tuple((c - 1) * n if last else 0
+                     for n, c in zip(K5_YX_CORE, cuts))
+        a, b = fb.STAGES[kind]
+        v, u = _rand(rng, stored, gpu_yx), _rand(rng, stored, gpu_yx)
+        opnd = _rand(rng, (pads[0],) + stored[1:], gpu_yx) if op else None
+        kw = dict(params=params, a=a, b=b, window=window,
+                  lo=opnd if op == "lo" else None,
+                  hi=opnd if op == "hi" else None,
+                  zpad=pads[0], global_nz=cuts[0] * lz, oz=offs[0],
+                  ypad=pads[1], global_ny=cuts[1] * K5_YX_CORE[1],
+                  oy=offs[1], xpad=pads[2],
+                  global_nx=cuts[2] * K5_YX_CORE[2], ox=offs[2])
+        u_arg = None if kind == 0 else u
+        out0 = _rand(rng, stored, gpu_yx)
+        ref, mref = fb.stage_reference(v, u_arg, out0.clone(), dt, emit=True,
+                                       **kw)
+        out, mx = out0.clone(), torch.full((1,), 0.5, device=gpu_yx)
+        before = fb.yx_instance.launches
+        fb.fused_burgers_stage(v, u_arg, out, dt, mx, zchunk=3,
+                               mx_init=False, **kw)
+        torch.cuda.synchronize()
+        where = (cut, last, kind, window)
+        assert torch.equal(out, ref), where
+        assert float(mx[0]) == max(0.5, float(mref)), where
+        assert fb.yx_instance.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut,extra,launches", [
+    ("dy2", {}, 6), ("dx2", {"weno_order": 7, "adaptive_dt": False}, 6),
+    ("dzdy", {"overlap": "split", "nu": 1e-5}, 36),
+    ("block", {"weno_variant": "z"}, 24)])
+def test_k5_yx_run_matches_unsharded(gpu_yx, cut, extra, launches):
+    """Burgers on a y/x-cut mesh of one card equals the unsharded K5 run
+    to the bit, ``t`` equal; K5's YX instance launched 3 times a step a
+    shard (9 under the split schedule)."""
+    from multigpu_advectiondiffusion_tpu_torch.parallel.mesh import (
+        Decomposition,
+        make_mesh,
+    )
+
+    cuts = K5_YX_CUTS[cut]
+    names = ("dz", "dy", "dx")
+    sizes = {names[ax]: c for ax, c in enumerate(cuts) if c > 1}
+    mapping = {ax: names[ax] for ax, c in enumerate(cuts) if c > 1}
+    mesh = make_mesh(sizes, devices=[gpu_yx] * int(np.prod(cuts)),
+                     timeout=60)
+    cfg = BurgersConfig(grid=Grid.make(38, 30, 56, lengths=2.0),
+                        impl="pallas", **extra)
+    one = BurgersSolver(dataclasses.replace(cfg, overlap="padded"))
+    sharded = BurgersSolver(cfg, mesh=mesh,
+                            decomp=Decomposition.of(mapping))
+    assert sharded.engaged_path()["stepper"] == "fused-stage"
+    want = one.run(one.initial_state(), 4)
+    fb.yx_instance.launches = 0
+    got = sharded.run(sharded.initial_state(), 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got.u.assemble(), want.u)
+    assert (got.t, got.it) == (want.t, want.it)
+    assert fb.yx_instance.launches == launches * 4

@@ -265,13 +265,13 @@ _FAMILIES = {"diffusion": (JDConfig, JDSolver, PDConfig, PDSolver),
 
 def _both(family, layout, **kw):
     """Makers of the JAX and the port solver of one config on one mesh
-    layout: a 3-D grid 16x16x96 on a layout with a z axis, else the 2-D
-    grid 24x96."""
+    layout: a 3-D grid 16x16x96 on a layout with a z axis or a third
+    array axis, else the 2-D grid 24x96."""
     sizes, mapping = layout
     n = int(np.prod(list(sizes.values())))
     jm = jmesh.make_mesh(sizes, devices=jax.devices()[:n])
     jd = jmesh.Decomposition.of(mapping)
-    n_xyz = (16, 16, 96) if "dz" in sizes else (24, 96)
+    n_xyz = (16, 16, 96) if "dz" in sizes or 2 in mapping else (24, 96)
     lengths = 2.0 if family == "burgers" else 4.0
     jcls, jsolver, pcls, psolver = _FAMILIES[family]
     # configs too are built in the makers: a config may refuse the knobs
@@ -291,12 +291,15 @@ _Y = ({"dz": 2, "dy": 2}, {0: "dz", 1: "dy"})
 _DY = ({"dy": 2}, {0: "dy"})
 _DX = ({"dx": 2}, {1: "dx"})
 _DYX = ({"dy": 2, "dx": 2}, {0: "dy", 1: "dx"})
+# the 3-D x slab and block (K5's YX instance)
+_X3 = ({"dx": 2}, {2: "dx"})
+_B3 = ({"dz": 2, "dy": 2, "dx": 2}, {0: "dz", 1: "dy", 2: "dx"})
 SWEEP = [
     (fam, layout, dict(impl=impl, overlap=ov, steps_per_exchange=k, **extra))
     for fam, extras, layouts in (
         ("diffusion", [{}], (_Z2, _Y, _DY, _DX, _DYX)),
         ("burgers", [{"adaptive_dt": False}, {"adaptive_dt": True}],
-         (_Z2, _Y, _DY, _DX, _DYX)),
+         (_Z2, _Y, _DY, _DX, _DYX, _X3, _B3)),
         ("adr", [{}], (_Z2, _Y, _DY)))
     for extra in extras
     for layout in layouts
@@ -319,12 +322,12 @@ def _sweep_id(case):
 @pytest.mark.parametrize("case", SWEEP, ids=[_sweep_id(c) for c in SWEEP])
 def test_dispatch_matches_jax(case):
     """Construction and ``engaged_path()`` only. Where the JAX package
-    raises, the port raises the same error; where it runs a rung whose
-    kernel is not ported (K5 on a y-sharded 3-D mesh), the port raises
-    and names its ROADMAP item; elsewhere the engaged stepper, overlap,
-    steps per exchange, exchange and — off the fused rungs — fallback
-    are JAX's: the 2-D layouts engage K8 (K8b under split), ADR's 3-D
-    meshes K9's sharded instance."""
+    raises, the port raises the same error; elsewhere the engaged
+    stepper, overlap, steps per exchange, exchange and — off the fused
+    rungs — fallback are JAX's: the 2-D layouts engage K8 (K8b under
+    split), ADR's 3-D meshes K9's sharded instance, 3-D Burgers on the
+    pencil, the x slab and the block K5's YX instance where JAX runs
+    its y/x-sharded K5 (``fused-stage``)."""
     family, layout, kw = case
     make_jax, make_port = _both(family, layout, **kw)
     try:
@@ -334,11 +337,6 @@ def test_dispatch_matches_jax(case):
         with pytest.raises(ValueError) as got:
             make_port().engaged_path()
         assert str(got.value) == str(exc)
-        return
-    if family == "burgers" and "dz" in layout[0] and 1 in layout[1] and (
-            want["stepper"].startswith("fused")):
-        with pytest.raises(NotImplementedError, match="item 8d"):
-            make_port()
         return
     got = make_port().engaged_path()
     assert {f: got[f] for f in _FIELDS} == {f: want[f] for f in _FIELDS}

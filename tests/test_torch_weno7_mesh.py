@@ -536,8 +536,8 @@ def test_weno7_mesh_dispatch_matches_jax(layout, n):
     the JAX package raises, the port raises the same error; elsewhere the
     engaged stepper, overlap, steps per exchange, exchange and — off the
     fused rungs — the fallback (the thin shard's "a sharded axis is
-    thinner than the WENO7 halo (4)") are JAX's. On the y-sharded 3-D
-    mesh the port raises naming ROADMAP item 8d where JAX runs K5."""
+    thinner than the WENO7 halo (4)") are JAX's, on the y-sharded 3-D
+    pencil too (K5's YX instance where JAX runs its y-sharded K5)."""
     sizes, mapping = LAYOUTS[layout]
     nd = int(np.prod(list(sizes.values())))
     jm = jmesh.make_mesh(sizes, devices=jax.devices()[:nd])
@@ -559,9 +559,6 @@ def test_weno7_mesh_dispatch_matches_jax(layout, n):
         got = _outcome(lambda: PSolver(PConfig(
             grid=PGrid.make(*n, lengths=2.0), **kw), mesh=pm, decomp=pd))
         fused += str(want[0]).startswith("fused")
-        if layout == "dz2dy2" and str(want[0]).startswith("fused"):
-            assert got[0] == "NotImplementedError" and "item 8d" in got[1]
-            continue
         assert got == want, kw
     # the thin shards decline every fused flavor to the generic rung
     assert bool(fused) != (n in ((16, 16, 12), (40, 12), (6, 40)))
