@@ -113,12 +113,18 @@ ignored ``build/`` directory), then:
    shapes (``<= 32 eps`` of max|twin|, the ulp count printed); times
    each alone at the paths' shapes beside its bytes bound, the twin and
    ``conv3d``/``conv2d`` computing the same Laplacian;
-17. holds the per-axis WENO kernels (K12, K12b) against their twin:
-   every sweep axis at 512^3 and 400x400x406 (WENO5-JS), 400^2, and at
-   the odd shapes WENO5-Z, WENO7-JS (its difference-form betas to 0 ulp)
-   and the linear and Buckley-Leverett fluxes; times each axis alone
-   beside its bound and the twin;
-18. drives the six per-axis paths (``impl="pallas_axis"``): diffusion
+17. holds the per-axis WENO kernels (K12, K12b) on unpadded arrays
+   against their twin at 0 ulp: every ghost source (edge, periodic,
+   Dirichlet, a halo exchange's slabs) x store (div, the running sum,
+   its negation) x scheme (WENO5-JS/Z, WENO7-JS) x sweep axis at the
+   odd shapes, with the linear and Buckley-Leverett fluxes and forced
+   plans too; times each axis alone at 512^3 and 400x400x406 (WENO5-JS
+   and, at 512^3, WENO7-JS) and 400^2, with and without the sum, beside
+   its bound and the twin, and sweeps the chunks and row segments;
+18. holds five per-axis Burgers runs (64^3 and 400^2, every ghost rule,
+   both orders, ``run(20)``) to the bit against the same runs with
+   K12/K12b's twin composition in place of every launch; then drives the
+   six per-axis paths (``impl="pallas_axis"``): diffusion
    3-D ``run(101)`` (303 K11 launches), Burgers 512^3 adaptive
    ``run(86)`` (774 K12, 258 K11), ``MultiGPU/Burgers3d_Baseline``
    ``run(267)`` (2,403 K12), diffusion 1001^2 ``run(10000)`` (30,000
@@ -126,7 +132,8 @@ ignored ``build/`` directory), then:
    fixed and adaptive dt (1,200 K12b each); each against ``impl="xla"``
    at the bounds of phases 2 and 6, diffusion's error norms, Burgers' u
    inside [-1e-6, 1.05]; ms/step beside the fused path's, MLUPS, the
-   idle share and device-to-host copies of a profiled run;
+   idle share, device-to-host copies and the device kernels a step, by
+   name, of a profiled run;
 19. Burgers 3-D ``impl="pallas_step"`` engages K5, and diffusion with
    periodic walls under ``impl="pallas"`` the per-axis rung (K11);
 20. holds the fused ADR stage kernel (K9) against its plain twin to the
@@ -384,11 +391,13 @@ GPU it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -408,6 +417,7 @@ from multigpu_advectiondiffusion_tpu_torch import (
     EnsembleState,
     Grid,
 )
+from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary
 from multigpu_advectiondiffusion_tpu_torch.diagnostics import physics
 from multigpu_advectiondiffusion_tpu_torch.models import registry
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
@@ -2146,14 +2156,16 @@ def gate_sweep(card: str) -> None:
 # --------------------------------------------------------------------- #
 # K11/K11b, K12/K12b and the per-axis paths (phases 16-19)
 # --------------------------------------------------------------------- #
-K12_ODD_CASES = (  # (flux, flux kwargs, variant, order) at ODD_SHAPE/ODD_2D
-    ("burgers", {}, "z", 5),
-    ("burgers", {}, "js", 7),
-    ("linear", {"c": -0.7}, "js", 5),
-    ("buckley", {}, "js", 5),
-    ("buckley", {}, "js", 7),
-)
-K12_CHUNKS = (4, 8, 16, 32)  # cells a K12 thread marches, timed at 512^3
+# K12/K12b against their twin (phase 17): every ghost source, store and
+# scheme on the odd shapes, forced plans on the aligned ones, the other
+# fluxes; (flux, kwargs) besides Burgers
+K12_GHOSTS = {"edge": Boundary("edge"), "periodic": Boundary("periodic"),
+              "dirichlet": Boundary("dirichlet", 0.37), "slabs": None}
+K12_STORES = ("div", "sum", "negated-sum")
+K12_SCHEMES = ((5, "js"), (5, "z"), (7, "js"))
+K12_FLUXES = (("linear", {"c": -0.7}), ("buckley", {}))
+K12_ALIGNED = ((23, 29, 40), (23, 40))  # inner a multiple of 4
+K12_CHUNKS = (24, 48, 96, 192)  # cells a column thread marches, at 512^3
 # split operations a cell by flux (the note in csrc/weno_axis.cu)
 SPLIT_OPS = {"burgers": 6, "linear": 7, "buckley": 22}
 
@@ -2164,13 +2176,16 @@ def lap_ops(shape) -> int:
     return math.prod(shape) * (11 * len(shape) - 1)
 
 
-def weno_ops(shape, flux: str, variant: str, order: int) -> int:
-    """f32 operations of one K12 sweep with each face computed once (the
-    note in csrc/weno_axis.cu): the split, then 103 (WENO5-JS), 113
-    (WENO5-Z) or 293 (WENO7) a cell."""
+def weno_ops(shape, flux: str, variant: str, order: int,
+             store: str = "div") -> int:
+    """f32 operations of one K12 sweep with each split and face computed
+    once (the note in csrc/weno_axis.cu): the split, then 103 (WENO5-JS),
+    113 (WENO5-Z) or 293 (WENO7) a cell, and the sum (1) and its sign
+    (1) of the store."""
     per_axis = {(5, "js"): 103, (5, "z"): 113, (7, "js"): 293}[
         (order, variant)]
-    return math.prod(shape) * (SPLIT_OPS[flux] + per_axis)
+    extra = {"div": 0, "sum": 1, "negated-sum": 2}[store]
+    return math.prod(shape) * (SPLIT_OPS[flux] + per_axis + extra)
 
 
 def kernel_bound(in_elems: int, out_elems: int, ops: int, size: int = 4):
@@ -2274,75 +2289,157 @@ def laplacian_axis_phase(card: str) -> list[dict]:
 
 
 def weno_axis_phase(card: str) -> list[dict]:
-    """Phase 17: K12 and K12b against their twin: every sweep axis at
-    512^3 and 400x400x406 (WENO5-JS, Burgers flux), each timed alone
-    beside its bound and the twin; the odd shapes for WENO5-Z, WENO7-JS
-    and the linear and Buckley-Leverett fluxes; 400^2 in 2-D."""
+    """Phase 17: K12 and K12b on unpadded arrays against their twin
+    (``flux_divergence_axis_reference``), every instance at 0 ulp: each
+    ghost source (edge, periodic, Dirichlet 0.37, a halo exchange's
+    slabs) x store (div, the running sum, its negation) x scheme
+    (WENO5-JS/Z, WENO7-JS) x sweep axis on the odd shapes, with the
+    linear and Buckley-Leverett fluxes too; forced chunks and segments
+    on the aligned shapes; every axis at 512^3
+    and 400x400x406 and at 400^2 in 2-D, each timed alone with and
+    without the sum beside its bound (the twin once, as its check
+    runs); WENO7-JS at 512^3; the column chunks and the last-axis
+    segment swept at 512^3."""
     print("phase 17: K12 and K12b against their twin")
     fx = pflux.burgers()
-    res = {3: {"err": 0.0, "ulps": 0, "timed": []},
-           2: {"err": 0.0, "ulps": 0, "timed": []}}
+    edge = K12_GHOSTS["edge"]
+    res = {nd: {"err": 0.0, "ulps": 0, "instances": 0, "timed": []}
+           for nd in (2, 3)}
 
-    def check(shape, axis, flux, kw, variant, order, seed, timed):
-        nd = len(shape)
-        fn = kweno.flux_divergence_3d if nd == 3 else kweno.flux_divergence_2d
-        padded = list(shape)
-        padded[axis] += 2 * kweno.HALO[order]
-        up = random_on_card(tuple(padded), seed)
-        f = pflux.get(flux, **kw)
-        want = kweno.flux_divergence_reference(up, axis, 0.05, f, variant,
-                                               order)
-        got = fn(up, axis, 0.05, f, variant, order)
+    def entry(nd):
+        return kweno.flux_divergence_3d if nd == 3 else \
+            kweno.flux_divergence_2d
+
+    def operands(shape, axis, order, seed):
+        slab = list(shape)
+        slab[axis] = kweno.HALO[order]
+        return (random_on_card(shape, seed),
+                random_on_card(shape, seed + 1, -1.0, 1.0),
+                (random_on_card(tuple(slab), seed + 2),
+                 random_on_card(tuple(slab), seed + 3)))
+
+    def instance(ops, axis, f, variant, order, ghost, store, plan):
+        """The kernel against the twin on one instance: the largest
+        difference, its ulps and the twin's time (ms, once)."""
+        u, acc, slabs = ops
+        bc = K12_GHOSTS[ghost]
+        src = {"ghosts": slabs} if bc is None else {"bc": bc}
+        neg = store == "negated-sum"
+        summed = store != "div"
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = kweno.flux_divergence_axis_reference(
+            u, axis, 0.05, f, variant, order, acc=acc if summed else None,
+            negate=neg, **src)
+        end.record()
+        got = entry(u.dim())(u, axis, 0.05, f, variant, order,
+                             acc=acc.clone() if summed else None,
+                             negate=neg, **src, **plan)
         torch.cuda.synchronize()
-        tag = f"K12{'' if nd == 3 else 'b'}"
-        e, u = compare(f"{tag} at {tuple(shape)} axis {axis} ({flux}, "
-                       f"WENO{order}-{variant})", got, want)
-        if order == 7 and u != 0:  # the difference-form betas, held exactly
-            raise AssertionError(f"{tag} WENO7 at {tuple(shape)} axis "
-                                 f"{axis}: {u} ulp from its twin")
-        res[nd]["err"], res[nd]["ulps"] = (max(res[nd]["err"], e),
-                                           max(res[nd]["ulps"], u))
-        del got, want
-        if timed:
-            ms = alone_ms(lambda x: fn(x, axis, 0.05, f, variant, order),
-                          [up], 5 if nd == 3 else 21)
-            plain = statistics.median(cuda_ms(
-                lambda: kweno.flux_divergence_reference(
-                    up, axis, 0.05, f, variant, order), 3))
-            bound, by = kernel_bound(up.numel(), math.prod(shape),
-                                     weno_ops(shape, flux, variant, order))
-            line = (f"    alone {ms:.4f} ms; twin {plain:.3f} ms; bound "
-                    f"{bound:.4f} ms ({by})")
-            if nd == 3 and shape[0] == BURGERS_N:
-                sweep = {c: alone_ms(lambda x: fn(
-                    x, axis, 0.05, f, variant, order, chunk=c), [up], 5)
-                    for c in K12_CHUNKS}
-                line += "; by chunk {" + ", ".join(
-                    f"{c}: {t:.4f}" for c, t in sweep.items()) + "} ms"
-            print(f"{line} [{card}]")
-            res[nd]["timed"].append({"shape": list(shape), "axis": axis,
-                                     "ms": ms, "plain_ms": plain,
-                                     "bound_ms": bound, "bound_by": by})
-        del up
+        return (float((got - want).abs().max()), ulps(got, want),
+                start.elapsed_time(end))
+
+    def group(shape, axis, cases, seed, ops=None) -> float:
+        """``cases`` of (flux, variant, order, ghost, store, plan) at
+        ``shape`` along ``axis`` (on ``ops``, one order's operands, where
+        given): all must be 0 ulp; returns the twin's last time."""
+        nd = len(shape)
+        ops = ops or {o: operands(shape, axis, o, seed)
+                      for o in {c[2] for c in cases}}
+        err, worst, plain = 0.0, 0, 0.0
+        for f, variant, order, ghost, store, plan in cases:
+            e, n, plain = instance(ops[order], axis, f, variant, order,
+                                   ghost, store, plan)
+            err, worst = max(err, e), max(worst, n)
+            if n != 0:
+                raise AssertionError(
+                    f"K12 at {shape} axis {axis} ({f.name}, WENO{order}-"
+                    f"{variant}, {ghost} ghosts, {store}, plan {plan}): "
+                    f"{n} ulp from its twin")
+        tag = "K12" if nd == 3 else "K12b"
+        print(f"  {tag} at {tuple(shape)} axis {axis}: {len(cases)} "
+              f"instances, max|kernel-twin| = {err:.3e}, {worst} ulp")
+        r = res[nd]
+        r["err"], r["ulps"] = max(r["err"], err), max(r["ulps"], worst)
+        r["instances"] += len(cases)
+        return plain
+
+    every = [(fx, v, o, g, st, {}) for o, v in K12_SCHEMES
+             for g in K12_GHOSTS for st in K12_STORES]
+    every += [(pflux.get(name, **kw), v, o, g, "sum", {})
+              for name, kw in K12_FLUXES for o, v in K12_SCHEMES
+              for g in K12_GHOSTS]
+    for i, shape in enumerate((ODD_SHAPE, ODD_2D)):
+        for axis in range(len(shape)):
+            group(shape, axis, every, 170 + 10 * i + axis)
+    for i, shape in enumerate(K12_ALIGNED):
+        for axis in range(len(shape)):
+            plans = ([{}, {"chunk": 8}, {"chunk": 12}]
+                     if axis == len(shape) - 1 else
+                     [{}, {"chunk": 1}, {"chunk": 5}, {"chunk": 13}])
+            cases = [(fx, v, o, g, "negated-sum", p) for o, v in K12_SCHEMES
+                     for g in K12_GHOSTS for p in plans]
+            group(shape, axis, cases, 190 + 10 * i + axis)
+
+    def timed(shape, axis, order, store, seed, sweep=False):
+        nd = len(shape)
+        fn = entry(nd)
+        ops = operands(shape, axis, order, seed)
+        plain = group(shape, axis, [(fx, "js", order, "edge", store, {})],
+                      seed, {order: ops})
+        u, acc, _ = ops
+        summed = store != "div"
+        plan = {}
+
+        def launch(x, **kw):
+            fn(x, axis, 0.05, fx, "js", order, bc=edge,
+               acc=acc if summed else None, **kw)
+
+        ms = alone_ms(lambda x: launch(x, plan=plan), [u],
+                      5 if nd == 3 else 21)
+        bound, by = kernel_bound(u.numel() * (2 if summed else 1),
+                                 u.numel(),
+                                 weno_ops(shape, "burgers", "js", order,
+                                          store))
+        line = (f"    alone {ms:.4f} ms ({store}; plan {plan}); twin "
+                f"{plain:.3f} ms once; bound {bound:.4f} ms ({by})")
+        if sweep:
+            last = axis == nd - 1
+            knobs = [{"chunk": t} for t in
+                     ((16, 32, 48, 64) if last else K12_CHUNKS)]
+            times = {", ".join(f"{k} {v}" for k, v in kw.items()):
+                     alone_ms(lambda x: launch(x, **kw), [u], 5)
+                     for kw in knobs}
+            line += "; by plan {" + ", ".join(
+                f"{k}: {t:.4f}" for k, t in times.items()) + "} ms"
+        print(f"{line} [{card}]")
+        res[nd]["timed"].append({
+            "shape": list(shape), "axis": axis, "order": order,
+            "store": store, "plan": plan, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by})
+        del ops, u, acc
         torch.cuda.empty_cache()
 
     for i, shape in enumerate(((BURGERS_N,) * 3, tuple(reversed(K6_N)))):
         for axis in range(3):
-            check(shape, axis, "burgers", {}, "js", 5, 170 + 3 * i + axis,
-                  True)
+            for store in ("div", "sum"):
+                timed(shape, axis, 5, store, 200 + 10 * i + axis,
+                      sweep=i == 0 and store == "sum")
+    for axis in range(3):
+        timed((BURGERS_N,) * 3, axis, 7, "sum", 230 + axis)
     for axis in range(2):
-        check((BURGERS2D_N, BURGERS2D_N), axis, "burgers", {}, "js", 5,
-              176 + axis, True)
-    for j, (flux, kw, variant, order) in enumerate(K12_ODD_CASES):
-        for shape in (ODD_SHAPE, ODD_2D):
-            for axis in range(len(shape)):
-                check(shape, axis, flux, kw, variant, order,
-                      180 + 10 * j + axis, False)
+        for store in ("div", "sum"):
+            timed((BURGERS2D_N, BURGERS2D_N), axis, 5, store, 240 + axis)
     entries = []
     for nd, kid, name, line in ((3, "K12", "flux_divergence_3d", 221),
                                 (2, "K12b", "flux_divergence_2d", 276)):
+        # the main per-axis path's mix at its shape (512^3; 400^2):
+        # the first sweep stores div, the others the sum
         main = [t for t in res[nd]["timed"]
-                if t["shape"][0] in (BURGERS_N, BURGERS2D_N)]
+                if t["shape"][0] in (BURGERS_N, BURGERS2D_N)
+                and t["order"] == 5
+                and (t["store"] == "div") == (t["axis"] == 0)]
         entries.append({
             "name": name, "id": kid, "route": "cuda",
             "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
@@ -2350,8 +2447,8 @@ def weno_axis_phase(card: str) -> list[dict]:
             "replaces": "multigpu_advectiondiffusion_tpu/ops/pallas/"
                         f"weno.py:{line}",
             "max_abs_err": res[nd]["err"], "max_ulps": res[nd]["ulps"],
-            # per launch alone, mean over the sweep axes at the main
-            # per-axis path's shape (512^3; 400^2)
+            "instances_checked": res[nd]["instances"],
+            # per launch alone, mean over the main path's sweeps
             "ms": statistics.mean(t["ms"] for t in main),
             "plain_ms": statistics.mean(t["plain_ms"] for t in main),
             "bound_ms": statistics.mean(t["bound_ms"] for t in main),
@@ -2364,11 +2461,19 @@ def weno_axis_phase(card: str) -> list[dict]:
     return entries
 
 
-def axis_profile(fn, ndim: int) -> dict | None:
-    """Run ``fn`` under ``torch.profiler``: device span and busy time,
-    the launches and mean time of each per-axis kernel of an ``ndim``-D
-    run, and the device-to-host copies; ``None`` when it saw no device
-    activity."""
+def kernel_name(name: str) -> str:
+    """A device event's name without its return type, anonymous
+    namespaces and parameter list, cut to 90 characters."""
+    name = name.replace("(anonymous namespace)::", "")
+    return re.sub(r"^void |\(.*$", "", name)[:90]
+
+
+def axis_profile(fn, ndim: int, steps: int = 1) -> dict | None:
+    """Run ``fn`` (``steps`` steps) under ``torch.profiler``: device span
+    and busy time, the launches and mean time of each per-axis kernel of
+    an ``ndim``-D run, the device-to-host copies, and every device kernel
+    a step by name (so a pad, a sum or a negation shows); ``None`` when
+    it saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2391,12 +2496,15 @@ def axis_profile(fn, ndim: int) -> dict | None:
             kernels[key] = {"launches": len(times),
                             "ms": statistics.mean(times),
                             "share": sum(times) / ((end - start) / 1e3)}
+    names = collections.Counter(
+        kernel_name(e.name) for e in dev)
     return {
         "span_ms": (end - start) / 1e3,
         "busy_ms": sum(e.time_range.end - e.time_range.start
                        for e in dev) / 1e3,
         "kernels": kernels,
         "dtoh": sum(1 for e in dev if "DtoH" in e.name),
+        "per_step": {k: v / steps for k, v in names.most_common()},
     }
 
 
@@ -2423,7 +2531,7 @@ def per_axis_path(name, solver, iters: int, expect: dict, card: str,
     mlups = solver.grid.num_cells * t_iters * 3 / (total_ms * 1e-3) / 1e6
     reads = count_reads(lambda: solver.run(state0, p_iters))
     prof = axis_profile(lambda: solver.run(state0, p_iters),
-                        solver.grid.ndim)
+                        solver.grid.ndim, p_iters)
     line = (f"  {name} run({t_iters}): median {total_ms:.3f} ms of "
             f"{[round(r, 3) for r in reps]}; {step_ms:.4f} ms/step "
             f"({step_ms / fused_ms_per_step:.2f}x the fused path's "
@@ -2443,12 +2551,16 @@ def per_axis_path(name, solver, iters: int, expect: dict, card: str,
               f"{prof['span_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, "
               f"idle share {idle:.4f}, device-to-host copies {dtoh}; "
               f"{shares} [{card}]")
+        work = prof["per_step"]
+        print(f"  device work a step: {sum(work.values()):g} ("
+              + "; ".join(f"{k} {v:g}" for k, v in work.items()) + ")")
     return out, state0, {
         "ms_per_step": step_ms, "mlups": mlups, "run_iters": t_iters,
         "fused_ms_per_step": fused_ms_per_step,
         "device_idle_share": idle, "dtoh_copies": dtoh,
         "host_reads": reads,
         "profile": None if prof is None else prof["kernels"],
+        "device_work_per_step": None if prof is None else prof["per_step"],
     }
 
 
@@ -2469,10 +2581,75 @@ def check_burgers_path(name, solver, out, state0, check_iters: int):
                    rtol=2e-5, atol=2e-6)
 
 
+# per-axis Burgers runs held bit for bit against the same runs with
+# every K12/K12b launch replaced by the twin composition (phase 18):
+# (label, grid shape, config)
+AXIS_TWIN_ITERS = 20
+AXIS_TWIN_CASES = (
+    ("64^3 adaptive, nu 1e-5, edge", (64, 64, 64), {"nu": BURGERS_NU}),
+    ("64^3 fixed dt, periodic, WENO7", (64, 64, 64),
+     {"bc": "periodic", "weno_order": 7, "adaptive_dt": False}),
+    ("64^3 adaptive, Dirichlet, WENO5-Z", (64, 64, 64),
+     {"bc": "dirichlet", "weno_variant": "z"}),
+    ("400^2 fixed dt, edge", (BURGERS2D_N, BURGERS2D_N),
+     {"adaptive_dt": False}),
+    ("400^2 adaptive, periodic", (BURGERS2D_N, BURGERS2D_N),
+     {"bc": "periodic"}),
+)
+
+
+def twin_entry(u, axis, dx, flux, variant="js", order=5, *, bc=None,
+               ghosts=None, acc=None, negate=False, **_):
+    """K12/K12b's twin composition in place of a launch: the result into
+    ``acc`` where one is given, as the kernel stores it."""
+    out = kweno.flux_divergence_axis_reference(
+        u, axis, dx, flux, variant, order, bc=bc, ghosts=ghosts, acc=acc,
+        negate=negate)
+    return out if acc is None else acc.copy_(out)
+
+
+def axis_twin_phase(card: str) -> None:
+    """Phase 18, first: each per-axis run of ``AXIS_TWIN_CASES`` (every
+    ghost rule of a single device, both dimensions, both orders) against
+    the same run with K12/K12b's twin composition in place of every
+    launch: the final state equal to the bit, ``t`` equal."""
+    n = AXIS_TWIN_ITERS
+    print(f"phase 18: per-axis Burgers runs against the twin composition, "
+          f"run({n})")
+    for label, shape, kw in AXIS_TWIN_CASES:
+        cfg = BurgersConfig(grid=Grid.make(*shape, lengths=2.0),
+                            dtype="float32", impl="pallas_axis", **kw)
+        nd = len(shape)
+        expect = {"K12" if nd == 3 else "K12b": 3 * nd * n}
+        if cfg.nu:
+            expect["K11" if nd == 3 else "K11b"] = 3 * n
+        solver = BurgersSolver(cfg)
+        state0 = solver.initial_state()
+        out = drive(label, solver, state0, n, expect)
+        saved = kweno.flux_divergence_3d, kweno.flux_divergence_2d
+        kweno.flux_divergence_3d = kweno.flux_divergence_2d = twin_entry
+        try:
+            twin = BurgersSolver(cfg).run(state0, n)
+            torch.cuda.synchronize()
+        finally:
+            kweno.flux_divergence_3d, kweno.flux_divergence_2d = saved
+        same = (bool(torch.equal(out.u, twin.u))
+                and float(out.t) == float(twin.t))
+        print(f"  {label}: t {float(out.t)!r}; equal to the twin "
+              f"composition's run to the bit: {same} [{card}]")
+        if not same:
+            raise AssertionError(
+                f"{label}: the kernel run is {ulps(out.u, twin.u)} ulp from "
+                f"the twin composition's (t {out.t} vs {twin.t})")
+        del solver, state0, out, twin
+    torch.cuda.empty_cache()
+
+
 def per_axis_phases(card: str, fused: dict) -> dict:
     """Phase 18: the six per-axis paths; ``fused`` holds the fused
     paths' ms/step measured earlier in this run on the same configs.
     Returns each path's numbers by name."""
+    axis_twin_phase(card)
     paths = {}
 
     n = ITERS

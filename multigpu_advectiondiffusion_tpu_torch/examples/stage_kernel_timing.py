@@ -19,9 +19,10 @@ ensemble row); and the 3-D diffusion run on a ``{"dz": 2}`` mesh of two
 shards on ``cuda:0``, on K3 (the collective exchange) and on K4
 (``exchange="dma"``). The per-axis rung's paths (``--paths axis``:
 K11/K12 inside the generic loop, ``impl="pallas_axis"``) are the 3-D
-diffusion run, both 3-D Burgers runs and the ADR run at their full
-depth, which chip_smoke.py times over 20 steps (40 for ADR) since it
-outgrew its time; K5's y/x-sharded instance (``--paths yx``) runs the
+diffusion run, both 3-D Burgers runs, both 2-D Burgers runs (400^2,
+fixed and adaptive dt) and the ADR run at their full depth, which
+chip_smoke.py times over 20 steps (40 for ADR) since it outgrew its
+time; K5's y/x-sharded instance (``--paths yx``) runs the
 512^3 adaptive Burgers path on ``{"dy": 2}`` and on the block ``{"dz":
 2, "dy": 2, "dx": 2}`` and the 400x400x406 fixed-dt one on ``{"dy":
 2}`` and ``{"dz": 2, "dy": 2}``, every shard on ``cuda:0``. For each
@@ -30,7 +31,8 @@ CUDA-event samples of ``run`` after a warm-up (``--reps``), and, where the profi
 sees every launch (not the cooperative ones), the kernel's mean device
 time a launch from ``torch.profiler`` (for the stage kernels, stage 1
 and stages 2-3); for the 2-D Burgers paths also the floor, ms a step of
-the same whole-run grid with the body off (its grid-wide barriers only).
+the same whole-run grid with the body off (its grid-wide barriers only);
+for every profiled path the device kernels and copies a step, by name.
 The last line is a JSON object of these numbers.
 
 The script calls only the solvers' public entry points, so one call on
@@ -46,8 +48,10 @@ K6,K9`` those of K6 and K9):
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 
@@ -100,6 +104,13 @@ def ms_per_step(solver, state0, iters: int,
     return statistics.median(samples) / iters, samples
 
 
+def kernel_name(name: str) -> str:
+    """A device event's name without its return type, anonymous
+    namespaces and parameter list, cut to 90 characters."""
+    name = name.replace("(anonymous namespace)::", "")
+    return re.sub(r"^void |\(.*$", "", name)[:90]
+
+
 def per_launch_ms(solver, state0, iters: int, kernel: str,
                   launches: int) -> dict:
     """Mean device time (ms) of the kernel named ``kernel`` a launch in
@@ -111,16 +122,23 @@ def per_launch_ms(solver, state0, iters: int, kernel: str,
                              ProfilerActivity.CUDA]) as prof:
         solver.run(state0, iters)
         torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
     times = [(e.time_range.end - e.time_range.start) / 1e3
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
+             for e in dev if kernel in e.name]
+    # every device kernel and copy a step, by name: a pad, a sum or a
+    # negation between the kernels shows here
+    work = collections.Counter(kernel_name(e.name)
+                               for e in dev)
+    seen = {"launches_seen": len(times),
+            "device_work_per_step": sum(work.values()) / iters,
+            "device_work_by_name": {k: v / iters
+                                    for k, v in work.most_common()}}
     if len(times) != launches:
-        return {"launches_seen": len(times)}
+        return seen
     if launches != 3 * iters:
-        return {"launches_seen": len(times),
-                "mean_ms": statistics.mean(times)}
-    return {"launches_seen": len(times),
+        return {**seen, "mean_ms": statistics.mean(times)}
+    return {**seen,
             "stage1_ms": statistics.mean(times[0::3]),
             "stages23_ms": statistics.mean(times[1::3] + times[2::3]),
             "mean_ms": statistics.mean(times)}
@@ -298,6 +316,14 @@ def main() -> int:
          lambda: BurgersSolver(dataclasses.replace(
              baseline, impl="pallas_axis")),
          "weno_axis_kernel", 9 * K6_ITERS),
+        ("per-axis Burgers 400^2 fixed dt", "axis", BURGERS2D_ITERS,
+         lambda: BurgersSolver(dataclasses.replace(
+             burgers2d, adaptive_dt=False, impl="pallas_axis")),
+         "weno_axis_kernel", 6 * BURGERS2D_ITERS),
+        ("per-axis Burgers 400^2 adaptive", "axis", BURGERS2D_ITERS,
+         lambda: BurgersSolver(dataclasses.replace(
+             burgers2d, impl="pallas_axis")),
+         "weno_axis_kernel", 6 * BURGERS2D_ITERS),
         ("per-axis ADR 508x204x160", "axis", ADR_ITERS,
          lambda: ADRSolver(adr), "laplacian3d_kernel", 3 * ADR_ITERS),
         ("y/x-sharded Burgers 512^3 adaptive on {dy: 2}", "yx",

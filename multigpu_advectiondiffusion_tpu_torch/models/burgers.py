@@ -267,16 +267,23 @@ class BurgersSolver(SolverBase):
         lap_impl = self._laplacian_impl(impl, cfg.laplacian_order)
         ghost_fn = ctx.ghost_fn if cfg.overlap == "split" else None
 
+        def ghosts(axis):
+            # K12/K12b form the ghosts: the boundary's on a local axis,
+            # the exchanged slabs on a sharded one (ctx.ghost_fn)
+            if impl == "pallas":
+                return {"bc": self.bcs[axis], "ghost_fn": ctx.ghost_fn}
+            return {"padder": ctx.padder, "ghost_fn": ghost_fn}
+
         def rhs(u):
-            acc = None
+            # -(div_z + div_y + div_x), summed in that order; on the
+            # kernel path the sum and its sign ride the sweeps' stores
+            out = None
             for axis in range(u.ndim):
-                div = flux_divergence(
+                out = flux_divergence(
                     u, axis, spacing[axis], fx, order=cfg.weno_order,
-                    variant=cfg.weno_variant, padder=ctx.padder, impl=impl,
-                    ghost_fn=ghost_fn,
+                    variant=cfg.weno_variant, impl=impl, acc=out,
+                    negate=axis == u.ndim - 1, **ghosts(axis),
                 )
-                acc = div if acc is None else acc + div
-            out = -acc
             if cfg.nu:
                 out = out + laplacian(u, spacing, ctx.padder,
                                       diffusivity=cfg.nu,

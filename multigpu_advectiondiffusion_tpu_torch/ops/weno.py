@@ -336,41 +336,54 @@ def flux_divergence(
     bc: Boundary | None = None,
     impl: str = "xla",
     ghost_fn: GhostFn | None = None,
+    acc: torch.Tensor | None = None,
+    negate: bool = False,
 ) -> torch.Tensor:
     """Conservative residual ``d f(u) / dx`` along one axis — the role of
     ``Compute_dF/dG/dH`` (``MultiGPU/Burgers3d_Baseline/Kernels.cu:225-452``).
     Exactly one of ``padder``/``bc`` selects the ghost-cell source.
     ``impl``: ``"xla"`` (the generic q-form over shifted slices) or
-    ``"pallas"`` (the sweep axis padded, then the per-axis WENO kernel
-    K12/K12b, :mod:`ops.kernels.weno`). A problem the kernel does not
+    ``"pallas"`` (the per-axis WENO kernel K12/K12b,
+    :mod:`ops.kernels.weno`, on unpadded ``u``: its ghosts from ``bc``,
+    or on an axis that ``ghost_fn`` shards from the ``(lo, hi)`` slabs
+    it returns; a padder is not taken). A problem the kernel does not
     compute raises: the caller names that decline and asks for
-    ``"xla"``. ``ghost_fn`` switches sharded axes to the overlapped
-    interior/boundary schedule (:func:`ops.stencils.split_axis_apply`);
-    the kernel path ignores it.
+    ``"xla"``. With ``impl="xla"``, ``ghost_fn`` switches sharded axes to
+    the overlapped interior/boundary schedule
+    (:func:`ops.stencils.split_axis_apply`). ``acc`` (a running sum over
+    the axes) is added and ``negate`` negates the result: in the
+    kernel's store, into ``acc`` in place, under ``"pallas"``.
     """
     if (padder is None) == (bc is None):
         raise ValueError("provide exactly one of padder/bc")
     if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown WENO impl {impl!r}; use 'xla'/'pallas'")
+    if impl == "pallas" and bc is None:
+        raise ValueError("impl='pallas' forms the ghosts in the kernel: "
+                         "give bc (and ghost_fn for sharded axes), not a "
+                         "padder")
     r = HALO[order]
+    ghosts = None if ghost_fn is None else ghost_fn(u, axis, r)
+    if impl == "pallas":
+        from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
+            weno as kweno,
+        )
+
+        return kweno.flux_divergence_kernel(
+            u.contiguous(), axis, dx, flux, variant, order,
+            bc=bc if ghosts is None else None, ghosts=ghosts, acc=acc,
+            negate=negate)
 
     def div_from_padded(up):
         h = interface_flux_from_padded(up, axis, flux, order, variant)
         m = up.shape[axis] - 2 * r
         return (shifted(h, axis, 1, m) - shifted(h, axis, 0, m)) / dx
 
-    # ghosts only where the split schedule consumes them (the kernel
-    # path pads through padder below), as in the JAX package
-    if ghost_fn is not None and impl != "pallas":
-        ghosts = ghost_fn(u, axis, r)
-        if ghosts is not None:
-            return split_axis_apply(div_from_padded, u, axis, r, *ghosts)
-    up = padder(u, axis, r) if padder is not None else pad_axis(u, axis, r, bc)
-    if impl == "pallas":
-        from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
-            weno as kweno,
-        )
-
-        return kweno.flux_divergence_kernel(up, axis, dx, flux, variant,
-                                            order)
-    return div_from_padded(up)
+    if ghosts is not None:
+        div = split_axis_apply(div_from_padded, u, axis, r, *ghosts)
+    else:
+        div = div_from_padded(padder(u, axis, r) if padder is not None
+                              else pad_axis(u, axis, r, bc))
+    if acc is not None:
+        div = acc + div
+    return -div if negate else div

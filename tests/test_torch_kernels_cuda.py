@@ -38,6 +38,7 @@ from multigpu_advectiondiffusion_tpu_torch import (
     EnsembleSolver,
     Grid,
 )
+from multigpu_advectiondiffusion_tpu_torch.core.bc import Boundary
 from multigpu_advectiondiffusion_tpu_torch.ops import flux as pflux
 from multigpu_advectiondiffusion_tpu_torch.timestepping import cfl as pcfl
 from multigpu_advectiondiffusion_tpu_torch.ops.kernels import (
@@ -772,29 +773,58 @@ K12_CASES = {  # (flux, flux kwargs, variant, order)
 }
 
 
+K12_GHOSTS = {  # the ghost source: a boundary, or a halo exchange's slabs
+    "edge": Boundary("edge"),
+    "periodic": Boundary("periodic"),
+    "dirichlet": Boundary("dirichlet", 0.37),
+    "slabs": None,
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(K12_CASES))
 @pytest.mark.parametrize("shape,axis", [((23, 37), 0), ((23, 37), 1),
                                         ((23, 29, 37), 0), ((23, 29, 37), 1),
-                                        ((23, 29, 37), 2), ((5, 6, 70), 2)])
+                                        ((23, 29, 37), 2), ((5, 6, 70), 2),
+                                        ((9, 31, 40), 1), ((26, 40), 0)])
 def test_k12_matches_twin(gpu_axis, shape, axis, case):
+    """K12/K12b on unpadded arrays against their twin at 0 ulp: every
+    ghost source, the three stores, the planned chunk and forced ones
+    (1, 5, 13); along the last axis the planned segment and a short one
+    (8)."""
     name, kw, variant, order = K12_CASES[case]
-    padded = list(shape)
-    padded[axis] += 2 * kweno.HALO[order]
+    r = kweno.HALO[order]
     rng = np.random.default_rng(axis)
-    up = torch.from_numpy(rng.uniform(-0.1, 1.1, padded).astype(
+    u = torch.from_numpy(rng.uniform(-0.1, 1.1, shape).astype(
         np.float32)).to(gpu_axis)
+    acc0 = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(gpu_axis)
+    slab = list(shape)
+    slab[axis] = r
+    slabs = tuple(torch.from_numpy(rng.uniform(-0.1, 1.1, slab).astype(
+        np.float32)).to(gpu_axis) for _ in range(2))
     fx = pflux.get(name, **kw)
-    ref = kweno.flux_divergence_reference(up, axis, 0.05, fx, variant, order)
     fn = kweno.flux_divergence_2d if len(shape) == 2 else \
         kweno.flux_divergence_3d
-    for chunk in (1, 5, None):
-        before = fn.launches
-        out = fn(up, axis, 0.05, fx, variant, order, chunk=chunk)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
-        assert out.shape == ref.shape
-        assert _rel(out, ref) <= TOL
+    last = axis == len(shape) - 1
+    plans = [{}, {"chunk": 8}] if last else [{}, {"chunk": 1},
+                                             {"chunk": 5}, {"chunk": 13}]
+    for source, bc in K12_GHOSTS.items():
+        src = {"ghosts": slabs} if bc is None else {"bc": bc}
+        for store in ("div", "sum", "negated-sum"):
+            acc = None if store == "div" else acc0
+            ref = kweno.flux_divergence_axis_reference(
+                u, axis, 0.05, fx, variant, order, acc=acc,
+                negate=store == "negated-sum", **src)
+            for plan in plans:
+                before = fn.launches
+                out = fn(u, axis, 0.05, fx, variant, order,
+                         acc=None if acc is None else acc.clone(),
+                         negate=store == "negated-sum", **src, **plan)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                assert out.shape == ref.shape
+                assert torch.equal(out, ref), (source, store, plan)
 
 
 @pytest.mark.cuda

@@ -78,9 +78,14 @@ def _both(up, axis, name, variant, order):
     fn = kweno.flux_divergence_2d if up.ndim == 2 else \
         kweno.flux_divergence_3d
     launches = fn.launches
+    # the kernel's entry takes the interior and the two ghost slabs
+    t, r = torch.from_numpy(up), kweno.HALO[order]
+    n = t.shape[axis] - 2 * r
     got = kweno.flux_divergence_kernel(
-        torch.from_numpy(up), axis, DX, pflux.get(name, **FLUXES[name]),
-        variant, order)
+        t.narrow(axis, r, n).contiguous(), axis, DX,
+        pflux.get(name, **FLUXES[name]), variant, order,
+        ghosts=(t.narrow(axis, 0, r).contiguous(),
+                t.narrow(axis, n + r, r).contiguous()))
     assert fn.launches == launches  # the CPU runs the twin, no kernel
     assert got.shape == want.shape and got.dtype == torch.float32
     return got.numpy(), want
@@ -159,9 +164,9 @@ def test_weno7_buckley_smooth_against_float64(ndim, axis):
 
 
 def test_flux_divergence_dispatch():
-    """``impl="pallas"`` pads the sweep axis and runs the twin on the CPU;
-    what the kernel does not compute raises instead of running
-    something else."""
+    """``impl="pallas"`` runs the twin on the CPU, the sweep axis padded
+    by its boundary; what the kernel does not compute raises instead of
+    running something else."""
     rng = np.random.default_rng(4)
     u = torch.from_numpy(rng.standard_normal((8, 12, 10)).astype(np.float32))
     fx = pflux.burgers()
@@ -182,10 +187,13 @@ def test_flux_divergence_dispatch():
         pweno.flux_divergence(u.double(), 0, DX, fx, bc=bc, impl="pallas")
     with pytest.raises(ValueError, match="unknown WENO impl"):
         pweno.flux_divergence(u, 0, DX, fx, bc=bc, impl="mosaic")
-    with pytest.raises(ValueError, match="not padded"):
-        kweno.flux_divergence_3d(u[:, :, :5], 2, DX, fx)
+    with pytest.raises(ValueError, match="exactly one ghost source"):
+        kweno.flux_divergence_3d(u, 2, DX, fx)
+    with pytest.raises(ValueError, match="cannot wrap"):
+        kweno.flux_divergence_3d(u[:, :, :2], 2, DX, fx,
+                                 bc=Boundary("periodic"))
     with pytest.raises(ValueError, match="device"):
-        kweno.flux_divergence_3d(u.to("meta"), 0, DX, fx)
+        kweno.flux_divergence_3d(u.to("meta"), 0, DX, fx, bc=bc)
 
 
 # (ndim, order, variant, shape, port, jax): the port's kernel has no
@@ -239,6 +247,8 @@ RUNS = {
     "2d-weno7-viscous": ((32, 24), "pallas_axis",
                          {"weno_order": 7, "nu": 1e-5}),
     "2d-dirichlet": ((32, 24), "pallas", {"bc": "dirichlet"}),
+    "3d-dirichlet": ((24, 16, 16), "pallas", {"bc": "dirichlet"}),
+    "2d-periodic": ((32, 24), "pallas", {"bc": "periodic"}),
 }
 
 
