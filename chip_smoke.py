@@ -212,19 +212,22 @@ ignored ``build/`` directory), then:
    diffusion, WENO5-JS inviscid and WENO5-Z viscous; every stage kind
    and every band; the main shard's shape (200x400, a shard of 400^2 on
    ``dy = 2``) and an odd one (23x37); the first, a middle and the last
-   shard of ``dy = 4`` and a pencil's corner shard; times K8 and each
-   K8b band alone at the main shard's shape beside its bound and twin,
-   and ``conv2d`` computing the main shard's 2-D Laplacian;
+   shard of ``dy = 4`` and a pencil's corner shard; K8b's paired edge
+   bands (one launch) and the stepper's lean entry on its launch plans
+   likewise; times K8 and K8b's two launches of a split stage alone at
+   the main shard's shape and at 2048x4096 beside their bounds, the twin
+   and the host time a lean launch, and ``conv2d`` computing the main
+   shard's 2-D Laplacian;
 34. drives ``MultiGPU/Diffusion2d_Baseline`` on ``{"dy": 2}`` (400^2,
    lengths 2, K = 1, ``run(1000)``, both shards on ``cuda:0``): K8
-   serialized (6,000 launches) and K8b split (18,000), each 0 ulp from
+   serialized (6,000 launches) and K8b split (12,000), each 0 ulp from
    K7's unsharded ``run(1000)``, ``t`` equal, error norms against the
    exact heat kernel; ms/step over ``run(50)`` beside K7's, MLUPS, one
    exchange of both shards alone, the idle share of a profiled
    ``run(100)`` and the ``engaged_path()`` labels;
 35. drives ``MultiGPU/Burgers2d_Baseline`` on ``{"dy": 2}`` (400^2,
    lengths 2, WENO5-JS, inviscid, CFL 0.4): fixed dt ``run(200)`` on K8
-   (1,200 launches) and K8b split (3,600), 0 ulp from K7's unsharded
+   (1,200 launches) and K8b split (2,400), 0 ulp from K7's unsharded
    ``run(200)``; adaptive ``run(200)`` 0 ulp and ``t`` equal to K7a's,
    at most one device-to-host copy; the example's ``advance_to(0.4)``
    and ``advance_to(0.2)`` against the generic rung on the same mesh:
@@ -311,7 +314,8 @@ ignored ``build/`` directory), then:
    alone, timed, with its bound;
 50. holds K8 and K8b at order 7 (the shard padded by 4) against their
    twin to the bit at the main shard's shape and an odd one, every
-   stage kind and band, on four shards' positions; times each alone;
+   stage kind and band, the paired edge bands and the lean entry, on
+   four shards' positions; times each alone there and at 2048x4096;
    drives ``burgers2d_weno7`` on ``{"dy": 2}`` (K8 and the split
    schedule's K8b, fixed and adaptive dt) and on ``{"dy": 2, "dx":
    2}`` (fixed and adaptive), ``run(200)``, each 0 ulp and ``t`` equal
@@ -3853,6 +3857,9 @@ MESH2D_T_END = 0.4
 # shock (t ~ 0.37, phase 10's note); at t_end the gap is reported
 MESH2D_T_CHECK = 0.2
 K8_ODD = (23, 37)  # an odd shard interior (ly, lx)
+K8_LARGE = (2048, 4096)  # a shard of 4096^2 on dy=2, past K7's L2 gate
+# K8/K8b's kernels in a profile: the CELL and TILED bodies
+K8_KERNELS = "fused2d_"
 PENCIL_ITERS = 100
 PENCIL_TIME_ITERS = 25  # the pencil runs timed: run(25)
 
@@ -3894,107 +3901,221 @@ def k8_stage_ops(params, cells: int) -> int:
     return (6 + 2 * per_axis + 2 + viscous + 5) * cells
 
 
+def k8_twin(v, u, out, dt, offs, bands, ops, emit, **kw):
+    """The twin of one K8/K8b launch over ``bands`` (``(rows, operand)``
+    pairs; rows ``None``: the whole shard), the single-band twin calls in
+    the split schedule's order; returns the maximum folded from 0."""
+    m = 0.0
+    for rows, op in bands:
+        res = fsh.stage_reference(v, u, out, dt, offs, window=rows,
+                                  emit=emit, **({op: ops[op]} if op else {}),
+                                  **kw)
+        if emit:
+            m = max(m, float(res[1]))
+    return m
+
+
 def k8_check(family, params, shape, dt, rng) -> tuple[int, float]:
-    """K8 (every stage kind) and K8b (every band, stage 2) against their
-    twin on every shard of :func:`k8_shards`, 0 ulp, Burgers' emitted
+    """K8 (every stage kind) and K8b (each band of the split schedule and
+    both edge bands in one launch, stage 2) against their twin on every
+    shard of :func:`k8_shards`, then the stepper's lean entry on the
+    launch plans of every stage (the whole shard; the interior band and
+    the paired edge bands, the maximum folded), 0 ulp, Burgers' emitted
     maximum exact; returns the count of checks and the largest
     difference."""
     h = fsh.halo_of(params)
     ly, lx = shape
     padded = (ly + 2 * h, lx + 2 * h)
     burgers = family != "diffusion"
+    bands = fsh.split_bands(ly, h)
     n, err = 0, 0.0
+
+    def held(name, got, want, mx, m):
+        nonlocal n, err
+        torch.cuda.synchronize()
+        n_ulps = ulps(got, want)
+        err = max(err, float((got - want).abs().max()))
+        if n_ulps != 0 or (burgers and float(mx) != m):
+            raise AssertionError(
+                f"{name}: {n_ulps} ulp from its twin (max "
+                f"{float(mx) if burgers else None} vs {m})")
+        n += 1
+
     for shard, (offs, gshape) in k8_shards(shape).items():
         v, u, out0 = (random_on_card(padded, int(rng.integers(1 << 30)))
                       for _ in range(3))
-        calls = [("K8", (a, b), kind, None, None)
+        ops = {op: random_on_card((h, padded[1]), int(rng.integers(1 << 30)))
+               for op in ("lo", "hi")}
+        calls = [("K8", (a, b), kind, ((None, None),))
                  for kind, (a, b) in enumerate(fd.STAGES)]
-        calls += [("K8b", fd.STAGES[1], 1, rows, op)
-                  for rows, op in fsh.split_bands(ly, h)]
-        for kernel, (a, b), kind, rows, op in calls:
-            ops = {}
-            if op is not None:
-                ops[op] = random_on_card((h, padded[1]),
-                                         int(rng.integers(1 << 30)))
+        calls += [("K8b", fd.STAGES[1], 1, (band,)) for band in bands]
+        calls += [("K8b", fd.STAGES[1], 1, bands[1:])]
+        for kernel, (a, b), kind, chosen in calls:
             u_arg = None if kind == 0 else u
             kw = dict(params=params, a=a, b=b, global_shape=gshape)
-            ref = fsh.stage_reference(v, u_arg, out0.clone(), dt, offs,
-                                      window=rows, emit=burgers, **ops, **kw)
+            ref = out0.clone()
+            m = k8_twin(v, u_arg, ref, dt, offs, chosen, ops, burgers, **kw)
             got = out0.clone()
             mx = torch.zeros((), device="cuda") if burgers else None
             if kernel == "K8":
                 fsh.fused2d_stage(v, u_arg, got, dt, offs, mx=mx, **kw)
+            elif len(chosen) == 2:
+                fsh.fused2d_band_stage(v, u_arg, got, dt, offs,
+                                       rows=fsh.edge_bands(ly, h), mx=mx,
+                                       **ops, **kw)
             else:
+                (rows, op), = chosen
                 fsh.fused2d_band_stage(v, u_arg, got, dt, offs, rows=rows,
-                                       mx=mx, **ops, **kw)
-            torch.cuda.synchronize()
-            want = ref[0] if burgers else ref
-            n_ulps = ulps(got, want)
-            err = max(err, float((got - want).abs().max()))
-            if n_ulps != 0 or (burgers and float(mx) != float(ref[1])):
-                raise AssertionError(
-                    f"{kernel} {family} {shard} {shape} stage {kind + 1} "
-                    f"rows {rows}: {n_ulps} ulp from its twin (max "
-                    f"{float(mx) if burgers else None} vs "
-                    f"{float(ref[1]) if burgers else None})")
-            n += 1
+                                       mx=mx, **({op: ops[op]} if op else {}),
+                                       **kw)
+            held(f"{kernel} {family} {shard} {shape} stage {kind + 1} "
+                 f"bands {chosen}", got, ref, mx, m)
+        # the stepper's lean entry on its launch plans, every stage kind
+        got = out0.clone()
+        pk = dict(params=params, padded=padded, offsets=offs,
+                  global_shape=gshape, device=v.device,
+                  buffers=(v.data_ptr(), u.data_ptr(), got.data_ptr()))
+        for kind, (a, b) in enumerate(fd.STAGES):
+            u_arg = None if kind == 0 else u
+            kw = dict(params=params, a=a, b=b, global_shape=gshape)
+            mid = fsh.StagePlan(fsh.fused2d_band_stage, a=a, b=b,
+                                bands=bands[:1], **pk)
+            edges = fsh.StagePlan(fsh.fused2d_band_stage, a=a, b=b,
+                                  bands=bands[1:], **pk)
+            whole = fsh.StagePlan(fsh.fused2d_stage, a=a, b=b,
+                                  bands=(((0, ly), None),), **pk)
+            for plans in ((whole,), (mid, edges)):
+                got.copy_(out0)
+                ref = out0.clone()
+                chosen = tuple(bd for p in plans for bd in p.bands)
+                m = k8_twin(v, u_arg, ref, dt, offs, chosen, ops, burgers,
+                            **kw)
+                mx = torch.zeros((), device="cuda") if burgers else None
+                for i, plan in enumerate(plans):
+                    fsh.launch(plan, v, u_arg, got, dt, mx=mx, mx_init=i == 0,
+                               **({} if plan is not edges else ops))
+                held(f"the lean entry {family} {shard} {shape} stage "
+                     f"{kind + 1} plans {[p.bands for p in plans]}", got, ref,
+                     mx, m)
     return n, err
 
 
-def k8_timing(params, shape, dt, card) -> dict:
-    """K8 alone (stage 2) and each K8b band alone at the main shard's
-    shape, the first shard of ``dy = 2``, each launch on the next of
-    three buffer sets (the state is L2-resident in the main path too);
-    the twin; the bounds from this shape."""
+def k8_device_ms(launch, reps: int = 20) -> tuple[float, str]:
+    """A K8/K8b launch's device time (ms) alone: the mean of its kernel
+    over ``reps`` back-to-back launches in a profiled run, taken again
+    while the profiler drops some; the CUDA-event time of the launches
+    (then bound by the host) where it sees none."""
+    launch()
+    torch.cuda.synchronize()
+    prof = None
+    for _ in range(3):
+        prof = run_profile(lambda: [launch() for _ in range(reps)],
+                           K8_KERNELS)
+        if prof is not None and prof["launches"] == reps:
+            break
+    if prof is not None and prof["launches"] > 0:
+        return prof["kernel_ms"], "profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "CUDA events (host-bound)"
+
+
+def k8_timing(params, shape, dt, card, plain: bool = True) -> dict:
+    """K8 (stage 2) alone over a shard of ``shape`` (the first of ``dy =
+    2``) and K8b's two launches of a split stage (the interior band, then
+    both edge bands), each through the stepper's lean entry on its
+    launch plan, their device time beside the bounds of the same work;
+    the twin (``plain``); the host time a launch (``time.perf_counter``
+    over 1,000 lean launches without synchronisation, at the main
+    shard's shape)."""
     h = fsh.halo_of(params)
     ly, lx = shape
     padded = (ly + 2 * h, lx + 2 * h)
     gshape, offs = (2 * ly, lx), (0, 0)
-    burgers = isinstance(params, fb.StageParams)
-    sets = [[random_on_card(padded, 330 + 3 * i + j) for j in range(3)]
-            for i in range(3)]
+    v, u, out = (random_on_card(padded, 330 + j) for j in range(3))
+    ops = {op: random_on_card((h, padded[1]), 339 + i)
+           for i, op in enumerate(("lo", "hi"))}
+    pk = dict(params=params, a=0.75, b=0.25, padded=padded, offsets=offs,
+              global_shape=gshape, device=v.device,
+              buffers=(v.data_ptr(), u.data_ptr(), out.data_ptr()))
     kw = dict(params=params, a=0.75, b=0.25, global_shape=gshape)
-    ms = alone_ms(lambda s: fsh.fused2d_stage(s[0], s[1], s[2], dt, offs,
-                                              **kw), sets, 20)
-    plain = statistics.median(cuda_ms(lambda: fsh.stage_reference(
-        sets[0][0], sets[0][1], sets[0][2], dt, offs, **kw), 3))
-    in_elems = padded[0] * padded[1] + ly * lx
-    bound, by = kernel_bound(in_elems, ly * lx, k8_stage_ops(params, ly * lx))
-    bands = {}
-    for rows, op in fsh.split_bands(ly, h):
-        slab = random_on_card((h, padded[1]), 339)
-        ops = {op: slab} if op else {}
-        r = rows[1] - rows[0]
-        band_ms = alone_ms(
-            lambda s, rows=rows, ops=ops: fsh.fused2d_band_stage(
-                s[0], s[1], s[2], dt, offs, rows=rows, **ops, **kw),
-            sets, 20)
-        band_plain = statistics.median(cuda_ms(
-            lambda rows=rows, ops=ops: fsh.stage_reference(
-                sets[0][0], sets[0][1], sets[0][2], dt, offs, window=rows,
-                **ops, **kw), 3))
-        b_in = (r + 2 * h) * padded[1] + r * lx
-        b_bound, b_by = kernel_bound(b_in, r * lx,
-                                     k8_stage_ops(params, r * lx))
-        bands[op or "interior"] = {"rows": r, "ms": band_ms,
-                                   "plain_ms": band_plain,
-                                   "bound_ms": b_bound, "bound_by": b_by}
-    family = "burgers" if burgers else "diffusion"
-    print(f"  {family} at {shape}: K8 alone {ms:.4f} ms (twin {plain:.3f} "
-          f"ms, bound {bound:.5f} ms by {by}); K8b alone "
-          + ", ".join(f"{k} {v['ms']:.4f} ms ({v['rows']} rows)"
-                      for k, v in bands.items()) + f" [{card}]")
-    del sets
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "bands": bands}
+    bands = fsh.split_bands(ly, h)
+    launches = {
+        "K8": (fsh.StagePlan(fsh.fused2d_stage, bands=(((0, ly), None),),
+                             **pk), {}),
+        "interior": (fsh.StagePlan(fsh.fused2d_band_stage,
+                                   bands=bands[:1], **pk), {}),
+        "edges": (fsh.StagePlan(fsh.fused2d_band_stage, bands=bands[1:],
+                                **pk), ops)}
+    out_t = {}
+    for name, (plan, extra) in launches.items():
+        ms, how = k8_device_ms(
+            lambda plan=plan, extra=extra: fsh.launch(plan, v, u, out, dt,
+                                                      **extra))
+        rows = sum(r1 - r0 for (r0, r1), _ in plan.bands)
+        in_elems = (rows + 2 * h * len(plan.bands)) * padded[1] + rows * lx
+        bound, by = kernel_bound(in_elems, rows * lx,
+                                 k8_stage_ops(params, rows * lx))
+        twin = None
+        if plain:
+            twin = statistics.median(cuda_ms(lambda plan=plan: k8_twin(
+                v, u, out.clone(), dt, offs, plan.bands, ops, False, **kw),
+                1))
+        t = plan.tiles
+        # f32 operations the TILED body issues a cell (each split and face
+        # once a tile) against the face-once count k8_stage_ops takes
+        issued = (fsh.ops_issued(t, [b for b, _ in plan.bands], lx, params)
+                  / (rows * lx) if t["body"] == fsh.TILED else None)
+        out_t[name] = {"rows": rows, "ms": ms, "timed_by": how,
+                       "plain_ms": twin, "bound_ms": bound, "bound_by": by,
+                       "ops_issued_a_cell": issued,
+                       "plan": {k: t[k] for k in ("body", "tile", "my", "mx",
+                                                  "threads", "vec",
+                                                  "tiles")}}
+    host = None
+    if plain:
+        plan = launches["K8"][0]
+        fsh.launch(plan, v, u, out, dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fsh.launch(plan, v, u, out, dt)
+        host = (time.perf_counter() - t0) / 1000 * 1e3
+        torch.cuda.synchronize()
+    family = "diffusion" if isinstance(params, fsh.DiffusionParams) else (
+        f"burgers WENO{params.order}")
+    k8 = out_t.pop("K8")
+    issued = ("" if k8["ops_issued_a_cell"] is None else
+              f"; {k8['ops_issued_a_cell']:.1f} f32 operations issued a "
+              f"cell against {k8_stage_ops(params, 1)} each face once")
+    print(f"  {family} at {shape}: K8 alone {1e3 * k8['ms']:.2f} us "
+          f"({k8['timed_by']}; bound {1e3 * k8['bound_ms']:.2f} us by "
+          f"{k8['bound_by']}; plan {k8['plan']}{issued}); K8b alone "
+          + ", ".join(f"{k} {1e3 * b['ms']:.2f} us ({b['rows']} rows, "
+                      f"bound {1e3 * b['bound_ms']:.3f} us, "
+                      f"{'CELL' if b['plan']['body'] == fsh.CELL else 'TILED'}"
+                      f")" for k, b in out_t.items())
+          + ("" if host is None else
+             f"; host time a lean launch {1e3 * host:.2f} us")
+          + f" [{card}]")
+    del v, u, out
+    return {**k8, "bands": out_t, "host_ms": host}
 
 
 def k8_phase(card: str) -> dict:
     """Phase 33: K8 and K8b against their twins at the main shard's shape
     (200x400, a shard of 400^2 on dy=2) and an odd one, every stage kind,
-    every band, on the first, a middle and the last shard of dy=4 and a
-    pencil's corner; each timed alone beside its bound and twin, and
-    ``conv2d`` computing the 2-D Laplacian of the main shard."""
+    every band and both edge bands in one launch, on the first, a middle
+    and the last shard of dy=4 and a pencil's corner, and the stepper's
+    lean entry; each timed alone at the main shard's shape and at
+    2048x4096 (a shard of 4096^2 on dy=2) beside its bound, the twin and
+    the host time a launch; ``conv2d`` computing the 2-D Laplacian of the
+    main shard."""
     print("phase 33: K8 and K8b against their twins")
     grid = Grid.make(MESH2D_N, MESH2D_N, lengths=2.0)
     dt_d = np.float32(DiffusionSolver(DiffusionConfig(
@@ -4011,14 +4132,18 @@ def k8_phase(card: str) -> dict:
             n, err = k8_check(family, params, shape, dt, rng)
             errs[family] = max(errs.get(family, 0.0), err)
             print(f"  {family} at {shape}: K8 x3 stage kinds, K8b x3 "
-                  f"bands on 4 shards: {n} checks, 0 ulp, max|kernel - "
-                  f"twin| {err:.3e}")
+                  f"bands and the paired edge bands, the lean entry x3 "
+                  f"stage kinds x2 schedules, on 4 shards: {n} checks, 0 "
+                  f"ulp, max|kernel - twin| {err:.3e}")
         torch.cuda.empty_cache()
     fams = k8_families(grid.spacing)
-    timing = {"diffusion": k8_timing(fams["diffusion"], main_shape, dt_d,
-                                     card),
-              "burgers": k8_timing(fams["burgers-js"], main_shape, dt_b,
-                                   card)}
+    timing = {}
+    for family, key in (("diffusion", "diffusion"), ("burgers", "burgers-js")):
+        dt = dt_d if family == "diffusion" else dt_b
+        timing[family] = k8_timing(fams[key], main_shape, dt, card)
+        timing[family]["large"] = k8_timing(fams[key], K8_LARGE, dt, card,
+                                            plain=False)
+        torch.cuda.empty_cache()
     lib_ms = laplacian_conv2d_ms(grid.spacing, main_shape)
     print(f"  conv2d 9-point Laplacian of the main shard alone, TF32 off: "
           f"{lib_ms:.4f} ms [{card}] (computes less than one K8 stage)")
@@ -4053,7 +4178,7 @@ def mesh2d_profile(name, solver, state0, iters: int, kernel: str,
 def diffusion2d_mesh_phase(card: str) -> dict:
     """Phase 34: MultiGPU/Diffusion2d_Baseline on {"dy": 2} (cuda:0
     twice), run(1000), serialized (K8, 6,000 launches) and split (K8b,
-    18,000): each 0 ulp from K7's unsharded run(1000), ``t`` equal, the
+    12,000): each 0 ulp from K7's unsharded run(1000), ``t`` equal, the
     error norms against the exact heat kernel finite and at most twice
     the generic path's, as phase 9 holds them (on this grid the heat
     kernel is 0.08 at the walls, which the Dirichlet walls hold at 0, so
@@ -4075,9 +4200,9 @@ def diffusion2d_mesh_phase(card: str) -> dict:
     runs = {}
     for name, kw, expect, label, kernel in (
             ("K8 serialized", {}, {"K8": 6 * n},
-             ("fused-stage", "serialized-refresh", 1), "diffusion_kernel"),
-            ("K8b split", {"overlap": "split"}, {"K8b": 18 * n},
-             ("fused-stage", "split", 1), "diffusion_kernel")):
+             ("fused-stage", "serialized-refresh", 1), K8_KERNELS),
+            ("K8b split", {"overlap": "split"}, {"K8b": 12 * n},
+             ("fused-stage", "split", 1), K8_KERNELS)):
         solver = DiffusionSolver(dataclasses.replace(cfg, **kw), mesh=mesh)
         state0 = solver.initial_state()
         norms = {}
@@ -4110,7 +4235,7 @@ def diffusion2d_mesh_phase(card: str) -> dict:
 
 def burgers2d_mesh_phase(card: str) -> dict:
     """Phase 35: MultiGPU/Burgers2d_Baseline on {"dy": 2}: fixed dt
-    run(200) serialized (K8, 1,200 launches) and split (K8b, 3,600), 0
+    run(200) serialized (K8, 1,200 launches) and split (K8b, 2,400), 0
     ulp from K7's unsharded run(200); the example's advance_to(0.4)
     against the generic rung on the same mesh (the same steps and
     landing ``t``; ``u`` held to the JAX suite's bound at t = 0.2,
@@ -4127,7 +4252,7 @@ def burgers2d_mesh_phase(card: str) -> dict:
     for name, kw, expect, label in (
             ("K8 serialized", {}, {"K8": 6 * n},
              ("fused-stage", "serialized-refresh", 1)),
-            ("K8b split", {"overlap": "split"}, {"K8b": 18 * n},
+            ("K8b split", {"overlap": "split"}, {"K8b": 12 * n},
              ("fused-stage", "split", 1)),
             ("K8 adaptive", {"adaptive_dt": True}, {"K8": 6 * n},
              ("fused-stage", "serialized-refresh", 1))):
@@ -4140,7 +4265,7 @@ def burgers2d_mesh_phase(card: str) -> dict:
         r.update(launches=sum(expect.values()), engaged=list(label),
                  mlups=grid.num_cells * 3 / (r["ms_per_step"] * 1e-3) / 1e6,
                  exchange_ms=halo_ms(solver, state0))
-        r.update(mesh2d_profile(name, solver, state0, n, "burgers_kernel",
+        r.update(mesh2d_profile(name, solver, state0, n, K8_KERNELS,
                                 card))
         if name == "K8 adaptive":
             r["host_reads"] = count_reads(lambda: solver.run(state0, n))
@@ -4263,11 +4388,12 @@ def adr_mesh_phase(card: str) -> dict:
 
 def mesh2d_entries(k8: dict, diff: dict, burg: dict) -> list[dict]:
     """The kernels line's K8 and K8b entries, a family each: ``ms`` a
-    launch in the main path's profiled run (K8b: the mean over its three
-    bands' launches), else alone at the main shard's shape (launched
-    alone from Python, a launch is bound by the wrapper's host time:
-    ``ms_isolated``); launches from the main paths' runs (phases 34,
-    35)."""
+    launch in the main path's profiled run (K8b: the mean over its two
+    launches a stage), else alone at the main shard's shape
+    (``ms_isolated``, the device time of lean launches; K8b the mean of
+    its interior and paired edge launches); the same alone at 2048x4096
+    and the host time a lean launch; launches from the main paths' runs
+    (phases 34, 35)."""
     common = {"route": "cuda",
               "source": "multigpu_advectiondiffusion_tpu_torch/csrc/"
                         "fused2d_sharded.cu"}
@@ -4292,6 +4418,9 @@ def mesh2d_entries(k8: dict, diff: dict, burg: dict) -> list[dict]:
             "ms": serial.get("kernel_ms_in_run") or t["ms"],
             "ms_isolated": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], **lib_kw,
+            "plan": t["plan"], "host_ms_a_launch": t["host_ms"],
+            "large": {k: t["large"][k] for k in ("ms", "bound_ms",
+                                                 "bound_by", "plan")},
             "path": serial})
         out.append({
             **common, "id": "K8b", "name": f"fused2d_band_stage ({family})",
@@ -4304,7 +4433,8 @@ def mesh2d_entries(k8: dict, diff: dict, burg: dict) -> list[dict]:
             "plain_ms": statistics.mean(b["plain_ms"] for b in bands),
             "bound_ms": statistics.mean(b["bound_ms"] for b in bands),
             "bound_by": bands[0]["bound_by"], **lib_kw,
-            "bands": t["bands"], "path": split})
+            "bands": t["bands"], "large": t["large"]["bands"],
+            "path": split})
     return out
 
 # --------------------------------------------------------------------- #
@@ -5370,6 +5500,7 @@ def mesh2d_w7_phase(card: str) -> dict:
     print(f"  K8/K8b WENO7: {checks} checks, 0 ulp, max|kernel - twin| "
           f"{err:.3e}")
     timing = k8_timing(params, main_shape, dt, card)
+    timing["large"] = k8_timing(params, K8_LARGE, dt, card, plain=False)
     torch.cuda.empty_cache()
 
     print(f"phase 50: burgers2d_weno7 on {{'dy': 2}} and {{'dy': 2, 'dx': "
@@ -5384,11 +5515,11 @@ def mesh2d_w7_phase(card: str) -> dict:
             ("K8 fixed", {}, (dy2_mesh(), None), {"K8": 6 * n},
              ("fused-stage", "serialized-refresh", 1)),
             ("K8b fixed split", {"overlap": "split"}, (dy2_mesh(), None),
-             {"K8b": 18 * n}, ("fused-stage", "split", 1)),
+             {"K8b": 12 * n}, ("fused-stage", "split", 1)),
             ("K8 adaptive", {"adaptive_dt": True}, (dy2_mesh(), None),
              {"K8": 6 * n}, ("fused-stage", "serialized-refresh", 1)),
             ("K8b adaptive split", {"adaptive_dt": True, "overlap": "split"},
-             (dy2_mesh(), None), {"K8b": 18 * n}, ("fused-stage", "split",
+             (dy2_mesh(), None), {"K8b": 12 * n}, ("fused-stage", "split",
                                                    1)),
             ("pencil fixed", {}, pencil, {"K8": 12 * n},
              ("fused-stage", "serialized-refresh", 1)),
@@ -5403,7 +5534,7 @@ def mesh2d_w7_phase(card: str) -> dict:
         r["launches"] = sum(expect.values())
         if name in ("K8 fixed", "K8b fixed split"):
             r.update(mesh2d_profile(f"WENO7 {name}", solver, state0, n,
-                                    "burgers_kernel", card))
+                                    K8_KERNELS, card))
         if "adaptive" in name and "pencil" not in name:
             r["host_reads"] = count_reads(lambda: solver.run(state0, n))
             print(f"  WENO7 {name}: host reads of device scalars "
@@ -5488,7 +5619,10 @@ def weno7_mesh_phases(card: str) -> list[dict]:
         "ms": m2d["paths"]["K8 fixed"]["kernel_ms_in_run"] or t["ms"],
         "ms_isolated": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], **none,
+        "bound_by": t["bound_by"], **none, "plan": t["plan"],
+        "host_ms_a_launch": t["host_ms"],
+        "large": {k: t["large"][k] for k in ("ms", "bound_ms", "bound_by",
+                                             "plan")},
         "paths": {k: v for k, v in m2d["paths"].items()
                   if not k.startswith("K8b")},
     }, {
@@ -5503,6 +5637,7 @@ def weno7_mesh_phases(card: str) -> list[dict]:
         "plain_ms": statistics.mean(b["plain_ms"] for b in bands),
         "bound_ms": statistics.mean(b["bound_ms"] for b in bands),
         "bound_by": bands[0]["bound_by"], **none, "bands": t["bands"],
+        "large": t["large"]["bands"],
         "paths": {k: v for k, v in m2d["paths"].items()
                   if k.startswith("K8b")},
     }]

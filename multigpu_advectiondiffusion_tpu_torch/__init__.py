@@ -39,8 +39,9 @@ Hopper (ids as in PERF.md's kernel table):
   shard-local on z slabs with global offsets, the slab rung as K3,
   one launch over an output window a step (``csrc/fused_step_diffusion.cu``,
   ``csrc/slab_run_burgers.cu``), on 2-D meshes a launch a stage and
-  shard (K8, or K8b's three bands under the split schedule,
-  ``csrc/fused2d_sharded.cu``), and ADR's K9 shard-local with global
+  shard (K8, or K8b's interior band and both edge bands, two launches,
+  under the split schedule, ``csrc/fused2d_sharded.cu``), and ADR's K9
+  shard-local with global
   walls and ``K(x)``. ``make_mesh({"dz": 2}, devices=[...])`` may name
   one device twice (two shards on one card, or CPU shards).
 

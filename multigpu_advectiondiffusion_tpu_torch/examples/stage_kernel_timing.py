@@ -25,7 +25,15 @@ chip_smoke.py times over 20 steps (40 for ADR) since it outgrew its
 time; K5's y/x-sharded instance (``--paths yx``) runs the
 512^3 adaptive Burgers path on ``{"dy": 2}`` and on the block ``{"dz":
 2, "dy": 2, "dx": 2}`` and the 400x400x406 fixed-dt one on ``{"dy":
-2}`` and ``{"dz": 2, "dy": 2}``, every shard on ``cuda:0``. For each
+2}`` and ``{"dz": 2, "dy": 2}``, every shard on ``cuda:0``. The 2-D
+mesh paths (``--paths mesh2d``: K8 and K8b, every shard on ``cuda:0``)
+are MultiGPU/Diffusion2d_Baseline and MultiGPU/Burgers2d_Baseline at
+400^2 on ``{"dy": 2}``, serialized (K8) and split (K8b), Burgers at fixed
+and adaptive dt, ``burgers2d_weno7`` (408x400) on ``{"dy": 2}`` both
+ways, and both 400^2 families on the pencil ``{"dy": 2, "dx": 2}``, each
+over ``run(200)``; their kernel time a launch is the mean over every K8
+or K8b launch of the run (the split schedule's count differs between
+checkouts). For each
 path it prints ms/step, the median of 3
 CUDA-event samples of ``run`` after a warm-up (``--reps``), and, where the profiler
 sees every launch (not the cooperative ones), the kernel's mean device
@@ -77,6 +85,8 @@ ENS_N = (256, 128, 64)  # bench.py's diffusion ensemble row
 ENS_LENGTHS = (6.4, 3.2, 1.6)
 ENS_MEMBERS = 64
 ENS_ITERS = 60
+W7_2D_N = (400, 408)  # bench/matrix.py's burgers2d_weno7 (physical nx, ny)
+MESH2D_ITERS = 200
 
 
 def card_line() -> str:
@@ -134,6 +144,8 @@ def per_launch_ms(solver, state0, iters: int, kernel: str,
             "device_work_per_step": sum(work.values()) / iters,
             "device_work_by_name": {k: v / iters
                                     for k, v in work.most_common()}}
+    if launches is None:  # any count: the mean over every launch
+        return {**seen, "mean_ms": statistics.mean(times)}
     if len(times) != launches:
         return seen
     if launches != 3 * iters:
@@ -340,6 +352,39 @@ def main() -> int:
          "yx", K6_ITERS, lambda: BurgersSolver(baseline, **yx_mesh(*dzdy)),
          "stage_kernel", 12 * K6_ITERS),
     )
+    dy2_2d = ({"dy": 2}, {0: "dy"})
+    pencil = ({"dy": 2, "dx": 2}, {0: "dy", 1: "dx"})
+    diffusion2d = DiffusionConfig(
+        grid=Grid.make(BURGERS2D_N, BURGERS2D_N, lengths=2.0),
+        diffusivity=1.0, dtype="float32", impl="pallas")
+    weno7 = BurgersConfig(grid=Grid.make(*W7_2D_N, lengths=2.0),
+                          weno_order=7, adaptive_dt=False, dtype="float32",
+                          impl="pallas")
+    fixed2d = dataclasses.replace(burgers2d, adaptive_dt=False)
+    split = {"overlap": "split"}
+    # (name, config, layout): every K8/K8b kernel of the run is timed
+    mesh2d = (
+        ("K8 diffusion 400^2 on {dy: 2}", diffusion2d, dy2_2d),
+        ("K8b diffusion 400^2 on {dy: 2}, split",
+         dataclasses.replace(diffusion2d, **split), dy2_2d),
+        ("K8 Burgers 400^2 fixed dt on {dy: 2}", fixed2d, dy2_2d),
+        ("K8b Burgers 400^2 fixed dt on {dy: 2}, split",
+         dataclasses.replace(fixed2d, **split), dy2_2d),
+        ("K8 Burgers 400^2 adaptive on {dy: 2}", burgers2d, dy2_2d),
+        ("K8 Burgers WENO7 408x400 fixed dt on {dy: 2}", weno7, dy2_2d),
+        ("K8b Burgers WENO7 408x400 fixed dt on {dy: 2}, split",
+         dataclasses.replace(weno7, **split), dy2_2d),
+        ("K8 diffusion 400^2 on {dy: 2, dx: 2}", diffusion2d, pencil),
+        ("K8 Burgers 400^2 fixed dt on {dy: 2, dx: 2}", fixed2d, pencil),
+    )
+    paths = paths + tuple(
+        (name, "mesh2d", MESH2D_ITERS,
+         (lambda cfg=cfg, lay=lay: (
+             DiffusionSolver if isinstance(cfg, DiffusionConfig)
+             else BurgersSolver)(cfg, **yx_mesh(*lay))),
+         "diffusion_" if isinstance(cfg, DiffusionConfig) else "burgers_",
+         None)
+        for name, cfg, lay in mesh2d)
     result = {"label": args.label, "card": card, "paths": {}}
     for name, group, iters, make, kernel, launches in paths:
         wanted = [w for w in args.paths.split(",") if w]

@@ -32,7 +32,7 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   adaptive), WENO5-JS/Z and WENO7-JS, as every fused flavor runs the
   whole-run stepper in 2-D in the JAX package; on a mesh the per-stage
   stepper
-  of :mod:`ops.kernels.fused2d_sharded` (K8, or K8b's three bands a
+  of :mod:`ops.kernels.fused2d_sharded` (K8, or K8b's two launches a
   stage under ``overlap="split"``), both dt modes, with ``run_to``;
 * 3-D ``"pallas_step"`` — K5, as ``"pallas"`` (Burgers has no
   whole-step kernel; the JAX package dispatches the flavor the same

@@ -25,7 +25,7 @@ Kernel rungs (``impl``), each a hand-written CUDA kernel:
   per ``run`` (:mod:`ops.kernels.fused_diffusion2d`, K7), as every fused
   flavor runs the whole-run stepper in 2-D in the JAX package; on a
   mesh the per-stage stepper of :mod:`ops.kernels.fused2d_sharded` (K8,
-  or K8b's three bands a stage under ``overlap="split"``), but
+  or K8b's two launches a stage under ``overlap="split"``), but
   ``"pallas_step"``, which declines there as in 3-D;
 * ``"pallas_axis"``, and every kernel flavor whose fused rung declines
   the config — the generic loop with the per-axis stencil kernel
